@@ -1,0 +1,139 @@
+"""DiT backbone (port of `eraxvif5tts_tpu/models/dit.py`).
+
+Kept from the JAX package: classifier-free guidance runs the cond and uncond
+branches as one call on a doubled batch (``drop_audio_cond`` / ``drop_text``
+are per-sample bool tensors), and the text embedding is a separate method
+(:meth:`DiT.embed_text`) so the sampler computes it once before the Euler
+loop and calls :meth:`DiT.run` at every step.
+
+The port builds the ``F5TTS_v1`` family: rotary on every head (fused into the
+attention kernel), no qk-norm, no long skip. Other architecture options of
+the JAX package raise here until they are ported.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from eraxvif5tts_tpu.configs import ArchConfig
+from eraxvif5tts_tpu_torch.models.modules import (
+    AdaLayerNormFinal,
+    ConvNeXtV2Block,
+    ConvPositionEmbedding,
+    DiTBlock,
+    TimestepEmbedding,
+    linear,
+)
+from eraxvif5tts_tpu_torch.ops.rotary import abs_pos_embedding_table, rotary_freqs
+
+MAX_POS = 4096  # sequence cap, as in the JAX package
+
+
+class TextEmbedding(nn.Module):
+    """Char-id embedding + absolute sin position + ConvNeXtV2 stack with the
+    filler positions masked (`dit.py:36-87`, ``text_mask_padding``). ``text``
+    ids are -1 padded; +1 makes 0 the filler."""
+
+    def __init__(self, text_num_embeds: int, text_dim: int, conv_layers: int = 0,
+                 conv_mult: int = 2):
+        super().__init__()
+        self.text_embed = nn.Embedding(text_num_embeds + 1, text_dim)
+        self.text_blocks = nn.ModuleList(
+            [ConvNeXtV2Block(text_dim, text_dim * conv_mult) for _ in range(conv_layers)])
+        self.register_buffer(
+            "freqs_cis", torch.from_numpy(abs_pos_embedding_table(text_dim, MAX_POS)),
+            persistent=False)
+
+    def forward(self, text: torch.Tensor, seq_len: int,
+                drop_text: torch.Tensor) -> torch.Tensor:
+        text = (text + 1)[:, :seq_len]
+        text = F.pad(text, (0, seq_len - text.shape[1]))
+        # the filler mask is taken BEFORE the CFG drop (`dit.py:57-65`)
+        filler = text == 0
+        text = torch.where(drop_text[:, None], torch.zeros_like(text), text)
+        embed = self.text_embed(text)
+        if len(self.text_blocks):
+            embed = embed + self.freqs_cis[:seq_len].to(embed.dtype)[None]
+            embed = embed.masked_fill(filler[..., None], 0.0)
+            for block in self.text_blocks:
+                embed = block(embed).masked_fill(filler[..., None], 0.0)
+        return embed
+
+
+class InputEmbedding(nn.Module):
+    """Linear(cat(x, cond, text)) + conv position embedding (`dit.py:90-113`)."""
+
+    def __init__(self, mel_dim: int, text_dim: int, out_dim: int):
+        super().__init__()
+        self.proj = nn.Linear(mel_dim * 2 + text_dim, out_dim)
+        self.conv_pos_embed = ConvPositionEmbedding(out_dim)
+
+    def forward(self, x: torch.Tensor, cond: torch.Tensor, text_embed: torch.Tensor,
+                drop_audio_cond: torch.Tensor, mask: torch.Tensor | None = None):
+        cond = cond.masked_fill(drop_audio_cond[:, None, None], 0.0)
+        x = linear(torch.cat([x, cond, text_embed], dim=-1), self.proj)
+        return self.conv_pos_embed(x, mask=mask) + x
+
+
+class DiT(nn.Module):
+    """Flow-prediction DiT: ``(x, cond, text, t) -> flow [b, n, mel]``
+    (`dit.py:116-280`). The compute dtype is the parameters' dtype."""
+
+    def __init__(self, arch: ArchConfig, text_num_embeds: int = 256, mel_dim: int = 100):
+        super().__init__()
+        unported = {"qk_norm": arch.qk_norm is not None,
+                    "pe_attn_head": arch.pe_attn_head is not None,
+                    "long_skip_connection": arch.long_skip_connection,
+                    "text_mask_padding=False": not arch.text_mask_padding,
+                    "quantized": arch.quantized}
+        if any(unported.values()):
+            raise ValueError("DiT options not ported yet: "
+                             + ", ".join(k for k, v in unported.items() if v))
+        self.arch = arch
+        self.mel_dim = mel_dim
+        text_dim = arch.text_dim if arch.text_dim is not None else mel_dim
+        self.time_embed = TimestepEmbedding(arch.dim)
+        self.text_embed = TextEmbedding(text_num_embeds, text_dim,
+                                        conv_layers=arch.conv_layers)
+        self.input_embed = InputEmbedding(mel_dim, text_dim, arch.dim)
+        self.transformer_blocks = nn.ModuleList(
+            [DiTBlock(arch.dim, arch.heads, arch.dim_head, arch.ff_mult)
+             for _ in range(arch.depth)])
+        self.norm_out = AdaLayerNormFinal(arch.dim)
+        self.proj_out = nn.Linear(arch.dim, mel_dim)
+        self._rope: dict[tuple[int, torch.device], torch.Tensor] = {}
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.proj_out.weight.dtype
+
+    def rope(self, seq_len: int, device: torch.device) -> torch.Tensor:
+        """Rotary angles ``[seq_len, dim_head]`` fp32, kept per bucket so the
+        Euler loop never copies them from the host."""
+        key = (seq_len, torch.device(device))
+        if key not in self._rope:
+            self._rope[key] = rotary_freqs(seq_len, self.arch.dim_head, device=device)
+        return self._rope[key]
+
+    def embed_text(self, text: torch.Tensor, seq_len: int,
+                   drop_text: torch.Tensor) -> torch.Tensor:
+        """Text embedding at ``seq_len`` frames, computed once per sample call."""
+        return self.text_embed(text, seq_len, drop_text)
+
+    def run(self, x: torch.Tensor, cond: torch.Tensor, text_embed: torch.Tensor,
+            time: torch.Tensor, drop_audio_cond: torch.Tensor,
+            mask: torch.Tensor | None = None) -> torch.Tensor:
+        """Forward from a precomputed text embedding (the Euler-loop hot path)."""
+        batch, seq_len = x.shape[0], x.shape[1]
+        if time.ndim == 0:
+            time = time.expand(batch)
+        x, cond, text_embed = (t.to(self.dtype) for t in (x, cond, text_embed))
+        t = self.time_embed(time)
+        h = self.input_embed(x, cond, text_embed, drop_audio_cond, mask=mask)
+        rope = self.rope(seq_len, x.device)
+        for block in self.transformer_blocks:
+            h = block(h, t, mask, rope)
+        h = self.norm_out(h, t)
+        return linear(h, self.proj_out).float()

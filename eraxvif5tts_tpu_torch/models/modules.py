@@ -1,0 +1,236 @@
+"""DiT building blocks (port of `eraxvif5tts_tpu/models/modules.py`).
+
+Parameter names follow the reference torch checkpoint schema
+(`eraxvif5tts_tpu/compression/convert.py` ``dit_rules``), so a reference
+state dict loads with ``load_state_dict(strict=True)``.
+
+Conventions, as in the JAX package:
+
+- sequence tensors are ``[b, n, d]``; boolean masks mark VALID positions and
+  are contiguous prefixes (``lens_to_mask``);
+- the compute dtype is the dtype of the input; parameters are cast to it at
+  use (a no-op for the backbone, whose parameters the wrapper holds in the
+  compute dtype; the vocoder keeps fp32 parameters);
+- layernorm statistics are fp32.
+
+The serving path's two kernels are reached from here: :class:`Attention`
+calls the masked, rotary-fused attention and :class:`FeedForward` the
+AdaLN-modulated input projection. The JAX package's grouped-convolution tap
+loop (a TPU speed trick) is a plain ``F.conv1d(groups=16)`` here.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from eraxvif5tts_tpu_torch.ops.attention import dot_product_attention
+from eraxvif5tts_tpu_torch.ops.fused_matmul import ln_mod_matmul
+
+
+def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
+    """``layer(x)`` computed in x's dtype."""
+    bias = layer.bias.to(x.dtype) if layer.bias is not None else None
+    return F.linear(x, layer.weight.to(x.dtype), bias)
+
+
+def conv1d(x: torch.Tensor, layer: nn.Conv1d) -> torch.Tensor:
+    """``layer(x)`` over ``x [b, c, n]`` computed in x's dtype."""
+    return F.conv1d(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype),
+                    stride=layer.stride, padding=layer.padding,
+                    dilation=layer.dilation, groups=layer.groups)
+
+
+def layer_norm(x: torch.Tensor, layer: nn.LayerNorm | None = None) -> torch.Tensor:
+    """Layernorm over the last axis in fp32 (eps 1e-6), returned in x's dtype;
+    scale-free when ``layer`` is None."""
+    weight = layer.weight.float() if layer is not None else None
+    bias = layer.bias.float() if layer is not None else None
+    return F.layer_norm(x.float(), x.shape[-1:], weight, bias, 1e-6).to(x.dtype)
+
+
+class SinusPositionEmbedding(nn.Module):
+    """Sinusoidal embedding, scale 1000, fp32 (`modules.py:32-44`)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.dim = dim
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        half = self.dim // 2
+        freqs = torch.exp(torch.arange(half, dtype=torch.float32, device=x.device)
+                          * -(math.log(10000.0) / (half - 1)))
+        args = 1000.0 * x[:, None].float() * freqs[None, :]
+        return torch.cat([args.sin(), args.cos()], dim=-1)
+
+
+class TimestepEmbedding(nn.Module):
+    """Sinus embedding -> Linear -> SiLU -> Linear (`modules.py:47-59`)."""
+
+    def __init__(self, dim: int, freq_embed_dim: int = 256):
+        super().__init__()
+        self.sinus = SinusPositionEmbedding(freq_embed_dim)
+        self.time_mlp = nn.Sequential(nn.Linear(freq_embed_dim, dim), nn.SiLU(),
+                                      nn.Linear(dim, dim))
+
+    def forward(self, timestep: torch.Tensor) -> torch.Tensor:
+        hidden = self.sinus(timestep).to(self.time_mlp[0].weight.dtype)
+        return self.time_mlp(hidden)
+
+
+class GRN(nn.Module):
+    """Global response normalisation over the sequence axis (`modules.py:62-73`)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.zeros(1, 1, dim))
+        self.beta = nn.Parameter(torch.zeros(1, 1, dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        gx = torch.sqrt(torch.sum(x * x, dim=1, keepdim=True))
+        nx = gx / (gx.mean(dim=-1, keepdim=True) + 1e-6)
+        return self.gamma.to(x.dtype) * (x * nx) + self.beta.to(x.dtype) + x
+
+
+class ConvNeXtV2Block(nn.Module):
+    """Depthwise conv7 -> LN -> Linear -> GELU -> GRN -> Linear, residual
+    (`modules.py:93-119`)."""
+
+    def __init__(self, dim: int, intermediate_dim: int):
+        super().__init__()
+        self.dwconv = nn.Conv1d(dim, dim, 7, padding=3, groups=dim)
+        self.norm = nn.LayerNorm(dim, eps=1e-6)
+        self.pwconv1 = nn.Linear(dim, intermediate_dim)
+        self.grn = GRN(intermediate_dim)
+        self.pwconv2 = nn.Linear(intermediate_dim, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        residual = x
+        x = conv1d(x.transpose(1, 2), self.dwconv).transpose(1, 2)
+        x = layer_norm(x, self.norm)
+        x = F.gelu(linear(x, self.pwconv1))
+        x = self.grn(x)
+        return residual + linear(x, self.pwconv2)
+
+
+class ConvPositionEmbedding(nn.Module):
+    """Two grouped conv1d (k=31, groups=16) + Mish, masked before and after
+    (`modules.py:157-180`)."""
+
+    def __init__(self, dim: int, kernel_size: int = 31, groups: int = 16):
+        super().__init__()
+        self.conv1d = nn.Sequential(
+            nn.Conv1d(dim, dim, kernel_size, groups=groups, padding=kernel_size // 2),
+            nn.Mish(),
+            nn.Conv1d(dim, dim, kernel_size, groups=groups, padding=kernel_size // 2),
+            nn.Mish(),
+        )
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+        if mask is not None:
+            x = x.masked_fill(~mask[..., None], 0.0)
+        h = x.transpose(1, 2)
+        h = F.mish(conv1d(h, self.conv1d[0]))
+        h = F.mish(conv1d(h, self.conv1d[2]))
+        x = h.transpose(1, 2)
+        if mask is not None:
+            x = x.masked_fill(~mask[..., None], 0.0)
+        return x
+
+
+class AdaLayerNorm(nn.Module):
+    """AdaLN-zero: SiLU -> Linear -> 6-way modulation (`modules.py:197-219`).
+    Returns the modulated attention input and (gate_msa, shift_mlp,
+    scale_mlp, gate_mlp)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.linear = nn.Linear(dim, dim * 6)
+
+    def forward(self, x: torch.Tensor, emb: torch.Tensor):
+        mod = self.linear(F.silu(emb))
+        shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mod.chunk(6, dim=-1)
+        out = layer_norm(x) * (1 + scale_msa[:, None]) + shift_msa[:, None]
+        return out, gate_msa, shift_mlp, scale_mlp, gate_mlp
+
+
+class AdaLayerNormFinal(nn.Module):
+    """Final AdaLN, chunk order (scale, shift) (`modules.py:240-260`)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.linear = nn.Linear(dim, dim * 2)
+
+    def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+        scale, shift = self.linear(F.silu(emb)).chunk(2, dim=-1)
+        return layer_norm(x) * (1 + scale[:, None]) + shift[:, None]
+
+
+class FeedForward(nn.Module):
+    """AdaLN layernorm + modulate + Linear + tanh-GELU in one kernel
+    (`ln_mod_matmul`), then the output Linear (`modules.py:273-307`, the
+    fused serving branch). Keys ``ff.0.0`` / ``ff.2`` as in the reference."""
+
+    def __init__(self, dim: int, mult: int = 4):
+        super().__init__()
+        inner = int(dim * mult)
+        self.ff = nn.Sequential(
+            nn.Sequential(nn.Linear(dim, inner), nn.GELU(approximate="tanh")),
+            nn.Dropout(0.0),
+            nn.Linear(inner, dim),
+        )
+
+    def forward(self, x: torch.Tensor, scale: torch.Tensor,
+                shift: torch.Tensor) -> torch.Tensor:
+        project_in = self.ff[0][0]
+        h = ln_mod_matmul(x, scale.contiguous(), shift.contiguous(),
+                          project_in.weight, project_in.bias, activation="gelu_tanh")
+        return linear(h, self.ff[2])
+
+
+class Attention(nn.Module):
+    """Self-attention with rotary on every head, fused into the attention
+    kernel, and padded query rows zeroed after the output projection
+    (`modules.py:332-434`). ``mask [b, n]`` must be a contiguous prefix."""
+
+    def __init__(self, dim: int, heads: int = 8, dim_head: int = 64):
+        super().__init__()
+        inner = heads * dim_head
+        self.heads, self.dim_head = heads, dim_head
+        self.to_q = nn.Linear(dim, inner)
+        self.to_k = nn.Linear(dim, inner)
+        self.to_v = nn.Linear(dim, inner)
+        self.to_out = nn.ModuleList([nn.Linear(inner, dim), nn.Dropout(0.0)])
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None,
+                rope: torch.Tensor | None = None) -> torch.Tensor:
+        b, n, _ = x.shape
+        shape = (b, n, self.heads, self.dim_head)
+        q = linear(x, self.to_q).view(shape)
+        k = linear(x, self.to_k).view(shape)
+        v = linear(x, self.to_v).view(shape)
+        out = dot_product_attention(q, k, v, key_valid=mask, rope=rope)
+        out = linear(out.reshape(b, n, -1), self.to_out[0])
+        if mask is not None:
+            out = out.masked_fill(~mask[..., None], 0.0)
+        return out
+
+
+class DiTBlock(nn.Module):
+    """AdaLN-zero pre-norm attention + gated feed-forward (`modules.py:437-501`)."""
+
+    def __init__(self, dim: int, heads: int, dim_head: int, ff_mult: int = 4):
+        super().__init__()
+        self.attn_norm = AdaLayerNorm(dim)
+        self.attn = Attention(dim, heads=heads, dim_head=dim_head)
+        self.ff = FeedForward(dim, mult=ff_mult)
+
+    def forward(self, x: torch.Tensor, t: torch.Tensor,
+                mask: torch.Tensor | None = None,
+                rope: torch.Tensor | None = None) -> torch.Tensor:
+        norm, gate_msa, shift_mlp, scale_mlp, gate_mlp = self.attn_norm(x, t)
+        x = x + gate_msa[:, None] * self.attn(norm, mask=mask, rope=rope)
+        return x + gate_mlp[:, None] * self.ff(x, scale_mlp, shift_mlp)
