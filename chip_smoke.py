@@ -9,7 +9,11 @@ Phases (any failure raises and the script exits non-zero):
 2. build   -- build the CUDA kernels from `eraxvif5tts_tpu_torch/csrc/` with
               nvcc and print the build time and ptxas' resource report;
 3. kernels -- each kernel against its plain PyTorch version on the card at the
-              serving shapes, with its tolerance and median CUDA-event times;
+              serving and training shapes, with its tolerance and median
+              CUDA-event times (the training attention forward and both
+              backward kernels against the plain version's autograd, also
+              at the train phase's 9 x 4096 shape, each limit checked
+              against a wrong-seed control);
 4. main    -- `F5TTSWrapper` at F5TTS_v1_Base width (dim 1024, depth 22,
               16 x 64 heads) in bf16 from seeded random weights: the DiT with
               its kernels against the same DiT with the plain versions, then
@@ -17,20 +21,31 @@ Phases (any failure raises and the script exits non-zero):
               texts at NFE 32, with the launch counters checked per chunk and
               the realtime factor printed;
 5. server  -- the socket server on a free localhost port answers three
-              requests and shuts down.
+              requests and shuts down;
+6. train   -- CFM training of F5TTS_v1_Base at full width (fp32 parameters,
+              bf16 compute, dropout 0.1, seeded random weights): one
+              `CFM.loss` forward and backward with the kernels against the
+              plain attention (and a wrong-mask control), then `Trainer.train_step` on the single-chip
+              reference batch (9 x 4096 frames, blocks checkpointed) for three
+              steps at dropout 0.1 and one at dropout 0, with the launch
+              counters checked per step, and a checkpoint save / restore.
 
-The line before the last is a JSON object with each kernel's launches in the
-main phase, error and times; the last line is the device summary.
+The line before the last is a JSON object with each kernel's launches in its
+path's phase (serving kernels: main; training kernels: train), error and
+times; the last line is the device summary.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import socket
 import statistics
 import string
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import tomllib
@@ -42,6 +57,17 @@ NFE = 32
 WEIGHT_STD = 0.02
 TOL = 1.6e-2  # |kernel - plain| <= TOL * (1 + |plain|): a few bf16 ulps
 DIT_TOL = 5e-2  # whole-DiT relative error, bf16 through 22 blocks
+# Limits near the geometric mean of the error measured on an H100 and a
+# control's distance (the plain version with a wrong dropout seed, or with
+# wrong attention-dropout keys), which each run checks to exceed the limit:
+ATTN_REL_TOL = 3e-2  # kernel 4's output and gradients, relative L2: <= 3.2e-3 vs >= 0.44
+LOSS_TOL = 8e-6  # CFM.loss, kernels vs plain attention, relative: 5.0e-6 vs 1.3e-5
+GRAD_TOL = 3.4e-3  # its flattened gradient, relative L2: 2.55e-3 vs 4.5e-3
+QKV_GRAD_TOL = 7e-3  # the q / k / v projections' gradient, relative L2: 2.7e-3 vs 1.9e-2
+VOCAB_CHARS = " " + string.ascii_letters + string.digits + string.punctuation
+TRAIN_BATCH = (9, 4096)  # the single-chip reference batch: 36,864 of 38,400 frames
+TRAIN_FRAME_BUDGET = 38400  # frames per chip, `configs` DatasetConfig.batch_size_per_gpu
+TRAIN_TEXT = 512  # the text bucket the batch is padded to
 TEXTS = (
     "Tonight the sea was calm, and the lamp turned steadily.",
     "Not a single ship passed the point. Tomorrow the supply boat arrives, "
@@ -156,8 +182,149 @@ def phase_kernels(dev) -> dict:
             f"{err:.3g} (tol {TOL} * (1 + |plain|)); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
     results["ln_mod_matmul"] = dict(max_abs_err=err_max, ms=times[1088][0],
                                     plain_ms=times[1088][1])
-    log("[kernels] the JSON line's ms / plain_ms are the n = M = 1088 bucket's")
+    log("[kernels] the JSON line's serving ms / plain_ms are the n = M = 1088 bucket's")
+    results.update(check_train_attention(dev, g))
     return results
+
+
+def rel_l2(got, want) -> float:
+    """||got - want|| / ||want|| over the whole tensor, in fp32."""
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+def attention_grads(fn, q, k, v, dout) -> list:
+    """[O, dq, dk, dv] of ``fn(q, k, v)`` under the output gradient ``dout``."""
+    import torch
+
+    args = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fn(*args)
+    return [out.detach(), *torch.autograd.grad(out, args, dout)]
+
+
+def plain_attention_grads(q, k, v, dout, lens, rate: float, seed: int) -> list:
+    """The plain version's [O, dq, dk, dv], one sample at a time with its
+    batch index in the dropout salt: the dense fp32 [b, h, n, n] logits of a
+    whole 9 x 4096 batch would not fit on the card."""
+    import torch
+
+    from eraxvif5tts_tpu_torch.ops import train_attention as ta
+
+    def sample(i):
+        li = None if lens is None else lens[i:i + 1]
+        return attention_grads(
+            lambda *a: ta.train_attention_reference(*a, li, rate, seed, batch_offset=i),
+            q[i:i + 1], k[i:i + 1], v[i:i + 1], dout[i:i + 1])
+
+    return [torch.cat(parts) for parts in zip(*(sample(i) for i in range(q.shape[0])))]
+
+
+def check_train_attention_case(q, k, v, dout, lens, rate: float, seed: int) -> dict:
+    """Kernel-4 output and gradients against the plain version on one input:
+    each within ``TOL * (1 + |plain|)`` element by element and within
+    ``ATTN_REL_TOL`` relative L2 error. At dropout > 0 the plain version with
+    the next seed is the control: its relative L2 distance from the plain
+    version must exceed ``ATTN_REL_TOL``, or the check could not see a wrong
+    mask. A second forward with the same seed must be bit-identical. Returns
+    the largest elementwise error, the relative errors and the controls."""
+    import torch
+
+    from eraxvif5tts_tpu_torch.ops import train_attention as ta
+    from eraxvif5tts_tpu_torch.ops.masks import lens_to_mask
+
+    b, n = q.shape[:2]
+    mask = None if lens is None else lens_to_mask(lens, n)
+
+    def kernel(*a):
+        return ta.train_attention(*a, key_valid=mask, dropout_rate=rate, seed=seed)
+
+    got = attention_grads(kernel, q, k, v, dout)
+    want = plain_attention_grads(q, k, v, dout, lens, rate, seed)
+    tag = f"b={b} n={n} dropout {rate}"
+    names = ("fwd", "dq", "dk", "dv")
+    abs_err = {name: compare(f"train_attention {name} {tag}", g, w)
+               for name, g, w in zip(names, got, want)}
+    rel = {name: rel_l2(g, w) for name, g, w in zip(names, got, want)}
+    control = {}
+    if rate > 0.0:
+        wrong = plain_attention_grads(q, k, v, dout, lens, rate, seed + 1)
+        control = {name: rel_l2(c, w) for name, c, w in zip(names, wrong, want)}
+    log(f"[kernels] train_attention {tag}: relative L2 error "
+        + ", ".join(f"{name} {rel[name]:.3g}" for name in names)
+        + f" (tol {ATTN_REL_TOL}); max_abs_err "
+        + ", ".join(f"{name} {abs_err[name]:.3g}" for name in names)
+        + (("; control (plain, next seed) " + ", ".join(f"{name} {control[name]:.3g}"
+                                                          for name in names)) if control else ""))
+    for name in names:
+        if rel[name] > ATTN_REL_TOL:
+            raise AssertionError(f"train_attention {name} {tag}: relative L2 error "
+                                 f"{rel[name]:.3g} beyond {ATTN_REL_TOL}")
+        if control and control[name] <= ATTN_REL_TOL:
+            raise AssertionError(f"train_attention {name} {tag}: a wrong seed moves the plain "
+                                 f"version by only {control[name]:.3g}, within {ATTN_REL_TOL}")
+    if not torch.equal(kernel(q, k, v), got[0]):
+        raise AssertionError(f"train_attention {tag}: a second forward with the same seed "
+                             "differs")
+    return dict(abs_err=abs_err, rel=rel, control=control)
+
+
+def check_train_attention(dev, g) -> dict:
+    """The training attention's three kernels against the plain version and
+    its autograd, forward output and q / k / v gradients, dropout on and off:
+    b = 2 with a masked sample at n = 256, 1024 and 4096, then the train
+    phase's own shape (9 x 4096, no mask); times at b = 2."""
+    import torch
+
+    from eraxvif5tts_tpu_torch.ops import train_attention as ta
+
+    errs = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    rel_max, control_min = {}, {}
+    times = {}
+    b_path, n_path = TRAIN_BATCH
+    for b, n in ((2, 256), (2, 1024), (2, 4096), (b_path, n_path)):
+        q, k, v, dout = (torch.randn((b, n, 16, 64), generator=g, device=dev).bfloat16()
+                         for _ in range(4))
+        lens = (torch.tensor([n, n - 37], dtype=torch.int32, device=dev) if b == 2 else None)
+        seed = 0x5EED0000 + n + b
+        for rate in (0.1, 0.0):
+            res = check_train_attention_case(q, k, v, dout, lens, rate, seed)
+            err = res["abs_err"]
+            for name, e in (("fwd", err["fwd"]), ("dq", err["dq"]),
+                            ("dkv", max(err["dk"], err["dv"]))):
+                errs[name] = max(errs[name], e)
+            for name, r in res["rel"].items():
+                rel_max[name] = max(rel_max.get(name, 0.0), r)
+            for name, c in res["control"].items():
+                control_min[name] = min(control_min.get(name, math.inf), c)
+        if b != 2:
+            continue
+        rate = 0.1
+        out, lse = ta.flash_forward(q, k, v, lens, rate, seed)
+        dd = ta.row_dot(dout, out)
+        ms = {"fwd": cuda_median_ms(lambda: ta.flash_forward(q, k, v, lens, rate, seed)),
+              "dq": cuda_median_ms(lambda: ta.flash_dq(q, k, v, lens, lse, dd, dout, rate, seed)),
+              "dkv": cuda_median_ms(
+                  lambda: ta.flash_dkv(q, k, v, lens, lse, dd, dout, rate, seed))}
+        args = [t.clone().requires_grad_() for t in (q, k, v)]
+        plain_fwd = cuda_median_ms(lambda: ta.train_attention_reference(*args, lens, rate, seed),
+                                   iters=5, warmup=1)
+        ref = ta.train_attention_reference(*args, lens, rate, seed)
+        plain_bwd = cuda_median_ms(lambda: torch.autograd.grad(ref, args, dout, retain_graph=True),
+                                   iters=5, warmup=1)
+        del ref
+        times[n] = {"fwd": (ms["fwd"], plain_fwd), "dq": (ms["dq"], plain_bwd),
+                    "dkv": (ms["dkv"], plain_bwd)}
+        log(f"[kernels] train_attention b=2 n={n} dropout {rate}: forward {ms['fwd']:.4f} ms "
+            f"(plain {plain_fwd:.4f} ms), dq {ms['dq']:.4f} ms + dk/dv {ms['dkv']:.4f} ms "
+            f"(plain backward, all three gradients, {plain_bwd:.4f} ms)")
+    log("[kernels] train_attention over every case: largest relative L2 error "
+        + ", ".join(f"{name} {r:.3g}" for name, r in rel_max.items())
+        + "; smallest control " + ", ".join(f"{name} {c:.3g}" for name, c in control_min.items())
+        + f"; tol {ATTN_REL_TOL} between them")
+    log("[kernels] the JSON line's training ms / plain_ms are the b = 2, n = 4096 case's at "
+        "dropout 0.1; plain_ms of dq and dk/dv is the plain version's whole backward")
+    return {f"train_attention_{name}": dict(max_abs_err=errs[name], ms=times[4096][name][0],
+                                            plain_ms=times[4096][name][1])
+            for name in errs}
 
 
 def build_wrapper(dev):
@@ -165,8 +332,7 @@ def build_wrapper(dev):
 
     from eraxvif5tts_tpu_torch.infer.wrapper import F5TTSWrapper
 
-    chars = " " + string.ascii_letters + string.digits + string.punctuation
-    vocab = {c: i for i, c in enumerate(chars)}
+    vocab = {c: i for i, c in enumerate(VOCAB_CHARS)}
     t0 = time.perf_counter()
     wrapper = F5TTSWrapper(model_name="F5TTS_v1_Base", vocab_char_map=vocab, device=dev,
                            compute_dtype="bfloat16", nfe_step=NFE)
@@ -331,6 +497,186 @@ def phase_server(wrapper, ref):
     log("[server] shut down")
 
 
+def train_arch():
+    """F5TTS_v1_Base's architecture (the reference `configs/F5TTS_v1_Base.yaml`
+    model.arch) with the training settings of the train phase."""
+    from eraxvif5tts_tpu_torch.models.dit import ArchConfig
+
+    # remat "full": what the JAX package's resolve_remat_policy("auto", frames)
+    # picks at the 38,400-frame single-chip budget, above its 6 x 4096-frame
+    # "dots" threshold (eraxvif5tts_tpu/configs/__init__.py:139-161)
+    return ArchConfig(dim=1024, depth=22, heads=16, dim_head=64, ff_mult=2, text_dim=512,
+                      conv_layers=4, dropout=0.1, checkpoint_activations=True,
+                      remat_policy="full")
+
+
+def check_loss_against_plain(cfm, dev):
+    """One CFM.loss forward and backward at b = 2, n = 1024 with the training
+    kernels against the same model with the plain attention, on the same
+    draws and dropout keys: the loss, the whole flattened gradient and the
+    gradient of the q / k / v projections (which reaches the parameters only
+    through the attention backward). The control is the plain attention with
+    the attention-dropout keys of every block changed; it must move each
+    reading beyond its limit, or that limit could not see wrong masks."""
+    import torch
+
+    from eraxvif5tts_tpu_torch.models.cfm import LossDraws
+    from eraxvif5tts_tpu_torch.ops.train_attention import train_attention
+
+    dit = cfm.transformer
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    b, n = 2, 1024
+    mel = torch.randn((b, n, 100), generator=g, device=dev)
+    lens = torch.tensor([n, n - 37], device=dev)
+    text = torch.randint(0, len(VOCAB_CHARS), (b, TRAIN_TEXT), generator=g, device=dev)
+    text[1, 300:] = -1
+    draws = LossDraws.sample(g, b, n, 100, len(dit.transformer_blocks))
+    wrong = dataclasses.replace(draws, dropout_keys=[
+        [[(attn[0] + 1) & 0xFFFFFFFF, attn[1]], out, ff]
+        for attn, out, ff in draws.dropout_keys])
+    qkv = [p for name, p in dit.named_parameters()
+           if name.split(".")[-2] in ("to_q", "to_k", "to_v")]
+
+    def loss_and_grads(draws, plain):
+        dit.zero_grad(set_to_none=True)
+        train_attention.plain = plain
+        try:
+            loss = cfm.loss(mel, text, lens, draws)[0]
+            loss.backward()
+        finally:
+            train_attention.plain = False
+        return (loss.item(), torch.cat([p.grad.flatten() for p in dit.parameters()]),
+                torch.cat([p.grad.flatten() for p in qkv]))
+
+    got = loss_and_grads(draws, plain=False)
+    want = loss_and_grads(draws, plain=True)
+    control = loss_and_grads(wrong, plain=True)
+    dit.zero_grad(set_to_none=True)
+
+    def distance(x):
+        return (abs(x[0] - want[0]) / abs(want[0]), rel_l2(x[1], want[1]),
+                rel_l2(x[2], want[2]))
+
+    err, ctl = distance(got), distance(control)
+    tols = (LOSS_TOL, GRAD_TOL, QKV_GRAD_TOL)
+    log(f"[train] CFM.loss b={b} n={n} dropout {dit.arch.dropout}, kernels vs plain attention: "
+        f"loss {got[0]:.6f} vs {want[0]:.6f}; relative errors (tol) / control (plain, wrong "
+        "attention-dropout keys): "
+        + ", ".join(f"{name} {e:.3g} ({t}) / {c:.3g}" for name, e, t, c in
+                    zip(("loss", "gradient L2", "q/k/v gradient L2"), err, tols, ctl)))
+    if not (all(e <= t for e, t in zip(err, tols)) and torch.isfinite(got[1]).all()):
+        raise AssertionError(f"CFM.loss with kernels differs from plain: {err}")
+    if not all(c > t for c, t in zip(ctl, tols)):
+        raise AssertionError(f"wrong attention-dropout keys move the plain readings by only "
+                             f"{ctl}, not beyond the limits {tols}")
+
+
+def phase_train(dev, arch=None) -> dict:
+    import torch
+
+    from eraxvif5tts_tpu_torch.models.cfm import CFM
+    from eraxvif5tts_tpu_torch.models.dit import DiT
+    from eraxvif5tts_tpu_torch.ops import train_attention as ta
+    from eraxvif5tts_tpu_torch.training.trainer import (
+        Trainer,
+        batch_seed,
+        checkpoint_restore,
+        checkpoint_save,
+        make_optimizer,
+    )
+
+    t0 = time.perf_counter()
+    arch = arch or train_arch()
+    dit = DiT(arch, text_num_embeds=len(VOCAB_CHARS), mel_dim=100,
+              compute_dtype=torch.bfloat16).to(dev)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    with torch.no_grad():
+        for p in dit.parameters():
+            p.normal_(0.0, WEIGHT_STD, generator=g)
+    cfm = CFM(dit.train())
+    n_params = sum(p.numel() for p in dit.parameters())
+    log(f"[train] F5TTS_v1_Base dim {arch.dim} depth {arch.depth} heads {arch.heads}x"
+        f"{arch.dim_head}: {n_params / 1e6:.1f} M fp32 parameters, bf16 compute, dropout "
+        f"{arch.dropout}, remat {arch.remat_policy} (frame budget {TRAIN_FRAME_BUDGET}), "
+        f"N(0, {WEIGHT_STD}) seed {SEED}, built in {time.perf_counter() - t0:.1f} s")
+    check_loss_against_plain(cfm, dev)
+
+    # warmup cut from 20,000 to 1 update so that the smoke's updates move the weights
+    trainer = Trainer(cfm=cfm, optimizer=make_optimizer(num_warmup_updates=1,
+                                                         total_updates=1000))
+    state = trainer.init_state()
+    params0 = [p.detach().clone() for p in dit.parameters()]
+    b, n = TRAIN_BATCH
+    depth = arch.depth
+    kernels = (ta.flash_forward, ta.flash_dq, ta.flash_dkv)
+    for fn in kernels:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    walls = []
+    for i, rate in enumerate((0.1, 0.1, 0.1, 0.0)):
+        dit.arch = dataclasses.replace(dit.arch, dropout=rate)
+        bg = torch.Generator(device=dev).manual_seed(SEED + 10 + i)
+        lens = torch.randint(n // 2, n + 1, (b,), generator=bg, device=dev)
+        text = torch.randint(0, len(VOCAB_CHARS), (b, TRAIN_TEXT), generator=bg, device=dev)
+        text_lens = torch.randint(TRAIN_TEXT // 4, TRAIN_TEXT + 1, (b, 1), generator=bg,
+                                  device=dev)
+        text = text.masked_fill(torch.arange(TRAIN_TEXT, device=dev) >= text_lens, -1)
+        batch = {"mel": torch.randn((b, n, 100), generator=bg, device=dev), "text": text,
+                 "lens": lens}
+        before = [fn.launches for fn in kernels]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = trainer.train_step(
+            state, batch, torch.Generator(device=dev).manual_seed(batch_seed(SEED, 0, i)))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        counts = [fn.launches - c for fn, c in zip(kernels, before)]
+        log(f"[train] step {i + 1} b={b} n={n} dropout {rate}: loss {metrics['loss']:.5f}, "
+            f"grad_norm {metrics['grad_norm']:.5f}, applied {metrics['applied']:.0f}, "
+            f"{walls[-1]:.3f} s; launches fwd/dq/dkv {counts}")
+        if not (math.isfinite(metrics["loss"]) and math.isfinite(metrics["grad_norm"])
+                and metrics["applied"] == 1.0):
+            raise AssertionError(f"step {i + 1}: non-finite loss / grad norm or not applied")
+        if counts != [2 * depth, depth, depth]:
+            raise AssertionError(f"step {i + 1}: launches {counts}, expected "
+                                 f"[{2 * depth}, {depth}, {depth}] (forward twice: checkpointed)")
+    launches = {f"train_attention_{name}": fn.launches
+                for name, fn in zip(("fwd", "dq", "dkv"), kernels)}
+    peak = torch.cuda.max_memory_allocated(dev)
+    step_s = statistics.median(walls[1:])
+    log(f"[train] steps 2-4 median {step_s:.3f} s per step: {b * n / step_s:.0f} frames/s "
+        f"({b} x {n} padded frames), peak memory {peak / 2**30:.2f} GiB")
+    if state.step != 4:
+        raise AssertionError(f"{state.step} updates applied, expected 4")
+    moved = sum(not torch.equal(p, p0) for p, p0 in zip(dit.parameters(), params0))
+    ema_moved = sum(not torch.equal(e, p0) for e, p0 in zip(state.ema_params.values(), params0))
+    log(f"[train] parameter tensors changed {moved}/{len(params0)}, EMA {ema_moved}/{len(params0)}")
+    if moved != len(params0) or ema_moved != len(params0):
+        raise AssertionError("training did not move every parameter tensor and its EMA")
+    del params0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path = checkpoint_save(tmp, state, state.step)
+        save_s = time.perf_counter() - t0
+        size = sum(f.stat().st_size for f in Path(path).iterdir())
+        saved = [p.detach().clone() for p in dit.parameters()]
+        saved_ema = [e.clone() for e in state.ema_params.values()]
+        with torch.no_grad():
+            for t in [*dit.parameters(), *state.ema_params.values()]:
+                t.zero_()
+        t0 = time.perf_counter()
+        checkpoint_restore(path, state)
+        restore_s = time.perf_counter() - t0
+    same = (all(torch.equal(p, s) for p, s in zip(dit.parameters(), saved))
+            and all(torch.equal(e, s) for e, s in zip(state.ema_params.values(), saved_ema)))
+    log(f"[train] checkpoint model_{state.step}: {size / 2**30:.2f} GiB saved in {save_s:.2f} s, "
+        f"restored in {restore_s:.2f} s; parameters and EMA identical: {same}")
+    if not same:
+        raise AssertionError("checkpoint restore did not give back the saved parameters")
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "eraxvif5tts_tpu_torch").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -350,6 +696,8 @@ def main() -> int:
     kernel_results = phase_kernels(dev)
     wrapper, ref, launches = phase_main(dev)
     phase_server(wrapper, ref)
+    del wrapper, ref
+    launches.update(phase_train(dev))
     kernels = [
         dict(name="serving_attention", route="cuda",
              source="eraxvif5tts_tpu_torch/csrc/serving_attention.cu",
@@ -359,6 +707,12 @@ def main() -> int:
              source="eraxvif5tts_tpu_torch/csrc/ln_mod_matmul.cu",
              replaces="eraxvif5tts_tpu/ops/fused_matmul.py:68",
              launches=launches["ln_mod_matmul"], **kernel_results["ln_mod_matmul"]),
+        *(dict(name=name, route="cuda",
+               source="eraxvif5tts_tpu_torch/csrc/train_attention.cu",
+               replaces=f"eraxvif5tts_tpu/ops/train_attention.py:{line}",
+               launches=launches[name], **kernel_results[name])
+          for name, line in (("train_attention_fwd", 104), ("train_attention_dq", 150),
+                             ("train_attention_dkv", 190))),
     ]
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
     if missing:

@@ -40,57 +40,11 @@
 // sum by the row's fp32 denominator at the end. Both round P once to bf16,
 // at a different scale; the outputs agree to bf16 rounding of the result.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "mma_tile.cuh"
 
 namespace {
-
-constexpr int kD = 64;            // head dim
-constexpr int kBQ = 64;           // query rows per block
-constexpr int kBK = 64;           // keys per tile
-constexpr int kLd = kD + 8;       // bf16 shared row stride (elements): 144 bytes
-constexpr int kThreads = 128;     // 4 warps x 16 query rows
-constexpr int kTileChunks = kBK * kD / 8 / kThreads;  // 16-byte chunks per thread
-constexpr float kNeg = -1e30f;
-
-// D += A B for one m16n8k16 bf16 tile (fp32 accumulators). Fragments follow
-// the PTX layout: with g = lane / 4 and t = lane % 4, a = {A[g][2t..],
-// A[g+8][2t..], A[g][2t+8..], A[g+8][2t+8..]}, b = {B[2t..][g], B[2t+8..][g]},
-// d = {D[g][2t], D[g][2t+1], D[g+8][2t], D[g+8][2t+1]}.
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// A [64, 64] tile of rows src + r * row_stride, held as 16-byte chunks.
-struct TileRegs {
-  uint4 v[kTileChunks];
-};
-
-__device__ __forceinline__ void load_tile(TileRegs& r, const __nv_bfloat16* src,
-                                          long row_stride) {
-#pragma unroll
-  for (int i = 0; i < kTileChunks; ++i) {
-    const int chunk = threadIdx.x + i * kThreads;
-    r.v[i] = *reinterpret_cast<const uint4*>(src + (chunk / 8) * row_stride +
-                                             (chunk % 8) * 8);
-  }
-}
 
 // Into shared memory row-major, rotating interleaved pairs by the angles'
 // cos/sin rows when given: (x0, x1) -> (x0 cos - x1 sin, x1 cos + x0 sin) in
@@ -121,19 +75,6 @@ __device__ __forceinline__ void store_tile(const TileRegs& r, __nv_bfloat16* dst
   }
 }
 
-// Into shared memory transposed: dst[d][key].
-__device__ __forceinline__ void store_tile_t(const TileRegs& r, __nv_bfloat16* dst) {
-#pragma unroll
-  for (int i = 0; i < kTileChunks; ++i) {
-    const int chunk = threadIdx.x + i * kThreads;
-    const int row = chunk / 8;
-    const int col = (chunk % 8) * 8;
-    const __nv_bfloat16* x = reinterpret_cast<const __nv_bfloat16*>(&r.v[i]);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) dst[(col + e) * kLd + row] = x[e];
-  }
-}
-
 __global__ void __launch_bounds__(kThreads)
     serving_attention_kernel(const __nv_bfloat16* __restrict__ q,
                              const __nv_bfloat16* __restrict__ k,
@@ -156,7 +97,7 @@ __global__ void __launch_bounds__(kThreads)
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;  // fragment row (and g + 8)
   const int t = lane % 4;  // fragment column pair
-  const float scale_log2 = scale * 1.4426950408889634f;  // log2(e)
+  const float scale_log2 = scale * kLog2e;
 
   TileRegs tk, tv;
   load_tile(tk, q + base + q0 * row_stride, row_stride);
@@ -164,16 +105,7 @@ __global__ void __launch_bounds__(kThreads)
              roped ? sin_t + static_cast<long>(q0) * kD : nullptr);
   __syncthreads();
   uint32_t qa[kD / 16][4];
-  {
-    const __nv_bfloat16* qr = qs + (warp * 16 + g) * kLd + 2 * t;
-#pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
-      qa[kk][0] = ld_pair(qr + kk * 16);
-      qa[kk][1] = ld_pair(qr + 8 * kLd + kk * 16);
-      qa[kk][2] = ld_pair(qr + kk * 16 + 8);
-      qa[kk][3] = ld_pair(qr + 8 * kLd + kk * 16 + 8);
-    }
-  }
+  load_a_frags(qa, qs, warp, g, t);
 
   float o[kD / 8][4];
 #pragma unroll
@@ -198,14 +130,7 @@ __global__ void __launch_bounds__(kThreads)
 
     // S = Q K^T: this warp's 16 rows x 64 keys, eight n8 tiles
     float s[kBK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kBK / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const __nv_bfloat16* kr = ks + (nt * 8 + g) * kLd + 2 * t;
-#pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk)
-        mma_bf16(s[nt], qa[kk], ld_pair(kr + kk * 16), ld_pair(kr + kk * 16 + 8));
-    }
+    mma_abt(s, qa, ks, g, t);
 
     // scale, mask, online softmax per row (each row spans a quad of lanes),
     // in base 2: logits times log2(e), exp2 for exp
@@ -248,18 +173,7 @@ __global__ void __launch_bounds__(kThreads)
     }
 
     // O += P V: the S fragments of key tiles 2j, 2j+1 are P's A operand
-#pragma unroll
-    for (int j = 0; j < kBK / 16; ++j) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
-                              pack_bf16(s[2 * j][2], s[2 * j][3]),
-                              pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
-                              pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
-#pragma unroll
-      for (int dt = 0; dt < kD / 8; ++dt) {
-        const __nv_bfloat16* vr = vt + (dt * 8 + g) * kLd + j * 16 + 2 * t;
-        mma_bf16(o[dt], pa, ld_pair(vr), ld_pair(vr + 8));
-      }
-    }
+    mma_pb(o, s, vt, g, t);
   }
 
 #pragma unroll

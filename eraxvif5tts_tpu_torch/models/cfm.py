@@ -1,4 +1,5 @@
-"""Conditional flow matching: the Euler ODE sampler (port of ``CFM.sample`` in
+"""Conditional flow matching: the training objective and the Euler ODE
+sampler (port of ``CFM.loss`` and ``CFM.sample`` in
 `eraxvif5tts_tpu/models/cfm.py`).
 
 As in the JAX package: classifier-free guidance doubles the batch
@@ -10,9 +11,13 @@ every sample of the batch (batch-size invariant) and zeroed past each
 sample's duration; the prompt region is pasted back at the end.
 
 Noise is an argument: the wrapper draws it from a ``torch.Generator``, the
-tests hand in the JAX draw. ``edit_mask``, ``no_ref_audio``, ``t_start`` and
-``t_inter_cond`` wait for the speech-edit port; ``CFM.loss`` for the training
-port.
+tests hand in the JAX draw. Likewise every random draw of the loss is an
+argument (:class:`LossDraws`): the trainer draws them from the step's
+generator, the tests from ``jax.random`` in the JAX order. As in the JAX
+package, the loss runs the transformer with no mask: training attention runs
+unmasked over the padded frames, and only the loss is masked (to the random
+span inside each sample). ``edit_mask``, ``no_ref_audio``, ``t_start`` and
+``t_inter_cond`` wait for the speech-edit port.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ from typing import Optional
 import torch
 
 from eraxvif5tts_tpu_torch.models.dit import DiT
-from eraxvif5tts_tpu_torch.ops.masks import lens_to_mask
+from eraxvif5tts_tpu_torch.ops.masks import lens_to_mask, mask_from_frac_lengths
 
 
 @dataclass(frozen=True)
@@ -45,8 +50,45 @@ def sway_time_grid(steps: int, sway_coef: Optional[float]) -> torch.Tensor:
     return t
 
 
+@dataclass(frozen=True)
+class LossDraws:
+    """The random draws of one :meth:`CFM.loss`, in the order the JAX loss
+    takes them from ``jax.random.split(rng, 7)`` (`cfm.py:105-139`)."""
+
+    frac: torch.Tensor        # [b] span fraction, uniform in ``frac_lengths_mask``
+    rand: torch.Tensor        # [b] span start, uniform in [0, 1)
+    x0: torch.Tensor          # [b, n, d] standard normal noise
+    time: torch.Tensor        # [b] flow time, uniform in [0, 1)
+    drop_audio: torch.Tensor  # [] uniform: the audio prompt is dropped below audio_drop_prob
+    drop_cond: torch.Tensor   # [] uniform: audio and text are dropped below cond_drop_prob
+    dropout_keys: Optional[list] = None  # per block, 3 keys of two 32-bit words
+
+    @classmethod
+    def sample(cls, generator: torch.Generator, b: int, n: int, d: int, depth: int,
+               frac_lengths_mask: tuple[float, float] = (0.7, 1.0)) -> "LossDraws":
+        """Every draw from ``generator``, on its device. The dropout keys are
+        read back to the host (they seed the kernels): one sync."""
+        dev = generator.device
+
+        def uniform(*shape):
+            return torch.rand(shape, generator=generator, device=dev)
+
+        lo, hi = frac_lengths_mask
+        frac = uniform(b) * (hi - lo) + lo
+        rand = uniform(b)
+        x0 = torch.randn((b, n, d), generator=generator, device=dev)
+        time = uniform(b)
+        drop_audio, drop_cond = uniform(), uniform()
+        keys = torch.randint(0, 2**32, (depth, 3, 2), generator=generator, device=dev)
+        return cls(frac, rand, x0, time, drop_audio, drop_cond, keys.tolist())
+
+
 class CFM:
-    """Stateless sampler around a :class:`DiT`."""
+    """Stateless objective and sampler around a :class:`DiT`."""
+
+    audio_drop_prob = 0.35  # reference `cfm.py:42`
+    cond_drop_prob = 0.25  # reference `cfm.py:43`
+    frac_lengths_mask = (0.7, 1.0)
 
     def __init__(self, transformer: DiT):
         self.transformer = transformer
@@ -54,6 +96,34 @@ class CFM:
     @property
     def num_channels(self) -> int:
         return self.transformer.mel_dim
+
+    def loss(self, mel: torch.Tensor, text: torch.Tensor, lens: torch.Tensor,
+             draws: LossDraws) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Masked-span infilling flow-matching loss of ``mel [b, n, d]`` log-mel
+        frames, ``text [b, nt]`` ids (-1 padded) and ``lens [b]``; returns
+        (loss, cond, pred). The transformer runs in its own mode
+        (``train()`` for the training branch)."""
+        b, n, d = mel.shape
+        mask = lens_to_mask(lens, n)
+        rand_span_mask = mask_from_frac_lengths(lens, draws.frac, n, draws.rand) & mask
+
+        x1 = mel
+        t = draws.time[:, None, None]
+        xt = (1.0 - t) * draws.x0 + t * x1
+        flow = x1 - draws.x0
+        cond = x1.masked_fill(rand_span_mask[..., None], 0.0)
+
+        # CFG drops: one draw per step, shared across the batch (`cfm.py:121-127`)
+        drop_cond = draws.drop_cond < self.cond_drop_prob
+        drop_audio = (draws.drop_audio < self.audio_drop_prob) | drop_cond
+        pred = self.transformer(xt, cond, text, draws.time, drop_audio.expand(b),
+                                drop_cond.expand(b), dropout_keys=draws.dropout_keys)
+
+        # mean squared error over (span frames x channels) (`cfm.py:141-144`)
+        se = (pred - flow).square()
+        weight = rand_span_mask[..., None].to(se.dtype)
+        loss = (se * weight).sum() / torch.clamp(weight.sum() * d, min=1.0)
+        return loss, cond, pred
 
     @torch.inference_mode()
     def sample(self, cond: torch.Tensor, text: torch.Tensor, duration: torch.Tensor,

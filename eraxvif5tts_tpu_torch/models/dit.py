@@ -6,9 +6,19 @@ are per-sample bool tensors), and the text embedding is a separate method
 (:meth:`DiT.embed_text`) so the sampler computes it once before the Euler
 loop and calls :meth:`DiT.run` at every step.
 
-The port builds the ``F5TTS_v1`` family: rotary on every head (fused into the
-attention kernel), no qk-norm, no long skip. Other architecture options of
-the JAX package raise here until they are ported.
+The port builds the ``F5TTS_v1`` family: rotary on every head, no qk-norm,
+no long skip. Other architecture options of the JAX package raise here until
+they are ported.
+
+Training (``module.train()``, the JAX ``deterministic=False``) keeps the
+parameters in fp32 and computes in ``compute_dtype`` (bf16 on the card, the
+JAX recipe); ``proj_out``, a flax ``Dense`` without a dtype in the JAX
+package, computes in its parameters' dtype. The dropout keys of every block
+are drawn by the caller before the forward (:meth:`DiT.forward`).
+``ArchConfig.checkpoint_activations`` checkpoints each block
+(``torch.utils.checkpoint``, the JAX ``remat_policy="full"``; an unresolved
+``"auto"`` means "full", as in the JAX DiT);
+the ``"dots"`` and ``"attn"`` policies are not ported.
 """
 
 from __future__ import annotations
@@ -16,6 +26,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from eraxvif5tts_tpu.configs import ArchConfig
 from eraxvif5tts_tpu_torch.models.modules import (
@@ -29,6 +40,19 @@ from eraxvif5tts_tpu_torch.models.modules import (
 from eraxvif5tts_tpu_torch.ops.rotary import abs_pos_embedding_table, rotary_freqs
 
 MAX_POS = 4096  # sequence cap, as in the JAX package
+
+
+def _remat(arch: ArchConfig) -> bool:
+    """Whether to checkpoint each block: the ``full`` policy (an unresolved
+    ``auto`` means ``full``, as in the JAX DiT)."""
+    if not arch.checkpoint_activations:
+        return False
+    if arch.remat_policy in ("full", "auto"):
+        return True
+    if arch.remat_policy in ("dots", "attn"):
+        raise ValueError(f"remat_policy={arch.remat_policy!r} is not ported "
+                         "(the port checkpoints whole blocks: 'full')")
+    raise ValueError(f"unknown remat_policy {arch.remat_policy!r} (auto|full|dots|attn)")
 
 
 class TextEmbedding(nn.Module):
@@ -46,14 +70,14 @@ class TextEmbedding(nn.Module):
             "freqs_cis", torch.from_numpy(abs_pos_embedding_table(text_dim, MAX_POS)),
             persistent=False)
 
-    def forward(self, text: torch.Tensor, seq_len: int,
-                drop_text: torch.Tensor) -> torch.Tensor:
+    def forward(self, text: torch.Tensor, seq_len: int, drop_text: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
         text = (text + 1)[:, :seq_len]
         text = F.pad(text, (0, seq_len - text.shape[1]))
         # the filler mask is taken BEFORE the CFG drop (`dit.py:57-65`)
         filler = text == 0
         text = torch.where(drop_text[:, None], torch.zeros_like(text), text)
-        embed = self.text_embed(text)
+        embed = self.text_embed(text).to(dtype)
         if len(self.text_blocks):
             embed = embed + self.freqs_cis[:seq_len].to(embed.dtype)[None]
             embed = embed.masked_fill(filler[..., None], 0.0)
@@ -79,9 +103,12 @@ class InputEmbedding(nn.Module):
 
 class DiT(nn.Module):
     """Flow-prediction DiT: ``(x, cond, text, t) -> flow [b, n, mel]``
-    (`dit.py:116-280`). The compute dtype is the parameters' dtype."""
+    (`dit.py:116-280`). The compute dtype is ``compute_dtype``, or the
+    parameters' dtype when that is None (serving, where the wrapper casts
+    the parameters)."""
 
-    def __init__(self, arch: ArchConfig, text_num_embeds: int = 256, mel_dim: int = 100):
+    def __init__(self, arch: ArchConfig, text_num_embeds: int = 256, mel_dim: int = 100,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
         unported = {"qk_norm": arch.qk_norm is not None,
                     "pe_attn_head": arch.pe_attn_head is not None,
@@ -91,8 +118,10 @@ class DiT(nn.Module):
         if any(unported.values()):
             raise ValueError("DiT options not ported yet: "
                              + ", ".join(k for k, v in unported.items() if v))
+        _remat(arch)
         self.arch = arch
         self.mel_dim = mel_dim
+        self.compute_dtype = compute_dtype
         text_dim = arch.text_dim if arch.text_dim is not None else mel_dim
         self.time_embed = TimestepEmbedding(arch.dim)
         self.text_embed = TextEmbedding(text_num_embeds, text_dim,
@@ -107,7 +136,7 @@ class DiT(nn.Module):
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.proj_out.weight.dtype
+        return self.compute_dtype or self.proj_out.weight.dtype
 
     def rope(self, seq_len: int, device: torch.device) -> torch.Tensor:
         """Rotary angles ``[seq_len, dim_head]`` fp32, kept per bucket so the
@@ -120,20 +149,41 @@ class DiT(nn.Module):
     def embed_text(self, text: torch.Tensor, seq_len: int,
                    drop_text: torch.Tensor) -> torch.Tensor:
         """Text embedding at ``seq_len`` frames, computed once per sample call."""
-        return self.text_embed(text, seq_len, drop_text)
+        return self.text_embed(text, seq_len, drop_text, self.dtype)
 
     def run(self, x: torch.Tensor, cond: torch.Tensor, text_embed: torch.Tensor,
             time: torch.Tensor, drop_audio_cond: torch.Tensor,
-            mask: torch.Tensor | None = None) -> torch.Tensor:
-        """Forward from a precomputed text embedding (the Euler-loop hot path)."""
+            mask: torch.Tensor | None = None, dropout_keys=None) -> torch.Tensor:
+        """Forward from a precomputed text embedding (the Euler-loop hot path).
+        ``dropout_keys`` (training with dropout): per block, the keys of its
+        three dropout sites, each two 32-bit words."""
         batch, seq_len = x.shape[0], x.shape[1]
         if time.ndim == 0:
             time = time.expand(batch)
+        rate = self.arch.dropout if self.training else 0.0
+        if rate > 0.0 and (dropout_keys is None
+                           or len(dropout_keys) != len(self.transformer_blocks)):
+            raise ValueError("a training forward with dropout needs the dropout keys of "
+                             f"all {len(self.transformer_blocks)} blocks")
+        if rate == 0.0:
+            dropout_keys = [(None, None, None)] * len(self.transformer_blocks)
         x, cond, text_embed = (t.to(self.dtype) for t in (x, cond, text_embed))
-        t = self.time_embed(time)
+        t = self.time_embed(time, self.dtype)
         h = self.input_embed(x, cond, text_embed, drop_audio_cond, mask=mask)
         rope = self.rope(seq_len, x.device)
-        for block in self.transformer_blocks:
-            h = block(h, t, mask, rope)
+        remat = self.training and torch.is_grad_enabled() and _remat(self.arch)
+        for block, keys in zip(self.transformer_blocks, dropout_keys):
+            if remat:
+                h = checkpoint(block, h, t, mask, rope, rate, keys, use_reentrant=False)
+            else:
+                h = block(h, t, mask, rope, rate, keys)
         h = self.norm_out(h, t)
-        return linear(h, self.proj_out).float()
+        return linear(h.to(self.proj_out.weight.dtype), self.proj_out).float()
+
+    def forward(self, x: torch.Tensor, cond: torch.Tensor, text: torch.Tensor,
+                time: torch.Tensor, drop_audio_cond: torch.Tensor, drop_text: torch.Tensor,
+                mask: torch.Tensor | None = None, dropout_keys=None) -> torch.Tensor:
+        """The whole DiT (the JAX ``__call__``): text embedding at x's length,
+        then :meth:`run`."""
+        return self.run(x, cond, self.embed_text(text, x.shape[1], drop_text), time,
+                        drop_audio_cond, mask, dropout_keys)

@@ -9,14 +9,24 @@ Conventions, as in the JAX package:
 - sequence tensors are ``[b, n, d]``; boolean masks mark VALID positions and
   are contiguous prefixes (``lens_to_mask``);
 - the compute dtype is the dtype of the input; parameters are cast to it at
-  use (a no-op for the backbone, whose parameters the wrapper holds in the
-  compute dtype; the vocoder keeps fp32 parameters);
+  use (a no-op for the served backbone, whose parameters the wrapper holds in
+  the compute dtype; training keeps fp32 parameters and computes in bf16, and
+  autograd carries the gradients through the casts to the fp32 parameters;
+  the vocoder keeps fp32 parameters);
 - layernorm statistics are fp32.
 
-The serving path's two kernels are reached from here: :class:`Attention`
-calls the masked, rotary-fused attention and :class:`FeedForward` the
-AdaLN-modulated input projection. The JAX package's grouped-convolution tap
-loop (a TPU speed trick) is a plain ``F.conv1d(groups=16)`` here.
+Two modes, as the JAX package's ``deterministic`` flag: in eval mode
+(serving) :class:`Attention` calls the masked, rotary-fused serving attention
+and :class:`FeedForward` the AdaLN-modulated input projection kernel; in
+training mode (``module.train()``, the JAX ``deterministic=False``) q and k
+are rotated outside the kernel, attention runs through the training kernels
+with attention dropout, the feed-forward takes the unfused path, and the
+attention output and the FF hidden state get position-hash dropout. The
+dropout rate is an argument of the forward (the DiT passes its
+``arch.dropout``), and each site is seeded by a key of two 32-bit words that
+the caller draws before the forward (3 per block): an activation-checkpoint
+recompute then reproduces every mask. The JAX package's grouped-convolution tap loop (a TPU speed trick)
+is a plain ``F.conv1d(groups=16)`` here.
 """
 
 from __future__ import annotations
@@ -28,7 +38,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from eraxvif5tts_tpu_torch.ops.attention import dot_product_attention
+from eraxvif5tts_tpu_torch.ops.dropout import hash_dropout
 from eraxvif5tts_tpu_torch.ops.fused_matmul import ln_mod_matmul
+from eraxvif5tts_tpu_torch.ops.rotary import apply_rotary
+from eraxvif5tts_tpu_torch.ops.train_attention import attention_seed, train_attention
 
 
 def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
@@ -76,9 +89,10 @@ class TimestepEmbedding(nn.Module):
         self.time_mlp = nn.Sequential(nn.Linear(freq_embed_dim, dim), nn.SiLU(),
                                       nn.Linear(dim, dim))
 
-    def forward(self, timestep: torch.Tensor) -> torch.Tensor:
-        hidden = self.sinus(timestep).to(self.time_mlp[0].weight.dtype)
-        return self.time_mlp(hidden)
+    def forward(self, timestep: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        hidden = self.sinus(timestep).to(dtype)
+        hidden = F.silu(linear(hidden, self.time_mlp[0]))
+        return linear(hidden, self.time_mlp[2])
 
 
 class GRN(nn.Module):
@@ -151,7 +165,7 @@ class AdaLayerNorm(nn.Module):
         self.linear = nn.Linear(dim, dim * 6)
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor):
-        mod = self.linear(F.silu(emb))
+        mod = linear(F.silu(emb), self.linear)
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mod.chunk(6, dim=-1)
         out = layer_norm(x) * (1 + scale_msa[:, None]) + shift_msa[:, None]
         return out, gate_msa, shift_mlp, scale_mlp, gate_mlp
@@ -165,14 +179,17 @@ class AdaLayerNormFinal(nn.Module):
         self.linear = nn.Linear(dim, dim * 2)
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
-        scale, shift = self.linear(F.silu(emb)).chunk(2, dim=-1)
+        scale, shift = linear(F.silu(emb), self.linear).chunk(2, dim=-1)
         return layer_norm(x) * (1 + scale[:, None]) + shift[:, None]
 
 
 class FeedForward(nn.Module):
-    """AdaLN layernorm + modulate + Linear + tanh-GELU in one kernel
-    (`ln_mod_matmul`), then the output Linear (`modules.py:273-307`, the
-    fused serving branch). Keys ``ff.0.0`` / ``ff.2`` as in the reference."""
+    """The AdaLN-modulated feed-forward of a DiT block from its pre-norm
+    input: layernorm + modulate + Linear + tanh-GELU, dropout, Linear. In eval
+    mode the first four are one kernel (`ln_mod_matmul`, the fused serving
+    branch, `modules.py:485-496`); in training mode they are unfused
+    (`modules.py:322-329`, `:498-500`). Keys ``ff.0.0`` / ``ff.2`` as in the
+    reference."""
 
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
@@ -183,18 +200,27 @@ class FeedForward(nn.Module):
             nn.Linear(inner, dim),
         )
 
-    def forward(self, x: torch.Tensor, scale: torch.Tensor,
-                shift: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+                dropout_rate: float = 0.0, dropout_key=None) -> torch.Tensor:
         project_in = self.ff[0][0]
-        h = ln_mod_matmul(x, scale.contiguous(), shift.contiguous(),
-                          project_in.weight, project_in.bias, activation="gelu_tanh")
-        return linear(h, self.ff[2])
+        if not self.training:
+            h = ln_mod_matmul(x, scale.contiguous(), shift.contiguous(),
+                              project_in.weight, project_in.bias, activation="gelu_tanh")
+            return linear(h, self.ff[2])
+        h = layer_norm(x) * (1 + scale[:, None]) + shift[:, None]
+        h = F.gelu(linear(h, project_in), approximate="tanh")
+        return linear(hash_dropout(h, dropout_rate, dropout_key), self.ff[2])
 
 
 class Attention(nn.Module):
-    """Self-attention with rotary on every head, fused into the attention
-    kernel, and padded query rows zeroed after the output projection
-    (`modules.py:332-434`). ``mask [b, n]`` must be a contiguous prefix."""
+    """Self-attention with rotary on every head and padded query rows zeroed
+    after the output projection (`modules.py:332-434`). In eval mode rotary
+    is fused into the serving kernel; in training mode q and k are rotated
+    here (cos/sin in the compute dtype, as the JAX package's unfused path),
+    the training kernels apply attention dropout, and the output projection
+    gets position-hash dropout. ``mask [b, n]`` must be a contiguous prefix;
+    ``dropout_keys`` are the (attention, output) keys of a training call at
+    ``dropout_rate``."""
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 64):
         super().__init__()
@@ -206,21 +232,33 @@ class Attention(nn.Module):
         self.to_out = nn.ModuleList([nn.Linear(inner, dim), nn.Dropout(0.0)])
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None,
-                rope: torch.Tensor | None = None) -> torch.Tensor:
+                rope: torch.Tensor | None = None, dropout_rate: float = 0.0,
+                dropout_keys=(None, None)) -> torch.Tensor:
         b, n, _ = x.shape
         shape = (b, n, self.heads, self.dim_head)
         q = linear(x, self.to_q).view(shape)
         k = linear(x, self.to_k).view(shape)
         v = linear(x, self.to_v).view(shape)
-        out = dot_product_attention(q, k, v, key_valid=mask, rope=rope)
-        out = linear(out.reshape(b, n, -1), self.to_out[0])
+        if not self.training:
+            out = dot_product_attention(q, k, v, key_valid=mask, rope=rope)
+            out = linear(out.reshape(b, n, -1), self.to_out[0])
+        else:
+            if rope is not None:
+                q, k = apply_rotary(q, rope[:, None]), apply_rotary(k, rope[:, None])
+            seed = attention_seed(dropout_keys[0]) if dropout_rate > 0.0 else 0
+            out = train_attention(q, k, v, key_valid=mask, dropout_rate=dropout_rate, seed=seed)
+            out = linear(out.reshape(b, n, -1), self.to_out[0])
+            out = hash_dropout(out, dropout_rate, dropout_keys[1])
         if mask is not None:
             out = out.masked_fill(~mask[..., None], 0.0)
         return out
 
 
 class DiTBlock(nn.Module):
-    """AdaLN-zero pre-norm attention + gated feed-forward (`modules.py:437-501`)."""
+    """AdaLN-zero pre-norm attention + gated feed-forward (`modules.py:437-501`).
+    ``dropout_keys`` (training at ``dropout_rate``): the keys of the block's
+    three dropout sites, attention weights, attention output and FF hidden
+    state, in the order the JAX block draws them."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, ff_mult: int = 4):
         super().__init__()
@@ -230,7 +268,9 @@ class DiTBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, t: torch.Tensor,
                 mask: torch.Tensor | None = None,
-                rope: torch.Tensor | None = None) -> torch.Tensor:
+                rope: torch.Tensor | None = None, dropout_rate: float = 0.0,
+                dropout_keys=(None, None, None)) -> torch.Tensor:
         norm, gate_msa, shift_mlp, scale_mlp, gate_mlp = self.attn_norm(x, t)
-        x = x + gate_msa[:, None] * self.attn(norm, mask=mask, rope=rope)
-        return x + gate_mlp[:, None] * self.ff(x, scale_mlp, shift_mlp)
+        x = x + gate_msa[:, None] * self.attn(norm, mask, rope, dropout_rate, dropout_keys[:2])
+        return x + gate_mlp[:, None] * self.ff(x, scale_mlp, shift_mlp, dropout_rate,
+                                               dropout_keys[2])

@@ -31,12 +31,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint32
 _F = ctypes.c_float
+_DROPOUT = (_U, _U, _F, _I)  # seed, threshold, inv_keep, dropout on
 _SIGNATURES = {
     # q, k, v, lens, cos, sin, out, b, n, h, roped, scale, stream
     "erax_serving_attention": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     # x, scale, shift, w, bias, out, stats, b, m, k, n, gelu, eps, stream
     "erax_ln_mod_matmul": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    # q, k, v, lens, out, lse, b, n, h, scale, dropout..., stream
+    "erax_train_attention_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, *_DROPOUT, _P),
+    # q, k, v, dout, lse, dd, lens, dq, b, n, h, scale, dropout..., stream
+    "erax_train_attention_dq": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, *_DROPOUT,
+                                _P),
+    # q, k, v, dout, lse, dd, lens, dk, dv, b, n, h, scale, dropout..., stream
+    "erax_train_attention_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
+                                 *_DROPOUT, _P),
 }
 
 

@@ -9,7 +9,9 @@ CPU mode) and skip elsewhere. On the card:
 
 Tolerance: |kernel - plain| <= 1.6e-2 * (1 + |plain|), a few bf16 ulps: both
 round at the same points, but sum in other orders, and the attention
-kernel's online softmax rounds the unnormalised P to bf16.
+kernels' online softmax rounds the unnormalised P to bf16. The training
+attention's gradients are held to the same bound: the kernels round dS to
+bf16 before the dq / dk products, which the plain version does not.
 """
 
 import pytest
@@ -17,6 +19,8 @@ import torch
 
 from eraxvif5tts_tpu_torch.ops import fused_matmul as fm
 from eraxvif5tts_tpu_torch.ops import serving_attention as sa
+from eraxvif5tts_tpu_torch.ops import train_attention as ta
+from eraxvif5tts_tpu_torch.ops.masks import lens_to_mask
 from eraxvif5tts_tpu_torch.ops.rotary import rotary_freqs
 
 pytestmark = pytest.mark.cuda
@@ -67,6 +71,33 @@ def test_ln_mod_matmul_kernel_matches_plain(cuda, m, activation):
     _assert_close(got, fm.ln_mod_matmul_reference(x, scale, shift, w, bias, activation))
 
 
+@pytest.mark.parametrize("n", [64, 320, 1024])
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+def test_train_attention_kernels_match_plain(cuda, n, dropout):
+    g = torch.Generator(device=cuda).manual_seed(n)
+    q, k, v, dout = (torch.randn((2, n, 4, 64), generator=g, device=cuda).bfloat16()
+                     for _ in range(4))
+    mask = lens_to_mask(torch.tensor([0, n - 21], device=cuda), n)
+    counters = (ta.flash_forward, ta.flash_dq, ta.flash_dkv)
+    before = [fn.launches for fn in counters]
+    results = []
+    for fn in (ta.train_attention, None):
+        args = [t.clone().requires_grad_() for t in (q, k, v)]
+        if fn is None:
+            out = ta.train_attention_reference(*args, mask.sum(-1), dropout, seed=0xC0FFEE)
+        else:
+            out = fn(*args, key_valid=mask, dropout_rate=dropout, seed=0xC0FFEE)
+        results.append([out, *torch.autograd.grad(out, args, dout)])
+    torch.cuda.synchronize()
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [1, 1, 1]
+    for got, want in zip(*results):
+        assert torch.isfinite(got).all()
+        _assert_close(got, want)
+    # the mask depends only on (seed, positions): a second call repeats the first
+    again = ta.train_attention(q, k, v, key_valid=mask, dropout_rate=dropout, seed=0xC0FFEE)
+    assert torch.equal(again, results[0][0].detach())
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda):
     q = torch.zeros((1, 128, 2, 64), device=cuda)
     with pytest.raises(TypeError):
@@ -79,3 +110,7 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     w = torch.zeros((96, 64), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         fm.ln_mod_matmul(x, s, s, w, torch.zeros(96, device=cuda, dtype=torch.bfloat16))
+    with pytest.raises(TypeError):
+        ta.train_attention(q, q, q)
+    with pytest.raises(ValueError):
+        ta.train_attention(qb, qb, qb)

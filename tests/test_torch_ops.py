@@ -36,12 +36,14 @@ PORT_MODULES = [
     "eraxvif5tts_tpu_torch",
     "eraxvif5tts_tpu_torch.ops._cuda",
     "eraxvif5tts_tpu_torch.ops.attention",
+    "eraxvif5tts_tpu_torch.ops.dropout",
     "eraxvif5tts_tpu_torch.ops.fused_matmul",
     "eraxvif5tts_tpu_torch.ops.masks",
     "eraxvif5tts_tpu_torch.ops.mel",
     "eraxvif5tts_tpu_torch.ops.rotary",
     "eraxvif5tts_tpu_torch.ops.serving_attention",
     "eraxvif5tts_tpu_torch.ops.stft",
+    "eraxvif5tts_tpu_torch.ops.train_attention",
     "eraxvif5tts_tpu_torch.models.modules",
     "eraxvif5tts_tpu_torch.models.dit",
     "eraxvif5tts_tpu_torch.models.cfm",
@@ -50,6 +52,7 @@ PORT_MODULES = [
     "eraxvif5tts_tpu_torch.infer.utils",
     "eraxvif5tts_tpu_torch.infer.wrapper",
     "eraxvif5tts_tpu_torch.serving.socket_server",
+    "eraxvif5tts_tpu_torch.training.trainer",
 ]
 
 
