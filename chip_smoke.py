@@ -13,7 +13,10 @@ Phases (any failure raises and the script exits non-zero):
               CUDA-event times (the training attention forward and both
               backward kernels against the plain version's autograd, also
               at the train phase's 9 x 4096 shape, each limit checked
-              against a wrong-seed control);
+              against a wrong-seed control; the int8 feed-forward also at
+              the batched CFG shape, with its hidden codes compared; the
+              gated residual projection, which no model calls, masked and
+              unmasked);
 4. main    -- `F5TTSWrapper` at F5TTS_v1_Base width (dim 1024, depth 22,
               16 x 64 heads) in bf16 from seeded random weights: the DiT with
               its kernels against the same DiT with the plain versions, then
@@ -22,7 +25,18 @@ Phases (any failure raises and the script exits non-zero):
               the realtime factor printed;
 5. server  -- the socket server on a free localhost port answers three
               requests and shuts down;
-6. train   -- CFM training of F5TTS_v1_Base at full width (fp32 parameters,
+6. int8    -- int8 W8A8 serving at the same width: a seeded N(0, 0.02)
+              reference-format checkpoint, `F5TTSWrapper(compute_dtype="int8",
+              int8_validate=True)` quantizing it at load behind the quality
+              gate, then `generate_batch` of eight texts (warm-up at NFE 2),
+              the quantized DiT with its kernels against the plain versions
+              and the int8 feed-forward against its plain version, both at
+              the shape that batch gives them, then the batch at NFE 32 with
+              the QuantLinear chain (`ERAX_INT8_FF` unset) and with the
+              one-kernel feed-forward (`ERAX_INT8_FF=1`), in turns with a
+              bf16 wrapper on the same checkpoint, with the launch counters
+              checked per call and seconds of audio per wall second printed;
+7. train   -- CFM training of F5TTS_v1_Base at full width (fp32 parameters,
               bf16 compute, dropout 0.1, seeded random weights): one
               `CFM.loss` forward and backward with the kernels against the
               plain attention (and a wrong-mask control), then `Trainer.train_step` on the single-chip
@@ -31,8 +45,9 @@ Phases (any failure raises and the script exits non-zero):
               counters checked per step, and a checkpoint save / restore.
 
 The line before the last is a JSON object with each kernel's launches in its
-path's phase (serving kernels: main; training kernels: train), error and
-times; the last line is the device summary.
+path's phase (serving kernels: main; int8 feed-forward: int8; training
+kernels: train; the gated residual projection, on no path: kernels), error
+and times; the last line is the device summary.
 """
 
 from __future__ import annotations
@@ -40,6 +55,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import socket
 import statistics
 import string
@@ -57,6 +73,12 @@ NFE = 32
 WEIGHT_STD = 0.02
 TOL = 1.6e-2  # |kernel - plain| <= TOL * (1 + |plain|): a few bf16 ulps
 DIT_TOL = 5e-2  # whole-DiT relative error, bf16 through 22 blocks
+# int8 feed-forward, |kernel - plain| in units of max |plain|: both sum exactly
+# (int32) and round at the same points in IEEE fp32; a hidden code flipped by
+# a tie moves an output by ~1e-3 of it. At most CODE_FLIPS of the hidden codes
+# may differ (H100: none; a reciprocal-product scale flipped 6e-4 of them)
+INT8_FF_TOL = 1e-2
+CODE_FLIPS = 1e-5
 # Limits near the geometric mean of the error measured on an H100 and a
 # control's distance (the plain version with a wrong dropout seed, or with
 # wrong attention-dropout keys), which each run checks to exceed the limit:
@@ -73,6 +95,14 @@ TEXTS = (
     "Not a single ship passed the point. Tomorrow the supply boat arrives, "
     "and the long quiet week will finally be over.",
     "The keeper wrote one more line in the logbook before the dawn came up.",
+)
+# the int8 phase's batch: eight utterances of 0.7 to ~5 s of text
+BATCH_TEXTS = TEXTS + (
+    "Rain tapped on the glass all afternoon.",
+    "She folded the map, put it in her coat pocket, and walked down to the harbour.",
+    "Five gulls sat on the railing.",
+    "The radio crackled twice and then went silent for the rest of the night.",
+    "By morning the fog had lifted, and the far island stood out sharp and green.",
 )
 
 
@@ -183,8 +213,111 @@ def phase_kernels(dev) -> dict:
     results["ln_mod_matmul"] = dict(max_abs_err=err_max, ms=times[1088][0],
                                     plain_ms=times[1088][1])
     log("[kernels] the JSON line's serving ms / plain_ms are the n = M = 1088 bucket's")
+    results.update(check_int8_ff(dev, g))
+    results.update(check_matmul_gate_res(dev, g))
     results.update(check_train_attention(dev, g))
     return results
+
+
+def int8_chain(x, w1_q, s1, b1, w2_q, s2, b2):
+    """The quantized block's unfused feed-forward (`ERAX_INT8_FF` unset): two
+    QuantLinear products with bf16 outputs and biases, tanh-GELU in bf16."""
+    import torch.nn.functional as F
+
+    from eraxvif5tts_tpu_torch.ops.quant import int8_matmul
+
+    h = F.gelu(int8_matmul(x, w1_q, s1) + b1.bfloat16(), approximate="tanh")
+    return int8_matmul(h, w2_q, s2) + b2.bfloat16()
+
+
+def check_int8_ff_shape(dev, g, b: int, m: int, tag: str = "[kernels]") -> tuple:
+    """Kernel 5 against its plain version at [b, m, 1024] x 2048 x 1024 (the
+    DiT's FF at dim 1024, ff 2048) on seeded operands: the output within
+    INT8_FF_TOL of its scale, the hidden codes the kernel requantizes
+    compared with the plain version's. Times: kernel, plain version, and the
+    QuantLinear chain the model runs without ERAX_INT8_FF. Returns (error,
+    kernel ms, plain ms)."""
+    import torch
+
+    from eraxvif5tts_tpu_torch.ops import quant, quant_ff
+
+    x = torch.randn((b, m, 1024), generator=g, device=dev).bfloat16()
+    w1_q, s1 = quant.quantize_weight(torch.randn((2048, 1024), generator=g, device=dev) / 32)
+    w2_q, s2 = quant.quantize_weight(torch.randn((1024, 2048), generator=g, device=dev) / 45)
+    b1 = 0.1 * torch.randn((2048,), generator=g, device=dev)
+    b2 = 0.1 * torch.randn((1024,), generator=g, device=dev)
+    args = (x, w1_q, s1, b1, w2_q, s2, b2)
+    codes = torch.empty((b, m, 2048), dtype=torch.int8, device=dev)
+    got = quant_ff.int8_ff(*args, h_codes=codes)
+    want = quant_ff.int8_ff_reference(*args)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    code_diff = (codes.int() - quant_ff.hidden_codes(*args[:4])[0].int()).abs()
+    flipped, worst = int((code_diff > 0).sum()), int(code_diff.max())
+    shape = f"B={b} M={m} K=1024 N=2048 K2=1024"
+    if not torch.isfinite(got).all() or err > INT8_FF_TOL * scale:
+        raise AssertionError(f"int8_ff {shape}: max |kernel - plain| {err:.4g} beyond "
+                             f"{INT8_FF_TOL} x {scale:.4g}")
+    if worst > 1 or flipped > CODE_FLIPS * codes.numel():
+        raise AssertionError(f"int8_ff {shape}: {flipped} hidden codes differ, by up to {worst}")
+    ms = cuda_median_ms(lambda: quant_ff.int8_ff(*args))
+    plain_ms = cuda_median_ms(lambda: quant_ff.int8_ff_reference(*args))
+    chain_ms = cuda_median_ms(lambda: int8_chain(*args))
+    log(f"{tag} int8_ff {shape}: max_abs_err {err:.3g} of scale {scale:.3g} (tol "
+        f"{INT8_FF_TOL} of scale); hidden codes differing {flipped} of {codes.numel()} "
+        f"(max {worst}; tol {CODE_FLIPS} of them, by 1); kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, QuantLinear chain {chain_ms:.4f} ms")
+    return err, ms, plain_ms
+
+
+def check_int8_ff(dev, g) -> dict:
+    """Kernel 5 at b = 2 (one utterance with CFG) at M = 256 and 1088, and
+    at 16 x 1024; the int8 phase adds the shape its batch gives the kernel."""
+    cases = {(b, m): check_int8_ff_shape(dev, g, b, m)
+             for b, m in ((2, 256), (2, 1088), (16, 1024))}
+    log("[kernels] the JSON line's int8_ff ms / plain_ms are the B = 2, M = 1088 case's")
+    return {"int8_ff": dict(max_abs_err=max(err for err, _, _ in cases.values()),
+                            ms=cases[(2, 1088)][1], plain_ms=cases[(2, 1088)][2])}
+
+
+def check_matmul_gate_res(dev, g) -> dict:
+    """Kernel 3 against its plain version at the DiT's FF output shape
+    ([2, M, 2048] -> 1024), rows past lens kept as the residual and not. No
+    model calls it (as in the JAX package), so its launches are this
+    check's."""
+    import torch
+
+    from eraxvif5tts_tpu_torch.ops import fused_matmul as fm
+
+    fm.matmul_gate_res.launches = 0
+    err_max, times = 0.0, {}
+    for m in (256, 1088):
+        h = torch.randn((2, m, 2048), generator=g, device=dev).bfloat16()
+        w = (torch.randn((1024, 2048), generator=g, device=dev) / 45).bfloat16()
+        bias = (0.1 * torch.randn((1024,), generator=g, device=dev)).bfloat16()
+        gate = torch.randn((2, 1024), generator=g, device=dev).bfloat16()
+        res = torch.randn((2, m, 1024), generator=g, device=dev).bfloat16()
+        lens = torch.tensor([m, m - 37], dtype=torch.int32, device=dev)
+        for mask_rows in (True, False):
+            args = (h, w, bias, gate, res, lens, mask_rows)
+            got = fm.matmul_gate_res(*args)
+            err = compare(f"matmul_gate_res M={m} mask_rows={mask_rows}", got,
+                          fm.matmul_gate_res_reference(*args))
+            if mask_rows and not torch.equal(got[1, m - 37:], res[1, m - 37:]):
+                raise AssertionError(f"matmul_gate_res M={m}: masked rows are not the residual")
+            err_max = max(err_max, err)
+            ms = cuda_median_ms(lambda: fm.matmul_gate_res(*args))
+            plain_ms = cuda_median_ms(lambda: fm.matmul_gate_res_reference(*args))
+            times[(m, mask_rows)] = (ms, plain_ms)
+            log(f"[kernels] matmul_gate_res B=2 M={m} K=2048 N=1024 mask_rows={mask_rows} "
+                f"(lens [{m}, {m - 37}]): max_abs_err {err:.3g} (tol {TOL} * (1 + |plain|)); "
+                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    log("[kernels] the JSON line's matmul_gate_res ms / plain_ms are the M = 1088 masked "
+        "case's; its launches are the kernel phase's (no model path calls it)")
+    return {"matmul_gate_res": dict(max_abs_err=err_max, ms=times[(1088, True)][0],
+                                    plain_ms=times[(1088, True)][1],
+                                    launches=fm.matmul_gate_res.launches)}
 
 
 def rel_l2(got, want) -> float:
@@ -327,6 +460,21 @@ def check_train_attention(dev, g) -> dict:
             for name in errs}
 
 
+def randomize(modules, seed: int) -> None:
+    """Every parameter of ``modules`` from N(0, WEIGHT_STD), one seeded
+    generator on the parameters' device: the reference's zero-initialised
+    AdaLN and output projections would make each block an identity."""
+    import torch
+
+    g = None
+    with torch.no_grad():
+        for module in modules:
+            for p in module.parameters():
+                if g is None:
+                    g = torch.Generator(device=p.device).manual_seed(seed)
+                p.normal_(0.0, WEIGHT_STD, generator=g)
+
+
 def build_wrapper(dev):
     import torch
 
@@ -336,13 +484,7 @@ def build_wrapper(dev):
     t0 = time.perf_counter()
     wrapper = F5TTSWrapper(model_name="F5TTS_v1_Base", vocab_char_map=vocab, device=dev,
                            compute_dtype="bfloat16", nfe_step=NFE)
-    # every leaf from a seeded normal: the reference's zero-initialised AdaLN
-    # and output projections would make each block an identity
-    g = torch.Generator(device=dev).manual_seed(SEED)
-    with torch.no_grad():
-        for module in (wrapper.transformer, wrapper.vocoder):
-            for p in module.parameters():
-                p.normal_(0.0, WEIGHT_STD, generator=g)
+    randomize((wrapper.transformer, wrapper.vocoder), SEED)
     torch.cuda.synchronize()
     a = wrapper.config.arch
     n_params = sum(p.numel() for p in wrapper.transformer.parameters())
@@ -353,25 +495,26 @@ def build_wrapper(dev):
     return wrapper
 
 
-def check_dit_against_plain(wrapper, dev):
+def check_dit_against_plain(dit, dev, tag: str = "[main]", b: int = 2, n: int = 256):
     """One DiT.run at full width with the kernels vs with the plain versions,
-    on the same card and inputs."""
+    on the same card and inputs: b rows of n frames, the second half of the
+    rows with their conditioning dropped (as CFG doubles a batch), every odd
+    row masked after n - 56 frames."""
     import torch
 
     from eraxvif5tts_tpu_torch.models import modules
     from eraxvif5tts_tpu_torch.ops.fused_matmul import ln_mod_matmul_reference
     from eraxvif5tts_tpu_torch.ops.masks import lens_to_mask
+    from eraxvif5tts_tpu_torch.ops.quant_ff import int8_ff_reference
     from eraxvif5tts_tpu_torch.ops.serving_attention import serving_attention_reference
 
-    dit = wrapper.transformer
-    n, b = 256, 2
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     x = torch.randn((b, n, 100), generator=g, device=dev)
     cond = torch.randn((b, n, 100), generator=g, device=dev)
     text = torch.randint(0, 90, (b, 120), generator=g, device=dev)
-    drop = torch.tensor([False, True], device=dev)
-    mask = lens_to_mask(torch.tensor([n, 200], device=dev), n)
-    time_ = torch.tensor([0.3, 0.3], device=dev)
+    drop = torch.arange(b, device=dev) >= b // 2
+    mask = lens_to_mask(n - 56 * (torch.arange(b, device=dev) % 2), n)
+    time_ = torch.full((b,), 0.3, device=dev)
 
     def run():
         with torch.inference_mode():
@@ -379,17 +522,18 @@ def check_dit_against_plain(wrapper, dev):
             return dit.run(x, cond, te, time_, drop, mask)
 
     got = run()
-    saved = modules.dot_product_attention, modules.ln_mod_matmul
+    saved = modules.dot_product_attention, modules.ln_mod_matmul, modules.int8_ff
     modules.dot_product_attention = lambda q, k, v, key_valid=None, rope=None: (
         serving_attention_reference(q, k, v, key_valid.sum(-1), rope))
     modules.ln_mod_matmul = lambda x, s, sh, w, bias, activation="gelu_tanh": (
         ln_mod_matmul_reference(x, s, sh, w, bias, activation))
+    modules.int8_ff = int8_ff_reference
     try:
         want = run()
     finally:
-        modules.dot_product_attention, modules.ln_mod_matmul = saved
+        modules.dot_product_attention, modules.ln_mod_matmul, modules.int8_ff = saved
     rel = float((got - want).abs().max() / want.abs().max())
-    log(f"[main] DiT.run b={b} n={n} kernels vs plain versions: max error {rel:.3g} of "
+    log(f"{tag} DiT.run b={b} n={n} kernels vs plain versions: max error {rel:.3g} of "
         f"scale {float(want.abs().max()):.3g} (tol {DIT_TOL})")
     if not torch.isfinite(got).all() or rel > DIT_TOL:
         raise AssertionError(f"DiT with kernels differs from plain by {rel:.3g}")
@@ -403,11 +547,9 @@ def phase_main(dev) -> tuple[object, object, dict]:
     from eraxvif5tts_tpu_torch.ops import serving_attention as sa
 
     wrapper = build_wrapper(dev)
-    check_dit_against_plain(wrapper, dev)
+    check_dit_against_plain(wrapper.transformer, dev)
 
-    example = ROOT / "eraxvif5tts_tpu" / "infer" / "examples" / "basic"
-    ref_text = tomllib.loads((example / "basic.toml").read_text())["ref_text"]
-    ref = wrapper.preprocess_reference(str(example / "basic_ref_en.wav"), ref_text)
+    ref = load_reference(wrapper)
     log(f"[main] reference: {ref.n_frames} frames ({ref.audio_seconds:.2f} s), "
         f"text {ref.text!r}")
     t0 = time.perf_counter()
@@ -495,6 +637,161 @@ def phase_server(wrapper, ref):
     if server.is_alive():
         raise AssertionError("socket server did not shut down")
     log("[server] shut down")
+
+
+def load_reference(wrapper):
+    """The bundled reference clip and its transcript, preprocessed."""
+    example = ROOT / "eraxvif5tts_tpu" / "infer" / "examples" / "basic"
+    ref_text = tomllib.loads((example / "basic.toml").read_text())["ref_text"]
+    return wrapper.preprocess_reference(str(example / "basic_ref_en.wav"), ref_text)
+
+
+def save_reference_checkpoint(path: Path, cfg, dev) -> None:
+    """A reference-format F5-TTS checkpoint (EMA keys, fp32) of the DiT of
+    ``cfg`` with every parameter from N(0, WEIGHT_STD), seed SEED + 3. The
+    int8 wrapper must quantize real weights at load: its int8 buffers cannot
+    be redrawn after the build, and a fresh initialisation is degenerate for
+    int8 (its zero AdaLN gates zero every quantized product)."""
+    import torch
+
+    from eraxvif5tts_tpu_torch.models.dit import DiT
+
+    dit = DiT(cfg.arch, len(VOCAB_CHARS), cfg.mel_spec.n_mel_channels).to(dev)
+    randomize((dit,), SEED + 3)
+    torch.save({f"ema_model.transformer.{k}": v.cpu() for k, v in dit.state_dict().items()},
+               path)
+
+
+def run_batch(wrapper, depth: int, nfe: int, seed: int, int8_ff: bool, label: str):
+    """One `generate_batch` of BATCH_TEXTS, ERAX_INT8_FF set or unset, with
+    its launch counters checked: kernel 1 depth x NFE, kernel 5 as many with
+    the one-kernel feed-forward and none without, kernel 2 none on the int8
+    path (quantized blocks take the unfused FF). Returns (waves, wall s,
+    seconds of audio)."""
+    import numpy as np
+    import torch
+
+    from eraxvif5tts_tpu_torch.ops import fused_matmul as fm
+    from eraxvif5tts_tpu_torch.ops import quant_ff as qf
+    from eraxvif5tts_tpu_torch.ops import serving_attention as sa
+
+    quantized = wrapper.compute_dtype == "int8"
+    if int8_ff:
+        os.environ["ERAX_INT8_FF"] = "1"
+    else:
+        os.environ.pop("ERAX_INT8_FF", None)
+    counters = (sa.serving_attention, qf.int8_ff, fm.ln_mod_matmul)
+    before = [fn.launches for fn in counters]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        waves = wrapper.generate_batch(list(BATCH_TEXTS), nfe_step=nfe, seed=seed)
+    finally:
+        os.environ.pop("ERAX_INT8_FF", None)
+    wall = time.perf_counter() - t0
+    counts = [fn.launches - c for fn, c in zip(counters, before)]
+    audio = sum(len(w) for w in waves) / wrapper.target_sample_rate
+    want = [depth * nfe, depth * nfe if int8_ff else 0, 0 if quantized else depth * nfe]
+    log(f"[int8] generate_batch {label} ({len(waves)} texts, NFE {nfe}): {audio:.2f} s of "
+        f"audio in {wall:.3f} s ({audio / wall:.2f} s of audio per wall s); launches "
+        f"attention / int8_ff / ln_mod {counts}")
+    if counts != want:
+        raise AssertionError(f"generate_batch {label}: launches {counts}, expected {want}")
+    if len(waves) != len(BATCH_TEXTS) or not all(
+            len(w) > 0 and np.isfinite(w).all() and np.abs(w).max() > 1e-3 for w in waves):
+        raise AssertionError(f"generate_batch {label}: PCM is not finite and non-silent")
+    return waves, wall, audio
+
+
+def phase_int8(dev, cfg) -> tuple[dict, float]:
+    """Returns the int8 feed-forward's launches in the measured batch calls
+    and its error against the plain version at the batch's own shape."""
+    import numpy as np
+    import torch
+
+    from eraxvif5tts_tpu_torch.infer.wrapper import F5TTSWrapper
+    from eraxvif5tts_tpu_torch.models import modules
+    from eraxvif5tts_tpu_torch.ops import quant_ff as qf
+    from eraxvif5tts_tpu_torch.ops import serving_attention as sa
+
+    vocab = {c: i for i, c in enumerate(VOCAB_CHARS)}
+    depth = cfg.arch.depth
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = Path(tmp) / "model.pt"
+        t0 = time.perf_counter()
+        save_reference_checkpoint(ckpt, cfg, dev)
+        log(f"[int8] reference-format checkpoint of N(0, {WEIGHT_STD}) weights, seed "
+            f"{SEED + 3}: {ckpt.stat().st_size / 2**30:.2f} GiB written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        common = dict(model_cfg=cfg, ckpt_path=str(ckpt), vocab_char_map=vocab, device=dev,
+                      nfe_step=NFE)
+        t0 = time.perf_counter()
+        int8 = F5TTSWrapper(compute_dtype="int8", int8_validate=True, **common)
+        torch.cuda.synchronize()
+        report = int8.int8_report
+        log(f"[int8] F5TTSWrapper(compute_dtype='int8', int8_validate=True) built in "
+            f"{time.perf_counter() - t0:.1f} s; quality gate (8 steps, max_duration 256, "
+            f"against a bf16 twin): rel_mse {report['rel_mse']:.4g}, lsd_db "
+            f"{report['lsd_db']:.4g}, forward_rel_mse {report['forward_rel_mse']:.4g}, "
+            f"passes {report['passes_gate']}")
+        bf16 = F5TTSWrapper(compute_dtype="bfloat16", **common)
+    # the vocoders: the same seeded draw as the main phase's
+    randomize((int8.vocoder,), SEED)
+    randomize((bf16.vocoder,), SEED)
+    blocks = int8.transformer.transformer_blocks
+    q_bytes = sum(b.numel() for name, b in int8.transformer.named_buffers()
+                  if name.endswith("weight_q"))
+    log(f"[int8] {len(blocks)} quantized blocks: {q_bytes / 2**20:.1f} MiB of int8 weights "
+        f"(6 projections a block), the rest bf16 matrices and fp32 vectors")
+    load_reference(int8)
+    load_reference(bf16)
+    runs = {"bf16": (bf16, False), "int8 chain": (int8, False), "int8 fused": (int8, True)}
+    shapes = set()  # the [rows, frames] the batch gives kernel 5 (with CFG)
+    ff = modules.int8_ff
+
+    def recorded(x, *args, **kwargs):
+        shapes.add(tuple(x.shape[:2]))
+        return ff(x, *args, **kwargs)
+
+    modules.int8_ff = recorded
+    try:
+        for label, (wrapper, int8_ff) in runs.items():  # warm-up: first calls at this bucket
+            run_batch(wrapper, depth, 2, SEED, int8_ff, f"{label} warm-up")
+    finally:
+        modules.int8_ff = ff
+    (b, n), = shapes
+    log(f"[int8] the batch of {len(BATCH_TEXTS)} texts runs the DiT at {b} rows x {n} frames")
+    for int8_ff in (False, True):
+        if int8_ff:
+            os.environ["ERAX_INT8_FF"] = "1"
+        try:
+            check_dit_against_plain(int8.transformer, dev,
+                                    f"[int8] ERAX_INT8_FF={'1' if int8_ff else 'unset'}:", b, n)
+        finally:
+            os.environ.pop("ERAX_INT8_FF", None)
+    ff_err = check_int8_ff_shape(dev, torch.Generator(device=dev).manual_seed(SEED + 5), b, n,
+                                 "[int8]")[0]
+    sa.serving_attention.launches = qf.int8_ff.launches = 0
+    waves, walls, audio = {}, {label: [] for label in runs}, {}
+    for label in (*runs, *reversed(runs)):
+        wrapper, int8_ff = runs[label]
+        waves[label], wall, audio[label] = run_batch(wrapper, depth, NFE, SEED + 4, int8_ff,
+                                                     label)
+        walls[label].append(wall)
+    launches = {"int8_ff": qf.int8_ff.launches}
+    diffs = [float(np.abs(a - b).max()) for a, b in zip(waves["int8 chain"], waves["int8 fused"])]
+    rel = [float(np.linalg.norm(a - b) / np.linalg.norm(b))
+           for a, b in zip(waves["int8 chain"], waves["int8 fused"])]
+    log(f"[int8] int8 chain vs fused, same seed, per text: max |difference| "
+        f"{max(diffs):.4g} of full scale, relative L2 {min(rel):.3g}-{max(rel):.3g} (the fused "
+        f"feed-forward keeps the hidden state in fp32; the chain rounds it to bf16)")
+    rates = {label: audio[label] / statistics.mean(w) for label, w in walls.items()}
+    log("[int8] throughput, seconds of audio per wall second (mean of two calls in turns "
+        f"bf16, chain, fused, fused, chain, bf16; batch {len(BATCH_TEXTS)}, NFE {NFE}): "
+        + ", ".join(f"{label} {rate:.3f}" for label, rate in rates.items())
+        + f"; int8 chain / bf16 {rates['int8 chain'] / rates['bf16']:.3f}, int8 fused / bf16 "
+        f"{rates['int8 fused'] / rates['bf16']:.3f}")
+    return launches, ff_err
 
 
 def train_arch():
@@ -589,10 +886,7 @@ def phase_train(dev, arch=None) -> dict:
     arch = arch or train_arch()
     dit = DiT(arch, text_num_embeds=len(VOCAB_CHARS), mel_dim=100,
               compute_dtype=torch.bfloat16).to(dev)
-    g = torch.Generator(device=dev).manual_seed(SEED)
-    with torch.no_grad():
-        for p in dit.parameters():
-            p.normal_(0.0, WEIGHT_STD, generator=g)
+    randomize((dit,), SEED)
     cfm = CFM(dit.train())
     n_params = sum(p.numel() for p in dit.parameters())
     log(f"[train] F5TTS_v1_Base dim {arch.dim} depth {arch.depth} heads {arch.heads}x"
@@ -696,7 +990,12 @@ def main() -> int:
     kernel_results = phase_kernels(dev)
     wrapper, ref, launches = phase_main(dev)
     phase_server(wrapper, ref)
+    cfg = wrapper.config
     del wrapper, ref
+    int8_launches, ff_err = phase_int8(dev, cfg)
+    launches.update(int8_launches)
+    kernel_results["int8_ff"]["max_abs_err"] = max(kernel_results["int8_ff"]["max_abs_err"],
+                                                   ff_err)
     launches.update(phase_train(dev))
     kernels = [
         dict(name="serving_attention", route="cuda",
@@ -707,6 +1006,12 @@ def main() -> int:
              source="eraxvif5tts_tpu_torch/csrc/ln_mod_matmul.cu",
              replaces="eraxvif5tts_tpu/ops/fused_matmul.py:68",
              launches=launches["ln_mod_matmul"], **kernel_results["ln_mod_matmul"]),
+        dict(name="int8_ff", route="cuda", source="eraxvif5tts_tpu_torch/csrc/int8_ff.cu",
+             replaces="eraxvif5tts_tpu/ops/quant_ff.py:101", launches=launches["int8_ff"],
+             **kernel_results["int8_ff"]),
+        dict(name="matmul_gate_res", route="cuda",
+             source="eraxvif5tts_tpu_torch/csrc/matmul_gate_res.cu",
+             replaces="eraxvif5tts_tpu/ops/fused_matmul.py:99", **kernel_results["matmul_gate_res"]),
         *(dict(name=name, route="cuda",
                source="eraxvif5tts_tpu_torch/csrc/train_attention.cu",
                replaces=f"eraxvif5tts_tpu/ops/train_attention.py:{line}",

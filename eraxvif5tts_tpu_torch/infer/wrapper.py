@@ -7,25 +7,38 @@ reference's byte rate (`max_chars = ref_bytes / ref_sec * (22 - ref_sec)`),
 picks a duration bucket per chunk, runs one fused sample-and-vocode step per
 chunk (the prompt region is vocoded only from ``ref_frames - 48`` on and
 dropped, the wave is RMS-rescaled and returned as int16 PCM), and
-cross-fades the chunks.
+cross-fades the chunks. ``generate_batch`` runs several utterances as one
+padded batch: one bucket, per-sample durations, one shared noise draw,
+per-sample end trim.
+
+``compute_dtype="int8"`` is the JAX package's int8 W8A8 serving
+(`ops/quant.py`): a reference checkpoint or the default initialisation is
+quantized at load (``params`` must already be a tree quantized by
+`quantize_params`, as in JAX); every other backbone matrix is bf16 and every
+vector (biases, weight scales) stays fp32, as the JAX wrapper casts them;
+the compute dtype is bf16 and the vocoder is as in bf16 serving.
+``int8_validate`` runs the quality gate (`ops/quant.quant_divergence`: 8
+steps at ``max_duration=256``) against a bf16 twin of the same weights when
+the wrapper quantized them, raises past the threshold, keeps the report in
+``int8_report`` and frees the twin.
 
 Differences, by design:
 
-- an explicit ``device``; ``compute_dtype="bfloat16"`` is the card's serving
-  dtype, and a float32 wrapper on CUDA raises at construction (the CUDA
-  kernels take bf16);
+- an explicit ``device``; ``compute_dtype="bfloat16"`` (or ``"int8"``, which
+  computes in bf16) is the card's serving dtype, and a float32 wrapper on
+  CUDA raises at construction (the CUDA kernels take bf16);
 - sampler noise comes from a ``torch.Generator`` seeded per request, one
-  fresh ``[bucket, n_mels]`` draw per chunk (reproducible from ``seed``, not
-  bit-equal to ``jax.random``);
+  fresh ``[bucket, n_mels]`` draw per chunk, one per ``generate_batch`` call
+  (reproducible from ``seed``, not bit-equal to ``jax.random``);
 - weights come from reference checkpoints (``ckpt_path``,
   ``vocoder_ckpt_path``) or the JAX wrapper's parameter trees (``params``,
   ``vocoder_params``); without either, PyTorch's default initialisation;
 - ``warmup`` runs the smallest reachable bucket only: there is no per-bucket
   compile to pay ahead of time.
 
-Not ported yet (ROADMAP.md): ``generate_batch``, int8, BigVGAN, the duration
-predictor, multi-device meshes, automatic transcription of an empty
-``ref_text``.
+Not ported yet (ROADMAP.md): BigVGAN, the duration predictor, multi-device
+meshes (``generate_batch`` runs on one device), automatic transcription of an
+empty ``ref_text``.
 """
 
 from __future__ import annotations
@@ -62,6 +75,7 @@ from eraxvif5tts_tpu_torch.infer.utils import (
 from eraxvif5tts_tpu_torch.models.cfm import CFM
 from eraxvif5tts_tpu_torch.models.dit import DiT
 from eraxvif5tts_tpu_torch.models.vocos import Vocos
+from eraxvif5tts_tpu_torch.ops import quant
 from eraxvif5tts_tpu_torch.ops.stft import MelSpectrogram
 
 # Prompt-region frames vocoded in front of the generated region so the cut
@@ -69,7 +83,8 @@ from eraxvif5tts_tpu_torch.ops.stft import MelSpectrogram
 # wrapper.
 VOCODE_MARGIN_FRAMES = 48
 
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# compute dtype of each serving dtype (int8 serving computes in bf16)
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "int8": torch.bfloat16}
 
 
 @dataclass(frozen=True)
@@ -106,6 +121,7 @@ class F5TTSWrapper:
         sway_sampling_coef: Optional[float] = -1.0,
         speed: float = 1.0,
         compute_dtype: str = "bfloat16",
+        int8_validate: bool = False,
         device: str | torch.device = "cuda",
         params: Optional[dict] = None,
         vocoder_params: Optional[dict] = None,
@@ -128,7 +144,7 @@ class F5TTSWrapper:
             raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}, "
                              f"got {compute_dtype!r}")
         self.device = torch.device(device)
-        if self.device.type == "cuda" and compute_dtype != "bfloat16":
+        if self.device.type == "cuda" and compute_dtype == "float32":
             raise ValueError(
                 f"compute_dtype={compute_dtype!r} on {self.device}: the CUDA kernels "
                 "take bfloat16 only; float32 on the card is not ported yet")
@@ -168,14 +184,21 @@ class F5TTSWrapper:
                     f"checkpoint's text embedding holds {text_num_embeds}")
         else:
             text_num_embeds = len(self.vocab_char_map) if self.vocab_char_map else 256
-        self.config = cfg
-
         mel_cfg = cfg.mel_spec
-        self.transformer = DiT(cfg.arch, text_num_embeds, mel_cfg.n_mel_channels)
-        if state_dict is not None:
-            self.transformer.load_state_dict(state_dict, strict=True)
-        # every backbone weight in the compute dtype, as the JAX wrapper does
-        self.transformer.to(device=self.device, dtype=dtype).eval()
+        self.int8_report: Optional[dict] = None
+        if compute_dtype == "int8":
+            cfg = dataclasses.replace(cfg, arch=dataclasses.replace(cfg.arch, quantized=True))
+            self.transformer = self._build_int8(
+                cfg.arch, text_num_embeds, mel_cfg.n_mel_channels, state_dict,
+                prequantized=params is not None and ckpt_path is None,
+                validate=int8_validate)
+        else:
+            self.transformer = DiT(cfg.arch, text_num_embeds, mel_cfg.n_mel_channels)
+            if state_dict is not None:
+                self.transformer.load_state_dict(state_dict, strict=True)
+            # every backbone weight in the compute dtype, as the JAX wrapper does
+            self.transformer.to(device=self.device, dtype=dtype).eval()
+        self.config = cfg
 
         self.vocoder = Vocos(input_channels=mel_cfg.n_mel_channels, n_fft=mel_cfg.n_fft,
                              hop_length=mel_cfg.hop_length, compute_dtype=dtype)
@@ -191,6 +214,40 @@ class F5TTSWrapper:
         self.cfm = CFM(self.transformer)
         self.ref: Optional[ReferenceState] = None
         self._last_wave: Optional[np.ndarray] = None
+
+    def _build_int8(self, arch, text_num_embeds: int, mel_dim: int,
+                    state_dict: Optional[dict], prequantized: bool, validate: bool) -> DiT:
+        """The quantized DiT on the device: ``state_dict`` quantized here (or,
+        ``prequantized``, already carrying ``weight_q``), matrices bf16,
+        vectors fp32; gated by :func:`quant.quant_divergence` when
+        ``validate`` and the fp weights are at hand."""
+        fp_arch = dataclasses.replace(arch, quantized=False)
+        fp_sd = None
+        if prequantized:
+            if not any(k.endswith(".weight_q") for k in state_dict):
+                raise ValueError("compute_dtype='int8' with params= needs a tree quantized "
+                                 "by quantize_params (kernel_q / kernel_scale leaves)")
+            q_sd = state_dict
+        else:
+            fp_sd = state_dict if state_dict is not None else (
+                DiT(fp_arch, text_num_embeds, mel_dim).state_dict())
+            q_sd = quant.quantize_state_dict(fp_sd, arch.depth)
+        dit = DiT(arch, text_num_embeds, mel_dim)
+        dit.load_state_dict(q_sd, strict=True)
+        quant.cast_for_serving(dit).to(self.device).eval()
+        if validate and fp_sd is not None:
+            twin = DiT(fp_arch, text_num_embeds, mel_dim)
+            twin.load_state_dict(fp_sd, strict=True)
+            twin.to(device=self.device, dtype=torch.bfloat16).eval()
+            report = quant.quant_divergence(CFM(twin), CFM(dit), steps=8, max_duration=256)
+            del twin
+            self.int8_report = report
+            if not report["passes_gate"]:
+                raise ValueError(
+                    f"int8 quality gate failed: rel mel-MSE {report['rel_mse']:.4f} > "
+                    f"{quant.INT8_REL_MSE_THRESHOLD} (lsd {report['lsd_db']:.2f} dB) — serve "
+                    "with compute_dtype='bfloat16' instead")
+        return dit
 
     # ------------------------------------------------------------------
 
@@ -350,6 +407,59 @@ class F5TTSWrapper:
         if return_spectrogram and mels:
             return final, np.concatenate(mels, axis=1)
         return final
+
+    def generate_batch(self, texts: list[str], ref: Optional[ReferenceState] = None,
+                       nfe_step: Optional[int] = None, cfg_strength: Optional[float] = None,
+                       speed: Optional[float] = None,
+                       sway_sampling_coef: Optional[float] = None, seed: Optional[int] = None,
+                       use_pinyin: bool = True) -> list[np.ndarray]:
+        """Synthesise several utterances in one padded batch (the JAX
+        ``generate_batch`` without its mesh branch): one duration bucket and
+        one text bucket for all, per-sample durations, the prompt length as
+        every sample's ``lens``, one ``[bucket, n_mels]`` noise draw shared by
+        every sample, and each wave trimmed to its own duration. Returns one
+        float32 waveform per text (no chunking, no cross-fade)."""
+        ref = ref or self.ref
+        if ref is None:
+            raise RuntimeError("call preprocess_reference() first or pass ref=")
+        if not texts:
+            return []
+        if self.vocab_char_map is None:
+            raise RuntimeError("wrapper needs a vocab (vocab_file/vocab_char_map)")
+        nfe_step = nfe_step if nfe_step is not None else self.nfe_step
+        cfg_strength = cfg_strength if cfg_strength is not None else self.cfg_strength
+        speed = speed if speed is not None else self.speed
+        sway = sway_sampling_coef if sway_sampling_coef is not None else self.sway_sampling_coef
+
+        token_lists, durations = [], []
+        for text in texts:
+            local_speed = 0.3 if len(text.encode("utf-8")) < 10 else speed
+            full = ref.text + text
+            token_lists.append(convert_char_to_pinyin([full])[0] if use_pinyin else list(full))
+            durations.append(max(byte_ratio_duration(ref.n_frames, ref.text, text, local_speed,
+                                                     hop_length=self.hop_length,
+                                                     sample_rate=self.target_sample_rate),
+                                 ref.n_frames + 1))
+        bucket = pick_bucket(max(durations), self.duration_buckets)
+        durations = [min(d, bucket) for d in durations]
+        text_ids = list_str_to_idx(token_lists, self.vocab_char_map,
+                                   pad_to=pick_bucket(max(map(len, token_lists)),
+                                                      self.text_buckets))
+        b = len(texts)
+        generator = torch.Generator(device=self.device).manual_seed(
+            seed if seed is not None else _random.randrange(2**31))
+        vstart = max(ref.n_frames - VOCODE_MARGIN_FRAMES, 0)
+        rms_scale = ref.rms / self.target_rms if 0 < ref.rms < self.target_rms else 1.0
+        pcm, _ = self._sample_vocode(
+            ref.mel.expand(b, -1, -1), torch.from_numpy(text_ids).to(self.device, torch.long),
+            torch.tensor(durations, device=self.device),
+            torch.full((b,), ref.n_frames, device=self.device),
+            self._draw_noise(generator, bucket), rms_scale, steps=nfe_step,
+            cfg_strength=float(cfg_strength), sway=float(sway) if sway is not None else None,
+            max_duration=bucket, vocode_start=vstart, gen_start=ref.n_frames - vstart)
+        pcm = pcm.cpu().numpy()
+        return [pcm[i, :(d - ref.n_frames) * self.hop_length].astype(np.float32) / 32767.0
+                for i, d in enumerate(durations)]
 
     def get_current_audio_length(self) -> float:
         """Seconds of the most recently generated audio."""

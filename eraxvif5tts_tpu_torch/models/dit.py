@@ -8,7 +8,9 @@ loop and calls :meth:`DiT.run` at every step.
 
 The port builds the ``F5TTS_v1`` family: rotary on every head, no qk-norm,
 no long skip. Other architecture options of the JAX package raise here until
-they are ported.
+they are ported. ``arch.quantized`` builds the int8 W8A8 serving blocks
+(`ops/quant.py`; the wrapper's ``compute_dtype="int8"``): they serve only, in
+eval mode, as in the JAX package, where quantized models are never trained.
 
 Training (``module.train()``, the JAX ``deterministic=False``) keeps the
 parameters in fp32 and computes in ``compute_dtype`` (bf16 on the card, the
@@ -113,8 +115,7 @@ class DiT(nn.Module):
         unported = {"qk_norm": arch.qk_norm is not None,
                     "pe_attn_head": arch.pe_attn_head is not None,
                     "long_skip_connection": arch.long_skip_connection,
-                    "text_mask_padding=False": not arch.text_mask_padding,
-                    "quantized": arch.quantized}
+                    "text_mask_padding=False": not arch.text_mask_padding}
         if any(unported.values()):
             raise ValueError("DiT options not ported yet: "
                              + ", ".join(k for k, v in unported.items() if v))
@@ -128,7 +129,8 @@ class DiT(nn.Module):
                                         conv_layers=arch.conv_layers)
         self.input_embed = InputEmbedding(mel_dim, text_dim, arch.dim)
         self.transformer_blocks = nn.ModuleList(
-            [DiTBlock(arch.dim, arch.heads, arch.dim_head, arch.ff_mult)
+            [DiTBlock(arch.dim, arch.heads, arch.dim_head, arch.ff_mult,
+                      quantized=arch.quantized)
              for _ in range(arch.depth)])
         self.norm_out = AdaLayerNormFinal(arch.dim)
         self.proj_out = nn.Linear(arch.dim, mel_dim)
@@ -160,6 +162,9 @@ class DiT(nn.Module):
         batch, seq_len = x.shape[0], x.shape[1]
         if time.ndim == 0:
             time = time.expand(batch)
+        if self.training and self.arch.quantized:
+            raise ValueError("a quantized DiT serves only: call .eval() (int8 models are "
+                             "not trained)")
         rate = self.arch.dropout if self.training else 0.0
         if rate > 0.0 and (dropout_keys is None
                            or len(dropout_keys) != len(self.transformer_blocks)):

@@ -27,6 +27,14 @@ dropout rate is an argument of the forward (the DiT passes its
 the caller draws before the forward (3 per block): an activation-checkpoint
 recompute then reproduces every mask. The JAX package's grouped-convolution tap loop (a TPU speed trick)
 is a plain ``F.conv1d(groups=16)`` here.
+
+A quantized block (``quantized=True``, the JAX ``quantized`` int8 W8A8
+serving path, eval mode only) holds :class:`QuantLinear` for the four
+attention projections and both FF projections. Its attention keeps the
+serving kernel with rotary fused; its FF takes the layernorm + modulate
+unfused, then the two-``QuantLinear`` chain (bf16 outputs, tanh-GELU in
+bf16), or the one-kernel ``int8_ff`` with ``ERAX_INT8_FF=1`` — never the
+``ln_mod_matmul`` kernel (`modules.py:457-462`).
 """
 
 from __future__ import annotations
@@ -40,12 +48,17 @@ from torch import nn
 from eraxvif5tts_tpu_torch.ops.attention import dot_product_attention
 from eraxvif5tts_tpu_torch.ops.dropout import hash_dropout
 from eraxvif5tts_tpu_torch.ops.fused_matmul import ln_mod_matmul
+from eraxvif5tts_tpu_torch.ops.quant import QuantLinear
+from eraxvif5tts_tpu_torch.ops.quant_ff import int8_ff, use_int8_ff
 from eraxvif5tts_tpu_torch.ops.rotary import apply_rotary
 from eraxvif5tts_tpu_torch.ops.train_attention import attention_seed, train_attention
 
 
-def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
-    """``layer(x)`` computed in x's dtype."""
+def linear(x: torch.Tensor, layer: nn.Linear | QuantLinear) -> torch.Tensor:
+    """``layer(x)`` computed in x's dtype (a :class:`QuantLinear` quantizes x
+    itself)."""
+    if isinstance(layer, QuantLinear):
+        return layer(x)
     bias = layer.bias.to(x.dtype) if layer.bias is not None else None
     return F.linear(x, layer.weight.to(x.dtype), bias)
 
@@ -188,21 +201,31 @@ class FeedForward(nn.Module):
     input: layernorm + modulate + Linear + tanh-GELU, dropout, Linear. In eval
     mode the first four are one kernel (`ln_mod_matmul`, the fused serving
     branch, `modules.py:485-496`); in training mode they are unfused
-    (`modules.py:322-329`, `:498-500`). Keys ``ff.0.0`` / ``ff.2`` as in the
-    reference."""
+    (`modules.py:322-329`, `:498-500`). Quantized, the layernorm + modulate
+    is unfused and the rest is the int8 chain or ``int8_ff``
+    (`modules.py:309-329`). Keys ``ff.0.0`` / ``ff.2`` as in the reference."""
 
-    def __init__(self, dim: int, mult: int = 4):
+    def __init__(self, dim: int, mult: int = 4, quantized: bool = False):
         super().__init__()
         inner = int(dim * mult)
+        dense = QuantLinear if quantized else nn.Linear
+        self.quantized = quantized
         self.ff = nn.Sequential(
-            nn.Sequential(nn.Linear(dim, inner), nn.GELU(approximate="tanh")),
+            nn.Sequential(dense(dim, inner), nn.GELU(approximate="tanh")),
             nn.Dropout(0.0),
-            nn.Linear(inner, dim),
+            dense(inner, dim),
         )
 
     def forward(self, x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
                 dropout_rate: float = 0.0, dropout_key=None) -> torch.Tensor:
-        project_in = self.ff[0][0]
+        project_in, project_out = self.ff[0][0], self.ff[2]
+        if self.quantized:
+            h = layer_norm(x) * (1 + scale[:, None]) + shift[:, None]
+            if use_int8_ff():
+                return int8_ff(h, project_in.weight_q, project_in.weight_scale,
+                               project_in.bias, project_out.weight_q,
+                               project_out.weight_scale, project_out.bias)
+            return project_out(F.gelu(project_in(h), approximate="tanh"))
         if not self.training:
             h = ln_mod_matmul(x, scale.contiguous(), shift.contiguous(),
                               project_in.weight, project_in.bias, activation="gelu_tanh")
@@ -222,14 +245,15 @@ class Attention(nn.Module):
     ``dropout_keys`` are the (attention, output) keys of a training call at
     ``dropout_rate``."""
 
-    def __init__(self, dim: int, heads: int = 8, dim_head: int = 64):
+    def __init__(self, dim: int, heads: int = 8, dim_head: int = 64, quantized: bool = False):
         super().__init__()
         inner = heads * dim_head
+        dense = QuantLinear if quantized else nn.Linear
         self.heads, self.dim_head = heads, dim_head
-        self.to_q = nn.Linear(dim, inner)
-        self.to_k = nn.Linear(dim, inner)
-        self.to_v = nn.Linear(dim, inner)
-        self.to_out = nn.ModuleList([nn.Linear(inner, dim), nn.Dropout(0.0)])
+        self.to_q = dense(dim, inner)
+        self.to_k = dense(dim, inner)
+        self.to_v = dense(dim, inner)
+        self.to_out = nn.ModuleList([dense(inner, dim), nn.Dropout(0.0)])
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None,
                 rope: torch.Tensor | None = None, dropout_rate: float = 0.0,
@@ -260,11 +284,12 @@ class DiTBlock(nn.Module):
     three dropout sites, attention weights, attention output and FF hidden
     state, in the order the JAX block draws them."""
 
-    def __init__(self, dim: int, heads: int, dim_head: int, ff_mult: int = 4):
+    def __init__(self, dim: int, heads: int, dim_head: int, ff_mult: int = 4,
+                 quantized: bool = False):
         super().__init__()
         self.attn_norm = AdaLayerNorm(dim)
-        self.attn = Attention(dim, heads=heads, dim_head=dim_head)
-        self.ff = FeedForward(dim, mult=ff_mult)
+        self.attn = Attention(dim, heads=heads, dim_head=dim_head, quantized=quantized)
+        self.ff = FeedForward(dim, mult=ff_mult, quantized=quantized)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor,
                 mask: torch.Tensor | None = None,

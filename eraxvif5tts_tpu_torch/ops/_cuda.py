@@ -1,10 +1,14 @@
 """Build and load the port's CUDA kernels (`csrc/*.cu`).
 
-``nvcc`` compiles every source under `csrc/` into one shared library with a
-plain C interface for ``sm_90a``; the library is loaded with ``ctypes``. The
-build goes to `eraxvif5tts_tpu_torch/_build/` (ignored by git), keyed by a
-hash of the sources and flags, at first use — never at import, so the CPU
-tests import every module on a machine without ``nvcc``.
+``nvcc`` compiles each source under `csrc/` to an object for ``sm_90a``, all
+sources at once in parallel processes, then links the objects into one shared
+library with a plain C interface, loaded with ``ctypes``. The build goes to
+`eraxvif5tts_tpu_torch/_build/` (ignored by git), keyed by a hash of the
+sources and flags, at first use — never at import, so the CPU tests import
+every module on a machine without ``nvcc``. The flags leave out
+``--use_fast_math``: it would turn the int8 kernels' divisions into
+reciprocal products and ``tanhf`` into an approximation, and move their
+quantization codes.
 
 Each C entry point launches on the stream it is handed, allocates nothing,
 and returns ``cudaGetLastError()``; :func:`check` turns a non-zero code into
@@ -26,8 +30,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,6 +51,10 @@ _SIGNATURES = {
     # q, k, v, dout, lse, dd, lens, dk, dv, b, n, h, scale, dropout..., stream
     "erax_train_attention_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
                                  *_DROPOUT, _P),
+    # x, w1, s1, b1, w2, s2, b2, out, hidden codes, rows, k, n, k2, shared bytes, stream
+    "erax_int8_ff": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # h, w, bias, gate, res, lens, out, b, m, k, n, mask_rows, stream
+    "erax_matmul_gate_res": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 
@@ -89,6 +97,41 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _build(so: Path) -> str:
+    """Compile every `csrc/*.cu` to an object in parallel, link them into
+    ``so``; returns nvcc's output."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
+    objects, procs = [], []
+    for src in (s for s in _sources() if s.suffix == ".cu"):
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        objects.append(obj)
+        procs.append((src.name, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = "", []
+    for name, proc in procs:
+        out = proc.communicate()[0]
+        log += out
+        if proc.returncode != 0:
+            failed.append(f"{name} ({proc.returncode})")
+    try:
+        if failed:
+            raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n{log}")
+        tmp = so.with_suffix(f".{tag}")
+        proc = subprocess.run([nvcc, *ARCH_FLAGS, "-shared",
+                               "-o", str(tmp), *map(str, objects)],
+                              capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{log}")
+        os.replace(tmp, so)
+    finally:
+        for obj in objects:
+            obj.unlink(missing_ok=True)
+    return log
+
+
 def kernels() -> Kernels:
     """Build (once per source hash) and load the kernel library."""
     global _loaded
@@ -98,17 +141,9 @@ def kernels() -> Kernels:
         so = BUILD_DIR / f"liberax_kernels_{_digest()}.so"
         built, seconds, log = False, 0.0, ""
         if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   *[str(s) for s in _sources() if s.suffix == ".cu"]]
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+            log = _build(so)
             seconds = time.perf_counter() - t0
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-            os.replace(tmp, so)
             built = True
         lib = ctypes.CDLL(str(so))
         for name, argtypes in _SIGNATURES.items():

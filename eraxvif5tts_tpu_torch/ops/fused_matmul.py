@@ -1,20 +1,27 @@
-"""AdaLN-modulated projection: the DiT block's feed-forward input projection.
+"""The DiT block's fused projections: the AdaLN-modulated feed-forward input
+projection and the gated residual projection.
 
-Port of `ln_mod_matmul` from `eraxvif5tts_tpu/ops/fused_matmul.py` (Pallas body
-`_ln_mod_kernel`; the module's other kernel, `matmul_gate_res`, is on no model
-path and waits in ROADMAP.md). :func:`ln_mod_matmul` launches the CUDA kernel
-`csrc/ln_mod_matmul.cu` for CUDA tensors and runs
-:func:`ln_mod_matmul_reference`, the plain PyTorch version, for CPU tensors.
+Port of `eraxvif5tts_tpu/ops/fused_matmul.py`, both of its Pallas kernels:
 
-Semantics, per batch row: ``act((LN(x) * (1 + scale) + shift) @ weight.T + bias)``
-with a scale-free layernorm over K (fp32 statistics, eps 1e-6), the modulated
-activation cast to x's dtype before the product, fp32 accumulation, and the
-tanh-GELU in fp32 before the output cast. ``weight`` is ``[N, K]``, the
-``nn.Linear`` layout (the JAX function takes its transpose ``[K, N]``).
+- :func:`ln_mod_matmul` (Pallas body `_ln_mod_kernel`) launches the CUDA
+  kernel `csrc/ln_mod_matmul.cu`: per batch row,
+  ``act((LN(x) * (1 + scale) + shift) @ weight.T + bias)`` with a scale-free
+  layernorm over K (fp32 statistics, eps 1e-6), the modulated activation cast
+  to x's dtype before the product, fp32 accumulation, and the tanh-GELU in
+  fp32 before the output cast. It is the bf16 serving FF input projection.
+- :func:`matmul_gate_res` (Pallas body `_gate_res_kernel`) launches
+  `csrc/matmul_gate_res.cu`: ``res + gate * (h @ weight.T + bias)``, the
+  product in h's dtype with fp32 accumulation, bias, gate and residual in
+  fp32, rows ``>= lens[b]`` left as ``res`` with ``mask_rows``. As in the JAX
+  package, no model calls it (its hardware ablation measured XLA's own
+  epilogue fusion faster); it is held against its plain version on the card.
 
-This is the bf16 serving path: on the card the kernel takes bf16 only,
-contiguous and 16-byte aligned, ``K % 32 == 0`` and ``N % 128 == 0``, any M.
-Anything else on a CUDA tensor raises; there is no fallback.
+Each runs its plain PyTorch version (``*_reference``) for CPU tensors.
+``weight`` is ``[N, K]``, the ``nn.Linear`` layout (the JAX functions take its
+transpose ``[K, N]``). On the card both kernels take bf16 only, contiguous and
+16-byte aligned, ``K % 32 == 0`` and ``N % 128 == 0``, any M (and ``lens``
+int32 on the device). Anything else on a CUDA tensor raises; there is no
+fallback.
 """
 
 from __future__ import annotations
@@ -45,29 +52,38 @@ def ln_mod_matmul_reference(x: torch.Tensor, scale: torch.Tensor, shift: torch.T
     return acc.to(x.dtype)
 
 
+def _check_bf16_operands(fn: str, x: torch.Tensor, shapes: dict) -> tuple[int, int]:
+    """The kernels' common domain: x ``[B, M, K]`` and each named tensor of
+    ``shapes`` (name -> (tensor, shape)) bf16 on x's device, contiguous and
+    16-byte aligned, ``K % K_TILE == 0``; returns (K, N) with N the first
+    dim of ``weight``."""
+    if x.ndim != 3:
+        raise ValueError(f"{fn}: x must be [B, M, K], got {tuple(x.shape)}")
+    for name, (t, want) in shapes.items():
+        if tuple(t.shape) != want:
+            raise ValueError(f"{fn}: {name} must be {want}, got {tuple(t.shape)}")
+    for name, t in (("x", x), *((name, t) for name, (t, _) in shapes.items())):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{fn}: {name} must be bfloat16, got {t.dtype}")
+        if t.device != x.device:
+            raise ValueError(f"{fn}: {name} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{fn}: {name} must be contiguous and 16-byte aligned")
+    k, n = x.shape[-1], shapes["weight"][0].shape[0]
+    if k % K_TILE or n % N_TILE:
+        raise ValueError(f"{fn}: K must be a multiple of {K_TILE} and N of "
+                         f"{N_TILE}, got K={k}, N={n}")
+    return k, n
+
+
 def _check_cuda_args(x, scale, shift, weight, bias, activation) -> None:
     if activation not in (None, "gelu_tanh"):
         raise ValueError(f"unknown activation {activation!r}")
-    if x.ndim != 3:
-        raise ValueError(f"ln_mod_matmul: x must be [B, M, K], got {tuple(x.shape)}")
-    b, _, k = x.shape
+    b, k = (x.shape[0], x.shape[-1]) if x.ndim == 3 else (0, 0)
     n = weight.shape[0]
-    shapes = {"scale": (scale, (b, k)), "shift": (shift, (b, k)),
-              "weight": (weight, (n, k)), "bias": (bias, (n,))}
-    for name, (t, want) in shapes.items():
-        if tuple(t.shape) != want:
-            raise ValueError(f"ln_mod_matmul: {name} must be {want}, got {tuple(t.shape)}")
-    for name, t in (("x", x), ("scale", scale), ("shift", shift),
-                    ("weight", weight), ("bias", bias)):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"ln_mod_matmul: {name} must be bfloat16, got {t.dtype}")
-        if t.device != x.device:
-            raise ValueError(f"ln_mod_matmul: {name} is on {t.device}, x on {x.device}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"ln_mod_matmul: {name} must be contiguous and 16-byte aligned")
-    if k % K_TILE or n % N_TILE:
-        raise ValueError(f"ln_mod_matmul: K must be a multiple of {K_TILE} and N of "
-                         f"{N_TILE}, got K={k}, N={n}")
+    _check_bf16_operands("ln_mod_matmul", x, {
+        "scale": (scale, (b, k)), "shift": (shift, (b, k)),
+        "weight": (weight, (n, k)), "bias": (bias, (n,))})
 
 
 def ln_mod_matmul(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
@@ -101,3 +117,63 @@ def ln_mod_matmul(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
 
 
 ln_mod_matmul.launches = 0
+
+
+def matmul_gate_res_reference(h: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                              gate: torch.Tensor, res: torch.Tensor,
+                              lens: Optional[torch.Tensor] = None,
+                              mask_rows: bool = False) -> torch.Tensor:
+    """Plain PyTorch version with the TPU kernel's cast points."""
+    acc = torch.matmul(h.float(), weight.float().t()) + bias.float()
+    update = gate.float()[:, None, :] * acc
+    if mask_rows:
+        rows = torch.arange(h.shape[1], device=h.device)[None, :, None]
+        update = torch.where(rows < lens[:, None, None], update, 0.0)
+    return (res.float() + update).to(h.dtype)
+
+
+def _check_gate_res_args(h, weight, bias, gate, res, lens, mask_rows) -> None:
+    b, m, k = h.shape if h.ndim == 3 else (0, 0, 0)
+    n = weight.shape[0]
+    _check_bf16_operands("matmul_gate_res", h, {
+        "weight": (weight, (n, k)), "bias": (bias, (n,)), "gate": (gate, (b, n)),
+        "res": (res, (b, m, n))})
+    if mask_rows and (lens is None or lens.shape != (b,) or lens.dtype != torch.int32
+                      or lens.device != h.device):
+        raise ValueError(f"matmul_gate_res: mask_rows needs lens, an int32 [{b}] tensor on "
+                         f"{h.device}")
+
+
+def matmul_gate_res(h: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                    gate: torch.Tensor, res: torch.Tensor,
+                    lens: Optional[torch.Tensor] = None,
+                    mask_rows: bool = False) -> torch.Tensor:
+    """``res + gate * (h @ weight.T + bias)``, rows ``>= lens[b]`` left as
+    ``res`` when ``mask_rows``.
+
+    h ``[B, M, K]``; weight ``[N, K]``; bias ``[N]``; gate ``[B, N]``; res
+    ``[B, M, N]``; lens ``[B]`` int32 (required iff mask_rows). CPU tensors
+    take :func:`matmul_gate_res_reference`; CUDA tensors launch the kernel
+    (counted in ``matmul_gate_res.launches``) or raise."""
+    if h.device.type == "cpu":
+        return matmul_gate_res_reference(h, weight, bias, gate, res, lens, mask_rows)
+    if h.device.type != "cuda":
+        raise ValueError(f"matmul_gate_res: unsupported device {h.device}")
+    _check_gate_res_args(h, weight, bias, gate, res, lens, mask_rows)
+    from eraxvif5tts_tpu_torch.ops import _cuda
+
+    b, m, k = h.shape
+    n = weight.shape[0]
+    out = torch.empty_like(res)
+    lib = _cuda.kernels().lib
+    with torch.cuda.device(h.device):
+        code = lib.erax_matmul_gate_res(
+            h.data_ptr(), weight.data_ptr(), bias.data_ptr(), gate.data_ptr(),
+            res.data_ptr(), lens.data_ptr() if mask_rows else None, out.data_ptr(),
+            b, m, k, n, int(mask_rows), _cuda.stream_ptr(h.device))
+    _cuda.check(code, "matmul_gate_res")
+    matmul_gate_res.launches += 1
+    return out
+
+
+matmul_gate_res.launches = 0

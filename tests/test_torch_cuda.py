@@ -11,13 +11,20 @@ Tolerance: |kernel - plain| <= 1.6e-2 * (1 + |plain|), a few bf16 ulps: both
 round at the same points, but sum in other orders, and the attention
 kernels' online softmax rounds the unnormalised P to bf16. The training
 attention's gradients are held to the same bound: the kernels round dS to
-bf16 before the dq / dk products, which the plain version does not.
+bf16 before the dq / dk products, which the plain version does not. The int8
+feed-forward sums exactly (int32) and rounds at the plain version's points
+in IEEE fp32, so it is held tighter, in units of its output's scale
+(INT8_FF_TOL), and at most 1e-5 of its hidden codes may differ, each by one
+(measured on an H100: none; a scale computed as a product with the
+reciprocal instead of a true division flipped 6e-4).
 """
 
 import pytest
 import torch
 
+from eraxvif5tts_tpu_torch.models.modules import FeedForward
 from eraxvif5tts_tpu_torch.ops import fused_matmul as fm
+from eraxvif5tts_tpu_torch.ops import quant, quant_ff
 from eraxvif5tts_tpu_torch.ops import serving_attention as sa
 from eraxvif5tts_tpu_torch.ops import train_attention as ta
 from eraxvif5tts_tpu_torch.ops.masks import lens_to_mask
@@ -25,6 +32,7 @@ from eraxvif5tts_tpu_torch.ops.rotary import rotary_freqs
 
 pytestmark = pytest.mark.cuda
 TOL = 1.6e-2
+INT8_FF_TOL = 1e-2
 
 
 @pytest.fixture
@@ -98,6 +106,91 @@ def test_train_attention_kernels_match_plain(cuda, n, dropout):
     assert torch.equal(again, results[0][0].detach())
 
 
+def test_quantize_rows_on_the_card_is_bit_identical_to_the_cpu(cuda):
+    """Per-row int8 scales and codes on the card as on the CPU (and in JAX):
+    ``max(amax, 1e-8) / 127`` is a true division, not a product with the
+    reciprocal, and bf16 rows hit exact ties of ``x / scale``."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn((4096, 1024), generator=g, device=cuda).bfloat16().float()
+    codes, scale = quant.quantize_rows(x)
+    want_codes, want_scale = quant.quantize_rows(x.cpu())
+    assert torch.equal(scale.cpu(), want_scale)
+    assert torch.equal(codes.cpu(), want_codes)
+
+
+def _int8_ff_operands(g, dev, b, m, k, n, k2):
+    x = torch.randn((b, m, k), generator=g, device=dev).bfloat16()
+    w1_q, s1 = quant.quantize_weight(torch.randn((n, k), generator=g, device=dev) / 32)
+    w2_q, s2 = quant.quantize_weight(torch.randn((k2, n), generator=g, device=dev) / 32)
+    b1, b2 = (0.1 * torch.randn((d,), generator=g, device=dev) for d in (n, k2))
+    return x, w1_q, s1, b1, w2_q, s2, b2
+
+
+@pytest.mark.parametrize("m", [72, 256])
+def test_int8_ff_kernel_matches_plain(cuda, m):
+    g = torch.Generator(device=cuda).manual_seed(m)
+    args = _int8_ff_operands(g, cuda, 2, m, 512, 1024, 512)
+    codes = torch.empty((2, m, 1024), dtype=torch.int8, device=cuda)
+    before = quant_ff.int8_ff.launches
+    got = quant_ff.int8_ff(*args, h_codes=codes)
+    torch.cuda.synchronize()
+    assert quant_ff.int8_ff.launches == before + 1
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    want = quant_ff.int8_ff_reference(*args)
+    assert float((got.float() - want.float()).abs().max()) <= INT8_FF_TOL * float(
+        want.float().abs().max())
+    diff = (codes.int() - quant_ff.hidden_codes(*args[:4])[0].int()).abs()
+    assert int(diff.max()) <= 1 and int((diff > 0).sum()) <= codes.numel() // 100_000
+
+
+@pytest.mark.parametrize("m", [72, 256])
+@pytest.mark.parametrize("mask_rows", [False, True])
+def test_matmul_gate_res_kernel_matches_plain(cuda, m, mask_rows):
+    g = torch.Generator(device=cuda).manual_seed(m)
+    h = torch.randn((2, m, 512), generator=g, device=cuda).bfloat16()
+    w = (torch.randn((256, 512), generator=g, device=cuda) / 16).bfloat16()
+    bias = (0.1 * torch.randn((256,), generator=g, device=cuda)).bfloat16()
+    gate = torch.randn((2, 256), generator=g, device=cuda).bfloat16()
+    res = torch.randn((2, m, 256), generator=g, device=cuda).bfloat16()
+    lens = torch.tensor([m, m - 37], dtype=torch.int32, device=cuda)
+    before = fm.matmul_gate_res.launches
+    got = fm.matmul_gate_res(h, w, bias, gate, res, lens, mask_rows=mask_rows)
+    torch.cuda.synchronize()
+    assert fm.matmul_gate_res.launches == before + 1
+    _assert_close(got, fm.matmul_gate_res_reference(h, w, bias, gate, res, lens, mask_rows))
+    if mask_rows:
+        assert torch.equal(got[1, m - 37:], res[1, m - 37:])
+
+
+def test_int8_ff_env_launches_the_kernel_in_the_quantized_block(cuda, monkeypatch):
+    """A quantized FeedForward on the card takes kernel 5 with ERAX_INT8_FF=1
+    and the QuantLinear chain without it: never a silent plain path."""
+    ff = quant.cast_for_serving(FeedForward(512, mult=2, quantized=True)).to(cuda).eval()
+    g = torch.Generator(device=cuda).manual_seed(0)
+    with torch.no_grad():
+        for layer in (ff.ff[0][0], ff.ff[2]):
+            layer.weight_q.copy_(torch.randint(-127, 128, layer.weight_q.shape, generator=g,
+                                               device=cuda))
+            layer.weight_scale.fill_(1e-3)
+    x = torch.randn((2, 64, 512), generator=g, device=cuda).bfloat16()
+    scale, shift = (0.1 * torch.randn((2, 2, 512), generator=g, device=cuda)).bfloat16()
+    outs = []
+    for env in (None, "1"):
+        if env is None:
+            monkeypatch.delenv("ERAX_INT8_FF", raising=False)
+        else:
+            monkeypatch.setenv("ERAX_INT8_FF", env)
+        before = quant_ff.int8_ff.launches
+        with torch.no_grad():
+            outs.append(ff(x, scale, shift))
+        torch.cuda.synchronize()
+        assert quant_ff.int8_ff.launches == before + (env == "1")
+    # the chain rounds the hidden state to bf16 before the GELU, which flips
+    # some hidden codes: 2e-2 of the output's scale
+    err = (outs[1].float() - outs[0].float()).abs().max()
+    assert float(err) <= 2e-2 * float(outs[0].float().abs().max())
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda):
     q = torch.zeros((1, 128, 2, 64), device=cuda)
     with pytest.raises(TypeError):
@@ -114,3 +207,25 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         ta.train_attention(q, q, q)
     with pytest.raises(ValueError):
         ta.train_attention(qb, qb, qb)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    ff_args = _int8_ff_operands(g, cuda, 1, 32, 512, 1024, 512)
+    with pytest.raises(TypeError):  # x must be bf16
+        quant_ff.int8_ff(ff_args[0].float(), *ff_args[1:])
+    with pytest.raises(ValueError):  # K % 64
+        quant_ff.int8_ff(ff_args[0][..., :96].contiguous(), ff_args[1][:, :96].contiguous(),
+                         *ff_args[2:])
+    with pytest.raises(ValueError):  # N % 512
+        quant_ff.int8_ff(ff_args[0], ff_args[1][:640].contiguous(), ff_args[2][:640],
+                         ff_args[3][:640], ff_args[4][:, :640].contiguous(), *ff_args[5:])
+    h = torch.zeros((2, 64, 256), device=cuda, dtype=torch.bfloat16)
+    w = torch.zeros((256, 256), device=cuda, dtype=torch.bfloat16)
+    vec, gate = torch.zeros(256, device=cuda, dtype=torch.bfloat16), h[:, 0]
+    with pytest.raises(ValueError):  # gate not contiguous
+        fm.matmul_gate_res(h, w, vec, gate, h)
+    gate = gate.contiguous()
+    with pytest.raises(ValueError):  # N % 128
+        fm.matmul_gate_res(h, w[:96].contiguous(), vec[:96], gate[:, :96].contiguous(),
+                           h[..., :96].contiguous())
+    with pytest.raises(ValueError):  # lens must be int32
+        fm.matmul_gate_res(h, w, vec, gate, h, torch.tensor([64, 3], device=cuda),
+                           mask_rows=True)

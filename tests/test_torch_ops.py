@@ -40,6 +40,8 @@ PORT_MODULES = [
     "eraxvif5tts_tpu_torch.ops.fused_matmul",
     "eraxvif5tts_tpu_torch.ops.masks",
     "eraxvif5tts_tpu_torch.ops.mel",
+    "eraxvif5tts_tpu_torch.ops.quant",
+    "eraxvif5tts_tpu_torch.ops.quant_ff",
     "eraxvif5tts_tpu_torch.ops.rotary",
     "eraxvif5tts_tpu_torch.ops.serving_attention",
     "eraxvif5tts_tpu_torch.ops.stft",
