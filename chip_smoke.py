@@ -9,8 +9,13 @@ Phases (any failure raises and the script exits non-zero):
 2. build   -- build the CUDA kernels from `eraxvif5tts_tpu_torch/csrc/` with
               nvcc and print the build time and ptxas' resource report;
 3. kernels -- each kernel against its plain PyTorch version on the card at the
-              serving and training shapes, with its tolerance and median
-              CUDA-event times (the training attention forward and both
+              serving and training shapes, with its tolerance, median
+              CUDA-event times, the least time the card could take for the
+              same inputs (bytes and operations over the H100's published
+              peaks) and, where one PyTorch call computes the same function,
+              that call's time as a yardstick (the serving attention with and
+              without fused rotary; the normalised projection in its
+              layernorm and RMS modes; the training attention forward and both
               backward kernels against the plain version's autograd, also
               at the train phase's 9 x 4096 shape, each limit checked
               against a wrong-seed control; the int8 feed-forward also at
@@ -22,7 +27,11 @@ Phases (any failure raises and the script exits non-zero):
               its kernels against the same DiT with the plain versions, then
               `preprocess_reference` of the bundled clip and `generate` of three
               texts at NFE 32, with the launch counters checked per chunk and
-              the realtime factor printed;
+              the realtime factor printed, and one more under `torch.profiler`
+              (device time by kernel group, the device's busy share of the
+              wall); then F5TTS_Base's options (rotary
+              on head 0 only, unmasked text padding) on a DiT cut to 4 blocks:
+              kernels against plain, one `generate` at NFE 8, counters checked;
 5. server  -- the socket server on a free localhost port answers three
               requests and shuts down;
 6. int8    -- int8 W8A8 serving at the same width: a seeded N(0, 0.02)
@@ -42,12 +51,23 @@ Phases (any failure raises and the script exits non-zero):
               plain attention (and a wrong-mask control), then `Trainer.train_step` on the single-chip
               reference batch (9 x 4096 frames, blocks checkpointed) for three
               steps at dropout 0.1 and one at dropout 0, with the launch
-              counters checked per step, and a checkpoint save / restore.
+              counters checked per step, and a checkpoint save / restore;
+8. e2tts   -- E2-TTS serving at E2TTS_Base width and depth (UNetT: dim 1024,
+              24 layers, 16 x 64 heads, ff_mult 4, rotary on head 0 only) in
+              bf16: a seeded N(0, 0.02) reference-format checkpoint (norm gains
+              1 + N(0, 0.02)) loaded through the port's converter, the UNetT
+              with its kernels against the plain versions, `generate` of the
+              three texts at NFE 32 with the launch counters checked per chunk
+              (the attention kernel without fused rotary and the projection
+              kernel in RMS mode, 24 x 32 each, counted apart from the rotary
+              and layernorm launches), a profiled request as in the main
+              phase, then one socket-server request.
 
 The line before the last is a JSON object with each kernel's launches in its
-path's phase (serving kernels: main; int8 feed-forward: int8; training
-kernels: train; the gated residual projection, on no path: kernels), error
-and times; the last line is the device summary.
+path's phase (serving kernels with fused rotary / layernorm: main; without
+rotary / RMS: e2tts; int8 feed-forward: int8; training kernels: train; the
+gated residual projection, on no path: kernels), error, times, bound and
+library time; the last line is the device summary.
 """
 
 from __future__ import annotations
@@ -72,7 +92,11 @@ SEED = 0
 NFE = 32
 WEIGHT_STD = 0.02
 TOL = 1.6e-2  # |kernel - plain| <= TOL * (1 + |plain|): a few bf16 ulps
-DIT_TOL = 5e-2  # whole-DiT relative error, bf16 through 22 blocks
+DIT_TOL = 5e-2  # whole-backbone relative error, bf16 through 22-24 blocks
+BASE_DEPTH, BASE_NFE = 4, 8  # the F5TTS_Base check's cuts
+# NVIDIA H100 SXM data sheet, dense: the peaks a kernel's bound is taken against
+PEAK_BYTES_S = 3.35e12
+PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12}
 # int8 feed-forward, |kernel - plain| in units of max |plain|: both sum exactly
 # (int32) and round at the same points in IEEE fp32; a hidden code flipped by
 # a tie moves an output by ~1e-3 of it. At most CODE_FLIPS of the hidden codes
@@ -126,6 +150,26 @@ def cuda_median_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def bound(nbytes: float, ops: float, kind: str = "bf16") -> dict:
+    """The least time the card could take: the bytes the function must move
+    (each input read once, each output written once) over the memory rate,
+    or its operations over the tensor cores' peak for their type, whichever
+    is larger."""
+    by_bytes, by_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S[kind] * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations")
+
+
+def attention_work(b: int, n: int, h: int, d: int, lens, rope: bool) -> tuple[float, float]:
+    """(bytes, operations) of one serving attention on these inputs: q, k, v
+    read and the output written in bf16, the lengths and the fp32 cos / sin
+    tables read; QK^T and PV over each sample's valid keys (a sample with no
+    valid key averages every key)."""
+    keys = sum(n if length <= 0 else min(length, n) for length in lens)
+    return (4 * b * n * h * d * 2 + b * 4 + (2 * n * d * 4 if rope else 0),
+            4.0 * h * d * n * keys)
+
+
 def compare(name: str, got, want) -> float:
     import torch
 
@@ -168,51 +212,82 @@ def phase_build():
 
 def phase_kernels(dev) -> dict:
     import torch
+    import torch.nn.functional as F
 
     from eraxvif5tts_tpu_torch.ops import fused_matmul as fm
     from eraxvif5tts_tpu_torch.ops import serving_attention as sa
     from eraxvif5tts_tpu_torch.ops.rotary import rotary_freqs
 
     g = torch.Generator(device=dev).manual_seed(SEED)
+    # the cases without rotary and in RMS mode draw from a generator of their
+    # own, so the rotary and layernorm cases see the inputs they always saw
+    # and their errors compare from run to run
+    g_new = torch.Generator(device=dev).manual_seed(SEED + 20)
     results = {}
 
-    err_max, times = 0.0, {}
-    for n in (256, 1088, 4096):
-        q, k, v = (torch.randn((2, n, 16, 64), generator=g, device=dev).bfloat16()
-                   for _ in range(3))
-        lens = torch.tensor([n - 37, 0], device=dev)
-        rope = rotary_freqs(n, 64, device=dev)
-        err = compare(f"serving_attention n={n}", sa.serving_attention(q, k, v, lens, rope),
-                      sa.serving_attention_reference(q, k, v, lens, rope))
-        err_max = max(err_max, err)
-        ms = cuda_median_ms(lambda: sa.serving_attention(q, k, v, lens, rope))
-        plain_ms = cuda_median_ms(lambda: sa.serving_attention_reference(q, k, v, lens, rope))
-        times[n] = (ms, plain_ms)
-        log(f"[kernels] serving_attention b=2 n={n} h=16 d=64 lens=[{n - 37}, 0]: "
-            f"max_abs_err {err:.3g} (tol {TOL} * (1 + |plain|)); kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms")
-    results["serving_attention"] = dict(max_abs_err=err_max, ms=times[1088][0],
-                                        plain_ms=times[1088][1])
+    for name, with_rope in (("serving_attention", True), ("serving_attention_norope", False)):
+        err_max, cases, gen = 0.0, {}, g if with_rope else g_new
+        for n in (256, 1088, 4096):
+            q, k, v = (torch.randn((2, n, 16, 64), generator=gen, device=dev).bfloat16()
+                       for _ in range(3))
+            lens = torch.tensor([n - 37, 0], device=dev)
+            rope = rotary_freqs(n, 64, device=dev) if with_rope else None
+            err = compare(f"{name} n={n}", sa.serving_attention(q, k, v, lens, rope),
+                          sa.serving_attention_reference(q, k, v, lens, rope))
+            err_max = max(err_max, err)
+            ms = cuda_median_ms(lambda: sa.serving_attention(q, k, v, lens, rope))
+            plain_ms = cuda_median_ms(lambda: sa.serving_attention_reference(q, k, v, lens, rope))
+            least = bound(*attention_work(2, n, 16, 64, [n - 37, 0], with_rope))
+            library_ms = None
+            if not with_rope:
+                # the yardstick: one library call on the same q, k, v and key mask
+                # (heads second, as it wants them; a view, not a copy)
+                qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+                key_mask = (torch.arange(n, device=dev)[None] < lens[:, None])[:, None, None, :]
+                library_ms = cuda_median_ms(
+                    lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=key_mask))
+            cases[n] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **least)
+            log(f"[kernels] {name} b=2 n={n} h=16 d=64 lens=[{n - 37}, 0] rope "
+                f"{'fused' if with_rope else 'None'}: max_abs_err {err:.3g} (tol {TOL} * "
+                f"(1 + |plain|)); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                f"{least['bound_ms']:.5f} ms by {least['bound_by']}"
+                + (f", library (scaled_dot_product_attention, boolean key mask) "
+                   f"{library_ms:.4f} ms" if library_ms is not None else ""))
+        results[name] = dict(max_abs_err=err_max, **cases[1088])
 
-    err_max, times = 0.0, {}
-    for m in (256, 1088):
-        x = (torch.randn((2, m, 1024), generator=g, device=dev) + 0.5).bfloat16()
-        scale = (0.1 * torch.randn((2, 1024), generator=g, device=dev)).bfloat16()
-        shift = (0.1 * torch.randn((2, 1024), generator=g, device=dev)).bfloat16()
-        w = (torch.randn((2048, 1024), generator=g, device=dev) / 32).bfloat16()
-        bias = (0.1 * torch.randn((2048,), generator=g, device=dev)).bfloat16()
-        args = (x, scale, shift, w, bias)
-        err = compare(f"ln_mod_matmul M={m}", fm.ln_mod_matmul(*args),
-                      fm.ln_mod_matmul_reference(*args))
-        err_max = max(err_max, err)
-        ms = cuda_median_ms(lambda: fm.ln_mod_matmul(*args))
-        plain_ms = cuda_median_ms(lambda: fm.ln_mod_matmul_reference(*args))
-        times[m] = (ms, plain_ms)
-        log(f"[kernels] ln_mod_matmul B=2 M={m} K=1024 N=2048 gelu_tanh: max_abs_err "
-            f"{err:.3g} (tol {TOL} * (1 + |plain|)); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    results["ln_mod_matmul"] = dict(max_abs_err=err_max, ms=times[1088][0],
-                                    plain_ms=times[1088][1])
-    log("[kernels] the JSON line's serving ms / plain_ms are the n = M = 1088 bucket's")
+    # kernel 2: the layernorm mode at the DiT's FF width, then the RMS mode at
+    # the UNetT's (scale = g - 1 with g ~ 1 + 0.1 N(0, 1), shift = 0, one
+    # all-zero row, which must come out as act(bias))
+    for name, norm, n_out in (("ln_mod_matmul", "ln", 2048), ("ln_mod_matmul_rms", "rms", 4096)):
+        err_max, cases, gen = 0.0, {}, g if norm == "ln" else g_new
+        for m in (256, 1088):
+            x = (torch.randn((2, m, 1024), generator=gen, device=dev) + 0.5).bfloat16()
+            scale = (0.1 * torch.randn((2, 1024), generator=gen, device=dev)).bfloat16()
+            shift = (0.1 * torch.randn((2, 1024), generator=gen, device=dev)).bfloat16()
+            w = (torch.randn((n_out, 1024), generator=gen, device=dev) / 32).bfloat16()
+            bias = (0.1 * torch.randn((n_out,), generator=gen, device=dev)).bfloat16()
+            if norm == "rms":
+                x[1, m // 2] = 0.0
+                scale, shift = scale[:1].expand(2, -1).contiguous(), torch.zeros_like(shift)
+            args = (x, scale, shift, w, bias)
+            got = fm.ln_mod_matmul(*args, norm=norm)
+            err = compare(f"{name} M={m}", got, fm.ln_mod_matmul_reference(*args, norm=norm))
+            if norm == "rms" and not torch.equal(
+                    got[1, m // 2], F.gelu(bias.float(), approximate="tanh").bfloat16()):
+                raise AssertionError(f"{name} M={m}: the all-zero row is not gelu(bias)")
+            err_max = max(err_max, err)
+            ms = cuda_median_ms(lambda: fm.ln_mod_matmul(*args, norm=norm))
+            plain_ms = cuda_median_ms(lambda: fm.ln_mod_matmul_reference(*args, norm=norm))
+            least = bound(2 * (2 * m * 1024 + 2 * 2 * 1024 + n_out * 1024 + n_out
+                               + 2 * m * n_out), 2.0 * 2 * m * 1024 * n_out)
+            cases[m] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, **least)
+            log(f"[kernels] {name} B=2 M={m} K=1024 N={n_out} norm {norm} gelu_tanh: "
+                f"max_abs_err {err:.3g} (tol {TOL} * (1 + |plain|)); kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {least['bound_ms']:.5f} ms by {least['bound_by']}")
+        results[name] = dict(max_abs_err=err_max, **cases[1088])
+    log("[kernels] the JSON line's serving ms / plain_ms / bound_ms / library_ms are the "
+        "n = M = 1088 bucket's; no single PyTorch call computes kernel 2 or the attention "
+        "with rotary, so their library_ms is null")
     results.update(check_int8_ff(dev, g))
     results.update(check_matmul_gate_res(dev, g))
     results.update(check_train_attention(dev, g))
@@ -276,9 +351,17 @@ def check_int8_ff(dev, g) -> dict:
     at 16 x 1024; the int8 phase adds the shape its batch gives the kernel."""
     cases = {(b, m): check_int8_ff_shape(dev, g, b, m)
              for b, m in ((2, 256), (2, 1088), (16, 1024))}
-    log("[kernels] the JSON line's int8_ff ms / plain_ms are the B = 2, M = 1088 case's")
+    rows = 2 * 1088
+    # x in and out in bf16, both int8 weight matrices, fp32 scales and biases;
+    # two int8 products of rows x 1024 x 2048
+    least = bound(2 * rows * 1024 * 2 + 2 * 2048 * 1024 + 2 * (2048 + 1024) * 4,
+                  2 * 2.0 * rows * 1024 * 2048, "int8")
+    log(f"[kernels] the JSON line's int8_ff ms / plain_ms are the B = 2, M = 1088 case's; its "
+        f"bound {least['bound_ms']:.5f} ms by {least['bound_by']} (int8 peak); no single "
+        "PyTorch call computes it")
     return {"int8_ff": dict(max_abs_err=max(err for err, _, _ in cases.values()),
-                            ms=cases[(2, 1088)][1], plain_ms=cases[(2, 1088)][2])}
+                            ms=cases[(2, 1088)][1], plain_ms=cases[(2, 1088)][2],
+                            library_ms=None, **least)}
 
 
 def check_matmul_gate_res(dev, g) -> dict:
@@ -313,11 +396,18 @@ def check_matmul_gate_res(dev, g) -> dict:
             log(f"[kernels] matmul_gate_res B=2 M={m} K=2048 N=1024 mask_rows={mask_rows} "
                 f"(lens [{m}, {m - 37}]): max_abs_err {err:.3g} (tol {TOL} * (1 + |plain|)); "
                 f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    m = 1088
+    # h, the weight, bias, gate, the residual in and the output out in bf16, the
+    # lengths; the product over the rows below each sample's length
+    least = bound(2 * (2 * m * 2048 + 1024 * 2048 + 1024 + 2 * 1024 + 2 * 2 * m * 1024) + 8,
+                  2.0 * (m + m - 37) * 2048 * 1024)
     log("[kernels] the JSON line's matmul_gate_res ms / plain_ms are the M = 1088 masked "
-        "case's; its launches are the kernel phase's (no model path calls it)")
+        "case's; its launches are the kernel phase's (no model path calls it); its bound "
+        f"{least['bound_ms']:.5f} ms by {least['bound_by']}; no single PyTorch call computes it")
     return {"matmul_gate_res": dict(max_abs_err=err_max, ms=times[(1088, True)][0],
                                     plain_ms=times[(1088, True)][1],
-                                    launches=fm.matmul_gate_res.launches)}
+                                    launches=fm.matmul_gate_res.launches, library_ms=None,
+                                    **least)}
 
 
 def rel_l2(got, want) -> float:
@@ -406,6 +496,7 @@ def check_train_attention(dev, g) -> dict:
     b = 2 with a masked sample at n = 256, 1024 and 4096, then the train
     phase's own shape (9 x 4096, no mask); times at b = 2."""
     import torch
+    import torch.nn.functional as F
 
     from eraxvif5tts_tpu_torch.ops import train_attention as ta
 
@@ -444,35 +535,64 @@ def check_train_attention(dev, g) -> dict:
         plain_bwd = cuda_median_ms(lambda: torch.autograd.grad(ref, args, dout, retain_graph=True),
                                    iters=5, warmup=1)
         del ref
-        times[n] = {"fwd": (ms["fwd"], plain_fwd), "dq": (ms["dq"], plain_bwd),
-                    "dkv": (ms["dkv"], plain_bwd)}
+        # the yardstick: the library's attention, forward and backward, at
+        # keep = 1 and without a mask (it has neither this dropout nor lens)
+        lib_args = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+        lib_fwd = cuda_median_ms(lambda: F.scaled_dot_product_attention(*lib_args))
+        lib_out = F.scaled_dot_product_attention(*lib_args)
+        lib_dout = dout.transpose(1, 2)
+        lib_bwd = cuda_median_ms(
+            lambda: torch.autograd.grad(lib_out, lib_args, lib_dout, retain_graph=True))
+        del lib_out
+        # q, k, v, dO, O / dq / dk, dv in bf16, the fp32 LSE and D rows; QK^T
+        # (and dO V^T in the backward) and each product onto an output, over
+        # each sample's valid keys
+        elems, rows, keys = 2 * n * 16 * 64, 2 * 16 * n, n + n - 37
+        work = 2.0 * 16 * 64 * n * keys
+        least = {"fwd": bound(4 * elems * 2 + rows * 4 + 8, 2 * work),
+                 "dq": bound(5 * elems * 2 + 2 * rows * 4 + 8, 3 * work),
+                 "dkv": bound(6 * elems * 2 + 2 * rows * 4 + 8, 4 * work)}
+        times[n] = {"fwd": dict(ms=ms["fwd"], plain_ms=plain_fwd, library_ms=lib_fwd,
+                                **least["fwd"]),
+                    "dq": dict(ms=ms["dq"], plain_ms=plain_bwd, library_ms=lib_bwd,
+                               **least["dq"]),
+                    "dkv": dict(ms=ms["dkv"], plain_ms=plain_bwd, library_ms=lib_bwd,
+                                **least["dkv"])}
         log(f"[kernels] train_attention b=2 n={n} dropout {rate}: forward {ms['fwd']:.4f} ms "
             f"(plain {plain_fwd:.4f} ms), dq {ms['dq']:.4f} ms + dk/dv {ms['dkv']:.4f} ms "
-            f"(plain backward, all three gradients, {plain_bwd:.4f} ms)")
+            f"(plain backward, all three gradients, {plain_bwd:.4f} ms); bounds "
+            + ", ".join(f"{name} {v['bound_ms']:.5f} ms by {v['bound_by']}"
+                        for name, v in least.items())
+            + f"; library scaled_dot_product_attention at keep = 1, no mask: forward "
+            f"{lib_fwd:.4f} ms, backward (all three gradients) {lib_bwd:.4f} ms")
     log("[kernels] train_attention over every case: largest relative L2 error "
         + ", ".join(f"{name} {r:.3g}" for name, r in rel_max.items())
         + "; smallest control " + ", ".join(f"{name} {c:.3g}" for name, c in control_min.items())
         + f"; tol {ATTN_REL_TOL} between them")
-    log("[kernels] the JSON line's training ms / plain_ms are the b = 2, n = 4096 case's at "
-        "dropout 0.1; plain_ms of dq and dk/dv is the plain version's whole backward")
-    return {f"train_attention_{name}": dict(max_abs_err=errs[name], ms=times[4096][name][0],
-                                            plain_ms=times[4096][name][1])
+    log("[kernels] the JSON line's training ms / plain_ms / bound_ms / library_ms are the "
+        "b = 2, n = 4096 case's at dropout 0.1; plain_ms and library_ms of dq and dk/dv are "
+        "the plain version's and the library's whole backward")
+    return {f"train_attention_{name}": dict(max_abs_err=errs[name], **times[4096][name])
             for name in errs}
 
 
 def randomize(modules, seed: int) -> None:
     """Every parameter of ``modules`` from N(0, WEIGHT_STD), one seeded
     generator on the parameters' device: the reference's zero-initialised
-    AdaLN and output projections would make each block an identity."""
+    AdaLN and output projections would make each block an identity. The
+    gains of the UNetT's RMS norms (parameters named ``g``) get
+    1 + N(0, WEIGHT_STD): a gain near 0 would silence every block."""
     import torch
 
     g = None
     with torch.no_grad():
         for module in modules:
-            for p in module.parameters():
+            for name, p in module.named_parameters():
                 if g is None:
                     g = torch.Generator(device=p.device).manual_seed(seed)
                 p.normal_(0.0, WEIGHT_STD, generator=g)
+                if name.split(".")[-1] == "g":
+                    p.add_(1.0)
 
 
 def build_wrapper(dev):
@@ -496,10 +616,11 @@ def build_wrapper(dev):
 
 
 def check_dit_against_plain(dit, dev, tag: str = "[main]", b: int = 2, n: int = 256):
-    """One DiT.run at full width with the kernels vs with the plain versions,
-    on the same card and inputs: b rows of n frames, the second half of the
-    rows with their conditioning dropped (as CFG doubles a batch), every odd
-    row masked after n - 56 frames."""
+    """One ``run`` of a backbone (DiT or UNetT) at full width with the kernels
+    vs with the plain versions, on the same card and inputs: b rows of n
+    frames, the second half of the rows with their conditioning dropped (as
+    CFG doubles a batch), every odd row masked after n - 56 frames. Returns
+    the largest error in units of the plain output's scale."""
     import torch
 
     from eraxvif5tts_tpu_torch.models import modules
@@ -525,37 +646,48 @@ def check_dit_against_plain(dit, dev, tag: str = "[main]", b: int = 2, n: int = 
     saved = modules.dot_product_attention, modules.ln_mod_matmul, modules.int8_ff
     modules.dot_product_attention = lambda q, k, v, key_valid=None, rope=None: (
         serving_attention_reference(q, k, v, key_valid.sum(-1), rope))
-    modules.ln_mod_matmul = lambda x, s, sh, w, bias, activation="gelu_tanh": (
-        ln_mod_matmul_reference(x, s, sh, w, bias, activation))
+    modules.ln_mod_matmul = ln_mod_matmul_reference
     modules.int8_ff = int8_ff_reference
     try:
         want = run()
     finally:
         modules.dot_product_attention, modules.ln_mod_matmul, modules.int8_ff = saved
     rel = float((got - want).abs().max() / want.abs().max())
-    log(f"{tag} DiT.run b={b} n={n} kernels vs plain versions: max error {rel:.3g} of "
+    name = type(dit).__name__
+    log(f"{tag} {name}.run b={b} n={n} kernels vs plain versions: max error {rel:.3g} of "
         f"scale {float(want.abs().max()):.3g} (tol {DIT_TOL})")
     if not torch.isfinite(got).all() or rel > DIT_TOL:
-        raise AssertionError(f"DiT with kernels differs from plain by {rel:.3g}")
+        raise AssertionError(f"{name} with kernels differs from plain by {rel:.3g}")
+    return rel
 
 
-def phase_main(dev) -> tuple[object, object, dict]:
-    import numpy as np
-    import torch
-
+def serving_counts() -> dict:
+    """The serving kernels' launch counts by mode: attention with fused rotary
+    and without, the normalised projection in layernorm and in RMS mode."""
     from eraxvif5tts_tpu_torch.ops import fused_matmul as fm
     from eraxvif5tts_tpu_torch.ops import serving_attention as sa
 
-    wrapper = build_wrapper(dev)
-    check_dit_against_plain(wrapper.transformer, dev)
+    return {"serving_attention": sa.serving_attention.launches_by_rope[True],
+            "serving_attention_norope": sa.serving_attention.launches_by_rope[False],
+            "ln_mod_matmul": fm.ln_mod_matmul.launches_by_norm["ln"],
+            "ln_mod_matmul_rms": fm.ln_mod_matmul.launches_by_norm["rms"]}
 
-    ref = load_reference(wrapper)
-    log(f"[main] reference: {ref.n_frames} frames ({ref.audio_seconds:.2f} s), "
-        f"text {ref.text!r}")
-    t0 = time.perf_counter()
-    wrapper.warmup(ref)
-    log(f"[main] warmup (one NFE-{NFE} step at the smallest bucket) "
-        f"{time.perf_counter() - t0:.2f} s")
+
+def reset_serving_counts() -> None:
+    from eraxvif5tts_tpu_torch.ops import fused_matmul as fm
+    from eraxvif5tts_tpu_torch.ops import serving_attention as sa
+
+    sa.serving_attention.launches = fm.ln_mod_matmul.launches = 0
+    sa.serving_attention.launches_by_rope = {True: 0, False: 0}
+    fm.ln_mod_matmul.launches_by_norm = {"ln": 0, "rms": 0}
+
+
+def generate_counted(wrapper, ref, texts, nfe: int, tag: str, path: tuple[str, str]) -> dict:
+    """Set the serving counters to 0, `generate` each text and read them:
+    per request, the two kernels of ``path`` (names of :func:`serving_counts`)
+    must each have launched depth x nfe x chunks times and the other two modes
+    not at all. Logs the realtime factor per request; returns the counts."""
+    import numpy as np
 
     buckets = []
     sample_vocode = wrapper._sample_vocode
@@ -566,39 +698,130 @@ def phase_main(dev) -> tuple[object, object, dict]:
 
     wrapper._sample_vocode = counted
     depth = wrapper.config.arch.depth
-    sa.serving_attention.launches = 0
-    fm.ln_mod_matmul.launches = 0
+    reset_serving_counts()
     total_audio = total_wall = 0.0
-    for i, text in enumerate(TEXTS):
-        n_before = len(buckets)
-        a0, l0 = sa.serving_attention.launches, fm.ln_mod_matmul.launches
-        t0 = time.perf_counter()
-        wave = wrapper.generate(text, seed=SEED + i)
-        wall = time.perf_counter() - t0
-        chunks = len(buckets) - n_before
-        audio = len(wave) / wrapper.target_sample_rate
-        total_audio, total_wall = total_audio + audio, total_wall + wall
-        d_attn = sa.serving_attention.launches - a0
-        d_ln = fm.ln_mod_matmul.launches - l0
-        log(f"[main] generate #{i}: {chunks} chunk(s) at buckets {buckets[n_before:]}, "
-            f"{audio:.2f} s of audio in {wall:.3f} s (RTF {wall / audio:.4f}, "
-            f"{audio / wall:.2f}x realtime); launches attention {d_attn}, ln_mod {d_ln}")
-        if not (np.isfinite(wave).all() and np.abs(wave).max() > 1e-3 and len(wave) > 0):
-            raise AssertionError(f"generate #{i}: PCM is not finite and non-silent")
-        want = depth * NFE * chunks
-        if d_attn != want or d_ln != want:
-            raise AssertionError(f"generate #{i}: launches {d_attn}/{d_ln}, expected "
-                                 f"{depth} x {NFE} x {chunks} = {want}")
-    wrapper._sample_vocode = sample_vocode
-    launches = {"serving_attention": sa.serving_attention.launches,
-                "ln_mod_matmul": fm.ln_mod_matmul.launches}
-    log(f"[main] {len(TEXTS)} requests: {total_audio:.2f} s of audio in {total_wall:.3f} s: "
+    try:
+        for i, text in enumerate(texts):
+            n_before, before = len(buckets), serving_counts()
+            t0 = time.perf_counter()
+            wave = wrapper.generate(text, seed=SEED + i, nfe_step=nfe)
+            wall = time.perf_counter() - t0
+            chunks = len(buckets) - n_before
+            audio = len(wave) / wrapper.target_sample_rate
+            total_audio, total_wall = total_audio + audio, total_wall + wall
+            rose = {name: count - before[name] for name, count in serving_counts().items()}
+            log(f"{tag} generate #{i}: {chunks} chunk(s) at buckets {buckets[n_before:]}, "
+                f"{audio:.2f} s of audio in {wall:.3f} s (RTF {wall / audio:.4f}, "
+                f"{audio / wall:.2f}x realtime); launches {rose}")
+            if not (np.isfinite(wave).all() and np.abs(wave).max() > 1e-3 and len(wave) > 0):
+                raise AssertionError(f"{tag} generate #{i}: PCM is not finite and non-silent")
+            want = {name: depth * nfe * chunks if name in path else 0 for name in rose}
+            if rose != want:
+                raise AssertionError(f"{tag} generate #{i}: launches {rose}, expected {want} "
+                                     f"({depth} x {nfe} x {chunks} on {path})")
+    finally:
+        wrapper._sample_vocode = sample_vocode
+    log(f"{tag} {len(texts)} request(s): {total_audio:.2f} s of audio in {total_wall:.3f} s: "
         f"RTF {total_wall / total_audio:.4f} ({total_audio / total_wall:.2f}x realtime) at "
-        f"NFE {NFE}, bf16, batch 1")
+        f"NFE {nfe}, bf16, batch 1")
+    return serving_counts()
+
+
+KERNEL_GROUPS = (  # device kernels by name, first match
+    ("kernel 1 (attention)", ("serving_attention_kernel",)),
+    ("kernel 2 (norm + FF in)", ("ln_mod_matmul_kernel", "row_stats_kernel")),
+    ("GEMMs", ("gemm", "nvjet", "cutlass", "cublas", "gemv")),
+    ("convolutions", ("conv", "cudnn", "fft")),
+)
+
+
+def profile_generate(wrapper, ref, text: str, nfe: int, tag: str) -> None:
+    """Where one warm `generate` spends its time: the wall of an unprofiled
+    call, then the device kernels of a call under `torch.profiler`, summed by
+    group, and the device's busy share of the unprofiled wall (below 100 % the
+    host's eager dispatch, not the device, bounds the Euler loop)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    wrapper.generate(text, seed=SEED, nfe_step=nfe)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wrapper.generate(text, seed=SEED, nfe_step=nfe)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wrapper.generate(text, seed=SEED, nfe_step=nfe)
+        torch.cuda.synchronize()
+    groups = {name: 0.0 for name, _ in KERNEL_GROUPS} | {"elementwise, reductions, other": 0.0}
+    launches = 0
+    for event in prof.key_averages():
+        if event.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        key = event.key.lower()
+        if "memcpy" in key or "memset" in key:
+            continue
+        group = next((name for name, marks in KERNEL_GROUPS if any(m in key for m in marks)),
+                     "elementwise, reductions, other")
+        groups[group] += event.self_device_time_total / 1e3
+        launches += event.count
+    device_ms = sum(groups.values())
+    if device_ms <= 0.0:
+        log(f"{tag} profile: the profiler recorded no device time; device share not measured")
+        return
+    log(f"{tag} profile of one warm generate at NFE {nfe}: wall {wall_ms:.1f} ms unprofiled; "
+        f"{launches} device kernels, {device_ms:.1f} ms of device time = "
+        f"{100 * device_ms / wall_ms:.1f} % of the wall (the rest: host dispatch with the "
+        "device idle); "
+        + ", ".join(f"{name} {ms:.1f} ms ({100 * ms / device_ms:.0f} %)"
+                    for name, ms in groups.items()))
+
+
+def check_f5tts_base(dev) -> None:
+    """F5TTS_Base's options on the card, cut to BASE_DEPTH blocks and
+    BASE_NFE steps (its full depth is F5TTS_v1_Base's 22; the options, not the
+    depth, are what this adds): rotary on head 0 only, so the attention kernel
+    runs without fused rotary on a DiT, and text padding left unmasked."""
+    import torch
+
+    from eraxvif5tts_tpu_torch.configs import PRESETS
+    from eraxvif5tts_tpu_torch.infer.wrapper import F5TTSWrapper
+
+    cfg = PRESETS["F5TTS_Base"]
+    cfg = dataclasses.replace(cfg, arch=dataclasses.replace(cfg.arch, depth=BASE_DEPTH))
+    wrapper = F5TTSWrapper(model_cfg=cfg, vocab_char_map={c: i for i, c in enumerate(VOCAB_CHARS)},
+                           device=dev, compute_dtype="bfloat16", nfe_step=BASE_NFE)
+    randomize((wrapper.transformer, wrapper.vocoder), SEED)
+    torch.cuda.synchronize()
+    a = wrapper.config.arch
+    log(f"[main] F5TTS_Base options, CUT to depth {a.depth} of 22 and NFE {BASE_NFE}: dim "
+        f"{a.dim}, heads {a.heads}x{a.dim_head}, pe_attn_head {a.pe_attn_head}, "
+        f"text_mask_padding {a.text_mask_padding}")
+    check_dit_against_plain(wrapper.transformer, dev, "[main] F5TTS_Base:")
+    ref = load_reference(wrapper)
+    wrapper.warmup(ref, nfe_step=2)
+    generate_counted(wrapper, ref, TEXTS[:1], BASE_NFE, "[main] F5TTS_Base:",
+                     ("serving_attention_norope", "ln_mod_matmul"))
+
+
+def phase_main(dev) -> tuple[object, object, dict]:
+    wrapper = build_wrapper(dev)
+    check_dit_against_plain(wrapper.transformer, dev)
+
+    ref = load_reference(wrapper)
+    log(f"[main] reference: {ref.n_frames} frames ({ref.audio_seconds:.2f} s), "
+        f"text {ref.text!r}")
+    t0 = time.perf_counter()
+    wrapper.warmup(ref)
+    log(f"[main] warmup (one NFE-{NFE} step at the smallest bucket) "
+        f"{time.perf_counter() - t0:.2f} s")
+    counts = generate_counted(wrapper, ref, TEXTS, NFE, "[main]",
+                              ("serving_attention", "ln_mod_matmul"))
+    launches = {name: counts[name] for name in ("serving_attention", "ln_mod_matmul")}
+    profile_generate(wrapper, ref, TEXTS[1], NFE, "[main]")
+    check_f5tts_base(dev)
     return wrapper, ref, launches
 
 
-def phase_server(wrapper, ref):
+def phase_server(wrapper, ref, texts=TEXTS, tag: str = "[server]"):
     import numpy as np
 
     from eraxvif5tts_tpu_torch.serving.socket_server import TTSStreamingProcessor, start_server
@@ -615,7 +838,7 @@ def phase_server(wrapper, ref):
     try:
         if not ready.wait(60):
             raise AssertionError("socket server did not start")
-        for i, text in enumerate(TEXTS):
+        for i, text in enumerate(texts):
             t0 = time.perf_counter()
             with socket.create_connection(("127.0.0.1", port), timeout=600) as conn:
                 conn.sendall(text.encode("utf-8"))
@@ -629,14 +852,14 @@ def phase_server(wrapper, ref):
             pcm = np.frombuffer(buf[:-3], np.float32)
             if len(buf[:-3]) % 4 or not len(pcm) or not np.isfinite(pcm).all():
                 raise AssertionError(f"request {i}: malformed float32 stream")
-            log(f"[server] request #{i}: {len(pcm) / 24000:.2f} s of float32 audio + END, "
+            log(f"{tag} request #{i}: {len(pcm) / 24000:.2f} s of float32 audio + END, "
                 f"first bytes after {first:.3f} s, done in {time.perf_counter() - t0:.3f} s")
     finally:
         stop.set()
         server.join(timeout=120)
     if server.is_alive():
         raise AssertionError("socket server did not shut down")
-    log("[server] shut down")
+    log(f"{tag} socket server shut down")
 
 
 def load_reference(wrapper):
@@ -647,19 +870,19 @@ def load_reference(wrapper):
 
 
 def save_reference_checkpoint(path: Path, cfg, dev) -> None:
-    """A reference-format F5-TTS checkpoint (EMA keys, fp32) of the DiT of
-    ``cfg`` with every parameter from N(0, WEIGHT_STD), seed SEED + 3. The
-    int8 wrapper must quantize real weights at load: its int8 buffers cannot
-    be redrawn after the build, and a fresh initialisation is degenerate for
-    int8 (its zero AdaLN gates zero every quantized product)."""
+    """A reference-format F5-TTS / E2-TTS checkpoint (EMA keys, fp32) of the
+    backbone of ``cfg`` with every parameter drawn by :func:`randomize`, seed
+    SEED + 3. The int8 wrapper must quantize real weights at load: its int8
+    buffers cannot be redrawn after the build, and a fresh initialisation is
+    degenerate for int8 (its zero AdaLN gates zero every quantized product)."""
     import torch
 
-    from eraxvif5tts_tpu_torch.models.dit import DiT
+    from eraxvif5tts_tpu_torch.models import build_backbone
 
-    dit = DiT(cfg.arch, len(VOCAB_CHARS), cfg.mel_spec.n_mel_channels).to(dev)
-    randomize((dit,), SEED + 3)
-    torch.save({f"ema_model.transformer.{k}": v.cpu() for k, v in dit.state_dict().items()},
-               path)
+    backbone = build_backbone(cfg, len(VOCAB_CHARS)).to(dev)
+    randomize((backbone,), SEED + 3)
+    torch.save({f"ema_model.transformer.{k}": v.cpu()
+                for k, v in backbone.state_dict().items()}, path)
 
 
 def run_batch(wrapper, depth: int, nfe: int, seed: int, int8_ff: bool, label: str):
@@ -971,6 +1194,56 @@ def phase_train(dev, arch=None) -> dict:
     return launches
 
 
+def phase_e2tts(dev, cfg=None) -> dict:
+    """E2-TTS zero-shot cloning at full E2TTS_Base width and depth (``cfg``:
+    another UNetT configuration, for a rehearsal). Returns the launches of
+    the attention kernel without fused rotary and of the projection kernel in
+    RMS mode over the three requests."""
+    import torch
+
+    from eraxvif5tts_tpu_torch.configs import PRESETS
+    from eraxvif5tts_tpu_torch.infer.wrapper import F5TTSWrapper
+    from eraxvif5tts_tpu_torch.models.unett import UNetT
+
+    cfg = cfg or PRESETS["E2TTS_Base"]
+    vocab = {c: i for i, c in enumerate(VOCAB_CHARS)}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = Path(tmp) / "model.pt"
+        t0 = time.perf_counter()
+        save_reference_checkpoint(ckpt, cfg, dev)
+        log(f"[e2tts] reference-format checkpoint of N(0, {WEIGHT_STD}) weights (norm gains "
+            f"1 + N(0, {WEIGHT_STD})), seed {SEED + 3}: {ckpt.stat().st_size / 2**30:.2f} GiB "
+            f"written in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        wrapper = F5TTSWrapper(model_cfg=cfg, ckpt_path=str(ckpt), vocab_char_map=vocab,
+                               device=dev, compute_dtype="bfloat16", nfe_step=NFE)
+        torch.cuda.synchronize()
+    unett = wrapper.transformer
+    if not isinstance(unett, UNetT):
+        raise AssertionError(f"the e2tts phase built a {type(unett).__name__}, not a UNetT")
+    randomize((wrapper.vocoder,), SEED)  # the same seeded draw as the main phase's
+    a = wrapper.config.arch
+    n_params = sum(p.numel() for p in unett.parameters())
+    log(f"[e2tts] {cfg.name} UNetT dim {a.dim} depth {a.depth} heads {a.heads}x{a.dim_head} "
+        f"ff_mult {a.ff_mult} pe_attn_head {a.pe_attn_head} conv_layers {a.conv_layers}: "
+        f"{n_params / 1e6:.1f} M params, bf16, loaded strict from the checkpoint in "
+        f"{time.perf_counter() - t0:.1f} s; mel buckets {wrapper.duration_buckets[:3]}... "
+        "(64k - 1: the time token is frame 0)")
+    # 255 mel frames: 256 positions with the time token
+    check_dit_against_plain(unett, dev, "[e2tts]", 2, 255)
+
+    ref = load_reference(wrapper)
+    t0 = time.perf_counter()
+    wrapper.warmup(ref)
+    log(f"[e2tts] reference {ref.n_frames} frames; warmup (one NFE-{NFE} step at the smallest "
+        f"bucket) {time.perf_counter() - t0:.2f} s")
+    path = ("serving_attention_norope", "ln_mod_matmul_rms")
+    counts = generate_counted(wrapper, ref, TEXTS, NFE, "[e2tts]", path)
+    profile_generate(wrapper, ref, TEXTS[1], NFE, "[e2tts]")
+    phase_server(wrapper, ref, TEXTS[:1], "[e2tts]")
+    return {name: counts[name] for name in path}
+
+
 def main() -> int:
     if not (ROOT / "eraxvif5tts_tpu_torch").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -997,15 +1270,18 @@ def main() -> int:
     kernel_results["int8_ff"]["max_abs_err"] = max(kernel_results["int8_ff"]["max_abs_err"],
                                                    ff_err)
     launches.update(phase_train(dev))
+    launches.update(phase_e2tts(dev))
     kernels = [
-        dict(name="serving_attention", route="cuda",
-             source="eraxvif5tts_tpu_torch/csrc/serving_attention.cu",
-             replaces="eraxvif5tts_tpu/ops/serving_attention.py:121",
-             launches=launches["serving_attention"], **kernel_results["serving_attention"]),
-        dict(name="ln_mod_matmul", route="cuda",
-             source="eraxvif5tts_tpu_torch/csrc/ln_mod_matmul.cu",
-             replaces="eraxvif5tts_tpu/ops/fused_matmul.py:68",
-             launches=launches["ln_mod_matmul"], **kernel_results["ln_mod_matmul"]),
+        *(dict(name=name, route="cuda",
+               source="eraxvif5tts_tpu_torch/csrc/serving_attention.cu",
+               replaces="eraxvif5tts_tpu/ops/serving_attention.py:121",
+               launches=launches[name], **kernel_results[name])
+          for name in ("serving_attention", "serving_attention_norope")),
+        *(dict(name=name, route="cuda",
+               source="eraxvif5tts_tpu_torch/csrc/ln_mod_matmul.cu",
+               replaces="eraxvif5tts_tpu/ops/fused_matmul.py:68",
+               launches=launches[name], **kernel_results[name])
+          for name in ("ln_mod_matmul", "ln_mod_matmul_rms")),
         dict(name="int8_ff", route="cuda", source="eraxvif5tts_tpu_torch/csrc/int8_ff.cu",
              replaces="eraxvif5tts_tpu/ops/quant_ff.py:101", launches=launches["int8_ff"],
              **kernel_results["int8_ff"]),
@@ -1022,6 +1298,11 @@ def main() -> int:
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms"}
+    wrong = [k["name"] for k in kernels if set(k) != keys]
+    if wrong:
+        raise AssertionError(f"kernel records without the full set of keys: {wrong}")
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

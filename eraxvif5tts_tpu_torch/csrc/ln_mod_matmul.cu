@@ -1,17 +1,23 @@
-// AdaLN-modulated projection with a tanh-GELU epilogue: the DiT block's
-// feed-forward input projection.
+// Normalised, modulated projection with a tanh-GELU epilogue: the
+// feed-forward input projection of a DiT block (layernorm + AdaLN modulate)
+// and of a UNetT layer (RMS norm with its gain folded into `scale`).
 //
 // Replaces: eraxvif5tts_tpu/ops/fused_matmul.py, `_ln_mod_kernel` (the Pallas
-// TPU kernel behind `ln_mod_matmul`).
+// TPU kernel behind `ln_mod_matmul`), both of its `norm` modes.
 //
 // Computes, per batch row b, for x [B, M, K], scale/shift [B, K],
 // w [N, K] (nn.Linear layout), bias [N], all bf16:
 //   a   = bf16((x - mean) * (rstd * (1 + scale)) + shift)   (fp32 statistics)
 //   out = bf16(act(a @ w^T + bias))                          (fp32 accumulation)
-// with act = tanh-GELU in fp32, or the identity.
+// with act = tanh-GELU in fp32, or the identity. Layernorm mode (norm 0):
+// mean over K, rstd = rsqrt(mean((x - mean)^2) + eps). RMS mode (norm 1, the
+// x_transformers RMSNorm): mean = 0, rstd = rsqrt(mean(x^2) + eps); only the
+// statistics kernel differs, and an all-zero row (rstd = 1 / sqrt(eps), times
+// zero) gives a = shift, never NaN.
 //
 // What bounds it on an H100: at the serving shape (B = 2 x batch, M = the
-// duration bucket, K = 1024, N = 2048) it does 2*B*M*K*N FLOPs over about
+// duration bucket, K = 1024, N = 2048; the UNetT's N = 4096) it does
+// 2*B*M*K*N FLOPs over about
 // 2*(B*M*K + K*N + B*M*N) bytes, ~600 FLOPs per byte at M = 1088: above the
 // card's ~295 FLOP/byte ridge, so it is bound by tensor-core throughput. The
 // unfused chain (layernorm, modulate, GEMM, GELU) would write and re-read
@@ -51,23 +57,26 @@ constexpr int kWarpM = 32;
 constexpr int kWarpN = 64;
 constexpr int kStageElems = kBM * kLd;
 
-// One warp per row of x [rows, K]: stats[row] = (mean, rstd).
+// One warp per row of x [rows, K]: stats[row] = (mean, rstd); in RMS mode
+// the mean is left at 0 and the second pass sums x^2.
 __global__ void row_stats_kernel(const __nv_bfloat16* __restrict__ x,
                                  float2* __restrict__ stats, int rows, int k,
-                                 float eps) {
+                                 float eps, int rms) {
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;
   const __nv_bfloat16* xr = x + static_cast<long>(row) * k;
   float s = 0.f;
-  for (int c = lane * 2; c < k; c += 64) {
-    const float2 f = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(xr + c));
-    s += f.x + f.y;
-  }
+  if (!rms) {
+    for (int c = lane * 2; c < k; c += 64) {
+      const float2 f = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(xr + c));
+      s += f.x + f.y;
+    }
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-  const float mean = s / k;
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  }
+  const float mean = rms ? 0.f : s / k;
   float ss = 0.f;
   for (int c = lane * 2; c < k; c += 64) {
     const float2 f = __bfloat1622float2(
@@ -290,20 +299,20 @@ __global__ void __launch_bounds__(kThreads)
 
 // x [B, M, K], scale/shift [B, K], w [N, K], bias [N], out [B, M, N]: bf16,
 // contiguous, 16-byte aligned. stats: fp32 scratch of 2 * B * M values.
-// Requires K % 32 == 0 and N % 128 == 0. Launches both kernels on `stream`
-// and returns the cudaError_t of the launches.
+// Requires K % 32 == 0 and N % 128 == 0. norm: 0 layernorm, 1 RMS. Launches
+// both kernels on `stream` and returns the cudaError_t of the launches.
 extern "C" int erax_ln_mod_matmul(const void* x, const void* scale,
                                   const void* shift, const void* w,
                                   const void* bias, void* out, void* stats,
                                   int b, int m, int k, int n, int gelu,
-                                  float eps, void* stream) {
+                                  int norm, float eps, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rows = b * m;
   const int warps_per_block = 8;
   row_stats_kernel<<<(rows + warps_per_block - 1) / warps_per_block,
                      warps_per_block * 32, 0, s>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<float2*>(stats), rows,
-      k, eps);
+      k, eps, norm);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(n / kBN, (m + kBM - 1) / kBM, b);

@@ -36,9 +36,16 @@ Differences, by design:
 - ``warmup`` runs the smallest reachable bucket only: there is no per-bucket
   compile to pay ahead of time.
 
-Not ported yet (ROADMAP.md): BigVGAN, the duration predictor, multi-device
-meshes (``generate_batch`` runs on one device), automatic transcription of an
-empty ``ref_text``.
+Backbones: the DiT (``F5TTS_v1_*``, ``F5TTS_Base`` / ``F5TTS_Small``) and the
+UNetT (``E2TTS_Base`` / ``E2TTS_Small``), built by ``models.build_backbone``.
+The UNetT packs its time token as an extra frame 0, so with the default
+duration buckets the wrapper takes mel buckets of 64k - 1 frames for it
+(`eraxvif5tts_tpu/infer/wrapper.py:168-174`): the transformer then sees
+64-aligned sequences, which the serving attention kernel requires.
+
+Not ported yet (ROADMAP.md): MMDiT, BigVGAN, int8 for the UNetT, the duration
+predictor, multi-device meshes (``generate_batch`` runs on one device),
+automatic transcription of an empty ``ref_text``. Each raises.
 """
 
 from __future__ import annotations
@@ -51,16 +58,16 @@ from typing import Optional
 import numpy as np
 import torch
 
-from eraxvif5tts_tpu.audio.io import read_wav, write_wav
-from eraxvif5tts_tpu.audio.resample import resample
-from eraxvif5tts_tpu.audio.silence import clip_reference_audio
-from eraxvif5tts_tpu.compression.convert import infer_depth
-from eraxvif5tts_tpu.configs import PRESETS, ModelConfig, load_model_config
-from eraxvif5tts_tpu.text.chunk import chunk_text
-from eraxvif5tts_tpu.text.pinyin import convert_char_to_pinyin
-from eraxvif5tts_tpu.text.tokenizer import get_tokenizer, list_str_to_idx
+from eraxvif5tts_tpu_torch.audio.io import read_wav, write_wav
+from eraxvif5tts_tpu_torch.audio.resample import resample
+from eraxvif5tts_tpu_torch.audio.silence import clip_reference_audio
+from eraxvif5tts_tpu_torch.compression.convert import infer_depth
+from eraxvif5tts_tpu_torch.configs import PRESETS, ModelConfig, load_model_config
+from eraxvif5tts_tpu_torch.text.chunk import chunk_text
+from eraxvif5tts_tpu_torch.text.pinyin import convert_char_to_pinyin
+from eraxvif5tts_tpu_torch.text.tokenizer import get_tokenizer, list_str_to_idx
 from eraxvif5tts_tpu_torch.compression.convert import (
-    reference_dit_state_dict,
+    reference_backbone_state_dict,
     reference_vocos_state_dict,
     state_dict_from_jax,
 )
@@ -72,6 +79,7 @@ from eraxvif5tts_tpu_torch.infer.utils import (
     pick_bucket,
     rms_of,
 )
+from eraxvif5tts_tpu_torch.models import build_backbone
 from eraxvif5tts_tpu_torch.models.cfm import CFM
 from eraxvif5tts_tpu_torch.models.dit import DiT
 from eraxvif5tts_tpu_torch.models.vocos import Vocos
@@ -137,12 +145,15 @@ class F5TTSWrapper:
             cfg = load_model_config(model_name)
         else:
             raise ValueError(f"unknown model {model_name!r} (not a preset or yaml path)")
-        if cfg.backbone != "DiT" or cfg.mel_spec.mel_spec_type != "vocos":
-            raise ValueError(f"only DiT + Vocos is ported, got {cfg.backbone} + "
+        if cfg.backbone not in ("DiT", "UNetT") or cfg.mel_spec.mel_spec_type != "vocos":
+            raise ValueError(f"only DiT or UNetT + Vocos is ported, got {cfg.backbone} + "
                              f"{cfg.mel_spec.mel_spec_type}")
         if compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}, "
                              f"got {compute_dtype!r}")
+        if compute_dtype == "int8" and cfg.backbone != "DiT":
+            raise ValueError(f"compute_dtype='int8' serves the DiT only: int8 for the "
+                             f"{cfg.backbone} is not ported yet")
         self.device = torch.device(device)
         if self.device.type == "cuda" and compute_dtype == "float32":
             raise ValueError(
@@ -165,12 +176,17 @@ class F5TTSWrapper:
         self.cfg_strength = cfg_strength
         self.sway_sampling_coef = sway_sampling_coef
         self.speed = speed
+        # the UNetT's time token is an extra frame 0: mel buckets of 64k - 1
+        # frames give the transformer the 64-aligned sequence the serving
+        # attention kernel takes
+        if cfg.backbone == "UNetT" and duration_buckets == DURATION_BUCKETS:
+            duration_buckets = tuple(b - 1 for b in DURATION_BUCKETS)
         self.duration_buckets = duration_buckets
         self.text_buckets = text_buckets
 
         state_dict, vocoder_state_dict = state_dict_from_jax(params, vocoder_params, cfg)
         if ckpt_path is not None:
-            state_dict = reference_dit_state_dict(ckpt_path, use_ema=use_ema)
+            state_dict = reference_backbone_state_dict(ckpt_path, use_ema=use_ema)
         if vocoder_ckpt_path is not None:
             vocoder_state_dict = reference_vocos_state_dict(vocoder_ckpt_path)
         if state_dict is not None:
@@ -193,7 +209,7 @@ class F5TTSWrapper:
                 prequantized=params is not None and ckpt_path is None,
                 validate=int8_validate)
         else:
-            self.transformer = DiT(cfg.arch, text_num_embeds, mel_cfg.n_mel_channels)
+            self.transformer = build_backbone(cfg, text_num_embeds)
             if state_dict is not None:
                 self.transformer.load_state_dict(state_dict, strict=True)
             # every backbone weight in the compute dtype, as the JAX wrapper does

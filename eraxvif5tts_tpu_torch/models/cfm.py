@@ -28,7 +28,6 @@ from typing import Optional
 
 import torch
 
-from eraxvif5tts_tpu_torch.models.dit import DiT
 from eraxvif5tts_tpu_torch.ops.masks import lens_to_mask, mask_from_frac_lengths
 
 
@@ -84,13 +83,16 @@ class LossDraws:
 
 
 class CFM:
-    """Stateless objective and sampler around a :class:`DiT`."""
+    """Stateless objective and sampler around a backbone: a
+    :class:`~eraxvif5tts_tpu_torch.models.dit.DiT` or a
+    :class:`~eraxvif5tts_tpu_torch.models.unett.UNetT`, through their shared
+    ``embed_text`` / ``run`` / ``forward`` interface."""
 
     audio_drop_prob = 0.35  # reference `cfm.py:42`
     cond_drop_prob = 0.25  # reference `cfm.py:43`
     frac_lengths_mask = (0.7, 1.0)
 
-    def __init__(self, transformer: DiT):
+    def __init__(self, transformer: torch.nn.Module):
         self.transformer = transformer
 
     @property
@@ -141,7 +143,7 @@ class CFM:
         if d != self.num_channels:
             raise ValueError(f"cond has {d} channels, the model {self.num_channels}")
         device = cond.device
-        dit = self.transformer
+        backbone = self.transformer
 
         text_lens = (text != -1).sum(dim=-1)
         duration = torch.maximum(torch.maximum(text_lens, lens) + 1, duration)
@@ -158,22 +160,22 @@ class CFM:
 
         false_b = torch.zeros(b, dtype=torch.bool, device=device)
         true_b = torch.ones(b, dtype=torch.bool, device=device)
-        te_cond = dit.embed_text(text, max_duration, false_b)
+        te_cond = backbone.embed_text(text, max_duration, false_b)
         if use_cfg and cfg_strength > 1e-5:
-            te2 = torch.cat([te_cond, dit.embed_text(text, max_duration, true_b)])
+            te2 = torch.cat([te_cond, backbone.embed_text(text, max_duration, true_b)])
             cond2 = torch.cat([step_cond, step_cond])
             drop2 = torch.cat([false_b, true_b])
             mask2 = torch.cat([frame_mask, frame_mask])
 
             def flow(x, t):
                 time2 = torch.full((2 * b,), t, dtype=torch.float32, device=device)
-                pred2 = dit.run(torch.cat([x, x]), cond2, te2, time2, drop2, mask2)
+                pred2 = backbone.run(torch.cat([x, x]), cond2, te2, time2, drop2, mask2)
                 pred, null_pred = pred2[:b], pred2[b:]
                 return pred + (pred - null_pred) * cfg_strength
         else:
             def flow(x, t):
                 time = torch.full((b,), t, dtype=torch.float32, device=device)
-                return dit.run(x, step_cond, te_cond, time, false_b, frame_mask)
+                return backbone.run(x, step_cond, te_cond, time, false_b, frame_mask)
 
         for i in range(steps):
             dt = float(t_grid[i + 1] - t_grid[i])  # the fp32 difference

@@ -6,9 +6,11 @@ are per-sample bool tensors), and the text embedding is a separate method
 (:meth:`DiT.embed_text`) so the sampler computes it once before the Euler
 loop and calls :meth:`DiT.run` at every step.
 
-The port builds the ``F5TTS_v1`` family: rotary on every head, no qk-norm,
-no long skip. Other architecture options of the JAX package raise here until
-they are ported. ``arch.quantized`` builds the int8 W8A8 serving blocks
+The port builds the ``F5TTS_v1`` family (rotary on every head) and the
+``F5TTS_Base`` / ``F5TTS_Small`` options: ``pe_attn_head`` (rotary on the first
+heads only), ``qk_norm="rms_norm"``, ``long_skip_connection`` and
+``text_mask_padding=False``. ``scan_layers`` is the JAX package's compile-time
+workaround and raises here. ``arch.quantized`` builds the int8 W8A8 serving blocks
 (`ops/quant.py`; the wrapper's ``compute_dtype="int8"``): they serve only, in
 eval mode, as in the JAX package, where quantized models are never trained.
 
@@ -30,7 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from eraxvif5tts_tpu.configs import ArchConfig
+from eraxvif5tts_tpu_torch.configs import ArchConfig
 from eraxvif5tts_tpu_torch.models.modules import (
     AdaLayerNormFinal,
     ConvNeXtV2Block,
@@ -58,13 +60,15 @@ def _remat(arch: ArchConfig) -> bool:
 
 
 class TextEmbedding(nn.Module):
-    """Char-id embedding + absolute sin position + ConvNeXtV2 stack with the
-    filler positions masked (`dit.py:36-87`, ``text_mask_padding``). ``text``
-    ids are -1 padded; +1 makes 0 the filler."""
+    """Char-id embedding + absolute sin position + ConvNeXtV2 stack, with the
+    filler positions masked when ``mask_padding`` (`dit.py:36-87`,
+    ``text_mask_padding``). ``text`` ids are -1 padded; +1 makes 0 the filler.
+    Without conv layers (the UNetT) it is the embedding alone."""
 
     def __init__(self, text_num_embeds: int, text_dim: int, conv_layers: int = 0,
-                 conv_mult: int = 2):
+                 conv_mult: int = 2, mask_padding: bool = True):
         super().__init__()
+        self.mask_padding = mask_padding
         self.text_embed = nn.Embedding(text_num_embeds + 1, text_dim)
         self.text_blocks = nn.ModuleList(
             [ConvNeXtV2Block(text_dim, text_dim * conv_mult) for _ in range(conv_layers)])
@@ -82,9 +86,12 @@ class TextEmbedding(nn.Module):
         embed = self.text_embed(text).to(dtype)
         if len(self.text_blocks):
             embed = embed + self.freqs_cis[:seq_len].to(embed.dtype)[None]
-            embed = embed.masked_fill(filler[..., None], 0.0)
+            if self.mask_padding:
+                embed = embed.masked_fill(filler[..., None], 0.0)
             for block in self.text_blocks:
-                embed = block(embed).masked_fill(filler[..., None], 0.0)
+                embed = block(embed)
+                if self.mask_padding:
+                    embed = embed.masked_fill(filler[..., None], 0.0)
         return embed
 
 
@@ -112,13 +119,9 @@ class DiT(nn.Module):
     def __init__(self, arch: ArchConfig, text_num_embeds: int = 256, mel_dim: int = 100,
                  compute_dtype: torch.dtype | None = None):
         super().__init__()
-        unported = {"qk_norm": arch.qk_norm is not None,
-                    "pe_attn_head": arch.pe_attn_head is not None,
-                    "long_skip_connection": arch.long_skip_connection,
-                    "text_mask_padding=False": not arch.text_mask_padding}
-        if any(unported.values()):
-            raise ValueError("DiT options not ported yet: "
-                             + ", ".join(k for k, v in unported.items() if v))
+        if arch.scan_layers:
+            raise ValueError("scan_layers=True is the JAX package's compile-time workaround "
+                             "and is not ported: build the unrolled form")
         _remat(arch)
         self.arch = arch
         self.mel_dim = mel_dim
@@ -126,12 +129,16 @@ class DiT(nn.Module):
         text_dim = arch.text_dim if arch.text_dim is not None else mel_dim
         self.time_embed = TimestepEmbedding(arch.dim)
         self.text_embed = TextEmbedding(text_num_embeds, text_dim,
-                                        conv_layers=arch.conv_layers)
+                                        conv_layers=arch.conv_layers,
+                                        mask_padding=arch.text_mask_padding)
         self.input_embed = InputEmbedding(mel_dim, text_dim, arch.dim)
         self.transformer_blocks = nn.ModuleList(
             [DiTBlock(arch.dim, arch.heads, arch.dim_head, arch.ff_mult,
-                      quantized=arch.quantized)
+                      quantized=arch.quantized, qk_norm=arch.qk_norm,
+                      pe_attn_head=arch.pe_attn_head)
              for _ in range(arch.depth)])
+        if arch.long_skip_connection:
+            self.long_skip_connection = nn.Linear(arch.dim * 2, arch.dim, bias=False)
         self.norm_out = AdaLayerNormFinal(arch.dim)
         self.proj_out = nn.Linear(arch.dim, mel_dim)
         self._rope: dict[tuple[int, torch.device], torch.Tensor] = {}
@@ -176,12 +183,15 @@ class DiT(nn.Module):
         t = self.time_embed(time, self.dtype)
         h = self.input_embed(x, cond, text_embed, drop_audio_cond, mask=mask)
         rope = self.rope(seq_len, x.device)
+        residual = h
         remat = self.training and torch.is_grad_enabled() and _remat(self.arch)
         for block, keys in zip(self.transformer_blocks, dropout_keys):
             if remat:
                 h = checkpoint(block, h, t, mask, rope, rate, keys, use_reentrant=False)
             else:
                 h = block(h, t, mask, rope, rate, keys)
+        if self.arch.long_skip_connection:
+            h = linear(torch.cat([h, residual], dim=-1), self.long_skip_connection)
         h = self.norm_out(h, t)
         return linear(h.to(self.proj_out.weight.dtype), self.proj_out).float()
 

@@ -1,7 +1,8 @@
-"""DiT building blocks (port of `eraxvif5tts_tpu/models/modules.py`).
+"""Transformer building blocks of the DiT and the UNetT (port of
+`eraxvif5tts_tpu/models/modules.py`).
 
 Parameter names follow the reference torch checkpoint schema
-(`eraxvif5tts_tpu/compression/convert.py` ``dit_rules``), so a reference
+(`compression/convert.py` ``dit_rules`` / ``unett_rules``), so a reference
 state dict loads with ``load_state_dict(strict=True)``.
 
 Conventions, as in the JAX package:
@@ -16,8 +17,10 @@ Conventions, as in the JAX package:
 - layernorm statistics are fp32.
 
 Two modes, as the JAX package's ``deterministic`` flag: in eval mode
-(serving) :class:`Attention` calls the masked, rotary-fused serving attention
-and :class:`FeedForward` the AdaLN-modulated input projection kernel; in
+(serving) :class:`Attention` calls the masked serving attention (rotary fused
+into the kernel when every head is rotated; with ``pe_attn_head`` the first
+heads are rotated here and the kernel runs without rotary) and
+:class:`FeedForward` the normalised, modulated input projection kernel; in
 training mode (``module.train()``, the JAX ``deterministic=False``) q and k
 are rotated outside the kernel, attention runs through the training kernels
 with attention dropout, the feed-forward takes the unfused path, and the
@@ -50,7 +53,7 @@ from eraxvif5tts_tpu_torch.ops.dropout import hash_dropout
 from eraxvif5tts_tpu_torch.ops.fused_matmul import ln_mod_matmul
 from eraxvif5tts_tpu_torch.ops.quant import QuantLinear
 from eraxvif5tts_tpu_torch.ops.quant_ff import int8_ff, use_int8_ff
-from eraxvif5tts_tpu_torch.ops.rotary import apply_rotary
+from eraxvif5tts_tpu_torch.ops.rotary import apply_rotary_heads
 from eraxvif5tts_tpu_torch.ops.train_attention import attention_seed, train_attention
 
 
@@ -168,6 +171,38 @@ class ConvPositionEmbedding(nn.Module):
         return x
 
 
+class RMSNorm(nn.Module):
+    """RMS norm with a learnable scale, statistics in fp32 (`modules.py:183-194`;
+    the q / k norm of ``qk_norm="rms_norm"``). The scale is cast to x's dtype
+    at use, as every parameter of the port is."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        var = x.float().square().mean(dim=-1, keepdim=True)
+        return x * torch.rsqrt(var + self.eps).to(x.dtype) * self.weight.to(x.dtype)
+
+
+class XRMSNorm(nn.Module):
+    """x_transformers-style RMSNorm of the UNetT, ``x / max(|x|, 1e-12) *
+    sqrt(d) * g`` with the norm in fp32 (`models/unett.py:28-42`). On the
+    fused serving path the caller reads ``g`` and folds it into
+    ``ln_mod_matmul(norm="rms")``'s ``scale``."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.dim = dim
+        self.g = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        norm = x.float().square().sum(dim=-1, keepdim=True).sqrt()
+        normed = x / norm.clamp(min=1e-12).to(x.dtype)
+        return normed * (self.dim ** 0.5) * self.g.to(x.dtype)
+
+
 class AdaLayerNorm(nn.Module):
     """AdaLN-zero: SiLU -> Linear -> 6-way modulation (`modules.py:197-219`).
     Returns the modulated attention input and (gate_msa, shift_mlp,
@@ -197,13 +232,17 @@ class AdaLayerNormFinal(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """The AdaLN-modulated feed-forward of a DiT block from its pre-norm
-    input: layernorm + modulate + Linear + tanh-GELU, dropout, Linear. In eval
-    mode the first four are one kernel (`ln_mod_matmul`, the fused serving
-    branch, `modules.py:485-496`); in training mode they are unfused
-    (`modules.py:322-329`, `:498-500`). Quantized, the layernorm + modulate
-    is unfused and the rest is the int8 chain or ``int8_ff``
-    (`modules.py:309-329`). Keys ``ff.0.0`` / ``ff.2`` as in the reference."""
+    """The feed-forward of a block. :meth:`forward` takes the block's pre-norm
+    input: norm + modulate + Linear + tanh-GELU, dropout, Linear. In eval mode
+    the first four are one kernel (`ln_mod_matmul`, the fused serving branch,
+    `modules.py:289-307`, `:485-496`): ``norm="ln"`` for the DiT's AdaLN,
+    ``norm="rms"`` for the UNetT with ``scale = g - 1`` and ``shift = 0``
+    (`unett.py:77-81`). In training mode, and quantized, the layernorm +
+    modulate is unfused and :meth:`project` does the rest: Linear, tanh-GELU,
+    dropout, Linear (`modules.py:322-329`, `:498-500`), or quantized the int8
+    chain or ``int8_ff`` (`modules.py:309-329`). The UNetT's unfused branch
+    normalises with its own :class:`XRMSNorm` and calls :meth:`project`. Keys
+    ``ff.0.0`` / ``ff.2`` as in the reference."""
 
     def __init__(self, dim: int, mult: int = 4, quantized: bool = False):
         super().__init__()
@@ -217,42 +256,61 @@ class FeedForward(nn.Module):
         )
 
     def forward(self, x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
-                dropout_rate: float = 0.0, dropout_key=None) -> torch.Tensor:
+                dropout_rate: float = 0.0, dropout_key=None, norm: str = "ln") -> torch.Tensor:
+        project_in = self.ff[0][0]
+        if not self.training and not self.quantized:
+            h = ln_mod_matmul(x, scale.contiguous(), shift.contiguous(), project_in.weight,
+                              project_in.bias, activation="gelu_tanh", norm=norm)
+            return linear(h, self.ff[2])
+        if norm != "ln":
+            raise ValueError(f"the unfused feed-forward normalises with the layernorm only, "
+                             f"got norm={norm!r}: normalise outside and call project()")
+        h = layer_norm(x) * (1 + scale[:, None]) + shift[:, None]
+        return self.project(h, dropout_rate, dropout_key)
+
+    def project(self, h: torch.Tensor, dropout_rate: float = 0.0,
+                dropout_key=None) -> torch.Tensor:
+        """Linear, tanh-GELU, dropout, Linear of a normalised input."""
         project_in, project_out = self.ff[0][0], self.ff[2]
         if self.quantized:
-            h = layer_norm(x) * (1 + scale[:, None]) + shift[:, None]
             if use_int8_ff():
                 return int8_ff(h, project_in.weight_q, project_in.weight_scale,
                                project_in.bias, project_out.weight_q,
                                project_out.weight_scale, project_out.bias)
             return project_out(F.gelu(project_in(h), approximate="tanh"))
-        if not self.training:
-            h = ln_mod_matmul(x, scale.contiguous(), shift.contiguous(),
-                              project_in.weight, project_in.bias, activation="gelu_tanh")
-            return linear(h, self.ff[2])
-        h = layer_norm(x) * (1 + scale[:, None]) + shift[:, None]
         h = F.gelu(linear(h, project_in), approximate="tanh")
-        return linear(hash_dropout(h, dropout_rate, dropout_key), self.ff[2])
+        return linear(hash_dropout(h, dropout_rate, dropout_key), project_out)
 
 
 class Attention(nn.Module):
-    """Self-attention with rotary on every head and padded query rows zeroed
-    after the output projection (`modules.py:332-434`). In eval mode rotary
-    is fused into the serving kernel; in training mode q and k are rotated
-    here (cos/sin in the compute dtype, as the JAX package's unfused path),
+    """Self-attention with optional RMS norm of q and k per head
+    (``qk_norm="rms_norm"``), rotary on every head or on the first
+    ``pe_attn_head`` heads, and padded query rows zeroed after the output
+    projection (`modules.py:332-434`). In eval mode rotary on every head is
+    fused into the serving kernel; with ``pe_attn_head`` q and k are rotated
+    here (cos/sin in the compute dtype, `modules.py:386-390`) and the kernel
+    runs without rotary. In training mode q and k are always rotated here,
     the training kernels apply attention dropout, and the output projection
     gets position-hash dropout. ``mask [b, n]`` must be a contiguous prefix;
     ``dropout_keys`` are the (attention, output) keys of a training call at
     ``dropout_rate``."""
 
-    def __init__(self, dim: int, heads: int = 8, dim_head: int = 64, quantized: bool = False):
+    def __init__(self, dim: int, heads: int = 8, dim_head: int = 64, quantized: bool = False,
+                 qk_norm: str | None = None, pe_attn_head: int | None = None):
         super().__init__()
+        if qk_norm not in (None, "rms_norm"):
+            raise ValueError(f"unimplemented qk_norm: {qk_norm!r}")
         inner = heads * dim_head
         dense = QuantLinear if quantized else nn.Linear
-        self.heads, self.dim_head = heads, dim_head
+        self.heads, self.dim_head, self.pe_attn_head = heads, dim_head, pe_attn_head
         self.to_q = dense(dim, inner)
         self.to_k = dense(dim, inner)
         self.to_v = dense(dim, inner)
+        if qk_norm is not None:
+            self.q_norm = RMSNorm(dim_head)
+            self.k_norm = RMSNorm(dim_head)
+        else:
+            self.q_norm = self.k_norm = None
         self.to_out = nn.ModuleList([dense(inner, dim), nn.Dropout(0.0)])
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None,
@@ -263,12 +321,19 @@ class Attention(nn.Module):
         q = linear(x, self.to_q).view(shape)
         k = linear(x, self.to_k).view(shape)
         v = linear(x, self.to_v).view(shape)
+        if self.q_norm is not None:
+            q, k = self.q_norm(q), self.k_norm(k)
         if not self.training:
+            if rope is not None and self.pe_attn_head is not None:
+                q = apply_rotary_heads(q, rope, self.pe_attn_head)
+                k = apply_rotary_heads(k, rope, self.pe_attn_head)
+                rope = None
             out = dot_product_attention(q, k, v, key_valid=mask, rope=rope)
             out = linear(out.reshape(b, n, -1), self.to_out[0])
         else:
             if rope is not None:
-                q, k = apply_rotary(q, rope[:, None]), apply_rotary(k, rope[:, None])
+                q = apply_rotary_heads(q, rope, self.pe_attn_head)
+                k = apply_rotary_heads(k, rope, self.pe_attn_head)
             seed = attention_seed(dropout_keys[0]) if dropout_rate > 0.0 else 0
             out = train_attention(q, k, v, key_valid=mask, dropout_rate=dropout_rate, seed=seed)
             out = linear(out.reshape(b, n, -1), self.to_out[0])
@@ -285,10 +350,12 @@ class DiTBlock(nn.Module):
     state, in the order the JAX block draws them."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, ff_mult: int = 4,
-                 quantized: bool = False):
+                 quantized: bool = False, qk_norm: str | None = None,
+                 pe_attn_head: int | None = None):
         super().__init__()
         self.attn_norm = AdaLayerNorm(dim)
-        self.attn = Attention(dim, heads=heads, dim_head=dim_head, quantized=quantized)
+        self.attn = Attention(dim, heads=heads, dim_head=dim_head, quantized=quantized,
+                              qk_norm=qk_norm, pe_attn_head=pe_attn_head)
         self.ff = FeedForward(dim, mult=ff_mult, quantized=quantized)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor,

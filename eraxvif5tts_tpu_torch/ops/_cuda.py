@@ -41,8 +41,8 @@ _DROPOUT = (_U, _U, _F, _I)  # seed, threshold, inv_keep, dropout on
 _SIGNATURES = {
     # q, k, v, lens, cos, sin, out, b, n, h, roped, scale, stream
     "erax_serving_attention": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
-    # x, scale, shift, w, bias, out, stats, b, m, k, n, gelu, eps, stream
-    "erax_ln_mod_matmul": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    # x, scale, shift, w, bias, out, stats, b, m, k, n, gelu, norm, eps, stream
+    "erax_ln_mod_matmul": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
     # q, k, v, lens, out, lse, b, n, h, scale, dropout..., stream
     "erax_train_attention_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, *_DROPOUT, _P),
     # q, k, v, dout, lse, dd, lens, dq, b, n, h, scale, dropout..., stream

@@ -1,14 +1,18 @@
-"""The DiT block's fused projections: the AdaLN-modulated feed-forward input
-projection and the gated residual projection.
+"""The fused projections of a transformer block: the normalised, modulated
+feed-forward input projection and the gated residual projection.
 
 Port of `eraxvif5tts_tpu/ops/fused_matmul.py`, both of its Pallas kernels:
 
 - :func:`ln_mod_matmul` (Pallas body `_ln_mod_kernel`) launches the CUDA
   kernel `csrc/ln_mod_matmul.cu`: per batch row,
-  ``act((LN(x) * (1 + scale) + shift) @ weight.T + bias)`` with a scale-free
-  layernorm over K (fp32 statistics, eps 1e-6), the modulated activation cast
-  to x's dtype before the product, fp32 accumulation, and the tanh-GELU in
-  fp32 before the output cast. It is the bf16 serving FF input projection.
+  ``act((norm(x) * (1 + scale) + shift) @ weight.T + bias)`` with a
+  scale-free norm over K in fp32, the modulated activation cast to x's dtype
+  before the product, fp32 accumulation, and the tanh-GELU in fp32 before the
+  output cast. ``norm="ln"`` (eps 1e-6) is the layernorm of the DiT block's
+  AdaLN; ``norm="rms"`` (eps 1e-12) is the UNetT's x_transformers RMSNorm,
+  ``x * rsqrt(mean(x^2) + eps)`` with no mean subtraction, whose gain the
+  caller folds into ``scale = g - 1``. It is the bf16 serving FF input
+  projection of both backbones.
 - :func:`matmul_gate_res` (Pallas body `_gate_res_kernel`) launches
   `csrc/matmul_gate_res.cu`: ``res + gate * (h @ weight.T + bias)``, the
   product in h's dtype with fp32 accumulation, bias, gate and residual in
@@ -32,16 +36,22 @@ import torch
 
 K_TILE = 32
 N_TILE = 128
-EPS = 1e-6
+EPS = {"ln": 1e-6, "rms": 1e-12}  # each norm's eps in the JAX package's models
+_NORM_CODES = {"ln": 0, "rms": 1}  # the kernel's `norm` argument
 
 
 def ln_mod_matmul_reference(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
                             weight: torch.Tensor, bias: torch.Tensor,
-                            activation: Optional[str] = "gelu_tanh") -> torch.Tensor:
-    """Plain PyTorch version with the TPU kernel's cast points."""
+                            activation: Optional[str] = "gelu_tanh", norm: str = "ln",
+                            eps: Optional[float] = None) -> torch.Tensor:
+    """Plain PyTorch version with the TPU kernel's cast points; ``eps``
+    defaults to ``EPS[norm]``."""
+    if norm not in _NORM_CODES:
+        raise ValueError(f"unknown norm {norm!r} (ln | rms)")
+    eps = EPS[norm] if eps is None else eps
     xf = x.float()
-    centered = xf - xf.mean(dim=-1, keepdim=True)
-    rstd = torch.rsqrt((centered * centered).mean(dim=-1, keepdim=True) + EPS)
+    centered = xf - xf.mean(dim=-1, keepdim=True) if norm == "ln" else xf
+    rstd = torch.rsqrt((centered * centered).mean(dim=-1, keepdim=True) + eps)
     normed = (centered * (rstd * (1.0 + scale.float()[:, None, :]))
               + shift.float()[:, None, :]).to(x.dtype)
     acc = torch.matmul(normed.float(), weight.float().t()) + bias.float()
@@ -76,9 +86,13 @@ def _check_bf16_operands(fn: str, x: torch.Tensor, shapes: dict) -> tuple[int, i
     return k, n
 
 
-def _check_cuda_args(x, scale, shift, weight, bias, activation) -> None:
+def _check_cuda_args(x, scale, shift, weight, bias, activation, norm, eps) -> None:
     if activation not in (None, "gelu_tanh"):
         raise ValueError(f"unknown activation {activation!r}")
+    if norm not in _NORM_CODES:
+        raise ValueError(f"unknown norm {norm!r} (ln | rms)")
+    if not eps > 0.0:
+        raise ValueError(f"ln_mod_matmul: eps must be positive, got {eps}")
     b, k = (x.shape[0], x.shape[-1]) if x.ndim == 3 else (0, 0)
     n = weight.shape[0]
     _check_bf16_operands("ln_mod_matmul", x, {
@@ -88,17 +102,22 @@ def _check_cuda_args(x, scale, shift, weight, bias, activation) -> None:
 
 def ln_mod_matmul(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
                   weight: torch.Tensor, bias: torch.Tensor,
-                  activation: Optional[str] = "gelu_tanh") -> torch.Tensor:
-    """``act((LN(x) * (1 + scale) + shift) @ weight.T + bias)``.
+                  activation: Optional[str] = "gelu_tanh", norm: str = "ln",
+                  eps: Optional[float] = None) -> torch.Tensor:
+    """``act((norm(x) * (1 + scale) + shift) @ weight.T + bias)`` with
+    ``norm`` the scale-free layernorm (``"ln"``) or RMS norm (``"rms"``) over
+    K; ``eps`` defaults to ``EPS[norm]``.
 
     x ``[B, M, K]``; scale/shift ``[B, K]``; weight ``[N, K]``; bias ``[N]``.
     CPU tensors take :func:`ln_mod_matmul_reference`; CUDA tensors launch the
-    kernel (counted in ``ln_mod_matmul.launches``) or raise."""
+    kernel or raise. ``ln_mod_matmul.launches`` counts every launch and
+    ``ln_mod_matmul.launches_by_norm[norm]`` those of each mode."""
     if x.device.type == "cpu":
-        return ln_mod_matmul_reference(x, scale, shift, weight, bias, activation)
+        return ln_mod_matmul_reference(x, scale, shift, weight, bias, activation, norm, eps)
     if x.device.type != "cuda":
         raise ValueError(f"ln_mod_matmul: unsupported device {x.device}")
-    _check_cuda_args(x, scale, shift, weight, bias, activation)
+    eps = EPS.get(norm) if eps is None else eps
+    _check_cuda_args(x, scale, shift, weight, bias, activation, norm, eps)
     from eraxvif5tts_tpu_torch.ops import _cuda
 
     b, m, k = x.shape
@@ -110,13 +129,16 @@ def ln_mod_matmul(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
         code = lib.erax_ln_mod_matmul(
             x.data_ptr(), scale.data_ptr(), shift.data_ptr(), weight.data_ptr(),
             bias.data_ptr(), out.data_ptr(), stats.data_ptr(), b, m, k, n,
-            int(activation == "gelu_tanh"), EPS, _cuda.stream_ptr(x.device))
+            int(activation == "gelu_tanh"), _NORM_CODES[norm], eps,
+            _cuda.stream_ptr(x.device))
     _cuda.check(code, "ln_mod_matmul")
     ln_mod_matmul.launches += 1
+    ln_mod_matmul.launches_by_norm[norm] += 1
     return out
 
 
 ln_mod_matmul.launches = 0
+ln_mod_matmul.launches_by_norm = {"ln": 0, "rms": 0}
 
 
 def matmul_gate_res_reference(h: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from eraxvif5tts_tpu.compression.convert import dit_rules
+from eraxvif5tts_tpu_torch.compression.convert import dit_rules
 
 # the Dense names `quantize_params` quantizes (`ops/quant.py` `_QUANT_SUFFIXES`;
 # copied: that module imports jax). Not "skip_proj" (UNetT), as there; that

@@ -39,6 +39,16 @@ def apply_rotary(x: torch.Tensor, freqs: torch.Tensor) -> torch.Tensor:
     return torch.cat([x_rot, x_pass], dim=-1)
 
 
+def apply_rotary_heads(x: torch.Tensor, freqs: torch.Tensor,
+                       heads: int | None = None) -> torch.Tensor:
+    """Rotate the first ``heads`` heads (all when None) of ``x [b, n, h, d]``
+    by ``freqs [n, rot_dim]`` with :func:`apply_rotary`; the other heads pass
+    through (the reference's ``pe_attn_head``, `models/modules.py:386-390`)."""
+    if heads is None or heads >= x.shape[2]:
+        return apply_rotary(x, freqs[:, None])
+    return torch.cat([apply_rotary(x[:, :, :heads], freqs[:, None]), x[:, :, heads:]], dim=2)
+
+
 def abs_pos_embedding_table(dim: int, max_pos: int = 4096,
                             theta: float = 10000.0) -> np.ndarray:
     """``concat(cos(t f), sin(t f))`` table ``[max_pos, dim]`` float32, with

@@ -92,7 +92,9 @@ def serving_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     per-sample valid length (``lens [b]``) and fused rotary (``rope [n, d]``).
 
     CPU tensors take :func:`serving_attention_reference`; CUDA tensors launch
-    the kernel (counted in ``serving_attention.launches``) or raise."""
+    the kernel or raise. ``serving_attention.launches`` counts every launch
+    and ``serving_attention.launches_by_rope[rope is not None]`` those with
+    and without fused rotary."""
     if q.device.type == "cpu":
         return serving_attention_reference(q, k, v, lens, rope)
     if q.device.type != "cuda":
@@ -118,7 +120,9 @@ def serving_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             _cuda.stream_ptr(q.device))
     _cuda.check(code, "serving_attention")
     serving_attention.launches += 1
+    serving_attention.launches_by_rope[rope is not None] += 1
     return out
 
 
 serving_attention.launches = 0
+serving_attention.launches_by_rope = {True: 0, False: 0}

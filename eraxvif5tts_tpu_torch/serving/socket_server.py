@@ -26,8 +26,8 @@ from typing import Callable, Optional
 
 import numpy as np
 
-from eraxvif5tts_tpu.audio.io import write_wav
-from eraxvif5tts_tpu.text.chunk import chunk_text
+from eraxvif5tts_tpu_torch.audio.io import write_wav
+from eraxvif5tts_tpu_torch.text.chunk import chunk_text
 from eraxvif5tts_tpu_torch.infer.wrapper import F5TTSWrapper, ReferenceState
 
 
@@ -167,7 +167,7 @@ def start_server(host: str, port: int, processor: TTSStreamingProcessor,
 
 def smoke_wrapper(device: str = "cpu") -> tuple[F5TTSWrapper, ReferenceState]:
     """A tiny randomly initialised wrapper and a synthetic 0.5 s reference."""
-    from eraxvif5tts_tpu.configs import ArchConfig, ModelConfig
+    from eraxvif5tts_tpu_torch.configs import ArchConfig, ModelConfig
 
     cfg = ModelConfig(arch=ArchConfig(dim=128, depth=2, heads=2, dim_head=64,
                                       text_dim=32, conv_layers=1, dropout=0.0))

@@ -295,7 +295,7 @@ class Trainer:
         lens = torch.as_tensor(batch["lens"], device=device)
         if isinstance(draws, torch.Generator):
             b, n, d = mel.shape
-            draws = LossDraws.sample(draws, b, n, d, len(model.transformer_blocks),
+            draws = LossDraws.sample(draws, b, n, d, model.arch.depth,
                                      self.cfm.frac_lengths_mask)
 
         state.optimizer.zero_grad(set_to_none=True)

@@ -229,3 +229,107 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):  # lens must be int32
         fm.matmul_gate_res(h, w, vec, gate, h, torch.tensor([64, 3], device=cuda),
                            mask_rows=True)
+
+
+@pytest.mark.parametrize("m", [256, 1088])
+def test_ln_mod_matmul_rms_kernel_matches_plain(cuda, m):
+    """The RMS mode at the UNetT's shapes (K 1024 -> N 4096, eps 1e-12,
+    scale = g - 1, shift = 0) with an all-zero row, which must be gelu(bias)
+    exactly; its launches are counted apart from the layernorm mode's."""
+    g = torch.Generator(device=cuda).manual_seed(m)
+    x = (torch.randn((2, m, 1024), generator=g, device=cuda) + 0.5).bfloat16()
+    x[1, m // 2] = 0.0
+    gain = 1.0 + 0.1 * torch.randn((1024,), generator=g, device=cuda)
+    scale = (gain - 1.0).bfloat16().expand(2, -1).contiguous()
+    shift = torch.zeros_like(scale)
+    w = (torch.randn((4096, 1024), generator=g, device=cuda) / 32).bfloat16()
+    bias = (0.1 * torch.randn((4096,), generator=g, device=cuda)).bfloat16()
+    before = dict(fm.ln_mod_matmul.launches_by_norm)
+    got = fm.ln_mod_matmul(x, scale, shift, w, bias, norm="rms", eps=1e-12)
+    torch.cuda.synchronize()
+    assert fm.ln_mod_matmul.launches_by_norm == {"ln": before["ln"], "rms": before["rms"] + 1}
+    assert torch.isfinite(got).all()
+    _assert_close(got, fm.ln_mod_matmul_reference(x, scale, shift, w, bias, norm="rms",
+                                                  eps=1e-12))
+    want_zero_row = torch.nn.functional.gelu(bias.float(), approximate="tanh").bfloat16()
+    assert torch.equal(got[1, m // 2], want_zero_row)
+    # the layernorm mode on the same inputs is another function, and unchanged
+    ln = fm.ln_mod_matmul(x, scale, shift, w, bias)
+    _assert_close(ln, fm.ln_mod_matmul_reference(x, scale, shift, w, bias))
+    assert not torch.allclose(ln.float(), got.float(), atol=0.1)
+
+
+@pytest.mark.parametrize("n", [256, 1088, 4096])
+def test_serving_attention_without_rope_matches_plain(cuda, n):
+    g = torch.Generator(device=cuda).manual_seed(n + 1)
+    q, k, v = (torch.randn((2, n, 16, 64), generator=g, device=cuda).bfloat16()
+               for _ in range(3))
+    lens = torch.tensor([n - 37, 0], device=cuda)
+    before = dict(sa.serving_attention.launches_by_rope)
+    got = sa.serving_attention(q, k, v, lens, rope=None)
+    torch.cuda.synchronize()
+    assert sa.serving_attention.launches_by_rope == {True: before[True],
+                                                     False: before[False] + 1}
+    assert torch.isfinite(got).all()
+    _assert_close(got, sa.serving_attention_reference(q, k, v, lens, None))
+
+
+def test_ln_mod_matmul_on_the_card_refuses_unknown_norm_and_fp32(cuda):
+    x = torch.zeros((2, 64, 128), dtype=torch.bfloat16, device=cuda)
+    s = torch.zeros((2, 128), dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros((128, 128), dtype=torch.bfloat16, device=cuda)
+    bias = torch.zeros((128,), dtype=torch.bfloat16, device=cuda)
+    before = fm.ln_mod_matmul.launches
+    with pytest.raises(ValueError, match="unknown norm 'bogus'"):
+        fm.ln_mod_matmul(x, s, s, w, bias, norm="bogus")
+    with pytest.raises(TypeError, match="bfloat16"):
+        fm.ln_mod_matmul(x.float(), s.float(), s.float(), w.float(), bias.float(), norm="rms")
+    with pytest.raises(ValueError, match="eps must be positive"):
+        fm.ln_mod_matmul(x, s, s, w, bias, norm="rms", eps=0.0)
+    assert fm.ln_mod_matmul.launches == before
+
+
+def test_unett_with_kernels_matches_plain_versions(cuda, monkeypatch):
+    """A UNetT (dim 256, 4 layers, ff_mult 4, rotary on head 0 only) at b = 2,
+    n = 255 frames with its kernels against the same UNetT with the plain
+    versions: 5e-2 of the output's scale, as `chip_smoke.py` holds the full
+    width; 4 launches each of the attention kernel without rotary and of the
+    projection kernel in RMS mode."""
+    from eraxvif5tts_tpu_torch.configs import ArchConfig
+    from eraxvif5tts_tpu_torch.models import modules
+    from eraxvif5tts_tpu_torch.models.unett import UNetT
+
+    arch = ArchConfig(dim=256, depth=4, heads=4, dim_head=64, ff_mult=4, text_dim=None,
+                      text_mask_padding=False, pe_attn_head=1, conv_layers=0, dropout=0.0)
+    torch.manual_seed(0)
+    net = UNetT(arch, 40, 100)
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            p.normal_(0.0, 0.02)
+            if name.endswith(".g"):
+                p.add_(1.0)
+    net.to(device=cuda, dtype=torch.bfloat16).eval()
+    g = torch.Generator(device=cuda).manual_seed(1)
+    n = 255
+    x, cond = (torch.randn((2, n, 100), generator=g, device=cuda) for _ in range(2))
+    text = torch.randint(0, 40, (2, 60), generator=g, device=cuda)
+    drop = torch.tensor([False, True], device=cuda)
+    mask = lens_to_mask(torch.tensor([n, n - 56], device=cuda), n)
+    time = torch.full((2,), 0.3, device=cuda)
+
+    def run():
+        with torch.inference_mode():
+            return net.run(x, cond, net.embed_text(text, n, drop), time, drop, mask)
+
+    before = (sa.serving_attention.launches_by_rope[False], fm.ln_mod_matmul.launches_by_norm["rms"])
+    got = run()
+    torch.cuda.synchronize()
+    assert (sa.serving_attention.launches_by_rope[False] - before[0],
+            fm.ln_mod_matmul.launches_by_norm["rms"] - before[1]) == (4, 4)
+    monkeypatch.setattr(modules, "dot_product_attention",
+                        lambda q, k, v, key_valid=None, rope=None:
+                        sa.serving_attention_reference(q, k, v, key_valid.sum(-1), rope))
+    monkeypatch.setattr(modules, "ln_mod_matmul", fm.ln_mod_matmul_reference)
+    want = run()
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max() / want.abs().max()) <= 5e-2

@@ -10,6 +10,7 @@ the two frameworks round at the same points but accumulate in other orders.
 import json
 import subprocess
 import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -32,30 +33,13 @@ from eraxvif5tts_tpu_torch.ops.masks import lens_to_mask
 from eraxvif5tts_tpu_torch.ops.rotary import abs_pos_embedding_table, apply_rotary, rotary_freqs
 from eraxvif5tts_tpu_torch.ops.stft import MelSpectrogram, istft
 
-PORT_MODULES = [
-    "eraxvif5tts_tpu_torch",
-    "eraxvif5tts_tpu_torch.ops._cuda",
-    "eraxvif5tts_tpu_torch.ops.attention",
-    "eraxvif5tts_tpu_torch.ops.dropout",
-    "eraxvif5tts_tpu_torch.ops.fused_matmul",
-    "eraxvif5tts_tpu_torch.ops.masks",
-    "eraxvif5tts_tpu_torch.ops.mel",
-    "eraxvif5tts_tpu_torch.ops.quant",
-    "eraxvif5tts_tpu_torch.ops.quant_ff",
-    "eraxvif5tts_tpu_torch.ops.rotary",
-    "eraxvif5tts_tpu_torch.ops.serving_attention",
-    "eraxvif5tts_tpu_torch.ops.stft",
-    "eraxvif5tts_tpu_torch.ops.train_attention",
-    "eraxvif5tts_tpu_torch.models.modules",
-    "eraxvif5tts_tpu_torch.models.dit",
-    "eraxvif5tts_tpu_torch.models.cfm",
-    "eraxvif5tts_tpu_torch.models.vocos",
-    "eraxvif5tts_tpu_torch.compression.convert",
-    "eraxvif5tts_tpu_torch.infer.utils",
-    "eraxvif5tts_tpu_torch.infer.wrapper",
-    "eraxvif5tts_tpu_torch.serving.socket_server",
-    "eraxvif5tts_tpu_torch.training.trainer",
-]
+REPO_ROOT = Path(__file__).resolve().parent.parent
+
+PORT_PACKAGE = REPO_ROOT / "eraxvif5tts_tpu_torch"
+# every module of the port, from its files: a new module is covered at once
+PORT_MODULES = sorted(
+    ".".join(p.relative_to(REPO_ROOT).with_suffix("").parts).removesuffix(".__init__")
+    for p in PORT_PACKAGE.rglob("*.py"))
 
 
 def _close(got, want, rel, what=""):
@@ -67,13 +51,18 @@ def _close(got, want, rel, what=""):
 
 
 def test_port_imports_no_jax_flax_triton():
+    """Importing every port module and `chip_smoke` (import only) loads no
+    jax, flax or triton, and nothing of the JAX package: the port keeps its
+    own copies of the host modules it needs."""
     code = ("import importlib, json, sys\n"
-            f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
+            f"sys.path.insert(0, {str(REPO_ROOT)!r})\n"
+            f"for m in {PORT_MODULES + ['chip_smoke']!r}: importlib.import_module(m)\n"
             "print(json.dumps(sorted(m for m in sys.modules "
-            "if m.split('.')[0] in ('jax', 'flax', 'triton'))))\n")
+            "if m.split('.')[0] in ('jax', 'flax', 'triton', 'eraxvif5tts_tpu'))))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                         timeout=300, check=True)
+                         timeout=300, check=True, cwd=REPO_ROOT)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+    assert "eraxvif5tts_tpu_torch.models.unett" in PORT_MODULES and len(PORT_MODULES) >= 38
 
 
 def test_rotary_and_masks_match_jax():
@@ -187,12 +176,55 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
     s = torch.zeros(2, 64, dtype=torch.bfloat16)
     w = torch.zeros(128, 64, dtype=torch.bfloat16)
     bias = torch.zeros(128, dtype=torch.bfloat16)
-    tfm._check_cuda_args(x, s, s, w, bias, "gelu_tanh")
+    tfm._check_cuda_args(x, s, s, w, bias, "gelu_tanh", "ln", 1e-6)
+    tfm._check_cuda_args(x, s, s, w, bias, None, "rms", 1e-12)
     with pytest.raises(TypeError, match="bfloat16"):
-        tfm._check_cuda_args(x.float(), s, s, w, bias, None)
+        tfm._check_cuda_args(x.float(), s, s, w, bias, None, "ln", 1e-6)
+    with pytest.raises(TypeError, match="bfloat16"):
+        tfm._check_cuda_args(x.float(), s.float(), s.float(), w.float(), bias.float(), None,
+                             "rms", 1e-12)
     with pytest.raises(ValueError, match="multiple"):
-        tfm._check_cuda_args(x, s, s, w[:96], bias[:96], None)
+        tfm._check_cuda_args(x, s, s, w[:96], bias[:96], None, "rms", 1e-12)
     with pytest.raises(ValueError, match="weight must be"):
-        tfm._check_cuda_args(x, s, s, w.t(), bias, None)
+        tfm._check_cuda_args(x, s, s, w.t(), bias, None, "ln", 1e-6)
     with pytest.raises(ValueError, match="activation"):
-        tfm._check_cuda_args(x, s, s, w, bias, "relu")
+        tfm._check_cuda_args(x, s, s, w, bias, "relu", "ln", 1e-6)
+    with pytest.raises(ValueError, match=r"unknown norm 'bogus' \(ln \| rms\)"):
+        tfm._check_cuda_args(x, s, s, w, bias, None, "bogus", 1e-6)
+    with pytest.raises(ValueError, match="eps must be positive"):
+        tfm._check_cuda_args(x, s, s, w, bias, None, "rms", 0.0)
+    # the plain version refuses an unknown norm too, and each norm has its eps
+    with pytest.raises(ValueError, match="unknown norm 'bogus'"):
+        tfm.ln_mod_matmul(x, s, s, w, bias, norm="bogus")
+    assert tfm.EPS == {"ln": 1e-6, "rms": 1e-12}
+
+
+def test_wrapper_refuses_what_is_not_ported():
+    """Each refusal of the wrapper and of `build_backbone`, with its message."""
+    import dataclasses
+
+    from eraxvif5tts_tpu_torch.configs import PRESETS
+    from eraxvif5tts_tpu_torch.infer.wrapper import F5TTSWrapper
+    from eraxvif5tts_tpu_torch.models import build_backbone
+
+    e2 = PRESETS["E2TTS_Small"]
+    tiny = dataclasses.replace(e2.arch, dim=128, depth=2, heads=2)
+    with pytest.raises(ValueError, match="int8 for the UNetT is not ported yet"):
+        F5TTSWrapper("E2TTS_Small", compute_dtype="int8", device="cpu")
+    with pytest.raises(ValueError, match="int8 serving of the UNetT is not ported yet"):
+        build_backbone(dataclasses.replace(
+            e2, arch=dataclasses.replace(tiny, quantized=True)), 16)
+    scan = dataclasses.replace(e2, arch=dataclasses.replace(tiny, scan_layers=True))
+    for cfg in (scan, dataclasses.replace(scan, backbone="DiT")):
+        with pytest.raises(ValueError, match="scan_layers=True .* is not ported"):
+            build_backbone(cfg, 16)
+        with pytest.raises(ValueError, match="scan_layers=True .* is not ported"):
+            F5TTSWrapper(model_cfg=cfg, device="cpu", compute_dtype="float32")
+    with pytest.raises(ValueError, match="backbone 'MMDiT' is not ported yet"):
+        build_backbone(PRESETS["F5TTS_v1_MMDiT"], 16)
+    with pytest.raises(ValueError, match=r"only DiT or UNetT \+ Vocos is ported, got MMDiT"):
+        F5TTSWrapper("F5TTS_v1_MMDiT", device="cpu")
+    with pytest.raises(ValueError, match="unknown backbone 'GPT'"):
+        build_backbone(dataclasses.replace(e2, backbone="GPT"), 16)
+    with pytest.raises(ValueError, match="depth must be even"):
+        build_backbone(dataclasses.replace(e2, arch=dataclasses.replace(tiny, depth=3)), 16)
