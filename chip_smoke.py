@@ -7,19 +7,23 @@ Phases (any failure raises and the script exits non-zero):
 
 1. device  -- require a CUDA device; print `nvidia-smi`'s name and power limit;
 2. build   -- build the CUDA kernels from `eraxvif5tts_tpu_torch/csrc/` with
-              nvcc and print the build time and ptxas' resource report;
+              nvcc and print the build time, ptxas' resource report and what
+              one TMA tensor-map encode costs the host;
 3. kernels -- each kernel against its plain PyTorch version on the card at the
               serving and training shapes, with its tolerance, median
               CUDA-event times, the least time the card could take for the
               same inputs (bytes and operations over the H100's published
               peaks) and, where one PyTorch call computes the same function,
               that call's time as a yardstick (the serving attention with and
-              without fused rotary; the normalised projection in its
+              without fused rotary, also at n = 64 and 192 and with lengths
+              that end inside a tile, on a tile's edge, at 0 and not given,
+              each second call bit-identical; the normalised projection in its
               layernorm and RMS modes; the training attention forward and both
               backward kernels against the plain version's autograd, also
               at n = 192 and 4032, which leave the backward's last 128-row
               block half empty, and at the train phase's 9 x 4096 shape, each
-              limit checked against a wrong-seed control, each second backward
+              limit checked against a wrong-seed control, the forward's LSE
+              against the plain log sum exp, each second forward and backward
               bit-identical, timed at dropout 0.1 and at keep = 1; the int8
               feed-forward also at the batched CFG shape, with its hidden codes compared; the
               gated residual projection, which no model calls, masked and
@@ -46,7 +50,8 @@ Phases (any failure raises and the script exits non-zero):
               the QuantLinear chain (`ERAX_INT8_FF` unset) and with the
               one-kernel feed-forward (`ERAX_INT8_FF=1`), in turns with a
               bf16 wrapper on the same checkpoint, with the launch counters
-              checked per call and seconds of audio per wall second printed;
+              checked per call and seconds of audio per wall second printed,
+              and one more bf16 batch under `torch.profiler`;
 7. train   -- CFM training of F5TTS_v1_Base at full width (fp32 parameters,
               bf16 compute, dropout 0.1, seeded random weights): one
               `CFM.loss` forward and backward with the kernels against the
@@ -110,7 +115,8 @@ CODE_FLIPS = 1e-5
 # Limits near the geometric mean of the error measured on an H100 and a
 # control's distance (the plain version with a wrong dropout seed, or with
 # wrong attention-dropout keys), which each run checks to exceed the limit:
-ATTN_REL_TOL = 3e-2  # kernel 4's output and gradients, relative L2: <= 3.2e-3 vs >= 0.44
+ATTN_REL_TOL = 3e-2  # kernel 4's output and gradients, relative L2: <= 3.4e-3 vs >= 0.44
+LSE_REL_TOL = 1e-5  # the forward's fp32 LSE, relative L2 (H100: <= 3e-7; no seed enters it)
 LOSS_TOL = 8e-6  # CFM.loss, kernels vs plain attention, relative: 5.0e-6 vs 1.3e-5
 GRAD_TOL = 3.4e-3  # its flattened gradient, relative L2: 2.55e-3 vs 4.5e-3
 QKV_GRAD_TOL = 7e-3  # the q / k / v projections' gradient, relative L2: 2.7e-3 vs 1.9e-2
@@ -213,6 +219,46 @@ def phase_build():
         if any(mark in line for mark in ("registers", "spill", "Compiling entry",
                                          "Performance Loss")):
             log(f"[build]   {line.strip()}")
+    import torch
+
+    probe = torch.empty((2, 4096, 16, 64), dtype=torch.bfloat16, device="cuda")
+    ns = kernels.lib.erax_tensor_map_encode_ns(probe.data_ptr(), 2, 4096, 16, 1000)
+    if ns < 0:
+        raise RuntimeError("libcuda's cuTensorMapEncodeTiled refused a [2, 4096, 16, 64] map")
+    log(f"[build] one TMA tensor-map encode on the host: {ns / 1e3:.2f} us (three a forward "
+        "launch, four a backward launch, made per call)")
+
+
+def check_serving_attention_edges(dev, name: str, with_rope: bool) -> float:
+    """The serving attention against its plain version where its blocks and
+    tiles end unevenly: n = 64 (one warpgroup), 192 (one full block), 256 and
+    1088 (the last 192-row block keeps one warpgroup), each with a
+    length that ends inside a tile beside one with no valid key, with lengths
+    on a tile's edge beside a full one, and without lengths; a second call
+    must give the same bits. Returns the largest error."""
+    import torch
+
+    from eraxvif5tts_tpu_torch.ops import serving_attention as sa
+    from eraxvif5tts_tpu_torch.ops.rotary import rotary_freqs
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 60 + int(with_rope))
+    worst = 0.0
+    for n in (64, 192, 256, 1088):
+        q, k, v = (torch.randn((3, n, 16, 64), generator=gen, device=dev).bfloat16()
+                   for _ in range(3))
+        rope = rotary_freqs(n, 64, device=dev) if with_rope else None
+        edge = 64 * max(n // 128, 1)
+        for lens_list in ([n - 37, 0, 1], [edge, n, 64], None):
+            lens = None if lens_list is None else torch.tensor(lens_list, device=dev)
+            got = sa.serving_attention(q, k, v, lens, rope)
+            worst = max(worst, compare(f"{name} n={n} lens={lens_list}", got,
+                                       sa.serving_attention_reference(q, k, v, lens, rope)))
+            if not torch.equal(got, sa.serving_attention(q, k, v, lens, rope)):
+                raise AssertionError(f"{name} n={n} lens={lens_list}: a second call differs")
+    log(f"[kernels] {name} b=3 n=64, 192, 256, 1088, lens inside a tile / 0 / 1, on a tile's "
+        f"edge / n / 64, and None: max_abs_err {worst:.3g} (tol {TOL} * (1 + |plain|)), every "
+        "second call bit-identical")
+    return worst
 
 
 def phase_kernels(dev) -> dict:
@@ -237,8 +283,11 @@ def phase_kernels(dev) -> dict:
                        for _ in range(3))
             lens = torch.tensor([n - 37, 0], device=dev)
             rope = rotary_freqs(n, 64, device=dev) if with_rope else None
-            err = compare(f"{name} n={n}", sa.serving_attention(q, k, v, lens, rope),
+            got = sa.serving_attention(q, k, v, lens, rope)
+            err = compare(f"{name} n={n}", got,
                           sa.serving_attention_reference(q, k, v, lens, rope))
+            if not torch.equal(got, sa.serving_attention(q, k, v, lens, rope)):
+                raise AssertionError(f"{name} n={n}: a second call on the same inputs differs")
             err_max = max(err_max, err)
             ms = cuda_median_ms(lambda: sa.serving_attention(q, k, v, lens, rope))
             plain_ms = cuda_median_ms(lambda: sa.serving_attention_reference(q, k, v, lens, rope))
@@ -257,7 +306,9 @@ def phase_kernels(dev) -> dict:
                 f"(1 + |plain|)); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
                 f"{least['bound_ms']:.5f} ms by {least['bound_by']}"
                 + (f", library (scaled_dot_product_attention, boolean key mask) "
-                   f"{library_ms:.4f} ms" if library_ms is not None else ""))
+                   f"{library_ms:.4f} ms: the kernel takes {ms / library_ms:.2f}x its time"
+                   if library_ms is not None else ""))
+        err_max = max(err_max, check_serving_attention_edges(dev, name, with_rope))
         results[name] = dict(max_abs_err=err_max, **cases[1088])
 
     # kernel 2: the layernorm mode at the DiT's FF width, then the RMS mode at
@@ -446,6 +497,23 @@ def plain_attention_grads(q, k, v, dout, lens, rate: float, seed: int) -> list:
     return [torch.cat(parts) for parts in zip(*(sample(i) for i in range(q.shape[0])))]
 
 
+def plain_lse(q, k, lens):
+    """log sum exp of the masked, scaled logits in fp32, ``[b, h, n]``, one
+    sample at a time; a sample with no valid key has log n (every logit equal)."""
+    import torch
+
+    n, scale = q.shape[1], 1.0 / math.sqrt(q.shape[-1])
+    rows = []
+    for i in range(q.shape[0]):
+        s = torch.einsum("qhd,khd->hqk", q[i].float(), k[i].float()) * scale
+        length = n if lens is None else int(lens[i])
+        if 0 < length < n:
+            s[..., length:] = -1e30
+        rows.append(torch.logsumexp(s, dim=-1) if length > 0
+                    else torch.full_like(s[..., 0], math.log(n)))
+    return torch.stack(rows)
+
+
 def check_train_attention_case(q, k, v, dout, lens, rate: float, seed: int) -> dict:
     """Kernel-4 output and gradients against the plain version on one input:
     each within ``TOL * (1 + |plain|)`` element by element and within
@@ -490,9 +558,23 @@ def check_train_attention_case(q, k, v, dout, lens, rate: float, seed: int) -> d
         if control and control[name] <= ATTN_REL_TOL:
             raise AssertionError(f"train_attention {name} {tag}: a wrong seed moves the plain "
                                  f"version by only {control[name]:.3g}, within {ATTN_REL_TOL}")
-    if not torch.equal(kernel(q, k, v), got[0]):
+    # the forward's LSE (the undropped weights' normaliser, which the backward
+    # reads): fp32 on both sides from the same bf16 inputs, so only the
+    # summation order and the base-2 exponentials differ
+    lens_i = (torch.full((b,), n, dtype=torch.int32, device=q.device) if lens is None
+              else lens)
+    out, lse = ta.flash_forward(q, k, v, lens_i, rate, seed)
+    rel["lse"] = rel_l2(lse, plain_lse(q, k, lens))
+    log(f"[kernels] train_attention {tag}: forward LSE relative L2 error {rel['lse']:.3g} "
+        f"(tol {LSE_REL_TOL})")
+    if not rel["lse"] <= LSE_REL_TOL:
+        raise AssertionError(f"train_attention LSE {tag}: relative L2 error {rel['lse']:.3g} "
+                             f"beyond {LSE_REL_TOL}")
+    again = ta.flash_forward(q, k, v, lens_i, rate, seed)
+    if not (torch.equal(out, got[0]) and torch.equal(again[0], out)
+            and torch.equal(again[1], lse)):
         raise AssertionError(f"train_attention {tag}: a second forward with the same seed "
-                             "differs")
+                             "differs in O or LSE")
     # two kernels and no atomics: a second backward gives the same bits
     for name, g, again in zip(names, got, attention_grads(kernel, q, k, v, dout)):
         if not torch.equal(g, again):
@@ -792,28 +874,37 @@ def device_ms_by_group(prof, ranges: tuple[str, ...] = ()) -> tuple[dict, int]:
     return groups, launches
 
 
-def profile_generate(wrapper, ref, text: str, nfe: int, tag: str) -> None:
-    """Where one warm `generate` spends its time: the wall of an unprofiled
-    call, then the device kernels of a call under `torch.profiler`, summed by
-    group, and the device's busy share of the unprofiled wall (below 100 % the
-    host's eager dispatch, not the device, bounds the Euler loop)."""
+def profile_generate(wrapper, ref, text, nfe: int, tag: str) -> None:
+    """Where one warm `generate` of ``text`` (or, for a list of texts, one
+    `generate_batch`) spends its time: the wall of an unprofiled call, then
+    the device kernels of a call under `torch.profiler`, summed by group, and
+    the device's busy share of the unprofiled wall (below 100 % the host's
+    eager dispatch, not the device, bounds the Euler loop)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    wrapper.generate(text, seed=SEED, nfe_step=nfe)
+    batch = not isinstance(text, str)
+
+    def call():
+        if batch:
+            return wrapper.generate_batch(list(text), seed=SEED, nfe_step=nfe)
+        return wrapper.generate(text, seed=SEED, nfe_step=nfe)
+
+    call()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    wrapper.generate(text, seed=SEED, nfe_step=nfe)
+    call()
     wall_ms = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wrapper.generate(text, seed=SEED, nfe_step=nfe)
+        call()
         torch.cuda.synchronize()
     groups, launches = device_ms_by_group(prof)
     device_ms = sum(groups.values())
     if device_ms <= 0.0:
         log(f"{tag} profile: the profiler recorded no device time; device share not measured")
         return
-    log(f"{tag} profile of one warm generate at NFE {nfe}: wall {wall_ms:.1f} ms unprofiled; "
+    what = f"generate_batch of {len(text)} texts" if batch else "generate"
+    log(f"{tag} profile of one warm {what} at NFE {nfe}: wall {wall_ms:.1f} ms unprofiled; "
         f"{launches} device kernels, {device_ms:.1f} ms of device time = "
         f"{100 * device_ms / wall_ms:.1f} % of the wall (the rest: host dispatch with the "
         "device idle); "
@@ -843,9 +934,19 @@ def check_f5tts_base(dev) -> None:
         f"text_mask_padding {a.text_mask_padding}")
     check_dit_against_plain(wrapper.transformer, dev, "[main] F5TTS_Base:")
     ref = load_reference(wrapper)
-    wrapper.warmup(ref, nfe_step=2)
+    warm_smallest(wrapper, ref, nfe_step=2)
     generate_counted(wrapper, ref, TEXTS[:1], BASE_NFE, "[main] F5TTS_Base:",
                      ("serving_attention_norope", "ln_mod_matmul"))
+
+
+def warm_smallest(wrapper, ref, nfe_step=None) -> list:
+    """`F5TTSWrapper.warmup` cut to one step: the smallest duration bucket a
+    request with this reference can reach and the smallest text bucket."""
+    from eraxvif5tts_tpu_torch.infer.utils import pick_bucket
+
+    bucket = pick_bucket(ref.n_frames + 1, wrapper.duration_buckets)
+    return wrapper.warmup(ref, nfe_step=nfe_step, buckets=(bucket,),
+                          text_buckets=wrapper.text_buckets[:1])
 
 
 def phase_main(dev) -> tuple[object, object, dict]:
@@ -856,9 +957,9 @@ def phase_main(dev) -> tuple[object, object, dict]:
     log(f"[main] reference: {ref.n_frames} frames ({ref.audio_seconds:.2f} s), "
         f"text {ref.text!r}")
     t0 = time.perf_counter()
-    wrapper.warmup(ref)
-    log(f"[main] warmup (one NFE-{NFE} step at the smallest bucket) "
-        f"{time.perf_counter() - t0:.2f} s")
+    warmed = warm_smallest(wrapper, ref)
+    log(f"[main] warmup (one NFE-{NFE} step at the smallest (duration, text) buckets "
+        f"{warmed}) {time.perf_counter() - t0:.2f} s")
     counts = generate_counted(wrapper, ref, TEXTS, NFE, "[main]",
                               ("serving_attention", "ln_mod_matmul"))
     launches = {name: counts[name] for name in ("serving_attention", "ln_mod_matmul")}
@@ -1060,6 +1161,7 @@ def phase_int8(dev, cfg) -> tuple[dict, float]:
         + ", ".join(f"{label} {rate:.3f}" for label, rate in rates.items())
         + f"; int8 chain / bf16 {rates['int8 chain'] / rates['bf16']:.3f}, int8 fused / bf16 "
         f"{rates['int8 fused'] / rates['bf16']:.3f}")
+    profile_generate(bf16, None, BATCH_TEXTS, NFE, "[int8] bf16")
     return launches, ff_err
 
 
@@ -1343,9 +1445,9 @@ def phase_e2tts(dev, cfg=None) -> dict:
 
     ref = load_reference(wrapper)
     t0 = time.perf_counter()
-    wrapper.warmup(ref)
+    warmed = warm_smallest(wrapper, ref)
     log(f"[e2tts] reference {ref.n_frames} frames; warmup (one NFE-{NFE} step at the smallest "
-        f"bucket) {time.perf_counter() - t0:.2f} s")
+        f"(duration, text) buckets {warmed}) {time.perf_counter() - t0:.2f} s")
     path = ("serving_attention_norope", "ln_mod_matmul_rms")
     counts = generate_counted(wrapper, ref, TEXTS, NFE, "[e2tts]", path)
     profile_generate(wrapper, ref, TEXTS[1], NFE, "[e2tts]")

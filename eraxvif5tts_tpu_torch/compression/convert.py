@@ -29,6 +29,7 @@ block) maps to the quantized DiT's ``weight_q [out, in]`` int8 and
 
 from __future__ import annotations
 
+import os
 import re
 from typing import Callable, Optional
 
@@ -424,6 +425,32 @@ def reference_backbone_state_dict(path: str, use_ema: bool = True) -> StateDict:
     prefix = "transformer."
     return _tensors({k[len(prefix):] if k.startswith(prefix) else k: v
                      for k, v in sd.items()})
+
+
+TRAINER_STATE_FILE = "state.pt"  # what `training/trainer.py` `checkpoint_save` writes
+
+
+def is_trainer_checkpoint(path: str) -> bool:
+    """A ``model_*`` directory of the port's trainer, or its state file."""
+    return os.path.isdir(path) or os.path.basename(path) == TRAINER_STATE_FILE
+
+
+def trainer_backbone_state_dict(path: str, use_ema: bool = True) -> StateDict:
+    """The backbone's state dict from a checkpoint of the port's own trainer
+    (a ``model_*`` directory or its ``state.pt``): the EMA weights when
+    present, else (or with ``use_ema=False``) the raw parameters, as the JAX
+    wrapper serves its trainer's checkpoints. Buffers the EMA does not carry
+    come from the raw state."""
+    if os.path.isdir(path):
+        path = os.path.join(path, TRAINER_STATE_FILE)
+    raw = torch.load(path, map_location="cpu", weights_only=True)
+    params = raw.get("params") if isinstance(raw, dict) else None
+    ema = raw.get("ema_params") if isinstance(raw, dict) else None
+    pick = ema if use_ema and ema else params
+    if not pick:
+        raise ValueError(f"{path} holds no 'params' / 'ema_params': not a checkpoint of "
+                         "this package's trainer")
+    return {k: v.detach().float().contiguous() for k, v in {**(params or {}), **pick}.items()}
 
 
 def reference_vocos_state_dict(path: str, num_layers: int = 8) -> StateDict:

@@ -28,16 +28,16 @@
 // products at d = 64 take 384 on the tensor cores) and, with dropout, about
 // ten integer instructions of hash, which then outweigh the products.
 //
-// Design of the forward. One block of four warps per (64-row tile, head,
-// sample), each warp owning 16 rows; tiles are read straight from the
-// [b, n, h, d] layout through strides, staged in shared memory, and multiplied
-// with mma.sync m16n8k16 bf16 instructions into fp32 register accumulators
-// (`mma_tile.cuh`). The accumulator of one product is, after the softmax
-// arithmetic and a bf16 cast, the A operand of the next, so P never touches
-// shared memory. A q tile per block, an online softmax over 64-key tiles
-// (running max and sum per row in registers, base-2 exponentials), the keep
-// bit applied to P before the PV product; the next k/v tile is fetched into
-// registers while the current one is used.
+// Design of the forward (`flash_forward.cuh`, which the serving attention
+// instantiates too). A block owns 192 query rows of one (sample, head): three
+// consumer warpgroups of 64 rows and a producer thread that feeds a ring of
+// TMA stages (a K and a V tile each). S = Q K^T is a wgmma.mma_async with both
+// operands K-major from shared memory; the online softmax (running max and
+// sum per row, base-2 exponentials) runs on the fp32 accumulator in
+// registers; P, after the keep bit and a bf16 cast, is the register A operand
+// of O += P V, which reads V MN-major from the same TMA copy. No transposed
+// copy of V is made and P never touches shared memory. The row term of the
+// dropout counter is hoisted and the salt folded, as in the backward.
 //
 // Design of the two backward kernels (`wgmma_tile.cuh`). A block owns 128
 // rows of one (sample, head): two consumer warpgroups of 64 rows each and one
@@ -75,166 +75,19 @@
 // contribute exactly zero when lens > 0 and are skipped (the dk/dv warpgroup
 // of such a tile writes zeros).
 
-#include <math.h>
+#include <time.h>
 
-#include "mma_tile.cuh"
-#include "wgmma_tile.cuh"
+#include "flash_forward.cuh"
 
 namespace {
 
-constexpr float kLn2 = 0.6931471805599453f;
-
-// murmur3's 32-bit finaliser (`ops/train_attention.py` `_fmix32`).
-__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return x;
-}
-
-__device__ __forceinline__ uint32_t head_salt(uint32_t seed, uint32_t b, uint32_t h) {
-  return seed * 0x9E3779B9u + b * 0x7FEB352Du + h * 0x846CA68Bu;
-}
-
-// The keep bit of element (i, j) of one head: ctr = i * n + j (mod 2^32).
-__device__ __forceinline__ bool keep_bit(uint32_t ctr, uint32_t salt, uint32_t threshold) {
-  return fmix32(ctr ^ salt) < threshold;
-}
-
-struct Dropout {
-  uint32_t seed;
-  uint32_t threshold;
-  float inv_keep;
-  int on;
-};
-
-__global__ void __launch_bounds__(kThreads)
-    train_attention_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                               const __nv_bfloat16* __restrict__ k,
-                               const __nv_bfloat16* __restrict__ v,
-                               const int* __restrict__ lens,
-                               __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-                               int n, int h, float scale, Dropout drop) {
-  __shared__ __align__(128) __nv_bfloat16 qs[kBQ * kLd];
-  __shared__ __align__(128) __nv_bfloat16 ks[kBK * kLd];
-  __shared__ __align__(128) __nv_bfloat16 vt[kD * kLd];
-
-  const int q0 = blockIdx.x * kBQ;
-  const int hi = blockIdx.y;
-  const int bi = blockIdx.z;
-  const long row_stride = static_cast<long>(h) * kD;
-  const long base = static_cast<long>(bi) * n * row_stride + static_cast<long>(hi) * kD;
-  const int len = lens[bi];
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;  // fragment row (and g + 8)
-  const int t = lane % 4;  // fragment column pair
-  const float scale_log2 = scale * kLog2e;
-  const float masked = len > 0 ? kNeg : 0.f;
-  const uint32_t salt = head_salt(drop.seed, bi, hi);
-  const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0 and row0 + 8
-  const uint32_t ctr_row[2] = {static_cast<uint32_t>(row0) * static_cast<uint32_t>(n),
-                               static_cast<uint32_t>(row0 + 8) * static_cast<uint32_t>(n)};
-
-  TileRegs tk, tv;
-  load_tile(tk, q + base + q0 * row_stride, row_stride);
-  store_tile_rows(tk, qs);
-  __syncthreads();
-  uint32_t qa[kD / 16][4];
-  load_a_frags(qa, qs, warp, g, t);
-
-  float o[kD / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < kD / 8; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
-  float m_row[2] = {-INFINITY, -INFINITY};  // rows g and g + 8, base-2 units
-  float l_row[2] = {0.f, 0.f};              // this thread's share of the sums
-
-  const int n_tiles = len > 0 ? min((len + kBK - 1) / kBK, n / kBK) : n / kBK;
-  load_tile(tk, k + base, row_stride);
-  load_tile(tv, v + base, row_stride);
-  for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = it * kBK;
-    __syncthreads();  // every warp is done with the previous k / v tile
-    store_tile_rows(tk, ks);
-    store_tile_t(tv, vt);
-    __syncthreads();
-    if (it + 1 < n_tiles) {
-      load_tile(tk, k + base + (k0 + kBK) * row_stride, row_stride);
-      load_tile(tv, v + base + (k0 + kBK) * row_stride, row_stride);
-    }
-
-    float s[kBK / 8][4];
-    mma_abt(s, qa, ks, g, t);
-
-    // scale, mask and the online softmax per row (each row spans a quad of
-    // lanes), in base 2: logits times log2(e), exp2 for exp
-    float mt[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int nt = 0; nt < kBK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool valid = k0 + nt * 8 + 2 * t + (e & 1) < len;
-        s[nt][e] = valid ? s[nt][e] * scale_log2 : masked;
-        mt[e / 2] = fmaxf(mt[e / 2], s[nt][e]);
-      }
-    }
-    float corr[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
-      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
-      const float m_new = fmaxf(m_row[r], mt[r]);
-      corr[r] = exp2f(m_row[r] - m_new);
-      m_row[r] = m_new;
-      l_row[r] *= corr[r];
-    }
-#pragma unroll
-    for (int nt = 0; nt < kBK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float p = exp2f(s[nt][e] - m_row[e / 2]);
-        l_row[e / 2] += p;  // the normaliser takes the undropped weights
-        if (drop.on) {
-          const uint32_t col = k0 + nt * 8 + 2 * t + (e & 1);
-          p = keep_bit(ctr_row[e / 2] + col, salt, drop.threshold) ? p * drop.inv_keep : 0.f;
-        }
-        s[nt][e] = p;
-      }
-    }
-#pragma unroll
-    for (int dt = 0; dt < kD / 8; ++dt) {
-      o[dt][0] *= corr[0];
-      o[dt][1] *= corr[0];
-      o[dt][2] *= corr[1];
-      o[dt][3] *= corr[1];
-    }
-    mma_pb(o, s, vt, g, t);
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_row[r] += __shfl_xor_sync(0xffffffffu, l_row[r], 1);
-    l_row[r] += __shfl_xor_sync(0xffffffffu, l_row[r], 2);
-  }
-  const float den0 = fmaxf(l_row[0], 1e-30f);
-  const float den1 = fmaxf(l_row[1], 1e-30f);
-  const float inv0 = 1.f / den0;
-  const float inv1 = 1.f / den1;
-  __nv_bfloat16* dst = out + base + row0 * row_stride + 2 * t;
-#pragma unroll
-  for (int dt = 0; dt < kD / 8; ++dt) {
-    *reinterpret_cast<__nv_bfloat162*>(dst + dt * 8) =
-        __floats2bfloat162_rn(o[dt][0] * inv0, o[dt][1] * inv0);
-    *reinterpret_cast<__nv_bfloat162*>(dst + 8 * row_stride + dt * 8) =
-        __floats2bfloat162_rn(o[dt][2] * inv1, o[dt][3] * inv1);
-  }
-  if (t == 0) {
-    float* l_dst = lse + (static_cast<long>(bi) * h + hi) * n + row0;
-    l_dst[0] = m_row[0] * kLn2 + logf(den0);
-    l_dst[8] = m_row[1] * kLn2 + logf(den1);
-  }
+template <bool kDrop>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    train_attention_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
+                               const __grid_constant__ CUtensorMap k_map,
+                               const __grid_constant__ CUtensorMap v_map, const FwdArgs args) {
+  extern __shared__ uint8_t smem_raw[];
+  flash_forward_block<false, kDrop, true>(&q_map, &k_map, &v_map, args, smem_raw);
 }
 
 // ---- the backward kernels -------------------------------------------------
@@ -283,60 +136,6 @@ __device__ __forceinline__ uint32_t bwd_setup(uint8_t* raw, int groups, BwdBarri
   }
   __syncthreads();
   return base;
-}
-
-// The A fragments of a warpgroup's fp32 accumulator tile, rounded to bf16:
-// the accumulator of one product as the left operand of the next.
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4][4], const float (&p)[32]) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    a[j][0] = pack_bf16(p[8 * j + 0], p[8 * j + 1]);
-    a[j][1] = pack_bf16(p[8 * j + 2], p[8 * j + 3]);
-    a[j][2] = pack_bf16(p[8 * j + 4], p[8 * j + 5]);
-    a[j][3] = pack_bf16(p[8 * j + 6], p[8 * j + 7]);
-  }
-}
-
-// acc = A B^T over the tiles' 64 columns (both K-major), asynchronously.
-__device__ __forceinline__ void product_abt(float (&acc)[32], uint64_t a, uint64_t b) {
-  hopper::wgmma_ss_first(acc, a, b);
-#pragma unroll
-  for (int kk = 1; kk < kD / 16; ++kk)
-    hopper::wgmma_ss(acc, a + kk * hopper::kStepK, b + kk * hopper::kStepK);
-}
-
-// acc += P B over the tile's 64 rows (B MN-major), asynchronously.
-__device__ __forceinline__ void product_pb(float (&acc)[32], const uint32_t (&p)[4][4],
-                                           uint64_t b) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) hopper::wgmma_rs_t(acc, p[j], b + j * hopper::kStepMN);
-}
-
-// This thread's two rows of a warpgroup's [64, 64] accumulator, scaled, as
-// bf16 rows of a [b, n, h, 64] tensor; dst points at (first row, column 2 t).
-__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, long row_stride,
-                                           const float (&acc)[32], float scale) {
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    *reinterpret_cast<__nv_bfloat162*>(dst + c * 8) =
-        __floats2bfloat162_rn(acc[4 * c] * scale, acc[4 * c + 1] * scale);
-    *reinterpret_cast<__nv_bfloat162*>(dst + 8 * row_stride + c * 8) =
-        __floats2bfloat162_rn(acc[4 * c + 2] * scale, acc[4 * c + 3] * scale);
-  }
-}
-
-// The keep bit again, for the backward's inner loops: with x = ctr ^ salt,
-// fmix32's first step x ^ (x >> 16) is ctr ^ (ctr >> 16) ^ (salt ^ (salt >> 16)),
-// and the last term is the same for a whole (sample, head).
-__device__ __forceinline__ uint32_t fold_salt(uint32_t salt) { return salt ^ (salt >> 16); }
-__device__ __forceinline__ bool keep_bit_folded(uint32_t ctr, uint32_t folded,
-                                                uint32_t threshold) {
-  uint32_t x = ctr ^ (ctr >> 16) ^ folded;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return x < threshold;
 }
 
 // The arithmetic between the products of one dq tile, on a warpgroup's
@@ -686,7 +485,6 @@ struct BwdMaps {
 
 int bwd_prepare(BwdMaps& maps, const void* q, const void* k, const void* v, const void* dout,
                 int b, int n, int h) {
-  constexpr int kMaxDevices = 64;
   static bool allowed[kMaxDevices] = {};
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -714,19 +512,46 @@ int bwd_prepare(BwdMaps& maps, const void* q, const void* k, const void* v, cons
 // contiguous and 16-byte aligned; lens [b] int32; lse, dd [b, h, n] fp32,
 // 16-byte aligned. Requires n % 64 == 0. `dropout` = 0 ignores seed /
 // threshold / inv_keep. Each launches on `stream` and returns the
-// cudaError_t of the launch (the backward ones: or of their set-up, a
-// refused tensor map counting as cudaErrorInvalidValue).
+// cudaError_t of the launch or of its set-up, a refused tensor map counting
+// as cudaErrorInvalidValue.
 extern "C" int erax_train_attention_fwd(const void* q, const void* k, const void* v,
                                         const void* lens, void* out, void* lse, int b, int n,
                                         int h, float scale, unsigned seed, unsigned threshold,
                                         float inv_keep, int dropout, void* stream) {
-  const dim3 grid(n / kBQ, h, b);
-  train_attention_fwd_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(lens),
-      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), n, h, scale,
-      make_dropout(seed, threshold, inv_keep, dropout));
+  const FwdArgs args{static_cast<const int*>(lens), nullptr, nullptr,
+                     static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), n, h, scale,
+                     make_dropout(seed, threshold, inv_keep, dropout)};
+  const auto kernel = dropout ? train_attention_fwd_kernel<true> : train_attention_fwd_kernel<false>;
+  static bool allowed[2][kMaxDevices] = {};
+  FwdMaps maps;
+  const int err = fwd_prepare(reinterpret_cast<const void*>(kernel), allowed[dropout ? 1 : 0],
+                              maps, q, k, v, b, n, h);
+  if (err != 0) return err;
+  kernel<<<fwd_grid(b, n, h), kFwdThreads, kFwdSmem, static_cast<cudaStream_t>(stream)>>>(
+      maps.q, maps.k, maps.v, args);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The forward core's launch geometry, as `ops/train_attention.py`
+// `forward_geometry` states it: rows a block, ring stages, threads, dynamic
+// shared bytes.
+extern "C" void erax_flash_forward_geometry(int* out) {
+  out[0] = kFwdRows;
+  out[1] = kFwdStages;
+  out[2] = kFwdThreads;
+  out[3] = kFwdSmem;
+}
+
+// Host nanoseconds of one encode of the [b, n, h, 64] tensor map at `base`,
+// averaged over `iters`; negative if the encoder refuses it.
+extern "C" double erax_tensor_map_encode_ns(const void* base, int b, int n, int h, int iters) {
+  CUtensorMap map;
+  timespec t0, t1;
+  clock_gettime(CLOCK_MONOTONIC, &t0);
+  for (int i = 0; i < iters; ++i)
+    if (!hopper::encode_rows_map(&map, base, b, n, h)) return -1.0;
+  clock_gettime(CLOCK_MONOTONIC, &t1);
+  return ((t1.tv_sec - t0.tv_sec) * 1e9 + (t1.tv_nsec - t0.tv_nsec)) / iters;
 }
 
 // The backward kernels' launch geometry, as `ops/train_attention.py`

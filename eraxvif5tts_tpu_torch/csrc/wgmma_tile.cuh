@@ -2,6 +2,8 @@
 // [b, n, h, 64] tensor through shared memory: TMA loads that complete on
 // mbarriers, and the warpgroup product wgmma.mma_async m64n64k16 (bf16 in,
 // fp32 accumulators) reading those tiles through shared-memory descriptors.
+// The training-attention backward and the forward core of `flash_forward.cuh`
+// are built from them.
 //
 // One tile is 64 rows of 128 bytes, written by TMA with the 128-byte swizzle:
 // the 16-byte chunk c of row r lands at chunk c ^ (r % 8) of that row. A tile
@@ -96,6 +98,20 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
           "r"(dst),
       "l"(src), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+// Byte offset, inside a tile that TMA wrote with the 128-byte swizzle, of the
+// 16-byte chunk that holds columns [8 chunk, 8 chunk + 8) of row `row`. A
+// 4-byte pair of neighbouring columns never leaves its chunk.
+__host__ __device__ constexpr uint32_t swizzled_chunk_offset(int row, int chunk) {
+  return static_cast<uint32_t>(row * 128 + ((chunk ^ (row & 7)) << 4));
+}
+
+// After ordinary stores to shared memory, before the asynchronous proxy (a
+// wgmma that reads the tile, a TMA copy that overwrites it) may touch it;
+// the thread that stored executes it, then signals the readers.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ---- wgmma ----------------------------------------------------------------

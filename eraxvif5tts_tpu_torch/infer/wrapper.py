@@ -31,10 +31,13 @@ Differences, by design:
   fresh ``[bucket, n_mels]`` draw per chunk, one per ``generate_batch`` call
   (reproducible from ``seed``, not bit-equal to ``jax.random``);
 - weights come from reference checkpoints (``ckpt_path``,
-  ``vocoder_ckpt_path``) or the JAX wrapper's parameter trees (``params``,
-  ``vocoder_params``); without either, PyTorch's default initialisation;
-- ``warmup`` runs the smallest reachable bucket only: there is no per-bucket
-  compile to pay ahead of time.
+  ``vocoder_ckpt_path``), from a ``model_*`` directory of the port's own
+  trainer (``ckpt_path``: the EMA weights, or the raw parameters with
+  ``use_ema=False``) or from the JAX wrapper's parameter trees (``params``,
+  ``vocoder_params``); without any, PyTorch's default initialisation;
+- ``warmup`` has the JAX wrapper's signature, loop and result; what it warms
+  is the kernel build, the allocator and the text frontend, there being no
+  per-bucket compile.
 
 Backbones: the DiT (``F5TTS_v1_*``, ``F5TTS_Base`` / ``F5TTS_Small``) and the
 UNetT (``E2TTS_Base`` / ``E2TTS_Small``), built by ``models.build_backbone``.
@@ -44,8 +47,9 @@ duration buckets the wrapper takes mel buckets of 64k - 1 frames for it
 64-aligned sequences, which the serving attention kernel requires.
 
 Not ported yet (ROADMAP.md): MMDiT, BigVGAN, int8 for the UNetT, the duration
-predictor, multi-device meshes (``generate_batch`` runs on one device),
-automatic transcription of an empty ``ref_text``. Each raises.
+predictor, multi-device meshes (``generate_batch`` runs on one device), the
+default Whisper backend behind an empty ``ref_text`` (pass ``transcribe_fn``).
+Each raises.
 """
 
 from __future__ import annotations
@@ -67,9 +71,11 @@ from eraxvif5tts_tpu_torch.text.chunk import chunk_text
 from eraxvif5tts_tpu_torch.text.pinyin import convert_char_to_pinyin
 from eraxvif5tts_tpu_torch.text.tokenizer import get_tokenizer, list_str_to_idx
 from eraxvif5tts_tpu_torch.compression.convert import (
+    is_trainer_checkpoint,
     reference_backbone_state_dict,
     reference_vocos_state_dict,
     state_dict_from_jax,
+    trainer_backbone_state_dict,
 )
 from eraxvif5tts_tpu_torch.infer.utils import (
     DURATION_BUCKETS,
@@ -186,7 +192,11 @@ class F5TTSWrapper:
 
         state_dict, vocoder_state_dict = state_dict_from_jax(params, vocoder_params, cfg)
         if ckpt_path is not None:
-            state_dict = reference_backbone_state_dict(ckpt_path, use_ema=use_ema)
+            # the port trainer's own `model_*` directory (EMA weights, or the
+            # raw parameters) or a reference checkpoint file
+            load = (trainer_backbone_state_dict if is_trainer_checkpoint(ckpt_path)
+                    else reference_backbone_state_dict)
+            state_dict = load(ckpt_path, use_ema=use_ema)
         if vocoder_ckpt_path is not None:
             vocoder_state_dict = reference_vocos_state_dict(vocoder_ckpt_path)
         if state_dict is not None:
@@ -291,9 +301,14 @@ class F5TTSWrapper:
     def preprocess_reference(self, ref_audio_path: Optional[str] = None,
                              ref_text: str = "", clip_short: bool = True,
                              ref_audio: Optional[np.ndarray] = None,
-                             ref_sample_rate: Optional[int] = None) -> ReferenceState:
+                             ref_sample_rate: Optional[int] = None,
+                             transcribe_fn=None) -> ReferenceState:
         """Load + clip + RMS-normalise the reference prompt and compute its mel
-        on the device (parity: the JAX wrapper's ``preprocess_reference``)."""
+        on the device (parity: the JAX wrapper's ``preprocess_reference``).
+        An empty ``ref_text`` is transcribed through the md5-keyed cache of
+        ``infer.utils_infer.transcribe_array_cached`` by
+        ``transcribe_fn(path) -> str``; without one it raises, loudly, as the
+        byte-ratio duration degrades on zero reference bytes."""
         if ref_audio is None:
             if ref_audio_path is None:
                 raise ValueError("need ref_audio_path or ref_audio")
@@ -309,9 +324,11 @@ class F5TTSWrapper:
         if sr != self.target_sample_rate:
             wav = resample(wav, sr, self.target_sample_rate)
         if not ref_text.strip():
-            raise ValueError("ref_text is required: automatic transcription is not "
-                             "ported yet")
-        if not ref_text.endswith(". ") and not ref_text.endswith("。"):
+            from eraxvif5tts_tpu_torch.infer.utils_infer import transcribe_array_cached
+
+            ref_text = transcribe_array_cached(wav, self.target_sample_rate,
+                                               transcribe_fn=transcribe_fn)
+        if ref_text and not ref_text.endswith(". ") and not ref_text.endswith("。"):
             ref_text = ref_text + " " if ref_text.endswith(".") else ref_text + ". "
 
         n_frames = len(wav) // self.hop_length
@@ -326,29 +343,52 @@ class F5TTSWrapper:
     # ------------------------------------------------------------------
 
     def warmup(self, ref: Optional[ReferenceState] = None,
-               nfe_step: Optional[int] = None) -> int:
-        """Run the fused step once at the smallest bucket a request can reach,
-        so that the first request does not pay for the kernel build, the text
-        frontend's first call or the allocator's growth. Returns that bucket."""
+               nfe_step: Optional[int] = None,
+               buckets: Optional[tuple[int, ...]] = None,
+               text_buckets: Optional[tuple[int, ...]] = None) -> list[tuple[int, int]]:
+        """Run the fused step once per reachable (duration bucket, text
+        bucket) pair, so that no request pays for the kernel build, the text
+        frontend's first call or the allocator's growth (the JAX wrapper's
+        ``warmup``: same signature, loop and result).
+
+        Every duration bucket from ``pick_bucket(ref.n_frames + 1)`` up is
+        reachable (``buckets`` narrows them); the text buckets default to the
+        range ``generate`` can pick for this reference, from the pinyin token
+        counts of the shortest chunk up to a full ``max_chars`` chunk.
+        Returns the warmed pairs."""
         ref = ref or self.ref
         if ref is None:
             raise RuntimeError("call preprocess_reference() first or pass ref=")
         convert_char_to_pinyin([ref.text + " warmup."])
+        if text_buckets is None:
+            max_chars, _ = self._max_chars_for(ref)
+            lo = pick_bucket(len(convert_char_to_pinyin([ref.text])[0]) + 2, self.text_buckets)
+            hi = pick_bucket(len(convert_char_to_pinyin([ref.text + "x" * max_chars])[0]),
+                             self.text_buckets)
+            text_buckets = tuple(tb for tb in self.text_buckets if lo <= tb <= hi)
         nfe = nfe_step if nfe_step is not None else self.nfe_step
-        bucket = pick_bucket(ref.n_frames + 1, self.duration_buckets)
         vstart = max(ref.n_frames - VOCODE_MARGIN_FRAMES, 0)
+        rms_scale = ref.rms / self.target_rms if 0 < ref.rms < self.target_rms else 1.0
         generator = torch.Generator(device=self.device).manual_seed(0)
-        text_ids = torch.full((1, self.text_buckets[0]), -1, dtype=torch.long,
-                              device=self.device)
-        text_ids[0, 0] = 0
-        pcm, _ = self._sample_vocode(
-            ref.mel, text_ids, torch.tensor([bucket], device=self.device),
-            torch.tensor([ref.n_frames], device=self.device),
-            self._draw_noise(generator, bucket), 1.0, steps=nfe,
-            cfg_strength=float(self.cfg_strength), sway=self.sway_sampling_coef,
-            max_duration=bucket, vocode_start=vstart, gen_start=ref.n_frames - vstart)
-        pcm.cpu()
-        return bucket
+        min_bucket = pick_bucket(ref.n_frames + 1, self.duration_buckets)
+        warmed = []
+        for bucket in buckets or self.duration_buckets:
+            if bucket < min_bucket:
+                continue  # unreachable: the prompt alone overfills the bucket
+            for tb in text_buckets:
+                text_ids = torch.full((1, tb), -1, dtype=torch.long, device=self.device)
+                text_ids[0, 0] = 0
+                pcm, _ = self._sample_vocode(
+                    ref.mel, text_ids, torch.tensor([bucket], device=self.device),
+                    torch.tensor([ref.n_frames], device=self.device),
+                    self._draw_noise(generator, bucket), rms_scale, steps=nfe,
+                    cfg_strength=float(self.cfg_strength),
+                    sway=(float(self.sway_sampling_coef)
+                          if self.sway_sampling_coef is not None else None),
+                    max_duration=bucket, vocode_start=vstart, gen_start=ref.n_frames - vstart)
+                pcm[:1, :1].cpu()  # until the step has run
+                warmed.append((bucket, tb))
+        return warmed
 
     def _max_chars_for(self, ref: ReferenceState) -> tuple[int, int]:
         """Chunking rule: (max_chars, hard cap), as in the JAX wrapper."""

@@ -12,8 +12,8 @@ quantization codes.
 
 Each C entry point launches on the stream it is handed, allocates nothing,
 and returns ``cudaGetLastError()``; :func:`check` turns a non-zero code into
-an exception. The training-attention backward builds its TMA tensor maps on
-the host with libcuda's ``cuTensorMapEncodeTiled``, which it fetches at
+an exception. The attention kernels build their TMA tensor maps on
+the host with libcuda's ``cuTensorMapEncodeTiled``, which they fetch at
 run time through ``cudaGetDriverEntryPoint``: the link names no extra
 library, and a refused map comes back as a non-zero code like any other.
 """
@@ -153,8 +153,13 @@ def kernels() -> Kernels:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        lib.erax_train_attention_bwd_geometry.argtypes = (ctypes.POINTER(ctypes.c_int),)
-        lib.erax_train_attention_bwd_geometry.restype = None
+        for name in ("erax_train_attention_bwd_geometry", "erax_flash_forward_geometry"):
+            fn = getattr(lib, name)
+            fn.argtypes = (ctypes.POINTER(ctypes.c_int),)
+            fn.restype = None
+        # base, b, n, h, iters -> host nanoseconds of one tensor-map encode
+        lib.erax_tensor_map_encode_ns.argtypes = (_P, _I, _I, _I, _I)
+        lib.erax_tensor_map_encode_ns.restype = ctypes.c_double
         lib.erax_error_string.argtypes = (ctypes.c_int,)
         lib.erax_error_string.restype = ctypes.c_char_p
         _loaded = Kernels(lib=lib, path=so, built=built, seconds=seconds, log=log)

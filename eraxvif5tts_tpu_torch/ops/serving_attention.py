@@ -14,7 +14,11 @@ semantics, for CPU tensors:
 
 Kernel domain: bf16, contiguous and 16-byte aligned ``[b, n, h, 64]``,
 ``n % 64 == 0``, ``n <= 4096``. Anything else on a CUDA tensor raises; there
-is no fallback. The kernel's online softmax rounds the unnormalised P to bf16 where the TPU
+is no fallback. The kernel is the forward core of `csrc/flash_forward.cuh`
+(`ops/train_attention.py` ``forward_geometry`` states its launch); it reads
+fp32 cos / sin tables, which :func:`rope_tables` makes once per angle table
+and keeps, so a call in the Euler loop does no host work for them (nor for
+the ``lens=None`` vector). The kernel's online softmax rounds the unnormalised P to bf16 where the TPU
 kernel rounds the normalised P: the two agree to bf16 rounding of the output
 (the card-side check in `chip_smoke.py` states its tolerance).
 """
@@ -22,6 +26,7 @@ kernel rounds the normalised P: the two agree to bf16 rounding of the output
 from __future__ import annotations
 
 import math
+from collections import OrderedDict
 
 import torch
 
@@ -85,6 +90,45 @@ def _check_cuda_args(q, k, v, lens, rope) -> None:
                          f"{q.device}, got {tuple(rope.shape)} on {rope.device}")
 
 
+# What the kernel reads beside q, k, v, kept across calls: per angle table its
+# fp32 cos / sin tables, per (b, n, device) the lengths of ``lens=None``.
+_TABLES: OrderedDict = OrderedDict()     # id(rope) -> (rope, cos, sin)
+_FULL_LENS: OrderedDict = OrderedDict()  # (b, n, device) -> int32 [b]
+_CACHE_SIZE = 32
+
+
+def _remember(cache: OrderedDict, key, value):
+    cache[key] = value
+    if len(cache) > _CACHE_SIZE:
+        cache.popitem(last=False)
+    return value
+
+
+def rope_tables(rope: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The contiguous fp32 ``cos`` and ``sin`` ``[n, d]`` of the angles
+    ``rope``, made once per angle table: the cache is keyed by the tensor
+    itself (and holds it, so its identity cannot pass to another table) and
+    takes it as immutable, as the models keep theirs per length."""
+    hit = _TABLES.get(id(rope))
+    if hit is not None and hit[0] is rope:
+        _TABLES.move_to_end(id(rope))
+        return hit[1], hit[2]
+    rope32 = rope.float()
+    cos, sin = rope32.cos().contiguous(), rope32.sin().contiguous()
+    _remember(_TABLES, id(rope), (rope, cos, sin))
+    return cos, sin
+
+
+def _full_lens(b: int, n: int, device: torch.device) -> torch.Tensor:
+    """``lens`` of a call without a mask: every key valid."""
+    key = (b, n, device)
+    hit = _FULL_LENS.get(key)
+    if hit is None:
+        hit = _remember(_FULL_LENS, key,
+                        torch.full((b,), n, dtype=torch.int32, device=device))
+    return hit
+
+
 def serving_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       lens: torch.Tensor | None = None,
                       rope: torch.Tensor | None = None) -> torch.Tensor:
@@ -103,12 +147,9 @@ def serving_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     from eraxvif5tts_tpu_torch.ops import _cuda
 
     b, n, h, d = q.shape
-    lens_i = (torch.full((b,), n, dtype=torch.int32, device=q.device) if lens is None
+    lens_i = (_full_lens(b, n, q.device) if lens is None
               else lens.to(torch.int32).contiguous())
-    cos = sin = None
-    if rope is not None:
-        rope32 = rope.float()
-        cos, sin = rope32.cos().contiguous(), rope32.sin().contiguous()
+    cos, sin = rope_tables(rope) if rope is not None else (None, None)
     out = torch.empty_like(q)
     lib = _cuda.kernels().lib
     with torch.cuda.device(q.device):

@@ -21,9 +21,10 @@ PyTorch version of the same semantics, differentiated by autograd:
 
 Kernel domain: bf16, contiguous and 16-byte aligned ``[b, n, h, 64]`` (the
 layout a ``Linear`` output views to), ``n % 64 == 0``, ``n <= 4096``.
-Anything else on a CUDA tensor raises; there is no fallback. The backward
-kernels read their tiles by TMA; :func:`backward_geometry` states their grid,
-tiles, ring and shared memory, and the tensor map they build, for any shape. The JAX
+Anything else on a CUDA tensor raises; there is no fallback. All three
+kernels read their tiles by TMA; :func:`forward_geometry` and
+:func:`backward_geometry` state their grid, tiles, ring and shared memory,
+and the tensor map they build, for any shape. The JAX
 package's TPU gates (``can_use_train_kernel``: n % 128, fp32 only up to
 n = 3072) and calibrated backward blocks are TPU VMEM limits and are not
 ported.
@@ -48,6 +49,12 @@ M32 = 0xFFFFFFFF
 BWD_ROWS = 128      # rows a block owns: two consumer warpgroups of TILE rows
 BWD_STAGES = 4      # ring of TMA stages, two [TILE, 64] bf16 tiles each
 BWD_THREADS = 384   # two consumer warpgroups and the producer's
+# the forward core (`csrc/flash_forward.cuh`: kFwdRows, kFwdStages, ...), which
+# the serving attention instantiates too
+FWD_ROWS = 192      # query rows a block owns: three consumer warpgroups of TILE rows
+FWD_STAGES = 4      # ring of TMA stages, a K and a V tile each
+FWD_THREADS = 512   # three consumer warpgroups and the producer's
+FWD_ROTATORS = 96   # threads of the producer's warps 1-3, which rotate tiles (rotary)
 SHARED_LIMIT = 232448  # bytes of shared memory a block may use on an H100
 
 
@@ -124,6 +131,64 @@ def train_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
 
 
+def _rows_cover(n: int, rows: int) -> list:
+    """Per block along n, the ``(first row, rows)`` of each of its warpgroups:
+    rows go out in units of ``TILE``, so the last block has only the
+    warpgroups whose rows lie inside the sample and no tile hangs over its
+    end."""
+    return [[(r, TILE) for r in range(i * rows, min((i + 1) * rows, n), TILE)]
+            for i in range(-(-n // rows))]
+
+
+def _rows_map(b: int, n: int, h: int) -> dict:
+    """The TMA map of a ``[b, n, h, 64]`` bf16 tensor, innermost dimension
+    first: ``dims`` in elements, ``strides`` in bytes (of all but the
+    innermost), ``box`` the tile one load brings. n is a dimension of its
+    own, apart from b, so rows past n read as zeros, never as the next
+    sample's."""
+    return dict(dims=(HEAD_DIM, h, n, b),
+                strides=(HEAD_DIM * 2, h * HEAD_DIM * 2, n * h * HEAD_DIM * 2),
+                box=(HEAD_DIM, 1, TILE, 1))
+
+
+def forward_geometry(b: int, n: int, h: int) -> dict:
+    """How the forward core covers ``[b, n, h, 64]`` (the training forward and
+    the serving attention alike), in :func:`backward_geometry`'s terms:
+    ``ceil(n / FWD_ROWS)`` blocks a (sample, head); the block's three Q tiles,
+    a ring of ``FWD_STAGES`` stages of a K and a V tile, and three barriers a
+    stage plus two for Q (1024 bytes of alignment slack in front)."""
+    tile_bytes = TILE * HEAD_DIM * 2
+    shared = (1024 + (FWD_ROWS // TILE) * tile_bytes + FWD_STAGES * 2 * tile_bytes
+              + (3 * FWD_STAGES + 2) * 8)
+    return dict(grid=(-(-n // FWD_ROWS), h, b), threads=FWD_THREADS, rows=FWD_ROWS, tile=TILE,
+                stages=FWD_STAGES, shared_bytes=shared, warpgroups=_rows_cover(n, FWD_ROWS),
+                tensor_map=_rows_map(b, n, h))
+
+
+def swizzled_offset(row: int, col: int) -> int:
+    """Byte offset of bf16 element ``(row, col)`` in a ``[TILE, 64]`` tile as
+    TMA writes it with the 128-byte swizzle: the 16-byte chunk ``col // 8`` of
+    a row lands at chunk ``(col // 8) ^ (row % 8)`` of that row (the mirror of
+    ``swizzled_chunk_offset`` in `csrc/wgmma_tile.cuh`). The serving
+    attention rotates a tile in place through this map: an interleaved pair
+    (columns 2 i, 2 i + 1) is 4 bytes and never leaves its chunk."""
+    return row * 128 + (((col // 8) ^ (row % 8)) << 4) + (col % 8) * 2
+
+
+def rotator_chunks(rid: int) -> list[tuple[int, int]]:
+    """The ``(row, chunk)`` pairs of a tile that rotating thread ``rid`` of
+    ``FWD_ROTATORS`` takes (`csrc/flash_forward.cuh` ``rotate_tile``): chunk
+    index ``rid + 96 j``, whose eight cos / sin entries lie at offset
+    ``8 * index`` of the tile's ``[64, 64]`` table rows."""
+    return [(ci // 8, ci % 8) for ci in range(rid, TILE * 8, FWD_ROTATORS)]
+
+
+def kernel_forward_geometry() -> dict:
+    """The constants the built forward kernels report (needs the card's
+    build): they must equal :func:`forward_geometry`'s."""
+    return _kernel_geometry("erax_flash_forward_geometry")
+
+
 def backward_geometry(b: int, n: int, h: int) -> dict:
     """How the dq and dk/dv kernels cover ``[b, n, h, 64]`` (both alike; dq
     over query rows, dk/dv over keys):
@@ -142,29 +207,27 @@ def backward_geometry(b: int, n: int, h: int) -> dict:
       its own, apart from b, so rows past n read as zeros, never as the next
       sample's."""
     tile_bytes = TILE * HEAD_DIM * 2
-    blocks = -(-n // BWD_ROWS)
     shared = (1024 + 2 * (BWD_ROWS // TILE) * tile_bytes
               + BWD_STAGES * (2 * tile_bytes + 2 * TILE * 4) + (2 * BWD_STAGES + 1) * 8)
-    return dict(
-        grid=(blocks, h, b), threads=BWD_THREADS, rows=BWD_ROWS, tile=TILE,
-        stages=BWD_STAGES, shared_bytes=shared,
-        warpgroups=[[(r, TILE) for r in range(i * BWD_ROWS, min((i + 1) * BWD_ROWS, n), TILE)]
-                    for i in range(blocks)],
-        tensor_map=dict(dims=(HEAD_DIM, h, n, b),
-                        strides=(HEAD_DIM * 2, h * HEAD_DIM * 2, n * h * HEAD_DIM * 2),
-                        box=(HEAD_DIM, 1, TILE, 1)))
+    return dict(grid=(-(-n // BWD_ROWS), h, b), threads=BWD_THREADS, rows=BWD_ROWS, tile=TILE,
+                stages=BWD_STAGES, shared_bytes=shared, warpgroups=_rows_cover(n, BWD_ROWS),
+                tensor_map=_rows_map(b, n, h))
 
 
-def kernel_backward_geometry() -> dict:
-    """The constants the built kernels report (needs the card's build): they
-    must equal :func:`backward_geometry`'s."""
+def _kernel_geometry(entry: str) -> dict:
     import ctypes
 
     from eraxvif5tts_tpu_torch.ops import _cuda
 
     out = (ctypes.c_int * 4)()
-    _cuda.kernels().lib.erax_train_attention_bwd_geometry(out)
+    getattr(_cuda.kernels().lib, entry)(out)
     return dict(rows=out[0], stages=out[1], threads=out[2], shared_bytes=out[3])
+
+
+def kernel_backward_geometry() -> dict:
+    """The constants the built backward kernels report (needs the card's
+    build): they must equal :func:`backward_geometry`'s."""
+    return _kernel_geometry("erax_train_attention_bwd_geometry")
 
 
 def _check_cuda_args(q, k, v, lens) -> None:

@@ -92,6 +92,12 @@ class TTSStreamingProcessor:
         self.few_chars = max(int(base / 2), 4)
         self.min_chars = max(int(base / 4), 2)
 
+    def update_reference(self, ref_audio: str, ref_text: str):
+        """Serve the following requests in another voice."""
+        with self._lock:
+            self.ref = self.wrapper.preprocess_reference(ref_audio, ref_text)
+            self._update_char_budgets()
+
     def generate_stream(self, text: str, send: Callable[[bytes], object]):
         """Synthesise ``text``; call ``send(bytes)`` per float32 chunk, then END."""
         with self._lock:

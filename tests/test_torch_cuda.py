@@ -108,6 +108,80 @@ def test_train_attention_kernels_match_plain(cuda, n, dropout):
         assert torch.equal(again, got)
 
 
+@pytest.mark.parametrize("n", [64, 192, 320, 1088, 4032, 4096])
+@pytest.mark.parametrize("with_rope", [False, True])
+def test_serving_attention_forward_core_matches_plain(cuda, n, with_rope):
+    """The forward core as the serving attention, with and without fused
+    rotary: n = 64 is one warpgroup, 320 and 4096 leave the last 192-row block
+    two warpgroups, 1088 one; lengths that end inside a tile,
+    on a tile's edge, at 0 and at n, and no lengths; a second call repeats
+    the first bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(7 * n + with_rope)
+    q, k, v = (torch.randn((4, n, 4, 64), generator=g, device=cuda).bfloat16()
+               for _ in range(3))
+    rope = rotary_freqs(n, 64, device=cuda) if with_rope else None
+    for lens in (torch.tensor([n - 21, 0, 64 * max(n // 128, 1), n], device=cuda), None):
+        before = dict(sa.serving_attention.launches_by_rope)
+        got = sa.serving_attention(q, k, v, lens, rope)
+        torch.cuda.synchronize()
+        assert sa.serving_attention.launches_by_rope[with_rope] == before[with_rope] + 1
+        assert sa.serving_attention.launches_by_rope[not with_rope] == before[not with_rope]
+        assert torch.isfinite(got).all()
+        _assert_close(got, sa.serving_attention_reference(q, k, v, lens, rope))
+        assert torch.equal(sa.serving_attention(q, k, v, lens, rope), got)
+
+
+@pytest.mark.parametrize("n", [64, 192, 320, 1088, 4032, 4096])
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+def test_train_attention_forward_matches_plain(cuda, n, dropout):
+    """The forward core as the training forward: O against the plain version,
+    the LSE against the log sum exp of the masked, scaled logits (log n for a
+    sample with no valid key), and a second forward bit-identical."""
+    g = torch.Generator(device=cuda).manual_seed(11 * n)
+    b, h = 3, 2
+    q, k, v = (torch.randn((b, n, h, 64), generator=g, device=cuda).bfloat16()
+               for _ in range(3))
+    lens = torch.tensor([n - 21, 0, n], dtype=torch.int32, device=cuda)
+    before = ta.flash_forward.launches
+    out, lse = ta.flash_forward(q, k, v, lens, dropout, 0xC0FFEE)
+    torch.cuda.synchronize()
+    assert ta.flash_forward.launches == before + 1
+    assert out.shape == q.shape and lse.shape == (b, h, n) and lse.dtype == torch.float32
+    _assert_close(out, ta.train_attention_reference(q, k, v, lens, dropout, 0xC0FFEE))
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / 8.0
+    valid = torch.arange(n, device=cuda)[None, :] < lens[:, None]
+    want = torch.logsumexp(s.masked_fill(~valid[:, None, None, :], -1e30), dim=-1)
+    want[1] = torch.log(torch.tensor(float(n)))
+    assert float((lse - want).abs().max()) <= 1e-4
+    again = ta.flash_forward(q, k, v, lens, dropout, 0xC0FFEE)
+    assert torch.equal(again[0], out) and torch.equal(again[1], lse)
+
+
+def test_forward_geometry_is_the_kernels(cuda):
+    built = ta.kernel_forward_geometry()
+    stated = ta.forward_geometry(2, 4096, 16)
+    assert built == {name: stated[name] for name in built}
+    assert (built["rows"], built["stages"], built["threads"]) == (
+        ta.FWD_ROWS, ta.FWD_STAGES, ta.FWD_THREADS)
+
+
+def test_serving_attention_reuses_its_tables(cuda):
+    """One cos / sin pair per angle table and one ``lens=None`` vector per
+    shape across calls: the Euler loop makes neither again."""
+    sa._TABLES.clear()
+    sa._FULL_LENS.clear()
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn((2, 128, 4, 64), generator=g, device=cuda).bfloat16()
+               for _ in range(3))
+    rope = rotary_freqs(128, 64, device=cuda)
+    first = sa.serving_attention(q, k, v, None, rope)
+    tables = sa._TABLES[id(rope)]
+    for _ in range(3):
+        assert torch.equal(sa.serving_attention(q, k, v, None, rope), first)
+    assert len(sa._TABLES) == 1 and sa._TABLES[id(rope)] is tables
+    assert len(sa._FULL_LENS) == 1
+
+
 def test_train_attention_backward_geometry_is_the_kernels(cuda):
     built = ta.kernel_backward_geometry()
     stated = ta.backward_geometry(2, 4096, 16)

@@ -72,6 +72,7 @@ def test_processor_first_package_is_split_once():
 
 
 def test_preprocess_reference_requires_text():
+    # an empty text goes to the transcription backend; with none it fails loudly
     wrapper, _ = smoke_wrapper("cpu")
-    with pytest.raises(ValueError, match="ref_text"):
+    with pytest.raises(RuntimeError, match="ref_text"):
         wrapper.preprocess_reference(ref_audio=np.zeros(24000, np.float32), ref_text=" ")
