@@ -18,16 +18,21 @@ Phases (any failure raises and the script exits non-zero):
               without fused rotary, also at n = 64 and 192 and with lengths
               that end inside a tile, on a tile's edge, at 0 and not given,
               each second call bit-identical; the normalised projection in its
-              layernorm and RMS modes; the training attention forward and both
+              layernorm and RMS modes and the gated residual projection, which
+              no model calls, masked and unmasked, at b = 2 and at the batch
+              call's 16 x 768 rows, beside the unfused bf16 chain and
+              `F.linear` alone as yardsticks, and at the uneven edges of the
+              GEMM core's tiles (M = 1, 63, 64, 65, 129, 767, K = 768, lengths
+              of 0, of M and inside a tile), each second call bit-identical;
+              the training attention forward and both
               backward kernels against the plain version's autograd, also
               at n = 192 and 4032, which leave the backward's last 128-row
               block half empty, and at the train phase's 9 x 4096 shape, each
               limit checked against a wrong-seed control, the forward's LSE
               against the plain log sum exp, each second forward and backward
               bit-identical, timed at dropout 0.1 and at keep = 1; the int8
-              feed-forward also at the batched CFG shape, with its hidden codes compared; the
-              gated residual projection, which no model calls, masked and
-              unmasked);
+              feed-forward also at the batched CFG shape, with its hidden codes
+              compared);
 4. main    -- `F5TTSWrapper` at F5TTS_v1_Base width (dim 1024, depth 22,
               16 x 64 heads) in bf16 from seeded random weights: the DiT with
               its kernels against the same DiT with the plain versions, then
@@ -225,8 +230,9 @@ def phase_build():
     ns = kernels.lib.erax_tensor_map_encode_ns(probe.data_ptr(), 2, 4096, 16, 1000)
     if ns < 0:
         raise RuntimeError("libcuda's cuTensorMapEncodeTiled refused a [2, 4096, 16, 64] map")
-    log(f"[build] one TMA tensor-map encode on the host: {ns / 1e3:.2f} us (three a forward "
-        "launch, four a backward launch, made per call)")
+    log(f"[build] one TMA tensor-map encode on the host: {ns / 1e3:.2f} us (three an attention "
+        "forward launch, four a backward launch, one a fused projection (its weight's map is "
+        "kept per weight), made per call)")
 
 
 def check_serving_attention_edges(dev, name: str, with_rope: bool) -> float:
@@ -311,42 +317,145 @@ def phase_kernels(dev) -> dict:
         err_max = max(err_max, check_serving_attention_edges(dev, name, with_rope))
         results[name] = dict(max_abs_err=err_max, **cases[1088])
 
-    # kernel 2: the layernorm mode at the DiT's FF width, then the RMS mode at
-    # the UNetT's (scale = g - 1 with g ~ 1 + 0.1 N(0, 1), shift = 0, one
-    # all-zero row, which must come out as act(bias))
+    edge_err2, edge_err3 = check_fused_projection_edges(dev)
+    results.update(check_ln_mod_matmul(dev, g, g_new, edge_err2))
+    log("[kernels] the JSON line's serving ms / plain_ms / bound_ms / library_ms are the "
+        "n = M = 1088 bucket's; no single PyTorch call computes the attention with rotary, "
+        "so its library_ms is null; kernel 2's is the unfused bf16 chain's")
+    results.update(check_int8_ff(dev, g))
+    results.update(check_matmul_gate_res(dev, g, edge_err3))
+    results.update(check_train_attention(dev, g))
+    return results
+
+
+def unfused_ln_mod_chain(x, scale, shift, w, bias, norm: str):
+    """What a user without kernel 2 would run, in bf16: the norm, the
+    modulation, `F.linear`, the tanh-GELU, each a pass through device
+    memory. A yardstick only: nothing in the port calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    from eraxvif5tts_tpu_torch.ops.fused_matmul import EPS
+
+    if norm == "ln":
+        h = F.layer_norm(x, (x.shape[-1],), eps=EPS["ln"])
+    else:
+        h = (x.float() * torch.rsqrt(x.float().pow(2).mean(-1, keepdim=True) + EPS["rms"])).to(
+            x.dtype)
+    h = h * (1 + scale[:, None, :]) + shift[:, None, :]
+    return F.gelu(F.linear(h, w, bias), approximate="tanh")
+
+
+def check_fused_projection_edges(dev) -> tuple[float, float]:
+    """Kernels 2 and 3 against their plain versions where the GEMM core's
+    tiles end unevenly: M = 1, 63, 64, 65, 129 (just past a tile) and 767 at
+    the DiT's widths, K = 768 with N = 1536 (F5TTS_Small) and 3072
+    (E2TTS_Small) and their transposes for kernel 3; kernel 2 in both modes
+    with and without the GELU; kernel 3 masked and not, with lengths of 0, of
+    M and inside a tile, the masked rows equal to the residual bit for bit; a
+    second call must give the same bits. Returns the largest errors."""
+    import torch
+
+    from eraxvif5tts_tpu_torch.ops import fused_matmul as fm
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 70)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    rows = (1, 63, 64, 65, 129, 767)
+    worst2 = worst3 = 0.0
+    b = 3
+    for k, n, ms in ((1024, 2048, rows), (768, 1536, (65, 767)), (768, 3072, (65, 767))):
+        w = (randn(n, k) / 32).bfloat16()
+        bias = (0.1 * randn(n)).bfloat16()
+        for m in ms:
+            x = (randn(b, m, k) + 0.5).bfloat16()
+            scale, shift = (0.1 * randn(b, k)).bfloat16(), (0.1 * randn(b, k)).bfloat16()
+            for norm in ("ln", "rms"):
+                for activation in ("gelu_tanh", None):
+                    kw = dict(activation=activation, norm=norm)
+                    name = f"ln_mod_matmul B={b} M={m} K={k} N={n} {norm} {activation}"
+                    got = fm.ln_mod_matmul(x, scale, shift, w, bias, **kw)
+                    worst2 = max(worst2, compare(name, got, fm.ln_mod_matmul_reference(
+                        x, scale, shift, w, bias, **kw)))
+                    if not torch.equal(got, fm.ln_mod_matmul(x, scale, shift, w, bias, **kw)):
+                        raise AssertionError(f"{name}: a second call differs")
+    for k, n, ms in ((2048, 1024, rows), (1536, 768, (65, 767)), (3072, 768, (65, 767))):
+        w = (randn(n, k) / 45).bfloat16()
+        bias = (0.1 * randn(n)).bfloat16()
+        for m in ms:
+            h, res = randn(b, m, k).bfloat16(), randn(b, m, n).bfloat16()
+            gate = randn(b, n).bfloat16()
+            lens_list = [0, m, max(m - 37, m // 2)]
+            lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
+            for mask_rows in (True, False):
+                args = (h, w, bias, gate, res, lens, mask_rows)
+                name = f"matmul_gate_res B={b} M={m} K={k} N={n} lens={lens_list} mask={mask_rows}"
+                got = fm.matmul_gate_res(*args)
+                worst3 = max(worst3, compare(name, got, fm.matmul_gate_res_reference(*args)))
+                if not torch.equal(got, fm.matmul_gate_res(*args)):
+                    raise AssertionError(f"{name}: a second call differs")
+                if mask_rows and not all(torch.equal(got[i, n_valid:], res[i, n_valid:])
+                                         for i, n_valid in enumerate(lens_list)):
+                    raise AssertionError(f"{name}: masked rows are not the residual")
+    log(f"[kernels] kernels 2 and 3 at b=3, M = 1, 63, 64, 65, 129, 767 (K 1024 / N 2048 and "
+        f"back) and M = 65, 767 at K 768 / N 1536, 3072 and back, kernel 2 ln / rms with and "
+        f"without GELU, kernel 3 masked (lens 0, M, inside a tile) and not: max_abs_err "
+        f"{worst2:.3g} and {worst3:.3g} (tol {TOL} * (1 + |plain|)), every second call "
+        "bit-identical, masked rows the residual bit for bit")
+    return worst2, worst3
+
+
+def check_ln_mod_matmul(dev, g, g_new, edge_err: float) -> dict:
+    """Kernel 2: the layernorm mode at the DiT's FF width, then the RMS mode
+    at the UNetT's (scale = g - 1 with g ~ 1 + 0.1 N(0, 1), shift = 0, one
+    all-zero row, which must come out as act(bias)), at b = 2 (one utterance
+    with CFG) and at 16 x 768, the shape a `generate_batch` of eight gives it.
+    Yardsticks, used nowhere in the port: the unfused bf16 chain, and
+    `F.linear` alone on an activation normalised beforehand (the product
+    without the fusion). ``edge_err`` is the error at the uneven edges
+    (`check_fused_projection_edges`)."""
+    import torch
+    import torch.nn.functional as F
+
+    from eraxvif5tts_tpu_torch.ops import fused_matmul as fm
+
+    results = {}
     for name, norm, n_out in (("ln_mod_matmul", "ln", 2048), ("ln_mod_matmul_rms", "rms", 4096)):
         err_max, cases, gen = 0.0, {}, g if norm == "ln" else g_new
-        for m in (256, 1088):
-            x = (torch.randn((2, m, 1024), generator=gen, device=dev) + 0.5).bfloat16()
-            scale = (0.1 * torch.randn((2, 1024), generator=gen, device=dev)).bfloat16()
-            shift = (0.1 * torch.randn((2, 1024), generator=gen, device=dev)).bfloat16()
+        for b, m in ((2, 256), (2, 1088), (16, 768)):
+            x = (torch.randn((b, m, 1024), generator=gen, device=dev) + 0.5).bfloat16()
+            scale = (0.1 * torch.randn((b, 1024), generator=gen, device=dev)).bfloat16()
+            shift = (0.1 * torch.randn((b, 1024), generator=gen, device=dev)).bfloat16()
             w = (torch.randn((n_out, 1024), generator=gen, device=dev) / 32).bfloat16()
             bias = (0.1 * torch.randn((n_out,), generator=gen, device=dev)).bfloat16()
             if norm == "rms":
                 x[1, m // 2] = 0.0
-                scale, shift = scale[:1].expand(2, -1).contiguous(), torch.zeros_like(shift)
+                scale, shift = scale[:1].expand(b, -1).contiguous(), torch.zeros_like(shift)
             args = (x, scale, shift, w, bias)
             got = fm.ln_mod_matmul(*args, norm=norm)
-            err = compare(f"{name} M={m}", got, fm.ln_mod_matmul_reference(*args, norm=norm))
+            err = compare(f"{name} B={b} M={m}", got,
+                          fm.ln_mod_matmul_reference(*args, norm=norm))
             if norm == "rms" and not torch.equal(
                     got[1, m // 2], F.gelu(bias.float(), approximate="tanh").bfloat16()):
-                raise AssertionError(f"{name} M={m}: the all-zero row is not gelu(bias)")
+                raise AssertionError(f"{name} B={b} M={m}: the all-zero row is not gelu(bias)")
+            if not torch.equal(got, fm.ln_mod_matmul(*args, norm=norm)):
+                raise AssertionError(f"{name} B={b} M={m}: a second call differs")
             err_max = max(err_max, err)
             ms = cuda_median_ms(lambda: fm.ln_mod_matmul(*args, norm=norm))
             plain_ms = cuda_median_ms(lambda: fm.ln_mod_matmul_reference(*args, norm=norm))
-            least = bound(2 * (2 * m * 1024 + 2 * 2 * 1024 + n_out * 1024 + n_out
-                               + 2 * m * n_out), 2.0 * 2 * m * 1024 * n_out)
-            cases[m] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, **least)
-            log(f"[kernels] {name} B=2 M={m} K=1024 N={n_out} norm {norm} gelu_tanh: "
+            chain_ms = cuda_median_ms(lambda: unfused_ln_mod_chain(*args, norm))
+            normed = F.layer_norm(x, (x.shape[-1],))
+            linear_ms = cuda_median_ms(lambda: F.linear(normed, w))
+            least = bound(2 * (b * m * 1024 + 2 * b * 1024 + n_out * 1024 + n_out
+                               + b * m * n_out), 2.0 * b * m * 1024 * n_out)
+            cases[(b, m)] = dict(ms=ms, plain_ms=plain_ms, library_ms=chain_ms, **least)
+            log(f"[kernels] {name} B={b} M={m} K=1024 N={n_out} norm {norm} gelu_tanh: "
                 f"max_abs_err {err:.3g} (tol {TOL} * (1 + |plain|)); kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, bound {least['bound_ms']:.5f} ms by {least['bound_by']}")
-        results[name] = dict(max_abs_err=err_max, **cases[1088])
-    log("[kernels] the JSON line's serving ms / plain_ms / bound_ms / library_ms are the "
-        "n = M = 1088 bucket's; no single PyTorch call computes kernel 2 or the attention "
-        "with rotary, so their library_ms is null")
-    results.update(check_int8_ff(dev, g))
-    results.update(check_matmul_gate_res(dev, g))
-    results.update(check_train_attention(dev, g))
+                f"{plain_ms:.4f} ms, bound {least['bound_ms']:.5f} ms by {least['bound_by']}; "
+                f"library: the unfused bf16 chain (norm, modulate, F.linear, F.gelu) "
+                f"{chain_ms:.4f} ms, the kernel takes {ms / chain_ms:.2f}x its time; F.linear "
+                f"alone on a normalised activation (the product without the fusion) "
+                f"{linear_ms:.4f} ms")
+        results[name] = dict(max_abs_err=max(err_max, edge_err), **cases[(2, 1088)])
     return results
 
 
@@ -420,50 +529,62 @@ def check_int8_ff(dev, g) -> dict:
                             library_ms=None, **least)}
 
 
-def check_matmul_gate_res(dev, g) -> dict:
+def check_matmul_gate_res(dev, g, edge_err: float) -> dict:
     """Kernel 3 against its plain version at the DiT's FF output shape
-    ([2, M, 2048] -> 1024), rows past lens kept as the residual and not. No
-    model calls it (as in the JAX package), so its launches are this
-    check's."""
+    ([2, M, 2048] -> 1024, and 16 x 768 rows), rows past lens kept as the
+    residual and not. No model calls it (as in the JAX package), so its
+    launches are this check's. Yardsticks, used nowhere in the port: the
+    unfused bf16 chain (`F.linear`, then one `addcmul` of gate and residual,
+    the row mask folded into the gate) and `F.linear` alone. ``edge_err`` is
+    the error at the uneven edges (`check_fused_projection_edges`)."""
     import torch
+    import torch.nn.functional as F
 
     from eraxvif5tts_tpu_torch.ops import fused_matmul as fm
 
     fm.matmul_gate_res.launches = 0
-    err_max, times = 0.0, {}
-    for m in (256, 1088):
-        h = torch.randn((2, m, 2048), generator=g, device=dev).bfloat16()
+    err_max, times = edge_err, {}
+    for b, m in ((2, 256), (2, 1088), (16, 768)):
+        h = torch.randn((b, m, 2048), generator=g, device=dev).bfloat16()
         w = (torch.randn((1024, 2048), generator=g, device=dev) / 45).bfloat16()
         bias = (0.1 * torch.randn((1024,), generator=g, device=dev)).bfloat16()
-        gate = torch.randn((2, 1024), generator=g, device=dev).bfloat16()
-        res = torch.randn((2, m, 1024), generator=g, device=dev).bfloat16()
-        lens = torch.tensor([m, m - 37], dtype=torch.int32, device=dev)
+        gate = torch.randn((b, 1024), generator=g, device=dev).bfloat16()
+        res = torch.randn((b, m, 1024), generator=g, device=dev).bfloat16()
+        lens_list = [m, m - 37] * (b // 2)
+        lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
         for mask_rows in (True, False):
             args = (h, w, bias, gate, res, lens, mask_rows)
             got = fm.matmul_gate_res(*args)
-            err = compare(f"matmul_gate_res M={m} mask_rows={mask_rows}", got,
+            err = compare(f"matmul_gate_res B={b} M={m} mask_rows={mask_rows}", got,
                           fm.matmul_gate_res_reference(*args))
             if mask_rows and not torch.equal(got[1, m - 37:], res[1, m - 37:]):
                 raise AssertionError(f"matmul_gate_res M={m}: masked rows are not the residual")
             err_max = max(err_max, err)
+            gates = gate[:, None, :]
+            if mask_rows:
+                gates = gates * (torch.arange(m, device=dev)[None, :, None]
+                                 < lens[:, None, None]).to(gate.dtype)
             ms = cuda_median_ms(lambda: fm.matmul_gate_res(*args))
             plain_ms = cuda_median_ms(lambda: fm.matmul_gate_res_reference(*args))
-            times[(m, mask_rows)] = (ms, plain_ms)
-            log(f"[kernels] matmul_gate_res B=2 M={m} K=2048 N=1024 mask_rows={mask_rows} "
-                f"(lens [{m}, {m - 37}]): max_abs_err {err:.3g} (tol {TOL} * (1 + |plain|)); "
-                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    m = 1088
-    # h, the weight, bias, gate, the residual in and the output out in bf16, the
-    # lengths; the product over the rows below each sample's length
-    least = bound(2 * (2 * m * 2048 + 1024 * 2048 + 1024 + 2 * 1024 + 2 * 2 * m * 1024) + 8,
-                  2.0 * (m + m - 37) * 2048 * 1024)
-    log("[kernels] the JSON line's matmul_gate_res ms / plain_ms are the M = 1088 masked "
-        "case's; its launches are the kernel phase's (no model path calls it); its bound "
-        f"{least['bound_ms']:.5f} ms by {least['bound_by']}; no single PyTorch call computes it")
-    return {"matmul_gate_res": dict(max_abs_err=err_max, ms=times[(1088, True)][0],
-                                    plain_ms=times[(1088, True)][1],
-                                    launches=fm.matmul_gate_res.launches, library_ms=None,
-                                    **least)}
+            chain_ms = cuda_median_ms(lambda: torch.addcmul(res, gates, F.linear(h, w, bias)))
+            linear_ms = cuda_median_ms(lambda: F.linear(h, w))
+            # h, the weight, bias, gate, the residual in and the output out in bf16,
+            # the lengths; the product over the rows below each sample's length
+            rows = sum(lens_list) if mask_rows else b * m
+            least = bound(2 * (b * m * 2048 + 1024 * 2048 + 1024 + b * 1024 + 2 * b * m * 1024)
+                          + 4 * b, 2.0 * rows * 2048 * 1024)
+            times[(b, m, mask_rows)] = dict(ms=ms, plain_ms=plain_ms, library_ms=chain_ms, **least)
+            log(f"[kernels] matmul_gate_res B={b} M={m} K=2048 N=1024 mask_rows={mask_rows} "
+                f"(lens [{m}, {m - 37}] x {b // 2}): max_abs_err {err:.3g} (tol {TOL} * "
+                f"(1 + |plain|)); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                f"{least['bound_ms']:.5f} ms by {least['bound_by']}; library: the unfused bf16 "
+                f"chain (F.linear, addcmul) {chain_ms:.4f} ms, the kernel takes "
+                f"{ms / chain_ms:.2f}x its time; F.linear alone {linear_ms:.4f} ms")
+    log("[kernels] the JSON line's matmul_gate_res ms / plain_ms / bound_ms / library_ms are the "
+        "B = 2, M = 1088 masked case's; its launches are the kernel phase's (no model path "
+        "calls it)")
+    return {"matmul_gate_res": dict(max_abs_err=err_max, launches=fm.matmul_gate_res.launches,
+                                    **times[(2, 1088, True)])}
 
 
 def rel_l2(got, want) -> float:
@@ -843,6 +964,7 @@ def generate_counted(wrapper, ref, texts, nfe: int, tag: str, path: tuple[str, s
 KERNEL_GROUPS = (  # device kernels by name, first match
     ("kernel 1 (attention)", ("serving_attention_kernel",)),
     ("kernel 2 (norm + FF in)", ("ln_mod_matmul_kernel", "row_stats_kernel")),
+    ("kernel 3 (gated residual)", ("matmul_gate_res_kernel",)),
     ("kernel 4a (attention forward)", ("train_attention_fwd_kernel",)),
     ("kernel 4b (dq)", ("train_attention_dq_kernel",)),
     ("kernel 4c (dk/dv)", ("train_attention_dkv_kernel",)),

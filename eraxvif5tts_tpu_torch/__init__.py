@@ -14,7 +14,9 @@ The Pallas kernels of the reference are hand-written CUDA C++ for `sm_90a`
   fused rotary;
 - `ops/fused_matmul.py` — `ln_mod_matmul`, the normalised (layernorm or RMS)
   and modulated FF input projection with a tanh-GELU epilogue, and
-  `matmul_gate_res`, the gated residual projection;
+  `matmul_gate_res`, the gated residual projection: two instances of one
+  persistent `wgmma` + TMA GEMM (`csrc/wgmma_gemm.cuh`; bf16, K a multiple
+  of 64, N of 128, any M);
 - `ops/train_attention.py` — flash training attention with position-hash
   dropout (forward, dq, dk/dv);
 - `ops/quant_ff.py` — the one-kernel int8 W8A8 feed-forward.

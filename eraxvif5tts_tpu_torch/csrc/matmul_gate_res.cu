@@ -17,184 +17,92 @@
 // it. The unfused chain writes the [B, M, N] product and re-reads it with
 // res for the gate-and-add pass; here the product never leaves the SM.
 //
-// Design. The GEMM of `ln_mod_matmul.cu` without its normalising prologue:
-// 128x128 output tiles over eight warps of 32x64 (WMMA bf16 16x16x16
-// fragments, fp32 accumulators), 32-deep K steps, both operands streamed
-// into two shared-memory stages with cp.async (rows >= M zero-filled by the
-// copy's source size). The epilogue goes one 16x16 fragment at a time
-// through per-warp fp32 scratch: bias, gate, the row mask and the residual
-// in fp32, then a 16-byte bf16 store of the valid rows.
+// Design. The persistent wgmma + TMA GEMM of `wgmma_gemm.cuh` as it is: h and
+// w tiles arrive by TMA in a four-stage ring and both are read by
+// wgmma.mma_async through shared-memory descriptors, two stages' products in
+// flight. The epilogue works on the accumulators in registers, 8
+// neighbouring columns a thread: bias, gate, the row mask and the residual
+// (one 16-byte load) in fp32, then a 16-byte bf16 store of the rows below M.
+// A masked row adds 0 to the residual, so it comes out as res bit for bit.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
-
-using namespace nvcuda;
+#include "wgmma_gemm.cuh"
 
 namespace {
 
-constexpr int kBM = 128;
-constexpr int kBN = 128;
-constexpr int kBK = 32;
-constexpr int kLd = kBK + 8;      // bf16 shared row stride (elements): 80 bytes
-constexpr int kThreads = 256;     // 8 warps: 4 along M x 2 along N
-constexpr int kWarpM = 32;
-constexpr int kWarpN = 64;
-constexpr int kStageElems = kBM * kLd;
+struct GateResEpilogue {
+  const __nv_bfloat16* bias;  // [N]
+  const __nv_bfloat16* gate;  // [B, N]
+  const __nv_bfloat16* res;   // [B, M, N]
+  const int* lens;            // [B] (mask_rows)
+  __nv_bfloat16* out;         // [B, M, N]
+  int m, n, mask_rows;
 
-// 16 bytes global -> shared; `bytes` = 0 fills the destination with zeros.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Rows r0.. of a row-major [rows, K] bf16 matrix, columns k0..k0+31, into a
-// shared stage; rows >= `rows` read as zeros.
-__device__ __forceinline__ void load_stage(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                           int r0, int rows, int k, int k0) {
+  __device__ __forceinline__ void operator()(int bi, int row, int col,
+                                             const float (&v)[8]) const {
+    if (row >= m) return;
+    const bool valid = !mask_rows || row < lens[bi];
+    const long off = (static_cast<long>(bi) * m + row) * n + col;
+    const uint4 bias4 = *reinterpret_cast<const uint4*>(bias + col);
+    const uint4 gate4 = *reinterpret_cast<const uint4*>(gate + static_cast<long>(bi) * n + col);
+    const uint4 res4 = *reinterpret_cast<const uint4*>(res + off);
+    const __nv_bfloat162* bv = reinterpret_cast<const __nv_bfloat162*>(&bias4);
+    const __nv_bfloat162* gv = reinterpret_cast<const __nv_bfloat162*>(&gate4);
+    const __nv_bfloat162* rv = reinterpret_cast<const __nv_bfloat162*>(&res4);
+    uint32_t packed[4];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int chunk = threadIdx.x + i * kThreads;
-    const int row = chunk / (kBK / 8);
-    const int col = (chunk % (kBK / 8)) * 8;
-    const bool valid = r0 + row < rows;
-    const __nv_bfloat16* p = src + static_cast<long>(valid ? r0 + row : 0) * k + k0 + col;
-    cp_async16(dst + row * kLd + col, p, valid ? 16 : 0);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-    matmul_gate_res_kernel(const __nv_bfloat16* __restrict__ h,
-                           const __nv_bfloat16* __restrict__ w,
-                           const __nv_bfloat16* __restrict__ bias,
-                           const __nv_bfloat16* __restrict__ gate,
-                           const __nv_bfloat16* __restrict__ res,
-                           const int* __restrict__ lens, __nv_bfloat16* __restrict__ out,
-                           int m, int k, int n, int mask_rows) {
-  // two A stages, two B stages; the epilogue reuses the A stages as per-warp
-  // fp32 scratch
-  __shared__ __align__(128) __nv_bfloat16 as[2 * kStageElems];
-  __shared__ __align__(128) __nv_bfloat16 bs[2 * kStageElems];
-
-  const int n0 = blockIdx.x * kBN;
-  const int m0 = blockIdx.y * kBM;
-  const int bi = blockIdx.z;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int wm = warp / 2;  // 32-row slice of the tile
-  const int wn = warp % 2;  // 64-column slice of the tile
-  const __nv_bfloat16* hb = h + static_cast<long>(bi) * m * k;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  load_stage(as, hb, m0, m, k, 0);
-  load_stage(bs, w, n0, n, k, 0);
-  cp_async_commit();
-  cp_async_wait_all();
-  __syncthreads();
-
-  const int k_tiles = k / kBK;
-  for (int kt = 0; kt < k_tiles; ++kt) {
-    const int cur = kt & 1;
-    const bool more = kt + 1 < k_tiles;
-    if (more) {
-      load_stage(as + (cur ^ 1) * kStageElems, hb, m0, m, k, (kt + 1) * kBK);
-      load_stage(bs + (cur ^ 1) * kStageElems, w, n0, n, k, (kt + 1) * kBK);
-      cp_async_commit();
+    for (int i = 0; i < 4; ++i) {
+      const float2 bf = __bfloat1622float2(bv[i]);
+      const float2 gf = __bfloat1622float2(gv[i]);
+      const float2 rf = __bfloat1622float2(rv[i]);
+      const float u0 = valid ? __fmul_rn(gf.x, __fadd_rn(v[2 * i], bf.x)) : 0.f;
+      const float u1 = valid ? __fmul_rn(gf.y, __fadd_rn(v[2 * i + 1], bf.y)) : 0.f;
+      packed[i] = gemm_pack_bf16(__fadd_rn(rf.x, u0), __fadd_rn(rf.y, u1));
     }
-    const __nv_bfloat16* a_s = as + cur * kStageElems;
-    const __nv_bfloat16* b_s = bs + cur * kStageElems;
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], a_s + (wm * kWarpM + i * 16) * kLd + kk, kLd);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::load_matrix_sync(b[j], b_s + (wn * kWarpN + j * 16) * kLd + kk, kLd);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    if (more) cp_async_wait_all();
-    __syncthreads();
+    *reinterpret_cast<uint4*>(out + off) = make_uint4(packed[0], packed[1], packed[2], packed[3]);
   }
+};
 
-  // epilogue, one 16x16 fragment at a time through this warp's scratch
-  float* scratch = reinterpret_cast<float*>(as) + warp * 256;
-  const int r = lane / 2;
-  const int c = (lane % 2) * 8;
-  const int valid_rows = mask_rows ? min(lens[bi], m) : m;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(scratch, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int row = m0 + wm * kWarpM + i * 16 + r;
-      const int col = n0 + wn * kWarpN + j * 16 + c;
-      if (row < m) {
-        const long off = (static_cast<long>(bi) * m + row) * n + col;
-        const uint4 bv4 = *reinterpret_cast<const uint4*>(bias + col);
-        const uint4 gv4 = *reinterpret_cast<const uint4*>(gate + static_cast<long>(bi) * n + col);
-        const uint4 rv4 = *reinterpret_cast<const uint4*>(res + off);
-        const __nv_bfloat162* bv = reinterpret_cast<const __nv_bfloat162*>(&bv4);
-        const __nv_bfloat162* gv = reinterpret_cast<const __nv_bfloat162*>(&gv4);
-        const __nv_bfloat162* rv = reinterpret_cast<const __nv_bfloat162*>(&rv4);
-        const bool keep = row < valid_rows;
-        uint4 packed;
-        __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&packed);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 bf = __bfloat1622float2(bv[e]);
-          const float2 gf = __bfloat1622float2(gv[e]);
-          const float2 rf = __bfloat1622float2(rv[e]);
-          const float u0 =
-              keep ? __fmul_rn(gf.x, __fadd_rn(scratch[r * 16 + c + 2 * e], bf.x)) : 0.f;
-          const float u1 =
-              keep ? __fmul_rn(gf.y, __fadd_rn(scratch[r * 16 + c + 2 * e + 1], bf.y)) : 0.f;
-          o[e] = __floats2bfloat162_rn(__fadd_rn(rf.x, u0), __fadd_rn(rf.y, u1));
-        }
-        *reinterpret_cast<uint4*>(out + off) = packed;
-      }
-      __syncwarp();
-    }
-  }
+template <int kNAcc>
+__global__ void __launch_bounds__(kGemmThreads, 1)
+    matmul_gate_res_kernel(const __grid_constant__ CUtensorMap h_map,
+                           const __grid_constant__ CUtensorMap w_map, const GemmShape shape,
+                           const GateResEpilogue epilogue) {
+  extern __shared__ uint8_t smem_raw[];
+  gemm_block<false, kNAcc>(&h_map, &w_map, shape, GemmNorm{}, epilogue, smem_raw);
 }
 
 }  // namespace
 
 // h [B, M, K], w [N, K], bias [N], gate [B, N], res and out [B, M, N]: bf16,
 // contiguous, 16-byte aligned; lens [B] int32 (read only when mask_rows).
-// Requires K % 32 == 0 and N % 128 == 0. Launches on `stream` and returns the
-// cudaError_t of the launch.
+// Requires K % 64 == 0 and N % 128 == 0. One launch on `stream`; returns the
+// cudaError_t of the launch or of its set-up, a refused tensor map counting
+// as cudaErrorInvalidValue.
 extern "C" int erax_matmul_gate_res(const void* h, const void* w, const void* bias,
                                     const void* gate, const void* res, const void* lens,
                                     void* out, int b, int m, int k, int n, int mask_rows,
                                     void* stream) {
-  const dim3 grid(n / kBN, (m + kBM - 1) / kBM, b);
-  matmul_gate_res_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(h), static_cast<const __nv_bfloat16*>(w),
-      static_cast<const __nv_bfloat16*>(bias), static_cast<const __nv_bfloat16*>(gate),
-      static_cast<const __nv_bfloat16*>(res), static_cast<const int*>(lens),
-      static_cast<__nv_bfloat16*>(out), m, k, n, mask_rows);
+  if (k % kGemmBK != 0 || n % kGemmBNAcc != 0 || b < 1 || m < 1 || k < 1 || n < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  GemmDevice dev;
+  int err = gemm_device(dev);
+  if (err != 0) return err;
+  const int nacc = gemm_pick_nacc(b, m, n, dev.sms);
+  const auto kernel = nacc == 2 ? matmul_gate_res_kernel<2> : matmul_gate_res_kernel<1>;
+  static bool allowed[2][kGemmMaxDevices] = {};
+  err = gemm_allow_smem(reinterpret_cast<const void*>(kernel), allowed[nacc - 1], dev.index);
+  if (err != 0) return err;
+  CUtensorMap h_map, w_map;
+  if (!hopper::encode_batched_map(&h_map, h, b, m, k, kGemmBM) ||
+      !gemm_weight_map(&w_map, w, n, k))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const GemmShape shape{b, m, k, n};
+  const GateResEpilogue epilogue{static_cast<const __nv_bfloat16*>(bias),
+                                 static_cast<const __nv_bfloat16*>(gate),
+                                 static_cast<const __nv_bfloat16*>(res),
+                                 static_cast<const int*>(lens),
+                                 static_cast<__nv_bfloat16*>(out), m, n, mask_rows};
+  kernel<<<gemm_grid(b, m, n, nacc, dev.sms), kGemmThreads, kGemmSmem,
+           static_cast<cudaStream_t>(stream)>>>(h_map, w_map, shape, epilogue);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,9 +1,11 @@
-// Hopper building blocks for kernels that stream 64 x 64 bf16 tiles of a
-// [b, n, h, 64] tensor through shared memory: TMA loads that complete on
-// mbarriers, and the warpgroup product wgmma.mma_async m64n64k16 (bf16 in,
-// fp32 accumulators) reading those tiles through shared-memory descriptors.
-// The training-attention backward and the forward core of `flash_forward.cuh`
-// are built from them.
+// Hopper building blocks for kernels that stream bf16 tiles of 64 columns
+// (128-byte rows) through shared memory: TMA loads that complete on
+// mbarriers, and the warpgroup products wgmma.mma_async m64n64k16,
+// m64n128k16 and m64n256k16 (bf16 in, fp32 accumulators) reading those tiles through
+// shared-memory descriptors or, for the left operand, from registers.
+// The training-attention backward, the forward core of `flash_forward.cuh`
+// (64 x 64 tiles of a [b, n, h, 64] tensor) and the GEMM core of
+// `wgmma_gemm.cuh` (tiles of plain [rows, k] matrices) are built from them.
 //
 // One tile is 64 rows of 128 bytes, written by TMA with the 128-byte swizzle:
 // the 16-byte chunk c of row r lands at chunk c ^ (r % 8) of that row. A tile
@@ -87,6 +89,29 @@ __device__ __forceinline__ void tma_load_tile(uint32_t dst, const CUtensorMap* m
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(head), "r"(row), "r"(sample)
+      : "memory");
+}
+
+// The box of a row-major [rows, k] matrix's map (`encode_matrix_map`) whose
+// first column is `col` and first row `row`, onto `bar`; rows at or past the
+// matrix's end read as zeros.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row)
+      : "memory");
+}
+
+// The same for a [b, m, k] tensor's map (`encode_batched_map`): rows at or
+// past m read as zeros, never as the next sample's.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int col, int row, int sample) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row), "r"(sample)
       : "memory");
 }
 
@@ -219,6 +244,109 @@ __device__ __forceinline__ void wgmma_rs_t(float (&d)[32], const uint32_t (&a)[4
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
 }
 
+// ---- wgmma m64n128k16, for the GEMM core (`wgmma_gemm.cuh`) ----------------
+
+__device__ __forceinline__ void keep(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define ERAX_ACC64(d)                                                                     \
+  ERAX_ACC8(d, 0), ERAX_ACC8(d, 8), ERAX_ACC8(d, 16), ERAX_ACC8(d, 24), ERAX_ACC8(d, 32), \
+      ERAX_ACC8(d, 40), ERAX_ACC8(d, 48), ERAX_ACC8(d, 56)
+#define ERAX_ACC64_LIST                                                                    \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "  \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "  \
+  "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+// d += A B^T for one k16 step with B [128, 16] K-major in shared memory (128
+// rows of a [rows, 64] tile: sixteen 1024-byte swizzle atoms). The
+// accumulator fragment is m64n64k16's with sixteen column groups: d[4 c + e]
+// is row 16 w + g + 8 (e / 2), column 8 c + 2 t + (e % 2), c = 0..15.
+// `wgmma128_ss`: A [64, 16] K-major in shared memory.
+__device__ __forceinline__ void wgmma128_ss(float (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " ERAX_ACC64_LIST
+      ", %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : ERAX_ACC64(d)
+      : "l"(a), "l"(b));
+}
+// `wgmma128_rs`: A [64, 16] from registers, in the fragment `ldmatrix_x4`
+// gives ({(g, 2t..), (g + 8, 2t..), (g, 2t + 8..), (g + 8, 2t + 8..)}).
+__device__ __forceinline__ void wgmma128_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " ERAX_ACC64_LIST
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : ERAX_ACC64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+
+// ---- wgmma m64n256k16: the same with B [256, 16] and 32 column groups -------
+
+__device__ __forceinline__ void keep(float (&d)[128]) {
+#pragma unroll
+  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define ERAX_ACC128(d)                                                                     \
+  ERAX_ACC8(d, 0), ERAX_ACC8(d, 8), ERAX_ACC8(d, 16), ERAX_ACC8(d, 24), ERAX_ACC8(d, 32),  \
+      ERAX_ACC8(d, 40), ERAX_ACC8(d, 48), ERAX_ACC8(d, 56), ERAX_ACC8(d, 64),              \
+      ERAX_ACC8(d, 72), ERAX_ACC8(d, 80), ERAX_ACC8(d, 88), ERAX_ACC8(d, 96),              \
+      ERAX_ACC8(d, 104), ERAX_ACC8(d, 112), ERAX_ACC8(d, 120)
+#define ERAX_ACC128_LIST \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, " \
+  "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, " \
+  "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, " \
+  "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, " \
+  "%82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, " \
+  "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, " \
+  "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, " \
+  "%124, %125, %126, %127}"
+
+__device__ __forceinline__ void wgmma256_ss(float (&d)[128], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " ERAX_ACC128_LIST
+      ", %128, %129, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : ERAX_ACC128(d)
+      : "l"(a), "l"(b));
+}
+__device__ __forceinline__ void wgmma256_rs(float (&d)[128], const uint32_t (&a)[4],
+                                            uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " ERAX_ACC128_LIST
+      ", {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n"
+      "}\n"
+      : ERAX_ACC128(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory: lane l gives the address of
+// row l % 8 of matrix l / 8 (16 bytes, 16-byte aligned) and receives, of
+// matrix j, the pair at row l / 4, columns 2 (l % 4) and + 1, in r[j].
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t row_addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(row_addr)
+               : "memory");
+}
+
 // Moves registers between the warpgroups of a block: the producer's group
 // gives up all but N a thread, each consumer group then takes up to N. Every
 // warp of a group executes it, once, at the top of its branch of one if /
@@ -276,6 +404,42 @@ inline bool encode_rows_map(CUtensorMap* map, const void* base, int b, int n, in
   const cuuint32_t box[4] = {64, 1, kTileRows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The map of a contiguous row-major bf16 matrix [rows, k] (k % 64 == 0) as
+// two dimensions (k, rows), box 64 x `box_rows` (at most 256): 128-byte rows
+// with the 128-byte swizzle, out-of-range rows filled with zeros.
+inline bool encode_matrix_map(CUtensorMap* map, const void* base, int rows, int k,
+                              int box_rows) {
+  const EncodeTiledFn encode = encode_tiled_fn();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(k), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(k) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The map of a contiguous bf16 tensor [b, m, k] as three dimensions
+// (k, m, b), box 64 x `box_rows` x 1: m is a dimension of its own, so a box
+// that hangs over a sample's end reads zeros, never the next sample.
+inline bool encode_batched_map(CUtensorMap* map, const void* base, int b, int m, int k,
+                               int box_rows) {
+  const EncodeTiledFn encode = encode_tiled_fn();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(k), static_cast<cuuint64_t>(m),
+                              static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(k) * 2,
+                                 static_cast<cuuint64_t>(m) * k * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
                 box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

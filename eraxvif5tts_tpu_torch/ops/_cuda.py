@@ -12,7 +12,7 @@ quantization codes.
 
 Each C entry point launches on the stream it is handed, allocates nothing,
 and returns ``cudaGetLastError()``; :func:`check` turns a non-zero code into
-an exception. The attention kernels build their TMA tensor maps on
+an exception. The attention and GEMM kernels build their TMA tensor maps on
 the host with libcuda's ``cuTensorMapEncodeTiled``, which they fetch at
 run time through ``cudaGetDriverEntryPoint``: the link names no extra
 library, and a refused map comes back as a non-zero code like any other.
@@ -157,6 +157,9 @@ def kernels() -> Kernels:
             fn = getattr(lib, name)
             fn.argtypes = (ctypes.POINTER(ctypes.c_int),)
             fn.restype = None
+        # b, m, n, out[10]: the GEMM core's constants and its choice for a shape
+        lib.erax_gemm_geometry.argtypes = (_I, _I, _I, ctypes.POINTER(ctypes.c_int))
+        lib.erax_gemm_geometry.restype = None
         # base, b, n, h, iters -> host nanoseconds of one tensor-map encode
         lib.erax_tensor_map_encode_ns.argtypes = (_P, _I, _I, _I, _I)
         lib.erax_tensor_map_encode_ns.restype = ctypes.c_double

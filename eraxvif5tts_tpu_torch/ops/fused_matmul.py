@@ -4,7 +4,8 @@ feed-forward input projection and the gated residual projection.
 Port of `eraxvif5tts_tpu/ops/fused_matmul.py`, both of its Pallas kernels:
 
 - :func:`ln_mod_matmul` (Pallas body `_ln_mod_kernel`) launches the CUDA
-  kernel `csrc/ln_mod_matmul.cu`: per batch row,
+  kernel `csrc/ln_mod_matmul.cu` (a small row-statistics kernel, then the
+  GEMM): per batch row,
   ``act((norm(x) * (1 + scale) + shift) @ weight.T + bias)`` with a
   scale-free norm over K in fp32, the modulated activation cast to x's dtype
   before the product, fp32 accumulation, and the tanh-GELU in fp32 before the
@@ -22,10 +23,15 @@ Port of `eraxvif5tts_tpu/ops/fused_matmul.py`, both of its Pallas kernels:
 
 Each runs its plain PyTorch version (``*_reference``) for CPU tensors.
 ``weight`` is ``[N, K]``, the ``nn.Linear`` layout (the JAX functions take its
-transpose ``[K, N]``). On the card both kernels take bf16 only, contiguous and
-16-byte aligned, ``K % 32 == 0`` and ``N % 128 == 0``, any M (and ``lens``
-int32 on the device). Anything else on a CUDA tensor raises; there is no
-fallback.
+transpose ``[K, N]``). Both kernels are instances of one persistent
+``wgmma`` + TMA GEMM (`csrc/wgmma_gemm.cuh`), whose tiles, schedule, shared
+memory and tensor maps :func:`gemm_geometry` states in plain Python; the
+fragment and address maps its threads use are mirrored below it, for the CPU
+tests to walk. On the card both kernels take bf16 only, contiguous and
+16-byte aligned, ``K % 64 == 0`` and ``N % 128 == 0``, any M (and ``lens``
+int32 on the device); :func:`ln_mod_matmul` also wants ``K <= 2048`` (a
+batch row's scale and shift stay in shared memory). Anything else on a CUDA
+tensor raises; there is no fallback.
 """
 
 from __future__ import annotations
@@ -34,8 +40,16 @@ from typing import Optional
 
 import torch
 
-K_TILE = 32
-N_TILE = 128
+from eraxvif5tts_tpu_torch.ops.train_attention import swizzled_offset
+
+K_TILE = 64       # columns of K a ring stage (one 128-byte swizzled row)
+N_TILE = 128      # columns an accumulator: wgmma m64n128k16
+M_TILE = 128      # rows an output tile: 64 a consumer warpgroup
+GEMM_STAGES = 4
+GEMM_THREADS = 384  # two consumer warpgroups and the producer's
+GEMM_MAX_NORM_K = 2048  # ln_mod_matmul: scale and shift rows must fit their buffers
+SMS = 132         # streaming multiprocessors of an H100
+SMEM_LIMIT = 232448  # bytes of shared memory a block may use on sm_90
 EPS = {"ln": 1e-6, "rms": 1e-12}  # each norm's eps in the JAX package's models
 _NORM_CODES = {"ln": 0, "rms": 1}  # the kernel's `norm` argument
 
@@ -80,10 +94,131 @@ def _check_bf16_operands(fn: str, x: torch.Tensor, shapes: dict) -> tuple[int, i
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{fn}: {name} must be contiguous and 16-byte aligned")
     k, n = x.shape[-1], shapes["weight"][0].shape[0]
-    if k % K_TILE or n % N_TILE:
+    if k % K_TILE or n % N_TILE or n == 0 or 0 in x.shape:
         raise ValueError(f"{fn}: K must be a multiple of {K_TILE} and N of "
-                         f"{N_TILE}, got K={k}, N={n}")
+                         f"{N_TILE}, no dimension empty, got x {tuple(x.shape)}, N={n}")
     return k, n
+
+
+def gemm_nacc(b: int, m: int, n: int, sms: int = SMS) -> int:
+    """Accumulators a consumer warpgroup, i.e. tile columns / 128 (the mirror
+    of ``gemm_pick_nacc`` in `csrc/wgmma_gemm.cuh`): 256-column tiles
+    normalise each x tile half as often and win a tie; 128-column tiles are
+    taken where N is no multiple of 256 or where their waves cover fewer
+    columns in all."""
+    if n % (2 * N_TILE):
+        return 1
+    rows = b * -(-m // M_TILE)
+    wide_cost = -(-(rows * (n // (2 * N_TILE))) // sms) * 2
+    narrow_cost = -(-(rows * (n // N_TILE)) // sms)
+    return 1 if narrow_cost < wide_cost else 2
+
+
+def gemm_geometry(b: int, m: int, k: int, n: int, sms: int = SMS) -> dict:
+    """How the GEMM core covers ``out [b, m, n] = epilogue(A [b, m, k] W [n, k]^T)``
+    on a card with ``sms`` multiprocessors:
+
+    - ``tile``: (rows, columns) of an output tile, ``nacc`` accumulators of
+      128 columns a warpgroup; ``warpgroups``: the (first row, rows) of the
+      tile each consumer warpgroup owns;
+    - ``grid``: persistent blocks; block i walks ``tiles[i::grid]``, and
+      ``waves`` is the most tiles one block takes. ``tiles`` lists
+      ``(column panel, batch row, row tile)`` in the order of the walk: every
+      row tile under one weight panel before the next panel, no tile across
+      two batch rows;
+    - ``stages``, ``threads``, ``shared_bytes``: the ring's depth, the block
+      and its dynamic shared memory (1024 bytes of alignment slack, the ring
+      of an A tile and two 128-row W tiles a stage, two scale / shift
+      buffers, the barriers);
+    - ``a_map`` / ``w_map``: the TMA maps, innermost dimension first:
+      ``dims`` in elements, ``strides`` in bytes (of all but the innermost),
+      ``box`` the tile one load brings. M is a dimension of its own in A's
+      map, so rows past M read as zeros, never as the next batch row's."""
+    if k % K_TILE or n % N_TILE or min(b, m, k, n) < 1:
+        raise ValueError(f"gemm_geometry: K must be a multiple of {K_TILE} and N of {N_TILE}, "
+                         f"got b={b}, m={m}, k={k}, n={n}")
+    nacc = gemm_nacc(b, m, n, sms)
+    tiles_m, panels = -(-m // M_TILE), n // (nacc * N_TILE)
+    tiles = [(ni, bi, mi) for ni in range(panels) for bi in range(b) for mi in range(tiles_m)]
+    grid = min(len(tiles), sms)
+    stage = M_TILE * K_TILE * 2 + 2 * N_TILE * K_TILE * 2
+    shared = (1024 + GEMM_STAGES * stage + 2 * (2 * GEMM_MAX_NORM_K * 2)
+              + (2 * GEMM_STAGES + 4) * 8)
+    return dict(tile=(M_TILE, nacc * N_TILE), nacc=nacc, k_tile=K_TILE,
+                warpgroups=[(0, 64), (64, 64)], grid=grid, tiles=tiles,
+                waves=-(-len(tiles) // grid), stages=GEMM_STAGES, threads=GEMM_THREADS,
+                shared_bytes=shared,
+                a_map=dict(dims=(k, m, b), strides=(k * 2, m * k * 2), box=(K_TILE, M_TILE, 1)),
+                w_map=dict(dims=(k, n), strides=(k * 2,), box=(K_TILE, N_TILE)))
+
+
+def kernel_gemm_geometry(b: int, m: int, n: int) -> dict:
+    """The constants the built GEMM core reports, and its choice for this
+    shape on the current device (needs the card's build): they must equal
+    :func:`gemm_geometry`'s with ``sms`` the device's."""
+    import ctypes
+
+    from eraxvif5tts_tpu_torch.ops import _cuda
+
+    out = (ctypes.c_int * 10)()
+    _cuda.kernels().lib.erax_gemm_geometry(b, m, n, out)
+    return dict(tile_rows=out[0], acc_columns=out[1], k_tile=out[2], stages=out[3],
+                threads=out[4], shared_bytes=out[5], max_norm_k=out[6], nacc=out[7],
+                grid=out[8], sms=out[9])
+
+
+def a_fragment_reads(warp: int, lane: int, kk: int) -> tuple[int, list]:
+    """The normalising A path of one thread (warp 0-3 of its warpgroup) for
+    k16 step ``kk`` of a stage (``gemm_norm_fragments``): the byte offset,
+    inside the warpgroup's swizzled ``[64, 64]`` x tile, of the 16-byte row
+    it hands ``ldmatrix.x4`` (through ``swizzled_offset``, the map TMA writes
+    a tile of 128-byte rows by), and the four ``(row, first column)`` pairs it
+    receives, in the order of the ``wgmma`` A fragment's registers. Lane l
+    addresses row ``l % 8`` of matrix ``l // 8``; matrix j is rows
+    ``8 (j % 2)..`` and chunk ``2 kk + j // 2`` of the warp's 16 rows; a lane
+    receives row ``l // 4``, columns ``2 (l % 4)`` and + 1 of each matrix."""
+    mat = lane // 8
+    address = swizzled_offset(16 * warp + 8 * (mat % 2) + lane % 8, 8 * (2 * kk + mat // 2))
+    g, t = divmod(lane, 4)
+    received = [(16 * warp + 8 * (j % 2) + g, 16 * kk + 8 * (j // 2) + 2 * t) for j in range(4)]
+    return address, received
+
+
+def accumulator_element(warp: int, lane: int, i: int) -> tuple[int, int]:
+    """(row, column), inside a warpgroup's ``[64, 128]`` accumulator tile, of
+    register ``i`` (0-63) of a thread: ``d[4 c + e]`` is row
+    ``16 warp + g + 8 (e // 2)``, column ``8 c + 2 t + e % 2`` with
+    ``lane = 4 g + t``."""
+    g, t = divmod(lane, 4)
+    c, e = divmod(i, 4)
+    return 16 * warp + g + 8 * (e // 2), 8 * c + 2 * t + e % 2
+
+
+def quad_transpose(values: list) -> list:
+    """The epilogue's exchange among the four lanes of a quad
+    (``gemm_quad_transpose``), on ``values[t][c]`` = what lane t holds for
+    column group c: two rounds of ``shfl.xor`` (1, then 2), each lane keeping
+    half of its registers and swapping the other half. Returns ``out[t][i]``,
+    which the kernel takes to be what lane i held for group t."""
+    a = [list(v) for v in values]
+    for xor, pairs in ((1, ((0, 1), (2, 3))), (2, ((0, 2), (1, 3)))):
+        sent = [[a[t][hi] if not t & xor else a[t][lo] for lo, hi in pairs] for t in range(4)]
+        for t in range(4):
+            for (lo, hi), got in zip(pairs, sent[t ^ xor]):
+                a[t][lo if t & xor else hi] = got
+    return a
+
+
+def epilogue_chunks(warp: int, lane: int) -> list:
+    """The ``(row, first column, sources)`` of each 16-byte store a thread's
+    epilogue makes for one ``[64, 128]`` accumulator: for column block cb
+    (32 columns) and row half r, 8 neighbouring columns from ``8 t`` on,
+    ``sources[2 i + e]`` = (lane, register) the value came from: lane
+    ``4 g + i``'s register ``4 (4 cb + t) + 2 r + e``."""
+    g, t = divmod(lane, 4)
+    return [(16 * warp + g + 8 * r, 32 * cb + 8 * t,
+             [(4 * g + i, 4 * (4 * cb + t) + 2 * r + e) for i in range(4) for e in range(2)])
+            for cb in range(N_TILE // 32) for r in range(2)]
 
 
 def _check_cuda_args(x, scale, shift, weight, bias, activation, norm, eps) -> None:
@@ -98,6 +233,8 @@ def _check_cuda_args(x, scale, shift, weight, bias, activation, norm, eps) -> No
     _check_bf16_operands("ln_mod_matmul", x, {
         "scale": (scale, (b, k)), "shift": (shift, (b, k)),
         "weight": (weight, (n, k)), "bias": (bias, (n,))})
+    if k > GEMM_MAX_NORM_K:
+        raise ValueError(f"ln_mod_matmul: K must be at most {GEMM_MAX_NORM_K}, got K={k}")
 
 
 def ln_mod_matmul(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,

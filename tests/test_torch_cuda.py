@@ -417,3 +417,78 @@ def test_unett_with_kernels_matches_plain_versions(cuda, monkeypatch):
     want = run()
     assert torch.isfinite(got).all()
     assert float((got - want).abs().max() / want.abs().max()) <= 5e-2
+
+
+@pytest.mark.parametrize("m", [1, 63, 64, 65, 129, 767])
+@pytest.mark.parametrize("k,n", [(1024, 2048), (768, 1536), (768, 3072)])
+@pytest.mark.parametrize("norm,activation", [("ln", "gelu_tanh"), ("rms", None)])
+def test_ln_mod_matmul_gemm_core_edges_match_plain(cuda, m, k, n, norm, activation):
+    """Kernel 2 where the GEMM core's tiles end unevenly, at every preset's
+    widths, a second call bit-identical."""
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    x = (torch.randn((3, m, k), generator=g, device=cuda) + 0.5).bfloat16()
+    scale, shift = ((0.1 * torch.randn((3, k), generator=g, device=cuda)).bfloat16()
+                    for _ in range(2))
+    w = (torch.randn((n, k), generator=g, device=cuda) / 32).bfloat16()
+    bias = (0.1 * torch.randn((n,), generator=g, device=cuda)).bfloat16()
+    got = fm.ln_mod_matmul(x, scale, shift, w, bias, activation=activation, norm=norm)
+    torch.cuda.synchronize()
+    _assert_close(got, fm.ln_mod_matmul_reference(x, scale, shift, w, bias, activation, norm))
+    assert torch.equal(got, fm.ln_mod_matmul(x, scale, shift, w, bias, activation=activation,
+                                             norm=norm))
+
+
+@pytest.mark.parametrize("m", [1, 63, 64, 65, 129, 767])
+@pytest.mark.parametrize("k,n", [(2048, 1024), (1536, 768), (3072, 768), (4096, 1024)])
+@pytest.mark.parametrize("mask_rows", [False, True])
+def test_matmul_gate_res_gemm_core_edges_match_plain(cuda, m, k, n, mask_rows):
+    """Kernel 3 at the same edges, with lengths of 0, of M and inside a tile:
+    masked rows are the residual bit for bit, a second call bit-identical."""
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    h = torch.randn((3, m, k), generator=g, device=cuda).bfloat16()
+    w = (torch.randn((n, k), generator=g, device=cuda) / 45).bfloat16()
+    bias = (0.1 * torch.randn((n,), generator=g, device=cuda)).bfloat16()
+    gate = torch.randn((3, n), generator=g, device=cuda).bfloat16()
+    res = torch.randn((3, m, n), generator=g, device=cuda).bfloat16()
+    lens_list = [0, m, max(m - 37, m // 2)]
+    lens = torch.tensor(lens_list, dtype=torch.int32, device=cuda)
+    got = fm.matmul_gate_res(h, w, bias, gate, res, lens, mask_rows=mask_rows)
+    torch.cuda.synchronize()
+    _assert_close(got, fm.matmul_gate_res_reference(h, w, bias, gate, res, lens, mask_rows))
+    assert torch.equal(got, fm.matmul_gate_res(h, w, bias, gate, res, lens, mask_rows=mask_rows))
+    if mask_rows:
+        for i, valid in enumerate(lens_list):
+            assert torch.equal(got[i, valid:], res[i, valid:])
+
+
+@pytest.mark.parametrize("b,m,n", [(2, 768, 2048), (2, 1088, 2048), (16, 768, 4096),
+                                   (2, 768, 4096), (3, 1, 1536), (1, 5, 384)])
+def test_gemm_geometry_is_the_kernels(cuda, b, m, n):
+    """The constants of the built GEMM core and its choice of tile width and
+    grid for a shape equal what `gemm_geometry` states in Python."""
+    built = fm.kernel_gemm_geometry(b, m, n)
+    geo = fm.gemm_geometry(b, m, 1024, n, sms=built["sms"])
+    assert built["sms"] == torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert (built["tile_rows"], built["acc_columns"] * built["nacc"]) == geo["tile"]
+    assert (built["k_tile"], built["stages"], built["threads"], built["shared_bytes"]) == (
+        geo["k_tile"], geo["stages"], geo["threads"], geo["shared_bytes"])
+    assert (built["nacc"], built["grid"]) == (geo["nacc"], geo["grid"])
+    assert built["max_norm_k"] == fm.GEMM_MAX_NORM_K
+
+
+def test_fused_projections_refuse_what_the_gemm_core_does_not_take(cuda):
+    x = torch.zeros((1, 8, 96), device=cuda, dtype=torch.bfloat16)  # K % 64
+    s = torch.zeros((1, 96), device=cuda, dtype=torch.bfloat16)
+    w = torch.zeros((128, 96), device=cuda, dtype=torch.bfloat16)
+    bias = torch.zeros(128, device=cuda, dtype=torch.bfloat16)
+    before = (fm.ln_mod_matmul.launches, fm.matmul_gate_res.launches)
+    with pytest.raises(ValueError):
+        fm.ln_mod_matmul(x, s, s, w, bias)
+    big = torch.zeros((1, 8, 4096), device=cuda, dtype=torch.bfloat16)  # K beyond the buffers
+    with pytest.raises(ValueError):
+        fm.ln_mod_matmul(big, big[:, 0].contiguous(), big[:, 0].contiguous(),
+                         torch.zeros((128, 4096), device=cuda, dtype=torch.bfloat16), bias)
+    with pytest.raises(ValueError):
+        fm.matmul_gate_res(x, w, bias, torch.zeros((1, 128), device=cuda, dtype=torch.bfloat16),
+                           torch.zeros((1, 8, 128), device=cuda, dtype=torch.bfloat16))
+    assert (fm.ln_mod_matmul.launches, fm.matmul_gate_res.launches) == before
