@@ -31,8 +31,11 @@ Phases (any failure raises and the script exits non-zero):
               limit checked against a wrong-seed control, the forward's LSE
               against the plain log sum exp, each second forward and backward
               bit-identical, timed at dropout 0.1 and at keep = 1; the int8
-              feed-forward also at the batched CFG shape, with its hidden codes
-              compared);
+              feed-forward at ff_mult 2 (K 1024, N 2048) and 4 (K 1024, N 4096;
+              K 768, N 3072) at b = 2, M = 256 and 1088, at 16 x 768 and at
+              R = 1, 63, 64, 65, 129, 767, its hidden codes equal to the plain
+              version's bit for bit, each second call bit-identical, timed
+              beside the QuantLinear chain and `torch._int_mm` alone);
 4. main    -- `F5TTSWrapper` at F5TTS_v1_Base width (dim 1024, depth 22,
               16 x 64 heads) in bf16 from seeded random weights: the DiT with
               its kernels against the same DiT with the plain versions, then
@@ -56,7 +59,8 @@ Phases (any failure raises and the script exits non-zero):
               one-kernel feed-forward (`ERAX_INT8_FF=1`), in turns with a
               bf16 wrapper on the same checkpoint, with the launch counters
               checked per call and seconds of audio per wall second printed,
-              and one more bf16 batch under `torch.profiler`;
+              and one more bf16 and one more int8 fused batch under
+              `torch.profiler`;
 7. train   -- CFM training of F5TTS_v1_Base at full width (fp32 parameters,
               bf16 compute, dropout 0.1, seeded random weights): one
               `CFM.loss` forward and backward with the kernels against the
@@ -75,11 +79,24 @@ Phases (any failure raises and the script exits non-zero):
               (the attention kernel without fused rotary and the projection
               kernel in RMS mode, 24 x 32 each, counted apart from the rotary
               and layernorm launches), a profiled request as in the main
-              phase, then one socket-server request.
+              phase, then one socket-server request;
+9. e2tts-int8 -- int8 E2-TTS serving at the same width and depth: the e2tts
+              phase's checkpoint quantized at load by
+              `F5TTSWrapper("E2TTS_Base", compute_dtype="int8",
+              int8_validate=True)` behind the quality gate (at 255 frames),
+              the quantized UNetT with its kernels against the plain versions
+              at b = 2, n = 767 and at the batch's shape with ERAX_INT8_FF
+              unset and set, the int8 feed-forward against its plain version
+              at that shape (K 1024, N 4096), one `generate` at NFE 32 with
+              the flag unset (no kernel 5) and set (24 x 32 launches of kernel
+              5 a chunk, none of kernel 2), then `generate_batch` of eight
+              texts in turns bf16 / int8 chain / int8 fused as the int8 phase,
+              and a profiled int8 fused batch.
 
 The line before the last is a JSON object with each kernel's launches in its
 path's phase (serving kernels with fused rotary / layernorm: main; without
-rotary / RMS: e2tts; int8 feed-forward: int8; training kernels: train; the
+rotary / RMS: e2tts; int8 feed-forward at ff_mult 2: int8, at ff_mult 4:
+e2tts-int8; training kernels: train; the
 gated residual projection, on no path: kernels), error, times, bound and
 library time; the last line is the device summary.
 """
@@ -112,11 +129,11 @@ BASE_DEPTH, BASE_NFE = 4, 8  # the F5TTS_Base check's cuts
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12}
 # int8 feed-forward, |kernel - plain| in units of max |plain|: both sum exactly
-# (int32) and round at the same points in IEEE fp32; a hidden code flipped by
-# a tie moves an output by ~1e-3 of it. At most CODE_FLIPS of the hidden codes
-# may differ (H100: none; a reciprocal-product scale flipped 6e-4 of them)
+# (int32) and round at the same points in IEEE fp32, so the hidden codes must
+# be the plain version's bit for bit (a reciprocal-product scale flipped 6e-4
+# of them on an H100) and the outputs differ by the bf16 rounding of sums
+# taken in another order
 INT8_FF_TOL = 1e-2
-CODE_FLIPS = 1e-5
 # Limits near the geometric mean of the error measured on an H100 and a
 # control's distance (the plain version with a wrong dropout seed, or with
 # wrong attention-dropout keys), which each run checks to exceed the limit:
@@ -461,7 +478,8 @@ def check_ln_mod_matmul(dev, g, g_new, edge_err: float) -> dict:
 
 def int8_chain(x, w1_q, s1, b1, w2_q, s2, b2):
     """The quantized block's unfused feed-forward (`ERAX_INT8_FF` unset): two
-    QuantLinear products with bf16 outputs and biases, tanh-GELU in bf16."""
+    QuantLinear products with bf16 outputs and biases, tanh-GELU in bf16. A
+    two-product chain of PyTorch calls, timed as kernel 5's library yardstick."""
     import torch.nn.functional as F
 
     from eraxvif5tts_tpu_torch.ops.quant import int8_matmul
@@ -470,63 +488,118 @@ def int8_chain(x, w1_q, s1, b1, w2_q, s2, b2):
     return int8_matmul(h, w2_q, s2) + b2.bfloat16()
 
 
-def check_int8_ff_shape(dev, g, b: int, m: int, tag: str = "[kernels]") -> tuple:
-    """Kernel 5 against its plain version at [b, m, 1024] x 2048 x 1024 (the
-    DiT's FF at dim 1024, ff 2048) on seeded operands: the output within
-    INT8_FF_TOL of its scale, the hidden codes the kernel requantizes
-    compared with the plain version's. Times: kernel, plain version, and the
-    QuantLinear chain the model runs without ERAX_INT8_FF. Returns (error,
-    kernel ms, plain ms)."""
+def int8_ff_operands(dev, g, b: int, m: int, k: int, n: int) -> tuple:
+    """Seeded operands of kernel 5 at [b, m, k] x n -> k (per-channel int8
+    weights of N(0, 1) / 32 and / 45 draws, fp32 biases of 0.1 N(0, 1))."""
+    import torch
+
+    from eraxvif5tts_tpu_torch.ops import quant
+
+    x = torch.randn((b, m, k), generator=g, device=dev).bfloat16()
+    w1_q, s1 = quant.quantize_weight(torch.randn((n, k), generator=g, device=dev) / 32)
+    w2_q, s2 = quant.quantize_weight(torch.randn((k, n), generator=g, device=dev) / 45)
+    b1 = 0.1 * torch.randn((n,), generator=g, device=dev)
+    b2 = 0.1 * torch.randn((k,), generator=g, device=dev)
+    return x, w1_q, s1, b1, w2_q, s2, b2
+
+
+def int8_ff_work(rows: int, k: int, n: int) -> tuple[float, float]:
+    """(bytes, operations) of kernel 5 on ``rows`` rows: x in and the output
+    out in bf16, both int8 weight matrices, fp32 scales and biases; two int8
+    products of rows x k x n."""
+    return 2 * rows * k * 2 + 2 * n * k + 2 * (n + k) * 4, 2 * 2.0 * rows * k * n
+
+
+def check_int8_ff_case(args, tag: str, shape: str) -> float:
+    """Kernel 5 against its plain version on ``args``: the output within
+    INT8_FF_TOL of its scale, the hidden codes the kernel requantizes equal to
+    the plain version's bit for bit, a second call bit-identical. Returns the
+    largest |kernel - plain|."""
+    import torch
+
+    from eraxvif5tts_tpu_torch.ops import quant_ff
+
+    x, w1_q = args[0], args[1]
+    codes = torch.empty((*x.shape[:2], w1_q.shape[0]), dtype=torch.int8, device=x.device)
+    got = quant_ff.int8_ff(*args, h_codes=codes)
+    want = quant_ff.int8_ff_reference(*args)
+    torch.cuda.synchronize()
+    scale = float(want.float().abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.isfinite(got).all() or err > INT8_FF_TOL * scale:
+        raise AssertionError(f"{tag} int8_ff {shape}: max |kernel - plain| {err:.4g} beyond "
+                             f"{INT8_FF_TOL} x {scale:.4g}")
+    flipped = int((codes != quant_ff.hidden_codes(*args[:4])[0]).sum())
+    if flipped:
+        raise AssertionError(f"{tag} int8_ff {shape}: {flipped} hidden codes differ from the "
+                             "plain version's")
+    if not torch.equal(got, quant_ff.int8_ff(*args)):
+        raise AssertionError(f"{tag} int8_ff {shape}: a second call differs")
+    return err
+
+
+def check_int8_ff_shape(dev, g, b: int, m: int, tag: str = "[kernels]", k: int = 1024,
+                        n: int = 2048) -> tuple:
+    """Kernel 5 at [b, m, k] x n -> k (`check_int8_ff_case`), timed beside its
+    bound, its plain version and two yardsticks used nowhere in the port: the
+    QuantLinear chain the model runs without ERAX_INT8_FF (its library
+    time), and `torch._int_mm` alone for the two products on codes made
+    beforehand (the bare int8 products without the quantization, the GELU and
+    the epilogues). Returns (error, dict of ms / plain_ms / library_ms and the
+    bound)."""
     import torch
 
     from eraxvif5tts_tpu_torch.ops import quant, quant_ff
 
-    x = torch.randn((b, m, 1024), generator=g, device=dev).bfloat16()
-    w1_q, s1 = quant.quantize_weight(torch.randn((2048, 1024), generator=g, device=dev) / 32)
-    w2_q, s2 = quant.quantize_weight(torch.randn((1024, 2048), generator=g, device=dev) / 45)
-    b1 = 0.1 * torch.randn((2048,), generator=g, device=dev)
-    b2 = 0.1 * torch.randn((1024,), generator=g, device=dev)
-    args = (x, w1_q, s1, b1, w2_q, s2, b2)
-    codes = torch.empty((b, m, 2048), dtype=torch.int8, device=dev)
-    got = quant_ff.int8_ff(*args, h_codes=codes)
-    want = quant_ff.int8_ff_reference(*args)
-    torch.cuda.synchronize()
-    err = float((got.float() - want.float()).abs().max())
-    scale = float(want.float().abs().max())
-    code_diff = (codes.int() - quant_ff.hidden_codes(*args[:4])[0].int()).abs()
-    flipped, worst = int((code_diff > 0).sum()), int(code_diff.max())
-    shape = f"B={b} M={m} K=1024 N=2048 K2=1024"
-    if not torch.isfinite(got).all() or err > INT8_FF_TOL * scale:
-        raise AssertionError(f"int8_ff {shape}: max |kernel - plain| {err:.4g} beyond "
-                             f"{INT8_FF_TOL} x {scale:.4g}")
-    if worst > 1 or flipped > CODE_FLIPS * codes.numel():
-        raise AssertionError(f"int8_ff {shape}: {flipped} hidden codes differ, by up to {worst}")
+    args = int8_ff_operands(dev, g, b, m, k, n)
+    shape = f"B={b} M={m} K={k} N={n} K2={k}"
+    err = check_int8_ff_case(args, tag, shape)
+    x, w1_q, s1, b1, w2_q, s2, b2 = args
+    x_q = quant.quantize_rows(x.float())[0].view(b * m, k)
+    h_q = quant_ff.hidden_codes(*args[:4])[0].view(b * m, n)
+    w1_t, w2_t = w1_q.t(), w2_q.t()
     ms = cuda_median_ms(lambda: quant_ff.int8_ff(*args))
     plain_ms = cuda_median_ms(lambda: quant_ff.int8_ff_reference(*args))
     chain_ms = cuda_median_ms(lambda: int8_chain(*args))
-    log(f"{tag} int8_ff {shape}: max_abs_err {err:.3g} of scale {scale:.3g} (tol "
-        f"{INT8_FF_TOL} of scale); hidden codes differing {flipped} of {codes.numel()} "
-        f"(max {worst}; tol {CODE_FLIPS} of them, by 1); kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, QuantLinear chain {chain_ms:.4f} ms")
-    return err, ms, plain_ms
+    int_mm_ms = cuda_median_ms(lambda: (torch._int_mm(x_q, w1_t), torch._int_mm(h_q, w2_t)))
+    least = bound(*int8_ff_work(b * m, k, n), "int8")
+    log(f"{tag} int8_ff {shape}: max_abs_err {err:.3g} (tol {INT8_FF_TOL} of the output's scale); "
+        f"hidden codes bit-identical, second call bit-identical; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {least['bound_ms']:.5f} ms by {least['bound_by']} (int8 "
+        f"peak); library: the QuantLinear chain (two-product chain) {chain_ms:.4f} ms, the "
+        f"kernel takes {ms / chain_ms:.2f}x its time; torch._int_mm alone for the two products "
+        f"{int_mm_ms:.4f} ms")
+    return err, dict(ms=ms, plain_ms=plain_ms, library_ms=chain_ms, **least)
+
+
+INT8_FF_WIDTHS = {"int8_ff": (1024, 2048), "int8_ff_ffmult4": (1024, 4096)}
 
 
 def check_int8_ff(dev, g) -> dict:
-    """Kernel 5 at b = 2 (one utterance with CFG) at M = 256 and 1088, and
-    at 16 x 1024; the int8 phase adds the shape its batch gives the kernel."""
-    cases = {(b, m): check_int8_ff_shape(dev, g, b, m)
-             for b, m in ((2, 256), (2, 1088), (16, 1024))}
-    rows = 2 * 1088
-    # x in and out in bf16, both int8 weight matrices, fp32 scales and biases;
-    # two int8 products of rows x 1024 x 2048
-    least = bound(2 * rows * 1024 * 2 + 2 * 2048 * 1024 + 2 * (2048 + 1024) * 4,
-                  2 * 2.0 * rows * 1024 * 2048, "int8")
-    log(f"[kernels] the JSON line's int8_ff ms / plain_ms are the B = 2, M = 1088 case's; its "
-        f"bound {least['bound_ms']:.5f} ms by {least['bound_by']} (int8 peak); no single "
-        "PyTorch call computes it")
-    return {"int8_ff": dict(max_abs_err=max(err for err, _, _ in cases.values()),
-                            ms=cases[(2, 1088)][1], plain_ms=cases[(2, 1088)][2],
-                            library_ms=None, **least)}
+    """Kernel 5 at ff_mult 2 (K 1024, N 2048) and ff_mult 4 (K 1024, N 4096;
+    K 768, N 3072) at b = 2 (one utterance with CFG) at M = 256 and 1088 and
+    at 16 x 768 (a batch of eight with CFG), then where its 64-row tiles end
+    unevenly (R = 1, 63, 64, 65, 129, 767); the int8 phases add the shapes
+    their batches give it. The JSON rows are the B = 2, M = 1088 cases of
+    N 2048 (`int8_ff`) and N 4096 (`int8_ff_ffmult4`)."""
+    results, worst = {}, {}
+    for k, n in ((1024, 2048), (1024, 4096), (768, 3072)):
+        cases = {(b, m): check_int8_ff_shape(dev, g, b, m, k=k, n=n)
+                 for b, m in ((2, 256), (2, 1088), (16, 768))}
+        edge_err = max(check_int8_ff_case(int8_ff_operands(dev, g, 1, m, k, n), "[kernels]",
+                                          f"R={m} K={k} N={n}")
+                       for m in (1, 63, 64, 65, 129, 767))
+        log(f"[kernels] int8_ff K={k} N={n} at R = 1, 63, 64, 65, 129, 767: max_abs_err "
+            f"{edge_err:.3g} (tol {INT8_FF_TOL} of the output's scale), hidden codes and second "
+            "calls bit-identical")
+        worst[(k, n)] = max(edge_err, *(err for err, _ in cases.values()))
+        for name, width in INT8_FF_WIDTHS.items():
+            if width == (k, n):
+                results[name] = dict(max_abs_err=worst[(k, n)], **cases[(2, 1088)][1])
+    log("[kernels] the JSON line's int8_ff / int8_ff_ffmult4 ms / plain_ms / bound_ms / "
+        "library_ms are the B = 2, M = 1088 cases at N = 2048 and 4096; library_ms is the "
+        "QuantLinear chain's (two products, no single PyTorch call computes it)")
+    return results
 
 
 def check_matmul_gate_res(dev, g, edge_err: float) -> dict:
@@ -897,21 +970,25 @@ def check_dit_against_plain(dit, dev, tag: str = "[main]", b: int = 2, n: int = 
 
 def serving_counts() -> dict:
     """The serving kernels' launch counts by mode: attention with fused rotary
-    and without, the normalised projection in layernorm and in RMS mode."""
+    and without, the normalised projection in layernorm and in RMS mode, the
+    int8 feed-forward."""
     from eraxvif5tts_tpu_torch.ops import fused_matmul as fm
+    from eraxvif5tts_tpu_torch.ops import quant_ff as qf
     from eraxvif5tts_tpu_torch.ops import serving_attention as sa
 
     return {"serving_attention": sa.serving_attention.launches_by_rope[True],
             "serving_attention_norope": sa.serving_attention.launches_by_rope[False],
             "ln_mod_matmul": fm.ln_mod_matmul.launches_by_norm["ln"],
-            "ln_mod_matmul_rms": fm.ln_mod_matmul.launches_by_norm["rms"]}
+            "ln_mod_matmul_rms": fm.ln_mod_matmul.launches_by_norm["rms"],
+            "int8_ff": qf.int8_ff.launches}
 
 
 def reset_serving_counts() -> None:
     from eraxvif5tts_tpu_torch.ops import fused_matmul as fm
+    from eraxvif5tts_tpu_torch.ops import quant_ff as qf
     from eraxvif5tts_tpu_torch.ops import serving_attention as sa
 
-    sa.serving_attention.launches = fm.ln_mod_matmul.launches = 0
+    sa.serving_attention.launches = fm.ln_mod_matmul.launches = qf.int8_ff.launches = 0
     sa.serving_attention.launches_by_rope = {True: 0, False: 0}
     fm.ln_mod_matmul.launches_by_norm = {"ln": 0, "rms": 0}
 
@@ -957,7 +1034,7 @@ def generate_counted(wrapper, ref, texts, nfe: int, tag: str, path: tuple[str, s
         wrapper._sample_vocode = sample_vocode
     log(f"{tag} {len(texts)} request(s): {total_audio:.2f} s of audio in {total_wall:.3f} s: "
         f"RTF {total_wall / total_audio:.4f} ({total_audio / total_wall:.2f}x realtime) at "
-        f"NFE {nfe}, bf16, batch 1")
+        f"NFE {nfe}, {wrapper.compute_dtype}, batch 1")
     return serving_counts()
 
 
@@ -965,6 +1042,7 @@ KERNEL_GROUPS = (  # device kernels by name, first match
     ("kernel 1 (attention)", ("serving_attention_kernel",)),
     ("kernel 2 (norm + FF in)", ("ln_mod_matmul_kernel", "row_stats_kernel")),
     ("kernel 3 (gated residual)", ("matmul_gate_res_kernel",)),
+    ("kernel 5 (int8 FF)", ("int8_ff_kernel", "quantize_x_kernel")),
     ("kernel 4a (attention forward)", ("train_attention_fwd_kernel",)),
     ("kernel 4b (dq)", ("train_attention_dq_kernel",)),
     ("kernel 4c (dk/dv)", ("train_attention_dkv_kernel",)),
@@ -1154,7 +1232,20 @@ def save_reference_checkpoint(path: Path, cfg, dev) -> None:
                 for k, v in backbone.state_dict().items()}, path)
 
 
-def run_batch(wrapper, depth: int, nfe: int, seed: int, int8_ff: bool, label: str):
+def with_int8_ff(flag: bool, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` with ERAX_INT8_FF set to 1 or unset."""
+    if flag:
+        os.environ["ERAX_INT8_FF"] = "1"
+    else:
+        os.environ.pop("ERAX_INT8_FF", None)
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        os.environ.pop("ERAX_INT8_FF", None)
+
+
+def run_batch(wrapper, depth: int, nfe: int, seed: int, int8_ff: bool, label: str,
+              tag: str = "[int8]"):
     """One `generate_batch` of BATCH_TEXTS, ERAX_INT8_FF set or unset, with
     its launch counters checked: kernel 1 depth x NFE, kernel 5 as many with
     the one-kernel feed-forward and none without, kernel 2 none on the int8
@@ -1168,23 +1259,17 @@ def run_batch(wrapper, depth: int, nfe: int, seed: int, int8_ff: bool, label: st
     from eraxvif5tts_tpu_torch.ops import serving_attention as sa
 
     quantized = wrapper.compute_dtype == "int8"
-    if int8_ff:
-        os.environ["ERAX_INT8_FF"] = "1"
-    else:
-        os.environ.pop("ERAX_INT8_FF", None)
     counters = (sa.serving_attention, qf.int8_ff, fm.ln_mod_matmul)
     before = [fn.launches for fn in counters]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    try:
-        waves = wrapper.generate_batch(list(BATCH_TEXTS), nfe_step=nfe, seed=seed)
-    finally:
-        os.environ.pop("ERAX_INT8_FF", None)
+    waves = with_int8_ff(int8_ff, wrapper.generate_batch, list(BATCH_TEXTS), nfe_step=nfe,
+                         seed=seed)
     wall = time.perf_counter() - t0
     counts = [fn.launches - c for fn, c in zip(counters, before)]
     audio = sum(len(w) for w in waves) / wrapper.target_sample_rate
     want = [depth * nfe, depth * nfe if int8_ff else 0, 0 if quantized else depth * nfe]
-    log(f"[int8] generate_batch {label} ({len(waves)} texts, NFE {nfe}): {audio:.2f} s of "
+    log(f"{tag} generate_batch {label} ({len(waves)} texts, NFE {nfe}): {audio:.2f} s of "
         f"audio in {wall:.3f} s ({audio / wall:.2f} s of audio per wall s); launches "
         f"attention / int8_ff / ln_mod {counts}")
     if counts != want:
@@ -1195,9 +1280,11 @@ def run_batch(wrapper, depth: int, nfe: int, seed: int, int8_ff: bool, label: st
     return waves, wall, audio
 
 
-def phase_int8(dev, cfg) -> tuple[dict, float]:
-    """Returns the int8 feed-forward's launches in the measured batch calls
-    and its error against the plain version at the batch's own shape."""
+def phase_int8(dev, cfg, tag: str = "[int8]", ckpt: Path | None = None) -> tuple[int, float]:
+    """int8 W8A8 serving of ``cfg``'s backbone (DiT or UNetT) from a
+    reference-format checkpoint (``ckpt``, or one written here). Returns the
+    int8 feed-forward's launches in the measured batch calls and its largest
+    error against the plain version at the shapes the backbone gives it."""
     import numpy as np
     import torch
 
@@ -1207,38 +1294,41 @@ def phase_int8(dev, cfg) -> tuple[dict, float]:
     from eraxvif5tts_tpu_torch.ops import serving_attention as sa
 
     vocab = {c: i for i, c in enumerate(VOCAB_CHARS)}
-    depth = cfg.arch.depth
+    a = cfg.arch
+    unett = cfg.backbone == "UNetT"
     with tempfile.TemporaryDirectory() as tmp:
-        ckpt = Path(tmp) / "model.pt"
-        t0 = time.perf_counter()
-        save_reference_checkpoint(ckpt, cfg, dev)
-        log(f"[int8] reference-format checkpoint of N(0, {WEIGHT_STD}) weights, seed "
-            f"{SEED + 3}: {ckpt.stat().st_size / 2**30:.2f} GiB written in "
-            f"{time.perf_counter() - t0:.1f} s")
+        if ckpt is None:
+            ckpt = Path(tmp) / "model.pt"
+            t0 = time.perf_counter()
+            save_reference_checkpoint(ckpt, cfg, dev)
+            log(f"{tag} reference-format checkpoint of N(0, {WEIGHT_STD}) weights, seed "
+                f"{SEED + 3}: {ckpt.stat().st_size / 2**30:.2f} GiB written in "
+                f"{time.perf_counter() - t0:.1f} s")
         common = dict(model_cfg=cfg, ckpt_path=str(ckpt), vocab_char_map=vocab, device=dev,
                       nfe_step=NFE)
         t0 = time.perf_counter()
         int8 = F5TTSWrapper(compute_dtype="int8", int8_validate=True, **common)
         torch.cuda.synchronize()
         report = int8.int8_report
-        log(f"[int8] F5TTSWrapper(compute_dtype='int8', int8_validate=True) built in "
-            f"{time.perf_counter() - t0:.1f} s; quality gate (8 steps, max_duration 256, "
-            f"against a bf16 twin): rel_mse {report['rel_mse']:.4g}, lsd_db "
-            f"{report['lsd_db']:.4g}, forward_rel_mse {report['forward_rel_mse']:.4g}, "
+        log(f"{tag} {cfg.name} F5TTSWrapper(compute_dtype='int8', int8_validate=True) built in "
+            f"{time.perf_counter() - t0:.1f} s; quality gate (8 steps, max_duration "
+            f"{255 if unett else 256}, against a bf16 twin): rel_mse {report['rel_mse']:.4g}, "
+            f"lsd_db {report['lsd_db']:.4g}, forward_rel_mse {report['forward_rel_mse']:.4g}, "
             f"passes {report['passes_gate']}")
         bf16 = F5TTSWrapper(compute_dtype="bfloat16", **common)
     # the vocoders: the same seeded draw as the main phase's
     randomize((int8.vocoder,), SEED)
     randomize((bf16.vocoder,), SEED)
-    blocks = int8.transformer.transformer_blocks
-    q_bytes = sum(b.numel() for name, b in int8.transformer.named_buffers()
-                  if name.endswith("weight_q"))
-    log(f"[int8] {len(blocks)} quantized blocks: {q_bytes / 2**20:.1f} MiB of int8 weights "
-        f"(6 projections a block), the rest bf16 matrices and fp32 vectors")
-    load_reference(int8)
+    q_names = [name for name, _ in int8.transformer.named_buffers() if name.endswith("weight_q")]
+    q_bytes = sum(b.numel() for name, b in int8.transformer.named_buffers() if name in q_names)
+    log(f"{tag} {len(q_names) // 6} quantized {'layers' if unett else 'blocks'} (dim {a.dim}, "
+        f"depth {a.depth}, ff_mult {a.ff_mult}): {q_bytes / 2**20:.1f} MiB of int8 weights "
+        f"(6 projections each), the rest bf16 matrices{' (skip projections included)' if unett else ''} "
+        "and fp32 vectors")
+    ref = load_reference(int8)
     load_reference(bf16)
     runs = {"bf16": (bf16, False), "int8 chain": (int8, False), "int8 fused": (int8, True)}
-    shapes = set()  # the [rows, frames] the batch gives kernel 5 (with CFG)
+    shapes = set()  # the [rows, positions] the batch gives kernel 5 (with CFG)
     ff = modules.int8_ff
 
     def recorded(x, *args, **kwargs):
@@ -1248,42 +1338,51 @@ def phase_int8(dev, cfg) -> tuple[dict, float]:
     modules.int8_ff = recorded
     try:
         for label, (wrapper, int8_ff) in runs.items():  # warm-up: first calls at this bucket
-            run_batch(wrapper, depth, 2, SEED, int8_ff, f"{label} warm-up")
+            run_batch(wrapper, a.depth, 2, SEED, int8_ff, f"{label} warm-up", tag)
     finally:
         modules.int8_ff = ff
     (b, n), = shapes
-    log(f"[int8] the batch of {len(BATCH_TEXTS)} texts runs the DiT at {b} rows x {n} frames")
+    frames = n - 1 if unett else n  # the UNetT's time token is a position of its own
+    log(f"{tag} the batch of {len(BATCH_TEXTS)} texts runs the {type(int8.transformer).__name__} "
+        f"at {b} rows x {n} positions")
+    cases = ((2, 767), (b, frames)) if unett else ((b, frames),)
     for int8_ff in (False, True):
-        if int8_ff:
-            os.environ["ERAX_INT8_FF"] = "1"
-        try:
-            check_dit_against_plain(int8.transformer, dev,
-                                    f"[int8] ERAX_INT8_FF={'1' if int8_ff else 'unset'}:", b, n)
-        finally:
-            os.environ.pop("ERAX_INT8_FF", None)
+        for rows, length in cases:
+            with_int8_ff(int8_ff, check_dit_against_plain, int8.transformer, dev,
+                         f"{tag} ERAX_INT8_FF={'1' if int8_ff else 'unset'}:", rows, length)
+    k, n_hidden = a.dim, int(a.dim * a.ff_mult)
     ff_err = check_int8_ff_shape(dev, torch.Generator(device=dev).manual_seed(SEED + 5), b, n,
-                                 "[int8]")[0]
+                                 tag, k=k, n=n_hidden)[0]
+    if unett:
+        # batch 1 at NFE 32: kernel 5 depth x NFE a chunk with the flag, none without
+        warm_smallest(int8, ref)
+        with_int8_ff(False, generate_counted, int8, ref, TEXTS[:1], NFE,
+                     f"{tag} ERAX_INT8_FF=unset:", ("serving_attention_norope",))
+        with_int8_ff(True, generate_counted, int8, ref, TEXTS[:1], NFE,
+                     f"{tag} ERAX_INT8_FF=1:", ("serving_attention_norope", "int8_ff"))
     sa.serving_attention.launches = qf.int8_ff.launches = 0
     waves, walls, audio = {}, {label: [] for label in runs}, {}
     for label in (*runs, *reversed(runs)):
         wrapper, int8_ff = runs[label]
-        waves[label], wall, audio[label] = run_batch(wrapper, depth, NFE, SEED + 4, int8_ff,
-                                                     label)
+        waves[label], wall, audio[label] = run_batch(wrapper, a.depth, NFE, SEED + 4, int8_ff,
+                                                     label, tag)
         walls[label].append(wall)
-    launches = {"int8_ff": qf.int8_ff.launches}
-    diffs = [float(np.abs(a - b).max()) for a, b in zip(waves["int8 chain"], waves["int8 fused"])]
-    rel = [float(np.linalg.norm(a - b) / np.linalg.norm(b))
-           for a, b in zip(waves["int8 chain"], waves["int8 fused"])]
-    log(f"[int8] int8 chain vs fused, same seed, per text: max |difference| "
+    launches = qf.int8_ff.launches
+    diffs = [float(np.abs(x - y).max()) for x, y in zip(waves["int8 chain"], waves["int8 fused"])]
+    rel = [float(np.linalg.norm(x - y) / np.linalg.norm(y))
+           for x, y in zip(waves["int8 chain"], waves["int8 fused"])]
+    log(f"{tag} int8 chain vs fused, same seed, per text: max |difference| "
         f"{max(diffs):.4g} of full scale, relative L2 {min(rel):.3g}-{max(rel):.3g} (the fused "
         f"feed-forward keeps the hidden state in fp32; the chain rounds it to bf16)")
     rates = {label: audio[label] / statistics.mean(w) for label, w in walls.items()}
-    log("[int8] throughput, seconds of audio per wall second (mean of two calls in turns "
+    log(f"{tag} throughput, seconds of audio per wall second (mean of two calls in turns "
         f"bf16, chain, fused, fused, chain, bf16; batch {len(BATCH_TEXTS)}, NFE {NFE}): "
         + ", ".join(f"{label} {rate:.3f}" for label, rate in rates.items())
         + f"; int8 chain / bf16 {rates['int8 chain'] / rates['bf16']:.3f}, int8 fused / bf16 "
         f"{rates['int8 fused'] / rates['bf16']:.3f}")
-    profile_generate(bf16, None, BATCH_TEXTS, NFE, "[int8] bf16")
+    if not unett:
+        profile_generate(bf16, None, BATCH_TEXTS, NFE, f"{tag} bf16")
+    with_int8_ff(True, profile_generate, int8, None, BATCH_TEXTS, NFE, f"{tag} int8 fused")
     return launches, ff_err
 
 
@@ -1527,11 +1626,13 @@ def phase_train(dev, arch=None) -> dict:
     return launches
 
 
-def phase_e2tts(dev, cfg=None) -> dict:
+def phase_e2tts(dev, cfg=None, ckpt: Path | None = None) -> dict:
     """E2-TTS zero-shot cloning at full E2TTS_Base width and depth (``cfg``:
-    another UNetT configuration, for a rehearsal). Returns the launches of
-    the attention kernel without fused rotary and of the projection kernel in
-    RMS mode over the three requests."""
+    another UNetT configuration, for a rehearsal) from a reference-format
+    checkpoint written to ``ckpt`` (kept for the e2tts-int8 phase) or to a
+    temporary file. Returns the launches of the attention kernel without
+    fused rotary and of the projection kernel in RMS mode over the three
+    requests."""
     import torch
 
     from eraxvif5tts_tpu_torch.configs import PRESETS
@@ -1541,7 +1642,7 @@ def phase_e2tts(dev, cfg=None) -> dict:
     cfg = cfg or PRESETS["E2TTS_Base"]
     vocab = {c: i for i, c in enumerate(VOCAB_CHARS)}
     with tempfile.TemporaryDirectory() as tmp:
-        ckpt = Path(tmp) / "model.pt"
+        ckpt = ckpt or Path(tmp) / "model.pt"
         t0 = time.perf_counter()
         save_reference_checkpoint(ckpt, cfg, dev)
         log(f"[e2tts] reference-format checkpoint of N(0, {WEIGHT_STD}) weights (norm gains "
@@ -1598,12 +1699,19 @@ def main() -> int:
     phase_server(wrapper, ref)
     cfg = wrapper.config
     del wrapper, ref
-    int8_launches, ff_err = phase_int8(dev, cfg)
-    launches.update(int8_launches)
+    launches["int8_ff"], ff_err = phase_int8(dev, cfg)
     kernel_results["int8_ff"]["max_abs_err"] = max(kernel_results["int8_ff"]["max_abs_err"],
                                                    ff_err)
     launches.update(phase_train(dev))
-    launches.update(phase_e2tts(dev))
+    from eraxvif5tts_tpu_torch.configs import PRESETS
+
+    with tempfile.TemporaryDirectory() as tmp:
+        e2_ckpt = Path(tmp) / "e2tts_base.pt"
+        launches.update(phase_e2tts(dev, ckpt=e2_ckpt))
+        launches["int8_ff_ffmult4"], ff_err = phase_int8(dev, PRESETS["E2TTS_Base"],
+                                                         "[e2tts-int8]", e2_ckpt)
+    row = kernel_results["int8_ff_ffmult4"]
+    row["max_abs_err"] = max(row["max_abs_err"], ff_err)
     kernels = [
         *(dict(name=name, route="cuda",
                source="eraxvif5tts_tpu_torch/csrc/serving_attention.cu",
@@ -1615,9 +1723,10 @@ def main() -> int:
                replaces="eraxvif5tts_tpu/ops/fused_matmul.py:68",
                launches=launches[name], **kernel_results[name])
           for name in ("ln_mod_matmul", "ln_mod_matmul_rms")),
-        dict(name="int8_ff", route="cuda", source="eraxvif5tts_tpu_torch/csrc/int8_ff.cu",
-             replaces="eraxvif5tts_tpu/ops/quant_ff.py:101", launches=launches["int8_ff"],
-             **kernel_results["int8_ff"]),
+        *(dict(name=name, route="cuda", source="eraxvif5tts_tpu_torch/csrc/int8_ff.cu",
+               replaces="eraxvif5tts_tpu/ops/quant_ff.py:101", launches=launches[name],
+               **kernel_results[name])
+          for name in INT8_FF_WIDTHS),
         dict(name="matmul_gate_res", route="cuda",
              source="eraxvif5tts_tpu_torch/csrc/matmul_gate_res.cu",
              replaces="eraxvif5tts_tpu/ops/fused_matmul.py:99", **kernel_results["matmul_gate_res"]),

@@ -23,8 +23,9 @@ state dicts built here load with ``load_state_dict(strict=True)``.
 
 A JAX tree quantized by `quantize_params` (``kernel_q [in, out]`` int8 and
 ``kernel_scale [out]`` in place of ``kernel`` in the six projections of each
-block) maps to the quantized DiT's ``weight_q [out, in]`` int8 and
-``weight_scale``; int8 leaves keep their dtype, every other leaf is fp32.
+DiT block or UNetT layer) maps to the quantized backbone's
+``weight_q [out, in]`` int8 and ``weight_scale``; int8 leaves keep their
+dtype, every other leaf is fp32.
 """
 
 from __future__ import annotations
@@ -377,8 +378,8 @@ def backbone_rules(cfg: ModelConfig) -> list[Rule]:
 
 
 def backbone_state_dict_from_jax(params: dict, cfg: ModelConfig) -> dict[str, np.ndarray]:
-    """The JAX backbone tree of ``cfg`` (DiT: per-block or scan-stacked, fp or
-    quantized by `quantize_params`; UNetT: flat or scan-stacked, fp) ->
+    """The JAX backbone tree of ``cfg`` (DiT: per-block or scan-stacked; UNetT:
+    flat or scan-stacked; either fp or quantized by `quantize_params`) ->
     reference-schema numpy arrays without the ``transformer.`` prefix
     (`backbone_params_to_torch` for fp trees)."""
     from eraxvif5tts_tpu_torch.ops.quant import quantized_weight_keys
@@ -387,10 +388,10 @@ def backbone_state_dict_from_jax(params: dict, cfg: ModelConfig) -> dict[str, np
         params = unstack_block_params(params)
     if "down_blocks" in params:
         params = unstack_unett_params(params)
-    quantized = (set(quantized_weight_keys(cfg.arch.depth)) if cfg.backbone == "DiT"
-                 else set())
+    rules = backbone_rules(cfg)
+    quantized = set(quantized_weight_keys(cfg.arch.depth, cfg.backbone))
     out = {}
-    for key, path, _, inverse in backbone_rules(cfg):
+    for key, path, _, inverse in rules:
         node = _get(params, path[:-1])
         if key in quantized and "kernel_q" in node:
             stem = key[:-len("weight")]

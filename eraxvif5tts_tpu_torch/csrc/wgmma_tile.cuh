@@ -337,6 +337,108 @@ __device__ __forceinline__ void wgmma256_rs(float (&d)[128], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
 }
 
+// ---- int8 wgmma: m64nNk32, s8 x s8 -> s32 ----------------------------------
+//
+// A k32 step of 8-bit operands is 32 bytes along a 128-byte swizzled row,
+// as a k16 step of bf16: the descriptors above serve unchanged
+// (`desc_k_major`, + kStepK a step). 8-bit wgmma takes K-major operands only,
+// both from shared memory here. The s32 accumulator fragment is the f32
+// one: d[4 c + e] is row 16 w + g + 8 (e / 2), column 8 c + 2 t + (e % 2).
+
+#define ERAX_IACC8(d, o)                                                                  \
+  "+r"(d[o]), "+r"(d[o + 1]), "+r"(d[o + 2]), "+r"(d[o + 3]), "+r"(d[o + 4]), "+r"(d[o + 5]), \
+      "+r"(d[o + 6]), "+r"(d[o + 7])
+
+template <int N>
+__device__ __forceinline__ void keep(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// d += A B^T, A [64, 32] and B [64, 32] bytes K-major in shared memory.
+__device__ __forceinline__ void wgmma_s8_n64(int (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " ERAX_ACC32_LIST ", %32, %33, p;\n"
+      "}\n"
+      : ERAX_IACC8(d, 0), ERAX_IACC8(d, 8), ERAX_IACC8(d, 16), ERAX_IACC8(d, 24)
+      : "l"(a), "l"(b));
+}
+// The same with B [128, 32].
+__device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " ERAX_ACC64_LIST ", %64, %65, p;\n"
+      "}\n"
+      : ERAX_IACC8(d, 0), ERAX_IACC8(d, 8), ERAX_IACC8(d, 16), ERAX_IACC8(d, 24),
+        ERAX_IACC8(d, 32), ERAX_IACC8(d, 40), ERAX_IACC8(d, 48), ERAX_IACC8(d, 56)
+      : "l"(a), "l"(b));
+}
+// The same with B [256, 32].
+__device__ __forceinline__ void wgmma_s8_n256(int (&d)[128], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 " ERAX_ACC128_LIST
+      ", %128, %129, p;\n"
+      "}\n"
+      : ERAX_IACC8(d, 0), ERAX_IACC8(d, 8), ERAX_IACC8(d, 16), ERAX_IACC8(d, 24),
+        ERAX_IACC8(d, 32), ERAX_IACC8(d, 40), ERAX_IACC8(d, 48), ERAX_IACC8(d, 56),
+        ERAX_IACC8(d, 64), ERAX_IACC8(d, 72), ERAX_IACC8(d, 80), ERAX_IACC8(d, 88),
+        ERAX_IACC8(d, 96), ERAX_IACC8(d, 104), ERAX_IACC8(d, 112), ERAX_IACC8(d, 120)
+      : "l"(a), "l"(b));
+}
+
+// ---- thread-block clusters --------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The address, in the cluster's shared window, of the byte at local shared
+// address `addr` in the shared memory of the cluster's CTA `rank`.
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ float cluster_load_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ uint4 cluster_load_v4(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared::cluster.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void shared_store_v4(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x), "r"(v.y),
+               "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// Every thread of every CTA of the cluster arrives (its shared-memory writes
+// released) and waits for all the others (theirs acquired). Each thread
+// executes it the same number of times.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
 // Four 8 x 8 bf16 matrices from shared memory: lane l gives the address of
 // row l % 8 of matrix l / 8 (16 bytes, 16-byte aligned) and receives, of
 // matrix j, the pair at row l / 4, columns 2 (l % 4) and + 1, in r[j].
@@ -440,6 +542,22 @@ inline bool encode_batched_map(CUtensorMap* map, const void* base, int b, int m,
   const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The map of a contiguous row-major 8-bit matrix [rows, k] (k % 128 == 0) as
+// two dimensions (k, rows), box 128 x `box_rows` (at most 256): 128-byte rows
+// with the 128-byte swizzle, out-of-range rows filled with zeros.
+inline bool encode_bytes_map(CUtensorMap* map, const void* base, int rows, int k, int box_rows) {
+  const EncodeTiledFn encode = encode_tiled_fn();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(k), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(k)};
+  const cuuint32_t box[2] = {128, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims, strides,
                 box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

@@ -44,9 +44,11 @@ UNetT (``E2TTS_Base`` / ``E2TTS_Small``), built by ``models.build_backbone``.
 The UNetT packs its time token as an extra frame 0, so with the default
 duration buckets the wrapper takes mel buckets of 64k - 1 frames for it
 (`eraxvif5tts_tpu/infer/wrapper.py:168-174`): the transformer then sees
-64-aligned sequences, which the serving attention kernel requires.
+64-aligned sequences, which the serving attention kernel requires. Both serve
+in int8 W8A8 (``compute_dtype="int8"``, quantized at load behind the quality
+gate with ``int8_validate``).
 
-Not ported yet (ROADMAP.md): MMDiT, BigVGAN, int8 for the UNetT, the duration
+Not ported yet (ROADMAP.md): MMDiT, BigVGAN, the duration
 predictor, multi-device meshes (``generate_batch`` runs on one device), the
 default Whisper backend behind an empty ``ref_text`` (pass ``transcribe_fn``).
 Each raises.
@@ -87,7 +89,6 @@ from eraxvif5tts_tpu_torch.infer.utils import (
 )
 from eraxvif5tts_tpu_torch.models import build_backbone
 from eraxvif5tts_tpu_torch.models.cfm import CFM
-from eraxvif5tts_tpu_torch.models.dit import DiT
 from eraxvif5tts_tpu_torch.models.vocos import Vocos
 from eraxvif5tts_tpu_torch.ops import quant
 from eraxvif5tts_tpu_torch.ops.stft import MelSpectrogram
@@ -157,9 +158,6 @@ class F5TTSWrapper:
         if compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}, "
                              f"got {compute_dtype!r}")
-        if compute_dtype == "int8" and cfg.backbone != "DiT":
-            raise ValueError(f"compute_dtype='int8' serves the DiT only: int8 for the "
-                             f"{cfg.backbone} is not ported yet")
         self.device = torch.device(device)
         if self.device.type == "cuda" and compute_dtype == "float32":
             raise ValueError(
@@ -215,7 +213,7 @@ class F5TTSWrapper:
         if compute_dtype == "int8":
             cfg = dataclasses.replace(cfg, arch=dataclasses.replace(cfg.arch, quantized=True))
             self.transformer = self._build_int8(
-                cfg.arch, text_num_embeds, mel_cfg.n_mel_channels, state_dict,
+                cfg, text_num_embeds, state_dict,
                 prequantized=params is not None and ckpt_path is None,
                 validate=int8_validate)
         else:
@@ -241,13 +239,14 @@ class F5TTSWrapper:
         self.ref: Optional[ReferenceState] = None
         self._last_wave: Optional[np.ndarray] = None
 
-    def _build_int8(self, arch, text_num_embeds: int, mel_dim: int,
-                    state_dict: Optional[dict], prequantized: bool, validate: bool) -> DiT:
-        """The quantized DiT on the device: ``state_dict`` quantized here (or,
-        ``prequantized``, already carrying ``weight_q``), matrices bf16,
-        vectors fp32; gated by :func:`quant.quant_divergence` when
-        ``validate`` and the fp weights are at hand."""
-        fp_arch = dataclasses.replace(arch, quantized=False)
+    def _build_int8(self, cfg: ModelConfig, text_num_embeds: int, state_dict: Optional[dict],
+                    prequantized: bool, validate: bool) -> torch.nn.Module:
+        """The quantized backbone (DiT or UNetT) on the device: ``state_dict``
+        quantized here (or, ``prequantized``, already carrying ``weight_q``),
+        matrices bf16, vectors fp32; gated by :func:`quant.quant_divergence`
+        when ``validate`` and the fp weights are at hand (the UNetT's at 255
+        frames, a 64-aligned sequence with its time token)."""
+        fp_cfg = dataclasses.replace(cfg, arch=dataclasses.replace(cfg.arch, quantized=False))
         fp_sd = None
         if prequantized:
             if not any(k.endswith(".weight_q") for k in state_dict):
@@ -256,16 +255,18 @@ class F5TTSWrapper:
             q_sd = state_dict
         else:
             fp_sd = state_dict if state_dict is not None else (
-                DiT(fp_arch, text_num_embeds, mel_dim).state_dict())
-            q_sd = quant.quantize_state_dict(fp_sd, arch.depth)
-        dit = DiT(arch, text_num_embeds, mel_dim)
-        dit.load_state_dict(q_sd, strict=True)
-        quant.cast_for_serving(dit).to(self.device).eval()
+                build_backbone(fp_cfg, text_num_embeds).state_dict())
+            q_sd = quant.quantize_state_dict(fp_sd, cfg.arch.depth, cfg.backbone)
+        net = build_backbone(cfg, text_num_embeds)
+        net.load_state_dict(q_sd, strict=True)
+        quant.cast_for_serving(net).to(self.device).eval()
         if validate and fp_sd is not None:
-            twin = DiT(fp_arch, text_num_embeds, mel_dim)
+            twin = build_backbone(fp_cfg, text_num_embeds)
             twin.load_state_dict(fp_sd, strict=True)
             twin.to(device=self.device, dtype=torch.bfloat16).eval()
-            report = quant.quant_divergence(CFM(twin), CFM(dit), steps=8, max_duration=256)
+            max_duration = 255 if cfg.backbone == "UNetT" else 256
+            report = quant.quant_divergence(CFM(twin), CFM(net), steps=8,
+                                            max_duration=max_duration)
             del twin
             self.int8_report = report
             if not report["passes_gate"]:
@@ -273,7 +274,7 @@ class F5TTSWrapper:
                     f"int8 quality gate failed: rel mel-MSE {report['rel_mse']:.4f} > "
                     f"{quant.INT8_REL_MSE_THRESHOLD} (lsd {report['lsd_db']:.2f} dB) — serve "
                     "with compute_dtype='bfloat16' instead")
-        return dit
+        return net
 
     # ------------------------------------------------------------------
 

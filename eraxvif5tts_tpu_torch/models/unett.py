@@ -26,11 +26,16 @@ Module and parameter names follow the reference torch schema
 attn_norm, attn, ff_norm, ff), so a reference E2-TTS checkpoint loads with
 ``load_state_dict(strict=True)``.
 
+``arch.quantized`` builds the int8 W8A8 serving layers (`ops/quant.py`; the
+wrapper's ``compute_dtype="int8"``): the attention projections and the
+feed-forward are quantized, the skip projections stay bf16 (as in
+`eraxvif5tts_tpu/ops/quant.py:102-123`), and the feed-forward is never fused
+with its norm: ``ff.project(ff_norm(h))``, the QuantLinear chain or, with
+``ERAX_INT8_FF=1``, the one-kernel int8 feed-forward (`unett.py:244-272`). A
+quantized UNetT serves only, in eval mode, as the quantized DiT.
+
 ``arch.checkpoint_activations`` is ignored, as in the JAX UNetT. Not ported:
-``scan_layers`` (the JAX package's compile-time workaround) and
-``arch.quantized`` (int8 W8A8): the one-kernel int8 feed-forward holds a
-block's 16 hidden rows in shared memory, and at ``ff_mult`` 4 those
-16 x 4104 x 4 B = 263 KB exceed the 227 KB a block can have. Both raise.
+``scan_layers`` (the JAX package's compile-time workaround); it raises.
 """
 
 from __future__ import annotations
@@ -70,9 +75,6 @@ class UNetT(nn.Module):
         if arch.scan_layers:
             raise ValueError("scan_layers=True is the JAX package's compile-time workaround "
                              "and is not ported: build the unrolled form")
-        if arch.quantized:
-            raise ValueError("int8 serving of the UNetT is not ported yet: the one-kernel int8 "
-                             "feed-forward does not fit ff_mult 4 in shared memory")
         self.arch = arch
         self.mel_dim = mel_dim
         self.compute_dtype = compute_dtype
@@ -92,9 +94,10 @@ class UNetT(nn.Module):
                 skip_proj,
                 XRMSNorm(arch.dim),
                 Attention(arch.dim, heads=arch.heads, dim_head=arch.dim_head,
-                          qk_norm=arch.qk_norm, pe_attn_head=arch.pe_attn_head),
+                          quantized=arch.quantized, qk_norm=arch.qk_norm,
+                          pe_attn_head=arch.pe_attn_head),
                 XRMSNorm(arch.dim),
-                FeedForward(arch.dim, mult=arch.ff_mult),
+                FeedForward(arch.dim, mult=arch.ff_mult, quantized=arch.quantized),
             ]))
         self.norm_out = XRMSNorm(arch.dim)
         self.proj_out = nn.Linear(arch.dim, mel_dim)
@@ -140,6 +143,9 @@ class UNetT(nn.Module):
         ``dropout_keys`` (training with dropout): per layer, the keys of its
         three dropout sites (attention weights, attention output, FF hidden
         state), each two 32-bit words."""
+        if self.training and self.arch.quantized:
+            raise ValueError("a quantized UNetT serves only: call .eval() (int8 models are "
+                             "not trained)")
         batch, seq_len = x.shape[0], x.shape[1]
         depth = len(self.layers)
         if time.ndim == 0:
@@ -160,8 +166,8 @@ class UNetT(nn.Module):
             mask = torch.nn.functional.pad(mask, (1, 0), value=True)
         rope = self.rope(seq_len + 1, x.device)
 
-        # the JAX package's fusion gate: serving, bf16 (`unett.py:245-250`)
-        fused = not self.training and h.dtype == torch.bfloat16
+        # the JAX package's fusion gate: serving, bf16, not quantized (`unett.py:245-250`)
+        fused = not self.training and h.dtype == torch.bfloat16 and not self.arch.quantized
         half = depth // 2
         skips: list[torch.Tensor] = []
         for idx, keys in enumerate(dropout_keys):

@@ -54,8 +54,8 @@ _SIGNATURES = {
     # q, k, v, dout, lse, dd, lens, dk, dv, b, n, h, scale, dropout..., stream
     "erax_train_attention_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
                                  *_DROPOUT, _P),
-    # x, w1, s1, b1, w2, s2, b2, out, hidden codes, rows, k, n, k2, shared bytes, stream
-    "erax_int8_ff": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, w1, s1, b1, w2, s2, b2, out, hidden codes, x codes, x scales, rows, k, n, k2, stream
+    "erax_int8_ff": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # h, w, bias, gate, res, lens, out, b, m, k, n, mask_rows, stream
     "erax_matmul_gate_res": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
@@ -160,6 +160,9 @@ def kernels() -> Kernels:
         # b, m, n, out[10]: the GEMM core's constants and its choice for a shape
         lib.erax_gemm_geometry.argtypes = (_I, _I, _I, ctypes.POINTER(ctypes.c_int))
         lib.erax_gemm_geometry.restype = None
+        # k, n, k2, out[11]: kernel 5's constants and its cluster for a shape
+        lib.erax_int8_ff_geometry.argtypes = (_I, _I, _I, ctypes.POINTER(ctypes.c_int))
+        lib.erax_int8_ff_geometry.restype = None
         # base, b, n, h, iters -> host nanoseconds of one tensor-map encode
         lib.erax_tensor_map_encode_ns.argtypes = (_P, _I, _I, _I, _I)
         lib.erax_tensor_map_encode_ns.restype = ctypes.c_double

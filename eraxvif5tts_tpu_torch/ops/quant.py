@@ -14,8 +14,9 @@ Port of `eraxvif5tts_tpu/ops/quant.py` (``compute_dtype="int8"``, opt-in):
 Weights are ``nn.Linear``'s ``[out, in]``: the amax runs over ``in``, the JAX
 ``axis=0`` of its ``[in, out]`` kernel. These GEMMs are ones the JAX package
 leaves to XLA, outside any Pallas kernel, so the product is ``torch._int_mm``
-(cuBLASLt on the card). On a CUDA tensor it takes ``M > 16`` rows and ``K``,
-``N`` multiples of 8; anything else raises.
+(cuBLASLt on the card). On a CUDA tensor it takes ``K``, ``N`` multiples of
+8 (anything else raises) and ``M > 16`` rows: fewer are padded with zero
+rows, which leaves the sums of the others exact.
 
 The quality gate (:func:`quant_divergence`, :data:`INT8_REL_MSE_THRESHOLD`) is
 the JAX package's, on the port's sampler.
@@ -27,7 +28,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from eraxvif5tts_tpu_torch.compression.convert import dit_rules
+from eraxvif5tts_tpu_torch.compression.convert import dit_rules, unett_rules
 
 # the Dense names `quantize_params` quantizes (`ops/quant.py` `_QUANT_SUFFIXES`;
 # copied: that module imports jax). Not "skip_proj" (UNetT), as there; that
@@ -64,10 +65,14 @@ def int_mm(a_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     k = a_q.shape[-1]
     a2 = a_q.reshape(-1, k)
     n = w_q.shape[0]
-    if a_q.device.type == "cuda" and (a2.shape[0] <= 16 or k % 8 or n % 8):
-        raise ValueError(f"int8 GEMM on {a_q.device}: torch._int_mm takes M > 16 rows and "
-                         f"K, N multiples of 8, got M={a2.shape[0]}, K={k}, N={n}")
-    return torch._int_mm(a2, w_q.t()).view(*a_q.shape[:-1], n)
+    rows = a2.shape[0]
+    if a_q.device.type == "cuda":
+        if k % 8 or n % 8:
+            raise ValueError(f"int8 GEMM on {a_q.device}: torch._int_mm takes K, N multiples "
+                             f"of 8, got K={k}, N={n}")
+        if rows <= 16:
+            a2 = torch.nn.functional.pad(a2, (0, 0, 0, 17 - rows))
+    return torch._int_mm(a2, w_q.t())[:rows].view(*a_q.shape[:-1], n)
 
 
 def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
@@ -97,23 +102,28 @@ class QuantLinear(nn.Module):
         return y if self.bias is None else y + self.bias.to(x.dtype)
 
 
-def quantized_weight_keys(depth: int) -> list[str]:
-    """The DiT's reference-schema keys of the Linear weights that
-    `quantize_params` quantizes: every rule of `dit_rules` whose flax path
-    is the ``kernel`` of a Dense named in :data:`QUANT_SUFFIXES`. In a block:
-    ``attn.to_{q,k,v}``, ``attn.to_out.0``, ``ff.ff.0.0`` and ``ff.ff.2``."""
-    return [key for key, path, _, _ in dit_rules(depth, conv_layers=0)
+def quantized_weight_keys(depth: int, backbone: str = "DiT") -> list[str]:
+    """The backbone's reference-schema keys of the Linear weights that
+    `quantize_params` quantizes: every rule of `dit_rules` or `unett_rules`
+    whose flax path is the ``kernel`` of a Dense named in
+    :data:`QUANT_SUFFIXES`. In a DiT block or a UNetT layer:
+    ``attn.to_{q,k,v}``, ``attn.to_out.0``, ``ff.ff.0.0`` and ``ff.ff.2``; the
+    UNetT's ``skip_proj`` stays unquantized."""
+    rules = {"DiT": dit_rules, "UNetT": unett_rules}.get(backbone)
+    if rules is None:
+        raise ValueError(f"int8 quantization of backbone {backbone!r} is not ported (DiT | UNetT)")
+    return [key for key, path, _, _ in rules(depth, conv_layers=0)
             if path[-1] == "kernel" and path[-2] in QUANT_SUFFIXES]
 
 
-def quantize_state_dict(state_dict: dict[str, torch.Tensor],
-                        depth: int) -> dict[str, torch.Tensor]:
-    """A DiT state dict in the reference schema -> the quantized DiT's: each
-    weight of :func:`quantized_weight_keys` replaced by ``weight_q`` /
-    ``weight_scale`` (the `quantize_params` counterpart); every other entry
-    is passed through."""
+def quantize_state_dict(state_dict: dict[str, torch.Tensor], depth: int,
+                        backbone: str = "DiT") -> dict[str, torch.Tensor]:
+    """A backbone's state dict in the reference schema -> the quantized
+    backbone's: each weight of :func:`quantized_weight_keys` replaced by
+    ``weight_q`` / ``weight_scale`` (the `quantize_params` counterpart);
+    every other entry is passed through."""
     out = dict(state_dict)
-    for key in quantized_weight_keys(depth):
+    for key in quantized_weight_keys(depth, backbone):
         stem = key[:-len("weight")]
         out[stem + "weight_q"], out[stem + "weight_scale"] = quantize_weight(out.pop(key))
     return out

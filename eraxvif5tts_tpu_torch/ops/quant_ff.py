@@ -16,11 +16,21 @@ int8; the JAX function takes their transposes), fp32 scales and biases. The
 hidden state stays fp32 (the unfused ``QuantLinear`` chain rounds it to bf16
 before the GELU).
 
+On the card a pre-pass writes the codes of x, then one thread-block cluster
+of ``C = N / 512`` CTAs takes each 64-row tile, split along N: int8 ``wgmma``
+fed by TMA, the hidden rows' maxima exchanged through distributed shared
+memory, the hidden codes kept in the cluster's shared memory and read by
+GEMM 2 across the cluster.
+:func:`int8_ff_geometry` states its tiles, cluster, shared memory and tensor
+maps in plain Python; a card test holds the built constants to it
+(:func:`kernel_int8_ff_geometry`).
+
 Gate: :func:`use_int8_ff` reads ``ERAX_INT8_FF`` at call time, as the JAX gate
 does. The JAX gate's TPU and VMEM conditions are not ported: the kernel takes
-every M. On the card it takes bf16 x, ``K % 64 == 0``, ``N`` and ``K2``
-multiples of 512, and a 16-row block's working set within the card's shared
-memory; anything else on a CUDA tensor raises. There is no fallback.
+every M. On the card it takes bf16 x and the domain of
+:func:`int8_ff_geometry` (every preset's widths: K = K2 = 768 or 1024, N =
+``ff_mult`` 2 or 4 times that); anything else on a CUDA tensor raises. There
+is no fallback.
 """
 
 from __future__ import annotations
@@ -33,11 +43,16 @@ import torch
 
 from eraxvif5tts_tpu_torch.ops.quant import int_mm, quantize_rows
 
-ROWS = 16          # rows of x per thread block
-K_TILE = 64        # the kernel's K step (both GEMMs)
-COL_TILE = 512     # columns of one GEMM pass across the block's 8 warps
-ROW_PAD = 64       # int8 shared rows padded by 64 bytes (bank-conflict free)
-HIDDEN_PAD = 8     # fp32 shared hidden rows padded by 8 values
+TILE_ROWS = 64     # rows of x a tile: one cluster, one m64 product
+SLAB = 512         # hidden columns a CTA of the cluster
+WG_COLUMNS = 256   # of which each of its two consumer warpgroups takes (m64n256k32)
+K_TILE = 128       # bytes of K (of N in GEMM 2) a ring stage: one 128-byte swizzled row
+STAGES = 2
+THREADS = 384      # two consumer warpgroups and the producer's
+MAX_K = 1024       # the pre-pass holds a row of x in registers
+MAX_CLUSTER = 8    # the portable cluster size
+GEMM2_COLUMNS = (64, 128)  # GEMM 2's output columns a warpgroup: m64n64k32, m64n128k32
+RING = STAGES * (TILE_ROWS * K_TILE + SLAB * K_TILE)  # GEMM 1's ring; GEMM 2 recuts it
 SMEM_LIMIT = 232448  # dynamic shared memory a block may opt in to (H100)
 _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
 
@@ -70,10 +85,71 @@ def int8_ff_reference(x: torch.Tensor, w1_q: torch.Tensor, s1: torch.Tensor,
     return out.to(x.dtype)
 
 
-def smem_bytes(k: int, n: int) -> int:
-    """Dynamic shared memory of one block: x_q and h_q int8 rows, the fp32
-    hidden rows, the two row-scale vectors."""
-    return ROWS * ((k + ROW_PAD) + 4 * (n + HIDDEN_PAD) + (n + ROW_PAD) + 8)
+def int8_ff_geometry(k: int, n: int, k2: int) -> dict:
+    """How kernel 5 covers ``x [R, K] -> [R, K2]`` through ``N`` hidden
+    columns, or ValueError outside its domain:
+
+    - ``K % 128 == 0`` and ``K <= 1024`` (a ring stage is 128 bytes of K; the
+      pre-pass holds a row in registers);
+    - ``N % 512 == 0`` with ``cluster = N / 512 <= 8`` (a CTA's slab, the
+      portable cluster size);
+    - ``K2 = 2 * cluster * gemm2_columns`` with ``gemm2_columns`` 64 or 128
+      (GEMM 2's output columns a consumer warpgroup).
+
+    Every preset's FF is inside: (K, N, K2) = (768, 1536, 768),
+    (768, 3072, 768), (1024, 2048, 1024), (1024, 4096, 1024).
+
+    - ``tile_rows``: rows a cluster takes; ``slab``: hidden columns a CTA
+      (``wg_columns`` a consumer warpgroup); ``out_columns``: output columns
+      a CTA, ``gemm2_columns`` a warpgroup;
+    - ``stages``, ``threads``, ``shared_bytes``: GEMM 1's ring depth, the
+      block and its dynamic shared memory (1024 bytes of alignment slack, the
+      ring of an A tile [64, 128] and 512 w1 rows of 128 bytes a stage, the
+      CTA's hidden codes [64, 512], the row maxima, the barriers of both
+      rings); ``gemm2_stages``: the same ring bytes cut into stages of an A
+      tile and the CTA's ``2 * gemm2_columns`` w2 rows;
+    - ``steps``: ring stages of GEMM 1 and of GEMM 2;
+    - ``xq_map`` / ``w1_map`` / ``w2_map``: the TMA maps of the 8-bit
+      matrices, innermost dimension first (``dims`` in elements, ``box`` the
+      tile one load brings); rows of x past R read as zeros."""
+    cluster = n // SLAB if n % SLAB == 0 else 0
+    if (k < K_TILE or k % K_TILE or k > MAX_K or not 1 <= cluster <= MAX_CLUSTER
+            or k2 % (2 * cluster) or k2 // (2 * cluster) not in GEMM2_COLUMNS):
+        raise ValueError(
+            f"int8_ff: the kernel takes K % {K_TILE} == 0 and K <= {MAX_K}, N % {SLAB} == 0 "
+            f"with N / {SLAB} <= {MAX_CLUSTER} (the cluster), and K2 = 2 x cluster x "
+            f"{' or '.join(map(str, GEMM2_COLUMNS))}; got K={k}, N={n}, K2={k2}")
+    gemm2 = k2 // (2 * cluster)
+    max_stages2 = RING // (TILE_ROWS * K_TILE + 2 * min(GEMM2_COLUMNS) * K_TILE)
+    shared = (1024 + RING + TILE_ROWS * SLAB + 3 * TILE_ROWS * 4
+              + 2 * (STAGES + max_stages2) * 8)
+    return dict(tile_rows=TILE_ROWS, slab=SLAB, wg_columns=WG_COLUMNS, cluster=cluster,
+                out_columns=k2 // cluster, gemm2_columns=gemm2,
+                gemm2_stages=RING // (TILE_ROWS * K_TILE + 2 * gemm2 * K_TILE),
+                k_tile=K_TILE, stages=STAGES,
+                threads=THREADS, shared_bytes=shared, steps=(k // K_TILE, n // K_TILE),
+                xq_map=dict(dims=(k, "R"), box=(K_TILE, TILE_ROWS)),
+                w1_map=dict(dims=(k, n), box=(K_TILE, WG_COLUMNS)),
+                w2_map=dict(dims=(n, k2), box=(K_TILE, 2 * gemm2)))
+
+
+def int8_ff_grid(rows: int, n: int) -> int:
+    """CTAs of a launch over ``rows`` rows: a cluster of N / 512 a 64-row tile."""
+    return -(-rows // TILE_ROWS) * (n // SLAB)
+
+
+def kernel_int8_ff_geometry(k: int, n: int, k2: int) -> dict:
+    """The constants the built kernel reports and its cluster for this shape
+    (needs the card's build): they must equal :func:`int8_ff_geometry`'s."""
+    import ctypes
+
+    from eraxvif5tts_tpu_torch.ops import _cuda
+
+    out = (ctypes.c_int * 11)()
+    _cuda.kernels().lib.erax_int8_ff_geometry(k, n, k2, out)
+    return dict(tile_rows=out[0], slab=out[1], wg_columns=out[2], k_tile=out[3],
+                stages=out[4], threads=out[5], shared_bytes=out[6], max_k=out[7],
+                cluster=out[8], gemm2_columns=out[9], gemm2_stages=out[10])
 
 
 def _check_cuda_args(x, w1_q, s1, b1, w2_q, s2, b2) -> None:
@@ -96,12 +172,9 @@ def _check_cuda_args(x, w1_q, s1, b1, w2_q, s2, b2) -> None:
             raise ValueError(f"int8_ff: {name} is on {t.device}, x on {x.device}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"int8_ff: {name} must be contiguous and 16-byte aligned")
-    if k % K_TILE or n % COL_TILE or k2 % COL_TILE:
-        raise ValueError(f"int8_ff: K must be a multiple of {K_TILE} and N, K2 of "
-                         f"{COL_TILE}, got K={k}, N={n}, K2={k2}")
-    if smem_bytes(k, n) > SMEM_LIMIT:
-        raise ValueError(f"int8_ff: a {ROWS}-row block needs {smem_bytes(k, n)} bytes of "
-                         f"shared memory at K={k}, N={n}, beyond {SMEM_LIMIT}")
+    if 0 in x.shape:
+        raise ValueError(f"int8_ff: x must not be empty, got {tuple(x.shape)}")
+    int8_ff_geometry(k, n, k2)
 
 
 def int8_ff(x: torch.Tensor, w1_q: torch.Tensor, s1: torch.Tensor, b1: torch.Tensor,
@@ -130,13 +203,16 @@ def int8_ff(x: torch.Tensor, w1_q: torch.Tensor, s1: torch.Tensor, b1: torch.Ten
     from eraxvif5tts_tpu_torch.ops import _cuda
 
     out = torch.empty((b, m, k2), dtype=x.dtype, device=x.device)
+    # the pre-pass's output: the codes of x and its row scales
+    x_codes = torch.empty((b * m, k), dtype=torch.int8, device=x.device)
+    x_scales = torch.empty((b * m,), dtype=torch.float32, device=x.device)
     lib = _cuda.kernels().lib
     with torch.cuda.device(x.device):
         code = lib.erax_int8_ff(
             x.data_ptr(), w1_q.data_ptr(), s1.data_ptr(), b1.data_ptr(), w2_q.data_ptr(),
             s2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-            h_codes.data_ptr() if h_codes is not None else None, b * m, k, n, k2,
-            smem_bytes(k, n), _cuda.stream_ptr(x.device))
+            h_codes.data_ptr() if h_codes is not None else None, x_codes.data_ptr(),
+            x_scales.data_ptr(), b * m, k, n, k2, _cuda.stream_ptr(x.device))
     _cuda.check(code, "int8_ff")
     int8_ff.launches += 1
     return out

@@ -207,13 +207,20 @@ def test_wrapper_refuses_what_is_not_ported():
     from eraxvif5tts_tpu_torch.infer.wrapper import F5TTSWrapper
     from eraxvif5tts_tpu_torch.models import build_backbone
 
+    from eraxvif5tts_tpu_torch.ops import quant
+
     e2 = PRESETS["E2TTS_Small"]
     tiny = dataclasses.replace(e2.arch, dim=128, depth=2, heads=2)
-    with pytest.raises(ValueError, match="int8 for the UNetT is not ported yet"):
-        F5TTSWrapper("E2TTS_Small", compute_dtype="int8", device="cpu")
-    with pytest.raises(ValueError, match="int8 serving of the UNetT is not ported yet"):
-        build_backbone(dataclasses.replace(
-            e2, arch=dataclasses.replace(tiny, quantized=True)), 16)
+    with pytest.raises(ValueError, match=r"only DiT or UNetT \+ Vocos is ported, got MMDiT"):
+        F5TTSWrapper("F5TTS_v1_MMDiT", compute_dtype="int8", device="cpu")
+    with pytest.raises(ValueError, match="int8 quantization of backbone 'MMDiT' is not ported"):
+        quant.quantize_state_dict({}, 2, "MMDiT")
+    quantized = build_backbone(dataclasses.replace(
+        e2, arch=dataclasses.replace(tiny, quantized=True)), 16).train()
+    x = torch.zeros(1, 63, e2.mel_spec.n_mel_channels)
+    with pytest.raises(ValueError, match="a quantized UNetT serves only"):
+        quantized(x, x, torch.zeros(1, 8, dtype=torch.long), torch.zeros(1),
+                  torch.zeros(1, dtype=torch.bool), torch.zeros(1, dtype=torch.bool))
     scan = dataclasses.replace(e2, arch=dataclasses.replace(tiny, scan_layers=True))
     for cfg in (scan, dataclasses.replace(scan, backbone="DiT")):
         with pytest.raises(ValueError, match="scan_layers=True .* is not ported"):
