@@ -91,18 +91,41 @@ Phases (any failure raises and the script exits non-zero):
               the flag unset (no kernel 5) and set (24 x 32 launches of kernel
               5 a chunk, none of kernel 2), then `generate_batch` of eight
               texts in turns bf16 / int8 chain / int8 fused as the int8 phase,
-              and a profiled int8 fused batch.
+              and a profiled int8 fused batch;
+10. compress -- the compression path at F5TTS_v1_Base width: a seeded
+              N(0, 0.02) 22-block reference-format checkpoint pruned to 14
+              and to 12 blocks by the port's CLI (`python -m
+              eraxvif5tts_tpu_torch.compression prune`, two processes side
+              by side; the reports and a strict load into the port's DiT
+              checked); a `DistillTrainer` with the 22-block teacher (bf16,
+              eval: kernels 1 and 2 with `lens=None`), the 14-block student
+              (fp32 parameters, bf16 compute, dropout 0.1, blocks
+              checkpointed: kernels 4a / 4b / 4c) and a duration predictor:
+              the teacher's prediction and the distillation loss and its
+              gradients against the plain versions at b = 2, n = 1024, a
+              warm-up and three timed steps at 9 x 4096 frames (one with an
+              alignment, so the predictor trains) with the launch counters
+              checked per step, and one profiled step; the EMA student and
+              the predictor exported, then served with the predictor on
+              through `F5TTSWrapper("F5TTS_v1_Pruned_14")` at NFE 7 and 16
+              and `F5TTSWrapper("F5TTS_v1_Pruned_12")` (the pruned file) at
+              NFE 16, three texts each, launches checked per chunk
+              (depth x NFE), each chunk's predicted frames and the RTF
+              logged, each DiT against its plain version, and one socket
+              request to the distilled student.
 
 The line before the last is a JSON object with each kernel's launches in its
 path's phase (serving kernels with fused rotary / layernorm: main; without
 rotary / RMS: e2tts; int8 feed-forward at ff_mult 2: int8, at ff_mult 4:
 e2tts-int8; training kernels: train; the
 gated residual projection, on no path: kernels), error, times, bound and
-library time; the last line is the device summary.
+library time; the compress phase's launches (kernels 1, 2 and 4 again) are
+logged and checked in that phase; the last line is the device summary.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -142,6 +165,10 @@ LSE_REL_TOL = 1e-5  # the forward's fp32 LSE, relative L2 (H100: <= 3e-7; no see
 LOSS_TOL = 8e-6  # CFM.loss, kernels vs plain attention, relative: 5.0e-6 vs 1.3e-5
 GRAD_TOL = 3.4e-3  # its flattened gradient, relative L2: 2.55e-3 vs 4.5e-3
 QKV_GRAD_TOL = 7e-3  # the q / k / v projections' gradient, relative L2: 2.7e-3 vs 1.9e-2
+# The distillation loss is logged beside its gradients, not held: wrong
+# attention-dropout keys move it by less (5.7e-7 on an H100) than the
+# kernels' bf16 rounding does (8.2e-6), so no limit on it can see wrong masks;
+# its gradients are held to GRAD_TOL / QKV_GRAD_TOL with the control
 VOCAB_CHARS = " " + string.ascii_letters + string.digits + string.punctuation
 TRAIN_BATCH = (9, 4096)  # the single-chip reference batch: 36,864 of 38,400 frames
 TRAIN_FRAME_BUDGET = 38400  # frames per chip, `configs` DatasetConfig.batch_size_per_gpu
@@ -336,6 +363,8 @@ def phase_kernels(dev) -> dict:
 
     edge_err2, edge_err3 = check_fused_projection_edges(dev)
     results.update(check_ln_mod_matmul(dev, g, g_new, edge_err2))
+    for name, err in zip(("serving_attention", "ln_mod_matmul"), check_teacher_shapes(dev)):
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
     log("[kernels] the JSON line's serving ms / plain_ms / bound_ms / library_ms are the "
         "n = M = 1088 bucket's; no single PyTorch call computes the attention with rotary, "
         "so its library_ms is null; kernel 2's is the unfused bf16 chain's")
@@ -343,6 +372,47 @@ def phase_kernels(dev) -> dict:
     results.update(check_matmul_gate_res(dev, g, edge_err3))
     results.update(check_train_attention(dev, g))
     return results
+
+
+def check_teacher_shapes(dev) -> tuple[float, float]:
+    """Kernels 1 and 2 at the shapes the distillation teacher's eval forward
+    gives them: the attention with rotary and no lengths at b = 9, n = 4096
+    (its plain version three samples at a time, bounding the fp32 logits),
+    the layernorm projection with GELU on [9, 4096, 1024] -> 2048; a second
+    call must give the same bits. Returns the two largest errors."""
+    import torch
+
+    from eraxvif5tts_tpu_torch.ops import fused_matmul as fm
+    from eraxvif5tts_tpu_torch.ops import serving_attention as sa
+    from eraxvif5tts_tpu_torch.ops.rotary import rotary_freqs
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 80)
+    b, n = TRAIN_BATCH
+    q, k, v = (torch.randn((b, n, 16, 64), generator=gen, device=dev).bfloat16()
+               for _ in range(3))
+    rope = rotary_freqs(n, 64, device=dev)
+    got = sa.serving_attention(q, k, v, None, rope)
+    want = torch.cat([sa.serving_attention_reference(q[i:i + 3], k[i:i + 3], v[i:i + 3],
+                                                     None, rope) for i in range(0, b, 3)])
+    err1 = compare(f"serving_attention b={b} n={n} lens=None", got, want)
+    if not torch.equal(got, sa.serving_attention(q, k, v, None, rope)):
+        raise AssertionError(f"serving_attention b={b} n={n}: a second call differs")
+    del q, k, v, got, want
+    x = (torch.randn((b, n, 1024), generator=gen, device=dev) + 0.5).bfloat16()
+    scale, shift = ((0.1 * torch.randn((b, 1024), generator=gen, device=dev)).bfloat16()
+                    for _ in range(2))
+    w = (torch.randn((2048, 1024), generator=gen, device=dev) / 32).bfloat16()
+    bias = (0.1 * torch.randn((2048,), generator=gen, device=dev)).bfloat16()
+    got = fm.ln_mod_matmul(x, scale, shift, w, bias)
+    err2 = compare(f"ln_mod_matmul B={b} M={n}", got,
+                   fm.ln_mod_matmul_reference(x, scale, shift, w, bias))
+    if not torch.equal(got, fm.ln_mod_matmul(x, scale, shift, w, bias)):
+        raise AssertionError(f"ln_mod_matmul B={b} M={n}: a second call differs")
+    log(f"[kernels] the distillation teacher's shapes: serving_attention b={b} n={n} rope fused, "
+        f"lens=None: max_abs_err {err1:.3g}; ln_mod_matmul B={b} M={n} K=1024 N=2048 ln "
+        f"gelu_tanh: max_abs_err {err2:.3g} (tol {TOL} * (1 + |plain|)), second calls "
+        "bit-identical")
+    return err1, err2
 
 
 def unfused_ln_mod_chain(x, scale, shift, w, bias, norm: str):
@@ -922,6 +992,29 @@ def build_wrapper(dev):
     return wrapper
 
 
+@contextlib.contextmanager
+def plain_serving_ops():
+    """The serving kernels' plain versions in place of the kernels (attention,
+    the normalised projection, the int8 feed-forward) inside the block."""
+    from eraxvif5tts_tpu_torch.models import modules
+    from eraxvif5tts_tpu_torch.ops.fused_matmul import ln_mod_matmul_reference
+    from eraxvif5tts_tpu_torch.ops.quant_ff import int8_ff_reference
+    from eraxvif5tts_tpu_torch.ops.serving_attention import serving_attention_reference
+
+    def attention(q, k, v, key_valid=None, rope=None):
+        lens = None if key_valid is None else key_valid.sum(-1)
+        return serving_attention_reference(q, k, v, lens, rope)
+
+    saved = modules.dot_product_attention, modules.ln_mod_matmul, modules.int8_ff
+    modules.dot_product_attention = attention
+    modules.ln_mod_matmul = ln_mod_matmul_reference
+    modules.int8_ff = int8_ff_reference
+    try:
+        yield
+    finally:
+        modules.dot_product_attention, modules.ln_mod_matmul, modules.int8_ff = saved
+
+
 def check_dit_against_plain(dit, dev, tag: str = "[main]", b: int = 2, n: int = 256):
     """One ``run`` of a backbone (DiT or UNetT) at full width with the kernels
     vs with the plain versions, on the same card and inputs: b rows of n
@@ -930,11 +1023,7 @@ def check_dit_against_plain(dit, dev, tag: str = "[main]", b: int = 2, n: int = 
     the largest error in units of the plain output's scale."""
     import torch
 
-    from eraxvif5tts_tpu_torch.models import modules
-    from eraxvif5tts_tpu_torch.ops.fused_matmul import ln_mod_matmul_reference
     from eraxvif5tts_tpu_torch.ops.masks import lens_to_mask
-    from eraxvif5tts_tpu_torch.ops.quant_ff import int8_ff_reference
-    from eraxvif5tts_tpu_torch.ops.serving_attention import serving_attention_reference
 
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     x = torch.randn((b, n, 100), generator=g, device=dev)
@@ -950,15 +1039,8 @@ def check_dit_against_plain(dit, dev, tag: str = "[main]", b: int = 2, n: int = 
             return dit.run(x, cond, te, time_, drop, mask)
 
     got = run()
-    saved = modules.dot_product_attention, modules.ln_mod_matmul, modules.int8_ff
-    modules.dot_product_attention = lambda q, k, v, key_valid=None, rope=None: (
-        serving_attention_reference(q, k, v, key_valid.sum(-1), rope))
-    modules.ln_mod_matmul = ln_mod_matmul_reference
-    modules.int8_ff = int8_ff_reference
-    try:
+    with plain_serving_ops():
         want = run()
-    finally:
-        modules.dot_product_attention, modules.ln_mod_matmul, modules.int8_ff = saved
     rel = float((got - want).abs().max() / want.abs().max())
     name = type(dit).__name__
     log(f"{tag} {name}.run b={b} n={n} kernels vs plain versions: max error {rel:.3g} of "
@@ -1168,12 +1250,12 @@ def phase_main(dev) -> tuple[object, object, dict]:
     return wrapper, ref, launches
 
 
-def phase_server(wrapper, ref, texts=TEXTS, tag: str = "[server]"):
+def phase_server(wrapper, ref, texts=TEXTS, tag: str = "[server]", nfe: int = NFE):
     import numpy as np
 
     from eraxvif5tts_tpu_torch.serving.socket_server import TTSStreamingProcessor, start_server
 
-    processor = TTSStreamingProcessor(wrapper, ref_state=ref, nfe_step=NFE,
+    processor = TTSStreamingProcessor(wrapper, ref_state=ref, nfe_step=nfe,
                                       output_file=None, warm_up=False)
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -1399,69 +1481,91 @@ def train_arch():
                       remat_policy="full")
 
 
-def check_loss_against_plain(cfm, dev):
-    """One CFM.loss forward and backward at b = 2, n = 1024 with the training
-    kernels against the same model with the plain attention, on the same
-    draws and dropout keys: the loss, the whole flattened gradient and the
-    gradient of the q / k / v projections (which reaches the parameters only
-    through the attention backward). The control is the plain attention with
-    the attention-dropout keys of every block changed; it must move each
-    reading beyond its limit, or that limit could not see wrong masks."""
+def loss_batch(dev, seed: int, depth: int, frac_lengths_mask=(0.7, 1.0)):
+    """The loss checks' batch, b = 2, n = 1024 (the second sample 37 frames
+    short, its text 300 tokens), and its draws for ``depth`` blocks."""
     import torch
 
     from eraxvif5tts_tpu_torch.models.cfm import LossDraws
-    from eraxvif5tts_tpu_torch.ops.train_attention import train_attention
 
-    dit = cfm.transformer
-    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    g = torch.Generator(device=dev).manual_seed(seed)
     b, n = 2, 1024
     mel = torch.randn((b, n, 100), generator=g, device=dev)
     lens = torch.tensor([n, n - 37], device=dev)
     text = torch.randint(0, len(VOCAB_CHARS), (b, TRAIN_TEXT), generator=g, device=dev)
     text[1, 300:] = -1
-    draws = LossDraws.sample(g, b, n, 100, len(dit.transformer_blocks))
+    return mel, text, lens, LossDraws.sample(g, b, n, 100, depth, frac_lengths_mask)
+
+
+def hold_loss_against_plain(what: str, model, loss_fn, draws, tols: dict):
+    """``loss_fn(draws)`` (a loss of ``model``) forward and backward with the
+    training kernels against the plain attention, on the same draws and
+    dropout keys. Three readings are logged: the loss, the whole flattened
+    gradient and the gradient of the q / k / v projections (which reaches the
+    parameters only through the attention backward); each one named in
+    ``tols`` is held within its limit there. The control is the plain
+    attention with the attention-dropout keys of every block changed; it must
+    move each held reading beyond its limit, or that limit could not see wrong
+    masks."""
+    import torch
+
+    from eraxvif5tts_tpu_torch.ops.train_attention import train_attention
+
     wrong = dataclasses.replace(draws, dropout_keys=[
         [[(attn[0] + 1) & 0xFFFFFFFF, attn[1]], out, ff]
         for attn, out, ff in draws.dropout_keys])
-    qkv = [p for name, p in dit.named_parameters()
+    qkv = [p for name, p in model.named_parameters()
            if name.split(".")[-2] in ("to_q", "to_k", "to_v")]
 
     def loss_and_grads(draws, plain):
-        dit.zero_grad(set_to_none=True)
+        model.zero_grad(set_to_none=True)
         train_attention.plain = plain
         try:
-            loss = cfm.loss(mel, text, lens, draws)[0]
+            loss = loss_fn(draws)
             loss.backward()
         finally:
             train_attention.plain = False
-        return (loss.item(), torch.cat([p.grad.flatten() for p in dit.parameters()]),
+        return (loss.item(), torch.cat([p.grad.flatten() for p in model.parameters()]),
                 torch.cat([p.grad.flatten() for p in qkv]))
 
     got = loss_and_grads(draws, plain=False)
     want = loss_and_grads(draws, plain=True)
     control = loss_and_grads(wrong, plain=True)
-    dit.zero_grad(set_to_none=True)
+    model.zero_grad(set_to_none=True)
 
     def distance(x):
-        return (abs(x[0] - want[0]) / abs(want[0]), rel_l2(x[1], want[1]),
-                rel_l2(x[2], want[2]))
+        return dict(zip(("loss", "gradient L2", "q/k/v gradient L2"),
+                        (abs(x[0] - want[0]) / abs(want[0]), rel_l2(x[1], want[1]),
+                         rel_l2(x[2], want[2]))))
 
     err, ctl = distance(got), distance(control)
-    tols = (LOSS_TOL, GRAD_TOL, QKV_GRAD_TOL)
-    log(f"[train] CFM.loss b={b} n={n} dropout {dit.arch.dropout}, kernels vs plain attention: "
-        f"loss {got[0]:.6f} vs {want[0]:.6f}; relative errors (tol) / control (plain, wrong "
-        "attention-dropout keys): "
-        + ", ".join(f"{name} {e:.3g} ({t}) / {c:.3g}" for name, e, t, c in
-                    zip(("loss", "gradient L2", "q/k/v gradient L2"), err, tols, ctl)))
-    if not (all(e <= t for e, t in zip(err, tols)) and torch.isfinite(got[1]).all()):
-        raise AssertionError(f"CFM.loss with kernels differs from plain: {err}")
-    if not all(c > t for c, t in zip(ctl, tols)):
+    log(f"{what}, kernels vs plain attention: loss {got[0]:.6f} vs {want[0]:.6f}; relative "
+        "errors (tol, or logged where none) / control (plain, wrong attention-dropout keys): "
+        + ", ".join(f"{name} {e:.3g} ({tols.get(name, 'logged')}) / {ctl[name]:.3g}"
+                    for name, e in err.items()))
+    if not (all(err[name] <= t for name, t in tols.items()) and torch.isfinite(got[1]).all()):
+        raise AssertionError(f"{what} with kernels differs from plain: {err}")
+    if not all(ctl[name] > t for name, t in tols.items()):
         raise AssertionError(f"wrong attention-dropout keys move the plain readings by only "
                              f"{ctl}, not beyond the limits {tols}")
 
 
-def profile_train_step(trainer, state, batch, dev, wall_s: float) -> None:
-    """Where one warm `train_step` at dropout 0.1 spends the device's time: its
+def check_loss_against_plain(cfm, dev):
+    """One CFM.loss at b = 2, n = 1024 with the training kernels against the
+    plain attention (:func:`hold_loss_against_plain`), every reading
+    controlled."""
+    dit = cfm.transformer
+    mel, text, lens, draws = loss_batch(dev, SEED + 2, len(dit.transformer_blocks))
+    hold_loss_against_plain(f"[train] CFM.loss b=2 n=1024 dropout {dit.arch.dropout}", dit,
+                            lambda draws: cfm.loss(mel, text, lens, draws)[0], draws,
+                            {"loss": LOSS_TOL, "gradient L2": GRAD_TOL,
+                             "q/k/v gradient L2": QKV_GRAD_TOL})
+
+
+def profile_train_step(trainer, state, batch, dev, wall_s: float,
+                       tag: str = "[train]") -> None:
+    """Where one warm `train_step` at dropout 0.1 (of a `Trainer` or a
+    `DistillTrainer`) spends the device's time: its
     kernels under `torch.profiler`, summed by group, beside `wall_s` (the
     unprofiled steps' wall at dropout 0.1). The position-hash dropout is plain
     torch: its share is the device time of the kernels launched inside
@@ -1491,7 +1595,7 @@ def profile_train_step(trainer, state, batch, dev, wall_s: float) -> None:
     groups, launches = device_ms_by_group(prof, ranges=("hash_dropout",))
     device_ms = sum(groups.values())
     if device_ms <= 0.0:
-        log("[train] profile: the profiler recorded no device time; split not measured")
+        log(f"{tag} profile: the profiler recorded no device time; split not measured")
         return
     # the range's host-side events carry the time of the kernels launched inside
     marked = [e for e in prof.key_averages()
@@ -1499,14 +1603,14 @@ def profile_train_step(trainer, state, batch, dev, wall_s: float) -> None:
     dropout_ms = sum(e.device_time_total for e in marked) / 1e3
     calls = sum(e.count for e in marked)
     b, n = batch["mel"].shape[:2]
-    dim = trainer.cfm.transformer.arch.dim
-    ff = dim * trainer.cfm.transformer.arch.ff_mult
+    dim = state.model.arch.dim
+    ff = dim * state.model.arch.ff_mult
     one = {}
     for width in (dim, ff):
         x = torch.randn((b, n, width), device=dev).bfloat16()
         one[width] = cuda_median_ms(lambda: plain_dropout(x, 0.1, (1, 2)))
     attention_ms = sum(ms for name, ms in groups.items() if name.startswith("kernel 4"))
-    log(f"[train] profile of one warm train_step at dropout 0.1: wall {wall_s * 1e3:.1f} ms "
+    log(f"{tag} profile of one warm train_step at dropout 0.1: wall {wall_s * 1e3:.1f} ms "
         f"unprofiled; {launches} device kernels, {device_ms:.1f} ms of device time = "
         f"{100 * device_ms / (wall_s * 1e3):.1f} % of the wall; "
         + ", ".join(f"{name} {ms:.1f} ms ({100 * ms / device_ms:.1f} %)"
@@ -1678,6 +1782,308 @@ def phase_e2tts(dev, cfg=None, ckpt: Path | None = None) -> dict:
     return {name: counts[name] for name in path}
 
 
+COMPRESS_DEPTHS = (14, 12)  # F5TTS_v1_Pruned_14 / _12
+COMPRESS_SERVE = ((14, 7), (14, 16), (12, 16))  # (depth, NFE) of the served students
+
+
+def prune_with_cli(teacher: Path, tmp: Path, blocks: int) -> dict:
+    """`python -m eraxvif5tts_tpu_torch.compression prune` of the teacher to
+    each depth of COMPRESS_DEPTHS, the processes run side by side (each
+    re-loads its result into the port's DiT, strict); then each report (the
+    teacher's ``blocks``, the first and last two kept) and the strict load
+    once more here. Returns {depth: pruned checkpoint}."""
+    from eraxvif5tts_tpu_torch.compression.pruner import test_pruned_model
+
+    t0 = time.perf_counter()
+    procs, out = {}, {}
+    try:
+        for depth in COMPRESS_DEPTHS:
+            out[depth] = tmp / f"pruned_{depth}.pt"
+            procs[depth] = subprocess.Popen(
+                [sys.executable, "-m", "eraxvif5tts_tpu_torch.compression", "prune",
+                 str(teacher), str(out[depth]), "--target-layers", str(depth)],
+                cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for depth, proc in procs.items():
+            text, _ = proc.communicate(timeout=600)
+            for line in text.strip().splitlines():
+                log(f"[compress] prune {depth}: {line}")
+            if proc.returncode != 0:
+                raise AssertionError(f"prune to {depth} blocks exited {proc.returncode}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    for depth, path in out.items():
+        report = json.loads(Path(str(path) + ".prune_report.json").read_text())
+        keep = report["blocks_to_keep"]
+        ends = sorted({0, 1, blocks - 2, blocks - 1})[:depth]
+        if (len(keep) != depth or report["original_num_transformer_blocks"] != blocks
+                or not set(ends) <= set(keep) or not test_pruned_model(str(path))):
+            raise AssertionError(f"pruned checkpoint {path.name}: report {report}")
+        log(f"[compress] {path.name}: {path.stat().st_size / 2**30:.2f} GiB, blocks {keep} "
+            f"(fallback {report['used_fallback']}), params {report['params_before']:,} -> "
+            f"{report['params_after']:,}; loads strict into the port's DiT")
+    log(f"[compress] both prunes (two processes side by side) in {wall:.1f} s")
+    return out
+
+
+def alignment(lens, text, frames: int):
+    """A monotonic alignment ``[b, nt, frames]`` for a batch: the valid frames
+    of each sample split evenly over its valid text tokens."""
+    import torch
+
+    nt = text.shape[1]
+    text_lens = (text != -1).sum(-1)
+    frame = torch.arange(frames, device=text.device)
+    token = frame[None, :] * text_lens[:, None] // lens[:, None]  # [b, frames]
+    valid = frame[None, :] < lens[:, None]
+    one_hot = token[:, None, :] == torch.arange(nt, device=text.device)[None, :, None]
+    return (one_hot & valid[:, None, :]).float()
+
+
+def check_teacher_against_plain(teacher, dev) -> None:
+    """The teacher's eval forward as a distillation step gives it: B x n =
+    TRAIN_BATCH (kernel 1 with rotary at lens=None and kernel 2 on 36,864
+    rows in one launch a block) against the plain serving ops on the same
+    inputs, within DIT_TOL of the plain output's scale. The plain version runs
+    three samples at a time (its attention materialises [b, 16, n, n] fp32
+    logits; without lengths the samples are independent)."""
+    import torch
+
+    b, n = TRAIN_BATCH
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    mel = torch.randn((b, n, 100), generator=g, device=dev)
+    x0 = torch.randn((b, n, 100), generator=g, device=dev)
+    time_ = torch.rand((b,), generator=g, device=dev)
+    xt = (1 - time_[:, None, None]) * x0 + time_[:, None, None] * mel
+    cond = mel.masked_fill((torch.arange(n, device=dev) >= n // 4)[None, :, None], 0.0)
+    text = torch.randint(0, len(VOCAB_CHARS), (b, TRAIN_TEXT), generator=g, device=dev)
+    text[1::2, TRAIN_TEXT // 2:] = -1
+    no_drop = torch.zeros(b, dtype=torch.bool, device=dev)
+    with torch.no_grad():
+        got = teacher(xt, cond, text, time_, no_drop, no_drop).float()
+        with plain_serving_ops():
+            want = torch.cat([teacher(xt[i:i + 3], cond[i:i + 3], text[i:i + 3], time_[i:i + 3],
+                                      no_drop[i:i + 3], no_drop[i:i + 3]).float()
+                              for i in range(0, b, 3)])
+    rel = float((got - want).abs().max() / want.abs().max())
+    log(f"[compress] teacher (eval, lens=None) b={b} n={n}, kernels 1 + 2 vs plain: max error "
+        f"{rel:.3g} of scale {float(want.abs().max()):.3g} (tol {DIT_TOL})")
+    if not torch.isfinite(got).all() or rel > DIT_TOL:
+        raise AssertionError(f"the teacher with kernels differs from plain by {rel:.3g}")
+
+
+def check_distill_against_plain(trainer, state, dev) -> None:
+    """The distillation loss of a b = 2, n = 1024 batch on the card with the
+    student's training kernels against `train_attention.plain` on the same
+    draws and dropout keys (:func:`hold_loss_against_plain`): its gradients
+    held to the train phase's limits and control, the loss logged (see
+    LOSS_TOL)."""
+    from eraxvif5tts_tpu_torch.training.distill import distillation_losses
+
+    student, teacher = state.model, trainer.teacher_transformer
+    mel, text, lens, draws = loss_batch(dev, SEED + 5, len(student.transformer_blocks),
+                                        trainer.config.frac_lengths_mask)
+    hold_loss_against_plain(
+        "[compress] distillation loss b=2 n=1024 (the student's training kernels)", student,
+        lambda draws: distillation_losses(trainer.student_cfm, teacher, mel, text, lens, draws,
+                                          trainer.config)[0],
+        draws, {"gradient L2": GRAD_TOL, "q/k/v gradient L2": QKV_GRAD_TOL})
+
+
+def distill_counts() -> list:
+    """The launches of the distillation step's kernels: 1 (rotary), 2
+    (layernorm), 4a, 4b, 4c."""
+    from eraxvif5tts_tpu_torch.ops import train_attention as ta
+
+    counts = serving_counts()
+    return [counts["serving_attention"], counts["ln_mod_matmul"], ta.flash_forward.launches,
+            ta.flash_dq.launches, ta.flash_dkv.launches]
+
+
+def phase_compress(dev) -> dict:
+    """The compression path at F5TTS_v1_Base width: prune a random
+    22-block checkpoint to 14 and 12 blocks with the port's CLI, distill the
+    teacher into the 14-block student with the duration predictor trained
+    beside it, export both, and serve the students with the predictor on at
+    NFE 7 and 16. Returns the launches of kernels 1 and 2 over the served
+    requests and of kernels 1, 2, 4a, 4b, 4c over the distillation steps."""
+    import torch
+
+    from eraxvif5tts_tpu_torch.compression.convert import reference_backbone_state_dict
+    from eraxvif5tts_tpu_torch.configs import PRESETS
+    from eraxvif5tts_tpu_torch.infer.wrapper import F5TTSWrapper
+    from eraxvif5tts_tpu_torch.models.cfm import CFM
+    from eraxvif5tts_tpu_torch.models.dit import DiT
+    from eraxvif5tts_tpu_torch.models.duration import (
+        DurationPredictor,
+        predictor_vocab_size,
+        save_duration_predictor,
+    )
+    from eraxvif5tts_tpu_torch.ops import train_attention as ta
+    from eraxvif5tts_tpu_torch.training.distill import DistillConfig, DistillTrainer
+    from eraxvif5tts_tpu_torch.training.trainer import batch_seed, make_optimizer
+
+    teacher_cfg = PRESETS["F5TTS_v1_Base"]
+    student_arch = dataclasses.replace(train_arch(), depth=COMPRESS_DEPTHS[0])
+    vocab = {c: i for i, c in enumerate(VOCAB_CHARS)}
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        teacher_ckpt = tmp / "teacher.pt"
+        t0 = time.perf_counter()
+        save_reference_checkpoint(teacher_ckpt, teacher_cfg, dev)
+        log(f"[compress] teacher {teacher_cfg.name}: reference-format checkpoint of N(0, "
+            f"{WEIGHT_STD}) weights, seed {SEED + 3}: {teacher_ckpt.stat().st_size / 2**30:.2f} "
+            f"GiB written in {time.perf_counter() - t0:.1f} s")
+        pruned = prune_with_cli(teacher_ckpt, tmp, teacher_cfg.arch.depth)
+
+        # --- distillation: teacher (bf16, eval) -> 14-block student -------------
+        t0 = time.perf_counter()
+        teacher = DiT(teacher_cfg.arch, len(VOCAB_CHARS), 100)
+        teacher.load_state_dict(reference_backbone_state_dict(str(teacher_ckpt)), strict=True)
+        teacher.to(device=dev, dtype=torch.bfloat16)
+        student = DiT(student_arch, len(VOCAB_CHARS), 100, compute_dtype=torch.bfloat16)
+        student.load_state_dict(reference_backbone_state_dict(
+            str(pruned[student_arch.depth])), strict=True)
+        student.to(dev)
+        torch.manual_seed(SEED + 4)  # the predictor's default initialisation, seeded
+        predictor = DurationPredictor(predictor_vocab_size(len(VOCAB_CHARS))).to(dev)
+        b, n = TRAIN_BATCH
+        frames_per_token = n * 0.75 / (TRAIN_TEXT * 5 / 8)  # the batches' mean lens / text
+        with torch.no_grad():  # log-durations near the alignment's, as if trained
+            predictor.proj.bias.fill_(math.log(frames_per_token))
+        # the distill CLI's recipe: lr 1e-5 with a cosine decay, the predictor at 3e-5;
+        # warmup cut to 1 update so that the smoke's updates move the weights
+        trainer = DistillTrainer(
+            student_cfm=CFM(student), teacher_transformer=teacher,
+            optimizer=make_optimizer(learning_rate=1e-5, num_warmup_updates=1,
+                                     total_updates=1000, decay_type="cosine"),
+            config=DistillConfig(), duration_predictor=predictor, duration_lr=3e-5)
+        state = trainer.init_state()
+        torch.cuda.synchronize()
+        log(f"[compress] distill: teacher depth {teacher_cfg.arch.depth} bf16 eval, "
+            f"{sum(p.numel() for p in teacher.parameters()) / 1e6:.1f} M params; student "
+            f"depth {student_arch.depth} from {pruned[student_arch.depth].name}, "
+            f"{sum(p.numel() for p in student.parameters()) / 1e6:.1f} M fp32 params, bf16 "
+            f"compute, dropout {student_arch.dropout}, remat {student_arch.remat_policy}; "
+            f"duration predictor {sum(p.numel() for p in predictor.parameters()) / 1e6:.2f} M "
+            f"params (vocab {predictor.vocab_size}); built in {time.perf_counter() - t0:.1f} s")
+        check_teacher_against_plain(teacher, dev)
+        check_distill_against_plain(trainer, state, dev)
+
+        def make_batch(i):
+            bg = torch.Generator(device=dev).manual_seed(SEED + 20 + i)
+            lens = torch.randint(n // 2, n + 1, (b,), generator=bg, device=dev)
+            text = torch.randint(0, len(VOCAB_CHARS), (b, TRAIN_TEXT), generator=bg, device=dev)
+            text_lens = torch.randint(TRAIN_TEXT // 4, TRAIN_TEXT + 1, (b, 1), generator=bg,
+                                      device=dev)
+            text = text.masked_fill(torch.arange(TRAIN_TEXT, device=dev) >= text_lens, -1)
+            return {"mel": torch.randn((b, n, 100), generator=bg, device=dev), "text": text,
+                    "lens": lens}
+
+        depth_t, depth_s = teacher_cfg.arch.depth, student_arch.depth
+        want = [depth_t, depth_t, 2 * depth_s, depth_s, depth_s]
+        reset_serving_counts()
+        for fn in (ta.flash_forward, ta.flash_dq, ta.flash_dkv):
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        walls = []
+        for i in range(4):  # a warm-up step, then three timed; 0 and 1 with an alignment
+            batch = make_batch(i)
+            if i < 2:
+                batch["attn"] = alignment(batch["lens"], batch["text"], n)
+            before = distill_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = trainer.train_step(
+                state, batch, torch.Generator(device=dev).manual_seed(batch_seed(SEED, 1, i)))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if i:
+                walls.append(wall)
+            counts = [c - c0 for c, c0 in zip(distill_counts(), before)]
+            log(f"[compress] distill step {i} ({'warm-up' if i == 0 else 'timed'}) b={b} n={n}"
+                f"{' with attn' if i < 2 else ''}: "
+                + ", ".join(f"{k} {v:.5f}" for k, v in metrics.items() if k != "skipped")
+                + f", skipped {metrics['skipped']:.0f}; {wall:.3f} s; launches kernel 1 / 2 / "
+                f"4a / 4b / 4c {counts}")
+            if not all(math.isfinite(v) for v in metrics.values()) or metrics["skipped"]:
+                raise AssertionError(f"distill step {i}: non-finite loss or skipped")
+            if counts != want:
+                raise AssertionError(f"distill step {i}: launches {counts}, expected {want} "
+                                     f"(teacher {depth_t} x kernels 1 and 2; student forward "
+                                     f"twice, checkpointed, and one backward a block)")
+        step_s = statistics.median(walls)
+        peak = torch.cuda.max_memory_allocated(dev)
+        log(f"[compress] distill steps 1-3 median {step_s:.3f} s per step ({b} x {n} frames: "
+            f"{b * n / step_s:.0f} frames/s), peak memory {peak / 2**30:.2f} GiB")
+        launches["distill"] = dict(zip(("serving_attention", "ln_mod_matmul",
+                                        "train_attention_fwd", "train_attention_dq",
+                                        "train_attention_dkv"), distill_counts()))
+        if state.step != 4:
+            raise AssertionError(f"{state.step} distill updates applied, expected 4")
+
+        profile_train_step(trainer, state, make_batch(4), dev, step_s, "[compress] distill:")
+
+        # --- export, then serve the students with the predictor --------------------
+        student_ckpt, dur_ckpt = tmp / f"student_{depth_s}.pt", tmp / "duration.pt"
+        trainer.export_student_torch(state, str(student_ckpt), depth=depth_s)
+        # the predictor saw text ids + 1 in training: its phoneme map gives each
+        # character (a phoneme of the character fallback) that id
+        save_duration_predictor(str(dur_ckpt), state.dur_predictor,
+                                {c: i + 1 for c, i in vocab.items() if not c.isspace()},
+                                update=state.step)
+        del trainer, state, teacher, student, predictor
+        torch.cuda.empty_cache()
+        log(f"[compress] exported the EMA student ({student_ckpt.stat().st_size / 2**30:.2f} "
+            f"GiB) and the duration predictor ({dur_ckpt.stat().st_size / 2**20:.1f} MiB)")
+
+        served = {}
+        for depth, nfe in COMPRESS_SERVE:
+            if depth not in served:
+                ckpt = student_ckpt if depth == depth_s else pruned[depth]
+                name = f"F5TTS_v1_Pruned_{depth}"
+                wrapper = F5TTSWrapper(name, ckpt_path=str(ckpt), vocab_char_map=vocab,
+                                       device=dev, compute_dtype="bfloat16", nfe_step=nfe,
+                                       use_duration_predictor=True,
+                                       duration_predictor_ckpt=str(dur_ckpt))
+                randomize((wrapper.vocoder,), SEED)
+                if wrapper.config.arch.depth != depth:
+                    raise AssertionError(f"{ckpt.name} served at depth "
+                                         f"{wrapper.config.arch.depth}, not {depth}")
+                tag = f"[compress] {name} ({'distilled' if depth == depth_s else 'pruned'})"
+                check_dit_against_plain(wrapper.transformer, dev, tag)
+                ref = load_reference(wrapper)
+                warm_smallest(wrapper, ref, nfe_step=2)
+                served[depth] = (wrapper, ref, tag)
+            wrapper, ref, tag = served[depth]
+            predicted = []
+            duration_for = wrapper._duration_for
+
+            def logged(ref_, text, speed, fix, duration_for=duration_for, ref=ref,
+                       predicted=predicted):
+                frames = duration_for(ref_, text, speed, fix)
+                predicted.append(frames - ref.n_frames)
+                return frames
+
+            wrapper._duration_for = logged
+            try:
+                counts = generate_counted(wrapper, ref, TEXTS, nfe, f"{tag} NFE {nfe}:",
+                                          ("serving_attention", "ln_mod_matmul"))
+            finally:
+                del wrapper._duration_for
+            log(f"{tag} NFE {nfe}: the duration predictor's frames per chunk (after the "
+                f"{ref.n_frames}-frame prompt, speed applied): {predicted}")
+            launches[f"serve_{depth}_{nfe}"] = {k: counts[k] for k in
+                                                ("serving_attention", "ln_mod_matmul")}
+        wrapper, ref, tag = served[depth_s]
+        phase_server(wrapper, ref, TEXTS[:1], tag, nfe=COMPRESS_SERVE[0][1])
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "eraxvif5tts_tpu_torch").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -1712,6 +2118,11 @@ def main() -> int:
                                                          "[e2tts-int8]", e2_ckpt)
     row = kernel_results["int8_ff_ffmult4"]
     row["max_abs_err"] = max(row["max_abs_err"], ff_err)
+    compress = phase_compress(dev)
+    idle = {path: [k for k, v in counts.items() if v <= 0] for path, counts in compress.items()}
+    if any(idle.values()):
+        raise AssertionError(f"kernels never launched on the compress path: {idle}")
+    log(f"[compress] launches by path: {compress}")
     kernels = [
         *(dict(name=name, route="cuda",
                source="eraxvif5tts_tpu_torch/csrc/serving_attention.cu",

@@ -428,6 +428,16 @@ def reference_backbone_state_dict(path: str, use_ema: bool = True) -> StateDict:
                      for k, v in sd.items()})
 
 
+def backbone_state_dict_to_reference(state_dict: StateDict,
+                                     with_prefix: bool = True) -> dict[str, np.ndarray]:
+    """The port backbone's state dict -> a reference checkpoint's flat layout
+    (fp32 numpy arrays, ``transformer.`` prefixed): the counterpart of the
+    JAX package's ``dit_params_to_torch``, what a distilled student is
+    exported as and what the reference loaders of both packages read."""
+    prefix = "transformer." if with_prefix else ""
+    return {prefix + k: v.detach().float().cpu().numpy() for k, v in state_dict.items()}
+
+
 TRAINER_STATE_FILE = "state.pt"  # what `training/trainer.py` `checkpoint_save` writes
 
 

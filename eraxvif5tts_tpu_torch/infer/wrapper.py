@@ -48,10 +48,16 @@ duration buckets the wrapper takes mel buckets of 64k - 1 frames for it
 in int8 W8A8 (``compute_dtype="int8"``, quantized at load behind the quality
 gate with ``int8_validate``).
 
-Not ported yet (ROADMAP.md): MMDiT, BigVGAN, the duration
-predictor, multi-device meshes (``generate_batch`` runs on one device), the
-default Whisper backend behind an empty ``ref_text`` (pass ``transcribe_fn``).
-Each raises.
+The phoneme duration predictor (``duration_predictor_ckpt``, a reference-format
+checkpoint with its ``phoneme_map``; `models/duration.py`) is loaded on the
+wrapper's device whenever a checkpoint is given and sets each chunk's (and
+each ``generate_batch`` sample's) duration when ``use_duration_predictor``
+is on, as in the JAX wrapper: ``fix_duration`` wins, a prediction of 0
+frames falls back to ``byte_ratio_duration``.
+
+Not ported yet (ROADMAP.md): MMDiT, BigVGAN, multi-device meshes
+(``generate_batch`` runs on one device), the default Whisper backend behind an
+empty ``ref_text`` (pass ``transcribe_fn``). Each raises.
 """
 
 from __future__ import annotations
@@ -135,6 +141,8 @@ class F5TTSWrapper:
         cfg_strength: float = 2.0,
         sway_sampling_coef: Optional[float] = -1.0,
         speed: float = 1.0,
+        use_duration_predictor: bool = False,
+        duration_predictor_ckpt: Optional[str] = None,
         compute_dtype: str = "bfloat16",
         int8_validate: bool = False,
         device: str | torch.device = "cuda",
@@ -180,6 +188,7 @@ class F5TTSWrapper:
         self.cfg_strength = cfg_strength
         self.sway_sampling_coef = sway_sampling_coef
         self.speed = speed
+        self.use_duration_predictor = use_duration_predictor
         # the UNetT's time token is an extra frame 0: mel buckets of 64k - 1
         # frames give the transformer the 64-aligned sequence the serving
         # attention kernel takes
@@ -236,6 +245,13 @@ class F5TTSWrapper:
             win_length=mel_cfg.win_length, n_mel_channels=mel_cfg.n_mel_channels,
             target_sample_rate=mel_cfg.target_sample_rate)
         self.cfm = CFM(self.transformer)
+        self.duration_predictor = None
+        self.phoneme_map: dict[str, int] = {}
+        if duration_predictor_ckpt is not None:
+            from eraxvif5tts_tpu_torch.models.duration import load_duration_predictor
+
+            self.duration_predictor, self.phoneme_map = load_duration_predictor(
+                duration_predictor_ckpt, device=self.device)
         self.ref: Optional[ReferenceState] = None
         self._last_wave: Optional[np.ndarray] = None
 
@@ -399,6 +415,24 @@ class F5TTSWrapper:
         bucket_budget = max(self.text_buckets[-1] - ref_bytes - 2, 16)
         return min(max(max_chars, 16), bucket_budget), bucket_budget
 
+    def _duration_for(self, ref: ReferenceState, gen_text: str, speed: float,
+                      fix_duration: Optional[float]) -> int:
+        """Total frames of one chunk: ``fix_duration`` seconds, else the
+        duration predictor's frames over ``speed`` after the prompt (when on
+        and it predicts any), else the byte-ratio heuristic."""
+        if fix_duration is not None:
+            return int(fix_duration * self.target_sample_rate / self.hop_length)
+        if self.use_duration_predictor and self.duration_predictor is not None:
+            from eraxvif5tts_tpu_torch.models.duration import predict_duration_frames
+
+            frames = predict_duration_frames(self.duration_predictor, self.phoneme_map,
+                                             gen_text)
+            if frames > 0:
+                return ref.n_frames + int(frames / speed)
+        return byte_ratio_duration(ref.n_frames, ref.text, gen_text, speed,
+                                   hop_length=self.hop_length,
+                                   sample_rate=self.target_sample_rate)
+
     def generate(self, text: str, output_path: Optional[str] = None,
                  ref: Optional[ReferenceState] = None, nfe_step: Optional[int] = None,
                  cfg_strength: Optional[float] = None, speed: Optional[float] = None,
@@ -432,10 +466,7 @@ class F5TTSWrapper:
             local_speed = 0.3 if len(chunk.encode("utf-8")) < 10 else speed
             full_text = ref.text + chunk
             tokens = convert_char_to_pinyin([full_text]) if use_pinyin else [list(full_text)]
-            duration = max(byte_ratio_duration(ref.n_frames, ref.text, chunk, local_speed,
-                                               hop_length=self.hop_length,
-                                               sample_rate=self.target_sample_rate,
-                                               fix_duration=fix_duration),
+            duration = max(self._duration_for(ref, chunk, local_speed, fix_duration),
                            ref.n_frames + 1)
             bucket = pick_bucket(duration, self.duration_buckets)
             duration = min(duration, bucket)
@@ -493,9 +524,7 @@ class F5TTSWrapper:
             local_speed = 0.3 if len(text.encode("utf-8")) < 10 else speed
             full = ref.text + text
             token_lists.append(convert_char_to_pinyin([full])[0] if use_pinyin else list(full))
-            durations.append(max(byte_ratio_duration(ref.n_frames, ref.text, text, local_speed,
-                                                     hop_length=self.hop_length,
-                                                     sample_rate=self.target_sample_rate),
+            durations.append(max(self._duration_for(ref, text, local_speed, None),
                                  ref.n_frames + 1))
         bucket = pick_bucket(max(durations), self.duration_buckets)
         durations = [min(d, bucket) for d in durations]

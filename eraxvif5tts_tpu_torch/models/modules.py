@@ -168,7 +168,9 @@ class ConvPositionEmbedding(nn.Module):
         x = h.transpose(1, 2)
         if mask is not None:
             x = x.masked_fill(~mask[..., None], 0.0)
-        return x
+        # row-major, as the residual stream must be for the serving kernels
+        # (without a mask the transposed conv output would set its layout)
+        return x.contiguous()
 
 
 class RMSNorm(nn.Module):

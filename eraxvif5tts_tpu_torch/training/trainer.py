@@ -22,7 +22,11 @@ Kept from the JAX package:
 Differences, by design: the state is updated in place (the JAX ``TrainState``
 is an immutable pytree returned anew each step); a step reads its loss and
 gradient norm back to the host once, to decide the skip; checkpoints are
-``torch.save`` files (Orbax is JAX-only). Not ported (ROADMAP.md): the
+``torch.save`` files (Orbax is JAX-only). A state may also carry a duration
+predictor and its optimizer (``dur_predictor`` / ``dur_optimizer``, the JAX
+``dur_pred_params`` / ``dur_opt_state``; the distillation trainer of
+`training/distill.py` fills them): checkpoints then carry them too, and a
+state without them saves and restores as before. Not ported (ROADMAP.md): the
 duration-predictor curriculum, meshes and ZeRO-1, loggers, ``mu_dtype``.
 """
 
@@ -122,6 +126,8 @@ class TrainState:
     scheduler: LambdaLR
     acc_grads: Optional[list[torch.Tensor]] = None  # running mean of counted micro-batches
     mini_step: int = 0                              # micro-batches counted toward the next update
+    dur_predictor: Optional[torch.nn.Module] = None       # trained beside the model (distillation)
+    dur_optimizer: Optional[torch.optim.Optimizer] = None
 
     @property
     def params(self) -> dict[str, torch.Tensor]:
@@ -133,10 +139,14 @@ class TrainState:
 
 
 def _state_dict(state: TrainState) -> dict:
-    return {"step": state.step, "params": state.model.state_dict(),
-            "ema_params": state.ema_params, "optimizer": state.optimizer.state_dict(),
-            "scheduler": state.scheduler.state_dict(), "acc_grads": state.acc_grads,
-            "mini_step": state.mini_step}
+    out = {"step": state.step, "params": state.model.state_dict(),
+           "ema_params": state.ema_params, "optimizer": state.optimizer.state_dict(),
+           "scheduler": state.scheduler.state_dict(), "acc_grads": state.acc_grads,
+           "mini_step": state.mini_step}
+    if state.dur_predictor is not None:
+        out["dur_pred_params"] = state.dur_predictor.state_dict()
+        out["dur_opt_state"] = state.dur_optimizer.state_dict()
+    return out
 
 
 def checkpoint_save(checkpoint_dir: str, state: TrainState, step: int, last: bool = False,
@@ -189,6 +199,12 @@ def checkpoint_restore(path: str, state: TrainState) -> tuple[TrainState, Option
     state.step = data["step"]
     state.acc_grads = data["acc_grads"]
     state.mini_step = data["mini_step"]
+    if state.dur_predictor is not None:
+        if "dur_pred_params" not in data:
+            raise ValueError(f"{path} holds no duration-predictor state, which this "
+                             "training state carries")
+        state.dur_predictor.load_state_dict(data["dur_pred_params"])
+        state.dur_optimizer.load_state_dict(data["dur_opt_state"])
     meta = None
     if os.path.isfile(path + ".meta.json"):
         with open(path + ".meta.json", "r", encoding="utf-8") as f:

@@ -19,6 +19,8 @@ bit (a scale computed as a product with the reciprocal instead of a true
 division flipped 6e-4 of them on an H100).
 """
 
+import math
+
 import pytest
 import torch
 
@@ -590,3 +592,109 @@ def test_fused_projections_refuse_what_the_gemm_core_does_not_take(cuda):
         fm.matmul_gate_res(x, w, bias, torch.zeros((1, 128), device=cuda, dtype=torch.bfloat16),
                            torch.zeros((1, 8, 128), device=cuda, dtype=torch.bfloat16))
     assert (fm.ln_mod_matmul.launches, fm.matmul_gate_res.launches) == before
+
+
+def test_distill_step_with_kernels_matches_the_plain_path(cuda, monkeypatch):
+    """One distillation loss and its gradients on the card, held in two
+    parts. The teacher (bf16, eval) through kernels 1 and 2 against the plain
+    serving ops: within 2e-2 of its scale. The student (fp32
+    parameters, bf16 compute, dropout 0.1) through kernels 4a / 4b / 4c
+    against `train_attention.plain` on the same draws and dropout keys: the
+    flattened gradient and the q / k / v projections' gradient, relative L2,
+    within limits set between this test's readings on an H100 and those of a
+    control (the plain path with every block's attention-dropout keys
+    changed), which must move each beyond its limit."""
+    import dataclasses
+
+    from eraxvif5tts_tpu_torch.configs import ArchConfig
+    from eraxvif5tts_tpu_torch.models import modules
+    from eraxvif5tts_tpu_torch.models.cfm import CFM, LossDraws
+    from eraxvif5tts_tpu_torch.models.dit import DiT
+    from eraxvif5tts_tpu_torch.training.distill import DistillConfig, distillation_losses
+
+    # on an H100: gradient 1.64e-3 against the control's 3.74e-3, q / k / v
+    # 2.18e-3 against 7.31e-2; each limit near the two readings' geometric mean
+    teacher_tol, grad_tol, qkv_grad_tol = 2e-2, 2.5e-3, 1.2e-2
+    arch = ArchConfig(dim=128, depth=3, heads=2, dim_head=64, ff_mult=2, text_dim=64,
+                      conv_layers=1, dropout=0.1)
+    torch.manual_seed(0)
+    teacher = DiT(arch, 20, 100).to(cuda, torch.bfloat16).eval()
+    student = DiT(dataclasses.replace(arch, depth=2), 20, 100,
+                  compute_dtype=torch.bfloat16).to(cuda).train()
+    for p in (*teacher.parameters(), *student.parameters()):
+        torch.nn.init.normal_(p, 0.0, 0.05)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    b, n = 2, 256
+    mel = torch.randn((b, n, 100), generator=g, device=cuda)
+    text = torch.randint(0, 20, (b, 40), generator=g, device=cuda)
+    lens = torch.tensor([n, n - 30], device=cuda)
+    draws = LossDraws.sample(g, b, n, 100, 2)
+    wrong = dataclasses.replace(draws, dropout_keys=[
+        [[(attn[0] + 1) & 0xFFFFFFFF, attn[1]], out, ff] for attn, out, ff in draws.dropout_keys])
+    cfm = CFM(student)
+
+    xt = (1 - draws.time[:, None, None]) * draws.x0 + draws.time[:, None, None] * mel
+    no_drop = torch.zeros(b, dtype=torch.bool, device=cuda)
+    with torch.no_grad():
+        teacher_got = teacher(xt, mel, text, draws.time, no_drop, no_drop).float()
+        with monkeypatch.context() as m:
+            m.setattr(modules, "dot_product_attention",
+                      lambda q, k, v, key_valid=None, rope=None:
+                      sa.serving_attention_reference(q, k, v, None, rope))
+            m.setattr(modules, "ln_mod_matmul", fm.ln_mod_matmul_reference)
+            teacher_want = teacher(xt, mel, text, draws.time, no_drop, no_drop).float()
+    teacher_err = float((teacher_got - teacher_want).abs().max() / teacher_want.abs().max())
+
+    def loss_and_grads(draws):
+        student.zero_grad(set_to_none=True)
+        loss, _ = distillation_losses(cfm, teacher, mel, text, lens, draws, DistillConfig())
+        loss.backward()
+        qkv = [p.grad.flatten() for name, p in student.named_parameters()
+               if name.split(".")[-2] in ("to_q", "to_k", "to_v")]
+        return (loss.item(), torch.cat([p.grad.flatten() for p in student.parameters()]),
+                torch.cat(qkv))
+
+    def distance(x, want):
+        return [float((x[i] - want[i]).norm() / want[i].norm()) for i in (1, 2)]
+
+    before = (sa.serving_attention.launches, fm.ln_mod_matmul.launches,
+              ta.flash_forward.launches, ta.flash_dq.launches, ta.flash_dkv.launches)
+    got = loss_and_grads(draws)
+    after = (sa.serving_attention.launches, fm.ln_mod_matmul.launches,
+             ta.flash_forward.launches, ta.flash_dq.launches, ta.flash_dkv.launches)
+    assert [a - c for a, c in zip(after, before)] == [3, 3, 2, 2, 2]
+    monkeypatch.setattr(ta.train_attention, "plain", True)
+    want = loss_and_grads(draws)
+    control = loss_and_grads(wrong)
+    err, ctl = distance(got, want), distance(control, want)
+    print(f"teacher error {teacher_err:.3g}; loss {got[0]:.6f} vs {want[0]:.6f}; gradient / "
+          f"q/k/v gradient relative L2 {err[0]:.3g} / {err[1]:.3g}, control {ctl[0]:.3g} / "
+          f"{ctl[1]:.3g}")
+    assert torch.isfinite(teacher_got).all() and teacher_err <= teacher_tol
+    assert math.isfinite(got[0]) and torch.isfinite(got[1]).all()
+    assert err[0] <= grad_tol < ctl[0] and err[1] <= qkv_grad_tol < ctl[1], (err, ctl)
+
+
+def test_predict_duration_frames_on_the_card_equals_the_cpu(cuda):
+    """The predictor's frame counts on the card equal the CPU's (TF32 off in
+    its convolutions), and an id outside its table raises on the host
+    before any lookup."""
+    from eraxvif5tts_tpu_torch.models.duration import (
+        DurationPredictor,
+        predict_duration_frames,
+    )
+
+    torch.manual_seed(3)
+    cpu = DurationPredictor(97).eval()
+    with torch.no_grad():
+        cpu.proj.bias.fill_(2.0)
+    card = DurationPredictor(97).to(cuda).eval()
+    card.load_state_dict(cpu.state_dict())
+    phoneme_map = {c: i + 1 for i, c in enumerate("abcdefghijklmnopqrstuvwxyz.,!?")}
+    texts = ("tonight the sea was calm, and the lamp turned.", "a", "xyz? no.",
+             "the keeper wrote one more line in the logbook " * 4)
+    for text in texts:
+        frames = predict_duration_frames(cpu, phoneme_map, text)
+        assert frames > 0 and predict_duration_frames(card, phoneme_map, text) == frames
+    with pytest.raises(ValueError, match="outside the duration predictor's table"):
+        predict_duration_frames(card, {"a": 1, "b": 200}, "ab")

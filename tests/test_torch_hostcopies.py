@@ -18,7 +18,9 @@ from eraxvif5tts_tpu.audio import io as jio
 from eraxvif5tts_tpu.audio.resample import resample as j_resample
 from eraxvif5tts_tpu.audio import silence as jsilence
 from eraxvif5tts_tpu.compression import convert as jconvert
+from eraxvif5tts_tpu.compression import pruner as jpruner
 from eraxvif5tts_tpu.text import chunk as jchunk
+from eraxvif5tts_tpu.text import phoneme as jphoneme
 from eraxvif5tts_tpu.text import pinyin as jpinyin
 from eraxvif5tts_tpu.text import tokenizer as jtokenizer
 from eraxvif5tts_tpu_torch import configs as tconfigs
@@ -26,7 +28,9 @@ from eraxvif5tts_tpu_torch.audio import io as tio
 from eraxvif5tts_tpu_torch.audio.resample import resample as t_resample
 from eraxvif5tts_tpu_torch.audio import silence as tsilence
 from eraxvif5tts_tpu_torch.compression import convert as tconvert
+from eraxvif5tts_tpu_torch.compression import pruner as tpruner
 from eraxvif5tts_tpu_torch.text import chunk as tchunk
+from eraxvif5tts_tpu_torch.text import phoneme as tphoneme
 from eraxvif5tts_tpu_torch.text import pinyin as tpinyin
 from eraxvif5tts_tpu_torch.text import tokenizer as ttokenizer
 
@@ -264,6 +268,54 @@ def _check_remat_policy(seed):
     assert tconfigs.REMAT_DOTS_MAX_FRAMES == jconfigs.REMAT_DOTS_MAX_FRAMES
 
 
+def _check_phoneme(seed):
+    for text in _texts(seed, 6):
+        assert tphoneme.phonemize(text) == jphoneme.phonemize(text)
+        for grow in (True, False):
+            got, want = tphoneme.PhonemeMap({"a": 1}), jphoneme.PhonemeMap({"a": 1})
+            assert (tphoneme.phoneme_to_indices(tphoneme.phonemize(text), got, grow=grow)
+                    == jphoneme.phoneme_to_indices(jphoneme.phonemize(text), want, grow=grow))
+            assert dict(got) == dict(want)
+            assert (tphoneme.text_to_phoneme_indices(text, dict(got))
+                    == jphoneme.text_to_phoneme_indices(text, dict(want)))
+    with pytest.raises(ValueError, match="only holds ids <= 2"):
+        tphoneme.phoneme_to_indices(list("xyz"), tphoneme.PhonemeMap({"a": 1}, max_index=2))
+
+
+def _check_pruner(seed):
+    """The numpy core of the pruner on a synthetic 8-block checkpoint (one
+    block constant, one the others' scale x 3): scores, the selection in
+    both modes, the re-indexing, the position prior and the embedding
+    growth, equal to the original's."""
+    rng = np.random.default_rng(seed)
+    sd = {"transformer.text_embed.text_embed.weight": rng.standard_normal((9, 4)),
+          "transformer.proj_out.weight": rng.standard_normal((3, 4))}
+    for i in range(8):
+        for name, shape in (("attn.to_q.weight", (16, 8)), ("ff.ff.2.bias", (8,)),
+                            ("attn_norm.linear.bias", (48,))):
+            scale = 3.0 if i == 5 else 1.0
+            sd[f"transformer.transformer_blocks.{i}.{name}"] = (
+                np.full(shape, 0.5) if i == 2 else scale * rng.standard_normal(shape))
+    sd = {k: v.astype(np.float32) for k, v in sd.items()}
+    scores, fallback = tpruner.block_importance_scores(sd)
+    assert (scores, fallback) == jpruner.block_importance_scores(sd) and not fallback
+    for target, manual in ((6, None), (4, None), (3, None), (5, [0, 2, 3, 6, 7])):
+        keep = tpruner.select_blocks_to_keep(scores, 8, target, manual)
+        assert keep == jpruner.select_blocks_to_keep(scores, 8, target, manual)
+        got, want = tpruner.prune_state_dict(sd, keep), jpruner.prune_state_dict(sd, keep)
+        assert list(got) == list(want)
+        for key in got:
+            np.testing.assert_array_equal(got[key], want[key])
+    flat = {k: np.zeros_like(v) for k, v in sd.items()}
+    assert tpruner.block_importance_scores(flat) == jpruner.block_importance_scores(flat)
+    for rows in (5, 20):
+        got = tpruner.expand_text_embedding(sd, rows, seed=seed)
+        want = jpruner.expand_text_embedding(sd, rows, seed=seed)
+        assert list(got) == list(want)
+        for key in got:
+            np.testing.assert_array_equal(got[key], want[key])
+
+
 CHECKS = {
     **{f"rules_{name}": (lambda seed, tmp_path, name=name: _check_rules(name))
        for name in _rules_cases()},
@@ -275,6 +327,8 @@ CHECKS = {
     "checkpoint_helpers": _check_checkpoint_helpers,
     "unstack_adapters": lambda seed, tmp_path: _check_unstack(seed),
     "remat_policy": lambda seed, tmp_path: _check_remat_policy(seed),
+    "phoneme": lambda seed, tmp_path: _check_phoneme(seed),
+    "pruner": lambda seed, tmp_path: _check_pruner(seed),
 }
 
 
