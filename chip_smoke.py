@@ -48,6 +48,24 @@ Phases (any failure raises and the script exits non-zero):
               kernels against plain, one `generate` at NFE 8, counters checked;
 5. server  -- the socket server on a free localhost port answers three
               requests and shuts down;
+5b. http   -- benchmark cell 4 on the main phase's wrapper: the port's HTTP
+              server (`serving/http_server.py`) on a free localhost port in a
+              thread with its own event loop, the bundled clip uploaded as
+              multipart, three streams at NFE 32 (by `reference_id`, by the
+              `speaker` alias, seeded), then two seeded streams one after the
+              other and at once: the chunked WAV header and int16 PCM, the
+              seeded stream equal to `generate`'s PCM and the concurrent
+              streams to the serial ones bit for bit, kernels 1 and 2
+              launched 22 x 32 per chunk (summed over concurrent streams),
+              time to the first PCM bytes and RTF per stream, `generate`'s
+              wall on and off the main thread, no thread left after the
+              shutdown;
+5c. edit   -- `edit_speech` of the bundled clip with one span at NFE 32 (kept
+              frames equal to the prompt mel, 22 x 32 launches of kernels 1
+              and 2), then `python -m eraxvif5tts_tpu_torch.infer.infer_cli`
+              with the bundled basic.toml and no --device as a subprocess, on
+              a reference-format checkpoint of the main wrapper's weights:
+              its WAV checked;
 6. int8    -- int8 W8A8 serving at the same width: a seeded N(0, 0.02)
               reference-format checkpoint, `F5TTSWrapper(compute_dtype="int8",
               int8_validate=True)` quantizing it at load behind the quality
@@ -1291,6 +1309,334 @@ def phase_server(wrapper, ref, texts=TEXTS, tag: str = "[server]", nfe: int = NF
     log(f"{tag} socket server shut down")
 
 
+HTTP_CHUNK_CHARS = 100  # the HTTP server's text_chunk_size (`ServerConfig` default)
+HTTP_SEED = SEED + 7
+
+
+def multipart_body(fields: dict, boundary: str = "smoke-boundary") -> tuple[bytes, dict]:
+    """A multipart/form-data body: bytes values as file fields, the rest text."""
+    body = b""
+    for name, value in fields.items():
+        if isinstance(value, bytes):
+            body += (f'--{boundary}\r\ncontent-disposition: form-data; name="{name}"; '
+                     f'filename="ref.wav"\r\ncontent-type: audio/wav\r\n\r\n').encode()
+            body += value + b"\r\n"
+        else:
+            body += (f'--{boundary}\r\ncontent-disposition: form-data; name="{name}"'
+                     f"\r\n\r\n{value}\r\n").encode()
+    return (body + f"--{boundary}--\r\n".encode(),
+            {"content-type": f"multipart/form-data; boundary={boundary}"})
+
+
+def http_stream(port: int, request: dict) -> dict:
+    """One `POST /tts/stream`: the WAV header, the int16 PCM after it, the
+    seconds to the first PCM bytes (cell 4's first-chunk latency) and to the
+    end of the stream."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    t0 = time.perf_counter()
+    conn.request("POST", "/tts/stream", body=json.dumps(request),
+                 headers={"content-type": "application/json"})
+    resp = conn.getresponse()
+    if resp.status != 200:
+        raise AssertionError(f"POST /tts/stream {request}: HTTP {resp.status} {resp.read()!r}")
+    header = resp.read(44)
+    first_bytes = resp.read(2)
+    first = time.perf_counter() - t0
+    pcm = first_bytes + resp.read()
+    total = time.perf_counter() - t0
+    conn.close()
+    return dict(header=header, pcm=pcm, first_s=first, total_s=total)
+
+
+def thread_costs(call) -> str:
+    """Wall seconds of ``call`` (ending in a device sync), twice in a row on
+    the main thread, on one new thread and on an `asyncio.to_thread` worker:
+    what running a request off the main thread costs the host-bound loop."""
+    import asyncio
+
+    import torch
+
+    def timed() -> float:
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    walls = {"main thread": [timed(), timed()]}
+    box = []
+    worker = threading.Thread(target=lambda: box.extend([timed(), timed()]))
+    worker.start()
+    worker.join(600)
+    walls["a new thread"] = box
+
+    async def off_loop():
+        return [await asyncio.to_thread(timed), await asyncio.to_thread(timed)]
+
+    walls["asyncio.to_thread"] = asyncio.run(off_loop())
+    return "; ".join(f"{where} {a:.3f} / {b:.3f} s" for where, (a, b) in walls.items())
+
+
+def phase_http(wrapper, tag: str = "[http]") -> None:
+    """Benchmark cell 4 on the main phase's wrapper: the port's HTTP server on a
+    free localhost port, in a thread with its own event loop; the bundled clip
+    uploaded as multipart and polled until ready; three streams at NFE 32 (by
+    `reference_id`, by the `speaker` alias, seeded), then two seeded streams
+    one after the other and at once. Checks the chunked WAV header and int16
+    PCM, the seeded stream against the wrapper's own `generate` bit for bit,
+    the concurrent streams against the serial ones bit for bit, kernels 1 and 2 launched depth x NFE
+    times per generated chunk (summed over the concurrent streams), and that
+    the server stops with no thread or loop error left."""
+    import http.client
+
+    import numpy as np
+
+    from eraxvif5tts_tpu_torch.serving.http_server import ServerConfig, ServerThread, TTSServer
+    from eraxvif5tts_tpu_torch.serving.wave_stream import (
+        create_wave_header,
+        float_to_int16_bytes,
+    )
+    from eraxvif5tts_tpu_torch.text.chunk import chunk_text
+
+    depth, sr = wrapper.config.arch.depth, wrapper.target_sample_rate
+    threads_before = set(threading.enumerate())
+    server = TTSServer(wrapper, ServerConfig(host="127.0.0.1", port=0, nfe_step=NFE,
+                                             text_chunk_size=HTTP_CHUNK_CHARS))
+    runner = ServerThread(server)
+    loop_errors = []
+    runner.loop.set_exception_handler(lambda loop, ctx: loop_errors.append(ctx))
+    chunks = []  # one entry per generated chunk, from any worker thread
+    sample_vocode = wrapper._sample_vocode
+
+    def counted(*args, **kwargs):
+        chunks.append(kwargs["max_duration"])
+        return sample_vocode(*args, **kwargs)
+
+    wrapper._sample_vocode = counted
+    port = runner.start()
+    log(f"{tag} HTTP server on 127.0.0.1:{port}, NFE {NFE}, text chunks of "
+        f"<= {HTTP_CHUNK_CHARS} chars, {server.config.max_concurrent_generations} "
+        "generations at once")
+    try:
+        example = ROOT / "eraxvif5tts_tpu" / "infer" / "examples" / "basic"
+        ref_text = tomllib.loads((example / "basic.toml").read_text())["ref_text"]
+        body, headers = multipart_body({"reference_id": "clip", "ref_text": ref_text,
+                                        "file": (example / "basic_ref_en.wav").read_bytes()})
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        t0 = time.perf_counter()
+        conn.request("POST", "/upload_reference", body=body, headers=headers)
+        resp = conn.getresponse()
+        if resp.status != 202:
+            raise AssertionError(f"upload: HTTP {resp.status} {resp.read()!r}")
+        resp.read()
+        while True:
+            conn.request("GET", "/references")
+            status = json.loads(conn.getresponse().read())["references"].get("clip", {})
+            if status.get("status") == "ready":
+                break
+            if not status or time.perf_counter() - t0 > 120:
+                raise AssertionError(f"uploaded reference not ready: {status}")
+            time.sleep(0.05)
+        conn.close()
+        ref = server.references["clip"]
+        log(f"{tag} upload + preprocess of the bundled clip: ready after "
+            f"{time.perf_counter() - t0:.3f} s ({status['duration_seconds']} s of audio)")
+
+        def run(requests, concurrent=False):
+            reset_serving_counts()
+            n0 = len(chunks)
+            out = [None] * len(requests)
+
+            def one(i):
+                out[i] = http_stream(port, requests[i])
+
+            if concurrent:
+                workers = [threading.Thread(target=one, args=(i,)) for i in range(len(requests))]
+                for w in workers:
+                    w.start()
+                for w in workers:
+                    w.join(600)
+            else:
+                for i in range(len(requests)):
+                    one(i)
+            if any(r is None for r in out):
+                raise AssertionError(f"{tag} a stream did not complete")
+            made = len(chunks) - n0
+            rose = serving_counts()
+            want = {name: depth * NFE * made if name in ("serving_attention", "ln_mod_matmul")
+                    else 0 for name in rose}
+            if rose != want:
+                raise AssertionError(f"{tag} launches {rose}, expected {want} "
+                                     f"({depth} x {NFE} x {made} chunks)")
+            return out, made, rose
+
+        def check(result, request, label):
+            if result["header"] != create_wave_header(sr):
+                raise AssertionError(f"{tag} {label}: not the streaming WAV header")
+            pcm = np.frombuffer(result["pcm"], "<i2")
+            if len(result["pcm"]) % 2 or not len(pcm) or np.abs(pcm).max() < 30:
+                raise AssertionError(f"{tag} {label}: int16 PCM empty, odd or silent")
+            audio = len(pcm) / sr
+            pieces = len(chunk_text(request["text"], max_chars=HTTP_CHUNK_CHARS))
+            log(f"{tag} {label}: {pieces} text piece(s), {audio:.2f} s of int16 audio; first "
+                f"PCM bytes after {result['first_s']:.3f} s, stream done in "
+                f"{result['total_s']:.3f} s (RTF {result['total_s'] / audio:.4f})")
+            return audio
+
+        requests = [dict(text=TEXTS[0], reference_id="clip", nfe_step=NFE),
+                    dict(text=TEXTS[1], speaker="clip", nfe_step=NFE),
+                    dict(text=TEXTS[2], reference_id="clip", nfe_step=NFE, seed=HTTP_SEED)]
+        labels = ["stream by reference_id", "stream by the speaker alias", "seeded stream"]
+        out, made, rose = run(requests)
+        audio = sum(check(r, q, label) for r, q, label in zip(out, requests, labels))
+        wall = sum(r["total_s"] for r in out)
+        log(f"{tag} 3 streams one after another: {made} chunks, launches {rose}; "
+            f"{audio:.2f} s of audio in {wall:.3f} s (RTF {wall / audio:.4f})")
+
+        want = b"".join(float_to_int16_bytes(wrapper.generate(
+            piece, ref=ref, nfe_step=NFE, seed=HTTP_SEED, return_numpy=True))
+            for piece in chunk_text(TEXTS[2], max_chars=HTTP_CHUNK_CHARS))
+        got = out[2]["pcm"]
+        if got != want:
+            a, b = (np.frombuffer(x, "<i2").astype(np.int32) for x in (got, want))
+            diff = (f"{int(np.abs(a - b).max())} LSB at most" if len(a) == len(b)
+                    else f"{len(a)} vs {len(b)} samples")
+            raise AssertionError(f"{tag} the seeded stream differs from generate(seed="
+                                 f"{HTTP_SEED}): {diff}")
+        log(f"{tag} the seeded stream's PCM equals generate(seed={HTTP_SEED}) through "
+            f"float_to_int16_bytes bit for bit ({len(got) // 2} samples)")
+        log(f"{tag} the same generate, twice in each thread: " + thread_costs(
+            lambda: wrapper.generate(TEXTS[2], ref=ref, nfe_step=NFE, seed=HTTP_SEED)))
+
+        requests = [dict(text=TEXTS[0], reference_id="clip", nfe_step=NFE, seed=HTTP_SEED),
+                    dict(text=TEXTS[2], speaker="clip", nfe_step=NFE, seed=HTTP_SEED + 1)]
+        walls, pcm = {}, {}
+        for mode in ("serial", "concurrent"):
+            t0 = time.perf_counter()
+            out, made, rose = run(requests, concurrent=mode == "concurrent")
+            walls[mode] = time.perf_counter() - t0
+            pcm[mode] = [r["pcm"] for r in out]
+            audio = sum(check(r, q, f"{mode} stream #{i}")
+                        for i, (r, q) in enumerate(zip(out, requests)))
+            log(f"{tag} the 2 seeded streams, {mode}: {made} chunks, launches {rose} "
+                f"(summed); {audio:.2f} s of audio in {walls[mode]:.3f} s of wall "
+                f"({audio / walls[mode]:.2f} s of audio per wall s)")
+        if pcm["serial"] != pcm["concurrent"]:
+            raise AssertionError(f"{tag} concurrent streams differ from the same streams "
+                                 "one after another")
+        log(f"{tag} concurrent streams' PCM equals the serial streams' bit for bit; "
+            f"concurrent / serial audio per wall s: "
+            f"{walls['serial'] / walls['concurrent']:.3f}")
+    finally:
+        wrapper._sample_vocode = sample_vocode
+        runner.stop()
+    left = [t.name for t in set(threading.enumerate()) - threads_before]
+    if left or loop_errors:
+        raise AssertionError(f"{tag} after shutdown: threads {left}, loop errors {loop_errors}")
+    log(f"{tag} HTTP server shut down: no thread left, no loop error")
+
+
+def save_reference_vocoder(path: Path, vocoder) -> None:
+    """A reference-format Vocos checkpoint of ``vocoder`` (with the window
+    buffers the published file carries)."""
+    import torch
+
+    sd = {k: v.cpu() for k, v in vocoder.state_dict().items()}
+    sd["head.istft.window"] = torch.hann_window(vocoder.head.n_fft)
+    sd["feature_extractor.mel_spec.spectrogram.window"] = torch.hann_window(
+        vocoder.head.n_fft)
+    torch.save(sd, path)
+
+
+EDIT_SPAN = (1.1, 1.7)  # seconds of the bundled 3 s clip, regenerated
+
+
+def phase_edit(wrapper, dev, tag: str = "[edit]") -> None:
+    """Speech editing and the CLI on the card: `edit_speech` of the bundled
+    clip with one span at NFE 32 (finite, the kept frames of its mel equal to
+    the prompt mel pasted back, kernels 1 and 2 launched depth x NFE times),
+    then `python -m eraxvif5tts_tpu_torch.infer.infer_cli` with the bundled
+    basic.toml and no --device, as a subprocess, on a reference-format
+    checkpoint and Vocos file of the main wrapper's weights and a vocab
+    file; its WAV is checked."""
+    import numpy as np
+    import torch
+
+    from eraxvif5tts_tpu_torch.audio.io import read_wav
+    from eraxvif5tts_tpu_torch.infer.speech_edit import edit_inputs, edit_speech
+
+    example = ROOT / "eraxvif5tts_tpu" / "infer" / "examples" / "basic"
+    config = tomllib.loads((example / "basic.toml").read_text())
+    audio, sr = read_wav(str(example / "basic_ref_en.wav"))
+    if sr != wrapper.target_sample_rate:
+        raise AssertionError(f"{tag} the bundled clip is at {sr} Hz")
+    audio = audio.mean(axis=0)
+    depth, hop = wrapper.config.arch.depth, wrapper.hop_length
+    target = config["ref_text"].replace("one line", "two lines")
+    reset_serving_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wave, mel, keep = edit_speech(wrapper, audio, config["ref_text"], target, [EDIT_SPAN],
+                                  nfe_step=NFE, seed=SEED, return_mel=True)
+    wall = time.perf_counter() - t0
+    rose = serving_counts()
+    want = {name: depth * NFE if name in ("serving_attention", "ln_mod_matmul") else 0
+            for name in rose}
+    if rose != want:
+        raise AssertionError(f"{tag} edit_speech launches {rose}, expected {want}")
+    if not (np.isfinite(wave).all() and np.isfinite(mel).all() and len(wave) > 0):
+        raise AssertionError(f"{tag} edit_speech output is not finite")
+    edited_wave, mask = edit_inputs(audio, [EDIT_SPAN], None, sr, hop)
+    if not np.array_equal(mask, keep):
+        raise AssertionError(f"{tag} edit mask differs from edit_inputs'")
+    with torch.inference_mode():
+        cond = wrapper.mel_spec(torch.from_numpy(edited_wave[None]).to(dev))
+    cond = cond.transpose(1, 2)[0, :len(mask)].cpu().numpy()
+    if not np.array_equal(mel.T[mask], cond[mask]):
+        raise AssertionError(f"{tag} kept frames are not the prompt mel pasted back")
+    log(f"{tag} edit_speech of {len(audio) / sr:.2f} s, span {EDIT_SPAN} s "
+        f"({int((~keep).sum())} of {len(keep)} frames regenerated) at NFE {NFE}: "
+        f"{wall:.3f} s; launches {rose}; kept frames equal the prompt mel")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        save_reference_checkpoint_of(tmp / "model.pt", wrapper.transformer)
+        save_reference_vocoder(tmp / "vocos.pt", wrapper.vocoder)
+        (tmp / "vocab.txt").write_text("\n".join(VOCAB_CHARS) + "\n", encoding="utf-8")
+        written = time.perf_counter() - t0
+        cmd = [sys.executable, "-m", "eraxvif5tts_tpu_torch.infer.infer_cli",
+               "-c", str(example / "basic.toml"), "-p", str(tmp / "model.pt"),
+               "--vocoder_ckpt", str(tmp / "vocos.pt"), "-v", str(tmp / "vocab.txt"),
+               "-o", str(tmp), "-w", "cli.wav", "--seed", str(SEED)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        cli_wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"{tag} infer_cli exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        lines = proc.stdout.strip().splitlines()
+        if not any(" on cuda" in line for line in lines):
+            raise AssertionError(f"{tag} infer_cli did not run on the card: {lines}")
+        cli_wave, cli_sr = read_wav(str(tmp / "cli.wav"))
+        if not (cli_sr == sr and cli_wave.shape[1] > sr and np.isfinite(cli_wave).all()
+                and np.abs(cli_wave).max() > 1e-3):
+            raise AssertionError(f"{tag} infer_cli's WAV is empty, short or silent")
+    log(f"{tag} checkpoint + vocoder + vocab written in {written:.1f} s; `python -m "
+        f"eraxvif5tts_tpu_torch.infer.infer_cli -c basic.toml` (no --device) said "
+        f"{lines[0]!r} and wrote {cli_wave.shape[1] / cli_sr:.2f} s of audio in "
+        f"{cli_wall:.1f} s of process wall (start-up and checkpoint load included)")
+
+
+def save_reference_checkpoint_of(path: Path, backbone) -> None:
+    """A reference-format checkpoint (EMA keys, fp32) of ``backbone``'s weights."""
+    import torch
+
+    torch.save({f"ema_model.transformer.{k}": (v.float() if v.is_floating_point() else v).cpu()
+                for k, v in backbone.state_dict().items()}, path)
+
+
 def load_reference(wrapper):
     """The bundled reference clip and its transcript, preprocessed."""
     example = ROOT / "eraxvif5tts_tpu" / "infer" / "examples" / "basic"
@@ -1304,14 +1650,11 @@ def save_reference_checkpoint(path: Path, cfg, dev) -> None:
     SEED + 3. The int8 wrapper must quantize real weights at load: its int8
     buffers cannot be redrawn after the build, and a fresh initialisation is
     degenerate for int8 (its zero AdaLN gates zero every quantized product)."""
-    import torch
-
     from eraxvif5tts_tpu_torch.models import build_backbone
 
     backbone = build_backbone(cfg, len(VOCAB_CHARS)).to(dev)
     randomize((backbone,), SEED + 3)
-    torch.save({f"ema_model.transformer.{k}": v.cpu()
-                for k, v in backbone.state_dict().items()}, path)
+    save_reference_checkpoint_of(path, backbone)
 
 
 def with_int8_ff(flag: bool, fn, *args, **kwargs):
@@ -2103,6 +2446,8 @@ def main() -> int:
     kernel_results = phase_kernels(dev)
     wrapper, ref, launches = phase_main(dev)
     phase_server(wrapper, ref)
+    phase_http(wrapper)
+    phase_edit(wrapper, dev)
     cfg = wrapper.config
     del wrapper, ref
     launches["int8_ff"], ff_err = phase_int8(dev, cfg)

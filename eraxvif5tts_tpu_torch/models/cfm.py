@@ -16,8 +16,13 @@ argument (:class:`LossDraws`): the trainer draws them from the step's
 generator, the tests from ``jax.random`` in the JAX order. As in the JAX
 package, the loss runs the transformer with no mask: training attention runs
 unmasked over the padded frames, and only the loss is masked (to the random
-span inside each sample). ``edit_mask``, ``no_ref_audio``, ``t_start`` and
-``t_inter_cond`` wait for the speech-edit port.
+span inside each sample).
+
+``sample`` also takes the JAX sampler's editing inputs: ``edit_mask`` (frames
+kept from ``cond``; it narrows the conditioning only, the attention key mask
+stays the duration prefix that the serving attention kernel takes),
+``no_ref_audio`` (``cond`` zeroed) and ``t_start`` / ``t_inter_cond`` (the
+ODE started at an intermediate time from a blended state).
 """
 
 from __future__ import annotations
@@ -41,9 +46,10 @@ class SamplingConfig:
     max_duration: int = 4096
 
 
-def sway_time_grid(steps: int, sway_coef: Optional[float]) -> torch.Tensor:
-    """``steps + 1`` float32 times on [0, 1], sway-warped when ``sway_coef``."""
-    t = torch.linspace(0.0, 1.0, steps + 1, dtype=torch.float32)
+def sway_time_grid(steps: int, sway_coef: Optional[float],
+                   t_start: float = 0.0) -> torch.Tensor:
+    """``steps + 1`` float32 times on [t_start, 1], sway-warped when ``sway_coef``."""
+    t = torch.linspace(t_start, 1.0, steps + 1, dtype=torch.float32)
     if sway_coef is not None:
         t = t + sway_coef * (torch.cos(math.pi / 2.0 * t) - 1.0 + t)
     return t
@@ -131,14 +137,26 @@ class CFM:
     def sample(self, cond: torch.Tensor, text: torch.Tensor, duration: torch.Tensor,
                lens: torch.Tensor, noise: torch.Tensor, steps: int = 32,
                cfg_strength: float = 2.0, sway_sampling_coef: Optional[float] = -1.0,
-               max_duration: int = 4096, use_cfg: bool = True) -> torch.Tensor:
+               max_duration: int = 4096, use_cfg: bool = True,
+               edit_mask: Optional[torch.Tensor] = None, no_ref_audio: bool = False,
+               t_start: float = 0.0,
+               t_inter_cond: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Integrate noise -> mel.
 
         cond ``[b, n_cond, d]`` prompt mel (``n_cond <= max_duration``); text
         ``[b, nt]`` ids, -1 padded; duration / lens ``[b]`` total and prompt
         frames; noise ``[max_duration, d]``, shared by every sample. Returns
         ``[b, max_duration, d]`` float32: zero past each sample's duration,
-        the prompt region pasted back from ``cond``."""
+        the prompt region pasted back from ``cond``.
+
+        ``edit_mask [b, <= max_duration]`` (True = kept) is padded with False
+        and ANDed into the prompt mask; ``no_ref_audio`` zeroes ``cond``. With
+        ``t_start > 0`` the time grid starts at ``t_start``, and with
+        ``t_inter_cond [b, <= max_duration, d]`` the start state is
+        ``(1 - t_start) * noise + t_start * t_inter_cond``, masked to each
+        duration; without it integration starts from the noise (as the JAX
+        sampler: only the pair is the reference's intermediate start). The
+        caller passes the step count for the shorter interval."""
         b, n_cond, d = cond.shape
         if d != self.num_channels:
             raise ValueError(f"cond has {d} channels, the model {self.num_channels}")
@@ -150,13 +168,24 @@ class CFM:
         duration = duration.clamp(max=max_duration)
 
         cond = torch.nn.functional.pad(cond.float(), (0, 0, 0, max_duration - n_cond))
+        if no_ref_audio:
+            cond = torch.zeros_like(cond)
         cond_mask = lens_to_mask(lens, max_duration)
+        if edit_mask is not None:
+            em = edit_mask.to(device=device, dtype=torch.bool)
+            cond_mask = cond_mask & torch.nn.functional.pad(
+                em, (0, max_duration - em.shape[-1]))
         step_cond = cond.masked_fill(~cond_mask[..., None], 0.0)
         frame_mask = lens_to_mask(duration, max_duration)
 
         y = noise.to(device=device, dtype=torch.float32)[None].expand(b, -1, -1)
         y = y.masked_fill(~frame_mask[..., None], 0.0)
-        t_grid = sway_time_grid(steps, sway_sampling_coef)
+        if t_start > 0.0 and t_inter_cond is not None:
+            inter = t_inter_cond.to(device=device, dtype=torch.float32)
+            inter = torch.nn.functional.pad(inter, (0, 0, 0, max_duration - inter.shape[1]))
+            y = (1.0 - t_start) * y + t_start * inter
+            y = y.masked_fill(~frame_mask[..., None], 0.0)
+        t_grid = sway_time_grid(steps, sway_sampling_coef, t_start)
 
         false_b = torch.zeros(b, dtype=torch.bool, device=device)
         true_b = torch.ones(b, dtype=torch.bool, device=device)

@@ -152,7 +152,9 @@ class DiT(nn.Module):
         Euler loop never copies them from the host."""
         key = (seq_len, torch.device(device))
         if key not in self._rope:
-            self._rope[key] = rotary_freqs(seq_len, self.arch.dim_head, device=device)
+            # setdefault: threads that race here all take the one table kept
+            self._rope.setdefault(key, rotary_freqs(seq_len, self.arch.dim_head,
+                                                    device=device))
         return self._rope[key]
 
     def embed_text(self, text: torch.Tensor, seq_len: int,

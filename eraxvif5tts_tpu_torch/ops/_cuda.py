@@ -74,6 +74,10 @@ class Kernels:
 
 _lock = threading.Lock()
 _loaded: Kernels | None = None
+# Every wrapper bumps its launch counters under this lock: several threads
+# may launch at once (the HTTP server's generations), and ``+=`` on an
+# attribute is a read and a write another thread can come between.
+COUNT_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:

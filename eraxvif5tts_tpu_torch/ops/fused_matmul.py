@@ -269,8 +269,9 @@ def ln_mod_matmul(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
             int(activation == "gelu_tanh"), _NORM_CODES[norm], eps,
             _cuda.stream_ptr(x.device))
     _cuda.check(code, "ln_mod_matmul")
-    ln_mod_matmul.launches += 1
-    ln_mod_matmul.launches_by_norm[norm] += 1
+    with _cuda.COUNT_LOCK:
+        ln_mod_matmul.launches += 1
+        ln_mod_matmul.launches_by_norm[norm] += 1
     return out
 
 
@@ -331,7 +332,8 @@ def matmul_gate_res(h: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
             res.data_ptr(), lens.data_ptr() if mask_rows else None, out.data_ptr(),
             b, m, k, n, int(mask_rows), _cuda.stream_ptr(h.device))
     _cuda.check(code, "matmul_gate_res")
-    matmul_gate_res.launches += 1
+    with _cuda.COUNT_LOCK:
+        matmul_gate_res.launches += 1
     return out
 
 

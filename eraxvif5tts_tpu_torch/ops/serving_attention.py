@@ -18,7 +18,9 @@ is no fallback. The kernel is the forward core of `csrc/flash_forward.cuh`
 (`ops/train_attention.py` ``forward_geometry`` states its launch); it reads
 fp32 cos / sin tables, which :func:`rope_tables` makes once per angle table
 and keeps, so a call in the Euler loop does no host work for them (nor for
-the ``lens=None`` vector). The kernel's online softmax rounds the unnormalised P to bf16 where the TPU
+the ``lens=None`` vector). Several threads may call it at once (the HTTP
+server runs up to four generations on one wrapper): the two caches change
+under a lock, the launch counters under ``_cuda.COUNT_LOCK``. The kernel's online softmax rounds the unnormalised P to bf16 where the TPU
 kernel rounds the normalised P: the two agree to bf16 rounding of the output
 (the card-side check in `chip_smoke.py` states its tolerance).
 """
@@ -26,6 +28,7 @@ kernel rounds the normalised P: the two agree to bf16 rounding of the output
 from __future__ import annotations
 
 import math
+import threading
 from collections import OrderedDict
 
 import torch
@@ -92,9 +95,12 @@ def _check_cuda_args(q, k, v, lens, rope) -> None:
 
 # What the kernel reads beside q, k, v, kept across calls: per angle table its
 # fp32 cos / sin tables, per (b, n, device) the lengths of ``lens=None``.
+# ``_LOCK`` guards both: between one thread's lookup and its ``move_to_end``
+# another thread's eviction could drop the key.
 _TABLES: OrderedDict = OrderedDict()     # id(rope) -> (rope, cos, sin)
 _FULL_LENS: OrderedDict = OrderedDict()  # (b, n, device) -> int32 [b]
 _CACHE_SIZE = 32
+_LOCK = threading.Lock()
 
 
 def _remember(cache: OrderedDict, key, value):
@@ -109,23 +115,26 @@ def rope_tables(rope: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     ``rope``, made once per angle table: the cache is keyed by the tensor
     itself (and holds it, so its identity cannot pass to another table) and
     takes it as immutable, as the models keep theirs per length."""
-    hit = _TABLES.get(id(rope))
-    if hit is not None and hit[0] is rope:
-        _TABLES.move_to_end(id(rope))
-        return hit[1], hit[2]
+    with _LOCK:
+        hit = _TABLES.get(id(rope))
+        if hit is not None and hit[0] is rope:
+            _TABLES.move_to_end(id(rope))
+            return hit[1], hit[2]
     rope32 = rope.float()
     cos, sin = rope32.cos().contiguous(), rope32.sin().contiguous()
-    _remember(_TABLES, id(rope), (rope, cos, sin))
+    with _LOCK:
+        _remember(_TABLES, id(rope), (rope, cos, sin))
     return cos, sin
 
 
 def _full_lens(b: int, n: int, device: torch.device) -> torch.Tensor:
     """``lens`` of a call without a mask: every key valid."""
     key = (b, n, device)
-    hit = _FULL_LENS.get(key)
-    if hit is None:
-        hit = _remember(_FULL_LENS, key,
-                        torch.full((b,), n, dtype=torch.int32, device=device))
+    with _LOCK:
+        hit = _FULL_LENS.get(key)
+        if hit is None:
+            hit = _remember(_FULL_LENS, key,
+                            torch.full((b,), n, dtype=torch.int32, device=device))
     return hit
 
 
@@ -160,8 +169,9 @@ def serving_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             out.data_ptr(), b, n, h, int(rope is not None), 1.0 / math.sqrt(d),
             _cuda.stream_ptr(q.device))
     _cuda.check(code, "serving_attention")
-    serving_attention.launches += 1
-    serving_attention.launches_by_rope[rope is not None] += 1
+    with _cuda.COUNT_LOCK:
+        serving_attention.launches += 1
+        serving_attention.launches_by_rope[rope is not None] += 1
     return out
 
 

@@ -275,7 +275,8 @@ def flash_forward(q, k, v, lens, dropout_rate: float = 0.0,
             lse.data_ptr(), b, n, h, 1.0 / math.sqrt(d), *_dropout_args(dropout_rate, seed),
             _cuda.stream_ptr(q.device))
     _cuda.check(code, "train_attention forward")
-    flash_forward.launches += 1
+    with _cuda.COUNT_LOCK:
+        flash_forward.launches += 1
     return out, lse
 
 
@@ -305,7 +306,8 @@ def flash_dq(q, k, v, lens, lse, dd, dout, dropout_rate: float = 0.0,
             dd.data_ptr(), lens.data_ptr(), dq.data_ptr(), b, n, h, 1.0 / math.sqrt(d),
             *_dropout_args(dropout_rate, seed), _cuda.stream_ptr(q.device))
     _cuda.check(code, "train_attention dq")
-    flash_dq.launches += 1
+    with _cuda.COUNT_LOCK:
+        flash_dq.launches += 1
     return dq
 
 
@@ -324,7 +326,8 @@ def flash_dkv(q, k, v, lens, lse, dd, dout, dropout_rate: float = 0.0,
             dd.data_ptr(), lens.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, n, h,
             1.0 / math.sqrt(d), *_dropout_args(dropout_rate, seed), _cuda.stream_ptr(q.device))
     _cuda.check(code, "train_attention dk/dv")
-    flash_dkv.launches += 1
+    with _cuda.COUNT_LOCK:
+        flash_dkv.launches += 1
     return dk, dv
 
 

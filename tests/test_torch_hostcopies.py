@@ -316,6 +316,171 @@ def _check_pruner(seed):
             np.testing.assert_array_equal(got[key], want[key])
 
 
+def _check_wave_stream(seed):
+    from eraxvif5tts_tpu.serving import wave_stream as jws
+    from eraxvif5tts_tpu_torch.serving import wave_stream as tws
+
+    for sr, bits, channels in ((24000, 16, 1), (16000, 16, 2), (44100, 32, 1)):
+        assert (tws.create_wave_header(sr, bits, channels)
+                == jws.create_wave_header(sr, bits, channels))
+    wave = np.random.default_rng(seed).standard_normal(999) * 0.7
+    wave[:3] = (1.5, -2.0, 0.0)
+    assert tws.float_to_int16_bytes(wave) == jws.float_to_int16_bytes(wave)
+
+
+def _check_socket_client(seed):
+    """Both clients against one server thread that streams float32 frames in
+    odd-sized pieces and ends with END: the same waveform back."""
+    import asyncio
+    import socket
+    import threading
+
+    from eraxvif5tts_tpu.serving import socket_client as jsc
+    from eraxvif5tts_tpu_torch.serving import socket_client as tsc
+
+    payload = np.random.default_rng(seed).standard_normal(3001).astype(np.float32).tobytes()
+    srv = socket.socket()
+    srv.bind(("127.0.0.1", 0))
+    srv.listen()
+    port = srv.getsockname()[1]
+
+    def serve(n):
+        for _ in range(n):
+            conn, _ = srv.accept()
+            with conn:
+                assert conn.recv(1024) == "xin chào".encode("utf-8")
+                for i in range(0, len(payload), 1001):
+                    conn.sendall(payload[i: i + 1001])
+                conn.sendall(b"END")
+
+    thread = threading.Thread(target=serve, args=(2,))
+    thread.start()
+    try:
+        got = asyncio.run(tsc.listen_to_f5tts("xin chào", "127.0.0.1", port, play=False))
+        want = asyncio.run(jsc.listen_to_f5tts("xin chào", "127.0.0.1", port, play=False))
+    finally:
+        thread.join(30)
+        srv.close()
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[0], np.frombuffer(payload, np.float32))
+    assert got[1] is not None and got[1] >= 0
+
+
+def _check_parse_multipart(seed):
+    from eraxvif5tts_tpu.serving.http_server import _parse_multipart as j_parse
+    from eraxvif5tts_tpu_torch.serving.http_server import _parse_multipart as t_parse
+
+    rng = np.random.default_rng(seed)
+    blob = rng.integers(0, 256, 777, dtype=np.uint8).tobytes()
+    for boundary in ("x123", '"quoted-b"', "----WebKitFormBoundary7MA4YWxk"):
+        b = boundary.strip('"')
+        body = (f'--{b}\r\ncontent-disposition: form-data; name="reference_id"\r\n\r\n'
+                f'voice_1\r\n--{b}\r\ncontent-disposition: form-data; name="ref_text"\r\n'
+                f'\r\nxin chào các bạn\r\n--{b}\r\ncontent-disposition: form-data; '
+                f'name="file"; filename="a.wav"\r\ncontent-type: audio/wav\r\n\r\n'
+                ).encode() + blob + f"\r\n--{b}\r\nno-headers-here\r\n--{b}--\r\n".encode()
+        ctype = f"multipart/form-data; boundary={boundary}"
+        assert t_parse(ctype, body) == j_parse(ctype, body)
+    with pytest.raises(ValueError) as got:
+        t_parse("multipart/form-data", b"")
+    with pytest.raises(ValueError) as want:
+        j_parse("multipart/form-data", b"")
+    assert str(got.value) == str(want.value)
+
+
+def _check_parse_spans(seed):
+    from eraxvif5tts_tpu.infer.speech_edit import parse_spans as j_parse
+    from eraxvif5tts_tpu_torch.infer.speech_edit import parse_spans as t_parse
+
+    rng = np.random.default_rng(seed)
+    for _ in range(20):
+        cuts = np.round(np.sort(rng.uniform(0, 30, 2 * rng.integers(1, 5))), 3)
+        text = ",".join(f"{a}:{b}" for a, b in zip(cuts[::2], cuts[1::2]))
+        assert t_parse(text) == j_parse(text)
+
+
+def _check_split_voice_chunks(seed):
+    from eraxvif5tts_tpu.infer.infer_cli import split_voice_chunks as j_split
+    from eraxvif5tts_tpu_torch.infer.infer_cli import split_voice_chunks as t_split
+
+    rng = random.Random(seed)
+    for text in _texts(seed):
+        words = text.split(" ")
+        for _ in range(3):
+            words.insert(rng.randrange(len(words) + 1), rng.choice(("[main]", "[town]",
+                                                                     "[a_1]", "[]", "[x y]")))
+        tagged = " ".join(words)
+        assert t_split(tagged) == j_split(tagged)
+
+
+def _check_merge_config(seed, tmp_path):
+    from eraxvif5tts_tpu.infer import infer_cli as jcli
+    from eraxvif5tts_tpu_torch.infer import infer_cli as tcli
+
+    toml = tmp_path / "c.toml"
+    toml.write_text('model = "E2TTS_Base"\nnfe_step = 16\nspeed = 0.9\nremove_silence = true\n'
+                    '[voices.town]\nref_audio = "t.wav"\nref_text = ""\n')
+    rng = random.Random(seed)
+    flags = [["--nfe_step", "8"], ["--speed", "1.2"], ["-t", "hi"], ["--save_chunk"],
+             ["--remove_silence"], ["--device", "cpu"], ["--seed", "3"], ["-o", "out"],
+             ["--vocoder_name", "vocos"], ["--fix_duration", "2.5"]]
+    for _ in range(12):
+        argv = (["-c", str(toml)] if rng.random() < 0.7 else []) + sum(
+            rng.sample(flags, rng.randint(0, len(flags))), [])
+        assert tcli.merge_config(tcli.parse_args(argv)) == jcli.merge_config(
+            jcli.parse_args(argv))
+
+
+def _check_speechtypes(seed):
+    from eraxvif5tts_tpu.infer.infer_gradio import parse_speechtypes_text as j_parse
+    from eraxvif5tts_tpu_torch.infer.infer_gradio import parse_speechtypes_text as t_parse
+
+    rng = random.Random(seed)
+    for text in _texts(seed):
+        words = text.split(" ")
+        for _ in range(3):
+            words.insert(rng.randrange(len(words) + 1),
+                         rng.choice(("{Regular}", "{Whisper}", "{}", "{ Sad }", "{a}{b}")))
+        tagged = " ".join(words)
+        assert t_parse(tagged) == j_parse(tagged)
+
+
+def _check_chat_session(seed):
+    from eraxvif5tts_tpu.infer.infer_gradio import ChatSession as JChat
+    from eraxvif5tts_tpu_torch.infer.infer_gradio import ChatSession as TChat
+
+    rng = random.Random(seed)
+
+    def chat(messages):
+        return f"turn {len(messages)}: {messages[-1]['content'][::-1]}"
+
+    sessions = (TChat(), JChat())
+    for _ in range(10):
+        op = rng.choice(("say", "say", "say", "blank", "clear", "prompt"))
+        text = rng.choice(_texts(seed, 3))
+        for s in sessions:
+            if op == "say":
+                s.process_input(text, chat)
+            elif op == "blank":
+                assert s.process_input("   ", chat) is None
+            elif op == "clear":
+                s.clear()
+            else:
+                s.set_system_prompt(text)
+        assert sessions[0].history == sessions[1].history
+        assert sessions[0].messages == sessions[1].messages
+        assert sessions[0].system_prompt == sessions[1].system_prompt
+
+
+def _check_client_html(seed):
+    root = Path(__file__).resolve().parent.parent
+    got = (root / "eraxvif5tts_tpu_torch" / "serving" / "client.html").read_bytes()
+    assert got == (root / "eraxvif5tts_tpu" / "serving" / "client.html").read_bytes()
+    from eraxvif5tts_tpu_torch.serving import http_server
+
+    assert http_server._CLIENT_HTML.encode("utf-8") == got
+
+
 CHECKS = {
     **{f"rules_{name}": (lambda seed, tmp_path, name=name: _check_rules(name))
        for name in _rules_cases()},
@@ -329,6 +494,15 @@ CHECKS = {
     "remat_policy": lambda seed, tmp_path: _check_remat_policy(seed),
     "phoneme": lambda seed, tmp_path: _check_phoneme(seed),
     "pruner": lambda seed, tmp_path: _check_pruner(seed),
+    "wave_stream": lambda seed, tmp_path: _check_wave_stream(seed),
+    "socket_client": lambda seed, tmp_path: _check_socket_client(seed),
+    "parse_multipart": lambda seed, tmp_path: _check_parse_multipart(seed),
+    "parse_spans": lambda seed, tmp_path: _check_parse_spans(seed),
+    "split_voice_chunks": lambda seed, tmp_path: _check_split_voice_chunks(seed),
+    "merge_config": _check_merge_config,
+    "parse_speechtypes_text": lambda seed, tmp_path: _check_speechtypes(seed),
+    "chat_session": lambda seed, tmp_path: _check_chat_session(seed),
+    "client_html": lambda seed, tmp_path: _check_client_html(seed),
 }
 
 
