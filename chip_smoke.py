@@ -15,7 +15,9 @@ Phases (any failure raises and the script exits non-zero):
               same inputs (bytes and operations over the H100's published
               peaks) and, where one PyTorch call computes the same function,
               that call's time as a yardstick (the serving attention with and
-              without fused rotary, also at n = 64 and 192 and with lengths
+              without fused rotary, also at n = 6144, the MMDiT's longest joint
+              sequence (text bucket 2048 + mel bucket 4096, lengths 6144 and
+              2048 + 1051), at n = 64 and 192 and with lengths
               that end inside a tile, on a tile's edge, at 0 and not given,
               each second call bit-identical; the normalised projection in its
               layernorm and RMS modes and the gated residual projection, which
@@ -66,6 +68,23 @@ Phases (any failure raises and the script exits non-zero):
               with the bundled basic.toml and no --device as a subprocess, on
               a reference-format checkpoint of the main wrapper's weights:
               its WAV checked;
+5d. bigvgan -- the main phase's weights as a reference-format checkpoint,
+              served by `F5TTSWrapper("F5TTS_v1_Base", vocoder_name="bigvgan")`
+              with the full `bigvgan_v2_24khz_100band_256x` generator (1536
+              initial channels, random weights as the JAX wrapper draws them)
+              in fp32 beside the bf16 DiT: three `generate`s at NFE 32 with
+              kernels 1 (rotary) and 2 counted 22 x 32 per chunk, BigVGAN's
+              share of one `generate`, the card's BigVGAN against the CPU's on
+              a 128-frame generated mel (with a TF32 control), cuDNN's TF32
+              flag the same after the phase as before;
+5e. mmdit  -- F5TTS_v1_MMDiT at full width (dim 1024, 22 blocks, 16 x 64
+              heads, ff_mult 2, ~0.6 B parameters) in bf16 from a seeded
+              N(0, 0.02) reference-format checkpoint loaded strict: the MMDiT
+              with its kernels against the plain versions at b = 2, n = 256
+              with text 128 and at the longest joint sequence (text 2048 + mel
+              4096 = 6144, kernel 1's launches counted), then three `generate`s
+              at NFE 32 with kernel 1 without rotary counted 22 x 32 per chunk
+              and kernel 2 at 0, and a profiled request;
 6. int8    -- int8 W8A8 serving at the same width: a seeded N(0, 0.02)
               reference-format checkpoint, `F5TTSWrapper(compute_dtype="int8",
               int8_validate=True)` quantizing it at load behind the quality
@@ -134,7 +153,7 @@ Phases (any failure raises and the script exits non-zero):
 
 The line before the last is a JSON object with each kernel's launches in its
 path's phase (serving kernels with fused rotary / layernorm: main; without
-rotary / RMS: e2tts; int8 feed-forward at ff_mult 2: int8, at ff_mult 4:
+rotary / RMS: e2tts; the attention's row at n = 6144: mmdit; int8 feed-forward at ff_mult 2: int8, at ff_mult 4:
 e2tts-int8; training kernels: train; the
 gated residual projection, on no path: kernels), error, times, bound and
 library time; the compress phase's launches (kernels 1, 2 and 4 again) are
@@ -329,6 +348,59 @@ def check_serving_attention_edges(dev, name: str, with_rope: bool) -> float:
     return worst
 
 
+JOINT_N = 6144  # the MMDiT's longest joint sequence: text bucket 2048 + mel bucket 4096
+JOINT_LENS = (6144, 2048 + 1051)  # a full sample; one with 1051 of 4096 mel frames
+
+
+def check_serving_attention_joint(dev) -> dict:
+    """Kernel 1 at the top of its widened domain, the MMDiT's joint sequence
+    n = 6144 at b = 2 (lens 6144 and 2048 + 1051), without rotary (the
+    MMDiT's mode) and with it: each against its plain version, a second call
+    bit-identical, the kernel, the plain version and
+    `scaled_dot_product_attention` on the same q, k, v and key mask (without
+    the rotation: no library call applies it) timed, the bound computed from
+    these inputs. Returns the JSON row's numbers of the mode without rotary."""
+    import torch
+    import torch.nn.functional as F
+
+    from eraxvif5tts_tpu_torch.ops import serving_attention as sa
+    from eraxvif5tts_tpu_torch.ops.rotary import rotary_freqs
+
+    n = JOINT_N
+    if n != sa.MAX_N:
+        raise AssertionError(f"kernel 1's bound is {sa.MAX_N}, the joint bucket {n}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 90)
+    q, k, v = (torch.randn((2, n, 16, 64), generator=gen, device=dev).bfloat16()
+               for _ in range(3))
+    lens = torch.tensor(JOINT_LENS, device=dev)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    key_mask = (torch.arange(n, device=dev)[None] < lens[:, None])[:, None, None, :]
+    row = None
+    for with_rope in (False, True):
+        rope = rotary_freqs(n, 64, device=dev) if with_rope else None
+        name = f"serving_attention n={n} rope {'fused' if with_rope else 'None'}"
+        got = sa.serving_attention(q, k, v, lens, rope)
+        err = compare(name, got, sa.serving_attention_reference(q, k, v, lens, rope))
+        if not torch.equal(got, sa.serving_attention(q, k, v, lens, rope)):
+            raise AssertionError(f"{name}: a second call on the same inputs differs")
+        ms = cuda_median_ms(lambda: sa.serving_attention(q, k, v, lens, rope))
+        plain_ms = cuda_median_ms(lambda: sa.serving_attention_reference(q, k, v, lens, rope),
+                                  iters=5, warmup=1)
+        library_ms = cuda_median_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=key_mask))
+        least = bound(*attention_work(2, n, 16, 64, list(JOINT_LENS), with_rope))
+        log(f"[kernels] {name} b=2 h=16 d=64 lens={list(JOINT_LENS)}: max_abs_err {err:.3g} "
+            f"(tol {TOL} * (1 + |plain|)), second call bit-identical; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {least['bound_ms']:.5f} ms by {least['bound_by']} "
+            f"({100 * least['bound_ms'] / ms:.1f} % of it), library "
+            f"(scaled_dot_product_attention, boolean key mask, no rotation) {library_ms:.4f} ms: "
+            f"the kernel takes {ms / library_ms:.2f}x its time")
+        if not with_rope:
+            row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                       **least)
+    return row
+
+
 def phase_kernels(dev) -> dict:
     import torch
     import torch.nn.functional as F
@@ -383,6 +455,7 @@ def phase_kernels(dev) -> dict:
     results.update(check_ln_mod_matmul(dev, g, g_new, edge_err2))
     for name, err in zip(("serving_attention", "ln_mod_matmul"), check_teacher_shapes(dev)):
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+    results["serving_attention_joint"] = check_serving_attention_joint(dev)
     log("[kernels] the JSON line's serving ms / plain_ms / bound_ms / library_ms are the "
         "n = M = 1088 bucket's; no single PyTorch call computes the attention with rotary, "
         "so its library_ms is null; kernel 2's is the unfused bf16 chain's")
@@ -1013,8 +1086,9 @@ def build_wrapper(dev):
 @contextlib.contextmanager
 def plain_serving_ops():
     """The serving kernels' plain versions in place of the kernels (attention,
-    the normalised projection, the int8 feed-forward) inside the block."""
-    from eraxvif5tts_tpu_torch.models import modules
+    the normalised projection, the int8 feed-forward) inside the block: in
+    the DiT's and the UNetT's modules and in the MMDiT's joint attention."""
+    from eraxvif5tts_tpu_torch.models import mmdit, modules
     from eraxvif5tts_tpu_torch.ops.fused_matmul import ln_mod_matmul_reference
     from eraxvif5tts_tpu_torch.ops.quant_ff import int8_ff_reference
     from eraxvif5tts_tpu_torch.ops.serving_attention import serving_attention_reference
@@ -1023,22 +1097,27 @@ def plain_serving_ops():
         lens = None if key_valid is None else key_valid.sum(-1)
         return serving_attention_reference(q, k, v, lens, rope)
 
-    saved = modules.dot_product_attention, modules.ln_mod_matmul, modules.int8_ff
-    modules.dot_product_attention = attention
+    saved = (modules.dot_product_attention, modules.ln_mod_matmul, modules.int8_ff,
+             mmdit.dot_product_attention)
+    modules.dot_product_attention = mmdit.dot_product_attention = attention
     modules.ln_mod_matmul = ln_mod_matmul_reference
     modules.int8_ff = int8_ff_reference
     try:
         yield
     finally:
-        modules.dot_product_attention, modules.ln_mod_matmul, modules.int8_ff = saved
+        (modules.dot_product_attention, modules.ln_mod_matmul, modules.int8_ff,
+         mmdit.dot_product_attention) = saved
 
 
-def check_dit_against_plain(dit, dev, tag: str = "[main]", b: int = 2, n: int = 256):
-    """One ``run`` of a backbone (DiT or UNetT) at full width with the kernels
-    vs with the plain versions, on the same card and inputs: b rows of n
-    frames, the second half of the rows with their conditioning dropped (as
-    CFG doubles a batch), every odd row masked after n - 56 frames. Returns
-    the largest error in units of the plain output's scale."""
+def check_dit_against_plain(dit, dev, tag: str = "[main]", b: int = 2, n: int = 256,
+                            text_len: int = 120):
+    """One ``run`` of a backbone (DiT, UNetT or MMDiT) at full width with the
+    kernels vs with the plain versions, on the same card and inputs: b rows
+    of n frames and ``text_len`` text ids (the MMDiT's text stream keeps that
+    length: a multiple of 64 there), the second half of the rows with their
+    conditioning dropped (as CFG doubles a batch), every odd row masked after
+    n - 56 frames. Returns the largest error in units of the plain output's
+    scale."""
     import torch
 
     from eraxvif5tts_tpu_torch.ops.masks import lens_to_mask
@@ -1046,7 +1125,7 @@ def check_dit_against_plain(dit, dev, tag: str = "[main]", b: int = 2, n: int = 
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     x = torch.randn((b, n, 100), generator=g, device=dev)
     cond = torch.randn((b, n, 100), generator=g, device=dev)
-    text = torch.randint(0, 90, (b, 120), generator=g, device=dev)
+    text = torch.randint(0, 90, (b, text_len), generator=g, device=dev)
     drop = torch.arange(b, device=dev) >= b // 2
     mask = lens_to_mask(n - 56 * (torch.arange(b, device=dev) % 2), n)
     time_ = torch.full((b,), 0.3, device=dev)
@@ -1061,8 +1140,8 @@ def check_dit_against_plain(dit, dev, tag: str = "[main]", b: int = 2, n: int = 
         want = run()
     rel = float((got - want).abs().max() / want.abs().max())
     name = type(dit).__name__
-    log(f"{tag} {name}.run b={b} n={n} kernels vs plain versions: max error {rel:.3g} of "
-        f"scale {float(want.abs().max()):.3g} (tol {DIT_TOL})")
+    log(f"{tag} {name}.run b={b} n={n} text {text_len} kernels vs plain versions: max error "
+        f"{rel:.3g} of scale {float(want.abs().max()):.3g} (tol {DIT_TOL})")
     if not torch.isfinite(got).all() or rel > DIT_TOL:
         raise AssertionError(f"{name} with kernels differs from plain by {rel:.3g}")
     return rel
@@ -2125,6 +2204,206 @@ def phase_e2tts(dev, cfg=None, ckpt: Path | None = None) -> dict:
     return {name: counts[name] for name in path}
 
 
+BIGVGAN_TOL = 1e-4  # |card - CPU| of BigVGAN's fp32 wave, in units of its scale
+BIGVGAN_MEL_FRAMES = 128  # the mel the card-versus-CPU check vocodes
+
+
+def vocode_timed(wrapper):
+    """Make ``wrapper.vocoder`` record each call's wall (synchronised before
+    and after, so it is the vocoder's alone); returns the list it fills and
+    a function that undoes it."""
+    import torch
+
+    vocoder, times = wrapper.vocoder, []
+    forward = vocoder.forward
+
+    def timed(mel):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = forward(mel)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+
+    vocoder.forward = timed
+    return times, lambda: vars(vocoder).pop("forward")
+
+
+def check_bigvgan_against_cpu(wrapper, dev, mel) -> float:
+    """The card's BigVGAN on ``mel [1, 100, frames]`` against the same module
+    on the CPU, both fp32 (TF32 off on the card): the error in units of the
+    CPU wave's scale, held to BIGVGAN_TOL. A control runs the card's
+    convolutions with TF32 on and logs its distance (not held: it shows
+    what the limit can see)."""
+    import copy
+
+    import torch
+
+    from eraxvif5tts_tpu_torch.models import bigvgan
+
+    cpu = copy.deepcopy(wrapper.vocoder).cpu()
+    with torch.inference_mode():
+        got = wrapper.vocoder(mel.to(dev)).cpu()
+        t0 = time.perf_counter()
+        want = cpu(mel.cpu())
+        cpu_s = time.perf_counter() - t0
+        del cpu
+
+        @contextlib.contextmanager
+        def tf32_on():
+            saved = torch.backends.cudnn.allow_tf32
+            torch.backends.cudnn.allow_tf32 = True
+            try:
+                yield
+            finally:
+                torch.backends.cudnn.allow_tf32 = saved
+
+        switch = bigvgan.fp32_convolutions
+        bigvgan.fp32_convolutions = tf32_on
+        try:
+            control = wrapper.vocoder(mel.to(dev)).cpu()
+        finally:
+            bigvgan.fp32_convolutions = switch
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max()) / max(scale, 1e-6)
+    control_err = float((control - want).abs().max()) / max(scale, 1e-6)
+    log(f"[bigvgan] BigVGAN on {mel.shape[-1]} mel frames ({got.shape[-1]} samples), card vs "
+        f"CPU fp32: max error {err:.3g} of scale {scale:.3g} (tol {BIGVGAN_TOL}); control "
+        f"with TF32 on for the card's convolutions: {control_err:.3g}; CPU wall {cpu_s:.2f} s")
+    if not (torch.isfinite(got).all() and err <= BIGVGAN_TOL and scale > 1e-3):
+        raise AssertionError(f"[bigvgan] the card's BigVGAN differs from the CPU's by {err:.3g}"
+                             f" of scale {scale:.3g}")
+    return err
+
+
+def phase_bigvgan(main_wrapper, dev) -> dict:
+    """F5TTS_v1_Base with BigVGAN: a reference-format checkpoint of the main
+    phase's weights served by `F5TTSWrapper("F5TTS_v1_Base",
+    vocoder_name="bigvgan")` with the full `bigvgan_v2_24khz_100band_256x`
+    generator (1536 initial channels, the JAX wrapper's random draw), bf16
+    backbone and fp32 vocoder: three `generate`s at NFE 32 with kernels 1
+    (rotary) and 2 counted per chunk, BigVGAN's share of one `generate`,
+    the card's BigVGAN against the CPU's on a generated mel, and cuDNN's TF32
+    flag the same after the phase as before it. Returns the launches."""
+    import torch
+
+    from eraxvif5tts_tpu_torch.infer.wrapper import F5TTSWrapper
+    from eraxvif5tts_tpu_torch.models.bigvgan import BigVGAN
+
+    tf32_before = torch.backends.cudnn.allow_tf32
+    vocab = {c: i for i, c in enumerate(VOCAB_CHARS)}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = Path(tmp) / "model.pt"
+        t0 = time.perf_counter()
+        save_reference_checkpoint_of(ckpt, main_wrapper.transformer)
+        written = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        wrapper = F5TTSWrapper("F5TTS_v1_Base", ckpt_path=str(ckpt), vocab_char_map=vocab,
+                               vocoder_name="bigvgan", device=dev, compute_dtype="bfloat16",
+                               nfe_step=NFE)
+        torch.cuda.synchronize()
+        built = time.perf_counter() - t0
+    vocoder = wrapper.vocoder
+    if not isinstance(vocoder, BigVGAN) or wrapper.mel_spec.mel_spec_type != "bigvgan":
+        raise AssertionError("[bigvgan] the wrapper did not take BigVGAN and its frontend")
+    served = wrapper.transformer.state_dict()
+    for key, value in main_wrapper.transformer.state_dict().items():
+        if not torch.equal(served[key], value):
+            raise AssertionError(f"[bigvgan] {key} differs from the main phase's weights")
+    c = vocoder.config
+    n_params = sum(p.numel() for p in vocoder.parameters())
+    log(f"[bigvgan] main phase's DiT written as a reference checkpoint in {written:.1f} s; "
+        f"wrapper built in {built:.1f} s: BigVGAN {c.upsample_initial_channel} initial "
+        f"channels, upsampling {c.upsample_rates}, {c.activation}, {n_params / 1e6:.1f} M "
+        f"params fp32 (the JAX wrapper's random draw), mel frontend bigvgan; DiT bf16, "
+        f"equal to the main phase's")
+    ref = load_reference(wrapper)
+    t0 = time.perf_counter()
+    warmed = warm_smallest(wrapper, ref)
+    log(f"[bigvgan] reference {ref.n_frames} frames; warmup {warmed} "
+        f"{time.perf_counter() - t0:.2f} s")
+    path = ("serving_attention", "ln_mod_matmul")
+    counts = generate_counted(wrapper, ref, TEXTS, NFE, "[bigvgan]", path)
+    times, undo = vocode_timed(wrapper)
+    try:
+        t0 = time.perf_counter()
+        wave, mel = wrapper.generate(TEXTS[1], seed=SEED, nfe_step=NFE, return_spectrogram=True)
+        wall = time.perf_counter() - t0
+    finally:
+        undo()
+    audio = len(wave) / wrapper.target_sample_rate
+    log(f"[bigvgan] one generate of {audio:.2f} s of audio: wall {wall:.3f} s (RTF "
+        f"{wall / audio:.4f}, vocoder calls synchronised), BigVGAN {sum(times):.3f} s over "
+        f"{len(times)} call(s) = {100 * sum(times) / wall:.1f} % of it")
+    mel = torch.from_numpy(mel[None, :, :BIGVGAN_MEL_FRAMES].copy())
+    check_bigvgan_against_cpu(wrapper, dev, mel)
+    if torch.backends.cudnn.allow_tf32 != tf32_before:
+        raise AssertionError("[bigvgan] cudnn.allow_tf32 changed over the phase")
+    log(f"[bigvgan] cudnn.allow_tf32 {tf32_before} before the phase and after it")
+    return {name: counts[name] for name in path}
+
+
+def phase_mmdit(dev, cfg=None) -> int:
+    """F5TTS_v1_MMDiT at full width (dim 1024, 22 blocks, 16 x 64 heads,
+    ff_mult 2) in bf16 from a seeded N(0, 0.02) reference-format checkpoint
+    loaded strict: the MMDiT with its kernels against the plain versions at
+    b = 2, n = 256 with text 128, then once through the backbone at the longest joint
+    sequence (text bucket 2048 + mel bucket 4096 = 6144, 22 launches of kernel
+    1 without rotary counted), then three `generate`s at NFE 32 with kernel 1
+    without rotary counted 22 x 32 a chunk and kernel 2 at 0, and a profiled
+    request. ``cfg``: another MMDiT configuration, for a rehearsal. Returns
+    kernel 1's launches over the three requests."""
+    import torch
+
+    from eraxvif5tts_tpu_torch.configs import PRESETS
+    from eraxvif5tts_tpu_torch.infer.utils import DURATION_BUCKETS, TEXT_BUCKETS
+    from eraxvif5tts_tpu_torch.infer.wrapper import F5TTSWrapper
+    from eraxvif5tts_tpu_torch.models.mmdit import MMDiT
+
+    cfg = cfg or PRESETS["F5TTS_v1_MMDiT"]
+    vocab = {c: i for i, c in enumerate(VOCAB_CHARS)}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = Path(tmp) / "mmdit.pt"
+        t0 = time.perf_counter()
+        save_reference_checkpoint(ckpt, cfg, dev)
+        log(f"[mmdit] reference-format checkpoint of N(0, {WEIGHT_STD}) weights, seed "
+            f"{SEED + 3}: {ckpt.stat().st_size / 2**30:.2f} GiB written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        wrapper = F5TTSWrapper(model_cfg=cfg, ckpt_path=str(ckpt), vocab_char_map=vocab,
+                               device=dev, compute_dtype="bfloat16", nfe_step=NFE)
+        torch.cuda.synchronize()
+    net = wrapper.transformer
+    if not isinstance(net, MMDiT):
+        raise AssertionError(f"[mmdit] the phase built a {type(net).__name__}, not an MMDiT")
+    randomize((wrapper.vocoder,), SEED)  # the same seeded draw as the main phase's
+    a = wrapper.config.arch
+    n_params = sum(p.numel() for p in net.parameters())
+    log(f"[mmdit] {cfg.name} MMDiT dim {a.dim} depth {a.depth} heads {a.heads}x{a.dim_head} "
+        f"ff_mult {a.ff_mult} qk_norm {a.qk_norm}: {n_params / 1e6:.1f} M params, bf16, loaded "
+        f"strict from the checkpoint in {time.perf_counter() - t0:.1f} s")
+    check_dit_against_plain(net, dev, "[mmdit]", 2, 256, text_len=128)
+    nt, n = TEXT_BUCKETS[-1], DURATION_BUCKETS[-1]
+    reset_serving_counts()
+    t0 = time.perf_counter()
+    check_dit_against_plain(net, dev, "[mmdit] longest joint sequence:", 2, n, text_len=nt)
+    rose = serving_counts()
+    want = {name: a.depth if name == "serving_attention_norope" else 0 for name in rose}
+    if rose != want:
+        raise AssertionError(f"[mmdit] joint n = {nt + n}: launches {rose}, expected {want}")
+    log(f"[mmdit] joint n = {nt} + {n} = {nt + n} through the backbone at b = 2: launches "
+        f"{rose} ({time.perf_counter() - t0:.1f} s with the plain pass)")
+    ref = load_reference(wrapper)
+    t0 = time.perf_counter()
+    warmed = warm_smallest(wrapper, ref)
+    log(f"[mmdit] reference {ref.n_frames} frames; warmup {warmed} "
+        f"{time.perf_counter() - t0:.2f} s")
+    path = ("serving_attention_norope",)
+    counts = generate_counted(wrapper, ref, TEXTS, NFE, "[mmdit]", path)
+    profile_generate(wrapper, ref, TEXTS[1], NFE, "[mmdit]")
+    return counts["serving_attention_norope"]
+
+
 COMPRESS_DEPTHS = (14, 12)  # F5TTS_v1_Pruned_14 / _12
 COMPRESS_SERVE = ((14, 7), (14, 16), (12, 16))  # (depth, NFE) of the served students
 
@@ -2448,8 +2727,14 @@ def main() -> int:
     phase_server(wrapper, ref)
     phase_http(wrapper)
     phase_edit(wrapper, dev)
+    t0 = time.perf_counter()
+    bigvgan_launches = phase_bigvgan(wrapper, dev)
+    log(f"[bigvgan] phase done in {time.perf_counter() - t0:.1f} s")
     cfg = wrapper.config
     del wrapper, ref
+    t0 = time.perf_counter()
+    launches["serving_attention_joint"] = phase_mmdit(dev)
+    log(f"[mmdit] phase done in {time.perf_counter() - t0:.1f} s")
     launches["int8_ff"], ff_err = phase_int8(dev, cfg)
     kernel_results["int8_ff"]["max_abs_err"] = max(kernel_results["int8_ff"]["max_abs_err"],
                                                    ff_err)
@@ -2468,12 +2753,15 @@ def main() -> int:
     if any(idle.values()):
         raise AssertionError(f"kernels never launched on the compress path: {idle}")
     log(f"[compress] launches by path: {compress}")
+    log(f"[bigvgan] launches: {bigvgan_launches}; [mmdit] kernel 1 without rotary: "
+        f"{launches['serving_attention_joint']}")
     kernels = [
         *(dict(name=name, route="cuda",
                source="eraxvif5tts_tpu_torch/csrc/serving_attention.cu",
                replaces="eraxvif5tts_tpu/ops/serving_attention.py:121",
                launches=launches[name], **kernel_results[name])
-          for name in ("serving_attention", "serving_attention_norope")),
+          for name in ("serving_attention", "serving_attention_norope",
+                       "serving_attention_joint")),
         *(dict(name=name, route="cuda",
                source="eraxvif5tts_tpu_torch/csrc/ln_mod_matmul.cu",
                replaces="eraxvif5tts_tpu/ops/fused_matmul.py:68",

@@ -5,12 +5,16 @@ The port's own copy of the pure part of
 `eraxvif5tts_tpu/compression/convert.py`: checkpoint IO
 (:func:`load_state_dict`, :func:`normalize_reference_state_dict`), the key
 rules between the reference torch schema and the JAX package's parameter
-paths (:func:`dit_rules`, :func:`unett_rules`, :func:`vocos_rules`; each rule
-is ``(torch key, JAX path, forward, inverse)`` with the layout transforms
-below), :func:`infer_depth`, :func:`infer_text_num_embeds`, and the
-*unstacking* direction of the scan-layout adapters (a scan-stacked JAX tree
-is accepted; the port never builds one). ``mmdit_rules`` waits for the MMDiT
-port.
+paths (:func:`dit_rules`, :func:`unett_rules`, :func:`mmdit_rules`,
+:func:`vocos_rules`; each rule is ``(torch key, JAX path, forward, inverse)``
+with the layout transforms below), :func:`infer_depth`,
+:func:`infer_text_num_embeds`, and the *unstacking* direction of the
+scan-layout adapters (a scan-stacked JAX tree is accepted; the port never
+builds one). BigVGAN has no rule table, as in the JAX package: a reference
+generator checkpoint (fresh or weight-normed) is walked key by key
+(:func:`bigvgan_state_dict_from_reference`, the counterpart of
+`models/bigvgan.py` ``bigvgan_params_from_torch``), and so is the JAX
+package's BigVGAN tree (:func:`bigvgan_state_dict_from_jax`).
 
 Weight layout transforms (torch -> JAX; each is its own inverse):
 
@@ -259,6 +263,71 @@ def unett_rules(depth: int, conv_layers: int, qk_norm: bool = False,
     return rules
 
 
+def mmdit_rules(depth: int, qk_norm: bool = False) -> list[Rule]:
+    """Key map for the MMDiT backbone (reference `backbones/mmdit.py:85-189`)."""
+    rules: list[Rule] = [
+        ("time_embed.time_mlp.0.weight", ("time_embed", "mlp_in", "kernel"), _t_linear, _t_linear),
+        ("time_embed.time_mlp.0.bias", ("time_embed", "mlp_in", "bias"), _t_id, _t_id),
+        ("time_embed.time_mlp.2.weight", ("time_embed", "mlp_out", "kernel"), _t_linear, _t_linear),
+        ("time_embed.time_mlp.2.bias", ("time_embed", "mlp_out", "bias"), _t_id, _t_id),
+        ("text_embed.text_embed.weight", ("text_embed", "embed", "embedding"), _t_id, _t_id),
+        ("audio_embed.linear.weight", ("audio_embed", "linear", "kernel"), _t_linear, _t_linear),
+        ("audio_embed.linear.bias", ("audio_embed", "linear", "bias"), _t_id, _t_id),
+        ("audio_embed.conv_pos_embed.conv1d.0.weight",
+         ("audio_embed", "conv_pos_embed", "conv1", "kernel"), _t_conv, _t_conv),
+        ("audio_embed.conv_pos_embed.conv1d.0.bias",
+         ("audio_embed", "conv_pos_embed", "conv1", "bias"), _t_id, _t_id),
+        ("audio_embed.conv_pos_embed.conv1d.2.weight",
+         ("audio_embed", "conv_pos_embed", "conv2", "kernel"), _t_conv, _t_conv),
+        ("audio_embed.conv_pos_embed.conv1d.2.bias",
+         ("audio_embed", "conv_pos_embed", "conv2", "bias"), _t_id, _t_id),
+        ("norm_out.linear.weight", ("norm_out", "linear", "kernel"), _t_linear, _t_linear),
+        ("norm_out.linear.bias", ("norm_out", "linear", "bias"), _t_id, _t_id),
+        ("proj_out.weight", ("proj_out", "kernel"), _t_linear, _t_linear),
+        ("proj_out.bias", ("proj_out", "bias"), _t_id, _t_id),
+    ]
+    for i in range(depth):
+        tb = f"transformer_blocks.{i}"
+        blk = f"block_{i}"
+        last = i == depth - 1
+        rules += [
+            (f"{tb}.attn_norm_c.linear.weight", (blk, "attn_norm_c", "linear", "kernel"), _t_linear, _t_linear),
+            (f"{tb}.attn_norm_c.linear.bias", (blk, "attn_norm_c", "linear", "bias"), _t_id, _t_id),
+            (f"{tb}.attn_norm_x.linear.weight", (blk, "attn_norm_x", "linear", "kernel"), _t_linear, _t_linear),
+            (f"{tb}.attn_norm_x.linear.bias", (blk, "attn_norm_x", "linear", "bias"), _t_id, _t_id),
+        ]
+        for proj in ("to_q", "to_k", "to_v", "to_q_c", "to_k_c", "to_v_c"):
+            rules += [
+                (f"{tb}.attn.{proj}.weight", (blk, "attn", proj, "kernel"), _t_linear, _t_linear),
+                (f"{tb}.attn.{proj}.bias", (blk, "attn", proj, "bias"), _t_id, _t_id),
+            ]
+        rules += [
+            (f"{tb}.attn.to_out.0.weight", (blk, "attn", "to_out", "kernel"), _t_linear, _t_linear),
+            (f"{tb}.attn.to_out.0.bias", (blk, "attn", "to_out", "bias"), _t_id, _t_id),
+        ]
+        if not last:
+            rules += [
+                (f"{tb}.attn.to_out_c.weight", (blk, "attn", "to_out_c", "kernel"), _t_linear, _t_linear),
+                (f"{tb}.attn.to_out_c.bias", (blk, "attn", "to_out_c", "bias"), _t_id, _t_id),
+                (f"{tb}.ff_c.ff.0.0.weight", (blk, "ff_c", "project_in", "kernel"), _t_linear, _t_linear),
+                (f"{tb}.ff_c.ff.0.0.bias", (blk, "ff_c", "project_in", "bias"), _t_id, _t_id),
+                (f"{tb}.ff_c.ff.2.weight", (blk, "ff_c", "project_out", "kernel"), _t_linear, _t_linear),
+                (f"{tb}.ff_c.ff.2.bias", (blk, "ff_c", "project_out", "bias"), _t_id, _t_id),
+            ]
+        rules += [
+            (f"{tb}.ff_x.ff.0.0.weight", (blk, "ff_x", "project_in", "kernel"), _t_linear, _t_linear),
+            (f"{tb}.ff_x.ff.0.0.bias", (blk, "ff_x", "project_in", "bias"), _t_id, _t_id),
+            (f"{tb}.ff_x.ff.2.weight", (blk, "ff_x", "project_out", "kernel"), _t_linear, _t_linear),
+            (f"{tb}.ff_x.ff.2.bias", (blk, "ff_x", "project_out", "bias"), _t_id, _t_id),
+        ]
+        if qk_norm:
+            for norm in ("q_norm", "k_norm", "c_q_norm", "c_k_norm"):
+                rules.append(
+                    (f"{tb}.attn.{norm}.weight", (blk, "attn", norm, "weight"), _t_id, _t_id)
+                )
+    return rules
+
+
 def vocos_rules(num_layers: int = 8) -> list[Rule]:
     rules: list[Rule] = [
         ("backbone.embed.weight", ("embed_kernel",), _t_conv, _t_conv),
@@ -374,12 +443,15 @@ def backbone_rules(cfg: ModelConfig) -> list[Rule]:
                          long_skip=a.long_skip_connection)
     if cfg.backbone == "UNetT":
         return unett_rules(a.depth, a.conv_layers, qk_norm=qk_norm)
-    raise ValueError(f"backbone {cfg.backbone!r} is not ported yet (DiT | UNetT)")
+    if cfg.backbone == "MMDiT":
+        return mmdit_rules(a.depth, qk_norm=qk_norm)
+    raise ValueError(f"unknown backbone {cfg.backbone!r} (DiT | UNetT | MMDiT)")
 
 
 def backbone_state_dict_from_jax(params: dict, cfg: ModelConfig) -> dict[str, np.ndarray]:
     """The JAX backbone tree of ``cfg`` (DiT: per-block or scan-stacked; UNetT:
-    flat or scan-stacked; either fp or quantized by `quantize_params`) ->
+    flat or scan-stacked; either fp or quantized by `quantize_params`;
+    MMDiT: per-block, fp) ->
     reference-schema numpy arrays without the ``transformer.`` prefix
     (`backbone_params_to_torch` for fp trees)."""
     from eraxvif5tts_tpu_torch.ops.quant import quantized_weight_keys
@@ -389,7 +461,9 @@ def backbone_state_dict_from_jax(params: dict, cfg: ModelConfig) -> dict[str, np
     if "down_blocks" in params:
         params = unstack_unett_params(params)
     rules = backbone_rules(cfg)
-    quantized = set(quantized_weight_keys(cfg.arch.depth, cfg.backbone))
+    # int8 MMDiT is not ported: its trees are fp (`ops/quant.py` refuses it)
+    quantized = (set() if cfg.backbone == "MMDiT"
+                 else set(quantized_weight_keys(cfg.arch.depth, cfg.backbone)))
     out = {}
     for key, path, _, inverse in rules:
         node = _get(params, path[:-1])
@@ -403,25 +477,29 @@ def backbone_state_dict_from_jax(params: dict, cfg: ModelConfig) -> dict[str, np
 
 
 def state_dict_from_jax(params: Optional[dict], vocoder_params: Optional[dict],
-                        cfg: ModelConfig) -> tuple[Optional[StateDict], Optional[StateDict]]:
-    """The JAX wrapper's (backbone, Vocos) parameter trees, numpy or array
-    leaves, -> the port's (backbone, Vocos) state dicts; the backbone is
-    ``cfg.backbone`` (DiT or UNetT). None passes through."""
-    backbone_sd = vocos_sd = None
+                        cfg: ModelConfig, bigvgan_config=None
+                        ) -> tuple[Optional[StateDict], Optional[StateDict]]:
+    """The JAX wrapper's (backbone, vocoder) parameter trees, numpy or array
+    leaves, -> the port's (backbone, vocoder) state dicts; the backbone is
+    ``cfg.backbone`` (DiT, UNetT or MMDiT), the vocoder Vocos, or BigVGAN of
+    ``bigvgan_config`` when one is given. None passes through."""
+    backbone_sd = vocoder_sd = None
     if params is not None:
         backbone_sd = _tensors(backbone_state_dict_from_jax(params, cfg))
-    if vocoder_params is not None:
+    if vocoder_params is not None and bigvgan_config is not None:
+        vocoder_sd = bigvgan_state_dict_from_jax(vocoder_params)
+    elif vocoder_params is not None:
         num_layers = sum(key.startswith("convnext_") for key in vocoder_params)
-        vocos_sd = _tensors({key: inverse(np.asarray(_get(vocoder_params, path)))
-                             for key, path, _, inverse in vocos_rules(num_layers)})
-    return backbone_sd, vocos_sd
+        vocoder_sd = _tensors({key: inverse(np.asarray(_get(vocoder_params, path)))
+                               for key, path, _, inverse in vocos_rules(num_layers)})
+    return backbone_sd, vocoder_sd
 
 
 def reference_backbone_state_dict(path: str, use_ema: bool = True) -> StateDict:
     """A reference F5-TTS / E2-TTS checkpoint (.pt / .safetensors) -> the
     port backbone's state dict: EMA / model prefixes, counters and buffers
-    stripped, then the CFM level ``transformer.`` prefix. The same for either
-    backbone: the port's DiT and UNetT carry the reference key names."""
+    stripped, then the CFM level ``transformer.`` prefix. The same for every
+    backbone: the port's DiT, UNetT and MMDiT carry the reference key names."""
     sd = normalize_reference_state_dict(load_state_dict(path), use_ema=use_ema)
     prefix = "transformer."
     return _tensors({k[len(prefix):] if k.startswith(prefix) else k: v
@@ -470,3 +548,107 @@ def reference_vocos_state_dict(path: str, num_layers: int = 8) -> StateDict:
     sd = load_state_dict(path)
     keys = [rule[0] for rule in vocos_rules(num_layers)]
     return _tensors({k: sd[k] for k in keys if k in sd})
+
+
+# ---------------------------------------------------------------------------
+# BigVGAN (`eraxvif5tts_tpu/models/bigvgan.py:268-346`)
+
+
+def _fuse_weight_norm(sd: dict, prefix: str) -> np.ndarray | None:
+    """weight / (weight_v, weight_g) / parametrizations.* -> fused weight."""
+    if f"{prefix}.weight" in sd:
+        return np.asarray(sd[f"{prefix}.weight"])
+    for gk, vk in ((f"{prefix}.weight_g", f"{prefix}.weight_v"),
+                   (f"{prefix}.parametrizations.weight.original0",
+                    f"{prefix}.parametrizations.weight.original1")):
+        if vk in sd:
+            v = np.asarray(sd[vk])
+            g = np.asarray(sd[gk])
+            norm = np.sqrt((v.reshape(v.shape[0], -1) ** 2).sum(axis=1))
+            norm = norm.reshape((-1,) + (1,) * (v.ndim - 1))
+            return v * (g / np.maximum(norm, 1e-12))
+    return None
+
+
+def _bigvgan_keys(config) -> tuple[list[str], list[str]]:
+    """The BigVGAN module's (convolution prefixes, snake parameter keys) for
+    ``config``, in the order of the JAX package's key walk."""
+    beta = config.activation == "snakebeta"
+    n_k = len(config.resblock_kernel_sizes)
+
+    def act(prefix):
+        return [f"{prefix}.act.alpha"] + ([f"{prefix}.act.beta"] if beta else [])
+
+    convs, acts = ["conv_pre", "conv_post"], act("activation_post")
+    for i in range(len(config.upsample_rates)):
+        convs.append(f"ups.{i}.0")
+        for j in range(n_k):
+            base = f"resblocks.{i * n_k + j}"
+            n_d = len(config.resblock_dilation_sizes[j])
+            convs += [f"{base}.convs{c}.{m}" for c in (1, 2) for m in range(n_d)]
+            acts += [key for m in range(2 * n_d) for key in act(f"{base}.activations.{m}")]
+    return convs, acts
+
+
+def bigvgan_state_dict_from_reference(sd: dict, config) -> StateDict:
+    """A BigVGAN generator state dict (fresh or weight-normed, under a
+    ``generator`` key or flat; tensors or numpy) -> the port's
+    ``models.bigvgan.BigVGAN`` state dict: weight norm fused, the filter
+    buffers dropped (the key walk of ``bigvgan_params_from_torch``)."""
+    if "generator" in sd:
+        sd = sd["generator"]
+    sd = {k: (v.numpy() if hasattr(v, "numpy") else v) for k, v in sd.items()}
+    convs, acts = _bigvgan_keys(config)
+    out = {}
+    for prefix in convs:
+        w = _fuse_weight_norm(sd, prefix)
+        if w is None:
+            raise KeyError(f"missing conv weight at {prefix}")
+        out[f"{prefix}.weight"] = w
+        if f"{prefix}.bias" in sd:
+            out[f"{prefix}.bias"] = np.asarray(sd[f"{prefix}.bias"])
+    for key in acts:
+        out[key] = np.asarray(sd[key])
+    return _tensors(out)
+
+
+def bigvgan_state_dict_from_jax(params: dict) -> StateDict:
+    """The JAX package's BigVGAN parameter tree (``bigvgan_params_from_torch``,
+    ``BigVGAN.init_random_params``) -> the port's BigVGAN state dict."""
+    out: dict[str, np.ndarray] = {}
+
+    def conv(prefix, p):
+        out[f"{prefix}.weight"] = _t_conv(np.asarray(p["kernel"]))  # [k, in, out] -> [out, in, k]
+        if p.get("bias") is not None:
+            out[f"{prefix}.bias"] = np.asarray(p["bias"])
+
+    def act(prefix, p):
+        for name, value in p.items():
+            out[f"{prefix}.act.{name}"] = np.asarray(value)
+
+    conv("conv_pre", params["conv_pre"])
+    conv("conv_post", params["conv_post"])
+    act("activation_post", params["activation_post"])
+    for i, up in enumerate(params["ups"]):
+        out[f"ups.{i}.0.weight"] = np.asarray(up["weight"])  # ConvTranspose1d's [in, out, k]
+        out[f"ups.{i}.0.bias"] = np.asarray(up["bias"])
+    for r, block in enumerate(params["resblocks"]):
+        base = f"resblocks.{r}"
+        for c in (1, 2):
+            for m, p in enumerate(block[f"convs{c}"]):
+                conv(f"{base}.convs{c}.{m}", p)
+        for m, p in enumerate(block["acts"]):
+            act(f"{base}.activations.{m}", p)
+    return _tensors(out)
+
+
+def load_bigvgan(path: str, config=None):
+    """A `bigvgan_generator.pt` (HF nvidia/bigvgan_* layout) -> the port's
+    BigVGAN in eval mode on the CPU, its weights loaded strictly."""
+    from eraxvif5tts_tpu_torch.models.bigvgan import BigVGAN, BigVGANConfig
+
+    config = config or BigVGANConfig()
+    raw = torch.load(path, map_location="cpu", weights_only=True)
+    model = BigVGAN(config)
+    model.load_state_dict(bigvgan_state_dict_from_reference(raw, config), strict=True)
+    return model.eval()

@@ -228,8 +228,8 @@ PRESETS: dict[str, ModelConfig] = {
         ),
     ),
     # Flagship-dim MMDiT (reference `backbones/mmdit.py:85-189`; the reference
-    # ships no MMDiT YAML). Kept so the preset table equals the JAX package's;
-    # the port's `build_backbone` raises for it until MMDiT is ported.
+    # ships no MMDiT YAML). The port serves it in bf16 (`models/mmdit.py`);
+    # its int8 form and its training are not ported.
     "F5TTS_v1_MMDiT": ModelConfig(
         name="F5TTS_v1_MMDiT",
         backbone="MMDiT",

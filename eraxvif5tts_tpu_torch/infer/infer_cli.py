@@ -132,9 +132,6 @@ def run(config: dict, wrapper: F5TTSWrapper | None = None) -> str:
     assert gen_text, "gen_text or gen_file required"
 
     device = resolve_device(config.get("device"))
-    if config.get("vocoder_name") == "bigvgan":
-        raise ValueError("--vocoder_name bigvgan: the BigVGAN vocoder is not ported to "
-                         "PyTorch yet (ROADMAP queue 1 item 6)")
 
     if wrapper is not None:
         # Constructor-only knobs cannot retroactively reconfigure a pre-built
@@ -164,6 +161,7 @@ def run(config: dict, wrapper: F5TTSWrapper | None = None) -> str:
             ckpt_path=config.get("ckpt_file"),
             vocab_file=config.get("vocab_file"),
             vocoder_ckpt_path=config.get("vocoder_ckpt"),
+            vocoder_name=config.get("vocoder_name"),
             device=device,
             compute_dtype=compute_dtype_for(device),
             **wrapper_kwargs,

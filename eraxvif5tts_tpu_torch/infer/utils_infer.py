@@ -15,8 +15,6 @@ weights have to be fetched; the port builds one only from a local model
 directory (``initialize_asr_pipeline(path)``) or takes any
 ``(path) -> str`` callable (``initialize_asr_pipeline(pipe=...)`` or
 ``transcribe_fn``). Without one, an empty reference text fails loudly.
-BigVGAN is not ported (ROADMAP queue 1 item 6): ``load_vocoder("bigvgan")``
-raises.
 """
 
 from __future__ import annotations
@@ -144,15 +142,31 @@ def transcribe_array_cached(wav: np.ndarray, sr: int, transcribe_fn=None) -> str
 
 
 def load_vocoder(vocoder_name: str = "vocos", is_local: bool = False, local_path: str = "",
-                 device: Optional[str] = None, **_):
-    """The Vocos decoder (``mel [b, n_mels, t] -> wave``) in eval mode on
-    ``device`` (default ``cuda``): the weights of a reference Vocos ``.pt``
-    when ``is_local`` and ``local_path`` are given, else a seeded random
-    initialisation (seed 0). Unlike the JAX function it returns the module
-    alone: its parameters are inside it."""
+                 device: Optional[str] = None, vocoder_config=None, **_):
+    """The decoder (``mel [b, n_mels, t] -> wave``), Vocos or BigVGAN, in eval
+    mode on ``device`` (default ``cuda``): the weights of a reference ``.pt``
+    (for BigVGAN a `bigvgan_generator.pt`, fresh or weight-normed) when
+    ``is_local`` and ``local_path`` are given, else a seeded random
+    initialisation (seed 0; BigVGAN the JAX package's draw,
+    `utils_infer.py:105-129`). ``vocoder_config`` is BigVGAN's
+    ``BigVGANConfig`` (default `bigvgan_v2_24khz_100band_256x`). Unlike the
+    JAX function it returns the module alone: its parameters are inside it."""
     if vocoder_name == "bigvgan":
-        raise ValueError("the BigVGAN vocoder is not ported to PyTorch yet (ROADMAP "
-                         "queue 1 item 6); use vocoder_name='vocos'")
+        from eraxvif5tts_tpu_torch.compression.convert import load_bigvgan
+        from eraxvif5tts_tpu_torch.models.bigvgan import (
+            BigVGAN,
+            BigVGANConfig,
+            random_state_dict,
+        )
+
+        dev = resolve_device(device)
+        config = vocoder_config or BigVGANConfig()
+        if is_local and local_path:
+            return load_bigvgan(local_path, config).to(dev)
+        vocoder = BigVGAN(config)
+        vocoder.load_state_dict({k: torch.from_numpy(v) for k, v in random_state_dict(
+            config, np.random.default_rng(0)).items()}, strict=True)
+        return vocoder.to(dev).eval()
     if vocoder_name != "vocos":
         raise ValueError(f"unknown vocoder {vocoder_name!r} (vocos | bigvgan)")
     from eraxvif5tts_tpu_torch.compression.convert import reference_vocos_state_dict

@@ -39,14 +39,27 @@ Differences, by design:
   is the kernel build, the allocator and the text frontend, there being no
   per-bucket compile.
 
-Backbones: the DiT (``F5TTS_v1_*``, ``F5TTS_Base`` / ``F5TTS_Small``) and the
-UNetT (``E2TTS_Base`` / ``E2TTS_Small``), built by ``models.build_backbone``.
-The UNetT packs its time token as an extra frame 0, so with the default
-duration buckets the wrapper takes mel buckets of 64k - 1 frames for it
-(`eraxvif5tts_tpu/infer/wrapper.py:168-174`): the transformer then sees
-64-aligned sequences, which the serving attention kernel requires. Both serve
-in int8 W8A8 (``compute_dtype="int8"``, quantized at load behind the quality
-gate with ``int8_validate``).
+Backbones: the DiT (``F5TTS_v1_*``, ``F5TTS_Base`` / ``F5TTS_Small``), the
+UNetT (``E2TTS_Base`` / ``E2TTS_Small``) and the MMDiT (``F5TTS_v1_MMDiT``),
+built by ``models.build_backbone``. The UNetT packs its time token as an
+extra frame 0, so with the default duration buckets the wrapper takes mel
+buckets of 64k - 1 frames for it (`eraxvif5tts_tpu/infer/wrapper.py:168-174`):
+the transformer then sees 64-aligned sequences, which the serving attention
+kernel requires. The MMDiT's joint sequence is the text bucket plus the mel
+bucket, 64-aligned as both are. The DiT and the UNetT serve in int8 W8A8
+(``compute_dtype="int8"``, quantized at load behind the quality gate with
+``int8_validate``); the int8 MMDiT raises.
+
+Vocoders: Vocos, or BigVGAN with ``vocoder_name="bigvgan"``
+(``vocoder_config`` a ``models.bigvgan.BigVGANConfig``, default
+`bigvgan_v2_24khz_100band_256x`). As in the JAX wrapper, a ``vocoder_name``
+that differs from the configuration's mel frontend overrides it, so the
+conditioning mels are the ones the vocoder was trained on; BigVGAN's weights
+come from ``vocoder_params`` (the JAX tree), from ``vocoder_ckpt_path`` (a
+reference generator checkpoint) or else from the JAX wrapper's random draw
+(`BigVGAN.init_random_params(np.random.default_rng(1))`). BigVGAN vocodes
+in fp32 (TF32 off) while the backbone serves in bf16, and its receptive
+field of about 25 mel frames fits inside the vocode margin.
 
 The phoneme duration predictor (``duration_predictor_ckpt``, a reference-format
 checkpoint with its ``phoneme_map``; `models/duration.py`) is loaded on the
@@ -55,7 +68,7 @@ each ``generate_batch`` sample's) duration when ``use_duration_predictor``
 is on, as in the JAX wrapper: ``fix_duration`` wins, a prediction of 0
 frames falls back to ``byte_ratio_duration``.
 
-Not ported yet (ROADMAP.md): MMDiT, BigVGAN, multi-device meshes
+Not ported yet (ROADMAP.md): the int8 MMDiT, multi-device meshes
 (``generate_batch`` runs on one device), the default Whisper backend behind an
 empty ``ref_text`` (pass ``transcribe_fn``). Each raises.
 """
@@ -79,6 +92,7 @@ from eraxvif5tts_tpu_torch.text.chunk import chunk_text
 from eraxvif5tts_tpu_torch.text.pinyin import convert_char_to_pinyin
 from eraxvif5tts_tpu_torch.text.tokenizer import get_tokenizer, list_str_to_idx
 from eraxvif5tts_tpu_torch.compression.convert import (
+    bigvgan_state_dict_from_reference,
     is_trainer_checkpoint,
     reference_backbone_state_dict,
     reference_vocos_state_dict,
@@ -94,14 +108,15 @@ from eraxvif5tts_tpu_torch.infer.utils import (
     rms_of,
 )
 from eraxvif5tts_tpu_torch.models import build_backbone
+from eraxvif5tts_tpu_torch.models.bigvgan import BigVGAN, BigVGANConfig, random_state_dict
 from eraxvif5tts_tpu_torch.models.cfm import CFM
 from eraxvif5tts_tpu_torch.models.vocos import Vocos
 from eraxvif5tts_tpu_torch.ops import quant
 from eraxvif5tts_tpu_torch.ops.stft import MelSpectrogram
 
 # Prompt-region frames vocoded in front of the generated region so the cut
-# lies outside the decoder's receptive field (+-31 frames), as in the JAX
-# wrapper.
+# lies outside the decoder's receptive field (Vocos +-31 frames, BigVGAN
+# about 25), as in the JAX wrapper.
 VOCODE_MARGIN_FRAMES = 48
 
 # compute dtype of each serving dtype (int8 serving computes in bf16)
@@ -133,6 +148,8 @@ class F5TTSWrapper:
         vocab_file: Optional[str] = None,
         vocab_char_map: Optional[dict[str, int]] = None,
         vocoder_ckpt_path: Optional[str] = None,
+        vocoder_name: Optional[str] = None,
+        vocoder_config: Optional[BigVGANConfig] = None,
         use_ema: bool = True,
         target_rms: float = 0.1,
         target_sample_rate: int = 24000,
@@ -160,12 +177,21 @@ class F5TTSWrapper:
             cfg = load_model_config(model_name)
         else:
             raise ValueError(f"unknown model {model_name!r} (not a preset or yaml path)")
-        if cfg.backbone not in ("DiT", "UNetT") or cfg.mel_spec.mel_spec_type != "vocos":
-            raise ValueError(f"only DiT or UNetT + Vocos is ported, got {cfg.backbone} + "
-                             f"{cfg.mel_spec.mel_spec_type}")
+        # vocoder_name selects vocos | bigvgan and overrides the model's mel
+        # frontend (`eraxvif5tts_tpu/infer/wrapper.py:145-156`)
+        if vocoder_name is None:
+            vocoder_name = cfg.mel_spec.mel_spec_type
+        if vocoder_name not in ("vocos", "bigvgan"):
+            raise ValueError(f"vocoder_name must be 'vocos' or 'bigvgan', got {vocoder_name!r}")
+        if vocoder_name != cfg.mel_spec.mel_spec_type:
+            cfg = dataclasses.replace(
+                cfg, mel_spec=dataclasses.replace(cfg.mel_spec, mel_spec_type=vocoder_name))
+        self.mel_spec_type = vocoder_name
         if compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}, "
                              f"got {compute_dtype!r}")
+        if compute_dtype == "int8":
+            quant.quantized_weight_keys(cfg.arch.depth, cfg.backbone)  # raises for the MMDiT
         self.device = torch.device(device)
         if self.device.type == "cuda" and compute_dtype == "float32":
             raise ValueError(
@@ -197,14 +223,22 @@ class F5TTSWrapper:
         self.duration_buckets = duration_buckets
         self.text_buckets = text_buckets
 
-        state_dict, vocoder_state_dict = state_dict_from_jax(params, vocoder_params, cfg)
+        bigvgan_config = None
+        if vocoder_name == "bigvgan":
+            bigvgan_config = vocoder_config or BigVGANConfig()
+        state_dict, vocoder_state_dict = state_dict_from_jax(params, vocoder_params, cfg,
+                                                             bigvgan_config)
         if ckpt_path is not None:
             # the port trainer's own `model_*` directory (EMA weights, or the
             # raw parameters) or a reference checkpoint file
             load = (trainer_backbone_state_dict if is_trainer_checkpoint(ckpt_path)
                     else reference_backbone_state_dict)
             state_dict = load(ckpt_path, use_ema=use_ema)
-        if vocoder_ckpt_path is not None:
+        if vocoder_ckpt_path is not None and bigvgan_config is not None:
+            vocoder_state_dict = bigvgan_state_dict_from_reference(
+                torch.load(vocoder_ckpt_path, map_location="cpu", weights_only=True),
+                bigvgan_config)
+        elif vocoder_ckpt_path is not None:
             vocoder_state_dict = reference_vocos_state_dict(vocoder_ckpt_path)
         if state_dict is not None:
             depth = infer_depth(state_dict) or cfg.arch.depth
@@ -233,17 +267,24 @@ class F5TTSWrapper:
             self.transformer.to(device=self.device, dtype=dtype).eval()
         self.config = cfg
 
-        self.vocoder = Vocos(input_channels=mel_cfg.n_mel_channels, n_fft=mel_cfg.n_fft,
-                             hop_length=mel_cfg.hop_length, compute_dtype=dtype)
+        if bigvgan_config is not None:
+            # fp32 whatever the backbone's dtype, as in the JAX wrapper
+            self.vocoder = BigVGAN(bigvgan_config)
+            if vocoder_state_dict is None:
+                vocoder_state_dict = {k: torch.from_numpy(v) for k, v in random_state_dict(
+                    bigvgan_config, np.random.default_rng(1)).items()}
+        else:
+            # parameters stay fp32; its ConvNeXt stack computes in `dtype`
+            self.vocoder = Vocos(input_channels=mel_cfg.n_mel_channels, n_fft=mel_cfg.n_fft,
+                                 hop_length=mel_cfg.hop_length, compute_dtype=dtype)
         if vocoder_state_dict is not None:
             self.vocoder.load_state_dict(vocoder_state_dict, strict=True)
-        # vocoder parameters stay fp32; its ConvNeXt stack computes in `dtype`
         self.vocoder.to(self.device).eval()
 
         self.mel_spec = MelSpectrogram(
             n_fft=mel_cfg.n_fft, hop_length=mel_cfg.hop_length,
             win_length=mel_cfg.win_length, n_mel_channels=mel_cfg.n_mel_channels,
-            target_sample_rate=mel_cfg.target_sample_rate)
+            target_sample_rate=mel_cfg.target_sample_rate, mel_spec_type=vocoder_name)
         self.cfm = CFM(self.transformer)
         self.duration_predictor = None
         self.phoneme_map: dict[str, int] = {}

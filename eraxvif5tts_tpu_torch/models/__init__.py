@@ -1,4 +1,5 @@
-"""Backbones (DiT, UNetT), the CFM objective and sampler, and Vocos."""
+"""Backbones (DiT, UNetT, MMDiT), the CFM objective and sampler, and the
+vocoders (Vocos, BigVGAN)."""
 
 
 def build_backbone(config, text_num_embeds: int, compute_dtype=None):
@@ -6,11 +7,10 @@ def build_backbone(config, text_num_embeds: int, compute_dtype=None):
     `eraxvif5tts_tpu/models/__init__.py` ``build_backbone``). ``compute_dtype``
     None computes in the parameters' dtype (serving)."""
     from eraxvif5tts_tpu_torch.models.dit import DiT
+    from eraxvif5tts_tpu_torch.models.mmdit import MMDiT
     from eraxvif5tts_tpu_torch.models.unett import UNetT
 
-    if config.backbone == "MMDiT":
-        raise ValueError("backbone 'MMDiT' is not ported yet (DiT | UNetT)")
-    cls = {"DiT": DiT, "UNetT": UNetT}.get(config.backbone)
+    cls = {"DiT": DiT, "UNetT": UNetT, "MMDiT": MMDiT}.get(config.backbone)
     if cls is None:
         raise ValueError(f"unknown backbone {config.backbone!r}")
     return cls(config.arch, text_num_embeds=text_num_embeds,

@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from eraxvif5tts_tpu_torch.models.modules import fp32_convolutions
 from eraxvif5tts_tpu_torch.text.phoneme import text_to_phoneme_indices
 
 StateDict = dict[str, torch.Tensor]
@@ -80,7 +81,7 @@ class DurationPredictor(nn.Module):
         if mask is not None:
             x = x.masked_fill(~mask[..., None], 0.0)
         x = x.transpose(1, 2)  # [b, d, nt]
-        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        with fp32_convolutions():
             for conv, norm in ((self.conv_1, self.norm_1), (self.conv_2, self.norm_2)):
                 x = norm(F.relu(conv(x)))
                 x = F.dropout(x, self.dropout, training=not deterministic)

@@ -42,7 +42,9 @@ bf16), or the one-kernel ``int8_ff`` with ``ERAX_INT8_FF=1`` — never the
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -71,6 +73,27 @@ def conv1d(x: torch.Tensor, layer: nn.Conv1d) -> torch.Tensor:
     return F.conv1d(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype),
                     stride=layer.stride, padding=layer.padding,
                     dilation=layer.dilation, groups=layer.groups)
+
+
+# One lock for every switch of cuDNN's TF32 flag (see fp32_convolutions).
+_TF32_LOCK = threading.RLock()
+
+
+@contextlib.contextmanager
+def fp32_convolutions():
+    """cuDNN convolutions in full fp32, TF32 off, inside the block: for the
+    modules the JAX package runs in fp32 (BigVGAN, the duration predictor).
+    ``torch.backends.cudnn.allow_tf32`` is one flag of the process, not of a
+    thread, so the blocks hold one lock: two threads never interleave their
+    switches (which could leave TF32 on inside one thread's block, or off
+    for the whole process), and the flag is back at its value on exit."""
+    with _TF32_LOCK:
+        saved = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            yield
+        finally:
+            torch.backends.cudnn.allow_tf32 = saved
 
 
 def layer_norm(x: torch.Tensor, layer: nn.LayerNorm | None = None) -> torch.Tensor:

@@ -110,6 +110,10 @@ def quantized_weight_keys(depth: int, backbone: str = "DiT") -> list[str]:
     ``attn.to_{q,k,v}``, ``attn.to_out.0``, ``ff.ff.0.0`` and ``ff.ff.2``; the
     UNetT's ``skip_proj`` stays unquantized."""
     rules = {"DiT": dit_rules, "UNetT": unett_rules}.get(backbone)
+    if backbone == "MMDiT":
+        raise ValueError("int8 quantization of backbone 'MMDiT' is not ported (DiT | UNetT): "
+                         "the int8 MMDiT (its *_c text-stream projections, kernel 5 on ff_c / "
+                         "ff_x) is ROADMAP queue 1 item 5b; serve it in bf16")
     if rules is None:
         raise ValueError(f"int8 quantization of backbone {backbone!r} is not ported (DiT | UNetT)")
     return [key for key, path, _, _ in rules(depth, conv_layers=0)

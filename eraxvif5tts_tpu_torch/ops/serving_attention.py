@@ -13,8 +13,13 @@ semantics, for CPU tensors:
 - P cast to v's dtype, PV accumulated in fp32, output in q's dtype.
 
 Kernel domain: bf16, contiguous and 16-byte aligned ``[b, n, h, 64]``,
-``n % 64 == 0``, ``n <= 4096``. Anything else on a CUDA tensor raises; there
-is no fallback. The kernel is the forward core of `csrc/flash_forward.cuh`
+``n % 64 == 0``, ``64 <= n <= 6144``. The bound is the longest sequence a
+served model gives it: the MMDiT's joint text + mel sequence at the largest
+text and duration buckets (2048 + 4096); the DiT and the UNetT stop at 4096.
+Nothing in the kernel depends on n beyond its tiles: the K / V ring's shared
+memory is fixed, the grid and the tensor map's dimensions grow with n and
+row offsets are 64-bit. Anything else on a CUDA tensor raises; there is no
+fallback. The kernel is the forward core of `csrc/flash_forward.cuh`
 (`ops/train_attention.py` ``forward_geometry`` states its launch); it reads
 fp32 cos / sin tables, which :func:`rope_tables` makes once per angle table
 and keeps, so a call in the Euler loop does no host work for them (nor for
@@ -33,10 +38,11 @@ from collections import OrderedDict
 
 import torch
 
+from eraxvif5tts_tpu_torch.infer.utils import DURATION_BUCKETS, TEXT_BUCKETS
 from eraxvif5tts_tpu_torch.ops.rotary import rotate_half
 
 _NEG = -1e30
-MAX_N = 4096
+MAX_N = TEXT_BUCKETS[-1] + DURATION_BUCKETS[-1]  # the MMDiT's longest joint sequence
 TILE = 64
 HEAD_DIM = 64
 

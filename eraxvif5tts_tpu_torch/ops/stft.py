@@ -5,8 +5,11 @@ DFT basis for the TPU's matrix unit; here the forward transform is
 ``torch.stft`` and the inverse is ``torch.fft.irfft`` per frame followed by an
 overlap-add (``F.fold``). Both keep the reference's semantics:
 
-- mel: torchaudio ``MelSpectrogram(power=1, center=True, norm=None,
-  mel_scale="htk")`` then ``log(clamp(mel, 1e-5))`` (the "vocos" variant);
+- mel, the "vocos" variant: torchaudio ``MelSpectrogram(power=1,
+  center=True, norm=None, mel_scale="htk")`` then ``log(clamp(mel, 1e-5))``;
+- mel, the "bigvgan" variant: a reflect pad of ``(n_fft - hop) // 2`` on
+  both sides and ``center=False``, magnitude ``sqrt(re^2 + im^2 + 1e-9)``,
+  the Slaney filterbank, then the same log;
 - ISTFT: Hann synthesis window, division by the window envelope clamped at
   ``envelope_eps`` (so huge magnitudes stay finite), ``n_fft // 2`` trimmed
   from both ends when ``center``.
@@ -59,22 +62,27 @@ def istft(real: torch.Tensor, imag: torch.Tensor, n_fft: int = 1024,
 
 
 class MelSpectrogram:
-    """Raw waveform ``[b, t]`` -> log-mel ``[b, n_mels, n_frames]`` float32
-    (the "vocos" variant; the "bigvgan" one waits for the BigVGAN port)."""
+    """Raw waveform ``[b, t]`` -> log-mel ``[b, n_mels, n_frames]`` float32,
+    ``mel_spec_type`` "vocos" (``t // hop + 1`` frames) or "bigvgan"
+    (``t // hop`` frames for ``t`` a multiple of ``hop``)."""
 
     def __init__(self, n_fft: int = 1024, hop_length: int = 256,
                  win_length: int = 1024, n_mel_channels: int = 100,
-                 target_sample_rate: int = 24000):
+                 target_sample_rate: int = 24000, mel_spec_type: str = "vocos"):
+        if mel_spec_type not in ("vocos", "bigvgan"):
+            raise ValueError(f"unknown mel_spec_type: {mel_spec_type!r}")
         self.n_fft = n_fft
         self.hop_length = hop_length
         self.win_length = win_length
         self.n_mel_channels = n_mel_channels
         self.target_sample_rate = target_sample_rate
+        self.mel_spec_type = mel_spec_type
 
     @functools.cached_property
     def _filterbank(self) -> np.ndarray:
+        variant = "htk" if self.mel_spec_type == "vocos" else "slaney"
         return mel_filterbank(self.target_sample_rate, self.n_fft,
-                              self.n_mel_channels, variant="htk")
+                              self.n_mel_channels, variant=variant)
 
     def __call__(self, wav: torch.Tensor) -> torch.Tensor:
         if wav.ndim == 3:
@@ -82,10 +90,18 @@ class MelSpectrogram:
         if wav.ndim != 2:
             raise ValueError(f"expected [b, t] waveform, got {tuple(wav.shape)}")
         window = _padded_window(self.win_length, self.n_fft, wav.device)
-        spec = torch.stft(wav.float(), self.n_fft, hop_length=self.hop_length,
-                          win_length=self.n_fft, window=window, center=True,
+        wav = wav.float()
+        center = self.mel_spec_type == "vocos"
+        if not center:
+            pad = (self.n_fft - self.hop_length) // 2
+            wav = F.pad(wav[:, None], (pad, pad), mode="reflect")[:, 0]
+        spec = torch.stft(wav, self.n_fft, hop_length=self.hop_length,
+                          win_length=self.n_fft, window=window, center=center,
                           pad_mode="reflect", onesided=True, return_complex=True)
-        mag = spec.abs()  # [b, n_bins, n_frames]
+        if center:
+            mag = spec.abs()  # [b, n_bins, n_frames]
+        else:
+            mag = torch.sqrt(spec.real.square() + spec.imag.square() + 1e-9)
         fb = torch.from_numpy(self._filterbank).to(wav.device)
         mel = torch.einsum("mf,bfn->bmn", fb, mag)
         return torch.log(torch.clamp(mel, min=1e-5))

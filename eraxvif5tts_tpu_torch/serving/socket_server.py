@@ -28,6 +28,7 @@ import numpy as np
 
 from eraxvif5tts_tpu_torch.audio.io import write_wav
 from eraxvif5tts_tpu_torch.text.chunk import chunk_text
+from eraxvif5tts_tpu_torch.infer.utils_infer import compute_dtype_for, resolve_device
 from eraxvif5tts_tpu_torch.infer.wrapper import F5TTSWrapper, ReferenceState
 
 
@@ -207,14 +208,18 @@ def main(argv: Optional[list[str]] = None):
                     help="tiny random model and a synthetic reference")
     args = ap.parse_args(argv)
 
+    # as the HTTP server's main: 'tpu' and the like raise here, and the CPU
+    # serves in fp32 (the JAX server's dtype), the card in bf16
+    dev = resolve_device(args.device)
     if args.smoke:
-        wrapper, state = smoke_wrapper(args.device)
+        wrapper, state = smoke_wrapper(str(dev))
         processor = TTSStreamingProcessor(wrapper, ref_state=state, nfe_step=4,
                                           output_file=None)
     else:
         wrapper = F5TTSWrapper(model_name=args.model, ckpt_path=args.ckpt_file,
                                vocab_file=args.vocab_file,
-                               vocoder_ckpt_path=args.vocoder_ckpt, device=args.device)
+                               vocoder_ckpt_path=args.vocoder_ckpt, device=dev,
+                               compute_dtype=compute_dtype_for(dev))
         processor = TTSStreamingProcessor(wrapper, ref_audio=args.ref_audio,
                                           ref_text=args.ref_text)
     start_server(args.host, args.port, processor)

@@ -110,12 +110,13 @@ def test_train_attention_kernels_match_plain(cuda, n, dropout):
         assert torch.equal(again, got)
 
 
-@pytest.mark.parametrize("n", [64, 192, 320, 1088, 4032, 4096])
+@pytest.mark.parametrize("n", [64, 192, 320, 1088, 4032, 4096, 4160, 6144])
 @pytest.mark.parametrize("with_rope", [False, True])
 def test_serving_attention_forward_core_matches_plain(cuda, n, with_rope):
     """The forward core as the serving attention, with and without fused
     rotary: n = 64 is one warpgroup, 320 and 4096 leave the last 192-row block
-    two warpgroups, 1088 one; lengths that end inside a tile,
+    two warpgroups, 1088 one; 4160 and 6144 (the MMDiT's joint sequence) lie
+    past the DiT's longest bucket; lengths that end inside a tile,
     on a tile's edge, at 0 and at n, and no lengths; a second call repeats
     the first bit for bit."""
     g = torch.Generator(device=cuda).manual_seed(7 * n + with_rope)

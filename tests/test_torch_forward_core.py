@@ -1,7 +1,8 @@
 """PyTorch port, the forward-attention core that the training forward and the
 serving attention share (`csrc/flash_forward.cuh`): what of it is plain
-Python beside the wrappers. The launch geometry for every n of the domain
-(each row owned by one warpgroup, the last block's warpgroups without rows
+Python beside the wrappers. The launch geometry for every n of the serving
+attention's domain, 64 to 6144 (the MMDiT's joint sequence; training stops
+at 4096) (each row owned by one warpgroup, the last block's warpgroups without rows
 where n is no multiple of 192, the shared-memory sum within the card's limit, the tensor
 map), the swizzled tile map through which the kernel rotates a tile in place
 (a bijection that keeps every interleaved pair together), the rotating
@@ -20,7 +21,7 @@ from eraxvif5tts_tpu_torch.ops import train_attention as tta
 from eraxvif5tts_tpu_torch.ops.rotary import rotary_freqs
 
 
-@pytest.mark.parametrize("n", list(range(64, 4096 + 1, 64)))
+@pytest.mark.parametrize("n", list(range(64, 6144 + 1, 64)))
 def test_forward_geometry_covers_every_row_once_within_the_card(n):
     b, h = 3, 16
     geo = tta.forward_geometry(b, n, h)

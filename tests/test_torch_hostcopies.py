@@ -1,5 +1,6 @@
 """PyTorch port, host code: the port keeps its own copies of the JAX
-package's pure host modules (configs, text, audio, the checkpoint key rules)
+package's pure host modules (configs, text, audio, the checkpoint key rules,
+BigVGAN's filter, weight-norm fusion and configurations)
 and imports nothing of that package. Each copied function is held to the
 original on seeded inputs: equal results, exactly (the copies are the same
 arithmetic; no tolerance is needed or given).
@@ -86,6 +87,8 @@ def _rules_cases():
         "unett_qk_norm_add": ("unett_rules", (4, 1), dict(qk_norm=True,
                                                           skip_connect_type="add")),
         "vocos": ("vocos_rules", (3,), {}),
+        "mmdit": ("mmdit_rules", (3,), {}),
+        "mmdit_qk_norm": ("mmdit_rules", (2,), dict(qk_norm=True)),
     }
 
 
@@ -472,6 +475,37 @@ def _check_chat_session(seed):
         assert sessions[0].system_prompt == sessions[1].system_prompt
 
 
+def _check_bigvgan_host_code(seed):
+    """The BigVGAN pieces copied from `eraxvif5tts_tpu/models/bigvgan.py`:
+    the kaiser-sinc filter, the weight-norm fusion (every layout) and the
+    configurations; and `TEXT_MAX_POS` of the MMDiT."""
+    from eraxvif5tts_tpu.models import bigvgan as jb
+    from eraxvif5tts_tpu.models import mmdit as jmmdit
+    from eraxvif5tts_tpu_torch.models import bigvgan as tb
+    from eraxvif5tts_tpu_torch.models import mmdit as tmmdit
+
+    rng = np.random.default_rng(seed)
+    for _ in range(10):
+        args = (float(rng.uniform(0, 0.5)), float(rng.uniform(0.05, 0.6)),
+                int(rng.integers(2, 32)))
+        np.testing.assert_array_equal(tb.kaiser_sinc_filter1d(*args),
+                                      jb.kaiser_sinc_filter1d(*args))
+    v = rng.standard_normal((6, 4, 3)).astype(np.float32)
+    g = rng.uniform(0.5, 2.0, (6, 1, 1)).astype(np.float32)
+    for sd in ({"c.weight": v}, {"c.weight_g": g, "c.weight_v": v},
+               {"c.parametrizations.weight.original0": g,
+                "c.parametrizations.weight.original1": v}, {"c.bias": g}):
+        got, want = tconvert._fuse_weight_norm(sd, "c"), jb._fuse_weight_norm(sd, "c")
+        if want is None:
+            assert got is None
+        else:
+            np.testing.assert_array_equal(got, want)
+    for got, want in ((tb.BigVGANConfig(), jb.BigVGANConfig()),
+                      (tb.BIGVGAN_BASE_24KHZ, jb.BIGVGAN_BASE_24KHZ)):
+        _same_config(got, want)
+    assert tmmdit.TEXT_MAX_POS == jmmdit.TEXT_MAX_POS
+
+
 def _check_client_html(seed):
     root = Path(__file__).resolve().parent.parent
     got = (root / "eraxvif5tts_tpu_torch" / "serving" / "client.html").read_bytes()
@@ -503,6 +537,7 @@ CHECKS = {
     "parse_speechtypes_text": lambda seed, tmp_path: _check_speechtypes(seed),
     "chat_session": lambda seed, tmp_path: _check_chat_session(seed),
     "client_html": lambda seed, tmp_path: _check_client_html(seed),
+    "bigvgan_host_code": lambda seed, tmp_path: _check_bigvgan_host_code(seed),
 }
 
 

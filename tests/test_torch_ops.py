@@ -62,7 +62,9 @@ def test_port_imports_no_jax_flax_triton():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=300, check=True, cwd=REPO_ROOT)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
-    assert "eraxvif5tts_tpu_torch.models.unett" in PORT_MODULES and len(PORT_MODULES) >= 38
+    assert {"eraxvif5tts_tpu_torch.models.unett", "eraxvif5tts_tpu_torch.models.mmdit",
+            "eraxvif5tts_tpu_torch.models.bigvgan"} <= set(PORT_MODULES)
+    assert len(PORT_MODULES) >= 40
 
 
 def test_rotary_and_masks_match_jax():
@@ -211,7 +213,8 @@ def test_wrapper_refuses_what_is_not_ported():
 
     e2 = PRESETS["E2TTS_Small"]
     tiny = dataclasses.replace(e2.arch, dim=128, depth=2, heads=2)
-    with pytest.raises(ValueError, match=r"only DiT or UNetT \+ Vocos is ported, got MMDiT"):
+    # the int8 MMDiT waits (ROADMAP queue 1 item 5b): refused before any build
+    with pytest.raises(ValueError, match="int8 quantization of backbone 'MMDiT' is not ported"):
         F5TTSWrapper("F5TTS_v1_MMDiT", compute_dtype="int8", device="cpu")
     with pytest.raises(ValueError, match="int8 quantization of backbone 'MMDiT' is not ported"):
         quant.quantize_state_dict({}, 2, "MMDiT")
@@ -227,10 +230,18 @@ def test_wrapper_refuses_what_is_not_ported():
             build_backbone(cfg, 16)
         with pytest.raises(ValueError, match="scan_layers=True .* is not ported"):
             F5TTSWrapper(model_cfg=cfg, device="cpu", compute_dtype="float32")
-    with pytest.raises(ValueError, match="backbone 'MMDiT' is not ported yet"):
-        build_backbone(PRESETS["F5TTS_v1_MMDiT"], 16)
-    with pytest.raises(ValueError, match=r"only DiT or UNetT \+ Vocos is ported, got MMDiT"):
-        F5TTSWrapper("F5TTS_v1_MMDiT", device="cpu")
+    mm = PRESETS["F5TTS_v1_MMDiT"]
+    mm_tiny = dataclasses.replace(mm.arch, dim=128, depth=2, heads=2)
+    with pytest.raises(ValueError, match="item 5b"):
+        build_backbone(dataclasses.replace(
+            mm, arch=dataclasses.replace(mm_tiny, quantized=True)), 16)
+    with pytest.raises(ValueError, match="MMDiT training is ROADMAP queue 1 item 5c"):
+        build_backbone(dataclasses.replace(mm, arch=mm_tiny), 16).train()(
+            x, x, torch.zeros(1, 8, dtype=torch.long), torch.zeros(1),
+            torch.zeros(1, dtype=torch.bool), torch.zeros(1, dtype=torch.bool))
+    with pytest.raises(ValueError, match="vocoder_name must be 'vocos' or 'bigvgan'"):
+        F5TTSWrapper(model_cfg=dataclasses.replace(e2, arch=tiny), vocoder_name="hifigan",
+                     device="cpu", compute_dtype="float32")
     with pytest.raises(ValueError, match="unknown backbone 'GPT'"):
         build_backbone(dataclasses.replace(e2, backbone="GPT"), 16)
     with pytest.raises(ValueError, match="depth must be even"):

@@ -327,8 +327,13 @@ def test_transcription_backend_is_local_or_loud(monkeypatch, tmp_path):
 
 
 def test_load_vocoder(tmp_path):
-    with pytest.raises(ValueError, match="queue 1 item 6"):
-        tui.load_vocoder("bigvgan", device="cpu")
+    from eraxvif5tts_tpu_torch.models.bigvgan import BigVGAN, BigVGANConfig
+
+    small = BigVGANConfig(upsample_initial_channel=16, upsample_rates=(2,),
+                          upsample_kernel_sizes=(4,), resblock_kernel_sizes=(3,),
+                          resblock_dilation_sizes=((1,),))
+    bigvgan = tui.load_vocoder("bigvgan", device="cpu", vocoder_config=small)
+    assert isinstance(bigvgan, BigVGAN) and not bigvgan.training
     with pytest.raises(ValueError, match="unknown vocoder"):
         tui.load_vocoder("hifigan", device="cpu")
     a, b = tui.load_vocoder(device="cpu"), tui.load_vocoder(device="cpu")
@@ -463,8 +468,9 @@ def test_cli_device_rules(wrappers, ref_wav_path, tmp_path, monkeypatch):
         tcli.run({**base, "device": "cuda"}, wrapper=tw)
     with pytest.raises(ValueError, match="configure the wrapper at construction"):
         tcli.run({**base, "ckpt_file": "m.pt", "target_rms": 0.2}, wrapper=tw)
-    with pytest.raises(ValueError, match="queue 1 item 6"):
-        tcli.run({**base, "vocoder_name": "bigvgan"})
+    # --vocoder_name configures the wrapper (BigVGAN is ported): not a pre-built one
+    with pytest.raises(ValueError, match="configure the wrapper at construction"):
+        tcli.run({**base, "vocoder_name": "bigvgan"}, wrapper=tw)
     # without --device the CLI builds its wrapper on the card, in bf16
     built = {}
 
@@ -481,6 +487,10 @@ def test_cli_device_rules(wrappers, ref_wav_path, tmp_path, monkeypatch):
         with pytest.raises(Stop):
             tcli.main(["-t", "x", "-r", ref_wav_path] + (["--device", device] if device else []))
         assert (str(built["device"]), built["compute_dtype"]) == want
+        assert built["vocoder_name"] is None  # the model's own mel frontend
+    with pytest.raises(Stop):
+        tcli.main(["-t", "x", "-r", ref_wav_path, "--vocoder_name", "bigvgan"])
+    assert built["vocoder_name"] == "bigvgan"
 
 
 # ---- the F5TTS API -------------------------------------------------------------
@@ -603,9 +613,13 @@ sys.path.insert(0, {str(REPO_ROOT)!r})
 sys.modules["gradio"] = None
 sys.modules["transformers"] = None
 from eraxvif5tts_tpu_torch.infer import infer_gradio, utils_infer
+from eraxvif5tts_tpu_torch.models.bigvgan import BigVGANConfig
 from eraxvif5tts_tpu_torch.serving import http_server
+small = BigVGANConfig(upsample_initial_channel=16, upsample_rates=(2,), upsample_kernel_sizes=(4,),
+                      resblock_kernel_sizes=(3,), resblock_dilation_sizes=((1,),))
 for call in (lambda: infer_gradio.build_app(None), infer_gradio.load_default_chat_fn,
-             lambda: utils_infer.load_vocoder("bigvgan"), utils_infer.initialize_asr_pipeline):
+             lambda: utils_infer.load_vocoder("bigvgan", device="cpu", vocoder_config=small),
+             utils_infer.initialize_asr_pipeline):
     try:
         call()
     except (ImportError, ValueError, NotImplementedError):

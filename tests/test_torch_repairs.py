@@ -1,4 +1,8 @@
-"""PyTorch port, four behaviours of the JAX package that the port lacked:
+"""PyTorch port, five behaviours of the JAX package that the port lacked:
+
+- the socket server's `main` resolves `--device` as every other entry point
+  does and builds its wrapper in that device's serving dtype: fp32 on the
+  CPU, as the JAX server's wrapper;
 
 - `F5TTSWrapper(ckpt_path=<the port trainer's model_* directory>)` serves the
   checkpoint's EMA weights (the raw parameters with ``use_ema=False``), depth
@@ -25,6 +29,7 @@ from eraxvif5tts_tpu_torch.infer import utils_infer as tutils
 from eraxvif5tts_tpu_torch.infer.wrapper import F5TTSWrapper
 from eraxvif5tts_tpu_torch.models.cfm import CFM
 from eraxvif5tts_tpu_torch.models.dit import DiT
+from eraxvif5tts_tpu_torch.serving import socket_server
 from eraxvif5tts_tpu_torch.serving.socket_server import TTSStreamingProcessor, smoke_wrapper
 from eraxvif5tts_tpu_torch.training import trainer as ttr
 from test_torch_models import ARCH as JARCH
@@ -229,3 +234,39 @@ def test_warmup_pairs_match_the_jax_wrapper():
     tw.ref = None
     with pytest.raises(RuntimeError, match="preprocess_reference"):
         tw.warmup()
+
+
+def test_socket_server_main_resolves_the_device_and_its_dtype(monkeypatch):
+    """`socket_server.main([..., "--device", "cpu"])` builds an fp32 wrapper
+    on the CPU (the JAX server's dtype; it built a bf16 one before), the
+    card's names give bf16, `--device tpu` fails with the port's message, and
+    `--smoke --device cpu` serves the tiny fp32 wrapper."""
+    built, served = [], []
+
+    def tiny_wrapper(**kwargs):
+        built.append(kwargs)
+        if torch.device(kwargs["device"]).type != "cpu":
+            return None  # the card's wrapper is not built here
+        cfg = ModelConfig(name="tiny", arch=ARCH)
+        return F5TTSWrapper(model_cfg=cfg, vocab_char_map=VOCAB, nfe_step=2,
+                            **{k: v for k, v in kwargs.items()
+                               if k in ("device", "compute_dtype")})
+
+    monkeypatch.setattr(socket_server, "F5TTSWrapper", tiny_wrapper)
+    monkeypatch.setattr(socket_server, "TTSStreamingProcessor",
+                        lambda wrapper, **kwargs: ("processor", wrapper))
+    monkeypatch.setattr(socket_server, "start_server",
+                        lambda host, port, processor: served.append(processor))
+    for device, want in (("cpu", ("cpu", "float32")), ("cuda", ("cuda", "bfloat16")),
+                         ("cuda:1", ("cuda:1", "bfloat16"))):
+        socket_server.main(["--device", device, "--port", "0"])
+        assert (str(built[-1]["device"]), built[-1]["compute_dtype"]) == want
+    wrapper = served[0][1]
+    assert wrapper.compute_dtype == "float32" and wrapper.device == torch.device("cpu")
+    assert next(wrapper.transformer.parameters()).dtype == torch.float32
+    for bad in ("tpu", "mps", "cuda:x"):
+        with pytest.raises(ValueError, match="not supported by the PyTorch/CUDA port"):
+            socket_server.main(["--device", bad])
+    socket_server.main(["--smoke", "--device", "cpu", "--port", "0"])
+    smoke = served[-1][1]
+    assert smoke.compute_dtype == "float32" and smoke.device == torch.device("cpu")
