@@ -85,6 +85,22 @@ Phases (any failure raises and the script exits non-zero):
               4096 = 6144, kernel 1's launches counted), then three `generate`s
               at NFE 32 with kernel 1 without rotary counted 22 x 32 per chunk
               and kernel 2 at 0, and a profiled request;
+5f. fp32   -- fp32 serving, the JAX wrapper's default dtype: kernel 1's fp32
+              kernel against its plain version (TF32 off) with and without
+              rotary at n = 1088 (lens 1051, 0) and n = 6144 (lens 6144,
+              2048 + 1051), within 2e-5 * (1 + |plain|), a second call
+              bit-identical, the plain version held to the CPU's at 1088 and
+              a TF32 control refused, timed beside fp32
+              `scaled_dot_product_attention` and its fp32 bound; the main
+              phase's weights through a reference-format checkpoint served
+              by `F5TTSWrapper("F5TTS_v1_Base")` with no `compute_dtype`
+              (fp32, full width and depth): one backbone call against the
+              CPU's (TF32 flags on outside the call, a control with TF32 on
+              inside it), three `generate`s at NFE 32 with the fp32 kernel
+              with rotary counted 22 x 32 a chunk and kernel 2 at 0, a
+              profiled request, its RTF beside the main phase's; then the
+              mmdit phase's checkpoint served in fp32, one request with the
+              fp32 kernel without rotary counted 22 x 32 a chunk;
 6. int8    -- int8 W8A8 serving at the same width: a seeded N(0, 0.02)
               reference-format checkpoint, `F5TTSWrapper(compute_dtype="int8",
               int8_validate=True)` quantizing it at load behind the quality
@@ -153,8 +169,9 @@ Phases (any failure raises and the script exits non-zero):
 
 The line before the last is a JSON object with each kernel's launches in its
 path's phase (serving kernels with fused rotary / layernorm: main; without
-rotary / RMS: e2tts; the attention's row at n = 6144: mmdit; int8 feed-forward at ff_mult 2: int8, at ff_mult 4:
-e2tts-int8; training kernels: train; the
+rotary / RMS: e2tts; the attention's row at n = 6144: mmdit; kernel 1 fp32
+with rotary: the fp32 phase's DiT, without: its MMDiT; int8 feed-forward at
+ff_mult 2: int8, at ff_mult 4: e2tts-int8; training kernels: train; the
 gated residual projection, on no path: kernels), error, times, bound and
 library time; the compress phase's launches (kernels 1, 2 and 4 again) are
 logged and checked in that phase; the last line is the device summary.
@@ -187,7 +204,7 @@ DIT_TOL = 5e-2  # whole-backbone relative error, bf16 through 22-24 blocks
 BASE_DEPTH, BASE_NFE = 4, 8  # the F5TTS_Base check's cuts
 # NVIDIA H100 SXM data sheet, dense: the peaks a kernel's bound is taken against
 PEAK_BYTES_S = 3.35e12
-PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12}
+PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}  # fp32: the CUDA cores
 # int8 feed-forward, |kernel - plain| in units of max |plain|: both sum exactly
 # (int32) and round at the same points in IEEE fp32, so the hidden codes must
 # be the plain version's bit for bit (a reciprocal-product scale flipped 6e-4
@@ -249,34 +266,35 @@ def cuda_median_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 def bound(nbytes: float, ops: float, kind: str = "bf16") -> dict:
     """The least time the card could take: the bytes the function must move
     (each input read once, each output written once) over the memory rate,
-    or its operations over the tensor cores' peak for their type, whichever
-    is larger."""
+    or its operations over the card's peak for their type (the tensor cores'
+    for bf16 and int8, the CUDA cores' for fp32), whichever is larger."""
     by_bytes, by_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S[kind] * 1e3
     return dict(bound_ms=max(by_bytes, by_ops),
                 bound_by="bytes" if by_bytes >= by_ops else "operations")
 
 
-def attention_work(b: int, n: int, h: int, d: int, lens, rope: bool) -> tuple[float, float]:
+def attention_work(b: int, n: int, h: int, d: int, lens, rope: bool,
+                   itemsize: int = 2) -> tuple[float, float]:
     """(bytes, operations) of one serving attention on these inputs: q, k, v
-    read and the output written in bf16, the lengths and the fp32 cos / sin
-    tables read; QK^T and PV over each sample's valid keys (a sample with no
-    valid key averages every key)."""
+    read and the output written in their dtype (``itemsize`` bytes), the
+    lengths and the fp32 cos / sin tables read; QK^T and PV over each
+    sample's valid keys (a sample with no valid key averages every key)."""
     keys = sum(n if length <= 0 else min(length, n) for length in lens)
-    return (4 * b * n * h * d * 2 + b * 4 + (2 * n * d * 4 if rope else 0),
+    return (4 * b * n * h * d * itemsize + b * 4 + (2 * n * d * 4 if rope else 0),
             4.0 * h * d * n * keys)
 
 
-def compare(name: str, got, want) -> float:
+def compare(name: str, got, want, tol: float = TOL) -> float:
     import torch
 
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs()
-    bound = TOL * (1 + want.float().abs())
+    bound = tol * (1 + want.float().abs())
     if not torch.isfinite(got).all():
         raise AssertionError(f"{name}: kernel output is not finite")
     if not torch.all(err <= bound):
         raise AssertionError(f"{name}: max |kernel - plain| {float(err.max()):.4g} beyond "
-                             f"{TOL} * (1 + |plain|)")
+                             f"{tol} * (1 + |plain|)")
     return float(err.max())
 
 
@@ -1109,15 +1127,11 @@ def plain_serving_ops():
          mmdit.dot_product_attention) = saved
 
 
-def check_dit_against_plain(dit, dev, tag: str = "[main]", b: int = 2, n: int = 256,
-                            text_len: int = 120):
-    """One ``run`` of a backbone (DiT, UNetT or MMDiT) at full width with the
-    kernels vs with the plain versions, on the same card and inputs: b rows
-    of n frames and ``text_len`` text ids (the MMDiT's text stream keeps that
-    length: a multiple of 64 there), the second half of the rows with their
-    conditioning dropped (as CFG doubles a batch), every odd row masked after
-    n - 56 frames. Returns the largest error in units of the plain output's
-    scale."""
+def backbone_inputs(dev, b: int, n: int, text_len: int) -> tuple:
+    """Seeded inputs of one backbone call: (x, cond, text, drop, mask, time)
+    for b rows of n frames and ``text_len`` text ids, the second half of the
+    rows with their conditioning dropped (as CFG doubles a batch), every odd
+    row masked after n - 56 frames."""
     import torch
 
     from eraxvif5tts_tpu_torch.ops.masks import lens_to_mask
@@ -1128,16 +1142,32 @@ def check_dit_against_plain(dit, dev, tag: str = "[main]", b: int = 2, n: int = 
     text = torch.randint(0, 90, (b, text_len), generator=g, device=dev)
     drop = torch.arange(b, device=dev) >= b // 2
     mask = lens_to_mask(n - 56 * (torch.arange(b, device=dev) % 2), n)
-    time_ = torch.full((b,), 0.3, device=dev)
+    return x, cond, text, drop, mask, torch.full((b,), 0.3, device=dev)
 
-    def run():
-        with torch.inference_mode():
-            te = dit.embed_text(text, n, drop)
-            return dit.run(x, cond, te, time_, drop, mask)
 
-    got = run()
+def run_backbone(net, inputs):
+    """One backbone call, ``embed_text`` then ``run``, on :func:`backbone_inputs`."""
+    import torch
+
+    x, cond, text, drop, mask, time_ = inputs
+    with torch.inference_mode():
+        te = net.embed_text(text, x.shape[1], drop)
+        return net.run(x, cond, te, time_, drop, mask)
+
+
+def check_dit_against_plain(dit, dev, tag: str = "[main]", b: int = 2, n: int = 256,
+                            text_len: int = 120):
+    """One ``run`` of a backbone (DiT, UNetT or MMDiT) at full width with the
+    kernels vs with the plain versions, on the same card and
+    :func:`backbone_inputs` (the MMDiT's text stream keeps ``text_len``: a
+    multiple of 64 there). Returns the largest error in units of the plain
+    output's scale."""
+    import torch
+
+    inputs = backbone_inputs(dev, b, n, text_len)
+    got = run_backbone(dit, inputs)
     with plain_serving_ops():
-        want = run()
+        want = run_backbone(dit, inputs)
     rel = float((got - want).abs().max() / want.abs().max())
     name = type(dit).__name__
     log(f"{tag} {name}.run b={b} n={n} text {text_len} kernels vs plain versions: max error "
@@ -1149,7 +1179,7 @@ def check_dit_against_plain(dit, dev, tag: str = "[main]", b: int = 2, n: int = 
 
 def serving_counts() -> dict:
     """The serving kernels' launch counts by mode: attention with fused rotary
-    and without, the normalised projection in layernorm and in RMS mode, the
+    and without, in bf16 and in fp32, the normalised projection in layernorm and in RMS mode, the
     int8 feed-forward."""
     from eraxvif5tts_tpu_torch.ops import fused_matmul as fm
     from eraxvif5tts_tpu_torch.ops import quant_ff as qf
@@ -1157,6 +1187,8 @@ def serving_counts() -> dict:
 
     return {"serving_attention": sa.serving_attention.launches_by_rope[True],
             "serving_attention_norope": sa.serving_attention.launches_by_rope[False],
+            "serving_attention_fp32": sa.serving_attention.launches_fp32_by_rope[True],
+            "serving_attention_fp32_norope": sa.serving_attention.launches_fp32_by_rope[False],
             "ln_mod_matmul": fm.ln_mod_matmul.launches_by_norm["ln"],
             "ln_mod_matmul_rms": fm.ln_mod_matmul.launches_by_norm["rms"],
             "int8_ff": qf.int8_ff.launches}
@@ -1169,14 +1201,19 @@ def reset_serving_counts() -> None:
 
     sa.serving_attention.launches = fm.ln_mod_matmul.launches = qf.int8_ff.launches = 0
     sa.serving_attention.launches_by_rope = {True: 0, False: 0}
+    sa.serving_attention.launches_fp32_by_rope = {True: 0, False: 0}
     fm.ln_mod_matmul.launches_by_norm = {"ln": 0, "rms": 0}
 
 
-def generate_counted(wrapper, ref, texts, nfe: int, tag: str, path: tuple[str, str]) -> dict:
+RTF: dict = {}  # tag -> the realtime factor of generate_counted's requests under it
+
+
+def generate_counted(wrapper, ref, texts, nfe: int, tag: str, path: tuple[str, ...]) -> dict:
     """Set the serving counters to 0, `generate` each text and read them:
-    per request, the two kernels of ``path`` (names of :func:`serving_counts`)
-    must each have launched depth x nfe x chunks times and the other two modes
-    not at all. Logs the realtime factor per request; returns the counts."""
+    per request, the kernels of ``path`` (names of :func:`serving_counts`)
+    must each have launched depth x nfe x chunks times and the other modes
+    not at all. Logs the realtime factor per request and keeps the whole
+    call's in ``RTF[tag]``; returns the counts."""
     import numpy as np
 
     buckets = []
@@ -1211,13 +1248,15 @@ def generate_counted(wrapper, ref, texts, nfe: int, tag: str, path: tuple[str, s
                                      f"({depth} x {nfe} x {chunks} on {path})")
     finally:
         wrapper._sample_vocode = sample_vocode
+    RTF[tag] = total_wall / total_audio
     log(f"{tag} {len(texts)} request(s): {total_audio:.2f} s of audio in {total_wall:.3f} s: "
-        f"RTF {total_wall / total_audio:.4f} ({total_audio / total_wall:.2f}x realtime) at "
+        f"RTF {RTF[tag]:.4f} ({total_audio / total_wall:.2f}x realtime) at "
         f"NFE {nfe}, {wrapper.compute_dtype}, batch 1")
     return serving_counts()
 
 
 KERNEL_GROUPS = (  # device kernels by name, first match
+    ("kernel 1 fp32 (attention)", ("serving_attention_fp32_kernel",)),
     ("kernel 1 (attention)", ("serving_attention_kernel",)),
     ("kernel 2 (norm + FF in)", ("ln_mod_matmul_kernel", "row_stats_kernel")),
     ("kernel 3 (gated residual)", ("matmul_gate_res_kernel",)),
@@ -1636,7 +1675,8 @@ def phase_edit(wrapper, dev, tag: str = "[edit]") -> None:
     clip with one span at NFE 32 (finite, the kept frames of its mel equal to
     the prompt mel pasted back, kernels 1 and 2 launched depth x NFE times),
     then `python -m eraxvif5tts_tpu_torch.infer.infer_cli` with the bundled
-    basic.toml and no --device, as a subprocess, on a reference-format
+    basic.toml and no --device, as a subprocess, serving fp32 (the entry
+    points' dtype), on a reference-format
     checkpoint and Vocos file of the main wrapper's weights and a vocab
     file; its WAV is checked."""
     import numpy as np
@@ -1696,15 +1736,16 @@ def phase_edit(wrapper, dev, tag: str = "[edit]") -> None:
             raise AssertionError(f"{tag} infer_cli exited {proc.returncode}:\n"
                                  f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
         lines = proc.stdout.strip().splitlines()
-        if not any(" on cuda" in line for line in lines):
-            raise AssertionError(f"{tag} infer_cli did not run on the card: {lines}")
+        if not any(" on cuda" in line and "(float32)" in line for line in lines):
+            raise AssertionError(f"{tag} infer_cli did not serve fp32 on the card: {lines}")
         cli_wave, cli_sr = read_wav(str(tmp / "cli.wav"))
         if not (cli_sr == sr and cli_wave.shape[1] > sr and np.isfinite(cli_wave).all()
                 and np.abs(cli_wave).max() > 1e-3):
             raise AssertionError(f"{tag} infer_cli's WAV is empty, short or silent")
     log(f"{tag} checkpoint + vocoder + vocab written in {written:.1f} s; `python -m "
         f"eraxvif5tts_tpu_torch.infer.infer_cli -c basic.toml` (no --device) said "
-        f"{lines[0]!r} and wrote {cli_wave.shape[1] / cli_sr:.2f} s of audio in "
+        f"{lines[0]!r} (fp32 on the card, through utils_infer.compute_dtype_for) and wrote "
+        f"{cli_wave.shape[1] / cli_sr:.2f} s of audio in "
         f"{cli_wall:.1f} s of process wall (start-up and checkpoint load included)")
 
 
@@ -2343,7 +2384,7 @@ def phase_bigvgan(main_wrapper, dev) -> dict:
     return {name: counts[name] for name in path}
 
 
-def phase_mmdit(dev, cfg=None) -> int:
+def phase_mmdit(dev, cfg=None, ckpt: Path | None = None) -> int:
     """F5TTS_v1_MMDiT at full width (dim 1024, 22 blocks, 16 x 64 heads,
     ff_mult 2) in bf16 from a seeded N(0, 0.02) reference-format checkpoint
     loaded strict: the MMDiT with its kernels against the plain versions at
@@ -2351,8 +2392,9 @@ def phase_mmdit(dev, cfg=None) -> int:
     sequence (text bucket 2048 + mel bucket 4096 = 6144, 22 launches of kernel
     1 without rotary counted), then three `generate`s at NFE 32 with kernel 1
     without rotary counted 22 x 32 a chunk and kernel 2 at 0, and a profiled
-    request. ``cfg``: another MMDiT configuration, for a rehearsal. Returns
-    kernel 1's launches over the three requests."""
+    request. ``cfg``: another MMDiT configuration, for a rehearsal; ``ckpt``:
+    where to write the checkpoint (kept for the fp32 phase), else a
+    temporary file. Returns kernel 1's launches over the three requests."""
     import torch
 
     from eraxvif5tts_tpu_torch.configs import PRESETS
@@ -2363,7 +2405,7 @@ def phase_mmdit(dev, cfg=None) -> int:
     cfg = cfg or PRESETS["F5TTS_v1_MMDiT"]
     vocab = {c: i for i, c in enumerate(VOCAB_CHARS)}
     with tempfile.TemporaryDirectory() as tmp:
-        ckpt = Path(tmp) / "mmdit.pt"
+        ckpt = ckpt or Path(tmp) / "mmdit.pt"
         t0 = time.perf_counter()
         save_reference_checkpoint(ckpt, cfg, dev)
         log(f"[mmdit] reference-format checkpoint of N(0, {WEIGHT_STD}) weights, seed "
@@ -2402,6 +2444,209 @@ def phase_mmdit(dev, cfg=None) -> int:
     counts = generate_counted(wrapper, ref, TEXTS, NFE, "[mmdit]", path)
     profile_generate(wrapper, ref, TEXTS[1], NFE, "[mmdit]")
     return counts["serving_attention_norope"]
+
+
+# fp32 serving (the JAX package's default dtype)
+FP32_TOL = 2e-5  # kernel 1 fp32 vs plain, |err| <= FP32_TOL * (1 + |plain|): fp32 sums
+# over at most 6144 keys taken in another order
+FP32_CASES = ((1088, (1051, 0)), (JOINT_N, JOINT_LENS))  # (n, lens): the DiT's, the MMDiT's top
+FP32_BACKBONE_TOL = 1e-4  # a full-width fp32 DiT call, card vs CPU, in units of its scale
+FP32_BACKBONE_N = 256
+
+
+@contextlib.contextmanager
+def tf32(on: bool):
+    """Both process-wide TF32 flags (cuBLAS matmuls, cuDNN convolutions) set
+    to ``on`` inside the block, back to their values after it."""
+    import torch
+
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = on
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def check_serving_attention_fp32(dev) -> dict:
+    """Kernel 1 on fp32 q, k, v (`csrc/serving_attention_fp32.cu`) against its
+    plain version with TF32 off, with and without rotary, at n = 1088 (lens
+    1051 and 0, the DiT's serving shape) and n = 6144 (lens 6144 and
+    2048 + 1051, the MMDiT's longest joint sequence): within FP32_TOL, a
+    second call bit-identical. At n = 1088 the plain version on the card is
+    held to the same version on the CPU, and at both shapes a control runs
+    the plain version with TF32 on, which the check must refuse. Times of
+    the kernel, the plain version and, without rotary, fp32
+    `scaled_dot_product_attention` on the same q, k, v and key mask; the
+    bound against the card's fp32 rate. Returns the JSON rows (n = 1088)."""
+    import torch
+    import torch.nn.functional as F
+
+    from eraxvif5tts_tpu_torch.ops import serving_attention as sa
+    from eraxvif5tts_tpu_torch.ops.rotary import rotary_freqs
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 120)
+    rows = {}
+    for n, lens_list in FP32_CASES:
+        q, k, v = (torch.randn((2, n, 16, 64), generator=gen, device=dev) for _ in range(3))
+        lens = torch.tensor(lens_list, device=dev)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        key_mask = (torch.arange(n, device=dev)[None] < lens[:, None])[:, None, None, :]
+        for with_rope in (True, False):
+            name = "serving_attention_fp32" + ("" if with_rope else "_norope")
+            case = f"{name} n={n} lens={list(lens_list)}"
+            rope = rotary_freqs(n, 64, device=dev) if with_rope else None
+            with tf32(False):
+                want = sa.serving_attention_reference(q, k, v, lens, rope)
+                plain_ms = cuda_median_ms(
+                    lambda: sa.serving_attention_reference(q, k, v, lens, rope),
+                    iters=5, warmup=1)
+            got = sa.serving_attention(q, k, v, lens, rope)
+            err = compare(case, got, want, FP32_TOL)
+            if not torch.equal(got, sa.serving_attention(q, k, v, lens, rope)):
+                raise AssertionError(f"{case}: a second call on the same inputs differs")
+            with tf32(True):
+                control = sa.serving_attention_reference(q, k, v, lens, rope)
+            control_err = float(((control - want).abs() / (1 + want.abs())).max())
+            del control
+            if control_err <= FP32_TOL:
+                raise AssertionError(f"{case}: the TF32 control ({control_err:.3g}) passes the "
+                                     f"{FP32_TOL} check: it cannot see TF32")
+            cpu_note = ""
+            if n == FP32_CASES[0][0]:
+                cpu = sa.serving_attention_reference(
+                    q.cpu(), k.cpu(), v.cpu(), lens.cpu(), None if rope is None else rope.cpu())
+                cpu_err = compare(f"{case} plain on the card vs the CPU", want.cpu(), cpu,
+                                  FP32_TOL)
+                cpu_note = f"; plain on the card vs the CPU {cpu_err:.3g}"
+            ms = cuda_median_ms(lambda: sa.serving_attention(q, k, v, lens, rope))
+            library_ms = None
+            if not with_rope:
+                library_ms = cuda_median_ms(
+                    lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=key_mask))
+            least = bound(*attention_work(2, n, 16, 64, list(lens_list), with_rope, 4), "fp32")
+            log(f"[fp32] {case} b=2 h=16 d=64: max_abs_err {err:.3g} (tol {FP32_TOL} * "
+                f"(1 + |plain|)), second call bit-identical; TF32 control "
+                f"{control_err:.3g} (refused){cpu_note}; kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {least['bound_ms']:.5f} ms by {least['bound_by']} "
+                f"({100 * least['bound_ms'] / ms:.1f} % of it)"
+                + (f", library (fp32 scaled_dot_product_attention, boolean key mask) "
+                   f"{library_ms:.4f} ms: the kernel takes {ms / library_ms:.2f}x its time"
+                   if library_ms is not None else ", no library call applies the rotation"))
+            if name not in rows:
+                rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                  library_ms=library_ms, **least)
+            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+        del q, k, v, qt, kt, vt, want, got
+    log(f"[fp32] the JSON line's fp32 ms / plain_ms / bound_ms / library_ms are the "
+        f"n = {FP32_CASES[0][0]} case's; the rotary row's library_ms is null")
+    return rows
+
+
+def check_backbone_against_cpu(net, dev, tag: str) -> float:
+    """One fp32 backbone call (:func:`run_backbone`, b = 2, n =
+    FP32_BACKBONE_N, text 120) on the card against the same module on the
+    CPU, with both TF32 flags switched ON around the card's call, so that
+    only the backbone's own fp32 block (`models.modules.full_fp32`) keeps
+    them off: the error in units of the CPU output's scale, held to
+    FP32_BACKBONE_TOL. A control replaces that block with one that turns
+    TF32 on, and must exceed the limit. Returns the error."""
+    import copy
+
+    import torch
+
+    from eraxvif5tts_tpu_torch.models import modules
+
+    inputs = backbone_inputs(dev, 2, FP32_BACKBONE_N, 120)
+    with tf32(True):
+        got = run_backbone(net, inputs).cpu()
+        flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+        switch = modules.fp32_convolutions
+        modules.fp32_convolutions = lambda: tf32(True)
+        try:
+            control = run_backbone(net, inputs).cpu()
+        finally:
+            modules.fp32_convolutions = switch
+    if flags != (True, True):
+        raise AssertionError(f"{tag} the backbone call left the TF32 flags at {flags}")
+    cpu = copy.deepcopy(net).cpu()
+    t0 = time.perf_counter()
+    want = run_backbone(cpu, tuple(t.cpu() for t in inputs))
+    cpu_s = time.perf_counter() - t0
+    del cpu
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max()) / scale
+    control_err = float((control - want).abs().max()) / scale
+    log(f"{tag} {type(net).__name__} fp32 call b=2 n={FP32_BACKBONE_N}, card (TF32 flags on "
+        f"outside, the backbone's block turns them off) vs CPU: max error {err:.3g} of scale "
+        f"{scale:.3g} (tol {FP32_BACKBONE_TOL}); control with TF32 on inside the call: "
+        f"{control_err:.3g}; CPU wall {cpu_s:.2f} s")
+    if not (torch.isfinite(got).all() and err <= FP32_BACKBONE_TOL):
+        raise AssertionError(f"{tag} the card's fp32 backbone differs from the CPU's by {err:.3g}")
+    if control_err <= FP32_BACKBONE_TOL:
+        raise AssertionError(f"{tag} the TF32 control ({control_err:.3g}) passes the check")
+    return err
+
+
+def phase_fp32(main_wrapper, dev, mmdit_ckpt: Path) -> tuple[dict, dict]:
+    """fp32 serving on the card, the JAX wrapper's default dtype: kernel 1's
+    fp32 mode against its plain version (:func:`check_serving_attention_fp32`);
+    the main phase's weights through a reference-format checkpoint served by
+    `F5TTSWrapper("F5TTS_v1_Base")` with no `compute_dtype` (fp32 at full
+    width and depth, the main phase's Vocos weights): the backbone against
+    the CPU's, three `generate`s at NFE 32 with kernel 1 fp32 with rotary
+    counted 22 x 32 a chunk and no launch of kernel 2, a profiled request
+    beside the bf16 main phase's RTF; then the mmdit phase's checkpoint
+    served in fp32, one request with kernel 1 fp32 without rotary counted.
+    Returns (the JSON rows, the launches of both modes on their paths)."""
+    import torch
+
+    from eraxvif5tts_tpu_torch.configs import PRESETS
+    from eraxvif5tts_tpu_torch.infer.wrapper import F5TTSWrapper
+
+    rows = check_serving_attention_fp32(dev)
+    vocab = {c: i for i, c in enumerate(VOCAB_CHARS)}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = Path(tmp) / "model.pt"
+        save_reference_checkpoint_of(ckpt, main_wrapper.transformer)
+        t0 = time.perf_counter()
+        wrapper = F5TTSWrapper("F5TTS_v1_Base", ckpt_path=str(ckpt), vocab_char_map=vocab,
+                               device=dev, nfe_step=NFE)
+        torch.cuda.synchronize()
+        built = time.perf_counter() - t0
+    wrapper.vocoder.load_state_dict(main_wrapper.vocoder.state_dict())
+    served = wrapper.transformer.state_dict()
+    if wrapper.compute_dtype != "float32" or wrapper.vocoder.dtype != torch.float32:
+        raise AssertionError(f"[fp32] the default wrapper serves {wrapper.compute_dtype}")
+    for key, value in main_wrapper.transformer.state_dict().items():
+        if served[key].dtype != torch.float32 or not torch.equal(served[key], value.float()):
+            raise AssertionError(f"[fp32] {key} is not the main phase's weight in fp32")
+    a = wrapper.config.arch
+    log(f"[fp32] F5TTS_v1_Base dim {a.dim} depth {a.depth} heads {a.heads}x{a.dim_head}, "
+        f"F5TTSWrapper with no compute_dtype: {wrapper.compute_dtype}, the main phase's "
+        f"weights through a reference checkpoint, built in {built:.1f} s")
+    check_backbone_against_cpu(wrapper.transformer, dev, "[fp32]")
+    ref = load_reference(wrapper)
+    warm_smallest(wrapper, ref, nfe_step=2)
+    counts = generate_counted(wrapper, ref, TEXTS, NFE, "[fp32]", ("serving_attention_fp32",))
+    profile_generate(wrapper, ref, TEXTS[1], NFE, "[fp32]")
+    log(f"[fp32] RTF at NFE {NFE}, batch 1, same texts: fp32 {RTF['[fp32]']:.4f} against the "
+        f"bf16 main phase's {RTF['[main]']:.4f} ({RTF['[fp32]'] / RTF['[main]']:.2f}x)")
+    del wrapper, ref
+
+    t0 = time.perf_counter()
+    wrapper = F5TTSWrapper(model_cfg=PRESETS["F5TTS_v1_MMDiT"], ckpt_path=str(mmdit_ckpt),
+                           vocab_char_map=vocab, device=dev, nfe_step=NFE)
+    torch.cuda.synchronize()
+    randomize((wrapper.vocoder,), SEED)  # the mmdit phase's draw
+    log(f"[fp32] F5TTS_v1_MMDiT from the mmdit phase's checkpoint, "
+        f"{wrapper.compute_dtype}, built in {time.perf_counter() - t0:.1f} s")
+    ref = load_reference(wrapper)
+    warm_smallest(wrapper, ref, nfe_step=2)
+    mm_counts = generate_counted(wrapper, ref, TEXTS[:1], NFE, "[fp32] MMDiT:",
+                                 ("serving_attention_fp32_norope",))
+    return rows, {"serving_attention_fp32": counts["serving_attention_fp32"],
+                  "serving_attention_fp32_norope": mm_counts["serving_attention_fp32_norope"]}
 
 
 COMPRESS_DEPTHS = (14, 12)  # F5TTS_v1_Pruned_14 / _12
@@ -2731,10 +2976,17 @@ def main() -> int:
     bigvgan_launches = phase_bigvgan(wrapper, dev)
     log(f"[bigvgan] phase done in {time.perf_counter() - t0:.1f} s")
     cfg = wrapper.config
+    with tempfile.TemporaryDirectory() as tmp:
+        mmdit_ckpt = Path(tmp) / "mmdit.pt"
+        t0 = time.perf_counter()
+        launches["serving_attention_joint"] = phase_mmdit(dev, ckpt=mmdit_ckpt)
+        log(f"[mmdit] phase done in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        fp32_rows, fp32_launches = phase_fp32(wrapper, dev, mmdit_ckpt)
+        log(f"[fp32] phase done in {time.perf_counter() - t0:.1f} s")
+    kernel_results.update(fp32_rows)
+    launches.update(fp32_launches)
     del wrapper, ref
-    t0 = time.perf_counter()
-    launches["serving_attention_joint"] = phase_mmdit(dev)
-    log(f"[mmdit] phase done in {time.perf_counter() - t0:.1f} s")
     launches["int8_ff"], ff_err = phase_int8(dev, cfg)
     kernel_results["int8_ff"]["max_abs_err"] = max(kernel_results["int8_ff"]["max_abs_err"],
                                                    ff_err)
@@ -2754,7 +3006,7 @@ def main() -> int:
         raise AssertionError(f"kernels never launched on the compress path: {idle}")
     log(f"[compress] launches by path: {compress}")
     log(f"[bigvgan] launches: {bigvgan_launches}; [mmdit] kernel 1 without rotary: "
-        f"{launches['serving_attention_joint']}")
+        f"{launches['serving_attention_joint']}; [fp32] kernel 1 fp32: {fp32_launches}")
     kernels = [
         *(dict(name=name, route="cuda",
                source="eraxvif5tts_tpu_torch/csrc/serving_attention.cu",
@@ -2762,6 +3014,11 @@ def main() -> int:
                launches=launches[name], **kernel_results[name])
           for name in ("serving_attention", "serving_attention_norope",
                        "serving_attention_joint")),
+        *(dict(name=name, route="cuda",
+               source="eraxvif5tts_tpu_torch/csrc/serving_attention_fp32.cu",
+               replaces="eraxvif5tts_tpu/ops/serving_attention.py:121",
+               launches=launches[name], **kernel_results[name])
+          for name in ("serving_attention_fp32", "serving_attention_fp32_norope")),
         *(dict(name=name, route="cuda",
                source="eraxvif5tts_tpu_torch/csrc/ln_mod_matmul.cu",
                replaces="eraxvif5tts_tpu/ops/fused_matmul.py:68",

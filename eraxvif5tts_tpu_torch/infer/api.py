@@ -4,8 +4,8 @@ reference `src/f5_tts/api.py:23-149`): ``F5TTS`` with ``infer``,
 semantics (a random seed when None, `api.py:117-119`).
 
 ``device=None`` is the card (``cuda``); ``"cuda"``, ``"cuda:N"`` and ``"cpu"``
-are accepted, anything else raises. The wrapper computes in bf16 on the card
-and in fp32 on the CPU.
+are accepted, anything else raises. The wrapper computes in fp32 on every
+device, as the JAX API's does (`utils_infer.compute_dtype_for`).
 """
 
 from __future__ import annotations

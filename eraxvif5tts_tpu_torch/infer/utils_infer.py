@@ -66,9 +66,12 @@ def resolve_device(device: Optional[str]) -> torch.device:
 
 
 def compute_dtype_for(device: torch.device) -> str:
-    """The serving dtype of a device: bf16 on the card (the kernels take
-    bf16), fp32 on the CPU."""
-    return "float32" if torch.device(device).type == "cpu" else "bfloat16"
+    """The serving dtype of the port's entry points on ``device``: fp32 on
+    the card and on the CPU, the JAX wrapper's default, which every JAX
+    entry point serves (none of them overrides it). bf16 stays a caller's
+    choice: ``F5TTSWrapper(compute_dtype="bfloat16")``."""
+    del device  # one dtype on every device, as in the JAX package
+    return "float32"
 
 
 def initialize_asr_pipeline(model_name: str = "openai/whisper-large-v3-turbo", pipe=None):

@@ -24,9 +24,13 @@ the wrapper quantized them, raises past the threshold, keeps the report in
 
 Differences, by design:
 
-- an explicit ``device``; ``compute_dtype="bfloat16"`` (or ``"int8"``, which
-  computes in bf16) is the card's serving dtype, and a float32 wrapper on
-  CUDA raises at construction (the CUDA kernels take bf16);
+- an explicit ``device`` (the card unless the caller asks for the CPU). The
+  compute dtype defaults to ``"float32"``, as the JAX wrapper's does
+  (`eraxvif5tts_tpu/infer/wrapper.py:126`), on the card too: its attention
+  runs the fp32 kernel and its feed-forward the unfused branch, with TF32
+  off for every backbone and vocoder call (``models.modules.full_fp32``).
+  ``compute_dtype="bfloat16"`` serves in bf16 (the fused kernels), and
+  ``"int8"`` computes in bf16;
 - sampler noise comes from a ``torch.Generator`` seeded per request, one
   fresh ``[bucket, n_mels]`` draw per chunk, one per ``generate_batch`` call
   (reproducible from ``seed``, not bit-equal to ``jax.random``);
@@ -58,7 +62,7 @@ conditioning mels are the ones the vocoder was trained on; BigVGAN's weights
 come from ``vocoder_params`` (the JAX tree), from ``vocoder_ckpt_path`` (a
 reference generator checkpoint) or else from the JAX wrapper's random draw
 (`BigVGAN.init_random_params(np.random.default_rng(1))`). BigVGAN vocodes
-in fp32 (TF32 off) while the backbone serves in bf16, and its receptive
+in fp32 (TF32 off) whatever the backbone's dtype, and its receptive
 field of about 25 mel frames fits inside the vocode margin.
 
 The phoneme duration predictor (``duration_predictor_ckpt``, a reference-format
@@ -160,7 +164,7 @@ class F5TTSWrapper:
         speed: float = 1.0,
         use_duration_predictor: bool = False,
         duration_predictor_ckpt: Optional[str] = None,
-        compute_dtype: str = "bfloat16",
+        compute_dtype: str = "float32",
         int8_validate: bool = False,
         device: str | torch.device = "cuda",
         params: Optional[dict] = None,
@@ -193,10 +197,6 @@ class F5TTSWrapper:
         if compute_dtype == "int8":
             quant.quantized_weight_keys(cfg.arch.depth, cfg.backbone)  # raises for the MMDiT
         self.device = torch.device(device)
-        if self.device.type == "cuda" and compute_dtype == "float32":
-            raise ValueError(
-                f"compute_dtype={compute_dtype!r} on {self.device}: the CUDA kernels "
-                "take bfloat16 only; float32 on the card is not ported yet")
         dtype = _DTYPES[compute_dtype]
         self.compute_dtype = compute_dtype
 

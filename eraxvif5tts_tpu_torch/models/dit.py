@@ -39,6 +39,7 @@ from eraxvif5tts_tpu_torch.models.modules import (
     ConvPositionEmbedding,
     DiTBlock,
     TimestepEmbedding,
+    full_fp32,
     linear,
 )
 from eraxvif5tts_tpu_torch.ops.rotary import abs_pos_embedding_table, rotary_freqs
@@ -157,11 +158,13 @@ class DiT(nn.Module):
                                                     device=device))
         return self._rope[key]
 
+    @full_fp32
     def embed_text(self, text: torch.Tensor, seq_len: int,
                    drop_text: torch.Tensor) -> torch.Tensor:
         """Text embedding at ``seq_len`` frames, computed once per sample call."""
         return self.text_embed(text, seq_len, drop_text, self.dtype)
 
+    @full_fp32
     def run(self, x: torch.Tensor, cond: torch.Tensor, text_embed: torch.Tensor,
             time: torch.Tensor, drop_audio_cond: torch.Tensor,
             mask: torch.Tensor | None = None, dropout_keys=None) -> torch.Tensor:

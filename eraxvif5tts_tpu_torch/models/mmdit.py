@@ -48,6 +48,7 @@ from eraxvif5tts_tpu_torch.models.modules import (
     FeedForward,
     RMSNorm,
     TimestepEmbedding,
+    full_fp32,
     layer_norm,
     linear,
 )
@@ -234,12 +235,14 @@ class MMDiT(nn.Module):
                                                     device=device))
         return self._rope[key]
 
+    @full_fp32
     def embed_text(self, text: torch.Tensor, seq_len: int,
                    drop_text: torch.Tensor) -> torch.Tensor:
         """The text stream at the text's own (bucket) length; ``seq_len`` is
         unused, as in the JAX MMDiT (`mmdit.py:249-251`)."""
         return self.text_embed(text, drop_text, self.dtype)
 
+    @full_fp32
     def run(self, x: torch.Tensor, cond: torch.Tensor, text_embed: torch.Tensor,
             time: torch.Tensor, drop_audio_cond: torch.Tensor,
             mask: torch.Tensor | None = None, dropout_keys=None) -> torch.Tensor:

@@ -19,7 +19,7 @@ Conventions, as in the JAX package:
 Two modes, as the JAX package's ``deterministic`` flag: in eval mode
 (serving) :class:`Attention` calls the masked serving attention (rotary fused
 into the kernel when every head is rotated; with ``pe_attn_head`` the first
-heads are rotated here and the kernel runs without rotary) and
+heads are rotated here and the kernel runs without rotary) and, in bf16,
 :class:`FeedForward` the normalised, modulated input projection kernel; in
 training mode (``module.train()``, the JAX ``deterministic=False``) q and k
 are rotated outside the kernel, attention runs through the training kernels
@@ -43,6 +43,7 @@ bf16), or the one-kernel ``int8_ff`` with ``ERAX_INT8_FF=1`` — never the
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 import threading
 
@@ -52,7 +53,7 @@ from torch import nn
 
 from eraxvif5tts_tpu_torch.ops.attention import dot_product_attention
 from eraxvif5tts_tpu_torch.ops.dropout import hash_dropout
-from eraxvif5tts_tpu_torch.ops.fused_matmul import ln_mod_matmul
+from eraxvif5tts_tpu_torch.ops.fused_matmul import ln_mod_matmul, use_fused_serving
 from eraxvif5tts_tpu_torch.ops.quant import QuantLinear
 from eraxvif5tts_tpu_torch.ops.quant_ff import int8_ff, use_int8_ff
 from eraxvif5tts_tpu_torch.ops.rotary import apply_rotary_heads
@@ -75,25 +76,46 @@ def conv1d(x: torch.Tensor, layer: nn.Conv1d) -> torch.Tensor:
                     dilation=layer.dilation, groups=layer.groups)
 
 
-# One lock for every switch of cuDNN's TF32 flag (see fp32_convolutions).
+# One lock for every switch of the process-wide TF32 flags (see fp32_convolutions).
 _TF32_LOCK = threading.RLock()
 
 
 @contextlib.contextmanager
 def fp32_convolutions():
-    """cuDNN convolutions in full fp32, TF32 off, inside the block: for the
-    modules the JAX package runs in fp32 (BigVGAN, the duration predictor).
-    ``torch.backends.cudnn.allow_tf32`` is one flag of the process, not of a
-    thread, so the blocks hold one lock: two threads never interleave their
-    switches (which could leave TF32 on inside one thread's block, or off
-    for the whole process), and the flag is back at its value on exit."""
+    """Full fp32 inside the block: cuDNN convolutions and cuBLAS matmuls with
+    TF32 off (``torch.backends.cudnn.allow_tf32`` and
+    ``torch.backends.cuda.matmul.allow_tf32`` False), for what the JAX
+    package computes in fp32: BigVGAN, the duration predictor, and a
+    backbone and Vocos served in fp32 (:func:`full_fp32`). Both flags belong
+    to the process, not to a thread, so the blocks hold one lock: two
+    threads never interleave their switches (which could leave TF32 on
+    inside one thread's block, or off for the whole process), and both flags
+    are back at their values on exit. Re-entrant."""
     with _TF32_LOCK:
-        saved = torch.backends.cudnn.allow_tf32
+        saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
         try:
             yield
         finally:
-            torch.backends.cudnn.allow_tf32 = saved
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def full_fp32(method):
+    """Decorate a backbone's ``embed_text`` / ``run`` or a vocoder's
+    ``forward``: the call runs inside one :func:`fp32_convolutions` block
+    when the module computes in fp32 (its ``dtype``), and as it is in any
+    other dtype. One block a call, not one a convolution or product: the
+    lock is taken once per backbone step."""
+
+    @functools.wraps(method)
+    def call(self, *args, **kwargs):
+        if self.dtype != torch.float32:
+            return method(self, *args, **kwargs)
+        with fp32_convolutions():
+            return method(self, *args, **kwargs)
+
+    return call
 
 
 def layer_norm(x: torch.Tensor, layer: nn.LayerNorm | None = None) -> torch.Tensor:
@@ -259,13 +281,15 @@ class AdaLayerNormFinal(nn.Module):
 class FeedForward(nn.Module):
     """The feed-forward of a block. :meth:`forward` takes the block's pre-norm
     input: norm + modulate + Linear + tanh-GELU, dropout, Linear. In eval mode
-    the first four are one kernel (`ln_mod_matmul`, the fused serving branch,
-    `modules.py:289-307`, `:485-496`): ``norm="ln"`` for the DiT's AdaLN,
+    in bf16 the first four are one kernel (`ln_mod_matmul`, the fused serving
+    branch, `modules.py:289-307`, `:485-496`; the gate is
+    ``ops.fused_matmul.use_fused_serving``, as in the JAX package, whose
+    kernel has no fp32 domain): ``norm="ln"`` for the DiT's AdaLN,
     ``norm="rms"`` for the UNetT with ``scale = g - 1`` and ``shift = 0``
-    (`unett.py:77-81`). In training mode, and quantized, the layernorm +
-    modulate is unfused and :meth:`project` does the rest: Linear, tanh-GELU,
-    dropout, Linear (`modules.py:322-329`, `:498-500`), or quantized the int8
-    chain or ``int8_ff`` (`modules.py:309-329`). The UNetT's unfused branch
+    (`unett.py:77-81`). In fp32, in training mode, and quantized, the
+    layernorm + modulate is unfused and :meth:`project` does the rest:
+    Linear, tanh-GELU, dropout, Linear (`modules.py:322-329`, `:498-500`), or
+    quantized the int8 chain or ``int8_ff`` (`modules.py:309-329`). The UNetT's unfused branch
     normalises with its own :class:`XRMSNorm` and calls :meth:`project`. Keys
     ``ff.0.0`` / ``ff.2`` as in the reference."""
 
@@ -283,7 +307,7 @@ class FeedForward(nn.Module):
     def forward(self, x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
                 dropout_rate: float = 0.0, dropout_key=None, norm: str = "ln") -> torch.Tensor:
         project_in = self.ff[0][0]
-        if not self.training and not self.quantized:
+        if not self.training and not self.quantized and use_fused_serving(x.dtype):
             h = ln_mod_matmul(x, scale.contiguous(), shift.contiguous(), project_in.weight,
                               project_in.bias, activation="gelu_tanh", norm=norm)
             return linear(h, self.ff[2])

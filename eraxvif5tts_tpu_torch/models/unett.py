@@ -50,8 +50,10 @@ from eraxvif5tts_tpu_torch.models.modules import (
     FeedForward,
     TimestepEmbedding,
     XRMSNorm,
+    full_fp32,
     linear,
 )
+from eraxvif5tts_tpu_torch.ops.fused_matmul import use_fused_serving
 from eraxvif5tts_tpu_torch.ops.rotary import rotary_freqs
 
 SKIP_CONNECT_TYPES = ("concat", "add", "none")
@@ -117,6 +119,7 @@ class UNetT(nn.Module):
                                                     device=device))
         return self._rope[key]
 
+    @full_fp32
     def embed_text(self, text: torch.Tensor, seq_len: int,
                    drop_text: torch.Tensor) -> torch.Tensor:
         """Text embedding at ``seq_len`` frames, computed once per sample call."""
@@ -138,6 +141,7 @@ class UNetT(nn.Module):
             return ff(h, scale, torch.zeros_like(scale), norm="rms") + h
         return ff.project(ff_norm(h), rate, keys[2]) + h
 
+    @full_fp32
     def run(self, x: torch.Tensor, cond: torch.Tensor, text_embed: torch.Tensor,
             time: torch.Tensor, drop_audio_cond: torch.Tensor,
             mask: torch.Tensor | None = None, dropout_keys=None) -> torch.Tensor:
@@ -169,7 +173,7 @@ class UNetT(nn.Module):
         rope = self.rope(seq_len + 1, x.device)
 
         # the JAX package's fusion gate: serving, bf16, not quantized (`unett.py:245-250`)
-        fused = not self.training and h.dtype == torch.bfloat16 and not self.arch.quantized
+        fused = not self.training and use_fused_serving(h.dtype) and not self.arch.quantized
         half = depth // 2
         skips: list[torch.Tensor] = []
         for idx, keys in enumerate(dropout_keys):

@@ -5,9 +5,11 @@ Public Vocos mel-24khz architecture: embed Conv1d(100 -> 512, k7), LayerNorm,
 giving log-magnitude and phase, then a centred ISTFT. Parameter names follow
 the Vocos checkpoint (`compression/convert.py` ``vocos_rules``).
 
-Parameters stay fp32; ``compute_dtype`` (bf16 when serving) applies to the
-ConvNeXt stack, layernorm statistics are fp32, and the ISTFT head runs fp32
-(phase -> cos/sin is precision-sensitive). The magnitude is clipped at 1e2
+Parameters stay fp32; ``compute_dtype`` (the wrapper's: fp32 by default,
+bf16 when asked) applies to the ConvNeXt stack, layernorm statistics are
+fp32, and the ISTFT head runs fp32 (phase -> cos/sin is
+precision-sensitive). In fp32 a call runs with TF32 off
+(``models.modules.full_fp32``). The magnitude is clipped at 1e2
 (`vocos.py:103-105`).
 """
 
@@ -17,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from eraxvif5tts_tpu_torch.models.modules import conv1d, layer_norm, linear
+from eraxvif5tts_tpu_torch.models.modules import conv1d, full_fp32, layer_norm, linear
 from eraxvif5tts_tpu_torch.ops.stft import istft
 
 
@@ -85,5 +87,10 @@ class Vocos(nn.Module):
         self.backbone = VocosBackbone(input_channels, dim, intermediate_dim, num_layers)
         self.head = ISTFTHead(dim, n_fft, hop_length)
 
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.compute_dtype
+
+    @full_fp32
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
         return self.head(self.backbone(mel, self.compute_dtype))

@@ -54,6 +54,15 @@ EPS = {"ln": 1e-6, "rms": 1e-12}  # each norm's eps in the JAX package's models
 _NORM_CODES = {"ln": 0, "rms": 1}  # the kernel's `norm` argument
 
 
+def use_fused_serving(dtype: torch.dtype) -> bool:
+    """The serving blocks' fusion gate, the JAX package's dtype rule
+    (`eraxvif5tts_tpu/ops/fused_matmul.py:134-156`, `dit_block_fusion_ok`):
+    only a bf16 block runs its norm + modulate + FF input projection as
+    :func:`ln_mod_matmul`; an fp32 block takes the unfused branch. The DiT's
+    ``FeedForward`` and the UNetT both ask it."""
+    return dtype == torch.bfloat16
+
+
 def ln_mod_matmul_reference(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
                             weight: torch.Tensor, bias: torch.Tensor,
                             activation: Optional[str] = "gelu_tanh", norm: str = "ln",

@@ -1,8 +1,8 @@
 """Masked softmax attention with fused rotary: the serving loop's attention.
 
 Port of `eraxvif5tts_tpu/ops/serving_attention.py` (`serving_attention`, whose
-Pallas body is `_headloop_kernel`). :func:`serving_attention` launches the
-CUDA kernel `csrc/serving_attention.cu` for CUDA tensors and runs
+Pallas body is `_headloop_kernel`). :func:`serving_attention` launches a CUDA
+kernel for CUDA tensors, chosen by the inputs' dtype, and runs
 :func:`serving_attention_reference`, the plain PyTorch version of the same
 semantics, for CPU tensors:
 
@@ -12,22 +12,32 @@ semantics, for CPU tensors:
   finite -1e30 (a sample with ``lens = 0`` averages every key, never NaN);
 - P cast to v's dtype, PV accumulated in fp32, output in q's dtype.
 
-Kernel domain: bf16, contiguous and 16-byte aligned ``[b, n, h, 64]``,
-``n % 64 == 0``, ``64 <= n <= 6144``. The bound is the longest sequence a
-served model gives it: the MMDiT's joint text + mel sequence at the largest
-text and duration buckets (2048 + 4096); the DiT and the UNetT stop at 4096.
-Nothing in the kernel depends on n beyond its tiles: the K / V ring's shared
-memory is fixed, the grid and the tensor map's dimensions grow with n and
-row offsets are 64-bit. Anything else on a CUDA tensor raises; there is no
-fallback. The kernel is the forward core of `csrc/flash_forward.cuh`
-(`ops/train_attention.py` ``forward_geometry`` states its launch); it reads
-fp32 cos / sin tables, which :func:`rope_tables` makes once per angle table
-and keeps, so a call in the Euler loop does no host work for them (nor for
-the ``lens=None`` vector). Several threads may call it at once (the HTTP
-server runs up to four generations on one wrapper): the two caches change
-under a lock, the launch counters under ``_cuda.COUNT_LOCK``. The kernel's online softmax rounds the unnormalised P to bf16 where the TPU
-kernel rounds the normalised P: the two agree to bf16 rounding of the output
-(the card-side check in `chip_smoke.py` states its tolerance).
+Kernel domain: bf16 or fp32 (q, k and v of one dtype), contiguous and
+16-byte aligned ``[b, n, h, 64]``, ``n % 64 == 0``, ``64 <= n <= 6144``.
+The bound is the longest sequence a served model gives it: the MMDiT's
+joint text + mel sequence at the largest text and duration buckets
+(2048 + 4096); the DiT and the UNetT stop at 4096. Anything else on a CUDA
+tensor raises; there is no fallback.
+
+- bf16: `csrc/serving_attention.cu`, the forward core of
+  `csrc/flash_forward.cuh` (`ops/train_attention.py` ``forward_geometry``
+  states its launch) on ``wgmma`` and TMA. Nothing in it depends on n beyond
+  its tiles: the K / V ring's shared memory is fixed, the grid and the
+  tensor map's dimensions grow with n and row offsets are 64-bit. Its online
+  softmax rounds the unnormalised P to bf16 where the TPU kernel rounds the
+  normalised P: the two agree to bf16 rounding of the output (the card-side
+  check in `chip_smoke.py` states its tolerance).
+- fp32 (the JAX package's default serving dtype):
+  `csrc/serving_attention_fp32.cu`, every product an FFMA in true fp32 (no
+  TF32), 64 query rows a block over key tiles of 64 in shared memory, an
+  online softmax with ``expf``; it agrees with the plain version to the
+  reordering of fp32 sums.
+
+Both read fp32 cos / sin tables, which :func:`rope_tables` makes once per
+angle table and keeps, so a call in the Euler loop does no host work for
+them (nor for the ``lens=None`` vector). Several threads may call it at once
+(the HTTP server runs up to four generations on one wrapper): the two caches
+change under a lock, the launch counters under ``_cuda.COUNT_LOCK``.
 """
 
 from __future__ import annotations
@@ -45,6 +55,7 @@ _NEG = -1e30
 MAX_N = TEXT_BUCKETS[-1] + DURATION_BUCKETS[-1]  # the MMDiT's longest joint sequence
 TILE = 64
 HEAD_DIM = 64
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def _rotate(x: torch.Tensor, rope: torch.Tensor) -> torch.Tensor:
@@ -76,9 +87,11 @@ def _check_cuda_args(q, k, v, lens, rope) -> None:
     if not (q.shape == k.shape == v.shape) or q.ndim != 4:
         raise ValueError(f"serving_attention: q, k, v must share one [b, n, h, d] "
                          f"shape, got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if q.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"serving_attention: q must be bfloat16 or float32, got {q.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"serving_attention: {name} must be bfloat16, got {t.dtype}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"serving_attention: {name} is {t.dtype}, q {q.dtype}")
         if t.device != q.device:
             raise ValueError(f"serving_attention: {name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous() or t.data_ptr() % 16:
@@ -151,9 +164,10 @@ def serving_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     per-sample valid length (``lens [b]``) and fused rotary (``rope [n, d]``).
 
     CPU tensors take :func:`serving_attention_reference`; CUDA tensors launch
-    the kernel or raise. ``serving_attention.launches`` counts every launch
-    and ``serving_attention.launches_by_rope[rope is not None]`` those with
-    and without fused rotary."""
+    the kernel of their dtype or raise. The bf16 kernel's launches are
+    counted in ``serving_attention.launches`` and, with and without fused
+    rotary, ``serving_attention.launches_by_rope[rope is not None]``; the
+    fp32 kernel's apart, in ``serving_attention.launches_fp32_by_rope``."""
     if q.device.type == "cpu":
         return serving_attention_reference(q, k, v, lens, rope)
     if q.device.type != "cuda":
@@ -167,8 +181,10 @@ def serving_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     cos, sin = rope_tables(rope) if rope is not None else (None, None)
     out = torch.empty_like(q)
     lib = _cuda.kernels().lib
+    fp32 = q.dtype == torch.float32
+    launch = lib.erax_serving_attention_fp32 if fp32 else lib.erax_serving_attention
     with torch.cuda.device(q.device):
-        code = lib.erax_serving_attention(
+        code = launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lens_i.data_ptr(),
             cos.data_ptr() if cos is not None else None,
             sin.data_ptr() if sin is not None else None,
@@ -176,10 +192,14 @@ def serving_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             _cuda.stream_ptr(q.device))
     _cuda.check(code, "serving_attention")
     with _cuda.COUNT_LOCK:
-        serving_attention.launches += 1
-        serving_attention.launches_by_rope[rope is not None] += 1
+        if fp32:
+            serving_attention.launches_fp32_by_rope[rope is not None] += 1
+        else:
+            serving_attention.launches += 1
+            serving_attention.launches_by_rope[rope is not None] += 1
     return out
 
 
 serving_attention.launches = 0
 serving_attention.launches_by_rope = {True: 0, False: 0}
+serving_attention.launches_fp32_by_rope = {True: 0, False: 0}

@@ -182,8 +182,7 @@ def smoke_wrapper(device: str = "cuda") -> tuple[F5TTSWrapper, ReferenceState]:
     vocab = {c: i for i, c in enumerate(" abcdefghijklmnopqrstuvwxyz.,!?-")}
     wrapper = F5TTSWrapper(model_cfg=cfg, vocab_char_map=vocab, nfe_step=4,
                            duration_buckets=(128, 256), text_buckets=(128,),
-                           device=device,
-                           compute_dtype="bfloat16" if device != "cpu" else "float32")
+                           device=device, compute_dtype=compute_dtype_for(device))
     t = np.arange(24000 // 2) / 24000.0
     wav = (0.2 * np.sin(2 * np.pi * 150 * t)).astype(np.float32)
     state = wrapper.preprocess_reference(ref_audio=wav, ref_sample_rate=24000,
@@ -208,8 +207,8 @@ def main(argv: Optional[list[str]] = None):
                     help="tiny random model and a synthetic reference")
     args = ap.parse_args(argv)
 
-    # as the HTTP server's main: 'tpu' and the like raise here, and the CPU
-    # serves in fp32 (the JAX server's dtype), the card in bf16
+    # as the HTTP server's main: 'tpu' and the like raise here, and both the
+    # CPU and the card serve in fp32 (the JAX server's dtype)
     dev = resolve_device(args.device)
     if args.smoke:
         wrapper, state = smoke_wrapper(str(dev))

@@ -324,8 +324,10 @@ def test_int8_ff_env_launches_the_kernel_in_the_quantized_block(cuda, monkeypatc
 
 def test_kernels_refuse_what_they_do_not_take(cuda):
     q = torch.zeros((1, 128, 2, 64), device=cuda)
-    with pytest.raises(TypeError):
-        sa.serving_attention(q, q, q)
+    with pytest.raises(TypeError):  # bf16 or fp32 only
+        sa.serving_attention(q.half(), q.half(), q.half())
+    with pytest.raises(TypeError):  # one dtype for q, k and v
+        sa.serving_attention(q, q.bfloat16(), q)
     qb = torch.zeros((1, 100, 2, 64), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         sa.serving_attention(qb, qb, qb)
@@ -699,3 +701,117 @@ def test_predict_duration_frames_on_the_card_equals_the_cpu(cuda):
         assert frames > 0 and predict_duration_frames(card, phoneme_map, text) == frames
     with pytest.raises(ValueError, match="outside the duration predictor's table"):
         predict_duration_frames(card, {"a": 1, "b": 200}, "ab")
+
+
+# ---- fp32 serving: kernel 1's fp32 mode and the paths that run it ------------
+
+FP32_TOL = 2e-5  # fp32 sums over <= 6144 keys in another order
+
+
+@pytest.fixture
+def no_tf32():
+    """The plain version's einsum in full fp32 (TF32 off) for the test."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+@pytest.mark.parametrize("n", [64, 192, 1088, 4096, 6144])
+@pytest.mark.parametrize("with_rope", [False, True])
+def test_serving_attention_fp32_matches_plain(cuda, no_tf32, n, with_rope):
+    """The fp32 kernel at the edges of its domain (one tile, three, the DiT's
+    bucket, the DiT's longest, the MMDiT's joint sequence), with lengths
+    inside a tile, at 0, on a tile's edge and past n, and without lengths:
+    within FP32_TOL of the plain version, counted apart from the bf16
+    kernel's launches, a second call bit-identical."""
+    g = torch.Generator(device=cuda).manual_seed(11 * n + with_rope)
+    q, k, v = (torch.randn((3, n, 2, 64), generator=g, device=cuda) for _ in range(3))
+    rope = rotary_freqs(n, 64, device=cuda) if with_rope else None
+    for lens in (torch.tensor([n - 21, 0, 64 * max(n // 128, 1)], device=cuda),
+                 torch.tensor([n + 5, 1, n], device=cuda), None):
+        bf16 = (sa.serving_attention.launches, dict(sa.serving_attention.launches_by_rope))
+        before = dict(sa.serving_attention.launches_fp32_by_rope)
+        got = sa.serving_attention(q, k, v, lens, rope)
+        torch.cuda.synchronize()
+        assert sa.serving_attention.launches_fp32_by_rope == {
+            with_rope: before[with_rope] + 1, not with_rope: before[not with_rope]}
+        assert (sa.serving_attention.launches,
+                dict(sa.serving_attention.launches_by_rope)) == bf16
+        assert got.dtype == torch.float32 and torch.isfinite(got).all()
+        want = sa.serving_attention_reference(q, k, v, lens, rope)
+        err = (got - want).abs()
+        assert torch.all(err <= FP32_TOL * (1 + want.abs())), float(err.max())
+        assert torch.equal(sa.serving_attention(q, k, v, lens, rope), got)
+
+
+def test_fp32_feedforward_launches_no_kernel_2(cuda, no_tf32):
+    """An fp32 block's feed-forward on the card takes the unfused layernorm +
+    modulate + project branch (the JAX package's gate): no launch of kernel
+    2, the CPU's result within fp32 rounding; a bf16 one launches it."""
+    torch.manual_seed(5)
+    ff = FeedForward(256, mult=2).eval()
+    x, scale, shift = torch.randn(2, 72, 256), 0.1 * torch.randn(2, 256), torch.randn(2, 256)
+    with torch.no_grad():
+        want = ff(x, scale, shift)
+        card = ff.to(cuda)
+        before = fm.ln_mod_matmul.launches
+        got = card(x.to(cuda), scale.to(cuda), shift.to(cuda))
+        torch.cuda.synchronize()
+        assert fm.ln_mod_matmul.launches == before
+        assert float((got.cpu() - want).abs().max()) <= 1e-5 * float(want.abs().max())
+        card.bfloat16()(x.to(cuda).bfloat16(), scale.to(cuda).bfloat16(),
+                        shift.to(cuda).bfloat16())
+        torch.cuda.synchronize()
+        assert fm.ln_mod_matmul.launches == before + 1
+
+
+@pytest.mark.parametrize("backbone", ["DiT", "UNetT", "MMDiT"])
+def test_fp32_wrapper_generates_on_the_card(cuda, backbone):
+    """A default-built (fp32) tiny wrapper on the card, for each backbone:
+    kernel 1 fp32 depth x NFE launches a chunk (with rotary for the DiT,
+    without for the UNetT and the MMDiT), no kernel 2, no bf16 attention, and
+    PCM within 4 LSB of the same wrapper on the CPU given the same noise."""
+    import numpy as np
+
+    from eraxvif5tts_tpu_torch.configs import ArchConfig, ModelConfig
+    from eraxvif5tts_tpu_torch.infer.wrapper import F5TTSWrapper
+
+    arch = dict(dim=128, depth=2, heads=2, dim_head=64, ff_mult=2, dropout=0.0)
+    cfg = {"DiT": ModelConfig(name="tiny", arch=ArchConfig(text_dim=32, conv_layers=1, **arch)),
+           "UNetT": ModelConfig(name="tiny-e2", backbone="UNetT", arch=ArchConfig(
+               text_dim=None, text_mask_padding=False, pe_attn_head=1, conv_layers=0, **arch)),
+           "MMDiT": ModelConfig(name="tiny-mm", backbone="MMDiT", arch=ArchConfig(**arch))
+           }[backbone]
+    buckets = (127, 255) if backbone == "UNetT" else (128, 256)  # + the time token: 64k
+    vocab = {c: i for i, c in enumerate(" abcdefghijklmnopqrstuvwxyz.,")}
+    kwargs = dict(model_cfg=cfg, vocab_char_map=vocab, nfe_step=4,
+                  duration_buckets=buckets, text_buckets=(128,))
+    torch.manual_seed(0)
+    cpu = F5TTSWrapper(device="cpu", **kwargs)
+    card = F5TTSWrapper(device=cuda, **kwargs)
+    assert card.compute_dtype == "float32"
+    card.transformer.load_state_dict(cpu.transformer.state_dict())
+    card.vocoder.load_state_dict(cpu.vocoder.state_dict())
+    rng = np.random.default_rng(0)
+    noise = torch.from_numpy(rng.standard_normal((256, 100)).astype(np.float32))
+    for w in (cpu, card):
+        w._draw_noise = lambda generator, frames, w=w: noise[:frames].to(w.device)
+    wav = (0.2 * np.sin(2 * np.pi * 150 * np.arange(12000) / 24000)).astype(np.float32)
+    roped = backbone == "DiT"
+    waves = []
+    for w in (cpu, card):
+        ref = w.preprocess_reference(ref_audio=wav, ref_sample_rate=24000,
+                                     ref_text="the sea was calm.")
+        before = (dict(sa.serving_attention.launches_fp32_by_rope), sa.serving_attention.launches,
+                  fm.ln_mod_matmul.launches)
+        waves.append(w.generate("the lamp turned steadily.", ref=ref, seed=1,
+                                use_pinyin=False))
+        if w is card:
+            torch.cuda.synchronize()
+            fp32, bf16, kernel2 = before
+            assert sa.serving_attention.launches_fp32_by_rope == {
+                roped: fp32[roped] + 2 * 4, not roped: fp32[not roped]}
+            assert (sa.serving_attention.launches, fm.ln_mod_matmul.launches) == (bf16, kernel2)
+    assert waves[0].shape == waves[1].shape and np.isfinite(waves[1]).all()
+    assert np.abs(waves[1] - waves[0]).max() <= 4 / 32767.0

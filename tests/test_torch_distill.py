@@ -424,6 +424,9 @@ def test_eval_forward_hands_the_serving_kernels_contiguous_rows(weights, monkeyp
     monkeypatch.setattr(modules, "ln_mod_matmul", ln)
     monkeypatch.setattr(modules, "dot_product_attention", attn)
     teacher, _, _ = _port_models(weights)
+    # in bf16, the teacher's serving dtype on the card: an fp32 block takes the
+    # unfused feed-forward and never calls kernel 2
+    teacher = teacher.to(torch.bfloat16)
     batch = _batch()
     mel, text, lens = _tensors(batch)
     no_drop = torch.zeros(B, dtype=torch.bool)

@@ -159,8 +159,11 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
     tensors; on a card the same checks raise before any launch)."""
     q = torch.zeros(2, 128, 2, 64, dtype=torch.bfloat16)
     tsa._check_cuda_args(q, q, q, None, None)
-    with pytest.raises(TypeError, match="bfloat16"):
-        tsa._check_cuda_args(q.float(), q.float(), q.float(), None, None)
+    tsa._check_cuda_args(q.float(), q.float(), q.float(), None, None)  # the fp32 kernel
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        tsa._check_cuda_args(q.half(), q.half(), q.half(), None, None)
+    with pytest.raises(TypeError, match="k is torch.float32, q torch.bfloat16"):
+        tsa._check_cuda_args(q, q.float(), q, None, None)
     bad_n = torch.zeros(2, 96, 2, 64, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="multiple of 64"):
         tsa._check_cuda_args(bad_n, bad_n, bad_n, None, None)

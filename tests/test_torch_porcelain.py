@@ -471,7 +471,7 @@ def test_cli_device_rules(wrappers, ref_wav_path, tmp_path, monkeypatch):
     # --vocoder_name configures the wrapper (BigVGAN is ported): not a pre-built one
     with pytest.raises(ValueError, match="configure the wrapper at construction"):
         tcli.run({**base, "vocoder_name": "bigvgan"}, wrapper=tw)
-    # without --device the CLI builds its wrapper on the card, in bf16
+    # without --device the CLI builds its wrapper on the card, in fp32 (the JAX default)
     built = {}
 
     class Stop(Exception):
@@ -482,8 +482,8 @@ def test_cli_device_rules(wrappers, ref_wav_path, tmp_path, monkeypatch):
         raise Stop
 
     monkeypatch.setattr(tcli, "F5TTSWrapper", fake_wrapper)
-    for device, want in ((None, ("cuda", "bfloat16")), ("cpu", ("cpu", "float32")),
-                         ("cuda:1", ("cuda:1", "bfloat16"))):
+    for device, want in ((None, ("cuda", "float32")), ("cpu", ("cpu", "float32")),
+                         ("cuda:1", ("cuda:1", "float32"))):
         with pytest.raises(Stop):
             tcli.main(["-t", "x", "-r", ref_wav_path] + (["--device", device] if device else []))
         assert (str(built["device"]), built["compute_dtype"]) == want
@@ -519,8 +519,8 @@ def test_f5tts_devices_and_infer(wrappers, ref_wav_path, tmp_path, monkeypatch):
         return tw
 
     monkeypatch.setattr(tapi, "F5TTSWrapper", fake_wrapper)
-    for device, want in ((None, ("cuda", "bfloat16")), ("cuda", ("cuda", "bfloat16")),
-                         ("cuda:2", ("cuda:2", "bfloat16")), ("cpu", ("cpu", "float32"))):
+    for device, want in ((None, ("cuda", "float32")), ("cuda", ("cuda", "float32")),
+                         ("cuda:2", ("cuda:2", "float32")), ("cpu", ("cpu", "float32"))):
         tts = tapi.F5TTS(device=device, ckpt_file="m.pt", vocab_file="v.txt")
         assert (str(built[-1]["device"]), built[-1]["compute_dtype"]) == want
         assert built[-1]["ckpt_path"] == "m.pt" and built[-1]["vocab_file"] == "v.txt"

@@ -239,7 +239,8 @@ def test_warmup_pairs_match_the_jax_wrapper():
 def test_socket_server_main_resolves_the_device_and_its_dtype(monkeypatch):
     """`socket_server.main([..., "--device", "cpu"])` builds an fp32 wrapper
     on the CPU (the JAX server's dtype; it built a bf16 one before), the
-    card's names give bf16, `--device tpu` fails with the port's message, and
+    card's names give fp32 too (the JAX wrapper's default), `--device tpu`
+    fails with the port's message, and
     `--smoke --device cpu` serves the tiny fp32 wrapper."""
     built, served = [], []
 
@@ -257,8 +258,8 @@ def test_socket_server_main_resolves_the_device_and_its_dtype(monkeypatch):
                         lambda wrapper, **kwargs: ("processor", wrapper))
     monkeypatch.setattr(socket_server, "start_server",
                         lambda host, port, processor: served.append(processor))
-    for device, want in (("cpu", ("cpu", "float32")), ("cuda", ("cuda", "bfloat16")),
-                         ("cuda:1", ("cuda:1", "bfloat16"))):
+    for device, want in (("cpu", ("cpu", "float32")), ("cuda", ("cuda", "float32")),
+                         ("cuda:1", ("cuda:1", "float32"))):
         socket_server.main(["--device", device, "--port", "0"])
         assert (str(built[-1]["device"]), built[-1]["compute_dtype"]) == want
     wrapper = served[0][1]

@@ -116,9 +116,22 @@ def test_generate_matches_jax_chunking_and_wave(wrappers, monkeypatch):
 
 
 def test_float32_wrapper_on_cuda_is_refused():
-    with pytest.raises(ValueError, match="bfloat16"):
+    """The refusal this test held is gone: fp32 on the card serves through
+    its own attention kernel, so only a dtype the port does not serve is
+    refused, and an fp32 wrapper on ``cuda`` fails only where there is no
+    card to move its weights to (here), never for its dtype."""
+    with pytest.raises(ValueError, match="compute_dtype must be one of"):
+        F5TTSWrapper(model_cfg=CFG, vocab_char_map=VOCAB, compute_dtype="float16",
+                     device="cuda")
+    if torch.cuda.is_available():
+        w = F5TTSWrapper(model_cfg=CFG, vocab_char_map=VOCAB, device="cuda")
+        assert w.compute_dtype == "float32"
+        assert next(w.transformer.parameters()).dtype == torch.float32
+        return
+    with pytest.raises((AssertionError, RuntimeError)) as refused:
         F5TTSWrapper(model_cfg=CFG, vocab_char_map=VOCAB, compute_dtype="float32",
                      device="cuda")
+    assert "CUDA" in str(refused.value) and "not ported" not in str(refused.value)
 
 
 def test_reference_checkpoints_load(wrappers, tmp_path):
