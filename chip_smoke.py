@@ -123,6 +123,25 @@ Phases (any failure raises and the script exits non-zero):
               counters checked per step, a checkpoint save / restore, and one
               more step under `torch.profiler` (device time of the attention
               kernels, the hash dropout and the other groups);
+7b. train-fp32 -- CFM training in fp32, the JAX DiT's default compute dtype:
+              kernels 4a / 4b / 4c fp32 (`csrc/train_attention_fp32.cu`)
+              against the plain version with TF32 off at b = 2, h = 16, n =
+              64 (a sample with no valid key), 1024 and 4096, dropout 0.1
+              and 0 (O within 2e-5 * (1 + |plain|), the gradients within 5e-5
+              of their scale, the LSE, second calls bit-identical), a TF32
+              control refused and the plain version held to the CPU's, timed
+              beside fp32 `scaled_dot_product_attention` and its backward;
+              F5TTS_v1_Base at full width and depth with fp32 parameters and
+              fp32 compute (dropout 0.1, blocks checkpointed): one
+              `Trainer.train_step` at b = 2, n = 256 against the CPU's (loss
+              and whole gradient; both TF32 flags on outside the step, a
+              control without the trainer's fp32 block), then a warm-up and
+              two timed steps at 9 x 4096 frames (dropout 0.1 and 0) with
+              the fp32 kernels counted 44 / 22 / 22 a step and the bf16 ones
+              at 0, a profiled step, four applied updates; one fp32
+              `DistillTrainer` step at 2 x 4096 with this model as the
+              teacher and a 14-block student pruned from its first
+              weights by the pruner's scores;
 8. e2tts   -- E2-TTS serving at E2TTS_Base width and depth (UNetT: dim 1024,
               24 layers, 16 x 64 heads, ff_mult 4, rotary on head 0 only) in
               bf16: a seeded N(0, 0.02) reference-format checkpoint (norm gains
@@ -171,14 +190,16 @@ The line before the last is a JSON object with each kernel's launches in its
 path's phase (serving kernels with fused rotary / layernorm: main; without
 rotary / RMS: e2tts; the attention's row at n = 6144: mmdit; kernel 1 fp32
 with rotary: the fp32 phase's DiT, without: its MMDiT; int8 feed-forward at
-ff_mult 2: int8, at ff_mult 4: e2tts-int8; training kernels: train; the
-gated residual projection, on no path: kernels), error, times, bound and
-library time; the compress phase's launches (kernels 1, 2 and 4 again) are
-logged and checked in that phase; the last line is the device summary.
+ff_mult 2: int8, at ff_mult 4: e2tts-int8; training kernels: train, their
+fp32 modes: train-fp32; the gated residual projection, on no path:
+kernels), error, times, bound and library time; the compress phase's
+launches (kernels 1, 2 and 4 again) are logged and checked in that phase;
+the last line is the device summary.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import json
@@ -1264,6 +1285,9 @@ KERNEL_GROUPS = (  # device kernels by name, first match
     ("kernel 4a (attention forward)", ("train_attention_fwd_kernel",)),
     ("kernel 4b (dq)", ("train_attention_dq_kernel",)),
     ("kernel 4c (dk/dv)", ("train_attention_dkv_kernel",)),
+    ("kernel 4a fp32 (attention forward)", ("train_fp32_fwd_kernel",)),
+    ("kernel 4b fp32 (dq)", ("train_fp32_dq_kernel",)),
+    ("kernel 4c fp32 (dk/dv)", ("train_fp32_dkv_kernel",)),
     ("GEMMs", ("gemm", "nvjet", "cutlass", "cublas", "gemv")),
     ("convolutions", ("conv", "cudnn", "fft")),
 )
@@ -1944,15 +1968,15 @@ def train_arch():
                       remat_policy="full")
 
 
-def loss_batch(dev, seed: int, depth: int, frac_lengths_mask=(0.7, 1.0)):
-    """The loss checks' batch, b = 2, n = 1024 (the second sample 37 frames
+def loss_batch(dev, seed: int, depth: int, frac_lengths_mask=(0.7, 1.0), n: int = 1024):
+    """The loss checks' batch, b = 2, n frames (the second sample 37 frames
     short, its text 300 tokens), and its draws for ``depth`` blocks."""
     import torch
 
     from eraxvif5tts_tpu_torch.models.cfm import LossDraws
 
     g = torch.Generator(device=dev).manual_seed(seed)
-    b, n = 2, 1024
+    b = 2
     mel = torch.randn((b, n, 100), generator=g, device=dev)
     lens = torch.tensor([n, n - 37], device=dev)
     text = torch.randint(0, len(VOCAB_CHARS), (b, TRAIN_TEXT), generator=g, device=dev)
@@ -2070,7 +2094,7 @@ def profile_train_step(trainer, state, batch, dev, wall_s: float,
     ff = dim * state.model.arch.ff_mult
     one = {}
     for width in (dim, ff):
-        x = torch.randn((b, n, width), device=dev).bfloat16()
+        x = torch.randn((b, n, width), device=dev).to(state.model.dtype)
         one[width] = cuda_median_ms(lambda: plain_dropout(x, 0.1, (1, 2)))
     attention_ms = sum(ms for name, ms in groups.items() if name.startswith("kernel 4"))
     log(f"{tag} profile of one warm train_step at dropout 0.1: wall {wall_s * 1e3:.1f} ms "
@@ -2082,6 +2106,22 @@ def profile_train_step(trainer, state, batch, dev, wall_s: float,
         f"of the other kernels, {dropout_ms:.1f} ms ({100 * dropout_ms / device_ms:.1f} %) ran "
         f"inside {calls} hash_dropout calls (one call alone: "
         + ", ".join(f"[{b}, {n}, {width}] {ms:.3f} ms" for width, ms in one.items()) + ")")
+
+
+def train_batch(dev, seed: int, shape: tuple[int, int] | None = None) -> dict:
+    """A training batch of ``shape`` (default TRAIN_BATCH) from ``seed``:
+    random mels, lengths from n / 2 to n, text padded to TRAIN_TEXT tokens
+    with -1 past a random length."""
+    import torch
+
+    b, n = shape or TRAIN_BATCH
+    bg = torch.Generator(device=dev).manual_seed(seed)
+    lens = torch.randint(n // 2, n + 1, (b,), generator=bg, device=dev)
+    text = torch.randint(0, len(VOCAB_CHARS), (b, TRAIN_TEXT), generator=bg, device=dev)
+    text_lens = torch.randint(TRAIN_TEXT // 4, TRAIN_TEXT + 1, (b, 1), generator=bg, device=dev)
+    text = text.masked_fill(torch.arange(TRAIN_TEXT, device=dev) >= text_lens, -1)
+    return {"mel": torch.randn((b, n, 100), generator=bg, device=dev), "text": text,
+            "lens": lens}
 
 
 def phase_train(dev, arch=None) -> dict:
@@ -2125,14 +2165,7 @@ def phase_train(dev, arch=None) -> dict:
     walls = []
 
     def make_batch(i):
-        bg = torch.Generator(device=dev).manual_seed(SEED + 10 + i)
-        lens = torch.randint(n // 2, n + 1, (b,), generator=bg, device=dev)
-        text = torch.randint(0, len(VOCAB_CHARS), (b, TRAIN_TEXT), generator=bg, device=dev)
-        text_lens = torch.randint(TRAIN_TEXT // 4, TRAIN_TEXT + 1, (b, 1), generator=bg,
-                                  device=dev)
-        text = text.masked_fill(torch.arange(TRAIN_TEXT, device=dev) >= text_lens, -1)
-        return {"mel": torch.randn((b, n, 100), generator=bg, device=dev), "text": text,
-                "lens": lens}
+        return train_batch(dev, SEED + 10 + i)
 
     for i, rate in enumerate((0.1, 0.1, 0.1, 0.0)):
         dit.arch = dataclasses.replace(dit.arch, dropout=rate)
@@ -2649,6 +2682,415 @@ def phase_fp32(main_wrapper, dev, mmdit_ckpt: Path) -> tuple[dict, dict]:
                   "serving_attention_fp32_norope": mm_counts["serving_attention_fp32_norope"]}
 
 
+# fp32 training (the JAX DiT's default compute dtype): kernels 4a / 4b / 4c fp32.
+# Limits between the error measured on an H100 and the TF32 control's:
+FP32_GRAD_TOL = 5e-5  # kernel 4b / 4c fp32 vs plain: max |err| in units of max |plain|
+# (fp32 sums over up to 4096 keys or queries in another order): <= 1.02e-6 vs >= 6.5e-4
+FP32_ATTN_TOLS = {"fwd": FP32_TOL, "dq": FP32_GRAD_TOL, "dk": FP32_GRAD_TOL,
+                  "dv": FP32_GRAD_TOL}  # O: <= 5.97e-7 vs >= 1.59e-4
+# (b, n, lens) at h = 16: one tile with an empty sample, the loss check's n, the bucket's
+FP32_TRAIN_CASES = ((2, 64, (64, 0)), (2, 1024, (1024, 987)), (2, 4096, (4096, 4059)))
+FP32_STEP_N = 256  # the card-versus-CPU step, b = 2
+FP32_STEP_LOSS_TOL = 1e-5  # its loss, relative (H100: 0; the forward is held by `full_fp32`)
+FP32_STEP_GRAD_TOL = 3e-5  # its flattened gradient, relative L2: 1.9e-6 vs 2.79e-4
+FP32_TRAIN_BATCH = TRAIN_BATCH  # the timed steps: the single-chip reference batch
+FP32_DISTILL_BATCH = (2, 4096)
+
+
+def fp32_attention_errors(got, want) -> dict:
+    """[O, dq, dk, dv] against the plain version's, in the units their limits
+    (FP32_ATTN_TOLS) take: O as max |err| / (1 + |plain|), each gradient as
+    max |err| in units of its scale (max |plain|)."""
+    errs = {"fwd": float(((got[0] - want[0]).abs() / (1 + want[0].abs())).max())}
+    for name, g, w in zip(("dq", "dk", "dv"), got[1:], want[1:]):
+        errs[name] = float((g - w).abs().max() / w.abs().max())
+    return errs
+
+
+def check_train_attention_fp32(dev) -> dict:
+    """Kernels 4a / 4b / 4c on fp32 q, k, v (`csrc/train_attention_fp32.cu`)
+    through `train_attention`'s autograd against the plain version's with
+    TF32 off, at b = 2, h = 16 over FP32_TRAIN_CASES at dropout 0.1 and 0:
+    O, dq, dk, dv within FP32_ATTN_TOLS, the LSE within LSE_REL_TOL of the
+    plain log sum exp, a second forward and backward bit-identical. At n =
+    1024 and 4096 a control, the plain version with TF32 on, must be refused
+    (some reading beyond its limit); at n = 1024 the plain version on the
+    card is held to the same on the CPU. Times at n = 1024 and 4096 at
+    dropout 0.1 and keep = 1, beside the plain version and, at keep = 1
+    without a mask, fp32 `scaled_dot_product_attention` (TF32 off) and its
+    backward. Returns the JSON rows (n = 4096, the last case)."""
+    import torch
+    import torch.nn.functional as F
+
+    from eraxvif5tts_tpu_torch.ops import train_attention as ta
+    from eraxvif5tts_tpu_torch.ops.masks import lens_to_mask
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 130)
+    names = ("fwd", "dq", "dk", "dv")
+    worst, abs_err, times = dict.fromkeys(names, 0.0), {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}, {}
+    controls = []
+    for b, n, lens_list in FP32_TRAIN_CASES:
+        q, k, v, dout = (torch.randn((b, n, 16, 64), generator=gen, device=dev)
+                         for _ in range(4))
+        lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
+        mask = lens_to_mask(lens, n)
+        seed = 0x5EED0000 + n
+
+        for rate in (0.1, 0.0):
+            case = f"train_attention fp32 b={b} n={n} lens={list(lens_list)} dropout {rate}"
+
+            def kernel(*a):
+                return ta.train_attention(*a, key_valid=mask, dropout_rate=rate, seed=seed)
+
+            got = attention_grads(kernel, q, k, v, dout)
+            with tf32(False):
+                want = plain_attention_grads(q, k, v, dout, lens, rate, seed)
+                lse_want = plain_lse(q, k, lens)
+            err = fp32_attention_errors(got, want)
+            if not (all(torch.isfinite(t).all() for t in got)
+                    and all(err[name] <= FP32_ATTN_TOLS[name] for name in names)):
+                raise AssertionError(f"{case}: errors {err} beyond {FP32_ATTN_TOLS}")
+            for name in names:
+                worst[name] = max(worst[name], err[name])
+            for name, g, w in zip(("fwd", "dq", "dkv", "dkv"), got, want):
+                abs_err[name] = max(abs_err[name], float((g - w).abs().max()))
+            out, lse = ta.flash_forward_fp32(q, k, v, lens, rate, seed)
+            lse_err = rel_l2(lse, lse_want)
+            if not lse_err <= LSE_REL_TOL:
+                raise AssertionError(f"{case}: LSE relative L2 error {lse_err:.3g} beyond "
+                                     f"{LSE_REL_TOL}")
+            if not (torch.equal(out, got[0]) and all(
+                    torch.equal(g, a) for g, a in zip(got, attention_grads(kernel, q, k, v,
+                                                                           dout)))):
+                raise AssertionError(f"{case}: a second forward or backward differs")
+            note = ""
+            if n > FP32_TRAIN_CASES[0][1] and rate > 0.0:
+                with tf32(True):
+                    control = fp32_attention_errors(
+                        plain_attention_grads(q, k, v, dout, lens, rate, seed), want)
+                controls.append(control)
+                if all(control[name] <= FP32_ATTN_TOLS[name] for name in names):
+                    raise AssertionError(f"{case}: the TF32 control {control} passes the "
+                                         f"limits {FP32_ATTN_TOLS}: they cannot see TF32")
+                note += "; TF32 control (refused) " + ", ".join(
+                    f"{name} {control[name]:.3g}" for name in names)
+            if n == FP32_TRAIN_CASES[1][1] and rate > 0.0:
+                cpu = plain_attention_grads(q.cpu(), k.cpu(), v.cpu(), dout.cpu(), lens.cpu(),
+                                            rate, seed)
+                cpu_err = fp32_attention_errors([w.cpu() for w in want], cpu)
+                if not all(cpu_err[name] <= FP32_ATTN_TOLS[name] for name in names):
+                    raise AssertionError(f"{case}: the plain version on the card differs from "
+                                         f"the CPU's: {cpu_err}")
+                note += "; plain on the card vs the CPU " + ", ".join(
+                    f"{name} {cpu_err[name]:.3g}" for name in names)
+            log(f"[train-fp32] {case}: " + ", ".join(f"{name} {err[name]:.3g}" for name in names)
+                + f" (limits {FP32_TOL} * (1 + |plain|) for O, {FP32_GRAD_TOL} of the scale "
+                f"for the gradients); LSE relative L2 {lse_err:.3g}; second forward and "
+                f"backward bit-identical{note}")
+            del got, want
+        if n == FP32_TRAIN_CASES[0][1]:
+            continue
+        ms = {}
+        for rate in (0.1, 0.0):
+            out, lse = ta.flash_forward_fp32(q, k, v, lens, rate, seed)
+            dd = ta.row_dot(dout, out)
+            ms[rate] = {
+                "fwd": cuda_median_ms(lambda: ta.flash_forward_fp32(q, k, v, lens, rate, seed)),
+                "dq": cuda_median_ms(
+                    lambda: ta.flash_dq_fp32(q, k, v, lens, lse, dd, dout, rate, seed)),
+                "dkv": cuda_median_ms(
+                    lambda: ta.flash_dkv_fp32(q, k, v, lens, lse, dd, dout, rate, seed))}
+        args = [t.clone().requires_grad_() for t in (q, k, v)]
+        with tf32(False):
+            plain_fwd = cuda_median_ms(
+                lambda: ta.train_attention_reference(*args, lens, 0.1, seed), iters=5, warmup=1)
+            ref = ta.train_attention_reference(*args, lens, 0.1, seed)
+            plain_bwd = cuda_median_ms(
+                lambda: torch.autograd.grad(ref, args, dout, retain_graph=True),
+                iters=5, warmup=1)
+            del ref
+            lib_args = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+            lib_fwd = cuda_median_ms(lambda: F.scaled_dot_product_attention(*lib_args))
+            lib_out = F.scaled_dot_product_attention(*lib_args)
+            lib_dout = dout.transpose(1, 2)
+            lib_bwd = cuda_median_ms(
+                lambda: torch.autograd.grad(lib_out, lib_args, lib_dout, retain_graph=True))
+            del lib_out
+        # q, k, v, dO, O / dq / dk, dv in fp32, the LSE and D rows; QK^T (and
+        # dO V^T in the backward) and each product onto an output, over each
+        # sample's valid keys (all of them where none is valid)
+        elems, rows = b * n * 16 * 64, b * 16 * n
+        keys = sum(n if length <= 0 else length for length in lens_list)
+        work = 2.0 * 16 * 64 * n * keys
+        least = {"fwd": bound(4 * elems * 4 + rows * 4 + 4 * b, 2 * work, "fp32"),
+                 "dq": bound(5 * elems * 4 + 2 * rows * 4 + 4 * b, 3 * work, "fp32"),
+                 "dkv": bound(6 * elems * 4 + 2 * rows * 4 + 4 * b, 4 * work, "fp32")}
+        times[n] = {name: dict(ms=ms[0.1][name], plain_ms=plain_fwd if name == "fwd"
+                               else plain_bwd, library_ms=lib_fwd if name == "fwd" else lib_bwd,
+                               **least[name]) for name in least}
+        keep1 = ms[0.0]
+        log(f"[train-fp32] kernels b={b} n={n} lens {list(lens_list)}: at dropout 0.1 forward "
+            f"{ms[0.1]['fwd']:.4f} ms, dq {ms[0.1]['dq']:.4f} ms, dk/dv {ms[0.1]['dkv']:.4f} ms "
+            f"(plain forward {plain_fwd:.4f} ms, plain backward, all three gradients, "
+            f"{plain_bwd:.4f} ms); at keep = 1 forward {keep1['fwd']:.4f} ms, dq "
+            f"{keep1['dq']:.4f} ms, dk/dv {keep1['dkv']:.4f} ms; bounds at the fp32 rate "
+            + ", ".join(f"{name} {x['bound_ms']:.5f} ms by {x['bound_by']}"
+                        for name, x in least.items())
+            + " (share of the bound at dropout 0.1 / keep = 1: "
+            + ", ".join(f"{name} {least[name]['bound_ms'] / ms[0.1][name]:.1%} / "
+                        f"{least[name]['bound_ms'] / keep1[name]:.1%}" for name in least)
+            + f"); library fp32 scaled_dot_product_attention (TF32 off) at keep = 1, no mask: "
+            f"forward {lib_fwd:.4f} ms, backward {lib_bwd:.4f} ms; against it at keep = 1 the "
+            f"forward takes {keep1['fwd'] / lib_fwd:.2f}x and dq + dk/dv "
+            f"{(keep1['dq'] + keep1['dkv']) / lib_bwd:.2f}x its time")
+        del q, k, v, dout, args, lib_args
+    log("[train-fp32] kernels over every case: largest errors "
+        + ", ".join(f"{name} {worst[name]:.3g}" for name in names)
+        + "; smallest TF32 control "
+        + ", ".join(f"{name} {min(c[name] for c in controls):.3g}" for name in names)
+        + f"; the JSON line's times are the n = {n} case's, ms and plain_ms at dropout 0.1, "
+        "library_ms at keep = 1; dq's and dk/dv's plain_ms and library_ms are whole backwards")
+    return {f"train_attention_fp32_{name}": dict(max_abs_err=abs_err[name], **times[n][name])
+            for name in abs_err}
+
+
+def fp32_step(trainer, state, batch, draws) -> tuple[float, float, object]:
+    """One `train_step` whose update is not applied: (its loss, its gradient
+    norm, the flattened gradient it would have applied)."""
+    import torch
+
+    seen = {}
+
+    def capture(state, grads, norm):
+        seen["grad"] = torch.cat([g.flatten() for g in grads])
+
+    trainer._apply = capture
+    try:
+        _, metrics = trainer.train_step(state, batch, draws)
+    finally:
+        del trainer._apply
+    if metrics["applied"] != 1.0:
+        raise AssertionError(f"the compared step was not finite: {metrics}")
+    return metrics["loss"], metrics["grad_norm"], seen["grad"]
+
+
+def check_fp32_step_against_cpu(cfm, dev) -> None:
+    """One fp32 `Trainer.train_step` (the update withheld) at b = 2, n =
+    FP32_STEP_N on the card against the same step on the CPU, on the same
+    draws: the loss within FP32_STEP_LOSS_TOL and the whole gradient within
+    FP32_STEP_GRAD_TOL (relative L2), with both TF32 flags ON around the
+    card's step, so that only the trainer's fp32 block keeps its backward and
+    the checkpointed recompute in fp32. A control takes that block away
+    (the forward keeps the backbone's own block): its gradient must differ
+    beyond the limit."""
+    import copy
+
+    import torch
+
+    from eraxvif5tts_tpu_torch.training import trainer as trainer_module
+
+    dit = cfm.transformer
+    mel, text, lens, draws = loss_batch(dev, SEED + 31, len(dit.transformer_blocks),
+                                        n=FP32_STEP_N)
+    batch = {"mel": mel, "text": text, "lens": lens}
+    spec = trainer_module.make_optimizer(num_warmup_updates=1, total_updates=1000)
+    trainer = trainer_module.Trainer(cfm=cfm, optimizer=spec)
+    state = trainer.init_state()
+    with tf32(True):
+        loss, norm, grad = fp32_step(trainer, state, batch, draws)
+        flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+        held = trainer_module.fp32_when
+        trainer_module.fp32_when = lambda dtype: contextlib.nullcontext()
+        try:
+            _, control_norm, control = fp32_step(trainer, state, batch, draws)
+        finally:
+            trainer_module.fp32_when = held
+    if flags != (True, True):
+        raise AssertionError(f"[train-fp32] the step left the TF32 flags at {flags}")
+    del state, trainer
+    t0 = time.perf_counter()
+    cpu_cfm = type(cfm)(copy.deepcopy(dit).cpu())
+    cpu_trainer = trainer_module.Trainer(cfm=cpu_cfm, optimizer=spec)
+    cpu_draws = dataclasses.replace(draws, **{
+        f: getattr(draws, f).cpu() for f in ("frac", "rand", "x0", "time", "drop_audio",
+                                             "drop_cond")})
+    cpu_loss, cpu_norm, cpu_grad = fp32_step(cpu_trainer, cpu_trainer.init_state(),
+                                             {k: t.cpu() for k, t in batch.items()}, cpu_draws)
+    cpu_s = time.perf_counter() - t0
+    del cpu_cfm, cpu_trainer
+    loss_err = abs(loss - cpu_loss) / abs(cpu_loss)
+    grad_err, control_err = rel_l2(grad.cpu(), cpu_grad), rel_l2(control.cpu(), cpu_grad)
+    log(f"[train-fp32] Trainer.train_step b=2 n={FP32_STEP_N} fp32, card (TF32 flags on "
+        f"outside the step) vs CPU: loss {loss:.7f} vs {cpu_loss:.7f} (relative {loss_err:.3g}, "
+        f"tol {FP32_STEP_LOSS_TOL}), grad_norm {norm:.6f} vs {cpu_norm:.6f}, gradient relative "
+        f"L2 {grad_err:.3g} (tol {FP32_STEP_GRAD_TOL}); control without the trainer's fp32 "
+        f"block (TF32 in the backward and the recompute): gradient {control_err:.3g}, "
+        f"grad_norm {control_norm:.6f}; CPU step {cpu_s:.1f} s")
+    if not (math.isfinite(loss) and loss_err <= FP32_STEP_LOSS_TOL
+            and grad_err <= FP32_STEP_GRAD_TOL):
+        raise AssertionError("[train-fp32] the card's fp32 step differs from the CPU's")
+    if control_err <= FP32_STEP_GRAD_TOL:
+        raise AssertionError(f"[train-fp32] the TF32 control ({control_err:.3g}) passes the "
+                             "check: it cannot see TF32 in the backward")
+
+
+def prune_student(sd: dict, depth: int, target: int) -> tuple[list, dict]:
+    """The blocks the pruner keeps of a ``depth``-block state dict (numpy)
+    by its own scores, as the compress phase's CLI chooses them, and the
+    pruned state dict as tensors."""
+    import numpy as np
+    import torch
+
+    from eraxvif5tts_tpu_torch.compression.pruner import (
+        block_importance_scores,
+        prune_state_dict,
+        select_blocks_to_keep,
+    )
+
+    keep = select_blocks_to_keep(block_importance_scores(sd)[0], depth, target)
+    return keep, {k: torch.from_numpy(np.ascontiguousarray(v))
+                  for k, v in prune_state_dict(sd, keep).items()}
+
+
+def fp32_counts() -> list:
+    from eraxvif5tts_tpu_torch.ops import train_attention as ta
+
+    return [fn.launches for fn in (ta.flash_forward_fp32, ta.flash_dq_fp32, ta.flash_dkv_fp32,
+                                   ta.flash_forward, ta.flash_dq, ta.flash_dkv)]
+
+
+def phase_train_fp32(dev, arch=None) -> tuple[dict, dict]:
+    """fp32 training, the JAX DiT's default compute dtype: kernels 4a / 4b /
+    4c fp32 against their plain version (:func:`check_train_attention_fp32`);
+    `F5TTS_v1_Base` at full width and depth with fp32 parameters and no
+    compute dtype (fp32), dropout 0.1, blocks checkpointed: one step against
+    the CPU's (:func:`check_fp32_step_against_cpu`), then `Trainer.train_step`
+    on FP32_TRAIN_BATCH, a warm-up and two timed steps (dropout 0.1, then 0,
+    the role of the library's flash kernel at keep = 1) with the fp32 kernels
+    counted 2 x depth / depth / depth a step and the bf16 ones at 0, a
+    profiled step, four applied updates; last one fp32 `DistillTrainer` step
+    at FP32_DISTILL_BATCH with this model as the teacher and a 14-block
+    student pruned from its first weights by the pruner's own scores, as the
+    compress phase prunes its teacher's checkpoint. Returns (the JSON rows,
+    the launches of the timed steps)."""
+    import torch
+
+    from eraxvif5tts_tpu_torch.models.cfm import CFM
+    from eraxvif5tts_tpu_torch.models.dit import DiT
+    from eraxvif5tts_tpu_torch.training.distill import DistillConfig, DistillTrainer
+    from eraxvif5tts_tpu_torch.training.trainer import Trainer, batch_seed, make_optimizer
+
+    rows = check_train_attention_fp32(dev)
+    t0 = time.perf_counter()
+    arch = arch or train_arch()
+    dit = DiT(arch, text_num_embeds=len(VOCAB_CHARS), mel_dim=100).to(dev)
+    randomize((dit,), SEED)
+    cfm = CFM(dit.train())
+    if dit.dtype != torch.float32:
+        raise AssertionError(f"[train-fp32] the DiT computes in {dit.dtype}")
+    log(f"[train-fp32] F5TTS_v1_Base dim {arch.dim} depth {arch.depth} heads {arch.heads}x"
+        f"{arch.dim_head}: {sum(p.numel() for p in dit.parameters()) / 1e6:.1f} M fp32 "
+        f"parameters, no compute_dtype (fp32 compute), dropout {arch.dropout}, remat "
+        f"{arch.remat_policy}, N(0, {WEIGHT_STD}) seed {SEED}, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    # the distill step's 14-block student, pruned from this checkpoint as the
+    # compress phase prunes its teacher's: the pruner's numpy scores (~10 s)
+    # run in a thread while the card checks and trains
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    pruned = pool.submit(prune_student, {k: t.detach().cpu().numpy()
+                                         for k, t in dit.state_dict().items()},
+                         arch.depth, COMPRESS_DEPTHS[0])
+    check_fp32_step_against_cpu(cfm, dev)
+
+    trainer = Trainer(cfm=cfm, optimizer=make_optimizer(num_warmup_updates=1,
+                                                         total_updates=1000))
+    state = trainer.init_state()
+    params0 = [p.detach().clone() for p in dit.parameters()]
+    b, n = FP32_TRAIN_BATCH
+    depth = arch.depth
+    want = [2 * depth, depth, depth, 0, 0, 0]
+    from eraxvif5tts_tpu_torch.ops import train_attention as ta
+
+    for fn in (ta.flash_forward_fp32, ta.flash_dq_fp32, ta.flash_dkv_fp32, ta.flash_forward,
+               ta.flash_dq, ta.flash_dkv):
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    walls = {}
+    for i, rate in enumerate((0.1, 0.1, 0.0)):  # a warm-up, then timed at 0.1 and at 0
+        dit.arch = dataclasses.replace(dit.arch, dropout=rate)
+        before = fp32_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = trainer.train_step(
+            state, train_batch(dev, SEED + 30 + i, (b, n)),
+            torch.Generator(device=dev).manual_seed(batch_seed(SEED, 2, i)))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if i:
+            walls[rate] = wall
+        counts = [c - c0 for c, c0 in zip(fp32_counts(), before)]
+        log(f"[train-fp32] step {i + 1} ({'warm-up' if i == 0 else 'timed'}) b={b} n={n} "
+            f"dropout {rate}: loss {metrics['loss']:.5f}, grad_norm {metrics['grad_norm']:.5f}, "
+            f"applied {metrics['applied']:.0f}, {wall:.3f} s ({b * n / wall:.0f} frames/s); "
+            f"launches fp32 fwd/dq/dkv, bf16 fwd/dq/dkv {counts}")
+        if not (math.isfinite(metrics["loss"]) and math.isfinite(metrics["grad_norm"])
+                and metrics["applied"] == 1.0):
+            raise AssertionError(f"[train-fp32] step {i + 1}: non-finite or not applied")
+        if counts != want:
+            raise AssertionError(f"[train-fp32] step {i + 1}: launches {counts}, expected {want}")
+    counts = fp32_counts()
+    launches = dict(zip(("train_attention_fp32_fwd", "train_attention_fp32_dq",
+                         "train_attention_fp32_dkv"), counts))
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"[train-fp32] timed steps b={b} n={n}: dropout 0.1 {walls[0.1]:.3f} s "
+        f"({b * n / walls[0.1]:.0f} frames/s), dropout 0 {walls[0.0]:.3f} s "
+        f"({b * n / walls[0.0]:.0f} frames/s); peak memory {peak / 2**30:.2f} GiB")
+    dit.arch = dataclasses.replace(dit.arch, dropout=0.1)
+    profile_train_step(trainer, state, train_batch(dev, SEED + 33, (b, n)), dev, walls[0.1],
+                       "[train-fp32]")
+    moved = sum(not torch.equal(p, p0) for p, p0 in zip(dit.parameters(), params0))
+    log(f"[train-fp32] {state.step} updates applied; parameter tensors changed "
+        f"{moved}/{len(params0)}")
+    if state.step != 4 or moved != len(params0):
+        raise AssertionError("[train-fp32] four updates did not move every parameter tensor")
+    del params0, state, trainer
+
+    # one fp32 distillation step: this model the teacher, the student pruned from it
+    t0 = time.perf_counter()
+    keep, student_sd = pruned.result()
+    pool.shutdown()
+    student = DiT(dataclasses.replace(arch, depth=COMPRESS_DEPTHS[0]), len(VOCAB_CHARS), 100)
+    student.load_state_dict(student_sd, strict=True)
+    del student_sd
+    trainer = DistillTrainer(student_cfm=CFM(student.to(dev)), teacher_transformer=dit,
+                             optimizer=make_optimizer(learning_rate=1e-5, num_warmup_updates=1,
+                                                      total_updates=1000, decay_type="cosine"),
+                             config=DistillConfig())
+    state = trainer.init_state()
+    built = time.perf_counter() - t0
+    before = fp32_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = trainer.train_step(
+        state, train_batch(dev, SEED + 34, FP32_DISTILL_BATCH),
+        torch.Generator(device=dev).manual_seed(batch_seed(SEED, 3, 0)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = [c - c0 for c, c0 in zip(fp32_counts(), before)]
+    depth_s = COMPRESS_DEPTHS[0]
+    log(f"[train-fp32] DistillTrainer step, teacher this model (fp32, eval), student "
+        f"{depth_s} blocks {keep} (pruner's scores; built in {built:.1f} s after the "
+        f"pruning thread), b, n = "
+        f"{FP32_DISTILL_BATCH}: " + ", ".join(f"{k} {v:.5f}" for k, v in metrics.items())
+        + f"; {wall:.3f} s (first step: no warm-up); launches fp32 fwd/dq/dkv, bf16 "
+        f"fwd/dq/dkv {counts}")
+    if not all(math.isfinite(v) for v in metrics.values()) or metrics["skipped"]:
+        raise AssertionError("[train-fp32] the distillation step is not finite")
+    if counts != [2 * depth_s, depth_s, depth_s, 0, 0, 0]:
+        raise AssertionError(f"[train-fp32] distill launches {counts}")
+    return rows, launches
+
+
 COMPRESS_DEPTHS = (14, 12)  # F5TTS_v1_Pruned_14 / _12
 COMPRESS_SERVE = ((14, 7), (14, 16), (12, 16))  # (depth, NFE) of the served students
 
@@ -2842,14 +3284,7 @@ def phase_compress(dev) -> dict:
         check_distill_against_plain(trainer, state, dev)
 
         def make_batch(i):
-            bg = torch.Generator(device=dev).manual_seed(SEED + 20 + i)
-            lens = torch.randint(n // 2, n + 1, (b,), generator=bg, device=dev)
-            text = torch.randint(0, len(VOCAB_CHARS), (b, TRAIN_TEXT), generator=bg, device=dev)
-            text_lens = torch.randint(TRAIN_TEXT // 4, TRAIN_TEXT + 1, (b, 1), generator=bg,
-                                      device=dev)
-            text = text.masked_fill(torch.arange(TRAIN_TEXT, device=dev) >= text_lens, -1)
-            return {"mel": torch.randn((b, n, 100), generator=bg, device=dev), "text": text,
-                    "lens": lens}
+            return train_batch(dev, SEED + 20 + i)
 
         depth_t, depth_s = teacher_cfg.arch.depth, student_arch.depth
         want = [depth_t, depth_t, 2 * depth_s, depth_s, depth_s]
@@ -2991,6 +3426,11 @@ def main() -> int:
     kernel_results["int8_ff"]["max_abs_err"] = max(kernel_results["int8_ff"]["max_abs_err"],
                                                    ff_err)
     launches.update(phase_train(dev))
+    t0 = time.perf_counter()
+    fp32_train_rows, fp32_train_launches = phase_train_fp32(dev)
+    log(f"[train-fp32] phase done in {time.perf_counter() - t0:.1f} s")
+    kernel_results.update(fp32_train_rows)
+    launches.update(fp32_train_launches)
     from eraxvif5tts_tpu_torch.configs import PRESETS
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -3037,6 +3477,12 @@ def main() -> int:
                launches=launches[name], **kernel_results[name])
           for name, line in (("train_attention_fwd", 104), ("train_attention_dq", 150),
                              ("train_attention_dkv", 190))),
+        *(dict(name=name, route="cuda",
+               source="eraxvif5tts_tpu_torch/csrc/train_attention_fp32.cu",
+               replaces=f"eraxvif5tts_tpu/ops/train_attention.py:{line}",
+               launches=launches[name], **kernel_results[name])
+          for name, line in (("train_attention_fp32_fwd", 104), ("train_attention_fp32_dq", 150),
+                             ("train_attention_fp32_dkv", 190))),
     ]
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
     if missing:

@@ -40,24 +40,14 @@
 // zero (exp(-1e30 - m) underflows to 0), so the walk stops at the last tile
 // that holds a valid key.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "fp32_tile.cuh"
 
 namespace {
 
-constexpr int kD = 64;          // head dim
-constexpr int kRows = 64;       // query rows a block
-constexpr int kKeys = 64;       // keys a tile
-constexpr int kThreads = 256;   // a 16 x 16 grid of threads
-constexpr int kStride = kD + 4;  // floats a shared row: 68, conflict-free column reads
-constexpr int kTileFloats = kRows * kStride;
-constexpr int kSmem = 4 * kTileFloats * static_cast<int>(sizeof(float));  // Q, K, V, P
-constexpr int kMaxDevices = 64;
-constexpr float kNeg = -1e30f;
+using namespace fp32tile;
 
-static_assert(kRows == kKeys && kThreads == 16 * 16 && kD == 64,
-              "the thread grid covers 64 x 64 tiles");
+constexpr int kKeys = kRows;    // keys a tile
+constexpr int kSmem = 4 * kTileBytes;  // Q, K, V, P: 69,632 bytes
 
 // Four consecutive columns (two interleaved pairs) of a row at table offset
 // `at`, rotated as the plain version rounds it: fl(fl(x0 c0) + fl(-x1 s0)),
@@ -72,26 +62,6 @@ __device__ __forceinline__ float4 rotate4(const float4 x, const float* __restric
   r.z = __fadd_rn(__fmul_rn(x.z, c.z), __fmul_rn(-x.w, s.z));
   r.w = __fadd_rn(__fmul_rn(x.w, c.w), __fmul_rn(x.z, s.w));
   return r;
-}
-
-__device__ __forceinline__ float4 ld_shared4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ void st_shared4(float* p, const float4 x) {
-  *reinterpret_cast<float4*>(p) = x;
-}
-
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
 }
 
 template <bool kRope>
@@ -167,23 +137,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < kD; d += 4) {
-      float4 a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = ld_shared4(qs + (4 * ty + i) * kStride + d);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = ld_shared4(ks + (tx + 16 * j) * kStride + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(a[i].x, b[j].x, s[i][j]);
-          s[i][j] = fmaf(a[i].y, b[j].y, s[i][j]);
-          s[i][j] = fmaf(a[i].z, b[j].z, s[i][j]);
-          s[i][j] = fmaf(a[i].w, b[j].w, s[i][j]);
-        }
-    }
+    product_abt(s, qs, ks, ty, tx);
 
     // online softmax over the row's 64 keys, spread over the half-warp's 16 lanes
     const int key0 = t * kKeys + tx;
@@ -212,25 +166,7 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();  // the tile's P is complete
 
     // O += P V for rows 4 ty + i and columns 4 tx .. 4 tx + 3
-#pragma unroll 4
-    for (int kk = 0; kk < kKeys; kk += 4) {
-      float4 p[4], w[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = ld_shared4(ps + (4 * ty + i) * kStride + kk);
-#pragma unroll
-      for (int r = 0; r < 4; ++r) w[r] = ld_shared4(vs + (kk + r) * kStride + 4 * tx);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float pr[4] = {p[i].x, p[i].y, p[i].z, p[i].w};
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          o[i][0] = fmaf(pr[r], w[r].x, o[i][0]);
-          o[i][1] = fmaf(pr[r], w[r].y, o[i][1]);
-          o[i][2] = fmaf(pr[r], w[r].z, o[i][2]);
-          o[i][3] = fmaf(pr[r], w[r].w, o[i][3]);
-        }
-      }
-    }
+    product_ab(o, ps, vs, ty, tx);
   }
 
 #pragma unroll
@@ -256,15 +192,9 @@ extern "C" int erax_serving_attention_fp32(const void* q, const void* k, const v
   const auto kernel =
       roped ? serving_attention_fp32_kernel<true> : serving_attention_fp32_kernel<false>;
   static bool allowed[2][kMaxDevices] = {};
-  bool* const allow = allowed[roped ? 1 : 0];
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (device >= kMaxDevices || !allow[device]) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (device < kMaxDevices) allow[device] = true;
-  }
+  const int err = allow_shared(reinterpret_cast<const void*>(kernel), kSmem,
+                               allowed[roped ? 1 : 0]);
+  if (err != 0) return err;
   kernel<<<dim3(n / kRows, h, b), kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const int*>(lens), static_cast<const float*>(cos_t),

@@ -101,18 +101,23 @@ def fp32_convolutions():
             torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
+def fp32_when(dtype: torch.dtype):
+    """One :func:`fp32_convolutions` block when ``dtype`` (a module's compute
+    dtype) is fp32, and no block, no lock, in any other dtype."""
+    return fp32_convolutions() if dtype == torch.float32 else contextlib.nullcontext()
+
+
 def full_fp32(method):
     """Decorate a backbone's ``embed_text`` / ``run`` or a vocoder's
-    ``forward``: the call runs inside one :func:`fp32_convolutions` block
-    when the module computes in fp32 (its ``dtype``), and as it is in any
-    other dtype. One block a call, not one a convolution or product: the
-    lock is taken once per backbone step."""
+    ``forward``: the call runs inside :func:`fp32_when` of the module's
+    ``dtype``. One block a call, not one a convolution or product: the lock
+    is taken once per backbone step. A training step's backward (and the
+    checkpointed recompute inside it) runs outside the call: the trainers
+    hold their own block around the loss and its backward."""
 
     @functools.wraps(method)
     def call(self, *args, **kwargs):
-        if self.dtype != torch.float32:
-            return method(self, *args, **kwargs)
-        with fp32_convolutions():
+        with fp32_when(self.dtype):
             return method(self, *args, **kwargs)
 
     return call

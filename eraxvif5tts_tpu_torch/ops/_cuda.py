@@ -55,6 +55,12 @@ _SIGNATURES = {
     # q, k, v, dout, lse, dd, lens, dk, dv, b, n, h, scale, dropout..., stream
     "erax_train_attention_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
                                  *_DROPOUT, _P),
+    # the fp32 modes of the three (`csrc/train_attention_fp32.cu`), the same arguments
+    "erax_train_attention_fp32_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, *_DROPOUT, _P),
+    "erax_train_attention_fp32_dq": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
+                                     *_DROPOUT, _P),
+    "erax_train_attention_fp32_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
+                                      *_DROPOUT, _P),
     # x, w1, s1, b1, w2, s2, b2, out, hidden codes, x codes, x scales, rows, k, n, k2, stream
     "erax_int8_ff": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # h, w, bias, gate, res, lens, out, b, m, k, n, mask_rows, stream
@@ -158,7 +164,8 @@ def kernels() -> Kernels:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        for name in ("erax_train_attention_bwd_geometry", "erax_flash_forward_geometry"):
+        for name in ("erax_train_attention_bwd_geometry", "erax_flash_forward_geometry",
+                     "erax_train_attention_fp32_geometry"):
             fn = getattr(lib, name)
             fn.argtypes = (ctypes.POINTER(ctypes.c_int),)
             fn.restype = None

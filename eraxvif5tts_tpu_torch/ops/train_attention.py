@@ -4,8 +4,9 @@ Port of `eraxvif5tts_tpu/ops/train_attention.py` (`train_attention`, whose
 Pallas kernels are `_fwd_kernel`, `_dq_kernel` and `_dkv_kernel` under a
 custom_vjp). :func:`train_attention` runs, for CUDA tensors, a
 ``torch.autograd.Function`` whose forward launches the forward kernel of
-`csrc/train_attention.cu` and whose backward launches its dq and dk/dv
-kernels; for CPU tensors it runs :func:`train_attention_reference`, the plain
+`csrc/train_attention.cu` (bf16) or `csrc/train_attention_fp32.cu` (fp32)
+and whose backward launches the same source's dq and dk/dv kernels; for
+CPU tensors it runs :func:`train_attention_reference`, the plain
 PyTorch version of the same semantics, differentiated by autograd:
 
 - logits and softmax in fp32, keys at positions ``>= lens[b]`` set to the
@@ -19,15 +20,21 @@ PyTorch version of the same semantics, differentiated by autograd:
   function of absolute positions alone: the backward kernels regenerate it
   with their own tiling and no mask is stored.
 
-Kernel domain: bf16, contiguous and 16-byte aligned ``[b, n, h, 64]`` (the
-layout a ``Linear`` output views to), ``n % 64 == 0``, ``n <= 4096``.
-Anything else on a CUDA tensor raises; there is no fallback. All three
-kernels read their tiles by TMA; :func:`forward_geometry` and
-:func:`backward_geometry` state their grid, tiles, ring and shared memory,
-and the tensor map they build, for any shape. The JAX
+Kernel domain: q, k, v all bf16 or all fp32, contiguous and 16-byte aligned
+``[b, n, h, 64]`` (the layout a ``Linear`` output views to), ``n % 64 ==
+0``, ``n <= 4096``: the whole training bucket range in either dtype.
+Mixed dtypes, fp16 and anything else on a CUDA tensor raise; there is no
+fallback. bf16 runs `csrc/train_attention.cu` (wgmma, tiles read by TMA;
+:func:`forward_geometry` and :func:`backward_geometry` state their grid,
+tiles, ring and shared memory, and the tensor map they build), fp32 runs
+`csrc/train_attention_fp32.cu` (FFMA only, true fp32;
+:func:`forward_geometry_fp32` and :func:`backward_geometry_fp32`). The JAX
 package's TPU gates (``can_use_train_kernel``: n % 128, fp32 only up to
 n = 3072) and calibrated backward blocks are TPU VMEM limits and are not
-ported.
+ported: above n = 3072 the JAX package draws its fp32 attention dropout
+with ``jax.random`` (its chunked path), where the port keeps the position
+hash: the same distribution, another random stream, the same function at
+dropout 0.
 
 Integer arithmetic: torch has no uint32 ``>>`` on the CPU, so the hash runs in
 int64 holding 32-bit values, masked to 32 bits after every multiply (a wrapped
@@ -56,6 +63,11 @@ FWD_STAGES = 4      # ring of TMA stages, a K and a V tile each
 FWD_THREADS = 512   # three consumer warpgroups and the producer's
 FWD_ROTATORS = 96   # threads of the producer's warps 1-3, which rotate tiles (rotary)
 SHARED_LIMIT = 232448  # bytes of shared memory a block may use on an H100
+SM_SHARED = 233472     # bytes of shared memory an SM has; the card keeps 1 KB of it a block
+# the fp32 kernels (`csrc/fp32_tile.cuh`: kRows, kThreads, kStride)
+FP32_ROWS = 64      # rows a block owns
+FP32_THREADS = 256  # a 16 x 16 grid, each thread a 4 x 4 piece of a tile
+FP32_STRIDE = 68    # floats a shared tile row: 64 padded by 4
 
 
 def fmix32(h: torch.Tensor) -> torch.Tensor:
@@ -230,13 +242,61 @@ def kernel_backward_geometry() -> dict:
     return _kernel_geometry("erax_train_attention_bwd_geometry")
 
 
+def _fp32_geometry(b: int, n: int, h: int) -> dict:
+    return dict(grid=(n // FP32_ROWS, h, b), threads=FP32_THREADS, rows=FP32_ROWS,
+                tile=TILE, blocks=[(r, FP32_ROWS) for r in range(0, n, FP32_ROWS)])
+
+
+def _fp32_shared(tiles: int, extra: int = 0) -> tuple[int, int]:
+    """(dynamic shared bytes, blocks an SM that memory allows) of ``tiles``
+    padded ``[64, 64]`` fp32 tiles and ``extra`` bytes."""
+    shared = tiles * FP32_ROWS * FP32_STRIDE * 4 + extra
+    return shared, SM_SHARED // (shared + 1024)
+
+
+def forward_geometry_fp32(b: int, n: int, h: int) -> dict:
+    """How the fp32 forward covers ``[b, n, h, 64]``: ``n / 64`` blocks a
+    (sample, head), each owning the 64 query rows of ``blocks`` and walking
+    the key tiles; the Q, K, V and P tiles in shared memory."""
+    shared, per_sm = _fp32_shared(4)
+    return dict(_fp32_geometry(b, n, h), shared_bytes=shared, blocks_per_sm=per_sm)
+
+
+def backward_geometry_fp32(b: int, n: int, h: int) -> dict:
+    """How the fp32 dq and dk/dv kernels cover ``[b, n, h, 64]`` (dq over
+    query rows, dk/dv over keys; both ``n / 64`` blocks a (sample, head) of
+    64 rows): dq keeps Q, dO, K, V and dS tiles in shared memory, dk/dv K,
+    V, Q, dO, Pd^T and dS^T tiles and a query tile's 64 LSE and 64 D values."""
+    dq_shared, dq_per_sm = _fp32_shared(5)
+    dkv_shared, dkv_per_sm = _fp32_shared(6, 2 * FP32_ROWS * 4)
+    return dict(_fp32_geometry(b, n, h), dq_shared_bytes=dq_shared,
+                dkv_shared_bytes=dkv_shared, blocks_per_sm=min(dq_per_sm, dkv_per_sm))
+
+
+def kernel_geometry_fp32() -> dict:
+    """The constants the built fp32 kernels report (needs the card's build):
+    they must equal :func:`forward_geometry_fp32`'s and
+    :func:`backward_geometry_fp32`'s."""
+    import ctypes
+
+    from eraxvif5tts_tpu_torch.ops import _cuda
+
+    out = (ctypes.c_int * 5)()
+    _cuda.kernels().lib.erax_train_attention_fp32_geometry(out)
+    return dict(rows=out[0], threads=out[1], shared_bytes=out[2], dq_shared_bytes=out[3],
+                dkv_shared_bytes=out[4])
+
+
 def _check_cuda_args(q, k, v, lens) -> None:
     if not (q.shape == k.shape == v.shape) or q.ndim != 4:
         raise ValueError(f"train_attention: q, k, v must share one [b, n, h, d] shape, "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if q.dtype not in _LAUNCHERS:
+        raise TypeError(f"train_attention: q must be bfloat16 or float32, got {q.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"train_attention: {name} must be bfloat16, got {t.dtype}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"train_attention: {name} is {t.dtype}, q {q.dtype}: q, k and v "
+                            "must share one dtype, bfloat16 or float32")
         if t.device != q.device:
             raise ValueError(f"train_attention: {name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous() or t.data_ptr() % 16:
@@ -260,52 +320,109 @@ def _dropout_args(dropout_rate: float, seed: int) -> tuple[int, int, float, int]
     return int(seed) & M32, keep_threshold(keep), 1.0 / keep, 1
 
 
-def flash_forward(q, k, v, lens, dropout_rate: float = 0.0,
-                  seed: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the forward kernel on checked CUDA arguments: (O ``[b, n, h, d]``
-    bf16, LSE ``[b, h, n]`` fp32). Counted in ``flash_forward.launches``."""
+def _entry_dtype(entry: str, dtype: torch.dtype, *tensors) -> None:
+    """A launcher reads its tensors as ``dtype``: refuse any other."""
+    if any(t.dtype != dtype for t in tensors):
+        raise TypeError(f"{entry} takes {dtype} q, k, v, got "
+                        f"{', '.join(str(t.dtype) for t in tensors)}")
+
+
+def _forward(entry: str, dtype: torch.dtype, q, k, v, lens, dropout_rate: float,
+             seed: int) -> tuple[torch.Tensor, torch.Tensor]:
     from eraxvif5tts_tpu_torch.ops import _cuda
 
+    _entry_dtype(entry, dtype, q, k, v)
     b, n, h, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        code = _cuda.kernels().lib.erax_train_attention_fwd(
+        code = getattr(_cuda.kernels().lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), out.data_ptr(),
             lse.data_ptr(), b, n, h, 1.0 / math.sqrt(d), *_dropout_args(dropout_rate, seed),
             _cuda.stream_ptr(q.device))
-    _cuda.check(code, "train_attention forward")
-    with _cuda.COUNT_LOCK:
-        flash_forward.launches += 1
+    _cuda.check(code, entry)
     return out, lse
 
 
-def _check_backward_args(dout, lse, dd) -> None:
-    """The backward kernels read dO (bf16), LSE and D (fp32) by TMA and bulk
-    copies."""
-    for name, t, dtype in (("dout", dout, torch.bfloat16), ("lse", lse, torch.float32),
-                           ("dd", dd, torch.float32)):
-        if t.dtype != dtype or not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"train_attention backward: {name} must be {dtype}, contiguous "
+def flash_forward(q, k, v, lens, dropout_rate: float = 0.0,
+                  seed: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the bf16 forward kernel on checked CUDA arguments: (O ``[b, n,
+    h, d]`` bf16, LSE ``[b, h, n]`` fp32). Counted in ``flash_forward.launches``."""
+    from eraxvif5tts_tpu_torch.ops import _cuda
+
+    result = _forward("erax_train_attention_fwd", torch.bfloat16, q, k, v, lens,
+                      dropout_rate, seed)
+    with _cuda.COUNT_LOCK:
+        flash_forward.launches += 1
+    return result
+
+
+def flash_forward_fp32(q, k, v, lens, dropout_rate: float = 0.0,
+                       seed: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the fp32 forward kernel: (O ``[b, n, h, d]`` fp32, LSE ``[b, h,
+    n]`` fp32). Counted in ``flash_forward_fp32.launches``."""
+    from eraxvif5tts_tpu_torch.ops import _cuda
+
+    result = _forward("erax_train_attention_fp32_fwd", torch.float32, q, k, v, lens,
+                      dropout_rate, seed)
+    with _cuda.COUNT_LOCK:
+        flash_forward_fp32.launches += 1
+    return result
+
+
+def _check_backward_args(dout, lse, dd, dtype: torch.dtype = torch.bfloat16) -> None:
+    """The backward kernels read dO (in q's ``dtype``), LSE and D (fp32) by
+    TMA, bulk copies (bf16) or 16-byte loads (fp32)."""
+    for name, t, want in (("dout", dout, dtype), ("lse", lse, torch.float32),
+                          ("dd", dd, torch.float32)):
+        if t.dtype != want or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"train_attention backward: {name} must be {want}, contiguous "
                              "and 16-byte aligned")
+
+
+def _dq(entry: str, dtype: torch.dtype, q, k, v, lens, lse, dd, dout,
+        dropout_rate: float, seed: int) -> torch.Tensor:
+    from eraxvif5tts_tpu_torch.ops import _cuda
+
+    _entry_dtype(entry, dtype, q, k, v)
+    b, n, h, d = q.shape
+    _check_backward_args(dout, lse, dd, q.dtype)
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        code = getattr(_cuda.kernels().lib, entry)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            dd.data_ptr(), lens.data_ptr(), dq.data_ptr(), b, n, h, 1.0 / math.sqrt(d),
+            *_dropout_args(dropout_rate, seed), _cuda.stream_ptr(q.device))
+    _cuda.check(code, entry)
+    return dq
+
+
+def _dkv(entry: str, dtype: torch.dtype, q, k, v, lens, lse, dd, dout,
+         dropout_rate: float, seed: int) -> tuple[torch.Tensor, torch.Tensor]:
+    from eraxvif5tts_tpu_torch.ops import _cuda
+
+    _entry_dtype(entry, dtype, q, k, v)
+    b, n, h, d = q.shape
+    _check_backward_args(dout, lse, dd, q.dtype)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        code = getattr(_cuda.kernels().lib, entry)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            dd.data_ptr(), lens.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, n, h,
+            1.0 / math.sqrt(d), *_dropout_args(dropout_rate, seed), _cuda.stream_ptr(q.device))
+    _cuda.check(code, entry)
+    return dk, dv
 
 
 def flash_dq(q, k, v, lens, lse, dd, dout, dropout_rate: float = 0.0,
              seed: int = 0) -> torch.Tensor:
-    """Launch the dq kernel: dq ``[b, n, h, d]`` bf16 from the forward's LSE,
-    ``dd = rowsum(dO * O)`` ``[b, h, n]`` fp32 and ``dout``. Counted in
+    """Launch the bf16 dq kernel: dq ``[b, n, h, d]`` bf16 from the forward's
+    LSE, ``dd = rowsum(dO * O)`` ``[b, h, n]`` fp32 and ``dout``. Counted in
     ``flash_dq.launches``."""
     from eraxvif5tts_tpu_torch.ops import _cuda
 
-    b, n, h, d = q.shape
-    _check_backward_args(dout, lse, dd)
-    dq = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        code = _cuda.kernels().lib.erax_train_attention_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-            dd.data_ptr(), lens.data_ptr(), dq.data_ptr(), b, n, h, 1.0 / math.sqrt(d),
-            *_dropout_args(dropout_rate, seed), _cuda.stream_ptr(q.device))
-    _cuda.check(code, "train_attention dq")
+    dq = _dq("erax_train_attention_dq", torch.bfloat16, q, k, v, lens, lse, dd, dout,
+             dropout_rate, seed)
     with _cuda.COUNT_LOCK:
         flash_dq.launches += 1
     return dq
@@ -313,25 +430,48 @@ def flash_dq(q, k, v, lens, lse, dd, dout, dropout_rate: float = 0.0,
 
 def flash_dkv(q, k, v, lens, lse, dd, dout, dropout_rate: float = 0.0,
               seed: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the dk/dv kernel (arguments as :func:`flash_dq`). Counted in
-    ``flash_dkv.launches``."""
+    """Launch the bf16 dk/dv kernel (arguments as :func:`flash_dq`). Counted
+    in ``flash_dkv.launches``."""
     from eraxvif5tts_tpu_torch.ops import _cuda
 
-    b, n, h, d = q.shape
-    _check_backward_args(dout, lse, dd)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    with torch.cuda.device(q.device):
-        code = _cuda.kernels().lib.erax_train_attention_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-            dd.data_ptr(), lens.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, n, h,
-            1.0 / math.sqrt(d), *_dropout_args(dropout_rate, seed), _cuda.stream_ptr(q.device))
-    _cuda.check(code, "train_attention dk/dv")
+    result = _dkv("erax_train_attention_dkv", torch.bfloat16, q, k, v, lens, lse, dd, dout,
+                  dropout_rate, seed)
     with _cuda.COUNT_LOCK:
         flash_dkv.launches += 1
-    return dk, dv
+    return result
+
+
+def flash_dq_fp32(q, k, v, lens, lse, dd, dout, dropout_rate: float = 0.0,
+                  seed: int = 0) -> torch.Tensor:
+    """Launch the fp32 dq kernel (arguments as :func:`flash_dq`, all fp32).
+    Counted in ``flash_dq_fp32.launches``."""
+    from eraxvif5tts_tpu_torch.ops import _cuda
+
+    dq = _dq("erax_train_attention_fp32_dq", torch.float32, q, k, v, lens, lse, dd, dout,
+             dropout_rate, seed)
+    with _cuda.COUNT_LOCK:
+        flash_dq_fp32.launches += 1
+    return dq
+
+
+def flash_dkv_fp32(q, k, v, lens, lse, dd, dout, dropout_rate: float = 0.0,
+                   seed: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the fp32 dk/dv kernel (arguments as :func:`flash_dq`, all
+    fp32). Counted in ``flash_dkv_fp32.launches``."""
+    from eraxvif5tts_tpu_torch.ops import _cuda
+
+    result = _dkv("erax_train_attention_fp32_dkv", torch.float32, q, k, v, lens, lse, dd, dout,
+                  dropout_rate, seed)
+    with _cuda.COUNT_LOCK:
+        flash_dkv_fp32.launches += 1
+    return result
 
 
 flash_forward.launches = flash_dq.launches = flash_dkv.launches = 0
+flash_forward_fp32.launches = flash_dq_fp32.launches = flash_dkv_fp32.launches = 0
+# the forward, dq and dk/dv launchers of q's dtype
+_LAUNCHERS = {torch.bfloat16: (flash_forward, flash_dq, flash_dkv),
+              torch.float32: (flash_forward_fp32, flash_dq_fp32, flash_dkv_fp32)}
 
 
 def row_dot(dout: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
@@ -342,11 +482,12 @@ def row_dot(dout: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
 
 class _TrainAttention(torch.autograd.Function):
     """Forward kernel; backward = D in plain torch, then the dq and dk/dv
-    kernels (the JAX custom_vjp, `train_attention.py:261-390`)."""
+    kernels (the JAX custom_vjp, `train_attention.py:261-390`), the bf16 or
+    the fp32 ones by q's dtype."""
 
     @staticmethod
     def forward(ctx, q, k, v, lens, dropout_rate, seed):
-        out, lse = flash_forward(q, k, v, lens, dropout_rate, seed)
+        out, lse = _LAUNCHERS[q.dtype][0](q, k, v, lens, dropout_rate, seed)
         ctx.save_for_backward(q, k, v, lens, out, lse)
         ctx.dropout = (dropout_rate, seed)
         return out
@@ -358,8 +499,9 @@ class _TrainAttention(torch.autograd.Function):
         if dout.data_ptr() % 16:  # TMA reads it: 16-byte aligned like q, k, v
             dout = dout.clone()
         dd = row_dot(dout, out)
-        dq = flash_dq(q, k, v, lens, lse, dd, dout, *ctx.dropout)
-        dk, dv = flash_dkv(q, k, v, lens, lse, dd, dout, *ctx.dropout)
+        _, dq_kernel, dkv_kernel = _LAUNCHERS[q.dtype]
+        dq = dq_kernel(q, k, v, lens, lse, dd, dout, *ctx.dropout)
+        dk, dv = dkv_kernel(q, k, v, lens, lse, dd, dout, *ctx.dropout)
         return dq, dk, dv, None, None, None
 
 
@@ -372,8 +514,9 @@ def train_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (:func:`attention_seed` of the dropout key's words).
 
     CPU tensors take :func:`train_attention_reference`; CUDA tensors run the
-    kernels (:func:`flash_forward`, then :func:`flash_dq` and
-    :func:`flash_dkv` in the backward) or raise. Setting
+    kernels of their dtype (bf16: :func:`flash_forward`, then :func:`flash_dq`
+    and :func:`flash_dkv` in the backward; fp32: the ``_fp32`` launchers) or
+    raise. Setting
     ``train_attention.plain = True`` sends every call to the plain version,
     on any device: a whole model's kernels can then be compared with it."""
     b, n = q.shape[:2]

@@ -47,6 +47,7 @@ import torch
 from torch import nn
 
 from eraxvif5tts_tpu_torch.models.cfm import CFM, LossDraws
+from eraxvif5tts_tpu_torch.models.modules import fp32_when
 from eraxvif5tts_tpu_torch.ops.masks import lens_to_mask, mask_from_frac_lengths
 from eraxvif5tts_tpu_torch.training.trainer import (
     BETAS,
@@ -203,16 +204,18 @@ class DistillTrainer:
         with_duration = state.dur_predictor is not None and batch.get("attn") is not None
 
         state.optimizer.zero_grad(set_to_none=True)
-        total, metrics = distillation_losses(self.student_cfm, self.teacher_transformer, mel,
-                                             text, lens, draws, self.config)
-        if with_duration:
-            state.dur_optimizer.zero_grad(set_to_none=True)
-            attn = torch.as_tensor(batch["attn"], device=device, dtype=torch.float32)
-            d_loss = duration_loss_from_attn(state.dur_predictor, text,
-                                             (text != -1).sum(dim=-1), attn)
-            total = total + self.config.duration_loss_weight * d_loss
-            metrics.update(duration_loss=d_loss, loss=total)
-        total.backward()
+        # an fp32 student's backward and checkpointed recompute run in full fp32 too
+        with fp32_when(model.dtype):
+            total, metrics = distillation_losses(self.student_cfm, self.teacher_transformer,
+                                                 mel, text, lens, draws, self.config)
+            if with_duration:
+                state.dur_optimizer.zero_grad(set_to_none=True)
+                attn = torch.as_tensor(batch["attn"], device=device, dtype=torch.float32)
+                d_loss = duration_loss_from_attn(state.dur_predictor, text,
+                                                 (text != -1).sum(dim=-1), attn)
+                total = total + self.config.duration_loss_weight * d_loss
+                metrics.update(duration_loss=d_loss, loss=total)
+            total.backward()
         values = torch.stack([v.detach().float() for v in metrics.values()]).tolist()
         metrics = dict(zip(metrics, values))  # one host read
         ok = math.isfinite(metrics["loss"])

@@ -45,6 +45,7 @@ import torch
 from torch.optim.lr_scheduler import LambdaLR
 
 from eraxvif5tts_tpu_torch.models.cfm import CFM, LossDraws
+from eraxvif5tts_tpu_torch.models.modules import fp32_when
 
 STATE_FILE = "state.pt"
 BETAS = (0.9, 0.98)
@@ -315,8 +316,10 @@ class Trainer:
                                      self.cfm.frac_lengths_mask)
 
         state.optimizer.zero_grad(set_to_none=True)
-        loss, _, _ = self.cfm.loss(mel, text, lens, draws)
-        loss.backward()
+        # an fp32 model's backward and checkpointed recompute run in full fp32 too
+        with fp32_when(model.dtype):
+            loss, _, _ = self.cfm.loss(mel, text, lens, draws)
+            loss.backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
         norm = global_norm(grads)
         loss_v, norm_v = torch.stack([loss.detach().float(), norm]).tolist()  # one host read

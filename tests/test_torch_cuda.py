@@ -336,8 +336,10 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     w = torch.zeros((96, 64), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         fm.ln_mod_matmul(x, s, s, w, torch.zeros(96, device=cuda, dtype=torch.bfloat16))
-    with pytest.raises(TypeError):
-        ta.train_attention(q, q, q)
+    with pytest.raises(TypeError):  # bf16 or fp32 only
+        ta.train_attention(q.half(), q.half(), q.half())
+    with pytest.raises(TypeError):  # one dtype for q, k and v
+        ta.train_attention(q, q.bfloat16(), q)
     with pytest.raises(ValueError):
         ta.train_attention(qb, qb, qb)
     g = torch.Generator(device=cuda).manual_seed(1)
@@ -815,3 +817,112 @@ def test_fp32_wrapper_generates_on_the_card(cuda, backbone):
             assert (sa.serving_attention.launches, fm.ln_mod_matmul.launches) == (bf16, kernel2)
     assert waves[0].shape == waves[1].shape and np.isfinite(waves[1]).all()
     assert np.abs(waves[1] - waves[0]).max() <= 4 / 32767.0
+
+
+# ---- fp32 training: kernels 4a / 4b / 4c in fp32 and the step that runs them --
+
+FP32_GRAD_TOL = 5e-5  # fp32 gradients vs plain, max |err| in units of max |plain|
+
+
+def _fp32_counts():
+    return [fn.launches for fn in (ta.flash_forward_fp32, ta.flash_dq_fp32, ta.flash_dkv_fp32,
+                                   ta.flash_forward, ta.flash_dq, ta.flash_dkv)]
+
+
+@pytest.mark.parametrize("n", [64, 1024, 4096])
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+def test_train_attention_fp32_kernels_match_plain(cuda, no_tf32, n, dropout):
+    """fp32 q, k, v through `train_attention`: the fp32 kernels (counted apart
+    from the bf16 ones) against the plain version with TF32 off, the first
+    sample with no valid key, the second with a masked tail: O within
+    FP32_TOL * (1 + |plain|), dq / dk / dv within FP32_GRAD_TOL of their
+    scale, the LSE within 1e-6 relative L2 of the plain log sum exp (log n
+    where no key is valid), keys past lens with zero dk and dv, and a second
+    forward and backward bit-identical."""
+    g = torch.Generator(device=cuda).manual_seed(7 * n + int(10 * dropout))
+    q, k, v, dout = (torch.randn((2, n, 2, 64), generator=g, device=cuda) for _ in range(4))
+    lens = torch.tensor([0, n - 21], dtype=torch.int32, device=cuda)
+    mask = lens_to_mask(lens, n)
+    before = _fp32_counts()
+    results = []
+    for plain in (False, True, False):
+        args = [t.clone().requires_grad_() for t in (q, k, v)]
+        if plain:
+            out = ta.train_attention_reference(*args, lens, dropout, seed=0xC0FFEE)
+        else:
+            out = ta.train_attention(*args, key_valid=mask, dropout_rate=dropout, seed=0xC0FFEE)
+        results.append([out, *torch.autograd.grad(out, args, dout)])
+    torch.cuda.synchronize()
+    assert [c - b for c, b in zip(_fp32_counts(), before)] == [2, 2, 2, 0, 0, 0]
+    got, want, again = results
+    assert all(t.dtype == torch.float32 and torch.isfinite(t).all() for t in got)
+    err = (got[0] - want[0]).abs()
+    assert torch.all(err <= FP32_TOL * (1 + want[0].abs())), float(err.max())
+    for a, b in zip(got[1:], want[1:]):
+        assert float((a - b).abs().max() / b.abs().max()) <= FP32_GRAD_TOL
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert not got[2][1, n - 21:].any() and not got[3][1, n - 21:].any()
+    _, lse = ta.flash_forward_fp32(q, k, v, lens, dropout, 0xC0FFEE)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) / 8.0
+    s[1, :, :, n - 21:] = -1e30
+    want_lse = torch.logsumexp(s, dim=-1)
+    want_lse[0] = math.log(n)
+    assert float((lse - want_lse).norm() / want_lse.norm()) <= 1e-6
+
+
+def test_train_attention_fp32_geometry_is_the_kernels(cuda):
+    built = ta.kernel_geometry_fp32()
+    fwd, bwd = ta.forward_geometry_fp32(2, 4096, 16), ta.backward_geometry_fp32(2, 4096, 16)
+    assert built == {"rows": fwd["rows"], "threads": fwd["threads"],
+                     "shared_bytes": fwd["shared_bytes"],
+                     "dq_shared_bytes": bwd["dq_shared_bytes"],
+                     "dkv_shared_bytes": bwd["dkv_shared_bytes"]}
+
+
+def test_fp32_train_step_with_kernels_matches_plain(cuda):
+    """One `Trainer.train_step` of a 2-block fp32 DiT (dropout 0.1, blocks
+    checkpointed) with both TF32 flags on outside the step: the fp32 kernels
+    launched 4 / 2 / 2 times and no bf16 kernel, the loss and the gradient
+    the step would apply within fp32 rounding of the same step with
+    `train_attention.plain` set, on the same draws."""
+    from eraxvif5tts_tpu_torch.configs import ArchConfig
+    from eraxvif5tts_tpu_torch.models.cfm import CFM, LossDraws
+    from eraxvif5tts_tpu_torch.models.dit import DiT
+    from eraxvif5tts_tpu_torch.training.trainer import Trainer, make_optimizer
+
+    arch = ArchConfig(dim=128, depth=2, heads=2, dim_head=64, ff_mult=2, text_dim=64,
+                      conv_layers=1, dropout=0.1, checkpoint_activations=True,
+                      remat_policy="full")
+    torch.manual_seed(0)
+    dit = DiT(arch, 20, 100).to(cuda)
+    for p in dit.parameters():
+        torch.nn.init.normal_(p, 0.0, 0.05)
+    trainer = Trainer(cfm=CFM(dit.train()), optimizer=make_optimizer(num_warmup_updates=1,
+                                                                      total_updates=10))
+    state = trainer.init_state()
+    g = torch.Generator(device=cuda).manual_seed(1)
+    b, n = 2, 256
+    batch = {"mel": torch.randn((b, n, 100), generator=g, device=cuda),
+             "text": torch.randint(0, 20, (b, 40), generator=g, device=cuda),
+             "lens": torch.tensor([n, n - 30], device=cuda)}
+    draws = LossDraws.sample(g, b, n, 100, arch.depth)
+    seen = []
+    trainer._apply = lambda state, grads, norm: seen.append(
+        torch.cat([x.flatten() for x in grads]))
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        before = _fp32_counts()
+        _, got = trainer.train_step(state, batch, draws)
+        torch.cuda.synchronize()
+        assert [c - c0 for c, c0 in zip(_fp32_counts(), before)] == [4, 2, 2, 0, 0, 0]
+        ta.train_attention.plain = True
+        try:
+            _, want = trainer.train_step(state, batch, draws)
+        finally:
+            ta.train_attention.plain = False
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    assert got["applied"] == want["applied"] == 1.0
+    assert abs(got["loss"] - want["loss"]) <= 1e-6 * abs(want["loss"])
+    assert float((seen[0] - seen[1]).norm() / seen[1].norm()) <= 1e-5

@@ -148,8 +148,11 @@ def test_train_attention_rejects_what_the_kernels_do_not_take():
     q = torch.zeros(2, 128, 2, 64, dtype=torch.bfloat16)
     lens = torch.full((2,), 128, dtype=torch.int32)
     tta._check_cuda_args(q, q, q, lens)
-    with pytest.raises(TypeError, match="bfloat16"):
-        tta._check_cuda_args(q.float(), q.float(), q.float(), lens)
+    tta._check_cuda_args(q.float(), q.float(), q.float(), lens)  # the fp32 kernels' domain
+    with pytest.raises(TypeError, match="one dtype"):
+        tta._check_cuda_args(q, q.float(), q, lens)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        tta._check_cuda_args(q.half(), q.half(), q.half(), lens)
     bad_n = torch.zeros(2, 96, 2, 64, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="multiple of 64"):
         tta._check_cuda_args(bad_n, bad_n, bad_n, lens)
