@@ -124,13 +124,16 @@ Phases (any failure raises and the script exits non-zero):
               more step under `torch.profiler` (device time of the attention
               kernels, the hash dropout and the other groups);
 7b. train-fp32 -- CFM training in fp32, the JAX DiT's default compute dtype:
-              kernels 4a / 4b / 4c fp32 (`csrc/train_attention_fp32.cu`)
-              against the plain version with TF32 off at b = 2, h = 16, n =
-              64 (a sample with no valid key), 1024 and 4096, dropout 0.1
-              and 0 (O within 2e-5 * (1 + |plain|), the gradients within 5e-5
-              of their scale, the LSE, second calls bit-identical), a TF32
-              control refused and the plain version held to the CPU's, timed
-              beside fp32 `scaled_dot_product_attention` and its backward;
+              kernels 4a / 4b / 4c fp32 (`csrc/train_attention_fp32.cu`:
+              4a on FFMA, 4b / 4c on the tensor cores in 3xTF32) against the
+              plain version with TF32 off at b = 2, h = 16, n = 64 (a sample
+              with no valid key), 1024 and 4096, dropout 0.1 and 0 (O within
+              2e-5 * (1 + |plain|), the gradients within 5e-5 of their
+              scale, the LSE, second calls bit-identical, and bit-identical
+              with both TF32 flags on at n = 4096), a TF32 control refused
+              and the plain version held to the CPU's, timed beside fp32
+              `scaled_dot_product_attention` and its backward, with bounds
+              at the FFMA and the 3xTF32 rates;
               F5TTS_v1_Base at full width and depth with fp32 parameters and
               fp32 compute (dropout 0.1, blocks checkpointed): one
               `Trainer.train_step` at b = 2, n = 256 against the CPU's (loss
@@ -225,7 +228,9 @@ DIT_TOL = 5e-2  # whole-backbone relative error, bf16 through 22-24 blocks
 BASE_DEPTH, BASE_NFE = 4, 8  # the F5TTS_Base check's cuts
 # NVIDIA H100 SXM data sheet, dense: the peaks a kernel's bound is taken against
 PEAK_BYTES_S = 3.35e12
-PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}  # fp32: the CUDA cores
+# fp32: the CUDA cores' FFMA; tf32x3: fp32-accurate products on the tensor
+# cores in 3xTF32, three TF32 passes (495 TFLOP/s) per product
+PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12, "tf32x3": 495e12 / 3}
 # int8 feed-forward, |kernel - plain| in units of max |plain|: both sum exactly
 # (int32) and round at the same points in IEEE fp32, so the hidden codes must
 # be the plain version's bit for bit (a reciprocal-product scale flipped 6e-4
@@ -288,7 +293,8 @@ def bound(nbytes: float, ops: float, kind: str = "bf16") -> dict:
     """The least time the card could take: the bytes the function must move
     (each input read once, each output written once) over the memory rate,
     or its operations over the card's peak for their type (the tensor cores'
-    for bf16 and int8, the CUDA cores' for fp32), whichever is larger."""
+    for bf16, int8 and fp32 in 3xTF32, the CUDA cores' for fp32 on FFMA),
+    whichever is larger."""
     by_bytes, by_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S[kind] * 1e3
     return dict(bound_ms=max(by_bytes, by_ops),
                 bound_by="bytes" if by_bytes >= by_ops else "operations")
@@ -2685,7 +2691,8 @@ def phase_fp32(main_wrapper, dev, mmdit_ckpt: Path) -> tuple[dict, dict]:
 # fp32 training (the JAX DiT's default compute dtype): kernels 4a / 4b / 4c fp32.
 # Limits between the error measured on an H100 and the TF32 control's:
 FP32_GRAD_TOL = 5e-5  # kernel 4b / 4c fp32 vs plain: max |err| in units of max |plain|
-# (fp32 sums over up to 4096 keys or queries in another order): <= 1.02e-6 vs >= 6.5e-4
+# (3xTF32 products summed over up to 4096 keys or queries in another order): <= 6.2e-6 on
+# an H100 (<= 1.02e-6 with FFMA kernels) vs the TF32 control's >= 6.5e-4
 FP32_ATTN_TOLS = {"fwd": FP32_TOL, "dq": FP32_GRAD_TOL, "dk": FP32_GRAD_TOL,
                   "dv": FP32_GRAD_TOL}  # O: <= 5.97e-7 vs >= 1.59e-4
 # (b, n, lens) at h = 16: one tile with an empty sample, the loss check's n, the bucket's
@@ -2715,10 +2722,13 @@ def check_train_attention_fp32(dev) -> dict:
     plain log sum exp, a second forward and backward bit-identical. At n =
     1024 and 4096 a control, the plain version with TF32 on, must be refused
     (some reading beyond its limit); at n = 1024 the plain version on the
-    card is held to the same on the CPU. Times at n = 1024 and 4096 at
-    dropout 0.1 and keep = 1, beside the plain version and, at keep = 1
-    without a mask, fp32 `scaled_dot_product_attention` (TF32 off) and its
-    backward. Returns the JSON rows (n = 4096, the last case)."""
+    card is held to the same on the CPU; at n = 4096, dropout 0.1, the
+    kernels run again with both TF32 flags on and must give the same bits.
+    Times at n = 1024 and 4096 at dropout 0.1 and keep = 1, beside the
+    plain version and, at keep = 1 without a mask, fp32
+    `scaled_dot_product_attention` (TF32 off) and its backward; bounds at
+    the FFMA rate for the forward and the 3xTF32 rate for dq and dk/dv (the
+    FFMA rate's beside). Returns the JSON rows (n = 4096, the last case)."""
     import torch
     import torch.nn.functional as F
 
@@ -2764,6 +2774,13 @@ def check_train_attention_fp32(dev) -> dict:
                                                                            dout)))):
                 raise AssertionError(f"{case}: a second forward or backward differs")
             note = ""
+            if n == FP32_TRAIN_CASES[-1][1] and rate > 0.0:
+                with tf32(True):  # the kernels' precision is their own
+                    flagged = attention_grads(kernel, q, k, v, dout)
+                if not all(torch.equal(g, a) for g, a in zip(got, flagged)):
+                    raise AssertionError(f"{case}: the kernels' results move with the TF32 flags")
+                note += "; with both TF32 flags on, bit-identical"
+                del flagged
             if n > FP32_TRAIN_CASES[0][1] and rate > 0.0:
                 with tf32(True):
                     control = fp32_attention_errors(
@@ -2822,9 +2839,14 @@ def check_train_attention_fp32(dev) -> dict:
         elems, rows = b * n * 16 * 64, b * 16 * n
         keys = sum(n if length <= 0 else length for length in lens_list)
         work = 2.0 * 16 * 64 * n * keys
-        least = {"fwd": bound(4 * elems * 4 + rows * 4 + 4 * b, 2 * work, "fp32"),
-                 "dq": bound(5 * elems * 4 + 2 * rows * 4 + 4 * b, 3 * work, "fp32"),
-                 "dkv": bound(6 * elems * 4 + 2 * rows * 4 + 4 * b, 4 * work, "fp32")}
+        work_of = {"fwd": (4 * elems * 4 + rows * 4 + 4 * b, 2 * work),
+                   "dq": (5 * elems * 4 + 2 * rows * 4 + 4 * b, 3 * work),
+                   "dkv": (6 * elems * 4 + 2 * rows * 4 + 4 * b, 4 * work)}
+        # the forward runs on FFMA, dq and dk/dv on the tensor cores in 3xTF32;
+        # the FFMA bound of each is logged beside
+        least = {name: bound(*work_of[name], "fp32" if name == "fwd" else "tf32x3")
+                 for name in work_of}
+        ffma = {name: bound(*work_of[name], "fp32") for name in ("dq", "dkv")}
         times[n] = {name: dict(ms=ms[0.1][name], plain_ms=plain_fwd if name == "fwd"
                                else plain_bwd, library_ms=lib_fwd if name == "fwd" else lib_bwd,
                                **least[name]) for name in least}
@@ -2833,12 +2855,17 @@ def check_train_attention_fp32(dev) -> dict:
             f"{ms[0.1]['fwd']:.4f} ms, dq {ms[0.1]['dq']:.4f} ms, dk/dv {ms[0.1]['dkv']:.4f} ms "
             f"(plain forward {plain_fwd:.4f} ms, plain backward, all three gradients, "
             f"{plain_bwd:.4f} ms); at keep = 1 forward {keep1['fwd']:.4f} ms, dq "
-            f"{keep1['dq']:.4f} ms, dk/dv {keep1['dkv']:.4f} ms; bounds at the fp32 rate "
-            + ", ".join(f"{name} {x['bound_ms']:.5f} ms by {x['bound_by']}"
-                        for name, x in least.items())
+            f"{keep1['dq']:.4f} ms, dk/dv {keep1['dkv']:.4f} ms; bounds: forward at the "
+            f"fp32 FFMA rate {least['fwd']['bound_ms']:.5f} ms, dq and dk/dv at the 3xTF32 "
+            f"rate {least['dq']['bound_ms']:.5f} / {least['dkv']['bound_ms']:.5f} ms (FFMA "
+            f"{ffma['dq']['bound_ms']:.5f} / {ffma['dkv']['bound_ms']:.5f} ms), all by "
+            + "/".join(x["bound_by"] for x in least.values())
             + " (share of the bound at dropout 0.1 / keep = 1: "
             + ", ".join(f"{name} {least[name]['bound_ms'] / ms[0.1][name]:.1%} / "
                         f"{least[name]['bound_ms'] / keep1[name]:.1%}" for name in least)
+            + "; of the FFMA bound: "
+            + ", ".join(f"{name} {ffma[name]['bound_ms'] / ms[0.1][name]:.1%} / "
+                        f"{ffma[name]['bound_ms'] / keep1[name]:.1%}" for name in ("dq", "dkv"))
             + f"); library fp32 scaled_dot_product_attention (TF32 off) at keep = 1, no mask: "
             f"forward {lib_fwd:.4f} ms, backward {lib_bwd:.4f} ms; against it at keep = 1 the "
             f"forward takes {keep1['fwd'] / lib_fwd:.2f}x and dq + dk/dv "
@@ -2995,12 +3022,18 @@ def phase_train_fp32(dev, arch=None) -> tuple[dict, dict]:
         f"{time.perf_counter() - t0:.1f} s")
     # the distill step's 14-block student, pruned from this checkpoint as the
     # compress phase prunes its teacher's: the pruner's numpy scores (~10 s)
-    # run in a thread while the card checks and trains
+    # run in a thread under the card-versus-CPU step, and end before the
+    # timed steps, whose walls hold the host's dispatch
     pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
     pruned = pool.submit(prune_student, {k: t.detach().cpu().numpy()
                                          for k, t in dit.state_dict().items()},
                          arch.depth, COMPRESS_DEPTHS[0])
     check_fp32_step_against_cpu(cfm, dev)
+    t0 = time.perf_counter()
+    keep, student_sd = pruned.result()
+    pool.shutdown()
+    log(f"[train-fp32] pruning thread joined {time.perf_counter() - t0:.1f} s after the "
+        "card-versus-CPU step")
 
     trainer = Trainer(cfm=cfm, optimizer=make_optimizer(num_warmup_updates=1,
                                                          total_updates=1000))
@@ -3057,8 +3090,6 @@ def phase_train_fp32(dev, arch=None) -> tuple[dict, dict]:
 
     # one fp32 distillation step: this model the teacher, the student pruned from it
     t0 = time.perf_counter()
-    keep, student_sd = pruned.result()
-    pool.shutdown()
     student = DiT(dataclasses.replace(arch, depth=COMPRESS_DEPTHS[0]), len(VOCAB_CHARS), 100)
     student.load_state_dict(student_sd, strict=True)
     del student_sd
@@ -3079,8 +3110,7 @@ def phase_train_fp32(dev, arch=None) -> tuple[dict, dict]:
     counts = [c - c0 for c, c0 in zip(fp32_counts(), before)]
     depth_s = COMPRESS_DEPTHS[0]
     log(f"[train-fp32] DistillTrainer step, teacher this model (fp32, eval), student "
-        f"{depth_s} blocks {keep} (pruner's scores; built in {built:.1f} s after the "
-        f"pruning thread), b, n = "
+        f"{depth_s} blocks {keep} (pruner's scores; built in {built:.1f} s), b, n = "
         f"{FP32_DISTILL_BATCH}: " + ", ".join(f"{k} {v:.5f}" for k, v in metrics.items())
         + f"; {wall:.3f} s (first step: no warm-up); launches fp32 fwd/dq/dkv, bf16 "
         f"fwd/dq/dkv {counts}")

@@ -1,6 +1,7 @@
-// FFMA building blocks of the fp32 attention kernels (`serving_attention_fp32.cu`,
-// `train_attention_fp32.cu`): 64 x 64 tiles of fp32 in shared memory and
-// the products a block of 256 threads takes on them, in true fp32.
+// FFMA building blocks of the fp32 attention forwards (`serving_attention_fp32.cu`
+// and the forward of `train_attention_fp32.cu`, whose backward runs on the
+// tensor cores instead): 64 x 64 tiles of fp32 in shared memory and the
+// products a block of 256 threads takes on them, in true fp32.
 //
 // A tile is 64 rows of 64 floats padded to kStride = 68, so that the column
 // reads of a B^T operand (16 rows 68 floats apart: banks 4 apart) and the

@@ -22,37 +22,81 @@
 //
 // What bounds it on an H100: the forward does 4 b h n^2 d operations and
 // the dq and dk/dv kernels 6 and 8 b h n^2 d, over ~4 b n h d * 4 bytes read
-// and written each (n, 1.5 n and 2 n operations a byte). The card's fp32
-// rate outside the tensor cores (67 TFLOP/s) over its 3.35 TB/s is a ridge
-// of 20 a byte, so at the training shapes (n up to 4096) FFMA throughput
-// bounds all three. Every product is an FFMA (`fp32_tile.cuh`), in true
-// fp32: a TF32 tensor-core product keeps about 10 mantissa bits.
-// Exponentials are `expf`, the final division IEEE fp32 (the build has no
-// --use_fast_math).
+// and written each (n, 1.5 n and 2 n operations a byte), so at the training
+// shapes (n up to 4096) operations bound all three, never bytes.
 //
-// Design: simple and right first, on the tiles of `fp32_tile.cuh` (64 rows
-// of 64 floats padded to 68; 256 threads, each owning a 4 x 4 piece of a
-// score tile and of a 64-wide product). A block owns 64 rows of one (sample,
-// head) and walks the other operand's tiles of 64 in order; the TPU
-// kernels' sequential grid axis with a VMEM accumulator becomes that loop,
-// the sums staying in registers.
-// - forward: the block keeps its Q tile; each step stores a K and a V tile,
-//   takes S = Q K^T, the online softmax over a row across the 16 lanes of a
-//   half-warp (shuffles for the row maximum, per-lane partial sums added
-//   once at the end), writes Pd to a shared tile and accumulates O += Pd V.
-//   The next K and V tiles are read into registers under the products.
-//   69,632 bytes of shared memory (Q, K, V, P).
-// - dq: the block keeps its Q and dO tiles and its rows' LSE and D in
-//   registers; each step stores K and V, takes S = Q K^T and dP = dO V^T,
-//   writes dS to a shared tile and accumulates dQ += dS K. 87,040 bytes (Q,
-//   dO, K, V, dS): two blocks an SM.
-// - dk/dv: the block keeps its K and V tiles; each step stores a Q and a dO
-//   tile and their 64 LSE and D values, takes S^T = K Q^T and dP^T = V dO^T,
-//   writes Pd^T and dS^T to two shared tiles and accumulates dV += Pd^T dO
-//   and dK += dS^T Q. 104,960 bytes (K, V, Q, dO, Pd^T, dS^T, LSE, D): two
-//   blocks an SM, as five tiles would give.
-// Two kernels for the backward and no atomics: the same inputs give the
-// same bits every time.
+// The forward: every product is an FFMA (`fp32_tile.cuh`), in true fp32, at
+// the card's 67 TFLOP/s outside the tensor cores (a ridge of 20 operations
+// a byte). 64 rows a block, 256 threads, each owning a 4 x 4 piece of a
+// score tile and of a 64-wide product. The block keeps its Q tile; each step
+// stores a K and a V tile, takes S = Q K^T, the online softmax over a row
+// across the 16 lanes of a half-warp (shuffles for the row maximum, per-lane
+// partial sums added once at the end), writes Pd to a shared tile and
+// accumulates O += Pd V. The next K and V tiles are read into registers
+// under the products. 69,632 bytes of shared memory (Q, K, V, P).
+//
+// The backward (`_dq_kernel`, `_dkv_kernel`): every product on the tensor
+// cores, `mma.sync.m16n8k8` with TF32 operands, in 3xTF32. Each fp32
+// operand x is split into big = rna(x) and small = rna(x - big), rna being
+// cvt.rna.tf32.f32's rounding (to nearest, ties away from zero); a product
+// takes big*small + small*big first and big*big last into an fp32
+// accumulator, which keeps about 22 bits of each operand: fp32 accuracy,
+// where a single TF32 pass keeps 11 and fails the limits the port holds
+// these gradients to (its TF32 control is refused). Their bound is then
+// operations at 495 / 3 = 165 TFLOP/s of fp32-accurate products (dq three
+// products, dk/dv four, each 64 columns deep), beside the per-element
+// `expf`, keep-bit hash and split work on the CUDA cores. `mma.sync` tops out
+// below the card's TF32 peak (`tools/tf32_rates.cu` measures it; `wgmma` is
+// the way to 495), and a warp of 16 rows reads every B fragment, big and
+// small, from shared memory itself: about 170 bytes a tensor-core
+// instruction. `wgmma` takes TF32 B operands K-major only: three of the
+// seven products (dS K, Pd^T dO, dS^T Q) read B N-major as the tiles lie and
+// would need a transposed copy of each split tile, and its A operands for
+// the scores would need the fixed operands split in shared memory, which
+// leaves room for one block an SM; `mma.sync` reads its fragments into
+// registers, so a transposed read costs nothing but its addresses.
+// - Geometry: a block owns 64 rows of one (sample, head), four warps of 16
+//   rows (one m16 tile each), 128 threads, two blocks an SM (shared memory
+//   and registers allow two). A warp keeps its fixed operands (dq: Q and
+//   dO; dk/dv: K and V) in registers as fp32 in A-fragment order (64
+//   floats) and splits them at each scores pass of 32 columns, two a tile
+//   (the registers hold no wider pass beside the output accumulators).
+// - The ring: the streamed tiles (dq: K and V; dk/dv: Q, dO and their 64
+//   LSE and 64 D values) come through kBwdStages = 2 stages by `cp.async`
+//   (16 bytes a copy, bypassing L1): tile t + 1's copy is issued into the
+//   other stage as tile t's work starts and runs under its split and
+//   products. Once a tile has landed, each thread splits the chunks it
+//   copied (its own `cp.async` writes are visible to it): the big parts in
+//   place, the small parts into two more tiles; a barrier, then the
+//   products read both. Each element is split once a block, not once a
+//   warp, and the rounding is two integer operations (faster than the
+//   conversion instruction). Two barriers a tile. 104,448 (dq) and 105,472
+//   (dk/dv) bytes of shared memory.
+// - The sums: an mma's fp32 sum is not rounded to nearest, so one
+//   accumulator over a whole row of keys or queries drifts; each pass's
+//   products onto dQ, dK and dV go into a fresh accumulator that the CUDA
+//   cores add to the output in IEEE fp32 (`pass_product`).
+// - The layout: rows padded to 68 floats. The score products read B by
+//   `ldmatrix.x4` (two n-tiles a load; the eight rows of a matrix fall in
+//   eight distinct bank quads); the products onto dQ, dK and dV read B at
+//   rows 8 j + 2 (lane % 4) + {0, 1} and column 8 nn + lane / 4, 32
+//   distinct banks (8 (lane % 4) + lane / 4, + 4 on the odd row), at
+//   offsets affine in nn. (The plain transposed read, rows lane % 4, would
+//   collide under this stride; the permuted k-step below avoids it.)
+// - The scores come out in the mma's C layout (row lane / 4 and + 8,
+//   columns 2 (lane % 4) + {0, 1}); their elementwise work (expf of the logit
+//   minus the LSE, dpd = dp * keep / keep_prob, dS = P * (dpd - D)) takes
+//   its coordinates from that layout, and the result is used in place as
+//   the next product's A fragment by permuting the k-step (A's k = lane % 4
+//   is column 2 (lane % 4), k + 4 the next; B reads the same two rows): no
+//   shuffle and no trip through shared memory.
+// - dq: each step takes S = Q K^T and dP = dO V^T, dS, and dQ += dS K.
+//   dk/dv: each step takes S^T = K Q^T and dP^T = V dO^T, Pd^T and dS^T,
+//   and dV += Pd^T dO, dK += dS^T Q.
+// Exponentials are `expf`, the forward's final division IEEE fp32 (the
+// build has no --use_fast_math). Two kernels for the backward and no
+// atomics: the same inputs give the same bits every time, and torch's TF32
+// flags do not reach them.
 //
 // Masked keys get the finite -1e30, never -inf, and the running maximum
 // starts at -inf. A sample with lens = 0 has every logit set to 0 instead, as
@@ -73,9 +117,7 @@ namespace {
 
 using namespace fp32tile;
 
-constexpr int kFwdSmem = 4 * kTileBytes;                // Q, K, V, P
-constexpr int kDqSmem = 5 * kTileBytes;                 // Q, dO, K, V, dS
-constexpr int kDkvSmem = 6 * kTileBytes + 2 * kRows * 4;  // K, V, Q, dO, Pd^T, dS^T, LSE, D
+constexpr int kFwdSmem = 4 * kTileBytes;  // Q, K, V, P
 
 // Per block: the (sample, head) and its offsets, from the grid (n / 64, h, b).
 struct Head {
@@ -113,9 +155,10 @@ __device__ __forceinline__ float keep_factor(uint32_t query, uint32_t key, uint3
   return keep_bit_folded(query * n + key, folded, drop.threshold) ? drop.inv_keep : 0.f;
 }
 
-__device__ __forceinline__ void zero(float (&a)[4][4]) {
+template <int kN>
+__device__ __forceinline__ void zero(float (&a)[kN][4]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < kN; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) a[i][j] = 0.f;
 }
@@ -213,74 +256,313 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---- the backward: dq and dk/dv on the tensor cores in 3xTF32 ------------
+
+// Launch geometry of the dq and dk/dv kernels (`ops/train_attention.py`
+// `backward_geometry_fp32` states it): 64 rows a block, four warps of 16 rows
+// (one m16 tile of the mma each), a ring of kBwdStages stages of the streamed
+// tiles and one buffer of their small parts.
+constexpr int kBwdWarps = 4;
+constexpr int kBwdThreads = 32 * kBwdWarps;  // 128
+constexpr int kBwdStages = 2;
+constexpr int kDqStage = 2 * kTileFloats;               // K, V (big parts once split)
+constexpr int kDkvStage = 2 * kTileFloats + 2 * kRows;  // Q, dO, their 64 LSE and 64 D
+constexpr int kSmall = 2 * kTileFloats;                 // the small parts of a stage's tiles
+constexpr int kDqSmem = (kBwdStages * kDqStage + kSmall) * 4;    // 104,448 bytes
+constexpr int kDkvSmem = (kBwdStages * kDkvStage + kSmall) * 4;  // 105,472 bytes
+static_assert(kRows == 16 * kBwdWarps, "a warp owns one m16 tile of the block's rows");
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Chunk i (of 16 bytes) of the block's share of a tile: this thread's
+// chunks are threadIdx.x + 128 m, m < 8, at row i / 16, column 4 (i % 16).
+__device__ __forceinline__ int chunk_row(int m) { return (threadIdx.x + kBwdThreads * m) >> 4; }
+__device__ __forceinline__ int chunk_col(int m) { return 4 * ((threadIdx.x + kBwdThreads * m) & 15); }
+constexpr int kChunks = kRows * kD / 4 / kBwdThreads;  // 8
+
+// The block's threads copy rows 0..63 of a [.., 64] fp32 tensor (rows
+// `stride` floats apart from `src`) into a padded tile, 16 bytes a copy.
+__device__ __forceinline__ void copy_tile(float* tile, const float* __restrict__ src,
+                                          int64_t stride) {
+#pragma unroll
+  for (int m = 0; m < kChunks; ++m)
+    cp_async16(tile + chunk_row(m) * kStride + chunk_col(m),
+               src + chunk_row(m) * stride + chunk_col(m));
+}
+
+// cvt.rna.tf32.f32 (to nearest, ties away from zero, the low 13 bits zero)
+// in two integer operations, which outrun the conversion instruction on an
+// H100 (`tools/tf32_rates.cu`); the split is the kernels' busiest work
+// outside the mma.
+__device__ __forceinline__ float to_tf32(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
+}
+
+// x = big + small to ~22 bits: big = x rounded to TF32, small = the
+// remainder rounded the same way. Neither is raw fp32 (an mma would
+// truncate raw bits).
+struct Split {
+  float big, small;
+};
+
+__device__ __forceinline__ Split split(float x) {
+  const float big = to_tf32(x);
+  return Split{big, to_tf32(x - big)};
+}
+
+// This thread's chunks of a landed tile, split: the big parts in place, the
+// small parts at the same offsets of `small`. (cp.async's writes are
+// visible to the thread that waited on them.)
+__device__ __forceinline__ void split_tile(float* tile, float* small) {
+#pragma unroll
+  for (int m = 0; m < kChunks; ++m) {
+    const int at = chunk_row(m) * kStride + chunk_col(m);
+    const float4 x = ld_shared4(tile + at);
+    const Split a = split(x.x), b = split(x.y), c = split(x.z), d = split(x.w);
+    st_shared4(tile + at, make_float4(a.big, b.big, c.big, d.big));
+    st_shared4(small + at, make_float4(a.small, b.small, c.small, d.small));
+  }
+}
+
+// An A fragment (16 x 8, row-major), split.
+struct FragA {
+  uint32_t big[4], small[4];
+};
+
+__device__ __forceinline__ FragA split_a(float a0, float a1, float a2, float a3) {
+  const float a[4] = {a0, a1, a2, a3};
+  FragA f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const Split s = split(a[i]);
+    f.big[i] = __float_as_uint(s.big);
+    f.small[i] = __float_as_uint(s.small);
+  }
+  return f;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b in 3xTF32 with B split (big b0, b1; small s0, s1): the two cross
+// terms first, big * big last.
+__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a, uint32_t b0, uint32_t b1,
+                                     uint32_t s0, uint32_t s1) {
+  mma_tf32(d, a.big, s0, s1);
+  mma_tf32(d, a.small, b0, b1);
+  mma_tf32(d, a.big, b0, b1);
+}
+
+// Four 8 x 4 fp32 matrices (8 x 8 of b16 to the instruction): lane L gives
+// the address of row L % 8 of matrix L / 8 and receives, of each matrix,
+// the element (row L / 4, column L % 4).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const float* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+// The fixed A operand of a warp: rows `row` and `row + 8` of a [.., 64]
+// tensor (`base` its position 0, rows `stride` apart), in the fragment order
+// of the eight k-steps: a[kk] = (row, 8 kk + c), (row + 8, 8 kk + c),
+// (row, 8 kk + c + 4), (row + 8, 8 kk + c + 4) with c = lane % 4.
+__device__ __forceinline__ void load_a(float (&a)[8][4], const float* __restrict__ base,
+                                       int64_t stride, int row, int c) {
+  const float* r0 = base + row * stride;
+  const float* r1 = r0 + 8 * stride;
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    a[kk][0] = __ldg(r0 + 8 * kk + c);
+    a[kk][1] = __ldg(r1 + 8 * kk + c);
+    a[kk][2] = __ldg(r0 + 8 * kk + c + 4);
+    a[kk][3] = __ldg(r1 + 8 * kk + c + 4);
+  }
+}
+
+// The scores of kN n-tiles (columns 8 j0 .. 8 (j0 + kN) - 1 of the split
+// tiles X and Y: big parts `xb`, `yb`, small `xs`, `ys`) for the warp's 16
+// rows: s += A X^T and dp += B Y^T over the 64 columns of d, A and B the
+// warp's fixed operands (split here, once a call). One ldmatrix brings the B
+// fragments of two n-tiles (b0 = (8 j + lane / 4, 8 kk + lane % 4), b1 four
+// columns on); a padded row of 68 floats puts the eight rows of a matrix in
+// eight distinct bank quads.
+template <int kN>
+__device__ __forceinline__ void scores(float (&s)[kN][4], float (&dp)[kN][4],
+                                       const float (&a)[8][4], const float (&b)[8][4],
+                                       const float* xb, const float* xs, const float* yb,
+                                       const float* ys, int j0, int lane) {
+  const int lm = (8 * j0 + 8 * (lane >> 4) + (lane & 7)) * kStride + 4 * ((lane >> 3) & 1);
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const FragA fa = split_a(a[kk][0], a[kk][1], a[kk][2], a[kk][3]);
+    const FragA fb = split_a(b[kk][0], b[kk][1], b[kk][2], b[kk][3]);
+#pragma unroll
+    for (int jp = 0; jp < kN / 2; ++jp) {
+      const int at = lm + 16 * jp * kStride + 8 * kk;
+      uint32_t x[4], xl[4], y[4], yl[4];
+      ldmatrix_x4(x, xb + at);
+      ldmatrix_x4(xl, xs + at);
+      ldmatrix_x4(y, yb + at);
+      ldmatrix_x4(yl, ys + at);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        mma3(s[2 * jp + e], fa, x[2 * e], x[2 * e + 1], xl[2 * e], xl[2 * e + 1]);
+        mma3(dp[2 * jp + e], fb, y[2 * e], y[2 * e + 1], yl[2 * e], yl[2 * e + 1]);
+      }
+    }
+  }
+}
+
+// acc[nn] += W Z over the 8 columns of n-tile j of a split tile Z (big `zb`,
+// small `zs`; its rows 8 j .. 8 j + 7 are the k-step): W is an accumulator
+// tile w in the mma's C layout (row lane / 4 columns 2 (lane % 4) + {0, 1},
+// and row + 8), read as an A fragment with the k-step permuted (k = lane %
+// 4 is column 2 (lane % 4), k + 4 the next), so that the B fragment takes
+// rows 8 j + 2 (lane % 4) and the next of Z at column 8 nn + lane / 4. With
+// rows of 68 floats the 32 lanes of that read hit 32 distinct banks (8 (lane
+// % 4) + lane / 4, plus 4 on the odd row), at offsets affine in nn.
+__device__ __forceinline__ void product(float (&acc)[8][4], const float (&w)[4], const float* zb,
+                                        const float* zs, int j, int lane) {
+  const FragA fa = split_a(w[0], w[2], w[1], w[3]);
+  const int at = (8 * j + 2 * (lane & 3)) * kStride + (lane >> 2);
+#pragma unroll
+  for (int nn = 0; nn < 8; ++nn)
+    mma3(acc[nn], fa, __float_as_uint(zb[at + 8 * nn]),
+         __float_as_uint(zb[at + kStride + 8 * nn]), __float_as_uint(zs[at + 8 * nn]),
+         __float_as_uint(zs[at + kStride + 8 * nn]));
+}
+
+// acc += W Z over one scores pass (its kN k-steps from n-tile j0, W's tiles
+// w[j]). The pass's products go into a fresh tensor-core accumulator, which
+// the CUDA cores then add to acc in IEEE fp32: an mma's sum is not rounded
+// to nearest, and in one accumulator over a whole row of keys or queries
+// (up to 1,536 mma) its error grows with the chain (dq 5.0e-5 of its scale
+// at n = 4096 on an H100, beyond the limit the port holds it to); a pass's
+// chain is 3 kN mma long.
+template <int kN>
+__device__ __forceinline__ void pass_product(float (&acc)[8][4], const float (&w)[kN][4],
+                                             const float* zb, const float* zs, int j0,
+                                             int lane) {
+  float part[8][4];
+  zero(part);
+#pragma unroll
+  for (int j = 0; j < kN; ++j) product(part, w[j], zb, zs, j0 + j, lane);
+#pragma unroll
+  for (int nn = 0; nn < 8; ++nn)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nn][i] += part[nn][i];
+}
+
+// Rows `row` and `row + 8` of a [64, 64] piece at `dst` (positions `stride`
+// floats apart) from an accumulator in the C layout, times `f`.
+__device__ __forceinline__ void store_acc(float* dst, int64_t stride, const float (&acc)[8][4],
+                                          float f, int row, int c) {
+#pragma unroll
+  for (int nn = 0; nn < 8; ++nn) {
+    *reinterpret_cast<float2*>(dst + row * stride + 8 * nn + 2 * c) =
+        make_float2(acc[nn][0] * f, acc[nn][1] * f);
+    *reinterpret_cast<float2*>(dst + (row + 8) * stride + 8 * nn + 2 * c) =
+        make_float2(acc[nn][2] * f, acc[nn][3] * f);
+  }
+}
+
+// n-tiles a scores pass covers: half a tile (the fixed operands are split
+// twice a tile; the registers hold no more beside the output accumulators
+// and a pass's own).
+constexpr int kPass = 4;
+
 template <bool kDrop>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kBwdThreads, 2)
     train_fp32_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, const float* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ dd,
                          const int* __restrict__ lens, float* __restrict__ dq, int n, int h,
                          float scale, const Dropout drop) {
   extern __shared__ float4 smem4[];
-  float* const qs = reinterpret_cast<float*>(smem4);
-  float* const dos = qs + kTileFloats;
-  float* const ks = dos + kTileFloats;
-  float* const vs = ks + kTileFloats;
-  float* const dss = vs + kTileFloats;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  float* const ring = reinterpret_cast<float*>(smem4);
+  float* const small = ring + kBwdStages * kDqStage;  // K's and V's small parts
+  const int lane = threadIdx.x & 31, c = lane & 3;
   const Head hd = block_head(lens, n, h, drop);
   // no valid key: dS is zero everywhere, and so is dq
   const int n_tiles = hd.len <= 0 ? 0 : key_tiles(hd.len, n);
+  const int row = hd.row0 + 16 * (threadIdx.x >> 5) + (lane >> 2);  // and row + 8
 
-  float4 x[4];
-  const int64_t own = hd.base + hd.row0 * hd.stride;
-  load_rows(x, q + own, hd.stride, ty, tx);
-  store_rows(qs, x, ty, tx);
-  load_rows(x, dout + own, hd.stride, ty, tx);
-  store_rows(dos, x, ty, tx);
-  float lse_r[4], d_r[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    lse_r[i] = lse[hd.stat + hd.row0 + 4 * ty + i];
-    d_r[i] = dd[hd.stat + hd.row0 + 4 * ty + i];
-  }
+  auto issue = [&](int t) {  // K and V of key tile t into its stage
+    float* stage = ring + (t % kBwdStages) * kDqStage;
+    const int64_t at = hd.base + static_cast<int64_t>(t) * kRows * hd.stride;
+    copy_tile(stage, k + at, hd.stride);
+    copy_tile(stage + kTileFloats, v + at, hd.stride);
+    cp_async_commit();
+  };
+  if (n_tiles > 0) issue(0);
 
-  float acc[4][4];
+  float qa[8][4], da[8][4];
+  load_a(qa, q + hd.base, hd.stride, row, c);
+  load_a(da, dout + hd.base, hd.stride, row, c);
+  const float lse_r[2] = {lse[hd.stat + row], lse[hd.stat + row + 8]};
+  const float d_r[2] = {dd[hd.stat + row], dd[hd.stat + row + 8]};
+
+  float acc[8][4];
   zero(acc);
   for (int t = 0; t < n_tiles; ++t) {
-    const int64_t at = hd.base + static_cast<int64_t>(t) * kRows * hd.stride;
-    __syncthreads();  // the last tile's K and dS are read
-    load_rows(x, k + at, hd.stride, ty, tx);
-    store_rows(ks, x, ty, tx);
-    load_rows(x, v + at, hd.stride, ty, tx);
-    store_rows(vs, x, ty, tx);
-    __syncthreads();
+    float* const ks = ring + (t % kBwdStages) * kDqStage;
+    float* const vs = ks + kTileFloats;
+    cp_async_wait_all();  // this thread's copies of tile t have landed
+    __syncthreads();      // tile t - 1 is done with: its stage and the small parts are free
+    if (t + 1 < n_tiles) issue(t + 1);  // under this tile's split and products
+    split_tile(ks, small);
+    split_tile(vs, small + kTileFloats);
+    __syncthreads();  // tile t split
 
-    float s[4][4], dp[4][4];
-    zero(s);
-    zero(dp);
-    product_abt(s, qs, ks, ty, tx);   // S = Q K^T
-    product_abt(dp, dos, vs, ty, tx);  // dP = dO V^T
-    const int key0 = t * kRows + tx;
+#pragma unroll 1
+    for (int j0 = 0; j0 < kRows / 8; j0 += kPass) {  // keys 8 j0 .. 8 (j0 + kPass) - 1 of the tile
+      float s[kPass][4], dp[kPass][4];
+      zero(s);
+      zero(dp);
+      // S = Q K^T, dP = dO V^T
+      scores(s, dp, qa, da, ks, small, vs, small + kTileFloats, j0, lane);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const uint32_t row = hd.row0 + 4 * ty + i;
+      for (int j = 0; j < kPass; ++j) {
+        const int key0 = t * kRows + 8 * (j0 + j) + 2 * c;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool valid = key0 + 16 * j < hd.len;
-        const float p = expf((valid ? s[i][j] * scale : hd.masked) - lse_r[i]);
-        const float dpd =
-            kDrop ? dp[i][j] * keep_factor(row, key0 + 16 * j, n, hd.folded, drop) : dp[i][j];
-        dss[(4 * ty + i) * kStride + tx + 16 * j] = valid ? p * (dpd - d_r[i]) : 0.f;
+        for (int e = 0; e < 4; ++e) {
+          const int key = key0 + (e & 1), r = e >> 1;
+          const bool valid = key < hd.len;
+          const float p = expf((valid ? s[j][e] * scale : hd.masked) - lse_r[r]);
+          const float dpd =
+              kDrop ? dp[j][e] * keep_factor(row + 8 * r, key, n, hd.folded, drop) : dp[j][e];
+          s[j][e] = valid ? p * (dpd - d_r[r]) : 0.f;  // dS
+        }
       }
+      pass_product(acc, s, ks, small, j0, lane);  // dQ += dS K
     }
-    __syncthreads();  // the tile's dS is complete
-    product_ab(acc, dss, ks, ty, tx);  // dQ += dS K
   }
-  store_out(dq + own, hd.stride, acc, scale, ty, tx);
+  store_acc(dq + hd.base, hd.stride, acc, scale, row, c);
 }
 
 template <bool kDrop>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kBwdThreads, 2)
     train_fp32_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                           const float* __restrict__ v, const float* __restrict__ dout,
                           const float* __restrict__ lse, const float* __restrict__ dd,
@@ -288,73 +570,81 @@ __global__ void __launch_bounds__(kThreads, 2)
                           float* __restrict__ dv, int n, int h, float scale,
                           const Dropout drop) {
   extern __shared__ float4 smem4[];
-  float* const ks = reinterpret_cast<float*>(smem4);
-  float* const vs = ks + kTileFloats;
-  float* const qs = vs + kTileFloats;
-  float* const dos = qs + kTileFloats;
-  float* const pts = dos + kTileFloats;
-  float* const dsts = pts + kTileFloats;
-  float* const lse_s = dsts + kTileFloats;
-  float* const dd_s = lse_s + kRows;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  float* const ring = reinterpret_cast<float*>(smem4);
+  float* const small = ring + kBwdStages * kDkvStage;  // Q's and dO's small parts
+  const int lane = threadIdx.x & 31, c = lane & 3;
   const Head hd = block_head(lens, n, h, drop);
-  const int64_t own = hd.base + hd.row0 * hd.stride;
+  const int key = hd.row0 + 16 * (threadIdx.x >> 5) + (lane >> 2);  // and key + 8
 
-  float dk_acc[4][4], dv_acc[4][4];
+  float dk_acc[8][4], dv_acc[8][4];
   zero(dk_acc);
   zero(dv_acc);
   if (hd.len > 0 && hd.row0 >= hd.len) {  // every key of the block masked: P = 0, dS = 0
-    store_out(dk + own, hd.stride, dk_acc, 0.f, ty, tx);
-    store_out(dv + own, hd.stride, dv_acc, 0.f, ty, tx);
+    store_acc(dk + hd.base, hd.stride, dk_acc, 0.f, key, c);
+    store_acc(dv + hd.base, hd.stride, dv_acc, 0.f, key, c);
     return;
   }
-  float4 x[4];
-  load_rows(x, k + own, hd.stride, ty, tx);
-  store_rows(ks, x, ty, tx);
-  load_rows(x, v + own, hd.stride, ty, tx);
-  store_rows(vs, x, ty, tx);
-  bool key_valid[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) key_valid[i] = hd.row0 + 4 * ty + i < hd.len;
-
-  for (int t = 0; t < n / kRows; ++t) {
+  const int n_tiles = n / kRows;
+  auto issue = [&](int t) {  // Q, dO and the LSE and D rows of query tile t
+    float* stage = ring + (t % kBwdStages) * kDkvStage;
     const int64_t at = hd.base + static_cast<int64_t>(t) * kRows * hd.stride;
-    __syncthreads();  // the last tile's Q, dO, Pd^T and dS^T are read
-    load_rows(x, q + at, hd.stride, ty, tx);
-    store_rows(qs, x, ty, tx);
-    load_rows(x, dout + at, hd.stride, ty, tx);
-    store_rows(dos, x, ty, tx);
-    if (threadIdx.x < kRows) {
-      lse_s[threadIdx.x] = lse[hd.stat + t * kRows + threadIdx.x];
-      dd_s[threadIdx.x] = dd[hd.stat + t * kRows + threadIdx.x];
+    copy_tile(stage, q + at, hd.stride);
+    copy_tile(stage + kTileFloats, dout + at, hd.stride);
+    if (threadIdx.x < 2 * kRows / 4) {
+      const int part = threadIdx.x >> 4, col = 4 * (threadIdx.x & 15);
+      cp_async16(stage + 2 * kTileFloats + part * kRows + col,
+                 (part ? dd : lse) + hd.stat + t * kRows + col);
     }
-    __syncthreads();
+    cp_async_commit();
+  };
+  issue(0);
 
-    float st[4][4], dpt[4][4];
-    zero(st);
-    zero(dpt);
-    product_abt(st, ks, qs, ty, tx);    // S^T = K Q^T: keys 4 ty + i, queries tx + 16 j
-    product_abt(dpt, vs, dos, ty, tx);  // dP^T = V dO^T
+  float ka[8][4], va[8][4];
+  load_a(ka, k + hd.base, hd.stride, key, c);
+  load_a(va, v + hd.base, hd.stride, key, c);
+  const bool key_valid[2] = {key < hd.len, key + 8 < hd.len};
+
+  for (int t = 0; t < n_tiles; ++t) {
+    float* const qs = ring + (t % kBwdStages) * kDkvStage;
+    float* const dos = qs + kTileFloats;
+    const float* lse_s = dos + kTileFloats;
+    const float* dd_s = lse_s + kRows;
+    cp_async_wait_all();
+    __syncthreads();
+    if (t + 1 < n_tiles) issue(t + 1);
+    split_tile(qs, small);
+    split_tile(dos, small + kTileFloats);
+    __syncthreads();
+#pragma unroll 1
+    for (int j0 = 0; j0 < kRows / 8; j0 += kPass) {  // queries 8 j0 .. 8 (j0 + kPass) - 1
+      float st[kPass][4], dpt[kPass][4];
+      zero(st);
+      zero(dpt);
+      // S^T = K Q^T, dP^T = V dO^T
+      scores(st, dpt, ka, va, qs, small, dos, small + kTileFloats, j0, lane);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const uint32_t key = hd.row0 + 4 * ty + i;
+      for (int j = 0; j < kPass; ++j) {
+        const int col = 8 * (j0 + j) + 2 * c;  // queries col, col + 1 of the tile
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_s + col);
+        const float2 d2 = *reinterpret_cast<const float2*>(dd_s + col);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = tx + 16 * j;
-        const float p =
-            expf((key_valid[i] ? st[i][j] * scale : hd.masked) - lse_s[col]);
-        const float f = kDrop ? keep_factor(t * kRows + col, key, n, hd.folded, drop) : 1.f;
-        pts[(4 * ty + i) * kStride + col] = p * f;
-        dsts[(4 * ty + i) * kStride + col] = key_valid[i] ? p * (dpt[i][j] * f - dd_s[col])
-                                                          : 0.f;
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const float l = e & 1 ? l2.y : l2.x, d = e & 1 ? d2.y : d2.x;
+          const float p = expf((key_valid[r] ? st[j][e] * scale : hd.masked) - l);
+          const float f =
+              kDrop ? keep_factor(t * kRows + col + (e & 1), key + 8 * r, n, hd.folded, drop)
+                    : 1.f;
+          st[j][e] = p * f;                                          // Pd^T
+          dpt[j][e] = key_valid[r] ? p * (dpt[j][e] * f - d) : 0.f;  // dS^T
+        }
       }
+      pass_product(dv_acc, st, dos, small + kTileFloats, j0, lane);  // dV += Pd^T dO
+      pass_product(dk_acc, dpt, qs, small, j0, lane);                // dK += dS^T Q
     }
-    __syncthreads();  // the tile's Pd^T and dS^T are complete
-    product_ab(dv_acc, pts, dos, ty, tx);  // dV += Pd^T dO
-    product_ab(dk_acc, dsts, qs, ty, tx);  // dK += dS^T Q
   }
-  store_out(dk + own, hd.stride, dk_acc, scale, ty, tx);
-  store_out(dv + own, hd.stride, dv_acc, 1.f, ty, tx);
+  store_acc(dk + hd.base, hd.stride, dk_acc, scale, key, c);
+  store_acc(dv + hd.base, hd.stride, dv_acc, 1.f, key, c);
 }
 
 Dropout make_dropout(unsigned seed, unsigned threshold, float inv_keep, int on) {
@@ -395,7 +685,7 @@ extern "C" int erax_train_attention_fp32_dq(const void* q, const void* k, const 
   const int err =
       allow_shared(reinterpret_cast<const void*>(kernel), kDqSmem, allowed[dropout ? 1 : 0]);
   if (err != 0) return err;
-  kernel<<<dim3(n / kRows, h, b), kThreads, kDqSmem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<dim3(n / kRows, h, b), kBwdThreads, kDqSmem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(dd), static_cast<const int*>(lens), static_cast<float*>(dq), n,
@@ -414,7 +704,7 @@ extern "C" int erax_train_attention_fp32_dkv(const void* q, const void* k, const
   const int err =
       allow_shared(reinterpret_cast<const void*>(kernel), kDkvSmem, allowed[dropout ? 1 : 0]);
   if (err != 0) return err;
-  kernel<<<dim3(n / kRows, h, b), kThreads, kDkvSmem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<dim3(n / kRows, h, b), kBwdThreads, kDkvSmem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(dd), static_cast<const int*>(lens), static_cast<float*>(dk),
@@ -423,12 +713,16 @@ extern "C" int erax_train_attention_fp32_dkv(const void* q, const void* k, const
 }
 
 // The three kernels' launch geometry, as `ops/train_attention.py`
-// `forward_geometry_fp32` / `backward_geometry_fp32` state it: rows a block,
-// threads, and the dynamic shared bytes of the forward, dq and dk/dv.
+// `forward_geometry_fp32` / `backward_geometry_fp32` state it: the forward's
+// rows a block, threads and dynamic shared bytes, then the backward's rows a
+// block, threads, ring stages and the dq and dk/dv kernels' shared bytes.
 extern "C" void erax_train_attention_fp32_geometry(int* out) {
   out[0] = kRows;
   out[1] = kThreads;
   out[2] = kFwdSmem;
-  out[3] = kDqSmem;
-  out[4] = kDkvSmem;
+  out[3] = kRows;
+  out[4] = kBwdThreads;
+  out[5] = kBwdStages;
+  out[6] = kDqSmem;
+  out[7] = kDkvSmem;
 }

@@ -27,9 +27,10 @@ Mixed dtypes, fp16 and anything else on a CUDA tensor raise; there is no
 fallback. bf16 runs `csrc/train_attention.cu` (wgmma, tiles read by TMA;
 :func:`forward_geometry` and :func:`backward_geometry` state their grid,
 tiles, ring and shared memory, and the tensor map they build), fp32 runs
-`csrc/train_attention_fp32.cu` (FFMA only, true fp32;
-:func:`forward_geometry_fp32` and :func:`backward_geometry_fp32`). The JAX
-package's TPU gates (``can_use_train_kernel``: n % 128, fp32 only up to
+`csrc/train_attention_fp32.cu` (the forward on FFMA, the backward on the
+tensor cores in 3xTF32, both to fp32 accuracy whatever torch's TF32 flags
+say; :func:`forward_geometry_fp32` and :func:`backward_geometry_fp32`).
+The JAX package's TPU gates (``can_use_train_kernel``: n % 128, fp32 only up to
 n = 3072) and calibrated backward blocks are TPU VMEM limits and are not
 ported: above n = 3072 the JAX package draws its fp32 attention dropout
 with ``jax.random`` (its chunked path), where the port keeps the position
@@ -64,10 +65,13 @@ FWD_THREADS = 512   # three consumer warpgroups and the producer's
 FWD_ROTATORS = 96   # threads of the producer's warps 1-3, which rotate tiles (rotary)
 SHARED_LIMIT = 232448  # bytes of shared memory a block may use on an H100
 SM_SHARED = 233472     # bytes of shared memory an SM has; the card keeps 1 KB of it a block
-# the fp32 kernels (`csrc/fp32_tile.cuh`: kRows, kThreads, kStride)
-FP32_ROWS = 64      # rows a block owns
+# the fp32 forward (`csrc/fp32_tile.cuh`: kRows, kThreads, kStride)
+FP32_ROWS = 64      # rows a block owns, in the forward and the backward
 FP32_THREADS = 256  # a 16 x 16 grid, each thread a 4 x 4 piece of a tile
 FP32_STRIDE = 68    # floats a shared tile row: 64 padded by 4
+# the fp32 dq and dk/dv kernels (`csrc/train_attention_fp32.cu`: kBwdThreads, kBwdStages)
+FP32_BWD_THREADS = 128  # four warps, each 16 rows: one m16 tile of the 3xTF32 mma
+FP32_BWD_STAGES = 2     # cp.async ring, each stage the streamed tiles of one step
 
 
 def fmix32(h: torch.Tensor) -> torch.Tensor:
@@ -242,35 +246,43 @@ def kernel_backward_geometry() -> dict:
     return _kernel_geometry("erax_train_attention_bwd_geometry")
 
 
-def _fp32_geometry(b: int, n: int, h: int) -> dict:
-    return dict(grid=(n // FP32_ROWS, h, b), threads=FP32_THREADS, rows=FP32_ROWS,
+def _fp32_geometry(b: int, n: int, h: int, threads: int) -> dict:
+    return dict(grid=(n // FP32_ROWS, h, b), threads=threads, rows=FP32_ROWS,
                 tile=TILE, blocks=[(r, FP32_ROWS) for r in range(0, n, FP32_ROWS)])
 
 
-def _fp32_shared(tiles: int, extra: int = 0) -> tuple[int, int]:
-    """(dynamic shared bytes, blocks an SM that memory allows) of ``tiles``
-    padded ``[64, 64]`` fp32 tiles and ``extra`` bytes."""
-    shared = tiles * FP32_ROWS * FP32_STRIDE * 4 + extra
-    return shared, SM_SHARED // (shared + 1024)
+def _per_sm(shared: int) -> int:
+    """Blocks an SM that ``shared`` dynamic bytes a block allow."""
+    return SM_SHARED // (shared + 1024)
 
 
 def forward_geometry_fp32(b: int, n: int, h: int) -> dict:
     """How the fp32 forward covers ``[b, n, h, 64]``: ``n / 64`` blocks a
     (sample, head), each owning the 64 query rows of ``blocks`` and walking
-    the key tiles; the Q, K, V and P tiles in shared memory."""
-    shared, per_sm = _fp32_shared(4)
-    return dict(_fp32_geometry(b, n, h), shared_bytes=shared, blocks_per_sm=per_sm)
+    the key tiles; the Q, K, V and P tiles in shared memory, padded to
+    ``FP32_STRIDE`` floats a row."""
+    shared = 4 * FP32_ROWS * FP32_STRIDE * 4
+    return dict(_fp32_geometry(b, n, h, FP32_THREADS), shared_bytes=shared,
+                blocks_per_sm=_per_sm(shared))
 
 
 def backward_geometry_fp32(b: int, n: int, h: int) -> dict:
     """How the fp32 dq and dk/dv kernels cover ``[b, n, h, 64]`` (dq over
     query rows, dk/dv over keys; both ``n / 64`` blocks a (sample, head) of
-    64 rows): dq keeps Q, dO, K, V and dS tiles in shared memory, dk/dv K,
-    V, Q, dO, Pd^T and dS^T tiles and a query tile's 64 LSE and 64 D values."""
-    dq_shared, dq_per_sm = _fp32_shared(5)
-    dkv_shared, dkv_per_sm = _fp32_shared(6, 2 * FP32_ROWS * 4)
-    return dict(_fp32_geometry(b, n, h), dq_shared_bytes=dq_shared,
-                dkv_shared_bytes=dkv_shared, blocks_per_sm=min(dq_per_sm, dkv_per_sm))
+    64 rows, four warps of 16): the fixed operands stay in registers, the
+    streamed ones come through a ring of ``stages`` stages of padded ``[64,
+    64]`` fp32 tiles (dq's a K and a V tile, dk/dv's a Q and a dO tile and
+    that query tile's 64 LSE and 64 D values), split into TF32 big parts in
+    place and small parts in two more tiles. ``blocks_per_sm`` is what
+    shared memory allows, and what the kernels' launch bounds ask of the
+    registers."""
+    tile = FP32_ROWS * FP32_STRIDE * 4
+    dq_shared = (FP32_BWD_STAGES * 2 + 2) * tile
+    dkv_shared = FP32_BWD_STAGES * (2 * tile + 2 * FP32_ROWS * 4) + 2 * tile
+    return dict(_fp32_geometry(b, n, h, FP32_BWD_THREADS), stages=FP32_BWD_STAGES,
+                warps=FP32_BWD_THREADS // 32, dq_shared_bytes=dq_shared,
+                dkv_shared_bytes=dkv_shared,
+                blocks_per_sm=min(_per_sm(dq_shared), _per_sm(dkv_shared)))
 
 
 def kernel_geometry_fp32() -> dict:
@@ -281,10 +293,11 @@ def kernel_geometry_fp32() -> dict:
 
     from eraxvif5tts_tpu_torch.ops import _cuda
 
-    out = (ctypes.c_int * 5)()
+    out = (ctypes.c_int * 8)()
     _cuda.kernels().lib.erax_train_attention_fp32_geometry(out)
-    return dict(rows=out[0], threads=out[1], shared_bytes=out[2], dq_shared_bytes=out[3],
-                dkv_shared_bytes=out[4])
+    return dict(rows=out[0], threads=out[1], shared_bytes=out[2], bwd_rows=out[3],
+                bwd_threads=out[4], stages=out[5], dq_shared_bytes=out[6],
+                dkv_shared_bytes=out[7])
 
 
 def _check_cuda_args(q, k, v, lens) -> None:
@@ -372,7 +385,7 @@ def flash_forward_fp32(q, k, v, lens, dropout_rate: float = 0.0,
 
 def _check_backward_args(dout, lse, dd, dtype: torch.dtype = torch.bfloat16) -> None:
     """The backward kernels read dO (in q's ``dtype``), LSE and D (fp32) by
-    TMA, bulk copies (bf16) or 16-byte loads (fp32)."""
+    TMA, bulk copies (bf16) or 16-byte copies (fp32: `cp.async`)."""
     for name, t, want in (("dout", dout, dtype), ("lse", lse, torch.float32),
                           ("dd", dd, torch.float32)):
         if t.dtype != want or not t.is_contiguous() or t.data_ptr() % 16:

@@ -2,6 +2,7 @@
 to compare two trees (a commit and its parent) on one card.
 
     python3 eraxvif5tts_tpu_torch/tools/probe_train_attention.py TREE [--step] [--serve]
+    python3 eraxvif5tts_tpu_torch/tools/probe_train_attention.py TREE --fp32 [--against OTHER]
 
 TREE is the root of a checkout (this one: `.`; another commit: unpack it
 with `git archive` into a directory `.gitignore` lists). The package and
@@ -26,6 +27,27 @@ between calls. Printed:
   random weights: three `generate`s of the smoke's first text (wall and
   realtime factor at batch 1) and three `generate_batch`es of its eight
   texts (seconds of audio per wall second), at NFE 32 after a warm-up of each.
+
+With `--fp32`, the fp32 kernels instead (4a, 4b, 4c; `csrc/train_attention_fp32.cu`):
+
+- digests of O, LSE, dq, dk, dv on the seeded inputs above in fp32, and the
+  largest error of each against the plain version (TF32 off; O in units of
+  1 + |plain|, the gradients of their scale);
+- median CUDA-event times at b = 2, h = 16, n = 4096 and 1024 (lens [n,
+  n - 37]) at keep = 1 and dropout 0.1 of the forward, dq and dk/dv, beside
+  their bounds at the FFMA rate (67 TFLOP/s) and, for dq and dk/dv, the
+  3xTF32 rate (495 / 3 TFLOP/s), the plain version's backward and fp32
+  `scaled_dot_product_attention`'s backward (TF32 off, no mask);
+- with `--against OTHER` (another tree, its kernels built from its own
+  `csrc/` and loaded into this process beside TREE's): OTHER's fp32 dq and
+  dk/dv on the same tensors, timed in turns with TREE's (OTHER, TREE, TREE,
+  OTHER), and the largest difference between the two trees' gradients;
+- the rates behind the backward's design (`tools/tf32_rates.cu`, built
+  here): `mma.sync.m16n8k8` TF32 in TFLOP/s with 1, 4 and 8 independent
+  accumulators a warp, at the kernels' occupancy (two blocks of 128
+  threads an SM) and at four blocks of 256, and `cvt.rna.tf32.f32`, the
+  same rounding in two integer operations, and an fp32 multiply, in
+  operations a second.
 """
 
 from __future__ import annotations
@@ -71,6 +93,11 @@ def main(argv: list[str]) -> int:
                    for _ in range(4)]
         return tensors, torch.tensor(lens, dtype=torch.int32, device=dev)
 
+    if "--fp32" in argv[1:]:
+        other = argv[argv.index("--against") + 1] if "--against" in argv else None
+        fp32(cs, dev, g, other)
+        tf32_rates(cs, dev)
+        return 0
     for b, n, lens_list in ((2, 4096, [4096, 4059]), (3, 192, [192, 0, 155])):
         (q, k, v, dout), lens = inputs(b, n, lens_list)
         for rate in (0.1, 0.0):
@@ -122,6 +149,195 @@ def main(argv: list[str]) -> int:
     if "--serve" in argv[1:]:
         serve(cs, dev)
     return 0
+
+
+FFMA_OPS_S, TF32X3_OPS_S = 67e12, 495e12 / 3  # the H100's fp32 FFMA and 3xTF32 peaks
+
+
+def other_kernels(tree: Path):
+    """The kernel library of another tree, built from its own `csrc/` into
+    its own `_build/` and loaded beside this process's (ctypes keeps each
+    library's symbols apart)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "other_tree_cuda", tree / "eraxvif5tts_tpu_torch" / "ops" / "_cuda.py")
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = module  # its dataclass looks itself up there
+    spec.loader.exec_module(module)
+    return module.kernels().lib
+
+
+def fp32_dq(lib, q, k, v, lens, lse, dd, dout, rate: float, seed: int):
+    """dq from ``lib``'s fp32 dq entry point (the C interface
+    `ops/train_attention.py` launches), uncounted."""
+    return _fp32_launch(lib, "erax_train_attention_fp32_dq", 1, q, k, v, lens, lse, dd, dout,
+                        rate, seed)[0]
+
+
+def fp32_dkv(lib, q, k, v, lens, lse, dd, dout, rate: float, seed: int) -> list:
+    """[dk, dv] from ``lib``'s fp32 dk/dv entry point, uncounted."""
+    return _fp32_launch(lib, "erax_train_attention_fp32_dkv", 2, q, k, v, lens, lse, dd, dout,
+                        rate, seed)
+
+
+def _fp32_launch(lib, entry: str, outputs: int, q, k, v, lens, lse, dd, dout, rate, seed):
+    import torch
+
+    from eraxvif5tts_tpu_torch.ops import _cuda
+    from eraxvif5tts_tpu_torch.ops import train_attention as ta
+
+    b, n, h, d = q.shape
+    out = [torch.empty_like(q) for _ in range(outputs)]
+    _cuda.check(getattr(lib, entry)(
+        *[t.data_ptr() for t in (q, k, v, dout, lse, dd, lens, *out)], b, n, h, 1.0 / d ** 0.5,
+        *ta._dropout_args(rate, seed), _cuda.stream_ptr(q.device)), entry)
+    return out
+
+
+def fp32(cs, dev, g, other: str | None) -> None:
+    """The fp32 kernels' digests, errors and times (`--fp32`), and with
+    ``other`` that tree's dq and dk/dv in turns with this one's."""
+    import torch
+    import torch.nn.functional as F
+
+    from eraxvif5tts_tpu_torch.ops import _cuda
+    from eraxvif5tts_tpu_torch.ops import train_attention as ta
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    libs = {"tree": _cuda.kernels().lib}
+    if other is not None:
+        libs["other"] = other_kernels(Path(other).resolve())
+    names = ("O", "LSE", "dq", "dk", "dv")
+
+    def inputs(b, n, lens):
+        return ([torch.randn((b, n, 16, 64), generator=g, device=dev) for _ in range(4)],
+                torch.tensor(lens, dtype=torch.int32, device=dev))
+
+    def grads(lib, q, k, v, dout, lens, rate):
+        out, lse = ta.flash_forward_fp32(q, k, v, lens, rate, 77)
+        dd = ta.row_dot(dout, out)
+        args = (q, k, v, lens, lse, dd, dout, rate, 77)
+        return [out, lse, fp32_dq(lib, *args), *fp32_dkv(lib, *args)]
+
+    for b, n, lens_list in ((2, 4096, [4096, 4059]), (3, 192, [192, 0, 155])):
+        (q, k, v, dout), lens = inputs(b, n, lens_list)
+        for rate in (0.1, 0.0):
+            got = grads(libs["tree"], q, k, v, dout, lens, rate)
+            args = [t.clone().requires_grad_() for t in (q, k, v)]
+            out = ta.train_attention_reference(*args, lens, rate, 77)
+            want = [out.detach(), None, *torch.autograd.grad(out, args, dout)]
+            err = {"O": float(((got[0] - want[0]).abs() / (1 + want[0].abs())).max())}
+            for name, x, w in zip(names[2:], got[2:], want[2:]):
+                err[name] = float((x - w).abs().max() / w.abs().max())
+            line = (f"fp32 digests b={b} n={n} lens {lens_list} dropout {rate}: "
+                    + ", ".join(f"{name} {digest(t)}" for name, t in zip(names, got))
+                    + "; against plain " + ", ".join(f"{k_} {e:.3g}" for k_, e in err.items()))
+            if "other" in libs:
+                theirs = grads(libs["other"], q, k, v, dout, lens, rate)
+                line += "; against OTHER's " + ", ".join(
+                    f"{name} {float((x - y).abs().max() / y.abs().max()):.3g}"
+                    for name, x, y in zip(names[2:], got[2:], theirs[2:]))
+            cs.log(line)
+            del got, want, out, args
+
+    order = ("other", "tree", "tree", "other") if "other" in libs else ("tree",)
+    for n in (4096, 1024):
+        (q, k, v, dout), lens = inputs(2, n, [n, n - 37])
+        elems, rows, keys = 2 * n * 16 * 64, 2 * 16 * n, 2 * n - 37
+        work = 2.0 * 16 * 64 * n * keys
+        least = {"fwd": max((4 * elems * 4 + rows * 4 + 8) / cs.PEAK_BYTES_S,
+                            2 * work / FFMA_OPS_S),
+                 "dq": (3 * work / TF32X3_OPS_S, 3 * work / FFMA_OPS_S),
+                 "dkv": (4 * work / TF32X3_OPS_S, 4 * work / FFMA_OPS_S)}
+        for rate in (0.0, 0.1):
+            out, lse = ta.flash_forward_fp32(q, k, v, lens, rate, 77)
+            dd = ta.row_dot(dout, out)
+            ms = {who: {"dq": [], "dkv": []} for who in libs}
+            args = (q, k, v, lens, lse, dd, dout, rate, 77)
+            for who in order:
+                lib = libs[who]
+                ms[who]["dq"].append(cs.cuda_median_ms(lambda: fp32_dq(lib, *args)))
+                ms[who]["dkv"].append(cs.cuda_median_ms(lambda: fp32_dkv(lib, *args)))
+            fwd = cs.cuda_median_ms(lambda: ta.flash_forward_fp32(q, k, v, lens, rate, 77))
+            mine = ms["tree"]
+            line = (f"fp32 times b=2 n={n} lens [{n}, {n - 37}] dropout {rate}: forward "
+                    f"{fwd:.4f} ms ({least['fwd'] * 1e3 / fwd:.1%} of its FFMA bound "
+                    f"{least['fwd'] * 1e3:.5f} ms); dq " + " / ".join(f"{t:.4f}" for t in mine["dq"])
+                    + " ms, dk/dv " + " / ".join(f"{t:.4f}" for t in mine["dkv"]) + " ms; bounds "
+                    f"3xTF32 dq {least['dq'][0] * 1e3:.5f} / dk/dv {least['dkv'][0] * 1e3:.5f} ms, "
+                    f"FFMA {least['dq'][1] * 1e3:.5f} / {least['dkv'][1] * 1e3:.5f} ms (share "
+                    f"of 3xTF32 {least['dq'][0] * 1e3 / min(mine['dq']):.1%} / "
+                    f"{least['dkv'][0] * 1e3 / min(mine['dkv']):.1%}, of FFMA "
+                    f"{least['dq'][1] * 1e3 / min(mine['dq']):.1%} / "
+                    f"{least['dkv'][1] * 1e3 / min(mine['dkv']):.1%})")
+            if "other" in ms:
+                theirs = ms["other"]
+                line += ("; OTHER's dq " + " / ".join(f"{t:.4f}" for t in theirs["dq"])
+                         + " ms, dk/dv " + " / ".join(f"{t:.4f}" for t in theirs["dkv"])
+                         + f" ms (OTHER, TREE, TREE, OTHER); dq + dk/dv TREE "
+                         f"{min(mine['dq']) + min(mine['dkv']):.4f} ms against OTHER "
+                         f"{min(theirs['dq']) + min(theirs['dkv']):.4f} ms")
+            cs.log(line)
+        args = [t.clone().requires_grad_() for t in (q, k, v)]
+        ref = ta.train_attention_reference(*args, lens, 0.1, 77)
+        plain = cs.cuda_median_ms(lambda: torch.autograd.grad(ref, args, dout,
+                                                              retain_graph=True),
+                                  iters=5, warmup=1)
+        del ref
+        lib_args = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*lib_args)
+        sdpa = cs.cuda_median_ms(lambda: torch.autograd.grad(lib_out, lib_args,
+                                                             dout.transpose(1, 2),
+                                                             retain_graph=True))
+        cs.log(f"fp32 yardsticks b=2 n={n}: plain backward (all three gradients, dropout 0.1) "
+               f"{plain:.4f} ms; fp32 scaled_dot_product_attention backward (TF32 off, no mask) "
+               f"{sdpa:.4f} ms")
+        del lib_out, lib_args, args
+
+
+def tf32_rates(cs, dev) -> None:
+    """Build `tools/tf32_rates.cu` into this tree's `_build/` and print its
+    rates (`--fp32`)."""
+    import ctypes
+    import subprocess
+
+    import torch
+
+    from eraxvif5tts_tpu_torch.ops import _cuda
+
+    src = Path(__file__).resolve().parent / "tf32_rates.cu"
+    so = _cuda.BUILD_DIR / "tf32_rates.so"
+    _cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_cuda._nvcc(), *_cuda.ARCH_FLAGS, "-O3", "-Xcompiler", "-fPIC", "-shared",
+                    "-o", str(so), str(src)], check=True)
+    lib = ctypes.CDLL(str(so))
+    lib.erax_tf32_rate.argtypes = (ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_int, ctypes.c_void_p)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = torch.empty(sms * 4 * 256, device=dev)
+    iters = 2000
+    probes = ((0, "mma.sync m16n8k8 tf32, 1 accumulator a warp", 1),
+              (1, "the same, 4 accumulators", 4), (2, "the same, 8 accumulators", 8),
+              (3, "cvt.rna.tf32.f32", 0), (4, "rna in two integer operations", 0),
+              (5, "fp32 multiply", 0))
+    for which, name, chains in probes:
+        readings = []
+        for per_sm, threads in ((2, 128), (4, 256)):
+            blocks = sms * per_sm
+
+            def launch():
+                _cuda.check(lib.erax_tf32_rate(which, out.data_ptr(), blocks, threads, iters,
+                                               _cuda.stream_ptr(dev)), name)
+
+            ms = cs.cuda_median_ms(launch, iters=5, warmup=2)
+            if chains:  # 2 * 16 * 8 * 8 operations an mma, a warp
+                rate = blocks * threads // 32 * iters * chains * 2048 / (ms * 1e-3) / 1e12
+                readings.append(f"{rate:.1f} TFLOP/s at {per_sm} x {threads}")
+            else:
+                rate = blocks * threads * iters * 8 / (ms * 1e-3) / 1e12
+                readings.append(f"{rate:.2f} T/s at {per_sm} x {threads}")
+        cs.log(f"rate of {name}: " + ", ".join(readings))
 
 
 def serve(cs, dev) -> None:

@@ -829,7 +829,7 @@ def _fp32_counts():
                                    ta.flash_forward, ta.flash_dq, ta.flash_dkv)]
 
 
-@pytest.mark.parametrize("n", [64, 1024, 4096])
+@pytest.mark.parametrize("n", [64, 192, 1024, 4096])
 @pytest.mark.parametrize("dropout", [0.0, 0.1])
 def test_train_attention_fp32_kernels_match_plain(cuda, no_tf32, n, dropout):
     """fp32 q, k, v through `train_attention`: the fp32 kernels (counted apart
@@ -870,11 +870,33 @@ def test_train_attention_fp32_kernels_match_plain(cuda, no_tf32, n, dropout):
     assert float((lse - want_lse).norm() / want_lse.norm()) <= 1e-6
 
 
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+def test_fp32_backward_kernels_ignore_the_tf32_flags(cuda, dropout):
+    """The 3xTF32 dq and dk/dv kernels give the same bits with both of
+    torch's TF32 flags on as with them off: their precision is their own."""
+    g = torch.Generator(device=cuda).manual_seed(31)
+    q, k, v, dout = (torch.randn((2, 256, 2, 64), generator=g, device=cuda) for _ in range(4))
+    lens = torch.tensor([256, 201], dtype=torch.int32, device=cuda)
+    out, lse = ta.flash_forward_fp32(q, k, v, lens, dropout, 9)
+    dd = ta.row_dot(dout, out)
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    results = []
+    try:
+        for on in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = on
+            results.append([ta.flash_dq_fp32(q, k, v, lens, lse, dd, dout, dropout, 9),
+                            *ta.flash_dkv_fp32(q, k, v, lens, lse, dd, dout, dropout, 9)])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    assert all(torch.equal(a, b) for a, b in zip(*results))
+
+
 def test_train_attention_fp32_geometry_is_the_kernels(cuda):
     built = ta.kernel_geometry_fp32()
     fwd, bwd = ta.forward_geometry_fp32(2, 4096, 16), ta.backward_geometry_fp32(2, 4096, 16)
     assert built == {"rows": fwd["rows"], "threads": fwd["threads"],
-                     "shared_bytes": fwd["shared_bytes"],
+                     "shared_bytes": fwd["shared_bytes"], "bwd_rows": bwd["rows"],
+                     "bwd_threads": bwd["threads"], "stages": bwd["stages"],
                      "dq_shared_bytes": bwd["dq_shared_bytes"],
                      "dkv_shared_bytes": bwd["dkv_shared_bytes"]}
 

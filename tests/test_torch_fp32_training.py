@@ -7,7 +7,11 @@ fp32 hold.
 - Their launch geometry, stated in Python beside the wrappers
   (`forward_geometry_fp32`, `backward_geometry_fp32`), over every n of the
   domain: every row owned by one block, the shared memory within the card's
-  232,448 bytes a block and leaving two blocks an SM.
+  232,448 bytes a block and leaving two blocks an SM; the backward's
+  shared-memory reads free of bank conflicts.
+- The backward's 3xTF32 arithmetic, emulated in numpy (the rna split, the
+  mma's k-steps, a fresh accumulator a pass): within the card's limit of a
+  float64 reference where one TF32 pass is not.
 - The TF32 hold: an fp32 model's `Trainer.train_step` and
   `DistillTrainer.train_step` run the loss, its backward and the
   checkpointed blocks' recompute inside one `fp32_convolutions` block, so
@@ -26,6 +30,7 @@ marker `cuda`).
 """
 
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -92,9 +97,9 @@ def test_fp32_backward_checks_refuse_other_gradients():
 def test_fp32_geometry_covers_every_row_once_within_the_card(n):
     b, h = 3, 16
     fwd, bwd = tta.forward_geometry_fp32(b, n, h), tta.backward_geometry_fp32(b, n, h)
-    for geo in (fwd, bwd):
+    for geo, threads in ((fwd, 256), (bwd, 128)):
         assert geo["grid"] == (len(geo["blocks"]), h, b)
-        assert geo["threads"] == 256 and geo["rows"] == geo["tile"] == 64
+        assert geo["threads"] == threads and geo["rows"] == geo["tile"] == 64
         covered = np.zeros(n, np.int64)
         for block, (start, rows) in enumerate(geo["blocks"]):
             assert (start, rows) == (block * geo["rows"], geo["rows"])
@@ -102,6 +107,9 @@ def test_fp32_geometry_covers_every_row_once_within_the_card(n):
             covered[start:start + rows] += 1
         np.testing.assert_array_equal(covered, 1)
         assert geo["blocks_per_sm"] >= 2
+    # the backward: a warp per m16 tile of the block's rows, a ring of at least two stages
+    assert bwd["warps"] * 32 == bwd["threads"] and bwd["warps"] * 16 == bwd["rows"]
+    assert bwd["stages"] >= 2
     for shared in (fwd["shared_bytes"], bwd["dq_shared_bytes"], bwd["dkv_shared_bytes"]):
         assert 48 * 1024 < shared <= tta.SHARED_LIMIT
         assert 2 * (shared + 1024) <= tta.SM_SHARED
@@ -111,10 +119,166 @@ def test_fp32_shared_bytes_add_up():
     tile = 64 * tta.FP32_STRIDE * 4  # a [64, 64] tile padded to 68 floats a row
     bwd = tta.backward_geometry_fp32(1, 4096, 16)
     assert tta.forward_geometry_fp32(1, 4096, 16)["shared_bytes"] == 4 * tile == 69632
-    assert bwd["dq_shared_bytes"] == 5 * tile == 87040
-    assert bwd["dkv_shared_bytes"] == 6 * tile + 2 * 64 * 4 == 104960
+    assert bwd["stages"] == 2
+    # a ring of two stages of K and V, and their small parts
+    assert bwd["dq_shared_bytes"] == (2 * 2 + 2) * tile == 104448
+    # two stages of Q, dO and the query tile's 64 LSE and 64 D values; Q's and dO's small parts
+    assert bwd["dkv_shared_bytes"] == 2 * (2 * tile + 2 * 64 * 4) + 2 * tile == 105472
     assert tta.forward_geometry_fp32(1, 4096, 16)["blocks_per_sm"] == 3
     assert bwd["blocks_per_sm"] == 2
+
+
+def test_fp32_backward_tile_reads_are_conflict_free():
+    """Every shared-memory read of a streamed tile that the fp32 dq and dk/dv
+    kernels make, on rows padded to FP32_STRIDE (68) floats: the eight rows
+    an `ldmatrix` matrix reads (16 bytes each) land in eight distinct bank
+    quads, and the 32 lanes of the products' B read (rows 8 j + 2 (lane %
+    4) + {0, 1}, the k-step permuted to take the score accumulators as A as
+    they lie; column 8 nn + lane / 4) in 32 distinct banks. The plain
+    transposed read (rows lane % 4) would collide on the same rows; each
+    16-byte copy and split chunk stays 16-byte aligned."""
+    stride = tta.FP32_STRIDE
+    lanes = np.arange(32)
+    g, c = lanes // 4, lanes % 4
+    for row0 in range(0, 64, 8):
+        for col in range(0, 64, 4):  # ldmatrix: one 16-byte row of each of eight rows
+            quads = ((row0 + np.arange(8)) * stride + col) % 32 // 4
+            assert len(set(quads.tolist())) == 8
+    for j in range(8):
+        for nn in range(8):
+            for half in range(2):
+                banks = ((8 * j + 2 * c + half) * stride + 8 * nn + g) % 32
+                assert len(set(banks.tolist())) == 32
+    assert len(set(((c * stride + g) % 32).tolist())) < 32
+    assert (stride * 4) % 16 == 0 and (64 * stride * 4) % 16 == 0
+
+
+# ---- the 3xTF32 arithmetic of the dq and dk/dv kernels, emulated ------------
+
+
+def tf32_rna(x) -> np.ndarray:
+    """`cvt.rna.tf32.f32` on finite fp32: to nearest with ties away from zero,
+    10 explicit mantissa bits, the low 13 bits of the result zero."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    return ((bits + 0x1000) & 0xFFFFE000).astype(np.uint32).view(np.float32)
+
+
+def toward_zero(x) -> np.ndarray:
+    """float64 to fp32, rounded toward zero."""
+    x32 = x.astype(np.float32)
+    over = np.abs(x32.astype(np.float64)) > np.abs(x)
+    x32[over] = np.nextafter(x32[over], np.float32(0))
+    return x32
+
+
+def mma_product(a, b, passes: int, chain: int | None = None, rz: bool = True) -> np.ndarray:
+    """``a [M, K] @ b [K, N]`` as the kernels' `mma.sync.m16n8k8` take it:
+    k-steps of 8 in order, each adding its exact products (11 x 11 mantissa
+    bits fit fp32's 24) to an fp32 accumulator, the sum rounded toward zero
+    (``rz``; a model of the tensor core's sum, which is not IEEE round to
+    nearest) or to nearest. ``passes`` 3 is 3xTF32 (big = rna(x), small =
+    rna(x - big); big * small, small * big, then big * big), 1 a single TF32
+    pass on rna(x). With ``chain``, a fresh accumulator every ``chain``
+    k-steps, added to the running fp32 sum to nearest (the kernels' scores
+    passes); without, one accumulator throughout."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    a_big, b_big = tf32_rna(a), tf32_rna(b)
+    terms = [(a_big, b_big)]
+    if passes == 3:
+        terms = [(a_big, tf32_rna(b - b_big)), (tf32_rna(a - a_big), b_big), (a_big, b_big)]
+    total = acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for step, k0 in enumerate(range(0, a.shape[1], 8)):
+        for x, y in terms:
+            exact = acc.astype(np.float64) + (x[:, k0:k0 + 8].astype(np.float64)
+                                              @ y[k0:k0 + 8].astype(np.float64))
+            acc = toward_zero(exact) if rz else exact.astype(np.float32)
+        if chain is not None and (step + 1) % chain == 0:
+            total, acc = total + acc, np.zeros_like(acc)
+    return total + acc
+
+
+def test_tf32_rounding_is_to_nearest_ties_away_from_zero():
+    ulp = 2.0 ** -10  # of a TF32 mantissa at 1
+    x = np.array([1 + ulp / 2, -(1 + ulp / 2), 1 + ulp / 2 - 2.0 ** -23, 1 + 3 * ulp / 2,
+                  3.0, -0.0], np.float32)
+    want = np.array([1 + ulp, -(1 + ulp), 1.0, 1 + 2 * ulp, 3.0, -0.0], np.float32)
+    np.testing.assert_array_equal(tf32_rna(x), want)  # ties go up in magnitude, not to even
+    r = np.random.default_rng(5).standard_normal(4096).astype(np.float32) * 10.0
+    big = tf32_rna(r)
+    assert not (big.view(np.uint32) & 0x1FFF).any()
+    assert np.all(np.abs(r - big) <= np.abs(r) * 2.0 ** -11)
+    small = tf32_rna(r - big)
+    assert np.all(np.abs(r - (big.astype(np.float64) + small)) <= np.abs(r) * 2.0 ** -21)
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+def test_3xtf32_backward_holds_the_fp32_limit_where_one_tf32_pass_fails(dropout):
+    """dq, dk and dv of b = 1, h = 2, n = 128 (the second head's keys masked
+    past 107) with the kernels' arithmetic: the scores (one accumulator over
+    d) and the three gradient products (a fresh accumulator every scores
+    pass of 32 columns, four k-steps) through :func:`mma_product`, the
+    elementwise work in fp32 in the kernels' order. In 3xTF32 they lie
+    within chip_smoke's FP32_GRAD_TOL (the limit the card holds the kernels
+    to) of a float64 reference; in one TF32 pass beyond it, as the smoke's
+    TF32 control is."""
+    import chip_smoke
+
+    n, d, seed = 128, 64, 0x5EED
+    scale, keep = 1.0 / math.sqrt(d), 1.0 - dropout
+    rng = np.random.default_rng(11)
+    worst = {3: 0.0, 1: 0.0}
+    for hi, length in ((0, n), (1, n - 21)):
+        q, k, v, dout = (rng.standard_normal((n, d)).astype(np.float32) for _ in range(4))
+        valid = np.arange(n) < length
+        keep_mask = (tta.dropout_keep_mask(seed, 0, hi, 0, 0, n, n, n, keep).numpy()
+                     if dropout else np.ones((n, n), bool))
+        f64 = [x.astype(np.float64) for x in (q, k, v, dout)]
+        logits = np.where(valid, f64[0] @ f64[1].T * scale, -1e30)
+        lse = np.log(np.exp(logits - logits.max(1, keepdims=True)).sum(1)) + logits.max(1)
+        p = np.exp(logits - lse[:, None])
+        pd = np.where(keep_mask, p / keep, 0.0)
+        dd = (f64[3] * (pd @ f64[2])).sum(1)
+        ds = np.where(valid, p * (np.where(keep_mask, f64[3] @ f64[2].T / keep, 0.0)
+                                  - dd[:, None]), 0.0)
+        want = (ds @ f64[1] * scale, ds.T @ f64[0] * scale, pd.T @ f64[3])
+        lse32, dd32 = lse.astype(np.float32), dd.astype(np.float32)
+        factor = np.where(keep_mask, np.float32(1.0 / keep), np.float32(0.0))
+        for passes in (3, 1):
+            s = mma_product(q, k.T, passes)
+            p32 = np.exp(np.where(valid, s * np.float32(scale), np.float32(-1e30))
+                         - lse32[:, None])
+            dp = mma_product(dout, v.T, passes)
+            ds32 = np.where(valid, p32 * (dp * factor - dd32[:, None]), np.float32(0.0))
+            got = (mma_product(ds32, k, passes, 4) * np.float32(scale),
+                   mma_product(ds32.T, q, passes, 4) * np.float32(scale),
+                   mma_product((p32 * factor).T, dout, passes, 4))
+            for g, w in zip(got, want):
+                assert g.dtype == np.float32
+                worst[passes] = max(worst[passes], float(np.abs(g - w).max() / np.abs(w).max()))
+    assert worst[3] <= chip_smoke.FP32_GRAD_TOL, worst
+    assert worst[1] > chip_smoke.FP32_GRAD_TOL, worst
+
+
+def test_pass_partials_bound_the_drift_of_an_accumulator_rounded_toward_zero():
+    """Why the kernels add each pass's products to the output in fp32 on the
+    CUDA cores: a row of dq sums 4096 keys (512 k-steps, 1,536 mma). With the
+    sums rounded toward zero (:func:`mma_product`'s model), one accumulator
+    over the row drifts: on an H100, dq reached 5.0e-5 of its scale at n =
+    4096 that way, past FP32_GRAD_TOL. Fresh accumulators every four k-steps
+    keep the error at fp32's level, as rounding to nearest throughout does."""
+    rng = np.random.default_rng(0)
+    a = (rng.standard_normal((16, 4096)) * np.exp(rng.standard_normal((16, 4096)))
+         * 1e-3).astype(np.float32)
+    b = rng.standard_normal((4096, 64)).astype(np.float32)
+    want = a.astype(np.float64) @ b.astype(np.float64)
+
+    def err(got):
+        return float(np.abs(got - want).max() / np.abs(want).max())
+
+    passes, chain = err(mma_product(a, b, 3, 4)), err(mma_product(a, b, 3))
+    nearest = err(mma_product(a, b, 3, rz=False))
+    assert passes <= 2e-6 and nearest <= 2e-6
+    assert chain > 10 * passes, (chain, passes)
 
 
 # ---- the TF32 hold ----------------------------------------------------------
