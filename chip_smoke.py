@@ -89,9 +89,11 @@ Phases (any failure raises and the script exits non-zero):
               kernel against its plain version (TF32 off) with and without
               rotary at n = 1088 (lens 1051, 0) and n = 6144 (lens 6144,
               2048 + 1051), within 2e-5 * (1 + |plain|), a second call
-              bit-identical, the plain version held to the CPU's at 1088 and
-              a TF32 control refused, timed beside fp32
-              `scaled_dot_product_attention` and its fp32 bound; the main
+              and a call with both TF32 flags on bit-identical, the plain
+              version held to the CPU's at 1088 and a TF32 control refused,
+              timed beside fp32 `scaled_dot_product_attention`, with its
+              bound at the 3xTF32 rate and the FFMA rate's beside; the built
+              geometry of both fp32 forwards against the stated one; the main
               phase's weights through a reference-format checkpoint served
               by `F5TTSWrapper("F5TTS_v1_Base")` with no `compute_dtype`
               (fp32, full width and depth): one backbone call against the
@@ -125,7 +127,7 @@ Phases (any failure raises and the script exits non-zero):
               kernels, the hash dropout and the other groups);
 7b. train-fp32 -- CFM training in fp32, the JAX DiT's default compute dtype:
               kernels 4a / 4b / 4c fp32 (`csrc/train_attention_fp32.cu`:
-              4a on FFMA, 4b / 4c on the tensor cores in 3xTF32) against the
+              all three on the tensor cores in 3xTF32) against the
               plain version with TF32 off at b = 2, h = 16, n = 64 (a sample
               with no valid key), 1024 and 4096, dropout 0.1 and 0 (O within
               2e-5 * (1 + |plain|), the gradients within 5e-5 of their
@@ -133,7 +135,7 @@ Phases (any failure raises and the script exits non-zero):
               with both TF32 flags on at n = 4096), a TF32 control refused
               and the plain version held to the CPU's, timed beside fp32
               `scaled_dot_product_attention` and its backward, with bounds
-              at the FFMA and the 3xTF32 rates;
+              at the 3xTF32 rate and the FFMA rate's beside;
               F5TTS_v1_Base at full width and depth with fp32 parameters and
               fp32 compute (dropout 0.1, blocks checkpointed): one
               `Trainer.train_step` at b = 2, n = 256 against the CPU's (loss
@@ -2507,6 +2509,28 @@ def tf32(on: bool):
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
+def check_fp32_forward_geometry() -> None:
+    """The constants the built fp32 forwards report (kernel 1's fp32 mode and
+    kernel 4a's, one core) against `forward_geometry_fp32`'s, and the
+    backward's against `backward_geometry_fp32`'s: one line, or an error."""
+    from eraxvif5tts_tpu_torch.ops import serving_attention as sa
+    from eraxvif5tts_tpu_torch.ops import train_attention as ta
+
+    fwd, bwd = ta.forward_geometry_fp32(2, 4096, 16), ta.backward_geometry_fp32(2, 4096, 16)
+    stated = {key: fwd[key] for key in ta.FP32_FORWARD_BUILT}
+    train_built, serve_built = ta.kernel_geometry_fp32(), sa.kernel_geometry_fp32()
+    want_train = dict(stated, bwd_rows=bwd["rows"], bwd_threads=bwd["threads"],
+                      bwd_stages=bwd["stages"], dq_shared_bytes=bwd["dq_shared_bytes"],
+                      dkv_shared_bytes=bwd["dkv_shared_bytes"])
+    if serve_built != stated or train_built != want_train:
+        raise AssertionError(f"[fp32] built fp32 geometry kernel 1 {serve_built}, kernel 4 "
+                             f"{train_built}; stated {stated}, {want_train}")
+    log(f"[fp32] built geometry of the fp32 forward core (kernel 1 fp32 and 4a fp32 alike) "
+        f"equals the stated one: {stated}, {fwd['blocks_per_sm']} blocks an SM; the "
+        f"backward's {want_train['bwd_threads']} threads, {want_train['bwd_stages']} stages, "
+        f"{want_train['dq_shared_bytes']} / {want_train['dkv_shared_bytes']} bytes")
+
+
 def check_serving_attention_fp32(dev) -> dict:
     """Kernel 1 on fp32 q, k, v (`csrc/serving_attention_fp32.cu`) against its
     plain version with TF32 off, with and without rotary, at n = 1088 (lens
@@ -2514,16 +2538,21 @@ def check_serving_attention_fp32(dev) -> dict:
     2048 + 1051, the MMDiT's longest joint sequence): within FP32_TOL, a
     second call bit-identical. At n = 1088 the plain version on the card is
     held to the same version on the CPU, and at both shapes a control runs
-    the plain version with TF32 on, which the check must refuse. Times of
-    the kernel, the plain version and, without rotary, fp32
+    the plain version with TF32 on, which the check must refuse, and the
+    kernel runs again with both TF32 flags on and must give the same bits.
+    Times of the kernel, the plain version and, without rotary, fp32
     `scaled_dot_product_attention` on the same q, k, v and key mask; the
-    bound against the card's fp32 rate. Returns the JSON rows (n = 1088)."""
+    bound at the 3xTF32 rate (the kernel's products), the FFMA rate's
+    beside. First, the built geometry of both fp32 forwards against the
+    stated one (:func:`check_fp32_forward_geometry`). Returns the JSON rows
+    (n = 1088)."""
     import torch
     import torch.nn.functional as F
 
     from eraxvif5tts_tpu_torch.ops import serving_attention as sa
     from eraxvif5tts_tpu_torch.ops.rotary import rotary_freqs
 
+    check_fp32_forward_geometry()
     gen = torch.Generator(device=dev).manual_seed(SEED + 120)
     rows = {}
     for n, lens_list in FP32_CASES:
@@ -2544,8 +2573,12 @@ def check_serving_attention_fp32(dev) -> dict:
             err = compare(case, got, want, FP32_TOL)
             if not torch.equal(got, sa.serving_attention(q, k, v, lens, rope)):
                 raise AssertionError(f"{case}: a second call on the same inputs differs")
-            with tf32(True):
+            with tf32(True):  # the kernel's precision is its own
+                flagged = sa.serving_attention(q, k, v, lens, rope)
                 control = sa.serving_attention_reference(q, k, v, lens, rope)
+            if not torch.equal(got, flagged):
+                raise AssertionError(f"{case}: the kernel's result moves with the TF32 flags")
+            del flagged
             control_err = float(((control - want).abs() / (1 + want.abs())).max())
             del control
             if control_err <= FP32_TOL:
@@ -2563,12 +2596,14 @@ def check_serving_attention_fp32(dev) -> dict:
             if not with_rope:
                 library_ms = cuda_median_ms(
                     lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=key_mask))
-            least = bound(*attention_work(2, n, 16, 64, list(lens_list), with_rope, 4), "fp32")
+            work = attention_work(2, n, 16, 64, list(lens_list), with_rope, 4)
+            least, ffma = bound(*work, "tf32x3"), bound(*work, "fp32")
             log(f"[fp32] {case} b=2 h=16 d=64: max_abs_err {err:.3g} (tol {FP32_TOL} * "
-                f"(1 + |plain|)), second call bit-identical; TF32 control "
-                f"{control_err:.3g} (refused){cpu_note}; kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, bound {least['bound_ms']:.5f} ms by {least['bound_by']} "
-                f"({100 * least['bound_ms'] / ms:.1f} % of it)"
+                f"(1 + |plain|)), second call and with both TF32 flags on bit-identical; "
+                f"TF32 control {control_err:.3g} (refused){cpu_note}; kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms, bound at the 3xTF32 rate {least['bound_ms']:.5f} ms "
+                f"by {least['bound_by']} ({100 * least['bound_ms'] / ms:.1f} % of it), at the "
+                f"FFMA rate {ffma['bound_ms']:.5f} ms ({100 * ffma['bound_ms'] / ms:.1f} %)"
                 + (f", library (fp32 scaled_dot_product_attention, boolean key mask) "
                    f"{library_ms:.4f} ms: the kernel takes {ms / library_ms:.2f}x its time"
                    if library_ms is not None else ", no library call applies the rotation"))
@@ -2694,7 +2729,7 @@ FP32_GRAD_TOL = 5e-5  # kernel 4b / 4c fp32 vs plain: max |err| in units of max 
 # (3xTF32 products summed over up to 4096 keys or queries in another order): <= 6.2e-6 on
 # an H100 (<= 1.02e-6 with FFMA kernels) vs the TF32 control's >= 6.5e-4
 FP32_ATTN_TOLS = {"fwd": FP32_TOL, "dq": FP32_GRAD_TOL, "dk": FP32_GRAD_TOL,
-                  "dv": FP32_GRAD_TOL}  # O: <= 5.97e-7 vs >= 1.59e-4
+                  "dv": FP32_GRAD_TOL}  # O: <= 1.03e-6 in 3xTF32 (5.97e-7 FFMA) vs >= 1.59e-4
 # (b, n, lens) at h = 16: one tile with an empty sample, the loss check's n, the bucket's
 FP32_TRAIN_CASES = ((2, 64, (64, 0)), (2, 1024, (1024, 987)), (2, 4096, (4096, 4059)))
 FP32_STEP_N = 256  # the card-versus-CPU step, b = 2
@@ -2727,8 +2762,8 @@ def check_train_attention_fp32(dev) -> dict:
     Times at n = 1024 and 4096 at dropout 0.1 and keep = 1, beside the
     plain version and, at keep = 1 without a mask, fp32
     `scaled_dot_product_attention` (TF32 off) and its backward; bounds at
-    the FFMA rate for the forward and the 3xTF32 rate for dq and dk/dv (the
-    FFMA rate's beside). Returns the JSON rows (n = 4096, the last case)."""
+    the 3xTF32 rate (the FFMA rate's beside). Returns the JSON rows (n =
+    4096, the last case)."""
     import torch
     import torch.nn.functional as F
 
@@ -2842,11 +2877,10 @@ def check_train_attention_fp32(dev) -> dict:
         work_of = {"fwd": (4 * elems * 4 + rows * 4 + 4 * b, 2 * work),
                    "dq": (5 * elems * 4 + 2 * rows * 4 + 4 * b, 3 * work),
                    "dkv": (6 * elems * 4 + 2 * rows * 4 + 4 * b, 4 * work)}
-        # the forward runs on FFMA, dq and dk/dv on the tensor cores in 3xTF32;
-        # the FFMA bound of each is logged beside
-        least = {name: bound(*work_of[name], "fp32" if name == "fwd" else "tf32x3")
-                 for name in work_of}
-        ffma = {name: bound(*work_of[name], "fp32") for name in ("dq", "dkv")}
+        # all three run on the tensor cores in 3xTF32; the FFMA bound of each
+        # is logged beside
+        least = {name: bound(*work_of[name], "tf32x3") for name in work_of}
+        ffma = {name: bound(*work_of[name], "fp32") for name in work_of}
         times[n] = {name: dict(ms=ms[0.1][name], plain_ms=plain_fwd if name == "fwd"
                                else plain_bwd, library_ms=lib_fwd if name == "fwd" else lib_bwd,
                                **least[name]) for name in least}
@@ -2855,9 +2889,9 @@ def check_train_attention_fp32(dev) -> dict:
             f"{ms[0.1]['fwd']:.4f} ms, dq {ms[0.1]['dq']:.4f} ms, dk/dv {ms[0.1]['dkv']:.4f} ms "
             f"(plain forward {plain_fwd:.4f} ms, plain backward, all three gradients, "
             f"{plain_bwd:.4f} ms); at keep = 1 forward {keep1['fwd']:.4f} ms, dq "
-            f"{keep1['dq']:.4f} ms, dk/dv {keep1['dkv']:.4f} ms; bounds: forward at the "
-            f"fp32 FFMA rate {least['fwd']['bound_ms']:.5f} ms, dq and dk/dv at the 3xTF32 "
-            f"rate {least['dq']['bound_ms']:.5f} / {least['dkv']['bound_ms']:.5f} ms (FFMA "
+            f"{keep1['dq']:.4f} ms, dk/dv {keep1['dkv']:.4f} ms; bounds at the 3xTF32 rate: "
+            f"forward {least['fwd']['bound_ms']:.5f} ms, dq {least['dq']['bound_ms']:.5f} ms, "
+            f"dk/dv {least['dkv']['bound_ms']:.5f} ms (FFMA {ffma['fwd']['bound_ms']:.5f} / "
             f"{ffma['dq']['bound_ms']:.5f} / {ffma['dkv']['bound_ms']:.5f} ms), all by "
             + "/".join(x["bound_by"] for x in least.values())
             + " (share of the bound at dropout 0.1 / keep = 1: "
@@ -2865,7 +2899,7 @@ def check_train_attention_fp32(dev) -> dict:
                         f"{least[name]['bound_ms'] / keep1[name]:.1%}" for name in least)
             + "; of the FFMA bound: "
             + ", ".join(f"{name} {ffma[name]['bound_ms'] / ms[0.1][name]:.1%} / "
-                        f"{ffma[name]['bound_ms'] / keep1[name]:.1%}" for name in ("dq", "dkv"))
+                        f"{ffma[name]['bound_ms'] / keep1[name]:.1%}" for name in ffma)
             + f"); library fp32 scaled_dot_product_attention (TF32 off) at keep = 1, no mask: "
             f"forward {lib_fwd:.4f} ms, backward {lib_bwd:.4f} ms; against it at keep = 1 the "
             f"forward takes {keep1['fwd'] / lib_fwd:.2f}x and dq + dk/dv "

@@ -1,0 +1,280 @@
+// The fp32 attention forward core, on the tensor cores in 3xTF32
+// (`fp32_tile.cuh`), shared by kernel 1's fp32 mode
+// (`serving_attention_fp32.cu`: fused interleaved rotary, keys masked to
+// -1e30, no LSE) and kernel 4a's (`train_attention_fp32.cu`: position-hash
+// dropout, the LSE), as the bf16 kernels 1 and 4a share `flash_forward.cuh`.
+//
+// For q, k, v [b, n, h, 64] fp32 and lens [b] int32:
+//   q', k' = rotate(q), rotate(k)    (kRope; fp32, the plain version's rounding)
+//   S      = q' k'^T * scale         keys >= lens[b] set to the masked logit
+//   P      = exp(S - m), l = rowsum P (the undropped weights form the normaliser)
+//   Pd     = kDrop ? P * keep(i, j) / keep_prob : P   (`dropout_hash.cuh`)
+//   O      = Pd v / l,  LSE = m + log l   (kTrain)
+// The masked logit is -1e30 (finite, the running maximum starting at -inf);
+// a sample with lens <= 0 averages every key. Training sets its logits to 0
+// instead, so that its LSE is log n and the backward recomputes P = 1 / n;
+// softmax is shift-invariant, so O is the same either way. Key tiles wholly
+// past lens > 0 would add exactly zero and are skipped.
+//
+// What bounds it on an H100: 4 b h n^2 d operations over 4 b n h d * 4 bytes
+// is n / 4 operations a byte, so the products bound it at every n of the
+// domain: at 495 / 3 TFLOP/s of fp32-accurate products in 3xTF32, beside the
+// per-element `expf`, keep-bit hash and split work on the CUDA cores.
+//
+// The design is the dq kernel's (`train_attention_fp32.cu`), whose S = Q K^T
+// has the same shape and whose dQ += dS K reads its B operand as O += Pd V
+// does:
+// - a block owns 64 query rows of one (sample, head), four warps of 16, two
+//   blocks an SM; a warp keeps its Q rows in registers in A-fragment order,
+//   rotated as they are loaded (kRope) and split once for the whole walk;
+// - K and V come through the two-stage `cp.async` ring; once a tile lands,
+//   each thread rotates its own chunks of K in place (kRope: cos / sin of
+//   the tile's absolute positions, read by `__ldg`) and splits them and its
+//   chunks of V, the big parts in place and the small parts beside; two
+//   barriers a tile; (2 stages x 2 tiles + 2 small tiles) x 17,408 =
+//   104,448 bytes of shared memory;
+// - a tile in two passes of 32 keys (kPass n-tiles): S for the pass by
+//   `ldmatrix.x4` from the split K tile; the online softmax in the mma's C
+//   layout (the row maximum across the quad of lanes that share a row, by
+//   shuffles; a lane's partial row sums added up once at the end); Pd used
+//   in place as the A fragment of O += Pd V through the permuted k-step.
+//   (One pass of 64 keys holds more registers, and ran slower on an H100,
+//   the most at keep = 1);
+// - each pass's Pd V goes into a fresh accumulator that the CUDA cores fold
+//   into O as O = alpha O + part, in IEEE fp32 (the rescale needs them
+//   anyway), so that the mma's non-nearest sums run over 32 keys, not over
+//   up to 6144;
+// - exponentials are `expf`, the final division and log IEEE fp32 (the
+//   build has no --use_fast_math). No atomics: the same inputs give the same
+//   bits every time.
+#pragma once
+
+#include <stdint.h>
+
+#include "dropout_hash.cuh"
+#include "fp32_tile.cuh"
+
+namespace fp32tile {
+
+constexpr int kFwdStage = 2 * kTileFloats;  // a K and a V tile (big parts once split)
+constexpr int kFwdSmem = (kStages * kFwdStage + 2 * kTileFloats) * 4;  // 104,448 bytes
+constexpr int kPass = 4;  // n-tiles of keys a softmax pass takes: half a tile
+
+// The forward's launch geometry, as `ops/train_attention.py`
+// `forward_geometry_fp32` states it: rows a block, threads, ring stages,
+// dynamic shared bytes.
+inline void forward_geometry(int* out) {
+  out[0] = kRows;
+  out[1] = kThreads;
+  out[2] = kStages;
+  out[3] = kFwdSmem;
+}
+
+// Four consecutive columns (two interleaved pairs) of a row at table offset
+// `at`, rotated as the plain version rounds it: fl(fl(x0 c0) + fl(-x1 s0)),
+// fl(fl(x1 c1) + fl(x0 s1)) (no contraction into FMAs).
+__device__ __forceinline__ float4 rotate4(const float4 x, const float* __restrict__ cos_t,
+                                          const float* __restrict__ sin_t, int64_t at) {
+  const float4 c = __ldg(reinterpret_cast<const float4*>(cos_t + at));
+  const float4 s = __ldg(reinterpret_cast<const float4*>(sin_t + at));
+  float4 r;
+  r.x = __fadd_rn(__fmul_rn(x.x, c.x), __fmul_rn(-x.y, s.x));
+  r.y = __fadd_rn(__fmul_rn(x.y, c.y), __fmul_rn(x.x, s.y));
+  r.z = __fadd_rn(__fmul_rn(x.z, c.z), __fmul_rn(-x.w, s.z));
+  r.w = __fadd_rn(__fmul_rn(x.w, c.w), __fmul_rn(x.z, s.w));
+  return r;
+}
+
+// Column `col` of position `pos` rotated with the same rounding: its pair
+// (columns col & ~1 and col | 1) comes in one 8-byte read.
+__device__ __forceinline__ float rotated(const float* __restrict__ x, int64_t pos,
+                                         int64_t stride, const float* __restrict__ cos_t,
+                                         const float* __restrict__ sin_t, int col) {
+  const float2 p = __ldg(reinterpret_cast<const float2*>(x + pos * stride + (col & ~1)));
+  const float c = __ldg(cos_t + pos * kD + col), s = __ldg(sin_t + pos * kD + col);
+  return col & 1 ? __fadd_rn(__fmul_rn(p.y, c), __fmul_rn(p.x, s))
+                 : __fadd_rn(__fmul_rn(p.x, c), __fmul_rn(-p.y, s));
+}
+
+// The warp's Q rows `row` and `row + 8` (`q` at position 0 of the head) in
+// A-fragment order (`load_a`), rotated when roped, split once.
+template <bool kRope>
+__device__ __forceinline__ void load_q(FragA (&qf)[8], const float* __restrict__ q,
+                                       int64_t stride, int row, int c,
+                                       const float* __restrict__ cos_t,
+                                       const float* __restrict__ sin_t) {
+  float a[8][4];
+  if constexpr (kRope) {
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        a[kk][i] = rotated(q, row + 8 * (i & 1), stride, cos_t, sin_t, 8 * kk + c + 4 * (i >> 1));
+  } else {
+    load_a(a, q, stride, row, c);
+  }
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) qf[kk] = split_a(a[kk][0], a[kk][1], a[kk][2], a[kk][3]);
+}
+
+// This thread's chunks of a landed K tile whose first key is `pos0`: rotated
+// in place from the raw fp32 values `cp.async` wrote, then split as
+// `split_tile` splits them (the same thread, the same chunks: no barrier
+// between).
+__device__ __forceinline__ void rotate_split_tile(float* tile, float* small,
+                                                  const float* __restrict__ cos_t,
+                                                  const float* __restrict__ sin_t, int pos0) {
+#pragma unroll
+  for (int m = 0; m < kChunks; ++m) {
+    const int at = chunk_row(m) * kStride + chunk_col(m);
+    const int64_t table = static_cast<int64_t>(pos0 + chunk_row(m)) * kD + chunk_col(m);
+    split_store(tile, small, at, rotate4(ld_shared4(tile + at), cos_t, sin_t, table));
+  }
+}
+
+// S = Q K^T for the warp's 16 rows and the pass's keys (n-tiles j0 .. j0 +
+// kPass - 1 of the split K tile: big parts `kb`, small `ks`), one
+// accumulator each over the 64 columns of d. One ldmatrix brings the B
+// fragments of two n-tiles (b0 = (8 j + lane / 4, 8 kk + lane % 4), b1 four
+// columns on); a padded row of 68 floats puts the eight rows of a matrix in
+// eight distinct bank quads.
+__device__ __forceinline__ void pass_scores(float (&s)[kPass][4], const FragA (&qf)[8],
+                                            const float* kb, const float* ks, int j0, int lane) {
+  const int lm = (8 * j0 + 8 * (lane >> 4) + (lane & 7)) * kStride + 4 * ((lane >> 3) & 1);
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+#pragma unroll
+    for (int jp = 0; jp < kPass / 2; ++jp) {
+      const int at = lm + 16 * jp * kStride + 8 * kk;
+      uint32_t x[4], xl[4];
+      ldmatrix_x4(x, kb + at);
+      ldmatrix_x4(xl, ks + at);
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        mma3(s[2 * jp + e], qf[kk], x[2 * e], x[2 * e + 1], xl[2 * e], xl[2 * e + 1]);
+    }
+  }
+}
+
+// The block's forward over the grid (n / 64, h, b), 128 threads and kFwdSmem
+// bytes of dynamic shared memory. kTrain: training's lens-0 logits and the
+// LSE; kDrop: the keep bits; kRope: rotate q and k by cos_t / sin_t [n, 64].
+template <bool kTrain, bool kDrop, bool kRope>
+__device__ __forceinline__ void forward_core(const float* __restrict__ q,
+                                             const float* __restrict__ k,
+                                             const float* __restrict__ v,
+                                             const int* __restrict__ lens,
+                                             const float* __restrict__ cos_t,
+                                             const float* __restrict__ sin_t,
+                                             float* __restrict__ out, float* __restrict__ lse,
+                                             int n, int h, float scale, const Dropout& drop) {
+  extern __shared__ float4 smem4[];
+  float* const ring = reinterpret_cast<float*>(smem4);
+  float* const small = ring + kStages * kFwdStage;  // K's and V's small parts
+  const int lane = threadIdx.x & 31, c = lane & 3;
+  const Head hd = block_head(lens, n, h, drop);
+  const float masked = kTrain ? hd.masked : kNeg;
+  const int n_tiles = key_tiles(hd.len, n);
+  const int row = hd.row0 + 16 * (threadIdx.x >> 5) + (lane >> 2);  // and row + 8
+
+  auto issue = [&](int t) {  // K and V of key tile t into its stage
+    float* stage = ring + (t % kStages) * kFwdStage;
+    const int64_t at = hd.base + static_cast<int64_t>(t) * kRows * hd.stride;
+    copy_tile(stage, k + at, hd.stride);
+    copy_tile(stage + kTileFloats, v + at, hd.stride);
+    cp_async_commit();
+  };
+  issue(0);  // n >= 64: at least one tile
+
+  FragA qf[8];
+  load_q<kRope>(qf, q + hd.base, hd.stride, row, c, cos_t, sin_t);
+
+  float o[8][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  zero(o);
+  for (int t = 0; t < n_tiles; ++t) {
+    float* const ks = ring + (t % kStages) * kFwdStage;
+    float* const vs = ks + kTileFloats;
+    cp_async_wait_all();  // this thread's copies of tile t have landed
+    __syncthreads();      // tile t - 1 is done with: its stage and the small parts are free
+    if (t + 1 < n_tiles) issue(t + 1);  // under this tile's split and products
+    if constexpr (kRope) {
+      rotate_split_tile(ks, small, cos_t, sin_t, t * kRows);
+    } else {
+      split_tile(ks, small);
+    }
+    split_tile(vs, small + kTileFloats);
+    __syncthreads();  // tile t split
+
+#pragma unroll 1
+    for (int j0 = 0; j0 < kRows / 8; j0 += kPass) {  // keys 8 j0 .. 8 (j0 + kPass) - 1
+      float s[kPass][4];
+      zero(s);
+      pass_scores(s, qf, ks, small, j0, lane);
+
+      // the online softmax over the pass's keys: element e of n-tile j is
+      // row row + 8 (e >> 1), key t * 64 + 8 (j0 + j) + 2 c + (e & 1)
+      const int key0 = t * kRows + 8 * j0 + 2 * c;
+      float pass_max[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < kPass; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = key0 + 8 * j + (e & 1) < hd.len ? s[j][e] * scale : masked;
+          s[j][e] = x;
+          pass_max[e >> 1] = fmaxf(pass_max[e >> 1], x);
+        }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float x = fmaxf(pass_max[r], __shfl_xor_sync(0xffffffffu, pass_max[r], 1));
+        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+        const float m_new = fmaxf(m[r], x);
+        alpha[r] = expf(m[r] - m_new);  // 0 on the first pass (m = -inf)
+        m[r] = m_new;
+        l[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int j = 0; j < kPass; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const float p = expf(s[j][e] - m[r]);
+          l[r] += p;  // the normaliser takes the undropped weight
+          s[j][e] = kDrop ? p * keep_factor(row + 8 * r, key0 + 8 * j + (e & 1), n, hd.folded,
+                                            drop)
+                          : p;
+        }
+
+      // O = alpha O + Pd V, the pass's products in a fresh accumulator
+      float part[8][4];
+      zero(part);
+#pragma unroll
+      for (int j = 0; j < kPass; ++j) product(part, s[j], vs, small + kTileFloats, j0 + j, lane);
+#pragma unroll
+      for (int nn = 0; nn < 8; ++nn)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) o[nn][i] = fmaf(alpha[i >> 1], o[nn][i], part[nn][i]);
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  float* const dst = out + hd.base;
+#pragma unroll
+  for (int nn = 0; nn < 8; ++nn) {
+    *reinterpret_cast<float2*>(dst + row * hd.stride + 8 * nn + 2 * c) =
+        make_float2(o[nn][0] / l[0], o[nn][1] / l[0]);
+    *reinterpret_cast<float2*>(dst + (row + 8) * hd.stride + 8 * nn + 2 * c) =
+        make_float2(o[nn][2] / l[1], o[nn][3] / l[1]);
+  }
+  if constexpr (kTrain) {
+    if (c != 0) return;
+    lse[hd.stat + row] = m[0] + logf(l[0]);
+    lse[hd.stat + row + 8] = m[1] + logf(l[1]);
+  }
+}
+
+}  // namespace fp32tile

@@ -165,7 +165,8 @@ def kernels() -> Kernels:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         for name in ("erax_train_attention_bwd_geometry", "erax_flash_forward_geometry",
-                     "erax_train_attention_fp32_geometry"):
+                     "erax_train_attention_fp32_geometry",
+                     "erax_serving_attention_fp32_geometry"):
             fn = getattr(lib, name)
             fn.argtypes = (ctypes.POINTER(ctypes.c_int),)
             fn.restype = None

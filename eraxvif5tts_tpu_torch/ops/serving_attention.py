@@ -28,9 +28,14 @@ tensor raises; there is no fallback.
   normalised P: the two agree to bf16 rounding of the output (the card-side
   check in `chip_smoke.py` states its tolerance).
 - fp32 (the JAX package's default serving dtype):
-  `csrc/serving_attention_fp32.cu`, every product an FFMA in true fp32 (no
-  TF32), 64 query rows a block over key tiles of 64 in shared memory, an
-  online softmax with ``expf``; it agrees with the plain version to the
+  `csrc/serving_attention_fp32.cu`, the fp32 forward core of
+  `csrc/fp32_forward.cuh`, which kernel 4a's fp32 mode shares
+  (:func:`forward_geometry_fp32` states its launch): every product on the
+  tensor cores, ``mma.sync`` TF32 in 3xTF32 (each operand split into two
+  TF32 parts, three products each, a fresh accumulator a key tile), 64
+  query rows a block over key tiles of 64 that a ``cp.async`` ring brings,
+  an online softmax with ``expf``. It keeps fp32's accuracy whatever
+  torch's TF32 flags say, and agrees with the plain version to the
   reordering of fp32 sums.
 
 Both read fp32 cos / sin tables, which :func:`rope_tables` makes once per
@@ -49,6 +54,7 @@ from collections import OrderedDict
 import torch
 
 from eraxvif5tts_tpu_torch.infer.utils import DURATION_BUCKETS, TEXT_BUCKETS
+from eraxvif5tts_tpu_torch.ops import train_attention
 from eraxvif5tts_tpu_torch.ops.rotary import rotate_half
 
 _NEG = -1e30
@@ -81,6 +87,24 @@ def serving_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
     return out.to(q.dtype)
+
+
+def forward_geometry_fp32(b: int, n: int, h: int) -> dict:
+    """How the fp32 kernel covers ``[b, n, h, 64]``: the fp32 forward core's
+    launch (`ops/train_attention.py` ``forward_geometry_fp32``), over this
+    kernel's domain, ``64 <= n <= MAX_N``, ``n % 64 == 0``; other n raise."""
+    if n % TILE or not 0 < n <= MAX_N:
+        raise ValueError(f"serving_attention: n must be a multiple of {TILE} in "
+                         f"[{TILE}, {MAX_N}], got {n}")
+    return train_attention.forward_geometry_fp32(b, n, h)
+
+
+def kernel_geometry_fp32() -> dict:
+    """The constants the built fp32 kernel reports (needs the card's build):
+    they must equal :func:`forward_geometry_fp32`'s ``rows``, ``threads``,
+    ``stages`` and ``shared_bytes``."""
+    return train_attention._kernel_geometry("erax_serving_attention_fp32_geometry",
+                                            train_attention.FP32_FORWARD_BUILT)
 
 
 def _check_cuda_args(q, k, v, lens, rope) -> None:

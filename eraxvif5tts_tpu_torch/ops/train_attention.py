@@ -27,9 +27,12 @@ Mixed dtypes, fp16 and anything else on a CUDA tensor raise; there is no
 fallback. bf16 runs `csrc/train_attention.cu` (wgmma, tiles read by TMA;
 :func:`forward_geometry` and :func:`backward_geometry` state their grid,
 tiles, ring and shared memory, and the tensor map they build), fp32 runs
-`csrc/train_attention_fp32.cu` (the forward on FFMA, the backward on the
-tensor cores in 3xTF32, both to fp32 accuracy whatever torch's TF32 flags
-say; :func:`forward_geometry_fp32` and :func:`backward_geometry_fp32`).
+`csrc/train_attention_fp32.cu`: every product of the forward (the core of
+`csrc/fp32_forward.cuh`, which kernel 1's fp32 mode shares), dq and dk/dv
+on the tensor cores, ``mma.sync`` TF32 in 3xTF32 (each operand split into
+two TF32 parts, three products each), to fp32 accuracy whatever torch's
+TF32 flags say; :func:`forward_geometry_fp32` and
+:func:`backward_geometry_fp32` state their grid, ring and shared memory.
 The JAX package's TPU gates (``can_use_train_kernel``: n % 128, fp32 only up to
 n = 3072) and calibrated backward blocks are TPU VMEM limits and are not
 ported: above n = 3072 the JAX package draws its fp32 attention dropout
@@ -65,13 +68,12 @@ FWD_THREADS = 512   # three consumer warpgroups and the producer's
 FWD_ROTATORS = 96   # threads of the producer's warps 1-3, which rotate tiles (rotary)
 SHARED_LIMIT = 232448  # bytes of shared memory a block may use on an H100
 SM_SHARED = 233472     # bytes of shared memory an SM has; the card keeps 1 KB of it a block
-# the fp32 forward (`csrc/fp32_tile.cuh`: kRows, kThreads, kStride)
-FP32_ROWS = 64      # rows a block owns, in the forward and the backward
-FP32_THREADS = 256  # a 16 x 16 grid, each thread a 4 x 4 piece of a tile
+# the fp32 kernels, the forward core and dq, dk/dv alike (`csrc/fp32_tile.cuh`:
+# kRows, kThreads, kStages, kStride)
+FP32_ROWS = 64      # rows a block owns
+FP32_THREADS = 128  # four warps, each 16 rows: one m16 tile of the 3xTF32 mma
+FP32_STAGES = 2     # cp.async ring, each stage the streamed tiles of one step
 FP32_STRIDE = 68    # floats a shared tile row: 64 padded by 4
-# the fp32 dq and dk/dv kernels (`csrc/train_attention_fp32.cu`: kBwdThreads, kBwdStages)
-FP32_BWD_THREADS = 128  # four warps, each 16 rows: one m16 tile of the 3xTF32 mma
-FP32_BWD_STAGES = 2     # cp.async ring, each stage the streamed tiles of one step
 
 
 def fmix32(h: torch.Tensor) -> torch.Tensor:
@@ -230,14 +232,17 @@ def backward_geometry(b: int, n: int, h: int) -> dict:
                 tensor_map=_rows_map(b, n, h))
 
 
-def _kernel_geometry(entry: str) -> dict:
+def _kernel_geometry(entry: str,
+                     names: tuple[str, ...] = ("rows", "stages", "threads", "shared_bytes")
+                     ) -> dict:
+    """The constants a built kernel's geometry entry point writes, by name."""
     import ctypes
 
     from eraxvif5tts_tpu_torch.ops import _cuda
 
-    out = (ctypes.c_int * 4)()
+    out = (ctypes.c_int * len(names))()
     getattr(_cuda.kernels().lib, entry)(out)
-    return dict(rows=out[0], stages=out[1], threads=out[2], shared_bytes=out[3])
+    return dict(zip(names, out))
 
 
 def kernel_backward_geometry() -> dict:
@@ -246,9 +251,10 @@ def kernel_backward_geometry() -> dict:
     return _kernel_geometry("erax_train_attention_bwd_geometry")
 
 
-def _fp32_geometry(b: int, n: int, h: int, threads: int) -> dict:
-    return dict(grid=(n // FP32_ROWS, h, b), threads=threads, rows=FP32_ROWS,
-                tile=TILE, blocks=[(r, FP32_ROWS) for r in range(0, n, FP32_ROWS)])
+def _fp32_geometry(b: int, n: int, h: int) -> dict:
+    return dict(grid=(n // FP32_ROWS, h, b), threads=FP32_THREADS, rows=FP32_ROWS, tile=TILE,
+                warps=FP32_THREADS // 32, stages=FP32_STAGES,
+                blocks=[(r, FP32_ROWS) for r in range(0, n, FP32_ROWS)])
 
 
 def _per_sm(shared: int) -> int:
@@ -257,13 +263,18 @@ def _per_sm(shared: int) -> int:
 
 
 def forward_geometry_fp32(b: int, n: int, h: int) -> dict:
-    """How the fp32 forward covers ``[b, n, h, 64]``: ``n / 64`` blocks a
-    (sample, head), each owning the 64 query rows of ``blocks`` and walking
-    the key tiles; the Q, K, V and P tiles in shared memory, padded to
-    ``FP32_STRIDE`` floats a row."""
-    shared = 4 * FP32_ROWS * FP32_STRIDE * 4
-    return dict(_fp32_geometry(b, n, h, FP32_THREADS), shared_bytes=shared,
-                blocks_per_sm=_per_sm(shared))
+    """How the fp32 forward core covers ``[b, n, h, 64]`` (kernel 4a's fp32
+    mode and kernel 1's alike): ``n / 64`` blocks a (sample, head), each
+    owning the 64 query rows of ``blocks``, four warps of 16 that keep their
+    Q rows in registers, split once; the block walks the key tiles, K and V
+    coming through a ring of ``stages`` stages of padded ``[64, 64]`` fp32
+    tiles (``FP32_STRIDE`` floats a row), split into TF32 big parts in place
+    and small parts in two more tiles. ``blocks_per_sm`` is what shared
+    memory allows, and what the kernels' launch bounds ask of the
+    registers."""
+    tile = FP32_ROWS * FP32_STRIDE * 4
+    shared = (FP32_STAGES * 2 + 2) * tile
+    return dict(_fp32_geometry(b, n, h), shared_bytes=shared, blocks_per_sm=_per_sm(shared))
 
 
 def backward_geometry_fp32(b: int, n: int, h: int) -> dict:
@@ -273,31 +284,27 @@ def backward_geometry_fp32(b: int, n: int, h: int) -> dict:
     streamed ones come through a ring of ``stages`` stages of padded ``[64,
     64]`` fp32 tiles (dq's a K and a V tile, dk/dv's a Q and a dO tile and
     that query tile's 64 LSE and 64 D values), split into TF32 big parts in
-    place and small parts in two more tiles. ``blocks_per_sm`` is what
-    shared memory allows, and what the kernels' launch bounds ask of the
-    registers."""
+    place and small parts in two more tiles. ``blocks_per_sm`` as
+    :func:`forward_geometry_fp32`'s."""
     tile = FP32_ROWS * FP32_STRIDE * 4
-    dq_shared = (FP32_BWD_STAGES * 2 + 2) * tile
-    dkv_shared = FP32_BWD_STAGES * (2 * tile + 2 * FP32_ROWS * 4) + 2 * tile
-    return dict(_fp32_geometry(b, n, h, FP32_BWD_THREADS), stages=FP32_BWD_STAGES,
-                warps=FP32_BWD_THREADS // 32, dq_shared_bytes=dq_shared,
+    dq_shared = (FP32_STAGES * 2 + 2) * tile
+    dkv_shared = FP32_STAGES * (2 * tile + 2 * FP32_ROWS * 4) + 2 * tile
+    return dict(_fp32_geometry(b, n, h), dq_shared_bytes=dq_shared,
                 dkv_shared_bytes=dkv_shared,
                 blocks_per_sm=min(_per_sm(dq_shared), _per_sm(dkv_shared)))
 
 
+FP32_FORWARD_BUILT = ("rows", "threads", "stages", "shared_bytes")
+
+
 def kernel_geometry_fp32() -> dict:
     """The constants the built fp32 kernels report (needs the card's build):
-    they must equal :func:`forward_geometry_fp32`'s and
-    :func:`backward_geometry_fp32`'s."""
-    import ctypes
-
-    from eraxvif5tts_tpu_torch.ops import _cuda
-
-    out = (ctypes.c_int * 8)()
-    _cuda.kernels().lib.erax_train_attention_fp32_geometry(out)
-    return dict(rows=out[0], threads=out[1], shared_bytes=out[2], bwd_rows=out[3],
-                bwd_threads=out[4], stages=out[5], dq_shared_bytes=out[6],
-                dkv_shared_bytes=out[7])
+    the forward's ``rows``, ``threads``, ``stages`` and ``shared_bytes``
+    must equal :func:`forward_geometry_fp32`'s, the ``bwd_`` ones and the
+    dq and dk/dv shared bytes :func:`backward_geometry_fp32`'s."""
+    return _kernel_geometry("erax_train_attention_fp32_geometry",
+                            FP32_FORWARD_BUILT + ("bwd_rows", "bwd_threads", "bwd_stages",
+                                                  "dq_shared_bytes", "dkv_shared_bytes"))
 
 
 def _check_cuda_args(q, k, v, lens) -> None:

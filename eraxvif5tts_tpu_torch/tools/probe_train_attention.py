@@ -28,20 +28,31 @@ between calls. Printed:
   realtime factor at batch 1) and three `generate_batch`es of its eight
   texts (seconds of audio per wall second), at NFE 32 after a warm-up of each.
 
-With `--fp32`, the fp32 kernels instead (4a, 4b, 4c; `csrc/train_attention_fp32.cu`):
+With `--fp32`, the fp32 kernels instead (4a, 4b, 4c in
+`csrc/train_attention_fp32.cu`, kernel 1 in `csrc/serving_attention_fp32.cu`):
 
+- the register report of the fp32 forward instantiations (kernel 4a's at
+  dropout on and off, kernel 1's with and without rotary) of TREE's build
+  and, with `--against`, of OTHER's;
 - digests of O, LSE, dq, dk, dv on the seeded inputs above in fp32, and the
   largest error of each against the plain version (TF32 off; O in units of
   1 + |plain|, the gradients of their scale);
 - median CUDA-event times at b = 2, h = 16, n = 4096 and 1024 (lens [n,
   n - 37]) at keep = 1 and dropout 0.1 of the forward, dq and dk/dv, beside
-  their bounds at the FFMA rate (67 TFLOP/s) and, for dq and dk/dv, the
-  3xTF32 rate (495 / 3 TFLOP/s), the plain version's backward and fp32
+  their bounds at the 3xTF32 rate (495 / 3 TFLOP/s) and the FFMA rate (67
+  TFLOP/s), the plain version's backward and fp32
   `scaled_dot_product_attention`'s backward (TF32 off, no mask);
+- kernel 1 fp32 at b = 2, h = 16, n = 1088 (lens [1051, 0]), 4096 ([4096,
+  4059]) and 6144 ([6144, 3099]), with and without rotary, beside its
+  bounds and fp32 `scaled_dot_product_attention` with the key mask; and at
+  n = 1088 with h = 16 against h = 15 (2.06 against 1.93 waves of blocks),
+  what the last, part-filled wave costs;
 - with `--against OTHER` (another tree, its kernels built from its own
-  `csrc/` and loaded into this process beside TREE's): OTHER's fp32 dq and
-  dk/dv on the same tensors, timed in turns with TREE's (OTHER, TREE, TREE,
-  OTHER), and the largest difference between the two trees' gradients;
+  `csrc/` and loaded into this process beside TREE's): OTHER's fp32
+  forward, dq, dk/dv and kernel 1 on the same tensors, timed in turns with
+  TREE's (OTHER, TREE, TREE, OTHER), and the largest difference between the
+  two trees' O, LSE and gradients (the digests' inputs) and kernel 1
+  outputs;
 - the rates behind the backward's design (`tools/tf32_rates.cu`, built
   here): `mma.sync.m16n8k8` TF32 in TFLOP/s with 1, 4 and 8 independent
   accumulators a warp, at the kernels' occupancy (two blocks of 128
@@ -155,9 +166,10 @@ FFMA_OPS_S, TF32X3_OPS_S = 67e12, 495e12 / 3  # the H100's fp32 FFMA and 3xTF32 
 
 
 def other_kernels(tree: Path):
-    """The kernel library of another tree, built from its own `csrc/` into
-    its own `_build/` and loaded beside this process's (ctypes keeps each
-    library's symbols apart)."""
+    """The kernels (`ops/_cuda.py` ``Kernels``: the library and nvcc's log) of
+    another tree, built from its own `csrc/` into its own `_build/` and
+    loaded beside this process's (ctypes keeps each library's symbols
+    apart)."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
@@ -165,7 +177,61 @@ def other_kernels(tree: Path):
     module = importlib.util.module_from_spec(spec)
     sys.modules[spec.name] = module  # its dataclass looks itself up there
     spec.loader.exec_module(module)
-    return module.kernels().lib
+    return module.kernels()
+
+
+def fp32_fwd(lib, q, k, v, lens, rate: float, seed: int) -> list:
+    """[O, LSE] from ``lib``'s fp32 forward entry point, uncounted."""
+    import torch
+
+    from eraxvif5tts_tpu_torch.ops import _cuda
+    from eraxvif5tts_tpu_torch.ops import train_attention as ta
+
+    b, n, h, d = q.shape
+    out, lse = torch.empty_like(q), torch.empty((b, h, n), device=q.device)
+    entry = "erax_train_attention_fp32_fwd"
+    _cuda.check(getattr(lib, entry)(
+        *[t.data_ptr() for t in (q, k, v, lens, out, lse)], b, n, h, 1.0 / d ** 0.5,
+        *ta._dropout_args(rate, seed), _cuda.stream_ptr(q.device)), entry)
+    return [out, lse]
+
+
+def fp32_serve(lib, q, k, v, lens, tables):
+    """Kernel 1 fp32 from ``lib``'s entry point, uncounted; ``tables`` the
+    (cos, sin) of `rope_tables`, or None without rotary."""
+    import torch
+
+    from eraxvif5tts_tpu_torch.ops import _cuda
+
+    b, n, h, d = q.shape
+    out = torch.empty_like(q)
+    cos, sin = tables if tables is not None else (None, None)
+    entry = "erax_serving_attention_fp32"
+    _cuda.check(getattr(lib, entry)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
+        None if cos is None else cos.data_ptr(), None if sin is None else sin.data_ptr(),
+        out.data_ptr(), b, n, h, int(tables is not None), 1.0 / d ** 0.5,
+        _cuda.stream_ptr(q.device)), entry)
+    return out
+
+
+def forward_registers(kernels) -> list[str]:
+    """nvcc's register lines of the fp32 forward instantiations in a build
+    log: the kernel, its template argument and what ptxas reported."""
+    lines = [line.strip() for line in kernels.log.splitlines()]
+    found = []
+    for i, line in enumerate(lines):
+        for name in ("train_fp32_fwd_kernel", "serving_attention_fp32_kernel"):
+            if "Compiling entry" in line and name in line:
+                arg = line.split(name)[1][:4]  # ILb0 / ILb1: the bool template argument
+                after = []
+                for x in lines[i + 1:i + 5]:
+                    if "Compiling entry" in x:
+                        break
+                    after.append(x)
+                report = " ".join(x for x in after if "registers" in x or "spill" in x)
+                found.append(f"{name}<{arg[-1] == '1'}>: {report}")
+    return found
 
 
 def fp32_dq(lib, q, k, v, lens, lse, dd, dout, rate: float, seed: int):
@@ -197,7 +263,8 @@ def _fp32_launch(lib, entry: str, outputs: int, q, k, v, lens, lse, dd, dout, ra
 
 def fp32(cs, dev, g, other: str | None) -> None:
     """The fp32 kernels' digests, errors and times (`--fp32`), and with
-    ``other`` that tree's dq and dk/dv in turns with this one's."""
+    ``other`` that tree's forward, dq, dk/dv and kernel 1 in turns with
+    this one's."""
     import torch
     import torch.nn.functional as F
 
@@ -205,9 +272,13 @@ def fp32(cs, dev, g, other: str | None) -> None:
     from eraxvif5tts_tpu_torch.ops import train_attention as ta
 
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    libs = {"tree": _cuda.kernels().lib}
+    builds = {"tree": _cuda.kernels()}
     if other is not None:
-        libs["other"] = other_kernels(Path(other).resolve())
+        builds["other"] = other_kernels(Path(other).resolve())
+    libs = {who: built.lib for who, built in builds.items()}
+    for who, built in builds.items():
+        for line in forward_registers(built):
+            cs.log(f"fp32 forward registers, {who.upper()}'s build: {line}")
     names = ("O", "LSE", "dq", "dk", "dv")
 
     def inputs(b, n, lens):
@@ -215,7 +286,7 @@ def fp32(cs, dev, g, other: str | None) -> None:
                 torch.tensor(lens, dtype=torch.int32, device=dev))
 
     def grads(lib, q, k, v, dout, lens, rate):
-        out, lse = ta.flash_forward_fp32(q, k, v, lens, rate, 77)
+        out, lse = fp32_fwd(lib, q, k, v, lens, rate, 77)
         dd = ta.row_dot(dout, out)
         args = (q, k, v, lens, lse, dd, dout, rate, 77)
         return [out, lse, fp32_dq(lib, *args), *fp32_dkv(lib, *args)]
@@ -235,9 +306,12 @@ def fp32(cs, dev, g, other: str | None) -> None:
                     + "; against plain " + ", ".join(f"{k_} {e:.3g}" for k_, e in err.items()))
             if "other" in libs:
                 theirs = grads(libs["other"], q, k, v, dout, lens, rate)
-                line += "; against OTHER's " + ", ".join(
-                    f"{name} {float((x - y).abs().max() / y.abs().max()):.3g}"
-                    for name, x, y in zip(names[2:], got[2:], theirs[2:]))
+                line += ("; against OTHER's: O max |diff| "
+                         f"{float((got[0] - theirs[0]).abs().max()):.3g}, LSE max |diff| "
+                         f"{float((got[1] - theirs[1]).abs().max()):.3g}, gradients "
+                         + ", ".join(f"{name} {float((x - y).abs().max() / y.abs().max()):.3g}"
+                                     for name, x, y in zip(names[2:], got[2:], theirs[2:]))
+                         + " of their scale")
             cs.log(line)
             del got, want, out, args
 
@@ -246,24 +320,27 @@ def fp32(cs, dev, g, other: str | None) -> None:
         (q, k, v, dout), lens = inputs(2, n, [n, n - 37])
         elems, rows, keys = 2 * n * 16 * 64, 2 * 16 * n, 2 * n - 37
         work = 2.0 * 16 * 64 * n * keys
-        least = {"fwd": max((4 * elems * 4 + rows * 4 + 8) / cs.PEAK_BYTES_S,
-                            2 * work / FFMA_OPS_S),
+        least = {"fwd": (2 * work / TF32X3_OPS_S, 2 * work / FFMA_OPS_S),
                  "dq": (3 * work / TF32X3_OPS_S, 3 * work / FFMA_OPS_S),
                  "dkv": (4 * work / TF32X3_OPS_S, 4 * work / FFMA_OPS_S)}
         for rate in (0.0, 0.1):
             out, lse = ta.flash_forward_fp32(q, k, v, lens, rate, 77)
             dd = ta.row_dot(dout, out)
-            ms = {who: {"dq": [], "dkv": []} for who in libs}
+            ms = {who: {"fwd": [], "dq": [], "dkv": []} for who in libs}
             args = (q, k, v, lens, lse, dd, dout, rate, 77)
             for who in order:
                 lib = libs[who]
+                ms[who]["fwd"].append(cs.cuda_median_ms(
+                    lambda: fp32_fwd(lib, q, k, v, lens, rate, 77)))
                 ms[who]["dq"].append(cs.cuda_median_ms(lambda: fp32_dq(lib, *args)))
                 ms[who]["dkv"].append(cs.cuda_median_ms(lambda: fp32_dkv(lib, *args)))
-            fwd = cs.cuda_median_ms(lambda: ta.flash_forward_fp32(q, k, v, lens, rate, 77))
             mine = ms["tree"]
             line = (f"fp32 times b=2 n={n} lens [{n}, {n - 37}] dropout {rate}: forward "
-                    f"{fwd:.4f} ms ({least['fwd'] * 1e3 / fwd:.1%} of its FFMA bound "
-                    f"{least['fwd'] * 1e3:.5f} ms); dq " + " / ".join(f"{t:.4f}" for t in mine["dq"])
+                    + " / ".join(f"{t:.4f}" for t in mine["fwd"]) + " ms (share of its "
+                    f"3xTF32 bound {least['fwd'][0] * 1e3:.5f} ms "
+                    f"{least['fwd'][0] * 1e3 / min(mine['fwd']):.1%}, of its FFMA bound "
+                    f"{least['fwd'][1] * 1e3:.5f} ms {least['fwd'][1] * 1e3 / min(mine['fwd']):.1%}"
+                    "); dq " + " / ".join(f"{t:.4f}" for t in mine["dq"])
                     + " ms, dk/dv " + " / ".join(f"{t:.4f}" for t in mine["dkv"]) + " ms; bounds "
                     f"3xTF32 dq {least['dq'][0] * 1e3:.5f} / dk/dv {least['dkv'][0] * 1e3:.5f} ms, "
                     f"FFMA {least['dq'][1] * 1e3:.5f} / {least['dkv'][1] * 1e3:.5f} ms (share "
@@ -273,9 +350,12 @@ def fp32(cs, dev, g, other: str | None) -> None:
                     f"{least['dkv'][1] * 1e3 / min(mine['dkv']):.1%})")
             if "other" in ms:
                 theirs = ms["other"]
-                line += ("; OTHER's dq " + " / ".join(f"{t:.4f}" for t in theirs["dq"])
+                line += ("; OTHER's forward " + " / ".join(f"{t:.4f}" for t in theirs["fwd"])
+                         + " ms, dq " + " / ".join(f"{t:.4f}" for t in theirs["dq"])
                          + " ms, dk/dv " + " / ".join(f"{t:.4f}" for t in theirs["dkv"])
-                         + f" ms (OTHER, TREE, TREE, OTHER); dq + dk/dv TREE "
+                         + f" ms (OTHER, TREE, TREE, OTHER); forward TREE "
+                         f"{min(mine['fwd']):.4f} against OTHER {min(theirs['fwd']):.4f} ms "
+                         f"({min(theirs['fwd']) / min(mine['fwd']):.2f}x); dq + dk/dv TREE "
                          f"{min(mine['dq']) + min(mine['dkv']):.4f} ms against OTHER "
                          f"{min(theirs['dq']) + min(theirs['dkv']):.4f} ms")
             cs.log(line)
@@ -290,10 +370,78 @@ def fp32(cs, dev, g, other: str | None) -> None:
         sdpa = cs.cuda_median_ms(lambda: torch.autograd.grad(lib_out, lib_args,
                                                              dout.transpose(1, 2),
                                                              retain_graph=True))
+        sdpa_fwd = cs.cuda_median_ms(lambda: F.scaled_dot_product_attention(*lib_args))
         cs.log(f"fp32 yardsticks b=2 n={n}: plain backward (all three gradients, dropout 0.1) "
-               f"{plain:.4f} ms; fp32 scaled_dot_product_attention backward (TF32 off, no mask) "
-               f"{sdpa:.4f} ms")
+               f"{plain:.4f} ms; fp32 scaled_dot_product_attention (TF32 off, no mask) forward "
+               f"{sdpa_fwd:.4f} ms, backward {sdpa:.4f} ms")
         del lib_out, lib_args, args
+    serving_fp32(cs, dev, g, libs, order)
+
+
+def serving_fp32(cs, dev, g, libs: dict, order: tuple) -> None:
+    """Kernel 1 fp32 of each tree in ``libs`` on the same tensors, timed in
+    ``order``, beside its bounds and fp32 SDPA with the key mask (`--fp32`)."""
+    import torch
+    import torch.nn.functional as F
+
+    from eraxvif5tts_tpu_torch.ops import serving_attention as sa
+    from eraxvif5tts_tpu_torch.ops.rotary import rotary_freqs
+
+    for n, lens_list in ((1088, [1051, 0]), (4096, [4096, 4059]), (6144, [6144, 3099])):
+        q, k, v = (torch.randn((2, n, 16, 64), generator=g, device=dev) for _ in range(3))
+        lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
+        nbytes, ops = cs.attention_work(2, n, 16, 64, lens_list, True, 4)
+        tf32x3, ffma = ops / TF32X3_OPS_S * 1e3, ops / FFMA_OPS_S * 1e3
+        key_mask = (torch.arange(n, device=dev)[None] < lens[:, None])[:, None, None, :]
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        sdpa = cs.cuda_median_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=key_mask))
+        for roped in (True, False):
+            tables = sa.rope_tables(rotary_freqs(n, 64, device=dev)) if roped else None
+            ms = {who: [] for who in libs}
+            for who in order:
+                lib = libs[who]
+                ms[who].append(cs.cuda_median_ms(lambda: fp32_serve(lib, q, k, v, lens, tables)))
+            mine = min(ms["tree"])
+            line = (f"kernel 1 fp32 b=2 h=16 n={n} lens {lens_list} "
+                    f"{'rotary' if roped else 'rope=None'}: TREE "
+                    + " / ".join(f"{t:.4f}" for t in ms["tree"])
+                    + f" ms (share of its 3xTF32 bound {tf32x3:.5f} ms {tf32x3 / mine:.1%}, of "
+                    f"its FFMA bound {ffma:.5f} ms {ffma / mine:.1%}); fp32 SDPA with the key "
+                    f"mask {sdpa:.4f} ms ({mine / sdpa:.2f}x its time)")
+            if "other" in ms:
+                diff = (fp32_serve(libs["tree"], q, k, v, lens, tables)
+                        - fp32_serve(libs["other"], q, k, v, lens, tables)).abs().max()
+                line += (f"; OTHER " + " / ".join(f"{t:.4f}" for t in ms["other"])
+                         + f" ms (OTHER, TREE, TREE, OTHER: {min(ms['other']) / mine:.2f}x "
+                         f"TREE's time), max |TREE - OTHER| {float(diff):.3g}")
+            cs.log(line)
+        del q, k, v, qt, kt, vt
+    wave_tail(cs, dev, g, libs["tree"])
+
+
+def wave_tail(cs, dev, g, lib) -> None:
+    """What the last, part-filled wave of blocks costs kernel 1 fp32 at the
+    DiT's serving shape (`--fp32`): b = 2, n = 1088, lens [1051, 0] at h =
+    16 (544 blocks of 64 rows: 2.06 waves at two blocks an SM) against h =
+    15 (510 blocks: 1.93 waves), in turns. Without a tail the time would
+    grow with the work (16 / 15); with whole waves it grows with their
+    count."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ms = {}
+    for h in (16, 15, 15, 16):
+        q, k, v = (torch.randn((2, 1088, h, 64), generator=g, device=dev) for _ in range(3))
+        lens = torch.tensor([1051, 0], dtype=torch.int32, device=dev)
+        ms.setdefault(h, []).append(cs.cuda_median_ms(lambda: fp32_serve(lib, q, k, v, lens, None)))
+    blocks = {h: 2 * h * 1088 // 64 for h in ms}
+    cs.log("kernel 1 fp32 wave tail b=2 n=1088 lens [1051, 0] rope=None: "
+           + ", ".join(f"h = {h}: {blocks[h]} blocks ({blocks[h] / (2 * sms):.2f} waves of "
+                       f"{2 * sms}) " + " / ".join(f"{t:.4f}" for t in ts) + " ms"
+                       for h, ts in ms.items())
+           + f"; h = 16 takes {min(ms[16]) / min(ms[15]):.3f}x h = 15's time for "
+           f"{16 / 15:.3f}x the work")
 
 
 def tf32_rates(cs, dev) -> None:

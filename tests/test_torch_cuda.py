@@ -894,11 +894,42 @@ def test_fp32_backward_kernels_ignore_the_tf32_flags(cuda, dropout):
 def test_train_attention_fp32_geometry_is_the_kernels(cuda):
     built = ta.kernel_geometry_fp32()
     fwd, bwd = ta.forward_geometry_fp32(2, 4096, 16), ta.backward_geometry_fp32(2, 4096, 16)
-    assert built == {"rows": fwd["rows"], "threads": fwd["threads"],
+    assert built == {"rows": fwd["rows"], "threads": fwd["threads"], "stages": fwd["stages"],
                      "shared_bytes": fwd["shared_bytes"], "bwd_rows": bwd["rows"],
-                     "bwd_threads": bwd["threads"], "stages": bwd["stages"],
+                     "bwd_threads": bwd["threads"], "bwd_stages": bwd["stages"],
                      "dq_shared_bytes": bwd["dq_shared_bytes"],
                      "dkv_shared_bytes": bwd["dkv_shared_bytes"]}
+
+
+def test_serving_attention_fp32_geometry_is_the_kernels(cuda):
+    """Kernel 1 fp32 reports the forward core's constants, which kernel 4a's
+    fp32 mode reports too, as `forward_geometry_fp32` states them."""
+    geo = sa.forward_geometry_fp32(2, sa.MAX_N, 16)
+    assert sa.kernel_geometry_fp32() == {key: geo[key] for key in ta.FP32_FORWARD_BUILT}
+    assert sa.kernel_geometry_fp32() == {key: ta.kernel_geometry_fp32()[key]
+                                         for key in ta.FP32_FORWARD_BUILT}
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+def test_fp32_forwards_ignore_the_tf32_flags(cuda, dropout):
+    """Both 3xTF32 forwards (kernel 4a's fp32 mode at the dropout, kernel 1's
+    with and without rotary) give the same bits with both of torch's TF32
+    flags on as with them off."""
+    g = torch.Generator(device=cuda).manual_seed(37)
+    q, k, v = (torch.randn((2, 320, 2, 64), generator=g, device=cuda) for _ in range(3))
+    lens = torch.tensor([320, 201], dtype=torch.int32, device=cuda)
+    rope = rotary_freqs(320, 64, device=cuda)
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    results = []
+    try:
+        for on in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = on
+            results.append([*ta.flash_forward_fp32(q, k, v, lens, dropout, 9),
+                            sa.serving_attention(q, k, v, lens, rope),
+                            sa.serving_attention(q, k, v, lens, None)])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    assert all(torch.equal(a, b) for a, b in zip(*results))
 
 
 def test_fp32_train_step_with_kernels_matches_plain(cuda):

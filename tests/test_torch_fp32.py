@@ -35,6 +35,7 @@ from eraxvif5tts_tpu_torch.models.unett import UNetT
 from eraxvif5tts_tpu_torch.models.vocos import Vocos
 from eraxvif5tts_tpu_torch.ops import fused_matmul as tfm
 from eraxvif5tts_tpu_torch.ops import serving_attention as tsa
+from eraxvif5tts_tpu_torch.ops import train_attention as tta
 from eraxvif5tts_tpu_torch.serving import socket_server
 from test_torch_models import MEL, redraw, tiny_params
 from test_torch_slice import BUCKETS, CFG, PCM_LSB, REF_TEXT, SR, VOCAB, _ref_audio
@@ -93,6 +94,34 @@ def test_fp32_kernel_domain_and_counters():
     assert set(tsa.serving_attention.launches_fp32_by_rope) == {True, False}
     with pytest.raises(ValueError, match="unsupported device"):
         tsa.serving_attention(*(torch.zeros(1, 64, 1, 64, device="meta"),) * 3)
+
+
+@pytest.mark.parametrize("n", list(range(64, tsa.MAX_N + 1, 64)))
+def test_fp32_kernel_geometry_covers_every_row_once_within_the_card(n):
+    """Kernel 1 fp32's launch over its whole domain (the fp32 forward core
+    that kernel 4a's fp32 mode shares): n / 64 blocks a (sample, head) of
+    64 query rows, four warps of 16, each row owned once and no block past
+    the sample, a ring of two stages, the shared memory within a block's
+    232,448 bytes and two blocks an SM."""
+    b, h = 2, 16
+    geo = tsa.forward_geometry_fp32(b, n, h)
+    assert geo == tta.forward_geometry_fp32(b, n, h)
+    assert geo["grid"] == (n // 64, h, b) == (len(geo["blocks"]), h, b)
+    assert geo["threads"] == 128 and geo["warps"] * 32 == 128 and geo["warps"] * 16 == 64
+    assert geo["rows"] == geo["tile"] == 64 and geo["stages"] == 2
+    covered = np.zeros(n, np.int64)
+    for block, (start, rows) in enumerate(geo["blocks"]):
+        assert (start, rows) == (64 * block, 64) and start + rows <= n
+        covered[start:start + rows] += 1
+    np.testing.assert_array_equal(covered, 1)
+    assert geo["shared_bytes"] == (2 * 2 + 2) * 64 * tta.FP32_STRIDE * 4 <= tta.SHARED_LIMIT
+    assert geo["blocks_per_sm"] == 2 and 2 * (geo["shared_bytes"] + 1024) <= tta.SM_SHARED
+
+
+@pytest.mark.parametrize("n", [0, 32, 96, tsa.MAX_N + 64])
+def test_fp32_kernel_geometry_refuses_outside_the_domain(n):
+    with pytest.raises(ValueError, match=r"multiple of 64 in \[64, 6144\]"):
+        tsa.forward_geometry_fp32(2, n, 16)
 
 
 # ---- the feed-forward's fusion gate ----------------------------------------------

@@ -97,19 +97,19 @@ def test_fp32_backward_checks_refuse_other_gradients():
 def test_fp32_geometry_covers_every_row_once_within_the_card(n):
     b, h = 3, 16
     fwd, bwd = tta.forward_geometry_fp32(b, n, h), tta.backward_geometry_fp32(b, n, h)
-    for geo, threads in ((fwd, 256), (bwd, 128)):
+    for geo in (fwd, bwd):
         assert geo["grid"] == (len(geo["blocks"]), h, b)
-        assert geo["threads"] == threads and geo["rows"] == geo["tile"] == 64
+        assert geo["threads"] == 128 and geo["rows"] == geo["tile"] == 64
+        # a warp per m16 tile of the block's rows, a ring of two stages
+        assert geo["warps"] * 32 == geo["threads"] and geo["warps"] * 16 == geo["rows"]
+        assert geo["stages"] == 2
         covered = np.zeros(n, np.int64)
         for block, (start, rows) in enumerate(geo["blocks"]):
             assert (start, rows) == (block * geo["rows"], geo["rows"])
             assert start + rows <= n  # no block reads past the sample
             covered[start:start + rows] += 1
         np.testing.assert_array_equal(covered, 1)
-        assert geo["blocks_per_sm"] >= 2
-    # the backward: a warp per m16 tile of the block's rows, a ring of at least two stages
-    assert bwd["warps"] * 32 == bwd["threads"] and bwd["warps"] * 16 == bwd["rows"]
-    assert bwd["stages"] >= 2
+        assert geo["blocks_per_sm"] == 2
     for shared in (fwd["shared_bytes"], bwd["dq_shared_bytes"], bwd["dkv_shared_bytes"]):
         assert 48 * 1024 < shared <= tta.SHARED_LIMIT
         assert 2 * (shared + 1024) <= tta.SM_SHARED
@@ -117,20 +117,21 @@ def test_fp32_geometry_covers_every_row_once_within_the_card(n):
 
 def test_fp32_shared_bytes_add_up():
     tile = 64 * tta.FP32_STRIDE * 4  # a [64, 64] tile padded to 68 floats a row
-    bwd = tta.backward_geometry_fp32(1, 4096, 16)
-    assert tta.forward_geometry_fp32(1, 4096, 16)["shared_bytes"] == 4 * tile == 69632
-    assert bwd["stages"] == 2
-    # a ring of two stages of K and V, and their small parts
-    assert bwd["dq_shared_bytes"] == (2 * 2 + 2) * tile == 104448
+    fwd, bwd = tta.forward_geometry_fp32(1, 4096, 16), tta.backward_geometry_fp32(1, 4096, 16)
+    assert fwd["stages"] == bwd["stages"] == 2
+    # the forward and dq: a ring of two stages of K and V, and their small parts
+    assert fwd["shared_bytes"] == bwd["dq_shared_bytes"] == (2 * 2 + 2) * tile == 104448
     # two stages of Q, dO and the query tile's 64 LSE and 64 D values; Q's and dO's small parts
     assert bwd["dkv_shared_bytes"] == 2 * (2 * tile + 2 * 64 * 4) + 2 * tile == 105472
-    assert tta.forward_geometry_fp32(1, 4096, 16)["blocks_per_sm"] == 3
-    assert bwd["blocks_per_sm"] == 2
+    assert fwd["blocks_per_sm"] == bwd["blocks_per_sm"] == 2
 
 
 def test_fp32_backward_tile_reads_are_conflict_free():
     """Every shared-memory read of a streamed tile that the fp32 dq and dk/dv
-    kernels make, on rows padded to FP32_STRIDE (68) floats: the eight rows
+    kernels make, and the forward core with them (its K tile read as dq's,
+    its V tile as dq's K in dQ += dS K; rotating a K chunk reads and writes
+    the chunk its thread copied and splits, as the split does), on rows
+    padded to FP32_STRIDE (68) floats: the eight rows
     an `ldmatrix` matrix reads (16 bytes each) land in eight distinct bank
     quads, and the 32 lanes of the products' B read (rows 8 j + 2 (lane %
     4) + {0, 1}, the k-step permuted to take the score accumulators as A as
@@ -257,6 +258,102 @@ def test_3xtf32_backward_holds_the_fp32_limit_where_one_tf32_pass_fails(dropout)
                 worst[passes] = max(worst[passes], float(np.abs(g - w).max() / np.abs(w).max()))
     assert worst[3] <= chip_smoke.FP32_GRAD_TOL, worst
     assert worst[1] > chip_smoke.FP32_GRAD_TOL, worst
+
+
+def _rotate(x, cos, sin) -> np.ndarray:
+    """Interleaved-pair rotary as the plain version and the kernel round it:
+    fl(fl(x cos) + fl(rotate_half(x) sin)), in x's dtype."""
+    half = np.empty_like(x)
+    half[:, 0::2], half[:, 1::2] = -x[:, 1::2], x[:, 0::2]
+    return x * cos + half * sin
+
+
+def emulate_forward(q, k, v, length: int, passes: int, train: bool, factor=None,
+                    cos=None, sin=None) -> tuple[np.ndarray, np.ndarray]:
+    """One head of the fp32 forward core (`csrc/fp32_forward.cuh`) in numpy,
+    with its arithmetic: q and k rotated in fp32 (``cos`` given), the key
+    tiles of 64 up to the last valid one (all where none is valid), each in
+    two passes of 32 keys; per pass S = Q K^T through :func:`mma_product`
+    (one accumulator over d), the masked logit (-1e30; training's 0 where no
+    key is valid), the online softmax in fp32 (the running maximum from
+    -inf, alpha = exp(m_old - m_new)), the pass's Pd V in a fresh
+    accumulator (``factor`` the keep factors) folded into O as alpha O +
+    part; then O / l and LSE = m + log l. ``passes`` 3 is the kernels'
+    3xTF32, 1 one TF32 pass."""
+    n, d = q.shape
+    scale, tile, width = np.float32(1.0 / math.sqrt(d)), 64, 32
+    if cos is not None:
+        q, k = _rotate(q, cos, sin), _rotate(k, cos, sin)
+    masked = np.float32(0.0 if train and length <= 0 else -1e30)
+    tiles = n // tile if length <= 0 else -(-min(length, n) // tile)
+    o = np.zeros((n, d), np.float32)
+    m = np.full(n, -np.inf, np.float32)
+    l = np.zeros(n, np.float32)
+    for key0 in range(0, tiles * tile, width):
+        keys = slice(key0, key0 + width)
+        s = np.where(np.arange(key0, key0 + width) < length,
+                     mma_product(q, k[keys].T, passes) * scale, masked)
+        m_new = np.maximum(m, s.max(1))
+        alpha = np.exp(m - m_new)
+        p = np.exp(s - m_new[:, None])
+        l = l * alpha + p.sum(1, dtype=np.float32)
+        pd = p if factor is None else p * factor[:, keys]
+        o = alpha[:, None] * o + mma_product(pd, v[keys], passes)
+        m = m_new
+    return o / l[:, None], m + np.log(l)
+
+
+@pytest.mark.parametrize("mode", ["train, dropout 0", "train, dropout 0.1", "serve, rotary",
+                                  "serve, no rotary"])
+def test_3xtf32_forward_holds_the_fp32_limit_where_one_tf32_pass_fails(mode):
+    """The fp32 forwards' arithmetic (:func:`emulate_forward`) at b = 1, h =
+    2, n = 192 (three key tiles, six passes), the first head's keys masked past 150 and
+    the second with none valid (lens = 0): kernel 4a's (training, its
+    dropout) and kernel 1's (serving, with and without rotary). In 3xTF32 O
+    lies within chip_smoke's FP32_TOL * (1 + |ref|) of a float64 reference
+    and the LSE within LSE_REL_TOL (relative L2); in one TF32 pass O lies
+    beyond its limit, as the smoke's TF32 controls do."""
+    import chip_smoke
+    from eraxvif5tts_tpu_torch.ops.rotary import rotary_freqs
+
+    n, d, seed = 192, 64, 0xF0D
+    train, dropout = mode.startswith("train"), 0.1 if mode.endswith("0.1") else 0.0
+    keep = 1.0 - dropout
+    cos = sin = None
+    if mode == "serve, rotary":
+        angles = rotary_freqs(n, d).numpy().astype(np.float32)
+        cos, sin = np.cos(angles), np.sin(angles)
+    rng = np.random.default_rng(sum(map(ord, mode)))
+    worst = {3: [0.0, 0.0], 1: [0.0, 0.0]}
+    for hi, length in ((0, 150), (1, 0)):
+        q, k, v = (rng.standard_normal((n, d)).astype(np.float32) for _ in range(3))
+        factor = None
+        if dropout:
+            mask = tta.dropout_keep_mask(seed, 0, hi, 0, 0, n, n, n, keep).numpy()
+            factor = np.where(mask, np.float32(1.0 / keep), np.float32(0.0))
+        q64, k64 = q.astype(np.float64), k.astype(np.float64)
+        if cos is not None:
+            q64, k64 = _rotate(q64, cos, sin), _rotate(k64, cos, sin)
+        logits = q64 @ k64.T / math.sqrt(d)
+        if length > 0:
+            logits[:, length:] = -1e30
+        else:  # every key averaged, as either masked logit gives
+            logits[:] = 0.0 if train else -1e30
+        top = logits.max(1, keepdims=True)
+        e = np.exp(logits - top)
+        lse = np.log(e.sum(1)) + top[:, 0]
+        p = e / e.sum(1, keepdims=True)
+        want = (p if factor is None else p * factor) @ v.astype(np.float64)
+        for passes in (3, 1):
+            out, got_lse = emulate_forward(q, k, v, length, passes, train, factor, cos, sin)
+            assert out.dtype == got_lse.dtype == np.float32
+            err = float((np.abs(out - want) / (1 + np.abs(want))).max())
+            lse_err = float(np.linalg.norm(got_lse - lse) / np.linalg.norm(lse))
+            worst[passes] = [max(worst[passes][0], err), max(worst[passes][1], lse_err)]
+    assert worst[3][0] <= chip_smoke.FP32_TOL, worst
+    if train:  # serving writes no LSE
+        assert worst[3][1] <= chip_smoke.LSE_REL_TOL, worst
+    assert worst[1][0] > chip_smoke.FP32_TOL, worst
 
 
 def test_pass_partials_bound_the_drift_of_an_accumulator_rounded_toward_zero():
