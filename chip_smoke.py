@@ -32,7 +32,11 @@ Phases (any failure raises and the script exits non-zero):
               block half empty, and at the train phase's 9 x 4096 shape, each
               limit checked against a wrong-seed control, the forward's LSE
               against the plain log sum exp, each second forward and backward
-              bit-identical, timed at dropout 0.1 and at keep = 1; the int8
+              bit-identical, timed at dropout 0.1 and at keep = 1, and in bf16
+              and fp32 on the MMDiT's joint sequence, n = 4160, 5120 and 6144
+              with lens [n, n - 37] and [0, n - 37] at dropout 0.1 and keep
+              = 1 (fp32 with a TF32 control refused), timed beside
+              `scaled_dot_product_attention` at keep = 1; the int8
               feed-forward at ff_mult 2 (K 1024, N 2048) and 4 (K 1024, N 4096;
               K 768, N 3072) at b = 2, M = 256 and 1088, at 16 x 768 and at
               R = 1, 63, 64, 65, 129, 767, its hidden codes equal to the plain
@@ -103,6 +107,15 @@ Phases (any failure raises and the script exits non-zero):
               profiled request, its RTF beside the main phase's; then the
               mmdit phase's checkpoint served in fp32, one request with the
               fp32 kernel without rotary counted 22 x 32 a chunk;
+5g. mmdit-int8 -- the mmdit phase's checkpoint served by
+              `F5TTSWrapper("F5TTS_v1_MMDiT", compute_dtype="int8",
+              int8_validate=True)` behind the unchanged quality gate (its text
+              padded to 64 tokens), the quantized MMDiT against its plain
+              versions and kernel 5 at both streams' shapes (the mel bucket's
+              rows and the text bucket's), then one `generate_batch` of eight
+              texts at NFE 32 each in bf16, int8 chain and int8 fused, with
+              kernel 1 counted 22 x 32 and kernel 5 43 x 32 (22 `ff_x` and
+              21 `ff_c` a backbone call) in the fused call;
 6. int8    -- int8 W8A8 serving at the same width: a seeded N(0, 0.02)
               reference-format checkpoint, `F5TTSWrapper(compute_dtype="int8",
               int8_validate=True)` quantizing it at load behind the quality
@@ -138,7 +151,7 @@ Phases (any failure raises and the script exits non-zero):
               at the 3xTF32 rate and the FFMA rate's beside;
               F5TTS_v1_Base at full width and depth with fp32 parameters and
               fp32 compute (dropout 0.1, blocks checkpointed): one
-              `Trainer.train_step` at b = 2, n = 256 against the CPU's (loss
+              `Trainer.train_step` at b = 2, n = 128 against the CPU's (loss
               and whole gradient; both TF32 flags on outside the step, a
               control without the trainer's fp32 block), then a warm-up and
               two timed steps at 9 x 4096 frames (dropout 0.1 and 0) with
@@ -147,6 +160,16 @@ Phases (any failure raises and the script exits non-zero):
               `DistillTrainer` step at 2 x 4096 with this model as the
               teacher and a 14-block student pruned from its first
               weights by the pruner's scores;
+7c. mmdit-train -- MMDiT training: F5TTS_v1_MMDiT at full width and depth
+              at dropout 0 (0.1, the preset's, refused before any launch: the
+              JAX MMDiT cannot train at it), fp32 parameters, no activation
+              checkpointing, in bf16 compute and then in fp32: one step
+              against plain attention at b = 2, 256 + 1024 (loss, whole and
+              q / k / v gradients; fp32 with a TF32 control), then
+              `Trainer.train_step` at the joint text 1024 + mel 4096 at the
+              largest batch that fits (a warm-up and two timed steps in bf16,
+              a warm-up and one in fp32) with kernel 4 of the step's dtype
+              counted 22 / 22 / 22 a step, the peak memory, a profiled step;
 8. e2tts   -- E2-TTS serving at E2TTS_Base width and depth (UNetT: dim 1024,
               24 layers, 16 x 64 heads, ff_mult 4, rotary on head 0 only) in
               bf16: a seeded N(0, 0.02) reference-format checkpoint (norm gains
@@ -196,8 +219,9 @@ path's phase (serving kernels with fused rotary / layernorm: main; without
 rotary / RMS: e2tts; the attention's row at n = 6144: mmdit; kernel 1 fp32
 with rotary: the fp32 phase's DiT, without: its MMDiT; int8 feed-forward at
 ff_mult 2: int8, at ff_mult 4: e2tts-int8; training kernels: train, their
-fp32 modes: train-fp32; the gated residual projection, on no path:
-kernels), error, times, bound and library time; the compress phase's
+fp32 modes: train-fp32, both on the joint n = 6144: mmdit-train; the gated
+residual projection, on no path: kernels), error, times, bound and library
+time; the compress phase's
 launches (kernels 1, 2 and 4 again) are logged and checked in that phase;
 the last line is the device summary.
 """
@@ -509,6 +533,7 @@ def phase_kernels(dev) -> dict:
     results.update(check_int8_ff(dev, g))
     results.update(check_matmul_gate_res(dev, g, edge_err3))
     results.update(check_train_attention(dev, g))
+    results.update(check_train_attention_joint(dev))
     return results
 
 
@@ -938,7 +963,7 @@ def check_train_attention_case(q, k, v, dout, lens, rate: float, seed: int) -> d
 
     got = attention_grads(kernel, q, k, v, dout)
     want = plain_attention_grads(q, k, v, dout, lens, rate, seed)
-    tag = f"b={b} n={n} dropout {rate}"
+    tag = f"b={b} n={n} lens {None if lens is None else lens.tolist()} dropout {rate}"
     names = ("fwd", "dq", "dk", "dv")
     abs_err = {name: compare(f"train_attention {name} {tag}", g, w)
                for name, g, w in zip(names, got, want)}
@@ -995,9 +1020,6 @@ def check_train_attention(dev, g) -> dict:
     4096, at dropout 0.1 (what the path trains at) and at keep = 1 (what the
     library's attention computes: the factor against it is like for like)."""
     import torch
-    import torch.nn.functional as F
-
-    from eraxvif5tts_tpu_torch.ops import train_attention as ta
 
     errs = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
     rel_max, control_min = {}, {}
@@ -1023,47 +1045,8 @@ def check_train_attention(dev, g) -> dict:
                 control_min[name] = min(control_min.get(name, math.inf), c)
         if (b, n) not in ((2, 256), (2, 1024), (2, 4096)):
             continue
-        ms = {}
-        for rate in (0.1, 0.0):
-            out, lse = ta.flash_forward(q, k, v, lens, rate, seed)
-            dd = ta.row_dot(dout, out)
-            ms[rate] = {
-                "fwd": cuda_median_ms(lambda: ta.flash_forward(q, k, v, lens, rate, seed)),
-                "dq": cuda_median_ms(
-                    lambda: ta.flash_dq(q, k, v, lens, lse, dd, dout, rate, seed)),
-                "dkv": cuda_median_ms(
-                    lambda: ta.flash_dkv(q, k, v, lens, lse, dd, dout, rate, seed))}
-        rate = 0.1
-        args = [t.clone().requires_grad_() for t in (q, k, v)]
-        plain_fwd = cuda_median_ms(lambda: ta.train_attention_reference(*args, lens, rate, seed),
-                                   iters=5, warmup=1)
-        ref = ta.train_attention_reference(*args, lens, rate, seed)
-        plain_bwd = cuda_median_ms(lambda: torch.autograd.grad(ref, args, dout, retain_graph=True),
-                                   iters=5, warmup=1)
-        del ref
-        # the yardstick: the library's attention, forward and backward, at
-        # keep = 1 and without a mask (it has neither this dropout nor lens)
-        lib_args = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
-        lib_fwd = cuda_median_ms(lambda: F.scaled_dot_product_attention(*lib_args))
-        lib_out = F.scaled_dot_product_attention(*lib_args)
-        lib_dout = dout.transpose(1, 2)
-        lib_bwd = cuda_median_ms(
-            lambda: torch.autograd.grad(lib_out, lib_args, lib_dout, retain_graph=True))
-        del lib_out
-        # q, k, v, dO, O / dq / dk, dv in bf16, the fp32 LSE and D rows; QK^T
-        # (and dO V^T in the backward) and each product onto an output, over
-        # each sample's valid keys
-        elems, rows, keys = 2 * n * 16 * 64, 2 * 16 * n, sum(lens_list)
-        work = 2.0 * 16 * 64 * n * keys
-        least = {"fwd": bound(4 * elems * 2 + rows * 4 + 8, 2 * work),
-                 "dq": bound(5 * elems * 2 + 2 * rows * 4 + 8, 3 * work),
-                 "dkv": bound(6 * elems * 2 + 2 * rows * 4 + 8, 4 * work)}
-        times[n] = {"fwd": dict(ms=ms[0.1]["fwd"], plain_ms=plain_fwd, library_ms=lib_fwd,
-                                **least["fwd"]),
-                    "dq": dict(ms=ms[0.1]["dq"], plain_ms=plain_bwd, library_ms=lib_bwd,
-                               **least["dq"]),
-                    "dkv": dict(ms=ms[0.1]["dkv"], plain_ms=plain_bwd, library_ms=lib_bwd,
-                                **least["dkv"])}
+        ms, times[n], least, _ = time_train_attention(q, k, v, dout, lens, lens_list, seed)
+        plain_fwd, plain_bwd, lib_fwd, lib_bwd = train_attention_yardsticks(times[n])
         keep1 = ms[0.0]
         log(f"[kernels] train_attention b=2 n={n} lens {lens_list}: at dropout 0.1 forward "
             f"{ms[0.1]['fwd']:.4f} ms (plain {plain_fwd:.4f} ms), dq {ms[0.1]['dq']:.4f} ms + "
@@ -1345,7 +1328,10 @@ def profile_generate(wrapper, ref, text, nfe: int, tag: str) -> None:
     t0 = time.perf_counter()
     call()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # the device's activity alone: the groups read nothing of the host's, and
+    # recording it too slows the pass and its sums severalfold at the MMDiT's
+    # ~78,000 kernels a generate
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         call()
         torch.cuda.synchronize()
     groups, launches = device_ms_by_group(prof)
@@ -1822,12 +1808,13 @@ def with_int8_ff(flag: bool, fn, *args, **kwargs):
 
 
 def run_batch(wrapper, depth: int, nfe: int, seed: int, int8_ff: bool, label: str,
-              tag: str = "[int8]"):
+              tag: str = "[int8]", ffs: int | None = None):
     """One `generate_batch` of BATCH_TEXTS, ERAX_INT8_FF set or unset, with
-    its launch counters checked: kernel 1 depth x NFE, kernel 5 as many with
-    the one-kernel feed-forward and none without, kernel 2 none on the int8
-    path (quantized blocks take the unfused FF). Returns (waves, wall s,
-    seconds of audio)."""
+    its launch counters checked: kernel 1 depth x NFE, kernel 5 ``ffs`` (the
+    feed-forwards of a backbone call, default depth) x NFE with the
+    one-kernel feed-forward and none without, kernel 2 none on the int8
+    path (quantized blocks take the unfused FF) and none in an MMDiT.
+    Returns (waves, wall s, seconds of audio)."""
     import numpy as np
     import torch
 
@@ -1835,7 +1822,7 @@ def run_batch(wrapper, depth: int, nfe: int, seed: int, int8_ff: bool, label: st
     from eraxvif5tts_tpu_torch.ops import quant_ff as qf
     from eraxvif5tts_tpu_torch.ops import serving_attention as sa
 
-    quantized = wrapper.compute_dtype == "int8"
+    fused_ff = wrapper.compute_dtype != "int8" and wrapper.config.backbone != "MMDiT"
     counters = (sa.serving_attention, qf.int8_ff, fm.ln_mod_matmul)
     before = [fn.launches for fn in counters]
     torch.cuda.synchronize()
@@ -1845,7 +1832,7 @@ def run_batch(wrapper, depth: int, nfe: int, seed: int, int8_ff: bool, label: st
     wall = time.perf_counter() - t0
     counts = [fn.launches - c for fn, c in zip(counters, before)]
     audio = sum(len(w) for w in waves) / wrapper.target_sample_rate
-    want = [depth * nfe, depth * nfe if int8_ff else 0, 0 if quantized else depth * nfe]
+    want = [depth * nfe, (ffs or depth) * nfe if int8_ff else 0, depth * nfe if fused_ff else 0]
     log(f"{tag} generate_batch {label} ({len(waves)} texts, NFE {nfe}): {audio:.2f} s of "
         f"audio in {wall:.3f} s ({audio / wall:.2f} s of audio per wall s); launches "
         f"attention / int8_ff / ln_mod {counts}")
@@ -1857,10 +1844,16 @@ def run_batch(wrapper, depth: int, nfe: int, seed: int, int8_ff: bool, label: st
     return waves, wall, audio
 
 
-def phase_int8(dev, cfg, tag: str = "[int8]", ckpt: Path | None = None) -> tuple[int, float]:
-    """int8 W8A8 serving of ``cfg``'s backbone (DiT or UNetT) from a
-    reference-format checkpoint (``ckpt``, or one written here). Returns the
-    int8 feed-forward's launches in the measured batch calls and its largest
+def phase_int8(dev, cfg, tag: str = "[int8]", ckpt: Path | None = None,
+               turns: int = 2) -> tuple[int, float]:
+    """int8 W8A8 serving of ``cfg``'s backbone (DiT, UNetT or MMDiT) from a
+    reference-format checkpoint (``ckpt``, or one written here): the quality
+    gate's reading, warm-up batches that record the shapes kernel 5 is given
+    (the MMDiT's two streams give it two), the quantized backbone and kernel
+    5 against their plain versions at those shapes, then ``turns`` rounds of
+    `generate_batch` bf16 / int8 chain / int8 fused (the second in the
+    reverse order) and, with two, profiled batches. Returns the int8
+    feed-forward's launches in the measured batch calls and its largest
     error against the plain version at the shapes the backbone gives it."""
     import numpy as np
     import torch
@@ -1872,7 +1865,8 @@ def phase_int8(dev, cfg, tag: str = "[int8]", ckpt: Path | None = None) -> tuple
 
     vocab = {c: i for i, c in enumerate(VOCAB_CHARS)}
     a = cfg.arch
-    unett = cfg.backbone == "UNetT"
+    unett, mmdit = cfg.backbone == "UNetT", cfg.backbone == "MMDiT"
+    ffs = 2 * a.depth - 1 if mmdit else a.depth  # the last MMDiT block has no ff_c
     with tempfile.TemporaryDirectory() as tmp:
         if ckpt is None:
             ckpt = Path(tmp) / "model.pt"
@@ -1898,9 +1892,10 @@ def phase_int8(dev, cfg, tag: str = "[int8]", ckpt: Path | None = None) -> tuple
     randomize((bf16.vocoder,), SEED)
     q_names = [name for name, _ in int8.transformer.named_buffers() if name.endswith("weight_q")]
     q_bytes = sum(b.numel() for name, b in int8.transformer.named_buffers() if name in q_names)
-    log(f"{tag} {len(q_names) // 6} quantized {'layers' if unett else 'blocks'} (dim {a.dim}, "
+    log(f"{tag} {a.depth} quantized {'layers' if unett else 'blocks'} (dim {a.dim}, "
         f"depth {a.depth}, ff_mult {a.ff_mult}): {q_bytes / 2**20:.1f} MiB of int8 weights "
-        f"(6 projections each), the rest bf16 matrices{' (skip projections included)' if unett else ''} "
+        f"({len(q_names)} projections{', 12 a block and 9 in the last' if mmdit else ''}), "
+        f"the rest bf16 matrices{' (skip projections included)' if unett else ''} "
         "and fp32 vectors")
     ref = load_reference(int8)
     load_reference(bf16)
@@ -1915,21 +1910,24 @@ def phase_int8(dev, cfg, tag: str = "[int8]", ckpt: Path | None = None) -> tuple
     modules.int8_ff = recorded
     try:
         for label, (wrapper, int8_ff) in runs.items():  # warm-up: first calls at this bucket
-            run_batch(wrapper, a.depth, 2, SEED, int8_ff, f"{label} warm-up", tag)
+            run_batch(wrapper, a.depth, 2, SEED, int8_ff, f"{label} warm-up", tag, ffs)
     finally:
         modules.int8_ff = ff
-    (b, n), = shapes
+    # the mel stream's rows (the MMDiT's text stream gives the text bucket's)
+    (b, n), *text_rows = sorted(shapes, key=lambda shape: -shape[1])
     frames = n - 1 if unett else n  # the UNetT's time token is a position of its own
+    text = {"text_len": text_rows[0][1]} if mmdit else {}
     log(f"{tag} the batch of {len(BATCH_TEXTS)} texts runs the {type(int8.transformer).__name__} "
-        f"at {b} rows x {n} positions")
+        f"at {b} rows x {n} positions" + (f" (mel) and {text['text_len']} (text)" if mmdit else ""))
     cases = ((2, 767), (b, frames)) if unett else ((b, frames),)
     for int8_ff in (False, True):
         for rows, length in cases:
             with_int8_ff(int8_ff, check_dit_against_plain, int8.transformer, dev,
-                         f"{tag} ERAX_INT8_FF={'1' if int8_ff else 'unset'}:", rows, length)
+                         f"{tag} ERAX_INT8_FF={'1' if int8_ff else 'unset'}:", rows, length, **text)
     k, n_hidden = a.dim, int(a.dim * a.ff_mult)
-    ff_err = check_int8_ff_shape(dev, torch.Generator(device=dev).manual_seed(SEED + 5), b, n,
-                                 tag, k=k, n=n_hidden)[0]
+    ff_err = max(check_int8_ff_shape(dev, torch.Generator(device=dev).manual_seed(SEED + 5),
+                                     rows, length, tag, k=k, n=n_hidden)[0]
+                 for rows, length in ((b, n), *text_rows))
     if unett:
         # batch 1 at NFE 32: kernel 5 depth x NFE a chunk with the flag, none without
         warm_smallest(int8, ref)
@@ -1939,10 +1937,10 @@ def phase_int8(dev, cfg, tag: str = "[int8]", ckpt: Path | None = None) -> tuple
                      f"{tag} ERAX_INT8_FF=1:", ("serving_attention_norope", "int8_ff"))
     sa.serving_attention.launches = qf.int8_ff.launches = 0
     waves, walls, audio = {}, {label: [] for label in runs}, {}
-    for label in (*runs, *reversed(runs)):
+    for label in (*runs, *reversed(runs))[:3 * turns]:
         wrapper, int8_ff = runs[label]
         waves[label], wall, audio[label] = run_batch(wrapper, a.depth, NFE, SEED + 4, int8_ff,
-                                                     label, tag)
+                                                     label, tag, ffs)
         walls[label].append(wall)
     launches = qf.int8_ff.launches
     diffs = [float(np.abs(x - y).max()) for x, y in zip(waves["int8 chain"], waves["int8 fused"])]
@@ -1952,14 +1950,16 @@ def phase_int8(dev, cfg, tag: str = "[int8]", ckpt: Path | None = None) -> tuple
         f"{max(diffs):.4g} of full scale, relative L2 {min(rel):.3g}-{max(rel):.3g} (the fused "
         f"feed-forward keeps the hidden state in fp32; the chain rounds it to bf16)")
     rates = {label: audio[label] / statistics.mean(w) for label, w in walls.items()}
-    log(f"{tag} throughput, seconds of audio per wall second (mean of two calls in turns "
-        f"bf16, chain, fused, fused, chain, bf16; batch {len(BATCH_TEXTS)}, NFE {NFE}): "
+    log(f"{tag} throughput, seconds of audio per wall second (mean of {turns} call(s) in turns "
+        f"bf16, chain, fused{', fused, chain, bf16' if turns > 1 else ''}; batch "
+        f"{len(BATCH_TEXTS)}, NFE {NFE}): "
         + ", ".join(f"{label} {rate:.3f}" for label, rate in rates.items())
         + f"; int8 chain / bf16 {rates['int8 chain'] / rates['bf16']:.3f}, int8 fused / bf16 "
         f"{rates['int8 fused'] / rates['bf16']:.3f}")
-    if not unett:
-        profile_generate(bf16, None, BATCH_TEXTS, NFE, f"{tag} bf16")
-    with_int8_ff(True, profile_generate, int8, None, BATCH_TEXTS, NFE, f"{tag} int8 fused")
+    if turns > 1:
+        if not unett:
+            profile_generate(bf16, None, BATCH_TEXTS, NFE, f"{tag} bf16")
+        with_int8_ff(True, profile_generate, int8, None, BATCH_TEXTS, NFE, f"{tag} int8 fused")
     return launches, ff_err
 
 
@@ -2059,7 +2059,7 @@ def check_loss_against_plain(cfm, dev):
 
 def profile_train_step(trainer, state, batch, dev, wall_s: float,
                        tag: str = "[train]") -> None:
-    """Where one warm `train_step` at dropout 0.1 (of a `Trainer` or a
+    """Where one warm `train_step` at the model's dropout (of a `Trainer` or a
     `DistillTrainer`) spends the device's time: its
     kernels under `torch.profiler`, summed by group, beside `wall_s` (the
     unprofiled steps' wall at dropout 0.1). The position-hash dropout is plain
@@ -2105,7 +2105,8 @@ def profile_train_step(trainer, state, batch, dev, wall_s: float,
         x = torch.randn((b, n, width), device=dev).to(state.model.dtype)
         one[width] = cuda_median_ms(lambda: plain_dropout(x, 0.1, (1, 2)))
     attention_ms = sum(ms for name, ms in groups.items() if name.startswith("kernel 4"))
-    log(f"{tag} profile of one warm train_step at dropout 0.1: wall {wall_s * 1e3:.1f} ms "
+    log(f"{tag} profile of one warm train_step at dropout {state.model.arch.dropout}: wall "
+        f"{wall_s * 1e3:.1f} ms "
         f"unprofiled; {launches} device kernels, {device_ms:.1f} ms of device time = "
         f"{100 * device_ms / (wall_s * 1e3):.1f} % of the wall; "
         + ", ".join(f"{name} {ms:.1f} ms ({100 * ms / device_ms:.1f} %)"
@@ -2116,18 +2117,19 @@ def profile_train_step(trainer, state, batch, dev, wall_s: float,
         + ", ".join(f"[{b}, {n}, {width}] {ms:.3f} ms" for width, ms in one.items()) + ")")
 
 
-def train_batch(dev, seed: int, shape: tuple[int, int] | None = None) -> dict:
+def train_batch(dev, seed: int, shape: tuple[int, int] | None = None,
+                text_len: int = TRAIN_TEXT) -> dict:
     """A training batch of ``shape`` (default TRAIN_BATCH) from ``seed``:
-    random mels, lengths from n / 2 to n, text padded to TRAIN_TEXT tokens
+    random mels, lengths from n / 2 to n, text padded to ``text_len`` tokens
     with -1 past a random length."""
     import torch
 
     b, n = shape or TRAIN_BATCH
     bg = torch.Generator(device=dev).manual_seed(seed)
     lens = torch.randint(n // 2, n + 1, (b,), generator=bg, device=dev)
-    text = torch.randint(0, len(VOCAB_CHARS), (b, TRAIN_TEXT), generator=bg, device=dev)
-    text_lens = torch.randint(TRAIN_TEXT // 4, TRAIN_TEXT + 1, (b, 1), generator=bg, device=dev)
-    text = text.masked_fill(torch.arange(TRAIN_TEXT, device=dev) >= text_lens, -1)
+    text = torch.randint(0, len(VOCAB_CHARS), (b, text_len), generator=bg, device=dev)
+    text_lens = torch.randint(text_len // 4, text_len + 1, (b, 1), generator=bg, device=dev)
+    text = text.masked_fill(torch.arange(text_len, device=dev) >= text_lens, -1)
     return {"mel": torch.randn((b, n, 100), generator=bg, device=dev), "text": text,
             "lens": lens}
 
@@ -2749,6 +2751,119 @@ def fp32_attention_errors(got, want) -> dict:
     return errs
 
 
+def check_train_attention_fp32_case(q, k, v, dout, lens, rate: float, seed: int,
+                                    case: str) -> tuple:
+    """Kernels 4a / 4b / 4c fp32 through `train_attention`'s autograd on one
+    input against the plain version's with TF32 off: O, dq, dk, dv within
+    FP32_ATTN_TOLS, the LSE within LSE_REL_TOL of the plain log sum exp, a
+    second forward and backward bit-identical. Returns (the errors, the
+    kernels' [O, dq, dk, dv], the plain version's, the LSE's error)."""
+    import torch
+
+    from eraxvif5tts_tpu_torch.ops import train_attention as ta
+    from eraxvif5tts_tpu_torch.ops.masks import lens_to_mask
+
+    mask = lens_to_mask(lens, q.shape[1])
+
+    def kernel(*a):
+        return ta.train_attention(*a, key_valid=mask, dropout_rate=rate, seed=seed)
+
+    got = attention_grads(kernel, q, k, v, dout)
+    with tf32(False):
+        want = plain_attention_grads(q, k, v, dout, lens, rate, seed)
+        lse_want = plain_lse(q, k, lens)
+    err = fp32_attention_errors(got, want)
+    if not (all(torch.isfinite(t).all() for t in got)
+            and all(err[name] <= tol for name, tol in FP32_ATTN_TOLS.items())):
+        raise AssertionError(f"{case}: errors {err} beyond {FP32_ATTN_TOLS}")
+    out, lse = ta.flash_forward_fp32(q, k, v, lens, rate, seed)
+    lse_err = rel_l2(lse, lse_want)
+    if not lse_err <= LSE_REL_TOL:
+        raise AssertionError(f"{case}: LSE relative L2 error {lse_err:.3g} beyond {LSE_REL_TOL}")
+    if not (torch.equal(out, got[0]) and all(
+            torch.equal(g, a) for g, a in zip(got, attention_grads(kernel, q, k, v, dout)))):
+        raise AssertionError(f"{case}: a second forward or backward differs")
+    return err, got, want, lse_err
+
+
+def tf32_control(q, k, v, dout, lens, rate: float, seed: int, want, case: str) -> dict:
+    """The plain version with TF32 on, against ``want`` (the plain version
+    with TF32 off): some reading must lie beyond its limit in FP32_ATTN_TOLS,
+    or the limits could not see TF32. Returns the control's readings."""
+    with tf32(True):
+        control = fp32_attention_errors(plain_attention_grads(q, k, v, dout, lens, rate, seed),
+                                        want)
+    if all(control[name] <= tol for name, tol in FP32_ATTN_TOLS.items()):
+        raise AssertionError(f"{case}: the TF32 control {control} passes the limits "
+                             f"{FP32_ATTN_TOLS}: they cannot see TF32")
+    return control
+
+
+def time_train_attention(q, k, v, dout, lens, lens_list, seed: int) -> tuple:
+    """Kernels 4a / 4b / 4c of q's dtype on these inputs, median CUDA-event
+    times at dropout 0.1 and at keep = 1, beside the plain version's forward
+    and autograd backward at dropout 0.1 and `scaled_dot_product_attention`'s
+    forward and autograd backward at keep = 1 without a mask (the library has
+    neither this dropout nor lens), all with TF32 off; each launch's bound
+    from this run's valid keys (bf16 at the tensor cores' bf16 rate, fp32 at
+    the 3xTF32 rate, the FFMA rate's returned beside). Returns (the kernels'
+    times by rate, the JSON rows' numbers at dropout 0.1, the bounds, the
+    FFMA bounds)."""
+    import torch
+    import torch.nn.functional as F
+
+    from eraxvif5tts_tpu_torch.ops import train_attention as ta
+
+    fwd, dq, dkv = ta._LAUNCHERS[q.dtype]
+    ms = {}
+    for rate in (0.1, 0.0):
+        out, lse = fwd(q, k, v, lens, rate, seed)
+        dd = ta.row_dot(dout, out)
+        ms[rate] = {"fwd": cuda_median_ms(lambda: fwd(q, k, v, lens, rate, seed)),
+                    "dq": cuda_median_ms(lambda: dq(q, k, v, lens, lse, dd, dout, rate, seed)),
+                    "dkv": cuda_median_ms(lambda: dkv(q, k, v, lens, lse, dd, dout, rate, seed))}
+    args = [t.clone().requires_grad_() for t in (q, k, v)]
+    with tf32(False):
+        plain_fwd = cuda_median_ms(
+            lambda: ta.train_attention_reference(*args, lens, 0.1, seed), iters=5, warmup=1)
+        ref = ta.train_attention_reference(*args, lens, 0.1, seed)
+        plain_bwd = cuda_median_ms(
+            lambda: torch.autograd.grad(ref, args, dout, retain_graph=True), iters=5, warmup=1)
+        del ref
+        lib_args = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+        lib_fwd = cuda_median_ms(lambda: F.scaled_dot_product_attention(*lib_args))
+        lib_out = F.scaled_dot_product_attention(*lib_args)
+        lib_dout = dout.transpose(1, 2)
+        lib_bwd = cuda_median_ms(
+            lambda: torch.autograd.grad(lib_out, lib_args, lib_dout, retain_graph=True))
+        del lib_out
+    # q, k, v, dO, O / dq / dk, dv in their dtype, the fp32 LSE and D rows
+    # and the lengths; QK^T (and dO V^T in the backward) and each product
+    # onto an output, over each sample's valid keys (all of them where none is)
+    b, n, h, d = q.shape
+    size = q.element_size()
+    elems, rows = b * n * h * d, b * h * n
+    keys = sum(n if length <= 0 else min(length, n) for length in lens_list)
+    work = 2.0 * h * d * n * keys
+    work_of = {"fwd": (4 * elems * size + rows * 4 + 4 * b, 2 * work),
+               "dq": (5 * elems * size + 2 * rows * 4 + 4 * b, 3 * work),
+               "dkv": (6 * elems * size + 2 * rows * 4 + 4 * b, 4 * work)}
+    kind = "tf32x3" if q.dtype == torch.float32 else "bf16"
+    least = {name: bound(*work_of[name], kind) for name in work_of}
+    ffma = {name: bound(*work_of[name], "fp32") for name in work_of}
+    rows = {name: dict(ms=ms[0.1][name], plain_ms=plain_fwd if name == "fwd" else plain_bwd,
+                       library_ms=lib_fwd if name == "fwd" else lib_bwd, **least[name])
+            for name in least}
+    return ms, rows, least, ffma
+
+
+def train_attention_yardsticks(rows: dict) -> tuple[float, float, float, float]:
+    """(plain forward, plain backward, library forward, library backward) ms
+    of :func:`time_train_attention`'s rows."""
+    return (rows["fwd"]["plain_ms"], rows["dq"]["plain_ms"], rows["fwd"]["library_ms"],
+            rows["dq"]["library_ms"])
+
+
 def check_train_attention_fp32(dev) -> dict:
     """Kernels 4a / 4b / 4c on fp32 q, k, v (`csrc/train_attention_fp32.cu`)
     through `train_attention`'s autograd against the plain version's with
@@ -2765,7 +2880,6 @@ def check_train_attention_fp32(dev) -> dict:
     the 3xTF32 rate (the FFMA rate's beside). Returns the JSON rows (n =
     4096, the last case)."""
     import torch
-    import torch.nn.functional as F
 
     from eraxvif5tts_tpu_torch.ops import train_attention as ta
     from eraxvif5tts_tpu_torch.ops.masks import lens_to_mask
@@ -2783,49 +2897,26 @@ def check_train_attention_fp32(dev) -> dict:
 
         for rate in (0.1, 0.0):
             case = f"train_attention fp32 b={b} n={n} lens={list(lens_list)} dropout {rate}"
-
-            def kernel(*a):
-                return ta.train_attention(*a, key_valid=mask, dropout_rate=rate, seed=seed)
-
-            got = attention_grads(kernel, q, k, v, dout)
-            with tf32(False):
-                want = plain_attention_grads(q, k, v, dout, lens, rate, seed)
-                lse_want = plain_lse(q, k, lens)
-            err = fp32_attention_errors(got, want)
-            if not (all(torch.isfinite(t).all() for t in got)
-                    and all(err[name] <= FP32_ATTN_TOLS[name] for name in names)):
-                raise AssertionError(f"{case}: errors {err} beyond {FP32_ATTN_TOLS}")
+            err, got, want, lse_err = check_train_attention_fp32_case(q, k, v, dout, lens, rate,
+                                                                      seed, case)
             for name in names:
                 worst[name] = max(worst[name], err[name])
             for name, g, w in zip(("fwd", "dq", "dkv", "dkv"), got, want):
                 abs_err[name] = max(abs_err[name], float((g - w).abs().max()))
-            out, lse = ta.flash_forward_fp32(q, k, v, lens, rate, seed)
-            lse_err = rel_l2(lse, lse_want)
-            if not lse_err <= LSE_REL_TOL:
-                raise AssertionError(f"{case}: LSE relative L2 error {lse_err:.3g} beyond "
-                                     f"{LSE_REL_TOL}")
-            if not (torch.equal(out, got[0]) and all(
-                    torch.equal(g, a) for g, a in zip(got, attention_grads(kernel, q, k, v,
-                                                                           dout)))):
-                raise AssertionError(f"{case}: a second forward or backward differs")
             note = ""
             if n == FP32_TRAIN_CASES[-1][1] and rate > 0.0:
                 with tf32(True):  # the kernels' precision is their own
-                    flagged = attention_grads(kernel, q, k, v, dout)
+                    flagged = attention_grads(
+                        lambda *a: ta.train_attention(*a, key_valid=mask, dropout_rate=rate,
+                                                      seed=seed), q, k, v, dout)
                 if not all(torch.equal(g, a) for g, a in zip(got, flagged)):
                     raise AssertionError(f"{case}: the kernels' results move with the TF32 flags")
                 note += "; with both TF32 flags on, bit-identical"
                 del flagged
             if n > FP32_TRAIN_CASES[0][1] and rate > 0.0:
-                with tf32(True):
-                    control = fp32_attention_errors(
-                        plain_attention_grads(q, k, v, dout, lens, rate, seed), want)
-                controls.append(control)
-                if all(control[name] <= FP32_ATTN_TOLS[name] for name in names):
-                    raise AssertionError(f"{case}: the TF32 control {control} passes the "
-                                         f"limits {FP32_ATTN_TOLS}: they cannot see TF32")
+                controls.append(tf32_control(q, k, v, dout, lens, rate, seed, want, case))
                 note += "; TF32 control (refused) " + ", ".join(
-                    f"{name} {control[name]:.3g}" for name in names)
+                    f"{name} {controls[-1][name]:.3g}" for name in names)
             if n == FP32_TRAIN_CASES[1][1] and rate > 0.0:
                 cpu = plain_attention_grads(q.cpu(), k.cpu(), v.cpu(), dout.cpu(), lens.cpu(),
                                             rate, seed)
@@ -2842,48 +2933,8 @@ def check_train_attention_fp32(dev) -> dict:
             del got, want
         if n == FP32_TRAIN_CASES[0][1]:
             continue
-        ms = {}
-        for rate in (0.1, 0.0):
-            out, lse = ta.flash_forward_fp32(q, k, v, lens, rate, seed)
-            dd = ta.row_dot(dout, out)
-            ms[rate] = {
-                "fwd": cuda_median_ms(lambda: ta.flash_forward_fp32(q, k, v, lens, rate, seed)),
-                "dq": cuda_median_ms(
-                    lambda: ta.flash_dq_fp32(q, k, v, lens, lse, dd, dout, rate, seed)),
-                "dkv": cuda_median_ms(
-                    lambda: ta.flash_dkv_fp32(q, k, v, lens, lse, dd, dout, rate, seed))}
-        args = [t.clone().requires_grad_() for t in (q, k, v)]
-        with tf32(False):
-            plain_fwd = cuda_median_ms(
-                lambda: ta.train_attention_reference(*args, lens, 0.1, seed), iters=5, warmup=1)
-            ref = ta.train_attention_reference(*args, lens, 0.1, seed)
-            plain_bwd = cuda_median_ms(
-                lambda: torch.autograd.grad(ref, args, dout, retain_graph=True),
-                iters=5, warmup=1)
-            del ref
-            lib_args = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
-            lib_fwd = cuda_median_ms(lambda: F.scaled_dot_product_attention(*lib_args))
-            lib_out = F.scaled_dot_product_attention(*lib_args)
-            lib_dout = dout.transpose(1, 2)
-            lib_bwd = cuda_median_ms(
-                lambda: torch.autograd.grad(lib_out, lib_args, lib_dout, retain_graph=True))
-            del lib_out
-        # q, k, v, dO, O / dq / dk, dv in fp32, the LSE and D rows; QK^T (and
-        # dO V^T in the backward) and each product onto an output, over each
-        # sample's valid keys (all of them where none is valid)
-        elems, rows = b * n * 16 * 64, b * 16 * n
-        keys = sum(n if length <= 0 else length for length in lens_list)
-        work = 2.0 * 16 * 64 * n * keys
-        work_of = {"fwd": (4 * elems * 4 + rows * 4 + 4 * b, 2 * work),
-                   "dq": (5 * elems * 4 + 2 * rows * 4 + 4 * b, 3 * work),
-                   "dkv": (6 * elems * 4 + 2 * rows * 4 + 4 * b, 4 * work)}
-        # all three run on the tensor cores in 3xTF32; the FFMA bound of each
-        # is logged beside
-        least = {name: bound(*work_of[name], "tf32x3") for name in work_of}
-        ffma = {name: bound(*work_of[name], "fp32") for name in work_of}
-        times[n] = {name: dict(ms=ms[0.1][name], plain_ms=plain_fwd if name == "fwd"
-                               else plain_bwd, library_ms=lib_fwd if name == "fwd" else lib_bwd,
-                               **least[name]) for name in least}
+        ms, times[n], least, ffma = time_train_attention(q, k, v, dout, lens, lens_list, seed)
+        plain_fwd, plain_bwd, lib_fwd, lib_bwd = train_attention_yardsticks(times[n])
         keep1 = ms[0.0]
         log(f"[train-fp32] kernels b={b} n={n} lens {list(lens_list)}: at dropout 0.1 forward "
             f"{ms[0.1]['fwd']:.4f} ms, dq {ms[0.1]['dq']:.4f} ms, dk/dv {ms[0.1]['dkv']:.4f} ms "
@@ -2904,7 +2955,7 @@ def check_train_attention_fp32(dev) -> dict:
             f"forward {lib_fwd:.4f} ms, backward {lib_bwd:.4f} ms; against it at keep = 1 the "
             f"forward takes {keep1['fwd'] / lib_fwd:.2f}x and dq + dk/dv "
             f"{(keep1['dq'] + keep1['dkv']) / lib_bwd:.2f}x its time")
-        del q, k, v, dout, args, lib_args
+        del q, k, v, dout
     log("[train-fp32] kernels over every case: largest errors "
         + ", ".join(f"{name} {worst[name]:.3g}" for name in names)
         + "; smallest TF32 control "
@@ -2913,6 +2964,86 @@ def check_train_attention_fp32(dev) -> dict:
         "library_ms at keep = 1; dq's and dk/dv's plain_ms and library_ms are whole backwards")
     return {f"train_attention_fp32_{name}": dict(max_abs_err=abs_err[name], **times[n][name])
             for name in abs_err}
+
+
+JOINT_TRAIN_N = (4160, 5120, JOINT_N)  # kernel 4 past 4096: the MMDiT's joint sequences
+
+
+def check_train_attention_joint(dev) -> dict:
+    """Kernels 4a / 4b / 4c in bf16 and fp32 on the MMDiT's joint sequence, at
+    b = 2, h = 16 and n = 4160, 5120 (the train buckets' 1024 + 4096) and
+    6144 (the serving buckets' 2048 + 4096), with lens [n, n - 37] and with
+    [0, n - 37] (a sample with no valid key), at dropout 0.1 and keep = 1:
+    each against the plain version within its dtype's limits (bf16:
+    :func:`check_train_attention_case`, with its wrong-seed control; fp32:
+    :func:`check_train_attention_fp32_case`, with a TF32 control at dropout
+    0.1 that must be refused), then timed with lens [n, n - 37]
+    (:func:`time_train_attention`). Returns the JSON rows' numbers at n =
+    6144, ``train_attention_joint_*`` and ``train_attention_fp32_joint_*``."""
+    import torch
+
+    rows = {}
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 140 + len(tag))
+        errs = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+        for n in JOINT_TRAIN_N:
+            q, k, v, dout = (torch.randn((2, n, 16, 64), generator=gen, device=dev).to(dtype)
+                             for _ in range(4))
+            seed = 0x5EED0000 + n + len(tag)
+            for lens_list in ([n, n - 37], [0, n - 37]):
+                lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
+                for rate in (0.1, 0.0):
+                    case = f"train_attention {tag} b=2 n={n} lens={lens_list} dropout {rate}"
+                    if dtype == torch.bfloat16:
+                        abs_err = check_train_attention_case(q, k, v, dout, lens, rate,
+                                                             seed)["abs_err"]
+                        got = [abs_err[name] for name in ("fwd", "dq", "dk", "dv")]
+                    else:
+                        err, out, want, lse_err = check_train_attention_fp32_case(
+                            q, k, v, dout, lens, rate, seed, case)
+                        got = [float((g - w).abs().max()) for g, w in zip(out, want)]
+                        note = ""
+                        if rate > 0.0:
+                            control = tf32_control(q, k, v, dout, lens, rate, seed, want, case)
+                            note = "; TF32 control (refused) " + ", ".join(
+                                f"{name} {c:.3g}" for name, c in control.items())
+                        del out, want
+                        log(f"[kernels] {case}: " + ", ".join(
+                            f"{name} {e:.3g}" for name, e in err.items())
+                            + f" (limits {FP32_ATTN_TOLS}); LSE relative L2 {lse_err:.3g}; "
+                            f"second forward and backward bit-identical{note}")
+                    for name, e in zip(("fwd", "dq", "dkv", "dkv"), got):
+                        errs[name] = max(errs[name], e)
+            lens_list = [n, n - 37]
+            lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
+            ms, times, least, ffma = time_train_attention(q, k, v, dout, lens, lens_list,
+                                                          0x5EED0000 + n)
+            plain_fwd, plain_bwd, lib_fwd, lib_bwd = train_attention_yardsticks(times)
+            keep1 = ms[0.0]
+            log(f"[kernels] train_attention {tag} b=2 n={n} h=16 lens {lens_list}: at dropout "
+                f"0.1 forward {ms[0.1]['fwd']:.4f} ms, dq {ms[0.1]['dq']:.4f} ms, dk/dv "
+                f"{ms[0.1]['dkv']:.4f} ms; at keep = 1 forward {keep1['fwd']:.4f} ms, dq "
+                f"{keep1['dq']:.4f} ms, dk/dv {keep1['dkv']:.4f} ms; bounds "
+                + ", ".join(f"{name} {x['bound_ms']:.5f} ms by {x['bound_by']} "
+                            f"({x['bound_ms'] / keep1[name]:.1%} of keep 1)"
+                            for name, x in least.items())
+                + (" at the 3xTF32 rate (FFMA " + " / ".join(
+                    f"{x['bound_ms']:.5f}" for x in ffma.values()) + " ms)"
+                   if dtype == torch.float32 else "")
+                + f"; plain forward {plain_fwd:.4f} ms, plain backward {plain_bwd:.4f} ms; "
+                f"library scaled_dot_product_attention{' (TF32 off)' if tag == 'fp32' else ''} "
+                f"at keep = 1, no mask: forward {lib_fwd:.4f} ms, backward {lib_bwd:.4f} ms; "
+                f"against it at keep = 1 the forward takes {keep1['fwd'] / lib_fwd:.2f}x and "
+                f"dq + dk/dv {(keep1['dq'] + keep1['dkv']) / lib_bwd:.2f}x its time")
+            del q, k, v, dout
+        prefix = "train_attention_joint" if tag == "bf16" else "train_attention_fp32_joint"
+        rows.update({f"{prefix}_{name}": dict(max_abs_err=errs[name], **times[name])
+                     for name in errs})
+    log(f"[kernels] the JSON line's joint training rows are the n = {JOINT_N} case's, ms and "
+        "plain_ms at dropout 0.1, library_ms at keep = 1; dq's and dk/dv's plain_ms and "
+        "library_ms are whole backwards; max_abs_err over n = "
+        + ", ".join(str(n) for n in JOINT_TRAIN_N) + ", both lens sets and both rates")
+    return rows
 
 
 def fp32_step(trainer, state, batch, draws) -> tuple[float, float, object]:
@@ -3153,6 +3284,248 @@ def phase_train_fp32(dev, arch=None) -> tuple[dict, dict]:
     if counts != [2 * depth_s, depth_s, depth_s, 0, 0, 0]:
         raise AssertionError(f"[train-fp32] distill launches {counts}")
     return rows, launches
+
+
+# MMDiT training (dropout 0: the JAX MMDiT trains at no other rate)
+MMDIT_TRAIN_JOINT = (1024, 4096)  # text bucket + mel bucket: the JAX training buckets' longest
+# the largest b <= 9 that fits without checkpointing (H100 80GB): 9 in bf16 (peak
+# 48.45 GiB allocated, 49.40 GiB reserved). In fp32 b = 9 fits too, but at 76.74
+# GiB allocated and 78.37 GiB reserved of the card's 79.2 another run's
+# allocator state could fail it: the smoke takes 8
+MMDIT_TRAIN_BATCH = {"bf16": 9, "fp32": 8}
+MMDIT_CHECK = (2, 256, 1024)  # b, text bucket, mel frames of the steps held against plain
+MMDIT_CHECK_SEEDS = (SEED + 50, SEED + 53)  # their batches (and draws: the seed + 1)
+# those steps in bf16, kernel 4 vs plain attention, relative (the gradients'
+# limits lie between the error measured on an H100 and a control's, the plain
+# step with one 64-key tile of the joint sequence masked in every block; the
+# two seeds): gradient 3.99e-3 / 3.77e-3 vs 1.37e-2 / 1.9e-2, q / k / v
+# projections' gradient 3.16e-3 / 3.45e-3 vs 5.9e-2 / 8.1e-2. The loss cannot
+# see a lost tile at bf16 (it moved by 4.45e-6 / 1.47e-5, the control by
+# 1.34e-5 / 4.02e-5, and each bf16 step's loss lay 2.6e-5 to 4.1e-5 from the
+# fp32 step's): it is held only within bf16 rounding, and its control is
+# logged. Both bf16 steps are held against an fp32-compute step of the same
+# weights and batch as well: the kernel's gradients may lie no further from it
+# than MMDIT_ROUNDING times the plain bf16 step's do (gradient 7.84e-3 vs
+# 7.88e-3 / 7.66e-3 vs 7.64e-3, q / k / v 1.38e-2 vs 1.38e-2 / 1.62e-2 vs
+# 1.60e-2), so that the error between the two is bf16 rounding and not the
+# kernel's
+MMDIT_TOLS = {"loss": 1e-4, "gradient L2": 7e-3, "q/k/v gradient L2": 1.4e-2}
+MMDIT_ROUNDING = 1.25
+
+
+def check_mmdit_refuses_dropout(trainer, state, dev, tag: str) -> None:
+    """A training step of the MMDiT at dropout 0.1 raises the port's
+    ValueError before any kernel launches and leaves the state as it was."""
+    import torch
+
+    net = state.model
+    batch = train_batch(dev, SEED + 52, (2, 256), 64)
+    before, step = fp32_counts() + [serving_counts()], state.step
+    net.arch = dataclasses.replace(net.arch, dropout=0.1)
+    try:
+        trainer.train_step(state, batch, torch.Generator(device=dev).manual_seed(SEED))
+    except ValueError as refusal:
+        message = str(refusal)
+    else:
+        raise AssertionError(f"{tag} a training step at dropout 0.1 was not refused")
+    finally:
+        net.arch = dataclasses.replace(net.arch, dropout=0.0)
+    torch.cuda.synchronize()
+    if fp32_counts() + [serving_counts()] != before or state.step != step:
+        raise AssertionError(f"{tag} the refused step launched a kernel or moved the state")
+    log(f"{tag} dropout 0.1 refused before any launch: {message[:150]}...")
+
+
+def check_mmdit_step_against_plain(trainer, state, dev, tag: str) -> None:
+    """For each seed of MMDIT_CHECK_SEEDS, one `Trainer.train_step` (the
+    update withheld) of the full MMDiT at b, text, mel = MMDIT_CHECK with
+    kernel 4 against the same step with `train_attention.plain` set, on the
+    same batch and draws: the loss, the whole gradient, the q / k / v
+    projections' (both streams) and the worst single parameter's gradient
+    (relative L2). bf16 compute is held to MMDIT_TOLS, and a control, the
+    plain step with the last 64-key tile of the joint sequence masked in
+    every block (what a kernel that lost one tile would give), must exceed
+    each gradient's limit (bf16 rounding moves the loss as much); both bf16
+    steps are also held against the plain step in fp32 compute on the same
+    weights, the kernel's gradients within MMDIT_ROUNDING times the plain
+    bf16 step's distance. fp32 compute is held to the fp32 step's
+    limits (FP32_STEP_LOSS_TOL, FP32_STEP_GRAD_TOL) with both TF32 flags on
+    around the step, and a control (the plain step without the trainer's
+    fp32 block) must exceed the gradient's limit."""
+    import torch
+
+    from eraxvif5tts_tpu_torch.models.cfm import LossDraws
+    from eraxvif5tts_tpu_torch.ops import train_attention as ta
+    from eraxvif5tts_tpu_torch.training import trainer as trainer_module
+
+    net = state.model
+    fp32 = net.dtype == torch.float32
+    b, nt, n = MMDIT_CHECK
+    names = [name for name, _ in net.named_parameters()]
+    sizes = [p.numel() for p in net.parameters()]
+
+    reference = ta.train_attention_reference
+
+    def short_of_a_tile(q, k, v, lens=None, *args, **kwargs):
+        lens = torch.full((q.shape[0],), q.shape[1] - 64, device=q.device) if lens is None else lens
+        return reference(q, k, v, torch.clamp(lens, max=q.shape[1] - 64), *args, **kwargs)
+
+    def step(batch, draws, plain: bool, held: bool = True, lost_tile: bool = False,
+             compute_fp32: bool = False):
+        ta.train_attention.plain = plain
+        hold, compute = trainer_module.fp32_when, net.compute_dtype
+        if not held:
+            trainer_module.fp32_when = lambda dtype: contextlib.nullcontext()
+        if lost_tile:
+            ta.train_attention_reference = short_of_a_tile
+        if compute_fp32:
+            net.compute_dtype = None
+        try:
+            with tf32(fp32):
+                return fp32_step(trainer, state, batch, draws)
+        finally:
+            ta.train_attention.plain = False
+            trainer_module.fp32_when = hold
+            ta.train_attention_reference = reference
+            net.compute_dtype = compute
+
+    qkv = [i for i, name in enumerate(names)
+           if name.split(".")[-2] in ("to_q", "to_k", "to_v", "to_q_c", "to_k_c", "to_v_c")]
+
+    def distance(x, want):
+        parts = [torch.split(y[2], sizes) for y in (x, want)]
+        return {"loss": abs(x[0] - want[0]) / abs(want[0]), "gradient L2": rel_l2(x[2], want[2]),
+                "q/k/v gradient L2": rel_l2(torch.cat([parts[0][i] for i in qkv]),
+                                            torch.cat([parts[1][i] for i in qkv]))}
+
+    for seed in MMDIT_CHECK_SEEDS:
+        batch = train_batch(dev, seed, (b, n), nt)
+        draws = LossDraws.sample(torch.Generator(device=dev).manual_seed(seed + 1), b, n, 100,
+                                 net.arch.depth)
+        got, want = step(batch, draws, False), step(batch, draws, True)
+        parts = [torch.split(x[2], sizes) for x in (got, want)]
+        worst = max((rel_l2(g, w), names[i]) for i, (g, w) in enumerate(zip(*parts))
+                    if w.norm() > 0)
+        err = distance(got, want)
+        if fp32:
+            tols = {"loss": FP32_STEP_LOSS_TOL, "gradient L2": FP32_STEP_GRAD_TOL}
+            control = {"gradient L2": rel_l2(step(batch, draws, True, held=False)[2], want[2])}
+            what = "plain, without the trainer's fp32 block: TF32 in the step"
+        else:
+            tols = MMDIT_TOLS
+            control = distance(step(batch, draws, True, lost_tile=True), want)
+            what = "plain, the last 64-key tile masked in every block"
+        log(f"{tag} seed {seed}: Trainer.train_step b={b} text {nt} + mel {n} = {nt + n}, "
+            f"kernel 4 vs plain attention{' (TF32 flags on outside the step)' if fp32 else ''}: "
+            f"loss {got[0]:.6f} vs {want[0]:.6f}, grad_norm {got[1]:.5f} vs {want[1]:.5f}; "
+            "relative errors (tol, or logged where none): "
+            + ", ".join(f"{name} {e:.3g} ({tols.get(name, 'logged')})" for name, e in err.items())
+            + f", worst single parameter {worst[0]:.3g} ({worst[1]}); control ({what}) "
+            + ", ".join(f"{name} {c:.3g}" for name, c in control.items()))
+        if not (torch.isfinite(got[2]).all() and all(err[name] <= t for name, t in tols.items())):
+            raise AssertionError(f"{tag} seed {seed}: the step with kernel 4 differs from plain: "
+                                 f"{err}")
+        if not all(control[name] > tols[name] for name in control
+                   if name in tols and (fp32 or name != "loss")):
+            raise AssertionError(f"{tag} seed {seed}: the control ({what}) moves the step by "
+                                 f"only {control}, within the limits {tols}")
+        if fp32:
+            continue
+        exact = step(batch, draws, True, compute_fp32=True)
+        rounding = {"kernel": distance(got, exact), "plain": distance(want, exact)}
+        log(f"{tag} seed {seed}: against the plain step in fp32 compute (same weights, batch "
+            "and draws), relative: " + "; ".join(
+                f"{who} bf16 step " + ", ".join(f"{name} {e:.3g}" for name, e in d.items())
+                for who, d in rounding.items()))
+        far = {name: e for name, e in rounding["kernel"].items()
+               if name != "loss" and e > MMDIT_ROUNDING * rounding["plain"][name]}
+        if far:
+            raise AssertionError(f"{tag} seed {seed}: the kernel's bf16 step lies further from "
+                                 f"fp32 than {MMDIT_ROUNDING} x the plain bf16 step's: {far}")
+
+
+def phase_mmdit_train(dev, cfg=None) -> dict:
+    """MMDiT training at full width and depth (``cfg``: another MMDiT
+    configuration, for a rehearsal): F5TTS_v1_MMDiT at dropout 0 (the
+    preset's 0.1 is refused, as the JAX MMDiT cannot train at it) from
+    seeded N(0, 0.02) weights, in bf16 compute and then in fp32, each with
+    fp32 parameters and no activation checkpointing (the JAX MMDiT has
+    none): the refusal of dropout 0.1 before any launch (bf16), one step
+    against plain attention (:func:`check_mmdit_step_against_plain`), then
+    `Trainer.train_step` at MMDIT_TRAIN_BATCH x the joint MMDIT_TRAIN_JOINT
+    (a warm-up and two timed steps in bf16, a warm-up and one in fp32) with
+    kernel 4 of the step's dtype counted depth / depth / depth a step (no
+    recompute) and the other dtype's at 0, the peak memory, and a profiled
+    step. Returns the joint rows' launches over those steps."""
+    import torch
+
+    from eraxvif5tts_tpu_torch.configs import PRESETS
+    from eraxvif5tts_tpu_torch.models.cfm import CFM
+    from eraxvif5tts_tpu_torch.models.mmdit import MMDiT
+    from eraxvif5tts_tpu_torch.training.trainer import Trainer, batch_seed, make_optimizer
+
+    cfg = cfg or PRESETS["F5TTS_v1_MMDiT"]
+    arch = dataclasses.replace(cfg.arch, dropout=0.0)
+    nt, n = MMDIT_TRAIN_JOINT
+    torch.cuda.empty_cache()  # the fp32 steps need most of the card
+    depth = arch.depth
+    launches = {}
+    for label, steps in (("bf16", 3), ("fp32", 2)):
+        tag = f"[mmdit-train {label}]"
+        t0 = time.perf_counter()
+        net = MMDiT(arch, len(VOCAB_CHARS), 100,
+                    compute_dtype=torch.bfloat16 if label == "bf16" else None).to(dev)
+        randomize((net,), SEED + 6)
+        trainer = Trainer(cfm=CFM(net.train()),
+                          optimizer=make_optimizer(num_warmup_updates=1, total_updates=1000))
+        state = trainer.init_state()
+        log(f"{tag} {cfg.name} dim {arch.dim} depth {depth} heads {arch.heads}x{arch.dim_head} "
+            f"ff_mult {arch.ff_mult}: {sum(p.numel() for p in net.parameters()) / 1e6:.1f} M "
+            f"fp32 parameters, {net.dtype} compute, dropout 0, no checkpointing, "
+            f"N(0, {WEIGHT_STD}) seed {SEED + 6}, built in {time.perf_counter() - t0:.1f} s")
+        if label == "bf16":
+            check_mmdit_refuses_dropout(trainer, state, dev, tag)
+        check_mmdit_step_against_plain(trainer, state, dev, tag)
+        b = MMDIT_TRAIN_BATCH[label]
+        want = [0, 0, 0, depth, depth, depth] if label == "bf16" else [depth] * 3 + [0] * 3
+        before = fp32_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        walls = []
+        for i in range(steps):
+            batch = train_batch(dev, SEED + 60 + i, (b, n), nt)
+            counts = fp32_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = trainer.train_step(
+                state, batch, torch.Generator(device=dev).manual_seed(batch_seed(SEED, 4, i)))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            counts = [c - c0 for c, c0 in zip(fp32_counts(), counts)]
+            log(f"{tag} step {i + 1} ({'warm-up' if i == 0 else 'timed'}) b={b} text {nt} + "
+                f"mel {n}: loss {metrics['loss']:.5f}, grad_norm {metrics['grad_norm']:.5f}, "
+                f"applied {metrics['applied']:.0f}, {walls[-1]:.3f} s; launches fp32 "
+                f"fwd/dq/dkv, bf16 fwd/dq/dkv {counts}")
+            if not (math.isfinite(metrics["loss"]) and math.isfinite(metrics["grad_norm"])
+                    and metrics["applied"] == 1.0):
+                raise AssertionError(f"{tag} step {i + 1}: non-finite or not applied")
+            if counts != want:
+                raise AssertionError(f"{tag} step {i + 1}: launches {counts}, expected {want}")
+        total = [c - c0 for c, c0 in zip(fp32_counts(), before)]
+        peak = torch.cuda.max_memory_allocated(dev)
+        reserved = torch.cuda.max_memory_reserved(dev)
+        wall = statistics.median(walls[1:])
+        log(f"{tag} timed step(s) b={b} x (text {nt} + mel {n}): {wall:.3f} s a step, "
+            f"{b * n / wall:.0f} mel frames/s ({b * (nt + n) / wall:.0f} joint positions/s); "
+            f"peak memory {peak / 2**30:.2f} GiB allocated, {reserved / 2**30:.2f} GiB "
+            f"reserved, of {torch.cuda.get_device_properties(dev).total_memory / 2**30:.1f}")
+        prefix = "train_attention_joint" if label == "bf16" else "train_attention_fp32_joint"
+        counted = total[3:] if label == "bf16" else total[:3]
+        launches.update({f"{prefix}_{name}": c for name, c in zip(("fwd", "dq", "dkv"), counted)})
+        profile_train_step(trainer, state, train_batch(dev, SEED + 70, (b, n), nt), dev, wall,
+                           tag)
+        del net, trainer, state, batch
+        torch.cuda.empty_cache()
+    return launches
 
 
 COMPRESS_DEPTHS = (14, 12)  # F5TTS_v1_Pruned_14 / _12
@@ -3450,6 +3823,14 @@ def phase_compress(dev) -> dict:
     return launches
 
 
+def timed(tag: str, phase, *args, **kwargs):
+    """``phase(*args, **kwargs)``, its wall logged as the phase's."""
+    t0 = time.perf_counter()
+    result = phase(*args, **kwargs)
+    log(f"{tag} phase done in {time.perf_counter() - t0:.1f} s")
+    return result
+
+
 def main() -> int:
     if not (ROOT / "eraxvif5tts_tpu_torch").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -3462,55 +3843,53 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
               file=sys.stderr)
         return 2
+    from eraxvif5tts_tpu_torch.configs import PRESETS
+
     t_start = time.perf_counter()
     phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
-    kernel_results = phase_kernels(dev)
-    wrapper, ref, launches = phase_main(dev)
-    phase_server(wrapper, ref)
-    phase_http(wrapper)
-    phase_edit(wrapper, dev)
-    t0 = time.perf_counter()
-    bigvgan_launches = phase_bigvgan(wrapper, dev)
-    log(f"[bigvgan] phase done in {time.perf_counter() - t0:.1f} s")
+    kernel_results = timed("[kernels]", phase_kernels, dev)
+    wrapper, ref, launches = timed("[main]", phase_main, dev)
+    timed("[server]", phase_server, wrapper, ref)
+    timed("[http]", phase_http, wrapper)
+    timed("[edit]", phase_edit, wrapper, dev)
+    bigvgan_launches = timed("[bigvgan]", phase_bigvgan, wrapper, dev)
     cfg = wrapper.config
     with tempfile.TemporaryDirectory() as tmp:
         mmdit_ckpt = Path(tmp) / "mmdit.pt"
-        t0 = time.perf_counter()
-        launches["serving_attention_joint"] = phase_mmdit(dev, ckpt=mmdit_ckpt)
-        log(f"[mmdit] phase done in {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        fp32_rows, fp32_launches = phase_fp32(wrapper, dev, mmdit_ckpt)
-        log(f"[fp32] phase done in {time.perf_counter() - t0:.1f} s")
+        launches["serving_attention_joint"] = timed("[mmdit]", phase_mmdit, dev, ckpt=mmdit_ckpt)
+        fp32_rows, fp32_launches = timed("[fp32]", phase_fp32, wrapper, dev, mmdit_ckpt)
+        mmdit_ff, ff_err = timed("[mmdit-int8]", phase_int8, dev, PRESETS["F5TTS_v1_MMDiT"],
+                                 "[mmdit-int8]", mmdit_ckpt, turns=1)
+    kernel_results["int8_ff"]["max_abs_err"] = max(kernel_results["int8_ff"]["max_abs_err"],
+                                                   ff_err)
     kernel_results.update(fp32_rows)
     launches.update(fp32_launches)
     del wrapper, ref
-    launches["int8_ff"], ff_err = phase_int8(dev, cfg)
+    launches["int8_ff"], ff_err = timed("[int8]", phase_int8, dev, cfg)
     kernel_results["int8_ff"]["max_abs_err"] = max(kernel_results["int8_ff"]["max_abs_err"],
                                                    ff_err)
-    launches.update(phase_train(dev))
-    t0 = time.perf_counter()
-    fp32_train_rows, fp32_train_launches = phase_train_fp32(dev)
-    log(f"[train-fp32] phase done in {time.perf_counter() - t0:.1f} s")
+    launches.update(timed("[train]", phase_train, dev))
+    fp32_train_rows, fp32_train_launches = timed("[train-fp32]", phase_train_fp32, dev)
     kernel_results.update(fp32_train_rows)
     launches.update(fp32_train_launches)
-    from eraxvif5tts_tpu_torch.configs import PRESETS
-
+    launches.update(timed("[mmdit-train]", phase_mmdit_train, dev))
     with tempfile.TemporaryDirectory() as tmp:
         e2_ckpt = Path(tmp) / "e2tts_base.pt"
-        launches.update(phase_e2tts(dev, ckpt=e2_ckpt))
-        launches["int8_ff_ffmult4"], ff_err = phase_int8(dev, PRESETS["E2TTS_Base"],
-                                                         "[e2tts-int8]", e2_ckpt)
+        launches.update(timed("[e2tts]", phase_e2tts, dev, ckpt=e2_ckpt))
+        launches["int8_ff_ffmult4"], ff_err = timed("[e2tts-int8]", phase_int8, dev,
+                                                    PRESETS["E2TTS_Base"], "[e2tts-int8]", e2_ckpt)
     row = kernel_results["int8_ff_ffmult4"]
     row["max_abs_err"] = max(row["max_abs_err"], ff_err)
-    compress = phase_compress(dev)
+    compress = timed("[compress]", phase_compress, dev)
     idle = {path: [k for k, v in counts.items() if v <= 0] for path, counts in compress.items()}
     if any(idle.values()):
         raise AssertionError(f"kernels never launched on the compress path: {idle}")
     log(f"[compress] launches by path: {compress}")
     log(f"[bigvgan] launches: {bigvgan_launches}; [mmdit] kernel 1 without rotary: "
-        f"{launches['serving_attention_joint']}; [fp32] kernel 1 fp32: {fp32_launches}")
+        f"{launches['serving_attention_joint']}; [fp32] kernel 1 fp32: {fp32_launches}; "
+        f"[mmdit-int8] kernel 5 in the fused batch call: {mmdit_ff}")
     kernels = [
         *(dict(name=name, route="cuda",
                source="eraxvif5tts_tpu_torch/csrc/serving_attention.cu",
@@ -3547,6 +3926,13 @@ def main() -> int:
                launches=launches[name], **kernel_results[name])
           for name, line in (("train_attention_fp32_fwd", 104), ("train_attention_fp32_dq", 150),
                              ("train_attention_fp32_dkv", 190))),
+        *(dict(name=f"{prefix}_{name}", route="cuda",
+               source=f"eraxvif5tts_tpu_torch/csrc/{source}",
+               replaces=f"eraxvif5tts_tpu/ops/train_attention.py:{line}",
+               launches=launches[f"{prefix}_{name}"], **kernel_results[f"{prefix}_{name}"])
+          for prefix, source in (("train_attention_joint", "train_attention.cu"),
+                                 ("train_attention_fp32_joint", "train_attention_fp32.cu"))
+          for name, line in (("fwd", 104), ("dq", 150), ("dkv", 190))),
     ]
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
     if missing:

@@ -27,7 +27,8 @@ state dicts built here load with ``load_state_dict(strict=True)``.
 
 A JAX tree quantized by `quantize_params` (``kernel_q [in, out]`` int8 and
 ``kernel_scale [out]`` in place of ``kernel`` in the six projections of each
-DiT block or UNetT layer) maps to the quantized backbone's
+DiT block or UNetT layer, and in an MMDiT block the text stream's four and
+both feed-forwards' too) maps to the quantized backbone's
 ``weight_q [out, in]`` int8 and ``weight_scale``; int8 leaves keep their
 dtype, every other leaf is fp32.
 """
@@ -450,8 +451,8 @@ def backbone_rules(cfg: ModelConfig) -> list[Rule]:
 
 def backbone_state_dict_from_jax(params: dict, cfg: ModelConfig) -> dict[str, np.ndarray]:
     """The JAX backbone tree of ``cfg`` (DiT: per-block or scan-stacked; UNetT:
-    flat or scan-stacked; either fp or quantized by `quantize_params`;
-    MMDiT: per-block, fp) ->
+    flat or scan-stacked; MMDiT: per-block; each fp or quantized by
+    `quantize_params`) ->
     reference-schema numpy arrays without the ``transformer.`` prefix
     (`backbone_params_to_torch` for fp trees)."""
     from eraxvif5tts_tpu_torch.ops.quant import quantized_weight_keys
@@ -461,9 +462,7 @@ def backbone_state_dict_from_jax(params: dict, cfg: ModelConfig) -> dict[str, np
     if "down_blocks" in params:
         params = unstack_unett_params(params)
     rules = backbone_rules(cfg)
-    # int8 MMDiT is not ported: its trees are fp (`ops/quant.py` refuses it)
-    quantized = (set() if cfg.backbone == "MMDiT"
-                 else set(quantized_weight_keys(cfg.arch.depth, cfg.backbone)))
+    quantized = set(quantized_weight_keys(cfg.arch.depth, cfg.backbone))
     out = {}
     for key, path, _, inverse in rules:
         node = _get(params, path[:-1])

@@ -23,10 +23,11 @@
 // What bounds it on an H100: the forward does 4 b h n^2 d operations and
 // the dq and dk/dv kernels 6 and 8 b h n^2 d, over ~4 b n h d * 4 bytes read
 // and written each (n, 1.5 n and 2 n operations a byte), so at the training
-// shapes (n up to 4096) operations bound all three, never bytes: at 495 / 3
-// = 165 TFLOP/s of fp32-accurate products in 3xTF32 (two products a key tile
-// in the forward, three in dq, four in dk/dv, each 64 columns deep), beside
-// the per-element `expf`, keep-bit hash and split work on the CUDA cores.
+// shapes (n up to 6144, the MMDiT's joint sequence) operations bound all
+// three, never bytes: at 495 / 3 = 165 TFLOP/s of fp32-accurate products in
+// 3xTF32 (two products a key tile in the forward, three in dq, four in
+// dk/dv, each 64 columns deep), beside the per-element `expf`, keep-bit hash
+// and split work on the CUDA cores.
 //
 // Every product runs on the tensor cores, `mma.sync.m16n8k8` with TF32
 // operands in 3xTF32, on the toolkit of `fp32_tile.cuh` (its header says

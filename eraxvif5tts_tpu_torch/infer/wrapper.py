@@ -20,7 +20,8 @@ the compute dtype is bf16 and the vocoder is as in bf16 serving.
 ``int8_validate`` runs the quality gate (`ops/quant.quant_divergence`: 8
 steps at ``max_duration=256``) against a bf16 twin of the same weights when
 the wrapper quantized them, raises past the threshold, keeps the report in
-``int8_report`` and frees the twin.
+``int8_report`` and frees the twin. The gate's text is 32 tokens padded to
+64 ids, so the MMDiT's joint sequence, 64 + 256, is 64-aligned.
 
 Differences, by design:
 
@@ -50,9 +51,9 @@ extra frame 0, so with the default duration buckets the wrapper takes mel
 buckets of 64k - 1 frames for it (`eraxvif5tts_tpu/infer/wrapper.py:168-174`):
 the transformer then sees 64-aligned sequences, which the serving attention
 kernel requires. The MMDiT's joint sequence is the text bucket plus the mel
-bucket, 64-aligned as both are. The DiT and the UNetT serve in int8 W8A8
+bucket, 64-aligned as both are. All three serve in int8 W8A8
 (``compute_dtype="int8"``, quantized at load behind the quality gate with
-``int8_validate``); the int8 MMDiT raises.
+``int8_validate``).
 
 Vocoders: Vocos, or BigVGAN with ``vocoder_name="bigvgan"``
 (``vocoder_config`` a ``models.bigvgan.BigVGANConfig``, default
@@ -72,7 +73,7 @@ each ``generate_batch`` sample's) duration when ``use_duration_predictor``
 is on, as in the JAX wrapper: ``fix_duration`` wins, a prediction of 0
 frames falls back to ``byte_ratio_duration``.
 
-Not ported yet (ROADMAP.md): the int8 MMDiT, multi-device meshes
+Not ported yet (ROADMAP.md): multi-device meshes
 (``generate_batch`` runs on one device), the default Whisper backend behind an
 empty ``ref_text`` (pass ``transcribe_fn``). Each raises.
 """
@@ -195,7 +196,7 @@ class F5TTSWrapper:
             raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}, "
                              f"got {compute_dtype!r}")
         if compute_dtype == "int8":
-            quant.quantized_weight_keys(cfg.arch.depth, cfg.backbone)  # raises for the MMDiT
+            quant.quantized_weight_keys(cfg.arch.depth, cfg.backbone)  # an unknown backbone raises
         self.device = torch.device(device)
         dtype = _DTYPES[compute_dtype]
         self.compute_dtype = compute_dtype
@@ -298,7 +299,7 @@ class F5TTSWrapper:
 
     def _build_int8(self, cfg: ModelConfig, text_num_embeds: int, state_dict: Optional[dict],
                     prequantized: bool, validate: bool) -> torch.nn.Module:
-        """The quantized backbone (DiT or UNetT) on the device: ``state_dict``
+        """The quantized backbone (DiT, UNetT or MMDiT) on the device: ``state_dict``
         quantized here (or, ``prequantized``, already carrying ``weight_q``),
         matrices bf16, vectors fp32; gated by :func:`quant.quant_divergence`
         when ``validate`` and the fp weights are at hand (the UNetT's at 255

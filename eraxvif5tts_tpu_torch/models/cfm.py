@@ -90,9 +90,12 @@ class LossDraws:
 
 class CFM:
     """Stateless objective and sampler around a backbone: a
-    :class:`~eraxvif5tts_tpu_torch.models.dit.DiT` or a
-    :class:`~eraxvif5tts_tpu_torch.models.unett.UNetT`, through their shared
-    ``embed_text`` / ``run`` / ``forward`` interface."""
+    :class:`~eraxvif5tts_tpu_torch.models.dit.DiT`, a
+    :class:`~eraxvif5tts_tpu_torch.models.unett.UNetT` or a
+    :class:`~eraxvif5tts_tpu_torch.models.mmdit.MMDiT`, through their shared
+    ``embed_text`` / ``run`` / ``forward`` interface: :meth:`loss` (and so
+    ``Trainer.train_step``) calls the backbone's ``forward`` whichever it
+    is."""
 
     audio_drop_prob = 0.35  # reference `cfm.py:42`
     cond_drop_prob = 0.25  # reference `cfm.py:43`

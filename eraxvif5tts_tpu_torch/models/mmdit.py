@@ -29,9 +29,28 @@ Module and parameter names follow the reference torch schema
 (`compression/convert.py` ``mmdit_rules``), so a reference checkpoint loads
 with ``load_state_dict(strict=True)``.
 
-Serving only: the port's MMDiT runs in eval mode (training, with kernel 4 on
-the joint sequence, and the int8 MMDiT are ROADMAP items), and
-``scan_layers`` raises as in the other backbones.
+Training (``module.train()``, the JAX ``deterministic=False``) runs the
+joint attention through the training attention (`ops/train_attention.py`,
+kernel 4, whose domain reaches the joint 2048 + 4096) on the same
+``[b, nt + n, h, 64]`` q, k, v and prefix key mask as the eval path, at
+dropout 0: fp32 parameters, computing in ``compute_dtype`` (bf16 on the
+card) or in fp32, ``proj_out`` in its parameters' dtype as a flax ``Dense``
+without a dtype. The JAX MMDiT trains only at dropout 0: at any dropout
+> 0 its joint attention calls ``hash_dropout``, which
+`eraxvif5tts_tpu/models/mmdit.py` never imports (`:157`), and raises
+``NameError``; the port refuses dropout > 0 in training with a
+``ValueError`` before any kernel runs (ROADMAP queue 3) and takes the
+dropout keys without using them. There is no activation checkpointing: the
+JAX MMDiT has no ``nn.remat`` (unlike its DiT), so neither has the port's.
+
+``arch.quantized`` builds the int8 W8A8 serving MMDiT (`ops/quant.py`, the
+JAX ``quantized`` path): :class:`~eraxvif5tts_tpu_torch.ops.quant.QuantLinear`
+for the six q / k / v projections of both streams, ``to_out`` and
+``to_out_c``, and both feed-forwards' projections, which run the
+QuantLinear chain or, with ``ERAX_INT8_FF=1``, the one-kernel ``int8_ff``
+(kernel 5) on the mel stream's rows (``ff_x``) and the text stream's
+(``ff_c``). It serves only, in eval mode. ``scan_layers`` raises as in the
+other backbones.
 """
 
 from __future__ import annotations
@@ -53,11 +72,13 @@ from eraxvif5tts_tpu_torch.models.modules import (
     linear,
 )
 from eraxvif5tts_tpu_torch.ops.attention import dot_product_attention
+from eraxvif5tts_tpu_torch.ops.quant import QuantLinear
 from eraxvif5tts_tpu_torch.ops.rotary import (
     abs_pos_embedding_table,
     apply_rotary_heads,
     rotary_freqs,
 )
+from eraxvif5tts_tpu_torch.ops.train_attention import train_attention
 
 TEXT_MAX_POS = 1024  # reference `mmdit.py:37`
 
@@ -106,26 +127,29 @@ class JointAttention(nn.Module):
     """Joint attention over the concatenated (text, audio) streams
     (`mmdit.py:83-162`): six projections, q / k RMS norms per stream under
     ``qk_norm="rms_norm"``, each stream rotated by its own angles, the serving
-    attention without rotary on ``[b, nt + n, h, d]``, then ``to_out`` and,
-    unless ``context_pre_only``, ``to_out_c``. Padded audio rows are zeroed
-    after the output projection."""
+    attention without rotary (eval mode) or the training attention at dropout
+    0 (training mode) on ``[b, nt + n, h, d]``, then ``to_out`` and, unless
+    ``context_pre_only``, ``to_out_c``. Padded audio rows are zeroed after the
+    output projection. ``quantized``: every projection a
+    :class:`QuantLinear`."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, context_pre_only: bool = False,
-                 qk_norm: str | None = None):
+                 qk_norm: str | None = None, quantized: bool = False):
         super().__init__()
         if qk_norm not in (None, "rms_norm"):
             raise ValueError(f"unimplemented qk_norm: {qk_norm!r}")
         inner = heads * dim_head
+        dense = QuantLinear if quantized else nn.Linear
         self.heads, self.dim_head, self.context_pre_only = heads, dim_head, context_pre_only
         for name in ("to_q", "to_k", "to_v", "to_q_c", "to_k_c", "to_v_c"):
-            setattr(self, name, nn.Linear(dim, inner))
+            setattr(self, name, dense(dim, inner))
         if qk_norm is not None:
             self.q_norm, self.k_norm = RMSNorm(dim_head), RMSNorm(dim_head)
             self.c_q_norm, self.c_k_norm = RMSNorm(dim_head), RMSNorm(dim_head)
         else:
             self.q_norm = self.k_norm = self.c_q_norm = self.c_k_norm = None
-        self.to_out = nn.ModuleList([nn.Linear(inner, dim), nn.Dropout(0.0)])
-        self.to_out_c = None if context_pre_only else nn.Linear(inner, dim)
+        self.to_out = nn.ModuleList([dense(inner, dim), nn.Dropout(0.0)])
+        self.to_out_c = None if context_pre_only else dense(inner, dim)
 
     def _heads(self, layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
         return linear(x, layer).view(x.shape[0], x.shape[1], self.heads, self.dim_head)
@@ -144,7 +168,11 @@ class JointAttention(nn.Module):
         # text first: the joint key mask is a contiguous prefix
         q, k, v = (torch.cat(pair, dim=1) for pair in ((cq, q), (ck, k), (cv, v)))
         key_valid = None if mask is None else F.pad(mask, (nt, 0), value=True)
-        out = dot_product_attention(q, k, v, key_valid=key_valid).reshape(b, nt + n, -1)
+        if self.training:  # at dropout 0: MMDiT.run refuses any other rate
+            out = train_attention(q, k, v, key_valid=key_valid)
+        else:
+            out = dot_product_attention(q, k, v, key_valid=key_valid)
+        out = out.reshape(b, nt + n, -1)
         x_out = linear(out[:, nt:], self.to_out[0])
         c_out = None if self.context_pre_only else linear(out[:, :nt], self.to_out_c)
         if mask is not None:
@@ -159,14 +187,16 @@ class MMDiTBlock(nn.Module):
     layernorm + modulate."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, ff_mult: int = 4,
-                 context_pre_only: bool = False, qk_norm: str | None = None):
+                 context_pre_only: bool = False, qk_norm: str | None = None,
+                 quantized: bool = False):
         super().__init__()
         self.context_pre_only = context_pre_only
         self.attn_norm_c = AdaLayerNormFinal(dim) if context_pre_only else AdaLayerNorm(dim)
         self.attn_norm_x = AdaLayerNorm(dim)
-        self.attn = JointAttention(dim, heads, dim_head, context_pre_only, qk_norm)
-        self.ff_c = None if context_pre_only else FeedForward(dim, mult=ff_mult)
-        self.ff_x = FeedForward(dim, mult=ff_mult)
+        self.attn = JointAttention(dim, heads, dim_head, context_pre_only, qk_norm, quantized)
+        self.ff_c = (None if context_pre_only
+                     else FeedForward(dim, mult=ff_mult, quantized=quantized))
+        self.ff_x = FeedForward(dim, mult=ff_mult, quantized=quantized)
 
     @staticmethod
     def _ff(ff: FeedForward, h: torch.Tensor, shift: torch.Tensor,
@@ -202,10 +232,6 @@ class MMDiT(nn.Module):
         if arch.scan_layers:
             raise ValueError("scan_layers=True is the JAX package's compile-time workaround "
                              "and is not ported: build the unrolled form")
-        if arch.quantized:
-            from eraxvif5tts_tpu_torch.ops.quant import quantized_weight_keys
-
-            quantized_weight_keys(arch.depth, "MMDiT")  # raises: the int8 MMDiT waits
         self.arch = arch
         self.mel_dim = mel_dim
         self.compute_dtype = compute_dtype
@@ -215,7 +241,8 @@ class MMDiT(nn.Module):
         self.audio_embed = AudioEmbedding(mel_dim, arch.dim)
         self.transformer_blocks = nn.ModuleList(
             [MMDiTBlock(arch.dim, arch.heads, arch.dim_head, arch.ff_mult,
-                        context_pre_only=i == arch.depth - 1, qk_norm=arch.qk_norm)
+                        context_pre_only=i == arch.depth - 1, qk_norm=arch.qk_norm,
+                        quantized=arch.quantized)
              for i in range(arch.depth)])
         self.norm_out = AdaLayerNormFinal(arch.dim)
         self.proj_out = nn.Linear(arch.dim, mel_dim)
@@ -246,10 +273,20 @@ class MMDiT(nn.Module):
     def run(self, x: torch.Tensor, cond: torch.Tensor, text_embed: torch.Tensor,
             time: torch.Tensor, drop_audio_cond: torch.Tensor,
             mask: torch.Tensor | None = None, dropout_keys=None) -> torch.Tensor:
-        """Forward from a precomputed text stream (the Euler-loop hot path)."""
+        """Forward from a precomputed text stream (the Euler-loop hot path).
+        In training mode ``arch.dropout`` must be 0 and ``dropout_keys`` go
+        unused (see the module docstring)."""
         if self.training:
-            raise ValueError("the port's MMDiT serves only: call .eval() (MMDiT training is "
-                             "ROADMAP queue 1 item 5c)")
+            if self.arch.quantized:
+                raise ValueError("a quantized MMDiT serves only: call .eval() (int8 models are "
+                                 "not trained)")
+            if self.arch.dropout > 0.0:
+                raise ValueError(
+                    f"MMDiT training at dropout {self.arch.dropout} is refused: the JAX MMDiT "
+                    "cannot train at dropout > 0 (eraxvif5tts_tpu/models/mmdit.py:157 calls "
+                    "hash_dropout, which the module never imports, and raises NameError; "
+                    "ROADMAP queue 3, the JAX MMDiT's missing hash_dropout import); train "
+                    "with dropout=0.0")
         batch, seq_len = x.shape[0], x.shape[1]
         if time.ndim == 0:
             time = time.expand(batch)

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from eraxvif5tts_tpu_torch.compression.convert import dit_rules, unett_rules
+from eraxvif5tts_tpu_torch.compression.convert import dit_rules, mmdit_rules, unett_rules
 
 # the Dense names `quantize_params` quantizes (`ops/quant.py` `_QUANT_SUFFIXES`;
 # copied: that module imports jax). Not "skip_proj" (UNetT), as there; that
@@ -104,19 +104,20 @@ class QuantLinear(nn.Module):
 
 def quantized_weight_keys(depth: int, backbone: str = "DiT") -> list[str]:
     """The backbone's reference-schema keys of the Linear weights that
-    `quantize_params` quantizes: every rule of `dit_rules` or `unett_rules`
-    whose flax path is the ``kernel`` of a Dense named in
+    `quantize_params` quantizes: every rule of `dit_rules`, `unett_rules` or
+    `mmdit_rules` whose flax path is the ``kernel`` of a Dense named in
     :data:`QUANT_SUFFIXES`. In a DiT block or a UNetT layer:
     ``attn.to_{q,k,v}``, ``attn.to_out.0``, ``ff.ff.0.0`` and ``ff.ff.2``; the
-    UNetT's ``skip_proj`` stays unquantized."""
-    rules = {"DiT": dit_rules, "UNetT": unett_rules}.get(backbone)
-    if backbone == "MMDiT":
-        raise ValueError("int8 quantization of backbone 'MMDiT' is not ported (DiT | UNetT): "
-                         "the int8 MMDiT (its *_c text-stream projections, kernel 5 on ff_c / "
-                         "ff_x) is ROADMAP queue 1 item 5b; serve it in bf16")
+    UNetT's ``skip_proj`` stays unquantized. In an MMDiT block also the text
+    stream's ``attn.to_{q,k,v}_c``, ``attn.to_out_c``, ``ff_c.ff.0.0`` and
+    ``ff_c.ff.2``, which the last block (``context_pre_only``) has not."""
+    rules = {"DiT": lambda depth: dit_rules(depth, conv_layers=0),
+             "UNetT": lambda depth: unett_rules(depth, conv_layers=0),
+             "MMDiT": mmdit_rules}.get(backbone)
     if rules is None:
-        raise ValueError(f"int8 quantization of backbone {backbone!r} is not ported (DiT | UNetT)")
-    return [key for key, path, _, _ in rules(depth, conv_layers=0)
+        raise ValueError(f"int8 quantization of backbone {backbone!r} is not ported "
+                         "(DiT | UNetT | MMDiT)")
+    return [key for key, path, _, _ in rules(depth)
             if path[-1] == "kernel" and path[-2] in QUANT_SUFFIXES]
 
 
@@ -151,11 +152,16 @@ def fixed_inputs(num_channels: int, vocab: int, max_duration: int = 512,
     """The gate's deterministic prompt, text, lengths, sampler noise and
     forward input (numpy). The JAX fixture (`ops/quant.py` `_fixed_inputs`
     and the keys 3 and 11 of `quant_divergence`) draws the same shapes from
-    ``jax.random``; this one draws from a seeded numpy generator, so the two
-    gates score the same statistic on different draws (tests pass the JAX
-    draws in through ``inputs``)."""
+    ``jax.random``, but for the text's filler; this one draws from a seeded
+    numpy generator, so the two gates score the same statistic on different
+    draws (tests pass the JAX draws in through ``inputs``)."""
     rng = np.random.default_rng(seed)
-    text = np.full((1, text_len + 8), -1, np.int64)
+    # the text padded with -1 to a multiple of 64 ids (the JAX fixture pads 8):
+    # the MMDiT's joint sequence, text then mel, stays 64-aligned for the
+    # serving attention kernel. The DiT and the UNetT cut or pad the ids to
+    # the mel length with 0, which a -1 filler is after +1, so their readings
+    # are those of any other filler length.
+    text = np.full((1, -(-text_len // 64) * 64), -1, np.int64)
     text[0, :text_len] = rng.integers(0, vocab, text_len)
     return {
         "cond": (0.3 * rng.standard_normal((1, prompt_frames, num_channels))).astype(np.float32),
@@ -172,7 +178,7 @@ def quant_divergence(cfm_bf16, cfm_int8, steps: int = 16, max_duration: int = 51
                      inputs: dict | None = None) -> dict:
     """int8-against-bf16 divergence on a fixed prompt and noise: the relative
     mel MSE over the generated region, the log-spectral distance (dB) and the
-    relative MSE of one DiT forward. ``passes_gate`` applies
+    relative MSE of one backbone forward. ``passes_gate`` applies
     :data:`INT8_REL_MSE_THRESHOLD`. ``inputs`` defaults to :func:`fixed_inputs`."""
     if max_duration - 64 <= prompt_frames:
         raise ValueError(

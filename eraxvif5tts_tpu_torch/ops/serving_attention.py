@@ -53,12 +53,11 @@ from collections import OrderedDict
 
 import torch
 
-from eraxvif5tts_tpu_torch.infer.utils import DURATION_BUCKETS, TEXT_BUCKETS
 from eraxvif5tts_tpu_torch.ops import train_attention
 from eraxvif5tts_tpu_torch.ops.rotary import rotate_half
 
 _NEG = -1e30
-MAX_N = TEXT_BUCKETS[-1] + DURATION_BUCKETS[-1]  # the MMDiT's longest joint sequence
+MAX_N = train_attention.MAX_N  # the MMDiT's longest joint sequence, kernel 4's bound too
 TILE = 64
 HEAD_DIM = 64
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)

@@ -22,7 +22,15 @@ PyTorch version of the same semantics, differentiated by autograd:
 
 Kernel domain: q, k, v all bf16 or all fp32, contiguous and 16-byte aligned
 ``[b, n, h, 64]`` (the layout a ``Linear`` output views to), ``n % 64 ==
-0``, ``n <= 4096``: the whole training bucket range in either dtype.
+0``, ``n <= MAX_N`` = 2048 + 4096, the serving attention's bound: the
+DiT's training buckets and the MMDiT's joint sequence (text bucket plus mel
+bucket: 1024 + 4096 under the training buckets, 2048 + 4096 under the
+serving ones) in either dtype. Nothing in the kernels depends on that bound:
+grids and the TMA maps take n as it comes, the LSE / D rows and every
+offset into ``[b, n, h, 64]`` are 64-bit (b = 9, n = 6144, h = 16 is 5.7e7
+elements a tensor, inside 32 bits all the same), the fp32 kernels' shared
+memory does not depend on n, and the keep bit's counter ``q * n + k`` stays
+below 6144^2 = 3.8e7 < 2^32, so the hash takes it unwrapped as before.
 Mixed dtypes, fp16 and anything else on a CUDA tensor raise; there is no
 fallback. bf16 runs `csrc/train_attention.cu` (wgmma, tiles read by TMA;
 :func:`forward_geometry` and :func:`backward_geometry` state their grid,
@@ -51,8 +59,10 @@ import math
 
 import torch
 
+from eraxvif5tts_tpu_torch.infer.utils import DURATION_BUCKETS, TEXT_BUCKETS
+
 _NEG = -1e30
-MAX_N = 4096
+MAX_N = TEXT_BUCKETS[-1] + DURATION_BUCKETS[-1]  # the MMDiT's longest joint sequence
 TILE = 64
 HEAD_DIM = 64
 M32 = 0xFFFFFFFF

@@ -19,6 +19,7 @@ bit (a scale computed as a product with the reciprocal instead of a true
 division flipped 6e-4 of them on an H100).
 """
 
+import dataclasses
 import math
 
 import pytest
@@ -979,3 +980,132 @@ def test_fp32_train_step_with_kernels_matches_plain(cuda):
     assert got["applied"] == want["applied"] == 1.0
     assert abs(got["loss"] - want["loss"]) <= 1e-6 * abs(want["loss"])
     assert float((seen[0] - seen[1]).norm() / seen[1].norm()) <= 1e-5
+
+
+# ---- kernel 4 on the MMDiT's joint sequence; MMDiT training; the int8 MMDiT --
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n", [4160, 5120, 6144])
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+def test_train_attention_kernels_take_the_joint_sequence(cuda, no_tf32, dtype, n, dropout):
+    """Kernels 4a / 4b / 4c past n = 4096, up to the MMDiT's joint 6144, in
+    both dtypes: a sample with no valid key beside one with a masked tail,
+    against the plain version (bf16 within TOL * (1 + |plain|); fp32 O within
+    FP32_TOL * (1 + |plain|), the gradients within FP32_GRAD_TOL of their
+    scale), a second forward and backward bit-identical; n = 6208 and a
+    length not a multiple of 64 refused."""
+    g = torch.Generator(device=cuda).manual_seed(n + int(10 * dropout))
+    q, k, v, dout = (torch.randn((2, n, 2, 64), generator=g, device=cuda).to(dtype)
+                     for _ in range(4))
+    lens = torch.tensor([0, n - 37], dtype=torch.int32, device=cuda)
+    mask = lens_to_mask(lens, n)
+    results = []
+    for plain in (False, True, False):
+        args = [t.clone().requires_grad_() for t in (q, k, v)]
+        if plain:
+            out = ta.train_attention_reference(*args, lens, dropout, seed=0xBEEF)
+        else:
+            out = ta.train_attention(*args, key_valid=mask, dropout_rate=dropout, seed=0xBEEF)
+        results.append([out, *torch.autograd.grad(out, args, dout)])
+    torch.cuda.synchronize()
+    got, want, again = results
+    assert all(torch.isfinite(t).all() for t in got)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if dtype == torch.bfloat16:
+        for a, b in zip(got, want):
+            _assert_close(a, b)
+    else:
+        err = (got[0] - want[0]).abs()
+        assert torch.all(err <= FP32_TOL * (1 + want[0].abs())), float(err.max())
+        for a, b in zip(got[1:], want[1:]):
+            assert float((a - b).abs().max() / b.abs().max()) <= FP32_GRAD_TOL
+    for bad in (ta.MAX_N + 64, n - 32):
+        x = torch.zeros((1, bad, 2, 64), device=cuda, dtype=dtype)
+        with pytest.raises(ValueError, match="n must be a multiple of 64"):
+            ta.train_attention(x, x, x)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_mmdit_train_step_with_kernels_matches_plain(cuda, dtype):
+    """A 2-block MMDiT's `CFM.loss` and its gradient on the card at a joint
+    64 + 256 (fp32 parameters, ``dtype`` compute, dropout 0): kernel 4 of
+    that dtype launched 2 / 2 / 2 times (one a block, no recompute) and the
+    other dtype's at 0, the loss and the gradient within the dtype's
+    rounding of the same with `train_attention.plain` set."""
+    from eraxvif5tts_tpu_torch.configs import ArchConfig
+    from eraxvif5tts_tpu_torch.models.cfm import CFM, LossDraws
+    from eraxvif5tts_tpu_torch.models.mmdit import MMDiT
+
+    arch = ArchConfig(dim=128, depth=2, heads=2, dim_head=64, ff_mult=2, dropout=0.0)
+    torch.manual_seed(0)
+    net = MMDiT(arch, 20, 100, compute_dtype=dtype).to(cuda)
+    for p in net.parameters():
+        torch.nn.init.normal_(p, 0.0, 0.05)
+    cfm = CFM(net.train())
+    g = torch.Generator(device=cuda).manual_seed(2)
+    b, n = 2, 256
+    mel = torch.randn((b, n, 100), generator=g, device=cuda)
+    text = torch.randint(0, 20, (b, 64), generator=g, device=cuda)
+    text[1, 30:] = -1
+    lens = torch.tensor([n, n - 30], device=cuda)
+    draws = LossDraws.sample(g, b, n, 100, arch.depth)
+    readings = []
+    for plain in (False, True):
+        net.zero_grad(set_to_none=True)
+        before = _fp32_counts()
+        ta.train_attention.plain = plain
+        try:
+            loss = cfm.loss(mel, text, lens, draws)[0]
+            loss.backward()
+        finally:
+            ta.train_attention.plain = False
+        torch.cuda.synchronize()
+        counts = [c - c0 for c, c0 in zip(_fp32_counts(), before)]
+        if not plain:
+            want = [2, 2, 2, 0, 0, 0] if dtype == torch.float32 else [0, 0, 0, 2, 2, 2]
+            assert counts == want
+        readings.append((loss.item(), torch.cat([p.grad.flatten() for p in net.parameters()])))
+    (got_loss, got), (want_loss, want) = readings
+    tol = 1e-5 if dtype == torch.float32 else 3e-3
+    assert abs(got_loss - want_loss) <= tol * abs(want_loss)
+    assert float((got - want).norm() / want.norm()) <= 10 * tol
+
+
+def test_int8_mmdit_launches_kernel_5_on_both_streams(cuda, monkeypatch):
+    """A quantized 3-block MMDiT on the card with ERAX_INT8_FF=1: kernel 5 on
+    every block's ``ff_x`` and every ``ff_c`` but the last block's (5 a
+    call), at the text stream's rows too; unset, none; the two within 2e-2
+    of the output's scale."""
+    from eraxvif5tts_tpu_torch.configs import ArchConfig
+    from eraxvif5tts_tpu_torch.models.mmdit import MMDiT
+
+    arch = ArchConfig(dim=512, depth=3, heads=8, dim_head=64, ff_mult=2, dropout=0.0,
+                      quantized=True)
+    torch.manual_seed(0)
+    fp = MMDiT(dataclasses.replace(arch, quantized=False), 20, 100)
+    for p in fp.parameters():
+        torch.nn.init.normal_(p, 0.0, 0.02)
+    net = MMDiT(arch, 20, 100)
+    net.load_state_dict(quant.quantize_state_dict(fp.state_dict(), arch.depth, "MMDiT"))
+    net = quant.cast_for_serving(net).to(cuda).eval()
+    g = torch.Generator(device=cuda).manual_seed(3)
+    b, n, nt = 2, 256, 64
+    x = torch.randn((b, n, 100), generator=g, device=cuda).bfloat16()
+    text = torch.randint(0, 20, (b, nt), generator=g, device=cuda)
+    no = torch.zeros(b, dtype=torch.bool, device=cuda)
+    mask = lens_to_mask(torch.tensor([n, n - 70], device=cuda), n)
+    outs = []
+    for env in (None, "1"):
+        if env is None:
+            monkeypatch.delenv("ERAX_INT8_FF", raising=False)
+        else:
+            monkeypatch.setenv("ERAX_INT8_FF", env)
+        before = quant_ff.int8_ff.launches
+        with torch.no_grad():
+            outs.append(net(x, x, text, torch.full((b,), 0.5, device=cuda), no, no, mask))
+        torch.cuda.synchronize()
+        assert quant_ff.int8_ff.launches - before == (2 * arch.depth - 1 if env else 0)
+    assert all(torch.isfinite(o).all() for o in outs)
+    err = (outs[1] - outs[0]).abs().max()
+    assert float(err) <= 2e-2 * float(outs[0].abs().max())

@@ -3,7 +3,8 @@ attention kernels (`csrc/train_attention_fp32.cu`) and of the trainers'
 fp32 hold.
 
 - The kernels' domain: q, k, v all bf16 or all fp32 (mixed dtypes and fp16
-  raise), dO in q's dtype, 16-byte aligned, n % 64 == 0 up to 4096.
+  raise), dO in q's dtype, 16-byte aligned, n % 64 == 0 up to 6144 (the
+  MMDiT's joint sequence).
 - Their launch geometry, stated in Python beside the wrappers
   (`forward_geometry_fp32`, `backward_geometry_fp32`), over every n of the
   domain: every row owned by one block, the shared memory within the card's
@@ -77,7 +78,9 @@ def test_cuda_checks_refuse_other_dtypes(case):
 
 @pytest.mark.parametrize("case", ["unaligned", "n % 64", "n > 4096", "head dim"])
 def test_cuda_checks_refuse_fp32_outside_the_domain(case):
-    q = {"unaligned": _qkv(offset=1), "n % 64": _qkv(n=96), "n > 4096": _qkv(n=4160),
+    # "n > 4096": past the bound, which is the MMDiT's joint 6144 since kernel
+    # 4 takes the joint sequence
+    q = {"unaligned": _qkv(offset=1), "n % 64": _qkv(n=96), "n > 4096": _qkv(n=tta.MAX_N + 64),
          "head dim": torch.zeros(2, 128, 2, 32)}[case]
     with pytest.raises(ValueError):
         tta._check_cuda_args(q, q, q, LENS)

@@ -34,6 +34,7 @@ from eraxvif5tts_tpu_torch.infer.utils import DURATION_BUCKETS, TEXT_BUCKETS
 from eraxvif5tts_tpu_torch.infer.wrapper import F5TTSWrapper
 from eraxvif5tts_tpu_torch.models import build_backbone, mmdit, modules
 from eraxvif5tts_tpu_torch.models.cfm import CFM
+from eraxvif5tts_tpu_torch.ops import quant
 from eraxvif5tts_tpu_torch.ops import serving_attention as sa
 from eraxvif5tts_tpu_torch.ops.masks import lens_to_mask
 from eraxvif5tts_tpu_torch.ops.rotary import rotary_freqs
@@ -328,17 +329,26 @@ def test_mmdit_reference_checkpoint_loads_strict(params_by_norm, tmp_path):
 
 
 def test_mmdit_serves_only_and_int8_waits():
-    """Training mode and the int8 MMDiT raise, naming their ROADMAP items."""
-    net = build_backbone(CFG, VOCAB).train()
+    """Training mode trains at dropout 0 and refuses dropout 0.1 (the
+    reference MMDiT's missing `hash_dropout`, ROADMAP queue 3); the int8
+    MMDiT builds, in the backbone and in the wrapper, and refuses to train;
+    `scan_layers` still raises."""
     x = torch.zeros(1, 64, MEL)
-    with pytest.raises(ValueError, match="MMDiT training is ROADMAP queue 1 item 5c"):
-        net(x, x, torch.zeros(1, 8, dtype=torch.long), torch.zeros(1),
+    args = (x, x, torch.zeros(1, 8, dtype=torch.long), torch.zeros(1),
             torch.zeros(1, dtype=torch.bool), torch.zeros(1, dtype=torch.bool))
+    net = build_backbone(CFG, VOCAB).train()
+    assert net(*args).shape == x.shape
+    dropping = dataclasses.replace(CFG, arch=dataclasses.replace(ARCH, dropout=0.1))
+    with pytest.raises(ValueError, match="hash_dropout.*queue 3"):
+        build_backbone(dropping, VOCAB).train()(*args)
     quantized = dataclasses.replace(CFG, arch=dataclasses.replace(ARCH, quantized=True))
-    with pytest.raises(ValueError, match="ROADMAP queue 1 item 5b"):
-        build_backbone(quantized, VOCAB)
-    with pytest.raises(ValueError, match="ROADMAP queue 1 item 5b"):
-        F5TTSWrapper(model_cfg=CFG, compute_dtype="int8", device="cpu")
+    qnet = build_backbone(quantized, VOCAB)
+    assert isinstance(qnet.transformer_blocks[0].attn.to_k_c, quant.QuantLinear)
+    assert qnet.transformer_blocks[-1].ff_c is None
+    with pytest.raises(ValueError, match="a quantized MMDiT serves only"):
+        qnet.train()(*args)
+    w = F5TTSWrapper(model_cfg=CFG, compute_dtype="int8", device="cpu")
+    assert isinstance(w.transformer, mmdit.MMDiT) and w.transformer.arch.quantized
     with pytest.raises(ValueError, match="scan_layers=True .* is not ported"):
         build_backbone(dataclasses.replace(
             CFG, arch=dataclasses.replace(ARCH, scan_layers=True)), VOCAB)

@@ -216,11 +216,9 @@ def test_wrapper_refuses_what_is_not_ported():
 
     e2 = PRESETS["E2TTS_Small"]
     tiny = dataclasses.replace(e2.arch, dim=128, depth=2, heads=2)
-    # the int8 MMDiT waits (ROADMAP queue 1 item 5b): refused before any build
-    with pytest.raises(ValueError, match="int8 quantization of backbone 'MMDiT' is not ported"):
-        F5TTSWrapper("F5TTS_v1_MMDiT", compute_dtype="int8", device="cpu")
-    with pytest.raises(ValueError, match="int8 quantization of backbone 'MMDiT' is not ported"):
-        quant.quantize_state_dict({}, 2, "MMDiT")
+    # an unknown backbone has no int8 form: refused before any build
+    with pytest.raises(ValueError, match="int8 quantization of backbone 'GPT' is not ported"):
+        quant.quantize_state_dict({}, 2, "GPT")
     quantized = build_backbone(dataclasses.replace(
         e2, arch=dataclasses.replace(tiny, quantized=True)), 16).train()
     x = torch.zeros(1, 63, e2.mel_spec.n_mel_channels)
@@ -233,15 +231,19 @@ def test_wrapper_refuses_what_is_not_ported():
             build_backbone(cfg, 16)
         with pytest.raises(ValueError, match="scan_layers=True .* is not ported"):
             F5TTSWrapper(model_cfg=cfg, device="cpu", compute_dtype="float32")
+    # the MMDiT preset: int8 builds (and serves only), training refuses the
+    # preset's dropout 0.1 (ROADMAP queue 3) and trains at 0
     mm = PRESETS["F5TTS_v1_MMDiT"]
     mm_tiny = dataclasses.replace(mm.arch, dim=128, depth=2, heads=2)
-    with pytest.raises(ValueError, match="item 5b"):
+    mm_args = (x, x, torch.zeros(1, 8, dtype=torch.long), torch.zeros(1),
+               torch.zeros(1, dtype=torch.bool), torch.zeros(1, dtype=torch.bool))
+    with pytest.raises(ValueError, match="a quantized MMDiT serves only"):
         build_backbone(dataclasses.replace(
-            mm, arch=dataclasses.replace(mm_tiny, quantized=True)), 16)
-    with pytest.raises(ValueError, match="MMDiT training is ROADMAP queue 1 item 5c"):
-        build_backbone(dataclasses.replace(mm, arch=mm_tiny), 16).train()(
-            x, x, torch.zeros(1, 8, dtype=torch.long), torch.zeros(1),
-            torch.zeros(1, dtype=torch.bool), torch.zeros(1, dtype=torch.bool))
+            mm, arch=dataclasses.replace(mm_tiny, quantized=True)), 16).train()(*mm_args)
+    with pytest.raises(ValueError, match="MMDiT training at dropout 0.1 is refused"):
+        build_backbone(dataclasses.replace(mm, arch=mm_tiny), 16).train()(*mm_args)
+    build_backbone(dataclasses.replace(
+        mm, arch=dataclasses.replace(mm_tiny, dropout=0.0)), 16).train()(*mm_args)
     with pytest.raises(ValueError, match="vocoder_name must be 'vocos' or 'bigvgan'"):
         F5TTSWrapper(model_cfg=dataclasses.replace(e2, arch=tiny), vocoder_name="hifigan",
                      device="cpu", compute_dtype="float32")
