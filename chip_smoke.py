@@ -45,11 +45,22 @@ Phases (any failure raises and the script exits non-zero):
 4. main    -- `F5TTSWrapper` at F5TTS_v1_Base width (dim 1024, depth 22,
               16 x 64 heads) in bf16 from seeded random weights: the DiT with
               its kernels against the same DiT with the plain versions, then
-              `preprocess_reference` of the bundled clip and `generate` of three
-              texts at NFE 32, with the launch counters checked per chunk and
-              the realtime factor printed, and one more under `torch.profiler`
-              (device time by kernel group, the device's busy share of the
-              wall); then F5TTS_Base's options (rotary
+              `preprocess_reference` of the bundled clip; the [dispatch]
+              checks (a chunk is one CUDA graph replay, captured at its key's
+              first call: at two keys of DISPATCH_NFE steps the first call and
+              a replay each equal to the eager step bit for bit, a second
+              reference of the same length with another mel and RMS under one
+              key equal to its own eager step, a traced replay's kernels equal
+              to the counters, no host cache grown by a capture, the graphs
+              and the pool's bytes; the same in the fp32, int8, e2tts, mmdit
+              and bigvgan phases); `generate` of three texts at NFE 32, with
+              the launch counters checked per backbone step the card ran
+              (NFE a chunk's replay, one the eager run before a capture) and the
+              realtime factor printed; a `generate` of four chunks or more
+              (three in flight before the first fetch, PCM equal bit for bit
+              to the eager step's) and one more under `torch.profiler` (device
+              time by kernel group, one `cudaGraphLaunch` a chunk, the
+              device's busy share of the wall); then F5TTS_Base's options (rotary
               on head 0 only, unmasked text padding) on a DiT cut to 4 blocks:
               kernels against plain, one `generate` at NFE 8, counters checked;
 5. server  -- the socket server on a free localhost port answers three
@@ -107,7 +118,10 @@ Phases (any failure raises and the script exits non-zero):
               profiled request, its RTF beside the main phase's; then the
               mmdit phase's checkpoint served in fp32, one request with the
               fp32 kernel without rotary counted 22 x 32 a chunk;
-5g. mmdit-int8 -- the mmdit phase's checkpoint served by
+5g. bench  -- `eraxvif5tts_tpu_torch/tools/bench.py`'s workload (the JAX
+              `bench.py`'s: a random F5TTS_v1_Base, bucket 1024 with a
+              256-frame prompt, NFE 32) in fp32 and bf16, its lines logged;
+5h. mmdit-int8 -- the mmdit phase's checkpoint served by
               `F5TTSWrapper("F5TTS_v1_MMDiT", compute_dtype="int8",
               int8_validate=True)` behind the unchanged quality gate (its text
               padded to 64 tokens), the quantized MMDiT against its plain
@@ -1220,46 +1234,73 @@ def reset_serving_counts() -> None:
 RTF: dict = {}  # tag -> the realtime factor of generate_counted's requests under it
 
 
+@contextlib.contextmanager
+def dispatches(wrapper):
+    """Record the duration bucket of every fused-step dispatch of ``wrapper``
+    (from any thread) in the list the block gets."""
+    buckets = []
+    dispatch = wrapper._dispatch_sample_vocode
+
+    def recorded(*args, **kwargs):
+        buckets.append(kwargs["max_duration"])
+        return dispatch(*args, **kwargs)
+
+    wrapper._dispatch_sample_vocode = recorded
+    try:
+        yield buckets
+    finally:
+        del wrapper._dispatch_sample_vocode
+
+
+def graph_state(wrapper) -> tuple[int, int]:
+    """(graphs captured, graph replays) of ``wrapper`` so far."""
+    return len(wrapper._graphs), wrapper.graph_replays
+
+
+def euler_steps(wrapper, before: tuple[int, int], chunks: int, nfe: int) -> tuple[int, int]:
+    """(backbone steps the card ran, graphs captured) since ``before`` (a
+    :func:`graph_state`) for ``chunks`` dispatches at ``nfe``: a replay a
+    chunk runs nfe steps, and the eager run before each capture one. Raises
+    unless every chunk was one replay."""
+    captured, replays = (now - then for now, then in zip(graph_state(wrapper), before))
+    if replays != chunks:
+        raise AssertionError(f"{chunks} chunk(s) dispatched, {replays} graph replay(s)")
+    return nfe * chunks + captured, captured
+
+
 def generate_counted(wrapper, ref, texts, nfe: int, tag: str, path: tuple[str, ...]) -> dict:
     """Set the serving counters to 0, `generate` each text and read them:
     per request, the kernels of ``path`` (names of :func:`serving_counts`)
-    must each have launched depth x nfe x chunks times and the other modes
-    not at all. Logs the realtime factor per request and keeps the whole
-    call's in ``RTF[tag]``; returns the counts."""
+    must each have launched depth times a backbone step the card ran (nfe
+    a chunk's replay, one the eager run before each capture of a new key)
+    and the other modes not at all. Logs the realtime factor per request and
+    keeps the whole call's in ``RTF[tag]``; returns the counts."""
     import numpy as np
 
-    buckets = []
-    sample_vocode = wrapper._sample_vocode
-
-    def counted(*args, **kwargs):
-        buckets.append(kwargs["max_duration"])
-        return sample_vocode(*args, **kwargs)
-
-    wrapper._sample_vocode = counted
     depth = wrapper.config.arch.depth
     reset_serving_counts()
     total_audio = total_wall = 0.0
-    try:
+    with dispatches(wrapper) as buckets:
         for i, text in enumerate(texts):
-            n_before, before = len(buckets), serving_counts()
+            n_before, before, graphs = len(buckets), serving_counts(), graph_state(wrapper)
             t0 = time.perf_counter()
             wave = wrapper.generate(text, seed=SEED + i, nfe_step=nfe)
             wall = time.perf_counter() - t0
             chunks = len(buckets) - n_before
+            steps, captured = euler_steps(wrapper, graphs, chunks, nfe)
             audio = len(wave) / wrapper.target_sample_rate
             total_audio, total_wall = total_audio + audio, total_wall + wall
             rose = {name: count - before[name] for name, count in serving_counts().items()}
             log(f"{tag} generate #{i}: {chunks} chunk(s) at buckets {buckets[n_before:]}, "
-                f"{audio:.2f} s of audio in {wall:.3f} s (RTF {wall / audio:.4f}, "
-                f"{audio / wall:.2f}x realtime); launches {rose}")
+                f"{chunks} graph replay(s), {captured} new graph(s); {audio:.2f} s of "
+                f"audio in {wall:.3f} s (RTF {wall / audio:.4f}, {audio / wall:.2f}x "
+                f"realtime); launches {rose}")
             if not (np.isfinite(wave).all() and np.abs(wave).max() > 1e-3 and len(wave) > 0):
                 raise AssertionError(f"{tag} generate #{i}: PCM is not finite and non-silent")
-            want = {name: depth * nfe * chunks if name in path else 0 for name in rose}
+            want = {name: depth * steps if name in path else 0 for name in rose}
             if rose != want:
                 raise AssertionError(f"{tag} generate #{i}: launches {rose}, expected {want} "
-                                     f"({depth} x {nfe} x {chunks} on {path})")
-    finally:
-        wrapper._sample_vocode = sample_vocode
+                                     f"({depth} x {steps} backbone steps on {path})")
     RTF[tag] = total_wall / total_audio
     log(f"{tag} {len(texts)} request(s): {total_audio:.2f} s of audio in {total_wall:.3f} s: "
         f"RTF {RTF[tag]:.4f} ({total_audio / total_wall:.2f}x realtime) at "
@@ -1310,9 +1351,9 @@ def device_ms_by_group(prof, ranges: tuple[str, ...] = ()) -> tuple[dict, int]:
 def profile_generate(wrapper, ref, text, nfe: int, tag: str) -> None:
     """Where one warm `generate` of ``text`` (or, for a list of texts, one
     `generate_batch`) spends its time: the wall of an unprofiled call, then
-    the device kernels of a call under `torch.profiler`, summed by group, and
-    the device's busy share of the unprofiled wall (below 100 % the host's
-    eager dispatch, not the device, bounds the Euler loop)."""
+    a call under `torch.profiler`: the device kernels summed by group, the
+    device's busy share of the unprofiled wall, and the host's
+    `cudaGraphLaunch` calls, one a chunk (each chunk is one graph replay)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1325,27 +1366,245 @@ def profile_generate(wrapper, ref, text, nfe: int, tag: str) -> None:
 
     call()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    call()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    # the device's activity alone: the groups read nothing of the host's, and
-    # recording it too slows the pass and its sums severalfold at the MMDiT's
-    # ~78,000 kernels a generate
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    before = graph_state(wrapper)
+    with dispatches(wrapper) as chunks:
+        t0 = time.perf_counter()
+        call()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    if euler_steps(wrapper, before, len(chunks), nfe)[1]:
+        raise AssertionError(f"{tag} the warm call captured a graph")
+    # the host's activity too: with one graph replay a chunk it is a few
+    # hundred events, not the ~78,000 launches of the MMDiT's eager step
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         call()
         torch.cuda.synchronize()
+        profiled_ms = (time.perf_counter() - t0) * 1e3
     groups, launches = device_ms_by_group(prof)
+    graph_launches = sum(e.count for e in prof.key_averages() if e.key == "cudaGraphLaunch")
+    if graph_launches != len(chunks):
+        raise AssertionError(f"{tag} {graph_launches} cudaGraphLaunch calls for {len(chunks)} "
+                             "chunk(s)")
     device_ms = sum(groups.values())
-    if device_ms <= 0.0:
-        log(f"{tag} profile: the profiler recorded no device time; device share not measured")
-        return
     what = f"generate_batch of {len(text)} texts" if batch else "generate"
-    log(f"{tag} profile of one warm {what} at NFE {nfe}: wall {wall_ms:.1f} ms unprofiled; "
-        f"{launches} device kernels, {device_ms:.1f} ms of device time = "
-        f"{100 * device_ms / wall_ms:.1f} % of the wall (the rest: host dispatch with the "
-        "device idle); "
+    if device_ms <= 0.0:
+        log(f"{tag} profile of one warm {what}: {graph_launches} cudaGraphLaunch for "
+            f"{len(chunks)} chunk(s); the profiler recorded no device time; device share "
+            "not measured")
+        return
+    log(f"{tag} profile of one warm {what} at NFE {nfe}, {wrapper.compute_dtype}: wall "
+        f"{wall_ms:.1f} ms unprofiled; {graph_launches} cudaGraphLaunch for {len(chunks)} "
+        f"chunk(s); {launches} device kernels, {device_ms:.1f} ms of device time = "
+        f"{100 * device_ms / wall_ms:.1f} % of the unprofiled wall, "
+        f"{100 * device_ms / profiled_ms:.1f} % of the profiled call's {profiled_ms:.1f} ms "
+        "(device busy share; tracing slows the graph's kernels); "
         + ", ".join(f"{name} {ms:.1f} ms ({100 * ms / device_ms:.0f} %)"
                     for name, ms in groups.items()))
+
+
+# The [dispatch] checks' Euler steps: keys of their own, cut from NFE 32 for
+# the smoke's time (each key's first call runs one step eagerly, captures the
+# whole and replays it; the checks then run it eagerly twice more to compare)
+DISPATCH_NFE = 8
+# a path's counter -> the device kernel its launches show as in a trace
+TRACE_MARKS = {"serving_attention": "serving_attention_kernel",
+               "serving_attention_norope": "serving_attention_kernel",
+               "serving_attention_fp32": "serving_attention_fp32_kernel",
+               "serving_attention_fp32_norope": "serving_attention_fp32_kernel",
+               "ln_mod_matmul": "ln_mod_matmul_kernel",
+               "ln_mod_matmul_rms": "ln_mod_matmul_kernel",
+               "int8_ff": "int8_ff_kernel"}
+
+
+def graphs_logged(wrapper) -> str:
+    """``wrapper``'s graphs and its graph pool's bytes, for a log line."""
+    pool = graph_pool_bytes(wrapper)
+    return (f"{len(wrapper._graphs)} CUDA graph(s), graph pool "
+            + (f"{pool / 2**20:.1f} MiB" if pool is not None else "not measured"))
+
+
+def graph_pool_bytes(wrapper) -> int | None:
+    """Bytes the caching allocator holds in ``wrapper``'s graph pool (None
+    where its snapshot names no pools)."""
+    import torch
+
+    pool = wrapper._graph_pool
+    segments = torch.cuda.memory_snapshot()
+    if pool is None or not segments or "segment_pool_id" not in segments[0]:
+        return None
+    return sum(seg["total_size"] for seg in segments
+               if tuple(seg["segment_pool_id"]) == tuple(pool))
+
+
+def other_reference(ref):
+    """A reference of ``ref``'s length with another mel and another RMS: its
+    mel reversed in time, its level a quarter of ``ref``'s."""
+    return dataclasses.replace(ref, mel=ref.mel.flip(1).contiguous(), rms=0.25 * ref.rms)
+
+
+def check_dispatch(wrapper, ref, tag: str, per_step: dict) -> None:
+    """The fused step's single dispatch on the card (``[dispatch]``): at the two
+    smallest duration buckets ``ref`` reaches, DISPATCH_NFE steps, a key's
+    first call (a one-step eager run, capture, replay) and a second call (a
+    replay) each equal to the eager step on the same inputs, PCM and mel bit for bit, with
+    no host cache grown by the capture; under the first key a reference of the
+    same length with another mel and RMS equal to its own eager step (an input
+    baked into the graph would give it the first's); one replay under
+    `torch.profiler`, whose device kernels must show each counter of
+    ``per_step`` (a counter: its launches in one backbone call) launched that
+    many x DISPATCH_NFE times, as the counters say. Logs the walls, the graphs
+    and the pool's bytes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from eraxvif5tts_tpu_torch.infer.utils import pick_bucket
+    from eraxvif5tts_tpu_torch.infer.wrapper import VOCODE_MARGIN_FRAMES
+
+    dev, n_ref = wrapper.device, ref.n_frames
+    vstart = max(n_ref - VOCODE_MARGIN_FRAMES, 0)
+    first = wrapper.duration_buckets.index(pick_bucket(n_ref + 1, wrapper.duration_buckets))
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    sway = wrapper.sway_sampling_coef
+
+    def timed_call(fn, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def same(got, want) -> bool:
+        return all(torch.equal(x, y) for x, y in zip(got, want))
+
+    keyed = []
+    for bucket in wrapper.duration_buckets[first:first + 2]:
+        text = torch.randint(0, len(VOCAB_CHARS), (1, wrapper.text_buckets[0]), generator=g,
+                             device=dev)
+        static = dict(steps=DISPATCH_NFE, cfg_strength=float(wrapper.cfg_strength),
+                      sway=None if sway is None else float(sway), max_duration=bucket,
+                      vocode_start=vstart, gen_start=n_ref - vstart)
+        rest = (torch.tensor([max(n_ref + 1, bucket - 3)], device=dev),
+                torch.tensor([n_ref], device=dev), wrapper._draw_noise(g, bucket))
+        args = (ref.mel, text, *rest, wrapper._rms_scale(ref))
+        caches = {name: len(keys) for name, keys in wrapper._host_caches().items()}
+        graphs = len(wrapper._graphs)
+        got1, first_s = timed_call(wrapper._dispatch_sample_vocode, *args, **static)
+        got2, replay_s = timed_call(wrapper._dispatch_sample_vocode, *args, **static)
+        want, eager_s = timed_call(wrapper._sample_vocode, *args, **static)
+        grown = {name: len(keys) for name, keys in wrapper._host_caches().items()}
+        if len(wrapper._graphs) != graphs + 1:
+            raise AssertionError(f"{tag} [dispatch] bucket {bucket}: no new graph")
+        if not (same(got1, want) and same(got2, want)):
+            diff = int((got2[0].int() - want[0].int()).abs().max())
+            raise AssertionError(f"{tag} [dispatch] bucket {bucket}: the replay differs from "
+                                 f"the eager step (PCM by {diff} LSB at most)")
+        log(f"{tag} [dispatch] bucket {bucket}, text {text.shape[1]}, NFE {DISPATCH_NFE}: "
+            f"first call (one-step eager run + capture + replay) {first_s:.3f} s, replay "
+            f"{replay_s:.3f} s, eager step {eager_s:.3f} s; PCM {tuple(got2[0].shape)} and mel "
+            f"{tuple(got2[1].shape)} of both calls equal to the eager step's bit for bit; "
+            f"host caches {caches} before, {grown} after")
+        keyed.append((args, static, got2))
+    args, static, got = keyed[0]
+    other = other_reference(ref)
+    scales = float(wrapper._rms_scale(ref)), float(wrapper._rms_scale(other))
+    if other.n_frames != n_ref or scales[0] == scales[1] or torch.equal(other.mel, ref.mel):
+        raise AssertionError(f"{tag} [dispatch] the second reference is not another input of "
+                             f"the same key ({other.n_frames} frames, rms scales {scales})")
+    args2 = (other.mel, *args[1:5], wrapper._rms_scale(other))
+    graphs = len(wrapper._graphs)
+    got2 = wrapper._dispatch_sample_vocode(*args2, **static)
+    want2 = wrapper._sample_vocode(*args2, **static)
+    if len(wrapper._graphs) != graphs or not same(got2, want2) or torch.equal(got2[0], got[0]):
+        raise AssertionError(f"{tag} [dispatch] a second reference under the first key does "
+                             "not give its own eager step")
+    log(f"{tag} [dispatch] a reference of the same {n_ref} frames with another mel and rms "
+        f"scale ({scales[1]:.4f} vs {scales[0]:.4f}) under the first key: its replay equals "
+        f"its own eager step bit for bit and differs from the first reference's")
+    torch.cuda.synchronize()
+    before = serving_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        wrapper._dispatch_sample_vocode(*args, **static)
+        torch.cuda.synchronize()
+    rose = {name: count - before[name] for name, count in serving_counts().items()}
+    want = {name: per_step.get(name, 0) * DISPATCH_NFE for name in rose}
+    counted, traced = {}, {}
+    for name in per_step:
+        counted[TRACE_MARKS[name]] = counted.get(TRACE_MARKS[name], 0) + rose[name]
+    for event in prof.key_averages():
+        for mark in counted:
+            if event.device_type == torch.autograd.DeviceType.CUDA and mark in event.key:
+                traced[mark] = traced.get(mark, 0) + event.count
+    if rose != want or traced != counted:
+        raise AssertionError(f"{tag} [dispatch] one replay: counters {rose} (expected {want}), "
+                             f"device trace {traced} (counters: {counted})")
+    pool = graph_pool_bytes(wrapper)
+    log(f"{tag} [dispatch] one replay under torch.profiler: device kernels {traced}, equal to "
+        f"the counters' {counted} ({DISPATCH_NFE} steps); {len(wrapper._graphs)} graph(s), "
+        f"{wrapper.graph_replays} replay(s) so far, graph pool "
+        + (f"{pool / 2**20:.1f} MiB" if pool is not None else "not measured")
+        + f", {torch.cuda.memory_reserved(dev) / 2**30:.2f} GiB reserved in all")
+
+
+def check_pipeline(wrapper, ref, tag: str) -> None:
+    """A `generate` of four chunks or more at NFE 32: one graph replay a chunk,
+    never more than three chunks dispatched and not yet fetched when the next
+    one is, and its PCM equal bit for bit to the same request's with the
+    eager step in place of the dispatch, chunk by chunk."""
+    import numpy as np
+
+    from eraxvif5tts_tpu_torch.text.chunk import chunk_text
+
+    max_chars, hard = wrapper._max_chars_for(ref)
+    text, i = TEXTS[0], 1
+    while len(chunk_text(text, max_chars=max_chars, hard_max=hard)) < 4:
+        text, i = f"{text} {TEXTS[i % len(TEXTS)]}", i + 1
+    fetch, dispatch = wrapper._fetch_async, wrapper._dispatch_sample_vocode
+    fetched, synced, in_flight = [0], [0], []
+
+    class Arrival:
+        def __init__(self, event):
+            self.event = event
+
+        def synchronize(self):
+            synced[0] += 1
+            self.event.synchronize()
+
+    def fetch_async(*tensors):
+        fetched[0] += 1
+        *host, done = fetch(*tensors)
+        return (*host, Arrival(done))
+
+    def dispatched(*args, **kwargs):
+        in_flight.append(fetched[0] - synced[0])
+        return dispatch(*args, **kwargs)
+
+    wrapper._fetch_async, wrapper._dispatch_sample_vocode = fetch_async, dispatched
+    before = graph_state(wrapper)
+    try:
+        t0 = time.perf_counter()
+        got = wrapper.generate(text, seed=SEED + 21, nfe_step=NFE)
+        wall = time.perf_counter() - t0
+    finally:
+        del wrapper._fetch_async, wrapper._dispatch_sample_vocode
+    chunks = len(in_flight)
+    captured = euler_steps(wrapper, before, chunks, NFE)[1]
+    if chunks < 4 or in_flight != [min(i, 3) for i in range(chunks)] or synced[0] != chunks:
+        raise AssertionError(f"{tag} [dispatch] pipeline: {chunks} chunks, in flight at each "
+                             f"dispatch {in_flight}, {synced[0]} fetched")
+    wrapper._dispatch_sample_vocode = wrapper._sample_vocode
+    try:
+        t0 = time.perf_counter()
+        want = wrapper.generate(text, seed=SEED + 21, nfe_step=NFE)
+        eager = time.perf_counter() - t0
+    finally:
+        del wrapper._dispatch_sample_vocode
+    if not np.array_equal(got, want):
+        raise AssertionError(f"{tag} [dispatch] pipeline: the PCM differs from the eager "
+                             f"step's by {float(np.abs(got - want).max()):.3g} at most")
+    log(f"{tag} [dispatch] generate of {len(text)} chars in {chunks} chunks at NFE {NFE}: "
+        f"one graph replay a chunk ({captured} captured here), chunks in flight at each "
+        f"dispatch {in_flight}; {len(got) / wrapper.target_sample_rate:.2f} s of audio in "
+        f"{wall:.3f} s, equal bit for bit to the eager step's chunk by chunk ({eager:.3f} s)")
 
 
 def check_f5tts_base(dev) -> None:
@@ -1395,10 +1654,14 @@ def phase_main(dev) -> tuple[object, object, dict]:
     t0 = time.perf_counter()
     warmed = warm_smallest(wrapper, ref)
     log(f"[main] warmup (one NFE-{NFE} step at the smallest (duration, text) buckets "
-        f"{warmed}) {time.perf_counter() - t0:.2f} s")
+        f"{warmed}) {time.perf_counter() - t0:.2f} s: {graphs_logged(wrapper)}")
+    depth = wrapper.config.arch.depth
+    timed("[main] [dispatch]", check_dispatch, wrapper, ref, "[main]",
+          {"serving_attention": depth, "ln_mod_matmul": depth})
     counts = generate_counted(wrapper, ref, TEXTS, NFE, "[main]",
                               ("serving_attention", "ln_mod_matmul"))
     launches = {name: counts[name] for name in ("serving_attention", "ln_mod_matmul")}
+    timed("[main] [dispatch] pipeline", check_pipeline, wrapper, ref, "[main]")
     profile_generate(wrapper, ref, TEXTS[1], NFE, "[main]")
     check_f5tts_base(dev)
     return wrapper, ref, launches
@@ -1542,14 +1805,9 @@ def phase_http(wrapper, tag: str = "[http]") -> None:
     runner = ServerThread(server)
     loop_errors = []
     runner.loop.set_exception_handler(lambda loop, ctx: loop_errors.append(ctx))
-    chunks = []  # one entry per generated chunk, from any worker thread
-    sample_vocode = wrapper._sample_vocode
-
-    def counted(*args, **kwargs):
-        chunks.append(kwargs["max_duration"])
-        return sample_vocode(*args, **kwargs)
-
-    wrapper._sample_vocode = counted
+    counting = contextlib.ExitStack()
+    # one entry per generated chunk, from any worker thread
+    chunks = counting.enter_context(dispatches(wrapper))
     port = runner.start()
     log(f"{tag} HTTP server on 127.0.0.1:{port}, NFE {NFE}, text chunks of "
         f"<= {HTTP_CHUNK_CHARS} chars, {server.config.max_concurrent_generations} "
@@ -1581,7 +1839,7 @@ def phase_http(wrapper, tag: str = "[http]") -> None:
 
         def run(requests, concurrent=False):
             reset_serving_counts()
-            n0 = len(chunks)
+            n0, graphs = len(chunks), graph_state(wrapper)
             out = [None] * len(requests)
 
             def one(i):
@@ -1599,12 +1857,13 @@ def phase_http(wrapper, tag: str = "[http]") -> None:
             if any(r is None for r in out):
                 raise AssertionError(f"{tag} a stream did not complete")
             made = len(chunks) - n0
+            steps = euler_steps(wrapper, graphs, made, NFE)[0]
             rose = serving_counts()
-            want = {name: depth * NFE * made if name in ("serving_attention", "ln_mod_matmul")
+            want = {name: depth * steps if name in ("serving_attention", "ln_mod_matmul")
                     else 0 for name in rose}
             if rose != want:
                 raise AssertionError(f"{tag} launches {rose}, expected {want} "
-                                     f"({depth} x {NFE} x {made} chunks)")
+                                     f"({depth} x {steps} backbone steps for {made} chunks)")
             return out, made, rose
 
         def check(result, request, label):
@@ -1665,7 +1924,7 @@ def phase_http(wrapper, tag: str = "[http]") -> None:
             f"concurrent / serial audio per wall s: "
             f"{walls['serial'] / walls['concurrent']:.3f}")
     finally:
-        wrapper._sample_vocode = sample_vocode
+        counting.close()
         runner.stop()
     left = [t.name for t in set(threading.enumerate()) - threads_before]
     if left or loop_errors:
@@ -1810,10 +2069,12 @@ def with_int8_ff(flag: bool, fn, *args, **kwargs):
 def run_batch(wrapper, depth: int, nfe: int, seed: int, int8_ff: bool, label: str,
               tag: str = "[int8]", ffs: int | None = None):
     """One `generate_batch` of BATCH_TEXTS, ERAX_INT8_FF set or unset, with
-    its launch counters checked: kernel 1 depth x NFE, kernel 5 ``ffs`` (the
-    feed-forwards of a backbone call, default depth) x NFE with the
-    one-kernel feed-forward and none without, kernel 2 none on the int8
-    path (quantized blocks take the unfused FF) and none in an MMDiT.
+    its launch counters checked for each backbone step the card ran (NFE in
+    the batch's graph replay, one in the eager run before its capture when
+    the key is new; ERAX_INT8_FF is part of the key): kernel 1 depth, kernel
+    5 ``ffs`` (the feed-forwards of a backbone call, default depth) with the
+    one-kernel feed-forward and none without, kernel 2 none on the int8 path
+    (quantized blocks take the unfused FF) and none in an MMDiT.
     Returns (waves, wall s, seconds of audio)."""
     import numpy as np
     import torch
@@ -1824,17 +2085,20 @@ def run_batch(wrapper, depth: int, nfe: int, seed: int, int8_ff: bool, label: st
 
     fused_ff = wrapper.compute_dtype != "int8" and wrapper.config.backbone != "MMDiT"
     counters = (sa.serving_attention, qf.int8_ff, fm.ln_mod_matmul)
-    before = [fn.launches for fn in counters]
+    before, graphs = [fn.launches for fn in counters], graph_state(wrapper)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     waves = with_int8_ff(int8_ff, wrapper.generate_batch, list(BATCH_TEXTS), nfe_step=nfe,
                          seed=seed)
     wall = time.perf_counter() - t0
     counts = [fn.launches - c for fn, c in zip(counters, before)]
+    steps, captured = euler_steps(wrapper, graphs, 1, nfe)
     audio = sum(len(w) for w in waves) / wrapper.target_sample_rate
-    want = [depth * nfe, (ffs or depth) * nfe if int8_ff else 0, depth * nfe if fused_ff else 0]
+    want = [steps * n for n in (depth, (ffs or depth) if int8_ff else 0,
+                                depth if fused_ff else 0)]
     log(f"{tag} generate_batch {label} ({len(waves)} texts, NFE {nfe}): {audio:.2f} s of "
-        f"audio in {wall:.3f} s ({audio / wall:.2f} s of audio per wall s); launches "
+        f"audio in {wall:.3f} s ({audio / wall:.2f} s of audio per wall s, "
+        f"{'graph captured and replayed' if captured else 'one graph replay'}); launches "
         f"attention / int8_ff / ln_mod {counts}")
     if counts != want:
         raise AssertionError(f"generate_batch {label}: launches {counts}, expected {want}")
@@ -1849,7 +2113,8 @@ def phase_int8(dev, cfg, tag: str = "[int8]", ckpt: Path | None = None,
     """int8 W8A8 serving of ``cfg``'s backbone (DiT, UNetT or MMDiT) from a
     reference-format checkpoint (``ckpt``, or one written here): the quality
     gate's reading, warm-up batches that record the shapes kernel 5 is given
-    (the MMDiT's two streams give it two), the quantized backbone and kernel
+    (the MMDiT's two streams give it two) and capture each run's graph, the
+    [dispatch] checks with the fused feed-forward (``[int8]`` only), the quantized backbone and kernel
     5 against their plain versions at those shapes, then ``turns`` rounds of
     `generate_batch` bf16 / int8 chain / int8 fused (the second in the
     reverse order) and, with two, profiled batches. Returns the int8
@@ -1909,8 +2174,9 @@ def phase_int8(dev, cfg, tag: str = "[int8]", ckpt: Path | None = None,
 
     modules.int8_ff = recorded
     try:
-        for label, (wrapper, int8_ff) in runs.items():  # warm-up: first calls at this bucket
-            run_batch(wrapper, a.depth, 2, SEED, int8_ff, f"{label} warm-up", tag, ffs)
+        # warm-up: each run's graph captured at the measured calls' key
+        for label, (wrapper, int8_ff) in runs.items():
+            run_batch(wrapper, a.depth, NFE, SEED, int8_ff, f"{label} warm-up", tag, ffs)
     finally:
         modules.int8_ff = ff
     # the mel stream's rows (the MMDiT's text stream gives the text bucket's)
@@ -1919,6 +2185,9 @@ def phase_int8(dev, cfg, tag: str = "[int8]", ckpt: Path | None = None,
     text = {"text_len": text_rows[0][1]} if mmdit else {}
     log(f"{tag} the batch of {len(BATCH_TEXTS)} texts runs the {type(int8.transformer).__name__} "
         f"at {b} rows x {n} positions" + (f" (mel) and {text['text_len']} (text)" if mmdit else ""))
+    if tag == "[int8]":
+        timed(f"{tag} [dispatch]", with_int8_ff, True, check_dispatch, int8, ref, tag,
+              {"serving_attention": a.depth, "int8_ff": ffs})
     cases = ((2, 767), (b, frames)) if unett else ((b, frames),)
     for int8_ff in (False, True):
         for rows, length in cases:
@@ -2280,8 +2549,11 @@ def phase_e2tts(dev, cfg=None, ckpt: Path | None = None) -> dict:
     t0 = time.perf_counter()
     warmed = warm_smallest(wrapper, ref)
     log(f"[e2tts] reference {ref.n_frames} frames; warmup (one NFE-{NFE} step at the smallest "
-        f"(duration, text) buckets {warmed}) {time.perf_counter() - t0:.2f} s")
+        f"(duration, text) buckets {warmed}) {time.perf_counter() - t0:.2f} s: "
+        f"{graphs_logged(wrapper)}")
     path = ("serving_attention_norope", "ln_mod_matmul_rms")
+    timed("[e2tts] [dispatch]", check_dispatch, wrapper, ref, "[e2tts]",
+          {name: a.depth for name in path})
     counts = generate_counted(wrapper, ref, TEXTS, NFE, "[e2tts]", path)
     profile_generate(wrapper, ref, TEXTS[1], NFE, "[e2tts]")
     phase_server(wrapper, ref, TEXTS[:1], "[e2tts]")
@@ -2405,9 +2677,15 @@ def phase_bigvgan(main_wrapper, dev) -> dict:
     t0 = time.perf_counter()
     warmed = warm_smallest(wrapper, ref)
     log(f"[bigvgan] reference {ref.n_frames} frames; warmup {warmed} "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"{time.perf_counter() - t0:.2f} s: {graphs_logged(wrapper)}")
     path = ("serving_attention", "ln_mod_matmul")
+    depth = wrapper.config.arch.depth
+    timed("[bigvgan] [dispatch]", check_dispatch, wrapper, ref, "[bigvgan]",
+          {name: depth for name in path})
     counts = generate_counted(wrapper, ref, TEXTS, NFE, "[bigvgan]", path)
+    # the vocoder's share with the eager step in place of the graph: a replay
+    # runs no Python, so only the eager step's vocoder calls can be timed
+    wrapper._dispatch_sample_vocode = wrapper._sample_vocode
     times, undo = vocode_timed(wrapper)
     try:
         t0 = time.perf_counter()
@@ -2415,10 +2693,13 @@ def phase_bigvgan(main_wrapper, dev) -> dict:
         wall = time.perf_counter() - t0
     finally:
         undo()
+        del wrapper._dispatch_sample_vocode
     audio = len(wave) / wrapper.target_sample_rate
-    log(f"[bigvgan] one generate of {audio:.2f} s of audio: wall {wall:.3f} s (RTF "
-        f"{wall / audio:.4f}, vocoder calls synchronised), BigVGAN {sum(times):.3f} s over "
-        f"{len(times)} call(s) = {100 * sum(times) / wall:.1f} % of it")
+    if not times:
+        raise AssertionError("[bigvgan] the eager generate made no vocoder call")
+    log(f"[bigvgan] one generate of {audio:.2f} s of audio through the eager step: wall "
+        f"{wall:.3f} s (RTF {wall / audio:.4f}, vocoder calls synchronised), BigVGAN "
+        f"{sum(times):.3f} s over {len(times)} call(s) = {100 * sum(times) / wall:.1f} % of it")
     mel = torch.from_numpy(mel[None, :, :BIGVGAN_MEL_FRAMES].copy())
     check_bigvgan_against_cpu(wrapper, dev, mel)
     if torch.backends.cudnn.allow_tf32 != tf32_before:
@@ -2482,8 +2763,10 @@ def phase_mmdit(dev, cfg=None, ckpt: Path | None = None) -> int:
     t0 = time.perf_counter()
     warmed = warm_smallest(wrapper, ref)
     log(f"[mmdit] reference {ref.n_frames} frames; warmup {warmed} "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"{time.perf_counter() - t0:.2f} s: {graphs_logged(wrapper)}")
     path = ("serving_attention_norope",)
+    timed("[mmdit] [dispatch]", check_dispatch, wrapper, ref, "[mmdit]",
+          {"serving_attention_norope": a.depth})
     counts = generate_counted(wrapper, ref, TEXTS, NFE, "[mmdit]", path)
     profile_generate(wrapper, ref, TEXTS[1], NFE, "[mmdit]")
     return counts["serving_attention_norope"]
@@ -2704,6 +2987,8 @@ def phase_fp32(main_wrapper, dev, mmdit_ckpt: Path) -> tuple[dict, dict]:
     check_backbone_against_cpu(wrapper.transformer, dev, "[fp32]")
     ref = load_reference(wrapper)
     warm_smallest(wrapper, ref, nfe_step=2)
+    timed("[fp32] [dispatch]", check_dispatch, wrapper, ref, "[fp32]",
+          {"serving_attention_fp32": a.depth})
     counts = generate_counted(wrapper, ref, TEXTS, NFE, "[fp32]", ("serving_attention_fp32",))
     profile_generate(wrapper, ref, TEXTS[1], NFE, "[fp32]")
     log(f"[fp32] RTF at NFE {NFE}, batch 1, same texts: fp32 {RTF['[fp32]']:.4f} against the "
@@ -3823,8 +4108,37 @@ def phase_compress(dev) -> dict:
     return launches
 
 
+BENCH_ITERS = 3  # timed calls of tools/bench.py a dtype, after its warm-up
+
+
+def phase_bench(tag: str = "[bench]") -> dict:
+    """`tools/bench.py`'s workload (a random F5TTS_v1_Base with Vocos, a
+    1024-frame bucket with a 256-frame prompt, NFE 32: one graph replay and
+    the PCM's fetch a call) in fp32 and in bf16. Its lines are logged under
+    ``tag``, its JSON line too, so that the smoke's last two lines stay its
+    only bare JSON. Returns the JSON lines by dtype."""
+    import io
+
+    from eraxvif5tts_tpu_torch.tools import bench
+
+    results = {}
+    for dtype in ("float32", "bfloat16"):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = bench.main(["--dtype", dtype, "--iters", str(BENCH_ITERS)])
+        lines = out.getvalue().strip().splitlines()
+        line = json.loads(lines[-1])
+        if rc != 0 or list(line) != ["metric", "value", "unit", "vs_baseline"] or not (
+                line["value"] > 0 and line["metric"] == "rtf_nfe32"):
+            raise AssertionError(f"{tag} tools/bench.py --dtype {dtype}: {lines}")
+        for text in lines:
+            log(f"{tag} {dtype}: {text}")
+        results[dtype] = line
+    return results
+
+
 def timed(tag: str, phase, *args, **kwargs):
-    """``phase(*args, **kwargs)``, its wall logged as the phase's."""
+    """``phase(*args, **kwargs)`` (a phase or a check), its wall logged."""
     t0 = time.perf_counter()
     result = phase(*args, **kwargs)
     log(f"{tag} phase done in {time.perf_counter() - t0:.1f} s")
@@ -3860,6 +4174,7 @@ def main() -> int:
         mmdit_ckpt = Path(tmp) / "mmdit.pt"
         launches["serving_attention_joint"] = timed("[mmdit]", phase_mmdit, dev, ckpt=mmdit_ckpt)
         fp32_rows, fp32_launches = timed("[fp32]", phase_fp32, wrapper, dev, mmdit_ckpt)
+        timed("[bench]", phase_bench)
         mmdit_ff, ff_err = timed("[mmdit-int8]", phase_int8, dev, PRESETS["F5TTS_v1_MMDiT"],
                                  "[mmdit-int8]", mmdit_ckpt, turns=1)
     kernel_results["int8_ff"]["max_abs_err"] = max(kernel_results["int8_ff"]["max_abs_err"],

@@ -6,8 +6,9 @@ immutable :class:`ReferenceState`; ``generate`` chunks the text by the
 reference's byte rate (`max_chars = ref_bytes / ref_sec * (22 - ref_sec)`),
 picks a duration bucket per chunk, runs one fused sample-and-vocode step per
 chunk (the prompt region is vocoded only from ``ref_frames - 48`` on and
-dropped, the wave is RMS-rescaled and returned as int16 PCM), and
-cross-fades the chunks. ``generate_batch`` runs several utterances as one
+dropped, the wave is RMS-rescaled and returned as int16 PCM), keeps up to
+three chunks in flight before it fetches their PCM, and cross-fades the
+chunks. ``generate_batch`` runs several utterances as one
 padded batch: one bucket, per-sample durations, one shared noise draw,
 per-sample end trim.
 
@@ -40,9 +41,25 @@ Differences, by design:
   trainer (``ckpt_path``: the EMA weights, or the raw parameters with
   ``use_ema=False``) or from the JAX wrapper's parameter trees (``params``,
   ``vocoder_params``); without any, PyTorch's default initialisation;
-- ``warmup`` has the JAX wrapper's signature, loop and result; what it warms
-  is the kernel build, the allocator and the text frontend, there being no
-  per-bucket compile.
+- the JAX wrapper compiles the fused step once per jit key; on the card the
+  port captures it once per key as a CUDA graph, and a chunk is one replay
+  (:meth:`F5TTSWrapper._dispatch_sample_vocode`). On the CPU the step runs
+  eagerly. ``warmup`` has the JAX wrapper's signature, loop and result, and
+  captures every pair it warms.
+
+CUDA graphs. The key is the JAX jit's cache key: the six static arguments
+(``steps``, ``cfg_strength``, ``sway``, ``max_duration``, ``vocode_start``,
+``gen_start``), the shapes and dtypes of the six tensor arguments, and the
+gates read at call time (``ERAX_INT8_FF``, torch's two TF32 flags). A key's
+first call runs the step eagerly with one Euler step (the kernels are built,
+the library plans made, every host cache the step reads is filled), captures
+it on a side stream, then replays it; a capture that fails, or a host cache that grows
+while it is captured, raises (there is no eager fallback on the card). Every
+call copies its tensors into the key's input buffers, replays, and returns
+copies of the outputs. A wrapper's graphs share one memory pool, so they take
+the memory of the largest key (plus their outputs), and one lock serialises
+their replays. A replay reads the weights by address: update them in place
+(``load_state_dict`` does), never by replacing a parameter tensor.
 
 Backbones: the DiT (``F5TTS_v1_*``, ``F5TTS_Base`` / ``F5TTS_Small``), the
 UNetT (``E2TTS_Base`` / ``E2TTS_Small``) and the MMDiT (``F5TTS_v1_MMDiT``),
@@ -82,6 +99,7 @@ from __future__ import annotations
 
 import dataclasses
 import random as _random
+import threading
 from dataclasses import dataclass
 from typing import Optional
 
@@ -116,7 +134,7 @@ from eraxvif5tts_tpu_torch.models import build_backbone
 from eraxvif5tts_tpu_torch.models.bigvgan import BigVGAN, BigVGANConfig, random_state_dict
 from eraxvif5tts_tpu_torch.models.cfm import CFM
 from eraxvif5tts_tpu_torch.models.vocos import Vocos
-from eraxvif5tts_tpu_torch.ops import quant
+from eraxvif5tts_tpu_torch.ops import _cuda, quant, quant_ff, serving_attention
 from eraxvif5tts_tpu_torch.ops.stft import MelSpectrogram
 
 # Prompt-region frames vocoded in front of the generated region so the cut
@@ -141,6 +159,19 @@ class ReferenceState:
     @property
     def audio_seconds(self) -> float:
         return self.audio_len_samples / 24000.0
+
+
+@dataclass
+class _ChunkGraph:
+    """One key's captured step: the graph, its input buffers (ordinary
+    allocations), its outputs (in the wrapper's graph pool) and what the
+    capture recorded (the launches a replay stands for, the cached tensors
+    the graph reads)."""
+
+    graph: torch.cuda.CUDAGraph
+    inputs: tuple
+    outputs: tuple
+    record: _cuda.Capture
 
 
 class F5TTSWrapper:
@@ -296,6 +327,13 @@ class F5TTSWrapper:
                 duration_predictor_ckpt, device=self.device)
         self.ref: Optional[ReferenceState] = None
         self._last_wave: Optional[np.ndarray] = None
+        # the fused step's dispatch: every key seen, and on the card its graphs
+        self.dispatch_keys: set = set()
+        self.graph_replays = 0
+        self._graphs: dict = {}
+        self._graph_lock = threading.Lock()
+        self._graph_pool = None
+        self._capture_stream = None
 
     def _build_int8(self, cfg: ModelConfig, text_num_embeds: int, state_dict: Optional[dict],
                     prequantized: bool, validate: bool) -> torch.nn.Module:
@@ -340,7 +378,8 @@ class F5TTSWrapper:
     def _sample_vocode(self, cond, text, duration, lens, noise, rms_scale, *, steps,
                        cfg_strength, sway, max_duration, vocode_start=0, gen_start=0):
         """The fused step of one chunk: sample the mel, vocode it from
-        ``vocode_start`` on, rescale and clip to int16 PCM, drop the first
+        ``vocode_start`` on, rescale by ``rms_scale`` (a 0-d fp32 tensor, as
+        the JAX step's traced argument) and clip to int16 PCM, drop the first
         ``gen_start`` frames. Returns ``(pcm [b, samples] int16, mel)``."""
         mel = self.cfm.sample(cond, text, duration, lens, noise=noise, steps=steps,
                               cfg_strength=cfg_strength, sway_sampling_coef=sway,
@@ -348,6 +387,113 @@ class F5TTSWrapper:
         wave = self.vocoder(mel[:, vocode_start:].transpose(1, 2)) * rms_scale
         pcm = torch.clamp(wave, -1.0, 1.0) * 32767.0
         return pcm[:, gen_start * self.hop_length:].to(torch.int16), mel
+
+    def _dispatch_sample_vocode(self, cond, text, duration, lens, noise, rms_scale, *, steps,
+                                cfg_strength, sway, max_duration, vocode_start=0,
+                                gen_start=0):
+        """:meth:`_sample_vocode` as one dispatch (the JAX wrapper's
+        ``_sample_vocode_jit``): eagerly for CPU tensors; on the card one
+        replay of the key's CUDA graph, captured at the key's first call.
+        Returns copies that the caller owns, never the graph's buffers."""
+        tensors = (cond, text, duration, lens, noise, rms_scale)
+        static = dict(steps=steps, cfg_strength=cfg_strength, sway=sway,
+                      max_duration=max_duration, vocode_start=vocode_start, gen_start=gen_start)
+        key = (*static.values(), *((tuple(t.shape), t.dtype) for t in tensors),
+               quant_ff.use_int8_ff(), torch.backends.cuda.matmul.allow_tf32,
+               torch.backends.cudnn.allow_tf32)
+        self.dispatch_keys.add(key)
+        if cond.device.type != "cuda":
+            return self._sample_vocode(*tensors, **static)
+        # graphs that share a pool must not run at once: one replay at a time,
+        # from the inputs' copy to the outputs' (all on the caller's stream)
+        with self._graph_lock, torch.inference_mode():
+            entry = self._graphs.get(key)
+            if entry is None:
+                entry = self._graphs[key] = self._capture(tensors, static)
+            for buf, t in zip(entry.inputs, tensors):
+                buf.copy_(t)
+            entry.graph.replay()
+            _cuda.add_launches(entry.record.launches)
+            self.graph_replays += 1
+            return tuple(t.clone() for t in entry.outputs)
+
+    def _host_caches(self) -> dict:
+        """The keys of every host cache the step reads that holds device
+        tensors: a graph captured while one grows would leave it holding
+        tensors written only by replays."""
+        with serving_attention._LOCK:
+            caches = {"serving_attention tables": set(serving_attention._TABLES),
+                      "serving_attention lengths": set(serving_attention._FULL_LENS)}
+        caches["rotary angles"] = set(getattr(self.transformer, "_rope", {}))
+        return caches
+
+    def _capture(self, tensors: tuple, static: dict) -> _ChunkGraph:
+        """A key's first call: its input buffers, one eager run of the step
+        on them, then its capture into the wrapper's graph pool, both on a
+        side stream. Raises if the capture fails or a host cache grows.
+
+        The eager run takes one Euler step: every step calls the backbone at
+        the same shapes, so one builds the kernels, makes the library plans
+        and fills the host caches as all of them would (the check after the
+        capture holds it to that)."""
+        inputs = tuple(torch.empty(t.shape, dtype=t.dtype, device=self.device) for t in tensors)
+        for buf, t in zip(inputs, tensors):
+            buf.copy_(t)
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+            self._capture_stream = torch.cuda.Stream(self.device)
+        stream = self._capture_stream
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(stream):
+            self._sample_vocode(*inputs, **{**static, "steps": 1})
+            before = self._host_caches()
+            # thread_local: the server's other threads keep using the card
+            # (their copies and noise draws) while this one captures
+            with _cuda.capture() as record:
+                graph.capture_begin(pool=self._graph_pool, capture_error_mode="thread_local")
+                try:
+                    outputs = self._sample_vocode(*inputs, **static)
+                except BaseException:
+                    try:
+                        graph.capture_end()
+                    except RuntimeError:
+                        pass  # the capture is void; the step's own error is the one to see
+                    raise
+                graph.capture_end()
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        grown = {name: sorted(map(str, keys - before[name]))
+                 for name, keys in self._host_caches().items() if keys - before[name]}
+        if grown:
+            raise RuntimeError(f"host caches grew while the step was captured: {grown}")
+        return _ChunkGraph(graph, inputs, outputs, record)
+
+    def _device_tensor(self, values, dtype: torch.dtype = torch.long) -> torch.Tensor:
+        """``values`` on the wrapper's device; on the card through pinned
+        memory without waiting for the stream, so that the host can queue a
+        chunk while the card still runs the one before."""
+        t = torch.as_tensor(values, dtype=dtype)
+        if self.device.type != "cuda":
+            return t.to(self.device)
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _fetch_async(self, *tensors):
+        """Queue copies of ``tensors`` (None stays None) to the host: returns
+        them and an event to wait on before reading them (None on the CPU,
+        where they are the tensors themselves)."""
+        if self.device.type != "cuda":
+            return (*tensors, None)
+        host = tuple(None if t is None else
+                     torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(
+                         t, non_blocking=True) for t in tensors)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(self.device))
+        return (*host, done)
+
+    def _rms_scale(self, ref: ReferenceState) -> torch.Tensor:
+        """The 0-d fp32 factor that restores a quiet reference's loudness."""
+        scale = ref.rms / self.target_rms if 0 < ref.rms < self.target_rms else 1.0
+        return self._device_tensor(scale, torch.float32)
 
     def _draw_noise(self, generator: torch.Generator, n_frames: int) -> torch.Tensor:
         """One chunk's ``[n_frames, n_mels]`` sampler noise."""
@@ -405,10 +551,11 @@ class F5TTSWrapper:
                nfe_step: Optional[int] = None,
                buckets: Optional[tuple[int, ...]] = None,
                text_buckets: Optional[tuple[int, ...]] = None) -> list[tuple[int, int]]:
-        """Run the fused step once per reachable (duration bucket, text
+        """Dispatch the fused step once per reachable (duration bucket, text
         bucket) pair, so that no request pays for the kernel build, the text
-        frontend's first call or the allocator's growth (the JAX wrapper's
-        ``warmup``: same signature, loop and result).
+        frontend's first call, the allocator's growth or, on the card, the
+        pair's graph capture (the JAX wrapper's ``warmup``: same signature,
+        loop and result).
 
         Every duration bucket from ``pick_bucket(ref.n_frames + 1)`` up is
         reachable (``buckets`` narrows them); the text buckets default to the
@@ -427,7 +574,7 @@ class F5TTSWrapper:
             text_buckets = tuple(tb for tb in self.text_buckets if lo <= tb <= hi)
         nfe = nfe_step if nfe_step is not None else self.nfe_step
         vstart = max(ref.n_frames - VOCODE_MARGIN_FRAMES, 0)
-        rms_scale = ref.rms / self.target_rms if 0 < ref.rms < self.target_rms else 1.0
+        rms_scale = self._rms_scale(ref)
         generator = torch.Generator(device=self.device).manual_seed(0)
         min_bucket = pick_bucket(ref.n_frames + 1, self.duration_buckets)
         warmed = []
@@ -435,11 +582,11 @@ class F5TTSWrapper:
             if bucket < min_bucket:
                 continue  # unreachable: the prompt alone overfills the bucket
             for tb in text_buckets:
-                text_ids = torch.full((1, tb), -1, dtype=torch.long, device=self.device)
+                text_ids = np.full((1, tb), -1, np.int64)
                 text_ids[0, 0] = 0
-                pcm, _ = self._sample_vocode(
-                    ref.mel, text_ids, torch.tensor([bucket], device=self.device),
-                    torch.tensor([ref.n_frames], device=self.device),
+                pcm, _ = self._dispatch_sample_vocode(
+                    ref.mel, self._device_tensor(text_ids), self._device_tensor([bucket]),
+                    self._device_tensor([ref.n_frames]),
                     self._draw_noise(generator, bucket), rms_scale, steps=nfe,
                     cfg_strength=float(self.cfg_strength),
                     sway=(float(self.sway_sampling_coef)
@@ -500,10 +647,23 @@ class F5TTSWrapper:
         generator = torch.Generator(device=self.device).manual_seed(
             seed if seed is not None else _random.randrange(2**31))
         vstart = max(ref.n_frames - VOCODE_MARGIN_FRAMES, 0)
-        rms_scale = ref.rms / self.target_rms if 0 < ref.rms < self.target_rms else 1.0
+        rms_scale = self._rms_scale(ref)
 
         waves: list[np.ndarray] = []
         mels: list[np.ndarray] = []
+        # As in the JAX wrapper, the host fetches a chunk's PCM only once
+        # three more are queued behind it (or at the end), so the card never
+        # waits for the host between chunks, and few outputs are held at once.
+        pending: list[tuple] = []
+
+        def drain_one():
+            pcm, mel, done, n_samples, duration = pending.pop(0)
+            if done is not None:
+                done.synchronize()
+            waves.append(pcm[0, :n_samples].numpy().astype(np.float32) / 32767.0)
+            if return_spectrogram:
+                mels.append(mel[0, ref.n_frames:duration].T.numpy())
+
         for chunk in chunks:
             local_speed = 0.3 if len(chunk.encode("utf-8")) < 10 else speed
             full_text = ref.text + chunk
@@ -514,18 +674,18 @@ class F5TTSWrapper:
             duration = min(duration, bucket)
             text_ids = list_str_to_idx(tokens, self.vocab_char_map,
                                        pad_to=pick_bucket(len(tokens[0]), self.text_buckets))
-            pcm, mel = self._sample_vocode(
-                ref.mel, torch.from_numpy(text_ids).to(self.device, torch.long),
-                torch.tensor([duration], device=self.device),
-                torch.tensor([ref.n_frames], device=self.device),
-                self._draw_noise(generator, bucket), rms_scale, steps=nfe_step,
-                cfg_strength=float(cfg_strength),
+            pcm, mel = self._dispatch_sample_vocode(
+                ref.mel, self._device_tensor(text_ids), self._device_tensor([duration]),
+                self._device_tensor([ref.n_frames]), self._draw_noise(generator, bucket),
+                rms_scale, steps=nfe_step, cfg_strength=float(cfg_strength),
                 sway=float(sway) if sway is not None else None,
                 max_duration=bucket, vocode_start=vstart, gen_start=ref.n_frames - vstart)
-            n_samples = (duration - ref.n_frames) * self.hop_length
-            waves.append(pcm[0, :n_samples].cpu().numpy().astype(np.float32) / 32767.0)
-            if return_spectrogram:
-                mels.append(mel[0, ref.n_frames:duration].T.cpu().numpy())
+            pending.append((*self._fetch_async(pcm, mel if return_spectrogram else None),
+                            (duration - ref.n_frames) * self.hop_length, duration))
+            if len(pending) > 3:
+                drain_one()
+        while pending:
+            drain_one()
 
         final = cross_fade_concat(waves, self.target_sample_rate, cross_fade_duration)
         self._last_wave = final
@@ -577,12 +737,10 @@ class F5TTSWrapper:
         generator = torch.Generator(device=self.device).manual_seed(
             seed if seed is not None else _random.randrange(2**31))
         vstart = max(ref.n_frames - VOCODE_MARGIN_FRAMES, 0)
-        rms_scale = ref.rms / self.target_rms if 0 < ref.rms < self.target_rms else 1.0
-        pcm, _ = self._sample_vocode(
-            ref.mel.expand(b, -1, -1), torch.from_numpy(text_ids).to(self.device, torch.long),
-            torch.tensor(durations, device=self.device),
-            torch.full((b,), ref.n_frames, device=self.device),
-            self._draw_noise(generator, bucket), rms_scale, steps=nfe_step,
+        pcm, _ = self._dispatch_sample_vocode(
+            ref.mel.expand(b, -1, -1), self._device_tensor(text_ids),
+            self._device_tensor(durations), self._device_tensor([ref.n_frames] * b),
+            self._draw_noise(generator, bucket), self._rms_scale(ref), steps=nfe_step,
             cfg_strength=float(cfg_strength), sway=float(sway) if sway is not None else None,
             max_duration=bucket, vocode_start=vstart, gen_start=ref.n_frames - vstart)
         pcm = pcm.cpu().numpy()

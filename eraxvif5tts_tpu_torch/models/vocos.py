@@ -20,7 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from eraxvif5tts_tpu_torch.models.modules import conv1d, full_fp32, layer_norm, linear
-from eraxvif5tts_tpu_torch.ops.stft import istft
+from eraxvif5tts_tpu_torch.ops.stft import istft, padded_window
 
 
 class VocosConvNeXtBlock(nn.Module):
@@ -66,6 +66,8 @@ class ISTFTHead(nn.Module):
         super().__init__()
         self.n_fft, self.hop_length = n_fft, hop_length
         self.out = nn.Linear(dim, n_fft + 2)
+        # on the module's device, so that a call copies nothing from the host
+        self.register_buffer("window", padded_window(n_fft, n_fft, "cpu"), persistent=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = linear(x, self.out).transpose(1, 2).float()  # [b, n_fft + 2, n]
@@ -73,7 +75,7 @@ class ISTFTHead(nn.Module):
         log_mag, phase = x[:, :n_bins], x[:, n_bins:]
         mag = torch.clamp(torch.exp(log_mag), max=1e2)
         return istft(mag * torch.cos(phase), mag * torch.sin(phase), self.n_fft,
-                     self.hop_length, self.n_fft, center=True)
+                     self.hop_length, self.n_fft, center=True, window=self.window)
 
 
 class Vocos(nn.Module):

@@ -20,6 +20,7 @@ library, and a refused map comes back as a non-zero code like any other.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -27,7 +28,7 @@ import shutil
 import subprocess
 import threading
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -81,10 +82,77 @@ class Kernels:
 
 _lock = threading.Lock()
 _loaded: Kernels | None = None
-# Every wrapper bumps its launch counters under this lock: several threads
-# may launch at once (the HTTP server's generations), and ``+=`` on an
-# attribute is a read and a write another thread can come between.
+# Every wrapper bumps its launch counters under this lock (through
+# :func:`count`): several threads may launch at once (the HTTP server's
+# generations), and ``+=`` on an attribute is a read and a write another
+# thread can come between.
 COUNT_LOCK = threading.Lock()
+# The CUDA graph capture under way on this thread, if any (:func:`capture`).
+_capture = threading.local()
+
+
+@dataclass
+class Capture:
+    """What the kernels' wrappers record while a CUDA graph is captured on
+    this thread: ``launches``, the counter increments that one replay of the
+    graph stands for (``{(fn, name): n}``, as :func:`count` takes them), and
+    ``held``, the tensors a kernel reads from a host cache, which must live as
+    long as the graph does (a cache may drop them; the graph keeps their
+    addresses)."""
+
+    launches: dict = field(default_factory=dict)
+    held: list = field(default_factory=list)
+
+
+@contextlib.contextmanager
+def capture():
+    """Record into a fresh :class:`Capture` for the block: a wrapper that
+    launches inside it adds its counts there instead of to its counters (a
+    capture launches nothing; :func:`add_launches` adds them at each replay)."""
+    record = Capture()
+    _capture.record = record
+    try:
+        yield record
+    finally:
+        _capture.record = None
+
+
+def _bump(fn, name, n: int) -> None:
+    if isinstance(name, tuple):  # (attribute, key) of a dict of counters
+        getattr(fn, name[0])[name[1]] += n
+    else:
+        setattr(fn, name, getattr(fn, name) + n)
+
+
+def count(fn, *names) -> None:
+    """One launch of ``fn``'s kernel: add one to each counter in ``names``
+    (an attribute of ``fn``, or ``(attribute, key)`` of a dict attribute).
+    Inside :func:`capture` on this thread the launch is recorded for the
+    graph instead."""
+    record = getattr(_capture, "record", None)
+    if record is not None:
+        for name in names:
+            record.launches[fn, name] = record.launches.get((fn, name), 0) + 1
+        return
+    with COUNT_LOCK:
+        for name in names:
+            _bump(fn, name, 1)
+
+
+def add_launches(launches: dict) -> None:
+    """Add one replay's launches, as :attr:`Capture.launches` holds them."""
+    with COUNT_LOCK:
+        for (fn, name), n in launches.items():
+            _bump(fn, name, n)
+
+
+def hold(*tensors) -> None:
+    """Keep ``tensors`` (read by a kernel, taken from a host cache) alive as
+    long as the graph being captured on this thread; outside a capture,
+    nothing."""
+    record = getattr(_capture, "record", None)
+    if record is not None:
+        record.held.extend(t for t in tensors if t is not None)
 
 
 def _nvcc() -> str:

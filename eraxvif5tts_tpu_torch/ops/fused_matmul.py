@@ -278,9 +278,7 @@ def ln_mod_matmul(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
             int(activation == "gelu_tanh"), _NORM_CODES[norm], eps,
             _cuda.stream_ptr(x.device))
     _cuda.check(code, "ln_mod_matmul")
-    with _cuda.COUNT_LOCK:
-        ln_mod_matmul.launches += 1
-        ln_mod_matmul.launches_by_norm[norm] += 1
+    _cuda.count(ln_mod_matmul, "launches", ("launches_by_norm", norm))
     return out
 
 
@@ -341,8 +339,7 @@ def matmul_gate_res(h: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
             res.data_ptr(), lens.data_ptr() if mask_rows else None, out.data_ptr(),
             b, m, k, n, int(mask_rows), _cuda.stream_ptr(h.device))
     _cuda.check(code, "matmul_gate_res")
-    with _cuda.COUNT_LOCK:
-        matmul_gate_res.launches += 1
+    _cuda.count(matmul_gate_res, "launches")
     return out
 
 

@@ -214,8 +214,7 @@ def int8_ff(x: torch.Tensor, w1_q: torch.Tensor, s1: torch.Tensor, b1: torch.Ten
             h_codes.data_ptr() if h_codes is not None else None, x_codes.data_ptr(),
             x_scales.data_ptr(), b * m, k, n, k2, _cuda.stream_ptr(x.device))
     _cuda.check(code, "int8_ff")
-    with _cuda.COUNT_LOCK:
-        int8_ff.launches += 1
+    _cuda.count(int8_ff, "launches")
     return out
 
 

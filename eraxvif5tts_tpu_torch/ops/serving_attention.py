@@ -42,7 +42,10 @@ Both read fp32 cos / sin tables, which :func:`rope_tables` makes once per
 angle table and keeps, so a call in the Euler loop does no host work for
 them (nor for the ``lens=None`` vector). Several threads may call it at once
 (the HTTP server runs up to four generations on one wrapper): the two caches
-change under a lock, the launch counters under ``_cuda.COUNT_LOCK``.
+change under a lock, the launch counters through ``_cuda.count``. A call
+under CUDA graph capture must find its tables and lengths cached already (the
+wrapper runs each step once before it captures it): the graph keeps the
+cached tensors it reads (``_cuda.hold``).
 """
 
 from __future__ import annotations
@@ -214,12 +217,13 @@ def serving_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             out.data_ptr(), b, n, h, int(rope is not None), 1.0 / math.sqrt(d),
             _cuda.stream_ptr(q.device))
     _cuda.check(code, "serving_attention")
-    with _cuda.COUNT_LOCK:
-        if fp32:
-            serving_attention.launches_fp32_by_rope[rope is not None] += 1
-        else:
-            serving_attention.launches += 1
-            serving_attention.launches_by_rope[rope is not None] += 1
+    # a CUDA graph captured here reads the cached tables (and lengths) by
+    # address: it holds them, as the caches above may drop them
+    _cuda.hold(cos, sin, lens_i if lens is None else None)
+    if fp32:
+        _cuda.count(serving_attention, ("launches_fp32_by_rope", rope is not None))
+    else:
+        _cuda.count(serving_attention, "launches", ("launches_by_rope", rope is not None))
     return out
 
 

@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from eraxvif5tts_tpu_torch.ops.mel import mel_filterbank
 
 
-def _padded_window(win_length: int, n_fft: int, device) -> torch.Tensor:
+def padded_window(win_length: int, n_fft: int, device) -> torch.Tensor:
     window = torch.hann_window(win_length, periodic=True, dtype=torch.float64)
     if win_length < n_fft:
         pad = (n_fft - win_length) // 2
@@ -45,12 +45,15 @@ def _overlap_add(frames: torch.Tensor, hop_length: int) -> torch.Tensor:
 
 def istft(real: torch.Tensor, imag: torch.Tensor, n_fft: int = 1024,
           hop_length: int = 256, win_length: int = 1024, center: bool = True,
-          envelope_eps: float = 1e-11) -> torch.Tensor:
+          envelope_eps: float = 1e-11, window: torch.Tensor | None = None) -> torch.Tensor:
     """``real/imag [b, n_bins, n_frames]`` float32 -> waveform
-    ``[b, (n_frames - 1) * hop]`` (with ``center``)."""
+    ``[b, (n_frames - 1) * hop]`` (with ``center``). ``window``: the padded
+    Hann window ``[n_fft]`` on real's device, made here when not given (a
+    host-to-device copy, which a CUDA graph cannot capture)."""
     spec = torch.complex(real.float(), imag.float()).transpose(1, 2)
     frames = torch.fft.irfft(spec, n=n_fft, dim=-1)  # [b, n_frames, n_fft]
-    window = _padded_window(win_length, n_fft, real.device)
+    if window is None:
+        window = padded_window(win_length, n_fft, real.device)
     wave = _overlap_add(frames * window, hop_length)
     n_frames = real.shape[-1]
     env = _overlap_add((window * window).expand(1, n_frames, n_fft), hop_length)
@@ -89,7 +92,7 @@ class MelSpectrogram:
             wav = wav[:, 0, :]
         if wav.ndim != 2:
             raise ValueError(f"expected [b, t] waveform, got {tuple(wav.shape)}")
-        window = _padded_window(self.win_length, self.n_fft, wav.device)
+        window = padded_window(self.win_length, self.n_fft, wav.device)
         wav = wav.float()
         center = self.mel_spec_type == "vocos"
         if not center:

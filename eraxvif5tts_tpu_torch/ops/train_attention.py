@@ -382,8 +382,7 @@ def flash_forward(q, k, v, lens, dropout_rate: float = 0.0,
 
     result = _forward("erax_train_attention_fwd", torch.bfloat16, q, k, v, lens,
                       dropout_rate, seed)
-    with _cuda.COUNT_LOCK:
-        flash_forward.launches += 1
+    _cuda.count(flash_forward, "launches")
     return result
 
 
@@ -395,8 +394,7 @@ def flash_forward_fp32(q, k, v, lens, dropout_rate: float = 0.0,
 
     result = _forward("erax_train_attention_fp32_fwd", torch.float32, q, k, v, lens,
                       dropout_rate, seed)
-    with _cuda.COUNT_LOCK:
-        flash_forward_fp32.launches += 1
+    _cuda.count(flash_forward_fp32, "launches")
     return result
 
 
@@ -453,8 +451,7 @@ def flash_dq(q, k, v, lens, lse, dd, dout, dropout_rate: float = 0.0,
 
     dq = _dq("erax_train_attention_dq", torch.bfloat16, q, k, v, lens, lse, dd, dout,
              dropout_rate, seed)
-    with _cuda.COUNT_LOCK:
-        flash_dq.launches += 1
+    _cuda.count(flash_dq, "launches")
     return dq
 
 
@@ -466,8 +463,7 @@ def flash_dkv(q, k, v, lens, lse, dd, dout, dropout_rate: float = 0.0,
 
     result = _dkv("erax_train_attention_dkv", torch.bfloat16, q, k, v, lens, lse, dd, dout,
                   dropout_rate, seed)
-    with _cuda.COUNT_LOCK:
-        flash_dkv.launches += 1
+    _cuda.count(flash_dkv, "launches")
     return result
 
 
@@ -479,8 +475,7 @@ def flash_dq_fp32(q, k, v, lens, lse, dd, dout, dropout_rate: float = 0.0,
 
     dq = _dq("erax_train_attention_fp32_dq", torch.float32, q, k, v, lens, lse, dd, dout,
              dropout_rate, seed)
-    with _cuda.COUNT_LOCK:
-        flash_dq_fp32.launches += 1
+    _cuda.count(flash_dq_fp32, "launches")
     return dq
 
 
@@ -492,8 +487,7 @@ def flash_dkv_fp32(q, k, v, lens, lse, dd, dout, dropout_rate: float = 0.0,
 
     result = _dkv("erax_train_attention_fp32_dkv", torch.float32, q, k, v, lens, lse, dd, dout,
                   dropout_rate, seed)
-    with _cuda.COUNT_LOCK:
-        flash_dkv_fp32.launches += 1
+    _cuda.count(flash_dkv_fp32, "launches")
     return result
 
 

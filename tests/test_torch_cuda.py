@@ -813,8 +813,12 @@ def test_fp32_wrapper_generates_on_the_card(cuda, backbone):
         if w is card:
             torch.cuda.synchronize()
             fp32, bf16, kernel2 = before
+            # depth a backbone step: NFE in a chunk's replay, one in each
+            # key's eager run before its capture
+            steps = 4 * card.graph_replays + len(card._graphs)
+            assert card.graph_replays >= 1
             assert sa.serving_attention.launches_fp32_by_rope == {
-                roped: fp32[roped] + 2 * 4, not roped: fp32[not roped]}
+                roped: fp32[roped] + 2 * steps, not roped: fp32[not roped]}
             assert (sa.serving_attention.launches, fm.ln_mod_matmul.launches) == (bf16, kernel2)
     assert waves[0].shape == waves[1].shape and np.isfinite(waves[1]).all()
     assert np.abs(waves[1] - waves[0]).max() <= 4 / 32767.0
@@ -1109,3 +1113,67 @@ def test_int8_mmdit_launches_kernel_5_on_both_streams(cuda, monkeypatch):
     assert all(torch.isfinite(o).all() for o in outs)
     err = (outs[1] - outs[0]).abs().max()
     assert float(err) <= 2e-2 * float(outs[0].abs().max())
+
+
+# ---- the wrapper's dispatch: one CUDA graph replay a chunk ------------------
+
+
+def test_graph_replay_equals_the_eager_step(cuda):
+    """A tiny bf16 wrapper: the fused step's replay equals the eager step bit
+    for bit, at the key's first call and after, for two references of one
+    length but different mel and RMS under one key; a replay adds depth x NFE
+    to the counters of kernels 1 and 2 (the first call's one-step eager run
+    depth more); a `generate` of four chunks or more replays one graph a chunk
+    and equals the same request through the eager step."""
+    import numpy as np
+
+    from eraxvif5tts_tpu_torch.configs import ArchConfig, ModelConfig
+    from eraxvif5tts_tpu_torch.infer import wrapper as twrapper
+    from eraxvif5tts_tpu_torch.infer.wrapper import F5TTSWrapper
+
+    sr, mel_dim = 24000, 100
+    vocab = {c: i for i, c in enumerate(" abcdefghijklmnopqrstuvwxyz.,!?'-0123456")}
+    t = np.arange(int(sr * 0.8)) / sr
+    clip = (0.2 * np.sin(2 * np.pi * 190 * t) + 0.05 * np.sin(2 * np.pi * 900 * t)
+            ).astype(np.float32)
+
+    arch = ArchConfig(dim=128, depth=2, heads=2, dim_head=64, ff_mult=2, text_dim=32,
+                      conv_layers=1, dropout=0.0)
+    torch.manual_seed(0)
+    w = F5TTSWrapper(model_cfg=ModelConfig(name="tiny", arch=arch), vocab_char_map=vocab,
+                     nfe_step=4, compute_dtype="bfloat16", device="cuda",
+                     duration_buckets=(128, 256, 384), text_buckets=(64,))
+    refs = [w.preprocess_reference(ref_audio=level * clip, ref_sample_rate=sr,
+                                   ref_text="hello there, this is the reference voice")
+            for level in (1.0, 0.25)]
+    n_ref, bucket = refs[0].n_frames, 256
+    vstart = n_ref - twrapper.VOCODE_MARGIN_FRAMES
+    static = dict(steps=4, cfg_strength=2.0, sway=-1.0, max_duration=bucket,
+                  vocode_start=vstart, gen_start=n_ref - vstart)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    text = torch.randint(0, len(vocab), (1, 64), generator=g, device="cuda")
+    noise = torch.randn((bucket, mel_dim), generator=g, device="cuda")
+    for ref in (*refs, refs[0]):
+        args = (ref.mel, text, torch.tensor([200], device="cuda"),
+                torch.tensor([n_ref], device="cuda"), noise, w._rms_scale(ref))
+        want = w._sample_vocode(*args, **static)
+        before = (sa.serving_attention.launches, fm.ln_mod_matmul.launches)
+        replays = w.graph_replays
+        got = w._dispatch_sample_vocode(*args, **static)
+        torch.cuda.synchronize()
+        rose = [sa.serving_attention.launches - before[0], fm.ln_mod_matmul.launches - before[1]]
+        fresh = len(w._graphs) == 1 and replays == 0  # one-step eager run + replay
+        assert rose == [arch.depth * (4 + fresh)] * 2
+        assert w.graph_replays == replays + 1
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert len(w._graphs) == 1 and len(w.dispatch_keys) == 1
+    # a generate of four chunks or more: one replay a chunk, the eager PCM
+    w.warmup(refs[0], nfe_step=4)
+    replays = w.graph_replays
+    text = ("the lamp turned. the sea was calm. no ship passed the point. the boat comes "
+            "soon. the keeper wrote a line. then the dawn came.")
+    got = w.generate(text, ref=refs[0], seed=3, nfe_step=4, use_pinyin=False)
+    chunks = w.graph_replays - replays
+    w._dispatch_sample_vocode = w._sample_vocode
+    want = w.generate(text, ref=refs[0], seed=3, nfe_step=4, use_pinyin=False)
+    assert chunks >= 4 and np.array_equal(got, want)

@@ -63,7 +63,8 @@ def test_port_imports_no_jax_flax_triton():
                          timeout=300, check=True, cwd=REPO_ROOT)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
     assert {"eraxvif5tts_tpu_torch.models.unett", "eraxvif5tts_tpu_torch.models.mmdit",
-            "eraxvif5tts_tpu_torch.models.bigvgan"} <= set(PORT_MODULES)
+            "eraxvif5tts_tpu_torch.models.bigvgan",
+            "eraxvif5tts_tpu_torch.tools.bench"} <= set(PORT_MODULES)
     assert len(PORT_MODULES) >= 40
 
 
