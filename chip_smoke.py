@@ -152,6 +152,27 @@ Phases (any failure raises and the script exits non-zero):
               counters checked per step, a checkpoint save / restore, and one
               more step under `torch.profiler` (device time of the attention
               kernels, the hash dropout and the other groups);
+7a. train-cli -- the training CLI's path at full F5TTS_v1_Base width:
+              `configs/F5TTS_v1_Base.yaml` as the port loads it (bf16
+              compute, no activation checkpointing, 38,400-frame batches of
+              <= 64 samples, 16 mel workers; one epoch, the warmup cut to 1
+              update, a save every 3), an in-memory `CustomDataset` of 140
+              wav files of 3-20 s made from the bundled clip (the host mel
+              FFT per sample, batches prefetched) with texts and
+              character phonemes, a seeded duration predictor (vocab 97,
+              512, 32, 3, 0.5): `build_sampler` -> `build_trainer` ->
+              `_run_training` over the epoch's four batches, two
+              duration-focus updates (backbone and EMA bit for bit, kernel
+              4a only) then full ones (every tensor moved, 4a / 4b / 4c
+              22 each), the `model_3` save with its sample (kernels 1 and 2
+              22 x 16) and the predictor's files, `model_last`; each
+              update's wall, frames/s, the host's wait for its batch and
+              its MAS share, the checkpoint's size and save time, the peak
+              memory; the predictor loaded back on the card; a resume from
+              `model_3` whose update 4 loss equals the first run's; MAS
+              window / progressive / viterbi on one real batch, card
+              against CPU (rows sum to their mel length, >= 99 % of the
+              tokens agree);
 7b. train-fp32 -- CFM training in fp32, the JAX DiT's default compute dtype:
               kernels 4a / 4b / 4c fp32 (`csrc/train_attention_fp32.cu`:
               all three on the tensor cores in 3xTF32) against the
@@ -244,6 +265,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import copy
 import dataclasses
 import json
 import math
@@ -4108,6 +4130,373 @@ def phase_compress(dev) -> dict:
     return launches
 
 
+TRAIN_CLI_ROWS = 140  # clips of the [train-cli] dataset
+TRAIN_CLI_SECONDS = (3.0, 20.0)  # their lengths
+TRAIN_CLI_FOCUS = 2  # duration-focus updates before the full ones
+TRAIN_CLI_SAVE = 3  # save_per_updates: one model_3 save with its sample
+MAS_AGREE = 0.99  # share of tokens whose card durations equal the CPU's
+
+
+def train_cli_rows(tmp: Path, rows: int = TRAIN_CLI_ROWS) -> list:
+    """The [train-cli] dataset: ``rows`` clips of 3-20 s written as 24 kHz wavs
+    under ``tmp``, each the bundled clip tiled to its length at a gain of its
+    own with a little seeded noise, with a text of about 14 characters a
+    second from the smoke's sentences and its characters as space-separated
+    phonemes (the phonemizer's character fallback)."""
+    import numpy as np
+
+    from eraxvif5tts_tpu_torch.audio.io import read_wav, write_wav
+    from eraxvif5tts_tpu_torch.audio.resample import resample
+
+    example = ROOT / "eraxvif5tts_tpu" / "infer" / "examples" / "basic" / "basic_ref_en.wav"
+    clip, sr = read_wav(str(example))
+    clip = clip.mean(axis=0)
+    if sr != 24000:
+        clip = resample(clip, sr, 24000)
+    rng = np.random.default_rng(SEED + 30)
+    words = " ".join(BATCH_TEXTS).split()
+    out = []
+    for i in range(rows):
+        seconds = float(rng.uniform(*TRAIN_CLI_SECONDS))
+        n = int(seconds * 24000)
+        wav = np.tile(clip, n // len(clip) + 1)[:n] * rng.uniform(0.5, 1.0)
+        wav = (wav + 0.003 * rng.standard_normal(n)).astype(np.float32)
+        path = tmp / f"clip_{i:03d}.wav"
+        write_wav(str(path), wav, 24000)
+        text = ""
+        while len(text) < 14 * seconds:
+            text += words[int(rng.integers(len(words)))] + " "
+        text = text.strip()
+        out.append({"audio_path": str(path), "text": text, "duration": n / 24000,
+                    "phoneme": " ".join(c for c in text if not c.isspace())})
+    return out
+
+
+def check_mas_card_vs_cpu(trainer, state, batch, dev, tag: str, smi: str) -> dict:
+    """MAS on one real batch with each algorithm on the card against the CPU:
+    the similarity of the align embedding and the fixed mel projection on
+    each device, then its durations; every row sums to its mel length, at
+    least MAS_AGREE of the tokens agree (an exact tie, such as the boundary
+    between two equal neighbouring phonemes, is broken by each device's
+    rounding), and the card's time per algorithm. Returns the times (ms)."""
+    import torch
+
+    from eraxvif5tts_tpu_torch.models.modules import fp32_convolutions
+    from eraxvif5tts_tpu_torch.training import alignment as al
+
+    def similarity(device):
+        ph = torch.as_tensor(batch["phoneme"], device=device).long()
+        lens = torch.as_tensor(batch["lens"], device=device)
+        mel = torch.as_tensor(batch["mel"], device=device)
+        align = copy.deepcopy(state.dur_align).to(device)
+        plens = (ph > 0).sum(dim=1)
+        with torch.no_grad(), fp32_convolutions():
+            sim = al.build_similarity(align.embed(ph), mel, trainer._mel_proj.to(device),
+                                      plens, lens)
+        return sim, plens, lens
+
+    card, cpu = similarity(dev), similarity(torch.device("cpu"))
+    b, nt, frames = card[0].shape
+    times = {}
+    for algorithm in ("window", "progressive", "viterbi"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = al.monotonic_alignment_durations(*card, algorithm)
+        torch.cuda.synchronize()
+        times[algorithm] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        want = al.monotonic_alignment_durations(*cpu, algorithm)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        got = got.cpu()
+        plens, lens = cpu[1], cpu[2]
+        valid = torch.arange(nt)[None, :] < plens[:, None]
+        differ = int(((got != want) & valid).sum())
+        tokens = int(valid.sum())
+        rows = [i for i in range(b) if 0 < plens[i] <= lens[i]]
+        sums_ok = all(int(got[i].sum()) == int(lens[i]) for i in rows)
+        log(f"{tag} MAS {algorithm} on one real batch [{b}, {nt} phonemes, {frames} frames]: "
+            f"card {times[algorithm]:.1f} ms, CPU {cpu_ms:.1f} ms; {differ} of {tokens} "
+            f"tokens differ from the CPU's; rows summing to their mel length {sums_ok} "
+            f"({len(rows)} rows); {smi}")
+        if not sums_ok or differ > (1 - MAS_AGREE) * tokens:
+            raise AssertionError(f"{tag} MAS {algorithm}: card against CPU, {differ} of "
+                                 f"{tokens} tokens differ, row sums ok {sums_ok}")
+    return times
+
+
+def phase_train_cli(dev, smi: str, cfg=None, rows: int = TRAIN_CLI_ROWS) -> dict:
+    """The training CLI's path at full F5TTS_v1_Base width: the YAML config as
+    the port loads it, an in-memory CustomDataset of ``rows`` wav files (the
+    host mel FFT runs per sample in the worker pool, batches prefetched),
+    ``build_sampler`` -> ``build_trainer`` with a duration predictor ->
+    ``_run_training`` for one epoch (two focus updates, then full ones, a
+    ``model_3`` save with its sample, ``model_last``), then a resume from
+    ``model_3`` and MAS on the card against the CPU. ``cfg``: another
+    training config, for a rehearsal. Returns the launches by kernel."""
+    import numpy as np
+    import torch
+
+    from eraxvif5tts_tpu_torch.configs import load_yaml_config
+    from eraxvif5tts_tpu_torch.models.duration import (
+        DurationPredictor,
+        load_duration_predictor,
+        predict_duration_frames,
+        predictor_vocab_size,
+    )
+    from eraxvif5tts_tpu_torch.ops import train_attention as ta
+    from eraxvif5tts_tpu_torch.text.phoneme import PhonemeMap
+    from eraxvif5tts_tpu_torch.training import alignment, cli
+    from eraxvif5tts_tpu_torch.training.dataset import CustomDataset
+
+    tag = "[train-cli]"
+    cfg = cfg or load_yaml_config(str(ROOT / "configs" / "F5TTS_v1_Base.yaml"))
+    vocab = {c: i for i, c in enumerate(VOCAB_CHARS)}
+    kernels = (ta.flash_forward, ta.flash_dq, ta.flash_dkv)
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (tmp / "wavs").mkdir()
+        # one epoch; the warmup cut from 20,000 updates to 1 so that its updates
+        # move the weights; one save at update 3 (its sample runs there)
+        cfg = dataclasses.replace(
+            cfg, model=dataclasses.replace(cfg.model, tokenizer="custom"),
+            optim=dataclasses.replace(cfg.optim, epochs=1, num_warmup_updates=1),
+            ckpts=dataclasses.replace(cfg.ckpts, save_per_updates=TRAIN_CLI_SAVE,
+                                      save_dir=str(tmp / "ckpts")))
+        t0 = time.perf_counter()
+        dataset = CustomDataset(train_cli_rows(tmp / "wavs", rows),
+                                hop_length=cfg.model.mel_spec.hop_length,
+                                target_sample_rate=cfg.model.mel_spec.target_sample_rate,
+                                mel_spec_kwargs=dataclasses.asdict(cfg.model.mel_spec))
+        sampler = cli.build_sampler(dataset, cfg, SEED)
+        seconds = sum(dataset.durations)
+        log(f"{tag} dataset: {len(dataset)} wav files of {TRAIN_CLI_SECONDS[0]:.0f}-"
+            f"{TRAIN_CLI_SECONDS[1]:.0f} s ({seconds / 60:.1f} min) written in "
+            f"{time.perf_counter() - t0:.1f} s; {len(sampler)} batches of <= "
+            f"{cfg.datasets.batch_size_per_gpu} frames and {cfg.datasets.max_samples} "
+            f"samples ({[len(b) for b in sampler.batches]} rows); {cfg.datasets.num_workers} "
+            "mel workers, prefetch 2")
+        if len(sampler) < TRAIN_CLI_SAVE + 1:
+            raise AssertionError(f"{tag} {len(sampler)} batches: the phase needs "
+                                 f"{TRAIN_CLI_SAVE + 1}")
+
+        t0 = time.perf_counter()
+        pred_vocab = predictor_vocab_size(len(vocab))
+        torch.manual_seed(SEED + 31)  # the predictor's default initialisation, seeded
+        predictor = DurationPredictor(vocab_size=pred_vocab, d_model=512, d_filter=32,
+                                      kernel_size=3, dropout=0.5)
+        phoneme_map = PhonemeMap(max_index=pred_vocab - 1)
+        trainer = cli.build_trainer(cfg, len(vocab), cli._total_updates(sampler, cfg),
+                                    duration_predictor=predictor,
+                                    duration_focus_updates=TRAIN_CLI_FOCUS,
+                                    phoneme_map=phoneme_map, device=dev)
+        dit = trainer.cfm.transformer
+        randomize((dit,), SEED)
+        state = trainer.init_state()
+        arch = dit.arch
+        depth = arch.depth
+        torch.cuda.synchronize()
+        log(f"{tag} {cfg.model.name} from configs/F5TTS_v1_Base.yaml: dim {arch.dim} depth "
+            f"{depth} heads {arch.heads}x{arch.dim_head}, {cfg.model.compute_dtype} compute, "
+            f"checkpoint_activations {arch.checkpoint_activations}, dropout {arch.dropout}, "
+            f"N(0, {WEIGHT_STD}) seed {SEED}; duration predictor (vocab {pred_vocab}, 512, "
+            f"32, 3, 0.5) seed {SEED + 31}; lr {cfg.optim.learning_rate}, warmup cut to 1; "
+            f"built in {time.perf_counter() - t0:.1f} s")
+
+        # --- instruments: per update wall / data wait / MAS, kernels, saves ----
+        steps, saves, waits, mas_s = [], [], [], []
+        plain_step = trainer.train_step
+        plain_prefetch = cli.prefetch_batches
+        plain_mas = alignment.monotonic_alignment_durations
+        plain_save = trainer.save_checkpoint
+
+        def timed_prefetch(gen, depth=2):
+            it = plain_prefetch(gen, depth)
+            while True:
+                t = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                waits.append(time.perf_counter() - t)
+                yield batch
+
+        def timed_mas(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = plain_mas(*args, **kwargs)
+            torch.cuda.synchronize()
+            mas_s.append(time.perf_counter() - t)
+            return out
+
+        def timed_save(state, *args, **kwargs):
+            t = time.perf_counter()
+            path = plain_save(state, *args, **kwargs)
+            size = sum(f.stat().st_size for f in Path(path).iterdir())
+            saves.append((Path(path).name, size, time.perf_counter() - t))
+            return path
+
+        def watched_step(state, batch, draws):
+            # the snapshots on the host: the peak below is the CLI's own
+            def host(tensors):
+                return [t.detach().to("cpu", copy=True) for t in tensors]
+
+            params = host(state.model.parameters())
+            ema = host(state.ema_params.values())
+            dur = host(state.dur_predictor.parameters())
+            before = [fn.launches for fn in kernels]
+            focus = state.step < TRAIN_CLI_FOCUS  # the updates before it count
+            n_mas = len(mas_s)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, metrics = plain_step(state, batch, draws)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            counts = [fn.launches - c for fn, c in zip(kernels, before)]
+            moved, ema_moved, dur_moved = (
+                sum(not torch.equal(x.detach().cpu(), x0) for x, x0 in zip(now, then))
+                for now, then in ((state.model.parameters(), params),
+                                  (state.ema_params.values(), ema),
+                                  (state.dur_predictor.parameters(), dur)))
+            steps.append(dict(step=state.step, focus=focus, wall=wall, counts=counts,
+                              wait=waits[-1] if waits else float("nan"),
+                              method=trainer.alignment_manager.current_method,
+                              loss=metrics["loss"], metrics=metrics, moved=moved,
+                              ema_moved=ema_moved, dur_moved=dur_moved,
+                              mas=sum(mas_s[n_mas:]), real=int(np.sum(batch["lens"])),
+                              shape=tuple(batch["mel"].shape)))
+            return state, metrics
+
+        def run(state, resume=None):
+            return cli._run_training(trainer, cfg, dataset, sampler, vocab, state, SEED,
+                                     tokenize=cli._make_tokenize("custom"),
+                                     phoneme_map=phoneme_map, resume=resume, log_every=1)
+
+        trainer.train_step = watched_step
+        trainer.save_checkpoint = timed_save
+        cli.prefetch_batches = timed_prefetch
+        alignment.monotonic_alignment_durations = timed_mas
+        before_serving = serving_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        try:
+            t0 = time.perf_counter()
+            state = run(state)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            first = list(steps)
+            serving = {k: v - before_serving[k] for k, v in serving_counts().items()}
+            peak = torch.cuda.max_memory_allocated(dev)
+            steps.clear()
+            t0 = time.perf_counter()
+            run(state, resume=str(tmp / "ckpts" / f"model_{TRAIN_CLI_SAVE}"))
+            resume_s = time.perf_counter() - t0
+        finally:
+            del trainer.train_step, trainer.save_checkpoint
+            cli.prefetch_batches = plain_prefetch
+            alignment.monotonic_alignment_durations = plain_mas
+
+        # --- the run's readings ------------------------------------------------
+        for s in first:
+            b, n, wait = *s["shape"][:2], s["wait"]
+            m = s["metrics"]
+            log(f"{tag} update {s['step']} ({'focus' if s['focus'] else 'full'}, MAS "
+                f"{s['method']}) [{b}, {n}] {s['real']} real frames: wall {s['wall']:.3f} s, "
+                f"{s['real'] / s['wall']:.0f} real / {b * n / s['wall']:.0f} padded frames/s, "
+                f"host wait for the batch {wait * 1e3:.1f} ms, MAS {s['mas'] * 1e3:.1f} ms "
+                f"({100 * s['mas'] / s['wall']:.1f} % of the wall); loss {m['loss']:.5f} "
+                f"cfm {m['cfm_loss']:.5f} duration {m['duration_loss']:.5f} mae "
+                f"{m['duration_mae']:.3f} coverage {m['align_coverage']:.3f} diagonal "
+                f"{m['align_diagonal']:.3f} weight {m['duration_weight']:.2f} grad_norm "
+                f"{m['grad_norm']:.4f}; launches fwd/dq/dkv {s['counts']}; tensors moved: "
+                f"backbone {s['moved']}, EMA {s['ema_moved']}, predictor {s['dur_moved']}; "
+                f"{smi}")
+        n_params = sum(1 for _ in dit.parameters())
+        n_dur = sum(1 for _ in state.dur_predictor.parameters())
+        for s in first:
+            want = [depth, 0, 0] if s["focus"] else (
+                [2 * depth if arch.checkpoint_activations else depth, depth, depth])
+            if s["counts"] != want:
+                raise AssertionError(f"{tag} update {s['step']}: launches {s['counts']}, "
+                                     f"expected {want}")
+            if s["focus"] and (s["moved"] or s["ema_moved"] or s["dur_moved"] != n_dur):
+                raise AssertionError(f"{tag} focus update {s['step']}: backbone tensors moved "
+                                     f"{s['moved']}, EMA {s['ema_moved']}, predictor "
+                                     f"{s['dur_moved']} of {n_dur}")
+            if not s["focus"] and (s["moved"] != n_params or s["ema_moved"] != n_params):
+                raise AssertionError(f"{tag} full update {s['step']}: backbone tensors moved "
+                                     f"{s['moved']}, EMA {s['ema_moved']} of {n_params}")
+            if not all(math.isfinite(s["metrics"][k]) for k in ("loss", "grad_norm")):
+                raise AssertionError(f"{tag} update {s['step']}: non-finite loss or norm")
+        if [s["focus"] for s in first[:TRAIN_CLI_FOCUS + 1]] != [True] * TRAIN_CLI_FOCUS + [False]:
+            raise AssertionError(f"{tag} phases {[s['focus'] for s in first]}: expected "
+                                 f"{TRAIN_CLI_FOCUS} focus updates, then full ones")
+        walls = [s["wall"] for s in first]
+        full = [s for s in first if not s["focus"]]
+        mas_share = sum(s["mas"] for s in first) / sum(walls)
+        log(f"{tag} one epoch of {len(first)} updates in {run_s:.1f} s of wall ({sum(walls):.1f} "
+            f"s in train_step); the full updates' median "
+            f"{statistics.median(s['wall'] for s in full):.3f} s; MAS {100 * mas_share:.1f} % of "
+            f"the updates' wall; the host's wait for a batch: first {first[0]['wait'] * 1e3:.0f} "
+            f"ms (the mel FFT of a whole batch), then median "
+            f"{statistics.median(s['wait'] for s in first[1:]) * 1e3:.1f} ms; peak memory "
+            f"{peak / 2**30:.2f} GiB; {smi}")
+        for name, size, secs in saves:
+            log(f"{tag} checkpoint {name}: {size / 2**30:.2f} GiB saved in {secs:.2f} s")
+
+        # the samples of the model_{3k} saves: kernels 1 and 2, their files
+        nfe = 16  # make_sample_fn's default
+        sampled = [s["step"] for s in first if s["step"] % TRAIN_CLI_SAVE == 0]
+        want = depth * nfe * len(sampled)
+        if serving["serving_attention"] != want or serving["ln_mod_matmul"] != want:
+            raise AssertionError(f"{tag} the samples launched kernel 1 "
+                                 f"{serving['serving_attention']} and kernel 2 "
+                                 f"{serving['ln_mod_matmul']} times, expected {want} each")
+        from eraxvif5tts_tpu_torch.audio.io import read_wav
+
+        for step in sampled:
+            base = tmp / "ckpts" / "samples" / f"update_{step}_0"
+            mel = np.load(f"{base}.npy")
+            wav, _ = read_wav(f"{base}.gl.wav")
+            if not (np.isfinite(mel).all() and np.isfinite(wav).all() and mel.size and wav.size):
+                raise AssertionError(f"{tag} the sample's mel or wave is empty or not finite")
+            log(f"{tag} sample at update {step}: mel {mel.shape}, Griffin-Lim wave "
+                f"{wav.shape[-1] / 24000:.2f} s")
+        log(f"{tag} kernel 1 and kernel 2 launched {want} times each in the samples "
+            f"({depth} blocks x NFE {nfe} x {len(sampled)})")
+
+        # the predictor's file, loaded on the card
+        path = tmp / "ckpts" / "duration_predictor_last.pt"
+        model, loaded = load_duration_predictor(str(path), dev)
+        frames = predict_duration_frames(model, loaded, TEXTS[0])
+        if loaded != dict(phoneme_map) or frames <= 0:
+            raise AssertionError(f"{tag} {path.name}: map equal {loaded == dict(phoneme_map)}, "
+                                 f"{frames} predicted frames")
+        log(f"{tag} {path.name}: {len(loaded)} phonemes, {frames} frames predicted for "
+            f"{TEXTS[0]!r} on the card")
+
+        # the resume from model_3: the next update's loss equals the first run's
+        redo = steps[0]
+        ref = next(s for s in first if s["step"] == redo["step"])
+        rel = abs(redo["loss"] - ref["loss"]) / abs(ref["loss"])
+        log(f"{tag} resumed from model_{TRAIN_CLI_SAVE} in {resume_s:.1f} s ({len(steps)} "
+            f"updates run, the skip of {TRAIN_CLI_SAVE} batches inside epoch 0): update "
+            f"{redo['step']} loss {redo['loss']:.8f} against {ref['loss']:.8f}, relative "
+            f"{rel:.3g} (limit 1e-6)")
+        if rel > 1e-6:
+            raise AssertionError(f"{tag} the resumed update's loss differs by {rel:.3g}")
+
+        batch = next(iter(cli.epoch_batches(dataset, sampler, vocab, 0,
+                                            tokenize=cli._make_tokenize("custom"),
+                                            phoneme_map=phoneme_map)))
+        check_mas_card_vs_cpu(trainer, state, batch, dev, tag, smi)
+        for fn, name in zip(kernels, ("fwd", "dq", "dkv")):
+            launches[f"train_attention_{name}"] = sum(
+                s["counts"][("fwd", "dq", "dkv").index(name)] for s in first)
+        launches.update({k: serving[k] for k in ("serving_attention", "ln_mod_matmul")})
+    log(f"{tag} launches on the CLI path: {launches}")
+    return launches
+
+
 BENCH_ITERS = 3  # timed calls of tools/bench.py a dtype, after its warm-up
 
 
@@ -4160,7 +4549,7 @@ def main() -> int:
     from eraxvif5tts_tpu_torch.configs import PRESETS
 
     t_start = time.perf_counter()
-    phase_device()
+    smi = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
     kernel_results = timed("[kernels]", phase_kernels, dev)
@@ -4186,6 +4575,7 @@ def main() -> int:
     kernel_results["int8_ff"]["max_abs_err"] = max(kernel_results["int8_ff"]["max_abs_err"],
                                                    ff_err)
     launches.update(timed("[train]", phase_train, dev))
+    timed("[train-cli]", phase_train_cli, dev, smi)
     fp32_train_rows, fp32_train_launches = timed("[train-fp32]", phase_train_fp32, dev)
     kernel_results.update(fp32_train_rows)
     launches.update(fp32_train_launches)

@@ -109,11 +109,14 @@ class CFM:
         return self.transformer.mel_dim
 
     def loss(self, mel: torch.Tensor, text: torch.Tensor, lens: torch.Tensor,
-             draws: LossDraws) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+             draws: LossDraws, deterministic: bool = False
+             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Masked-span infilling flow-matching loss of ``mel [b, n, d]`` log-mel
         frames, ``text [b, nt]`` ids (-1 padded) and ``lens [b]``; returns
         (loss, cond, pred). The transformer runs in its own mode
-        (``train()`` for the training branch)."""
+        (``train()`` for the training branch); ``deterministic`` turns its
+        dropout off (the JAX ``deterministic=True``; the CFG drops stay, and
+        the draws' dropout keys go unused)."""
         b, n, d = mel.shape
         mask = lens_to_mask(lens, n)
         rand_span_mask = mask_from_frac_lengths(lens, draws.frac, n, draws.rand) & mask
@@ -128,7 +131,8 @@ class CFM:
         drop_cond = draws.drop_cond < self.cond_drop_prob
         drop_audio = (draws.drop_audio < self.audio_drop_prob) | drop_cond
         pred = self.transformer(xt, cond, text, draws.time, drop_audio.expand(b),
-                                drop_cond.expand(b), dropout_keys=draws.dropout_keys)
+                                drop_cond.expand(b), dropout_keys=draws.dropout_keys,
+                                deterministic=deterministic)
 
         # mean squared error over (span frames x channels) (`cfm.py:141-144`)
         se = (pred - flow).square()

@@ -18,7 +18,10 @@ Training (``module.train()``, the JAX ``deterministic=False``) keeps the
 parameters in fp32 and computes in ``compute_dtype`` (bf16 on the card, the
 JAX recipe); ``proj_out``, a flax ``Dense`` without a dtype in the JAX
 package, computes in its parameters' dtype. The dropout keys of every block
-are drawn by the caller before the forward (:meth:`DiT.forward`).
+are drawn by the caller before the forward (:meth:`DiT.forward`). A
+training-mode forward with ``deterministic=True`` runs the training
+attention without dropout (the trainer's forward-only loss of the
+duration-focus updates).
 ``ArchConfig.checkpoint_activations`` checkpoints each block
 (``torch.utils.checkpoint``, the JAX ``remat_policy="full"``; an unresolved
 ``"auto"`` means "full", as in the JAX DiT);
@@ -167,7 +170,8 @@ class DiT(nn.Module):
     @full_fp32
     def run(self, x: torch.Tensor, cond: torch.Tensor, text_embed: torch.Tensor,
             time: torch.Tensor, drop_audio_cond: torch.Tensor,
-            mask: torch.Tensor | None = None, dropout_keys=None) -> torch.Tensor:
+            mask: torch.Tensor | None = None, dropout_keys=None,
+            deterministic: bool = False) -> torch.Tensor:
         """Forward from a precomputed text embedding (the Euler-loop hot path).
         ``dropout_keys`` (training with dropout): per block, the keys of its
         three dropout sites, each two 32-bit words."""
@@ -177,7 +181,7 @@ class DiT(nn.Module):
         if self.training and self.arch.quantized:
             raise ValueError("a quantized DiT serves only: call .eval() (int8 models are "
                              "not trained)")
-        rate = self.arch.dropout if self.training else 0.0
+        rate = self.arch.dropout if self.training and not deterministic else 0.0
         if rate > 0.0 and (dropout_keys is None
                            or len(dropout_keys) != len(self.transformer_blocks)):
             raise ValueError("a training forward with dropout needs the dropout keys of "
@@ -202,8 +206,9 @@ class DiT(nn.Module):
 
     def forward(self, x: torch.Tensor, cond: torch.Tensor, text: torch.Tensor,
                 time: torch.Tensor, drop_audio_cond: torch.Tensor, drop_text: torch.Tensor,
-                mask: torch.Tensor | None = None, dropout_keys=None) -> torch.Tensor:
+                mask: torch.Tensor | None = None, dropout_keys=None,
+                deterministic: bool = False) -> torch.Tensor:
         """The whole DiT (the JAX ``__call__``): text embedding at x's length,
         then :meth:`run`."""
         return self.run(x, cond, self.embed_text(text, x.shape[1], drop_text), time,
-                        drop_audio_cond, mask, dropout_keys)
+                        drop_audio_cond, mask, dropout_keys, deterministic)

@@ -272,10 +272,12 @@ class MMDiT(nn.Module):
     @full_fp32
     def run(self, x: torch.Tensor, cond: torch.Tensor, text_embed: torch.Tensor,
             time: torch.Tensor, drop_audio_cond: torch.Tensor,
-            mask: torch.Tensor | None = None, dropout_keys=None) -> torch.Tensor:
+            mask: torch.Tensor | None = None, dropout_keys=None,
+            deterministic: bool = False) -> torch.Tensor:
         """Forward from a precomputed text stream (the Euler-loop hot path).
         In training mode ``arch.dropout`` must be 0 and ``dropout_keys`` go
-        unused (see the module docstring)."""
+        unused (see the module docstring); ``deterministic`` (a training-mode
+        forward without dropout) changes nothing here."""
         if self.training:
             if self.arch.quantized:
                 raise ValueError("a quantized MMDiT serves only: call .eval() (int8 models are "
@@ -301,8 +303,9 @@ class MMDiT(nn.Module):
 
     def forward(self, x: torch.Tensor, cond: torch.Tensor, text: torch.Tensor,
                 time: torch.Tensor, drop_audio_cond: torch.Tensor, drop_text: torch.Tensor,
-                mask: torch.Tensor | None = None, dropout_keys=None) -> torch.Tensor:
+                mask: torch.Tensor | None = None, dropout_keys=None,
+                deterministic: bool = False) -> torch.Tensor:
         """The whole MMDiT (the JAX ``__call__``): the text stream, then
         :meth:`run`."""
         return self.run(x, cond, self.embed_text(text, x.shape[1], drop_text), time,
-                        drop_audio_cond, mask, dropout_keys)
+                        drop_audio_cond, mask, dropout_keys, deterministic)

@@ -144,7 +144,8 @@ class UNetT(nn.Module):
     @full_fp32
     def run(self, x: torch.Tensor, cond: torch.Tensor, text_embed: torch.Tensor,
             time: torch.Tensor, drop_audio_cond: torch.Tensor,
-            mask: torch.Tensor | None = None, dropout_keys=None) -> torch.Tensor:
+            mask: torch.Tensor | None = None, dropout_keys=None,
+            deterministic: bool = False) -> torch.Tensor:
         """Forward from a precomputed text embedding (the Euler-loop hot path).
         ``dropout_keys`` (training with dropout): per layer, the keys of its
         three dropout sites (attention weights, attention output, FF hidden
@@ -156,7 +157,7 @@ class UNetT(nn.Module):
         depth = len(self.layers)
         if time.ndim == 0:
             time = time.expand(batch)
-        rate = self.arch.dropout if self.training else 0.0
+        rate = self.arch.dropout if self.training and not deterministic else 0.0
         if rate > 0.0 and (dropout_keys is None or len(dropout_keys) != depth):
             raise ValueError("a training forward with dropout needs the dropout keys of "
                              f"all {depth} layers")
@@ -189,8 +190,9 @@ class UNetT(nn.Module):
 
     def forward(self, x: torch.Tensor, cond: torch.Tensor, text: torch.Tensor,
                 time: torch.Tensor, drop_audio_cond: torch.Tensor, drop_text: torch.Tensor,
-                mask: torch.Tensor | None = None, dropout_keys=None) -> torch.Tensor:
+                mask: torch.Tensor | None = None, dropout_keys=None,
+                deterministic: bool = False) -> torch.Tensor:
         """The whole UNetT (the JAX ``__call__``): text embedding at x's
         length, then :meth:`run`."""
         return self.run(x, cond, self.embed_text(text, x.shape[1], drop_text), time,
-                        drop_audio_cond, mask, dropout_keys)
+                        drop_audio_cond, mask, dropout_keys, deterministic)

@@ -20,6 +20,14 @@ from __future__ import annotations
 import numpy as np
 
 
+def hann_window(win_length: int, dtype=np.float32) -> np.ndarray:
+    """Periodic Hann window in numpy (``torch.hann_window(periodic=True)``;
+    the JAX package's `ops/stft.py` ``hann_window``), for the host-side mel
+    of the data pipeline and Griffin-Lim."""
+    n = np.arange(win_length, dtype=np.float64)
+    return (0.5 * (1.0 - np.cos(2.0 * np.pi * n / win_length))).astype(dtype)
+
+
 def _hz_to_mel_htk(f: np.ndarray) -> np.ndarray:
     return 2595.0 * np.log10(1.0 + np.asarray(f, dtype=np.float64) / 700.0)
 

@@ -32,9 +32,8 @@ Kept from the JAX package:
   wrappers load.
 
 Differences, by design: the state is updated in place and a step reads its
-losses back to the host once, to decide the skip. The CLI
-(`eraxvif5tts_tpu/training/distill_cli.py`) waits for the data pipeline
-(ROADMAP.md).
+losses back to the host once, to decide the skip. The CLI is
+`training/distill_cli.py`.
 """
 
 from __future__ import annotations
@@ -51,6 +50,7 @@ from eraxvif5tts_tpu_torch.models.modules import fp32_when
 from eraxvif5tts_tpu_torch.ops.masks import lens_to_mask, mask_from_frac_lengths
 from eraxvif5tts_tpu_torch.training.trainer import (
     BETAS,
+    DUR_WEIGHT_DECAY,
     EPS,
     OptimizerSpec,
     TrainState,
@@ -58,8 +58,6 @@ from eraxvif5tts_tpu_torch.training.trainer import (
     checkpoint_save,
     global_norm,
 )
-
-DUR_WEIGHT_DECAY = 3e-4  # the predictor's AdamW (`distill.py:148-155`)
 
 
 @dataclass(frozen=True)

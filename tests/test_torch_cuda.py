@@ -1177,3 +1177,72 @@ def test_graph_replay_equals_the_eager_step(cuda):
     w._dispatch_sample_vocode = w._sample_vocode
     want = w.generate(text, ref=refs[0], seed=3, nfe_step=4, use_pinyin=False)
     assert chunks >= 4 and np.array_equal(got, want)
+
+
+# ---- the training CLI's path: MAS and the duration-focus update ------------
+
+
+def test_mas_on_the_card_matches_the_cpu(cuda):
+    """The three MAS algorithms on a padded batch of 1/8-grid similarities
+    (every prefix sum exact in fp32, so no tie is broken by rounding): the
+    card's durations equal the CPU's."""
+    from eraxvif5tts_tpu_torch.training import alignment as al
+
+    g = torch.Generator().manual_seed(0)
+    b, nt, frames = 4, 40, 300
+    sim = torch.randint(-24, 25, (b, nt, frames), generator=g).float() / 8
+    plens = torch.tensor([nt, 31, 12, 0])
+    mlens = torch.tensor([frames, 250, 9, 0])
+    for algorithm in ("window", "progressive", "viterbi"):
+        want = al.monotonic_alignment_durations(sim, plens, mlens, algorithm)
+        got = al.monotonic_alignment_durations(sim.to(cuda), plens.to(cuda), mlens.to(cuda),
+                                               algorithm)
+        assert torch.equal(got.cpu(), want), algorithm
+
+
+def test_duration_focus_update_freezes_the_backbone_on_the_card(cuda):
+    """A 2-block bf16 DiT with a duration predictor: the first (focus) update
+    runs kernel 4a only (forward, no dq / dk-dv), leaves every backbone
+    parameter and its EMA bit for bit and moves the predictor; the next (full)
+    update launches all three kernels and moves the backbone."""
+    from eraxvif5tts_tpu_torch.configs import ArchConfig
+    from eraxvif5tts_tpu_torch.models.cfm import CFM, LossDraws
+    from eraxvif5tts_tpu_torch.models.dit import DiT
+    from eraxvif5tts_tpu_torch.models.duration import DurationPredictor
+    from eraxvif5tts_tpu_torch.training.trainer import Trainer, make_optimizer
+
+    arch = ArchConfig(dim=128, depth=2, heads=2, dim_head=64, ff_mult=2, text_dim=64,
+                      conv_layers=1, dropout=0.1)
+    torch.manual_seed(0)
+    dit = DiT(arch, 20, 100, compute_dtype=torch.bfloat16).to(cuda)
+    for p in dit.parameters():
+        torch.nn.init.normal_(p, 0.0, 0.05)
+    trainer = Trainer(cfm=CFM(dit), optimizer=make_optimizer(num_warmup_updates=1,
+                                                             total_updates=10),
+                      duration_predictor=DurationPredictor(22, 64, 16),
+                      duration_focus_updates=1)
+    state = trainer.init_state()
+    g = torch.Generator(device=cuda).manual_seed(1)
+    b, n = 2, 256
+    batch = {"mel": torch.randn((b, n, 100), generator=g, device=cuda),
+             "text": torch.randint(0, 20, (b, 40), generator=g, device=cuda),
+             "lens": torch.tensor([n, n - 30], device=cuda),
+             "phoneme": torch.randint(1, 21, (b, 64), generator=g, device=cuda)}
+    kernels = (ta.flash_forward, ta.flash_dq, ta.flash_dkv)
+    for focus in (True, False):
+        params = [p.detach().clone() for p in dit.parameters()]
+        ema = [e.clone() for e in state.ema_params.values()]
+        dur = [p.detach().clone() for p in state.dur_predictor.parameters()]
+        before = [fn.launches for fn in kernels]
+        state, metrics = trainer.train_step(state, batch, LossDraws.sample(g, b, n, 100, 2))
+        torch.cuda.synchronize()
+        counts = [fn.launches - c for fn, c in zip(kernels, before)]
+        same = [torch.equal(p, p0) for p, p0 in zip(dit.parameters(), params)]
+        same_ema = [torch.equal(e, e0) for e, e0 in zip(state.ema_params.values(), ema)]
+        assert not any(torch.equal(p, p0) for p, p0 in zip(state.dur_predictor.parameters(), dur))
+        assert metrics["applied"] == 1.0 and math.isfinite(metrics["loss"])
+        if focus:
+            assert counts == [2, 0, 0] and all(same) and all(same_ema)
+            assert metrics["grad_norm"] == 0.0
+        else:
+            assert counts == [2, 2, 2] and not any(same) and not any(same_ema)

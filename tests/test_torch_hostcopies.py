@@ -1,6 +1,7 @@
 """PyTorch port, host code: the port keeps its own copies of the JAX
-package's pure host modules (configs, text, audio, the checkpoint key rules,
-BigVGAN's filter, weight-norm fusion and configurations)
+package's pure host modules (configs, text, audio with Griffin-Lim, the
+checkpoint key rules, BigVGAN's filter, weight-norm fusion and
+configurations, `utils.py`, the dataset preparation's pure functions)
 and imports nothing of that package. Each copied function is held to the
 original on seeded inputs: equal results, exactly (the copies are the same
 arithmetic; no tolerance is needed or given).
@@ -515,6 +516,62 @@ def _check_client_html(seed):
     assert http_server._CLIENT_HTML.encode("utf-8") == got
 
 
+
+def _check_griffin_lim(seed):
+    from eraxvif5tts_tpu.audio.griffin_lim import griffin_lim_mel as j_gl
+    from eraxvif5tts_tpu.ops.stft import hann_window as j_hann
+    from eraxvif5tts_tpu_torch.audio.griffin_lim import griffin_lim_mel as t_gl
+    from eraxvif5tts_tpu_torch.ops.mel import hann_window as t_hann
+
+    for n in (1024, 800, 7):
+        np.testing.assert_array_equal(t_hann(n), j_hann(n))
+    rng = np.random.default_rng(seed)
+    log_mel = (rng.standard_normal((100, 24)) - 3.0).astype(np.float32)
+    np.testing.assert_array_equal(t_gl(log_mel, n_iter=4, seed=seed),
+                                  j_gl(log_mel, n_iter=4, seed=seed))
+    np.testing.assert_array_equal(t_gl(log_mel[:80], n_iter=2, win_length=800, variant="slaney"),
+                                  j_gl(log_mel[:80], n_iter=2, win_length=800, variant="slaney"))
+
+
+def _check_utils(seed):
+    from eraxvif5tts_tpu import utils as jutils
+    from eraxvif5tts_tpu_torch import utils as tutils
+
+    draws = []
+    for mod in (jutils, tutils):
+        mod.seed_everything(seed)
+        draws.append((random.random(), np.random.rand(), torch.rand(3).tolist()))
+    assert draws[0] == draws[1]
+    for v, d in ((None, 3), (0, 3), ("", "x")):
+        assert tutils.exists(v) == jutils.exists(v)
+        assert tutils.default(v, d) == jutils.default(v, d)
+
+
+def _check_prepare(seed, tmp_path):
+    from eraxvif5tts_tpu.training import prepare as jprep
+    from eraxvif5tts_tpu_torch.training import prepare as tprep
+
+    for text in _texts(seed) + ["ab" * 20, "xxxx" * 8, ""]:
+        for length, tol in ((2, 10), (4, 3), (1, 2)):
+            assert tprep.repetition_found(text, length, tol) == jprep.repetition_found(
+                text, length, tol)
+    texts = [list(t) for t in _texts(seed)] + ["cab", [" ", "b"]]
+    assert tprep.build_vocab(texts) == jprep.build_vocab(texts)
+    path = str(tmp_path / "d.wav")
+    tio.write_wav(path, np.zeros(12345, np.float32), 22050)
+    assert tprep.wav_duration_seconds(path) == jprep.wav_duration_seconds(path)
+    meta = tmp_path / "meta.csv"
+    meta.write_text("a.wav|spk|xin chao.\nb.wav|x\nc.wav|spk|mot hai ba..\n"
+                    + "".join(f"{k}.wav|{t}\n" for k, t in enumerate(_texts(seed, 4))),
+                    encoding="utf-8")
+    want = jprep.prepare_phonemes(str(meta), str(tmp_path / "j.jsonl"), normalize_fn=str.lower,
+                                  shuffle=True, seed=seed)
+    got = tprep.prepare_phonemes(str(meta), str(tmp_path / "t.jsonl"), normalize_fn=str.lower,
+                                 shuffle=True, seed=seed)
+    assert (got["written"], got["skipped"]) == (want["written"], want["skipped"])
+    assert (tmp_path / "t.jsonl").read_text("utf-8") == (tmp_path / "j.jsonl").read_text("utf-8")
+
+
 CHECKS = {
     **{f"rules_{name}": (lambda seed, tmp_path, name=name: _check_rules(name))
        for name in _rules_cases()},
@@ -538,6 +595,9 @@ CHECKS = {
     "chat_session": lambda seed, tmp_path: _check_chat_session(seed),
     "client_html": lambda seed, tmp_path: _check_client_html(seed),
     "bigvgan_host_code": lambda seed, tmp_path: _check_bigvgan_host_code(seed),
+    "griffin_lim": lambda seed, tmp_path: _check_griffin_lim(seed),
+    "utils": lambda seed, tmp_path: _check_utils(seed),
+    "prepare": _check_prepare,
 }
 
 

@@ -52,13 +52,14 @@ def _close(got, want, rel, what=""):
 
 def test_port_imports_no_jax_flax_triton():
     """Importing every port module and `chip_smoke` (import only) loads no
-    jax, flax or triton, and nothing of the JAX package: the port keeps its
+    jax, flax, triton or HF datasets, and nothing of the JAX package: the port keeps its
     own copies of the host modules it needs."""
     code = ("import importlib, json, sys\n"
             f"sys.path.insert(0, {str(REPO_ROOT)!r})\n"
             f"for m in {PORT_MODULES + ['chip_smoke']!r}: importlib.import_module(m)\n"
             "print(json.dumps(sorted(m for m in sys.modules "
-            "if m.split('.')[0] in ('jax', 'flax', 'triton', 'eraxvif5tts_tpu'))))\n")
+            "if m.split('.')[0] in ('jax', 'flax', 'triton', 'datasets', "
+            "'eraxvif5tts_tpu'))))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=300, check=True, cwd=REPO_ROOT)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []

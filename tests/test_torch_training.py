@@ -333,8 +333,8 @@ def test_unported_training_options_raise():
     with pytest.raises(ValueError, match="not ported"):
         DiT(dataclasses.replace(ARCH, checkpoint_activations=True, remat_policy="dots"),
             VOCAB, MEL)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ttr.Trainer(cfm=_port_cfm(), optimizer=ttr.make_optimizer(), duration_predictor=object())
+    with pytest.raises(ValueError, match="mu_dtype"):
+        ttr.make_optimizer(mu_dtype="float16")
     cfm = _port_cfm(arch=dataclasses.replace(ARCH, dropout=0.1))
     b = _batch()
     draws = LossDraws.sample(torch.Generator().manual_seed(0), 2, 16, MEL, 1)
