@@ -92,14 +92,15 @@ Phases (any failure raises and the script exits non-zero):
               share of one `generate`, the card's BigVGAN against the CPU's on
               a 128-frame generated mel (with a TF32 control), cuDNN's TF32
               flag the same after the phase as before;
-5e. mmdit  -- F5TTS_v1_MMDiT at full width (dim 1024, 22 blocks, 16 x 64
-              heads, ff_mult 2, ~0.6 B parameters) in bf16 from a seeded
+5e. mmdit  -- F5TTS_v1_MMDiT at full width (dim 1024, 16 x 64 heads,
+              ff_mult 2) and its depth cut to MMDIT_DEPTH = 7 of 22 blocks
+              (since the mesh phase) in bf16 from a seeded
               N(0, 0.02) reference-format checkpoint loaded strict: the MMDiT
               with its kernels against the plain versions at b = 2, n = 256
               with text 128 and at the longest joint sequence (text 2048 + mel
               4096 = 6144, kernel 1's launches counted), then three `generate`s
-              at NFE 32 with kernel 1 without rotary counted 22 x 32 per chunk
-              and kernel 2 at 0, and a profiled request;
+              at NFE 32 with kernel 1 without rotary counted depth x 32 per
+              chunk and kernel 2 at 0, and a profiled request;
 5f. fp32   -- fp32 serving, the JAX wrapper's default dtype: kernel 1's fp32
               kernel against its plain version (TF32 off) with and without
               rotary at n = 1088 (lens 1051, 0) and n = 6144 (lens 6144,
@@ -117,7 +118,7 @@ Phases (any failure raises and the script exits non-zero):
               with rotary counted 22 x 32 a chunk and kernel 2 at 0, a
               profiled request, its RTF beside the main phase's; then the
               mmdit phase's checkpoint served in fp32, one request with the
-              fp32 kernel without rotary counted 22 x 32 a chunk;
+              fp32 kernel without rotary counted depth x 32 a chunk;
 5g. bench  -- `eraxvif5tts_tpu_torch/tools/bench.py`'s workload (the JAX
               `bench.py`'s: a random F5TTS_v1_Base, bucket 1024 with a
               256-frame prompt, NFE 32) in fp32 and bf16, its lines logged;
@@ -128,8 +129,9 @@ Phases (any failure raises and the script exits non-zero):
               versions and kernel 5 at both streams' shapes (the mel bucket's
               rows and the text bucket's), then one `generate_batch` of eight
               texts at NFE 32 each in bf16, int8 chain and int8 fused, with
-              kernel 1 counted 22 x 32 and kernel 5 43 x 32 (22 `ff_x` and
-              21 `ff_c` a backbone call) in the fused call;
+              kernel 1 counted depth x 32 and kernel 5 (2 depth - 1) x 32
+              (`ff_x` in every block, `ff_c` in all but the last) in the
+              fused call;
 6. int8    -- int8 W8A8 serving at the same width: a seeded N(0, 0.02)
               reference-format checkpoint, `F5TTSWrapper(compute_dtype="int8",
               int8_validate=True)` quantizing it at load behind the quality
@@ -195,8 +197,8 @@ Phases (any failure raises and the script exits non-zero):
               `DistillTrainer` step at 2 x 4096 with this model as the
               teacher and a 14-block student pruned from its first
               weights by the pruner's scores;
-7c. mmdit-train -- MMDiT training: F5TTS_v1_MMDiT at full width and depth
-              at dropout 0 (0.1, the preset's, refused before any launch: the
+7c. mmdit-train -- MMDiT training: F5TTS_v1_MMDiT at full width, 11 of 22
+              blocks (MMDIT_TRAIN_DEPTH), at dropout 0 (0.1, the preset's, refused before any launch: the
               JAX MMDiT cannot train at it), fp32 parameters, no activation
               checkpointing, in bf16 compute and then in fp32: one step
               against plain attention at b = 2, 256 + 1024 (loss, whole and
@@ -204,9 +206,10 @@ Phases (any failure raises and the script exits non-zero):
               `Trainer.train_step` at the joint text 1024 + mel 4096 at the
               largest batch that fits (a warm-up and two timed steps in bf16,
               a warm-up and one in fp32) with kernel 4 of the step's dtype
-              counted 22 / 22 / 22 a step, the peak memory, a profiled step;
-8. e2tts   -- E2-TTS serving at E2TTS_Base width and depth (UNetT: dim 1024,
-              24 layers, 16 x 64 heads, ff_mult 4, rotary on head 0 only) in
+              counted depth / depth / depth a step, the peak memory, a profiled step;
+8. e2tts   -- E2-TTS serving at E2TTS_Base width (UNetT: dim 1024, 16 x 64
+              heads, ff_mult 4, rotary on head 0 only), its depth cut to
+              E2TTS_DEPTH = 8 of 24 layers (since the mesh phase), in
               bf16: a seeded N(0, 0.02) reference-format checkpoint (norm gains
               1 + N(0, 0.02)) loaded through the port's converter, the UNetT
               with its kernels against the plain versions, `generate` of the
@@ -248,6 +251,22 @@ Phases (any failure raises and the script exits non-zero):
               (depth x NFE), each chunk's predicted frames and the RTF
               logged, each DiT against its plain version, and one socket
               request to the distilled student.
+11. mesh  -- multi-device training and serving on `torch.distributed` at
+              full F5TTS_v1_Base width and depth (bf16 compute, dropout 0.1,
+              blocks checkpointed): a world of one over NCCL here (one DP
+              step, an all-reduce and a barrier through it), then two ranks
+              on the one card over gloo (NCCL refuses two ranks on one
+              device), spawned as processes of their own: DP 2 (two steps,
+              2 x 2048 frames a rank) and TP 2 (one step at 2 x 2048 with 8
+              heads and 1024 feed-forward columns a rank, and
+              `generate_batch` of four texts at NFE 8, the eager step) held
+              against one rank on the same global batch and weights,
+              ZeRO-1 at DP 2 against the replicated run, saved after a step
+              and resumed in a fresh group whose next step equals the
+              run's (the loss bit for bit, the norm and the parameters
+              within MESH_RERUN_TOL: the card's backward is not bitwise
+              deterministic); each rank's peak memory, its kernels'
+              launches (1, 2, 4a-4c) and the shapes and offsets it gave them.
 
 The line before the last is a JSON object with each kernel's launches in its
 path's phase (serving kernels with fused rotary / layernorm: main; without
@@ -569,6 +588,10 @@ def phase_kernels(dev) -> dict:
     results.update(check_int8_ff(dev, g))
     results.update(check_matmul_gate_res(dev, g, edge_err3))
     results.update(check_train_attention(dev, g))
+    offsets = check_train_attention_offsets(dev, g)
+    for name in ("fwd", "dq", "dkv"):
+        row = results[f"train_attention_{name}"]
+        row["max_abs_err"] = max(row["max_abs_err"], offsets["bfloat16"])
     results.update(check_train_attention_joint(dev))
     return results
 
@@ -1044,6 +1067,90 @@ def check_train_attention_case(q, k, v, dout, lens, rate: float, seed: int) -> d
             raise AssertionError(f"train_attention {name} {tag}: a second backward on the "
                                  "same inputs differs")
     return dict(abs_err=abs_err, rel=rel, control=control)
+
+
+# a rank's slice of a whole batch for kernel 4's offsets: rows 3-4 of 5 (data
+# parallel) and heads 8-15 of 16 (tensor parallel), n = 256
+OFFSET_WHOLE = (5, 256, 16)
+OFFSET_ROWS, OFFSET_HEADS = (3, 5), (8, 16)
+
+
+def check_train_attention_offsets(dev, g) -> dict:
+    """Kernels 4a / 4b / 4c on a rank's slice of a batch, with the slice's
+    batch and head offsets (3, 8), in bf16 and fp32 at dropout 0.1: O, dq,
+    dk and dv equal bit for bit to the same elements of the whole batch's
+    launch, and within ``ATTN_REL_TOL`` (relative L2) of the plain version
+    at the offsets (fp32's with TF32 off); the same launch without offsets
+    as a control, beyond the limit. Times of the slice's forward and
+    backward with and without the offsets. Returns the errors by dtype."""
+    import torch
+
+    from eraxvif5tts_tpu_torch.ops import train_attention as ta
+    from eraxvif5tts_tpu_torch.ops.masks import lens_to_mask
+
+    b, n, h = OFFSET_WHOLE
+    (r0, r1), (h0, h1) = OFFSET_ROWS, OFFSET_HEADS
+    rate, seed = 0.1, 0x0FF5E7
+    names = ("fwd", "dq", "dk", "dv")
+    lens = torch.tensor([256, 219, 256, 200, 131], dtype=torch.int32, device=dev)
+    out = {}
+
+    def grads(t, lens_t, offsets, plain=False):
+        mask = lens_to_mask(lens_t, n)
+        if plain:
+            return attention_grads(lambda *a: ta.train_attention_reference(
+                *a, lens_t, rate, seed, *offsets), *t)
+        return attention_grads(lambda *a: ta.train_attention(
+            *a, key_valid=mask, dropout_rate=rate, seed=seed, batch_offset=offsets[0],
+            head_offset=offsets[1]), *t)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        whole = [torch.randn((b, n, h, 64), generator=g, device=dev).to(dtype)
+                 for _ in range(4)]
+        part = [t[r0:r1, :, h0:h1].contiguous() for t in whole]
+        part_lens = lens[r0:r1].contiguous()
+        want_whole = grads(whole, lens, (0, 0))
+        got = grads(part, part_lens, (r0, h0))
+        for name, w, p_ in zip(names, want_whole, got):
+            if not torch.equal(w[r0:r1, :, h0:h1], p_):
+                raise AssertionError(f"train_attention {dtype} {name}: the slice at offsets "
+                                     f"({r0}, {h0}) differs from the whole batch's launch")
+        with tf32(False):
+            plain = grads(part, part_lens, (r0, h0), plain=True)
+        rel = {name: rel_l2(x, y) for name, x, y in zip(names, got, plain)}
+        control = {name: rel_l2(x, y) for name, x, y in
+                   zip(names, grads(part, part_lens, (0, 0)), plain)}
+        if any(r > ATTN_REL_TOL for r in rel.values()) or any(
+                c <= ATTN_REL_TOL for c in control.values()):
+            raise AssertionError(f"train_attention {dtype} at offsets ({r0}, {h0}): relative "
+                                 f"L2 {rel}, control without offsets {control}, tol "
+                                 f"{ATTN_REL_TOL}")
+        q, k, v, dout = part
+        fwd = ta.flash_forward if dtype == torch.bfloat16 else ta.flash_forward_fp32
+        dq_k, dkv_k = ((ta.flash_dq, ta.flash_dkv) if dtype == torch.bfloat16
+                       else (ta.flash_dq_fp32, ta.flash_dkv_fp32))
+        o, lse = fwd(q, k, v, part_lens, rate, seed, offsets=(r0, h0))
+        dd = ta.row_dot(dout, o)
+        ms = {}
+        for offsets in ((r0, h0), (0, 0)):
+            ms[offsets] = [cuda_median_ms(lambda: fwd(q, k, v, part_lens, rate, seed,
+                                                      offsets=offsets)),
+                           cuda_median_ms(lambda: dq_k(q, k, v, part_lens, lse, dd, dout, rate,
+                                                       seed, offsets=offsets)),
+                           cuda_median_ms(lambda: dkv_k(q, k, v, part_lens, lse, dd, dout, rate,
+                                                        seed, offsets=offsets))]
+        log(f"[kernels] train_attention {str(dtype)[6:]} on a rank's slice (rows {r0}-{r1 - 1} "
+            f"of {b}, heads {h0}-{h1 - 1} of {h}, n = {n}, dropout {rate}) at offsets "
+            f"({r0}, {h0}): O, dq, dk, dv bit for bit the whole batch's; relative L2 vs plain "
+            + ", ".join(f"{k_} {v_:.3g}" for k_, v_ in rel.items())
+            + f" (tol {ATTN_REL_TOL}); control without offsets "
+            + ", ".join(f"{k_} {v_:.3g}" for k_, v_ in control.items())
+            + "; fwd / dq / dk-dv ms at the offsets "
+            + " / ".join(f"{t:.4f}" for t in ms[(r0, h0)]) + ", without "
+            + " / ".join(f"{t:.4f}" for t in ms[(0, 0)]))
+        out[str(dtype)[6:]] = max(compare(f"train_attention offsets {dtype} {name}", x, y)
+                                  for name, x, y in zip(names, got, plain))
+    return out
 
 
 def check_train_attention(dev, g) -> dict:
@@ -2731,14 +2838,15 @@ def phase_bigvgan(main_wrapper, dev) -> dict:
 
 
 def phase_mmdit(dev, cfg=None, ckpt: Path | None = None) -> int:
-    """F5TTS_v1_MMDiT at full width (dim 1024, 22 blocks, 16 x 64 heads,
-    ff_mult 2) in bf16 from a seeded N(0, 0.02) reference-format checkpoint
-    loaded strict: the MMDiT with its kernels against the plain versions at
-    b = 2, n = 256 with text 128, then once through the backbone at the longest joint
-    sequence (text bucket 2048 + mel bucket 4096 = 6144, 22 launches of kernel
-    1 without rotary counted), then three `generate`s at NFE 32 with kernel 1
-    without rotary counted 22 x 32 a chunk and kernel 2 at 0, and a profiled
-    request. ``cfg``: another MMDiT configuration, for a rehearsal; ``ckpt``:
+    """An MMDiT of ``cfg`` (default F5TTS_v1_MMDiT: dim 1024, 22 blocks, 16
+    x 64 heads, ff_mult 2; the smoke cuts its depth) in bf16 from a seeded
+    N(0, 0.02) reference-format checkpoint loaded strict: the MMDiT with its
+    kernels against the plain versions at b = 2, n = 256 with text 128, then
+    once through the backbone at the longest joint sequence (text bucket 2048
+    + mel bucket 4096 = 6144, depth launches of kernel 1 without rotary
+    counted), then three `generate`s at NFE 32 with kernel 1 without rotary
+    counted depth x 32 a chunk and kernel 2 at 0, and a profiled request.
+    ``ckpt``:
     where to write the checkpoint (kept for the fp32 phase), else a
     temporary file. Returns kernel 1's launches over the three requests."""
     import torch
@@ -3752,8 +3860,8 @@ def check_mmdit_step_against_plain(trainer, state, dev, tag: str) -> None:
 
 
 def phase_mmdit_train(dev, cfg=None) -> dict:
-    """MMDiT training at full width and depth (``cfg``: another MMDiT
-    configuration, for a rehearsal): F5TTS_v1_MMDiT at dropout 0 (the
+    """MMDiT training at full width (``cfg``: the configuration, whose depth
+    the smoke cuts): F5TTS_v1_MMDiT at dropout 0 (the
     preset's 0.1 is refused, as the JAX MMDiT cannot train at it) from
     seeded N(0, 0.02) weights, in bf16 compute and then in fp32, each with
     fp32 parameters and no activation checkpointing (the JAX MMDiT has
@@ -4526,6 +4634,608 @@ def phase_bench(tag: str = "[bench]") -> dict:
     return results
 
 
+# the mesh phase: two ranks on the one card over gloo (NCCL refuses two ranks
+# on one device), a world of one over NCCL
+MESH_ROWS = 2  # rows per data rank at DP 2: a global batch of 4 x 2048 frames
+MESH_FRAMES = 2048
+MESH_NFE = 8
+MESH_TEXTS = TEXTS[:2] + BATCH_TEXTS[3:5]
+# Limits against one rank on the same global batch: bf16 GEMMs on another
+# row count round differently, and the sums over the ranks reassociate. On
+# an H100 the sound steps read at most 6.03e-6 on the loss (DP step 2) and
+# 1.28e-5 on the norm; the planted faults (`mesh_control_steps`) at least
+# 1.56e-5 on the loss (TP, kernel 4's heads hashed from 0; the other faults
+# 1.55e-4 and more). The PCM reads 0.0106-0.0109 after 8 bf16 Euler steps,
+# the planted fault (row projections not summed over the model axis)
+# 0.0327-0.0389: random weights leave the blocks a small share of the
+# output. A doubled bias read 0.0137, inside this limit; the CPU test holds
+# the model mesh's fp32 PCM to the one-device's within 3e-4, where it fails.
+MESH_LOSS_TOL = 1e-5  # relative, the loss of each step
+MESH_NORM_TOL = 1e-4  # relative, the gradient norm of each step
+MESH_PCM_TOL = 0.02  # relative L2 of generate_batch's PCM, 8 bf16 Euler steps apart
+# Two runs of one update on the card, relative (gradient norms and the
+# parameters' sum; the losses must be equal): the backward is not bitwise
+# deterministic there (atomic scatter-adds, e.g. the text embedding's
+# gradient), and two runs of the same step left the sums 2.5e-14 apart. It
+# holds ZeRO-1 against the replicated run and a resume against the run.
+MESH_RERUN_TOL = 1e-9
+MESH_TIMEOUT = 600
+# The other backbones' phases run at full width and cut depth (the MMDiT's 22
+# blocks to 7, the UNetT's 24 layers to 8), which pays for the mesh phase.
+# MMDiT training keeps 11 blocks: at 7 its masked-tile control moves the
+# whole gradient by 0.0065, inside MMDIT_TOLS' 0.007
+MMDIT_DEPTH = 7
+MMDIT_TRAIN_DEPTH = 11
+E2TTS_DEPTH = 8
+
+
+def cut_depth(cfg, depth: int):
+    """``cfg`` with ``depth`` blocks (layers), every width kept."""
+    return dataclasses.replace(cfg, arch=dataclasses.replace(cfg.arch, depth=depth))
+
+
+def mesh_counters():
+    from eraxvif5tts_tpu_torch.ops import fused_matmul as fm
+    from eraxvif5tts_tpu_torch.ops import serving_attention as sa
+    from eraxvif5tts_tpu_torch.ops import train_attention as ta
+
+    return {"serving_attention": sa.serving_attention, "ln_mod_matmul": fm.ln_mod_matmul,
+            "train_attention_fwd": ta.flash_forward, "train_attention_dq": ta.flash_dq,
+            "train_attention_dkv": ta.flash_dkv}
+
+
+def mesh_trainer(dev, mesh, zero1: bool = False, checkpoint_dir=None):
+    """A fresh full-width F5TTS_v1_Base trainer (train_arch: bf16 compute,
+    dropout 0.1, blocks checkpointed) on ``mesh`` (None: one rank), the same
+    seeded weights on every rank; lr 1e-4 from the first update."""
+    import torch
+
+    from eraxvif5tts_tpu_torch.models.cfm import CFM
+    from eraxvif5tts_tpu_torch.models.dit import DiT
+    from eraxvif5tts_tpu_torch.training.trainer import Trainer, make_optimizer
+
+    dit = DiT(train_arch(), text_num_embeds=len(VOCAB_CHARS), mel_dim=100,
+              compute_dtype=torch.bfloat16).to(dev)
+    randomize((dit,), SEED)
+    return Trainer(cfm=CFM(dit.train()), optimizer=make_optimizer(
+        learning_rate=1e-4, num_warmup_updates=0, total_updates=1000), mesh=mesh, zero1=zero1,
+        checkpoint_dir=checkpoint_dir)
+
+
+def mesh_steps(trainer, state, dev, steps, rows: int = 2 * MESH_ROWS) -> list:
+    """``trainer.train_step`` on the global batches ``steps`` (indices) of
+    ``rows`` x MESH_FRAMES: the same batch and draws on every rank. Returns
+    (loss, grad norm, wall s) a step."""
+    import torch
+
+    from eraxvif5tts_tpu_torch.training.trainer import batch_seed
+
+    out = []
+    for i in steps:
+        batch = train_batch(dev, SEED + 40 + i, (rows, MESH_FRAMES))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = trainer.train_step(
+            state, batch, torch.Generator(device=dev).manual_seed(batch_seed(SEED, 0, i)))
+        torch.cuda.synchronize()
+        if not (math.isfinite(m["loss"]) and m["applied"] == 1.0):
+            raise AssertionError(f"[mesh] step {i}: {m}")
+        out.append((m["loss"], m["grad_norm"], time.perf_counter() - t0))
+    return out
+
+
+def mesh_control_steps(trainer, dev, faults: dict, rows: int) -> dict:
+    """Each fault of ``faults`` (name -> a function that puts it into
+    ``trainer`` and returns its undo) in turn: the first step's (loss, grad
+    norm, wall s) on global batch 0 from a fresh state on the trainer's
+    starting weights, which are restored after each."""
+    import torch
+
+    first, out = None, {}
+    for name, fault in faults.items():
+        state = trainer.init_state()
+        if first is None:
+            first = [p.detach().clone() for p in state.model.parameters()]
+        undo = fault(trainer)
+        try:
+            out[name] = mesh_steps(trainer, state, dev, (0,), rows=rows)[0]
+        finally:
+            undo()
+        with torch.no_grad():
+            for p, p0 in zip(state.model.parameters(), first):
+                p.copy_(p0)
+    return out
+
+
+def per_rank_mean(trainer):
+    """The fault: each data rank divides by its own span count, so the
+    ranks' sum is the average of per-rank means, not the global mean."""
+    inputs = trainer._inputs
+
+    def faulty(state, batch, draws):
+        *head, _ = inputs(state, batch, draws)
+        n_data = trainer._n_data
+        return (*head, lambda t: t * n_data)
+
+    trainer._inputs = faulty
+    return lambda: vars(trainer).pop("_inputs")
+
+
+def rows_from_zero(trainer):
+    """The fault: every data rank hashes its dropout from row 0 (the batch
+    offset lost), so the kept bits are not the global batch's."""
+    inputs = trainer._inputs
+
+    def faulty(state, batch, draws):
+        out = inputs(state, batch, draws)
+        trainer._shard.batch_offset = 0
+        return out
+
+    trainer._inputs = faulty
+    return lambda: vars(trainer).pop("_inputs")
+
+
+def heads_from_zero(trainer):
+    """The fault: every model rank hashes kernel 4's dropout from head 0
+    (the head offset lost)."""
+    from eraxvif5tts_tpu_torch.models.modules import Attention
+
+    mods = [m for m in trainer.cfm.transformer.modules() if isinstance(m, Attention)]
+    kept = [m.head0 for m in mods]
+    for m in mods:
+        m.head0 = 0
+
+    def undo():
+        for m, h in zip(mods, kept):
+            m.head0 = h
+
+    return undo
+
+
+def columns_from_zero(trainer):
+    """The fault: every model rank hashes the feed-forward dropout from
+    column 0 (the column offset lost)."""
+    from eraxvif5tts_tpu_torch.models import modules
+
+    drop = modules.hash_dropout
+
+    def faulty(x, rate, key, batch_offset=0, col_offset=0, cols=None):
+        return drop(x, rate, key, batch_offset, 0, cols)
+
+    modules.hash_dropout = faulty
+    return lambda: setattr(modules, "hash_dropout", drop)
+
+
+def unsummed_rows():
+    """The fault in serving: a row projection's partial product is not
+    summed over the model axis (each rank keeps its own, plus the bias).
+    Returns its undo."""
+    from eraxvif5tts_tpu_torch.models import modules
+
+    leave = modules.leave
+
+    def faulty(partial, bias, shard):
+        return (partial.float() + (0.0 if bias is None else bias.float())).to(partial.dtype)
+
+    modules.leave = faulty
+    return lambda: setattr(modules, "leave", leave)
+
+
+def mesh_shapes():
+    """Wrap the model's kernel calls to record the shapes the ranks give
+    them (q of kernels 1 and 4 with the offsets, kernel 2's weight)."""
+    from eraxvif5tts_tpu_torch.models import modules
+
+    seen = {"kernel 1 q": set(), "kernel 2 weight": set(), "kernel 4 q, offsets": set()}
+    attn, ln, train = modules.dot_product_attention, modules.ln_mod_matmul, \
+        modules.train_attention
+
+    def attn_(q, *a, **k):
+        seen["kernel 1 q"].add(tuple(q.shape))
+        return attn(q, *a, **k)
+
+    def ln_(x, scale, shift, w, *a, **k):
+        seen["kernel 2 weight"].add(tuple(w.shape))
+        return ln(x, scale, shift, w, *a, **k)
+
+    def train_(q, *a, **k):
+        seen["kernel 4 q, offsets"].add((tuple(q.shape), k.get("batch_offset", 0),
+                                         k.get("head_offset", 0)))
+        return train(q, *a, **k)
+
+    modules.dot_product_attention, modules.ln_mod_matmul = attn_, ln_
+    modules.train_attention = train_
+    return seen
+
+
+def mesh_rank(rank: int, world: int, tmp: str, device: str = "cuda") -> None:
+    """One of the two ranks of the mesh phase (a process of its own on
+    cuda:0, gloo): DP 2, TP 2, ZeRO-1 with a resume in a fresh group.
+    Writes its readings to ``mesh_{rank}.json`` under ``tmp``."""
+    import traceback
+
+    try:
+        _mesh_rank(rank, world, Path(tmp), device)
+    except BaseException:
+        (Path(tmp) / f"mesh_error_{rank}.txt").write_text(traceback.format_exc())
+        raise
+
+
+def _mesh_rank(rank: int, world: int, tmp: Path, device: str) -> None:
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from eraxvif5tts_tpu_torch.infer.wrapper import F5TTSWrapper
+    from eraxvif5tts_tpu_torch.parallel import mesh as pm
+
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
+    if device == "cuda":
+        torch.cuda.set_device(0)
+
+    def make_mesh(n_model):
+        return pm.make_mesh(n_model=n_model, device_type=device)
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/group_a", rank=rank,
+                            world_size=world)
+    counters = mesh_counters()
+    shapes = mesh_shapes()
+    out: dict = {"rank": rank}
+
+    def segment(name, fn):
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        out[name] = dict(result, wall_s=time.perf_counter() - t0,
+                         peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+                         launches={k: c.launches for k, c in counters.items()})
+        gc.collect()
+
+    def digest(state) -> float:
+        return float(sum(p.detach().double().sum() for p in state.model.parameters()))
+
+    def uncounted():
+        # the controls' launches are not the sound run's
+        for c in counters.values():
+            c.launches = 0
+
+    def dp():
+        trainer = mesh_trainer(dev, make_mesh(1))
+        controls = mesh_control_steps(trainer, dev, {"per-rank mean": per_rank_mean,
+                                                     "rows from 0": rows_from_zero},
+                                      2 * MESH_ROWS)
+        uncounted()
+        state = trainer.init_state()
+        return {"steps": mesh_steps(trainer, state, dev, (0, 1)), "digest": digest(state),
+                "controls": controls}
+
+    def tp():
+        # the same global batch of MESH_ROWS rows on both ranks, each with 8 heads
+        trainer = mesh_trainer(dev, make_mesh(2))
+        controls = mesh_control_steps(trainer, dev, {"heads from 0": heads_from_zero,
+                                                     "columns from 0": columns_from_zero},
+                                      MESH_ROWS)
+        uncounted()
+        state = trainer.init_state()
+        return {"steps": mesh_steps(trainer, state, dev, (0,), rows=MESH_ROWS),
+                "controls": controls}
+
+    def reference():
+        # one rank computes the same global batches from the same weights
+        if rank != 0:
+            return {}
+        trainer = mesh_trainer(dev, None)
+        first = [p.detach().clone() for p in trainer.cfm.transformer.parameters()]
+        tp_steps = mesh_steps(trainer, trainer.init_state(), dev, (0,), rows=MESH_ROWS)
+        with torch.no_grad():
+            for p, p0 in zip(trainer.cfm.transformer.parameters(), first):
+                p.copy_(p0)
+        del first
+        return {"steps": mesh_steps(trainer, trainer.init_state(), dev, (0, 1)),
+                "tp steps": tp_steps}
+
+    segment("dp", dp)
+    segment("tp", tp)
+    segment("one rank", reference)
+    dist.barrier()
+
+    # TP 2 serving: the same weights through reference-format files
+    ck, vk = tmp / "mesh_dit.pt", tmp / "mesh_vocos.pt"
+    vocab = {c: i for i, c in enumerate(VOCAB_CHARS)}
+    common = dict(model_name="F5TTS_v1_Base", vocab_char_map=vocab, device=dev,
+                  compute_dtype="bfloat16", nfe_step=MESH_NFE)
+
+    def serve_one():
+        if rank != 0:
+            return {}
+        w = F5TTSWrapper(**common)
+        randomize((w.transformer, w.vocoder), SEED)
+        save_reference_checkpoint_of(ck, w.transformer)
+        save_reference_vocoder(vk, w.vocoder)
+        ref = load_reference(w)
+        waves = w.generate_batch(list(MESH_TEXTS), ref=ref, seed=SEED)
+        np_save(tmp / "mesh_one.npz", waves)
+        return {}
+
+    tp_wrapper = {}
+
+    def serve_tp():
+        w = tp_wrapper["w"] = F5TTSWrapper(ckpt_path=str(ck), vocoder_ckpt_path=str(vk),
+                                           mesh=make_mesh(2), **common)
+        ref = load_reference(w)
+        t0 = time.perf_counter()
+        waves = w.generate_batch(list(MESH_TEXTS), ref=ref, seed=SEED)
+        return {"generate_batch_s": time.perf_counter() - t0,
+                "audio_s": sum(len(x) for x in waves) / w.target_sample_rate,
+                "pcm": [x.tolist() for x in waves]}
+
+    def serve_control():
+        # the same wrapper (its step is eager over gloo: the fault takes effect)
+        w = tp_wrapper.pop("w")
+        undo = unsummed_rows()
+        try:
+            waves = w.generate_batch(list(MESH_TEXTS), ref=load_reference(w), seed=SEED)
+        finally:
+            undo()
+        return {"pcm": [x.tolist() for x in waves]}
+
+    segment("serve one rank", serve_one)
+    dist.barrier()
+    segment("serve tp", serve_tp)
+    pcm = out["serve tp"].pop("pcm")
+    np_save(tmp / f"mesh_tp_{rank}.npz", [np.asarray(x) for x in pcm])
+    segment("serve tp control", serve_control)
+    pcm = out["serve tp control"].pop("pcm")
+    np_save(tmp / f"mesh_tp_control_{rank}.npz", [np.asarray(x) for x in pcm])
+
+    # ZeRO-1 at DP 2: a step, a save, the next step; then a fresh group resumes
+    ckpt_dir = tmp / "mesh_zero1"
+
+    def zero1_run():
+        trainer = mesh_trainer(dev, make_mesh(1), zero1=True,
+                               checkpoint_dir=str(ckpt_dir))
+        state = trainer.init_state()
+        first = mesh_steps(trainer, state, dev, (0,))
+        held = sum(t.numel() for s_ in state.optimizer.state.values() for k, t in s_.items()
+                   if k != "step") + sum(t.numel() for t in state.ema_params.values())
+        t0 = time.perf_counter()
+        path = trainer.save_checkpoint(state)
+        save_s = time.perf_counter() - t0
+        return {"steps": first + mesh_steps(trainer, state, dev, (1,)), "save_s": save_s,
+                "path": path, "state_numel": held, "digest": digest(state),
+                "n_params": sum(p.numel() for p in state.model.parameters())}
+
+    segment("zero1", zero1_run)
+    dist.destroy_process_group()
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/group_b", rank=rank,
+                            world_size=world)
+
+    def zero1_resume():
+        trainer = mesh_trainer(dev, make_mesh(1), zero1=True)
+        state = trainer.load_checkpoint(out["zero1"]["path"], trainer.init_state())
+        steps = mesh_steps(trainer, state, dev, (1,))
+        return {"steps": steps, "step": state.step, "digest": digest(state)}
+
+    segment("zero1 resume", zero1_resume)
+    out["shapes"] = {k: sorted(map(str, v)) for k, v in shapes.items()}
+    (tmp / f"mesh_{rank}.json").write_text(json.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def np_save(path: Path, waves) -> None:
+    import numpy as np
+
+    np.savez(path, *[np.asarray(w) for w in waves])
+
+
+def np_load(path: Path) -> list:
+    import numpy as np
+
+    with np.load(path) as f:
+        return [f[f"arr_{i}"] for i in range(len(f.files))]
+
+
+def mesh_nccl(dev, tmp: Path) -> dict:
+    """A world of one over NCCL in this process: a DP step on the mesh, then
+    an all-reduce and a barrier through the NCCL group."""
+    import torch
+    import torch.distributed as dist
+
+    from eraxvif5tts_tpu_torch.parallel.mesh import make_mesh
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl", rank=0, world_size=1)
+    try:
+        counters = mesh_counters()
+        for c in counters.values():
+            c.launches = 0
+        trainer = mesh_trainer(dev, make_mesh(n_model=1, device_type="cuda"))
+        steps = mesh_steps(trainer, trainer.init_state(), dev, (0,))
+        t = torch.tensor([steps[0][0]], device=dev)
+        dist.all_reduce(t)
+        dist.barrier()
+        if float(t) != steps[0][0]:
+            raise AssertionError(f"[mesh] NCCL all-reduce over a world of one: {float(t)}")
+        return {"backend": dist.get_backend(), "steps": steps,
+                "launches": {k: c.launches for k, c in counters.items()},
+                "captured": nccl_captured_leave(dev)}
+    finally:
+        dist.destroy_process_group()
+
+
+def nccl_captured_leave(dev) -> str:
+    """What a TP chunk step over NCCL captures in its CUDA graph: a row
+    projection's sum over the model axis (`parallel.shard.leave`, here over
+    the world of one), captured, then replayed on new inputs, bit for bit
+    its eager run on them."""
+    import torch
+    import torch.distributed as dist
+
+    from eraxvif5tts_tpu_torch.parallel.shard import ShardContext, leave
+
+    ctx = ShardContext(group=dist.group.WORLD, rank=0, size=1)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((4, 768, 1024), generator=g, device=dev).to(torch.bfloat16)
+    bias = torch.randn((1024,), generator=g, device=dev)
+    with torch.no_grad():
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = leave(x, bias, ctx)
+        x.copy_(torch.randn(x.shape, generator=g, device=dev))
+        graph.replay()
+        eager = leave(x, bias, ctx)
+    torch.cuda.synchronize()
+    if not torch.equal(captured, eager):
+        raise AssertionError("[mesh] the captured NCCL all-reduce's replay is not its eager run: "
+                             f"max |difference| {float((captured - eager).abs().max())}")
+    return f"{tuple(x.shape)} bf16, replay = eager bit for bit"
+
+
+def phase_mesh(dev) -> dict:
+    """Multi-device training and serving on the one card: a world of one
+    over NCCL here (a DP step, and an all-reduce captured in a CUDA graph),
+    then two ranks over gloo in processes of their own (spawned: this
+    process holds a CUDA context), each on cuda:0 at full F5TTS_v1_Base
+    width (bf16 compute, dropout 0.1): DP 2 (two steps at 2 x 2048 frames a
+    rank) and TP 2 (one step, and `generate_batch` of four texts at NFE 8)
+    held against one rank on the same global batch, each check beside
+    planted faults that its limits must refuse, ZeRO-1 at DP 2 (a step, a
+    save, a resume in a fresh group that gives the same next step), each
+    rank's peak memory and kernel launches. Returns rank 0's launches of
+    the training kernels in the DP steps."""
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp_s:
+        tmp = Path(tmp_s)
+        nccl = mesh_nccl(dev, tmp)
+        log(f"[mesh] world of one over {nccl['backend']}: DP step loss "
+            f"{nccl['steps'][0][0]:.5f}, grad_norm {nccl['steps'][0][1]:.5f}, "
+            f"{nccl['steps'][0][2]:.3f} s; all-reduce and barrier through it; launches "
+            f"{nccl['launches']}; a row projection's all-reduce captured in a CUDA graph: "
+            f"{nccl['captured']}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=mesh_rank, args=(r, 2, tmp_s, dev.type)) for r in range(2)]
+        for p in procs:
+            p.start()
+        deadline = time.perf_counter() + MESH_TIMEOUT
+        for p in procs:
+            p.join(max(deadline - time.perf_counter(), 1.0))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        for r in range(2):
+            err = tmp / f"mesh_error_{r}.txt"
+            if err.is_file():
+                raise AssertionError(f"[mesh] rank {r} failed:\n{err.read_text()}")
+        if [p.exitcode for p in procs] != [0, 0]:
+            raise AssertionError(f"[mesh] ranks exited with {[p.exitcode for p in procs]}")
+        ranks = [json.loads((tmp / f"mesh_{r}.json").read_text()) for r in range(2)]
+        one = np_load(tmp / "mesh_one.npz")
+        tp_waves = [np_load(tmp / f"mesh_tp_{r}.npz") for r in range(2)]
+        control_waves = [np_load(tmp / f"mesh_tp_control_{r}.npz") for r in range(2)]
+
+    def pcm_rel(waves) -> list[float]:
+        return [float(np.linalg.norm(g.astype(np.float64) - w) / np.linalg.norm(w))
+                for g, w in zip(waves, one)]
+
+    ref = ranks[0]["one rank"]
+    failed = []  # every reading is logged before the phase fails
+    # the faults each check must see: every control beyond a limit
+    for r, out in enumerate(ranks):
+        for seg, want in (("dp", ref["steps"][0]), ("tp", ref["tp steps"][0])):
+            for name, (loss, norm, _) in out[seg]["controls"].items():
+                e_loss, e_norm = abs(loss - want[0]) / abs(want[0]), \
+                    abs(norm - want[1]) / abs(want[1])
+                log(f"[mesh] rank {r} {seg} control ({name}) step 1: loss relative {e_loss:.3g} "
+                    f"(tol {MESH_LOSS_TOL}), grad_norm relative {e_norm:.3g} "
+                    f"(tol {MESH_NORM_TOL})")
+                if e_loss <= MESH_LOSS_TOL and e_norm <= MESH_NORM_TOL:
+                    failed.append(f"the {seg} control ({name}) on rank {r} passes the limits")
+        rel = pcm_rel(control_waves[r])
+        log(f"[mesh] rank {r} TP generate_batch control (row projections not summed over "
+            "the model axis): PCM "
+            "relative L2 vs one rank " + ", ".join(f"{x:.3g}" for x in rel)
+            + f" (tol {MESH_PCM_TOL})")
+        if min(rel) <= MESH_PCM_TOL:
+            failed.append(f"the TP generate_batch control on rank {r} passes the PCM limit")
+    for r, out in enumerate(ranks):
+        for seg in ("dp", "tp", "serve tp", "serve tp control", "zero1", "zero1 resume"):
+            o = out[seg]
+            log(f"[mesh] rank {r} {seg}: {o['wall_s']:.1f} s, peak {o['peak_gib']:.2f} GiB, "
+                f"launches {o['launches']}")
+        for seg, steps, want in (("dp", out["dp"]["steps"], ref["steps"]),
+                                 ("tp", out["tp"]["steps"], ref["tp steps"])):
+            for i, ((loss, norm, wall), (rl, rn, _)) in enumerate(zip(steps, want)):
+                e_loss, e_norm = abs(loss - rl) / abs(rl), abs(norm - rn) / abs(rn)
+                log(f"[mesh] rank {r} {seg} step {i + 1}: loss {loss:.6f} (one rank {rl:.6f}, "
+                    f"relative {e_loss:.3g}, tol {MESH_LOSS_TOL}), grad_norm {norm:.5f} (one rank "
+                    f"{rn:.5f}, relative {e_norm:.3g}, tol {MESH_NORM_TOL}), {wall:.3f} s")
+                if e_loss > MESH_LOSS_TOL or e_norm > MESH_NORM_TOL:
+                    failed.append(f"{seg} step {i + 1} on rank {r} is not the one rank's step")
+        depth = train_arch().depth
+        for seg, n_steps in (("dp", 2), ("tp", 1), ("zero1", 2), ("zero1 resume", 1)):
+            got = [out[seg]["launches"][f"train_attention_{k}"] for k in ("fwd", "dq", "dkv")]
+            if got != [2 * depth * n_steps, depth * n_steps, depth * n_steps]:
+                failed.append(f"rank {r} {seg}: kernel 4 launches {got}")
+        serve = out["serve tp"]["launches"]
+        if [serve["serving_attention"], serve["ln_mod_matmul"]] != [depth * MESH_NFE] * 2:
+            failed.append(f"rank {r} TP generate_batch launches {serve}")
+        log(f"[mesh] rank {r} shapes the kernels were given: {out['shapes']}")
+        for got, want, rel in zip(tp_waves[r], one, pcm_rel(tp_waves[r])):
+            if got.shape != want.shape or not np.isfinite(got).all() or rel > MESH_PCM_TOL:
+                failed.append(f"rank {r} TP generate_batch PCM {got.shape} vs one rank "
+                              f"{want.shape}: relative L2 {rel:.3g}")
+        log(f"[mesh] rank {r} TP generate_batch ({len(MESH_TEXTS)} texts, NFE {MESH_NFE}, "
+            f"eager step over gloo): {out['serve tp']['audio_s']:.2f} s of audio in "
+            f"{out['serve tp']['generate_batch_s']:.2f} s; PCM relative L2 vs one rank "
+            + ", ".join(f"{x:.3g}" for x in pcm_rel(tp_waves[r])) + f" (tol {MESH_PCM_TOL})")
+        # ZeRO-1 against the replicated run, and its resume against the run
+        # (the CPU tests hold both bit for bit)
+        z1, rs, dp = out["zero1"], out["zero1 resume"], out["dp"]
+
+        def apart(steps, digest, want_steps, want_digest) -> float:
+            if [s_[0] for s_ in steps] != [s_[0] for s_ in want_steps]:
+                return math.inf  # the losses: a forward on the same weights
+            return max([abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(steps, want_steps)]
+                       + [abs(digest - want_digest) / abs(want_digest)])
+
+        vs_dp = apart(z1["steps"], z1["digest"], dp["steps"], dp["digest"])
+        vs_run = apart(rs["steps"], rs["digest"], z1["steps"][1:], z1["digest"])
+        if vs_dp > MESH_RERUN_TOL or vs_run > MESH_RERUN_TOL or rs["step"] != 2:
+            failed.append(f"rank {r} ZeRO-1 {z1['steps']} (parameter sum {z1['digest']}) "
+                          f"against the replicated DP run {dp['steps']} ({dp['digest']}): "
+                          f"{vs_dp:.3g}; its resume {rs} against the run: {vs_run:.3g}; tol "
+                          f"{MESH_RERUN_TOL}")
+        log(f"[mesh] rank {r} ZeRO-1: against the replicated DP run, losses equal, gradient "
+            f"norms and parameter sum relative {vs_dp:.3g}; saved after step 1 in "
+            f"{z1['save_s']:.2f} s; a fresh group resumed it: step 2's loss equal, its norm "
+            f"and the parameter sum relative {vs_run:.3g} (tol {MESH_RERUN_TOL}); moments and "
+            f"EMA held {z1['state_numel'] / 1e6:.1f} M elements of "
+            f"{3 * z1['n_params'] / 1e6:.1f} M replicated")
+    # AdamW's two moments and the EMA: 3 x the parameters replicated, 1.5 x at ZeRO-1
+    if not all(o["zero1"]["state_numel"] <= 0.51 * 3 * o["zero1"]["n_params"] for o in ranks):
+        failed.append("ZeRO-1 ranks hold more than half of the moments and EMA")
+    if failed:
+        raise AssertionError("[mesh] " + "; ".join(failed))
+    return {k: ranks[0]["dp"]["launches"][k] for k in
+            ("train_attention_fwd", "train_attention_dq", "train_attention_dkv")}
+
+
 def timed(tag: str, phase, *args, **kwargs):
     """``phase(*args, **kwargs)`` (a phase or a check), its wall logged."""
     t0 = time.perf_counter()
@@ -4561,11 +5271,13 @@ def main() -> int:
     cfg = wrapper.config
     with tempfile.TemporaryDirectory() as tmp:
         mmdit_ckpt = Path(tmp) / "mmdit.pt"
-        launches["serving_attention_joint"] = timed("[mmdit]", phase_mmdit, dev, ckpt=mmdit_ckpt)
+        mmdit_cfg = cut_depth(PRESETS["F5TTS_v1_MMDiT"], MMDIT_DEPTH)
+        launches["serving_attention_joint"] = timed("[mmdit]", phase_mmdit, dev, mmdit_cfg,
+                                                    ckpt=mmdit_ckpt)
         fp32_rows, fp32_launches = timed("[fp32]", phase_fp32, wrapper, dev, mmdit_ckpt)
         timed("[bench]", phase_bench)
-        mmdit_ff, ff_err = timed("[mmdit-int8]", phase_int8, dev, PRESETS["F5TTS_v1_MMDiT"],
-                                 "[mmdit-int8]", mmdit_ckpt, turns=1)
+        mmdit_ff, ff_err = timed("[mmdit-int8]", phase_int8, dev, mmdit_cfg, "[mmdit-int8]",
+                                 mmdit_ckpt, turns=1)
     kernel_results["int8_ff"]["max_abs_err"] = max(kernel_results["int8_ff"]["max_abs_err"],
                                                    ff_err)
     kernel_results.update(fp32_rows)
@@ -4579,19 +5291,23 @@ def main() -> int:
     fp32_train_rows, fp32_train_launches = timed("[train-fp32]", phase_train_fp32, dev)
     kernel_results.update(fp32_train_rows)
     launches.update(fp32_train_launches)
-    launches.update(timed("[mmdit-train]", phase_mmdit_train, dev))
+    launches.update(timed("[mmdit-train]", phase_mmdit_train, dev,
+                          cut_depth(PRESETS["F5TTS_v1_MMDiT"], MMDIT_TRAIN_DEPTH)))
     with tempfile.TemporaryDirectory() as tmp:
         e2_ckpt = Path(tmp) / "e2tts_base.pt"
-        launches.update(timed("[e2tts]", phase_e2tts, dev, ckpt=e2_ckpt))
-        launches["int8_ff_ffmult4"], ff_err = timed("[e2tts-int8]", phase_int8, dev,
-                                                    PRESETS["E2TTS_Base"], "[e2tts-int8]", e2_ckpt)
+        e2_cfg = cut_depth(PRESETS["E2TTS_Base"], E2TTS_DEPTH)
+        launches.update(timed("[e2tts]", phase_e2tts, dev, e2_cfg, ckpt=e2_ckpt))
+        launches["int8_ff_ffmult4"], ff_err = timed("[e2tts-int8]", phase_int8, dev, e2_cfg,
+                                                    "[e2tts-int8]", e2_ckpt)
     row = kernel_results["int8_ff_ffmult4"]
     row["max_abs_err"] = max(row["max_abs_err"], ff_err)
     compress = timed("[compress]", phase_compress, dev)
+    mesh_launches = timed("[mesh]", phase_mesh, dev)
     idle = {path: [k for k, v in counts.items() if v <= 0] for path, counts in compress.items()}
     if any(idle.values()):
         raise AssertionError(f"kernels never launched on the compress path: {idle}")
     log(f"[compress] launches by path: {compress}")
+    log(f"[mesh] rank 0's training kernel launches in the DP 2 steps: {mesh_launches}")
     log(f"[bigvgan] launches: {bigvgan_launches}; [mmdit] kernel 1 without rotary: "
         f"{launches['serving_attention_joint']}; [fp32] kernel 1 fp32: {fp32_launches}; "
         f"[mmdit-int8] kernel 5 in the fused batch call: {mmdit_ff}")

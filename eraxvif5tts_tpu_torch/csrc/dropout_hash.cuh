@@ -9,16 +9,22 @@
 
 namespace {
 
-__device__ __forceinline__ uint32_t head_salt(uint32_t seed, uint32_t b, uint32_t h) {
-  return seed * 0x9E3779B9u + b * 0x7FEB352Du + h * 0x846CA68Bu;
-}
-
+// `b_offset` / `h_offset`: the global index of this launch's sample 0 and
+// head 0. A rank that holds a slice of the batch (data parallel) or of the
+// heads (tensor parallel) keeps the bits the whole batch has there.
 struct Dropout {
   uint32_t seed;
   uint32_t threshold;
   float inv_keep;
   int on;
+  uint32_t b_offset;
+  uint32_t h_offset;
 };
+
+__device__ __forceinline__ uint32_t head_salt(const Dropout& drop, uint32_t b, uint32_t h) {
+  return drop.seed * 0x9E3779B9u + (b + drop.b_offset) * 0x7FEB352Du +
+         (h + drop.h_offset) * 0x846CA68Bu;
+}
 
 // The keep bit of element (i, j) of one head is
 // fmix32(ctr ^ salt) < threshold with ctr = i * n + j (mod 2^32) and fmix32

@@ -387,7 +387,7 @@ __device__ __forceinline__ void flash_forward_block(const CUtensorMap* q_map,
       const int t = lane % 4;
       const float scale_log2 = a.scale * kLog2e;
       const float masked = len > 0 ? kNeg : 0.f;
-      const uint32_t folded = kDrop ? fold_salt(head_salt(a.drop.seed, bi, hi)) : 0u;
+      const uint32_t folded = kDrop ? fold_salt(head_salt(a.drop, bi, hi)) : 0u;
       const int row0 = q0 + group * hopper::kTileRows + (warp % 4) * 16 + g;  // and row0 + 8
       const uint32_t ctr_row[2] = {static_cast<uint32_t>(row0) * static_cast<uint32_t>(n),
                                    static_cast<uint32_t>(row0 + 8) * static_cast<uint32_t>(n)};

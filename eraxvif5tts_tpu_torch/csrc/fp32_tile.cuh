@@ -93,7 +93,7 @@ __device__ __forceinline__ Head block_head(const int* lens, int n, int h, const 
   hd.stat = (static_cast<int64_t>(hd.b) * h + hd.h) * n;
   hd.len = lens[hd.b];
   hd.masked = hd.len <= 0 ? 0.f : kNeg;
-  hd.folded = fold_salt(head_salt(drop.seed, hd.b, hd.h));
+  hd.folded = fold_salt(head_salt(drop, hd.b, hd.h));
   return hd;
 }
 

@@ -8,7 +8,8 @@
 // For q, k, v [b, n, h, 64] bf16 and lens [b] int32, with
 //   S = q k^T * scale (fp32), keys >= lens[b] set to -1e30,
 //   P = softmax(S) (the undropped weights: they alone form the normaliser),
-//   keep(b, h, i, j) = fmix32((i * n + j) ^ salt(seed, b, h)) < threshold,
+//   keep(b, h, i, j) = fmix32((i * n + j) ^ salt(seed, b, h)) < threshold
+//   (b and h counted from the launch's b_offset / h_offset),
 //   Pd = keep ? P / keep_prob : 0,
 // the forward writes O = Pd v (bf16) and LSE = log sum exp S (fp32 [b, h, n]);
 // the backward, given dO and D = rowsum(dO * O) (fp32 [b, h, n]), writes
@@ -267,7 +268,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
       const int t = lane % 4;
       const float scale_log2 = scale * kLog2e;
       const float masked = len > 0 ? kNeg : 0.f;
-      const uint32_t folded = fold_salt(head_salt(drop.seed, bi, hi));
+      const uint32_t folded = fold_salt(head_salt(drop, bi, hi));
       const int row0 = q0 + group * hopper::kTileRows + (warp % 4) * 16 + g;  // and row0 + 8
       const uint32_t ctr_row[2] = {static_cast<uint32_t>(row0) * static_cast<uint32_t>(n),
                                    static_cast<uint32_t>(row0 + 8) * static_cast<uint32_t>(n)};
@@ -404,7 +405,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     if (group < groups) {
       const float scale_log2 = scale * kLog2e;
       const float masked = len > 0 ? kNeg : 0.f;
-      const uint32_t folded = fold_salt(head_salt(drop.seed, bi, hi));
+      const uint32_t folded = fold_salt(head_salt(drop, bi, hi));
       const bool key_valid[2] = {key0 < len, key0 + 8 < len};
       // some key of this warpgroup's 64 is masked (else none is tested)
       const bool some_masked = k0 + (group + 1) * hopper::kTileRows > len;
@@ -472,8 +473,9 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   }
 }
 
-Dropout make_dropout(unsigned seed, unsigned threshold, float inv_keep, int on) {
-  return Dropout{seed, threshold, inv_keep, on};
+Dropout make_dropout(unsigned seed, unsigned threshold, float inv_keep, int on,
+                     unsigned b_offset, unsigned h_offset) {
+  return Dropout{seed, threshold, inv_keep, on, b_offset, h_offset};
 }
 
 // The four tensor maps of a backward launch and, once per device, the
@@ -511,16 +513,18 @@ int bwd_prepare(BwdMaps& maps, const void* q, const void* k, const void* v, cons
 // Common arguments: q, k, v (and dout, dq, dk, dv) [b, n, h, 64] bf16
 // contiguous and 16-byte aligned; lens [b] int32; lse, dd [b, h, n] fp32,
 // 16-byte aligned. Requires n % 64 == 0. `dropout` = 0 ignores seed /
-// threshold / inv_keep. Each launches on `stream` and returns the
+// threshold / inv_keep; `b_offset` / `h_offset` are the global sample and
+// head of index 0 in the keep bit's salt. Each launches on `stream` and returns the
 // cudaError_t of the launch or of its set-up, a refused tensor map counting
 // as cudaErrorInvalidValue.
 extern "C" int erax_train_attention_fwd(const void* q, const void* k, const void* v,
                                         const void* lens, void* out, void* lse, int b, int n,
                                         int h, float scale, unsigned seed, unsigned threshold,
-                                        float inv_keep, int dropout, void* stream) {
+                                        float inv_keep, int dropout,
+                                        unsigned b_offset, unsigned h_offset, void* stream) {
   const FwdArgs args{static_cast<const int*>(lens), nullptr, nullptr,
                      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), n, h, scale,
-                     make_dropout(seed, threshold, inv_keep, dropout)};
+                     make_dropout(seed, threshold, inv_keep, dropout, b_offset, h_offset)};
   const auto kernel = dropout ? train_attention_fwd_kernel<true> : train_attention_fwd_kernel<false>;
   static bool allowed[2][kMaxDevices] = {};
   FwdMaps maps;
@@ -568,7 +572,8 @@ extern "C" int erax_train_attention_dq(const void* q, const void* k, const void*
                                        const void* dout, const void* lse, const void* dd,
                                        const void* lens, void* dq, int b, int n, int h,
                                        float scale, unsigned seed, unsigned threshold,
-                                       float inv_keep, int dropout, void* stream) {
+                                       float inv_keep, int dropout,
+                                       unsigned b_offset, unsigned h_offset, void* stream) {
   BwdMaps maps;
   const int err = bwd_prepare(maps, q, k, v, dout, b, n, h);
   if (err != 0) return err;
@@ -577,7 +582,7 @@ extern "C" int erax_train_attention_dq(const void* q, const void* k, const void*
       maps.q, maps.k, maps.v, maps.dout, static_cast<const float*>(lse),
       static_cast<const float*>(dd), static_cast<const int*>(lens),
       static_cast<__nv_bfloat16*>(dq), n, h, scale,
-      make_dropout(seed, threshold, inv_keep, dropout));
+      make_dropout(seed, threshold, inv_keep, dropout, b_offset, h_offset));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -585,7 +590,8 @@ extern "C" int erax_train_attention_dkv(const void* q, const void* k, const void
                                         const void* dout, const void* lse, const void* dd,
                                         const void* lens, void* dk, void* dv, int b, int n,
                                         int h, float scale, unsigned seed, unsigned threshold,
-                                        float inv_keep, int dropout, void* stream) {
+                                        float inv_keep, int dropout,
+                                        unsigned b_offset, unsigned h_offset, void* stream) {
   BwdMaps maps;
   const int err = bwd_prepare(maps, q, k, v, dout, b, n, h);
   if (err != 0) return err;
@@ -594,6 +600,6 @@ extern "C" int erax_train_attention_dkv(const void* q, const void* k, const void
       maps.q, maps.k, maps.v, maps.dout, static_cast<const float*>(lse),
       static_cast<const float*>(dd), static_cast<const int*>(lens),
       static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), n, h, scale,
-      make_dropout(seed, threshold, inv_keep, dropout));
+      make_dropout(seed, threshold, inv_keep, dropout, b_offset, h_offset));
   return static_cast<int>(cudaGetLastError());
 }

@@ -298,22 +298,24 @@ __global__ void __launch_bounds__(kThreads, 2)
   store_acc(dv + hd.base, hd.stride, dv_acc, 1.f, key, c);
 }
 
-Dropout make_dropout(unsigned seed, unsigned threshold, float inv_keep, int on) {
-  return Dropout{seed, threshold, inv_keep, on};
+Dropout make_dropout(unsigned seed, unsigned threshold, float inv_keep, int on,
+                     unsigned b_offset, unsigned h_offset) {
+  return Dropout{seed, threshold, inv_keep, on, b_offset, h_offset};
 }
 
 }  // namespace
 
 // Common arguments: q, k, v, dout, out, dq, dk, dv [b, n, h, 64] fp32
 // contiguous and 16-byte aligned; lens [b] int32; lse, dd [b, h, n] fp32.
-// Requires n % 64 == 0. `dropout` = 0 ignores seed / threshold / inv_keep.
-// Each launches on `stream` and returns the cudaError_t of the launch or of
+// Requires n % 64 == 0. `dropout` = 0 ignores seed / threshold / inv_keep;
+// `b_offset` / `h_offset` are the global sample and head of index 0 in the
+// keep bit's salt. Each launches on `stream` and returns the cudaError_t of the launch or of
 // its set-up.
 extern "C" int erax_train_attention_fp32_fwd(const void* q, const void* k, const void* v,
                                              const void* lens, void* out, void* lse, int b,
                                              int n, int h, float scale, unsigned seed,
                                              unsigned threshold, float inv_keep, int dropout,
-                                             void* stream) {
+                                             unsigned b_offset, unsigned h_offset, void* stream) {
   const auto kernel = dropout ? train_fp32_fwd_kernel<true> : train_fp32_fwd_kernel<false>;
   static bool allowed[2][kMaxDevices] = {};
   const int err =
@@ -322,7 +324,7 @@ extern "C" int erax_train_attention_fp32_fwd(const void* q, const void* k, const
   kernel<<<dim3(n / kRows, h, b), kThreads, kFwdSmem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const int*>(lens), static_cast<float*>(out), static_cast<float*>(lse), n, h,
-      scale, make_dropout(seed, threshold, inv_keep, dropout));
+      scale, make_dropout(seed, threshold, inv_keep, dropout, b_offset, h_offset));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -330,7 +332,8 @@ extern "C" int erax_train_attention_fp32_dq(const void* q, const void* k, const 
                                             const void* dout, const void* lse, const void* dd,
                                             const void* lens, void* dq, int b, int n, int h,
                                             float scale, unsigned seed, unsigned threshold,
-                                            float inv_keep, int dropout, void* stream) {
+                                            float inv_keep, int dropout,
+                                            unsigned b_offset, unsigned h_offset, void* stream) {
   const auto kernel = dropout ? train_fp32_dq_kernel<true> : train_fp32_dq_kernel<false>;
   static bool allowed[2][kMaxDevices] = {};
   const int err =
@@ -340,7 +343,7 @@ extern "C" int erax_train_attention_fp32_dq(const void* q, const void* k, const 
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(dd), static_cast<const int*>(lens), static_cast<float*>(dq), n,
-      h, scale, make_dropout(seed, threshold, inv_keep, dropout));
+      h, scale, make_dropout(seed, threshold, inv_keep, dropout, b_offset, h_offset));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -349,7 +352,7 @@ extern "C" int erax_train_attention_fp32_dkv(const void* q, const void* k, const
                                              const void* lens, void* dk, void* dv, int b, int n,
                                              int h, float scale, unsigned seed,
                                              unsigned threshold, float inv_keep, int dropout,
-                                             void* stream) {
+                                             unsigned b_offset, unsigned h_offset, void* stream) {
   const auto kernel = dropout ? train_fp32_dkv_kernel<true> : train_fp32_dkv_kernel<false>;
   static bool allowed[2][kMaxDevices] = {};
   const int err =
@@ -359,7 +362,8 @@ extern "C" int erax_train_attention_fp32_dkv(const void* q, const void* k, const
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(dd), static_cast<const int*>(lens), static_cast<float*>(dk),
-      static_cast<float*>(dv), n, h, scale, make_dropout(seed, threshold, inv_keep, dropout));
+      static_cast<float*>(dv), n, h, scale,
+      make_dropout(seed, threshold, inv_keep, dropout, b_offset, h_offset));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -90,9 +90,21 @@ each ``generate_batch`` sample's) duration when ``use_duration_predictor``
 is on, as in the JAX wrapper: ``fix_duration`` wins, a prediction of 0
 frames falls back to ``byte_ratio_duration``.
 
-Not ported yet (ROADMAP.md): multi-device meshes
-(``generate_batch`` runs on one device), the default Whisper backend behind an
-empty ``ref_text`` (pass ``transcribe_fn``). Each raises.
+Several devices (``mesh``, a ``parallel.mesh.make_mesh`` mesh; every
+process of it builds the wrapper and makes the same calls): the backbone is
+put on the mesh (the DiT split over ``model`` by the JAX rules, every other
+backbone replicated, `parallel/mesh.py`), rank 0's weights for all;
+``generate_batch`` pads the batch to a multiple of ``data`` as the JAX
+wrapper does, each data rank samples its rows with the one shared noise
+draw, and every rank returns the whole list, gathered after the step. With
+``model = 1`` a chunk step holds no collective and stays one CUDA graph
+replay; with ``model > 1`` it holds the row projections' all-reduces,
+which an NCCL group's graph captures with the rest of the step; over gloo,
+which cannot capture them, the step runs eagerly, with a printed line (the
+kernels still launch on the card). A request's seed is rank 0's.
+
+Not ported yet (ROADMAP.md): the default Whisper backend behind an empty
+``ref_text`` (pass ``transcribe_fn``), which raises.
 """
 
 from __future__ import annotations
@@ -135,6 +147,7 @@ from eraxvif5tts_tpu_torch.models.bigvgan import BigVGAN, BigVGANConfig, random_
 from eraxvif5tts_tpu_torch.models.cfm import CFM
 from eraxvif5tts_tpu_torch.models.vocos import Vocos
 from eraxvif5tts_tpu_torch.ops import _cuda, quant, quant_ff, serving_attention
+from eraxvif5tts_tpu_torch.parallel import mesh as pm
 from eraxvif5tts_tpu_torch.ops.stft import MelSpectrogram
 
 # Prompt-region frames vocoded in front of the generated region so the cut
@@ -204,6 +217,7 @@ class F5TTSWrapper:
         model_cfg: Optional[ModelConfig] = None,
         duration_buckets: tuple[int, ...] = DURATION_BUCKETS,
         text_buckets: tuple[int, ...] = TEXT_BUCKETS,
+        mesh=None,
     ):
         if model_cfg is not None:
             cfg = model_cfg
@@ -229,6 +243,9 @@ class F5TTSWrapper:
         if compute_dtype == "int8":
             quant.quantized_weight_keys(cfg.arch.depth, cfg.backbone)  # an unknown backbone raises
         self.device = torch.device(device)
+        if mesh is not None and self.device.type == "cuda" and self.device.index is None:
+            self.device = pm.local_device()
+        self.mesh = mesh
         dtype = _DTYPES[compute_dtype]
         self.compute_dtype = compute_dtype
 
@@ -312,6 +329,22 @@ class F5TTSWrapper:
         if vocoder_state_dict is not None:
             self.vocoder.load_state_dict(vocoder_state_dict, strict=True)
         self.vocoder.to(self.device).eval()
+        # the chunk step's collectives (row projections over `model`): an
+        # NCCL group's are captured in the key's CUDA graph with the rest of
+        # the step; a gloo group's cannot be, and that step runs eagerly
+        model_group = pm.axis_group(mesh, "model")
+        self._eager_step = (model_group is not None
+                            and torch.distributed.get_backend(model_group) != "nccl")
+        if mesh is not None:
+            if pm.process_count(mesh) > 1:
+                pm.broadcast_flat([t for m in (self.transformer, self.vocoder)
+                                   for t in m.state_dict().values()], 0,
+                                  torch.distributed.group.WORLD)
+            pm.shard_model(self.transformer, mesh)
+            if self._eager_step and pm.is_main(mesh):
+                print(f"[wrapper] model={pm.axis_size(mesh, 'model')} over "
+                      f"{torch.distributed.get_backend(model_group)}: the chunk step holds "
+                      "all-reduces that the group cannot capture and runs eagerly (no CUDA graph)")
 
         self.mel_spec = MelSpectrogram(
             n_fft=mel_cfg.n_fft, hop_length=mel_cfg.hop_length,
@@ -402,7 +435,7 @@ class F5TTSWrapper:
                quant_ff.use_int8_ff(), torch.backends.cuda.matmul.allow_tf32,
                torch.backends.cudnn.allow_tf32)
         self.dispatch_keys.add(key)
-        if cond.device.type != "cuda":
+        if cond.device.type != "cuda" or self._eager_step:
             return self._sample_vocode(*tensors, **static)
         # graphs that share a pool must not run at once: one replay at a time,
         # from the inputs' copy to the outputs' (all on the caller's stream)
@@ -494,6 +527,18 @@ class F5TTSWrapper:
         """The 0-d fp32 factor that restores a quiet reference's loudness."""
         scale = ref.rms / self.target_rms if 0 < ref.rms < self.target_rms else 1.0
         return self._device_tensor(scale, torch.float32)
+
+    def _seed(self, seed: Optional[int]) -> int:
+        """A request's seed: ``seed``, or a random one (rank 0's on a mesh)."""
+        if seed is None:
+            seed = _random.randrange(2**31)
+        if pm.process_count(self.mesh) > 1:
+            import torch.distributed as dist
+
+            t = torch.tensor([seed], dtype=torch.int64, device=self.device)
+            dist.broadcast(t, src=0)
+            seed = int(t.item())
+        return seed
 
     def _draw_noise(self, generator: torch.Generator, n_frames: int) -> torch.Tensor:
         """One chunk's ``[n_frames, n_mels]`` sampler noise."""
@@ -645,7 +690,7 @@ class F5TTSWrapper:
         max_chars, bucket_budget = self._max_chars_for(ref)
         chunks = chunk_text(text, max_chars=max_chars, hard_max=bucket_budget)
         generator = torch.Generator(device=self.device).manual_seed(
-            seed if seed is not None else _random.randrange(2**31))
+            self._seed(seed))
         vstart = max(ref.n_frames - VOCODE_MARGIN_FRAMES, 0)
         rms_scale = self._rms_scale(ref)
 
@@ -704,11 +749,13 @@ class F5TTSWrapper:
                        sway_sampling_coef: Optional[float] = None, seed: Optional[int] = None,
                        use_pinyin: bool = True) -> list[np.ndarray]:
         """Synthesise several utterances in one padded batch (the JAX
-        ``generate_batch`` without its mesh branch): one duration bucket and
-        one text bucket for all, per-sample durations, the prompt length as
-        every sample's ``lens``, one ``[bucket, n_mels]`` noise draw shared by
-        every sample, and each wave trimmed to its own duration. Returns one
-        float32 waveform per text (no chunking, no cross-fade)."""
+        ``generate_batch``): one duration bucket and one text bucket for all,
+        per-sample durations, the prompt length as every sample's ``lens``,
+        one ``[bucket, n_mels]`` noise draw shared by every sample, and each
+        wave trimmed to its own duration. Returns one float32 waveform per
+        text (no chunking, no cross-fade). On a mesh the batch is padded to a
+        multiple of ``data``, each data rank samples its rows, and every rank
+        returns the whole list."""
         ref = ref or self.ref
         if ref is None:
             raise RuntimeError("call preprocess_reference() first or pass ref=")
@@ -734,15 +781,32 @@ class F5TTSWrapper:
                                    pad_to=pick_bucket(max(map(len, token_lists)),
                                                       self.text_buckets))
         b = len(texts)
+        # a mesh's batch: padded to a multiple of `data` (`wrapper.py:771-778`),
+        # this data rank's rows
+        n_data, rank = pm.axis_size(self.mesh, "data"), pm.axis_rank(self.mesh, "data")
+        rows = (b + (-b) % n_data) // n_data
+        pad = rows * n_data - b
+        text_ids = np.concatenate([text_ids, np.full((pad, text_ids.shape[1]), -1,
+                                                     text_ids.dtype)])
+        durations_in = durations + [ref.n_frames + 1] * pad
+        sl = slice(rank * rows, (rank + 1) * rows)
         generator = torch.Generator(device=self.device).manual_seed(
-            seed if seed is not None else _random.randrange(2**31))
+            self._seed(seed))
         vstart = max(ref.n_frames - VOCODE_MARGIN_FRAMES, 0)
         pcm, _ = self._dispatch_sample_vocode(
-            ref.mel.expand(b, -1, -1), self._device_tensor(text_ids),
-            self._device_tensor(durations), self._device_tensor([ref.n_frames] * b),
+            ref.mel.expand(rows, -1, -1), self._device_tensor(text_ids[sl]),
+            self._device_tensor(durations_in[sl]), self._device_tensor([ref.n_frames] * rows),
             self._draw_noise(generator, bucket), self._rms_scale(ref), steps=nfe_step,
             cfg_strength=float(cfg_strength), sway=float(sway) if sway is not None else None,
             max_duration=bucket, vocode_start=vstart, gen_start=ref.n_frames - vstart)
+        if n_data > 1:
+            import torch.distributed as dist
+
+            whole = torch.zeros((rows * n_data, pcm.shape[1]), dtype=torch.float32,
+                                device=pcm.device)
+            whole[sl] = pcm.float()
+            dist.all_reduce(whole, group=pm.axis_group(self.mesh, "data"))
+            pcm = whole.to(torch.int16)
         pcm = pcm.cpu().numpy()
         return [pcm[i, :(d - ref.n_frames) * self.hop_length].astype(np.float32) / 32767.0
                 for i, d in enumerate(durations)]

@@ -27,6 +27,7 @@ ODE started at an intermediate time from a blended state).
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Optional
@@ -87,6 +88,12 @@ class LossDraws:
         keys = torch.randint(0, 2**32, (depth, 3, 2), generator=generator, device=dev)
         return cls(frac, rand, x0, time, drop_audio, drop_cond, keys.tolist())
 
+    def rows(self, start: int, stop: int) -> "LossDraws":
+        """The draws of rows ``[start, stop)`` of the batch they were drawn
+        for (a data rank's share of the global batch's draws)."""
+        return dataclasses.replace(self, frac=self.frac[start:stop], rand=self.rand[start:stop],
+                                   x0=self.x0[start:stop], time=self.time[start:stop])
+
 
 class CFM:
     """Stateless objective and sampler around a backbone: a
@@ -109,14 +116,17 @@ class CFM:
         return self.transformer.mel_dim
 
     def loss(self, mel: torch.Tensor, text: torch.Tensor, lens: torch.Tensor,
-             draws: LossDraws, deterministic: bool = False
+             draws: LossDraws, deterministic: bool = False, weight_sum=None
              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Masked-span infilling flow-matching loss of ``mel [b, n, d]`` log-mel
         frames, ``text [b, nt]`` ids (-1 padded) and ``lens [b]``; returns
         (loss, cond, pred). The transformer runs in its own mode
         (``train()`` for the training branch); ``deterministic`` turns its
         dropout off (the JAX ``deterministic=True``; the CFG drops stay, and
-        the draws' dropout keys go unused)."""
+        the draws' dropout keys go unused). ``weight_sum`` maps this call's
+        count of masked span elements to the one the mean divides by: a data
+        rank passes the sum over the global batch, so that the ranks' losses
+        add up to the one-device loss (default: this call's own)."""
         b, n, d = mel.shape
         mask = lens_to_mask(lens, n)
         rand_span_mask = mask_from_frac_lengths(lens, draws.frac, n, draws.rand) & mask
@@ -137,7 +147,8 @@ class CFM:
         # mean squared error over (span frames x channels) (`cfm.py:141-144`)
         se = (pred - flow).square()
         weight = rand_span_mask[..., None].to(se.dtype)
-        loss = (se * weight).sum() / torch.clamp(weight.sum() * d, min=1.0)
+        total = weight.sum() if weight_sum is None else weight_sum(weight.sum())
+        loss = (se * weight).sum() / torch.clamp(total * d, min=1.0)
         return loss, cond, pred
 
     @torch.inference_mode()

@@ -31,6 +31,13 @@ the caller draws before the forward (3 per block): an activation-checkpoint
 recompute then reproduces every mask. The JAX package's grouped-convolution tap loop (a TPU speed trick)
 is a plain ``F.conv1d(groups=16)`` here.
 
+On a mesh (`parallel/mesh.py` ``shard_model``) :class:`Attention` and
+:class:`FeedForward` hold a ``shard`` context: the rank's first row of the
+global batch, from which every dropout site hashes; a module split over the
+model axis also holds it as ``tp`` and keeps its heads (its feed-forward
+columns) and the row shards of its output projection, whose partial
+products are summed over the axis before the bias (`parallel/shard.py`).
+
 A quantized block (``quantized=True``, the JAX ``quantized`` int8 W8A8
 serving path, eval mode only) holds :class:`QuantLinear` for the four
 attention projections and both FF projections. Its attention keeps the
@@ -58,6 +65,7 @@ from eraxvif5tts_tpu_torch.ops.quant import QuantLinear
 from eraxvif5tts_tpu_torch.ops.quant_ff import int8_ff, use_int8_ff
 from eraxvif5tts_tpu_torch.ops.rotary import apply_rotary_heads
 from eraxvif5tts_tpu_torch.ops.train_attention import attention_seed, train_attention
+from eraxvif5tts_tpu_torch.parallel.shard import batch_offset, enter, leave
 
 
 def linear(x: torch.Tensor, layer: nn.Linear | QuantLinear) -> torch.Tensor:
@@ -67,6 +75,15 @@ def linear(x: torch.Tensor, layer: nn.Linear | QuantLinear) -> torch.Tensor:
         return layer(x)
     bias = layer.bias.to(x.dtype) if layer.bias is not None else None
     return F.linear(x, layer.weight.to(x.dtype), bias)
+
+
+def row_linear(x: torch.Tensor, layer: nn.Linear, tp) -> torch.Tensor:
+    """``layer(x)`` where ``layer`` may hold this rank's rows of a projection
+    split over the model axis (``tp``, a ShardContext, else None): the ranks'
+    partial products summed, then the bias once."""
+    if tp is None:
+        return linear(x, layer)
+    return leave(F.linear(x, layer.weight.to(x.dtype)), layer.bias, tp)
 
 
 def conv1d(x: torch.Tensor, layer: nn.Conv1d) -> torch.Tensor:
@@ -308,6 +325,17 @@ class FeedForward(nn.Module):
             nn.Dropout(0.0),
             dense(inner, dim),
         )
+        # on a mesh (`parallel/mesh.py` shard_model): the rank's context, and
+        # the same context as `tp` when the hidden columns are split over it
+        self.shard = self.tp = None
+        self.inner = inner
+
+    def splits_over(self, n_model: int) -> bool:
+        return not self.quantized and self.inner % n_model == 0
+
+    def split_over(self, ctx) -> None:
+        """The projections were cut to this rank's columns / rows."""
+        self.tp = ctx
 
     def forward(self, x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
                 dropout_rate: float = 0.0, dropout_key=None, norm: str = "ln") -> torch.Tensor:
@@ -315,7 +343,7 @@ class FeedForward(nn.Module):
         if not self.training and not self.quantized and use_fused_serving(x.dtype):
             h = ln_mod_matmul(x, scale.contiguous(), shift.contiguous(), project_in.weight,
                               project_in.bias, activation="gelu_tanh", norm=norm)
-            return linear(h, self.ff[2])
+            return row_linear(h, self.ff[2], self.tp)
         if norm != "ln":
             raise ValueError(f"the unfused feed-forward normalises with the layernorm only, "
                              f"got norm={norm!r}: normalise outside and call project()")
@@ -332,8 +360,13 @@ class FeedForward(nn.Module):
                                project_in.bias, project_out.weight_q,
                                project_out.weight_scale, project_out.bias)
             return project_out(F.gelu(project_in(h), approximate="tanh"))
-        h = F.gelu(linear(h, project_in), approximate="tanh")
-        return linear(hash_dropout(h, dropout_rate, dropout_key), project_out)
+        h = F.gelu(linear(enter(h, self.tp), project_in), approximate="tanh")
+        if dropout_rate > 0.0:
+            cols = h.shape[-1] * (self.tp.size if self.tp is not None else 1)
+            col0 = h.shape[-1] * self.tp.rank if self.tp is not None else 0
+            h = hash_dropout(h, dropout_rate, dropout_key, batch_offset(self.shard), col0,
+                             cols)
+        return row_linear(h, project_out, self.tp)
 
 
 class Attention(nn.Module):
@@ -366,32 +399,57 @@ class Attention(nn.Module):
         else:
             self.q_norm = self.k_norm = None
         self.to_out = nn.ModuleList([dense(inner, dim), nn.Dropout(0.0)])
+        # on a mesh (`parallel/mesh.py` shard_model): the rank's context, and
+        # the same context as `tp` when the heads are split over it (this
+        # rank's heads are `head0 ...`)
+        self.shard = self.tp = None
+        self.head0 = 0
+
+    def splits_over(self, n_model: int) -> bool:
+        return not isinstance(self.to_q, QuantLinear) and self.heads % n_model == 0
+
+    def split_over(self, ctx) -> None:
+        """The projections were cut to this rank's heads (q, k, v) and rows
+        (``to_out``)."""
+        self.heads //= ctx.size
+        self.head0 = ctx.rank * self.heads
+        self.tp = ctx
+
+    def _rotated_heads(self) -> int | None:
+        """How many of this rank's heads ``pe_attn_head`` rotates (all: None)."""
+        if self.pe_attn_head is None:
+            return None
+        return min(max(self.pe_attn_head - self.head0, 0), self.heads)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None,
                 rope: torch.Tensor | None = None, dropout_rate: float = 0.0,
                 dropout_keys=(None, None)) -> torch.Tensor:
         b, n, _ = x.shape
         shape = (b, n, self.heads, self.dim_head)
+        x = enter(x, self.tp)
         q = linear(x, self.to_q).view(shape)
         k = linear(x, self.to_k).view(shape)
         v = linear(x, self.to_v).view(shape)
         if self.q_norm is not None:
             q, k = self.q_norm(q), self.k_norm(k)
+        rotated = self._rotated_heads()
         if not self.training:
-            if rope is not None and self.pe_attn_head is not None:
-                q = apply_rotary_heads(q, rope, self.pe_attn_head)
-                k = apply_rotary_heads(k, rope, self.pe_attn_head)
+            if rope is not None and rotated is not None:
+                q = apply_rotary_heads(q, rope, rotated)
+                k = apply_rotary_heads(k, rope, rotated)
                 rope = None
             out = dot_product_attention(q, k, v, key_valid=mask, rope=rope)
-            out = linear(out.reshape(b, n, -1), self.to_out[0])
+            out = row_linear(out.reshape(b, n, -1), self.to_out[0], self.tp)
         else:
             if rope is not None:
-                q = apply_rotary_heads(q, rope, self.pe_attn_head)
-                k = apply_rotary_heads(k, rope, self.pe_attn_head)
+                q = apply_rotary_heads(q, rope, rotated)
+                k = apply_rotary_heads(k, rope, rotated)
             seed = attention_seed(dropout_keys[0]) if dropout_rate > 0.0 else 0
-            out = train_attention(q, k, v, key_valid=mask, dropout_rate=dropout_rate, seed=seed)
-            out = linear(out.reshape(b, n, -1), self.to_out[0])
-            out = hash_dropout(out, dropout_rate, dropout_keys[1])
+            row0 = batch_offset(self.shard)
+            out = train_attention(q, k, v, key_valid=mask, dropout_rate=dropout_rate, seed=seed,
+                                  batch_offset=row0, head_offset=self.head0)
+            out = row_linear(out.reshape(b, n, -1), self.to_out[0], self.tp)
+            out = hash_dropout(out, dropout_rate, dropout_keys[1], row0)
         if mask is not None:
             out = out.masked_fill(~mask[..., None], 0.0)
         return out

@@ -41,7 +41,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint32
 _F = ctypes.c_float
-_DROPOUT = (_U, _U, _F, _I)  # seed, threshold, inv_keep, dropout on
+_DROPOUT = (_U, _U, _F, _I, _U, _U)  # seed, threshold, inv_keep, dropout on, b / h offsets
 _SIGNATURES = {
     # q, k, v, lens, cos, sin, out, b, n, h, roped, scale, stream
     "erax_serving_attention": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),

@@ -133,12 +133,15 @@ def dropout_keep_mask(seed: int, b_idx: int, h_idx: int, q0: int, k0: int, bq: i
 
 def train_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               lens: torch.Tensor | None = None, dropout_rate: float = 0.0,
-                              seed: int = 0, batch_offset: int = 0) -> torch.Tensor:
+                              seed: int = 0, batch_offset: int = 0,
+                              head_offset: int = 0) -> torch.Tensor:
     """Plain PyTorch version (dense: materialises the ``[b, h, n, n]`` fp32
     logits and the keep mask), differentiable by autograd. Mirrors the JAX
     package's ``dense_reference`` plus key masking by ``lens [b]``.
-    ``batch_offset`` is the batch index of ``q[0]`` in the dropout salt, so
-    that a slice of a batch gets the masks it has in the whole batch.
+    ``batch_offset`` / ``head_offset`` are the batch and head index of
+    ``q[0]``'s head 0 in the dropout salt, so that a slice of a batch (data
+    parallel) or of the heads (tensor parallel) gets the masks it has in the
+    whole.
 
     P is rounded to v's dtype for the PV product, as the kernels round it,
     while its gradient passes that rounding in fp32, as the kernels' backward
@@ -151,7 +154,8 @@ def train_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     if dropout_rate > 0.0:
         keep = 1.0 - dropout_rate
-        km = torch.stack([torch.stack([dropout_keep_mask(seed, batch_offset + bi, hi, 0, 0,
+        km = torch.stack([torch.stack([dropout_keep_mask(seed, batch_offset + bi,
+                                                         head_offset + hi, 0, 0,
                                                          n, n, n, keep, q.device)
                                        for hi in range(h)]) for bi in range(b)])
         p = torch.where(km, p * (1.0 / keep), torch.tensor(0.0, device=q.device))
@@ -342,12 +346,15 @@ def _check_cuda_args(q, k, v, lens) -> None:
                          f"got {lens.dtype} {tuple(lens.shape)} on {lens.device}")
 
 
-def _dropout_args(dropout_rate: float, seed: int) -> tuple[int, int, float, int]:
-    """(seed, threshold, inv_keep, on) for the kernels' C interface."""
+def _dropout_args(dropout_rate: float, seed: int, batch_offset: int = 0,
+                  head_offset: int = 0) -> tuple[int, int, float, int, int, int]:
+    """(seed, threshold, inv_keep, on, batch offset, head offset) for the
+    kernels' C interface."""
     if dropout_rate <= 0.0:
-        return 0, 0, 1.0, 0
+        return 0, 0, 1.0, 0, 0, 0
     keep = 1.0 - dropout_rate
-    return int(seed) & M32, keep_threshold(keep), 1.0 / keep, 1
+    return (int(seed) & M32, keep_threshold(keep), 1.0 / keep, 1, int(batch_offset) & M32,
+            int(head_offset) & M32)
 
 
 def _entry_dtype(entry: str, dtype: torch.dtype, *tensors) -> None:
@@ -358,7 +365,7 @@ def _entry_dtype(entry: str, dtype: torch.dtype, *tensors) -> None:
 
 
 def _forward(entry: str, dtype: torch.dtype, q, k, v, lens, dropout_rate: float,
-             seed: int) -> tuple[torch.Tensor, torch.Tensor]:
+             seed: int, offsets: tuple[int, int]) -> tuple[torch.Tensor, torch.Tensor]:
     from eraxvif5tts_tpu_torch.ops import _cuda
 
     _entry_dtype(entry, dtype, q, k, v)
@@ -368,32 +375,35 @@ def _forward(entry: str, dtype: torch.dtype, q, k, v, lens, dropout_rate: float,
     with torch.cuda.device(q.device):
         code = getattr(_cuda.kernels().lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), b, n, h, 1.0 / math.sqrt(d), *_dropout_args(dropout_rate, seed),
+            lse.data_ptr(), b, n, h, 1.0 / math.sqrt(d),
+            *_dropout_args(dropout_rate, seed, *offsets),
             _cuda.stream_ptr(q.device))
     _cuda.check(code, entry)
     return out, lse
 
 
-def flash_forward(q, k, v, lens, dropout_rate: float = 0.0,
-                  seed: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+def flash_forward(q, k, v, lens, dropout_rate: float = 0.0, seed: int = 0,
+                  offsets: tuple[int, int] = (0, 0)) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the bf16 forward kernel on checked CUDA arguments: (O ``[b, n,
-    h, d]`` bf16, LSE ``[b, h, n]`` fp32). Counted in ``flash_forward.launches``."""
+    h, d]`` bf16, LSE ``[b, h, n]`` fp32). ``offsets``: the global (sample,
+    head) of ``q[0]``'s head 0 in the keep bit's salt (a rank's slice of a
+    batch or of the heads). Counted in ``flash_forward.launches``."""
     from eraxvif5tts_tpu_torch.ops import _cuda
 
     result = _forward("erax_train_attention_fwd", torch.bfloat16, q, k, v, lens,
-                      dropout_rate, seed)
+                      dropout_rate, seed, offsets)
     _cuda.count(flash_forward, "launches")
     return result
 
 
-def flash_forward_fp32(q, k, v, lens, dropout_rate: float = 0.0,
-                       seed: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+def flash_forward_fp32(q, k, v, lens, dropout_rate: float = 0.0, seed: int = 0,
+                       offsets: tuple[int, int] = (0, 0)) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the fp32 forward kernel: (O ``[b, n, h, d]`` fp32, LSE ``[b, h,
     n]`` fp32). Counted in ``flash_forward_fp32.launches``."""
     from eraxvif5tts_tpu_torch.ops import _cuda
 
     result = _forward("erax_train_attention_fp32_fwd", torch.float32, q, k, v, lens,
-                      dropout_rate, seed)
+                      dropout_rate, seed, offsets)
     _cuda.count(flash_forward_fp32, "launches")
     return result
 
@@ -409,7 +419,7 @@ def _check_backward_args(dout, lse, dd, dtype: torch.dtype = torch.bfloat16) -> 
 
 
 def _dq(entry: str, dtype: torch.dtype, q, k, v, lens, lse, dd, dout,
-        dropout_rate: float, seed: int) -> torch.Tensor:
+        dropout_rate: float, seed: int, offsets: tuple[int, int]) -> torch.Tensor:
     from eraxvif5tts_tpu_torch.ops import _cuda
 
     _entry_dtype(entry, dtype, q, k, v)
@@ -420,13 +430,14 @@ def _dq(entry: str, dtype: torch.dtype, q, k, v, lens, lse, dd, dout,
         code = getattr(_cuda.kernels().lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
             dd.data_ptr(), lens.data_ptr(), dq.data_ptr(), b, n, h, 1.0 / math.sqrt(d),
-            *_dropout_args(dropout_rate, seed), _cuda.stream_ptr(q.device))
+            *_dropout_args(dropout_rate, seed, *offsets), _cuda.stream_ptr(q.device))
     _cuda.check(code, entry)
     return dq
 
 
 def _dkv(entry: str, dtype: torch.dtype, q, k, v, lens, lse, dd, dout,
-         dropout_rate: float, seed: int) -> tuple[torch.Tensor, torch.Tensor]:
+         dropout_rate: float, seed: int,
+         offsets: tuple[int, int]) -> tuple[torch.Tensor, torch.Tensor]:
     from eraxvif5tts_tpu_torch.ops import _cuda
 
     _entry_dtype(entry, dtype, q, k, v)
@@ -437,56 +448,57 @@ def _dkv(entry: str, dtype: torch.dtype, q, k, v, lens, lse, dd, dout,
         code = getattr(_cuda.kernels().lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
             dd.data_ptr(), lens.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, n, h,
-            1.0 / math.sqrt(d), *_dropout_args(dropout_rate, seed), _cuda.stream_ptr(q.device))
+            1.0 / math.sqrt(d), *_dropout_args(dropout_rate, seed, *offsets),
+            _cuda.stream_ptr(q.device))
     _cuda.check(code, entry)
     return dk, dv
 
 
 def flash_dq(q, k, v, lens, lse, dd, dout, dropout_rate: float = 0.0,
-             seed: int = 0) -> torch.Tensor:
+             seed: int = 0, offsets: tuple[int, int] = (0, 0)) -> torch.Tensor:
     """Launch the bf16 dq kernel: dq ``[b, n, h, d]`` bf16 from the forward's
-    LSE, ``dd = rowsum(dO * O)`` ``[b, h, n]`` fp32 and ``dout``. Counted in
-    ``flash_dq.launches``."""
+    LSE, ``dd = rowsum(dO * O)`` ``[b, h, n]`` fp32 and ``dout``; ``offsets``
+    as :func:`flash_forward`'s. Counted in ``flash_dq.launches``."""
     from eraxvif5tts_tpu_torch.ops import _cuda
 
     dq = _dq("erax_train_attention_dq", torch.bfloat16, q, k, v, lens, lse, dd, dout,
-             dropout_rate, seed)
+             dropout_rate, seed, offsets)
     _cuda.count(flash_dq, "launches")
     return dq
 
 
-def flash_dkv(q, k, v, lens, lse, dd, dout, dropout_rate: float = 0.0,
-              seed: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+def flash_dkv(q, k, v, lens, lse, dd, dout, dropout_rate: float = 0.0, seed: int = 0,
+              offsets: tuple[int, int] = (0, 0)) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the bf16 dk/dv kernel (arguments as :func:`flash_dq`). Counted
     in ``flash_dkv.launches``."""
     from eraxvif5tts_tpu_torch.ops import _cuda
 
     result = _dkv("erax_train_attention_dkv", torch.bfloat16, q, k, v, lens, lse, dd, dout,
-                  dropout_rate, seed)
+                  dropout_rate, seed, offsets)
     _cuda.count(flash_dkv, "launches")
     return result
 
 
 def flash_dq_fp32(q, k, v, lens, lse, dd, dout, dropout_rate: float = 0.0,
-                  seed: int = 0) -> torch.Tensor:
+                  seed: int = 0, offsets: tuple[int, int] = (0, 0)) -> torch.Tensor:
     """Launch the fp32 dq kernel (arguments as :func:`flash_dq`, all fp32).
     Counted in ``flash_dq_fp32.launches``."""
     from eraxvif5tts_tpu_torch.ops import _cuda
 
     dq = _dq("erax_train_attention_fp32_dq", torch.float32, q, k, v, lens, lse, dd, dout,
-             dropout_rate, seed)
+             dropout_rate, seed, offsets)
     _cuda.count(flash_dq_fp32, "launches")
     return dq
 
 
-def flash_dkv_fp32(q, k, v, lens, lse, dd, dout, dropout_rate: float = 0.0,
-                   seed: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+def flash_dkv_fp32(q, k, v, lens, lse, dd, dout, dropout_rate: float = 0.0, seed: int = 0,
+                   offsets: tuple[int, int] = (0, 0)) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the fp32 dk/dv kernel (arguments as :func:`flash_dq`, all
     fp32). Counted in ``flash_dkv_fp32.launches``."""
     from eraxvif5tts_tpu_torch.ops import _cuda
 
-    result = _dkv("erax_train_attention_fp32_dkv", torch.float32, q, k, v, lens, lse, dd, dout,
-                  dropout_rate, seed)
+    result = _dkv("erax_train_attention_fp32_dkv", torch.float32, q, k, v, lens, lse, dd,
+                  dout, dropout_rate, seed, offsets)
     _cuda.count(flash_dkv_fp32, "launches")
     return result
 
@@ -510,10 +522,10 @@ class _TrainAttention(torch.autograd.Function):
     the fp32 ones by q's dtype."""
 
     @staticmethod
-    def forward(ctx, q, k, v, lens, dropout_rate, seed):
-        out, lse = _LAUNCHERS[q.dtype][0](q, k, v, lens, dropout_rate, seed)
+    def forward(ctx, q, k, v, lens, dropout_rate, seed, offsets):
+        out, lse = _LAUNCHERS[q.dtype][0](q, k, v, lens, dropout_rate, seed, offsets)
         ctx.save_for_backward(q, k, v, lens, out, lse)
-        ctx.dropout = (dropout_rate, seed)
+        ctx.dropout = (dropout_rate, seed, offsets)
         return out
 
     @staticmethod
@@ -526,16 +538,18 @@ class _TrainAttention(torch.autograd.Function):
         _, dq_kernel, dkv_kernel = _LAUNCHERS[q.dtype]
         dq = dq_kernel(q, k, v, lens, lse, dd, dout, *ctx.dropout)
         dk, dv = dkv_kernel(q, k, v, lens, lse, dd, dout, *ctx.dropout)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def train_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     key_valid: torch.Tensor | None = None, dropout_rate: float = 0.0,
-                    seed: int = 0) -> torch.Tensor:
+                    seed: int = 0, batch_offset: int = 0, head_offset: int = 0) -> torch.Tensor:
     """Differentiable softmax attention ``[b, n, h, d] -> [b, n, h, d]`` with
     position-hash attention dropout. ``key_valid [b, n]`` must be a
     contiguous prefix mask; ``seed`` is the kernel seed
-    (:func:`attention_seed` of the dropout key's words).
+    (:func:`attention_seed` of the dropout key's words); ``batch_offset`` /
+    ``head_offset`` the global sample and head of ``q``'s first (a rank's
+    slice of the batch or of the heads keeps the bits of the whole).
 
     CPU tensors take :func:`train_attention_reference`; CUDA tensors run the
     kernels of their dtype (bf16: :func:`flash_forward`, then :func:`flash_dq`
@@ -546,13 +560,15 @@ def train_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, n = q.shape[:2]
     lens = None if key_valid is None else key_valid.sum(dim=-1, dtype=torch.int32)
     if q.device.type == "cpu" or train_attention.plain:
-        return train_attention_reference(q, k, v, lens, dropout_rate, seed)
+        return train_attention_reference(q, k, v, lens, dropout_rate, seed, batch_offset,
+                                         head_offset)
     if q.device.type != "cuda":
         raise ValueError(f"train_attention: unsupported device {q.device}")
     if lens is None:
         lens = torch.full((b,), n, dtype=torch.int32, device=q.device)
     _check_cuda_args(q, k, v, lens)
-    return _TrainAttention.apply(q, k, v, lens.contiguous(), dropout_rate, seed)
+    return _TrainAttention.apply(q, k, v, lens.contiguous(), dropout_rate, seed,
+                                 (batch_offset, head_offset))
 
 
 train_attention.plain = False

@@ -185,15 +185,24 @@ def fp32_fwd(lib, q, k, v, lens, rate: float, seed: int) -> list:
     import torch
 
     from eraxvif5tts_tpu_torch.ops import _cuda
-    from eraxvif5tts_tpu_torch.ops import train_attention as ta
 
     b, n, h, d = q.shape
     out, lse = torch.empty_like(q), torch.empty((b, h, n), device=q.device)
     entry = "erax_train_attention_fp32_fwd"
-    _cuda.check(getattr(lib, entry)(
+    fn = getattr(lib, entry)
+    _cuda.check(fn(
         *[t.data_ptr() for t in (q, k, v, lens, out, lse)], b, n, h, 1.0 / d ** 0.5,
-        *ta._dropout_args(rate, seed), _cuda.stream_ptr(q.device)), entry)
+        *_dropout_for(fn, 10, rate, seed), _cuda.stream_ptr(q.device)), entry)
     return [out, lse]
+
+
+def _dropout_for(fn, before: int, rate: float, seed: int) -> tuple:
+    """The dropout arguments an entry point with ``before`` arguments ahead of
+    them takes: a tree older than the batch / head offsets takes the first
+    four."""
+    from eraxvif5tts_tpu_torch.ops import train_attention as ta
+
+    return ta._dropout_args(rate, seed)[:len(fn.argtypes) - before - 1]
 
 
 def fp32_serve(lib, q, k, v, lens, tables):
@@ -251,13 +260,13 @@ def _fp32_launch(lib, entry: str, outputs: int, q, k, v, lens, lse, dd, dout, ra
     import torch
 
     from eraxvif5tts_tpu_torch.ops import _cuda
-    from eraxvif5tts_tpu_torch.ops import train_attention as ta
 
     b, n, h, d = q.shape
     out = [torch.empty_like(q) for _ in range(outputs)]
-    _cuda.check(getattr(lib, entry)(
+    fn = getattr(lib, entry)
+    _cuda.check(fn(
         *[t.data_ptr() for t in (q, k, v, dout, lse, dd, lens, *out)], b, n, h, 1.0 / d ** 0.5,
-        *ta._dropout_args(rate, seed), _cuda.stream_ptr(q.device)), entry)
+        *_dropout_for(fn, 11 + outputs, rate, seed), _cuda.stream_ptr(q.device)), entry)
     return out
 
 

@@ -226,7 +226,7 @@ def make_mel_proj_matrix(n_mels: int, embed_dim: int, seed: int = 0) -> np.ndarr
 
 def duration_loss(dur_predictor, align_predictor, mel_proj_matrix: torch.Tensor,
                   phoneme_ids: torch.Tensor, mel: torch.Tensor, mel_lens: torch.Tensor,
-                  algorithm: str = "window", deterministic: bool = True
+                  algorithm: str = "window", deterministic: bool = True, weight_sum=None
                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Masked MSE between predicted and MAS-target log durations of
     ``phoneme_ids [b, nt]`` (0 = pad) against ``mel [b, T, n_mels]`` /
@@ -238,7 +238,9 @@ def duration_loss(dur_predictor, align_predictor, mel_proj_matrix: torch.Tensor,
     gradient from the frozen embeddings and the fixed mel projection (the
     reference wraps the block in ``torch.no_grad()``, `trainer.py:925`), in
     full fp32 (TF32 off). ``deterministic`` runs the predictor without
-    dropout (the trainers always do)."""
+    dropout (the trainers always do). ``weight_sum`` maps this call's count
+    of phonemes to the one the means divide by (a data rank passes the sum
+    over the global batch, as ``CFM.loss`` does)."""
     from eraxvif5tts_tpu_torch.models.modules import fp32_convolutions
 
     mask = phoneme_ids > 0
@@ -254,7 +256,7 @@ def duration_loss(dur_predictor, align_predictor, mel_proj_matrix: torch.Tensor,
 
     target_logw = torch.log(durations + 1e-6)
     logw = dur_predictor(phoneme_ids, mask, deterministic=deterministic)
-    denom = maskf.sum() + 1e-8
+    denom = (maskf.sum() if weight_sum is None else weight_sum(maskf.sum())) + 1e-8
     loss = ((logw - target_logw).square() * maskf).sum() / denom
     pred_dur = torch.exp(torch.clamp(logw, -10, 10))
     mae = ((pred_dur - durations).abs() * maskf).sum() / denom

@@ -13,10 +13,19 @@ Both run on the card unless ``--device cpu`` is given. Config knobs are
 honored or loudly refused, never silently ignored: ``batch_size_type:
 sample`` batches by sample count, ``logger: wandb`` falls back with a printed
 line when wandb is missing, ``bnb_optimizer: true`` raises (the port always
-uses its AdamW). Not ported (ROADMAP.md item E): meshes, so
-``--n-model`` above 1, ``--multihost``, ``--zero1`` (``optim.zero1``) and
-``multihost_epoch_batches`` raise; the JAX package's ``--scan-layers``
-(a compile-time mode) is left out, as in the port's servers.
+uses its AdamW). The JAX package's ``--scan-layers`` (a compile-time mode)
+is left out, as in the port's servers.
+
+Several devices: one process a device, started by ``torchrun`` (or in a
+process group the caller initialised), e.g. ``torchrun --nproc-per-node 8 -m
+eraxvif5tts_tpu_torch.training.cli finetune ... --n-model 2 --zero1``. The
+trainer then runs on a ``(data, model)`` mesh (`parallel/mesh.py`) over all
+the processes, each on ``cuda:LOCAL_RANK``: ``--n-model`` is the tensor-
+parallel size, ``--zero1`` (``optim.zero1``) partitions the AdamW moments
+and the EMA over ``data``. Every rank loads every global batch and trains
+on its rows; with ``--multihost`` each data rank loads only its own
+batches instead (:func:`multihost_epoch_batches`, the JAX per-process
+striding, here over data ranks: the model peers of a rank load the same).
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ import os
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from eraxvif5tts_tpu_torch.configs import (
     PRESETS,
@@ -36,21 +46,34 @@ from eraxvif5tts_tpu_torch.configs import (
 )
 from eraxvif5tts_tpu_torch.models import build_backbone
 from eraxvif5tts_tpu_torch.models.cfm import CFM
+from eraxvif5tts_tpu_torch.parallel import mesh as pm
 from eraxvif5tts_tpu_torch.text.tokenizer import get_tokenizer
 from eraxvif5tts_tpu_torch.training.dataset import (
+    TRAIN_FRAME_BUCKETS,
+    TRAIN_TEXT_BUCKETS,
     CustomDataset,
     DynamicBatchSampler,
     collate,
     load_dataset,
     prefetch_batches,
+    sample_phonemes,
 )
 from eraxvif5tts_tpu_torch.training.trainer import Trainer, make_optimizer
 
 # sample-count batching packs up to this many frames before max_samples kicks in
 # (i.e. never, for realistic sample counts) — see DatasetConfig.batch_size_type.
 _UNBOUNDED_FRAMES = 1 << 30
-NOT_PORTED_MESH = ("is not ported: meshes, multi-host and ZeRO-1 training are ROADMAP.md "
-                   "item E; the port trains on one card")
+
+
+def training_mesh(n_model: int = 1, device: str | torch.device = "cuda"):
+    """The trainer's mesh: None on one process (no process group, no
+    ``torchrun`` environment, ``n_model`` 1), else a ``(data, model)`` mesh
+    over every process (the group is initialised from ``torchrun``'s
+    environment when there is none)."""
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    if n_model == 1 and not dist.is_initialized() and world == 1:
+        return None
+    return pm.make_mesh(n_model=n_model, device_type=torch.device(device).type)
 
 
 def build_sampler(dataset, cfg: TrainConfig, seed: int) -> DynamicBatchSampler:
@@ -77,13 +100,15 @@ def build_trainer(cfg: TrainConfig, vocab_size: int, total_updates: int,
                   checkpoint_dir: Optional[str] = None, n_model: int = 1,
                   duration_predictor=None, duration_focus_updates: int = 12000,
                   phoneme_map: Optional[dict] = None,
-                  device: str | torch.device = "cuda") -> Trainer:
+                  device: str | torch.device = "cuda", mesh=None) -> Trainer:
     """The trainer of ``cfg`` with a fresh backbone (fp32 parameters,
-    ``compute_dtype`` compute) on ``device``."""
-    if n_model != 1:
-        raise ValueError(f"n_model={n_model} {NOT_PORTED_MESH}")
-    if cfg.optim.zero1:
-        raise ValueError(f"optim.zero1 {NOT_PORTED_MESH}")
+    ``compute_dtype`` compute) on ``device``: on a mesh (``mesh``, or
+    :func:`training_mesh` of ``n_model``) on this process's card
+    (``cuda:LOCAL_RANK``), with ZeRO-1 when ``optim.zero1``."""
+    if mesh is None:
+        mesh = training_mesh(n_model, device)
+    if mesh is not None and torch.device(device).type == "cuda":
+        device = pm.local_device()
     if cfg.optim.bnb_optimizer:
         raise ValueError(
             "bnb_optimizer=true (bitsandbytes' 8-bit AdamW) is not used: the port "
@@ -128,6 +153,8 @@ def build_trainer(cfg: TrainConfig, vocab_size: int, total_updates: int,
         duration_predictor=duration_predictor,
         duration_focus_updates=duration_focus_updates,
         phoneme_map=phoneme_map,
+        mesh=mesh,
+        zero1=cfg.optim.zero1,
     )
 
 
@@ -156,9 +183,73 @@ def epoch_batches(dataset: CustomDataset, sampler: DynamicBatchSampler,
                       phoneme_map=phoneme_map)
 
 
-def multihost_epoch_batches(*args, **kwargs):
-    """The JAX package's per-process epoch slice for multi-host training."""
-    raise ValueError(f"multihost_epoch_batches {NOT_PORTED_MESH}")
+def multihost_epoch_batches(dataset, sampler, vocab_char_map, epoch, mesh,
+                            tokenize=None, phoneme_map=None, executor=None,
+                            process_index: Optional[int] = None,
+                            process_count: Optional[int] = None,
+                            fixed_rows: Optional[int] = None, phoneme_group=None):
+    """This data rank's slice of an epoch (the JAX package's per-process
+    slice, `eraxvif5tts_tpu/training/cli.py:157-209`).
+
+    Each data rank takes every ``process_count``-th packed batch (the
+    reference's DDP dispatches whole batches round-robin the same way) and
+    collates it to FIXED shapes (the top frame and text bucket, ``fixed_rows``
+    rows), so that every rank's batch has one shape; the tail is trimmed so
+    that every rank runs the same number of batches (a ragged last round
+    would leave a collective waiting), and a batch with unreadable rows
+    raises for the same reason. JAX strides over processes, each loading
+    for its local devices; the port runs a process a device and strides
+    over the data rank, so model peers load the same batch. The batches are
+    :class:`~eraxvif5tts_tpu_torch.parallel.mesh.LocalBatch`es when the mesh
+    has more than one data rank (the trainer reads them as this rank's rows
+    of a global batch). ``process_index`` / ``process_count`` default to the
+    mesh's data rank and size (injectable for tests).
+
+    A growing ``phoneme_map`` would give one phoneme different ids on
+    ranks that see different rows: with ``phoneme_group`` (the data peers,
+    ``parallel.mesh.new_axis_group``) every round's phonemes are gathered
+    from the ranks and grow every rank's map in rank order, the batches'
+    order, so all ranks hold the map one process grows over the same
+    batches."""
+    pi = pm.axis_rank(mesh, "data") if process_index is None else process_index
+    pc = pm.axis_size(mesh, "data") if process_count is None else process_count
+    if fixed_rows is None:
+        fixed_rows = max((len(b) for b in sampler), default=1)
+    top_frames = (TRAIN_FRAME_BUCKETS[-1],)
+    top_text = (TRAIN_TEXT_BUCKETS[-1],)
+
+    sampler.set_epoch(epoch)
+    # the same number of batches for every rank
+    usable = (len(sampler) // pc) * pc
+    for i, batch_indices in enumerate(sampler):
+        if i >= usable or i % pc != pi:
+            continue
+        if executor is not None:
+            samples = list(executor.map(dataset.__getitem__, batch_indices))
+        else:
+            samples = [dataset[j] for j in batch_indices]
+        if any(s.mel is None for s in samples):
+            raise RuntimeError(
+                f"multi-host batch {i} has unreadable rows: every rank must run the same "
+                "number of batches, so a skipped batch would leave the collectives waiting")
+        if phoneme_map is not None and phoneme_group is not None:
+            share_phonemes(samples, phoneme_map, phoneme_group)
+        local = collate(samples, vocab_char_map, tokenize=tokenize, phoneme_map=phoneme_map,
+                        frame_buckets=top_frames, text_buckets=top_text,
+                        pad_batch_to=fixed_rows)
+        yield pm.LocalBatch(local) if pm.axis_size(mesh, "data") > 1 else local
+
+
+def share_phonemes(samples, phoneme_map: dict, group) -> None:
+    """Grow ``phoneme_map`` with every rank of ``group``'s rows of this
+    round, in rank order."""
+    from eraxvif5tts_tpu_torch.text.phoneme import phoneme_to_indices
+
+    every: list = [None] * dist.get_world_size(group)
+    dist.all_gather_object(every, [sample_phonemes(s) for s in samples], group=group)
+    for lists in every:
+        for phones in lists:
+            phoneme_to_indices(phones, phoneme_map, grow=True)
 
 
 def batch_iterator(dataset: CustomDataset, sampler: DynamicBatchSampler,
@@ -183,19 +274,28 @@ def _make_tokenize(tokenizer: str):
 def _run_training(trainer: Trainer, cfg: TrainConfig, dataset, sampler,
                   vocab_char_map, state, seed: int, tokenize=None,
                   phoneme_map: Optional[dict] = None, resume: Optional[str] = None,
-                  log_samples: Optional[bool] = None, log_every: int = 100):
+                  log_samples: Optional[bool] = None, log_every: int = 100,
+                  multihost: bool = False):
     """Shared drive loop: resume (incl. mid-epoch), per-save samples and
-    predictor files, loggers, the data pipeline's worker pool and prefetch."""
+    predictor files, loggers, the data pipeline's worker pool and prefetch;
+    with ``multihost`` each data rank loads its own batches
+    (:func:`multihost_epoch_batches`)."""
     from eraxvif5tts_tpu_torch.models.duration import save_duration_predictor
 
+    main = pm.is_main(trainer.mesh)
     start_epoch = skip_batches = 0
     if resume:
         state = trainer.load_checkpoint(resume, state)
         if trainer.resume_meta:
             start_epoch, skip_batches = trainer.restore_meta(trainer.resume_meta)
-        print(f"[cli] resuming at epoch {start_epoch}, batch {skip_batches}, "
-              f"update {state.step}")
-    trainer.set_steps_per_epoch(max(len(sampler), 1))
+        if main:
+            print(f"[cli] resuming at epoch {start_epoch}, batch {skip_batches}, "
+                  f"update {state.step}")
+    n_data = pm.axis_size(trainer.mesh, "data") if multihost else 1
+    trainer.set_steps_per_epoch(max(len(sampler) // n_data, 1))
+    # the loader's phoneme gathers run on the prefetch thread: a group of their own
+    phoneme_group = (pm.new_axis_group(trainer.mesh, "data")
+                     if multihost and phoneme_map is not None else None)
 
     def log_fn(step, metrics):
         print(f"update {step}: " + " ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
@@ -233,8 +333,13 @@ def _run_training(trainer: Trainer, cfg: TrainConfig, dataset, sampler,
                                       thread_name_prefix="sample-fetch")
 
     def make_epoch_iter(e):
-        gen = epoch_batches(dataset, sampler, vocab_char_map, e, tokenize=tokenize,
-                            phoneme_map=phoneme_map, executor=executor)
+        if multihost:
+            gen = multihost_epoch_batches(dataset, sampler, vocab_char_map, e, trainer.mesh,
+                                          tokenize=tokenize, phoneme_map=phoneme_map,
+                                          executor=executor, phoneme_group=phoneme_group)
+        else:
+            gen = epoch_batches(dataset, sampler, vocab_char_map, e, tokenize=tokenize,
+                                phoneme_map=phoneme_map, executor=executor)
         return prefetch_batches(gen) if num_workers else gen
 
     try:
@@ -254,7 +359,7 @@ def _run_training(trainer: Trainer, cfg: TrainConfig, dataset, sampler,
             executor.shutdown(wait=True, cancel_futures=True)
     trainer.save_checkpoint(state, last=True,
                             meta=trainer._make_meta(cfg.optim.epochs - 1, 0))
-    if state.dur_predictor is not None and phoneme_map is not None:
+    if state.dur_predictor is not None and phoneme_map is not None and main:
         save_duration_predictor(
             os.path.join(trainer.checkpoint_dir, "duration_predictor_last.pt"),
             state.dur_predictor, phoneme_map, update=state.step)
@@ -272,15 +377,15 @@ def train_main(argv=None):
     p.add_argument("--resume", default=None, help="checkpoint dir/path to resume")
     p.add_argument("--seed", type=int, default=666)  # reference `train.py:86`
     p.add_argument("--n-model", type=int, default=1,
-                   help="tensor-parallel size (the port trains on one card: 1)")
+                   help="tensor-parallel size: the mesh is (processes / n-model) x n-model")
     p.add_argument("--multihost", action="store_true",
-                   help="multi-host training (not ported: ROADMAP.md item E)")
+                   help="each data rank loads its own batches (torchrun's environment "
+                        "starts the group)")
     p.add_argument("--device", default="cuda", help="torch device (default: cuda)")
     args = p.parse_args(argv)
-    if args.multihost:
-        raise ValueError(f"--multihost {NOT_PORTED_MESH}")
-    if args.n_model != 1:
-        raise ValueError(f"--n-model {args.n_model} {NOT_PORTED_MESH}")
+    if args.multihost and not dist.is_initialized():
+        pm.init_from_environment(torch.device(args.device).type)
+    mesh = training_mesh(args.n_model, args.device)
 
     cfg = load_yaml_config(args.config)
     tokenizer_path = cfg.model.tokenizer_path or cfg.datasets.name
@@ -291,11 +396,13 @@ def train_main(argv=None):
                            data_dir=args.data_dir,
                            mel_spec_kwargs=dataclasses.asdict(cfg.model.mel_spec))
     sampler = build_sampler(dataset, cfg, args.seed)
-    trainer = build_trainer(cfg, vocab_size, _total_updates(sampler, cfg), device=args.device)
+    trainer = build_trainer(cfg, vocab_size, _total_updates(sampler, cfg), device=args.device,
+                            mesh=mesh)
     state = trainer.init_state()
     return _run_training(
         trainer, cfg, dataset, sampler, vocab_char_map, state, args.seed,
         tokenize=_make_tokenize(cfg.model.tokenizer), resume=args.resume,
+        multihost=args.multihost,
     )
 
 
@@ -327,7 +434,9 @@ def finetune_main(argv=None):
                    help="training matmul dtype; params/optimizer stay float32")
     p.add_argument("--duration_focus_updates", type=int, default=12000)
     p.add_argument("--zero1", action="store_true",
-                   help="ZeRO-1 optimizer-state sharding (not ported: ROADMAP.md item E)")
+                   help="ZeRO-1: the AdamW moments and the EMA partitioned over the data axis")
+    p.add_argument("--n-model", type=int, default=1,
+                   help="tensor-parallel size: the mesh is (processes / n-model) x n-model")
     p.add_argument("--logger", default="tensorboard",
                    choices=["tensorboard", "wandb", "none"])
     p.add_argument("--log_samples", action="store_true", default=False)
@@ -335,13 +444,13 @@ def finetune_main(argv=None):
     p.add_argument("--resume", default=None, help="checkpoint dir/path to resume")
     p.add_argument("--seed", type=int, default=666)
     p.add_argument("--multihost", action="store_true",
-                   help="multi-host training (not ported: ROADMAP.md item E)")
+                   help="each data rank loads its own batches (torchrun's environment "
+                        "starts the group)")
     p.add_argument("--device", default="cuda", help="torch device (default: cuda)")
     args = p.parse_args(argv)
-    if args.multihost:
-        raise ValueError(f"--multihost {NOT_PORTED_MESH}")
-    if args.zero1:
-        raise ValueError(f"--zero1 {NOT_PORTED_MESH}")
+    if args.multihost and not dist.is_initialized():
+        pm.init_from_environment(torch.device(args.device).type)
+    mesh = training_mesh(args.n_model, args.device)
 
     # pruned-student presets (reference `finetune_cli.py:222-249`)
     exp = args.exp_name
@@ -368,6 +477,7 @@ def finetune_main(argv=None):
             num_warmup_updates=args.num_warmup_updates,
             grad_accumulation_steps=args.grad_accumulation_steps,
             max_grad_norm=args.max_grad_norm,
+            zero1=args.zero1,
         ),
         datasets=DatasetConfig(name=args.dataset_name,
                                batch_size_per_gpu=args.batch_size_per_gpu,
@@ -426,7 +536,7 @@ def finetune_main(argv=None):
         phoneme_map = PhonemeMap(max_index=pred_vocab - 1)
 
     trainer = build_trainer(cfg, model_vocab, _total_updates(sampler, cfg),
-                            duration_predictor=duration_predictor,
+                            mesh=mesh, duration_predictor=duration_predictor,
                             duration_focus_updates=args.duration_focus_updates,
                             phoneme_map=phoneme_map, device=args.device)
     transformer = trainer.cfm.transformer
@@ -444,7 +554,7 @@ def finetune_main(argv=None):
     return _run_training(
         trainer, cfg, dataset, sampler, vocab_char_map, state, args.seed,
         tokenize=_make_tokenize(args.tokenizer), phoneme_map=phoneme_map,
-        resume=args.resume,
+        resume=args.resume, multihost=args.multihost,
     )
 
 

@@ -294,6 +294,17 @@ class DynamicBatchSampler:
             yield self.batches[i]
 
 
+def sample_phonemes(s: Sample) -> list[str]:
+    """A sample's phoneme tokens: its phoneme column, else its text
+    phonemized (the reference warns and falls back to text tokens,
+    `trainer.py:857-864`)."""
+    from eraxvif5tts_tpu_torch.text.phoneme import phonemize
+
+    if s.phoneme:
+        return list(s.phoneme.split() if isinstance(s.phoneme, str) else s.phoneme)
+    return phonemize(s.text if isinstance(s.text, str) else "".join(map(str, s.text)))
+
+
 def collate(
     samples: list[Sample],
     vocab_char_map: dict[str, int],
@@ -337,18 +348,10 @@ def collate(
 
     out = {"mel": mel, "text": text, "lens": lens}
     if phoneme_map is not None:
-        from eraxvif5tts_tpu_torch.text.phoneme import phoneme_to_indices, phonemize
+        from eraxvif5tts_tpu_torch.text.phoneme import phoneme_to_indices
 
-        ph_lists = []
-        for s in samples:
-            if s.phoneme:
-                phones = s.phoneme.split() if isinstance(s.phoneme, str) else s.phoneme
-            else:
-                # no phoneme column: phonemize the text (the reference warns and
-                # falls back to text tokens, `trainer.py:857-864`)
-                raw = s.text if isinstance(s.text, str) else "".join(map(str, s.text))
-                phones = phonemize(raw)
-            ph_lists.append(phoneme_to_indices(list(phones), phoneme_map, grow=True))
+        ph_lists = [phoneme_to_indices(sample_phonemes(s), phoneme_map, grow=True)
+                    for s in samples]
         ph_width = _bucket(max((len(p) for p in ph_lists), default=1), text_buckets)
         phoneme = np.zeros((rows, ph_width), np.int32)
         for i, ids_ in enumerate(ph_lists):

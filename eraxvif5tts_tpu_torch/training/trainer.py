@@ -46,8 +46,38 @@ gradient norms back to the host once, to decide the skip; checkpoints are
 ``torch.save`` files (Orbax is JAX-only). A state may also carry a duration
 predictor and its optimizer without the curriculum (the distillation trainer
 of `training/distill.py` fills them): checkpoints then carry them too, and a
-state without them saves and restores as before. Not ported (ROADMAP.md):
-meshes and ZeRO-1.
+state without them saves and restores as before.
+
+On a mesh (``Trainer(mesh=parallel.mesh.make_mesh(...), zero1=...)``, the
+JAX trainer's ``mesh`` / ``zero1`` fields) every process runs the step on
+its shards and rows, and the step computes what the one-device step
+computes, up to float reassociation:
+
+- ``train_step`` takes the global batch (or a ``parallel.mesh.LocalBatch``
+  of this data rank's rows), pads it to a multiple of ``data`` with
+  ``lens = 0`` rows (the JAX ``_pad_batch``) and takes the rank's rows; the
+  loss draws are drawn for the whole padded batch from the step's one
+  generator and sliced, and every dropout site hashes global coordinates
+  (`parallel/shard.py`), so the kept bits are the one-device step's;
+- the loss is the global masked mean: each data rank divides its sum by the
+  span count summed over ``data``, and the gradients are summed over
+  ``data``; the clipping norm sums the split leaves' squares over ``model``
+  and counts the replicated leaves once; the NaN skip is one decision for
+  every rank;
+- ``zero1``: the AdamW moments (``mu_dtype`` too) and the EMA are
+  partitioned over ``data`` (each rank updates a contiguous part of every
+  flat parameter, then the parts are broadcast); parameters, EMA and loss
+  are those of the replicated layout;
+- checkpoints are consolidated and written by rank 0 in the one-device
+  format, so a mesh checkpoint resumes on one device and the other way
+  round; restore runs on every rank, logging and samples on rank 0.
+
+The duration-predictor curriculum runs on the mesh too: the predictor is
+replicated (the JAX rules name none of its leaves), each data rank aligns
+its own rows (MAS is per row), the duration loss, its MAE and the alignment
+quality are global masked means as the CFM loss is, and the predictor's
+gradients are summed over ``data``; ``align_durations`` are the rank's
+rows. ``DistillTrainer`` has no mesh, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -60,14 +90,16 @@ import os
 import shutil
 import warnings
 from dataclasses import dataclass, field
-from typing import Callable, Iterable, Optional, Union
+from typing import Any, Callable, Iterable, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.optim.lr_scheduler import LambdaLR
 
 from eraxvif5tts_tpu_torch.models.cfm import CFM, LossDraws
 from eraxvif5tts_tpu_torch.models.modules import fp32_when
+from eraxvif5tts_tpu_torch.parallel import mesh as pm
 
 STATE_FILE = "state.pt"
 BETAS = (0.9, 0.98)
@@ -228,6 +260,12 @@ def _accumulate(acc: list[torch.Tensor], grads: list[torch.Tensor], count: int) 
                                                     float(count + 1)))
 
 
+def _updated(optimizer: torch.optim.Optimizer) -> list[torch.Tensor]:
+    """The tensors an optimizer updates, in order: the parameters, or a
+    ZeRO-1 rank's views of its parts of them."""
+    return [p for group in optimizer.param_groups for p in group["params"]]
+
+
 def batch_seed(seed: int, epoch: int, batch_idx: int) -> int:
     """The per-batch generator seed, a function of (seed, epoch, batch) alone
     (the counterpart of ``fold_in(fold_in(rng, epoch), batch)``)."""
@@ -240,12 +278,15 @@ def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
 
 
 def alignment_quality_metrics(durations: torch.Tensor, phoneme_mask: torch.Tensor,
-                              mel_lens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+                              mel_lens: torch.Tensor, weight_sum=None
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
     """Coverage and diagonality of a MAS alignment (`trainer.py:219-246`),
     on the device: ``coverage`` is the share of phonemes given at least one
     whole frame, ``diagonal`` is 1 - the mean distance of the phoneme centres
     from the uniform diagonal's, over the mel length; both averaged over the
-    samples with a phoneme. They feed :class:`DurationWeightScheduler`."""
+    samples with a phoneme. They feed :class:`DurationWeightScheduler`.
+    ``weight_sum`` maps the count of such samples to the one the means
+    divide by (as in ``CFM.loss``)."""
     maskf = phoneme_mask.to(torch.float32)
     ntok = torch.clamp(maskf.sum(dim=1), min=1.0)
     coverage = ((durations >= 1.0).to(torch.float32) * maskf).sum(dim=1) / ntok
@@ -258,7 +299,7 @@ def alignment_quality_metrics(durations: torch.Tensor, phoneme_mask: torch.Tenso
     dev = (centers - diag_centers).abs() * maskf
     diagonal = 1.0 - (dev.sum(dim=1) / ntok) / mel_f[:, 0]
     valid = phoneme_mask.any(dim=1).to(torch.float32)
-    denom = torch.clamp(valid.sum(), min=1.0)
+    denom = torch.clamp(valid.sum() if weight_sum is None else weight_sum(valid.sum()), min=1.0)
     return ((coverage * valid).sum() / denom,
             (torch.clamp(diagonal, 0.0, 1.0) * valid).sum() / denom)
 
@@ -308,15 +349,22 @@ def _state_dict(state: TrainState) -> dict:
     return out
 
 
-def checkpoint_save(checkpoint_dir: str, state: TrainState, step: int, last: bool = False,
-                    meta: dict | None = None, keep_last_n: int = -1) -> str:
-    """Write ``model_{step}`` (or ``model_last``) under ``checkpoint_dir``, its
-    ``.meta.json`` sidecar, then rotate; returns the checkpoint's path."""
-    path = os.path.abspath(os.path.join(checkpoint_dir, "model_last" if last
+def checkpoint_path(checkpoint_dir: str, step: int, last: bool = False) -> str:
+    return os.path.abspath(os.path.join(checkpoint_dir, "model_last" if last
                                         else f"model_{step}"))
+
+
+def checkpoint_save(checkpoint_dir: str, state: TrainState, step: int, last: bool = False,
+                    meta: dict | None = None, keep_last_n: int = -1,
+                    data: dict | None = None) -> str:
+    """Write ``model_{step}`` (or ``model_last``) under ``checkpoint_dir``, its
+    ``.meta.json`` sidecar, then rotate; returns the checkpoint's path.
+    ``data``: what to write, when not the state's own (a mesh trainer's
+    consolidated state)."""
+    path = checkpoint_path(checkpoint_dir, step, last)
     os.makedirs(path, exist_ok=True)
     tmp = os.path.join(path, STATE_FILE + ".tmp")
-    torch.save(_state_dict(state), tmp)
+    torch.save(_state_dict(state) if data is None else data, tmp)
     os.replace(tmp, os.path.join(path, STATE_FILE))
     if meta is not None:
         with open(path + ".meta.json", "w", encoding="utf-8") as f:
@@ -344,13 +392,18 @@ def checkpoint_rotate(checkpoint_dir: str, keep_last_n: int) -> None:
             os.remove(meta)
 
 
-def checkpoint_restore(path: str, state: TrainState) -> tuple[TrainState, Optional[dict]]:
+def checkpoint_restore(path: str, state: TrainState,
+                       localize: Callable[[dict], dict] | None = None
+                       ) -> tuple[TrainState, Optional[dict]]:
     """Load a checkpoint into ``state`` (in place); returns (state, meta or None).
     A state with a duration predictor (and an align copy) needs a checkpoint
-    that holds them."""
+    that holds them. ``localize`` turns the loaded one-device state into this
+    rank's shards (a mesh trainer's)."""
     path = os.path.abspath(path)
     device = next(state.model.parameters()).device
     data = torch.load(os.path.join(path, STATE_FILE), map_location=device, weights_only=True)
+    if localize is not None:
+        data = localize(data)
     state.model.load_state_dict(data["params"])
     with torch.no_grad():
         for name, ema in state.ema_params.items():
@@ -425,9 +478,18 @@ class Trainer:
     duration_lr: Optional[float] = None  # DUR_LR when None
     # the quality-adaptive duration weight (`trainer.py:289-292`)
     use_adaptive_duration_weight: bool = False
+    # a (data, model) DeviceMesh (`parallel/mesh.py` make_mesh); None: one device
+    mesh: Any = None
+    # ZeRO-1: AdamW moments and the EMA partitioned over the mesh's `data` axis
+    zero1: bool = False
     resume_meta: Optional[dict] = field(default=None, init=False)
 
     def __post_init__(self):
+        self._n_data = pm.axis_size(self.mesh, "data")
+        self._data_group = pm.axis_group(self.mesh, "data")
+        self._model_group = pm.axis_group(self.mesh, "model")
+        self._shard = None
+        self._full_model = self._last_saved = None
         self.grad_accumulation_steps = max(int(self.grad_accumulation_steps), 1)
         self.alignment_manager = None
         self._phase2_start: Optional[int] = None
@@ -451,15 +513,23 @@ class Trainer:
         if ema_init not in ("copy", "zeros"):
             raise ValueError(f"ema_init must be 'copy' or 'zeros', got {ema_init!r}")
         model = self.cfm.transformer.train()
+        if self.mesh is not None and self._shard is None:
+            # every rank starts from rank 0's weights, then keeps its shards
+            if pm.process_count(self.mesh) > 1:
+                pm.broadcast_flat([p.data for p in model.parameters()], 0, dist.group.WORLD)
+            self._shard = pm.shard_model(model, self.mesh)
         params = list(model.parameters())
-        opt, sched = self.optimizer.build(params)
+        targets = self._targets(params)
+        opt, sched = self.optimizer.build(targets)
         make = torch.zeros_like if ema_init == "zeros" else torch.clone
-        ema = {name: make(p.detach()) for name, p in model.named_parameters()}
+        ema = {name: make(t.detach()) for (name, _), t in zip(model.named_parameters(), targets)}
         acc = ([torch.zeros_like(p) for p in params]
                if self.grad_accumulation_steps > 1 else None)
         dur = dur_opt = dur_align = dur_acc = None
         if self.duration_predictor is not None:
             dur = self.duration_predictor.to(params[0].device).eval()
+            if self.mesh is not None and pm.process_count(self.mesh) > 1:
+                pm.broadcast_flat([p.data for p in dur.parameters()], 0, dist.group.WORLD)
             dur_align = copy.deepcopy(dur).requires_grad_(False)
             dur_opt = torch.optim.AdamW(dur.parameters(), lr=self.duration_lr or DUR_LR,
                                         betas=BETAS, eps=EPS, weight_decay=DUR_WEIGHT_DECAY)
@@ -471,16 +541,36 @@ class Trainer:
 
     # ------------------------------------------------------------------
 
+    def _zero1_on(self) -> bool:
+        return self.zero1 and self._n_data > 1
+
+    def _targets(self, params: list[torch.Tensor]) -> list[torch.Tensor]:
+        """What the optimizer and the EMA update: the parameters, or under
+        ZeRO-1 this data rank's part of each (views into them)."""
+        if not self._zero1_on():
+            return params
+        rank = pm.axis_rank(self.mesh, "data")
+        return [pm.zero1_chunk(p, self._n_data, rank) for p in params]
+
     def _apply(self, state: TrainState, grads: list[torch.Tensor],
                norm: torch.Tensor) -> None:
-        """Clip ``grads`` (in place) and take one optimizer step, then the EMA."""
+        """Clip ``grads`` (in place) and take one optimizer step, then the EMA
+        (under ZeRO-1 on this rank's parts, which every rank then receives)."""
         clip = torch.clamp(self.optimizer.max_grad_norm / norm, max=1.0)
         torch._foreach_mul_(grads, clip)
-        for p, g in zip(state.model.parameters(), grads):
-            p.grad = g
+        params = list(state.model.parameters())
+        targets = _updated(state.optimizer)
+        for t, g in zip(targets, self._targets(grads)):
+            t.grad = g
         state.optimizer.step()
         state.scheduler.step()
         state.step += 1
+        if self._zero1_on():
+            for r in range(self._n_data):
+                pm.broadcast_flat([pm.zero1_chunk(p, self._n_data, r) for p in params], r,
+                                  self._data_group)
+        for t in targets:
+            t.grad = None
         self._ema_update(state)
 
     def _ema_update(self, state: TrainState) -> None:
@@ -489,7 +579,7 @@ class Trainer:
         if not (take_copy or step % self.ema_update_every == 0):
             return
         ema = list(state.ema_params.values())
-        params = [p.detach() for p in state.model.parameters()]
+        params = [p.detach() for p in _updated(state.optimizer)]
         with torch.no_grad():
             if take_copy:
                 torch._foreach_copy_(ema, params)
@@ -500,16 +590,57 @@ class Trainer:
             torch._foreach_add_(ema, params, alpha=1.0 - decay)
 
     def _inputs(self, state: TrainState, batch: dict, draws):
+        """The step's tensors on the model's device (``phoneme`` None when
+        the batch has none), and the loss's count reduction: on a mesh this
+        data rank's rows of the padded global batch and of its draws (drawn
+        for the whole), and the sum over ``data``."""
         model = state.model
         device = next(model.parameters()).device
-        mel = torch.as_tensor(batch["mel"], device=device)
-        text = torch.as_tensor(batch["text"], device=device)
-        lens = torch.as_tensor(batch["lens"], device=device)
+        rows, row0, total = (pm.local_rows(self.mesh, batch) if self.mesh is not None
+                             else (batch, 0, len(batch["lens"])))
+        mel = torch.as_tensor(rows["mel"], device=device)
+        text = torch.as_tensor(rows["text"], device=device)
+        lens = torch.as_tensor(rows["lens"], device=device)
+        phoneme = (torch.as_tensor(rows["phoneme"], device=device)
+                   if rows.get("phoneme") is not None else None)
+        b, n, d = mel.shape
         if isinstance(draws, torch.Generator):
-            b, n, d = mel.shape
-            draws = LossDraws.sample(draws, b, n, d, model.arch.depth,
+            draws = LossDraws.sample(draws, total, n, d, model.arch.depth,
                                      self.cfm.frac_lengths_mask)
-        return mel, text, lens, draws
+        if self.mesh is None:
+            return mel, text, lens, phoneme, draws, None
+        self._shard.batch_offset = row0
+        return mel, text, lens, phoneme, draws.rows(row0, row0 + b), self._sum_over_data
+
+    def _sum_over_data(self, t: torch.Tensor) -> torch.Tensor:
+        t = t.detach().clone()
+        if self._data_group is not None:
+            dist.all_reduce(t, group=self._data_group)
+        return t
+
+    def _grad_norm(self, state: TrainState, grads: list[torch.Tensor]) -> torch.Tensor:
+        """The global norm; on a model axis the split leaves' squares are
+        summed over it and the replicated ones counted once."""
+        if self._model_group is None:
+            return global_norm(grads)
+        split = state.model.split_params
+        names = [name for name, _ in state.model.named_parameters()]
+        parts = [[g for name, g in zip(names, grads) if (name in split) == s]
+                 for s in (True, False)]
+        sq = [global_norm(ts).square() if ts else torch.zeros((), device=grads[0].device)
+              for ts in parts]
+        dist.all_reduce(sq[0], group=self._model_group)
+        return torch.sqrt(sq[0] + sq[1])
+
+    def _finite(self, *values: float) -> bool:
+        """One skip decision for every rank of the mesh."""
+        finite = all(math.isfinite(v) for v in values)
+        if self.mesh is None or pm.process_count(self.mesh) == 1:
+            return finite
+        flag = torch.tensor([0.0 if finite else 1.0],
+                            device=next(self.cfm.transformer.parameters()).device)
+        dist.all_reduce(flag)
+        return flag.item() == 0.0
 
     def train_step(self, state: TrainState, batch: dict,
                    draws: Union[LossDraws, torch.Generator]) -> tuple[TrainState, dict]:
@@ -521,24 +652,29 @@ class Trainer:
         and the metrics as Python floats: ``loss``, ``grad_norm`` and
         ``applied``; with the curriculum also its losses, the alignment's
         quality, the weight and the MAS durations (``align_durations``, a
-        tensor)."""
+        tensor). On a mesh ``batch`` is the global batch (or a
+        ``LocalBatch``), ``draws`` are for the global batch padded to a
+        multiple of ``data``, and the metrics are the global ones."""
         if self.duration_predictor is not None and batch.get("phoneme") is not None:
             return self._curriculum_step(state, batch, draws)
         model = state.model
         params = list(model.parameters())
-        mel, text, lens, draws = self._inputs(state, batch, draws)
+        mel, text, lens, _, draws, weight_sum = self._inputs(state, batch, draws)
 
-        state.optimizer.zero_grad(set_to_none=True)
+        model.zero_grad(set_to_none=True)
         # an fp32 model's backward and checkpointed recompute run in full fp32 too
         with fp32_when(model.dtype):
-            loss, _, _ = self.cfm.loss(mel, text, lens, draws)
+            loss, _, _ = self.cfm.loss(mel, text, lens, draws, weight_sum=weight_sum)
             loss.backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
-        norm = global_norm(grads)
-        loss_v, norm_v = torch.stack([loss.detach().float(), norm]).tolist()  # one host read
-        applied = self._main_update(state, grads, norm,
-                                    math.isfinite(loss_v) and math.isfinite(norm_v))
-        state.optimizer.zero_grad(set_to_none=True)
+        loss = loss.detach().float()
+        if self.mesh is not None:
+            pm.all_reduce_flat(grads, self._data_group)
+            loss = self._sum_over_data(loss)
+        norm = self._grad_norm(state, grads)
+        loss_v, norm_v = torch.stack([loss, norm]).tolist()  # one host read
+        applied = self._main_update(state, grads, norm, self._finite(loss_v, norm_v))
+        model.zero_grad(set_to_none=True)
         return state, {"loss": loss_v, "grad_norm": norm_v, "applied": float(applied)}
 
     def _main_update(self, state: TrainState, grads: list[torch.Tensor], norm: torch.Tensor,
@@ -556,7 +692,7 @@ class Trainer:
         state.mini_step += 1
         if state.mini_step < self.grad_accumulation_steps:
             return False
-        self._apply(state, acc, global_norm(acc))
+        self._apply(state, acc, self._grad_norm(state, acc))
         torch._foreach_zero_(acc)
         state.mini_step = 0
         return True
@@ -589,8 +725,7 @@ class Trainer:
         model, dur = state.model, state.dur_predictor
         params = list(model.parameters())
         dur_params = list(dur.parameters())
-        mel, text, lens, draws = self._inputs(state, batch, draws)
-        phoneme = torch.as_tensor(batch["phoneme"], device=mel.device)
+        mel, text, lens, phoneme, draws, weight_sum = self._inputs(state, batch, draws)
         align = state.dur_align
         if self._mel_proj is None:
             self._mel_proj = torch.from_numpy(make_mel_proj_matrix(
@@ -602,29 +737,38 @@ class Trainer:
             if freeze_main:
                 # the CFM loss forward only, deterministic, for the log
                 with torch.no_grad():
-                    cfm_loss = self.cfm.loss(mel, text, lens, draws, deterministic=True)[0]
+                    cfm_loss = self.cfm.loss(mel, text, lens, draws, deterministic=True,
+                                             weight_sum=weight_sum)[0]
                 d_loss, d_mae, durs = duration_loss(dur, align, self._mel_proj, phoneme, mel,
-                                                    lens, algorithm)
+                                                    lens, algorithm, weight_sum=weight_sum)
                 d_loss.backward()
                 total = cfm_loss + weight * d_loss.detach()
             else:
-                cfm_loss = self.cfm.loss(mel, text, lens, draws)[0]
+                cfm_loss = self.cfm.loss(mel, text, lens, draws, weight_sum=weight_sum)[0]
                 d_loss, d_mae, durs = duration_loss(dur, align, self._mel_proj, phoneme, mel,
-                                                    lens, algorithm)
+                                                    lens, algorithm, weight_sum=weight_sum)
                 total = cfm_loss + weight * d_loss
                 total.backward()
         dur_grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in dur_params]
+        if self.mesh is not None:
+            pm.all_reduce_flat(dur_grads, self._data_group)
         if freeze_main:
             grads, norm = None, torch.zeros((), device=mel.device)
         else:
             grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
-            norm = global_norm(grads)
-        coverage, diagonal = alignment_quality_metrics(durs, phoneme > 0, lens)
+            if self.mesh is not None:
+                pm.all_reduce_flat(grads, self._data_group)
+            norm = self._grad_norm(state, grads)
+        coverage, diagonal = alignment_quality_metrics(durs, phoneme > 0, lens, weight_sum)
+        # this rank's shares of the global means, summed over `data` on a mesh
+        shares = torch.stack([v.detach().float() for v in (
+            total, cfm_loss, d_loss, d_mae, coverage, diagonal)])
+        if self.mesh is not None:
+            shares = self._sum_over_data(shares)
         names = ("loss", "cfm_loss", "duration_loss", "duration_mae", "align_coverage",
                  "align_diagonal", "grad_norm")
-        values = torch.stack([v.detach().float() for v in (
-            total, cfm_loss, d_loss, d_mae, coverage, diagonal, norm, global_norm(dur_grads))]
-        ).tolist()  # one host read
+        values = torch.cat([shares, torch.stack([norm.float(), global_norm(dur_grads)])]
+                           ).tolist()  # one host read
         metrics = dict(zip(names, values))
         dur_norm = values[-1]
 
@@ -641,9 +785,8 @@ class Trainer:
                 state.mini_step = 0
         else:
             applied = self._main_update(
-                state, grads, norm,
-                math.isfinite(metrics["loss"]) and math.isfinite(metrics["grad_norm"]))
-        if math.isfinite(metrics["duration_loss"]) and math.isfinite(dur_norm):
+                state, grads, norm, self._finite(metrics["loss"], metrics["grad_norm"]))
+        if self._finite(metrics["duration_loss"], dur_norm):
             # the predictor's own AdamW, through its own running mean when k > 1
             if k > 1:
                 _accumulate(state.dur_acc_grads, dur_grads, state.dur_mini_step)
@@ -688,8 +831,12 @@ class Trainer:
         and every ``5 * log_every`` updates of the curriculum the alignment
         goes to ``alignments/alignment_{step}.json`` under the checkpoint
         directory; ``sample_fn(state, step)`` runs after each
-        ``model_{step}`` save (`trainer.py:743-854`)."""
-        tb_writer, wandb_run = self._open_loggers(logger, tensorboard_dir)
+        ``model_{step}`` save (`trainer.py:743-854`). On a mesh every rank
+        runs the loop on the same batches (or its own ``LocalBatch``es) and
+        the saves; rank 0 alone logs and samples."""
+        main = pm.is_main(self.mesh)
+        tb_writer, wandb_run = (self._open_loggers(logger, tensorboard_dir) if main
+                                else (None, None))
         k = self.grad_accumulation_steps
         if epoch_iter is None:
             if batches is None:
@@ -725,12 +872,18 @@ class Trainer:
                         continue
                     step = state.step
                     if step % log_every == 0:
-                        self._log(step, metrics, batch, log_every, log_fn, tb_writer,
-                                  wandb_run)
+                        if "align_coverage" in metrics:
+                            # every rank's weight schedule reads the global quality
+                            self._last_quality = (metrics["align_coverage"],
+                                                  metrics["align_diagonal"])
+                        if main:
+                            self._log(step, metrics, batch, log_every, log_fn, tb_writer,
+                                      wandb_run)
                     if self.checkpoint_dir and save_per_updates and step % save_per_updates == 0:
                         self.save_checkpoint(state, meta=self._make_meta(epoch, batch_idx))
-                        if sample_fn is not None:
-                            sample_fn(state, step)
+                        if sample_fn is not None and main:
+                            sample_fn(state if self.mesh is None else self._main_view(state),
+                                      step)
                     if self.checkpoint_dir and last_per_updates and step % last_per_updates == 0:
                         self.save_checkpoint(state, last=True,
                                              meta=self._make_meta(epoch, batch_idx))
@@ -749,8 +902,6 @@ class Trainer:
         if (self.checkpoint_dir and "align_durations" in metrics
                 and step % (log_every * 5) == 0):
             self._dump_alignment_viz(step, metrics["align_durations"], batch, scalars)
-        if "align_coverage" in scalars:
-            self._last_quality = (scalars["align_coverage"], scalars["align_diagonal"])
         if log_fn is not None:
             log_fn(step, scalars)
         if tb_writer is not None:
@@ -845,14 +996,117 @@ class Trainer:
 
     def save_checkpoint(self, state: TrainState, last: bool = False,
                         meta: dict | None = None) -> str:
+        """Write a checkpoint; on a mesh every rank takes part in
+        consolidating it and rank 0 writes it in the one-device format."""
         if self.checkpoint_dir is None:
             raise ValueError("save_checkpoint needs a checkpoint_dir")
-        return checkpoint_save(self.checkpoint_dir, state, state.step, last=last, meta=meta,
-                               keep_last_n=self.keep_last_n_checkpoints)
+        if self.mesh is None:
+            return checkpoint_save(self.checkpoint_dir, state, state.step, last=last, meta=meta,
+                                   keep_last_n=self.keep_last_n_checkpoints)
+        data = self._consolidated(state)
+        if pm.is_main(self.mesh):
+            path = checkpoint_save(self.checkpoint_dir, state, state.step, last=last, meta=meta,
+                                   keep_last_n=self.keep_last_n_checkpoints, data=data)
+        else:
+            path = checkpoint_path(self.checkpoint_dir, state.step, last)
+        # the whole weights for rank 0's samples (`_main_view`)
+        self._last_saved = ({k: data[k] for k in ("params", "ema_params")}
+                            if pm.is_main(self.mesh) else None)
+        dist.barrier()
+        return path
 
     def load_checkpoint(self, path: str, state: TrainState) -> TrainState:
         """Restore ``state`` in place from ``path`` (the predictor trio too,
         when the state carries it); its sidecar goes to ``self.resume_meta``
-        for :meth:`restore_meta`."""
-        state, self.resume_meta = checkpoint_restore(path, state)
+        for :meth:`restore_meta`. On a mesh every rank reads the one-device
+        checkpoint and keeps its shards."""
+        localize = self._localize if self.mesh is not None else None
+        state, self.resume_meta = checkpoint_restore(path, state, localize)
         return state
+
+    # ------------------------------------------------------------------
+    # a mesh state <-> the one-device format
+
+    def _layout(self, state: TrainState) -> tuple[list[str], list, list[torch.Size]]:
+        """Parameter names, their split dims (None: replicated over
+        ``model``) and local shapes."""
+        named = list(state.model.named_parameters())
+        split = state.model.split_params
+        return ([n for n, _ in named], [split.get(n) for n, _ in named],
+                [p.shape for _, p in named])
+
+    def _whole(self, tensors: list[torch.Tensor], dims: list) -> list[torch.Tensor]:
+        return pm.gather_dims(tensors, dims, self._model_group,
+                              pm.axis_size(self.mesh, "model"))
+
+    def _unzero1(self, chunks: list[torch.Tensor], shapes: list) -> list[torch.Tensor]:
+        """Local-shard tensors from this rank's ZeRO-1 parts of them."""
+        if not self._zero1_on():
+            return chunks
+        numels = [math.prod(s) for s in shapes]
+        return [f.view(s) for f, s in zip(
+            pm.gather_zero1(chunks, numels, self._data_group, self._n_data), shapes)]
+
+    def _consolidated(self, state: TrainState) -> dict:
+        """The state in the one-device checkpoint format (every rank runs
+        the collectives; each ends with the whole)."""
+        names, dims, shapes = self._layout(state)
+        data = _state_dict(state)
+        params = self._whole([p.detach() for p in state.model.parameters()], dims)
+        data["params"] = {**data["params"], **dict(zip(names, params))}
+        ema = self._unzero1(list(state.ema_params.values()), shapes)
+        data["ema_params"] = dict(zip(names, self._whole(ema, dims)))
+        opt = data["optimizer"]
+        held = [i for i in range(len(names)) if opt["state"].get(i)]
+        for key in ("exp_avg", "exp_avg_sq"):
+            local = self._unzero1([opt["state"][i][key] for i in held],
+                                  [shapes[i] for i in held])
+            for i, t in zip(held, self._whole(local, [dims[i] for i in held])):
+                opt["state"][i] = {**opt["state"][i], key: t}
+        if state.acc_grads is not None:
+            data["acc_grads"] = self._whole(state.acc_grads, dims)
+        return data
+
+    def _localize(self, data: dict) -> dict:
+        """This rank's shards (and ZeRO-1 parts) of a one-device state."""
+        state_model = self.cfm.transformer
+        split = state_model.split_params
+        n_model = pm.axis_size(self.mesh, "model")
+        rank = pm.axis_rank(self.mesh, "model")
+        drank = pm.axis_rank(self.mesh, "data")
+        names = [n for n, _ in state_model.named_parameters()]
+
+        def shard(name, t):
+            dim = split.get(name)
+            return t if dim is None else t.chunk(n_model, dim)[rank].contiguous()
+
+        def part(name, t):
+            t = shard(name, t)
+            return pm.zero1_chunk(t, self._n_data, drank).clone() if self._zero1_on() else t
+
+        out = dict(data)
+        out["params"] = {k: shard(k, v) for k, v in data["params"].items()}
+        out["ema_params"] = {k: part(k, v) for k, v in data["ema_params"].items()}
+        opt = dict(data["optimizer"])
+        opt["state"] = {i: {k: (v if k == "step" else part(names[i], v)) for k, v in st.items()}
+                        for i, st in data["optimizer"]["state"].items()}
+        out["optimizer"] = opt
+        if data.get("acc_grads") is not None:
+            out["acc_grads"] = [shard(n, g) for n, g in zip(names, data["acc_grads"])]
+        return out
+
+    def _main_view(self, state: TrainState):
+        """What rank 0's samples read: the whole model off the mesh, with
+        the weights of the last consolidated save."""
+        from types import SimpleNamespace
+
+        data = self._last_saved
+        if self._full_model is None:
+            self._full_model = pm.unshard_copy(state.model, data["params"])
+        else:
+            with torch.no_grad():
+                for name, p in self._full_model.named_parameters():
+                    p.copy_(data["params"][name])
+        return SimpleNamespace(step=state.step, model=self._full_model,
+                               params=dict(data["params"]), ema_params=data["ema_params"],
+                               dur_predictor=None)

@@ -1246,3 +1246,25 @@ def test_duration_focus_update_freezes_the_backbone_on_the_card(cuda):
             assert metrics["grad_norm"] == 0.0
         else:
             assert counts == [2, 2, 2] and not any(same) and not any(same_ema)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_train_attention_kernels_at_offsets_equal_the_whole_batch(cuda, dtype):
+    """Kernels 4a / 4b / 4c on a rank's slice (rows 1-2 of 3, heads 2-3 of
+    4) with its batch and head offsets: O, dq, dk and dv bit for bit the
+    same elements of the whole batch's launch at dropout 0.1."""
+    g = torch.Generator(device=cuda).manual_seed(19)
+    whole = [torch.randn((3, 128, 4, 64), generator=g, device=cuda).to(dtype)
+             for _ in range(4)]
+    lens = torch.tensor([128, 70, 128], dtype=torch.int32, device=cuda)
+
+    def grads(t, lens_t, b0, h0):
+        args = [x.clone().requires_grad_() for x in t[:3]]
+        out = ta.train_attention(*args, key_valid=lens_to_mask(lens_t, 128),
+                                 dropout_rate=0.1, seed=5, batch_offset=b0, head_offset=h0)
+        return [out.detach(), *torch.autograd.grad(out, args, t[3])]
+
+    full = grads(whole, lens, 0, 0)
+    part = grads([t[1:3, :, 2:4].contiguous() for t in whole], lens[1:3].contiguous(), 1, 2)
+    for w, p in zip(full, part):
+        assert torch.equal(w[1:3, :, 2:4], p)

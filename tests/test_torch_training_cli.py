@@ -269,28 +269,61 @@ def test_run_training_duration_curriculum_end_to_end(tmp_path, capsys):
         assert torch.equal(v, state.params[k]), k
 
 
-def test_unported_options_are_refused(tmp_path):
+def test_unported_options_are_refused(tmp_path, monkeypatch):
+    """The refused options raise; the multi-device ones (item E: ZeRO-1,
+    ``--n-model``, ``--multihost``, ``multihost_epoch_batches``) now build a
+    mesh trainer, here in a process group of one, and raise only where the
+    JAX package does: a mesh that does not cover the processes, a multi-host
+    start with no cluster to join."""
+    import torch.distributed as dist
+
+    from eraxvif5tts_tpu_torch.training.dataset import TRAIN_FRAME_BUCKETS, TRAIN_TEXT_BUCKETS
+
     cfg = _tiny_cfg(tmp_path)
     for optim, match in ((dict(bnb_optimizer=True), "bnb_optimizer"),
-                         (dict(mu_dtype="float16"), "mu_dtype"),
-                         (dict(zero1=True), "item E")):
+                         (dict(mu_dtype="float16"), "mu_dtype")):
         bad = TrainConfig(model=cfg.model, optim=OptimConfig(**optim), datasets=cfg.datasets,
                           ckpts=cfg.ckpts)
         with pytest.raises(ValueError, match=match):
             cli.build_trainer(bad, len(VOCAB), 10, device="cpu")
-    with pytest.raises(ValueError, match="item E"):
-        cli.build_trainer(cfg, len(VOCAB), 10, n_model=2, device="cpu")
-    with pytest.raises(ValueError, match="item E"):
-        cli.multihost_epoch_batches(None, None, VOCAB, 0, None)
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
     (tmp_path / "c.yaml").write_text("model:\n  name: tiny\n", encoding="utf-8")
-    for argv in (["--multihost"], ["--n-model", "2"]):
-        with pytest.raises(ValueError, match="item E"):
-            cli.train_main([str(tmp_path / "c.yaml"), *argv])
-    for flag in ("--multihost", "--zero1"):
-        with pytest.raises(ValueError, match="item E"):
-            cli.finetune_main(["--dataset_name", "x", flag])
+    with pytest.raises(ValueError, match="torchrun"):
+        cli.train_main([str(tmp_path / "c.yaml"), "--multihost", "--device", "cpu"])
+    with pytest.raises(ValueError, match="torchrun"):
+        cli.finetune_main(["--dataset_name", "x", "--multihost", "--device", "cpu"])
     with pytest.raises(SystemExit):  # the compile-time mode is left out
         cli.train_main([str(tmp_path / "c.yaml"), "--scan-layers"])
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'group'}", rank=0,
+                            world_size=1)
+    try:
+        zero1 = TrainConfig(model=cfg.model, optim=OptimConfig(zero1=True),
+                            datasets=cfg.datasets, ckpts=cfg.ckpts)
+        trainer = cli.build_trainer(zero1, len(VOCAB), 10, device="cpu")
+        assert trainer.zero1 and trainer.mesh.mesh_dim_names == ("data", "model")
+        assert tuple(trainer.mesh.mesh.shape) == (1, 1)
+        with pytest.raises(ValueError, match="not divisible by model=2"):
+            cli.build_trainer(cfg, len(VOCAB), 10, n_model=2, device="cpu")
+        dataset = _tiny_dataset()
+        sampler = cli.build_sampler(dataset, cfg, seed=0)
+        batches = list(cli.multihost_epoch_batches(dataset, sampler, VOCAB, 0, trainer.mesh))
+        assert len(batches) == len(sampler)
+        assert {b["mel"].shape[1:] for b in batches} == {(TRAIN_FRAME_BUCKETS[-1], MEL)}
+        assert {b["text"].shape[1] for b in batches} == {TRAIN_TEXT_BUCKETS[-1]}
+        with pytest.raises(ValueError, match="not divisible by model=2"):
+            cli.train_main([str(tmp_path / "c.yaml"), "--n-model", "2", "--device", "cpu"])
+        # --zero1 and --multihost reach the drive loop with a mesh trainer
+        monkeypatch.setattr(cli, "get_tokenizer", lambda *a, **k: (VOCAB, len(VOCAB)))
+        monkeypatch.setattr(cli, "load_dataset", lambda *a, **k: dataset)
+        monkeypatch.setitem(cli.PRESETS, "F5TTS_v1_Base", cfg.model)
+        monkeypatch.setattr(cli, "_run_training", lambda trainer, *a, **k: (trainer, k))
+        trainer, kw = cli.finetune_main(["--dataset_name", "x", "--zero1", "--multihost",
+                                         "--device", "cpu"])
+        assert trainer.zero1 and trainer.mesh is not None and kw["multihost"]
+    finally:
+        dist.destroy_process_group()
 
 
 def test_loggers_fall_through_wandb_tensorboard_off(monkeypatch, capsys, tmp_path):
