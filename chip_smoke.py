@@ -166,8 +166,8 @@ Phases (any failure raises and the script exits non-zero):
               `_run_training` over the epoch's four batches, two
               duration-focus updates (backbone and EMA bit for bit, kernel
               4a only) then full ones (every tensor moved, 4a / 4b / 4c
-              22 each), the `model_3` save with its sample (kernels 1 and 2
-              22 x 16) and the predictor's files, `model_last`; each
+              depth each), the `model_3` save with its sample (kernels 1 and
+              2 depth x 16) and the predictor's files, `model_last`; each
               update's wall, frames/s, the host's wait for its batch and
               its MAS share, the checkpoint's size and save time, the peak
               memory; the predictor loaded back on the card; a resume from
@@ -267,6 +267,31 @@ Phases (any failure raises and the script exits non-zero):
               within MESH_RERUN_TOL: the card's backward is not bitwise
               deterministic); each rank's peak memory, its kernels'
               launches (1, 2, 4a-4c) and the shapes and offsets it gave them.
+12. eval   -- the eval harness at F5TTS_v1_Base's full width and depth,
+              random weights: the eval CLI (`eval_infer_batch.main`, the
+              default fp32 wrapper from a reference-format checkpoint, NFE 16,
+              a cut) over a six-line seedtts metalst of the bundled clips in
+              `RTFMeter`, every wav and the report checked, kernel 1 fp32
+              counted 22 x NFE a batch; a batch of three rows at unequal
+              lengths under `profiling.device_trace` (kernel 1 fp32 in the
+              trace and the counters; the device's busy time against a
+              CUDA-event wall), every row against the batch through the
+              plain versions and its shortest row against the same prompt
+              alone at batch 1, both within FP32_TOL (a control with every
+              row at the longest row's keys refused); WER, SIM (a full-size
+              random UniSpeech ECAPA checkpoint, card vs CPU, a clip's
+              self-similarity) and UTMOS through `eval.__main__.main` with
+              injected ASR / UTMOS; the infill arm in bf16 (one utterance x
+              two seeds at NFE 8, a cut), its mels against the plain
+              versions within DIT_TOL (control: kernel 2 given block 0's
+              weights in every block); each check beside a planted fault;
+13. project -- the fine-tuning project manager: a `ProjectStore`,
+              `vocab_check`, `vocab_extend` of the full-size checkpoint
+              (loaded strict), `prune_checkpoint_to_ema` of a trainer
+              checkpoint, the settings' argv through the port's finetune
+              parser, `TrainingProcess` running `finetune --help`,
+              `system_stats`, `ui_test_infer` in bf16 at NFE 8; each check
+              beside a planted fault.
 
 The line before the last is a JSON object with each kernel's launches in its
 path's phase (serving kernels with fused rotary / layernorm: main; without
@@ -5236,6 +5261,710 @@ def phase_mesh(dev) -> dict:
             ("train_attention_fwd", "train_attention_dq", "train_attention_dkv")}
 
 
+# The eval harness and the project manager (`eval/`, `profiling.py`,
+# `training/project.py`, `training/finetune_gradio.py`) at F5TTS_v1_Base's
+# full width and depth, random weights. NFE 16 / 8 are cuts of the eval CLI's
+# default 32, for the smoke's time.
+EVAL_NFE = 16
+INFILL_NFE = 8
+INFILL_SEEDS = 2
+UI_NFE = 8
+ECAPA_CARD_TOL = 1e-4  # the ECAPA embedding of a clip, card vs CPU, in units of its scale
+SIM_SELF_TOL = 1e-4  # a clip's similarity to itself: 1 within this
+EVAL_EXAMPLES = ROOT / "eraxvif5tts_tpu" / "infer" / "examples"
+EVAL_PROMPTS = {  # the bundled clips, read as data files, with prompt texts
+    "basic": ("basic/basic_ref_en.wav",
+              "The lighthouse keeper wrote one line in the logbook every evening."),
+    "main": ("multi/main.wav", "The old road ran past the mill and down to the river."),
+    "town": ("multi/town.wav", "Market day brought the whole town into the square."),
+    "country": ("multi/country.wav", "Out in the fields the wind moved through the barley."),
+}
+# target texts of different lengths: `get_inference_prompt`'s default buckets
+# put eval_0, eval_1 and eval_2 in one batch (totals 408, 417, 418 frames,
+# prompts 281, 281, 234), the others alone
+EVAL_ROWS = (
+    ("eval_0", "basic", "Tonight the sea was very calm."),
+    ("eval_1", "basic", "The lamp kept turning all night."),
+    ("eval_2", "country", "Not a single ship passed the point today."),
+    ("eval_3", "main", "The supply boat arrives tomorrow morning, and the long quiet week "
+                       "will finally be over."),
+    ("eval_4", "town", "A bell rang twice."),
+    ("eval_5", "main", "The lamp turned steadily."),
+)
+
+
+def held(failed: list, tag: str, name: str, check, good, planted) -> None:
+    """One check and its planted fault: ``check(x)`` returns a problem (a
+    string) or None; it must find none in ``good`` and one in ``planted``.
+    Both readings are logged; a miss goes to ``failed``."""
+    problem, control = check(good), check(planted)
+    log(f"{tag} {name}: {problem or 'held'}; planted fault: {control or 'NOT REFUSED'}")
+    if problem is not None:
+        failed.append(f"{name}: {problem}")
+    if control is None:
+        failed.append(f"{name}: the planted fault passes the check")
+
+
+def trace_kernels(trace_dir: Path) -> list[tuple[str, float, float]]:
+    """(name, start ms, device ms) of each device kernel in the Chrome trace
+    that `profiling.device_trace` wrote into ``trace_dir`` (one file)."""
+    files = list(trace_dir.glob("*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"{len(files)} trace files in {trace_dir}")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    return [(e["name"], e["ts"] / 1e3, e.get("dur", 0.0) / 1e3) for e in events
+            if e.get("cat") == "kernel"]
+
+
+def busy_time(kernels: list[tuple[str, float, float]]) -> float:
+    """The ms in which at least one of :func:`trace_kernels`' kernels ran:
+    the union of their intervals."""
+    busy, reach = 0.0, -math.inf
+    for _, t, ms in sorted(kernels, key=lambda k: k[1]):
+        busy += max(0.0, t + ms - max(t, reach))
+        reach = max(reach, t + ms)
+    return busy
+
+
+@contextlib.contextmanager
+def first_feed_forward_weights():
+    """The planted fault of the infill arm's cast: kernel 2 given the first
+    block's feed-forward weights (its bf16 copies, kept from the first call)
+    in every block."""
+    from eraxvif5tts_tpu_torch.models import modules
+
+    kernel, first = modules.ln_mod_matmul, []
+
+    def cached(x, scale, shift, weight, bias, **kwargs):
+        if not first:
+            first.append((weight, bias))
+        return kernel(x, scale, shift, *first[0], **kwargs)
+
+    modules.ln_mod_matmul = cached
+    try:
+        yield
+    finally:
+        modules.ln_mod_matmul = kernel
+
+
+@contextlib.contextmanager
+def rows_at_the_longest_length():
+    """The planted per-row-length fault: every row's attention keeps the
+    keys of the batch's longest row (kernel 1 still runs, given the wrong
+    lengths)."""
+    from eraxvif5tts_tpu_torch.models import modules
+
+    attention = modules.dot_product_attention
+
+    def longest(q, k, v, key_valid=None, rope=None):
+        if key_valid is not None:
+            key_valid = key_valid.any(dim=0, keepdim=True).expand_as(key_valid)
+        return attention(q, k, v, key_valid=key_valid, rope=rope)
+
+    modules.dot_product_attention = longest
+    try:
+        yield
+    finally:
+        modules.dot_product_attention = attention
+
+
+def eval_files(dev, tmp: Path) -> dict:
+    """What a user hands the eval CLI: a seeded F5TTS_v1_Base reference-format
+    checkpoint and its vocab, a seeded Vocos checkpoint, and a seedtts
+    metalst over the bundled clips."""
+    from eraxvif5tts_tpu_torch.configs import PRESETS
+    from eraxvif5tts_tpu_torch.models.vocos import Vocos
+
+    files = {"ckpt": tmp / "eval_model.pt", "vocab": tmp / "eval_vocab.txt",
+             "vocoder": tmp / "eval_vocos.pt", "metalst": tmp / "eval.lst"}
+    save_reference_checkpoint(files["ckpt"], PRESETS["F5TTS_v1_Base"], dev)
+    files["vocab"].write_text("\n".join(VOCAB_CHARS) + "\n", encoding="utf-8")
+    vocos = Vocos().to(dev)
+    randomize((vocos,), SEED)
+    save_reference_vocoder(files["vocoder"], vocos)
+    files["metalst"].write_text("".join(
+        f"{utt}|{EVAL_PROMPTS[p][1]}|{EVAL_EXAMPLES / EVAL_PROMPTS[p][0]}|{text}\n"
+        for utt, p, text in EVAL_ROWS), encoding="utf-8")
+    return files
+
+
+def check_eval_wavs(out: Path, batches, hop: int, sr: int, report: dict):
+    """The eval run's outputs: each row's wav (total - ref) * hop samples,
+    finite and not silent; the report's counts. A problem, or None."""
+    import numpy as np
+
+    from eraxvif5tts_tpu_torch.audio.io import read_wav
+
+    problems, samples = [], 0
+    for b in batches:
+        for utt, ref, total in zip(b.utts, b.ref_mel_lens, b.total_mel_lens):
+            wav, rate = read_wav(str(out / f"{utt}.wav"))
+            want = (int(total) - int(ref)) * hop
+            samples += wav.shape[1]
+            if rate != sr or wav.shape != (1, want):
+                problems.append(f"{utt}: {wav.shape[1]} samples at {rate} Hz, want {want}")
+            elif not (np.isfinite(wav).all() and np.abs(wav).max() > 1e-3):
+                problems.append(f"{utt}: not finite or silent (peak {np.abs(wav).max():.3g})")
+    rows = sum(len(b.utts) for b in batches)
+    if (report["utterances"], report["audio_seconds"]) != (rows, round(samples / sr, 2)):
+        problems.append(f"report {report} for {rows} rows, {samples / sr:.2f} s")
+    return "; ".join(problems) or None
+
+
+def phase_eval(dev, tmp: Path) -> dict:
+    """The eval harness on the card at F5TTS_v1_Base's full width and depth,
+    fp32 (the eval CLI's default wrapper), random weights: the eval CLI
+    (`eval_infer_batch.main`: -p, -v, -t, -o, --nfe_step 16, --vocoder_ckpt)
+    over a six-line seedtts metalst of the bundled clips, wrapped in
+    `RTFMeter`: every wav's length, finiteness and level and the report,
+    kernel 1 fp32 launched 22 x NFE a batch; one batch of three rows at
+    unequal lengths again under `profiling.device_trace` (the trace's and
+    the counters' kernel 1 fp32 launches, 22 x NFE; the device's busy time
+    against a CUDA-event wall), every row held to the batch through the
+    plain versions and its shortest row to the same prompt run alone at
+    batch 1, both within FP32_TOL; the scorers
+    through `eval.__main__.main`: WER with an injected ASR whose WER is
+    known, SIM through a full-size random UniSpeech ECAPA checkpoint
+    (a clip's self-similarity 1, the embedding card vs CPU), UTMOS with an
+    injected scorer; the infill battery's arm (`load_corpus` on a root laid
+    out like the reference, `_load_arm_params`, `evaluate_arm` in bf16, one
+    utterance x two seeds at NFE 8: kernels 1 and 2 22 x NFE a cell; its
+    mels against the plain versions' within DIT_TOL). Each
+    check beside a planted fault it must refuse. Returns the files for the
+    project phase and the launches."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from eraxvif5tts_tpu_torch import profiling
+    from eraxvif5tts_tpu_torch.audio.io import read_wav, write_wav
+    from eraxvif5tts_tpu_torch.configs import PRESETS
+    from eraxvif5tts_tpu_torch.eval import __main__ as eval_cli
+    from eraxvif5tts_tpu_torch.eval import ecapa_tdnn, infill
+    from eraxvif5tts_tpu_torch.eval import eval_infer_batch as ib
+    from eraxvif5tts_tpu_torch.eval.utils_eval import (
+        PromptBatch,
+        get_inference_prompt,
+        get_seedtts_testset_metainfo,
+        normalize_text,
+        run_sim,
+    )
+    from eraxvif5tts_tpu_torch.models import build_backbone
+    from eraxvif5tts_tpu_torch.ops.stft import MelSpectrogram
+    from eraxvif5tts_tpu_torch.text.pinyin import convert_char_to_pinyin
+
+    tag, failed = "[eval]", []
+    t0 = time.perf_counter()
+    files = eval_files(dev, tmp)
+    gib = files["ckpt"].stat().st_size / 2**30
+    log(f"{tag} reference-format F5TTS_v1_Base checkpoint ({gib:.2f} "
+        f"GiB), vocab, Vocos and a {len(EVAL_ROWS)}-line metalst written in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # the eval CLI as a user starts it; the wrapper it builds is kept
+    out = tmp / "eval_out"
+    built, factory = [], ib.F5TTSWrapper
+    ib.F5TTSWrapper = lambda *a, **k: built.append(factory(*a, **k)) or built[-1]
+    meter = profiling.RTFMeter()
+    reset_serving_counts()
+    try:
+        meter.start_request()
+        report = ib.main(["-p", str(files["ckpt"]), "-v", str(files["vocab"]),
+                          "-t", str(files["metalst"]), "-o", str(out),
+                          "--nfe_step", str(EVAL_NFE), "--vocoder_ckpt", str(files["vocoder"])])
+        torch.cuda.synchronize()
+        meter.record_chunk(int(round(report["audio_seconds"] * 24000)))
+        meter.end_request()
+    finally:
+        ib.F5TTSWrapper = factory
+    counts = serving_counts()
+    wrapper = built[0]
+    depth = wrapper.config.arch.depth
+    batches = get_inference_prompt(get_seedtts_testset_metainfo(str(files["metalst"])),
+                                   mel_fn=ib.wrapper_mel_fn(wrapper), load_wav=read_wav,
+                                   tokenize=lambda t: convert_char_to_pinyin([t])[0])
+    log(f"{tag} eval CLI (`eval_infer_batch.main`, F5TTSWrapper {wrapper.compute_dtype}, "
+        f"depth {depth}, NFE {EVAL_NFE}): {report}; RTFMeter {meter.summary()}; "
+        f"{len(batches)} batch(es): " + ", ".join(
+            f"{b.utts} prompts {b.ref_mel_lens.tolist()} totals {b.total_mel_lens.tolist()}"
+            for b in batches) + f"; launches {counts}")
+    if wrapper.compute_dtype != "float32":
+        failed.append(f"the eval CLI's wrapper serves {wrapper.compute_dtype}")
+    want = {name: depth * EVAL_NFE * len(batches) if name == "serving_attention_fp32" else 0
+            for name in counts}
+    if counts != want:
+        failed.append(f"eval CLI launches {counts}, expected {want}")
+    planted = tmp / "eval_out_planted"  # one wav a hop short, one silent
+    shutil.copytree(out, planted)
+    short, silent = (planted / f"{EVAL_ROWS[i][0]}.wav" for i in (0, 3))
+    wav, sr = read_wav(str(short))
+    write_wav(str(short), wav[0, wrapper.hop_length:], sr)
+    write_wav(str(silent), np.zeros_like(read_wav(str(silent))[0][0]), sr)
+    held(failed, tag, "eval wavs and report", lambda d: check_eval_wavs(
+        d, batches, wrapper.hop_length, wrapper.target_sample_rate, report), out, planted)
+
+    # one batch of three rows at unequal lengths, traced: every row against
+    # the batch through the plain versions, its shortest row against its
+    # prompt alone at batch 1 (the same bucket, so the same noise)
+    batch = max(batches, key=lambda b: len(b.utts))
+    j = int(np.argmin(batch.total_mel_lens))
+    if len(batch.utts) < 2 or len(set(batch.total_mel_lens.tolist())) < 2:
+        raise AssertionError(f"{tag} no batch of unequal rows: {batch.total_mel_lens}")
+    mels = {}
+    sample = wrapper.cfm.sample
+    run = "kernels"
+
+    def recorded(*args, **kwargs):
+        mel = sample(*args, **kwargs)
+        mels[run] = mel.cpu()
+        return mel
+
+    wrapper.cfm.sample = recorded
+    try:
+        reset_serving_counts()
+        trace_dir = tmp / "eval_trace"
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        with profiling.device_trace(str(trace_dir)) as prof:
+            start.record()
+            ib.run_eval_inference(wrapper, [batch], str(tmp / "eval_batch"), nfe_step=EVAL_NFE)
+            end.record()
+            torch.cuda.synchronize()
+        run_ms = start.elapsed_time(end)
+        counted = serving_counts()["serving_attention_fp32"]
+        kernels = trace_kernels(trace_dir)
+        mark = TRACE_MARKS["serving_attention_fp32"]
+        traced = sum(1 for name, _, _ in kernels if mark in name)
+        alone = PromptBatch(utts=[batch.utts[j]],
+                            ref_mels=batch.ref_mels[j:j + 1, :batch.ref_mel_lens[j]],
+                            ref_mel_lens=batch.ref_mel_lens[j:j + 1],
+                            total_mel_lens=batch.total_mel_lens[j:j + 1],
+                            final_texts=batch.final_texts[j:j + 1],
+                            bucket_frames=batch.bucket_frames)
+        bucket = mels["kernels"].shape[1]
+        buckets, wrapper.duration_buckets = wrapper.duration_buckets, (bucket,)
+        try:
+            run = "alone"
+            ib.run_eval_inference(wrapper, [alone], str(tmp / "eval_alone"), nfe_step=EVAL_NFE)
+            run = "longest keys"
+            with rows_at_the_longest_length():
+                ib.run_eval_inference(wrapper, [batch], str(tmp / "eval_fault"),
+                                      nfe_step=EVAL_NFE)
+            run = "plain"
+            with plain_serving_ops():
+                plain_dir = tmp / "eval_trace_plain"
+                with profiling.device_trace(str(plain_dir)):
+                    ib.run_eval_inference(wrapper, [batch], str(tmp / "eval_plain"),
+                                          nfe_step=EVAL_NFE)
+        finally:
+            wrapper.duration_buckets = buckets
+    finally:
+        del wrapper.cfm.sample
+    totals = batch.total_mel_lens.tolist()
+    n = totals[j]
+    one = mels["alone"][0, :n]
+
+    def apart(mel) -> float:
+        return float(((mel[j, :n] - one).abs() / (1 + one.abs())).max())
+
+    def from_plain(mel) -> list[float]:
+        plain = mels["plain"]
+        return [float(((mel[i, :t] - plain[i, :t]).abs() / (1 + plain[i, :t].abs())).max())
+                for i, t in enumerate(totals)]
+
+    def within(errs):
+        err = max(errs)
+        return None if err <= FP32_TOL else f"{err:.3g} beyond {FP32_TOL} * (1 + |reference|)"
+
+    log(f"{tag} batch {batch.utts} (b={len(batch.utts)}, bucket {bucket}, totals {totals}), "
+        f"max |got - reference| / (1 + |reference|): each row against the batch through the "
+        f"plain versions {[f'{e:.3g}' for e in from_plain(mels['kernels'])]}, with every row "
+        f"at the longest row's keys {[f'{e:.3g}' for e in from_plain(mels['longest keys'])]}; "
+        f"row {batch.utts[j]} against its prompt alone at batch 1 {apart(mels['kernels']):.3g}, "
+        f"at the longest keys {apart(mels['longest keys']):.3g}")
+    held(failed, tag, "every batched row against the plain versions' batch", within,
+         from_plain(mels["kernels"]), from_plain(mels["longest keys"]))
+    held(failed, tag, "a batched row against its batch-1 run", lambda e: within([e]),
+         apart(mels["kernels"]), apart(mels["longest keys"]))
+    want_launches = depth * EVAL_NFE
+
+    def launches_of(pair):
+        return (None if pair == (want_launches, want_launches) else
+                f"kernel 1 fp32: {pair[0]} by the counter, {pair[1]} in the trace, "
+                f"want {want_launches} (22 x NFE)")
+
+    held(failed, tag, "kernel 1 fp32 launches of one batch (counter, trace)", launches_of,
+         (counted, traced),
+         (counted, sum(1 for name, _, _ in trace_kernels(plain_dir) if mark in name)))
+    groups, _ = device_ms_by_group(prof)
+    device_ms = sum(groups.values())
+    first = min(t for _, t, _ in kernels)
+    span_ms = max(t + ms for _, t, ms in kernels) - first
+    busy_ms = busy_time(kernels)
+    log(f"{tag} the traced batch: {len(kernels)} device kernels in a {run_ms:.1f} ms CUDA-event "
+        f"wall, {span_ms:.1f} ms from the first kernel's start to the last one's end; "
+        f"{device_ms:.1f} ms of kernel time summed, {busy_ms:.1f} ms with the overlaps of "
+        f"kernels that start before the one before them ends counted once (device busy "
+        f"{100 * busy_ms / run_ms:.1f} % of the wall): "
+        + ", ".join(f"{k} {v:.1f} ms ({100 * v / device_ms:.0f} %)" for k, v in groups.items()))
+
+    # the scorers through the CLI
+    metainfo = get_seedtts_testset_metainfo(str(files["metalst"]))
+    truths = {utt: gt for utt, _, _, gt, _ in metainfo}
+
+    def asr(drop_last: bool):
+        def fn(path):
+            utt = Path(path).stem
+            words = truths[utt].split()
+            if int(utt[-1]) % 2:
+                words[0] = "wrong"
+            return " ".join(words[:-1] if drop_last else words)
+        return fn
+
+    want_wer = float(np.mean([1 / len(normalize_text(gt)) if int(utt[-1]) % 2 else 0.0
+                              for utt, gt in truths.items()]))
+    wer = [eval_cli.main(["seedtts", "-m", str(files["metalst"]), "-g", str(out), "-e", "wer"],
+                         asr_fn=asr(drop)) for drop in (False, True)]
+    held(failed, tag, f"WER with an injected ASR (exactly {want_wer:.6f})",
+         lambda s: None if s == {"n": len(metainfo), "wer_mean": want_wer} else f"{s}",
+         wer[0], wer[1])
+
+    ecapa_ckpt = tmp / "ecapa.pt"
+    torch.save({"model": ecapa_tdnn.init_random_params(np.random.default_rng(SEED),
+                                                       feat_dim=80)}, ecapa_ckpt)
+    t0 = time.perf_counter()
+    sim = eval_cli.main(["seedtts", "-m", str(files["metalst"]), "-g", str(out), "-e", "sim",
+                         "--ecapa_ckpt", str(ecapa_ckpt)])
+    sim_s = time.perf_counter() - t0
+    rows = [json.loads(line) for line in (out / "_sim_results.jsonl").read_text().splitlines()]
+    log(f"{tag} SIM through a random full-size UniSpeech ECAPA checkpoint (512 channels, "
+        f"256-dim, 80 mels) on the card: {sim} in {sim_s:.2f} s")
+    if sim["n"] != len(metainfo) or not all(-1.0 <= r["sim"] <= 1.0 for r in rows[:-1]):
+        failed.append(f"SIM rows {rows}")
+    clip = EVAL_EXAMPLES / EVAL_PROMPTS["basic"][0]
+    copy_of = tmp / "clip_copy.wav"
+    shutil.copyfile(clip, copy_of)
+    other = EVAL_EXAMPLES / EVAL_PROMPTS["town"][0]
+    embed_card = ecapa_tdnn.make_mel_embed_fn(ckpt_path=str(ecapa_ckpt), device=dev)
+    held(failed, tag, f"a clip's self-similarity (1 within {SIM_SELF_TOL})",
+         lambda s: None if abs(s - 1.0) <= SIM_SELF_TOL else f"{s:.6f}",
+         run_sim([(str(copy_of), str(clip))], embed_card)[0]["sim"],
+         run_sim([(str(other), str(clip))], embed_card)[0]["sim"])
+    embed_cpu = ecapa_tdnn.make_mel_embed_fn(ckpt_path=str(ecapa_ckpt), device="cpu")
+    card, cpu = embed_card(str(clip)), embed_cpu(str(clip))
+    with tf32(True):
+        tf32_err = float(np.abs(embed_card(str(clip)) - cpu).max() / np.abs(cpu).max())
+
+    def against_cpu(e):
+        err = float(np.abs(e - cpu).max() / np.abs(cpu).max())
+        return None if err <= ECAPA_CARD_TOL else f"{err:.3g} of scale beyond {ECAPA_CARD_TOL}"
+
+    log(f"{tag} ECAPA embedding card vs CPU: "
+        f"{float(np.abs(card - cpu).max() / np.abs(cpu).max()):.3g} of scale; with TF32 on "
+        f"{tf32_err:.3g} (logged)")
+    held(failed, tag, "the ECAPA embedding, card vs CPU", against_cpu, card,
+         embed_cpu(str(other)))
+
+    names = sorted(p.name for p in out.glob("*.wav"))
+    seconds = {name: read_wav(str(out / name))[0].shape[1] / 24000 for name in names}
+    want_mos = float(np.mean([1.0 + seconds[name] for name in names]))
+    utmos = [eval_cli.main(["utmos", "-g", str(out)], utmos_fn=fn) for fn in (
+        lambda p: 1.0 + seconds[Path(p).name], lambda p: 1.0 + seconds[Path(p).name] * 0.5)]
+    held(failed, tag, "UTMOS with an injected scorer",
+         lambda s: None if s == {"n": len(names), "utmos_mean": want_mos} else f"{s}",
+         utmos[0], utmos[1])
+
+    # the infill battery's arm, bf16
+    root = tmp / "reference"
+    corpus_wav = root / infill.CORPUS[0][0]
+    corpus_wav.parent.mkdir(parents=True)
+    shutil.copyfile(clip, corpus_wav)
+    mel = MelSpectrogram()
+    corpus = infill.load_corpus(
+        lambda w: mel(torch.from_numpy(np.ascontiguousarray(w, np.float32)).to(dev)).cpu(),
+        24000, 256, root=str(root))
+    vocab = infill.corpus_vocab(corpus)
+    cfg = PRESETS["F5TTS_v1_Base"]
+    backbone = build_backbone(cfg, len(vocab)).to(dev)
+    randomize((backbone,), SEED + 4)
+    arm_ckpt = tmp / "infill_arm.pt"
+    save_reference_checkpoint_of(arm_ckpt, backbone)
+    del backbone
+    cfm, arm_depth = infill._load_arm_params(str(arm_ckpt), cfg, vocab, torch.bfloat16, dev)
+    arm_mels, arm_sample = {}, cfm.sample
+
+    def arm_recorded(*args, **kwargs):
+        mel = arm_sample(*args, **kwargs)
+        arm_mels.setdefault(run, []).append(mel[0, :corpus[0]["mel_spec"].shape[0]].float().cpu())
+        return mel
+
+    cfm.sample = arm_recorded
+    try:
+        run = "kernels"
+        reset_serving_counts()
+        t0 = time.perf_counter()
+        cells = infill.evaluate_arm(cfm, corpus, vocab, INFILL_SEEDS, INFILL_NFE, arm="teacher")
+        arm_s = time.perf_counter() - t0
+        arm_counts = serving_counts()
+        run = "one seed"
+        cell_noise = infill._cell_noise
+        infill._cell_noise = lambda utt, seed, n_frames, n_mels, device: cell_noise(
+            utt, 0, n_frames, n_mels, device)
+        try:
+            one_seed = infill.evaluate_arm(cfm, corpus, vocab, INFILL_SEEDS, INFILL_NFE, arm="c")
+        finally:
+            infill._cell_noise = cell_noise
+        run = "plain"
+        with plain_serving_ops():
+            infill.evaluate_arm(cfm, corpus, vocab, INFILL_SEEDS, INFILL_NFE, arm="plain")
+        run = "block 0"
+        with first_feed_forward_weights():
+            infill.evaluate_arm(cfm, corpus, vocab, INFILL_SEEDS, INFILL_NFE, arm="c")
+    finally:
+        del cfm.sample
+    log(f"{tag} infill arm ({len(corpus)} utterance, {corpus[0]['mel_spec'].shape[0]} frames, "
+        f"vocab {len(vocab)}, depth {arm_depth}, bf16) x {INFILL_SEEDS} seeds at NFE "
+        f"{INFILL_NFE} in {arm_s:.2f} s: {cells}; launches {arm_counts}")
+    metrics = ("infill_mel_l1", "ltas_corr_gen", "ltas_corr_full")
+
+    def cells_sound(cs):
+        if not all(math.isfinite(c[m]) for c in cs for m in metrics):
+            return "a cell is not finite"
+        if [c[m] for m in metrics for c in cs[:1]] == [c[m] for m in metrics for c in cs[1:2]]:
+            return "the two seeds give the same cell"
+        return None
+
+    held(failed, tag, "the infill cells (finite, the seeds differ)", cells_sound, cells,
+         one_seed)
+
+    def arm_from_plain(name) -> float:
+        return max(float((got - want).abs().max() / want.abs().max())
+                   for got, want in zip(arm_mels[name], arm_mels["plain"]))
+
+    def arm_within(err):
+        ok = err <= DIT_TOL and all(torch.isfinite(m).all() for m in arm_mels["kernels"])
+        return None if ok else f"{err:.3g} of scale beyond {DIT_TOL}"
+
+    arm_err, arm_control = arm_from_plain("kernels"), arm_from_plain("block 0")
+    log(f"{tag} infill arm's mels (bf16, kernels 1 and 2 with the feed-forward's bf16 "
+        f"copies) against the plain versions: {arm_err:.3g} of scale; with kernel 2 given "
+        f"block 0's weights in every block {arm_control:.3g}")
+    held(failed, tag, "the infill arm's mels against the plain versions", arm_within,
+         arm_err, arm_control)
+    want_arm = {name: arm_depth * INFILL_NFE * INFILL_SEEDS
+                if name in ("serving_attention", "ln_mod_matmul") else 0 for name in arm_counts}
+    if arm_counts != want_arm:
+        failed.append(f"infill arm launches {arm_counts}, expected {want_arm}")
+    del cfm, wrapper, built
+    if failed:
+        raise AssertionError(f"{tag} " + "; ".join(failed))
+    return {"ckpt": files["ckpt"], "vocab": files["vocab"],
+            "eval kernel 1 fp32": counts["serving_attention_fp32"],
+            "infill kernels 1 / 2 bf16": (arm_counts["serving_attention"],
+                                          arm_counts["ln_mod_matmul"])}
+
+
+def start_training_runs(tmp: Path) -> list:
+    """`TrainingProcess` runs of the port's CLI for the project phase,
+    started early (a subprocess takes seconds to import torch): `finetune
+    --help` and, the planted fault, `finetune --no-such-flag`. The project
+    phase waits for both."""
+    from eraxvif5tts_tpu_torch.training.project import TrainingProcess
+
+    runs = []
+    for args, name in ((["finetune", "--help"], "train_help.log"),
+                       (["finetune", "--no-such-flag"], "train_bad.log")):
+        run = TrainingProcess()
+        run.start(args, log_path=str(tmp / name))
+        runs.append((run, tmp / name, time.perf_counter()))
+    return runs
+
+
+def phase_project(dev, tmp: Path, files: dict, runs: list) -> dict:
+    """The fine-tuning project manager on the card: a `ProjectStore` in a
+    temporary directory (create, the metadata, `vocab_check` against the
+    eval phase's vocab), `vocab_extend` of the eval phase's full-size
+    checkpoint (the embedding's new rows, the old rows bit for bit, a strict
+    load into the port's DiT), `prune_checkpoint_to_ema` of a trainer
+    checkpoint (the EMA weights bit for bit, a strict load),
+    `settings_to_cli_args` parsed by the port's finetune parser,
+    `TrainingProcess.start(["finetune", "--help"])` exiting 0,
+    `system_stats` naming the card and its memory, and `ui_test_infer` at
+    NFE 8 in bf16 on the card (kernels 1 and 2 launched). Each check beside
+    a planted fault it must refuse. Returns the launches of
+    `ui_test_infer`."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from eraxvif5tts_tpu_torch.compression.convert import (
+        infer_text_num_embeds,
+        load_state_dict,
+        reference_backbone_state_dict,
+    )
+    from eraxvif5tts_tpu_torch.configs import PRESETS
+    from eraxvif5tts_tpu_torch.models import build_backbone
+    from eraxvif5tts_tpu_torch.training import cli
+    from eraxvif5tts_tpu_torch.training import finetune_gradio as ui
+    from eraxvif5tts_tpu_torch.training.project import (
+        ProjectStore,
+        settings_to_cli_args,
+        system_stats,
+    )
+
+    tag, failed = "[project]", []
+    store = ProjectStore(str(tmp / "projects"))
+    _, project = ui.ui_create_project(store, "smoke", "char")
+    proj = Path(store.path(project))
+    texts = ("Xin chào các bạn", "Tôi là một người máy", "hello world")
+    (proj / "dataset" / "metadata.csv").write_text(
+        "".join(f"wavs/{i}.wav|{t}\n" for i, t in enumerate(texts)), encoding="utf-8")
+    shutil.copyfile(files["vocab"], proj / "vocab.txt")
+    known = set(VOCAB_CHARS)
+    want_missing = sorted({c for t in texts for c in t if c not in known})
+    missing, status = ui.ui_vocab_check(store, project)
+    planted_vocab = tmp / "covering_vocab"
+    planted_vocab.mkdir()
+    planted_store = ProjectStore(str(planted_vocab))
+    _, planted_project = ui.ui_create_project(planted_store, "smoke", "char")
+    shutil.copyfile(proj / "dataset" / "metadata.csv",
+                Path(planted_store.path(planted_project)) / "dataset" / "metadata.csv")
+    (Path(planted_store.path(planted_project)) / "vocab.txt").write_text(
+        "\n".join(VOCAB_CHARS) + "\n" + want_missing[0] + "\n", encoding="utf-8")
+    held(failed, tag, f"vocab_check ({status})",
+         lambda m: None if m.split() == want_missing else f"missing {m.split()}", missing,
+         ui.ui_vocab_check(planted_store, planted_project)[0])
+
+    extended = tmp / "extended.pt"
+    t0 = time.perf_counter()
+    msg = ui.ui_vocab_extend(store, project, missing, str(files["ckpt"]), str(extended))
+    extend_s = time.perf_counter() - t0
+    before = load_state_dict(str(files["ckpt"]))
+    after = load_state_dict(str(extended))
+    key = "transformer.text_embed.text_embed.weight"
+    old, new = before[f"ema_model.{key}"], after[key]
+    log(f"{tag} {msg} in {extend_s:.2f} s: text embedding {old.shape} -> {new.shape}")
+    if not (new.shape == (old.shape[0] + len(want_missing), old.shape[1])
+            and np.array_equal(new[:old.shape[0]], old)):
+        failed.append(f"the extended embedding {new.shape} from {old.shape}")
+    cfg = PRESETS["F5TTS_v1_Base"]
+
+    def loads_strict(path, n_text: int):
+        """None if ``path`` loads strict into a DiT of ``n_text`` text rows."""
+        with torch.device("meta"):
+            dit = build_backbone(cfg, n_text)
+        try:
+            dit.load_state_dict(reference_backbone_state_dict(str(path)), strict=True,
+                                assign=True)
+        except RuntimeError as e:
+            return f"{str(e).splitlines()[0]} ..."
+        return None
+
+    n_text = infer_text_num_embeds(after)
+    held(failed, tag, f"the extended checkpoint loads strict into a DiT of {n_text} text rows",
+         lambda path: loads_strict(path, n_text), extended, files["ckpt"])
+
+    # a trainer checkpoint: model, EMA (one storage each), optimizer state
+    ema = {k[len("ema_model."):]: torch.from_numpy(v) for k, v in before.items()
+           if k.startswith("ema_model.")}
+    model = dict(ema)
+    model["transformer.proj_out.bias"] = ema["transformer.proj_out.bias"] + 1.0
+    trainer_ckpt, pruned = tmp / "trainer_model_3.pt", tmp / "pruned.pt"
+    torch.save({"model_state_dict": model,
+                "ema_model_state_dict": {**{f"ema_model.{k}": v for k, v in ema.items()},
+                                         "initted": torch.tensor(True),
+                                         "step": torch.tensor(3)},
+                "optimizer_state_dict": {"state": {0: {"exp_avg": torch.zeros(4)}},
+                                         "param_groups": [{"lr": 1e-5}]},
+                "update": 3}, trainer_ckpt)
+    t0 = time.perf_counter()
+    n_kept = ui.ui_prune(str(trainer_ckpt), str(pruned))
+    prune_s = time.perf_counter() - t0
+    kept = reference_backbone_state_dict(str(pruned))
+    load_problem = loads_strict(pruned, infer_text_num_embeds(before))
+
+    def equals(weights):
+        wrong = [k for k, v in kept.items() if not torch.equal(v, weights[f"transformer.{k}"])]
+        return None if not wrong and len(kept) == len(weights) else f"differs at {wrong[:3]}"
+
+    log(f"{tag} {n_kept} ({prune_s:.2f} s), {len(kept)} tensors; strict load: "
+        f"{load_problem or 'loads'}")
+    if load_problem is not None:
+        failed.append(f"the pruned checkpoint does not load strict: {load_problem}")
+    held(failed, tag, "the pruned checkpoint holds the EMA weights bit for bit", equals, ema,
+         model)
+
+    settings = {**store.load_settings(project), "epochs": 2, "file_checkpoint_train":
+                str(extended)}
+    argv = settings_to_cli_args(project, settings, store.root)
+
+    def parses(args):
+        try:
+            a = cli.finetune_parser().parse_args(args[1:])
+        except SystemExit as e:
+            return f"the parser exits {e.code}"
+        got = (a.dataset_name, a.pretrain, a.epochs, a.compute_dtype, a.checkpoint_dir)
+        want = (project, str(extended), 2, "bfloat16", str(proj / "ckpts"))
+        return None if got == want else f"{got} != {want}"
+
+    with open(os.devnull, "w") as devnull, contextlib.redirect_stderr(devnull):
+        held(failed, tag, "settings_to_cli_args through the port's finetune parser", parses,
+             argv, argv + ["--no-such-flag"])
+
+    stats = system_stats()
+    name = torch.cuda.get_device_name(0)
+    total = torch.cuda.get_device_properties(0).total_memory
+
+    def names_the_card(s):
+        ok = (any(name in d for d in s.get("devices", []))
+              and s.get("device_memory", {}).get("total_bytes") == total)
+        return None if ok else f"devices {s.get('devices')}, memory {s.get('device_memory')}"
+
+    held(failed, tag, f"system_stats names {name} and its {total / 2**30:.1f} GiB",
+         names_the_card, stats, {k: v for k, v in stats.items() if k != "devices"})
+
+    reset_serving_counts()
+    ref_clip = EVAL_EXAMPLES / EVAL_PROMPTS["basic"][0]
+    t0 = time.perf_counter()
+    sr, wav = ui.ui_test_infer(store, project, str(extended), str(ref_clip),
+                               EVAL_PROMPTS["basic"][1], "Tôi là một người máy, hello world.",
+                               nfe=UI_NFE)
+    ui_s = time.perf_counter() - t0
+    counts = serving_counts()
+    log(f"{tag} ui_test_infer (the extended checkpoint, the project's vocab, bf16, NFE "
+        f"{UI_NFE}, wrapper built and graphs captured inside) in {ui_s:.2f} s: "
+        f"{len(wav) / sr:.2f} s of audio at {sr} Hz; launches {counts}")
+
+    def sound(w):
+        if len(w) < sr // 2 or not np.isfinite(w).all() or np.abs(w).max() <= 1e-3:
+            return f"{len(w)} samples, peak {np.abs(w).max():.3g}"
+        return None
+
+    held(failed, tag, "ui_test_infer's wave (length, finite, not silent)", sound, wav,
+         np.concatenate([wav, [np.nan]]))
+    depth = cfg.arch.depth
+    if not (counts["serving_attention"] > 0 and counts["serving_attention"] % depth == 0
+            and counts["ln_mod_matmul"] == counts["serving_attention"]
+            and counts["serving_attention_fp32"] == 0):
+        failed.append(f"ui_test_infer launches {counts}")
+
+    for run, _, started in runs:
+        run.proc.wait(timeout=max(1.0, 180 - (time.perf_counter() - started)))
+    (help_run, help_log, started), (bad_run, bad_log, _) = runs
+    log(f"{tag} TrainingProcess `finetune --help` and `finetune --no-such-flag` (started "
+        f"before the eval phase): exit codes {help_run.proc.returncode}, "
+        f"{bad_run.proc.returncode}; done {time.perf_counter() - started:.1f} s after the start")
+    held(failed, tag, "TrainingProcess runs the port's finetune CLI",
+         lambda p: None if p[0] == 0 and "usage: eraxvif5tts-torch-finetune" in p[1].read_text()
+         else f"exit {p[0]}: {p[1].read_text()[-300:]!r}",
+         (help_run.proc.returncode, help_log), (bad_run.proc.returncode, bad_log))
+    if failed:
+        raise AssertionError(f"{tag} " + "; ".join(failed))
+    return {"ui_test_infer kernels 1 / 2 bf16": (counts["serving_attention"],
+                                                 counts["ln_mod_matmul"])}
+
+
 def timed(tag: str, phase, *args, **kwargs):
     """``phase(*args, **kwargs)`` (a phase or a check), its wall logged."""
     t0 = time.perf_counter()
@@ -5303,11 +6032,22 @@ def main() -> int:
     row["max_abs_err"] = max(row["max_abs_err"], ff_err)
     compress = timed("[compress]", phase_compress, dev)
     mesh_launches = timed("[mesh]", phase_mesh, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = start_training_runs(Path(tmp))
+        try:
+            evaluated = timed("[eval]", phase_eval, dev, Path(tmp))
+            managed = timed("[project]", phase_project, dev, Path(tmp), evaluated, runs)
+        finally:
+            for run, _, _ in runs:
+                run.stop()
     idle = {path: [k for k, v in counts.items() if v <= 0] for path, counts in compress.items()}
     if any(idle.values()):
         raise AssertionError(f"kernels never launched on the compress path: {idle}")
     log(f"[compress] launches by path: {compress}")
     log(f"[mesh] rank 0's training kernel launches in the DP 2 steps: {mesh_launches}")
+    log(f"[eval] launches: the eval CLI's batches {evaluated['eval kernel 1 fp32']} of "
+        f"kernel 1 fp32; the infill arm {evaluated['infill kernels 1 / 2 bf16']} of kernels 1 "
+        f"and 2 bf16; [project] ui_test_infer {managed['ui_test_infer kernels 1 / 2 bf16']}")
     log(f"[bigvgan] launches: {bigvgan_launches}; [mmdit] kernel 1 without rotary: "
         f"{launches['serving_attention_joint']}; [fp32] kernel 1 fp32: {fp32_launches}; "
         f"[mmdit-int8] kernel 5 in the fused batch call: {mmdit_ff}")

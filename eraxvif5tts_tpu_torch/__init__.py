@@ -2,8 +2,8 @@
 
 A second package beside the JAX reference `eraxvif5tts_tpu`, with the same
 layout (`configs/`, `text/`, `audio/`, `ops/`, `models/`, `compression/`,
-`infer/`, `serving/`, `training/`) so each module's counterpart is easy to
-find. It imports `torch` and never `jax` or `flax`, and nothing of the
+`infer/`, `serving/`, `training/`, `parallel/`, `eval/`, `profiling.py`) so
+each module's counterpart is easy to find. It imports `torch` and never `jax` or `flax`, and nothing of the
 reference package: the host modules it needs (configs, text frontend, audio
 IO, checkpoint key rules) are its own copies.
 

@@ -341,8 +341,11 @@ class FeedForward(nn.Module):
                 dropout_rate: float = 0.0, dropout_key=None, norm: str = "ln") -> torch.Tensor:
         project_in = self.ff[0][0]
         if not self.training and not self.quantized and use_fused_serving(x.dtype):
-            h = ln_mod_matmul(x, scale.contiguous(), shift.contiguous(), project_in.weight,
-                              project_in.bias, activation="gelu_tanh", norm=norm)
+            # fp32 parameters computing in bf16 (the JAX recipe: its Dense
+            # casts the kernel at use) give the kernel bf16 copies
+            h = ln_mod_matmul(x, scale.contiguous(), shift.contiguous(),
+                              project_in.weight.to(x.dtype), project_in.bias.to(x.dtype),
+                              activation="gelu_tanh", norm=norm)
             return row_linear(h, self.ff[2], self.tp)
         if norm != "ln":
             raise ValueError(f"the unfused feed-forward normalises with the layernorm only, "

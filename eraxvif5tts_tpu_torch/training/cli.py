@@ -406,7 +406,9 @@ def train_main(argv=None):
     )
 
 
-def finetune_main(argv=None):
+def finetune_parser() -> argparse.ArgumentParser:
+    """The finetune / from-scratch CLI's arguments (``finetune_main``'s; the
+    project manager's ``settings_to_cli_args`` writes argv for it)."""
     p = argparse.ArgumentParser(prog="eraxvif5tts-torch-finetune")
     p.add_argument("--exp_name", default="F5TTS_v1_Base",
                    choices=list(PRESETS) + ["F5TTS_v1_Custom_Prune_14", "F5TTS_v1_Custom_Prune_12"])
@@ -447,7 +449,11 @@ def finetune_main(argv=None):
                    help="each data rank loads its own batches (torchrun's environment "
                         "starts the group)")
     p.add_argument("--device", default="cuda", help="torch device (default: cuda)")
-    args = p.parse_args(argv)
+    return p
+
+
+def finetune_main(argv=None):
+    args = finetune_parser().parse_args(argv)
     if args.multihost and not dist.is_initialized():
         pm.init_from_environment(torch.device(args.device).type)
     mesh = training_mesh(args.n_model, args.device)

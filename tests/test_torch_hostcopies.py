@@ -8,6 +8,7 @@ arithmetic; no tolerance is needed or given).
 """
 
 import dataclasses
+import os
 import random
 from pathlib import Path
 
@@ -572,6 +573,102 @@ def _check_prepare(seed, tmp_path):
     assert (tmp_path / "t.jsonl").read_text("utf-8") == (tmp_path / "j.jsonl").read_text("utf-8")
 
 
+def _check_utils_eval(seed, tmp_path):
+    from eraxvif5tts_tpu.eval import utils_eval as jue
+    from eraxvif5tts_tpu_torch.eval import utils_eval as tue
+
+    texts = _texts(seed, 8)
+    meta = tmp_path / "meta.lst"
+    meta.write_text("".join(
+        f"u{i}|{a.strip()}|p{i % 3}.wav|{b.strip()}" + (f"|g{i}.wav" if i % 2 else "") + "\n"
+        for i, (a, b) in enumerate(zip(texts, texts[1:]))), encoding="utf-8")
+    rows = tue.get_seedtts_testset_metainfo(str(meta))
+    assert rows == jue.get_seedtts_testset_metainfo(str(meta))
+    ls = tmp_path / "ls.lst"
+    ls.write_text("1089-134686-0001\t3.0\tref a\t1089-134686-0005\t4.0\tgen a\n"
+                  "1188-133604-0002\t2.5\tref b\t1188-133604-0007\t5.0\tgen b\n")
+    assert tue.get_librispeech_test(str(ls), "root") == jue.get_librispeech_test(str(ls), "root")
+
+    # the prompt bucketing over seeded clip lengths, a fake frontend and reader
+    rng = np.random.default_rng(seed)
+    lengths = {f"p{k}.wav": int(rng.integers(24000, 24000 * 6)) for k in range(3)}
+    lengths.update({f"g{i}.wav": int(rng.integers(24000, 24000 * 9)) for i in range(8)})
+
+    def load_wav(path):
+        n = lengths[os.path.basename(path)]
+        return np.linspace(-0.5, 0.5, n, dtype=np.float32)[None].repeat(1 + n % 2, 0), 24000
+
+    def mel_fn(wav):
+        return np.full((len(wav) // 256, 4), float(len(wav) % 7), np.float32)
+
+    for kw in (dict(), dict(use_truth_duration=True, speed=0.8, num_buckets=7, batch_frames=3000),
+               dict(min_seconds=1.0, max_seconds=5.0, num_buckets=3, batch_frames=900)):
+        got = tue.get_inference_prompt(rows, mel_fn, load_wav, list, **kw)
+        want = jue.get_inference_prompt(rows, mel_fn, load_wav, list, **kw)
+        assert len(got) == len(want) > 0
+        for g, w in zip(got, want):
+            assert type(g).__name__ == type(w).__name__ == "PromptBatch"
+            assert (g.utts, g.final_texts, g.bucket_frames) == (w.utts, w.final_texts,
+                                                               w.bucket_frames)
+            for name in ("ref_mels", "ref_mel_lens", "total_mel_lens"):
+                a, b = getattr(g, name), getattr(w, name)
+                assert a.dtype == b.dtype
+                np.testing.assert_array_equal(a, b)
+
+    pairs = [(t, u) for t, u in zip(texts + ["你好，世界。", "「引用」：测试…！"],
+                                   texts[::-1] + ["你好世间", "引用测试"])]
+    for truth, hypo in pairs:
+        for lang in ("en", "zh", "vi"):
+            assert tue.normalize_text(truth, lang) == jue.normalize_text(truth, lang)
+            assert tue.word_error_rate(truth, hypo, lang) == jue.word_error_rate(truth, hypo, lang)
+        assert tue.edit_distance(list(truth), list(hypo)) == jue.edit_distance(list(truth),
+                                                                                list(hypo))
+    a, b = rng.standard_normal(16), rng.standard_normal(16)
+    assert tue.cosine_similarity(a, b) == jue.cosine_similarity(a, b)
+
+    def asr(path):
+        return texts[int(path[1:]) % len(texts)][::-1]
+
+    wer_pairs = [(f"w{i}", t) for i, t in enumerate(texts)]
+    sim_pairs = [(f"gen{i}", f"prompt{i % 3}") for i in range(9)]
+
+    def embed(path):
+        return np.random.default_rng(sum(map(ord, path))).standard_normal(8)
+
+    for workers in (1, 4):
+        assert (tue.run_asr_wer(wer_pairs, "en", asr, workers)
+                == jue.run_asr_wer(wer_pairs, "en", asr, workers))
+        assert tue.run_sim(sim_pairs, embed, workers) == jue.run_sim(sim_pairs, embed, workers)
+        assert (tue._ordered_pool_map(len, texts, workers)
+                == jue._ordered_pool_map(len, texts, workers))
+
+
+def _check_rtf_meter(seed, monkeypatch):
+    """`profiling.RTFMeter` under one fake clock: the same summary."""
+    import time
+
+    from eraxvif5tts_tpu import profiling as jprof
+    from eraxvif5tts_tpu_torch import profiling as tprof
+
+    rng = np.random.default_rng(seed)
+    ticks = np.cumsum(rng.uniform(0.01, 0.9, 64)).tolist()
+    chunks = rng.integers(100, 48000, 64).tolist()
+    summaries = []
+    for mod in (jprof, tprof):
+        clock = iter(ticks)
+        monkeypatch.setattr(time, "perf_counter", lambda: next(clock))
+        meter = mod.RTFMeter(sample_rate=24000)
+        for request in range(5):
+            meter.start_request()
+            for k in range(1 + request % 3):
+                meter.record_chunk(chunks[4 * request + k])
+            meter.end_request()
+        summaries.append((meter.summary(), meter.rtf, meter.total_audio_samples))
+    monkeypatch.undo()
+    assert summaries[0] == summaries[1]
+    assert tprof.RTFMeter().summary() == jprof.RTFMeter().summary()
+
+
 CHECKS = {
     **{f"rules_{name}": (lambda seed, tmp_path, name=name: _check_rules(name))
        for name in _rules_cases()},
@@ -598,9 +695,29 @@ CHECKS = {
     "griffin_lim": lambda seed, tmp_path: _check_griffin_lim(seed),
     "utils": lambda seed, tmp_path: _check_utils(seed),
     "prepare": _check_prepare,
+    "utils_eval": _check_utils_eval,
 }
 
 
 @pytest.mark.parametrize("name", sorted(CHECKS))
 def test_copied_host_function_equals_the_original(name, tmp_path):
     CHECKS[name](60, tmp_path)
+
+
+def test_copied_rtf_meter_equals_the_original(monkeypatch):
+    _check_rtf_meter(60, monkeypatch)
+
+
+def _py_modules(package: str) -> set[str]:
+    root = Path(__file__).resolve().parent.parent / package
+    return {p.relative_to(root).as_posix() for p in root.rglob("*.py")}
+
+
+def test_every_jax_module_has_a_port_counterpart():
+    """Every `.py` file of the JAX package has one of the same name and place
+    in the port: the port does all that the JAX package does, module by
+    module (the port's extra modules, its kernels' loader and tools, are
+    its own)."""
+    jax_modules = _py_modules("eraxvif5tts_tpu")
+    assert len(jax_modules) > 60
+    assert sorted(jax_modules - _py_modules("eraxvif5tts_tpu_torch")) == []
