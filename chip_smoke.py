@@ -207,6 +207,27 @@ Phases (any failure raises and the script exits non-zero):
               largest batch that fits (a warm-up and two timed steps in bf16,
               a warm-up and one in fp32) with kernel 4 of the step's dtype
               counted depth / depth / depth a step, the peak memory, a profiled step;
+7d. d128   -- head dim 128 in kernels 1 and 4 (after train-fp32): the
+              built geometry of every attention kernel at d = 64 and 128
+              against the stated one and the C interface refusing d = 32;
+              kernel 1 at d = 128 (b = 2, h = 8) in bf16 and fp32 at n =
+              1088 (lens 1051, 0) with and without rotary and at the joint
+              6144 without, kernels 4a-4c at n = 4096 and 6144 at dropout 0.1
+              and keep = 1, each against its plain version beside planted
+              faults (head columns 64-127 of V or K zeroed) that must be
+              refused, timed beside its bound, its plain version and
+              `scaled_dot_product_attention`; the keep bits of 4a and 4c bit
+              for bit; `configs/F5TTS_v1_Base.yaml` with 8 heads of 128 (dim
+              1024, 22 blocks) written to a temporary directory and loaded by
+              the port's loader, a seeded N(0, 0.02) reference-format
+              checkpoint served in bf16 (the DiT against its plain versions)
+              and default-built fp32 (against the CPU): `generate` of two
+              texts at NFE 32, 22 x 32 launches a chunk, all of the d = 128
+              instantiation; one CFM training step at 2 x 4096 (dropout 0.1,
+              blocks checkpointed) in bf16 and in fp32, loss and gradient
+              against plain attention with a wrong-keys control, a warm-up
+              and a timed `Trainer.train_step` each, with its wall and peak
+              memory;
 8. e2tts   -- E2-TTS serving at E2TTS_Base width (UNetT: dim 1024, 16 x 64
               heads, ff_mult 4, rotary on head 0 only), its depth cut to
               E2TTS_DEPTH = 8 of 24 layers (since the mesh phase), in
@@ -298,7 +319,8 @@ path's phase (serving kernels with fused rotary / layernorm: main; without
 rotary / RMS: e2tts; the attention's row at n = 6144: mmdit; kernel 1 fp32
 with rotary: the fp32 phase's DiT, without: its MMDiT; int8 feed-forward at
 ff_mult 2: int8, at ff_mult 4: e2tts-int8; training kernels: train, their
-fp32 modes: train-fp32, both on the joint n = 6144: mmdit-train; the gated
+fp32 modes: train-fp32, both on the joint n = 6144: mmdit-train; kernels 1
+(rotary) and 4 at head dim 128 in both dtypes: d128; the gated
 residual projection, on no path: kernels), error, times, bound and library
 time; the compress phase's
 launches (kernels 1, 2 and 4 again) are logged and checked in that phase;
@@ -3968,6 +3990,526 @@ def phase_mmdit_train(dev, cfg=None) -> dict:
     return launches
 
 
+# ---- [d128]: head dim 128 in kernels 1 and 4 --------------------------------
+# F5TTS_v1_Base at its full width (inner 1024) and depth as 8 heads of 128: the
+# YAML's `model.arch.dim_head`, which reaches the model through the config
+# loader in both packages; the JAX package runs its Pallas kernels there.
+D128_HEADS, D128_DIM_HEAD = 8, 128
+D128_SERVE = (1088, (1051, 0))  # kernel 1 at the DiT's serving bucket, a sample with no valid key
+D128_TRAIN = ((4096, (4096, 4059)), (JOINT_N, (JOINT_N, JOINT_N - 37)))  # kernel 4's cases
+D128_STEP = (2, 4096)  # the CFM steps: b, n
+D128_KEEP_N = 128  # the keep-bit readout's sequence: one [128, 128] head of bits
+# CFM.loss of the 8 x 128 DiT at b = 2, n = 1024, kernels vs plain attention, by
+# the rule above (H100, 700 W): bf16 loss 9.3e-6 vs 3.2e-5 and gradient L2
+# 3.4e-3 vs 6.3e-3, past LOSS_TOL / GRAD_TOL, which were set on 16 x 64 heads
+# (the kernels' own errors are d = 64's: relative L2 3.2e-3 / 2.6e-3 at both
+# head dims); its q / k / v gradient 2.9e-3 vs 1.8e-2 keeps QKV_GRAD_TOL
+D128_LOSS_TOL = 1.7e-5
+D128_GRAD_TOL = 4.6e-3
+# fp32: the 3xTF32 kernels give the plain version's loss (relative error 0 on
+# an H100), and wrong attention-dropout keys move it by 9.9e-7, which
+# FP32_STEP_LOSS_TOL could not see: a tenth of the control; the gradients
+# (2.7e-7 and 3.8e-7 vs 3.8e-3 and 1.8e-2) keep FP32_STEP_GRAD_TOL
+D128_FP32_LOSS_TOL = 1e-7
+
+
+def d128_config(tmp: Path):
+    """`configs/F5TTS_v1_Base.yaml` with `model.arch` heads 8 and dim_head 128,
+    written into ``tmp`` and loaded by the port's config loader: (the model
+    config, the file)."""
+    from eraxvif5tts_tpu_torch.configs import load_model_config
+
+    text = (ROOT / "configs" / "F5TTS_v1_Base.yaml").read_text()
+    if text.count("    heads: 16\n") != 1:
+        raise AssertionError("configs/F5TTS_v1_Base.yaml: no single `heads: 16` line")
+    path = tmp / "F5TTS_v1_Base_8x128.yaml"
+    path.write_text(text.replace("    heads: 16\n",
+                                 f"    heads: {D128_HEADS}\n    dim_head: {D128_DIM_HEAD}\n"))
+    cfg = load_model_config(str(path))
+    a = cfg.arch
+    if (a.dim, a.depth, a.heads, a.dim_head, a.ff_mult) != (1024, 22, D128_HEADS,
+                                                            D128_DIM_HEAD, 2):
+        raise AssertionError(f"[d128] the loaded arch is {a}")
+    return cfg, path
+
+
+def check_d128_geometry() -> None:
+    """The constants every built attention kernel reports at d = 64 and 128
+    against the ones `ops/train_attention.py` states, and the C interface
+    refusing another head dim: its geometry entries and a launch at d = 32
+    return a non-zero code (no kernel runs)."""
+    import ctypes
+
+    import torch
+
+    from eraxvif5tts_tpu_torch.ops import _cuda
+    from eraxvif5tts_tpu_torch.ops import serving_attention as sa
+    from eraxvif5tts_tpu_torch.ops import train_attention as ta
+
+    built_keys = ("rows", "stages", "threads", "shared_bytes")
+    for d in ta.HEAD_DIMS:
+        fwd, bwd = ta.forward_geometry(2, 4096, 16, d), ta.backward_geometry(2, 4096, 16, d)
+        f32, b32 = (ta.forward_geometry_fp32(2, 4096, 16, d),
+                    ta.backward_geometry_fp32(2, 4096, 16, d))
+        stated = {"forward": {key: fwd[key] for key in built_keys},
+                  "backward": {key: bwd[key] for key in built_keys},
+                  "fp32": dict({key: f32[key] for key in ta.FP32_FORWARD_BUILT},
+                               bwd_rows=b32["rows"], bwd_threads=b32["threads"],
+                               bwd_stages=b32["bwd_stages"],
+                               dq_shared_bytes=b32["dq_shared_bytes"],
+                               dkv_shared_bytes=b32["dkv_shared_bytes"]),
+                  "fp32 serving": {key: f32[key] for key in ta.FP32_FORWARD_BUILT}}
+        built = {"forward": ta.kernel_forward_geometry(d),
+                 "backward": ta.kernel_backward_geometry(d),
+                 "fp32": ta.kernel_geometry_fp32(d), "fp32 serving": sa.kernel_geometry_fp32(d)}
+        if built != stated:
+            raise AssertionError(f"[d128] built geometry at d = {d}: {built}; stated {stated}")
+        log(f"[d128] built geometry at d = {d} equals the stated one: bf16 forward "
+            f"{built['forward']} (registers {fwd['registers']}), backward {built['backward']}; "
+            f"fp32 {built['fp32']}, {f32['blocks_per_sm']} block(s) an SM")
+    lib = _cuda.kernels().lib
+    out = (ctypes.c_int * 9)()
+    refused = {name: getattr(lib, name)(32, out) for name in (
+        "erax_flash_forward_geometry", "erax_train_attention_bwd_geometry",
+        "erax_train_attention_fp32_geometry", "erax_serving_attention_fp32_geometry")}
+    q = torch.zeros((1, 64, 2, 32), dtype=torch.bfloat16, device="cuda")
+    lens = torch.full((1,), 64, dtype=torch.int32, device="cuda")
+    refused["erax_serving_attention"] = lib.erax_serving_attention(
+        q.data_ptr(), q.data_ptr(), q.data_ptr(), lens.data_ptr(), None, None, q.data_ptr(),
+        1, 64, 2, 32, 0, 1.0, _cuda.stream_ptr(q.device))
+    if not all(refused.values()):
+        raise AssertionError(f"[d128] an entry point took head dim 32: {refused}")
+    log(f"[d128] head dim 32 refused by the C interface (non-zero codes, no launch): {refused}")
+
+
+def zero_upper_half(t):
+    """``t`` with its head columns 64.. zeroed: what a kernel that read only
+    the first panel of a [.., 128] head would see."""
+    bad = t.clone()
+    bad[..., 64:] = 0
+    return bad
+
+
+def rotated_outside(x, rope):
+    """``x [b, n, h, d]`` rotated as the serving attention rotates it, heads
+    second: the library yardstick's q or k for a rotary row."""
+    from eraxvif5tts_tpu_torch.ops import serving_attention as sa
+
+    return sa._rotate(x, rope).transpose(1, 2)
+
+
+def check_serving_attention_d128(dev) -> dict:
+    """Kernel 1 at d = 128 (b = 2, h = 8) in bf16 and fp32 against its plain
+    version: at n = 1088 (lens 1051 and 0) with and without rotary, and at
+    the joint n = 6144 (JOINT_LENS) without; within TOL (bf16) or FP32_TOL
+    (fp32, plain with TF32 off) * (1 + |plain|), a second call bit-identical.
+    Beside each reading two planted faults, the plain version with the
+    second half of V's and of K's head columns zeroed, which the check must
+    refuse. At n = 1088 the kernel, the plain version and the library
+    yardstick are timed (bf16: `scaled_dot_product_attention` on the flash
+    backend, which takes no key mask; fp32: with the boolean key mask, TF32
+    off; on the rotary rows with q and k rotated outside it, in the timing)
+    and the bound computed from these inputs. Returns the JSON rows (n =
+    1088)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from eraxvif5tts_tpu_torch.ops import serving_attention as sa
+    from eraxvif5tts_tpu_torch.ops.rotary import rotary_freqs
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 160)
+    rows, h, d = {}, D128_HEADS, D128_DIM_HEAD
+    for dtype, tag, tol in ((torch.bfloat16, "", TOL), (torch.float32, "_fp32", FP32_TOL)):
+        for n, lens_list, modes in ((*D128_SERVE, (True, False)), (JOINT_N, JOINT_LENS, (False,))):
+            q, k, v = (torch.randn((2, n, h, d), generator=gen, device=dev).to(dtype)
+                       for _ in range(3))
+            lens = torch.tensor(lens_list, device=dev)
+            for with_rope in modes:
+                name = f"serving_attention{tag}_d128" + ("" if with_rope else "_norope")
+                case = f"{name} n={n} lens={list(lens_list)}"
+                rope = rotary_freqs(n, d, device=dev) if with_rope else None
+                with tf32(False):
+                    want = sa.serving_attention_reference(q, k, v, lens, rope)
+                    faults = {}
+                    for which, args in (("v", (q, k, zero_upper_half(v))),
+                                        ("k", (q, zero_upper_half(k), v))):
+                        bad = sa.serving_attention_reference(*args, lens, rope)
+                        faults[which] = float(((bad.float() - want.float()).abs()
+                                               / (1 + want.float().abs())).max())
+                        del bad
+                got = sa.serving_attention(q, k, v, lens, rope)
+                err = compare(case, got, want, tol)
+                if not torch.equal(got, sa.serving_attention(q, k, v, lens, rope)):
+                    raise AssertionError(f"{case}: a second call on the same inputs differs")
+                caught = {which: f > tol for which, f in faults.items()}
+                note = (f"[d128] {case} b=2 h={h} d={d}: max_abs_err {err:.3g} (tol {tol} * "
+                        "(1 + |plain|)), second call bit-identical; planted faults (plain with "
+                        "head columns 64-127 zeroed) " + ", ".join(
+                            f"{which} {f:.3g} ({'caught' if caught[which] else 'MISSED'})"
+                            for which, f in faults.items()))
+                if not all(caught.values()):
+                    log(note)
+                    raise AssertionError(f"{case}: a planted fault passes the check: {faults}")
+                if n != D128_SERVE[0]:
+                    log(note)
+                    continue
+                ms = cuda_median_ms(lambda: sa.serving_attention(q, k, v, lens, rope))
+                with tf32(False):
+                    plain_ms = cuda_median_ms(
+                        lambda: sa.serving_attention_reference(q, k, v, lens, rope),
+                        iters=5, warmup=1)
+                    vt = v.transpose(1, 2)
+                    if rope is None:
+                        qt, kt = q.transpose(1, 2), k.transpose(1, 2)
+
+                        def operands():
+                            return qt, kt
+                    else:
+                        def operands():
+                            return rotated_outside(q, rope), rotated_outside(k, rope)
+                    if dtype == torch.bfloat16:
+                        def library():
+                            with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+                                return F.scaled_dot_product_attention(*operands(), vt)
+                    else:
+                        key_mask = (torch.arange(n, device=dev)[None]
+                                    < lens[:, None])[:, None, None, :]
+
+                        def library():
+                            return F.scaled_dot_product_attention(*operands(), vt,
+                                                                  attn_mask=key_mask)
+                    library_ms = cuda_median_ms(library)
+                work = attention_work(2, n, h, d, list(lens_list), with_rope, q.element_size())
+                least = bound(*work, "bf16" if dtype == torch.bfloat16 else "tf32x3")
+                log(f"{note}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                    f"{least['bound_ms']:.5f} ms by {least['bound_by']} "
+                    f"({100 * least['bound_ms'] / ms:.1f} % of it), library "
+                    f"(scaled_dot_product_attention"
+                    + (", flash backend, no key mask" if dtype == torch.bfloat16
+                       else ", boolean key mask, TF32 off")
+                    + (", q and k rotated outside it" if rope is not None else "")
+                    + f") {library_ms:.4f} ms: the kernel takes {ms / library_ms:.2f}x its time")
+                rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                  library_ms=library_ms, **least)
+            del q, k, v, want, got
+    return rows
+
+
+def check_keep_bits_d128(dev) -> None:
+    """The keep bits kernels 4a and 4c regenerate at d = 128, bit for bit
+    against `dropout_keep_mask`, in bf16 and fp32: with q = k = 0 every
+    weight of a [128, 128] head is 1 / 128, and with V = dO = I the forward's
+    O[i, c] is Pd[i, c] and dk/dv's dV[j, c] is Pd[c, j], each 0 exactly
+    where the bit drops (i, j) and non-zero where it keeps it."""
+    import torch
+
+    from eraxvif5tts_tpu_torch.ops import train_attention as ta
+
+    n, h, d, rate, seed = D128_KEEP_N, D128_HEADS, D128_DIM_HEAD, 0.1, 0x5EED0128
+    want = torch.stack([torch.stack([ta.dropout_keep_mask(seed, bi, hi, 0, 0, n, n, n,
+                                                          1.0 - rate, dev)
+                                     for hi in range(h)]) for bi in range(2)])
+    for dtype in (torch.bfloat16, torch.float32):
+        zeros = torch.zeros((2, n, h, d), dtype=dtype, device=dev)
+        eye = torch.eye(n, d, dtype=dtype, device=dev)[None, :, None, :].expand(2, n, h, d)
+        eye = eye.contiguous()
+        lens = torch.full((2,), n, dtype=torch.int32, device=dev)
+        fwd, _, dkv = ta._LAUNCHERS[dtype]
+        out, lse = fwd(zeros, zeros, eye, lens, rate, seed)
+        _, dv = dkv(zeros, zeros, eye, lens, lse, ta.row_dot(eye, out), eye, rate, seed)
+        got = {"4a (O)": out.permute(0, 2, 1, 3) != 0, "4c (dV)": dv.permute(0, 2, 3, 1) != 0}
+        wrong = {name: int((bits != want).sum()) for name, bits in got.items()}
+        log(f"[d128] keep bits {str(dtype).split('.')[-1]} b=2 h={h} n={n} dropout {rate}: "
+            f"{int(want.sum())} of {want.numel()} kept; bits that differ from "
+            f"dropout_keep_mask: {wrong}; planted fault (the next seed's mask): "
+            + str(int((ta.dropout_keep_mask(seed + 1, 0, 0, 0, 0, n, n, n, 1.0 - rate, dev)
+                       != want[0, 0]).sum())) + " bits of head (0, 0) differ")
+        if any(wrong.values()):
+            raise AssertionError(f"[d128] the kernels' keep bits differ: {wrong}")
+
+
+def check_train_attention_d128(dev) -> dict:
+    """Kernels 4a / 4b / 4c at d = 128 (b = 2, h = 8) in bf16 and fp32 through
+    `train_attention`'s autograd against the plain version at D128_TRAIN
+    (n = 4096 with lens [4096, 4059], the joint n = 6144 with [6144, 6107]),
+    dropout 0.1 and keep = 1: bf16 within TOL and ATTN_REL_TOL with the
+    wrong-seed control (:func:`check_train_attention_case`), fp32 within
+    FP32_ATTN_TOLS with a TF32 control at dropout 0.1
+    (:func:`check_train_attention_fp32_case`); the LSE; second calls
+    bit-identical. At n = 4096 and dropout 0.1 a planted fault, the plain
+    version with V's head columns 64-127 zeroed, must be refused; then the
+    kernels are timed (:func:`time_train_attention`). Returns the JSON rows
+    (n = 4096), ``train_attention_d128_*`` and ``train_attention_fp32_d128_*``."""
+    import torch
+
+    rows = {}
+    h, d = D128_HEADS, D128_DIM_HEAD
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 170 + len(tag))
+        errs = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+        times = None
+        for n, lens_list in D128_TRAIN:
+            q, k, v, dout = (torch.randn((2, n, h, d), generator=gen, device=dev).to(dtype)
+                             for _ in range(4))
+            lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
+            seed = 0x5EED0000 + n + d
+            for rate in (0.1, 0.0):
+                case = f"train_attention {tag} b=2 h={h} d={d} n={n} lens={list(lens_list)} " \
+                       f"dropout {rate}"
+                if dtype == torch.bfloat16:
+                    abs_err = check_train_attention_case(q, k, v, dout, lens, rate, seed)["abs_err"]
+                    got = [abs_err[name] for name in ("fwd", "dq", "dk", "dv")]
+                else:
+                    err, out, want, lse_err = check_train_attention_fp32_case(
+                        q, k, v, dout, lens, rate, seed, case)
+                    got = [float((g - w).abs().max()) for g, w in zip(out, want)]
+                    note = ""
+                    if rate > 0.0:
+                        control = tf32_control(q, k, v, dout, lens, rate, seed, want, case)
+                        note = "; TF32 control (refused) " + ", ".join(
+                            f"{name} {c:.3g}" for name, c in control.items())
+                    del out, want
+                    log(f"[d128] {case}: " + ", ".join(f"{name} {e:.3g}"
+                                                        for name, e in err.items())
+                        + f" (limits {FP32_ATTN_TOLS}); LSE relative L2 {lse_err:.3g}; second "
+                        f"forward and backward bit-identical{note}")
+                for name, e in zip(("fwd", "dq", "dkv", "dkv"), got):
+                    errs[name] = max(errs[name], e)
+            if n != D128_TRAIN[0][0]:
+                del q, k, v, dout
+                continue
+            with tf32(False):
+                want = plain_attention_grads(q, k, v, dout, lens, 0.1, seed)
+                bad = plain_attention_grads(q, k, zero_upper_half(v), dout, lens, 0.1, seed)
+            if dtype == torch.bfloat16:
+                fault = {name: rel_l2(b, w) for name, b, w in zip(("fwd", "dq", "dk", "dv"),
+                                                                 bad, want)}
+                caught = any(f > ATTN_REL_TOL for f in fault.values())
+                limits = f"relative L2, tol {ATTN_REL_TOL}"
+            else:
+                fault = fp32_attention_errors(bad, want)
+                caught = any(fault[name] > tol for name, tol in FP32_ATTN_TOLS.items())
+                limits = f"limits {FP32_ATTN_TOLS}"
+            del want, bad
+            log(f"[d128] train_attention {tag} n={n} dropout 0.1, planted fault (plain with V's "
+                f"head columns 64-127 zeroed): " + ", ".join(f"{name} {f:.3g}"
+                                                           for name, f in fault.items())
+                + f" ({limits}): {'caught' if caught else 'MISSED'}")
+            if not caught:
+                raise AssertionError(f"[d128] train_attention {tag}: the planted fault passes")
+            ms, times, least, ffma = time_train_attention(q, k, v, dout, lens, list(lens_list),
+                                                          seed)
+            plain_fwd, plain_bwd, lib_fwd, lib_bwd = train_attention_yardsticks(times)
+            keep1 = ms[0.0]
+            log(f"[d128] train_attention {tag} b=2 n={n} h={h} d={d} lens {list(lens_list)}: at "
+                f"dropout 0.1 forward {ms[0.1]['fwd']:.4f} ms, dq {ms[0.1]['dq']:.4f} ms, dk/dv "
+                f"{ms[0.1]['dkv']:.4f} ms; at keep = 1 forward {keep1['fwd']:.4f} ms, dq "
+                f"{keep1['dq']:.4f} ms, dk/dv {keep1['dkv']:.4f} ms; bounds "
+                + ", ".join(f"{name} {x['bound_ms']:.5f} ms by {x['bound_by']} "
+                            f"({x['bound_ms'] / keep1[name]:.1%} of keep 1)"
+                            for name, x in least.items())
+                + (" at the 3xTF32 rate (FFMA " + " / ".join(
+                    f"{x['bound_ms']:.5f}" for x in ffma.values()) + " ms)"
+                   if dtype == torch.float32 else "")
+                + f"; plain forward {plain_fwd:.4f} ms, plain backward {plain_bwd:.4f} ms; "
+                f"library scaled_dot_product_attention{' (TF32 off)' if tag == 'fp32' else ''} "
+                f"at keep = 1, no mask: forward {lib_fwd:.4f} ms, backward {lib_bwd:.4f} ms; "
+                f"against it at keep = 1 the forward takes {keep1['fwd'] / lib_fwd:.2f}x and "
+                f"dq + dk/dv {(keep1['dq'] + keep1['dkv']) / lib_bwd:.2f}x its time")
+            del q, k, v, dout
+        prefix = "train_attention_d128" if tag == "bf16" else "train_attention_fp32_d128"
+        rows.update({f"{prefix}_{name}": dict(max_abs_err=errs[name], **times[name])
+                     for name in errs})
+    return rows
+
+
+def head_dim_counters() -> dict:
+    """Every attention launcher's counters by head dim (the dicts themselves)."""
+    from eraxvif5tts_tpu_torch.ops import serving_attention as sa
+    from eraxvif5tts_tpu_torch.ops import train_attention as ta
+
+    counters = {"serving_attention": sa.serving_attention.launches_by_head_dim,
+                "serving_attention_fp32": sa.serving_attention.launches_fp32_by_head_dim}
+    for fn in (ta.flash_forward, ta.flash_dq, ta.flash_dkv, ta.flash_forward_fp32,
+               ta.flash_dq_fp32, ta.flash_dkv_fp32):
+        counters[fn.__name__] = fn.launches_by_head_dim
+    return counters
+
+
+def head_dim_counts() -> dict:
+    """Every attention launcher's launches by head dim, copied."""
+    return {name: dict(counts) for name, counts in head_dim_counters().items()}
+
+
+def reset_head_dim_counts() -> None:
+    for counts in head_dim_counters().values():
+        for d in counts:
+            counts[d] = 0
+
+
+def serve_d128(cfg, ckpt: Path, dev, dtype: str | None) -> int:
+    """The 8 x 128 checkpoint served by `F5TTSWrapper(model_cfg=cfg)`, bf16 when
+    asked, else default-built (fp32): the backbone against its plain versions
+    (bf16, DIT_TOL) or the CPU's (fp32), then `generate` of TEXTS[:2] at NFE
+    32, each chunk one graph replay with kernel 1 (rotary fused) counted
+    depth x 32 a chunk (kernel 2 as well in bf16), every attention launch of
+    the d = 128 instantiation and none of d = 64. Returns kernel 1's
+    launches."""
+    import torch
+
+    from eraxvif5tts_tpu_torch.infer.wrapper import F5TTSWrapper
+
+    vocab = {c: i for i, c in enumerate(VOCAB_CHARS)}
+    t0 = time.perf_counter()
+    extra = {} if dtype is None else {"compute_dtype": dtype}
+    wrapper = F5TTSWrapper(model_cfg=cfg, ckpt_path=str(ckpt), vocab_char_map=vocab,
+                           device=dev, nfe_step=NFE, **extra)
+    randomize((wrapper.vocoder,), SEED)
+    torch.cuda.synchronize()
+    a = wrapper.config.arch
+    tag = f"[d128] {wrapper.compute_dtype}"
+    log(f"{tag} F5TTSWrapper(model_cfg=<the YAML's>, "
+        f"{'compute_dtype=' + repr(dtype) if dtype else 'no compute_dtype'}): dim {a.dim} depth "
+        f"{a.depth} heads {a.heads}x{a.dim_head} ff_mult {a.ff_mult}, "
+        f"{sum(p.numel() for p in wrapper.transformer.parameters()) / 1e6:.1f} M DiT params, "
+        f"{wrapper.compute_dtype}, built in {time.perf_counter() - t0:.1f} s")
+    if dtype is None:
+        if wrapper.compute_dtype != "float32":
+            raise AssertionError(f"{tag} the default wrapper serves {wrapper.compute_dtype}")
+        check_backbone_against_cpu(wrapper.transformer, dev, tag)
+        path = "serving_attention_fp32"
+    else:
+        check_dit_against_plain(wrapper.transformer, dev, tag)
+        path = "serving_attention"
+    ref = load_reference(wrapper)
+    reset_head_dim_counts()
+    # bf16 runs the normalised projection (kernel 2) too, as the main phase
+    counts = generate_counted(wrapper, ref, TEXTS[:2], NFE, tag,
+                              (path, "ln_mod_matmul") if dtype else (path,))
+    by_d = head_dim_counts()
+    want = {path: {64: 0, 128: counts[path]}}
+    if {path: by_d[path]} != want or any(
+            sum(c.values()) for name, c in by_d.items() if name != path):
+        raise AssertionError(f"{tag} launches by head dim {by_d}, expected {want} alone")
+    log(f"{tag} launches by head dim: {by_d[path]} (d = 128 only)")
+    return counts[path]
+
+
+def train_d128(dev, arch) -> dict:
+    """CFM training of the 8 x 128 DiT at full width and depth (dropout 0.1,
+    blocks checkpointed, remat full) in bf16 compute and in fp32: `CFM.loss`
+    at b = 2, n = 1024 (:func:`loss_batch`) with the kernels against the
+    plain attention (:func:`hold_loss_against_plain`: bf16 within
+    D128_LOSS_TOL / D128_GRAD_TOL / QKV_GRAD_TOL, fp32 within
+    D128_FP32_LOSS_TOL and FP32_STEP_GRAD_TOL, each against a wrong-keys
+    control), then `Trainer.train_step` at D128_STEP, a warm-up and one
+    timed step, with the step's dtype's kernels counted 2 x depth / depth /
+    depth a step at d = 128 and none at d = 64 or of the other dtype; each
+    step's wall and the peak memory logged. Returns the launches of the
+    timed steps."""
+    import torch
+
+    from eraxvif5tts_tpu_torch.models.cfm import CFM
+    from eraxvif5tts_tpu_torch.models.dit import DiT
+    from eraxvif5tts_tpu_torch.ops import train_attention as ta
+    from eraxvif5tts_tpu_torch.training.trainer import Trainer, batch_seed, make_optimizer
+
+    arch = dataclasses.replace(arch, dropout=0.1, checkpoint_activations=True,
+                               remat_policy="full")
+    b, n = D128_STEP
+    depth = arch.depth
+    launches = {}
+    for dtype, tag, tols in (
+            (torch.bfloat16, "bf16", {"loss": D128_LOSS_TOL, "gradient L2": D128_GRAD_TOL,
+                                      "q/k/v gradient L2": QKV_GRAD_TOL}),
+            (None, "fp32", {"loss": D128_FP32_LOSS_TOL, "gradient L2": FP32_STEP_GRAD_TOL,
+                            "q/k/v gradient L2": FP32_STEP_GRAD_TOL})):
+        t0 = time.perf_counter()
+        dit = DiT(arch, text_num_embeds=len(VOCAB_CHARS), mel_dim=100,
+                  compute_dtype=dtype).to(dev)
+        randomize((dit,), SEED)
+        cfm = CFM(dit.train())
+        log(f"[d128] train {tag}: DiT dim {arch.dim} depth {depth} heads {arch.heads}x"
+            f"{arch.dim_head}, {sum(p.numel() for p in dit.parameters()) / 1e6:.1f} M fp32 "
+            f"parameters, {tag} compute, dropout {arch.dropout}, remat {arch.remat_policy}, built "
+            f"in {time.perf_counter() - t0:.1f} s")
+        # at the train phase's n = 1024, where its limits were set: at 4096 the
+        # loss of 2 x 4096 frames averages a wrong mask away (2.7e-6 beside
+        # 7.9e-6 of bf16 rounding on an H100)
+        mel, text, lens, draws = loss_batch(dev, SEED + 180, depth)
+        hold_loss_against_plain(f"[d128] train {tag} CFM.loss b=2 n={mel.shape[1]} dropout "
+                                f"{arch.dropout}", dit,
+                                lambda draws: cfm.loss(mel, text, lens, draws)[0], draws, tols)
+        del mel, text, lens, draws
+        trainer = Trainer(cfm=cfm, optimizer=make_optimizer(num_warmup_updates=1,
+                                                             total_updates=1000))
+        state = trainer.init_state()
+        step_dtype = torch.bfloat16 if dtype is not None else torch.float32
+        kernels = ta._LAUNCHERS[step_dtype]
+        reset_head_dim_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        walls = []
+        for i in range(2):  # a warm-up, then the timed step
+            batch = train_batch(dev, SEED + 190 + i, (b, n))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = trainer.train_step(
+                state, batch, torch.Generator(device=dev).manual_seed(batch_seed(SEED, 0, i)))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            if not (math.isfinite(metrics["loss"]) and metrics["applied"] == 1.0):
+                raise AssertionError(f"[d128] train {tag} step {i + 1}: {metrics}")
+        by_d = head_dim_counts()
+        # the forward twice a step (the blocks are checkpointed), dq and dk/dv once
+        want = {fn.__name__: {64: 0, 128: len(walls) * depth * (2 if fn is kernels[0] else 1)}
+                for fn in kernels}
+        others = {name: c for name, c in by_d.items()
+                  if name not in want and sum(c.values())}
+        if {name: by_d[name] for name in want} != want or others:
+            raise AssertionError(f"[d128] train {tag}: launches by head dim {by_d}, expected "
+                                 f"{want} alone")
+        peak = torch.cuda.max_memory_allocated(dev)
+        log(f"[d128] train {tag} Trainer.train_step b={b} n={n}: warm-up {walls[0]:.3f} s, timed "
+            f"step {walls[1]:.3f} s ({b * n / walls[1]:.0f} frames/s), loss {metrics['loss']:.5f}, "
+            f"peak memory {peak / 2**30:.2f} GiB; launches by head dim "
+            + ", ".join(f"{name} {by_d[name]}" for name in want))
+        prefix = "train_attention_d128" if tag == "bf16" else "train_attention_fp32_d128"
+        launches.update({f"{prefix}_{name}": by_d[fn.__name__][128]
+                         for name, fn in zip(("fwd", "dq", "dkv"), kernels)})
+        del trainer, state, cfm, dit
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_d128(dev) -> tuple[dict, dict]:
+    """Head dim 128 in kernels 1 and 4: the built geometry and the refusal of
+    another d (:func:`check_d128_geometry`), each kernel mode against its
+    plain version with its planted faults and timed (kernel 1:
+    :func:`check_serving_attention_d128`; 4a-4c:
+    :func:`check_train_attention_d128`; the keep bits:
+    :func:`check_keep_bits_d128`); F5TTS_v1_Base.yaml with 8 heads of 128
+    (:func:`d128_config`) as a seeded N(0, 0.02) reference-format checkpoint
+    served in bf16 and in fp32 (:func:`serve_d128`) and trained in both
+    (:func:`train_d128`). Returns (the JSON rows, the launches on the
+    path)."""
+    check_d128_geometry()
+    rows = check_serving_attention_d128(dev)
+    rows.update(check_train_attention_d128(dev))
+    check_keep_bits_d128(dev)
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg, path = d128_config(Path(tmp))
+        log(f"[d128] {path.name}: configs/F5TTS_v1_Base.yaml with model.arch heads "
+            f"{D128_HEADS}, dim_head {D128_DIM_HEAD}, loaded by load_model_config: {cfg.arch}")
+        ckpt = Path(tmp) / "model.pt"
+        save_reference_checkpoint(ckpt, cfg, dev)
+        launches["serving_attention_d128"] = serve_d128(cfg, ckpt, dev, "bfloat16")
+        launches["serving_attention_fp32_d128"] = serve_d128(cfg, ckpt, dev, None)
+    launches.update(train_d128(dev, cfg.arch))
+    return rows, launches
+
+
 COMPRESS_DEPTHS = (14, 12)  # F5TTS_v1_Pruned_14 / _12
 COMPRESS_SERVE = ((14, 7), (14, 16), (12, 16))  # (depth, NFE) of the served students
 
@@ -6020,6 +6562,9 @@ def main() -> int:
     fp32_train_rows, fp32_train_launches = timed("[train-fp32]", phase_train_fp32, dev)
     kernel_results.update(fp32_train_rows)
     launches.update(fp32_train_launches)
+    d128_rows, d128_launches = timed("[d128]", phase_d128, dev)
+    kernel_results.update(d128_rows)
+    launches.update(d128_launches)
     launches.update(timed("[mmdit-train]", phase_mmdit_train, dev,
                           cut_depth(PRESETS["F5TTS_v1_MMDiT"], MMDIT_TRAIN_DEPTH)))
     with tempfile.TemporaryDirectory() as tmp:
@@ -6092,8 +6637,15 @@ def main() -> int:
                replaces=f"eraxvif5tts_tpu/ops/train_attention.py:{line}",
                launches=launches[f"{prefix}_{name}"], **kernel_results[f"{prefix}_{name}"])
           for prefix, source in (("train_attention_joint", "train_attention.cu"),
-                                 ("train_attention_fp32_joint", "train_attention_fp32.cu"))
+                                 ("train_attention_fp32_joint", "train_attention_fp32.cu"),
+                                 ("train_attention_d128", "train_attention.cu"),
+                                 ("train_attention_fp32_d128", "train_attention_fp32.cu"))
           for name, line in (("fwd", 104), ("dq", 150), ("dkv", 190))),
+        *(dict(name=name, route="cuda", source=f"eraxvif5tts_tpu_torch/csrc/{source}",
+               replaces="eraxvif5tts_tpu/ops/serving_attention.py:121",
+               launches=launches[name], **kernel_results[name])
+          for name, source in (("serving_attention_d128", "serving_attention.cu"),
+                               ("serving_attention_fp32_d128", "serving_attention_fp32.cu"))),
     ]
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
     if missing:

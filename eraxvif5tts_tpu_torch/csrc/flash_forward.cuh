@@ -4,26 +4,33 @@
 // parts of `wgmma_tile.cuh`. Also the constants, the dropout hash and the
 // warpgroup product helpers that the backward kernels share with it.
 //
-// For one (sample, head) of q, k, v [b, n, h, 64] bf16:
+// For one (sample, head) of q, k, v [b, n, h, d] bf16, d = 64 or 128 (the
+// template's D):
 //   S = q k^T * scale (fp32), keys >= lens[b] masked,
 //   P = softmax(S) over the keys, O = P v (bf16 P, fp32 sums, bf16 O).
 //
-// Design. A block owns 192 query rows of one (sample, head): three consumer
-// warpgroups of 64 rows each and a producer warpgroup (with two consumer
-// warpgroups, 128 rows a block, every block reads all of K and V for fewer
-// rows and an SM has fewer chains of dependent work in flight: slower on an
-// H100 at every shape tried). One producer thread
+// Design. At d = 64 a block owns 192 query rows of one (sample, head): three
+// consumer warpgroups of 64 rows each and a producer warpgroup (with two
+// consumer warpgroups, 128 rows a block, every block reads all of K and V for
+// fewer rows and an SM has fewer chains of dependent work in flight: slower
+// on an H100 at every shape tried). At d = 128 a consumer's O accumulator is
+// 64 fp32 registers a thread, twice d = 64's, which three consumer
+// warpgroups at 144 registers do not hold: a block owns 128 rows, two
+// consumer warpgroups at 216 registers (`FwdShape`). One producer thread
 // starts the TMA loads: the block's Q tiles once, then a ring of `kFwdStages`
 // stages, a K tile and a V tile each, that it refills as the consumers
 // release them (a full and an empty mbarrier per stage); the ring ends at the
-// last tile that holds a valid key. Every tile is 64 rows x 128 bytes with the
-// 128-byte swizzle. A consumer warpgroup computes S = Q K^T with
-// wgmma.mma_async m64n64k16, both operands K-major from shared memory, keeps
+// last tile that holds a valid key. Every tile is 64 rows x d columns, d / 64
+// panels of 64 rows x 128 bytes with the 128-byte swizzle (`wgmma_tile.cuh`),
+// one TMA box each. A consumer warpgroup computes S = Q K^T with
+// wgmma.mma_async m64n64k16 over d / 16 k-steps across the panels, both
+// operands K-major from shared memory, keeps
 // the online softmax (running max and sum of a row over a quad of lanes,
 // base-2 exponentials on the special-function unit) on the fp32 accumulator
 // in registers, rounds P to bf16 in registers as the A operand of O += P V,
 // and reads V MN-major from the same TMA copy through the descriptor's
-// transpose bit: no transposed copy of V exists. The scale is folded into the
+// transpose bit, one m64n64k16 chain a panel of V into that panel's 32
+// accumulators: no transposed copy of V exists. The scale is folded into the
 // exponent: p = 2^(s * c - m * c) with c = scale * log2(e) is one fused
 // multiply-add and one ex2 an element. A warpgroup waits for its own
 // products before its softmax; only the other warpgroup's work overlaps it.
@@ -33,23 +40,24 @@
 // nothing beyond the run-to-run spread; a likely reason is that m64n64k16
 // products run well below the tensor cores' peak whatever their schedule.)
 //
-// Rows are handed out in units of 64: where n is no multiple of 192 the last
-// block's warpgroups past the sample's end have no rows, load nothing and
-// take no part in the empty barriers' counts, so no tile hangs over the end
-// of a sample.
+// Rows are handed out in units of 64: where n is no multiple of a block's
+// rows the last block's warpgroups past the sample's end have no rows, load
+// nothing and take no part in the empty barriers' counts, so no tile hangs
+// over the end of a sample.
 //
 // `kRope`: interleaved-pair rotary on q and k, in fp32, rounded to bf16 before
 // Q K^T. A TMA tile lands swizzled, so three warps of the producer warpgroup
 // rotate each K tile (and the Q tiles, once) in place in shared memory before
 // any wgmma reads it: an interleaved pair is 4 bytes and never leaves its
 // 16-byte chunk, the thread takes the chunk's logical (row, column) for the
-// cos / sin entries, a proxy fence orders its stores before the wgmma reads,
+// cos / sin entries (a d = 128 row is 16 chunks, the last 8 in the second
+// panel), a proxy fence orders its stores before the wgmma reads,
 // and the consumers wait on a third barrier of the stage (`ready`) instead of
 // `full`. The rotation runs ahead of the consumers by up to the ring's depth,
 // off their critical path. What it costs: every block rotates every K tile
-// again and reads 2 x 16 KB of fp32 cos / sin for it from L2, twice the
-// bytes of the K and V tiles themselves; at n = 4096 that traffic, not the
-// products, bounds this mode.
+// again and reads 2 x 64 d * 4 bytes of fp32 cos / sin for it from L2, twice
+// the bytes of the K and V tiles themselves; at n = 4096 that traffic, not
+// the products, bounds this mode.
 // `kDrop`: the position-hash keep bit on P after the row sum took the
 // undropped weight (see `train_attention.cu`). `kLse`: LSE = log sum exp S in
 // fp32 [b, h, n].
@@ -65,7 +73,8 @@
 // against 768 clocks of the two products on the tensor cores, and the other
 // softmax arithmetic shares the schedulers' slots with both: unless one
 // warpgroup's softmax runs under the other's products the kernel cannot pass
-// half of its bound.
+// half of its bound. At d = 128 the products double and the softmax work
+// stays, so the products weigh more.
 #pragma once
 
 #include <math.h>
@@ -75,7 +84,6 @@
 
 namespace {
 
-constexpr int kD = 64;   // head dim
 constexpr int kBQ = 64;  // query rows per tile
 constexpr int kBK = 64;  // keys per tile
 constexpr float kNeg = -1e30f;
@@ -87,7 +95,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// ---- warpgroup products on 64 x 64 tiles ----------------------------------
+// ---- warpgroup products on [64, D] tiles (D / 64 panels) ------------------
 
 // The A fragments of a warpgroup's fp32 accumulator tile, rounded to bf16:
 // the accumulator of one product as the left operand of the next.
@@ -101,53 +109,100 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4][4], const float (&p)[3
   }
 }
 
-// acc = A B^T over the tiles' 64 columns (both K-major), asynchronously.
+// acc = A B^T over the tiles' D columns (both K-major), asynchronously: k16
+// steps 0-3 in each tile's first panel, 4-7 in its second.
+template <int D>
 __device__ __forceinline__ void product_abt(float (&acc)[32], uint64_t a, uint64_t b) {
   hopper::wgmma_ss_first(acc, a, b);
 #pragma unroll
-  for (int kk = 1; kk < kD / 16; ++kk)
-    hopper::wgmma_ss(acc, a + kk * hopper::kStepK, b + kk * hopper::kStepK);
+  for (int kk = 1; kk < D / 16; ++kk) {
+    const uint64_t step = (kk / 4) * hopper::kPanelStep + (kk % 4) * hopper::kStepK;
+    hopper::wgmma_ss(acc, a + step, b + step);
+  }
 }
 
-// acc += P B over the tile's 64 rows (B MN-major), asynchronously.
-__device__ __forceinline__ void product_pb(float (&acc)[32], const uint32_t (&p)[4][4],
+// acc += P B over the tile's 64 rows (B MN-major), asynchronously: panel c of
+// B into the accumulator acc[c] of its 64 columns.
+template <int P>
+__device__ __forceinline__ void product_pb(float (&acc)[P][32], const uint32_t (&p)[4][4],
                                            uint64_t b) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j) hopper::wgmma_rs_t(acc, p[j], b + j * hopper::kStepMN);
+  for (int c = 0; c < P; ++c)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      hopper::wgmma_rs_t(acc[c], p[j], b + c * hopper::kPanelStep + j * hopper::kStepMN);
 }
 
-// This thread's two rows of a warpgroup's [64, 64] accumulator, scaled, as
-// bf16 rows of a [b, n, h, 64] tensor; dst points at (first row, column 2 t).
-__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, long row_stride,
-                                           const float (&acc)[32], float scale) {
+template <int P>
+__device__ __forceinline__ void keep_panels(float (&acc)[P][32]) {
 #pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    *reinterpret_cast<__nv_bfloat162*>(dst + c * 8) =
-        __floats2bfloat162_rn(acc[4 * c] * scale, acc[4 * c + 1] * scale);
-    *reinterpret_cast<__nv_bfloat162*>(dst + 8 * row_stride + c * 8) =
-        __floats2bfloat162_rn(acc[4 * c + 2] * scale, acc[4 * c + 3] * scale);
-  }
+  for (int c = 0; c < P; ++c) hopper::keep(acc[c]);
+}
+
+template <int P>
+__device__ __forceinline__ void zero_panels(float (&acc)[P][32]) {
+#pragma unroll
+  for (int c = 0; c < P; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+}
+
+// This thread's two rows of a warpgroup's [64, 64 P] accumulator (P panels
+// of 64 columns), scaled, as bf16 rows of a [b, n, h, 64 P] tensor; dst
+// points at (first row, column 2 t).
+template <int P>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, long row_stride,
+                                           const float (&acc)[P][32], float scale) {
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      *reinterpret_cast<__nv_bfloat162*>(dst + 64 * p + c * 8) =
+          __floats2bfloat162_rn(acc[p][4 * c] * scale, acc[p][4 * c + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * row_stride + 64 * p + c * 8) =
+          __floats2bfloat162_rn(acc[p][4 * c + 2] * scale, acc[p][4 * c + 3] * scale);
+    }
 }
 
 // ---- the forward ----------------------------------------------------------
 
-constexpr int kFwdRows = 192;                             // query rows a block owns
-constexpr int kFwdGroups = kFwdRows / hopper::kTileRows;  // consumer warpgroups
-constexpr int kFwdStages = 4;                             // ring depth
-constexpr int kFwdThreads = (kFwdGroups + 1) * 128;       // + the producer's warpgroup
+constexpr int kFwdStages = 4;     // ring depth
 constexpr int kFwdRotators = 96;  // threads of the producer's warps 1-3 (kRope)
-// registers a thread after the roles split: 128 x 72 + 384 x 144 <= 512 x 128
-constexpr int kFwdProducerRegs = 72;
-constexpr int kFwdConsumerRegs = 144;
-constexpr int kFwdTile = hopper::kTileBytes;
-
-// Dynamic shared memory, from a 1024-byte boundary: the block's Q tiles (one
-// a warpgroup), the ring (a K and a V tile a stage), the barriers.
-constexpr int kFwdQOff = 0;
-constexpr int kFwdRingOff = kFwdQOff + kFwdGroups * kFwdTile;
-constexpr int kFwdBarOff = kFwdRingOff + kFwdStages * 2 * kFwdTile;
 constexpr int kFwdBarriers = 3 * kFwdStages + 2;
-constexpr int kFwdSmem = 1024 + kFwdBarOff + kFwdBarriers * 8;
+
+// Rows a block owns and the registers a thread after the roles split, by head
+// dim (`ops/train_attention.py` FWD_SHAPES): the producer's warpgroup x its
+// count + the consumers x theirs must stay within all threads x the launch
+// count (65,536 / threads, a multiple of 8), or setmaxnreg hangs.
+template <int D>
+struct FwdShape;
+template <>
+struct FwdShape<64> {  // 128 x 72 + 384 x 144 <= 512 x 128
+  static constexpr int kRows = 192, kProducerRegs = 72, kConsumerRegs = 144;
+};
+template <>
+struct FwdShape<128> {  // 128 x 72 + 256 x 216 <= 384 x 168
+  static constexpr int kRows = 128, kProducerRegs = 72, kConsumerRegs = 216;
+};
+
+// The forward's constants for head dim D. Dynamic shared memory, from a
+// 1024-byte boundary: the block's Q tiles (one a warpgroup), the ring (a K and
+// a V tile a stage), the barriers; a tile is D / 64 panels of 8192 bytes.
+template <int D>
+struct Fwd : FwdShape<D> {
+  static constexpr int kPanels = D / 64;
+  static constexpr int kGroups = FwdShape<D>::kRows / hopper::kTileRows;  // consumer warpgroups
+  static constexpr int kThreads = (kGroups + 1) * 128;  // + the producer's warpgroup
+  static constexpr int kTile = kPanels * hopper::kTileBytes;
+  static constexpr int kQOff = 0;
+  static constexpr int kRingOff = kQOff + kGroups * kTile;
+  static constexpr int kBarOff = kRingOff + kFwdStages * 2 * kTile;
+  static constexpr int kSmem = 1024 + kBarOff + kFwdBarriers * 8;
+  static_assert(128 * FwdShape<D>::kProducerRegs + (kThreads - 128) * FwdShape<D>::kConsumerRegs <=
+                    kThreads * ((65536 / kThreads) & ~7),
+                "setmaxnreg asks for more registers than the launch has");
+  static_assert(kSmem <= 232448, "more shared memory than a block may use");
+};
 
 // Shared addresses of the barriers: per stage `full` (the TMA copies have
 // landed), `ready` (kRope: the K tile is rotated) and `empty` (the consumers
@@ -165,9 +220,9 @@ struct FwdBarriers {
 
 struct FwdArgs {
   const int* lens;      // [b]
-  const float* cos_t;   // [n, 64] fp32 (kRope)
-  const float* sin_t;   // [n, 64] fp32 (kRope)
-  __nv_bfloat16* out;   // [b, n, h, 64]
+  const float* cos_t;   // [n, d] fp32 (kRope)
+  const float* sin_t;   // [n, d] fp32 (kRope)
+  __nv_bfloat16* out;   // [b, n, h, d]
   float* lse;           // [b, h, n] fp32 (kLse)
   int n;
   int h;
@@ -175,17 +230,21 @@ struct FwdArgs {
   Dropout drop;         // (kDrop)
 };
 
-// Rotates the swizzled tile of rows [pos, pos + 64) in place: the interleaved
-// pair (x0, x1) of columns (2 i, 2 i + 1) becomes
+// Rotates the swizzled [64, D] tile of rows [pos, pos + 64) in place: the
+// interleaved pair (x0, x1) of columns (2 i, 2 i + 1) becomes
 // (x0 cos - x1 sin, x1 cos + x0 sin), each product and the sum rounded in
 // fp32 as the plain version rounds them, then bf16. `cos_rows` / `sin_rows`
-// point at row `pos` of the [n, 64] tables. Thread `rid` of `kFwdRotators`
+// point at row `pos` of the [n, D] tables. Thread `rid` of `kFwdRotators`
 // takes the 16-byte chunks rid, rid + 96, ...: chunk ci is columns
-// [8 (ci % 8), + 8) of row ci / 8, and its eight table entries are
-// contiguous at offset 8 ci, so a warp reads whole table rows.
+// [8 c, + 8) of row ci / (D / 8) with c = ci % (D / 8), chunk c % 8 of panel
+// c / 8, and its eight table entries are contiguous at offset 8 ci, so a
+// warp reads whole table rows (`ops/train_attention.py` `rotator_chunks`,
+// `swizzled_offset`).
+template <int D>
 __device__ __forceinline__ void rotate_tile(uint8_t* tile, const float* cos_rows,
                                             const float* sin_rows, int rid) {
-  constexpr int kChunks = hopper::kTileRows * 8;
+  constexpr int kRowChunks = D / 8;
+  constexpr int kChunks = hopper::kTileRows * kRowChunks;
   constexpr int kBatch = 3;  // chunks whose table entries are in flight together
 #pragma unroll 1
   for (int first = rid; first < kChunks; first += kBatch * kFwdRotators) {
@@ -215,7 +274,9 @@ __device__ __forceinline__ void rotate_tile(uint8_t* tile, const float* cos_rows
     for (int j = 0; j < kBatch; ++j) {
       const int ci = first + j * kFwdRotators;
       if (ci < kChunks) {
-        uint4* at = reinterpret_cast<uint4*>(tile + hopper::swizzled_chunk_offset(ci >> 3, ci & 7));
+        const int row = ci / kRowChunks, c = ci % kRowChunks;
+        uint4* at = reinterpret_cast<uint4*>(tile + (c / 8) * hopper::kTileBytes +
+                                             hopper::swizzled_chunk_offset(row, c % 8));
         const uint4 in = *at;
         const uint32_t x[4] = {in.x, in.y, in.z, in.w};
         uint32_t y[4];
@@ -296,9 +357,12 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[32], float (&corr)[2],
 }
 
 // The output accumulator's rows times their factors (row g + 8 (e / 2)).
-__device__ __forceinline__ void scale_rows(float (&o)[32], const float (&f)[2]) {
+template <int P>
+__device__ __forceinline__ void scale_rows(float (&o)[P][32], const float (&f)[2]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] *= f[(i % 4) / 2];
+  for (int c = 0; c < P; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[c][i] *= f[(i % 4) / 2];
 }
 
 // A stage of the ring goes back to the producer: every lane of the warp is
@@ -308,23 +372,25 @@ __device__ __forceinline__ void fwd_release_stage(const FwdBarriers& bar, int s,
   if (lane == 0) hopper::mbar_arrive(bar.empty(s));
 }
 
-// One block of the forward; `smem_raw` is the kernel's dynamic shared memory
-// (`kFwdSmem` bytes), the maps are the kernel's __grid_constant__ parameters.
-template <bool kRope, bool kDrop, bool kLse>
+// One block of the forward at head dim D; `smem_raw` is the kernel's dynamic
+// shared memory (`Fwd<D>::kSmem` bytes), the maps are the kernel's
+// __grid_constant__ parameters.
+template <int D, bool kRope, bool kDrop, bool kLse>
 __device__ __forceinline__ void flash_forward_block(const CUtensorMap* q_map,
                                                     const CUtensorMap* k_map,
                                                     const CUtensorMap* v_map, const FwdArgs& a,
                                                     uint8_t* smem_raw) {
+  using F = Fwd<D>;
   const int n = a.n;
-  const int q0 = blockIdx.x * kFwdRows;
+  const int q0 = blockIdx.x * F::kRows;
   const int hi = blockIdx.y;
   const int bi = blockIdx.z;
   const int len = a.lens[bi];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int group = warp / 4;  // 0, 1, 2: consumers; 3: the producer's group
+  const int group = warp / 4;  // 0 .. kGroups - 1: consumers; kGroups: the producer's group
   // warpgroups with query rows inside the sample (the first always has)
-  const int groups = min(kFwdGroups, (n - q0) / hopper::kTileRows);
+  const int groups = min(F::kGroups, (n - q0) / hopper::kTileRows);
   const int n_tiles = len > 0 ? min((len + kBK - 1) / kBK, n / kBK) : n / kBK;
 
   // thread 0 sets up the barriers: a stage is handed over by one TMA thread,
@@ -332,7 +398,7 @@ __device__ __forceinline__ void flash_forward_block(const CUtensorMap* q_map,
   // working warpgroup
   const uint32_t smem = (hopper::smem_addr(smem_raw) + 1023u) & ~1023u;
   FwdBarriers bar;
-  bar.base = smem + kFwdBarOff;
+  bar.base = smem + F::kBarOff;
   if (threadIdx.x == 0) {
     for (int s = 0; s < kFwdStages; ++s) {
       hopper::mbar_init(bar.full(s), 1);
@@ -345,43 +411,44 @@ __device__ __forceinline__ void flash_forward_block(const CUtensorMap* q_map,
   }
   __syncthreads();
 
-  if (group == kFwdGroups) {
-    hopper::registers_release<kFwdProducerRegs>();
-    if (warp == 4 * kFwdGroups) {
+  if (group == F::kGroups) {
+    hopper::registers_release<F::kProducerRegs>();
+    if (warp == 4 * F::kGroups) {
       if (lane == 0) {
-        hopper::mbar_expect_tx(bar.q(), groups * kFwdTile);
+        hopper::mbar_expect_tx(bar.q(), groups * F::kTile);
         for (int w = 0; w < groups; ++w)
-          hopper::tma_load_tile(smem + kFwdQOff + w * kFwdTile, q_map, bar.q(),
-                                q0 + w * hopper::kTileRows, hi, bi);
+          hopper::tma_load_rows<D>(smem + F::kQOff + w * F::kTile, q_map, bar.q(),
+                                   q0 + w * hopper::kTileRows, hi, bi);
         for (int it = 0; it < n_tiles; ++it) {
           const int s = it % kFwdStages;
           hopper::mbar_wait(bar.empty(s), ((it / kFwdStages) & 1) ^ 1);
-          hopper::mbar_expect_tx(bar.full(s), 2 * kFwdTile);
-          const uint32_t stage = smem + kFwdRingOff + s * 2 * kFwdTile;
-          hopper::tma_load_tile(stage, k_map, bar.full(s), it * kBK, hi, bi);
-          hopper::tma_load_tile(stage + kFwdTile, v_map, bar.full(s), it * kBK, hi, bi);
+          hopper::mbar_expect_tx(bar.full(s), 2 * F::kTile);
+          const uint32_t stage = smem + F::kRingOff + s * 2 * F::kTile;
+          hopper::tma_load_rows<D>(stage, k_map, bar.full(s), it * kBK, hi, bi);
+          hopper::tma_load_rows<D>(stage + F::kTile, v_map, bar.full(s), it * kBK, hi, bi);
         }
       }
     } else if (kRope) {
-      const int rid = threadIdx.x - (4 * kFwdGroups + 1) * 32;
+      const int rid = threadIdx.x - (4 * F::kGroups + 1) * 32;
       uint8_t* tiles = smem_raw + (smem - hopper::smem_addr(smem_raw));
       hopper::mbar_wait(bar.q(), 0);
       for (int w = 0; w < groups; ++w) {
         const long pos = q0 + w * hopper::kTileRows;
-        rotate_tile(tiles + kFwdQOff + w * kFwdTile, a.cos_t + pos * kD, a.sin_t + pos * kD, rid);
+        rotate_tile<D>(tiles + F::kQOff + w * F::kTile, a.cos_t + pos * D, a.sin_t + pos * D,
+                       rid);
       }
       rotated(bar.q_ready(), lane);
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % kFwdStages;
         const long pos = static_cast<long>(it) * kBK;
         hopper::mbar_wait(bar.full(s), (it / kFwdStages) & 1);
-        rotate_tile(tiles + kFwdRingOff + s * 2 * kFwdTile, a.cos_t + pos * kD,
-                    a.sin_t + pos * kD, rid);
+        rotate_tile<D>(tiles + F::kRingOff + s * 2 * F::kTile, a.cos_t + pos * D,
+                       a.sin_t + pos * D, rid);
         rotated(bar.ready(s), lane);
       }
     }
   } else {
-    hopper::registers_take<kFwdConsumerRegs>();
+    hopper::registers_take<F::kConsumerRegs>();
     if (group < groups) {
       const int g = lane / 4;
       const int t = lane % 4;
@@ -391,11 +458,10 @@ __device__ __forceinline__ void flash_forward_block(const CUtensorMap* q_map,
       const int row0 = q0 + group * hopper::kTileRows + (warp % 4) * 16 + g;  // and row0 + 8
       const uint32_t ctr_row[2] = {static_cast<uint32_t>(row0) * static_cast<uint32_t>(n),
                                    static_cast<uint32_t>(row0 + 8) * static_cast<uint32_t>(n)};
-      const uint64_t q_desc = hopper::desc_k_major(smem + kFwdQOff + group * kFwdTile);
+      const uint64_t q_desc = hopper::desc_k_major(smem + F::kQOff + group * F::kTile);
 
-      float o[32];
-#pragma unroll
-      for (int i = 0; i < 32; ++i) o[i] = 0.f;
+      float o[F::kPanels][32];
+      zero_panels(o);
       float m_row[2] = {-INFINITY, -INFINITY};  // rows g and g + 8, unscaled logits
       float l_row[2] = {0.f, 0.f};              // this thread's share of the sums
 
@@ -403,12 +469,12 @@ __device__ __forceinline__ void flash_forward_block(const CUtensorMap* q_map,
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % kFwdStages;
         const int k0 = it * kBK;
-        const uint32_t k_tile = smem + kFwdRingOff + s * 2 * kFwdTile;
+        const uint32_t k_tile = smem + F::kRingOff + s * 2 * F::kTile;
         hopper::mbar_wait(kRope ? bar.ready(s) : bar.full(s), (it / kFwdStages) & 1);
 
         float sc[32];
         hopper::wgmma_fence();
-        product_abt(sc, q_desc, hopper::desc_k_major(k_tile));  // S = q k^T
+        product_abt<D>(sc, q_desc, hopper::desc_k_major(k_tile));  // S = q k^T
         hopper::wgmma_commit();
         hopper::wgmma_wait<0>();
         hopper::keep(sc);
@@ -426,11 +492,11 @@ __device__ __forceinline__ void flash_forward_block(const CUtensorMap* q_map,
         uint32_t pa[4][4];
         acc_to_a(pa, sc);
         hopper::wgmma_fence();
-        product_pb(o, pa, hopper::desc_mn_major(k_tile + kFwdTile));  // O += P v
+        product_pb(o, pa, hopper::desc_mn_major(k_tile + F::kTile));  // O += P v
         hopper::wgmma_commit();
         hopper::wgmma_wait<0>();
         hopper::keep(pa);
-        hopper::keep(o);
+        keep_panels(o);
         fwd_release_stage(bar, s, lane);
       }
 
@@ -443,8 +509,8 @@ __device__ __forceinline__ void flash_forward_block(const CUtensorMap* q_map,
         inv[r] = 1.f / den[r];
       }
       scale_rows(o, inv);
-      const long row_stride = static_cast<long>(a.h) * kD;
-      const long base = static_cast<long>(bi) * n * row_stride + static_cast<long>(hi) * kD;
+      const long row_stride = static_cast<long>(a.h) * D;
+      const long base = static_cast<long>(bi) * n * row_stride + static_cast<long>(hi) * D;
       store_rows(a.out + base + row0 * row_stride + 2 * t, row_stride, o, 1.f);
       if (kLse && t == 0) {
         float* l_dst = a.lse + (static_cast<long>(bi) * a.h + hi) * n + row0;
@@ -463,28 +529,47 @@ struct FwdMaps {
 
 constexpr int kMaxDevices = 64;
 
-// Before a launch of `kernel` (an instantiation of the forward): once per
-// device, its leave to use `kFwdSmem` bytes of dynamic shared memory
-// (`allowed` is that kernel's own [kMaxDevices] record; setting it twice from
-// two threads does no harm), then the tensor maps of this call's q, k, v.
-// Returns a cudaError_t, a refused map counting as cudaErrorInvalidValue.
+// Before a launch of `kernel` (an instantiation of the forward at head dim
+// D): once per device, its leave to use `Fwd<D>::kSmem` bytes of dynamic
+// shared memory (`allowed` is that kernel's own [kMaxDevices] record; setting
+// it twice from two threads does no harm), then the tensor maps of this
+// call's q, k, v. Returns a cudaError_t, a refused map counting as
+// cudaErrorInvalidValue.
+template <int D>
 inline int fwd_prepare(const void* kernel, bool* allowed, FwdMaps& maps, const void* q,
                        const void* k, const void* v, int b, int n, int h) {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (device >= kMaxDevices || !allowed[device]) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmem);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Fwd<D>::kSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (device < kMaxDevices) allowed[device] = true;
   }
-  if (!hopper::encode_rows_map(&maps.q, q, b, n, h) ||
-      !hopper::encode_rows_map(&maps.k, k, b, n, h) ||
-      !hopper::encode_rows_map(&maps.v, v, b, n, h))
+  if (!hopper::encode_rows_map(&maps.q, q, b, n, h, D) ||
+      !hopper::encode_rows_map(&maps.k, k, b, n, h, D) ||
+      !hopper::encode_rows_map(&maps.v, v, b, n, h, D))
     return static_cast<int>(cudaErrorInvalidValue);
   return 0;
 }
 
-inline dim3 fwd_grid(int b, int n, int h) { return dim3((n + kFwdRows - 1) / kFwdRows, h, b); }
+template <int D>
+inline dim3 fwd_grid(int b, int n, int h) {
+  return dim3((n + Fwd<D>::kRows - 1) / Fwd<D>::kRows, h, b);
+}
+
+// The forward's launch geometry at head dim d, as `ops/train_attention.py`
+// `forward_geometry` states it: rows a block, ring stages, threads, dynamic
+// shared bytes. Returns 0, or cudaErrorInvalidValue for a head dim that has
+// no instantiation.
+inline int fwd_geometry(int d, int* out) {
+  if (d != 64 && d != 128) return static_cast<int>(cudaErrorInvalidValue);
+  out[0] = d == 64 ? Fwd<64>::kRows : Fwd<128>::kRows;
+  out[1] = kFwdStages;
+  out[2] = d == 64 ? Fwd<64>::kThreads : Fwd<128>::kThreads;
+  out[3] = d == 64 ? Fwd<64>::kSmem : Fwd<128>::kSmem;
+  return 0;
+}
 
 }  // namespace

@@ -4,7 +4,7 @@
 // -1e30, no LSE) and kernel 4a's (`train_attention_fp32.cu`: position-hash
 // dropout, the LSE), as the bf16 kernels 1 and 4a share `flash_forward.cuh`.
 //
-// For q, k, v [b, n, h, 64] fp32 and lens [b] int32:
+// For q, k, v [b, n, h, D] fp32 (D = 64 or 128) and lens [b] int32:
 //   q', k' = rotate(q), rotate(k)    (kRope; fp32, the plain version's rounding)
 //   S      = q' k'^T * scale         keys >= lens[b] set to the masked logit
 //   P      = exp(S - m), l = rowsum P (the undropped weights form the normaliser)
@@ -25,14 +25,17 @@
 // has the same shape and whose dQ += dS K reads its B operand as O += Pd V
 // does:
 // - a block owns 64 query rows of one (sample, head), four warps of 16, two
-//   blocks an SM; a warp keeps its Q rows in registers in A-fragment order,
-//   rotated as they are loaded (kRope) and split once for the whole walk;
+//   blocks an SM at d = 64 (one at d = 128); a warp keeps its Q rows in
+//   registers in A-fragment order, rotated as they are loaded (kRope) and
+//   split once for the whole walk at d = 64 (`SplitA`); at d = 128 the split
+//   Q would be 128 registers beside O's 64, so Q stays fp32 (`RawA`, 64) and
+//   is split at each pass;
 // - K and V come through the two-stage `cp.async` ring; once a tile lands,
 //   each thread rotates its own chunks of K in place (kRope: cos / sin of
 //   the tile's absolute positions, read by `__ldg`) and splits them and its
 //   chunks of V, the big parts in place and the small parts beside; two
 //   barriers a tile; (2 stages x 2 tiles + 2 small tiles) x 17,408 =
-//   104,448 bytes of shared memory;
+//   104,448 bytes of shared memory at d = 64, x 33,792 = 202,752 at d = 128;
 // - a tile in two passes of 32 keys (kPass n-tiles): S for the pass by
 //   `ldmatrix.x4` from the split K tile; the online softmax in the mma's C
 //   layout (the row maximum across the quad of lanes that share a row, by
@@ -43,7 +46,7 @@
 // - each pass's Pd V goes into a fresh accumulator that the CUDA cores fold
 //   into O as O = alpha O + part, in IEEE fp32 (the rescale needs them
 //   anyway), so that the mma's non-nearest sums run over 32 keys, not over
-//   up to 6144;
+//   up to 6144; at d = 128 O's two 64-column halves take one in turn;
 // - exponentials are `expf`, the final division and log IEEE fp32 (the
 //   build has no --use_fast_math). No atomics: the same inputs give the same
 //   bits every time.
@@ -51,23 +54,35 @@
 
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "dropout_hash.cuh"
 #include "fp32_tile.cuh"
 
 namespace fp32tile {
 
-constexpr int kFwdStage = 2 * kTileFloats;  // a K and a V tile (big parts once split)
-constexpr int kFwdSmem = (kStages * kFwdStage + 2 * kTileFloats) * 4;  // 104,448 bytes
+// The forward's ring: a K and a V tile a stage (big parts once split), and
+// the small parts of one stage's tiles: 104,448 bytes at d = 64, 202,752 at
+// d = 128.
+template <int D>
+struct Fp32Fwd {
+  static constexpr int kStage = 2 * Fp32Shape<D>::kTileFloats;
+  static constexpr int kSmem = (kStages * kStage + 2 * Fp32Shape<D>::kTileFloats) * 4;
+  static_assert(kSmem <= 232448, "more shared memory than a block may use");
+};
 constexpr int kPass = 4;  // n-tiles of keys a softmax pass takes: half a tile
 
-// The forward's launch geometry, as `ops/train_attention.py`
+// The forward's launch geometry at head dim d, as `ops/train_attention.py`
 // `forward_geometry_fp32` states it: rows a block, threads, ring stages,
-// dynamic shared bytes.
-inline void forward_geometry(int* out) {
+// dynamic shared bytes. Returns 0, or cudaErrorInvalidValue for a head dim
+// that has no instantiation.
+inline int forward_geometry(int d, int* out) {
+  if (d != 64 && d != 128) return static_cast<int>(cudaErrorInvalidValue);
   out[0] = kRows;
   out[1] = kThreads;
   out[2] = kStages;
-  out[3] = kFwdSmem;
+  out[3] = d == 64 ? Fp32Fwd<64>::kSmem : Fp32Fwd<128>::kSmem;
+  return 0;
 }
 
 // Four consecutive columns (two interleaved pairs) of a row at table offset
@@ -85,64 +100,74 @@ __device__ __forceinline__ float4 rotate4(const float4 x, const float* __restric
   return r;
 }
 
-// Column `col` of position `pos` rotated with the same rounding: its pair
-// (columns col & ~1 and col | 1) comes in one 8-byte read.
+// Column `col` of position `pos` rotated with the same rounding (tables
+// [n, D]): its pair (columns col & ~1 and col | 1) comes in one 8-byte read.
+template <int D>
 __device__ __forceinline__ float rotated(const float* __restrict__ x, int64_t pos,
                                          int64_t stride, const float* __restrict__ cos_t,
                                          const float* __restrict__ sin_t, int col) {
   const float2 p = __ldg(reinterpret_cast<const float2*>(x + pos * stride + (col & ~1)));
-  const float c = __ldg(cos_t + pos * kD + col), s = __ldg(sin_t + pos * kD + col);
+  const float c = __ldg(cos_t + pos * D + col), s = __ldg(sin_t + pos * D + col);
   return col & 1 ? __fadd_rn(__fmul_rn(p.y, c), __fmul_rn(p.x, s))
                  : __fadd_rn(__fmul_rn(p.x, c), __fmul_rn(-p.y, s));
 }
 
+// How a warp keeps its Q rows: split once at d = 64; fp32, split at each
+// pass, at d = 128.
+template <int D>
+using QRows = std::conditional_t<D == 64, SplitA<D>, RawA<D>>;
+
 // The warp's Q rows `row` and `row + 8` (`q` at position 0 of the head) in
-// A-fragment order (`load_a`), rotated when roped, split once.
-template <bool kRope>
-__device__ __forceinline__ void load_q(FragA (&qf)[8], const float* __restrict__ q,
+// A-fragment order (`load_a`), rotated when roped.
+template <int D, bool kRope>
+__device__ __forceinline__ void load_q(QRows<D>& qr, const float* __restrict__ q,
                                        int64_t stride, int row, int c,
                                        const float* __restrict__ cos_t,
                                        const float* __restrict__ sin_t) {
-  float a[8][4];
   if constexpr (kRope) {
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
+    for (int kk = 0; kk < D / 8; ++kk) {
+      float a[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        a[kk][i] = rotated(q, row + 8 * (i & 1), stride, cos_t, sin_t, 8 * kk + c + 4 * (i >> 1));
+        a[i] = rotated<D>(q, row + 8 * (i & 1), stride, cos_t, sin_t, 8 * kk + c + 4 * (i >> 1));
+      qr.set(kk, a[0], a[1], a[2], a[3]);
+    }
   } else {
-    load_a(a, q, stride, row, c);
+    load_a<D>(qr, q, stride, row, c);
   }
-#pragma unroll
-  for (int kk = 0; kk < 8; ++kk) qf[kk] = split_a(a[kk][0], a[kk][1], a[kk][2], a[kk][3]);
 }
 
 // This thread's chunks of a landed K tile whose first key is `pos0`: rotated
 // in place from the raw fp32 values `cp.async` wrote, then split as
 // `split_tile` splits them (the same thread, the same chunks: no barrier
 // between).
+template <int D>
 __device__ __forceinline__ void rotate_split_tile(float* tile, float* small,
                                                   const float* __restrict__ cos_t,
                                                   const float* __restrict__ sin_t, int pos0) {
 #pragma unroll
-  for (int m = 0; m < kChunks; ++m) {
-    const int at = chunk_row(m) * kStride + chunk_col(m);
-    const int64_t table = static_cast<int64_t>(pos0 + chunk_row(m)) * kD + chunk_col(m);
+  for (int m = 0; m < Fp32Shape<D>::kChunks; ++m) {
+    const int at = chunk_at<D>(m);
+    const int64_t table = static_cast<int64_t>(pos0 + chunk_row<D>(m)) * D + chunk_col<D>(m);
     split_store(tile, small, at, rotate4(ld_shared4(tile + at), cos_t, sin_t, table));
   }
 }
 
 // S = Q K^T for the warp's 16 rows and the pass's keys (n-tiles j0 .. j0 +
 // kPass - 1 of the split K tile: big parts `kb`, small `ks`), one
-// accumulator each over the 64 columns of d. One ldmatrix brings the B
+// accumulator each over the D columns of d. One ldmatrix brings the B
 // fragments of two n-tiles (b0 = (8 j + lane / 4, 8 kk + lane % 4), b1 four
-// columns on); a padded row of 68 floats puts the eight rows of a matrix in
-// eight distinct bank quads.
-__device__ __forceinline__ void pass_scores(float (&s)[kPass][4], const FragA (&qf)[8],
+// columns on); a padded row of D + 4 floats puts the eight rows of a matrix
+// in eight distinct bank quads.
+template <int D>
+__device__ __forceinline__ void pass_scores(float (&s)[kPass][4], const QRows<D>& qr,
                                             const float* kb, const float* ks, int j0, int lane) {
+  constexpr int kStride = Fp32Shape<D>::kStride;
   const int lm = (8 * j0 + 8 * (lane >> 4) + (lane & 7)) * kStride + 4 * ((lane >> 3) & 1);
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
+  for (int kk = 0; kk < D / 8; ++kk) {
+    const FragA qf = qr.frag(kk);
 #pragma unroll
     for (int jp = 0; jp < kPass / 2; ++jp) {
       const int at = lm + 16 * jp * kStride + 8 * kk;
@@ -151,15 +176,16 @@ __device__ __forceinline__ void pass_scores(float (&s)[kPass][4], const FragA (&
       ldmatrix_x4(xl, ks + at);
 #pragma unroll
       for (int e = 0; e < 2; ++e)
-        mma3(s[2 * jp + e], qf[kk], x[2 * e], x[2 * e + 1], xl[2 * e], xl[2 * e + 1]);
+        mma3(s[2 * jp + e], qf, x[2 * e], x[2 * e + 1], xl[2 * e], xl[2 * e + 1]);
     }
   }
 }
 
-// The block's forward over the grid (n / 64, h, b), 128 threads and kFwdSmem
-// bytes of dynamic shared memory. kTrain: training's lens-0 logits and the
-// LSE; kDrop: the keep bits; kRope: rotate q and k by cos_t / sin_t [n, 64].
-template <bool kTrain, bool kDrop, bool kRope>
+// The block's forward over the grid (n / 64, h, b), 128 threads and
+// Fp32Fwd<D>::kSmem bytes of dynamic shared memory. kTrain: training's
+// lens-0 logits and the LSE; kDrop: the keep bits; kRope: rotate q and k by
+// cos_t / sin_t [n, D].
+template <int D, bool kTrain, bool kDrop, bool kRope>
 __device__ __forceinline__ void forward_core(const float* __restrict__ q,
                                              const float* __restrict__ k,
                                              const float* __restrict__ v,
@@ -168,48 +194,50 @@ __device__ __forceinline__ void forward_core(const float* __restrict__ q,
                                              const float* __restrict__ sin_t,
                                              float* __restrict__ out, float* __restrict__ lse,
                                              int n, int h, float scale, const Dropout& drop) {
+  using S = Fp32Shape<D>;
+  constexpr int kStage = Fp32Fwd<D>::kStage;
   extern __shared__ float4 smem4[];
   float* const ring = reinterpret_cast<float*>(smem4);
-  float* const small = ring + kStages * kFwdStage;  // K's and V's small parts
+  float* const small = ring + kStages * kStage;  // K's and V's small parts
   const int lane = threadIdx.x & 31, c = lane & 3;
-  const Head hd = block_head(lens, n, h, drop);
+  const Head hd = block_head<D>(lens, n, h, drop);
   const float masked = kTrain ? hd.masked : kNeg;
   const int n_tiles = key_tiles(hd.len, n);
   const int row = hd.row0 + 16 * (threadIdx.x >> 5) + (lane >> 2);  // and row + 8
 
   auto issue = [&](int t) {  // K and V of key tile t into its stage
-    float* stage = ring + (t % kStages) * kFwdStage;
+    float* stage = ring + (t % kStages) * kStage;
     const int64_t at = hd.base + static_cast<int64_t>(t) * kRows * hd.stride;
-    copy_tile(stage, k + at, hd.stride);
-    copy_tile(stage + kTileFloats, v + at, hd.stride);
+    copy_tile<D>(stage, k + at, hd.stride);
+    copy_tile<D>(stage + S::kTileFloats, v + at, hd.stride);
     cp_async_commit();
   };
   issue(0);  // n >= 64: at least one tile
 
-  FragA qf[8];
-  load_q<kRope>(qf, q + hd.base, hd.stride, row, c, cos_t, sin_t);
+  QRows<D> qr;
+  load_q<D, kRope>(qr, q + hd.base, hd.stride, row, c, cos_t, sin_t);
 
-  float o[8][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float o[D / 8][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   zero(o);
   for (int t = 0; t < n_tiles; ++t) {
-    float* const ks = ring + (t % kStages) * kFwdStage;
-    float* const vs = ks + kTileFloats;
+    float* const ks = ring + (t % kStages) * kStage;
+    float* const vs = ks + S::kTileFloats;
     cp_async_wait_all();  // this thread's copies of tile t have landed
     __syncthreads();      // tile t - 1 is done with: its stage and the small parts are free
     if (t + 1 < n_tiles) issue(t + 1);  // under this tile's split and products
     if constexpr (kRope) {
-      rotate_split_tile(ks, small, cos_t, sin_t, t * kRows);
+      rotate_split_tile<D>(ks, small, cos_t, sin_t, t * kRows);
     } else {
-      split_tile(ks, small);
+      split_tile<D>(ks, small);
     }
-    split_tile(vs, small + kTileFloats);
+    split_tile<D>(vs, small + S::kTileFloats);
     __syncthreads();  // tile t split
 
 #pragma unroll 1
     for (int j0 = 0; j0 < kRows / 8; j0 += kPass) {  // keys 8 j0 .. 8 (j0 + kPass) - 1
       float s[kPass][4];
       zero(s);
-      pass_scores(s, qf, ks, small, j0, lane);
+      pass_scores<D>(s, qr, ks, small, j0, lane);
 
       // the online softmax over the pass's keys: element e of n-tile j is
       // row row + 8 (e >> 1), key t * 64 + 8 (j0 + j) + 2 c + (e & 1)
@@ -245,15 +273,22 @@ __device__ __forceinline__ void forward_core(const float* __restrict__ q,
                           : p;
         }
 
-      // O = alpha O + Pd V, the pass's products in a fresh accumulator
-      float part[8][4];
-      zero(part);
+      // O = alpha O + Pd V, the pass's products in a fresh accumulator, 64
+      // columns of O at a time
 #pragma unroll
-      for (int j = 0; j < kPass; ++j) product(part, s[j], vs, small + kTileFloats, j0 + j, lane);
+      for (int half = 0; half < S::kHalves; ++half) {
+        float part[8][4];
+        zero(part);
 #pragma unroll
-      for (int nn = 0; nn < 8; ++nn)
+        for (int j = 0; j < kPass; ++j)
+          product<D>(part, s[j], vs + 64 * half, small + S::kTileFloats + 64 * half, j0 + j,
+                     lane);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) o[nn][i] = fmaf(alpha[i >> 1], o[nn][i], part[nn][i]);
+        for (int nn = 0; nn < 8; ++nn)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            o[8 * half + nn][i] = fmaf(alpha[i >> 1], o[8 * half + nn][i], part[nn][i]);
+      }
     }
   }
 
@@ -264,7 +299,7 @@ __device__ __forceinline__ void forward_core(const float* __restrict__ q,
   }
   float* const dst = out + hd.base;
 #pragma unroll
-  for (int nn = 0; nn < 8; ++nn) {
+  for (int nn = 0; nn < D / 8; ++nn) {
     *reinterpret_cast<float2*>(dst + row * hd.stride + 8 * nn + 2 * c) =
         make_float2(o[nn][0] / l[0], o[nn][1] / l[0]);
     *reinterpret_cast<float2*>(dst + (row + 8) * hd.stride + 8 * nn + 2 * c) =

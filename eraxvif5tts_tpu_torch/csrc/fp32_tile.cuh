@@ -10,27 +10,33 @@
 // where a single TF32 pass keeps 11 and fails the limits the port holds
 // these kernels to. torch's TF32 flags do not reach them.
 //
-// - A block owns 64 rows of one (sample, head): four warps of 16 rows (one
-//   m16 tile of the mma each), 128 threads, two blocks an SM. A warp keeps
-//   its fixed operands in registers in A-fragment order (`load_a`).
+// - Head dim D = 64 or 128 (`Fp32Shape`). A block owns 64 rows of one
+//   (sample, head): four warps of 16 rows (one m16 tile of the mma each), 128
+//   threads, two blocks an SM at d = 64, one at d = 128 (a padded [64, 128]
+//   tile is 33,792 bytes). A warp keeps its fixed operands in registers in
+//   A-fragment order (`RawA`, `SplitA`), or at d = 128 in the backward in a
+//   padded shared tile (`SharedA`): 64 + 64 fixed floats a thread beside one
+//   or two [16, 128] accumulators do not fit in 255 registers.
 // - The streamed tiles come through kStages = 2 stages by `cp.async` (16
 //   bytes a copy, bypassing L1): tile t + 1's copy runs under tile t's split
 //   and products. Once a tile has landed, each thread splits the chunks it
 //   copied (its own `cp.async` writes are visible to it): the big parts in
 //   place, the small parts into a tile beside (`split_tile`). Each element
 //   is split once a block, and the rounding is two integer operations.
-// - A tile is 64 rows of 64 floats padded to kStride = 68. A product's B
+// - A tile is 64 rows of D floats padded to kStride = D + 4. A product's B
 //   operand read as B^T (rows are the n index: keys of a K tile) comes by
 //   `ldmatrix.x4`, the eight rows of a matrix in eight distinct bank quads;
 //   read as B (rows are the k index: keys of a V tile) at rows 8 j + 2 (lane
-//   % 4) + {0, 1} and column 8 nn + lane / 4 (`product`), 32 distinct banks.
+//   % 4) + {0, 1} and column 8 nn + lane / 4 (`product`), 32 distinct banks
+//   (kStride % 32 == 4 at both head dims).
 // - Scores come out in the mma's C layout (row lane / 4 and + 8, columns 2
 //   (lane % 4) + {0, 1} of each n-tile) and are used in place as the next
 //   product's A fragment by permuting the k-step: no shuffle and no trip
 //   through shared memory.
 // - An mma's fp32 sum is not rounded to nearest: each pass's products go
 //   into a fresh accumulator that the CUDA cores add to the output in IEEE
-//   fp32 (`pass_product`, and the forward's fold).
+//   fp32 (`pass_product`, and the forward's fold), 64 output columns at a
+//   time (two such accumulators in turn at d = 128).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -41,18 +47,31 @@
 
 namespace fp32tile {
 
-constexpr int kD = 64;           // head dim, a tile's width
 constexpr int kRows = 64;        // rows of a tile: query rows or keys
 constexpr int kWarps = 4;        // each owns 16 of a block's rows
 constexpr int kThreads = 32 * kWarps;  // 128
-constexpr int kStages = 2;       // the cp.async ring
-constexpr int kStride = kD + 4;  // floats a shared row: 68
-constexpr int kTileFloats = kRows * kStride;  // 17,408 bytes
-constexpr int kChunks = kRows * kD / 4 / kThreads;  // 16-byte chunks of a tile a thread: 8
+constexpr int kStages = 2;       // the forward's cp.async ring
 constexpr int kMaxDevices = 64;
 constexpr float kNeg = -1e30f;
 
-static_assert(kRows == 16 * kWarps && kD == 64, "a warp owns one m16 tile of the block's rows");
+static_assert(kRows == 16 * kWarps, "a warp owns one m16 tile of the block's rows");
+
+// A padded [64, D] tile and what follows from D (`ops/train_attention.py`
+// `forward_geometry_fp32` / `backward_geometry_fp32`).
+template <int D>
+struct Fp32Shape {
+  static_assert(D == 64 || D == 128, "the kernels are built for head dims 64 and 128");
+  static constexpr int kStride = D + 4;                  // floats a shared row: 68 or 132
+  static constexpr int kTileFloats = kRows * kStride;    // 17,408 or 33,792 bytes
+  static constexpr int kChunks = kRows * D / 4 / kThreads;  // 16-byte chunks a thread: 8 or 16
+  static constexpr int kSteps = D / 8;   // k-steps of 8 over d; n-tiles of 8 output columns
+  static constexpr int kHalves = D / 64;  // 64-column pieces of an output (one fresh accumulator each)
+  static constexpr int kBlocks = D == 64 ? 2 : 1;  // blocks an SM (shared memory)
+  // the dq and dk/dv ring: two stages with the fixed operands in registers,
+  // one with them in shared memory
+  static constexpr int kBwdStages = D == 64 ? 2 : 1;
+  static constexpr bool kFixedShared = D != 64;
+};
 
 __device__ __forceinline__ float4 ld_shared4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -75,7 +94,7 @@ __device__ __forceinline__ void zero(float (&a)[kN][4]) {
 // Per block: the (sample, head) and its offsets, from the grid (n / 64, h, b).
 struct Head {
   int b, h, row0;    // sample, head, the block's first row
-  int64_t stride;    // floats between positions of a [b, n, h, 64] tensor
+  int64_t stride;    // floats between positions of a [b, n, h, D] tensor
   int64_t base;      // offset of (sample, position 0, head)
   int64_t stat;      // offset of (sample, head, position 0) in [b, h, n]
   int len;           // valid keys (<= 0: none, every key averaged)
@@ -83,13 +102,14 @@ struct Head {
   uint32_t folded;   // the (sample, head)'s dropout salt, folded
 };
 
+template <int D>
 __device__ __forceinline__ Head block_head(const int* lens, int n, int h, const Dropout& drop) {
   Head hd;
   hd.b = blockIdx.z;
   hd.h = blockIdx.y;
   hd.row0 = blockIdx.x * kRows;
-  hd.stride = static_cast<int64_t>(h) * kD;
-  hd.base = static_cast<int64_t>(hd.b) * n * hd.stride + static_cast<int64_t>(hd.h) * kD;
+  hd.stride = static_cast<int64_t>(h) * D;
+  hd.base = static_cast<int64_t>(hd.b) * n * hd.stride + static_cast<int64_t>(hd.h) * D;
   hd.stat = (static_cast<int64_t>(hd.b) * h + hd.h) * n;
   hd.len = lens[hd.b];
   hd.masked = hd.len <= 0 ? 0.f : kNeg;
@@ -127,19 +147,30 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// Chunk i (of 16 bytes) of the block's share of a tile: this thread's
-// chunks are threadIdx.x + 128 m, m < 8, at row i / 16, column 4 (i % 16).
-__device__ __forceinline__ int chunk_row(int m) { return (threadIdx.x + kThreads * m) >> 4; }
-__device__ __forceinline__ int chunk_col(int m) { return 4 * ((threadIdx.x + kThreads * m) & 15); }
+// Chunk i (of 16 bytes) of the block's share of a [64, D] tile: this
+// thread's chunks are threadIdx.x + 128 m, m < kChunks, at row i / (D / 4),
+// column 4 (i % (D / 4)).
+template <int D>
+__device__ __forceinline__ int chunk_row(int m) {
+  return (threadIdx.x + kThreads * m) / (D / 4);
+}
+template <int D>
+__device__ __forceinline__ int chunk_col(int m) {
+  return 4 * ((threadIdx.x + kThreads * m) % (D / 4));
+}
+template <int D>
+__device__ __forceinline__ int chunk_at(int m) {
+  return chunk_row<D>(m) * Fp32Shape<D>::kStride + chunk_col<D>(m);
+}
 
-// The block's threads copy rows 0..63 of a [.., 64] fp32 tensor (rows
+// The block's threads copy rows 0..63 of a [.., D] fp32 tensor (rows
 // `stride` floats apart from `src`) into a padded tile, 16 bytes a copy.
+template <int D>
 __device__ __forceinline__ void copy_tile(float* tile, const float* __restrict__ src,
                                           int64_t stride) {
 #pragma unroll
-  for (int m = 0; m < kChunks; ++m)
-    cp_async16(tile + chunk_row(m) * kStride + chunk_col(m),
-               src + chunk_row(m) * stride + chunk_col(m));
+  for (int m = 0; m < Fp32Shape<D>::kChunks; ++m)
+    cp_async16(tile + chunk_at<D>(m), src + chunk_row<D>(m) * stride + chunk_col<D>(m));
 }
 
 // ---- the split ----------------------------------------------------------------
@@ -174,10 +205,11 @@ __device__ __forceinline__ void split_store(float* tile, float* small, int at, c
 // This thread's chunks of a landed tile, split: the big parts in place, the
 // small parts at the same offsets of `small`. (cp.async's writes are
 // visible to the thread that waited on them.)
+template <int D>
 __device__ __forceinline__ void split_tile(float* tile, float* small) {
 #pragma unroll
-  for (int m = 0; m < kChunks; ++m) {
-    const int at = chunk_row(m) * kStride + chunk_col(m);
+  for (int m = 0; m < Fp32Shape<D>::kChunks; ++m) {
+    const int at = chunk_at<D>(m);
     split_store(tile, small, at, ld_shared4(tile + at));
   }
 }
@@ -228,33 +260,73 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const float* p) {
                : "memory");
 }
 
-// The fixed A operand of a warp: rows `row` and `row + 8` of a [.., 64]
-// tensor (`base` its position 0, rows `stride` apart), in the fragment order
-// of the eight k-steps: a[kk] = (row, 8 kk + c), (row + 8, 8 kk + c),
-// (row, 8 kk + c + 4), (row + 8, 8 kk + c + 4) with c = lane % 4.
-__device__ __forceinline__ void load_a(float (&a)[8][4], const float* __restrict__ base,
-                                       int64_t stride, int row, int c) {
+// A warp's fixed A operand, rows `row` and `row + 8` of a [.., D] operand,
+// in the fragment order of the D / 8 k-steps: k-step kk is (row, 8 kk + c),
+// (row + 8, 8 kk + c), (row, 8 kk + c + 4), (row + 8, 8 kk + c + 4) with c =
+// lane % 4. `frag(kk)` gives it split. Three keepings:
+// - RawA: fp32 in registers (D / 2 a thread), split at each use;
+template <int D>
+struct RawA {
+  float a[D / 8][4];
+  __device__ __forceinline__ void set(int kk, float a0, float a1, float a2, float a3) {
+    a[kk][0] = a0;
+    a[kk][1] = a1;
+    a[kk][2] = a2;
+    a[kk][3] = a3;
+  }
+  __device__ __forceinline__ FragA frag(int kk) const {
+    return split_a(a[kk][0], a[kk][1], a[kk][2], a[kk][3]);
+  }
+};
+
+// - SplitA: split once, in registers (D a thread);
+template <int D>
+struct SplitA {
+  FragA f[D / 8];
+  __device__ __forceinline__ void set(int kk, float a0, float a1, float a2, float a3) {
+    f[kk] = split_a(a0, a1, a2, a3);
+  }
+  __device__ __forceinline__ const FragA& frag(int kk) const { return f[kk]; }
+};
+
+// - SharedA: fp32 in a padded shared tile of the block's 64 rows, split at
+//   each use; `p` points at the warp's (row, c). The 32 lanes read 32
+//   distinct banks (kStride % 32 == 4).
+template <int D>
+struct SharedA {
+  const float* p;
+  __device__ __forceinline__ FragA frag(int kk) const {
+    constexpr int kS = Fp32Shape<D>::kStride;
+    return split_a(p[8 * kk], p[8 * kS + 8 * kk], p[8 * kk + 4], p[8 * kS + 8 * kk + 4]);
+  }
+};
+
+// Rows `row` and `row + 8` of a [.., D] tensor (`base` its position 0, rows
+// `stride` floats apart) into a RawA or SplitA.
+template <int D, class A>
+__device__ __forceinline__ void load_a(A& a, const float* __restrict__ base, int64_t stride,
+                                       int row, int c) {
   const float* r0 = base + row * stride;
   const float* r1 = r0 + 8 * stride;
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
-    a[kk][0] = __ldg(r0 + 8 * kk + c);
-    a[kk][1] = __ldg(r1 + 8 * kk + c);
-    a[kk][2] = __ldg(r0 + 8 * kk + c + 4);
-    a[kk][3] = __ldg(r1 + 8 * kk + c + 4);
-  }
+  for (int kk = 0; kk < D / 8; ++kk)
+    a.set(kk, __ldg(r0 + 8 * kk + c), __ldg(r1 + 8 * kk + c), __ldg(r0 + 8 * kk + c + 4),
+          __ldg(r1 + 8 * kk + c + 4));
 }
 
 // acc[nn] += W Z over the 8 columns of n-tile j of a split tile Z (big `zb`,
-// small `zs`; its rows 8 j .. 8 j + 7 are the k-step): W is an accumulator
+// small `zs`; its rows 8 j .. 8 j + 7 are the k-step; 64 of its columns,
+// from where `zb` and `zs` point): W is an accumulator
 // tile w in the mma's C layout (row lane / 4 columns 2 (lane % 4) + {0, 1},
 // and row + 8), read as an A fragment with the k-step permuted (k = lane %
 // 4 is column 2 (lane % 4), k + 4 the next), so that the B fragment takes
 // rows 8 j + 2 (lane % 4) and the next of Z at column 8 nn + lane / 4. With
-// rows of 68 floats the 32 lanes of that read hit 32 distinct banks (8 (lane
-// % 4) + lane / 4, plus 4 on the odd row), at offsets affine in nn.
+// rows of D + 4 floats the 32 lanes of that read hit 32 distinct banks (8
+// (lane % 4) + lane / 4, plus 4 on the odd row), at offsets affine in nn.
+template <int D>
 __device__ __forceinline__ void product(float (&acc)[8][4], const float (&w)[4], const float* zb,
                                         const float* zs, int j, int lane) {
+  constexpr int kStride = Fp32Shape<D>::kStride;
   const FragA fa = split_a(w[0], w[2], w[1], w[3]);
   const int at = (8 * j + 2 * (lane & 3)) * kStride + (lane >> 2);
 #pragma unroll
@@ -270,27 +342,32 @@ __device__ __forceinline__ void product(float (&acc)[8][4], const float (&w)[4],
 // to nearest, and in one accumulator over a whole row of keys or queries
 // (up to 1,536 mma) its error grows with the chain (dq 5.0e-5 of its scale
 // at n = 4096 on an H100, beyond the limit the port holds it to); a pass's
-// chain is 3 kN mma long.
-template <int kN>
-__device__ __forceinline__ void pass_product(float (&acc)[8][4], const float (&w)[kN][4],
+// chain is 3 kN mma long. One fresh accumulator of 64 columns at a time
+// (two in turn at d = 128: 32 registers, not 64).
+template <int D, int kN>
+__device__ __forceinline__ void pass_product(float (&acc)[D / 8][4], const float (&w)[kN][4],
                                              const float* zb, const float* zs, int j0,
                                              int lane) {
-  float part[8][4];
-  zero(part);
 #pragma unroll
-  for (int j = 0; j < kN; ++j) product(part, w[j], zb, zs, j0 + j, lane);
+  for (int half = 0; half < D / 64; ++half) {
+    float part[8][4];
+    zero(part);
 #pragma unroll
-  for (int nn = 0; nn < 8; ++nn)
+    for (int j = 0; j < kN; ++j) product<D>(part, w[j], zb + 64 * half, zs + 64 * half, j0 + j, lane);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) acc[nn][i] += part[nn][i];
+    for (int nn = 0; nn < 8; ++nn)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[8 * half + nn][i] += part[nn][i];
+  }
 }
 
-// Rows `row` and `row + 8` of a [64, 64] piece at `dst` (positions `stride`
+// Rows `row` and `row + 8` of a [64, D] piece at `dst` (positions `stride`
 // floats apart) from an accumulator in the C layout, times `f`.
-__device__ __forceinline__ void store_acc(float* dst, int64_t stride, const float (&acc)[8][4],
+template <int D>
+__device__ __forceinline__ void store_acc(float* dst, int64_t stride, const float (&acc)[D / 8][4],
                                           float f, int row, int c) {
 #pragma unroll
-  for (int nn = 0; nn < 8; ++nn) {
+  for (int nn = 0; nn < D / 8; ++nn) {
     *reinterpret_cast<float2*>(dst + row * stride + 8 * nn + 2 * c) =
         make_float2(acc[nn][0] * f, acc[nn][1] * f);
     *reinterpret_cast<float2*>(dst + (row + 8) * stride + 8 * nn + 2 * c) =

@@ -5,7 +5,8 @@
 // (the Pallas TPU kernel behind `serving_attention`) on float32 q, k and v,
 // the JAX package's default serving dtype.
 //
-// Computes, for q, k, v [b, n, h, 64] fp32, lens [b] int32, cos/sin [n, 64] fp32:
+// Computes, for q, k, v [b, n, h, d] fp32 (d = 64 or 128), lens [b] int32,
+// cos/sin [n, d] fp32:
 //   q', k' = rotate(q), rotate(k)             (when roped; fp32, the plain
 //                                              version's rounding)
 //   S      = q' k'^T * scale                  (fp32), keys >= lens[b] set to -1e30
@@ -16,7 +17,8 @@
 // 495 / 3 TFLOP/s of fp32-accurate products in 3xTF32 on the tensor cores.
 //
 // Design: `fp32_forward.cuh`'s core, which kernel 4a's fp32 mode shares (its
-// header says how): 64 query rows a block of four warps, two blocks an SM,
+// header says how): 64 query rows a block of four warps, two blocks an SM
+// at d = 64 and one at d = 128,
 // every product `mma.sync` TF32 in 3xTF32, K and V through a two-stage
 // `cp.async` ring and split once a block, a fresh accumulator a key tile.
 // Q is rotated as each warp loads it; K is rotated in place as a tile lands,
@@ -31,42 +33,57 @@ namespace {
 
 using namespace fp32tile;
 
-template <bool kRope>
-__global__ void __launch_bounds__(kThreads, 2)
+template <int D, bool kRope>
+__global__ void __launch_bounds__(kThreads, Fp32Shape<D>::kBlocks)
     serving_attention_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                   const float* __restrict__ v, const int* __restrict__ lens,
                                   const float* __restrict__ cos_t,
                                   const float* __restrict__ sin_t, float* __restrict__ out,
                                   int n, int h, float scale) {
-  forward_core<false, false, kRope>(q, k, v, lens, cos_t, sin_t, out, nullptr, n, h, scale,
-                                    Dropout{0u, 0u, 1.f, 0});
+  forward_core<D, false, false, kRope>(q, k, v, lens, cos_t, sin_t, out, nullptr, n, h, scale,
+                                       Dropout{0u, 0u, 1.f, 0});
 }
 
-}  // namespace
-
-// q, k, v, out: [b, n, h, 64] fp32 contiguous, 16-byte aligned; lens: [b]
-// int32; cos_t/sin_t: [n, 64] fp32, 16-byte aligned (ignored unless roped).
-// Requires n % 64 == 0. Launches on `stream` and returns the cudaError_t of
-// the launch or of its set-up.
-extern "C" int erax_serving_attention_fp32(const void* q, const void* k, const void* v,
-                                           const void* lens, const void* cos_t,
-                                           const void* sin_t, void* out, int b, int n, int h,
-                                           int roped, float scale, void* stream) {
+template <int D>
+int launch_serving(const void* q, const void* k, const void* v, const void* lens,
+                   const void* cos_t, const void* sin_t, void* out, int b, int n, int h,
+                   bool roped, float scale, cudaStream_t stream) {
   const auto kernel =
-      roped ? serving_attention_fp32_kernel<true> : serving_attention_fp32_kernel<false>;
+      roped ? serving_attention_fp32_kernel<D, true> : serving_attention_fp32_kernel<D, false>;
   static bool allowed[2][kMaxDevices] = {};
-  const int err = allow_shared(reinterpret_cast<const void*>(kernel), kFwdSmem,
+  const int err = allow_shared(reinterpret_cast<const void*>(kernel), Fp32Fwd<D>::kSmem,
                                allowed[roped ? 1 : 0]);
   if (err != 0) return err;
-  kernel<<<dim3(n / kRows, h, b), kThreads, kFwdSmem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<dim3(n / kRows, h, b), kThreads, Fp32Fwd<D>::kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const int*>(lens), static_cast<const float*>(cos_t),
       static_cast<const float*>(sin_t), static_cast<float*>(out), n, h, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The kernel's launch geometry, as `ops/serving_attention.py`
+}  // namespace
+
+// q, k, v, out: [b, n, h, d] fp32 contiguous, 16-byte aligned, d = 64 or
+// 128; lens: [b] int32; cos_t/sin_t: [n, d] fp32, 16-byte aligned (ignored
+// unless roped). Requires n % 64 == 0. Launches on `stream` and returns the
+// cudaError_t of the launch or of its set-up, another head dim counting as
+// cudaErrorInvalidValue.
+extern "C" int erax_serving_attention_fp32(const void* q, const void* k, const void* v,
+                                           const void* lens, const void* cos_t,
+                                           const void* sin_t, void* out, int b, int n, int h,
+                                           int d, int roped, float scale, void* stream) {
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (d == 64)
+    return launch_serving<64>(q, k, v, lens, cos_t, sin_t, out, b, n, h, roped != 0, scale, st);
+  if (d == 128)
+    return launch_serving<128>(q, k, v, lens, cos_t, sin_t, out, b, n, h, roped != 0, scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The kernel's launch geometry at head dim d, as `ops/serving_attention.py`
 // `forward_geometry_fp32` states it: rows a block, threads, ring stages,
 // dynamic shared bytes (the forward core's, which kernel 4a's fp32 mode
-// reports too).
-extern "C" void erax_serving_attention_fp32_geometry(int* out) { forward_geometry(out); }
+// reports too); non-zero for a head dim that has no instantiation.
+extern "C" int erax_serving_attention_fp32_geometry(int d, int* out) {
+  return forward_geometry(d, out);
+}

@@ -5,7 +5,7 @@
 // `_dq_kernel` and `_dkv_kernel` (the Pallas TPU kernels behind
 // `train_attention` and its custom_vjp).
 //
-// For q, k, v [b, n, h, 64] bf16 and lens [b] int32, with
+// For q, k, v [b, n, h, d] bf16 (d = 64 or 128) and lens [b] int32, with
 //   S = q k^T * scale (fp32), keys >= lens[b] set to -1e30,
 //   P = softmax(S) (the undropped weights: they alone form the normaliser),
 //   keep(b, h, i, j) = fmix32((i * n + j) ^ salt(seed, b, h)) < threshold
@@ -26,12 +26,14 @@
 // backward does 3 (dq) and 4 (dk/dv) products of 2 b h n^2 d FLOPs; for every
 // score element between them it needs one exp2 from the special-function
 // unit (16 a clock an SM: 256 clocks for a 64 x 64 tile, where dq's three
-// products at d = 64 take 384 on the tensor cores) and, with dropout, about
-// ten integer instructions of hash, which then outweigh the products.
+// products at d = 64 take 384 on the tensor cores, 768 at d = 128) and, with
+// dropout, about ten integer instructions of hash, which then outweigh the
+// products at d = 64.
 //
 // Design of the forward (`flash_forward.cuh`, which the serving attention
-// instantiates too). A block owns 192 query rows of one (sample, head): three
-// consumer warpgroups of 64 rows and a producer thread that feeds a ring of
+// instantiates too). A block owns 192 query rows of one (sample, head) at
+// d = 64 (three consumer warpgroups of 64 rows), 128 at d = 128 (two), and a
+// producer thread that feeds a ring of
 // TMA stages (a K and a V tile each). S = Q K^T is a wgmma.mma_async with both
 // operands K-major from shared memory; the online softmax (running max and
 // sum per row, base-2 exponentials) runs on the fp32 accumulator in
@@ -45,10 +47,13 @@
 // producer warp. The producer's one thread issues TMA loads: the block's own
 // two tiles once, then a ring of `kBwdStages` stages that it refills as the
 // consumers release them (a full and an empty mbarrier per stage). Every tile
-// is 64 rows x 128 bytes, written with the 128-byte swizzle, and read by
-// wgmma.mma_async m64n64k16 through shared-memory descriptors: K-major for
-// the two score products, and the same copy MN-major (the transpose bit) for
-// the products onto the outputs, so no transposed copy exists. The score
+// is 64 rows x d columns, d / 64 panels of 64 rows x 128 bytes written with
+// the 128-byte swizzle (one TMA box each), and read by wgmma.mma_async
+// m64n64k16 through shared-memory descriptors: K-major for the two score
+// products (d / 16 k-steps across the panels), and the same copy MN-major
+// (the transpose bit) for the products onto the outputs, one chain a panel
+// of output columns, so no transposed copy exists. At d = 128 dk/dv's two
+// [64, 128] accumulators take 128 of a consumer's 232 registers a thread. The score
 // accumulators become, after the softmax arithmetic, the keep bit and a bf16
 // cast, the register A operand of the output products; sums stay in fp32
 // registers for the whole loop. While one warpgroup does its softmax
@@ -82,13 +87,13 @@
 
 namespace {
 
-template <bool kDrop>
-__global__ void __launch_bounds__(kFwdThreads, 1)
+template <int D, bool kDrop>
+__global__ void __launch_bounds__(Fwd<D>::kThreads, 1)
     train_attention_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
                                const __grid_constant__ CUtensorMap k_map,
                                const __grid_constant__ CUtensorMap v_map, const FwdArgs args) {
   extern __shared__ uint8_t smem_raw[];
-  flash_forward_block<false, kDrop, true>(&q_map, &k_map, &v_map, args, smem_raw);
+  flash_forward_block<D, false, kDrop, true>(&q_map, &k_map, &v_map, args, smem_raw);
 }
 
 // ---- the backward kernels -------------------------------------------------
@@ -100,17 +105,23 @@ constexpr int kBwdThreads = (kBwdGroups + 1) * 128;  // + the producer's warpgro
 // registers a thread after the roles split: 384 x 168 = 128 x 40 + 256 x 232
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
-constexpr int kTile = hopper::kTileBytes;
-
-// Dynamic shared memory, from a 1024-byte boundary: the block's own tiles
-// (operand 0 then operand 1, a tile per warpgroup each), the ring (two tiles
-// a stage), the ring's LSE and D rows (dk/dv), the barriers.
-constexpr int kOwnOff = 0;
-constexpr int kRingOff = kOwnOff + 2 * kBwdGroups * kTile;
-constexpr int kStatOff = kRingOff + kBwdStages * 2 * kTile;
 constexpr int kStatBytes = 2 * hopper::kTileRows * 4;  // 64 LSE + 64 D values
-constexpr int kBarOff = kStatOff + kBwdStages * kStatBytes;
-constexpr int kBwdSmem = 1024 + kBarOff + (2 * kBwdStages + 1) * 8;
+
+// The backward's constants for head dim D. Dynamic shared memory, from a
+// 1024-byte boundary: the block's own tiles (operand 0 then operand 1, a tile
+// per warpgroup each), the ring (two tiles a stage), the ring's LSE and D
+// rows (dk/dv), the barriers; a tile is D / 64 panels of 8192 bytes.
+template <int D>
+struct Bwd {
+  static constexpr int kPanels = D / 64;
+  static constexpr int kTile = kPanels * hopper::kTileBytes;
+  static constexpr int kOwnOff = 0;
+  static constexpr int kRingOff = kOwnOff + 2 * kBwdGroups * kTile;
+  static constexpr int kStatOff = kRingOff + kBwdStages * 2 * kTile;
+  static constexpr int kBarOff = kStatOff + kBwdStages * kStatBytes;
+  static constexpr int kSmem = 1024 + kBarOff + (2 * kBwdStages + 1) * 8;
+  static_assert(kSmem <= 232448, "more shared memory than a block may use");
+};
 
 // Shared addresses of the barriers: a full and an empty one per stage, and
 // the one the block's own tiles complete on.
@@ -124,9 +135,10 @@ struct BwdBarriers {
 // Aligns the dynamic shared memory, has thread 0 set up the barriers (a
 // stage is released by lane 0 of each warp of each working warpgroup) and
 // synchronises the block. Returns the aligned base as a shared address.
+template <int D>
 __device__ __forceinline__ uint32_t bwd_setup(uint8_t* raw, int groups, BwdBarriers& bar) {
   const uint32_t base = (hopper::smem_addr(raw) + 1023u) & ~1023u;
-  bar.base = base + kBarOff;
+  bar.base = base + Bwd<D>::kBarOff;
   if (threadIdx.x == 0) {
     for (int s = 0; s < kBwdStages; ++s) {
       hopper::mbar_init(bar.full(s), 1);
@@ -218,6 +230,7 @@ __device__ __forceinline__ void release_stage(const BwdBarriers& bar, int s, int
   if (lane == 0) hopper::mbar_arrive(bar.empty(s));
 }
 
+template <int D>
 __global__ void __launch_bounds__(kBwdThreads, 1)
     train_attention_dq_kernel(const __grid_constant__ CUtensorMap q_map,
                               const __grid_constant__ CUtensorMap k_map,
@@ -227,6 +240,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
                               const int* __restrict__ lens, __nv_bfloat16* __restrict__ dq,
                               int n, int h, float scale, Dropout drop) {
   extern __shared__ uint8_t smem_raw[];
+  using B = Bwd<D>;
 
   const int q0 = blockIdx.x * kBwdRows;
   const int hi = blockIdx.y;
@@ -240,25 +254,25 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   const int n_tiles = len > 0 ? min((len + kBK - 1) / kBK, n / kBK) : n / kBK;
 
   BwdBarriers bar;
-  const uint32_t smem = bwd_setup(smem_raw, groups, bar);
+  const uint32_t smem = bwd_setup<D>(smem_raw, groups, bar);
 
   if (group == kBwdGroups) {
     hopper::registers_release<kProducerRegs>();
     if (warp == 4 * kBwdGroups && lane == 0) {
-      hopper::mbar_expect_tx(bar.own(), groups * 2 * kTile);
+      hopper::mbar_expect_tx(bar.own(), groups * 2 * B::kTile);
       for (int w = 0; w < groups; ++w) {
         const int row = q0 + w * hopper::kTileRows;
-        hopper::tma_load_tile(smem + kOwnOff + w * kTile, &q_map, bar.own(), row, hi, bi);
-        hopper::tma_load_tile(smem + kOwnOff + (kBwdGroups + w) * kTile, &do_map, bar.own(), row,
-                              hi, bi);
+        hopper::tma_load_rows<D>(smem + B::kOwnOff + w * B::kTile, &q_map, bar.own(), row, hi, bi);
+        hopper::tma_load_rows<D>(smem + B::kOwnOff + (kBwdGroups + w) * B::kTile, &do_map,
+                                 bar.own(), row, hi, bi);
       }
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % kBwdStages;
         hopper::mbar_wait(bar.empty(s), ((it / kBwdStages) & 1) ^ 1);
-        hopper::mbar_expect_tx(bar.full(s), 2 * kTile);
-        const uint32_t stage = smem + kRingOff + s * 2 * kTile;
-        hopper::tma_load_tile(stage, &k_map, bar.full(s), it * kBK, hi, bi);
-        hopper::tma_load_tile(stage + kTile, &v_map, bar.full(s), it * kBK, hi, bi);
+        hopper::mbar_expect_tx(bar.full(s), 2 * B::kTile);
+        const uint32_t stage = smem + B::kRingOff + s * 2 * B::kTile;
+        hopper::tma_load_rows<D>(stage, &k_map, bar.full(s), it * kBK, hi, bi);
+        hopper::tma_load_rows<D>(stage + B::kTile, &v_map, bar.full(s), it * kBK, hi, bi);
       }
     }
   } else {
@@ -275,25 +289,24 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
       const long stat = (static_cast<long>(bi) * h + hi) * n + row0;
       const float lse2[2] = {lse[stat] * kLog2e, lse[stat + 8] * kLog2e};
       const float d_row[2] = {dd[stat], dd[stat + 8]};
-      const uint64_t q_desc = hopper::desc_k_major(smem + kOwnOff + group * kTile);
+      const uint64_t q_desc = hopper::desc_k_major(smem + B::kOwnOff + group * B::kTile);
       const uint64_t do_desc =
-          hopper::desc_k_major(smem + kOwnOff + (kBwdGroups + group) * kTile);
+          hopper::desc_k_major(smem + B::kOwnOff + (kBwdGroups + group) * B::kTile);
 
-      float acc[32];
-#pragma unroll
-      for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+      float acc[B::kPanels][32];
+      zero_panels(acc);
 
       hopper::mbar_wait(bar.own(), 0);
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % kBwdStages;
         const int k0 = it * kBK;
-        const uint32_t k_tile = smem + kRingOff + s * 2 * kTile;
+        const uint32_t k_tile = smem + B::kRingOff + s * 2 * B::kTile;
         hopper::mbar_wait(bar.full(s), (it / kBwdStages) & 1);
 
         float sc[32], dp[32];
         hopper::wgmma_fence();
-        product_abt(sc, q_desc, hopper::desc_k_major(k_tile));           // S = q k^T
-        product_abt(dp, do_desc, hopper::desc_k_major(k_tile + kTile));  // dP = dO v^T
+        product_abt<D>(sc, q_desc, hopper::desc_k_major(k_tile));              // S = q k^T
+        product_abt<D>(dp, do_desc, hopper::desc_k_major(k_tile + B::kTile));  // dP = dO v^T
         hopper::wgmma_commit();
         hopper::wgmma_wait<0>();
         hopper::keep(sc);
@@ -323,17 +336,18 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
         hopper::wgmma_commit();
         hopper::wgmma_wait<0>();
         hopper::keep(ds);
-        hopper::keep(acc);
+        keep_panels(acc);
         release_stage(bar, s, lane);
       }
 
-      const long row_stride = static_cast<long>(h) * kD;
-      const long base = static_cast<long>(bi) * n * row_stride + static_cast<long>(hi) * kD;
+      const long row_stride = static_cast<long>(h) * D;
+      const long base = static_cast<long>(bi) * n * row_stride + static_cast<long>(hi) * D;
       store_rows(dq + base + row0 * row_stride + 2 * t, row_stride, acc, scale);
     }
   }
 }
 
+template <int D>
 __global__ void __launch_bounds__(kBwdThreads, 1)
     train_attention_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
                                const __grid_constant__ CUtensorMap k_map,
@@ -344,6 +358,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
                                __nv_bfloat16* __restrict__ dv, int n, int h, float scale,
                                Dropout drop) {
   extern __shared__ uint8_t smem_raw[];
+  using B = Bwd<D>;
 
   const int k0 = blockIdx.x * kBwdRows;
   const int hi = blockIdx.y;
@@ -354,8 +369,8 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   const int group = warp / 4;  // 0, 1: consumers; 2: the producer's group
   const int g = lane / 4;
   const int t = lane % 4;
-  const long row_stride = static_cast<long>(h) * kD;
-  const long base = static_cast<long>(bi) * n * row_stride + static_cast<long>(hi) * kD;
+  const long row_stride = static_cast<long>(h) * D;
+  const long base = static_cast<long>(bi) * n * row_stride + static_cast<long>(hi) * D;
   const int key0 = k0 + group * hopper::kTileRows + (warp % 4) * 16 + g;  // and key0 + 8
   // warpgroups with keys inside the sample, and of those the ones whose 64
   // keys are not all masked (P = 0 and dS = 0 there: they write zeros)
@@ -364,9 +379,8 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
       len > 0 ? min(inside, max(0, (min(len, n) - k0 + hopper::kTileRows - 1) / hopper::kTileRows))
               : inside;
   if (group < inside && group >= groups) {
-    float zero[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) zero[i] = 0.f;
+    float zero[B::kPanels][32];
+    zero_panels(zero);
     store_rows(dk + base + key0 * row_stride + 2 * t, row_stride, zero, 0.f);
     store_rows(dv + base + key0 * row_stride + 2 * t, row_stride, zero, 0.f);
   }
@@ -374,28 +388,28 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   const int n_tiles = n / kBQ;
 
   BwdBarriers bar;
-  const uint32_t smem = bwd_setup(smem_raw, groups, bar);
+  const uint32_t smem = bwd_setup<D>(smem_raw, groups, bar);
 
   if (group == kBwdGroups) {
     hopper::registers_release<kProducerRegs>();
     if (warp == 4 * kBwdGroups && lane == 0) {
-      hopper::mbar_expect_tx(bar.own(), groups * 2 * kTile);
+      hopper::mbar_expect_tx(bar.own(), groups * 2 * B::kTile);
       for (int w = 0; w < groups; ++w) {
         const int row = k0 + w * hopper::kTileRows;
-        hopper::tma_load_tile(smem + kOwnOff + w * kTile, &k_map, bar.own(), row, hi, bi);
-        hopper::tma_load_tile(smem + kOwnOff + (kBwdGroups + w) * kTile, &v_map, bar.own(), row,
-                              hi, bi);
+        hopper::tma_load_rows<D>(smem + B::kOwnOff + w * B::kTile, &k_map, bar.own(), row, hi, bi);
+        hopper::tma_load_rows<D>(smem + B::kOwnOff + (kBwdGroups + w) * B::kTile, &v_map,
+                                 bar.own(), row, hi, bi);
       }
       const float* stat = lse + (static_cast<long>(bi) * h + hi) * n;
       const float* stat_d = dd + (static_cast<long>(bi) * h + hi) * n;
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % kBwdStages;
         hopper::mbar_wait(bar.empty(s), ((it / kBwdStages) & 1) ^ 1);
-        hopper::mbar_expect_tx(bar.full(s), 2 * kTile + kStatBytes);
-        const uint32_t stage = smem + kRingOff + s * 2 * kTile;
-        const uint32_t stats = smem + kStatOff + s * kStatBytes;
-        hopper::tma_load_tile(stage, &q_map, bar.full(s), it * kBQ, hi, bi);
-        hopper::tma_load_tile(stage + kTile, &do_map, bar.full(s), it * kBQ, hi, bi);
+        hopper::mbar_expect_tx(bar.full(s), 2 * B::kTile + kStatBytes);
+        const uint32_t stage = smem + B::kRingOff + s * 2 * B::kTile;
+        const uint32_t stats = smem + B::kStatOff + s * kStatBytes;
+        hopper::tma_load_rows<D>(stage, &q_map, bar.full(s), it * kBQ, hi, bi);
+        hopper::tma_load_rows<D>(stage + B::kTile, &do_map, bar.full(s), it * kBQ, hi, bi);
         hopper::bulk_load(stats, stat + it * kBQ, kStatBytes / 2, bar.full(s));
         hopper::bulk_load(stats + kStatBytes / 2, stat_d + it * kBQ, kStatBytes / 2, bar.full(s));
       }
@@ -412,26 +426,28 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
       const uint32_t un = static_cast<uint32_t>(n);
       // the dropout counter of (query 2 t of the current tile, key0); a tile on, 64 n more
       uint32_t ctr_tile = static_cast<uint32_t>(2 * t) * un + static_cast<uint32_t>(key0);
-      const uint64_t k_desc = hopper::desc_k_major(smem + kOwnOff + group * kTile);
-      const uint64_t v_desc = hopper::desc_k_major(smem + kOwnOff + (kBwdGroups + group) * kTile);
+      const uint64_t k_desc = hopper::desc_k_major(smem + B::kOwnOff + group * B::kTile);
+      const uint64_t v_desc =
+          hopper::desc_k_major(smem + B::kOwnOff + (kBwdGroups + group) * B::kTile);
       const uint8_t* smem_ptr = smem_raw + (smem - hopper::smem_addr(smem_raw));
 
-      float dk_acc[32], dv_acc[32];
-#pragma unroll
-      for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+      float dk_acc[B::kPanels][32], dv_acc[B::kPanels][32];
+      zero_panels(dk_acc);
+      zero_panels(dv_acc);
 
       hopper::mbar_wait(bar.own(), 0);
       for (int it = 0; it < n_tiles; ++it, ctr_tile += 64u * un) {
         const int s = it % kBwdStages;
-        const uint32_t q_tile = smem + kRingOff + s * 2 * kTile;
-        const float* lse_s = reinterpret_cast<const float*>(smem_ptr + kStatOff + s * kStatBytes);
+        const uint32_t q_tile = smem + B::kRingOff + s * 2 * B::kTile;
+        const float* lse_s =
+            reinterpret_cast<const float*>(smem_ptr + B::kStatOff + s * kStatBytes);
         const float* dd_s = lse_s + hopper::kTileRows;
         hopper::mbar_wait(bar.full(s), (it / kBwdStages) & 1);
 
         float st[32], dpt[32];
         hopper::wgmma_fence();
-        product_abt(st, k_desc, hopper::desc_k_major(q_tile));           // S^T = k q^T
-        product_abt(dpt, v_desc, hopper::desc_k_major(q_tile + kTile));  // dP^T = v dO^T
+        product_abt<D>(st, k_desc, hopper::desc_k_major(q_tile));              // S^T = k q^T
+        product_abt<D>(dpt, v_desc, hopper::desc_k_major(q_tile + B::kTile));  // dP^T = v dO^T
         hopper::wgmma_commit();
         hopper::wgmma_wait<0>();
         hopper::keep(st);
@@ -456,14 +472,14 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
         acc_to_a(pa, st);
         acc_to_a(dsa, dpt);
         hopper::wgmma_fence();
-        product_pb(dv_acc, pa, hopper::desc_mn_major(q_tile + kTile));  // dV += Pd^T dO
-        product_pb(dk_acc, dsa, hopper::desc_mn_major(q_tile));         // dK += dS^T q
+        product_pb(dv_acc, pa, hopper::desc_mn_major(q_tile + B::kTile));  // dV += Pd^T dO
+        product_pb(dk_acc, dsa, hopper::desc_mn_major(q_tile));            // dK += dS^T q
         hopper::wgmma_commit();
         hopper::wgmma_wait<0>();
         hopper::keep(pa);
         hopper::keep(dsa);
-        hopper::keep(dv_acc);
-        hopper::keep(dk_acc);
+        keep_panels(dv_acc);
+        keep_panels(dk_acc);
         release_stage(bar, s, lane);
       }
 
@@ -478,13 +494,14 @@ Dropout make_dropout(unsigned seed, unsigned threshold, float inv_keep, int on,
   return Dropout{seed, threshold, inv_keep, on, b_offset, h_offset};
 }
 
-// The four tensor maps of a backward launch and, once per device, the
-// kernels' leave to use more than 48 KB of dynamic shared memory (setting it
-// twice from two threads does no harm). Returns a cudaError_t.
+// The four tensor maps of a backward launch at head dim D and, once per
+// device, the kernels' leave to use more than 48 KB of dynamic shared memory
+// (setting it twice from two threads does no harm). Returns a cudaError_t.
 struct BwdMaps {
   CUtensorMap q, k, v, dout;
 };
 
+template <int D>
 int bwd_prepare(BwdMaps& maps, const void* q, const void* k, const void* v, const void* dout,
                 int b, int n, int h) {
   static bool allowed[kMaxDevices] = {};
@@ -492,59 +509,94 @@ int bwd_prepare(BwdMaps& maps, const void* q, const void* k, const void* v, cons
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (device >= kMaxDevices || !allowed[device]) {
-    err = cudaFuncSetAttribute(train_attention_dq_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, kBwdSmem);
+    err = cudaFuncSetAttribute(train_attention_dq_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, Bwd<D>::kSmem);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(train_attention_dkv_kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, kBwdSmem);
+      err = cudaFuncSetAttribute(train_attention_dkv_kernel<D>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, Bwd<D>::kSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (device < kMaxDevices) allowed[device] = true;
   }
-  if (!hopper::encode_rows_map(&maps.q, q, b, n, h) ||
-      !hopper::encode_rows_map(&maps.k, k, b, n, h) ||
-      !hopper::encode_rows_map(&maps.v, v, b, n, h) ||
-      !hopper::encode_rows_map(&maps.dout, dout, b, n, h))
+  if (!hopper::encode_rows_map(&maps.q, q, b, n, h, D) ||
+      !hopper::encode_rows_map(&maps.k, k, b, n, h, D) ||
+      !hopper::encode_rows_map(&maps.v, v, b, n, h, D) ||
+      !hopper::encode_rows_map(&maps.dout, dout, b, n, h, D))
     return static_cast<int>(cudaErrorInvalidValue);
   return 0;
 }
 
+template <int D>
+int launch_fwd(const void* q, const void* k, const void* v, const FwdArgs& args, int b, int n,
+               int h, bool dropout, cudaStream_t stream) {
+  const auto kernel =
+      dropout ? train_attention_fwd_kernel<D, true> : train_attention_fwd_kernel<D, false>;
+  static bool allowed[2][kMaxDevices] = {};
+  FwdMaps maps;
+  const int err = fwd_prepare<D>(reinterpret_cast<const void*>(kernel), allowed[dropout ? 1 : 0],
+                                 maps, q, k, v, b, n, h);
+  if (err != 0) return err;
+  kernel<<<fwd_grid<D>(b, n, h), Fwd<D>::kThreads, Fwd<D>::kSmem, stream>>>(maps.q, maps.k,
+                                                                          maps.v, args);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+              const void* dd, const void* lens, void* dq, int b, int n, int h, float scale,
+              const Dropout& drop, cudaStream_t stream) {
+  BwdMaps maps;
+  const int err = bwd_prepare<D>(maps, q, k, v, dout, b, n, h);
+  if (err != 0) return err;
+  const dim3 grid((n + kBwdRows - 1) / kBwdRows, h, b);
+  train_attention_dq_kernel<D><<<grid, kBwdThreads, Bwd<D>::kSmem, stream>>>(
+      maps.q, maps.k, maps.v, maps.dout, static_cast<const float*>(lse),
+      static_cast<const float*>(dd), static_cast<const int*>(lens),
+      static_cast<__nv_bfloat16*>(dq), n, h, scale, drop);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+               const void* dd, const void* lens, void* dk, void* dv, int b, int n, int h,
+               float scale, const Dropout& drop, cudaStream_t stream) {
+  BwdMaps maps;
+  const int err = bwd_prepare<D>(maps, q, k, v, dout, b, n, h);
+  if (err != 0) return err;
+  const dim3 grid((n + kBwdRows - 1) / kBwdRows, h, b);
+  train_attention_dkv_kernel<D><<<grid, kBwdThreads, Bwd<D>::kSmem, stream>>>(
+      maps.q, maps.k, maps.v, maps.dout, static_cast<const float*>(lse),
+      static_cast<const float*>(dd), static_cast<const int*>(lens),
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), n, h, scale, drop);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Common arguments: q, k, v (and dout, dq, dk, dv) [b, n, h, 64] bf16
-// contiguous and 16-byte aligned; lens [b] int32; lse, dd [b, h, n] fp32,
-// 16-byte aligned. Requires n % 64 == 0. `dropout` = 0 ignores seed /
-// threshold / inv_keep; `b_offset` / `h_offset` are the global sample and
-// head of index 0 in the keep bit's salt. Each launches on `stream` and returns the
-// cudaError_t of the launch or of its set-up, a refused tensor map counting
-// as cudaErrorInvalidValue.
+// Common arguments: q, k, v (and dout, dq, dk, dv) [b, n, h, d] bf16
+// contiguous and 16-byte aligned, d = 64 or 128; lens [b] int32; lse, dd
+// [b, h, n] fp32, 16-byte aligned. Requires n % 64 == 0. `dropout` = 0
+// ignores seed / threshold / inv_keep; `b_offset` / `h_offset` are the global
+// sample and head of index 0 in the keep bit's salt. Each launches on
+// `stream` and returns the cudaError_t of the launch or of its set-up, a
+// refused tensor map or another head dim counting as cudaErrorInvalidValue.
 extern "C" int erax_train_attention_fwd(const void* q, const void* k, const void* v,
                                         const void* lens, void* out, void* lse, int b, int n,
-                                        int h, float scale, unsigned seed, unsigned threshold,
-                                        float inv_keep, int dropout,
+                                        int h, int d, float scale, unsigned seed,
+                                        unsigned threshold, float inv_keep, int dropout,
                                         unsigned b_offset, unsigned h_offset, void* stream) {
   const FwdArgs args{static_cast<const int*>(lens), nullptr, nullptr,
                      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), n, h, scale,
                      make_dropout(seed, threshold, inv_keep, dropout, b_offset, h_offset)};
-  const auto kernel = dropout ? train_attention_fwd_kernel<true> : train_attention_fwd_kernel<false>;
-  static bool allowed[2][kMaxDevices] = {};
-  FwdMaps maps;
-  const int err = fwd_prepare(reinterpret_cast<const void*>(kernel), allowed[dropout ? 1 : 0],
-                              maps, q, k, v, b, n, h);
-  if (err != 0) return err;
-  kernel<<<fwd_grid(b, n, h), kFwdThreads, kFwdSmem, static_cast<cudaStream_t>(stream)>>>(
-      maps.q, maps.k, maps.v, args);
-  return static_cast<int>(cudaGetLastError());
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (d == 64) return launch_fwd<64>(q, k, v, args, b, n, h, dropout != 0, st);
+  if (d == 128) return launch_fwd<128>(q, k, v, args, b, n, h, dropout != 0, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The forward core's launch geometry, as `ops/train_attention.py`
+// The forward core's launch geometry at head dim d, as `ops/train_attention.py`
 // `forward_geometry` states it: rows a block, ring stages, threads, dynamic
-// shared bytes.
-extern "C" void erax_flash_forward_geometry(int* out) {
-  out[0] = kFwdRows;
-  out[1] = kFwdStages;
-  out[2] = kFwdThreads;
-  out[3] = kFwdSmem;
-}
+// shared bytes; non-zero for a head dim that has no instantiation.
+extern "C" int erax_flash_forward_geometry(int d, int* out) { return fwd_geometry(d, out); }
 
 // Host nanoseconds of one encode of the [b, n, h, 64] tensor map at `base`,
 // averaged over `iters`; negative if the encoder refuses it.
@@ -558,48 +610,43 @@ extern "C" double erax_tensor_map_encode_ns(const void* base, int b, int n, int 
   return ((t1.tv_sec - t0.tv_sec) * 1e9 + (t1.tv_nsec - t0.tv_nsec)) / iters;
 }
 
-// The backward kernels' launch geometry, as `ops/train_attention.py`
-// `backward_geometry` states it: rows a block, ring stages, threads, dynamic
-// shared bytes.
-extern "C" void erax_train_attention_bwd_geometry(int* out) {
+// The backward kernels' launch geometry at head dim d, as
+// `ops/train_attention.py` `backward_geometry` states it: rows a block, ring
+// stages, threads, dynamic shared bytes; non-zero for a head dim that has no
+// instantiation.
+extern "C" int erax_train_attention_bwd_geometry(int d, int* out) {
+  if (d != 64 && d != 128) return static_cast<int>(cudaErrorInvalidValue);
   out[0] = kBwdRows;
   out[1] = kBwdStages;
   out[2] = kBwdThreads;
-  out[3] = kBwdSmem;
+  out[3] = d == 64 ? Bwd<64>::kSmem : Bwd<128>::kSmem;
+  return 0;
 }
 
 extern "C" int erax_train_attention_dq(const void* q, const void* k, const void* v,
                                        const void* dout, const void* lse, const void* dd,
-                                       const void* lens, void* dq, int b, int n, int h,
+                                       const void* lens, void* dq, int b, int n, int h, int d,
                                        float scale, unsigned seed, unsigned threshold,
                                        float inv_keep, int dropout,
                                        unsigned b_offset, unsigned h_offset, void* stream) {
-  BwdMaps maps;
-  const int err = bwd_prepare(maps, q, k, v, dout, b, n, h);
-  if (err != 0) return err;
-  const dim3 grid((n + kBwdRows - 1) / kBwdRows, h, b);
-  train_attention_dq_kernel<<<grid, kBwdThreads, kBwdSmem, static_cast<cudaStream_t>(stream)>>>(
-      maps.q, maps.k, maps.v, maps.dout, static_cast<const float*>(lse),
-      static_cast<const float*>(dd), static_cast<const int*>(lens),
-      static_cast<__nv_bfloat16*>(dq), n, h, scale,
-      make_dropout(seed, threshold, inv_keep, dropout, b_offset, h_offset));
-  return static_cast<int>(cudaGetLastError());
+  const Dropout drop = make_dropout(seed, threshold, inv_keep, dropout, b_offset, h_offset);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (d == 64) return launch_dq<64>(q, k, v, dout, lse, dd, lens, dq, b, n, h, scale, drop, st);
+  if (d == 128) return launch_dq<128>(q, k, v, dout, lse, dd, lens, dq, b, n, h, scale, drop, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int erax_train_attention_dkv(const void* q, const void* k, const void* v,
                                         const void* dout, const void* lse, const void* dd,
                                         const void* lens, void* dk, void* dv, int b, int n,
-                                        int h, float scale, unsigned seed, unsigned threshold,
-                                        float inv_keep, int dropout,
+                                        int h, int d, float scale, unsigned seed,
+                                        unsigned threshold, float inv_keep, int dropout,
                                         unsigned b_offset, unsigned h_offset, void* stream) {
-  BwdMaps maps;
-  const int err = bwd_prepare(maps, q, k, v, dout, b, n, h);
-  if (err != 0) return err;
-  const dim3 grid((n + kBwdRows - 1) / kBwdRows, h, b);
-  train_attention_dkv_kernel<<<grid, kBwdThreads, kBwdSmem, static_cast<cudaStream_t>(stream)>>>(
-      maps.q, maps.k, maps.v, maps.dout, static_cast<const float*>(lse),
-      static_cast<const float*>(dd), static_cast<const int*>(lens),
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), n, h, scale,
-      make_dropout(seed, threshold, inv_keep, dropout, b_offset, h_offset));
-  return static_cast<int>(cudaGetLastError());
+  const Dropout drop = make_dropout(seed, threshold, inv_keep, dropout, b_offset, h_offset);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (d == 64)
+    return launch_dkv<64>(q, k, v, dout, lse, dd, lens, dk, dv, b, n, h, scale, drop, st);
+  if (d == 128)
+    return launch_dkv<128>(q, k, v, dout, lse, dd, lens, dk, dv, b, n, h, scale, drop, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

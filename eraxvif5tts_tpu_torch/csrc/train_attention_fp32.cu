@@ -7,7 +7,7 @@
 // DiT's default compute dtype and the training CLIs' `--compute_dtype
 // float32`.
 //
-// For q, k, v [b, n, h, 64] fp32 and lens [b] int32, with
+// For q, k, v [b, n, h, d] fp32 (d = 64 or 128) and lens [b] int32, with
 //   S = q k^T * scale, keys >= lens[b] set to -1e30,
 //   P = softmax(S) (the undropped weights: they alone form the normaliser),
 //   keep(b, h, i, j) = fmix32((i * n + j) ^ salt(seed, b, h)) < threshold
@@ -44,14 +44,20 @@
 // for one block an SM; `mma.sync` reads its fragments into registers, so a
 // transposed read costs nothing but its addresses.
 // - Geometry: a block owns 64 rows of one (sample, head), four warps of 16
-//   rows, 128 threads, two blocks an SM. The backward's warps keep their
-//   fixed operands (dq: Q and dO; dk/dv: K and V) in registers as fp32 in
-//   A-fragment order (64 floats) and split them at each scores pass of 32
-//   columns, two a tile (the registers hold no wider pass beside the output
-//   accumulators).
+//   rows, 128 threads, two blocks an SM at d = 64, one at d = 128. At d = 64
+//   the backward's warps keep their fixed operands (dq: Q and dO; dk/dv: K
+//   and V) in registers as fp32 in A-fragment order (64 floats) and split
+//   them at each scores pass of 32 columns, two a tile (the registers hold no
+//   wider pass beside the output accumulators). At d = 128 those would be
+//   128 floats beside dq's 64 or dk/dv's 128 accumulator registers, more
+//   than 255: the block keeps them in two padded shared tiles instead, read
+//   and split at each pass (`SharedA`).
 // - The ring: the streamed tiles (dq: K and V; dk/dv: Q, dO and their 64
-//   LSE and 64 D values) through kStages = 2 stages, split once a block.
-//   104,448 (dq) and 105,472 (dk/dv) bytes of shared memory.
+//   LSE and 64 D values) through kBwdStages stages, split once a block: two
+//   at d = 64, 104,448 (dq) and 105,472 (dk/dv) bytes of shared memory; one
+//   at d = 128 (its fixed tiles take the second stage's room), 202,752 and
+//   203,264 bytes, where the next tile's copy waits for the products of this
+//   one.
 // - dq: each step takes S = Q K^T and dP = dO V^T, dS, and dQ += dS K.
 //   dk/dv: each step takes S^T = K Q^T and dP^T = V dO^T, Pd^T and dS^T,
 //   and dV += Pd^T dO, dK += dS^T Q. The scores come out in the mma's C
@@ -74,6 +80,8 @@
 
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "dropout_hash.cuh"
 #include "fp32_forward.cuh"
 #include "fp32_tile.cuh"
@@ -84,43 +92,73 @@ using namespace fp32tile;
 
 // The forward: `fp32_forward.cuh`'s core with the LSE, training's lens-0
 // logits and, when dropout is on, the keep bits.
-template <bool kDrop>
-__global__ void __launch_bounds__(kThreads, 2)
+template <int D, bool kDrop>
+__global__ void __launch_bounds__(kThreads, Fp32Shape<D>::kBlocks)
     train_fp32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                           const float* __restrict__ v, const int* __restrict__ lens,
                           float* __restrict__ out, float* __restrict__ lse, int n, int h,
                           float scale, const Dropout drop) {
-  forward_core<true, kDrop, false>(q, k, v, lens, nullptr, nullptr, out, lse, n, h, scale, drop);
+  forward_core<D, true, kDrop, false>(q, k, v, lens, nullptr, nullptr, out, lse, n, h, scale,
+                                      drop);
 }
 
 // ---- the backward: dq and dk/dv ----------------------------------------------
 
 // The ring of the dq and dk/dv kernels (`ops/train_attention.py`
-// `backward_geometry_fp32` states it): kStages stages of the streamed tiles
-// and one buffer of their small parts.
-constexpr int kDqStage = 2 * kTileFloats;               // K, V (big parts once split)
-constexpr int kDkvStage = 2 * kTileFloats + 2 * kRows;  // Q, dO, their 64 LSE and 64 D
-constexpr int kSmall = 2 * kTileFloats;                 // the small parts of a stage's tiles
-constexpr int kDqSmem = (kStages * kDqStage + kSmall) * 4;    // 104,448 bytes
-constexpr int kDkvSmem = (kStages * kDkvStage + kSmall) * 4;  // 105,472 bytes
+// `backward_geometry_fp32` states it): kBwdStages stages of the streamed
+// tiles, one buffer of their small parts and, at d = 128, the block's two
+// fixed tiles.
+template <int D>
+struct Fp32Bwd {
+  using S = Fp32Shape<D>;
+  static constexpr int kDqStage = 2 * S::kTileFloats;               // K, V (big once split)
+  static constexpr int kDkvStage = 2 * S::kTileFloats + 2 * kRows;  // Q, dO, 64 LSE, 64 D
+  static constexpr int kSmall = 2 * S::kTileFloats;  // the small parts of a stage's tiles
+  static constexpr int kFixed = S::kFixedShared ? 2 * S::kTileFloats : 0;
+  static constexpr int kDqSmem = (S::kBwdStages * kDqStage + kSmall + kFixed) * 4;
+  static constexpr int kDkvSmem = (S::kBwdStages * kDkvStage + kSmall + kFixed) * 4;
+  static_assert(kDqSmem <= 232448 && kDkvSmem <= 232448,
+                "more shared memory than a block may use");
+};
+
+// A warp's fixed operand of the backward: fp32 in registers at d = 64, in a
+// padded shared tile at d = 128.
+template <int D>
+using Fixed = std::conditional_t<Fp32Shape<D>::kFixedShared, SharedA<D>, RawA<D>>;
+
+// The warp's fixed operand: rows `row` and `row + 8` of `src` (position 0 of
+// the head) into registers, or the block's 64 rows from `row0` into the
+// shared tile `tile` by `cp.async`, a group of its own that the loop's first
+// wait covers.
+template <int D>
+__device__ __forceinline__ void load_fixed(Fixed<D>& a, float* tile, const float* __restrict__ src,
+                                           int64_t stride, int row0, int row, int c) {
+  if constexpr (Fp32Shape<D>::kFixedShared) {
+    copy_tile<D>(tile, src + static_cast<int64_t>(row0) * stride, stride);
+    cp_async_commit();
+    a.p = tile + (row - row0) * Fp32Shape<D>::kStride + c;
+  } else {
+    load_a<D>(a, src, stride, row, c);
+  }
+}
 
 // The scores of kN n-tiles (columns 8 j0 .. 8 (j0 + kN) - 1 of the split
 // tiles X and Y: big parts `xb`, `yb`, small `xs`, `ys`) for the warp's 16
-// rows: s += A X^T and dp += B Y^T over the 64 columns of d, A and B the
+// rows: s += A X^T and dp += B Y^T over the D columns of d, A and B the
 // warp's fixed operands (split here, once a call). One ldmatrix brings the B
 // fragments of two n-tiles (b0 = (8 j + lane / 4, 8 kk + lane % 4), b1 four
-// columns on); a padded row of 68 floats puts the eight rows of a matrix in
-// eight distinct bank quads.
-template <int kN>
-__device__ __forceinline__ void scores(float (&s)[kN][4], float (&dp)[kN][4],
-                                       const float (&a)[8][4], const float (&b)[8][4],
-                                       const float* xb, const float* xs, const float* yb,
-                                       const float* ys, int j0, int lane) {
+// columns on); a padded row of D + 4 floats puts the eight rows of a matrix
+// in eight distinct bank quads.
+template <int D, int kN>
+__device__ __forceinline__ void scores(float (&s)[kN][4], float (&dp)[kN][4], const Fixed<D>& a,
+                                       const Fixed<D>& b, const float* xb, const float* xs,
+                                       const float* yb, const float* ys, int j0, int lane) {
+  constexpr int kStride = Fp32Shape<D>::kStride;
   const int lm = (8 * j0 + 8 * (lane >> 4) + (lane & 7)) * kStride + 4 * ((lane >> 3) & 1);
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
-    const FragA fa = split_a(a[kk][0], a[kk][1], a[kk][2], a[kk][3]);
-    const FragA fb = split_a(b[kk][0], b[kk][1], b[kk][2], b[kk][3]);
+  for (int kk = 0; kk < D / 8; ++kk) {
+    const FragA fa = a.frag(kk);
+    const FragA fb = b.frag(kk);
 #pragma unroll
     for (int jp = 0; jp < kN / 2; ++jp) {
       const int at = lm + 16 * jp * kStride + 8 * kk;
@@ -143,47 +181,53 @@ __device__ __forceinline__ void scores(float (&s)[kN][4], float (&dp)[kN][4],
 // and a pass's own).
 constexpr int kPass = 4;
 
-template <bool kDrop>
-__global__ void __launch_bounds__(kThreads, 2)
+template <int D, bool kDrop>
+__global__ void __launch_bounds__(kThreads, Fp32Shape<D>::kBlocks)
     train_fp32_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, const float* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ dd,
                          const int* __restrict__ lens, float* __restrict__ dq, int n, int h,
                          float scale, const Dropout drop) {
+  using S = Fp32Shape<D>;
+  using L = Fp32Bwd<D>;
   extern __shared__ float4 smem4[];
   float* const ring = reinterpret_cast<float*>(smem4);
-  float* const small = ring + kStages * kDqStage;  // K's and V's small parts
+  float* const small = ring + S::kBwdStages * L::kDqStage;  // K's and V's small parts
+  float* const fixed = small + L::kSmall;                    // Q and dO at d = 128
   const int lane = threadIdx.x & 31, c = lane & 3;
-  const Head hd = block_head(lens, n, h, drop);
+  const Head hd = block_head<D>(lens, n, h, drop);
   // no valid key: dS is zero everywhere, and so is dq
   const int n_tiles = hd.len <= 0 ? 0 : key_tiles(hd.len, n);
   const int row = hd.row0 + 16 * (threadIdx.x >> 5) + (lane >> 2);  // and row + 8
 
   auto issue = [&](int t) {  // K and V of key tile t into its stage
-    float* stage = ring + (t % kStages) * kDqStage;
+    float* stage = ring + (t % S::kBwdStages) * L::kDqStage;
     const int64_t at = hd.base + static_cast<int64_t>(t) * kRows * hd.stride;
-    copy_tile(stage, k + at, hd.stride);
-    copy_tile(stage + kTileFloats, v + at, hd.stride);
+    copy_tile<D>(stage, k + at, hd.stride);
+    copy_tile<D>(stage + S::kTileFloats, v + at, hd.stride);
     cp_async_commit();
   };
-  if (n_tiles > 0) issue(0);
 
-  float qa[8][4], da[8][4];
-  load_a(qa, q + hd.base, hd.stride, row, c);
-  load_a(da, dout + hd.base, hd.stride, row, c);
+  Fixed<D> qa, da;
+  if (n_tiles > 0) {
+    issue(0);
+    load_fixed<D>(qa, fixed, q + hd.base, hd.stride, hd.row0, row, c);
+    load_fixed<D>(da, fixed + S::kTileFloats, dout + hd.base, hd.stride, hd.row0, row, c);
+  }
   const float lse_r[2] = {lse[hd.stat + row], lse[hd.stat + row + 8]};
   const float d_r[2] = {dd[hd.stat + row], dd[hd.stat + row + 8]};
 
-  float acc[8][4];
+  float acc[D / 8][4];
   zero(acc);
   for (int t = 0; t < n_tiles; ++t) {
-    float* const ks = ring + (t % kStages) * kDqStage;
-    float* const vs = ks + kTileFloats;
+    float* const ks = ring + (t % S::kBwdStages) * L::kDqStage;
+    float* const vs = ks + S::kTileFloats;
     cp_async_wait_all();  // this thread's copies of tile t have landed
     __syncthreads();      // tile t - 1 is done with: its stage and the small parts are free
-    if (t + 1 < n_tiles) issue(t + 1);  // under this tile's split and products
-    split_tile(ks, small);
-    split_tile(vs, small + kTileFloats);
+    // two stages: the next tile's copy runs under this tile's split and products
+    if (S::kBwdStages == 2 && t + 1 < n_tiles) issue(t + 1);
+    split_tile<D>(ks, small);
+    split_tile<D>(vs, small + S::kTileFloats);
     __syncthreads();  // tile t split
 
 #pragma unroll 1
@@ -192,7 +236,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       zero(s);
       zero(dp);
       // S = Q K^T, dP = dO V^T
-      scores(s, dp, qa, da, ks, small, vs, small + kTileFloats, j0, lane);
+      scores<D>(s, dp, qa, da, ks, small, vs, small + S::kTileFloats, j0, lane);
 #pragma unroll
       for (int j = 0; j < kPass; ++j) {
         const int key0 = t * kRows + 8 * (j0 + j) + 2 * c;
@@ -206,65 +250,72 @@ __global__ void __launch_bounds__(kThreads, 2)
           s[j][e] = valid ? p * (dpd - d_r[r]) : 0.f;  // dS
         }
       }
-      pass_product(acc, s, ks, small, j0, lane);  // dQ += dS K
+      pass_product<D>(acc, s, ks, small, j0, lane);  // dQ += dS K
+    }
+    if (S::kBwdStages == 1) {  // one stage: the next copy once every warp is done with this tile
+      __syncthreads();
+      if (t + 1 < n_tiles) issue(t + 1);
     }
   }
-  store_acc(dq + hd.base, hd.stride, acc, scale, row, c);
+  store_acc<D>(dq + hd.base, hd.stride, acc, scale, row, c);
 }
 
-template <bool kDrop>
-__global__ void __launch_bounds__(kThreads, 2)
+template <int D, bool kDrop>
+__global__ void __launch_bounds__(kThreads, Fp32Shape<D>::kBlocks)
     train_fp32_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                           const float* __restrict__ v, const float* __restrict__ dout,
                           const float* __restrict__ lse, const float* __restrict__ dd,
                           const int* __restrict__ lens, float* __restrict__ dk,
                           float* __restrict__ dv, int n, int h, float scale,
                           const Dropout drop) {
+  using S = Fp32Shape<D>;
+  using L = Fp32Bwd<D>;
   extern __shared__ float4 smem4[];
   float* const ring = reinterpret_cast<float*>(smem4);
-  float* const small = ring + kStages * kDkvStage;  // Q's and dO's small parts
+  float* const small = ring + S::kBwdStages * L::kDkvStage;  // Q's and dO's small parts
+  float* const fixed = small + L::kSmall;                     // K and V at d = 128
   const int lane = threadIdx.x & 31, c = lane & 3;
-  const Head hd = block_head(lens, n, h, drop);
+  const Head hd = block_head<D>(lens, n, h, drop);
   const int key = hd.row0 + 16 * (threadIdx.x >> 5) + (lane >> 2);  // and key + 8
 
-  float dk_acc[8][4], dv_acc[8][4];
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
   zero(dk_acc);
   zero(dv_acc);
   if (hd.len > 0 && hd.row0 >= hd.len) {  // every key of the block masked: P = 0, dS = 0
-    store_acc(dk + hd.base, hd.stride, dk_acc, 0.f, key, c);
-    store_acc(dv + hd.base, hd.stride, dv_acc, 0.f, key, c);
+    store_acc<D>(dk + hd.base, hd.stride, dk_acc, 0.f, key, c);
+    store_acc<D>(dv + hd.base, hd.stride, dv_acc, 0.f, key, c);
     return;
   }
   const int n_tiles = n / kRows;
   auto issue = [&](int t) {  // Q, dO and the LSE and D rows of query tile t
-    float* stage = ring + (t % kStages) * kDkvStage;
+    float* stage = ring + (t % S::kBwdStages) * L::kDkvStage;
     const int64_t at = hd.base + static_cast<int64_t>(t) * kRows * hd.stride;
-    copy_tile(stage, q + at, hd.stride);
-    copy_tile(stage + kTileFloats, dout + at, hd.stride);
+    copy_tile<D>(stage, q + at, hd.stride);
+    copy_tile<D>(stage + S::kTileFloats, dout + at, hd.stride);
     if (threadIdx.x < 2 * kRows / 4) {
       const int part = threadIdx.x >> 4, col = 4 * (threadIdx.x & 15);
-      cp_async16(stage + 2 * kTileFloats + part * kRows + col,
+      cp_async16(stage + 2 * S::kTileFloats + part * kRows + col,
                  (part ? dd : lse) + hd.stat + t * kRows + col);
     }
     cp_async_commit();
   };
-  issue(0);
 
-  float ka[8][4], va[8][4];
-  load_a(ka, k + hd.base, hd.stride, key, c);
-  load_a(va, v + hd.base, hd.stride, key, c);
+  issue(0);
+  Fixed<D> ka, va;
+  load_fixed<D>(ka, fixed, k + hd.base, hd.stride, hd.row0, key, c);
+  load_fixed<D>(va, fixed + S::kTileFloats, v + hd.base, hd.stride, hd.row0, key, c);
   const bool key_valid[2] = {key < hd.len, key + 8 < hd.len};
 
   for (int t = 0; t < n_tiles; ++t) {
-    float* const qs = ring + (t % kStages) * kDkvStage;
-    float* const dos = qs + kTileFloats;
-    const float* lse_s = dos + kTileFloats;
+    float* const qs = ring + (t % S::kBwdStages) * L::kDkvStage;
+    float* const dos = qs + S::kTileFloats;
+    const float* lse_s = dos + S::kTileFloats;
     const float* dd_s = lse_s + kRows;
     cp_async_wait_all();
     __syncthreads();
-    if (t + 1 < n_tiles) issue(t + 1);
-    split_tile(qs, small);
-    split_tile(dos, small + kTileFloats);
+    if (S::kBwdStages == 2 && t + 1 < n_tiles) issue(t + 1);
+    split_tile<D>(qs, small);
+    split_tile<D>(dos, small + S::kTileFloats);
     __syncthreads();
 #pragma unroll 1
     for (int j0 = 0; j0 < kRows / 8; j0 += kPass) {  // queries 8 j0 .. 8 (j0 + kPass) - 1
@@ -272,7 +323,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       zero(st);
       zero(dpt);
       // S^T = K Q^T, dP^T = V dO^T
-      scores(st, dpt, ka, va, qs, small, dos, small + kTileFloats, j0, lane);
+      scores<D>(st, dpt, ka, va, qs, small, dos, small + S::kTileFloats, j0, lane);
 #pragma unroll
       for (int j = 0; j < kPass; ++j) {
         const int col = 8 * (j0 + j) + 2 * c;  // queries col, col + 1 of the tile
@@ -290,12 +341,16 @@ __global__ void __launch_bounds__(kThreads, 2)
           dpt[j][e] = key_valid[r] ? p * (dpt[j][e] * f - d) : 0.f;  // dS^T
         }
       }
-      pass_product(dv_acc, st, dos, small + kTileFloats, j0, lane);  // dV += Pd^T dO
-      pass_product(dk_acc, dpt, qs, small, j0, lane);                // dK += dS^T Q
+      pass_product<D>(dv_acc, st, dos, small + S::kTileFloats, j0, lane);  // dV += Pd^T dO
+      pass_product<D>(dk_acc, dpt, qs, small, j0, lane);                   // dK += dS^T Q
+    }
+    if (S::kBwdStages == 1) {  // one stage: the next copy once every warp is done with this tile
+      __syncthreads();
+      if (t + 1 < n_tiles) issue(t + 1);
     }
   }
-  store_acc(dk + hd.base, hd.stride, dk_acc, scale, key, c);
-  store_acc(dv + hd.base, hd.stride, dv_acc, 1.f, key, c);
+  store_acc<D>(dk + hd.base, hd.stride, dk_acc, scale, key, c);
+  store_acc<D>(dv + hd.base, hd.stride, dv_acc, 1.f, key, c);
 }
 
 Dropout make_dropout(unsigned seed, unsigned threshold, float inv_keep, int on,
@@ -303,80 +358,117 @@ Dropout make_dropout(unsigned seed, unsigned threshold, float inv_keep, int on,
   return Dropout{seed, threshold, inv_keep, on, b_offset, h_offset};
 }
 
-}  // namespace
-
-// Common arguments: q, k, v, dout, out, dq, dk, dv [b, n, h, 64] fp32
-// contiguous and 16-byte aligned; lens [b] int32; lse, dd [b, h, n] fp32.
-// Requires n % 64 == 0. `dropout` = 0 ignores seed / threshold / inv_keep;
-// `b_offset` / `h_offset` are the global sample and head of index 0 in the
-// keep bit's salt. Each launches on `stream` and returns the cudaError_t of the launch or of
-// its set-up.
-extern "C" int erax_train_attention_fp32_fwd(const void* q, const void* k, const void* v,
-                                             const void* lens, void* out, void* lse, int b,
-                                             int n, int h, float scale, unsigned seed,
-                                             unsigned threshold, float inv_keep, int dropout,
-                                             unsigned b_offset, unsigned h_offset, void* stream) {
-  const auto kernel = dropout ? train_fp32_fwd_kernel<true> : train_fp32_fwd_kernel<false>;
+template <int D>
+int launch_fwd(const void* q, const void* k, const void* v, const void* lens, void* out,
+               void* lse, int b, int n, int h, float scale, const Dropout& drop,
+               cudaStream_t stream) {
+  const auto kernel = drop.on ? train_fp32_fwd_kernel<D, true> : train_fp32_fwd_kernel<D, false>;
   static bool allowed[2][kMaxDevices] = {};
-  const int err =
-      allow_shared(reinterpret_cast<const void*>(kernel), kFwdSmem, allowed[dropout ? 1 : 0]);
+  const int err = allow_shared(reinterpret_cast<const void*>(kernel), Fp32Fwd<D>::kSmem,
+                               allowed[drop.on ? 1 : 0]);
   if (err != 0) return err;
-  kernel<<<dim3(n / kRows, h, b), kThreads, kFwdSmem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<dim3(n / kRows, h, b), kThreads, Fp32Fwd<D>::kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const int*>(lens), static_cast<float*>(out), static_cast<float*>(lse), n, h,
-      scale, make_dropout(seed, threshold, inv_keep, dropout, b_offset, h_offset));
+      scale, drop);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+              const void* dd, const void* lens, void* dq, int b, int n, int h, float scale,
+              const Dropout& drop, cudaStream_t stream) {
+  const auto kernel = drop.on ? train_fp32_dq_kernel<D, true> : train_fp32_dq_kernel<D, false>;
+  static bool allowed[2][kMaxDevices] = {};
+  const int err = allow_shared(reinterpret_cast<const void*>(kernel), Fp32Bwd<D>::kDqSmem,
+                               allowed[drop.on ? 1 : 0]);
+  if (err != 0) return err;
+  kernel<<<dim3(n / kRows, h, b), kThreads, Fp32Bwd<D>::kDqSmem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(dd), static_cast<const int*>(lens), static_cast<float*>(dq), n,
+      h, scale, drop);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+               const void* dd, const void* lens, void* dk, void* dv, int b, int n, int h,
+               float scale, const Dropout& drop, cudaStream_t stream) {
+  const auto kernel = drop.on ? train_fp32_dkv_kernel<D, true> : train_fp32_dkv_kernel<D, false>;
+  static bool allowed[2][kMaxDevices] = {};
+  const int err = allow_shared(reinterpret_cast<const void*>(kernel), Fp32Bwd<D>::kDkvSmem,
+                               allowed[drop.on ? 1 : 0]);
+  if (err != 0) return err;
+  kernel<<<dim3(n / kRows, h, b), kThreads, Fp32Bwd<D>::kDkvSmem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(dd), static_cast<const int*>(lens), static_cast<float*>(dk),
+      static_cast<float*>(dv), n, h, scale, drop);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Common arguments: q, k, v, dout, out, dq, dk, dv [b, n, h, d] fp32
+// contiguous and 16-byte aligned, d = 64 or 128; lens [b] int32; lse, dd
+// [b, h, n] fp32. Requires n % 64 == 0. `dropout` = 0 ignores seed /
+// threshold / inv_keep; `b_offset` / `h_offset` are the global sample and
+// head of index 0 in the keep bit's salt. Each launches on `stream` and
+// returns the cudaError_t of the launch or of its set-up, another head dim
+// counting as cudaErrorInvalidValue.
+extern "C" int erax_train_attention_fp32_fwd(const void* q, const void* k, const void* v,
+                                             const void* lens, void* out, void* lse, int b,
+                                             int n, int h, int d, float scale, unsigned seed,
+                                             unsigned threshold, float inv_keep, int dropout,
+                                             unsigned b_offset, unsigned h_offset, void* stream) {
+  const Dropout drop = make_dropout(seed, threshold, inv_keep, dropout, b_offset, h_offset);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (d == 64) return launch_fwd<64>(q, k, v, lens, out, lse, b, n, h, scale, drop, st);
+  if (d == 128) return launch_fwd<128>(q, k, v, lens, out, lse, b, n, h, scale, drop, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int erax_train_attention_fp32_dq(const void* q, const void* k, const void* v,
                                             const void* dout, const void* lse, const void* dd,
                                             const void* lens, void* dq, int b, int n, int h,
-                                            float scale, unsigned seed, unsigned threshold,
-                                            float inv_keep, int dropout,
+                                            int d, float scale, unsigned seed,
+                                            unsigned threshold, float inv_keep, int dropout,
                                             unsigned b_offset, unsigned h_offset, void* stream) {
-  const auto kernel = dropout ? train_fp32_dq_kernel<true> : train_fp32_dq_kernel<false>;
-  static bool allowed[2][kMaxDevices] = {};
-  const int err =
-      allow_shared(reinterpret_cast<const void*>(kernel), kDqSmem, allowed[dropout ? 1 : 0]);
-  if (err != 0) return err;
-  kernel<<<dim3(n / kRows, h, b), kThreads, kDqSmem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(dd), static_cast<const int*>(lens), static_cast<float*>(dq), n,
-      h, scale, make_dropout(seed, threshold, inv_keep, dropout, b_offset, h_offset));
-  return static_cast<int>(cudaGetLastError());
+  const Dropout drop = make_dropout(seed, threshold, inv_keep, dropout, b_offset, h_offset);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (d == 64) return launch_dq<64>(q, k, v, dout, lse, dd, lens, dq, b, n, h, scale, drop, st);
+  if (d == 128) return launch_dq<128>(q, k, v, dout, lse, dd, lens, dq, b, n, h, scale, drop, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int erax_train_attention_fp32_dkv(const void* q, const void* k, const void* v,
                                              const void* dout, const void* lse, const void* dd,
                                              const void* lens, void* dk, void* dv, int b, int n,
-                                             int h, float scale, unsigned seed,
+                                             int h, int d, float scale, unsigned seed,
                                              unsigned threshold, float inv_keep, int dropout,
                                              unsigned b_offset, unsigned h_offset, void* stream) {
-  const auto kernel = dropout ? train_fp32_dkv_kernel<true> : train_fp32_dkv_kernel<false>;
-  static bool allowed[2][kMaxDevices] = {};
-  const int err =
-      allow_shared(reinterpret_cast<const void*>(kernel), kDkvSmem, allowed[dropout ? 1 : 0]);
-  if (err != 0) return err;
-  kernel<<<dim3(n / kRows, h, b), kThreads, kDkvSmem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(dd), static_cast<const int*>(lens), static_cast<float*>(dk),
-      static_cast<float*>(dv), n, h, scale,
-      make_dropout(seed, threshold, inv_keep, dropout, b_offset, h_offset));
-  return static_cast<int>(cudaGetLastError());
+  const Dropout drop = make_dropout(seed, threshold, inv_keep, dropout, b_offset, h_offset);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (d == 64)
+    return launch_dkv<64>(q, k, v, dout, lse, dd, lens, dk, dv, b, n, h, scale, drop, st);
+  if (d == 128)
+    return launch_dkv<128>(q, k, v, dout, lse, dd, lens, dk, dv, b, n, h, scale, drop, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The three kernels' launch geometry, as `ops/train_attention.py`
+// The three kernels' launch geometry at head dim d, as `ops/train_attention.py`
 // `forward_geometry_fp32` / `backward_geometry_fp32` state it: the forward's
 // rows a block, threads, ring stages and dynamic shared bytes, then the
 // backward's rows a block, threads, ring stages and the dq and dk/dv
-// kernels' shared bytes.
-extern "C" void erax_train_attention_fp32_geometry(int* out) {
-  forward_geometry(out);
+// kernels' shared bytes; non-zero for a head dim that has no instantiation.
+extern "C" int erax_train_attention_fp32_geometry(int d, int* out) {
+  const int err = forward_geometry(d, out);
+  if (err != 0) return err;
   out[4] = kRows;
   out[5] = kThreads;
-  out[6] = kStages;
-  out[7] = kDqSmem;
-  out[8] = kDkvSmem;
+  out[6] = d == 64 ? Fp32Shape<64>::kBwdStages : Fp32Shape<128>::kBwdStages;
+  out[7] = d == 64 ? Fp32Bwd<64>::kDqSmem : Fp32Bwd<128>::kDqSmem;
+  out[8] = d == 64 ? Fp32Bwd<64>::kDkvSmem : Fp32Bwd<128>::kDkvSmem;
+  return 0;
 }

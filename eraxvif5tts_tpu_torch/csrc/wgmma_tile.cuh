@@ -4,8 +4,16 @@
 // m64n128k16 and m64n256k16 (bf16 in, fp32 accumulators) reading those tiles through
 // shared-memory descriptors or, for the left operand, from registers.
 // The training-attention backward, the forward core of `flash_forward.cuh`
-// (64 x 64 tiles of a [b, n, h, 64] tensor) and the GEMM core of
+// (64-row tiles of a [b, n, h, d] tensor, d = 64 or 128) and the GEMM core of
 // `wgmma_gemm.cuh` (tiles of plain [rows, k] matrices) are built from them.
+//
+// A [64, d] tile of an attention tensor is d / 64 such tiles ("panels")
+// side by side in shared memory, 8192 bytes apart: panel p holds columns
+// [64 p, 64 p + 64). The 128-byte swizzle takes a box at most 128 bytes
+// across, so each panel is one TMA box of its own (`tma_load_rows`), and a
+// product over d walks the panels: K-major k16 steps 0-3 in panel 0, 4-7 in
+// panel 1; an MN-major operand gives each panel's 64 columns to a product of
+// their own (`kPanelStep` in descriptor units).
 //
 // One tile is 64 rows of 128 bytes, written by TMA with the 128-byte swizzle:
 // the 16-byte chunk c of row r lands at chunk c ^ (r % 8) of that row. A tile
@@ -32,6 +40,7 @@ constexpr int kTileRows = 64;
 constexpr int kTileBytes = kTileRows * 64 * 2;  // 8192
 constexpr uint64_t kStepK = 2;                  // descriptor step per k16, K-major
 constexpr uint64_t kStepMN = 128;               // descriptor step per k16, MN-major
+constexpr uint64_t kPanelStep = kTileBytes >> 4;  // descriptor step to the next panel
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -79,17 +88,28 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 
 // ---- TMA ------------------------------------------------------------------
 
-// Rows [row, row + 64) of head `head` of sample `sample` of a [b, n, h, 64]
-// bf16 tensor into the tile at `dst`, 8192 bytes onto `bar`. The map keeps n
-// a dimension of its own, so rows at or past n read as zeros and never as
-// the next sample.
+// Rows [row, row + 64), columns [col, col + 64) of head `head` of sample
+// `sample` of a [b, n, h, d] bf16 tensor into the tile (panel) at `dst`, 8192
+// bytes onto `bar`. The map keeps n a dimension of its own, so rows at or
+// past n read as zeros and never as the next sample.
 __device__ __forceinline__ void tma_load_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                              int row, int head, int sample) {
+                                              int row, int head, int sample, int col = 0) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(head), "r"(row), "r"(sample)
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(head), "r"(row), "r"(sample)
       : "memory");
+}
+
+// Rows [row, row + 64) of a [b, n, h, D] bf16 tensor (the map of
+// `encode_rows_map` with d = D) as D / 64 panels at dst, dst + 8192, ...:
+// 64 D * 2 bytes onto `bar`.
+template <int D>
+__device__ __forceinline__ void tma_load_rows(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                              int row, int head, int sample) {
+#pragma unroll
+  for (int p = 0; p < D / 64; ++p)
+    tma_load_tile(dst + p * kTileBytes, map, bar, row, head, sample, 64 * p);
 }
 
 // The box of a row-major [rows, k] matrix's map (`encode_matrix_map`) whose
@@ -493,16 +513,19 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// The map of a contiguous [b, n, h, 64] bf16 tensor as four dimensions
-// (64, h, n, b), box 64 x 1 x 64 x 1: one head's 64 rows, 128-byte swizzle,
-// out-of-range rows filled with zeros. False if the encoder refuses it.
-inline bool encode_rows_map(CUtensorMap* map, const void* base, int b, int n, int h) {
+// The map of a contiguous [b, n, h, d] bf16 tensor (d = 64 or 128) as four
+// dimensions (d, h, n, b), box 64 x 1 x 64 x 1: 64 columns of one head's 64
+// rows (a panel), 128-byte swizzle, out-of-range rows filled with zeros.
+// False if the encoder refuses it.
+inline bool encode_rows_map(CUtensorMap* map, const void* base, int b, int n, int h,
+                            int d = 64) {
   const EncodeTiledFn encode = encode_tiled_fn();
   if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {64, static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(n),
-                              static_cast<cuuint64_t>(b)};
-  const cuuint64_t strides[3] = {64 * 2, static_cast<cuuint64_t>(h) * 64 * 2,
-                                 static_cast<cuuint64_t>(n) * h * 64 * 2};
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(h),
+                              static_cast<cuuint64_t>(n), static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(d) * 2,
+                                 static_cast<cuuint64_t>(h) * d * 2,
+                                 static_cast<cuuint64_t>(n) * h * d * 2};
   const cuuint32_t box[4] = {64, 1, kTileRows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,

@@ -32,7 +32,7 @@ with ``load_state_dict(strict=True)``.
 Training (``module.train()``, the JAX ``deterministic=False``) runs the
 joint attention through the training attention (`ops/train_attention.py`,
 kernel 4, whose domain reaches the joint 2048 + 4096) on the same
-``[b, nt + n, h, 64]`` q, k, v and prefix key mask as the eval path, at
+``[b, nt + n, h, d]`` q, k, v and prefix key mask as the eval path, at
 dropout 0: fp32 parameters, computing in ``compute_dtype`` (bf16 on the
 card) or in fp32, ``proj_out`` in its parameters' dtype as a flax ``Dense``
 without a dtype. The JAX MMDiT trains only at dropout 0: at any dropout
@@ -71,7 +71,11 @@ from eraxvif5tts_tpu_torch.models.modules import (
     layer_norm,
     linear,
 )
-from eraxvif5tts_tpu_torch.ops.attention import dot_product_attention
+from eraxvif5tts_tpu_torch.ops.attention import (
+    dot_product_attention,
+    head_dim_route,
+    plain_train_attention,
+)
 from eraxvif5tts_tpu_torch.ops.quant import QuantLinear
 from eraxvif5tts_tpu_torch.ops.rotary import (
     abs_pos_embedding_table,
@@ -169,7 +173,9 @@ class JointAttention(nn.Module):
         q, k, v = (torch.cat(pair, dim=1) for pair in ((cq, q), (ck, k), (cv, v)))
         key_valid = None if mask is None else F.pad(mask, (nt, 0), value=True)
         if self.training:  # at dropout 0: MMDiT.run refuses any other rate
-            out = train_attention(q, k, v, key_valid=key_valid)
+            attend = (train_attention if head_dim_route(self.dim_head, q.device) == "kernel"
+                      else plain_train_attention)
+            out = attend(q, k, v, key_valid=key_valid)
         else:
             out = dot_product_attention(q, k, v, key_valid=key_valid)
         out = out.reshape(b, nt + n, -1)

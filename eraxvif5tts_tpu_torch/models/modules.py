@@ -58,7 +58,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from eraxvif5tts_tpu_torch.ops.attention import dot_product_attention
+from eraxvif5tts_tpu_torch.ops.attention import (
+    dot_product_attention,
+    head_dim_route,
+    plain_train_attention,
+)
 from eraxvif5tts_tpu_torch.ops.dropout import hash_dropout
 from eraxvif5tts_tpu_torch.ops.fused_matmul import ln_mod_matmul, use_fused_serving
 from eraxvif5tts_tpu_torch.ops.quant import QuantLinear
@@ -449,8 +453,10 @@ class Attention(nn.Module):
                 k = apply_rotary_heads(k, rope, rotated)
             seed = attention_seed(dropout_keys[0]) if dropout_rate > 0.0 else 0
             row0 = batch_offset(self.shard)
-            out = train_attention(q, k, v, key_valid=mask, dropout_rate=dropout_rate, seed=seed,
-                                  batch_offset=row0, head_offset=self.head0)
+            attend = (train_attention if head_dim_route(self.dim_head, q.device) == "kernel"
+                      else plain_train_attention)
+            out = attend(q, k, v, key_valid=mask, dropout_rate=dropout_rate, seed=seed,
+                         batch_offset=row0, head_offset=self.head0)
             out = row_linear(out.reshape(b, n, -1), self.to_out[0], self.tp)
             out = hash_dropout(out, dropout_rate, dropout_keys[1], row0)
         if mask is not None:

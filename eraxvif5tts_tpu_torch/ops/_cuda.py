@@ -43,24 +43,25 @@ _U = ctypes.c_uint32
 _F = ctypes.c_float
 _DROPOUT = (_U, _U, _F, _I, _U, _U)  # seed, threshold, inv_keep, dropout on, b / h offsets
 _SIGNATURES = {
-    # q, k, v, lens, cos, sin, out, b, n, h, roped, scale, stream
-    "erax_serving_attention": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
-    "erax_serving_attention_fp32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # q, k, v, lens, cos, sin, out, b, n, h, d, roped, scale, stream
+    "erax_serving_attention": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    "erax_serving_attention_fp32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     # x, scale, shift, w, bias, out, stats, b, m, k, n, gelu, norm, eps, stream
     "erax_ln_mod_matmul": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
-    # q, k, v, lens, out, lse, b, n, h, scale, dropout..., stream
-    "erax_train_attention_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, *_DROPOUT, _P),
-    # q, k, v, dout, lse, dd, lens, dq, b, n, h, scale, dropout..., stream
-    "erax_train_attention_dq": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, *_DROPOUT,
-                                _P),
-    # q, k, v, dout, lse, dd, lens, dk, dv, b, n, h, scale, dropout..., stream
-    "erax_train_attention_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
+    # q, k, v, lens, out, lse, b, n, h, d, scale, dropout..., stream
+    "erax_train_attention_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, *_DROPOUT, _P),
+    # q, k, v, dout, lse, dd, lens, dq, b, n, h, d, scale, dropout..., stream
+    "erax_train_attention_dq": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                                *_DROPOUT, _P),
+    # q, k, v, dout, lse, dd, lens, dk, dv, b, n, h, d, scale, dropout..., stream
+    "erax_train_attention_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                                  *_DROPOUT, _P),
     # the fp32 modes of the three (`csrc/train_attention_fp32.cu`), the same arguments
-    "erax_train_attention_fp32_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, *_DROPOUT, _P),
-    "erax_train_attention_fp32_dq": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
+    "erax_train_attention_fp32_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, *_DROPOUT,
+                                      _P),
+    "erax_train_attention_fp32_dq": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                                      *_DROPOUT, _P),
-    "erax_train_attention_fp32_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
+    "erax_train_attention_fp32_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                                       *_DROPOUT, _P),
     # x, w1, s1, b1, w2, s2, b2, out, hidden codes, x codes, x scales, rows, k, n, k2, stream
     "erax_int8_ff": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
@@ -232,12 +233,14 @@ def kernels() -> Kernels:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        # d, out[...]: an attention kernel's constants at head dim d (non-zero
+        # for a head dim it has no instantiation of)
         for name in ("erax_train_attention_bwd_geometry", "erax_flash_forward_geometry",
                      "erax_train_attention_fp32_geometry",
                      "erax_serving_attention_fp32_geometry"):
             fn = getattr(lib, name)
-            fn.argtypes = (ctypes.POINTER(ctypes.c_int),)
-            fn.restype = None
+            fn.argtypes = (_I, ctypes.POINTER(ctypes.c_int))
+            fn.restype = ctypes.c_int
         # b, m, n, out[10]: the GEMM core's constants and its choice for a shape
         lib.erax_gemm_geometry.argtypes = (_I, _I, _I, ctypes.POINTER(ctypes.c_int))
         lib.erax_gemm_geometry.restype = None

@@ -17,13 +17,64 @@ version for CPU tensors:
   JAX package's CPU-only ``chunked_dot_product_attention``
   exists because its kernel needs a TPU; the port's plain version runs on the
   CPU and is not ported.
+
+Which of them runs on the card is decided by the head dim before any launch
+(:func:`head_dim_route`), never on an error:
+
+- d in ``HEAD_DIMS`` (64, 128): the kernels, always; the JAX package's
+  Pallas kernels take the same (`ops/attention.py:156`,
+  `ops/serving_attention.py:179`, `ops/train_attention.py:404`);
+- d = 256: refused. The JAX package serves it with its library flash kernel
+  (kernel 6, `ops/attention.py:202`), which has no counterpart in the port
+  yet (ROADMAP.md, queue 2 item 1);
+- any other d (``tools/bench.py --smoke``'s 32, say): the JAX package runs
+  no Pallas kernel there but XLA's attention (`ops/attention.py:206-212`),
+  and work that JAX leaves to XLA is plain torch in the port: the plain
+  versions run on the card, counted in ``plain_attention.calls``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from eraxvif5tts_tpu_torch.ops.serving_attention import serving_attention
+from eraxvif5tts_tpu_torch.ops.serving_attention import (
+    serving_attention,
+    serving_attention_reference,
+)
+from eraxvif5tts_tpu_torch.ops.train_attention import HEAD_DIMS, train_attention_reference
+
+# kernel 6's head dim beyond the kernels' (the JAX package's `ops/attention.py:202`)
+LIBRARY_HEAD_DIM = 256
+
+
+def head_dim_route(d: int, device) -> str:
+    """How attention with head dim ``d`` runs on ``device``: ``"kernel"``
+    (the attention wrappers: on a CUDA tensor their kernels, on a CPU tensor
+    their plain versions, as for every d) or ``"plain"`` (the plain versions
+    on the card, where the JAX package runs XLA's attention); d = 256 on the
+    card raises (kernel 6's domain, not ported yet)."""
+    if torch.device(device).type == "cpu" or d in HEAD_DIMS:
+        return "kernel"
+    if d == LIBRARY_HEAD_DIM:
+        raise NotImplementedError(
+            f"attention at head dim {d} on {device}: the JAX package runs it on its library "
+            "flash kernel (kernel 6), which the port has not yet ported (ROADMAP.md, queue 2 "
+            f"item 1); the kernels take head dims {HEAD_DIMS}")
+    return "plain"
+
+
+def plain_attention(reference, *args, **kwargs) -> torch.Tensor:
+    """The plain version ``reference`` on the card, for a head dim that no
+    kernel takes (:func:`head_dim_route`): one call counted in
+    ``plain_attention.calls`` (a CUDA graph replay counts the calls it
+    captured)."""
+    from eraxvif5tts_tpu_torch.ops import _cuda
+
+    _cuda.count(plain_attention, "calls")
+    return reference(*args, **kwargs)
+
+
+plain_attention.calls = 0
 
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -31,9 +82,23 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           rope: torch.Tensor | None = None) -> torch.Tensor:
     """Softmax attention over ``q/k/v [b, n, h, d]``; ``key_valid [b, n]`` is a
     contiguous-prefix mask of valid keys; ``rope [n, d]`` rotary angles are
-    applied to q and k inside the kernel."""
+    applied to q and k inside the kernel. Routed by head dim
+    (:func:`head_dim_route`)."""
     lens = None
     if key_valid is not None:
         lens = key_valid.sum(dim=-1, dtype=torch.int32)
+    if head_dim_route(q.shape[-1], q.device) == "plain":
+        return plain_attention(serving_attention_reference, q, k, v, lens, rope)
     return serving_attention(q, k, v, lens, rope=rope)
 
+
+def plain_train_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          key_valid: torch.Tensor | None = None, dropout_rate: float = 0.0,
+                          seed: int = 0, batch_offset: int = 0,
+                          head_offset: int = 0) -> torch.Tensor:
+    """:func:`~eraxvif5tts_tpu_torch.ops.train_attention.train_attention`'s
+    arguments and semantics through its plain version, for the head dims
+    :func:`head_dim_route` sends to ``"plain"``."""
+    lens = None if key_valid is None else key_valid.sum(dim=-1, dtype=torch.int32)
+    return plain_attention(train_attention_reference, q, k, v, lens, dropout_rate, seed,
+                           batch_offset, head_offset)

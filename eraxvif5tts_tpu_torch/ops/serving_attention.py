@@ -13,7 +13,8 @@ semantics, for CPU tensors:
 - P cast to v's dtype, PV accumulated in fp32, output in q's dtype.
 
 Kernel domain: bf16 or fp32 (q, k and v of one dtype), contiguous and
-16-byte aligned ``[b, n, h, 64]``, ``n % 64 == 0``, ``64 <= n <= 6144``.
+16-byte aligned ``[b, n, h, d]`` with d in ``HEAD_DIMS`` (64 or 128, the
+JAX package's Pallas domain), ``n % 64 == 0``, ``64 <= n <= 6144``.
 The bound is the longest sequence a served model gives it: the MMDiT's
 joint text + mel sequence at the largest text and duration buckets
 (2048 + 4096); the DiT and the UNetT stop at 4096. Anything else on a CUDA
@@ -21,7 +22,9 @@ tensor raises; there is no fallback.
 
 - bf16: `csrc/serving_attention.cu`, the forward core of
   `csrc/flash_forward.cuh` (`ops/train_attention.py` ``forward_geometry``
-  states its launch) on ``wgmma`` and TMA. Nothing in it depends on n beyond
+  states its launch for each d: 192 query rows a block at d = 64, 128 at
+  d = 128, a ``[64, 128]`` tile being two 128-byte-swizzled panels) on
+  ``wgmma`` and TMA. Nothing in it depends on n beyond
   its tiles: the K / V ring's shared memory is fixed, the grid and the
   tensor map's dimensions grow with n and row offsets are 64-bit. Its online
   softmax rounds the unnormalised P to bf16 where the TPU kernel rounds the
@@ -33,14 +36,15 @@ tensor raises; there is no fallback.
   (:func:`forward_geometry_fp32` states its launch): every product on the
   tensor cores, ``mma.sync`` TF32 in 3xTF32 (each operand split into two
   TF32 parts, three products each, a fresh accumulator a key tile), 64
-  query rows a block over key tiles of 64 that a ``cp.async`` ring brings,
+  query rows a block (two blocks an SM at d = 64, one at d = 128) over key
+  tiles of 64 that a ``cp.async`` ring brings,
   an online softmax with ``expf``. It keeps fp32's accuracy whatever
   torch's TF32 flags say, and agrees with the plain version to the
   reordering of fp32 sums.
 
-Both read fp32 cos / sin tables, which :func:`rope_tables` makes once per
-angle table and keeps, so a call in the Euler loop does no host work for
-them (nor for the ``lens=None`` vector). Several threads may call it at once
+Both read fp32 cos / sin tables ``[n, d]``, which :func:`rope_tables` makes
+once per angle table, whatever d is, and keeps, so a call in the Euler loop
+does no host work for them (nor for the ``lens=None`` vector). Several threads may call it at once
 (the HTTP server runs up to four generations on one wrapper): the two caches
 change under a lock, the launch counters through ``_cuda.count``. A call
 under CUDA graph capture must find its tables and lengths cached already (the
@@ -62,7 +66,7 @@ from eraxvif5tts_tpu_torch.ops.rotary import rotate_half
 _NEG = -1e30
 MAX_N = train_attention.MAX_N  # the MMDiT's longest joint sequence, kernel 4's bound too
 TILE = 64
-HEAD_DIM = 64
+HEAD_DIMS = train_attention.HEAD_DIMS  # the head dims the kernels are built for
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -91,21 +95,22 @@ def serving_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
     return out.to(q.dtype)
 
 
-def forward_geometry_fp32(b: int, n: int, h: int) -> dict:
-    """How the fp32 kernel covers ``[b, n, h, 64]``: the fp32 forward core's
+def forward_geometry_fp32(b: int, n: int, h: int, d: int = train_attention.HEAD_DIM) -> dict:
+    """How the fp32 kernel covers ``[b, n, h, d]``: the fp32 forward core's
     launch (`ops/train_attention.py` ``forward_geometry_fp32``), over this
-    kernel's domain, ``64 <= n <= MAX_N``, ``n % 64 == 0``; other n raise."""
+    kernel's domain, ``64 <= n <= MAX_N``, ``n % 64 == 0``, d in
+    ``HEAD_DIMS``; others raise."""
     if n % TILE or not 0 < n <= MAX_N:
         raise ValueError(f"serving_attention: n must be a multiple of {TILE} in "
                          f"[{TILE}, {MAX_N}], got {n}")
-    return train_attention.forward_geometry_fp32(b, n, h)
+    return train_attention.forward_geometry_fp32(b, n, h, d)
 
 
-def kernel_geometry_fp32() -> dict:
-    """The constants the built fp32 kernel reports (needs the card's build):
-    they must equal :func:`forward_geometry_fp32`'s ``rows``, ``threads``,
-    ``stages`` and ``shared_bytes``."""
-    return train_attention._kernel_geometry("erax_serving_attention_fp32_geometry",
+def kernel_geometry_fp32(d: int = train_attention.HEAD_DIM) -> dict:
+    """The constants the built fp32 kernel reports for head dim ``d`` (needs
+    the card's build): they must equal :func:`forward_geometry_fp32`'s
+    ``rows``, ``threads``, ``stages`` and ``shared_bytes``."""
+    return train_attention._kernel_geometry("erax_serving_attention_fp32_geometry", d,
                                             train_attention.FP32_FORWARD_BUILT)
 
 
@@ -124,8 +129,8 @@ def _check_cuda_args(q, k, v, lens, rope) -> None:
             raise ValueError(f"serving_attention: {name} must be contiguous and "
                              "16-byte aligned")
     b, n, h, d = q.shape
-    if d != HEAD_DIM:
-        raise ValueError(f"serving_attention: head dim must be {HEAD_DIM}, got {d}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"serving_attention: the kernels take head dims {HEAD_DIMS}, got {d}")
     if n % TILE or not 0 < n <= MAX_N:
         raise ValueError(f"serving_attention: n must be a multiple of {TILE} in "
                          f"[{TILE}, {MAX_N}], got {n}")
@@ -192,8 +197,10 @@ def serving_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CPU tensors take :func:`serving_attention_reference`; CUDA tensors launch
     the kernel of their dtype or raise. The bf16 kernel's launches are
     counted in ``serving_attention.launches`` and, with and without fused
-    rotary, ``serving_attention.launches_by_rope[rope is not None]``; the
-    fp32 kernel's apart, in ``serving_attention.launches_fp32_by_rope``."""
+    rotary, ``serving_attention.launches_by_rope[rope is not None]``, by
+    head dim in ``serving_attention.launches_by_head_dim[d]``; the fp32
+    kernel's apart, in ``serving_attention.launches_fp32_by_rope`` and
+    ``launches_fp32_by_head_dim``."""
     if q.device.type == "cpu":
         return serving_attention_reference(q, k, v, lens, rope)
     if q.device.type != "cuda":
@@ -214,19 +221,23 @@ def serving_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lens_i.data_ptr(),
             cos.data_ptr() if cos is not None else None,
             sin.data_ptr() if sin is not None else None,
-            out.data_ptr(), b, n, h, int(rope is not None), 1.0 / math.sqrt(d),
+            out.data_ptr(), b, n, h, d, int(rope is not None), 1.0 / math.sqrt(d),
             _cuda.stream_ptr(q.device))
     _cuda.check(code, "serving_attention")
     # a CUDA graph captured here reads the cached tables (and lengths) by
     # address: it holds them, as the caches above may drop them
     _cuda.hold(cos, sin, lens_i if lens is None else None)
     if fp32:
-        _cuda.count(serving_attention, ("launches_fp32_by_rope", rope is not None))
+        _cuda.count(serving_attention, ("launches_fp32_by_rope", rope is not None),
+                    ("launches_fp32_by_head_dim", d))
     else:
-        _cuda.count(serving_attention, "launches", ("launches_by_rope", rope is not None))
+        _cuda.count(serving_attention, "launches", ("launches_by_rope", rope is not None),
+                    ("launches_by_head_dim", d))
     return out
 
 
 serving_attention.launches = 0
 serving_attention.launches_by_rope = {True: 0, False: 0}
 serving_attention.launches_fp32_by_rope = {True: 0, False: 0}
+serving_attention.launches_by_head_dim = dict.fromkeys(HEAD_DIMS, 0)
+serving_attention.launches_fp32_by_head_dim = dict.fromkeys(HEAD_DIMS, 0)

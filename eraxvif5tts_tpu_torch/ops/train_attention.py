@@ -21,13 +21,15 @@ PyTorch version of the same semantics, differentiated by autograd:
   with their own tiling and no mask is stored.
 
 Kernel domain: q, k, v all bf16 or all fp32, contiguous and 16-byte aligned
-``[b, n, h, 64]`` (the layout a ``Linear`` output views to), ``n % 64 ==
-0``, ``n <= MAX_N`` = 2048 + 4096, the serving attention's bound: the
+``[b, n, h, d]`` (the layout a ``Linear`` output views to) with d in
+``HEAD_DIMS`` (64 or 128, the JAX package's Pallas domain, each built as an
+instantiation of its own), ``n % 64 == 0``, ``n <= MAX_N`` = 2048 + 4096,
+the serving attention's bound: the
 DiT's training buckets and the MMDiT's joint sequence (text bucket plus mel
 bucket: 1024 + 4096 under the training buckets, 2048 + 4096 under the
 serving ones) in either dtype. Nothing in the kernels depends on that bound:
 grids and the TMA maps take n as it comes, the LSE / D rows and every
-offset into ``[b, n, h, 64]`` are 64-bit (b = 9, n = 6144, h = 16 is 5.7e7
+offset into ``[b, n, h, d]`` are 64-bit (b = 9, n = 6144, h = 16 is 5.7e7
 elements a tensor, inside 32 bits all the same), the fp32 kernels' shared
 memory does not depend on n, and the keep bit's counter ``q * n + k`` stays
 below 6144^2 = 3.8e7 < 2^32, so the hash takes it unwrapped as before.
@@ -64,26 +66,38 @@ from eraxvif5tts_tpu_torch.infer.utils import DURATION_BUCKETS, TEXT_BUCKETS
 _NEG = -1e30
 MAX_N = TEXT_BUCKETS[-1] + DURATION_BUCKETS[-1]  # the MMDiT's longest joint sequence
 TILE = 64
-HEAD_DIM = 64
+HEAD_DIM = 64             # the default head dim of the geometry functions
+HEAD_DIMS = (64, 128)     # the head dims the kernels are built for (`csrc/`)
+PANEL = 64                # bf16 columns of one 128-byte swizzle atom: a d = 128 tile is two
 M32 = 0xFFFFFFFF
-# the backward kernels (`csrc/train_attention.cu`: kBwdRows, kBwdStages, ...)
+# the backward kernels (`csrc/train_attention.cu`: kBwdRows, ...), both head dims
 BWD_ROWS = 128      # rows a block owns: two consumer warpgroups of TILE rows
-BWD_STAGES = 4      # ring of TMA stages, two [TILE, 64] bf16 tiles each
+BWD_STAGES = 4      # ring of TMA stages, two [TILE, d] bf16 tiles each
 BWD_THREADS = 384   # two consumer warpgroups and the producer's
-# the forward core (`csrc/flash_forward.cuh`: kFwdRows, kFwdStages, ...), which
-# the serving attention instantiates too
-FWD_ROWS = 192      # query rows a block owns: three consumer warpgroups of TILE rows
+BWD_REGISTERS = (40, 232)  # setmaxnreg: the producer's warpgroup, each consumer's
+# the forward core (`csrc/flash_forward.cuh`: FwdShape<d>), which the serving
+# attention instantiates too; the constants are d = 64's, FWD_SHAPES each d's
+# d -> (rows a block, setmaxnreg of the producer's warpgroup, of each consumer):
+# at d = 128 a consumer's O accumulator is 64 fp32 registers a thread, which
+# three consumer warpgroups at 144 registers do not hold; two at 216 do
+FWD_SHAPES = {64: (192, 72, 144), 128: (128, 72, 216)}
+FWD_ROWS = FWD_SHAPES[64][0]  # query rows a block owns: three consumer warpgroups of TILE rows
 FWD_STAGES = 4      # ring of TMA stages, a K and a V tile each
-FWD_THREADS = 512   # three consumer warpgroups and the producer's
+FWD_THREADS = 128 * (FWD_ROWS // TILE + 1)  # the consumer warpgroups and the producer's
 FWD_ROTATORS = 96   # threads of the producer's warps 1-3, which rotate tiles (rotary)
 SHARED_LIMIT = 232448  # bytes of shared memory a block may use on an H100
 SM_SHARED = 233472     # bytes of shared memory an SM has; the card keeps 1 KB of it a block
 # the fp32 kernels, the forward core and dq, dk/dv alike (`csrc/fp32_tile.cuh`:
-# kRows, kThreads, kStages, kStride)
+# kRows, kThreads, Fp32Shape<d>); FP32_STRIDE is d = 64's, d + 4 in general
 FP32_ROWS = 64      # rows a block owns
 FP32_THREADS = 128  # four warps, each 16 rows: one m16 tile of the 3xTF32 mma
-FP32_STAGES = 2     # cp.async ring, each stage the streamed tiles of one step
+FP32_STAGES = 2     # the forward's cp.async ring, each stage the streamed tiles of one step
 FP32_STRIDE = 68    # floats a shared tile row: 64 padded by 4
+# the fp32 dq and dk/dv kernels' ring: two stages at d = 64, where the warps keep
+# their fixed operands in registers; one at d = 128, where those go to shared
+# memory beside the ring (64 + 64 fixed floats a thread beside one or two
+# [16, 128] accumulators would not fit in 255 registers)
+FP32_BWD_STAGES = {64: 2, 128: 1}
 
 
 def fmix32(h: torch.Tensor) -> torch.Tensor:
@@ -172,57 +186,76 @@ def _rows_cover(n: int, rows: int) -> list:
             for i in range(-(-n // rows))]
 
 
-def _rows_map(b: int, n: int, h: int) -> dict:
-    """The TMA map of a ``[b, n, h, 64]`` bf16 tensor, innermost dimension
+def _check_head_dim(d: int) -> None:
+    if d not in HEAD_DIMS:
+        raise ValueError(f"the attention kernels are built for head dims {HEAD_DIMS}, got {d}")
+
+
+def _rows_map(b: int, n: int, h: int, d: int = HEAD_DIM) -> dict:
+    """The TMA map of a ``[b, n, h, d]`` bf16 tensor, innermost dimension
     first: ``dims`` in elements, ``strides`` in bytes (of all but the
-    innermost), ``box`` the tile one load brings. n is a dimension of its
-    own, apart from b, so rows past n read as zeros, never as the next
-    sample's."""
-    return dict(dims=(HEAD_DIM, h, n, b),
-                strides=(HEAD_DIM * 2, h * HEAD_DIM * 2, n * h * HEAD_DIM * 2),
-                box=(HEAD_DIM, 1, TILE, 1))
+    innermost), ``box`` the ``[TILE, 64]`` panel one load brings (a 128-byte
+    row: the widest the 128-byte swizzle takes) and ``panels`` the column of
+    each load of a ``[TILE, d]`` tile, whose panels lie one after the other
+    in shared memory. n is a dimension of its own, apart from b, so rows past
+    n read as zeros, never as the next sample's."""
+    return dict(dims=(d, h, n, b), strides=(d * 2, h * d * 2, n * h * d * 2),
+                box=(PANEL, 1, TILE, 1), panels=tuple(range(0, d, PANEL)))
 
 
-def forward_geometry(b: int, n: int, h: int) -> dict:
-    """How the forward core covers ``[b, n, h, 64]`` (the training forward and
+def forward_geometry(b: int, n: int, h: int, d: int = HEAD_DIM) -> dict:
+    """How the forward core covers ``[b, n, h, d]`` (the training forward and
     the serving attention alike), in :func:`backward_geometry`'s terms:
-    ``ceil(n / FWD_ROWS)`` blocks a (sample, head); the block's three Q tiles,
-    a ring of ``FWD_STAGES`` stages of a K and a V tile, and three barriers a
-    stage plus two for Q (1024 bytes of alignment slack in front)."""
-    tile_bytes = TILE * HEAD_DIM * 2
-    shared = (1024 + (FWD_ROWS // TILE) * tile_bytes + FWD_STAGES * 2 * tile_bytes
+    ``ceil(n / rows)`` blocks a (sample, head) with ``rows`` from
+    ``FWD_SHAPES`` (192 at d = 64, 128 at d = 128); the block's Q tiles (one
+    a consumer warpgroup), a ring of ``FWD_STAGES`` stages of a K and a V
+    tile, and three barriers a stage plus two for Q (1024 bytes of alignment
+    slack in front). ``registers``: the producer warpgroup's and each
+    consumer's ``setmaxnreg`` counts."""
+    _check_head_dim(d)
+    rows, producer, consumer = FWD_SHAPES[d]
+    tile_bytes = TILE * d * 2
+    shared = (1024 + (rows // TILE) * tile_bytes + FWD_STAGES * 2 * tile_bytes
               + (3 * FWD_STAGES + 2) * 8)
-    return dict(grid=(-(-n // FWD_ROWS), h, b), threads=FWD_THREADS, rows=FWD_ROWS, tile=TILE,
-                stages=FWD_STAGES, shared_bytes=shared, warpgroups=_rows_cover(n, FWD_ROWS),
-                tensor_map=_rows_map(b, n, h))
+    return dict(grid=(-(-n // rows), h, b), threads=128 * (rows // TILE + 1), rows=rows,
+                tile=TILE, stages=FWD_STAGES, shared_bytes=shared,
+                registers=(producer, consumer), warpgroups=_rows_cover(n, rows),
+                tensor_map=_rows_map(b, n, h, d))
 
 
-def swizzled_offset(row: int, col: int) -> int:
-    """Byte offset of bf16 element ``(row, col)`` in a ``[TILE, 64]`` tile as
-    TMA writes it with the 128-byte swizzle: the 16-byte chunk ``col // 8`` of
-    a row lands at chunk ``(col // 8) ^ (row % 8)`` of that row (the mirror of
-    ``swizzled_chunk_offset`` in `csrc/wgmma_tile.cuh`). The serving
-    attention rotates a tile in place through this map: an interleaved pair
-    (columns 2 i, 2 i + 1) is 4 bytes and never leaves its chunk."""
-    return row * 128 + (((col // 8) ^ (row % 8)) << 4) + (col % 8) * 2
+def swizzled_offset(row: int, col: int, d: int = HEAD_DIM) -> int:
+    """Byte offset of bf16 element ``(row, col)`` in a ``[TILE, d]`` tile as
+    TMA writes it with the 128-byte swizzle, one ``[TILE, 64]`` panel of
+    8192 bytes after the other (columns ``64 p ..`` in panel ``p``): the
+    16-byte chunk ``c`` of a panel's row lands at chunk ``c ^ (row % 8)`` of
+    that row (the mirror of ``swizzled_chunk_offset`` in
+    `csrc/wgmma_tile.cuh`). The serving attention rotates a tile in place
+    through this map: an interleaved pair (columns 2 i, 2 i + 1) is 4 bytes
+    and never leaves its chunk."""
+    panel, col = divmod(col, PANEL)
+    assert panel < d // PANEL, (col, d)
+    return (panel * TILE * PANEL * 2 + row * 128 + (((col // 8) ^ (row % 8)) << 4)
+            + (col % 8) * 2)
 
 
-def rotator_chunks(rid: int) -> list[tuple[int, int]]:
-    """The ``(row, chunk)`` pairs of a tile that rotating thread ``rid`` of
-    ``FWD_ROTATORS`` takes (`csrc/flash_forward.cuh` ``rotate_tile``): chunk
-    index ``rid + 96 j``, whose eight cos / sin entries lie at offset
-    ``8 * index`` of the tile's ``[64, 64]`` table rows."""
-    return [(ci // 8, ci % 8) for ci in range(rid, TILE * 8, FWD_ROTATORS)]
+def rotator_chunks(rid: int, d: int = HEAD_DIM) -> list[tuple[int, int]]:
+    """The ``(row, chunk)`` pairs of a ``[TILE, d]`` tile that rotating
+    thread ``rid`` of ``FWD_ROTATORS`` takes (`csrc/flash_forward.cuh`
+    ``rotate_tile``): chunk index ``rid + 96 j`` of the ``TILE * d / 8``
+    chunks, row by row, whose eight cos / sin entries lie at offset
+    ``8 * index`` of the tile's ``[64, d]`` table rows."""
+    per_row = d // 8
+    return [(ci // per_row, ci % per_row) for ci in range(rid, TILE * per_row, FWD_ROTATORS)]
 
 
-def kernel_forward_geometry() -> dict:
-    """The constants the built forward kernels report (needs the card's
-    build): they must equal :func:`forward_geometry`'s."""
-    return _kernel_geometry("erax_flash_forward_geometry")
+def kernel_forward_geometry(d: int = HEAD_DIM) -> dict:
+    """The constants the built forward kernels report for head dim ``d``
+    (needs the card's build): they must equal :func:`forward_geometry`'s."""
+    return _kernel_geometry("erax_flash_forward_geometry", d)
 
 
-def backward_geometry(b: int, n: int, h: int) -> dict:
-    """How the dq and dk/dv kernels cover ``[b, n, h, 64]`` (both alike; dq
+def backward_geometry(b: int, n: int, h: int, d: int = HEAD_DIM) -> dict:
+    """How the dq and dk/dv kernels cover ``[b, n, h, d]`` (both alike; dq
     over query rows, dk/dv over keys):
 
     - ``grid``: ``ceil(n / BWD_ROWS)`` blocks a (sample, head), ``h``, ``b``;
@@ -235,39 +268,47 @@ def backward_geometry(b: int, n: int, h: int) -> dict:
       own four tiles, the ring, 64 LSE + 64 D values a stage, the barriers);
     - ``tensor_map``: the TMA map of each of q, k, v, dO, innermost
       dimension first: ``dims`` in elements, ``strides`` in bytes (of all but
-      the innermost), ``box`` the tile one load brings. n is a dimension of
-      its own, apart from b, so rows past n read as zeros, never as the next
-      sample's."""
-    tile_bytes = TILE * HEAD_DIM * 2
+      the innermost), ``box`` the panel one load brings and ``panels`` the
+      column of each (:func:`_rows_map`). n is a dimension of its own, apart
+      from b, so rows past n read as zeros, never as the next sample's;
+    - ``registers``: the producer warpgroup's and each consumer's
+      ``setmaxnreg`` counts (at d = 128 dk/dv's two ``[64, 128]``
+      accumulators are 128 of a consumer's 232)."""
+    _check_head_dim(d)
+    tile_bytes = TILE * d * 2
     shared = (1024 + 2 * (BWD_ROWS // TILE) * tile_bytes
               + BWD_STAGES * (2 * tile_bytes + 2 * TILE * 4) + (2 * BWD_STAGES + 1) * 8)
     return dict(grid=(-(-n // BWD_ROWS), h, b), threads=BWD_THREADS, rows=BWD_ROWS, tile=TILE,
-                stages=BWD_STAGES, shared_bytes=shared, warpgroups=_rows_cover(n, BWD_ROWS),
-                tensor_map=_rows_map(b, n, h))
+                stages=BWD_STAGES, shared_bytes=shared, registers=BWD_REGISTERS,
+                warpgroups=_rows_cover(n, BWD_ROWS), tensor_map=_rows_map(b, n, h, d))
 
 
-def _kernel_geometry(entry: str,
+def _kernel_geometry(entry: str, d: int,
                      names: tuple[str, ...] = ("rows", "stages", "threads", "shared_bytes")
                      ) -> dict:
-    """The constants a built kernel's geometry entry point writes, by name."""
+    """The constants a built kernel's geometry entry point writes for head
+    dim ``d``, by name; an entry point refuses (returns non-zero for) a head
+    dim it has no instantiation of."""
     import ctypes
 
     from eraxvif5tts_tpu_torch.ops import _cuda
 
     out = (ctypes.c_int * len(names))()
-    getattr(_cuda.kernels().lib, entry)(out)
+    if getattr(_cuda.kernels().lib, entry)(d, out) != 0:
+        raise ValueError(f"{entry}: no kernel built for head dim {d}")
     return dict(zip(names, out))
 
 
-def kernel_backward_geometry() -> dict:
-    """The constants the built backward kernels report (needs the card's
-    build): they must equal :func:`backward_geometry`'s."""
-    return _kernel_geometry("erax_train_attention_bwd_geometry")
+def kernel_backward_geometry(d: int = HEAD_DIM) -> dict:
+    """The constants the built backward kernels report for head dim ``d``
+    (needs the card's build): they must equal :func:`backward_geometry`'s."""
+    return _kernel_geometry("erax_train_attention_bwd_geometry", d)
 
 
-def _fp32_geometry(b: int, n: int, h: int) -> dict:
+def _fp32_geometry(b: int, n: int, h: int, d: int) -> dict:
+    _check_head_dim(d)
     return dict(grid=(n // FP32_ROWS, h, b), threads=FP32_THREADS, rows=FP32_ROWS, tile=TILE,
-                warps=FP32_THREADS // 32, stages=FP32_STAGES,
+                warps=FP32_THREADS // 32, stages=FP32_STAGES, stride=d + 4,
                 blocks=[(r, FP32_ROWS) for r in range(0, n, FP32_ROWS)])
 
 
@@ -276,47 +317,53 @@ def _per_sm(shared: int) -> int:
     return SM_SHARED // (shared + 1024)
 
 
-def forward_geometry_fp32(b: int, n: int, h: int) -> dict:
-    """How the fp32 forward core covers ``[b, n, h, 64]`` (kernel 4a's fp32
+def forward_geometry_fp32(b: int, n: int, h: int, d: int = HEAD_DIM) -> dict:
+    """How the fp32 forward core covers ``[b, n, h, d]`` (kernel 4a's fp32
     mode and kernel 1's alike): ``n / 64`` blocks a (sample, head), each
     owning the 64 query rows of ``blocks``, four warps of 16 that keep their
-    Q rows in registers, split once; the block walks the key tiles, K and V
-    coming through a ring of ``stages`` stages of padded ``[64, 64]`` fp32
-    tiles (``FP32_STRIDE`` floats a row), split into TF32 big parts in place
-    and small parts in two more tiles. ``blocks_per_sm`` is what shared
-    memory allows, and what the kernels' launch bounds ask of the
+    Q rows in registers (split once at d = 64; at d = 128 kept as fp32 and
+    split at each pass, as 128 split registers would not fit beside O); the
+    block walks the key tiles, K and V coming through a ring of ``stages``
+    stages of padded ``[64, d]`` fp32 tiles (``stride`` = d + 4 floats a
+    row), split into TF32 big parts in place and small parts in two more
+    tiles. ``blocks_per_sm`` is what shared memory allows (two at d = 64,
+    one at d = 128), and what the kernels' launch bounds ask of the
     registers."""
-    tile = FP32_ROWS * FP32_STRIDE * 4
+    tile = FP32_ROWS * (d + 4) * 4
     shared = (FP32_STAGES * 2 + 2) * tile
-    return dict(_fp32_geometry(b, n, h), shared_bytes=shared, blocks_per_sm=_per_sm(shared))
+    return dict(_fp32_geometry(b, n, h, d), shared_bytes=shared, blocks_per_sm=_per_sm(shared))
 
 
-def backward_geometry_fp32(b: int, n: int, h: int) -> dict:
-    """How the fp32 dq and dk/dv kernels cover ``[b, n, h, 64]`` (dq over
+def backward_geometry_fp32(b: int, n: int, h: int, d: int = HEAD_DIM) -> dict:
+    """How the fp32 dq and dk/dv kernels cover ``[b, n, h, d]`` (dq over
     query rows, dk/dv over keys; both ``n / 64`` blocks a (sample, head) of
-    64 rows, four warps of 16): the fixed operands stay in registers, the
-    streamed ones come through a ring of ``stages`` stages of padded ``[64,
-    64]`` fp32 tiles (dq's a K and a V tile, dk/dv's a Q and a dO tile and
-    that query tile's 64 LSE and 64 D values), split into TF32 big parts in
-    place and small parts in two more tiles. ``blocks_per_sm`` as
+    64 rows, four warps of 16): the fixed operands (dq's Q and dO, dk/dv's K
+    and V) stay in registers at d = 64 and in two padded fp32 tiles of
+    shared memory at d = 128 (``fixed_tiles``); the streamed ones come
+    through a ring of ``bwd_stages`` stages (``FP32_BWD_STAGES``) of padded
+    ``[64, d]`` fp32 tiles (dq's a K and a V tile, dk/dv's a Q and a dO tile
+    and that query tile's 64 LSE and 64 D values), split into TF32 big parts
+    in place and small parts in two more tiles. ``blocks_per_sm`` as
     :func:`forward_geometry_fp32`'s."""
-    tile = FP32_ROWS * FP32_STRIDE * 4
-    dq_shared = (FP32_STAGES * 2 + 2) * tile
-    dkv_shared = FP32_STAGES * (2 * tile + 2 * FP32_ROWS * 4) + 2 * tile
-    return dict(_fp32_geometry(b, n, h), dq_shared_bytes=dq_shared,
-                dkv_shared_bytes=dkv_shared,
+    tile = FP32_ROWS * (d + 4) * 4
+    stages = FP32_BWD_STAGES[d]
+    fixed = 0 if d == 64 else 2
+    dq_shared = (stages * 2 + 2 + fixed) * tile
+    dkv_shared = stages * (2 * tile + 2 * FP32_ROWS * 4) + (2 + fixed) * tile
+    return dict(_fp32_geometry(b, n, h, d), bwd_stages=stages, fixed_tiles=fixed,
+                dq_shared_bytes=dq_shared, dkv_shared_bytes=dkv_shared,
                 blocks_per_sm=min(_per_sm(dq_shared), _per_sm(dkv_shared)))
 
 
 FP32_FORWARD_BUILT = ("rows", "threads", "stages", "shared_bytes")
 
 
-def kernel_geometry_fp32() -> dict:
-    """The constants the built fp32 kernels report (needs the card's build):
-    the forward's ``rows``, ``threads``, ``stages`` and ``shared_bytes``
-    must equal :func:`forward_geometry_fp32`'s, the ``bwd_`` ones and the
-    dq and dk/dv shared bytes :func:`backward_geometry_fp32`'s."""
-    return _kernel_geometry("erax_train_attention_fp32_geometry",
+def kernel_geometry_fp32(d: int = HEAD_DIM) -> dict:
+    """The constants the built fp32 kernels report for head dim ``d`` (needs
+    the card's build): the forward's ``rows``, ``threads``, ``stages`` and
+    ``shared_bytes`` must equal :func:`forward_geometry_fp32`'s, the ``bwd_``
+    ones and the dq and dk/dv shared bytes :func:`backward_geometry_fp32`'s."""
+    return _kernel_geometry("erax_train_attention_fp32_geometry", d,
                             FP32_FORWARD_BUILT + ("bwd_rows", "bwd_threads", "bwd_stages",
                                                   "dq_shared_bytes", "dkv_shared_bytes"))
 
@@ -336,8 +383,8 @@ def _check_cuda_args(q, k, v, lens) -> None:
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"train_attention: {name} must be contiguous and 16-byte aligned")
     b, n, h, d = q.shape
-    if d != HEAD_DIM:
-        raise ValueError(f"train_attention: head dim must be {HEAD_DIM}, got {d}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"train_attention: the kernels take head dims {HEAD_DIMS}, got {d}")
     if n % TILE or not 0 < n <= MAX_N:
         raise ValueError(f"train_attention: n must be a multiple of {TILE} in "
                          f"[{TILE}, {MAX_N}], got {n}")
@@ -375,7 +422,7 @@ def _forward(entry: str, dtype: torch.dtype, q, k, v, lens, dropout_rate: float,
     with torch.cuda.device(q.device):
         code = getattr(_cuda.kernels().lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), b, n, h, 1.0 / math.sqrt(d),
+            lse.data_ptr(), b, n, h, d, 1.0 / math.sqrt(d),
             *_dropout_args(dropout_rate, seed, *offsets),
             _cuda.stream_ptr(q.device))
     _cuda.check(code, entry)
@@ -392,7 +439,7 @@ def flash_forward(q, k, v, lens, dropout_rate: float = 0.0, seed: int = 0,
 
     result = _forward("erax_train_attention_fwd", torch.bfloat16, q, k, v, lens,
                       dropout_rate, seed, offsets)
-    _cuda.count(flash_forward, "launches")
+    _cuda.count(flash_forward, "launches", ("launches_by_head_dim", q.shape[-1]))
     return result
 
 
@@ -404,7 +451,7 @@ def flash_forward_fp32(q, k, v, lens, dropout_rate: float = 0.0, seed: int = 0,
 
     result = _forward("erax_train_attention_fp32_fwd", torch.float32, q, k, v, lens,
                       dropout_rate, seed, offsets)
-    _cuda.count(flash_forward_fp32, "launches")
+    _cuda.count(flash_forward_fp32, "launches", ("launches_by_head_dim", q.shape[-1]))
     return result
 
 
@@ -429,7 +476,7 @@ def _dq(entry: str, dtype: torch.dtype, q, k, v, lens, lse, dd, dout,
     with torch.cuda.device(q.device):
         code = getattr(_cuda.kernels().lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-            dd.data_ptr(), lens.data_ptr(), dq.data_ptr(), b, n, h, 1.0 / math.sqrt(d),
+            dd.data_ptr(), lens.data_ptr(), dq.data_ptr(), b, n, h, d, 1.0 / math.sqrt(d),
             *_dropout_args(dropout_rate, seed, *offsets), _cuda.stream_ptr(q.device))
     _cuda.check(code, entry)
     return dq
@@ -447,7 +494,7 @@ def _dkv(entry: str, dtype: torch.dtype, q, k, v, lens, lse, dd, dout,
     with torch.cuda.device(q.device):
         code = getattr(_cuda.kernels().lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-            dd.data_ptr(), lens.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, n, h,
+            dd.data_ptr(), lens.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, n, h, d,
             1.0 / math.sqrt(d), *_dropout_args(dropout_rate, seed, *offsets),
             _cuda.stream_ptr(q.device))
     _cuda.check(code, entry)
@@ -463,7 +510,7 @@ def flash_dq(q, k, v, lens, lse, dd, dout, dropout_rate: float = 0.0,
 
     dq = _dq("erax_train_attention_dq", torch.bfloat16, q, k, v, lens, lse, dd, dout,
              dropout_rate, seed, offsets)
-    _cuda.count(flash_dq, "launches")
+    _cuda.count(flash_dq, "launches", ("launches_by_head_dim", q.shape[-1]))
     return dq
 
 
@@ -475,7 +522,7 @@ def flash_dkv(q, k, v, lens, lse, dd, dout, dropout_rate: float = 0.0, seed: int
 
     result = _dkv("erax_train_attention_dkv", torch.bfloat16, q, k, v, lens, lse, dd, dout,
                   dropout_rate, seed, offsets)
-    _cuda.count(flash_dkv, "launches")
+    _cuda.count(flash_dkv, "launches", ("launches_by_head_dim", q.shape[-1]))
     return result
 
 
@@ -487,7 +534,7 @@ def flash_dq_fp32(q, k, v, lens, lse, dd, dout, dropout_rate: float = 0.0,
 
     dq = _dq("erax_train_attention_fp32_dq", torch.float32, q, k, v, lens, lse, dd, dout,
              dropout_rate, seed, offsets)
-    _cuda.count(flash_dq_fp32, "launches")
+    _cuda.count(flash_dq_fp32, "launches", ("launches_by_head_dim", q.shape[-1]))
     return dq
 
 
@@ -499,12 +546,16 @@ def flash_dkv_fp32(q, k, v, lens, lse, dd, dout, dropout_rate: float = 0.0, seed
 
     result = _dkv("erax_train_attention_fp32_dkv", torch.float32, q, k, v, lens, lse, dd,
                   dout, dropout_rate, seed, offsets)
-    _cuda.count(flash_dkv_fp32, "launches")
+    _cuda.count(flash_dkv_fp32, "launches", ("launches_by_head_dim", q.shape[-1]))
     return result
 
 
-flash_forward.launches = flash_dq.launches = flash_dkv.launches = 0
-flash_forward_fp32.launches = flash_dq_fp32.launches = flash_dkv_fp32.launches = 0
+# each launcher's count, and the same by head dim (which instantiation ran)
+for _launcher in (flash_forward, flash_dq, flash_dkv, flash_forward_fp32, flash_dq_fp32,
+                  flash_dkv_fp32):
+    _launcher.launches = 0
+    _launcher.launches_by_head_dim = dict.fromkeys(HEAD_DIMS, 0)
+del _launcher
 # the forward, dq and dk/dv launchers of q's dtype
 _LAUNCHERS = {torch.bfloat16: (flash_forward, flash_dq, flash_dkv),
               torch.float32: (flash_forward_fp32, flash_dq_fp32, flash_dkv_fp32)}

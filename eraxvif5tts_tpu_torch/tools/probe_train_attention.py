@@ -190,10 +190,20 @@ def fp32_fwd(lib, q, k, v, lens, rate: float, seed: int) -> list:
     out, lse = torch.empty_like(q), torch.empty((b, h, n), device=q.device)
     entry = "erax_train_attention_fp32_fwd"
     fn = getattr(lib, entry)
+    dims = _dims_for(fn, 6, b, n, h, d)
     _cuda.check(fn(
-        *[t.data_ptr() for t in (q, k, v, lens, out, lse)], b, n, h, 1.0 / d ** 0.5,
-        *_dropout_for(fn, 10, rate, seed), _cuda.stream_ptr(q.device)), entry)
+        *[t.data_ptr() for t in (q, k, v, lens, out, lse)], *dims, 1.0 / d ** 0.5,
+        *_dropout_for(fn, 7 + len(dims), rate, seed), _cuda.stream_ptr(q.device)), entry)
     return [out, lse]
+
+
+def _dims_for(fn, first: int, b: int, n: int, h: int, d: int) -> tuple:
+    """The shape arguments of an entry point whose b is argument ``first``:
+    (b, n, h, d), or (b, n, h) for a tree from before head dim 128 (its
+    scale, a float, follows h)."""
+    import ctypes
+
+    return (b, n, h, d) if fn.argtypes[first + 3] is ctypes.c_int else (b, n, h)
 
 
 def _dropout_for(fn, before: int, rate: float, seed: int) -> tuple:
@@ -216,10 +226,13 @@ def fp32_serve(lib, q, k, v, lens, tables):
     out = torch.empty_like(q)
     cos, sin = tables if tables is not None else (None, None)
     entry = "erax_serving_attention_fp32"
-    _cuda.check(getattr(lib, entry)(
+    fn = getattr(lib, entry)
+    # b, n, h, then d (this tree) before the rotary flag and the scale
+    dims = (b, n, h, d) if len(fn.argtypes) == 14 else (b, n, h)
+    _cuda.check(fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
         None if cos is None else cos.data_ptr(), None if sin is None else sin.data_ptr(),
-        out.data_ptr(), b, n, h, int(tables is not None), 1.0 / d ** 0.5,
+        out.data_ptr(), *dims, int(tables is not None), 1.0 / d ** 0.5,
         _cuda.stream_ptr(q.device)), entry)
     return out
 
@@ -264,9 +277,11 @@ def _fp32_launch(lib, entry: str, outputs: int, q, k, v, lens, lse, dd, dout, ra
     b, n, h, d = q.shape
     out = [torch.empty_like(q) for _ in range(outputs)]
     fn = getattr(lib, entry)
+    dims = _dims_for(fn, 7 + outputs, b, n, h, d)
     _cuda.check(fn(
-        *[t.data_ptr() for t in (q, k, v, dout, lse, dd, lens, *out)], b, n, h, 1.0 / d ** 0.5,
-        *_dropout_for(fn, 11 + outputs, rate, seed), _cuda.stream_ptr(q.device)), entry)
+        *[t.data_ptr() for t in (q, k, v, dout, lse, dd, lens, *out)], *dims, 1.0 / d ** 0.5,
+        *_dropout_for(fn, 8 + outputs + len(dims), rate, seed), _cuda.stream_ptr(q.device)),
+        entry)
     return out
 
 

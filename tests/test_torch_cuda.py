@@ -161,12 +161,14 @@ def test_train_attention_forward_matches_plain(cuda, n, dropout):
     assert torch.equal(again[0], out) and torch.equal(again[1], lse)
 
 
-def test_forward_geometry_is_the_kernels(cuda):
-    built = ta.kernel_forward_geometry()
-    stated = ta.forward_geometry(2, 4096, 16)
+@pytest.mark.parametrize("d", ta.HEAD_DIMS)
+def test_forward_geometry_is_the_kernels(cuda, d):
+    built = ta.kernel_forward_geometry(d)
+    stated = ta.forward_geometry(2, 4096, 16, d)
     assert built == {name: stated[name] for name in built}
-    assert (built["rows"], built["stages"], built["threads"]) == (
-        ta.FWD_ROWS, ta.FWD_STAGES, ta.FWD_THREADS)
+    if d == 64:
+        assert (built["rows"], built["stages"], built["threads"]) == (
+            ta.FWD_ROWS, ta.FWD_STAGES, ta.FWD_THREADS)
 
 
 def test_serving_attention_reuses_its_tables(cuda):
@@ -186,9 +188,10 @@ def test_serving_attention_reuses_its_tables(cuda):
     assert len(sa._FULL_LENS) == 1
 
 
-def test_train_attention_backward_geometry_is_the_kernels(cuda):
-    built = ta.kernel_backward_geometry()
-    stated = ta.backward_geometry(2, 4096, 16)
+@pytest.mark.parametrize("d", ta.HEAD_DIMS)
+def test_train_attention_backward_geometry_is_the_kernels(cuda, d):
+    built = ta.kernel_backward_geometry(d)
+    stated = ta.backward_geometry(2, 4096, 16, d)
     assert built == {name: stated[name] for name in built}
     assert (built["rows"], built["stages"], built["threads"]) == (
         ta.BWD_ROWS, ta.BWD_STAGES, ta.BWD_THREADS)
@@ -343,6 +346,14 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         ta.train_attention(q, q.bfloat16(), q)
     with pytest.raises(ValueError):
         ta.train_attention(qb, qb, qb)
+    for d in (32, 256):  # head dims outside (64, 128): no kernel is built for them
+        qd = torch.zeros((1, 128, 2, d), device=cuda, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="head dims"):
+            sa.serving_attention(qd, qd, qd)
+        with pytest.raises(ValueError, match="head dims"):
+            ta.train_attention(qd, qd, qd)
+        with pytest.raises(ValueError, match="no kernel built"):
+            ta.kernel_forward_geometry(d)
     g = torch.Generator(device=cuda).manual_seed(1)
     ff_args = _int8_ff_operands(g, cuda, 1, 32, 512, 1024, 512)
     with pytest.raises(TypeError):  # x must be bf16
@@ -896,23 +907,25 @@ def test_fp32_backward_kernels_ignore_the_tf32_flags(cuda, dropout):
     assert all(torch.equal(a, b) for a, b in zip(*results))
 
 
-def test_train_attention_fp32_geometry_is_the_kernels(cuda):
-    built = ta.kernel_geometry_fp32()
-    fwd, bwd = ta.forward_geometry_fp32(2, 4096, 16), ta.backward_geometry_fp32(2, 4096, 16)
+@pytest.mark.parametrize("d", ta.HEAD_DIMS)
+def test_train_attention_fp32_geometry_is_the_kernels(cuda, d):
+    built = ta.kernel_geometry_fp32(d)
+    fwd, bwd = ta.forward_geometry_fp32(2, 4096, 16, d), ta.backward_geometry_fp32(2, 4096, 16, d)
     assert built == {"rows": fwd["rows"], "threads": fwd["threads"], "stages": fwd["stages"],
                      "shared_bytes": fwd["shared_bytes"], "bwd_rows": bwd["rows"],
-                     "bwd_threads": bwd["threads"], "bwd_stages": bwd["stages"],
+                     "bwd_threads": bwd["threads"], "bwd_stages": bwd["bwd_stages"],
                      "dq_shared_bytes": bwd["dq_shared_bytes"],
                      "dkv_shared_bytes": bwd["dkv_shared_bytes"]}
 
 
-def test_serving_attention_fp32_geometry_is_the_kernels(cuda):
+@pytest.mark.parametrize("d", ta.HEAD_DIMS)
+def test_serving_attention_fp32_geometry_is_the_kernels(cuda, d):
     """Kernel 1 fp32 reports the forward core's constants, which kernel 4a's
     fp32 mode reports too, as `forward_geometry_fp32` states them."""
-    geo = sa.forward_geometry_fp32(2, sa.MAX_N, 16)
-    assert sa.kernel_geometry_fp32() == {key: geo[key] for key in ta.FP32_FORWARD_BUILT}
-    assert sa.kernel_geometry_fp32() == {key: ta.kernel_geometry_fp32()[key]
-                                         for key in ta.FP32_FORWARD_BUILT}
+    geo = sa.forward_geometry_fp32(2, sa.MAX_N, 16, d)
+    assert sa.kernel_geometry_fp32(d) == {key: geo[key] for key in ta.FP32_FORWARD_BUILT}
+    assert sa.kernel_geometry_fp32(d) == {key: ta.kernel_geometry_fp32(d)[key]
+                                          for key in ta.FP32_FORWARD_BUILT}
 
 
 @pytest.mark.parametrize("dropout", [0.0, 0.1])
@@ -1268,3 +1281,60 @@ def test_train_attention_kernels_at_offsets_equal_the_whole_batch(cuda, dtype):
     part = grads([t[1:3, :, 2:4].contiguous() for t in whole], lens[1:3].contiguous(), 1, 2)
     for w, p in zip(full, part):
         assert torch.equal(w[1:3, :, 2:4], p)
+
+
+# ---- head dim 128 ---------------------------------------------------------------
+
+
+@pytest.mark.parametrize("with_rope", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n", [64, 1088, 6144])
+def test_serving_attention_d128_matches_plain(cuda, no_tf32, n, dtype, with_rope):
+    """Kernel 1's d = 128 instantiation (8 heads of 128, a sample whose keys
+    end inside a tile beside one with none) against its plain version: bf16
+    within TOL, fp32 within 2e-5 * (1 + |plain|) (the fp32 kernel's bound in
+    `chip_smoke.py`), counted by head dim, a second call bit-identical."""
+    g = torch.Generator(device=cuda).manual_seed(n + 128)
+    q, k, v = (torch.randn((2, n, 8, 128), generator=g, device=cuda).to(dtype)
+               for _ in range(3))
+    lens = torch.tensor([n - 37, 0], device=cuda)
+    rope = rotary_freqs(n, 128, device=cuda) if with_rope else None
+    counts = (sa.serving_attention.launches_fp32_by_head_dim if dtype == torch.float32
+              else sa.serving_attention.launches_by_head_dim)
+    before = dict(counts)
+    got = sa.serving_attention(q, k, v, lens, rope)
+    assert counts == {64: before[64], 128: before[128] + 1}
+    want = sa.serving_attention_reference(q, k, v, lens, rope)
+    tol = TOL if dtype == torch.bfloat16 else 2e-5
+    err = (got.float() - want.float()).abs()
+    assert torch.all(err <= tol * (1 + want.float().abs())), float(err.max())
+    assert torch.equal(got, sa.serving_attention(q, k, v, lens, rope))
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n", [192, 4096])
+def test_train_attention_d128_kernels_match_plain(cuda, no_tf32, n, dtype, dropout):
+    """Kernels 4a-4c's d = 128 instantiations against the plain version's
+    autograd: output and q / k / v gradients, bf16 within 3e-2 relative L2
+    (`chip_smoke.ATTN_REL_TOL`), fp32 within 5e-5 of each gradient's scale
+    (`chip_smoke.FP32_GRAD_TOL`), each launch counted at d = 128."""
+    g = torch.Generator(device=cuda).manual_seed(n + 129)
+    q, k, v, dout = (torch.randn((2, n, 8, 128), generator=g, device=cuda).to(dtype)
+                     for _ in range(4))
+    lens = torch.tensor([n, n - 37], dtype=torch.int32, device=cuda)
+    fwd, dq, dkv = ta._LAUNCHERS[dtype]
+    before = [fn.launches_by_head_dim[128] for fn in (fwd, dq, dkv)]
+    results = []
+    for attend in (lambda *a: ta.train_attention(*a, key_valid=lens_to_mask(lens, n),
+                                                 dropout_rate=dropout, seed=17),
+                   lambda *a: ta.train_attention_reference(*a, lens, dropout, 17)):
+        args = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = attend(*args)
+        results.append([out.detach(), *torch.autograd.grad(out, args, dout)])
+    assert [fn.launches_by_head_dim[128] for fn in (fwd, dq, dkv)] == [b + 1 for b in before]
+    for got, want in zip(*results):
+        if dtype == torch.bfloat16:
+            assert float((got.float() - want.float()).norm() / want.float().norm()) < 3e-2
+        else:
+            assert float((got - want).abs().max() / want.abs().max()) < 5e-5

@@ -1,14 +1,16 @@
 """PyTorch port, the forward-attention core that the training forward and the
 serving attention share (`csrc/flash_forward.cuh`): what of it is plain
-Python beside the wrappers. The launch geometry for every n of the serving
-attention's domain, 64 to 6144 (the MMDiT's joint sequence; training stops
-at 4096) (each row owned by one warpgroup, the last block's warpgroups without rows
-where n is no multiple of 192, the shared-memory sum within the card's limit, the tensor
-map), the swizzled tile map through which the kernel rotates a tile in place
-(a bijection that keeps every interleaved pair together), the rotating
-threads' cover of a tile, and the cache of cos / sin tables in the serving
-wrapper (one pair per angle table, the same output as without it, the CPU
-path untouched). The kernels themselves run on the card
+Python beside the wrappers, at both head dims the kernels are built for (64
+and 128). The launch geometry for every n of the serving attention's domain,
+64 to 6144 (the MMDiT's joint sequence; training stops at 4096) (each row
+owned by one warpgroup, the last block's warpgroups without rows where n is
+no multiple of a block's rows, the shared-memory sum within the card's limit,
+the registers ``setmaxnreg`` asks within what the launch has, the tensor map
+and its panels), the swizzled tile map through which the kernel rotates a
+tile in place (a bijection that keeps every interleaved pair together), the
+rotating threads' cover of a tile, and the cache of cos / sin tables in the
+serving wrapper (one pair per angle table, the same output as without it,
+the CPU path untouched). The kernels themselves run on the card
 (`tests/test_torch_cuda.py`, `chip_smoke.py`).
 """
 
@@ -21,12 +23,20 @@ from eraxvif5tts_tpu_torch.ops import train_attention as tta
 from eraxvif5tts_tpu_torch.ops.rotary import rotary_freqs
 
 
+@pytest.mark.parametrize("d", tta.HEAD_DIMS)
 @pytest.mark.parametrize("n", list(range(64, 6144 + 1, 64)))
-def test_forward_geometry_covers_every_row_once_within_the_card(n):
+def test_forward_geometry_covers_every_row_once_within_the_card(n, d):
     b, h = 3, 16
-    geo = tta.forward_geometry(b, n, h)
-    assert geo["grid"] == (len(geo["warpgroups"]), h, b) == (-(-n // 192), h, b)
+    geo = tta.forward_geometry(b, n, h, d)
+    rows = {64: 192, 128: 128}[d]
+    per_block = rows // 64  # consumer warpgroups a block
+    assert geo["grid"] == (len(geo["warpgroups"]), h, b) == (-(-n // rows), h, b)
     assert geo["threads"] == 128 * (geo["rows"] // geo["tile"] + 1)
+    # setmaxnreg: the producer's warpgroup and the consumers' within what the
+    # launch has (65,536 registers over the block's threads, a multiple of 8)
+    producer, consumer = geo["registers"]
+    launch = (65536 // geo["threads"]) & ~7
+    assert 128 * producer + (geo["threads"] - 128) * consumer <= geo["threads"] * launch
     covered = np.zeros(n, np.int64)
     for block, groups in enumerate(geo["warpgroups"]):
         assert 1 <= len(groups) <= geo["rows"] // geo["tile"]
@@ -37,85 +47,167 @@ def test_forward_geometry_covers_every_row_once_within_the_card(n):
             covered[start:start + rows] += 1
     np.testing.assert_array_equal(covered, 1)
     # rows go out in units of 64: the last block has the warpgroups whose rows
-    # lie inside the sample (one for n % 192 == 64, two for 128), every other
-    # block all three
-    assert len(geo["warpgroups"][-1]) == (n // 64 - 1) % 3 + 1
-    assert all(len(groups) == 3 for groups in geo["warpgroups"][:-1])
+    # lie inside the sample, every other block all of them
+    assert len(geo["warpgroups"][-1]) == (n // 64 - 1) % per_block + 1
+    assert all(len(wg) == per_block for wg in geo["warpgroups"][:-1])
     assert geo["stages"] >= 2 and geo["shared_bytes"] <= tta.SHARED_LIMIT
     tm = geo["tensor_map"]
-    assert tm["dims"] == (64, h, n, b) and tm["box"] == (64, 1, geo["tile"], 1)
-    assert tm["strides"] == (128, h * 128, n * h * 128)
+    # a [64, d] tile is d / 64 boxes of 64 columns (128 bytes, the widest the
+    # 128-byte swizzle takes), one after the other in shared memory
+    assert tm["dims"] == (d, h, n, b) and tm["box"] == (64, 1, geo["tile"], 1)
+    assert tm["panels"] == tuple(range(0, d, 64))
+    assert tm["strides"] == (2 * d, h * 2 * d, n * h * 2 * d)
     assert all(stride % 16 == 0 for stride in tm["strides"])
-    assert tm == tta.backward_geometry(b, n, h)["tensor_map"]
+    assert tm == tta.backward_geometry(b, n, h, d)["tensor_map"]
 
 
-def test_forward_geometry_shared_bytes_add_up():
-    geo = tta.forward_geometry(1, 4096, 16)
-    tile = geo["tile"] * 64 * 2
-    own = (geo["rows"] // geo["tile"]) * tile           # the block's Q tiles
-    ring = geo["stages"] * 2 * tile                     # a K and a V tile a stage
+@pytest.mark.parametrize("d, shared, own, ring", [(64, 91248, 24576, 65536),
+                                                  (128, 164976, 32768, 131072)])
+def test_forward_geometry_shared_bytes_add_up(d, shared, own, ring):
+    geo = tta.forward_geometry(1, 4096, 16, d)
+    tile = geo["tile"] * d * 2
+    assert (geo["rows"] // geo["tile"]) * tile == own   # the block's Q tiles
+    assert geo["stages"] * 2 * tile == ring              # a K and a V tile a stage
     barriers = 8 * (3 * geo["stages"] + 2)              # full, empty, ready; q, q_ready
-    assert geo["shared_bytes"] == 1024 + own + ring + barriers == 91248
-    assert (own, ring) == (24576, 65536)
-    # every tile starts on a 1024-byte boundary (eight rows: one swizzle atom)
-    assert own % 1024 == 0 and tile % 1024 == 0
+    assert geo["shared_bytes"] == 1024 + own + ring + barriers == shared
+    # every tile (and each of its panels) starts on a 1024-byte boundary
+    # (eight rows: one swizzle atom)
+    assert own % 1024 == 0 and tile % 1024 == 0 and (64 * 128) % 1024 == 0
 
 
-def test_swizzled_offset_is_a_bijection_that_keeps_pairs_together():
-    offsets = np.array([[tta.swizzled_offset(r, c) for c in range(64)] for r in range(64)])
-    # every bf16 element of the 8192-byte tile exactly once
-    assert sorted(offsets.ravel().tolist()) == list(range(0, 64 * 64 * 2, 2))
-    # a row stays in its own 128 bytes; its 16-byte chunks are permuted by row % 8
-    assert np.array_equal(offsets // 128, np.repeat(np.arange(64)[:, None], 64, axis=1))
+@pytest.mark.parametrize("d", tta.HEAD_DIMS)
+def test_swizzled_offset_is_a_bijection_that_keeps_pairs_together(d):
+    offsets = np.array([[tta.swizzled_offset(r, c, d) for c in range(d)] for r in range(64)])
+    # every bf16 element of the 64 d * 2-byte tile exactly once
+    assert sorted(offsets.ravel().tolist()) == list(range(0, 64 * d * 2, 2))
+    # panel p (columns 64 p ..) is the p-th 8192 bytes
+    assert np.array_equal(offsets // 8192, np.broadcast_to(np.arange(d) // 64, (64, d)))
+    offsets = offsets % 8192
+    # a row stays in its own 128 bytes of a panel; its 16-byte chunks are
+    # permuted by row % 8
+    assert np.array_equal(offsets // 128, np.repeat(np.arange(64)[:, None], d, axis=1))
     chunk = (offsets % 128) // 16
-    assert np.array_equal(chunk, (np.arange(64)[None, :] // 8) ^ (np.arange(64)[:, None] % 8))
+    assert np.array_equal(chunk, (np.arange(d)[None, :] % 64 // 8) ^ (np.arange(64)[:, None] % 8))
     # an interleaved pair (2 i, 2 i + 1) is 4 contiguous, 4-byte aligned bytes
     assert np.array_equal(offsets[:, 1::2], offsets[:, 0::2] + 2)
     assert not (offsets[:, 0::2] % 4).any()
     # eight consecutive columns from a multiple of 8 are one contiguous chunk
-    assert np.array_equal(offsets.reshape(64, 8, 8) - offsets.reshape(64, 8, 8)[:, :, :1],
-                          np.broadcast_to(2 * np.arange(8), (64, 8, 8)))
+    per_row = d // 8
+    assert np.array_equal(
+        offsets.reshape(64, per_row, 8) - offsets.reshape(64, per_row, 8)[:, :, :1],
+        np.broadcast_to(2 * np.arange(8), (64, per_row, 8)))
 
 
-def test_rotating_threads_cover_a_tile_once():
-    taken = np.zeros((64, 8), np.int64)
+@pytest.mark.parametrize("d, least, most", [(64, 5, 6), (128, 10, 11)])
+def test_rotating_threads_cover_a_tile_once(d, least, most):
+    per_row = d // 8
+    taken = np.zeros((64, per_row), np.int64)
     for rid in range(tta.FWD_ROTATORS):
-        chunks = tta.rotator_chunks(rid)
-        assert 5 <= len(chunks) <= 6
+        chunks = tta.rotator_chunks(rid, d)
+        assert least <= len(chunks) <= most
         for row, chunk in chunks:
             taken[row, chunk] += 1
     np.testing.assert_array_equal(taken, 1)
-    # a warp's 32 threads take 32 consecutive chunks: four whole table rows
-    first = [tta.rotator_chunks(rid)[0] for rid in range(32)]
-    assert first == [(i // 8, i % 8) for i in range(32)]
+    # a warp's 32 threads take 32 consecutive chunks: whole table rows
+    first = [tta.rotator_chunks(rid, d)[0] for rid in range(32)]
+    assert first == [(i // per_row, i % per_row) for i in range(32)]
 
 
-def test_rotating_a_swizzled_tile_in_place_is_the_plain_rotary():
-    """The kernel's rotation, mirrored in numpy on a tile laid out as TMA
-    writes it: chunk by chunk through the swizzled map with the table entries
-    of the chunk's logical (row, column), against the plain version's rotary
-    on the row-major tile."""
+def _fe_rounding() -> str:
+    """This thread's floating-point rounding mode, as libm's ``fegetround``
+    reports it (for the report below; "unknown" where libm cannot be read)."""
+    try:
+        import ctypes
+        import ctypes.util
+
+        mode = ctypes.CDLL(ctypes.util.find_library("m")).fegetround()
+    except (OSError, AttributeError, TypeError):
+        return "unknown"
+    return {0: "to nearest", 0x400: "downward", 0x800: "upward",
+            0xC00: "toward zero"}.get(mode, hex(mode))
+
+
+def _files_run_before(request) -> list[str]:
+    """The test files of which this process (an xdist worker, or the single
+    pytest process) has run a test before this one. pytest sets a test's
+    ``_request`` to False once it has run (`_pytest/runner.py`)."""
+    ran = []
+    for item in request.session.items:
+        if item is request.node:
+            continue
+        name = item.nodeid.split("::")[0]
+        if getattr(item, "_request", None) is False and name not in ran:
+            ran.append(name)
+    return ran
+
+
+def _rotation_miss_report(request, x, rope, cos, sin, mirror32, got, want) -> str:
+    """What a failing run of the rotation mirror must say about itself: the
+    elements that differ with both sides' fp32 values before the bf16
+    rounding, whether the tables the mirror used are what ``rope`` gives
+    now, and the process's state (threads, CPU capability, rounding mode,
+    the test files this worker ran before)."""
+    plain32 = sa._rotate(x.float()[None, :, None, :], rope)[0, :, 0].numpy()
+    fresh_cos, fresh_sin = rope.cos(), rope.sin()
+    exact = np.asarray(rope, np.float64)
+    rows, cols = np.nonzero(got != want)
+    worker = getattr(request.config, "workerinput", {}).get("workerid", "main")
+    lines = [f"{len(rows)} of {got.size} elements differ; the first:"]
+    for r, c in list(zip(rows, cols))[:8]:
+        lines.append(f"  ({r}, {c}): mirror fp32 {mirror32[r, c]!r} -> {got[r, c]!r}, "
+                     f"plain fp32 {plain32[r, c]!r} -> {want[r, c]!r}, "
+                     f"cos {cos[r, c]!r} sin {sin[r, c]!r}")
+    lines += [
+        f"fp32 values equal before rounding: {np.array_equal(mirror32, plain32)} "
+        f"(max |diff| {np.abs(mirror32 - plain32).max():.3e})",
+        f"a fresh rope.cos() / rope.sin() equals the mirror's tables: "
+        f"{np.array_equal(fresh_cos.numpy(), cos)} / {np.array_equal(fresh_sin.numpy(), sin)}; "
+        f"the mirror's tables against float64: "
+        f"{np.abs(cos - np.cos(exact)).max():.3e} / {np.abs(sin - np.sin(exact)).max():.3e}",
+        f"torch threads {torch.get_num_threads()}, interop {torch.get_num_interop_threads()}, "
+        f"CPU capability {torch.backends.cpu.get_cpu_capability()}, rounding "
+        f"{_fe_rounding()}, default dtype {torch.get_default_dtype()}",
+        f"module state: FWD_ROTATORS {tta.FWD_ROTATORS}, TILE {tta.TILE}, "
+        f"swizzled_offset from {tta.swizzled_offset.__module__}, "
+        f"_rotate from {sa._rotate.__module__}",
+        f"worker {worker} ran before: {', '.join(_files_run_before(request)) or 'nothing'}",
+    ]
+    return "\n".join(lines)
+
+
+@pytest.mark.parametrize("d", tta.HEAD_DIMS)
+def test_rotating_a_swizzled_tile_in_place_is_the_plain_rotary(d, request):
+    """The kernel's rotation, mirrored in numpy on a ``[64, d]`` tile laid
+    out as TMA writes it (d / 64 swizzled panels): chunk by chunk through the
+    swizzled map with the table entries of the chunk's logical (row,
+    column), against the plain version's rotary on the row-major tile. On a
+    miss the assertion says what both sides computed and in what state the
+    process was (`_rotation_miss_report`)."""
     rng = np.random.default_rng(0)
-    x = torch.from_numpy(rng.standard_normal((64, 64)).astype(np.float32)).bfloat16()
-    rope = rotary_freqs(256, 64)[128:192]  # the tile of rows 128..191
+    x = torch.from_numpy(rng.standard_normal((64, d)).astype(np.float32)).bfloat16()
+    rope = rotary_freqs(256, d)[128:192]  # the tile of rows 128..191
     cos, sin = rope.float().cos().numpy(), rope.float().sin().numpy()
     want = sa._rotate(x[None, :, None, :], rope)[0, :, 0].float().numpy()
-    tile = np.zeros(64 * 64, np.float32)  # one slot per 2 bytes
+    tile = np.zeros(64 * d, np.float32)  # one slot per 2 bytes
     for r in range(64):
-        for c in range(64):
-            tile[tta.swizzled_offset(r, c) // 2] = float(x[r, c])
+        for c in range(d):
+            tile[tta.swizzled_offset(r, c, d) // 2] = float(x[r, c])
+    mirror32 = np.full((64, d), np.nan, np.float32)  # the mirror's fp32 values, row-major
     for rid in range(tta.FWD_ROTATORS):
-        for row, chunk in tta.rotator_chunks(rid):
-            at = tta.swizzled_offset(row, 8 * chunk) // 2
+        for row, chunk in tta.rotator_chunks(rid, d):
+            at = tta.swizzled_offset(row, 8 * chunk, d) // 2
             v = tile[at:at + 8].copy()
             c8, s8 = cos[row, 8 * chunk:8 * chunk + 8], sin[row, 8 * chunk:8 * chunk + 8]
             y = np.empty(8, np.float32)
             y[0::2] = (v[0::2] * c8[0::2]).astype(np.float32) + (-v[1::2] * s8[0::2])
             y[1::2] = (v[1::2] * c8[1::2]).astype(np.float32) + (v[0::2] * s8[1::2])
+            mirror32[row, 8 * chunk:8 * chunk + 8] = y
             tile[at:at + 8] = torch.from_numpy(y).bfloat16().float().numpy()
-    got = np.array([[tile[tta.swizzled_offset(r, c) // 2] for c in range(64)]
+    got = np.array([[tile[tta.swizzled_offset(r, c, d) // 2] for c in range(d)]
                     for r in range(64)])
-    np.testing.assert_array_equal(got, want)
+    report = ("" if np.array_equal(got, want) else
+              _rotation_miss_report(request, x, rope, cos, sin, mirror32, got, want))
+    np.testing.assert_array_equal(got, want, err_msg=report)
 
 
 def test_rope_tables_are_made_once_per_angle_table():

@@ -96,16 +96,17 @@ def test_fp32_kernel_domain_and_counters():
         tsa.serving_attention(*(torch.zeros(1, 64, 1, 64, device="meta"),) * 3)
 
 
+@pytest.mark.parametrize("d", tta.HEAD_DIMS)
 @pytest.mark.parametrize("n", list(range(64, tsa.MAX_N + 1, 64)))
-def test_fp32_kernel_geometry_covers_every_row_once_within_the_card(n):
+def test_fp32_kernel_geometry_covers_every_row_once_within_the_card(n, d):
     """Kernel 1 fp32's launch over its whole domain (the fp32 forward core
     that kernel 4a's fp32 mode shares): n / 64 blocks a (sample, head) of
     64 query rows, four warps of 16, each row owned once and no block past
     the sample, a ring of two stages, the shared memory within a block's
-    232,448 bytes and two blocks an SM."""
+    232,448 bytes and two blocks an SM at d = 64, one at d = 128."""
     b, h = 2, 16
-    geo = tsa.forward_geometry_fp32(b, n, h)
-    assert geo == tta.forward_geometry_fp32(b, n, h)
+    geo = tsa.forward_geometry_fp32(b, n, h, d)
+    assert geo == tta.forward_geometry_fp32(b, n, h, d)
     assert geo["grid"] == (n // 64, h, b) == (len(geo["blocks"]), h, b)
     assert geo["threads"] == 128 and geo["warps"] * 32 == 128 and geo["warps"] * 16 == 64
     assert geo["rows"] == geo["tile"] == 64 and geo["stages"] == 2
@@ -114,8 +115,10 @@ def test_fp32_kernel_geometry_covers_every_row_once_within_the_card(n):
         assert (start, rows) == (64 * block, 64) and start + rows <= n
         covered[start:start + rows] += 1
     np.testing.assert_array_equal(covered, 1)
-    assert geo["shared_bytes"] == (2 * 2 + 2) * 64 * tta.FP32_STRIDE * 4 <= tta.SHARED_LIMIT
-    assert geo["blocks_per_sm"] == 2 and 2 * (geo["shared_bytes"] + 1024) <= tta.SM_SHARED
+    assert geo["shared_bytes"] == (2 * 2 + 2) * 64 * (d + 4) * 4 <= tta.SHARED_LIMIT
+    per_sm = {64: 2, 128: 1}[d]
+    assert geo["blocks_per_sm"] == per_sm
+    assert per_sm * (geo["shared_bytes"] + 1024) <= tta.SM_SHARED
 
 
 @pytest.mark.parametrize("n", [0, 32, 96, tsa.MAX_N + 64])

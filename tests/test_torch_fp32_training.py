@@ -96,14 +96,19 @@ def test_fp32_backward_checks_refuse_other_gradients():
         tta._check_backward_args(_qkv(), stats.transpose(1, 2), stats, torch.float32)
 
 
+@pytest.mark.parametrize("d", tta.HEAD_DIMS)
 @pytest.mark.parametrize("n", list(range(64, 4096 + 1, 64)))
-def test_fp32_geometry_covers_every_row_once_within_the_card(n):
+def test_fp32_geometry_covers_every_row_once_within_the_card(n, d):
     b, h = 3, 16
-    fwd, bwd = tta.forward_geometry_fp32(b, n, h), tta.backward_geometry_fp32(b, n, h)
+    fwd, bwd = tta.forward_geometry_fp32(b, n, h, d), tta.backward_geometry_fp32(b, n, h, d)
+    # the backward's ring: two stages at d = 64, one beside the fixed tiles at 128
+    assert bwd["bwd_stages"] == {64: 2, 128: 1}[d]
+    assert bwd["fixed_tiles"] == {64: 0, 128: 2}[d]
     for geo in (fwd, bwd):
         assert geo["grid"] == (len(geo["blocks"]), h, b)
         assert geo["threads"] == 128 and geo["rows"] == geo["tile"] == 64
-        # a warp per m16 tile of the block's rows, a ring of two stages
+        assert geo["stride"] == d + 4
+        # a warp per m16 tile of the block's rows, the forward's ring of two stages
         assert geo["warps"] * 32 == geo["threads"] and geo["warps"] * 16 == geo["rows"]
         assert geo["stages"] == 2
         covered = np.zeros(n, np.int64)
@@ -112,24 +117,31 @@ def test_fp32_geometry_covers_every_row_once_within_the_card(n):
             assert start + rows <= n  # no block reads past the sample
             covered[start:start + rows] += 1
         np.testing.assert_array_equal(covered, 1)
-        assert geo["blocks_per_sm"] == 2
+        assert geo["blocks_per_sm"] == {64: 2, 128: 1}[d]
     for shared in (fwd["shared_bytes"], bwd["dq_shared_bytes"], bwd["dkv_shared_bytes"]):
         assert 48 * 1024 < shared <= tta.SHARED_LIMIT
-        assert 2 * (shared + 1024) <= tta.SM_SHARED
+        assert fwd["blocks_per_sm"] * (shared + 1024) <= tta.SM_SHARED
 
 
-def test_fp32_shared_bytes_add_up():
-    tile = 64 * tta.FP32_STRIDE * 4  # a [64, 64] tile padded to 68 floats a row
-    fwd, bwd = tta.forward_geometry_fp32(1, 4096, 16), tta.backward_geometry_fp32(1, 4096, 16)
-    assert fwd["stages"] == bwd["stages"] == 2
-    # the forward and dq: a ring of two stages of K and V, and their small parts
-    assert fwd["shared_bytes"] == bwd["dq_shared_bytes"] == (2 * 2 + 2) * tile == 104448
-    # two stages of Q, dO and the query tile's 64 LSE and 64 D values; Q's and dO's small parts
-    assert bwd["dkv_shared_bytes"] == 2 * (2 * tile + 2 * 64 * 4) + 2 * tile == 105472
-    assert fwd["blocks_per_sm"] == bwd["blocks_per_sm"] == 2
+@pytest.mark.parametrize("d, fwd_bytes, dq_bytes, dkv_bytes, per_sm",
+                         [(64, 104448, 104448, 105472, 2), (128, 202752, 202752, 203264, 1)])
+def test_fp32_shared_bytes_add_up(d, fwd_bytes, dq_bytes, dkv_bytes, per_sm):
+    tile = 64 * (d + 4) * 4  # a [64, d] tile padded to d + 4 floats a row
+    fwd, bwd = tta.forward_geometry_fp32(1, 4096, 16, d), tta.backward_geometry_fp32(1, 4096, 16, d)
+    stages, fixed = bwd["bwd_stages"], bwd["fixed_tiles"]
+    # the forward: a ring of two stages of K and V, and their small parts
+    assert fwd["stages"] == 2 and fwd["shared_bytes"] == (2 * 2 + 2) * tile == fwd_bytes
+    # dq: its ring of K and V, their small parts, and at d = 128 Q's and dO's tiles
+    assert bwd["dq_shared_bytes"] == (stages * 2 + 2 + fixed) * tile == dq_bytes
+    # dk/dv: Q, dO and the query tile's 64 LSE and 64 D values a stage; Q's and
+    # dO's small parts; at d = 128 K's and V's tiles
+    assert (bwd["dkv_shared_bytes"] == stages * (2 * tile + 2 * 64 * 4) + (2 + fixed) * tile
+            == dkv_bytes)
+    assert fwd["blocks_per_sm"] == bwd["blocks_per_sm"] == per_sm
 
 
-def test_fp32_backward_tile_reads_are_conflict_free():
+@pytest.mark.parametrize("d", tta.HEAD_DIMS)
+def test_fp32_backward_tile_reads_are_conflict_free(d):
     """Every shared-memory read of a streamed tile that the fp32 dq and dk/dv
     kernels make, and the forward core with them (its K tile read as dq's,
     its V tile as dq's K in dQ += dS K; rotating a K chunk reads and writes
@@ -140,16 +152,21 @@ def test_fp32_backward_tile_reads_are_conflict_free():
     4) + {0, 1}, the k-step permuted to take the score accumulators as A as
     they lie; column 8 nn + lane / 4) in 32 distinct banks. The plain
     transposed read (rows lane % 4) would collide on the same rows; each
-    16-byte copy and split chunk stays 16-byte aligned."""
-    stride = tta.FP32_STRIDE
+    16-byte copy and split chunk stays 16-byte aligned. At d = 128 the rows
+    are d + 4 = 132 floats, 4 past a multiple of 32 banks as 68 is, and the
+    fixed operands' A fragments read from shared memory (rows lane / 4,
+    columns lane % 4) hit 32 distinct banks too."""
+    stride = tta.forward_geometry_fp32(1, 64, 1, d)["stride"]
+    assert stride == (tta.FP32_STRIDE if d == 64 else d + 4)
     lanes = np.arange(32)
     g, c = lanes // 4, lanes % 4
     for row0 in range(0, 64, 8):
-        for col in range(0, 64, 4):  # ldmatrix: one 16-byte row of each of eight rows
+        for col in range(0, d, 4):  # ldmatrix: one 16-byte row of each of eight rows
             quads = ((row0 + np.arange(8)) * stride + col) % 32 // 4
             assert len(set(quads.tolist())) == 8
+    assert len(set(((g * stride + c) % 32).tolist())) == 32  # a fixed A fragment
     for j in range(8):
-        for nn in range(8):
+        for nn in range(d // 8):
             for half in range(2):
                 banks = ((8 * j + 2 * c + half) * stride + 8 * nn + g) % 32
                 assert len(set(banks.tolist())) == 32

@@ -156,9 +156,12 @@ def test_train_attention_rejects_what_the_kernels_do_not_take():
     bad_n = torch.zeros(2, 96, 2, 64, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="multiple of 64"):
         tta._check_cuda_args(bad_n, bad_n, bad_n, lens)
-    bad_d = torch.zeros(2, 128, 2, 128, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head dim"):
-        tta._check_cuda_args(bad_d, bad_d, bad_d, lens)
+    wide = torch.zeros(2, 128, 2, 128, dtype=torch.bfloat16)  # d = 128: the second build
+    tta._check_cuda_args(wide, wide, wide, lens)
+    for d in (32, 256):  # no kernel is built for them
+        bad_d = torch.zeros(2, 128, 2, d, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="head dim"):
+            tta._check_cuda_args(bad_d, bad_d, bad_d, lens)
     t = q.transpose(1, 2).contiguous().transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         tta._check_cuda_args(t, t, t, lens)
@@ -166,10 +169,11 @@ def test_train_attention_rejects_what_the_kernels_do_not_take():
         tta._check_cuda_args(q, q, q, lens[:1])
 
 
+@pytest.mark.parametrize("d", tta.HEAD_DIMS)
 @pytest.mark.parametrize("n", list(range(64, 4096 + 1, 64)))
-def test_backward_geometry_covers_every_row_once_within_the_card(n):
+def test_backward_geometry_covers_every_row_once_within_the_card(n, d):
     b, h = 3, 16
-    geo = tta.backward_geometry(b, n, h)
+    geo = tta.backward_geometry(b, n, h, d)
     assert geo["grid"] == (len(geo["warpgroups"]), h, b)
     assert geo["threads"] == 128 * (geo["rows"] // geo["tile"] + 1)
     covered = np.zeros(n, np.int64)
@@ -186,19 +190,23 @@ def test_backward_geometry_covers_every_row_once_within_the_card(n):
     # the tensor map keeps n a dimension of its own: a tile that started past
     # a sample's end would read zeros, never the next sample
     tm = geo["tensor_map"]
-    assert tm["dims"] == (64, h, n, b) and tm["box"] == (64, 1, geo["tile"], 1)
-    assert tm["strides"] == (128, h * 128, n * h * 128)
+    assert tm["dims"] == (d, h, n, b) and tm["box"] == (64, 1, geo["tile"], 1)
+    assert tm["strides"] == (2 * d, h * 2 * d, n * h * 2 * d)
     assert all(stride % 16 == 0 for stride in tm["strides"])
-    assert tm["box"][0] * 2 == 128  # one 128-byte swizzle atom wide
+    assert tm["box"][0] * 2 == 128  # one 128-byte swizzle atom wide, a panel
+    assert tm["panels"] == tuple(range(0, d, 64))
+    # setmaxnreg: 128 x 40 + 256 x 232 = 384 x 168, at both head dims
+    assert 128 * geo["registers"][0] + 256 * geo["registers"][1] <= 384 * 168
 
 
-def test_backward_geometry_shared_bytes_add_up():
-    geo = tta.backward_geometry(1, 4096, 16)
-    tile = geo["tile"] * 64 * 2
-    own = 2 * (geo["rows"] // geo["tile"]) * tile
-    ring = geo["stages"] * (2 * tile + 2 * geo["tile"] * 4)
-    assert geo["shared_bytes"] == 1024 + own + ring + 8 * (2 * geo["stages"] + 1)
-    assert (own, ring) == (32768, 4 * 16896)
+@pytest.mark.parametrize("d, shared, own, ring", [(64, 101448, 32768, 4 * 16896),
+                                                  (128, 199752, 65536, 4 * 33280)])
+def test_backward_geometry_shared_bytes_add_up(d, shared, own, ring):
+    geo = tta.backward_geometry(1, 4096, 16, d)
+    tile = geo["tile"] * d * 2
+    assert 2 * (geo["rows"] // geo["tile"]) * tile == own
+    assert geo["stages"] * (2 * tile + 2 * geo["tile"] * 4) == ring
+    assert geo["shared_bytes"] == 1024 + own + ring + 8 * (2 * geo["stages"] + 1) == shared
 
 
 def test_backward_rejects_unaligned_gradients():
