@@ -2437,16 +2437,20 @@ def loss_batch(dev, seed: int, depth: int, frac_lengths_mask=(0.7, 1.0), n: int 
     return mel, text, lens, LossDraws.sample(g, b, n, 100, depth, frac_lengths_mask)
 
 
-def hold_loss_against_plain(what: str, model, loss_fn, draws, tols: dict):
+def hold_loss_against_plain(what: str, model, loss_fn, draws, tols: dict,
+                            control: str = "keys", rounding: tuple = ()):
     """``loss_fn(draws)`` (a loss of ``model``) forward and backward with the
     training kernels against the plain attention, on the same draws and
     dropout keys. Three readings are logged: the loss, the whole flattened
     gradient and the gradient of the q / k / v projections (which reaches the
     parameters only through the attention backward); each one named in
     ``tols`` is held within its limit there. The control is the plain
-    attention with the attention-dropout keys of every block changed; it must
-    move each held reading beyond its limit, or that limit could not see wrong
-    masks."""
+    attention with the attention-dropout keys of every block changed
+    (``control="keys"``) or, where there is no dropout, with the last 64-key
+    tile of every sample masked (``"tile"``, :func:`lost_tile_attention`);
+    it must move each held reading beyond its limit, or that limit could not
+    see wrong masks, except the readings named in ``rounding``, which are
+    held within bf16 rounding alone (the control moves them no further)."""
     import torch
 
     from eraxvif5tts_tpu_torch.ops.train_attention import train_attention
@@ -2470,7 +2474,13 @@ def hold_loss_against_plain(what: str, model, loss_fn, draws, tols: dict):
 
     got = loss_and_grads(draws, plain=False)
     want = loss_and_grads(draws, plain=True)
-    control = loss_and_grads(wrong, plain=True)
+    if control == "keys":
+        control = loss_and_grads(wrong, plain=True)
+        about = "plain, wrong attention-dropout keys"
+    else:
+        with lost_tile_attention():
+            control = loss_and_grads(draws, plain=True)
+        about = "plain, the last 64-key tile masked"
     model.zero_grad(set_to_none=True)
 
     def distance(x):
@@ -2480,13 +2490,13 @@ def hold_loss_against_plain(what: str, model, loss_fn, draws, tols: dict):
 
     err, ctl = distance(got), distance(control)
     log(f"{what}, kernels vs plain attention: loss {got[0]:.6f} vs {want[0]:.6f}; relative "
-        "errors (tol, or logged where none) / control (plain, wrong attention-dropout keys): "
+        f"errors (tol, or logged where none) / control ({about}): "
         + ", ".join(f"{name} {e:.3g} ({tols.get(name, 'logged')}) / {ctl[name]:.3g}"
                     for name, e in err.items()))
     if not (all(err[name] <= t for name, t in tols.items()) and torch.isfinite(got[1]).all()):
         raise AssertionError(f"{what} with kernels differs from plain: {err}")
-    if not all(ctl[name] > t for name, t in tols.items()):
-        raise AssertionError(f"wrong attention-dropout keys move the plain readings by only "
+    if not all(ctl[name] > t for name, t in tols.items() if name not in rounding):
+        raise AssertionError(f"the control ({about}) moves the plain readings by only "
                              f"{ctl}, not beyond the limits {tols}")
 
 
@@ -3826,29 +3836,20 @@ def check_mmdit_step_against_plain(trainer, state, dev, tag: str) -> None:
     names = [name for name, _ in net.named_parameters()]
     sizes = [p.numel() for p in net.parameters()]
 
-    reference = ta.train_attention_reference
-
-    def short_of_a_tile(q, k, v, lens=None, *args, **kwargs):
-        lens = torch.full((q.shape[0],), q.shape[1] - 64, device=q.device) if lens is None else lens
-        return reference(q, k, v, torch.clamp(lens, max=q.shape[1] - 64), *args, **kwargs)
-
     def step(batch, draws, plain: bool, held: bool = True, lost_tile: bool = False,
              compute_fp32: bool = False):
         ta.train_attention.plain = plain
         hold, compute = trainer_module.fp32_when, net.compute_dtype
         if not held:
             trainer_module.fp32_when = lambda dtype: contextlib.nullcontext()
-        if lost_tile:
-            ta.train_attention_reference = short_of_a_tile
         if compute_fp32:
             net.compute_dtype = None
         try:
-            with tf32(fp32):
+            with tf32(fp32), lost_tile_attention() if lost_tile else contextlib.nullcontext():
                 return fp32_step(trainer, state, batch, draws)
         finally:
             ta.train_attention.plain = False
             trainer_module.fp32_when = hold
-            ta.train_attention_reference = reference
             net.compute_dtype = compute
 
     qkv = [i for i, name in enumerate(names)
@@ -3990,31 +3991,9 @@ def phase_mmdit_train(dev, cfg=None) -> dict:
     return launches
 
 
-# ---- [d128]: head dim 128 in kernels 1 and 4 --------------------------------
-# F5TTS_v1_Base at its full width (inner 1024) and depth as 8 heads of 128: the
-# YAML's `model.arch.dim_head`, which reaches the model through the config
-# loader in both packages; the JAX package runs its Pallas kernels there.
-D128_HEADS, D128_DIM_HEAD = 8, 128
-D128_SERVE = (1088, (1051, 0))  # kernel 1 at the DiT's serving bucket, a sample with no valid key
-D128_TRAIN = ((4096, (4096, 4059)), (JOINT_N, (JOINT_N, JOINT_N - 37)))  # kernel 4's cases
-D128_STEP = (2, 4096)  # the CFM steps: b, n
-D128_KEEP_N = 128  # the keep-bit readout's sequence: one [128, 128] head of bits
-# CFM.loss of the 8 x 128 DiT at b = 2, n = 1024, kernels vs plain attention, by
-# the rule above (H100, 700 W): bf16 loss 9.3e-6 vs 3.2e-5 and gradient L2
-# 3.4e-3 vs 6.3e-3, past LOSS_TOL / GRAD_TOL, which were set on 16 x 64 heads
-# (the kernels' own errors are d = 64's: relative L2 3.2e-3 / 2.6e-3 at both
-# head dims); its q / k / v gradient 2.9e-3 vs 1.8e-2 keeps QKV_GRAD_TOL
-D128_LOSS_TOL = 1.7e-5
-D128_GRAD_TOL = 4.6e-3
-# fp32: the 3xTF32 kernels give the plain version's loss (relative error 0 on
-# an H100), and wrong attention-dropout keys move it by 9.9e-7, which
-# FP32_STEP_LOSS_TOL could not see: a tenth of the control; the gradients
-# (2.7e-7 and 3.8e-7 vs 3.8e-3 and 1.8e-2) keep FP32_STEP_GRAD_TOL
-D128_FP32_LOSS_TOL = 1e-7
-
-
-def d128_config(tmp: Path):
-    """`configs/F5TTS_v1_Base.yaml` with `model.arch` heads 8 and dim_head 128,
+def head_dim_config(tmp: Path, heads: int, dim_head: int, tag: str):
+    """`configs/F5TTS_v1_Base.yaml` with `model.arch` ``heads`` and
+    ``dim_head`` (the flagship's inner width 1024 as heads x dim_head),
     written into ``tmp`` and loaded by the port's config loader: (the model
     config, the file)."""
     from eraxvif5tts_tpu_torch.configs import load_model_config
@@ -4022,14 +4001,13 @@ def d128_config(tmp: Path):
     text = (ROOT / "configs" / "F5TTS_v1_Base.yaml").read_text()
     if text.count("    heads: 16\n") != 1:
         raise AssertionError("configs/F5TTS_v1_Base.yaml: no single `heads: 16` line")
-    path = tmp / "F5TTS_v1_Base_8x128.yaml"
+    path = tmp / f"F5TTS_v1_Base_{heads}x{dim_head}.yaml"
     path.write_text(text.replace("    heads: 16\n",
-                                 f"    heads: {D128_HEADS}\n    dim_head: {D128_DIM_HEAD}\n"))
+                                 f"    heads: {heads}\n    dim_head: {dim_head}\n"))
     cfg = load_model_config(str(path))
     a = cfg.arch
-    if (a.dim, a.depth, a.heads, a.dim_head, a.ff_mult) != (1024, 22, D128_HEADS,
-                                                            D128_DIM_HEAD, 2):
-        raise AssertionError(f"[d128] the loaded arch is {a}")
+    if (a.dim, a.depth, a.heads, a.dim_head, a.ff_mult) != (1024, 22, heads, dim_head, 2):
+        raise AssertionError(f"{tag} the loaded arch is {a}")
     return cfg, path
 
 
@@ -4083,10 +4061,11 @@ def check_d128_geometry() -> None:
 
 
 def zero_upper_half(t):
-    """``t`` with its head columns 64.. zeroed: what a kernel that read only
-    the first panel of a [.., 128] head would see."""
+    """``t`` with the second half of its head columns zeroed (64.. of 128,
+    128.. of 256): what a kernel that read only the first half of a head's
+    panels would see."""
     bad = t.clone()
-    bad[..., 64:] = 0
+    bad[..., t.shape[-1] // 2:] = 0
     return bad
 
 
@@ -4098,19 +4077,19 @@ def rotated_outside(x, rope):
     return sa._rotate(x, rope).transpose(1, 2)
 
 
-def check_serving_attention_d128(dev) -> dict:
-    """Kernel 1 at d = 128 (b = 2, h = 8) in bf16 and fp32 against its plain
-    version: at n = 1088 (lens 1051 and 0) with and without rotary, and at
-    the joint n = 6144 (JOINT_LENS) without; within TOL (bf16) or FP32_TOL
-    (fp32, plain with TF32 off) * (1 + |plain|), a second call bit-identical.
-    Beside each reading two planted faults, the plain version with the
-    second half of V's and of K's head columns zeroed, which the check must
-    refuse. At n = 1088 the kernel, the plain version and the library
-    yardstick are timed (bf16: `scaled_dot_product_attention` on the flash
-    backend, which takes no key mask; fp32: with the boolean key mask, TF32
-    off; on the rotary rows with q and k rotated outside it, in the timing)
-    and the bound computed from these inputs. Returns the JSON rows (n =
-    1088)."""
+def check_serving_attention_at(dev, tag: str, h: int, d: int, seed: int, cases) -> dict:
+    """Kernel 1 at head dim ``d`` (b = 2, ``h`` heads) in bf16 and fp32
+    against its plain version on ``cases``, (n, lens, rotary modes) each:
+    within TOL (bf16) or FP32_TOL (fp32, plain with TF32 off) * (1 +
+    |plain|), a second call bit-identical. Beside each reading two planted
+    faults, the plain version with the second half of V's and of K's head
+    columns zeroed, which the check must refuse. At the first case's n the
+    kernel, the plain version and the library yardstick are timed (bf16:
+    `scaled_dot_product_attention` on the flash backend, which takes no key
+    mask; fp32: with the boolean key mask, TF32 off; on the rotary rows with
+    q and k rotated outside it, in the timing) and the bound computed from
+    these inputs. Returns the JSON rows of that n, named
+    ``serving_attention[_fp32]_<tag>[_norope]``."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -4118,15 +4097,16 @@ def check_serving_attention_d128(dev) -> dict:
     from eraxvif5tts_tpu_torch.ops import serving_attention as sa
     from eraxvif5tts_tpu_torch.ops.rotary import rotary_freqs
 
-    gen = torch.Generator(device=dev).manual_seed(SEED + 160)
-    rows, h, d = {}, D128_HEADS, D128_DIM_HEAD
-    for dtype, tag, tol in ((torch.bfloat16, "", TOL), (torch.float32, "_fp32", FP32_TOL)):
-        for n, lens_list, modes in ((*D128_SERVE, (True, False)), (JOINT_N, JOINT_LENS, (False,))):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rows, label = {}, tag.strip("[]")
+    timed_n = cases[0][0]
+    for dtype, dtag, tol in ((torch.bfloat16, "", TOL), (torch.float32, "_fp32", FP32_TOL)):
+        for n, lens_list, modes in cases:
             q, k, v = (torch.randn((2, n, h, d), generator=gen, device=dev).to(dtype)
                        for _ in range(3))
             lens = torch.tensor(lens_list, device=dev)
             for with_rope in modes:
-                name = f"serving_attention{tag}_d128" + ("" if with_rope else "_norope")
+                name = f"serving_attention{dtag}_{label}" + ("" if with_rope else "_norope")
                 case = f"{name} n={n} lens={list(lens_list)}"
                 rope = rotary_freqs(n, d, device=dev) if with_rope else None
                 with tf32(False):
@@ -4143,15 +4123,15 @@ def check_serving_attention_d128(dev) -> dict:
                 if not torch.equal(got, sa.serving_attention(q, k, v, lens, rope)):
                     raise AssertionError(f"{case}: a second call on the same inputs differs")
                 caught = {which: f > tol for which, f in faults.items()}
-                note = (f"[d128] {case} b=2 h={h} d={d}: max_abs_err {err:.3g} (tol {tol} * "
-                        "(1 + |plain|)), second call bit-identical; planted faults (plain with "
-                        "head columns 64-127 zeroed) " + ", ".join(
+                note = (f"{tag} {case} b=2 h={h} d={d}: max_abs_err {err:.3g} (tol {tol} * "
+                        f"(1 + |plain|)), second call bit-identical; planted faults (plain with "
+                        f"head columns {d // 2}-{d - 1} zeroed) " + ", ".join(
                             f"{which} {f:.3g} ({'caught' if caught[which] else 'MISSED'})"
                             for which, f in faults.items()))
                 if not all(caught.values()):
                     log(note)
                     raise AssertionError(f"{case}: a planted fault passes the check: {faults}")
-                if n != D128_SERVE[0]:
+                if n != timed_n:
                     log(note)
                     continue
                 ms = cuda_median_ms(lambda: sa.serving_attention(q, k, v, lens, rope))
@@ -4196,21 +4176,21 @@ def check_serving_attention_d128(dev) -> dict:
     return rows
 
 
-def check_keep_bits_d128(dev) -> None:
-    """The keep bits kernels 4a and 4c regenerate at d = 128, bit for bit
-    against `dropout_keep_mask`, in bf16 and fp32: with q = k = 0 every
-    weight of a [128, 128] head is 1 / 128, and with V = dO = I the forward's
-    O[i, c] is Pd[i, c] and dk/dv's dV[j, c] is Pd[c, j], each 0 exactly
-    where the bit drops (i, j) and non-zero where it keeps it."""
+def check_keep_bits_at(dev, tag: str, h: int, d: int, dtypes) -> None:
+    """The keep bits kernels 4a and 4c regenerate at head dim ``d``, bit for
+    bit against `dropout_keep_mask`, in each of ``dtypes``: with q = k = 0
+    every weight of a [128, 128] head is 1 / 128, and with V = dO = I the
+    forward's O[i, c] is Pd[i, c] and dk/dv's dV[j, c] is Pd[c, j], each 0
+    exactly where the bit drops (i, j) and non-zero where it keeps it."""
     import torch
 
     from eraxvif5tts_tpu_torch.ops import train_attention as ta
 
-    n, h, d, rate, seed = D128_KEEP_N, D128_HEADS, D128_DIM_HEAD, 0.1, 0x5EED0128
+    n, rate, seed = KEEP_N, 0.1, 0x5EED0000 + d
     want = torch.stack([torch.stack([ta.dropout_keep_mask(seed, bi, hi, 0, 0, n, n, n,
                                                           1.0 - rate, dev)
                                      for hi in range(h)]) for bi in range(2)])
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in dtypes:
         zeros = torch.zeros((2, n, h, d), dtype=dtype, device=dev)
         eye = torch.eye(n, d, dtype=dtype, device=dev)[None, :, None, :].expand(2, n, h, d)
         eye = eye.contiguous()
@@ -4218,93 +4198,100 @@ def check_keep_bits_d128(dev) -> None:
         fwd, _, dkv = ta._LAUNCHERS[dtype]
         out, lse = fwd(zeros, zeros, eye, lens, rate, seed)
         _, dv = dkv(zeros, zeros, eye, lens, lse, ta.row_dot(eye, out), eye, rate, seed)
-        got = {"4a (O)": out.permute(0, 2, 1, 3) != 0, "4c (dV)": dv.permute(0, 2, 3, 1) != 0}
+        got = {"4a (O)": out.permute(0, 2, 1, 3)[..., :n] != 0,
+               "4c (dV)": dv.permute(0, 2, 3, 1)[:, :, :n] != 0}
         wrong = {name: int((bits != want).sum()) for name, bits in got.items()}
-        log(f"[d128] keep bits {str(dtype).split('.')[-1]} b=2 h={h} n={n} dropout {rate}: "
+        log(f"{tag} keep bits {str(dtype).split('.')[-1]} b=2 h={h} n={n} d={d} dropout {rate}: "
             f"{int(want.sum())} of {want.numel()} kept; bits that differ from "
             f"dropout_keep_mask: {wrong}; planted fault (the next seed's mask): "
             + str(int((ta.dropout_keep_mask(seed + 1, 0, 0, 0, 0, n, n, n, 1.0 - rate, dev)
                        != want[0, 0]).sum())) + " bits of head (0, 0) differ")
         if any(wrong.values()):
-            raise AssertionError(f"[d128] the kernels' keep bits differ: {wrong}")
+            raise AssertionError(f"{tag} the kernels' keep bits differ: {wrong}")
 
 
-def check_train_attention_d128(dev) -> dict:
-    """Kernels 4a / 4b / 4c at d = 128 (b = 2, h = 8) in bf16 and fp32 through
-    `train_attention`'s autograd against the plain version at D128_TRAIN
-    (n = 4096 with lens [4096, 4059], the joint n = 6144 with [6144, 6107]),
-    dropout 0.1 and keep = 1: bf16 within TOL and ATTN_REL_TOL with the
-    wrong-seed control (:func:`check_train_attention_case`), fp32 within
-    FP32_ATTN_TOLS with a TF32 control at dropout 0.1
-    (:func:`check_train_attention_fp32_case`); the LSE; second calls
-    bit-identical. At n = 4096 and dropout 0.1 a planted fault, the plain
-    version with V's head columns 64-127 zeroed, must be refused; then the
-    kernels are timed (:func:`time_train_attention`). Returns the JSON rows
-    (n = 4096), ``train_attention_d128_*`` and ``train_attention_fp32_d128_*``."""
+def check_train_attention_at(dev, tag: str, h: int, d: int, seed: int, cases, dtypes,
+                             fault_rates) -> dict:
+    """Kernels 4a / 4b / 4c at head dim ``d`` (b = 2, ``h`` heads) in each of
+    ``dtypes`` through `train_attention`'s autograd against the plain
+    version on ``cases`` ((n, lens) each), dropout 0.1 and keep = 1: bf16
+    within TOL and ATTN_REL_TOL with the wrong-seed control
+    (:func:`check_train_attention_case`), fp32 within FP32_ATTN_TOLS with a
+    TF32 control at dropout 0.1 (:func:`check_train_attention_fp32_case`);
+    the LSE; second calls bit-identical. At the first case's n and each rate
+    of ``fault_rates`` a planted fault, the plain version with the second
+    half of V's head columns zeroed, must be refused; then the kernels are
+    timed (:func:`time_train_attention`). Returns the JSON rows of that n,
+    ``train_attention[_fp32]_<tag>_*``."""
     import torch
 
-    rows = {}
-    h, d = D128_HEADS, D128_DIM_HEAD
-    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
-        gen = torch.Generator(device=dev).manual_seed(SEED + 170 + len(tag))
+    rows, label = {}, tag.strip("[]")
+    for dtype, dname in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        if dtype not in dtypes:
+            continue
+        gen = torch.Generator(device=dev).manual_seed(seed + len(dname))
         errs = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
         times = None
-        for n, lens_list in D128_TRAIN:
+        for n, lens_list in cases:
             q, k, v, dout = (torch.randn((2, n, h, d), generator=gen, device=dev).to(dtype)
                              for _ in range(4))
             lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
-            seed = 0x5EED0000 + n + d
+            seed_n = 0x5EED0000 + n + d
             for rate in (0.1, 0.0):
-                case = f"train_attention {tag} b=2 h={h} d={d} n={n} lens={list(lens_list)} " \
+                case = f"train_attention {dname} b=2 h={h} d={d} n={n} lens={list(lens_list)} " \
                        f"dropout {rate}"
                 if dtype == torch.bfloat16:
-                    abs_err = check_train_attention_case(q, k, v, dout, lens, rate, seed)["abs_err"]
+                    abs_err = check_train_attention_case(q, k, v, dout, lens, rate,
+                                                         seed_n)["abs_err"]
                     got = [abs_err[name] for name in ("fwd", "dq", "dk", "dv")]
                 else:
                     err, out, want, lse_err = check_train_attention_fp32_case(
-                        q, k, v, dout, lens, rate, seed, case)
+                        q, k, v, dout, lens, rate, seed_n, case)
                     got = [float((g - w).abs().max()) for g, w in zip(out, want)]
                     note = ""
                     if rate > 0.0:
-                        control = tf32_control(q, k, v, dout, lens, rate, seed, want, case)
+                        control = tf32_control(q, k, v, dout, lens, rate, seed_n, want, case)
                         note = "; TF32 control (refused) " + ", ".join(
                             f"{name} {c:.3g}" for name, c in control.items())
                     del out, want
-                    log(f"[d128] {case}: " + ", ".join(f"{name} {e:.3g}"
-                                                        for name, e in err.items())
+                    log(f"{tag} {case}: " + ", ".join(f"{name} {e:.3g}"
+                                                      for name, e in err.items())
                         + f" (limits {FP32_ATTN_TOLS}); LSE relative L2 {lse_err:.3g}; second "
                         f"forward and backward bit-identical{note}")
                 for name, e in zip(("fwd", "dq", "dkv", "dkv"), got):
                     errs[name] = max(errs[name], e)
-            if n != D128_TRAIN[0][0]:
+            if n != cases[0][0]:
                 del q, k, v, dout
                 continue
-            with tf32(False):
-                want = plain_attention_grads(q, k, v, dout, lens, 0.1, seed)
-                bad = plain_attention_grads(q, k, zero_upper_half(v), dout, lens, 0.1, seed)
-            if dtype == torch.bfloat16:
-                fault = {name: rel_l2(b, w) for name, b, w in zip(("fwd", "dq", "dk", "dv"),
-                                                                 bad, want)}
-                caught = any(f > ATTN_REL_TOL for f in fault.values())
-                limits = f"relative L2, tol {ATTN_REL_TOL}"
-            else:
-                fault = fp32_attention_errors(bad, want)
-                caught = any(fault[name] > tol for name, tol in FP32_ATTN_TOLS.items())
-                limits = f"limits {FP32_ATTN_TOLS}"
-            del want, bad
-            log(f"[d128] train_attention {tag} n={n} dropout 0.1, planted fault (plain with V's "
-                f"head columns 64-127 zeroed): " + ", ".join(f"{name} {f:.3g}"
-                                                           for name, f in fault.items())
-                + f" ({limits}): {'caught' if caught else 'MISSED'}")
-            if not caught:
-                raise AssertionError(f"[d128] train_attention {tag}: the planted fault passes")
+            for rate in fault_rates:
+                with tf32(False):
+                    want = plain_attention_grads(q, k, v, dout, lens, rate, seed_n)
+                    bad = plain_attention_grads(q, k, zero_upper_half(v), dout, lens, rate,
+                                                seed_n)
+                if dtype == torch.bfloat16:
+                    fault = {name: rel_l2(b, w) for name, b, w in zip(("fwd", "dq", "dk", "dv"),
+                                                                     bad, want)}
+                    caught = any(f > ATTN_REL_TOL for f in fault.values())
+                    limits = f"relative L2, tol {ATTN_REL_TOL}"
+                else:
+                    fault = fp32_attention_errors(bad, want)
+                    caught = any(fault[name] > tol for name, tol in FP32_ATTN_TOLS.items())
+                    limits = f"limits {FP32_ATTN_TOLS}"
+                del want, bad
+                log(f"{tag} train_attention {dname} n={n} dropout {rate}, planted fault (plain "
+                    f"with V's head columns {d // 2}-{d - 1} zeroed): "
+                    + ", ".join(f"{name} {f:.3g}" for name, f in fault.items())
+                    + f" ({limits}): {'caught' if caught else 'MISSED'}")
+                if not caught:
+                    raise AssertionError(f"{tag} train_attention {dname}: the planted fault "
+                                         "passes")
             ms, times, least, ffma = time_train_attention(q, k, v, dout, lens, list(lens_list),
-                                                          seed)
+                                                          seed_n)
             plain_fwd, plain_bwd, lib_fwd, lib_bwd = train_attention_yardsticks(times)
             keep1 = ms[0.0]
-            log(f"[d128] train_attention {tag} b=2 n={n} h={h} d={d} lens {list(lens_list)}: at "
-                f"dropout 0.1 forward {ms[0.1]['fwd']:.4f} ms, dq {ms[0.1]['dq']:.4f} ms, dk/dv "
-                f"{ms[0.1]['dkv']:.4f} ms; at keep = 1 forward {keep1['fwd']:.4f} ms, dq "
+            log(f"{tag} train_attention {dname} b=2 n={n} h={h} d={d} lens {list(lens_list)}: "
+                f"at dropout 0.1 forward {ms[0.1]['fwd']:.4f} ms, dq {ms[0.1]['dq']:.4f} ms, "
+                f"dk/dv {ms[0.1]['dkv']:.4f} ms; at keep = 1 forward {keep1['fwd']:.4f} ms, dq "
                 f"{keep1['dq']:.4f} ms, dk/dv {keep1['dkv']:.4f} ms; bounds "
                 + ", ".join(f"{name} {x['bound_ms']:.5f} ms by {x['bound_by']} "
                             f"({x['bound_ms'] / keep1[name]:.1%} of keep 1)"
@@ -4313,12 +4300,12 @@ def check_train_attention_d128(dev) -> dict:
                     f"{x['bound_ms']:.5f}" for x in ffma.values()) + " ms)"
                    if dtype == torch.float32 else "")
                 + f"; plain forward {plain_fwd:.4f} ms, plain backward {plain_bwd:.4f} ms; "
-                f"library scaled_dot_product_attention{' (TF32 off)' if tag == 'fp32' else ''} "
+                f"library scaled_dot_product_attention{' (TF32 off)' if dname == 'fp32' else ''} "
                 f"at keep = 1, no mask: forward {lib_fwd:.4f} ms, backward {lib_bwd:.4f} ms; "
                 f"against it at keep = 1 the forward takes {keep1['fwd'] / lib_fwd:.2f}x and "
                 f"dq + dk/dv {(keep1['dq'] + keep1['dkv']) / lib_bwd:.2f}x its time")
             del q, k, v, dout
-        prefix = "train_attention_d128" if tag == "bf16" else "train_attention_fp32_d128"
+        prefix = f"train_attention_{label}" if dname == "bf16" else f"train_attention_fp32_{label}"
         rows.update({f"{prefix}_{name}": dict(max_abs_err=errs[name], **times[name])
                      for name in errs})
     return rows
@@ -4338,27 +4325,46 @@ def head_dim_counters() -> dict:
 
 
 def head_dim_counts() -> dict:
-    """Every attention launcher's launches by head dim, copied."""
-    return {name: dict(counts) for name, counts in head_dim_counters().items()}
+    """Every attention launcher's launches by head dim, copied, and the plain
+    attention's calls on the card (under ``"plain_attention"``)."""
+    from eraxvif5tts_tpu_torch.ops.attention import plain_attention
+
+    counts = {name: dict(counts) for name, counts in head_dim_counters().items()}
+    counts["plain_attention"] = {"calls": plain_attention.calls}
+    return counts
 
 
 def reset_head_dim_counts() -> None:
+    from eraxvif5tts_tpu_torch.ops.attention import plain_attention
+
     for counts in head_dim_counters().values():
         for d in counts:
             counts[d] = 0
+    plain_attention.calls = 0
 
 
-def serve_d128(cfg, ckpt: Path, dev, dtype: str | None) -> int:
-    """The 8 x 128 checkpoint served by `F5TTSWrapper(model_cfg=cfg)`, bf16 when
-    asked, else default-built (fp32): the backbone against its plain versions
-    (bf16, DIT_TOL) or the CPU's (fp32), then `generate` of TEXTS[:2] at NFE
-    32, each chunk one graph replay with kernel 1 (rotary fused) counted
-    depth x 32 a chunk (kernel 2 as well in bf16), every attention launch of
-    the d = 128 instantiation and none of d = 64. Returns kernel 1's
+def launched_at(name: str, d: int, count: int) -> dict:
+    """The head-dim counters of ``name`` with ``count`` launches at ``d`` alone."""
+    from eraxvif5tts_tpu_torch.ops.train_attention import KERNEL_HEAD_DIMS
+
+    return {name: {dim: count if dim == d else 0 for dim in KERNEL_HEAD_DIMS}}
+
+
+def serve_at(cfg, ckpt: Path, dev, dtype: str | None, tag: str, texts) -> int:
+    """The checkpoint of ``cfg`` (heads x dim_head, full width) served by
+    `F5TTSWrapper(model_cfg=cfg)`, bf16 when asked, else default-built
+    (fp32): the backbone against its plain versions (bf16, DIT_TOL) or the
+    CPU's (fp32), then `generate` of ``texts`` at NFE 32, each chunk one
+    graph replay with kernel 1 counted depth x 32 a chunk (kernel 2 as well
+    in bf16), rotary fused where the head dim takes it (d = 64, 128) and
+    without it at d = 256 (q and k rotated outside, as the JAX models do):
+    every attention launch of this head dim's instantiation, none of
+    another, and no plain attention on the card. Returns kernel 1's
     launches."""
     import torch
 
     from eraxvif5tts_tpu_torch.infer.wrapper import F5TTSWrapper
+    from eraxvif5tts_tpu_torch.ops.attention import rotary_fused
 
     vocab = {c: i for i, c in enumerate(VOCAB_CHARS)}
     t0 = time.perf_counter()
@@ -4368,7 +4374,7 @@ def serve_d128(cfg, ckpt: Path, dev, dtype: str | None) -> int:
     randomize((wrapper.vocoder,), SEED)
     torch.cuda.synchronize()
     a = wrapper.config.arch
-    tag = f"[d128] {wrapper.compute_dtype}"
+    tag = f"{tag} {wrapper.compute_dtype}"
     log(f"{tag} F5TTSWrapper(model_cfg=<the YAML's>, "
         f"{'compute_dtype=' + repr(dtype) if dtype else 'no compute_dtype'}): dim {a.dim} depth "
         f"{a.depth} heads {a.heads}x{a.dim_head} ff_mult {a.ff_mult}, "
@@ -4378,36 +4384,63 @@ def serve_d128(cfg, ckpt: Path, dev, dtype: str | None) -> int:
         if wrapper.compute_dtype != "float32":
             raise AssertionError(f"{tag} the default wrapper serves {wrapper.compute_dtype}")
         check_backbone_against_cpu(wrapper.transformer, dev, tag)
-        path = "serving_attention_fp32"
+        counter = "serving_attention_fp32"
     else:
         check_dit_against_plain(wrapper.transformer, dev, tag)
-        path = "serving_attention"
+        counter = "serving_attention"
+    path = counter + ("" if rotary_fused(a.dim_head) else "_norope")
     ref = load_reference(wrapper)
     reset_head_dim_counts()
     # bf16 runs the normalised projection (kernel 2) too, as the main phase
-    counts = generate_counted(wrapper, ref, TEXTS[:2], NFE, tag,
+    counts = generate_counted(wrapper, ref, texts, NFE, tag,
                               (path, "ln_mod_matmul") if dtype else (path,))
     by_d = head_dim_counts()
-    want = {path: {64: 0, 128: counts[path]}}
-    if {path: by_d[path]} != want or any(
-            sum(c.values()) for name, c in by_d.items() if name != path):
+    want = launched_at(counter, a.dim_head, counts[path])
+    if {counter: by_d[counter]} != want or any(
+            sum(c.values()) for name, c in by_d.items() if name != counter):
         raise AssertionError(f"{tag} launches by head dim {by_d}, expected {want} alone")
-    log(f"{tag} launches by head dim: {by_d[path]} (d = 128 only)")
+    log(f"{tag} launches by head dim: {by_d[counter]} (d = {a.dim_head} only; no plain "
+        "attention on the card)")
     return counts[path]
 
 
-def train_d128(dev, arch) -> dict:
-    """CFM training of the 8 x 128 DiT at full width and depth (dropout 0.1,
-    blocks checkpointed, remat full) in bf16 compute and in fp32: `CFM.loss`
+@contextlib.contextmanager
+def lost_tile_attention():
+    """The plain training attention with the last 64-key tile of every
+    sample masked inside the block (what a kernel that lost one tile would
+    give): the control of a dropout-free check, where wrong dropout keys
+    change nothing."""
+    import torch
+
+    from eraxvif5tts_tpu_torch.ops import train_attention as ta
+
+    reference = ta.train_attention_reference
+
+    def short_of_a_tile(q, k, v, lens=None, *args, **kwargs):
+        full = torch.full((q.shape[0],), q.shape[1], device=q.device)
+        lens = full if lens is None else lens
+        return reference(q, k, v, torch.clamp(lens, max=q.shape[1] - 64), *args, **kwargs)
+
+    ta.train_attention_reference = short_of_a_tile
+    try:
+        yield
+    finally:
+        ta.train_attention_reference = reference
+
+
+def train_at(dev, arch, tag: str, variants, rounding: tuple = ()) -> dict:
+    """CFM training of the heads x dim_head DiT of ``arch`` at full width and
+    depth (blocks checkpointed, remat full), one run per variant ``(compute
+    dtype or None for fp32, its name, dropout, limits, control)``: `CFM.loss`
     at b = 2, n = 1024 (:func:`loss_batch`) with the kernels against the
-    plain attention (:func:`hold_loss_against_plain`: bf16 within
-    D128_LOSS_TOL / D128_GRAD_TOL / QKV_GRAD_TOL, fp32 within
-    D128_FP32_LOSS_TOL and FP32_STEP_GRAD_TOL, each against a wrong-keys
-    control), then `Trainer.train_step` at D128_STEP, a warm-up and one
-    timed step, with the step's dtype's kernels counted 2 x depth / depth /
-    depth a step at d = 128 and none at d = 64 or of the other dtype; each
-    step's wall and the peak memory logged. Returns the launches of the
-    timed steps."""
+    plain attention (:func:`hold_loss_against_plain`, the control wrong
+    attention-dropout keys at dropout > 0, a lost key tile at dropout 0;
+    the readings in ``rounding`` held within bf16 rounding alone),
+    then `Trainer.train_step` at STEP, a warm-up and one timed step, with
+    the step's dtype's kernels counted 2 x depth / depth / depth a step at
+    this head dim and none at another or of the other dtype, and no plain
+    attention on the card; each step's wall and the peak memory logged.
+    Returns the launches of the timed steps, summed over the variants."""
     import torch
 
     from eraxvif5tts_tpu_torch.models.cfm import CFM
@@ -4415,32 +4448,30 @@ def train_d128(dev, arch) -> dict:
     from eraxvif5tts_tpu_torch.ops import train_attention as ta
     from eraxvif5tts_tpu_torch.training.trainer import Trainer, batch_seed, make_optimizer
 
-    arch = dataclasses.replace(arch, dropout=0.1, checkpoint_activations=True,
-                               remat_policy="full")
-    b, n = D128_STEP
+    b, n = STEP
+    d, label = arch.dim_head, tag.strip("[]")
     depth = arch.depth
     launches = {}
-    for dtype, tag, tols in (
-            (torch.bfloat16, "bf16", {"loss": D128_LOSS_TOL, "gradient L2": D128_GRAD_TOL,
-                                      "q/k/v gradient L2": QKV_GRAD_TOL}),
-            (None, "fp32", {"loss": D128_FP32_LOSS_TOL, "gradient L2": FP32_STEP_GRAD_TOL,
-                            "q/k/v gradient L2": FP32_STEP_GRAD_TOL})):
+    for dtype, dname, rate, tols, control in variants:
+        run_arch = dataclasses.replace(arch, dropout=rate, checkpoint_activations=True,
+                                       remat_policy="full")
         t0 = time.perf_counter()
-        dit = DiT(arch, text_num_embeds=len(VOCAB_CHARS), mel_dim=100,
+        dit = DiT(run_arch, text_num_embeds=len(VOCAB_CHARS), mel_dim=100,
                   compute_dtype=dtype).to(dev)
         randomize((dit,), SEED)
         cfm = CFM(dit.train())
-        log(f"[d128] train {tag}: DiT dim {arch.dim} depth {depth} heads {arch.heads}x"
+        log(f"{tag} train {dname}: DiT dim {arch.dim} depth {depth} heads {arch.heads}x"
             f"{arch.dim_head}, {sum(p.numel() for p in dit.parameters()) / 1e6:.1f} M fp32 "
-            f"parameters, {tag} compute, dropout {arch.dropout}, remat {arch.remat_policy}, built "
+            f"parameters, {dname} compute, dropout {rate}, remat {run_arch.remat_policy}, built "
             f"in {time.perf_counter() - t0:.1f} s")
         # at the train phase's n = 1024, where its limits were set: at 4096 the
         # loss of 2 x 4096 frames averages a wrong mask away (2.7e-6 beside
-        # 7.9e-6 of bf16 rounding on an H100)
+        # 7.9e-6 of bf16 rounding on an H100, 8 x 128 heads)
         mel, text, lens, draws = loss_batch(dev, SEED + 180, depth)
-        hold_loss_against_plain(f"[d128] train {tag} CFM.loss b=2 n={mel.shape[1]} dropout "
-                                f"{arch.dropout}", dit,
-                                lambda draws: cfm.loss(mel, text, lens, draws)[0], draws, tols)
+        hold_loss_against_plain(f"{tag} train {dname} CFM.loss b=2 n={mel.shape[1]} dropout "
+                                f"{rate}", dit,
+                                lambda draws: cfm.loss(mel, text, lens, draws)[0], draws, tols,
+                                control=control, rounding=rounding)
         del mel, text, lens, draws
         trainer = Trainer(cfm=cfm, optimizer=make_optimizer(num_warmup_updates=1,
                                                              total_updates=1000))
@@ -4459,54 +4490,230 @@ def train_d128(dev, arch) -> dict:
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
             if not (math.isfinite(metrics["loss"]) and metrics["applied"] == 1.0):
-                raise AssertionError(f"[d128] train {tag} step {i + 1}: {metrics}")
+                raise AssertionError(f"{tag} train {dname} step {i + 1}: {metrics}")
         by_d = head_dim_counts()
         # the forward twice a step (the blocks are checkpointed), dq and dk/dv once
-        want = {fn.__name__: {64: 0, 128: len(walls) * depth * (2 if fn is kernels[0] else 1)}
-                for fn in kernels}
+        want = {}
+        for fn in kernels:
+            want.update(launched_at(fn.__name__, d,
+                                    len(walls) * depth * (2 if fn is kernels[0] else 1)))
         others = {name: c for name, c in by_d.items()
                   if name not in want and sum(c.values())}
         if {name: by_d[name] for name in want} != want or others:
-            raise AssertionError(f"[d128] train {tag}: launches by head dim {by_d}, expected "
+            raise AssertionError(f"{tag} train {dname}: launches by head dim {by_d}, expected "
                                  f"{want} alone")
         peak = torch.cuda.max_memory_allocated(dev)
-        log(f"[d128] train {tag} Trainer.train_step b={b} n={n}: warm-up {walls[0]:.3f} s, timed "
-            f"step {walls[1]:.3f} s ({b * n / walls[1]:.0f} frames/s), loss {metrics['loss']:.5f}, "
-            f"peak memory {peak / 2**30:.2f} GiB; launches by head dim "
-            + ", ".join(f"{name} {by_d[name]}" for name in want))
-        prefix = "train_attention_d128" if tag == "bf16" else "train_attention_fp32_d128"
-        launches.update({f"{prefix}_{name}": by_d[fn.__name__][128]
-                         for name, fn in zip(("fwd", "dq", "dkv"), kernels)})
+        log(f"{tag} train {dname} dropout {rate} Trainer.train_step b={b} n={n}: warm-up "
+            f"{walls[0]:.3f} s, timed step {walls[1]:.3f} s ({b * n / walls[1]:.0f} frames/s), "
+            f"loss {metrics['loss']:.5f}, peak memory {peak / 2**30:.2f} GiB; launches by head "
+            "dim " + ", ".join(f"{name} {by_d[name]}" for name in want))
+        prefix = f"train_attention_{label}" if dname == "bf16" else f"train_attention_fp32_{label}"
+        for name, fn in zip(("fwd", "dq", "dkv"), kernels):
+            key = f"{prefix}_{name}"
+            launches[key] = launches.get(key, 0) + by_d[fn.__name__][d]
         del trainer, state, cfm, dit
         torch.cuda.empty_cache()
     return launches
+
+
+# ---- [d128]: head dim 128 in kernels 1 and 4 --------------------------------
+# F5TTS_v1_Base at its full width (inner 1024) and depth as 8 heads of 128: the
+# YAML's `model.arch.dim_head`, which reaches the model through the config
+# loader in both packages; the JAX package runs its Pallas kernels there.
+D128_HEADS, D128_DIM_HEAD = 8, 128
+D128_SERVE = (1088, (1051, 0))  # kernel 1 at the DiT's serving bucket, a sample with no valid key
+D128_TRAIN = ((4096, (4096, 4059)), (JOINT_N, (JOINT_N, JOINT_N - 37)))  # kernel 4's cases
+STEP = (2, 4096)  # the CFM steps of [d128] and [d256]: b, n
+KEEP_N = 128  # the keep-bit readout's sequence: one [128, 128] head of bits
+# CFM.loss of the 8 x 128 DiT at b = 2, n = 1024, kernels vs plain attention, by
+# the rule above (H100, 700 W): bf16 loss 9.3e-6 vs 3.2e-5 and gradient L2
+# 3.4e-3 vs 6.3e-3, past LOSS_TOL / GRAD_TOL, which were set on 16 x 64 heads
+# (the kernels' own errors are d = 64's: relative L2 3.2e-3 / 2.6e-3 at both
+# head dims); its q / k / v gradient 2.9e-3 vs 1.8e-2 keeps QKV_GRAD_TOL
+D128_LOSS_TOL = 1.7e-5
+D128_GRAD_TOL = 4.6e-3
+# fp32: the 3xTF32 kernels give the plain version's loss (relative error 0 on
+# an H100), and wrong attention-dropout keys move it by 9.9e-7, which
+# FP32_STEP_LOSS_TOL could not see: a tenth of the control; the gradients
+# (2.7e-7 and 3.8e-7 vs 3.8e-3 and 1.8e-2) keep FP32_STEP_GRAD_TOL
+D128_FP32_LOSS_TOL = 1e-7
 
 
 def phase_d128(dev) -> tuple[dict, dict]:
     """Head dim 128 in kernels 1 and 4: the built geometry and the refusal of
     another d (:func:`check_d128_geometry`), each kernel mode against its
     plain version with its planted faults and timed (kernel 1:
-    :func:`check_serving_attention_d128`; 4a-4c:
-    :func:`check_train_attention_d128`; the keep bits:
-    :func:`check_keep_bits_d128`); F5TTS_v1_Base.yaml with 8 heads of 128
-    (:func:`d128_config`) as a seeded N(0, 0.02) reference-format checkpoint
-    served in bf16 and in fp32 (:func:`serve_d128`) and trained in both
-    (:func:`train_d128`). Returns (the JSON rows, the launches on the
-    path)."""
+    :func:`check_serving_attention_at`, with and without rotary; 4a-4c:
+    :func:`check_train_attention_at`; the keep bits:
+    :func:`check_keep_bits_at`), in bf16 and fp32; F5TTS_v1_Base.yaml with
+    8 heads of 128 (:func:`head_dim_config`) as a seeded N(0, 0.02)
+    reference-format checkpoint served in bf16 and in fp32 (:func:`serve_at`,
+    one text each) and trained in both at dropout 0.1 (:func:`train_at`).
+    Returns (the JSON rows, the launches on the path)."""
+    import torch
+
+    tag, h, d = "[d128]", D128_HEADS, D128_DIM_HEAD
     check_d128_geometry()
-    rows = check_serving_attention_d128(dev)
-    rows.update(check_train_attention_d128(dev))
-    check_keep_bits_d128(dev)
+    rows = check_serving_attention_at(
+        dev, tag, h, d, SEED + 160, ((*D128_SERVE, (True, False)), (JOINT_N, JOINT_LENS, (False,))))
+    rows.update(check_train_attention_at(dev, tag, h, d, SEED + 170, D128_TRAIN,
+                                         (torch.bfloat16, torch.float32), (0.1,)))
+    check_keep_bits_at(dev, tag, h, d, (torch.bfloat16, torch.float32))
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
-        cfg, path = d128_config(Path(tmp))
-        log(f"[d128] {path.name}: configs/F5TTS_v1_Base.yaml with model.arch heads "
-            f"{D128_HEADS}, dim_head {D128_DIM_HEAD}, loaded by load_model_config: {cfg.arch}")
+        cfg, path = head_dim_config(Path(tmp), h, d, tag)
+        log(f"{tag} {path.name}: configs/F5TTS_v1_Base.yaml with model.arch heads {h}, "
+            f"dim_head {d}, loaded by load_model_config: {cfg.arch}")
         ckpt = Path(tmp) / "model.pt"
         save_reference_checkpoint(ckpt, cfg, dev)
-        launches["serving_attention_d128"] = serve_d128(cfg, ckpt, dev, "bfloat16")
-        launches["serving_attention_fp32_d128"] = serve_d128(cfg, ckpt, dev, None)
-    launches.update(train_d128(dev, cfg.arch))
+        # one text a dtype: the whole smoke passed 850 s on a slow host
+        launches["serving_attention_d128"] = serve_at(cfg, ckpt, dev, "bfloat16", tag, TEXTS[:1])
+        launches["serving_attention_fp32_d128"] = serve_at(cfg, ckpt, dev, None, tag, TEXTS[:1])
+    launches.update(train_at(dev, cfg.arch, tag, (
+        (torch.bfloat16, "bf16", 0.1, {"loss": D128_LOSS_TOL, "gradient L2": D128_GRAD_TOL,
+                                       "q/k/v gradient L2": QKV_GRAD_TOL}, "keys"),
+        (None, "fp32", 0.1, {"loss": D128_FP32_LOSS_TOL, "gradient L2": FP32_STEP_GRAD_TOL,
+                             "q/k/v gradient L2": FP32_STEP_GRAD_TOL}, "keys"))))
+    return rows, launches
+
+
+# ---- [d256]: head dim 256, kernel 6's roles -----------------------------------
+# F5TTS_v1_Base at its full width and depth as 4 heads of 256. The JAX package
+# runs its library flash kernel (kernel 6, `eraxvif5tts_tpu/ops/attention.py:38`)
+# there: serving with q and k rotated outside it (its serving kernel refuses d =
+# 256), and dropout-free training through its forward and backward. The port's
+# d = 256 kernels: the bf16 forward (serving and the training forward), the fp32
+# serving forward, the bf16 dq and dk/dv; fp32 training refuses d = 256.
+D256_HEADS, D256_DIM_HEAD = 4, 256
+D256_SERVE = ((1088, (1051, 0), (False,)), (JOINT_N, JOINT_LENS, (False,)))
+D256_TRAIN = ((4096, (4096, 4059)), (JOINT_N, (JOINT_N, JOINT_N - 37)))
+# CFM.loss of the 4 x 256 DiT at b = 2, n = 1024, kernels vs plain attention
+# (H100, 700 W): at dropout 0 against a lost key tile,
+# gradient L2 3.3e-3 vs 1.6e-2, q / k / v 2.7e-3 vs 6.7e-2; at dropout 0.1
+# against wrong keys 3.4e-3 vs 6.3e-3 and 2.9e-3 vs 1.8e-2: D128_GRAD_TOL and
+# QKV_GRAD_TOL lie between. The loss moved 5.0e-6 (dropout 0) and 8.9e-7
+# (0.1) where the controls moved it 4.0e-6 and 7.2e-6: bf16 rounding of the
+# loss is the size of a control, so the loss is held within D128_LOSS_TOL
+# (bf16 rounding) and its control logged, as the MMDiT's step holds it
+D256_TOLS = {"loss": D128_LOSS_TOL, "gradient L2": D128_GRAD_TOL,
+             "q/k/v gradient L2": QKV_GRAD_TOL}
+
+
+def check_d256_geometry() -> None:
+    """The constants the d = 256 instantiations report against the ones
+    `ops/train_attention.py` states (the bf16 forward, the backward, the
+    fp32 serving core), and the C interface refusing what is not built at
+    256: the fp32 training geometry and launch, and fused rotary (non-zero
+    codes, no kernel runs)."""
+    import ctypes
+
+    import torch
+
+    from eraxvif5tts_tpu_torch.ops import _cuda
+    from eraxvif5tts_tpu_torch.ops import serving_attention as sa
+    from eraxvif5tts_tpu_torch.ops import train_attention as ta
+
+    d, built_keys = D256_DIM_HEAD, ("rows", "stages", "threads", "shared_bytes")
+    fwd, bwd = ta.forward_geometry(2, 4096, 4, d), ta.backward_geometry(2, 4096, 4, d)
+    f32 = sa.forward_geometry_fp32(2, 4096, 4, d)
+    stated = {"forward": {key: fwd[key] for key in built_keys},
+              "backward": {key: bwd[key] for key in built_keys},
+              "fp32 serving": {key: f32[key] for key in ta.FP32_FORWARD_BUILT}}
+    built = {"forward": ta.kernel_forward_geometry(d), "backward": ta.kernel_backward_geometry(d),
+             "fp32 serving": sa.kernel_geometry_fp32(d)}
+    if built != stated:
+        raise AssertionError(f"[d256] built geometry: {built}; stated {stated}")
+    log(f"[d256] built geometry equals the stated one: bf16 forward {built['forward']} "
+        f"(registers {fwd['registers']}), backward {built['backward']} (columns "
+        f"{bwd['columns']}); fp32 serving {built['fp32 serving']} (key tiles of "
+        f"{f32['key_tile']})")
+    lib = _cuda.kernels().lib
+    out = (ctypes.c_int * 9)()
+    q = torch.zeros((1, 64, 2, d), dtype=torch.float32, device="cuda")
+    qb = q.bfloat16()
+    lens = torch.full((1,), 64, dtype=torch.int32, device="cuda")
+    stream = _cuda.stream_ptr(q.device)
+    refused = {"erax_train_attention_fp32_geometry": lib.erax_train_attention_fp32_geometry(
+        d, out)}
+    refused["erax_train_attention_fp32_fwd"] = lib.erax_train_attention_fp32_fwd(
+        q.data_ptr(), q.data_ptr(), q.data_ptr(), lens.data_ptr(), q.data_ptr(), q.data_ptr(),
+        1, 64, 2, d, 1.0, 0, 0, 1.0, 0, 0, 0, stream)
+    for name, t in (("erax_serving_attention", qb), ("erax_serving_attention_fp32", q)):
+        refused[f"{name} roped"] = getattr(lib, name)(
+            t.data_ptr(), t.data_ptr(), t.data_ptr(), lens.data_ptr(), q.data_ptr(),
+            q.data_ptr(), t.data_ptr(), 1, 64, 2, d, 1, 1.0, stream)
+    torch.cuda.synchronize()
+    if not all(refused.values()):
+        raise AssertionError(f"[d256] an entry point took what is not built at 256: {refused}")
+    log(f"[d256] fp32 training and fused rotary at d = 256 refused by the C interface "
+        f"(non-zero codes, no launch): {refused}")
+
+
+def check_d256_refuses_fp32_training(dev) -> None:
+    """An fp32 `Trainer.train_step` of the 4 x 256 DiT (cut to 2 blocks: the
+    first block's attention refuses) raises before any attention kernel or
+    plain attention runs, naming the ROADMAP item, and leaves the state as
+    it was."""
+    import torch
+
+    from eraxvif5tts_tpu_torch.models.cfm import CFM
+    from eraxvif5tts_tpu_torch.models.dit import DiT
+    from eraxvif5tts_tpu_torch.training.trainer import Trainer, make_optimizer
+
+    arch = dataclasses.replace(train_arch(), heads=D256_HEADS, dim_head=D256_DIM_HEAD, depth=2,
+                               dropout=0.0)
+    dit = DiT(arch, text_num_embeds=len(VOCAB_CHARS), mel_dim=100).to(dev)
+    trainer = Trainer(cfm=CFM(dit.train()), optimizer=make_optimizer(num_warmup_updates=1,
+                                                                       total_updates=1000))
+    state = trainer.init_state()
+    before, step = head_dim_counts(), state.step
+    try:
+        trainer.train_step(state, train_batch(dev, SEED + 199, (2, 256)),
+                           torch.Generator(device=dev).manual_seed(SEED))
+    except NotImplementedError as refusal:
+        message = str(refusal)
+    else:
+        raise AssertionError("[d256] an fp32 training step at d = 256 was not refused")
+    torch.cuda.synchronize()
+    if head_dim_counts() != before or state.step != step or "queue 2 item 1" not in message:
+        raise AssertionError(f"[d256] the refused fp32 step launched an attention kernel, "
+                             f"moved the state or named no ROADMAP item: {message}")
+    log(f"[d256] fp32 training refused before any attention launch: {message[:160]}...")
+
+
+def phase_d256(dev) -> tuple[dict, dict]:
+    """Head dim 256 in kernel 6's roles: the built geometry and the refusals
+    (:func:`check_d256_geometry`), each d = 256 kernel against its plain
+    version with its planted faults and timed (the serving forward without
+    rotary in bf16 and fp32, the bf16 training kernels at dropout 0.1 and
+    keep = 1, the keep bits), F5TTS_v1_Base.yaml with 4 heads of 256 as a
+    seeded N(0, 0.02) reference-format checkpoint served in bf16 and in fp32
+    (one text each) and trained in bf16 at dropout 0 and 0.1, and fp32
+    training refused (:func:`check_d256_refuses_fp32_training`). Returns (the
+    JSON rows, the launches on the path)."""
+    import torch
+
+    tag, h, d = "[d256]", D256_HEADS, D256_DIM_HEAD
+    check_d256_geometry()
+    rows = check_serving_attention_at(dev, tag, h, d, SEED + 260, D256_SERVE)
+    rows.update(check_train_attention_at(dev, tag, h, d, SEED + 270, D256_TRAIN,
+                                         (torch.bfloat16,), (0.1, 0.0)))
+    check_keep_bits_at(dev, tag, h, d, (torch.bfloat16,))
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg, path = head_dim_config(Path(tmp), h, d, tag)
+        log(f"{tag} {path.name}: configs/F5TTS_v1_Base.yaml with model.arch heads {h}, "
+            f"dim_head {d}, loaded by load_model_config: {cfg.arch}")
+        ckpt = Path(tmp) / "model.pt"
+        save_reference_checkpoint(ckpt, cfg, dev)
+        launches["serving_attention_d256_norope"] = serve_at(cfg, ckpt, dev, "bfloat16", tag,
+                                                             TEXTS[:1])
+        launches["serving_attention_fp32_d256_norope"] = serve_at(cfg, ckpt, dev, None, tag,
+                                                                  TEXTS[:1])
+    launches.update(train_at(dev, cfg.arch, tag, tuple(
+        (torch.bfloat16, "bf16", rate, D256_TOLS, "keys" if rate > 0.0 else "tile")
+        for rate in (0.0, 0.1)), rounding=("loss",)))
+    check_d256_refuses_fp32_training(dev)
     return rows, launches
 
 
@@ -6565,6 +6772,9 @@ def main() -> int:
     d128_rows, d128_launches = timed("[d128]", phase_d128, dev)
     kernel_results.update(d128_rows)
     launches.update(d128_launches)
+    d256_rows, d256_launches = timed("[d256]", phase_d256, dev)
+    kernel_results.update(d256_rows)
+    launches.update(d256_launches)
     launches.update(timed("[mmdit-train]", phase_mmdit_train, dev,
                           cut_depth(PRESETS["F5TTS_v1_MMDiT"], MMDIT_TRAIN_DEPTH)))
     with tempfile.TemporaryDirectory() as tmp:
@@ -6646,6 +6856,17 @@ def main() -> int:
                launches=launches[name], **kernel_results[name])
           for name, source in (("serving_attention_d128", "serving_attention.cu"),
                                ("serving_attention_fp32_d128", "serving_attention_fp32.cu"))),
+        # kernel 6, the library flash kernel, at d = 256: its serving role and
+        # its dropout-free training role
+        *(dict(name=name, route="cuda", source=f"eraxvif5tts_tpu_torch/csrc/{source}",
+               replaces="eraxvif5tts_tpu/ops/attention.py:38", launches=launches[name],
+               **kernel_results[name])
+          for name, source in (("serving_attention_d256_norope", "serving_attention.cu"),
+                               ("serving_attention_fp32_d256_norope",
+                                "serving_attention_fp32.cu"),
+                               ("train_attention_d256_fwd", "train_attention.cu"),
+                               ("train_attention_d256_dq", "train_attention.cu"),
+                               ("train_attention_d256_dkv", "train_attention.cu"))),
     ]
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
     if missing:

@@ -4,8 +4,8 @@
 // parts of `wgmma_tile.cuh`. Also the constants, the dropout hash and the
 // warpgroup product helpers that the backward kernels share with it.
 //
-// For one (sample, head) of q, k, v [b, n, h, d] bf16, d = 64 or 128 (the
-// template's D):
+// For one (sample, head) of q, k, v [b, n, h, d] bf16, d = 64, 128 or 256
+// (the template's D):
 //   S = q k^T * scale (fp32), keys >= lens[b] masked,
 //   P = softmax(S) over the keys, O = P v (bf16 P, fp32 sums, bf16 O).
 //
@@ -16,8 +16,13 @@
 // on an H100 at every shape tried). At d = 128 a consumer's O accumulator is
 // 64 fp32 registers a thread, twice d = 64's, which three consumer
 // warpgroups at 144 registers do not hold: a block owns 128 rows, two
-// consumer warpgroups at 216 registers (`FwdShape`). One producer thread
-// starts the TMA loads: the block's Q tiles once, then a ring of `kFwdStages`
+// consumer warpgroups at 216 registers (`FwdShape`). At d = 256 (the JAX
+// package's library flash kernel, kernel 6, which it never runs with
+// rotary) O is 128 registers a thread: two consumer warpgroups at 232
+// (128 x 40 + 256 x 232 = 384 x 168) own 128 rows, and a [64, 256] tile is
+// 32,768 bytes, so the ring keeps two stages (197,696 bytes; four would need
+// 328,816 of the 232,448 a block may use). One producer thread starts the
+// TMA loads: the block's Q tiles once, then a ring of `FwdShape::kStages`
 // stages, a K tile and a V tile each, that it refills as the consumers
 // release them (a full and an empty mbarrier per stage); the ring ends at the
 // last tile that holds a valid key. Every tile is 64 rows x d columns, d / 64
@@ -54,8 +59,9 @@
 // panel), a proxy fence orders its stores before the wgmma reads,
 // and the consumers wait on a third barrier of the stage (`ready`) instead of
 // `full`. The rotation runs ahead of the consumers by up to the ring's depth,
-// off their critical path. What it costs: every block rotates every K tile
-// again and reads 2 x 64 d * 4 bytes of fp32 cos / sin for it from L2, twice
+// off their critical path (not built at d = 256). What it costs: every block
+// rotates every K tile again and reads 2 x 64 d * 4 bytes of fp32 cos / sin
+// for it from L2, twice
 // the bytes of the K and V tiles themselves; at n = 4096 that traffic, not
 // the products, bounds this mode.
 // `kDrop`: the position-hash keep bit on P after the row sum took the
@@ -74,7 +80,7 @@
 // softmax arithmetic shares the schedulers' slots with both: unless one
 // warpgroup's softmax runs under the other's products the kernel cannot pass
 // half of its bound. At d = 128 the products double and the softmax work
-// stays, so the products weigh more.
+// stays, so the products weigh more; at d = 256 twice as much again.
 #pragma once
 
 #include <math.h>
@@ -166,23 +172,26 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* dst, long row_stride,
 
 // ---- the forward ----------------------------------------------------------
 
-constexpr int kFwdStages = 4;     // ring depth
 constexpr int kFwdRotators = 96;  // threads of the producer's warps 1-3 (kRope)
-constexpr int kFwdBarriers = 3 * kFwdStages + 2;
 
-// Rows a block owns and the registers a thread after the roles split, by head
-// dim (`ops/train_attention.py` FWD_SHAPES): the producer's warpgroup x its
-// count + the consumers x theirs must stay within all threads x the launch
-// count (65,536 / threads, a multiple of 8), or setmaxnreg hangs.
+// Rows a block owns, the registers a thread after the roles split and the
+// ring's depth, by head dim (`ops/train_attention.py` FWD_SHAPES): the
+// producer's warpgroup x its count + the consumers x theirs must stay within
+// all threads x the launch count (65,536 / threads, a multiple of 8), or
+// setmaxnreg hangs.
 template <int D>
 struct FwdShape;
 template <>
 struct FwdShape<64> {  // 128 x 72 + 384 x 144 <= 512 x 128
-  static constexpr int kRows = 192, kProducerRegs = 72, kConsumerRegs = 144;
+  static constexpr int kRows = 192, kProducerRegs = 72, kConsumerRegs = 144, kStages = 4;
 };
 template <>
 struct FwdShape<128> {  // 128 x 72 + 256 x 216 <= 384 x 168
-  static constexpr int kRows = 128, kProducerRegs = 72, kConsumerRegs = 216;
+  static constexpr int kRows = 128, kProducerRegs = 72, kConsumerRegs = 216, kStages = 4;
+};
+template <>
+struct FwdShape<256> {  // 128 x 40 + 256 x 232 <= 384 x 168; no rotators to feed
+  static constexpr int kRows = 128, kProducerRegs = 40, kConsumerRegs = 232, kStages = 2;
 };
 
 // The forward's constants for head dim D. Dynamic shared memory, from a
@@ -196,8 +205,9 @@ struct Fwd : FwdShape<D> {
   static constexpr int kTile = kPanels * hopper::kTileBytes;
   static constexpr int kQOff = 0;
   static constexpr int kRingOff = kQOff + kGroups * kTile;
-  static constexpr int kBarOff = kRingOff + kFwdStages * 2 * kTile;
-  static constexpr int kSmem = 1024 + kBarOff + kFwdBarriers * 8;
+  static constexpr int kStages = FwdShape<D>::kStages;
+  static constexpr int kBarOff = kRingOff + kStages * 2 * kTile;
+  static constexpr int kSmem = 1024 + kBarOff + (3 * kStages + 2) * 8;
   static_assert(128 * FwdShape<D>::kProducerRegs + (kThreads - 128) * FwdShape<D>::kConsumerRegs <=
                     kThreads * ((65536 / kThreads) & ~7),
                 "setmaxnreg asks for more registers than the launch has");
@@ -207,15 +217,14 @@ struct Fwd : FwdShape<D> {
 // Shared addresses of the barriers: per stage `full` (the TMA copies have
 // landed), `ready` (kRope: the K tile is rotated) and `empty` (the consumers
 // are done with it); `q` and `q_ready` the same for the block's own tiles.
+template <int S>  // the ring's stages
 struct FwdBarriers {
   uint32_t base;
   __device__ __forceinline__ uint32_t full(int s) const { return base + 8 * s; }
-  __device__ __forceinline__ uint32_t empty(int s) const { return base + 8 * (kFwdStages + s); }
-  __device__ __forceinline__ uint32_t ready(int s) const {
-    return base + 8 * (2 * kFwdStages + s);
-  }
-  __device__ __forceinline__ uint32_t q() const { return base + 8 * 3 * kFwdStages; }
-  __device__ __forceinline__ uint32_t q_ready() const { return base + 8 * (3 * kFwdStages + 1); }
+  __device__ __forceinline__ uint32_t empty(int s) const { return base + 8 * (S + s); }
+  __device__ __forceinline__ uint32_t ready(int s) const { return base + 8 * (2 * S + s); }
+  __device__ __forceinline__ uint32_t q() const { return base + 8 * 3 * S; }
+  __device__ __forceinline__ uint32_t q_ready() const { return base + 8 * (3 * S + 1); }
 };
 
 struct FwdArgs {
@@ -367,7 +376,8 @@ __device__ __forceinline__ void scale_rows(float (&o)[P][32], const float (&f)[2
 
 // A stage of the ring goes back to the producer: every lane of the warp is
 // past its reads of it, lane 0 says so.
-__device__ __forceinline__ void fwd_release_stage(const FwdBarriers& bar, int s, int lane) {
+template <int S>
+__device__ __forceinline__ void fwd_release_stage(const FwdBarriers<S>& bar, int s, int lane) {
   __syncwarp();
   if (lane == 0) hopper::mbar_arrive(bar.empty(s));
 }
@@ -381,6 +391,8 @@ __device__ __forceinline__ void flash_forward_block(const CUtensorMap* q_map,
                                                     const CUtensorMap* v_map, const FwdArgs& a,
                                                     uint8_t* smem_raw) {
   using F = Fwd<D>;
+  constexpr int kStages = F::kStages;
+  static_assert(!(kRope && D == 256), "the JAX package never fuses rotary at d = 256");
   const int n = a.n;
   const int q0 = blockIdx.x * F::kRows;
   const int hi = blockIdx.y;
@@ -397,10 +409,10 @@ __device__ __forceinline__ void flash_forward_block(const CUtensorMap* q_map,
   // by lane 0 of each rotating warp, and back by lane 0 of each warp of each
   // working warpgroup
   const uint32_t smem = (hopper::smem_addr(smem_raw) + 1023u) & ~1023u;
-  FwdBarriers bar;
+  FwdBarriers<kStages> bar;
   bar.base = smem + F::kBarOff;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kFwdStages; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       hopper::mbar_init(bar.full(s), 1);
       hopper::mbar_init(bar.empty(s), 4 * groups);
       hopper::mbar_init(bar.ready(s), kFwdRotators / 32);
@@ -420,8 +432,8 @@ __device__ __forceinline__ void flash_forward_block(const CUtensorMap* q_map,
           hopper::tma_load_rows<D>(smem + F::kQOff + w * F::kTile, q_map, bar.q(),
                                    q0 + w * hopper::kTileRows, hi, bi);
         for (int it = 0; it < n_tiles; ++it) {
-          const int s = it % kFwdStages;
-          hopper::mbar_wait(bar.empty(s), ((it / kFwdStages) & 1) ^ 1);
+          const int s = it % kStages;
+          hopper::mbar_wait(bar.empty(s), ((it / kStages) & 1) ^ 1);
           hopper::mbar_expect_tx(bar.full(s), 2 * F::kTile);
           const uint32_t stage = smem + F::kRingOff + s * 2 * F::kTile;
           hopper::tma_load_rows<D>(stage, k_map, bar.full(s), it * kBK, hi, bi);
@@ -439,9 +451,9 @@ __device__ __forceinline__ void flash_forward_block(const CUtensorMap* q_map,
       }
       rotated(bar.q_ready(), lane);
       for (int it = 0; it < n_tiles; ++it) {
-        const int s = it % kFwdStages;
+        const int s = it % kStages;
         const long pos = static_cast<long>(it) * kBK;
-        hopper::mbar_wait(bar.full(s), (it / kFwdStages) & 1);
+        hopper::mbar_wait(bar.full(s), (it / kStages) & 1);
         rotate_tile<D>(tiles + F::kRingOff + s * 2 * F::kTile, a.cos_t + pos * D,
                        a.sin_t + pos * D, rid);
         rotated(bar.ready(s), lane);
@@ -467,10 +479,10 @@ __device__ __forceinline__ void flash_forward_block(const CUtensorMap* q_map,
 
       hopper::mbar_wait(kRope ? bar.q_ready() : bar.q(), 0);
       for (int it = 0; it < n_tiles; ++it) {
-        const int s = it % kFwdStages;
+        const int s = it % kStages;
         const int k0 = it * kBK;
         const uint32_t k_tile = smem + F::kRingOff + s * 2 * F::kTile;
-        hopper::mbar_wait(kRope ? bar.ready(s) : bar.full(s), (it / kFwdStages) & 1);
+        hopper::mbar_wait(kRope ? bar.ready(s) : bar.full(s), (it / kStages) & 1);
 
         float sc[32];
         hopper::wgmma_fence();
@@ -563,13 +575,19 @@ inline dim3 fwd_grid(int b, int n, int h) {
 // `forward_geometry` states it: rows a block, ring stages, threads, dynamic
 // shared bytes. Returns 0, or cudaErrorInvalidValue for a head dim that has
 // no instantiation.
-inline int fwd_geometry(int d, int* out) {
-  if (d != 64 && d != 128) return static_cast<int>(cudaErrorInvalidValue);
-  out[0] = d == 64 ? Fwd<64>::kRows : Fwd<128>::kRows;
-  out[1] = kFwdStages;
-  out[2] = d == 64 ? Fwd<64>::kThreads : Fwd<128>::kThreads;
-  out[3] = d == 64 ? Fwd<64>::kSmem : Fwd<128>::kSmem;
+template <int D>
+inline int fwd_geometry_of(int* out) {
+  out[0] = Fwd<D>::kRows;
+  out[1] = Fwd<D>::kStages;
+  out[2] = Fwd<D>::kThreads;
+  out[3] = Fwd<D>::kSmem;
   return 0;
+}
+inline int fwd_geometry(int d, int* out) {
+  if (d == 64) return fwd_geometry_of<64>(out);
+  if (d == 128) return fwd_geometry_of<128>(out);
+  if (d == 256) return fwd_geometry_of<256>(out);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace

@@ -85,6 +85,200 @@ inline int forward_geometry(int d, int* out) {
   return 0;
 }
 
+// ---- d = 256: the serving forward without rotary (kernel 6's fp32 role) ----
+//
+// At d = 256 the core above does not fit: a padded [64, 256] tile is 66,560
+// bytes, so the ring's two stages of K and V and their small parts would be
+// 399,360 bytes, and a warp's O (128 registers a lane) beside its Q rows (128
+// more, unsplit) would not fit 255 registers. This core keeps the layout of
+// the warps and the 3xTF32 arithmetic, and moves the rest:
+// - Q's 64 rows stay fp32 in shared memory (66,560 bytes), each warp reading
+//   its A fragments from there and splitting them at each use (`SharedA`);
+// - K and V come in tiles of 32 keys (one softmax pass: kPass n-tiles)
+//   through a two-stage `cp.async` ring, 2 x 2 x 33,280 bytes, kept raw: a B
+//   operand is split where it is read (two integer operations and a
+//   subtraction a value, `split`), as the split-once tiles of the other
+//   core would need 133,120 bytes more. 199,680 bytes in all, one block an
+//   SM, 128 threads;
+// - O is 128 registers a lane, in the fresh accumulator of 64 columns per
+//   pass as in the core above; a tile is one barrier (no split pass).
+// Every product is the other core's 3xTF32 `mma.sync` with its operand
+// splits, so the two agree to the order of fp32 sums; no rotary, no
+// dropout, no LSE: the JAX package runs kernel 6 at d = 256 with q and k
+// rotated outside it (`models/modules.py:378-392`).
+constexpr int kWideKeys = 8 * kPass;  // keys a tile of the d = 256 ring: one pass
+
+template <int D>
+struct Fp32Wide {
+  static constexpr int kStride = Fp32Shape<D>::kStride;
+  static constexpr int kQFloats = kRows * kStride;        // Q's 64 rows, fp32
+  static constexpr int kKeyFloats = kWideKeys * kStride;  // a K or a V tile of 32 keys
+  static constexpr int kStage = 2 * kKeyFloats;
+  static constexpr int kSmem = (kQFloats + kStages * kStage) * 4;  // 199,680 at d = 256
+  static_assert(kSmem <= 232448, "more shared memory than a block may use");
+};
+
+// The d = 256 core's launch geometry as `ops/train_attention.py`
+// `forward_geometry_fp32` states it (rows, threads, stages, shared bytes).
+inline int forward_geometry_wide(int* out) {
+  out[0] = kRows;
+  out[1] = kThreads;
+  out[2] = kStages;
+  out[3] = Fp32Wide<256>::kSmem;
+  return 0;
+}
+
+// acc[nn] += W Z as `product` computes it, over a raw (unsplit) tile Z whose
+// rows are `kStride` floats apart: each B value is split where it is read.
+template <int D>
+__device__ __forceinline__ void product_raw(float (&acc)[8][4], const float (&w)[4],
+                                            const float* z, int j, int lane) {
+  constexpr int kStride = Fp32Shape<D>::kStride;
+  const FragA fa = split_a(w[0], w[2], w[1], w[3]);
+  const int at = (8 * j + 2 * (lane & 3)) * kStride + (lane >> 2);
+#pragma unroll
+  for (int nn = 0; nn < 8; ++nn) {
+    const Split b0 = split(z[at + 8 * nn]), b1 = split(z[at + kStride + 8 * nn]);
+    mma3(acc[nn], fa, __float_as_uint(b0.big), __float_as_uint(b1.big),
+         __float_as_uint(b0.small), __float_as_uint(b1.small));
+  }
+}
+
+// S = Q K^T for the warp's 16 rows and the 32 keys of a raw K tile (`kb`),
+// `pass_scores`' reads (one ldmatrix for the B fragments of two n-tiles) with
+// the split at each use, Q's fragments from shared memory.
+template <int D>
+__device__ __forceinline__ void wide_scores(float (&s)[kPass][4], const SharedA<D>& qa,
+                                            const float* kb, int lane) {
+  constexpr int kStride = Fp32Shape<D>::kStride;
+  const int lm = (8 * (lane >> 4) + (lane & 7)) * kStride + 4 * ((lane >> 3) & 1);
+#pragma unroll 4
+  for (int kk = 0; kk < D / 8; ++kk) {
+    const FragA qf = qa.frag(kk);
+#pragma unroll
+    for (int jp = 0; jp < kPass / 2; ++jp) {
+      uint32_t x[4];
+      ldmatrix_x4(x, kb + lm + 16 * jp * kStride + 8 * kk);
+      Split b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) b[i] = split(__uint_as_float(x[i]));
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        mma3(s[2 * jp + e], qf, __float_as_uint(b[2 * e].big), __float_as_uint(b[2 * e + 1].big),
+             __float_as_uint(b[2 * e].small), __float_as_uint(b[2 * e + 1].small));
+    }
+  }
+}
+
+// The block's serving forward at head dim D = 256 over the grid (n / 64, h,
+// b), 128 threads and Fp32Wide<D>::kSmem bytes of dynamic shared memory:
+// keys >= lens[b] masked to -1e30 (a sample with lens <= 0 averages every
+// key), O = softmax(S) V, no LSE.
+template <int D>
+__device__ __forceinline__ void forward_wide(const float* __restrict__ q,
+                                             const float* __restrict__ k,
+                                             const float* __restrict__ v,
+                                             const int* __restrict__ lens,
+                                             float* __restrict__ out, int n, int h,
+                                             float scale) {
+  using W = Fp32Wide<D>;
+  extern __shared__ float4 smem4[];
+  float* const qs = reinterpret_cast<float*>(smem4);
+  float* const ring = qs + W::kQFloats;
+  const int lane = threadIdx.x & 31, c = lane & 3;
+  const Head hd = block_head<D>(lens, n, h, Dropout{0u, 0u, 1.f, 0});
+  // key tiles that hold a valid key (every tile when none is valid)
+  const int n_tiles = hd.len <= 0 ? n / kWideKeys : (min(hd.len, n) + kWideKeys - 1) / kWideKeys;
+  const int warp_row = 16 * (threadIdx.x >> 5) + (lane >> 2);  // and + 8, in the block
+  const int row = hd.row0 + warp_row;
+
+  auto issue = [&](int t) {  // K and V of key tile t into its stage
+    float* stage = ring + (t % kStages) * W::kStage;
+    const int64_t at = hd.base + static_cast<int64_t>(t) * kWideKeys * hd.stride;
+    copy_rows<D, kWideKeys>(stage, k + at, hd.stride);
+    copy_rows<D, kWideKeys>(stage + W::kKeyFloats, v + at, hd.stride);
+    cp_async_commit();
+  };
+  copy_tile<D>(qs, q + hd.base + static_cast<int64_t>(hd.row0) * hd.stride, hd.stride);
+  issue(0);  // with Q in its group: n >= 64, at least one tile
+  const SharedA<D> qa{qs + warp_row * W::kStride + c};
+
+  float o[D / 8][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  zero(o);
+#pragma unroll 1
+  for (int t = 0; t < n_tiles; ++t) {
+    const float* const ks = ring + (t % kStages) * W::kStage;
+    const float* const vs = ks + W::kKeyFloats;
+    cp_async_wait_all();  // this thread's copies of tile t (and Q) have landed
+    __syncthreads();      // everyone's have, and tile t - 1's stage is free
+    if (t + 1 < n_tiles) issue(t + 1);  // under this tile's products
+
+    float s[kPass][4];
+    zero(s);
+    wide_scores<D>(s, qa, ks, lane);
+
+    // the online softmax over the tile's keys: element e of n-tile j is row
+    // row + 8 (e >> 1), key t * 32 + 8 j + 2 c + (e & 1)
+    const int key0 = t * kWideKeys + 2 * c;
+    float pass_max[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < kPass; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = key0 + 8 * j + (e & 1) < hd.len ? s[j][e] * scale : kNeg;
+        s[j][e] = x;
+        pass_max[e >> 1] = fmaxf(pass_max[e >> 1], x);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float x = fmaxf(pass_max[r], __shfl_xor_sync(0xffffffffu, pass_max[r], 1));
+      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+      const float m_new = fmaxf(m[r], x);
+      alpha[r] = expf(m[r] - m_new);  // 0 on the first tile (m = -inf)
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int j = 0; j < kPass; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s[j][e] - m[e >> 1]);
+        l[e >> 1] += p;
+        s[j][e] = p;
+      }
+
+    // O = alpha O + P V, the tile's products in a fresh accumulator, 64
+    // columns of O at a time
+#pragma unroll
+    for (int half = 0; half < D / 64; ++half) {
+      float part[8][4];
+      zero(part);
+#pragma unroll
+      for (int j = 0; j < kPass; ++j) product_raw<D>(part, s[j], vs + 64 * half, j, lane);
+#pragma unroll
+      for (int nn = 0; nn < 8; ++nn)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          o[8 * half + nn][i] = fmaf(alpha[i >> 1], o[8 * half + nn][i], part[nn][i]);
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  float* const dst = out + hd.base;
+#pragma unroll
+  for (int nn = 0; nn < D / 8; ++nn) {
+    *reinterpret_cast<float2*>(dst + row * hd.stride + 8 * nn + 2 * c) =
+        make_float2(o[nn][0] / l[0], o[nn][1] / l[0]);
+    *reinterpret_cast<float2*>(dst + (row + 8) * hd.stride + 8 * nn + 2 * c) =
+        make_float2(o[nn][2] / l[1], o[nn][3] / l[1]);
+  }
+}
+
 // Four consecutive columns (two interleaved pairs) of a row at table offset
 // `at`, rotated as the plain version rounds it: fl(fl(x0 c0) + fl(-x1 s0)),
 // fl(fl(x1 c1) + fl(x0 s1)) (no contraction into FMAs).

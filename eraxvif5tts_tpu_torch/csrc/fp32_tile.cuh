@@ -28,7 +28,9 @@
 //   `ldmatrix.x4`, the eight rows of a matrix in eight distinct bank quads;
 //   read as B (rows are the k index: keys of a V tile) at rows 8 j + 2 (lane
 //   % 4) + {0, 1} and column 8 nn + lane / 4 (`product`), 32 distinct banks
-//   (kStride % 32 == 4 at both head dims).
+//   (kStride % 32 == 4 at every head dim).
+// - At d = 256 only the serving forward is built, on a core of its own
+//   (`fp32_forward.cuh` `forward_wide`).
 // - Scores come out in the mma's C layout (row lane / 4 and + 8, columns 2
 //   (lane % 4) + {0, 1} of each n-tile) and are used in place as the next
 //   product's A fragment by permuting the k-step: no shuffle and no trip
@@ -60,10 +62,12 @@ static_assert(kRows == 16 * kWarps, "a warp owns one m16 tile of the block's row
 // `forward_geometry_fp32` / `backward_geometry_fp32`).
 template <int D>
 struct Fp32Shape {
-  static_assert(D == 64 || D == 128, "the kernels are built for head dims 64 and 128");
-  static constexpr int kStride = D + 4;                  // floats a shared row: 68 or 132
-  static constexpr int kTileFloats = kRows * kStride;    // 17,408 or 33,792 bytes
-  static constexpr int kChunks = kRows * D / 4 / kThreads;  // 16-byte chunks a thread: 8 or 16
+  // d = 256: the serving forward alone (`fp32_forward.cuh` `forward_wide`)
+  static_assert(D == 64 || D == 128 || D == 256,
+                "the kernels are built for head dims 64 and 128, the serving forward for 256");
+  static constexpr int kStride = D + 4;                  // floats a shared row: 68, 132, 260
+  static constexpr int kTileFloats = kRows * kStride;    // 17,408, 33,792 or 66,560 bytes
+  static constexpr int kChunks = kRows * D / 4 / kThreads;  // 16-byte chunks a thread: 8, 16, 32
   static constexpr int kSteps = D / 8;   // k-steps of 8 over d; n-tiles of 8 output columns
   static constexpr int kHalves = D / 64;  // 64-column pieces of an output (one fresh accumulator each)
   static constexpr int kBlocks = D == 64 ? 2 : 1;  // blocks an SM (shared memory)
@@ -170,6 +174,16 @@ __device__ __forceinline__ void copy_tile(float* tile, const float* __restrict__
                                           int64_t stride) {
 #pragma unroll
   for (int m = 0; m < Fp32Shape<D>::kChunks; ++m)
+    cp_async16(tile + chunk_at<D>(m), src + chunk_row<D>(m) * stride + chunk_col<D>(m));
+}
+
+// The same for the first kR rows (the chunks of a 64-row copy that lie in
+// them: chunk i is row i / (D / 4) in both).
+template <int D, int kR>
+__device__ __forceinline__ void copy_rows(float* tile, const float* __restrict__ src,
+                                          int64_t stride) {
+#pragma unroll
+  for (int m = 0; m < kR * D / 4 / kThreads; ++m)
     cp_async16(tile + chunk_at<D>(m), src + chunk_row<D>(m) * stride + chunk_col<D>(m));
 }
 

@@ -5,8 +5,12 @@
 // (the Pallas TPU kernel behind `serving_attention`) on float32 q, k and v,
 // the JAX package's default serving dtype.
 //
-// Computes, for q, k, v [b, n, h, d] fp32 (d = 64 or 128), lens [b] int32,
-// cos/sin [n, d] fp32:
+// Also the fp32 serving role of the JAX package's library flash kernel at
+// head dim 256 (eraxvif5tts_tpu/ops/attention.py:38 `_flash_attention`,
+// kernel 6), which it runs without rotary (q and k come rotated).
+//
+// Computes, for q, k, v [b, n, h, d] fp32 (d = 64 or 128; 256 without
+// rotary), lens [b] int32, cos/sin [n, d] fp32:
 //   q', k' = rotate(q), rotate(k)             (when roped; fp32, the plain
 //                                              version's rounding)
 //   S      = q' k'^T * scale                  (fp32), keys >= lens[b] set to -1e30
@@ -25,7 +29,9 @@
 // by the thread that copied each chunk, before it splits it. Masked keys get
 // the finite -1e30 and the running maximum starts at -inf: a sample with
 // lens = 0 averages every key, as the plain version does, never NaN. Key
-// tiles entirely past lens (> 0) are skipped.
+// tiles entirely past lens (> 0) are skipped. At d = 256 the same arithmetic
+// runs on `fp32_forward.cuh`'s `forward_wide` (Q in shared memory, 32-key
+// tiles split where they are read: one block an SM, 199,680 bytes).
 
 #include "fp32_forward.cuh"
 
@@ -42,6 +48,27 @@ __global__ void __launch_bounds__(kThreads, Fp32Shape<D>::kBlocks)
                                   int n, int h, float scale) {
   forward_core<D, false, false, kRope>(q, k, v, lens, cos_t, sin_t, out, nullptr, n, h, scale,
                                        Dropout{0u, 0u, 1.f, 0});
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    serving_attention_fp32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                       const float* __restrict__ v, const int* __restrict__ lens,
+                                       float* __restrict__ out, int n, int h, float scale) {
+  forward_wide<D>(q, k, v, lens, out, n, h, scale);
+}
+
+int launch_serving_wide(const void* q, const void* k, const void* v, const void* lens, void* out,
+                        int b, int n, int h, float scale, cudaStream_t stream) {
+  const auto kernel = serving_attention_fp32_wide_kernel<256>;
+  static bool allowed[kMaxDevices] = {};
+  const int err =
+      allow_shared(reinterpret_cast<const void*>(kernel), Fp32Wide<256>::kSmem, allowed);
+  if (err != 0) return err;
+  kernel<<<dim3(n / kRows, h, b), kThreads, Fp32Wide<256>::kSmem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const int*>(lens), static_cast<float*>(out), n, h, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
@@ -64,10 +91,10 @@ int launch_serving(const void* q, const void* k, const void* v, const void* lens
 }  // namespace
 
 // q, k, v, out: [b, n, h, d] fp32 contiguous, 16-byte aligned, d = 64 or
-// 128; lens: [b] int32; cos_t/sin_t: [n, d] fp32, 16-byte aligned (ignored
-// unless roped). Requires n % 64 == 0. Launches on `stream` and returns the
-// cudaError_t of the launch or of its set-up, another head dim counting as
-// cudaErrorInvalidValue.
+// 128, or 256 unroped; lens: [b] int32; cos_t/sin_t: [n, d] fp32, 16-byte
+// aligned (ignored unless roped). Requires n % 64 == 0. Launches on
+// `stream` and returns the cudaError_t of the launch or of its set-up,
+// another head dim (or rotary at 256) counting as cudaErrorInvalidValue.
 extern "C" int erax_serving_attention_fp32(const void* q, const void* k, const void* v,
                                            const void* lens, const void* cos_t,
                                            const void* sin_t, void* out, int b, int n, int h,
@@ -77,6 +104,7 @@ extern "C" int erax_serving_attention_fp32(const void* q, const void* k, const v
     return launch_serving<64>(q, k, v, lens, cos_t, sin_t, out, b, n, h, roped != 0, scale, st);
   if (d == 128)
     return launch_serving<128>(q, k, v, lens, cos_t, sin_t, out, b, n, h, roped != 0, scale, st);
+  if (d == 256 && roped == 0) return launch_serving_wide(q, k, v, lens, out, b, n, h, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -85,5 +113,5 @@ extern "C" int erax_serving_attention_fp32(const void* q, const void* k, const v
 // dynamic shared bytes (the forward core's, which kernel 4a's fp32 mode
 // reports too); non-zero for a head dim that has no instantiation.
 extern "C" int erax_serving_attention_fp32_geometry(int d, int* out) {
-  return forward_geometry(d, out);
+  return d == 256 ? forward_geometry_wide(out) : forward_geometry(d, out);
 }

@@ -5,7 +5,13 @@
 // `_dq_kernel` and `_dkv_kernel` (the Pallas TPU kernels behind
 // `train_attention` and its custom_vjp).
 //
-// For q, k, v [b, n, h, d] bf16 (d = 64 or 128) and lens [b] int32, with
+// Also the dropout-free training role of the JAX package's library flash
+// kernel at head dim 256 (eraxvif5tts_tpu/ops/attention.py:38
+// `_flash_attention`, kernel 6: its forward and backward under
+// `trainable=True`), at keep = 1 and, where the JAX package draws its
+// attention dropout with jax.random, with the same position-hash keep bit.
+//
+// For q, k, v [b, n, h, d] bf16 (d = 64, 128 or 256) and lens [b] int32, with
 //   S = q k^T * scale (fp32), keys >= lens[b] set to -1e30,
 //   P = softmax(S) (the undropped weights: they alone form the normaliser),
 //   keep(b, h, i, j) = fmix32((i * n + j) ^ salt(seed, b, h)) < threshold
@@ -32,8 +38,8 @@
 //
 // Design of the forward (`flash_forward.cuh`, which the serving attention
 // instantiates too). A block owns 192 query rows of one (sample, head) at
-// d = 64 (three consumer warpgroups of 64 rows), 128 at d = 128 (two), and a
-// producer thread that feeds a ring of
+// d = 64 (three consumer warpgroups of 64 rows), 128 at d = 128 and 256
+// (two), and a producer thread that feeds a ring of
 // TMA stages (a K and a V tile each). S = Q K^T is a wgmma.mma_async with both
 // operands K-major from shared memory; the online softmax (running max and
 // sum per row, base-2 exponentials) runs on the fp32 accumulator in
@@ -43,9 +49,10 @@
 // dropout counter is hoisted and the salt folded, as in the backward.
 //
 // Design of the two backward kernels (`wgmma_tile.cuh`). A block owns 128
-// rows of one (sample, head): two consumer warpgroups of 64 rows each and one
-// producer warp. The producer's one thread issues TMA loads: the block's own
-// two tiles once, then a ring of `kBwdStages` stages that it refills as the
+// rows of one (sample, head) (64 at d = 256, below): two consumer warpgroups
+// of 64 rows each and one producer warp. The producer's one thread issues
+// TMA loads: the block's own tiles once, then a ring of `BwdShape::kStages`
+// stages that it refills as the
 // consumers release them (a full and an empty mbarrier per stage). Every tile
 // is 64 rows x d columns, d / 64 panels of 64 rows x 128 bytes written with
 // the 128-byte swizzle (one TMA box each), and read by wgmma.mma_async
@@ -53,7 +60,16 @@
 // products (d / 16 k-steps across the panels), and the same copy MN-major
 // (the transpose bit) for the products onto the outputs, one chain a panel
 // of output columns, so no transposed copy exists. At d = 128 dk/dv's two
-// [64, 128] accumulators take 128 of a consumer's 232 registers a thread. The score
+// [64, 128] accumulators take 128 of a consumer's 232 registers a thread.
+// At d = 256 they would take 256, and a [64, 256] tile is 32,768 bytes
+// (`BwdShape<256>`): a block owns 64 rows, and its two consumer warpgroups
+// split the head's columns instead of the rows. Each computes the whole
+// score tiles (S and dP, both over all 256 columns) for the block's 64 rows
+// and owns 128 columns of the outputs (dq; dk and dv: 64 + 64 registers a
+// thread), so the score products and their softmax arithmetic run twice (a
+// half more tensor work than the four products need, for dk/dv; two thirds
+// more for dq), and the block's own two tiles and a two-stage ring take
+// 198,696 bytes. The score
 // accumulators become, after the softmax arithmetic, the keep bit and a bf16
 // cast, the register A operand of the output products; sums stay in fp32
 // registers for the whole loop. While one warpgroup does its softmax
@@ -68,7 +84,7 @@
 //   LSE and 64 D values. S^T = K Q^T, dP^T = V dO^T, dV += Pd^T dO,
 //   dK += dS^T Q (dO and Q read MN-major).
 // Rows are handed out in units of 64: for n % 128 == 64 the last block's
-// second warpgroup has no rows, loads nothing and exits, so no tile hangs
+// second warpgroup (d = 64, 128) has no rows, loads nothing and exits, so no tile hangs
 // over the end of a sample (the tensor map keeps n a dimension of its own
 // all the same). Two kernels and no atomics: the same inputs give the same
 // bits every time.
@@ -98,49 +114,69 @@ __global__ void __launch_bounds__(Fwd<D>::kThreads, 1)
 
 // ---- the backward kernels -------------------------------------------------
 
-constexpr int kBwdRows = 128;                     // rows a block owns
-constexpr int kBwdGroups = kBwdRows / hopper::kTileRows;  // consumer warpgroups
-constexpr int kBwdStages = 4;                     // ring depth
+constexpr int kBwdGroups = 2;                         // consumer warpgroups
 constexpr int kBwdThreads = (kBwdGroups + 1) * 128;  // + the producer's warpgroup
 // registers a thread after the roles split: 384 x 168 = 128 x 40 + 256 x 232
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
 constexpr int kStatBytes = 2 * hopper::kTileRows * 4;  // 64 LSE + 64 D values
 
+// Rows a block owns, the ring's depth and how many parts the head's columns
+// are split into between the consumer warpgroups, by head dim
+// (`ops/train_attention.py` BWD_SHAPES): at d = 64 and 128 each warpgroup
+// owns 64 of the block's rows and every column; at d = 256 both own the
+// block's 64 rows, each 128 of the columns.
+template <int D>
+struct BwdShape {
+  static constexpr int kRows = 128, kStages = 4, kSplit = 1;
+};
+template <>
+struct BwdShape<256> {
+  static constexpr int kRows = 64, kStages = 2, kSplit = 2;
+};
+
 // The backward's constants for head dim D. Dynamic shared memory, from a
 // 1024-byte boundary: the block's own tiles (operand 0 then operand 1, a tile
-// per warpgroup each), the ring (two tiles a stage), the ring's LSE and D
+// per 64 rows each), the ring (two tiles a stage), the ring's LSE and D
 // rows (dk/dv), the barriers; a tile is D / 64 panels of 8192 bytes.
 template <int D>
 struct Bwd {
+  static constexpr int kRows = BwdShape<D>::kRows;
+  static constexpr int kStages = BwdShape<D>::kStages;
+  static constexpr int kSplit = BwdShape<D>::kSplit;
+  static constexpr int kRowTiles = kRows / hopper::kTileRows;  // the block's 64-row tiles
   static constexpr int kPanels = D / 64;
+  static constexpr int kOutPanels = kPanels / kSplit;  // output panels a warpgroup owns
   static constexpr int kTile = kPanels * hopper::kTileBytes;
   static constexpr int kOwnOff = 0;
-  static constexpr int kRingOff = kOwnOff + 2 * kBwdGroups * kTile;
-  static constexpr int kStatOff = kRingOff + kBwdStages * 2 * kTile;
-  static constexpr int kBarOff = kStatOff + kBwdStages * kStatBytes;
-  static constexpr int kSmem = 1024 + kBarOff + (2 * kBwdStages + 1) * 8;
+  static constexpr int kRingOff = kOwnOff + 2 * kRowTiles * kTile;
+  static constexpr int kStatOff = kRingOff + kStages * 2 * kTile;
+  static constexpr int kBarOff = kStatOff + kStages * kStatBytes;
+  static constexpr int kSmem = 1024 + kBarOff + (2 * kStages + 1) * 8;
+  static_assert(kRowTiles * kSplit == kBwdGroups, "a warpgroup a row tile, or a column part");
   static_assert(kSmem <= 232448, "more shared memory than a block may use");
 };
 
 // Shared addresses of the barriers: a full and an empty one per stage, and
-// the one the block's own tiles complete on.
+// the one the block's own tiles complete on. S: the ring's stages.
+template <int S>
 struct BwdBarriers {
   uint32_t base;
   __device__ __forceinline__ uint32_t full(int s) const { return base + 8 * s; }
-  __device__ __forceinline__ uint32_t empty(int s) const { return base + 8 * (kBwdStages + s); }
-  __device__ __forceinline__ uint32_t own() const { return base + 8 * 2 * kBwdStages; }
+  __device__ __forceinline__ uint32_t empty(int s) const { return base + 8 * (S + s); }
+  __device__ __forceinline__ uint32_t own() const { return base + 8 * 2 * S; }
 };
 
 // Aligns the dynamic shared memory, has thread 0 set up the barriers (a
 // stage is released by lane 0 of each warp of each working warpgroup) and
 // synchronises the block. Returns the aligned base as a shared address.
 template <int D>
-__device__ __forceinline__ uint32_t bwd_setup(uint8_t* raw, int groups, BwdBarriers& bar) {
+__device__ __forceinline__ uint32_t bwd_setup(uint8_t* raw, int groups,
+                                              BwdBarriers<Bwd<D>::kStages>& bar) {
   const uint32_t base = (hopper::smem_addr(raw) + 1023u) & ~1023u;
   bar.base = base + Bwd<D>::kBarOff;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kBwdStages; ++s) {
+    for (int s = 0; s < Bwd<D>::kStages; ++s) {
       hopper::mbar_init(bar.full(s), 1);
       hopper::mbar_init(bar.empty(s), 4 * groups);
     }
@@ -225,7 +261,8 @@ __device__ __forceinline__ void dkv_elements(float (&st)[32], float (&dpt)[32],
 
 // A stage of the ring goes back to the producer: every lane of the warp is
 // past its reads of it, lane 0 says so.
-__device__ __forceinline__ void release_stage(const BwdBarriers& bar, int s, int lane) {
+template <int S>
+__device__ __forceinline__ void release_stage(const BwdBarriers<S>& bar, int s, int lane) {
   __syncwarp();
   if (lane == 0) hopper::mbar_arrive(bar.empty(s));
 }
@@ -241,34 +278,39 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
                               int n, int h, float scale, Dropout drop) {
   extern __shared__ uint8_t smem_raw[];
   using B = Bwd<D>;
+  constexpr int kStages = B::kStages;
 
-  const int q0 = blockIdx.x * kBwdRows;
+  const int q0 = blockIdx.x * B::kRows;
   const int hi = blockIdx.y;
   const int bi = blockIdx.z;
   const int len = lens[bi];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int group = warp / 4;  // 0, 1: consumers; 2: the producer's group
-  // warpgroups with query rows inside the sample (the first always has)
-  const int groups = min(kBwdGroups, (n - q0) / hopper::kTileRows);
+  // the block's row tiles inside the sample (the first always is), and the
+  // warpgroups that work: one a row tile, or both on the one tile
+  const int tiles = min(B::kRowTiles, (n - q0) / hopper::kTileRows);
+  const int groups = B::kSplit == 1 ? tiles : kBwdGroups;
+  const int rt = B::kSplit == 1 ? group : 0;    // this warpgroup's row tile
+  const int part = B::kSplit == 1 ? 0 : group;  // and its part of the columns
   const int n_tiles = len > 0 ? min((len + kBK - 1) / kBK, n / kBK) : n / kBK;
 
-  BwdBarriers bar;
+  BwdBarriers<kStages> bar;
   const uint32_t smem = bwd_setup<D>(smem_raw, groups, bar);
 
   if (group == kBwdGroups) {
     hopper::registers_release<kProducerRegs>();
     if (warp == 4 * kBwdGroups && lane == 0) {
-      hopper::mbar_expect_tx(bar.own(), groups * 2 * B::kTile);
-      for (int w = 0; w < groups; ++w) {
+      hopper::mbar_expect_tx(bar.own(), tiles * 2 * B::kTile);
+      for (int w = 0; w < tiles; ++w) {
         const int row = q0 + w * hopper::kTileRows;
         hopper::tma_load_rows<D>(smem + B::kOwnOff + w * B::kTile, &q_map, bar.own(), row, hi, bi);
-        hopper::tma_load_rows<D>(smem + B::kOwnOff + (kBwdGroups + w) * B::kTile, &do_map,
+        hopper::tma_load_rows<D>(smem + B::kOwnOff + (B::kRowTiles + w) * B::kTile, &do_map,
                                  bar.own(), row, hi, bi);
       }
       for (int it = 0; it < n_tiles; ++it) {
-        const int s = it % kBwdStages;
-        hopper::mbar_wait(bar.empty(s), ((it / kBwdStages) & 1) ^ 1);
+        const int s = it % kStages;
+        hopper::mbar_wait(bar.empty(s), ((it / kStages) & 1) ^ 1);
         hopper::mbar_expect_tx(bar.full(s), 2 * B::kTile);
         const uint32_t stage = smem + B::kRingOff + s * 2 * B::kTile;
         hopper::tma_load_rows<D>(stage, &k_map, bar.full(s), it * kBK, hi, bi);
@@ -283,25 +325,27 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
       const float scale_log2 = scale * kLog2e;
       const float masked = len > 0 ? kNeg : 0.f;
       const uint32_t folded = fold_salt(head_salt(drop, bi, hi));
-      const int row0 = q0 + group * hopper::kTileRows + (warp % 4) * 16 + g;  // and row0 + 8
+      const int row0 = q0 + rt * hopper::kTileRows + (warp % 4) * 16 + g;  // and row0 + 8
       const uint32_t ctr_row[2] = {static_cast<uint32_t>(row0) * static_cast<uint32_t>(n),
                                    static_cast<uint32_t>(row0 + 8) * static_cast<uint32_t>(n)};
       const long stat = (static_cast<long>(bi) * h + hi) * n + row0;
       const float lse2[2] = {lse[stat] * kLog2e, lse[stat + 8] * kLog2e};
       const float d_row[2] = {dd[stat], dd[stat + 8]};
-      const uint64_t q_desc = hopper::desc_k_major(smem + B::kOwnOff + group * B::kTile);
+      const uint64_t q_desc = hopper::desc_k_major(smem + B::kOwnOff + rt * B::kTile);
       const uint64_t do_desc =
-          hopper::desc_k_major(smem + B::kOwnOff + (kBwdGroups + group) * B::kTile);
+          hopper::desc_k_major(smem + B::kOwnOff + (B::kRowTiles + rt) * B::kTile);
+      // this warpgroup's output panels of a K tile
+      const uint32_t out_cols = part * B::kOutPanels * hopper::kTileBytes;
 
-      float acc[B::kPanels][32];
+      float acc[B::kOutPanels][32];
       zero_panels(acc);
 
       hopper::mbar_wait(bar.own(), 0);
       for (int it = 0; it < n_tiles; ++it) {
-        const int s = it % kBwdStages;
+        const int s = it % kStages;
         const int k0 = it * kBK;
         const uint32_t k_tile = smem + B::kRingOff + s * 2 * B::kTile;
-        hopper::mbar_wait(bar.full(s), (it / kBwdStages) & 1);
+        hopper::mbar_wait(bar.full(s), (it / kStages) & 1);
 
         float sc[32], dp[32];
         hopper::wgmma_fence();
@@ -332,7 +376,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
         uint32_t ds[4][4];
         acc_to_a(ds, sc);
         hopper::wgmma_fence();
-        product_pb(acc, ds, hopper::desc_mn_major(k_tile));  // dQ += dS k
+        product_pb(acc, ds, hopper::desc_mn_major(k_tile + out_cols));  // dQ += dS k
         hopper::wgmma_commit();
         hopper::wgmma_wait<0>();
         hopper::keep(ds);
@@ -342,7 +386,8 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
 
       const long row_stride = static_cast<long>(h) * D;
       const long base = static_cast<long>(bi) * n * row_stride + static_cast<long>(hi) * D;
-      store_rows(dq + base + row0 * row_stride + 2 * t, row_stride, acc, scale);
+      store_rows(dq + base + row0 * row_stride + part * 64 * B::kOutPanels + 2 * t, row_stride,
+                 acc, scale);
     }
   }
 }
@@ -359,8 +404,9 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
                                Dropout drop) {
   extern __shared__ uint8_t smem_raw[];
   using B = Bwd<D>;
+  constexpr int kStages = B::kStages;
 
-  const int k0 = blockIdx.x * kBwdRows;
+  const int k0 = blockIdx.x * B::kRows;
   const int hi = blockIdx.y;
   const int bi = blockIdx.z;
   const int len = lens[bi];
@@ -369,42 +415,47 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   const int group = warp / 4;  // 0, 1: consumers; 2: the producer's group
   const int g = lane / 4;
   const int t = lane % 4;
+  const int rt = B::kSplit == 1 ? group : 0;    // a consumer's row tile
+  const int part = B::kSplit == 1 ? 0 : group;  // and its part of the columns
+  const int cols = part * 64 * B::kOutPanels;   // its first column
   const long row_stride = static_cast<long>(h) * D;
   const long base = static_cast<long>(bi) * n * row_stride + static_cast<long>(hi) * D;
-  const int key0 = k0 + group * hopper::kTileRows + (warp % 4) * 16 + g;  // and key0 + 8
-  // warpgroups with keys inside the sample, and of those the ones whose 64
-  // keys are not all masked (P = 0 and dS = 0 there: they write zeros)
-  const int inside = min(kBwdGroups, (n - k0) / hopper::kTileRows);
-  const int groups =
+  const int key0 = k0 + rt * hopper::kTileRows + (warp % 4) * 16 + g;  // and key0 + 8
+  // the block's row tiles inside the sample, and of those the ones whose 64
+  // keys are not all masked (P = 0 and dS = 0 there: their warpgroups write
+  // zeros); the warpgroups that work: one a live row tile, or both on it
+  const int inside = min(B::kRowTiles, (n - k0) / hopper::kTileRows);
+  const int live =
       len > 0 ? min(inside, max(0, (min(len, n) - k0 + hopper::kTileRows - 1) / hopper::kTileRows))
               : inside;
-  if (group < inside && group >= groups) {
-    float zero[B::kPanels][32];
+  const int groups = B::kSplit == 1 ? live : (live > 0 ? kBwdGroups : 0);
+  if (group < kBwdGroups && rt < inside && rt >= live) {
+    float zero[B::kOutPanels][32];
     zero_panels(zero);
-    store_rows(dk + base + key0 * row_stride + 2 * t, row_stride, zero, 0.f);
-    store_rows(dv + base + key0 * row_stride + 2 * t, row_stride, zero, 0.f);
+    store_rows(dk + base + key0 * row_stride + cols + 2 * t, row_stride, zero, 0.f);
+    store_rows(dv + base + key0 * row_stride + cols + 2 * t, row_stride, zero, 0.f);
   }
   if (groups == 0) return;
   const int n_tiles = n / kBQ;
 
-  BwdBarriers bar;
+  BwdBarriers<kStages> bar;
   const uint32_t smem = bwd_setup<D>(smem_raw, groups, bar);
 
   if (group == kBwdGroups) {
     hopper::registers_release<kProducerRegs>();
     if (warp == 4 * kBwdGroups && lane == 0) {
-      hopper::mbar_expect_tx(bar.own(), groups * 2 * B::kTile);
-      for (int w = 0; w < groups; ++w) {
+      hopper::mbar_expect_tx(bar.own(), live * 2 * B::kTile);
+      for (int w = 0; w < live; ++w) {
         const int row = k0 + w * hopper::kTileRows;
         hopper::tma_load_rows<D>(smem + B::kOwnOff + w * B::kTile, &k_map, bar.own(), row, hi, bi);
-        hopper::tma_load_rows<D>(smem + B::kOwnOff + (kBwdGroups + w) * B::kTile, &v_map,
+        hopper::tma_load_rows<D>(smem + B::kOwnOff + (B::kRowTiles + w) * B::kTile, &v_map,
                                  bar.own(), row, hi, bi);
       }
       const float* stat = lse + (static_cast<long>(bi) * h + hi) * n;
       const float* stat_d = dd + (static_cast<long>(bi) * h + hi) * n;
       for (int it = 0; it < n_tiles; ++it) {
-        const int s = it % kBwdStages;
-        hopper::mbar_wait(bar.empty(s), ((it / kBwdStages) & 1) ^ 1);
+        const int s = it % kStages;
+        hopper::mbar_wait(bar.empty(s), ((it / kStages) & 1) ^ 1);
         hopper::mbar_expect_tx(bar.full(s), 2 * B::kTile + kStatBytes);
         const uint32_t stage = smem + B::kRingOff + s * 2 * B::kTile;
         const uint32_t stats = smem + B::kStatOff + s * kStatBytes;
@@ -422,27 +473,29 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
       const uint32_t folded = fold_salt(head_salt(drop, bi, hi));
       const bool key_valid[2] = {key0 < len, key0 + 8 < len};
       // some key of this warpgroup's 64 is masked (else none is tested)
-      const bool some_masked = k0 + (group + 1) * hopper::kTileRows > len;
+      const bool some_masked = k0 + (rt + 1) * hopper::kTileRows > len;
       const uint32_t un = static_cast<uint32_t>(n);
       // the dropout counter of (query 2 t of the current tile, key0); a tile on, 64 n more
       uint32_t ctr_tile = static_cast<uint32_t>(2 * t) * un + static_cast<uint32_t>(key0);
-      const uint64_t k_desc = hopper::desc_k_major(smem + B::kOwnOff + group * B::kTile);
+      const uint64_t k_desc = hopper::desc_k_major(smem + B::kOwnOff + rt * B::kTile);
       const uint64_t v_desc =
-          hopper::desc_k_major(smem + B::kOwnOff + (kBwdGroups + group) * B::kTile);
+          hopper::desc_k_major(smem + B::kOwnOff + (B::kRowTiles + rt) * B::kTile);
       const uint8_t* smem_ptr = smem_raw + (smem - hopper::smem_addr(smem_raw));
+      // this warpgroup's output panels of a Q or a dO tile
+      const uint32_t out_cols = part * B::kOutPanels * hopper::kTileBytes;
 
-      float dk_acc[B::kPanels][32], dv_acc[B::kPanels][32];
+      float dk_acc[B::kOutPanels][32], dv_acc[B::kOutPanels][32];
       zero_panels(dk_acc);
       zero_panels(dv_acc);
 
       hopper::mbar_wait(bar.own(), 0);
       for (int it = 0; it < n_tiles; ++it, ctr_tile += 64u * un) {
-        const int s = it % kBwdStages;
+        const int s = it % kStages;
         const uint32_t q_tile = smem + B::kRingOff + s * 2 * B::kTile;
         const float* lse_s =
             reinterpret_cast<const float*>(smem_ptr + B::kStatOff + s * kStatBytes);
         const float* dd_s = lse_s + hopper::kTileRows;
-        hopper::mbar_wait(bar.full(s), (it / kBwdStages) & 1);
+        hopper::mbar_wait(bar.full(s), (it / kStages) & 1);
 
         float st[32], dpt[32];
         hopper::wgmma_fence();
@@ -472,8 +525,9 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
         acc_to_a(pa, st);
         acc_to_a(dsa, dpt);
         hopper::wgmma_fence();
-        product_pb(dv_acc, pa, hopper::desc_mn_major(q_tile + B::kTile));  // dV += Pd^T dO
-        product_pb(dk_acc, dsa, hopper::desc_mn_major(q_tile));            // dK += dS^T q
+        // dV += Pd^T dO, dK += dS^T q
+        product_pb(dv_acc, pa, hopper::desc_mn_major(q_tile + B::kTile + out_cols));
+        product_pb(dk_acc, dsa, hopper::desc_mn_major(q_tile + out_cols));
         hopper::wgmma_commit();
         hopper::wgmma_wait<0>();
         hopper::keep(pa);
@@ -483,8 +537,8 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
         release_stage(bar, s, lane);
       }
 
-      store_rows(dk + base + key0 * row_stride + 2 * t, row_stride, dk_acc, scale);
-      store_rows(dv + base + key0 * row_stride + 2 * t, row_stride, dv_acc, 1.f);
+      store_rows(dk + base + key0 * row_stride + cols + 2 * t, row_stride, dk_acc, scale);
+      store_rows(dv + base + key0 * row_stride + cols + 2 * t, row_stride, dv_acc, 1.f);
     }
   }
 }
@@ -547,7 +601,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
   BwdMaps maps;
   const int err = bwd_prepare<D>(maps, q, k, v, dout, b, n, h);
   if (err != 0) return err;
-  const dim3 grid((n + kBwdRows - 1) / kBwdRows, h, b);
+  const dim3 grid((n + Bwd<D>::kRows - 1) / Bwd<D>::kRows, h, b);
   train_attention_dq_kernel<D><<<grid, kBwdThreads, Bwd<D>::kSmem, stream>>>(
       maps.q, maps.k, maps.v, maps.dout, static_cast<const float*>(lse),
       static_cast<const float*>(dd), static_cast<const int*>(lens),
@@ -562,7 +616,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
   BwdMaps maps;
   const int err = bwd_prepare<D>(maps, q, k, v, dout, b, n, h);
   if (err != 0) return err;
-  const dim3 grid((n + kBwdRows - 1) / kBwdRows, h, b);
+  const dim3 grid((n + Bwd<D>::kRows - 1) / Bwd<D>::kRows, h, b);
   train_attention_dkv_kernel<D><<<grid, kBwdThreads, Bwd<D>::kSmem, stream>>>(
       maps.q, maps.k, maps.v, maps.dout, static_cast<const float*>(lse),
       static_cast<const float*>(dd), static_cast<const int*>(lens),
@@ -573,7 +627,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
 }  // namespace
 
 // Common arguments: q, k, v (and dout, dq, dk, dv) [b, n, h, d] bf16
-// contiguous and 16-byte aligned, d = 64 or 128; lens [b] int32; lse, dd
+// contiguous and 16-byte aligned, d = 64, 128 or 256; lens [b] int32; lse, dd
 // [b, h, n] fp32, 16-byte aligned. Requires n % 64 == 0. `dropout` = 0
 // ignores seed / threshold / inv_keep; `b_offset` / `h_offset` are the global
 // sample and head of index 0 in the keep bit's salt. Each launches on
@@ -590,6 +644,7 @@ extern "C" int erax_train_attention_fwd(const void* q, const void* k, const void
   const auto st = static_cast<cudaStream_t>(stream);
   if (d == 64) return launch_fwd<64>(q, k, v, args, b, n, h, dropout != 0, st);
   if (d == 128) return launch_fwd<128>(q, k, v, args, b, n, h, dropout != 0, st);
+  if (d == 256) return launch_fwd<256>(q, k, v, args, b, n, h, dropout != 0, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -614,13 +669,20 @@ extern "C" double erax_tensor_map_encode_ns(const void* base, int b, int n, int 
 // `ops/train_attention.py` `backward_geometry` states it: rows a block, ring
 // stages, threads, dynamic shared bytes; non-zero for a head dim that has no
 // instantiation.
-extern "C" int erax_train_attention_bwd_geometry(int d, int* out) {
-  if (d != 64 && d != 128) return static_cast<int>(cudaErrorInvalidValue);
-  out[0] = kBwdRows;
-  out[1] = kBwdStages;
+template <int D>
+int bwd_geometry_of(int* out) {
+  out[0] = Bwd<D>::kRows;
+  out[1] = Bwd<D>::kStages;
   out[2] = kBwdThreads;
-  out[3] = d == 64 ? Bwd<64>::kSmem : Bwd<128>::kSmem;
+  out[3] = Bwd<D>::kSmem;
   return 0;
+}
+
+extern "C" int erax_train_attention_bwd_geometry(int d, int* out) {
+  if (d == 64) return bwd_geometry_of<64>(out);
+  if (d == 128) return bwd_geometry_of<128>(out);
+  if (d == 256) return bwd_geometry_of<256>(out);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int erax_train_attention_dq(const void* q, const void* k, const void* v,
@@ -633,6 +695,7 @@ extern "C" int erax_train_attention_dq(const void* q, const void* k, const void*
   const auto st = static_cast<cudaStream_t>(stream);
   if (d == 64) return launch_dq<64>(q, k, v, dout, lse, dd, lens, dq, b, n, h, scale, drop, st);
   if (d == 128) return launch_dq<128>(q, k, v, dout, lse, dd, lens, dq, b, n, h, scale, drop, st);
+  if (d == 256) return launch_dq<256>(q, k, v, dout, lse, dd, lens, dq, b, n, h, scale, drop, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -648,5 +711,7 @@ extern "C" int erax_train_attention_dkv(const void* q, const void* k, const void
     return launch_dkv<64>(q, k, v, dout, lse, dd, lens, dk, dv, b, n, h, scale, drop, st);
   if (d == 128)
     return launch_dkv<128>(q, k, v, dout, lse, dd, lens, dk, dv, b, n, h, scale, drop, st);
+  if (d == 256)
+    return launch_dkv<256>(q, k, v, dout, lse, dd, lens, dk, dv, b, n, h, scale, drop, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

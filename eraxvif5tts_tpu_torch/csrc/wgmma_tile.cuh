@@ -4,7 +4,7 @@
 // m64n128k16 and m64n256k16 (bf16 in, fp32 accumulators) reading those tiles through
 // shared-memory descriptors or, for the left operand, from registers.
 // The training-attention backward, the forward core of `flash_forward.cuh`
-// (64-row tiles of a [b, n, h, d] tensor, d = 64 or 128) and the GEMM core of
+// (64-row tiles of a [b, n, h, d] tensor, d = 64, 128 or 256) and the GEMM core of
 // `wgmma_gemm.cuh` (tiles of plain [rows, k] matrices) are built from them.
 //
 // A [64, d] tile of an attention tensor is d / 64 such tiles ("panels")
@@ -513,7 +513,7 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// The map of a contiguous [b, n, h, d] bf16 tensor (d = 64 or 128) as four
+// The map of a contiguous [b, n, h, d] bf16 tensor (d = 64, 128 or 256) as four
 // dimensions (d, h, n, b), box 64 x 1 x 64 x 1: 64 columns of one head's 64
 // rows (a panel), 128-byte swizzle, out-of-range rows filled with zeros.
 // False if the encoder refuses it.

@@ -62,6 +62,7 @@ from eraxvif5tts_tpu_torch.ops.attention import (
     dot_product_attention,
     head_dim_route,
     plain_train_attention,
+    rotary_fused,
 )
 from eraxvif5tts_tpu_torch.ops.dropout import hash_dropout
 from eraxvif5tts_tpu_torch.ops.fused_matmul import ln_mod_matmul, use_fused_serving
@@ -381,8 +382,9 @@ class Attention(nn.Module):
     (``qk_norm="rms_norm"``), rotary on every head or on the first
     ``pe_attn_head`` heads, and padded query rows zeroed after the output
     projection (`modules.py:332-434`). In eval mode rotary on every head is
-    fused into the serving kernel; with ``pe_attn_head`` q and k are rotated
-    here (cos/sin in the compute dtype, `modules.py:386-390`) and the kernel
+    fused into the serving kernel; with ``pe_attn_head``, or at head dim 256
+    (kernel 6's, which the JAX package never fuses), q and k are rotated
+    here (cos/sin in the compute dtype, `modules.py:378-392`) and the kernel
     runs without rotary. In training mode q and k are always rotated here,
     the training kernels apply attention dropout, and the output projection
     gets position-hash dropout. ``mask [b, n]`` must be a contiguous prefix;
@@ -441,7 +443,7 @@ class Attention(nn.Module):
             q, k = self.q_norm(q), self.k_norm(k)
         rotated = self._rotated_heads()
         if not self.training:
-            if rope is not None and rotated is not None:
+            if rope is not None and (rotated is not None or not rotary_fused(self.dim_head)):
                 q = apply_rotary_heads(q, rope, rotated)
                 k = apply_rotary_heads(k, rope, rotated)
                 rope = None
@@ -453,8 +455,8 @@ class Attention(nn.Module):
                 k = apply_rotary_heads(k, rope, rotated)
             seed = attention_seed(dropout_keys[0]) if dropout_rate > 0.0 else 0
             row0 = batch_offset(self.shard)
-            attend = (train_attention if head_dim_route(self.dim_head, q.device) == "kernel"
-                      else plain_train_attention)
+            route = head_dim_route(self.dim_head, q.device, q.dtype, training=True)
+            attend = train_attention if route == "kernel" else plain_train_attention
             out = attend(q, k, v, key_valid=mask, dropout_rate=dropout_rate, seed=seed,
                          batch_offset=row0, head_offset=self.head0)
             out = row_linear(out.reshape(b, n, -1), self.to_out[0], self.tp)

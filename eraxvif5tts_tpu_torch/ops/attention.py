@@ -18,15 +18,25 @@ version for CPU tensors:
   exists because its kernel needs a TPU; the port's plain version runs on the
   CPU and is not ported.
 
-Which of them runs on the card is decided by the head dim before any launch
-(:func:`head_dim_route`), never on an error:
+Which of them runs on the card is decided by the head dim, the dtype and
+the mode before any launch (:func:`head_dim_route`), never on an error:
 
 - d in ``HEAD_DIMS`` (64, 128): the kernels, always; the JAX package's
   Pallas kernels take the same (`ops/attention.py:156`,
   `ops/serving_attention.py:179`, `ops/train_attention.py:404`);
-- d = 256: refused. The JAX package serves it with its library flash kernel
-  (kernel 6, `ops/attention.py:202`), which has no counterpart in the port
-  yet (ROADMAP.md, queue 2 item 1);
+- d = 256 (``LIBRARY_HEAD_DIM``): the JAX package runs its library flash
+  kernel there (kernel 6, `ops/attention.py:202`), serving with q and k
+  rotated outside it (its serving kernel's gate excludes d = 256,
+  `ops/attention.py:156`, so `models/modules.py:378-392` does not fuse
+  rotary) and training at dropout 0 through its forward and backward. The
+  port's kernels take the same roles: serving in bf16 and fp32 with
+  ``rope=None`` (the models rotate outside, :func:`rotary_fused`) and
+  training in bf16. fp32 training at d = 256 raises: its backward is not
+  ported (ROADMAP.md, queue 2 item 1). At dropout > 0 the bf16 kernels keep
+  their position-hash keep bit, where the JAX package's TPU path draws
+  Bernoulli bits in its chunked XLA attention (`can_use_train_kernel`
+  refuses d = 256): the same distribution in another stream, the same
+  function at dropout 0;
 - any other d (``tools/bench.py --smoke``'s 32, say): the JAX package runs
   no Pallas kernel there but XLA's attention (`ops/attention.py:206-212`),
   and work that JAX leaves to XLA is plain torch in the port: the plain
@@ -41,26 +51,41 @@ from eraxvif5tts_tpu_torch.ops.serving_attention import (
     serving_attention,
     serving_attention_reference,
 )
-from eraxvif5tts_tpu_torch.ops.train_attention import HEAD_DIMS, train_attention_reference
+from eraxvif5tts_tpu_torch.ops.train_attention import (
+    HEAD_DIMS,
+    LIBRARY_HEAD_DIM,
+    train_attention_reference,
+)
 
-# kernel 6's head dim beyond the kernels' (the JAX package's `ops/attention.py:202`)
-LIBRARY_HEAD_DIM = 256
 
-
-def head_dim_route(d: int, device) -> str:
-    """How attention with head dim ``d`` runs on ``device``: ``"kernel"``
-    (the attention wrappers: on a CUDA tensor their kernels, on a CPU tensor
-    their plain versions, as for every d) or ``"plain"`` (the plain versions
-    on the card, where the JAX package runs XLA's attention); d = 256 on the
-    card raises (kernel 6's domain, not ported yet)."""
+def head_dim_route(d: int, device, dtype: torch.dtype = torch.bfloat16,
+                   training: bool = False) -> str:
+    """How attention with head dim ``d`` in ``dtype`` runs on ``device``,
+    serving or (``training``) differentiated: ``"kernel"`` (the attention
+    wrappers: on a CUDA tensor their kernels, on a CPU tensor their plain
+    versions, as for every d) or ``"plain"`` (the plain versions on the
+    card, where the JAX package runs XLA's attention). On the card fp32
+    training at d = 256 raises: kernel 6's fp32 backward is not ported."""
     if torch.device(device).type == "cpu" or d in HEAD_DIMS:
         return "kernel"
     if d == LIBRARY_HEAD_DIM:
-        raise NotImplementedError(
-            f"attention at head dim {d} on {device}: the JAX package runs it on its library "
-            "flash kernel (kernel 6), which the port has not yet ported (ROADMAP.md, queue 2 "
-            f"item 1); the kernels take head dims {HEAD_DIMS}")
+        if training and dtype == torch.float32:
+            raise NotImplementedError(
+                f"fp32 training attention at head dim {d} on {device}: the JAX package runs "
+                "it on its library flash kernel (kernel 6), whose fp32 backward the port has "
+                "not yet ported (ROADMAP.md, queue 2 item 1); bf16 compute trains at d = 256, "
+                f"fp32 at head dims {HEAD_DIMS}")
+        return "kernel"
     return "plain"
+
+
+def rotary_fused(d: int) -> bool:
+    """Whether serving at head dim ``d`` fuses rotary into the attention.
+    Not at d = 256: the JAX package's serving kernel, which alone fuses it,
+    refuses d = 256 (`ops/attention.py:156`), so its models rotate q and k
+    outside the attention there, with cos and sin in the compute dtype
+    (`models/modules.py:378-392`), and kernel 6 takes ``rope=None``."""
+    return d != LIBRARY_HEAD_DIM
 
 
 def plain_attention(reference, *args, **kwargs) -> torch.Tensor:

@@ -14,7 +14,10 @@ semantics, for CPU tensors:
 
 Kernel domain: bf16 or fp32 (q, k and v of one dtype), contiguous and
 16-byte aligned ``[b, n, h, d]`` with d in ``HEAD_DIMS`` (64 or 128, the
-JAX package's Pallas domain), ``n % 64 == 0``, ``64 <= n <= 6144``.
+JAX package's Pallas domain) or, without rotary, ``LIBRARY_HEAD_DIM`` (256:
+the serving role of the JAX package's library flash kernel, kernel 6, which
+it runs on q and k rotated outside it), ``n % 64 == 0``,
+``64 <= n <= 6144``.
 The bound is the longest sequence a served model gives it: the MMDiT's
 joint text + mel sequence at the largest text and duration buckets
 (2048 + 4096); the DiT and the UNetT stop at 4096. Anything else on a CUDA
@@ -23,7 +26,8 @@ tensor raises; there is no fallback.
 - bf16: `csrc/serving_attention.cu`, the forward core of
   `csrc/flash_forward.cuh` (`ops/train_attention.py` ``forward_geometry``
   states its launch for each d: 192 query rows a block at d = 64, 128 at
-  d = 128, a ``[64, 128]`` tile being two 128-byte-swizzled panels) on
+  d = 128 and 256, a ``[64, d]`` tile being d / 64 128-byte-swizzled
+  panels) on
   ``wgmma`` and TMA. Nothing in it depends on n beyond
   its tiles: the K / V ring's shared memory is fixed, the grid and the
   tensor map's dimensions grow with n and row offsets are 64-bit. Its online
@@ -36,8 +40,9 @@ tensor raises; there is no fallback.
   (:func:`forward_geometry_fp32` states its launch): every product on the
   tensor cores, ``mma.sync`` TF32 in 3xTF32 (each operand split into two
   TF32 parts, three products each, a fresh accumulator a key tile), 64
-  query rows a block (two blocks an SM at d = 64, one at d = 128) over key
-  tiles of 64 that a ``cp.async`` ring brings,
+  query rows a block (two blocks an SM at d = 64, one at d = 128 and 256)
+  over key tiles of 64 that a ``cp.async`` ring brings (at d = 256 Q's
+  rows in shared memory and key tiles of 32, split where they are read),
   an online softmax with ``expf``. It keeps fp32's accuracy whatever
   torch's TF32 flags say, and agrees with the plain version to the
   reordering of fp32 sums.
@@ -66,7 +71,9 @@ from eraxvif5tts_tpu_torch.ops.rotary import rotate_half
 _NEG = -1e30
 MAX_N = train_attention.MAX_N  # the MMDiT's longest joint sequence, kernel 4's bound too
 TILE = 64
-HEAD_DIMS = train_attention.HEAD_DIMS  # the head dims the kernels are built for
+HEAD_DIMS = train_attention.HEAD_DIMS  # the head dims of every mode, fused rotary included
+LIBRARY_HEAD_DIM = train_attention.LIBRARY_HEAD_DIM  # without rotary only (kernel 6's)
+KERNEL_HEAD_DIMS = train_attention.KERNEL_HEAD_DIMS
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -99,7 +106,7 @@ def forward_geometry_fp32(b: int, n: int, h: int, d: int = train_attention.HEAD_
     """How the fp32 kernel covers ``[b, n, h, d]``: the fp32 forward core's
     launch (`ops/train_attention.py` ``forward_geometry_fp32``), over this
     kernel's domain, ``64 <= n <= MAX_N``, ``n % 64 == 0``, d in
-    ``HEAD_DIMS``; others raise."""
+    ``KERNEL_HEAD_DIMS`` (256 on its own core); others raise."""
     if n % TILE or not 0 < n <= MAX_N:
         raise ValueError(f"serving_attention: n must be a multiple of {TILE} in "
                          f"[{TILE}, {MAX_N}], got {n}")
@@ -129,8 +136,12 @@ def _check_cuda_args(q, k, v, lens, rope) -> None:
             raise ValueError(f"serving_attention: {name} must be contiguous and "
                              "16-byte aligned")
     b, n, h, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"serving_attention: the kernels take head dims {HEAD_DIMS}, got {d}")
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"serving_attention: the kernels take head dims {KERNEL_HEAD_DIMS}, "
+                         f"got {d}")
+    if rope is not None and d not in HEAD_DIMS:
+        raise ValueError(f"serving_attention: fused rotary takes head dims {HEAD_DIMS}, got {d} "
+                         "(the JAX package rotates q and k outside the attention there)")
     if n % TILE or not 0 < n <= MAX_N:
         raise ValueError(f"serving_attention: n must be a multiple of {TILE} in "
                          f"[{TILE}, {MAX_N}], got {n}")
@@ -239,5 +250,5 @@ def serving_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 serving_attention.launches = 0
 serving_attention.launches_by_rope = {True: 0, False: 0}
 serving_attention.launches_fp32_by_rope = {True: 0, False: 0}
-serving_attention.launches_by_head_dim = dict.fromkeys(HEAD_DIMS, 0)
-serving_attention.launches_fp32_by_head_dim = dict.fromkeys(HEAD_DIMS, 0)
+serving_attention.launches_by_head_dim = dict.fromkeys(KERNEL_HEAD_DIMS, 0)
+serving_attention.launches_fp32_by_head_dim = dict.fromkeys(KERNEL_HEAD_DIMS, 0)

@@ -23,7 +23,10 @@ PyTorch version of the same semantics, differentiated by autograd:
 Kernel domain: q, k, v all bf16 or all fp32, contiguous and 16-byte aligned
 ``[b, n, h, d]`` (the layout a ``Linear`` output views to) with d in
 ``HEAD_DIMS`` (64 or 128, the JAX package's Pallas domain, each built as an
-instantiation of its own), ``n % 64 == 0``, ``n <= MAX_N`` = 2048 + 4096,
+instantiation of its own) or, in bf16, ``LIBRARY_HEAD_DIM`` (256: the
+dropout-free training role of the JAX package's library flash kernel,
+kernel 6, whose backward the port has in bf16 alone; fp32 at d = 256 raises,
+ROADMAP.md queue 2 item 1), ``n % 64 == 0``, ``n <= MAX_N`` = 2048 + 4096,
 the serving attention's bound: the
 DiT's training buckets and the MMDiT's joint sequence (text bucket plus mel
 bucket: 1024 + 4096 under the training buckets, 2048 + 4096 under the
@@ -67,22 +70,37 @@ _NEG = -1e30
 MAX_N = TEXT_BUCKETS[-1] + DURATION_BUCKETS[-1]  # the MMDiT's longest joint sequence
 TILE = 64
 HEAD_DIM = 64             # the default head dim of the geometry functions
-HEAD_DIMS = (64, 128)     # the head dims the kernels are built for (`csrc/`)
-PANEL = 64                # bf16 columns of one 128-byte swizzle atom: a d = 128 tile is two
+# the head dims every mode of the kernels is built for (`csrc/`): fused rotary
+# and the fp32 training kernels take these alone (the JAX package's Pallas gates)
+HEAD_DIMS = (64, 128)
+# the JAX package's library flash kernel's further head dim (kernel 6,
+# `eraxvif5tts_tpu/ops/attention.py:202`): the forward without rotary in bf16
+# and fp32 and the bf16 training kernels take it too
+LIBRARY_HEAD_DIM = 256
+KERNEL_HEAD_DIMS = (*HEAD_DIMS, LIBRARY_HEAD_DIM)
+PANEL = 64                # bf16 columns of one 128-byte swizzle atom: a [64, d] tile is d / 64
 M32 = 0xFFFFFFFF
-# the backward kernels (`csrc/train_attention.cu`: kBwdRows, ...), both head dims
+# the backward kernels (`csrc/train_attention.cu`: BwdShape<d>, ...); the
+# constants are d = 64's (and d = 128's), BWD_SHAPES each d's
 BWD_ROWS = 128      # rows a block owns: two consumer warpgroups of TILE rows
 BWD_STAGES = 4      # ring of TMA stages, two [TILE, d] bf16 tiles each
 BWD_THREADS = 384   # two consumer warpgroups and the producer's
 BWD_REGISTERS = (40, 232)  # setmaxnreg: the producer's warpgroup, each consumer's
+# d -> (rows a block, ring stages, parts the head's columns are split into
+# between the two consumer warpgroups): at d = 256 dk/dv's two [64, 256]
+# accumulators would be 256 registers a thread, so both warpgroups take the
+# block's 64 rows and 128 columns each (the score tiles computed by both)
+BWD_SHAPES = {64: (128, 4, 1), 128: (128, 4, 1), 256: (64, 2, 2)}
 # the forward core (`csrc/flash_forward.cuh`: FwdShape<d>), which the serving
 # attention instantiates too; the constants are d = 64's, FWD_SHAPES each d's
-# d -> (rows a block, setmaxnreg of the producer's warpgroup, of each consumer):
-# at d = 128 a consumer's O accumulator is 64 fp32 registers a thread, which
-# three consumer warpgroups at 144 registers do not hold; two at 216 do
-FWD_SHAPES = {64: (192, 72, 144), 128: (128, 72, 216)}
+# d -> (rows a block, setmaxnreg of the producer's warpgroup, of each consumer,
+# ring stages): at d = 128 a consumer's O accumulator is 64 fp32 registers a
+# thread, which three consumer warpgroups at 144 registers do not hold; two at
+# 216 do; at d = 256 it is 128, two at 232 with a [64, 256] tile of 32,768
+# bytes leave room for two stages
+FWD_SHAPES = {64: (192, 72, 144, 4), 128: (128, 72, 216, 4), 256: (128, 40, 232, 2)}
 FWD_ROWS = FWD_SHAPES[64][0]  # query rows a block owns: three consumer warpgroups of TILE rows
-FWD_STAGES = 4      # ring of TMA stages, a K and a V tile each
+FWD_STAGES = FWD_SHAPES[64][3]  # ring of TMA stages, a K and a V tile each
 FWD_THREADS = 128 * (FWD_ROWS // TILE + 1)  # the consumer warpgroups and the producer's
 FWD_ROTATORS = 96   # threads of the producer's warps 1-3, which rotate tiles (rotary)
 SHARED_LIMIT = 232448  # bytes of shared memory a block may use on an H100
@@ -98,6 +116,9 @@ FP32_STRIDE = 68    # floats a shared tile row: 64 padded by 4
 # memory beside the ring (64 + 64 fixed floats a thread beside one or two
 # [16, 128] accumulators would not fit in 255 registers)
 FP32_BWD_STAGES = {64: 2, 128: 1}
+# the fp32 serving forward at d = 256 (`csrc/fp32_forward.cuh` forward_wide):
+# Q's rows in shared memory, K and V in tiles of 32 keys, split where read
+FP32_WIDE_KEYS = 32
 
 
 def fmix32(h: torch.Tensor) -> torch.Tensor:
@@ -186,9 +207,9 @@ def _rows_cover(n: int, rows: int) -> list:
             for i in range(-(-n // rows))]
 
 
-def _check_head_dim(d: int) -> None:
-    if d not in HEAD_DIMS:
-        raise ValueError(f"the attention kernels are built for head dims {HEAD_DIMS}, got {d}")
+def _check_head_dim(d: int, dims: tuple[int, ...] = KERNEL_HEAD_DIMS) -> None:
+    if d not in dims:
+        raise ValueError(f"the attention kernels are built for head dims {dims}, got {d}")
 
 
 def _rows_map(b: int, n: int, h: int, d: int = HEAD_DIM) -> dict:
@@ -207,18 +228,18 @@ def forward_geometry(b: int, n: int, h: int, d: int = HEAD_DIM) -> dict:
     """How the forward core covers ``[b, n, h, d]`` (the training forward and
     the serving attention alike), in :func:`backward_geometry`'s terms:
     ``ceil(n / rows)`` blocks a (sample, head) with ``rows`` from
-    ``FWD_SHAPES`` (192 at d = 64, 128 at d = 128); the block's Q tiles (one
-    a consumer warpgroup), a ring of ``FWD_STAGES`` stages of a K and a V
-    tile, and three barriers a stage plus two for Q (1024 bytes of alignment
-    slack in front). ``registers``: the producer warpgroup's and each
-    consumer's ``setmaxnreg`` counts."""
+    ``FWD_SHAPES`` (192 at d = 64, 128 at d = 128 and 256); the block's Q
+    tiles (one a consumer warpgroup), a ring of ``stages`` stages (four; two
+    at d = 256) of a K and a V tile, and three barriers a stage plus two for
+    Q (1024 bytes of alignment slack in front). ``registers``: the producer
+    warpgroup's and each consumer's ``setmaxnreg`` counts."""
     _check_head_dim(d)
-    rows, producer, consumer = FWD_SHAPES[d]
+    rows, producer, consumer, stages = FWD_SHAPES[d]
     tile_bytes = TILE * d * 2
-    shared = (1024 + (rows // TILE) * tile_bytes + FWD_STAGES * 2 * tile_bytes
-              + (3 * FWD_STAGES + 2) * 8)
+    shared = (1024 + (rows // TILE) * tile_bytes + stages * 2 * tile_bytes
+              + (3 * stages + 2) * 8)
     return dict(grid=(-(-n // rows), h, b), threads=128 * (rows // TILE + 1), rows=rows,
-                tile=TILE, stages=FWD_STAGES, shared_bytes=shared,
+                tile=TILE, stages=stages, shared_bytes=shared,
                 registers=(producer, consumer), warpgroups=_rows_cover(n, rows),
                 tensor_map=_rows_map(b, n, h, d))
 
@@ -258,14 +279,18 @@ def backward_geometry(b: int, n: int, h: int, d: int = HEAD_DIM) -> dict:
     """How the dq and dk/dv kernels cover ``[b, n, h, d]`` (both alike; dq
     over query rows, dk/dv over keys):
 
-    - ``grid``: ``ceil(n / BWD_ROWS)`` blocks a (sample, head), ``h``, ``b``;
+    - ``grid``: ``ceil(n / rows)`` blocks a (sample, head), ``h``, ``b``,
+      with ``rows`` from ``BWD_SHAPES`` (128; 64 at d = 256);
     - ``warpgroups``: per block along n, the ``(first row, rows)`` each of
       its warpgroups owns. Rows go out in units of ``TILE``: for
       ``n % 128 == 64`` the last block has one warpgroup, and no tile hangs
-      over the end of a sample;
+      over the end of a sample. At d = 256 both warpgroups own the block's
+      64 rows, each the ``columns`` (first, count) of its part of the head:
+      the score tiles are computed by both;
     - ``stages`` and ``shared_bytes``: the ring's depth and the dynamic
       shared memory of a block (1024 bytes of alignment slack, the block's
-      own four tiles, the ring, 64 LSE + 64 D values a stage, the barriers);
+      own tiles (two a 64 rows), the ring, 64 LSE + 64 D values a stage, the
+      barriers);
     - ``tensor_map``: the TMA map of each of q, k, v, dO, innermost
       dimension first: ``dims`` in elements, ``strides`` in bytes (of all but
       the innermost), ``box`` the panel one load brings and ``panels`` the
@@ -275,12 +300,17 @@ def backward_geometry(b: int, n: int, h: int, d: int = HEAD_DIM) -> dict:
       ``setmaxnreg`` counts (at d = 128 dk/dv's two ``[64, 128]``
       accumulators are 128 of a consumer's 232)."""
     _check_head_dim(d)
+    rows, stages, parts = BWD_SHAPES[d]
     tile_bytes = TILE * d * 2
-    shared = (1024 + 2 * (BWD_ROWS // TILE) * tile_bytes
-              + BWD_STAGES * (2 * tile_bytes + 2 * TILE * 4) + (2 * BWD_STAGES + 1) * 8)
-    return dict(grid=(-(-n // BWD_ROWS), h, b), threads=BWD_THREADS, rows=BWD_ROWS, tile=TILE,
-                stages=BWD_STAGES, shared_bytes=shared, registers=BWD_REGISTERS,
-                warpgroups=_rows_cover(n, BWD_ROWS), tensor_map=_rows_map(b, n, h, d))
+    shared = (1024 + 2 * (rows // TILE) * tile_bytes
+              + stages * (2 * tile_bytes + 2 * TILE * 4) + (2 * stages + 1) * 8)
+    cover = _rows_cover(n, rows)
+    width = d // parts
+    return dict(grid=(-(-n // rows), h, b), threads=BWD_THREADS, rows=rows, tile=TILE,
+                stages=stages, shared_bytes=shared, registers=BWD_REGISTERS,
+                warpgroups=[[wg for wg in block for _ in range(parts)] for block in cover],
+                columns=[(width * p, width) for p in range(parts)],
+                tensor_map=_rows_map(b, n, h, d))
 
 
 def _kernel_geometry(entry: str, d: int,
@@ -305,8 +335,8 @@ def kernel_backward_geometry(d: int = HEAD_DIM) -> dict:
     return _kernel_geometry("erax_train_attention_bwd_geometry", d)
 
 
-def _fp32_geometry(b: int, n: int, h: int, d: int) -> dict:
-    _check_head_dim(d)
+def _fp32_geometry(b: int, n: int, h: int, d: int, dims: tuple[int, ...]) -> dict:
+    _check_head_dim(d, dims)
     return dict(grid=(n // FP32_ROWS, h, b), threads=FP32_THREADS, rows=FP32_ROWS, tile=TILE,
                 warps=FP32_THREADS // 32, stages=FP32_STAGES, stride=d + 4,
                 blocks=[(r, FP32_ROWS) for r in range(0, n, FP32_ROWS)])
@@ -328,10 +358,22 @@ def forward_geometry_fp32(b: int, n: int, h: int, d: int = HEAD_DIM) -> dict:
     row), split into TF32 big parts in place and small parts in two more
     tiles. ``blocks_per_sm`` is what shared memory allows (two at d = 64,
     one at d = 128), and what the kernels' launch bounds ask of the
-    registers."""
+    registers. ``key_tile``: the keys a ring's tile holds.
+
+    At d = 256 (kernel 1's fp32 mode without rotary: kernel 6's role; no
+    training kernel) the block keeps its 64 Q rows as fp32 in one padded
+    tile of shared memory and the ring's tiles hold ``FP32_WIDE_KEYS`` (32)
+    keys, kept raw and split where they are read: Q's tile and two stages
+    of a K and a V tile, one block an SM."""
+    if d == LIBRARY_HEAD_DIM:
+        row = (d + 4) * 4
+        shared = FP32_ROWS * row + FP32_STAGES * 2 * FP32_WIDE_KEYS * row
+        return dict(_fp32_geometry(b, n, h, d, KERNEL_HEAD_DIMS), shared_bytes=shared,
+                    blocks_per_sm=_per_sm(shared), key_tile=FP32_WIDE_KEYS)
     tile = FP32_ROWS * (d + 4) * 4
     shared = (FP32_STAGES * 2 + 2) * tile
-    return dict(_fp32_geometry(b, n, h, d), shared_bytes=shared, blocks_per_sm=_per_sm(shared))
+    return dict(_fp32_geometry(b, n, h, d, HEAD_DIMS), shared_bytes=shared,
+                blocks_per_sm=_per_sm(shared), key_tile=TILE)
 
 
 def backward_geometry_fp32(b: int, n: int, h: int, d: int = HEAD_DIM) -> dict:
@@ -345,12 +387,13 @@ def backward_geometry_fp32(b: int, n: int, h: int, d: int = HEAD_DIM) -> dict:
     and that query tile's 64 LSE and 64 D values), split into TF32 big parts
     in place and small parts in two more tiles. ``blocks_per_sm`` as
     :func:`forward_geometry_fp32`'s."""
+    geo = _fp32_geometry(b, n, h, d, HEAD_DIMS)
     tile = FP32_ROWS * (d + 4) * 4
     stages = FP32_BWD_STAGES[d]
     fixed = 0 if d == 64 else 2
     dq_shared = (stages * 2 + 2 + fixed) * tile
     dkv_shared = stages * (2 * tile + 2 * FP32_ROWS * 4) + (2 + fixed) * tile
-    return dict(_fp32_geometry(b, n, h, d), bwd_stages=stages, fixed_tiles=fixed,
+    return dict(geo, bwd_stages=stages, fixed_tiles=fixed,
                 dq_shared_bytes=dq_shared, dkv_shared_bytes=dkv_shared,
                 blocks_per_sm=min(_per_sm(dq_shared), _per_sm(dkv_shared)))
 
@@ -383,8 +426,11 @@ def _check_cuda_args(q, k, v, lens) -> None:
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"train_attention: {name} must be contiguous and 16-byte aligned")
     b, n, h, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"train_attention: the kernels take head dims {HEAD_DIMS}, got {d}")
+    dims = KERNEL_HEAD_DIMS if q.dtype == torch.bfloat16 else HEAD_DIMS
+    if d not in dims:
+        raise ValueError(f"train_attention: the {q.dtype} kernels take head dims {dims}, got "
+                         f"{d}" + (" (the fp32 backward at d = 256 is ROADMAP.md queue 2 item 1)"
+                                   if d == LIBRARY_HEAD_DIM else ""))
     if n % TILE or not 0 < n <= MAX_N:
         raise ValueError(f"train_attention: n must be a multiple of {TILE} in "
                          f"[{TILE}, {MAX_N}], got {n}")
@@ -554,7 +600,7 @@ def flash_dkv_fp32(q, k, v, lens, lse, dd, dout, dropout_rate: float = 0.0, seed
 for _launcher in (flash_forward, flash_dq, flash_dkv, flash_forward_fp32, flash_dq_fp32,
                   flash_dkv_fp32):
     _launcher.launches = 0
-    _launcher.launches_by_head_dim = dict.fromkeys(HEAD_DIMS, 0)
+    _launcher.launches_by_head_dim = dict.fromkeys(KERNEL_HEAD_DIMS, 0)
 del _launcher
 # the forward, dq and dk/dv launchers of q's dtype
 _LAUNCHERS = {torch.bfloat16: (flash_forward, flash_dq, flash_dkv),

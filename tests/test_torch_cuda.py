@@ -346,14 +346,21 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         ta.train_attention(q, q.bfloat16(), q)
     with pytest.raises(ValueError):
         ta.train_attention(qb, qb, qb)
-    for d in (32, 256):  # head dims outside (64, 128): no kernel is built for them
-        qd = torch.zeros((1, 128, 2, d), device=cuda, dtype=torch.bfloat16)
-        with pytest.raises(ValueError, match="head dims"):
-            sa.serving_attention(qd, qd, qd)
-        with pytest.raises(ValueError, match="head dims"):
-            ta.train_attention(qd, qd, qd)
-        with pytest.raises(ValueError, match="no kernel built"):
-            ta.kernel_forward_geometry(d)
+    qd = torch.zeros((1, 128, 2, 32), device=cuda, dtype=torch.bfloat16)  # no kernel at d = 32
+    with pytest.raises(ValueError, match="head dims"):
+        sa.serving_attention(qd, qd, qd)
+    with pytest.raises(ValueError, match="head dims"):
+        ta.train_attention(qd, qd, qd)
+    with pytest.raises(ValueError, match="no kernel built"):
+        ta.kernel_forward_geometry(32)
+    # d = 256 (kernel 6's): every mode but fused rotary and fp32 training
+    q256 = torch.zeros((1, 128, 2, 256), device=cuda)
+    with pytest.raises(ValueError, match="head dims"):
+        ta.train_attention(q256, q256, q256)
+    with pytest.raises(ValueError, match="fused rotary"):
+        sa.serving_attention(q256, q256, q256, None, torch.zeros((128, 256), device=cuda))
+    with pytest.raises(ValueError, match="no kernel built"):
+        ta.kernel_geometry_fp32(256)
     g = torch.Generator(device=cuda).manual_seed(1)
     ff_args = _int8_ff_operands(g, cuda, 1, 32, 512, 1024, 512)
     with pytest.raises(TypeError):  # x must be bf16
@@ -1303,7 +1310,7 @@ def test_serving_attention_d128_matches_plain(cuda, no_tf32, n, dtype, with_rope
               else sa.serving_attention.launches_by_head_dim)
     before = dict(counts)
     got = sa.serving_attention(q, k, v, lens, rope)
-    assert counts == {64: before[64], 128: before[128] + 1}
+    assert counts == {**before, 128: before[128] + 1}
     want = sa.serving_attention_reference(q, k, v, lens, rope)
     tol = TOL if dtype == torch.bfloat16 else 2e-5
     err = (got.float() - want.float()).abs()
@@ -1338,3 +1345,80 @@ def test_train_attention_d128_kernels_match_plain(cuda, no_tf32, n, dtype, dropo
             assert float((got.float() - want.float()).norm() / want.float().norm()) < 3e-2
         else:
             assert float((got - want).abs().max() / want.abs().max()) < 5e-5
+
+
+# ---- head dim 256: kernel 6's roles ------------------------------------------------
+
+
+def test_d256_geometry_is_the_kernels(cuda):
+    """The d = 256 instantiations report the constants `ops/train_attention.py`
+    states: the bf16 forward (128 rows, two stages), the backward (64 rows,
+    the columns split between the warpgroups), the fp32 serving core (Q in
+    shared memory, 32-key tiles); the fp32 training geometry refuses 256."""
+    fwd, bwd = ta.forward_geometry(2, 4096, 4, 256), ta.backward_geometry(2, 4096, 4, 256)
+    built = ta.kernel_forward_geometry(256)
+    assert built == {name: fwd[name] for name in built} and built["stages"] == 2
+    built = ta.kernel_backward_geometry(256)
+    assert built == {name: bwd[name] for name in built} and built["rows"] == 64
+    geo = sa.forward_geometry_fp32(2, 4096, 4, 256)
+    assert sa.kernel_geometry_fp32(256) == {key: geo[key] for key in ta.FP32_FORWARD_BUILT}
+    with pytest.raises(ValueError, match="head dim 256"):
+        ta.kernel_geometry_fp32(256)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n", [64, 1088, 6144])
+def test_serving_attention_d256_matches_plain(cuda, no_tf32, n, dtype):
+    """Kernel 1's d = 256 instantiations without rotary (kernel 6's serving
+    role: 4 heads of 256, a sample whose keys end inside a tile beside one
+    with none) against the plain version: bf16 within TOL, fp32 within 2e-5
+    * (1 + |plain|), counted by head dim, a second call bit-identical; fused
+    rotary refused before any launch."""
+    g = torch.Generator(device=cuda).manual_seed(n + 256)
+    q, k, v = (torch.randn((2, n, 4, 256), generator=g, device=cuda).to(dtype)
+               for _ in range(3))
+    lens = torch.tensor([n - 37, 0], device=cuda)
+    counts = (sa.serving_attention.launches_fp32_by_head_dim if dtype == torch.float32
+              else sa.serving_attention.launches_by_head_dim)
+    before = dict(counts)
+    got = sa.serving_attention(q, k, v, lens)
+    assert counts == {**before, 256: before[256] + 1}
+    want = sa.serving_attention_reference(q, k, v, lens)
+    tol = TOL if dtype == torch.bfloat16 else 2e-5
+    err = (got.float() - want.float()).abs()
+    assert torch.all(err <= tol * (1 + want.float().abs())), float(err.max())
+    assert torch.equal(got, sa.serving_attention(q, k, v, lens))
+    before = dict(counts)
+    with pytest.raises(ValueError, match="fused rotary"):
+        sa.serving_attention(q, k, v, lens, rotary_freqs(n, 256, device=cuda))
+    assert counts == before
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+@pytest.mark.parametrize("n", [192, 4096])
+def test_train_attention_d256_kernels_match_plain(cuda, no_tf32, n, dropout):
+    """Kernels 4a-4c's bf16 d = 256 instantiations (kernel 6's training
+    role at keep = 1; the position-hash dropout beside it) against the plain
+    version's autograd within 3e-2 relative L2, each launch counted at d =
+    256; fp32 at d = 256 refused before any launch."""
+    g = torch.Generator(device=cuda).manual_seed(n + 257)
+    q, k, v, dout = (torch.randn((2, n, 4, 256), generator=g, device=cuda).bfloat16()
+                     for _ in range(4))
+    lens = torch.tensor([n, n - 37], dtype=torch.int32, device=cuda)
+    kernels = ta._LAUNCHERS[torch.bfloat16]
+    before = [fn.launches_by_head_dim[256] for fn in kernels]
+    results = []
+    for attend in (lambda *a: ta.train_attention(*a, key_valid=lens_to_mask(lens, n),
+                                                 dropout_rate=dropout, seed=19),
+                   lambda *a: ta.train_attention_reference(*a, lens, dropout, 19)):
+        args = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = attend(*args)
+        results.append([out.detach(), *torch.autograd.grad(out, args, dout)])
+    assert [fn.launches_by_head_dim[256] for fn in kernels] == [b + 1 for b in before]
+    for got, want in zip(*results):
+        assert float((got.float() - want.float()).norm() / want.float().norm()) < 3e-2
+    fp32 = [fn.launches_by_head_dim[256] for fn in ta._LAUNCHERS[torch.float32]]
+    with pytest.raises(ValueError, match="queue 2 item 1"):
+        ta.train_attention(*(t.float().requires_grad_() for t in (q, k, v)),
+                           key_valid=lens_to_mask(lens, n))
+    assert [fn.launches_by_head_dim[256] for fn in ta._LAUNCHERS[torch.float32]] == fp32
