@@ -2981,6 +2981,14 @@ def tf32(on: bool):
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
+def fp32_backward_stated(bwd: dict) -> dict:
+    """`backward_geometry_fp32`'s constants under the names the built
+    kernels report them (`kernel_geometry_fp32`)."""
+    from eraxvif5tts_tpu_torch.ops import train_attention as ta
+
+    return {key: bwd["rows" if key == "bwd_rows" else key] for key in ta.FP32_BACKWARD_BUILT}
+
+
 def check_fp32_forward_geometry() -> None:
     """The constants the built fp32 forwards report (kernel 1's fp32 mode and
     kernel 4a's, one core) against `forward_geometry_fp32`'s, and the
@@ -2991,15 +2999,13 @@ def check_fp32_forward_geometry() -> None:
     fwd, bwd = ta.forward_geometry_fp32(2, 4096, 16), ta.backward_geometry_fp32(2, 4096, 16)
     stated = {key: fwd[key] for key in ta.FP32_FORWARD_BUILT}
     train_built, serve_built = ta.kernel_geometry_fp32(), sa.kernel_geometry_fp32()
-    want_train = dict(stated, bwd_rows=bwd["rows"], bwd_threads=bwd["threads"],
-                      bwd_stages=bwd["stages"], dq_shared_bytes=bwd["dq_shared_bytes"],
-                      dkv_shared_bytes=bwd["dkv_shared_bytes"])
+    want_train = dict(stated, **fp32_backward_stated(bwd))
     if serve_built != stated or train_built != want_train:
         raise AssertionError(f"[fp32] built fp32 geometry kernel 1 {serve_built}, kernel 4 "
                              f"{train_built}; stated {stated}, {want_train}")
     log(f"[fp32] built geometry of the fp32 forward core (kernel 1 fp32 and 4a fp32 alike) "
         f"equals the stated one: {stated}, {fwd['blocks_per_sm']} blocks an SM; the "
-        f"backward's {want_train['bwd_threads']} threads, {want_train['bwd_stages']} stages, "
+        f"backward's {want_train['dq_threads']} threads, {want_train['bwd_stages']} stages, "
         f"{want_train['dq_shared_bytes']} / {want_train['dkv_shared_bytes']} bytes")
 
 
@@ -3327,6 +3333,16 @@ def time_train_attention(q, k, v, dout, lens, lens_list, seed: int) -> tuple:
                        library_ms=lib_fwd if name == "fwd" else lib_bwd, **least[name])
             for name in least}
     return ms, rows, least, ffma
+
+
+def sdpa_backend(q, k, v) -> str:
+    """The backend `scaled_dot_product_attention` picks for ``[b, n, h, d]``
+    q, k, v given as the yardsticks give them (heads second, no mask), by
+    the dispatcher's own choice (`torch._fused_sdp_choice`)."""
+    import torch
+    from torch.nn.attention import SDPBackend
+
+    return SDPBackend(torch._fused_sdp_choice(*(t.transpose(1, 2) for t in (q, k, v)))).name
 
 
 def train_attention_yardsticks(rows: dict) -> tuple[float, float, float, float]:
@@ -4032,10 +4048,7 @@ def check_d128_geometry() -> None:
         stated = {"forward": {key: fwd[key] for key in built_keys},
                   "backward": {key: bwd[key] for key in built_keys},
                   "fp32": dict({key: f32[key] for key in ta.FP32_FORWARD_BUILT},
-                               bwd_rows=b32["rows"], bwd_threads=b32["threads"],
-                               bwd_stages=b32["bwd_stages"],
-                               dq_shared_bytes=b32["dq_shared_bytes"],
-                               dkv_shared_bytes=b32["dkv_shared_bytes"]),
+                               **fp32_backward_stated(b32)),
                   "fp32 serving": {key: f32[key] for key in ta.FP32_FORWARD_BUILT}}
         built = {"forward": ta.kernel_forward_geometry(d),
                  "backward": ta.kernel_backward_geometry(d),
@@ -4046,7 +4059,7 @@ def check_d128_geometry() -> None:
             f"{built['forward']} (registers {fwd['registers']}), backward {built['backward']}; "
             f"fp32 {built['fp32']}, {f32['blocks_per_sm']} block(s) an SM")
     lib = _cuda.kernels().lib
-    out = (ctypes.c_int * 9)()
+    out = (ctypes.c_int * 11)()
     refused = {name: getattr(lib, name)(32, out) for name in (
         "erax_flash_forward_geometry", "erax_train_attention_bwd_geometry",
         "erax_train_attention_fp32_geometry", "erax_serving_attention_fp32_geometry")}
@@ -4301,7 +4314,8 @@ def check_train_attention_at(dev, tag: str, h: int, d: int, seed: int, cases, dt
                    if dtype == torch.float32 else "")
                 + f"; plain forward {plain_fwd:.4f} ms, plain backward {plain_bwd:.4f} ms; "
                 f"library scaled_dot_product_attention{' (TF32 off)' if dname == 'fp32' else ''} "
-                f"at keep = 1, no mask: forward {lib_fwd:.4f} ms, backward {lib_bwd:.4f} ms; "
+                f"at keep = 1, no mask, backend {sdpa_backend(q, k, v)}: forward {lib_fwd:.4f} "
+                f"ms, backward {lib_bwd:.4f} ms; "
                 f"against it at keep = 1 the forward takes {keep1['fwd'] / lib_fwd:.2f}x and "
                 f"dq + dk/dv {(keep1['dq'] + keep1['dkv']) / lib_bwd:.2f}x its time")
             del q, k, v, dout
@@ -4582,8 +4596,8 @@ def phase_d128(dev) -> tuple[dict, dict]:
 # runs its library flash kernel (kernel 6, `eraxvif5tts_tpu/ops/attention.py:38`)
 # there: serving with q and k rotated outside it (its serving kernel refuses d =
 # 256), and dropout-free training through its forward and backward. The port's
-# d = 256 kernels: the bf16 forward (serving and the training forward), the fp32
-# serving forward, the bf16 dq and dk/dv; fp32 training refuses d = 256.
+# d = 256 kernels: the forward (serving and the training forward), dq and dk/dv,
+# each in bf16 and fp32.
 D256_HEADS, D256_DIM_HEAD = 4, 256
 D256_SERVE = ((1088, (1051, 0), (False,)), (JOINT_N, JOINT_LENS, (False,)))
 D256_TRAIN = ((4096, (4096, 4059)), (JOINT_N, (JOINT_N, JOINT_N - 37)))
@@ -4597,14 +4611,16 @@ D256_TRAIN = ((4096, (4096, 4059)), (JOINT_N, (JOINT_N, JOINT_N - 37)))
 # (bf16 rounding) and its control logged, as the MMDiT's step holds it
 D256_TOLS = {"loss": D128_LOSS_TOL, "gradient L2": D128_GRAD_TOL,
              "q/k/v gradient L2": QKV_GRAD_TOL}
+# fp32: the d = 128 fp32 limits (the 3xTF32 kernels against plain attention)
+D256_FP32_TOLS = {"loss": D128_FP32_LOSS_TOL, "gradient L2": FP32_STEP_GRAD_TOL,
+                  "q/k/v gradient L2": FP32_STEP_GRAD_TOL}
 
 
 def check_d256_geometry() -> None:
     """The constants the d = 256 instantiations report against the ones
     `ops/train_attention.py` states (the bf16 forward, the backward, the
-    fp32 serving core), and the C interface refusing what is not built at
-    256: the fp32 training geometry and launch, and fused rotary (non-zero
-    codes, no kernel runs)."""
+    fp32 forward core, the fp32 dq and dk/dv), and the C interface refusing
+    fused rotary at 256 (non-zero codes, no kernel runs)."""
     import ctypes
 
     import torch
@@ -4615,29 +4631,28 @@ def check_d256_geometry() -> None:
 
     d, built_keys = D256_DIM_HEAD, ("rows", "stages", "threads", "shared_bytes")
     fwd, bwd = ta.forward_geometry(2, 4096, 4, d), ta.backward_geometry(2, 4096, 4, d)
-    f32 = sa.forward_geometry_fp32(2, 4096, 4, d)
+    f32, b32 = sa.forward_geometry_fp32(2, 4096, 4, d), ta.backward_geometry_fp32(2, 4096, 4, d)
     stated = {"forward": {key: fwd[key] for key in built_keys},
               "backward": {key: bwd[key] for key in built_keys},
-              "fp32 serving": {key: f32[key] for key in ta.FP32_FORWARD_BUILT}}
+              "fp32 serving": {key: f32[key] for key in ta.FP32_FORWARD_BUILT},
+              "fp32 training": dict({key: f32[key] for key in ta.FP32_FORWARD_BUILT},
+                                    **fp32_backward_stated(b32))}
     built = {"forward": ta.kernel_forward_geometry(d), "backward": ta.kernel_backward_geometry(d),
-             "fp32 serving": sa.kernel_geometry_fp32(d)}
+             "fp32 serving": sa.kernel_geometry_fp32(d),
+             "fp32 training": ta.kernel_geometry_fp32(d)}
     if built != stated:
         raise AssertionError(f"[d256] built geometry: {built}; stated {stated}")
     log(f"[d256] built geometry equals the stated one: bf16 forward {built['forward']} "
         f"(registers {fwd['registers']}), backward {built['backward']} (columns "
         f"{bwd['columns']}); fp32 serving {built['fp32 serving']} (key tiles of "
-        f"{f32['key_tile']})")
+        f"{f32['key_tile']}); fp32 training {built['fp32 training']} (dk/dv columns "
+        f"{b32['dkv_columns']})")
     lib = _cuda.kernels().lib
-    out = (ctypes.c_int * 9)()
     q = torch.zeros((1, 64, 2, d), dtype=torch.float32, device="cuda")
     qb = q.bfloat16()
     lens = torch.full((1,), 64, dtype=torch.int32, device="cuda")
     stream = _cuda.stream_ptr(q.device)
-    refused = {"erax_train_attention_fp32_geometry": lib.erax_train_attention_fp32_geometry(
-        d, out)}
-    refused["erax_train_attention_fp32_fwd"] = lib.erax_train_attention_fp32_fwd(
-        q.data_ptr(), q.data_ptr(), q.data_ptr(), lens.data_ptr(), q.data_ptr(), q.data_ptr(),
-        1, 64, 2, d, 1.0, 0, 0, 1.0, 0, 0, 0, stream)
+    refused = {}
     for name, t in (("erax_serving_attention", qb), ("erax_serving_attention_fp32", q)):
         refused[f"{name} roped"] = getattr(lib, name)(
             t.data_ptr(), t.data_ptr(), t.data_ptr(), lens.data_ptr(), q.data_ptr(),
@@ -4645,60 +4660,27 @@ def check_d256_geometry() -> None:
     torch.cuda.synchronize()
     if not all(refused.values()):
         raise AssertionError(f"[d256] an entry point took what is not built at 256: {refused}")
-    log(f"[d256] fp32 training and fused rotary at d = 256 refused by the C interface "
-        f"(non-zero codes, no launch): {refused}")
-
-
-def check_d256_refuses_fp32_training(dev) -> None:
-    """An fp32 `Trainer.train_step` of the 4 x 256 DiT (cut to 2 blocks: the
-    first block's attention refuses) raises before any attention kernel or
-    plain attention runs, naming the ROADMAP item, and leaves the state as
-    it was."""
-    import torch
-
-    from eraxvif5tts_tpu_torch.models.cfm import CFM
-    from eraxvif5tts_tpu_torch.models.dit import DiT
-    from eraxvif5tts_tpu_torch.training.trainer import Trainer, make_optimizer
-
-    arch = dataclasses.replace(train_arch(), heads=D256_HEADS, dim_head=D256_DIM_HEAD, depth=2,
-                               dropout=0.0)
-    dit = DiT(arch, text_num_embeds=len(VOCAB_CHARS), mel_dim=100).to(dev)
-    trainer = Trainer(cfm=CFM(dit.train()), optimizer=make_optimizer(num_warmup_updates=1,
-                                                                       total_updates=1000))
-    state = trainer.init_state()
-    before, step = head_dim_counts(), state.step
-    try:
-        trainer.train_step(state, train_batch(dev, SEED + 199, (2, 256)),
-                           torch.Generator(device=dev).manual_seed(SEED))
-    except NotImplementedError as refusal:
-        message = str(refusal)
-    else:
-        raise AssertionError("[d256] an fp32 training step at d = 256 was not refused")
-    torch.cuda.synchronize()
-    if head_dim_counts() != before or state.step != step or "queue 2 item 1" not in message:
-        raise AssertionError(f"[d256] the refused fp32 step launched an attention kernel, "
-                             f"moved the state or named no ROADMAP item: {message}")
-    log(f"[d256] fp32 training refused before any attention launch: {message[:160]}...")
+    log(f"[d256] fused rotary at d = 256 refused by the C interface (non-zero codes, no "
+        f"launch): {refused}")
 
 
 def phase_d256(dev) -> tuple[dict, dict]:
     """Head dim 256 in kernel 6's roles: the built geometry and the refusals
     (:func:`check_d256_geometry`), each d = 256 kernel against its plain
     version with its planted faults and timed (the serving forward without
-    rotary in bf16 and fp32, the bf16 training kernels at dropout 0.1 and
-    keep = 1, the keep bits), F5TTS_v1_Base.yaml with 4 heads of 256 as a
-    seeded N(0, 0.02) reference-format checkpoint served in bf16 and in fp32
-    (one text each) and trained in bf16 at dropout 0 and 0.1, and fp32
-    training refused (:func:`check_d256_refuses_fp32_training`). Returns (the
-    JSON rows, the launches on the path)."""
+    rotary and the training kernels at dropout 0.1 and keep = 1, the keep
+    bits, each in bf16 and fp32), F5TTS_v1_Base.yaml with 4 heads of 256 as
+    a seeded N(0, 0.02) reference-format checkpoint served in bf16 and in
+    fp32 (one text each) and trained in both at dropout 0 and 0.1. Returns
+    (the JSON rows, the launches on the path)."""
     import torch
 
     tag, h, d = "[d256]", D256_HEADS, D256_DIM_HEAD
     check_d256_geometry()
     rows = check_serving_attention_at(dev, tag, h, d, SEED + 260, D256_SERVE)
     rows.update(check_train_attention_at(dev, tag, h, d, SEED + 270, D256_TRAIN,
-                                         (torch.bfloat16,), (0.1, 0.0)))
-    check_keep_bits_at(dev, tag, h, d, (torch.bfloat16,))
+                                         (torch.bfloat16, torch.float32), (0.1, 0.0)))
+    check_keep_bits_at(dev, tag, h, d, (torch.bfloat16, torch.float32))
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
         cfg, path = head_dim_config(Path(tmp), h, d, tag)
@@ -4713,7 +4695,9 @@ def phase_d256(dev) -> tuple[dict, dict]:
     launches.update(train_at(dev, cfg.arch, tag, tuple(
         (torch.bfloat16, "bf16", rate, D256_TOLS, "keys" if rate > 0.0 else "tile")
         for rate in (0.0, 0.1)), rounding=("loss",)))
-    check_d256_refuses_fp32_training(dev)
+    launches.update(train_at(dev, cfg.arch, tag, tuple(
+        (None, "fp32", rate, D256_FP32_TOLS, "keys" if rate > 0.0 else "tile")
+        for rate in (0.0, 0.1))))
     return rows, launches
 
 
@@ -6781,8 +6765,9 @@ def main() -> int:
         e2_ckpt = Path(tmp) / "e2tts_base.pt"
         e2_cfg = cut_depth(PRESETS["E2TTS_Base"], E2TTS_DEPTH)
         launches.update(timed("[e2tts]", phase_e2tts, dev, e2_cfg, ckpt=e2_ckpt))
+        # one round, as [mmdit-int8]: the whole smoke passed 850 s on a slow host
         launches["int8_ff_ffmult4"], ff_err = timed("[e2tts-int8]", phase_int8, dev, e2_cfg,
-                                                    "[e2tts-int8]", e2_ckpt)
+                                                    "[e2tts-int8]", e2_ckpt, turns=1)
     row = kernel_results["int8_ff_ffmult4"]
     row["max_abs_err"] = max(row["max_abs_err"], ff_err)
     compress = timed("[compress]", phase_compress, dev)
@@ -6866,7 +6851,10 @@ def main() -> int:
                                 "serving_attention_fp32.cu"),
                                ("train_attention_d256_fwd", "train_attention.cu"),
                                ("train_attention_d256_dq", "train_attention.cu"),
-                               ("train_attention_d256_dkv", "train_attention.cu"))),
+                               ("train_attention_d256_dkv", "train_attention.cu"),
+                               ("train_attention_fp32_d256_fwd", "train_attention_fp32.cu"),
+                               ("train_attention_fp32_d256_dq", "train_attention_fp32.cu"),
+                               ("train_attention_fp32_d256_dkv", "train_attention_fp32.cu"))),
     ]
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
     if missing:

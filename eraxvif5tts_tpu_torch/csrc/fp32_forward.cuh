@@ -4,7 +4,8 @@
 // -1e30, no LSE) and kernel 4a's (`train_attention_fp32.cu`: position-hash
 // dropout, the LSE), as the bf16 kernels 1 and 4a share `flash_forward.cuh`.
 //
-// For q, k, v [b, n, h, D] fp32 (D = 64 or 128) and lens [b] int32:
+// For q, k, v [b, n, h, D] fp32 (D = 64 or 128; at 256 on `forward_wide`,
+// below, without rotary) and lens [b] int32:
 //   q', k' = rotate(q), rotate(k)    (kRope; fp32, the plain version's rounding)
 //   S      = q' k'^T * scale         keys >= lens[b] set to the masked logit
 //   P      = exp(S - m), l = rowsum P (the undropped weights form the normaliser)
@@ -72,22 +73,9 @@ struct Fp32Fwd {
 };
 constexpr int kPass = 4;  // n-tiles of keys a softmax pass takes: half a tile
 
-// The forward's launch geometry at head dim d, as `ops/train_attention.py`
-// `forward_geometry_fp32` states it: rows a block, threads, ring stages,
-// dynamic shared bytes. Returns 0, or cudaErrorInvalidValue for a head dim
-// that has no instantiation.
-inline int forward_geometry(int d, int* out) {
-  if (d != 64 && d != 128) return static_cast<int>(cudaErrorInvalidValue);
-  out[0] = kRows;
-  out[1] = kThreads;
-  out[2] = kStages;
-  out[3] = d == 64 ? Fp32Fwd<64>::kSmem : Fp32Fwd<128>::kSmem;
-  return 0;
-}
-
-// ---- d = 256: the serving forward without rotary (kernel 6's fp32 role) ----
+// ---- d = 256: the forward without rotary (kernel 6's fp32 roles) ---------
 //
-// At d = 256 the core above does not fit: a padded [64, 256] tile is 66,560
+// At d = 256 `forward_core` (below) does not fit: a padded [64, 256] tile is 66,560
 // bytes, so the ring's two stages of K and V and their small parts would be
 // 399,360 bytes, and a warp's O (128 registers a lane) beside its Q rows (128
 // more, unsplit) would not fit 255 registers. This core keeps the layout of
@@ -101,11 +89,12 @@ inline int forward_geometry(int d, int* out) {
 //   core would need 133,120 bytes more. 199,680 bytes in all, one block an
 //   SM, 128 threads;
 // - O is 128 registers a lane, in the fresh accumulator of 64 columns per
-//   pass as in the core above; a tile is one barrier (no split pass).
+//   pass as in `forward_core`; a tile is one barrier (no split pass).
 // Every product is the other core's 3xTF32 `mma.sync` with its operand
-// splits, so the two agree to the order of fp32 sums; no rotary, no
-// dropout, no LSE: the JAX package runs kernel 6 at d = 256 with q and k
-// rotated outside it (`models/modules.py:378-392`).
+// splits, so the two agree to the order of fp32 sums; no rotary: the JAX
+// package runs kernel 6 at d = 256 with q and k rotated outside it
+// (`models/modules.py:378-392`). Training (kTrain, kDrop) adds what the
+// other core adds: the lens-0 logits, the keep bits and the LSE.
 constexpr int kWideKeys = 8 * kPass;  // keys a tile of the d = 256 ring: one pass
 
 template <int D>
@@ -118,13 +107,36 @@ struct Fp32Wide {
   static_assert(kSmem <= 232448, "more shared memory than a block may use");
 };
 
-// The d = 256 core's launch geometry as `ops/train_attention.py`
-// `forward_geometry_fp32` states it (rows, threads, stages, shared bytes).
-inline int forward_geometry_wide(int* out) {
+// The forward's dynamic shared bytes at head dim D: `forward_wide`'s at
+// d = 256, `forward_core`'s below it.
+template <int D>
+constexpr int fwd_smem() {
+  if constexpr (D == 256) {
+    return Fp32Wide<D>::kSmem;
+  } else {
+    return Fp32Fwd<D>::kSmem;
+  }
+}
+
+// The forward's launch geometry at head dim d (either core), as
+// `ops/train_attention.py` `forward_geometry_fp32` states it: rows a block,
+// threads, ring stages, dynamic shared bytes. Returns 0, or
+// cudaErrorInvalidValue for a head dim that has no instantiation.
+inline int forward_geometry(int d, int* out) {
+  int smem;
+  if (d == 64) {
+    smem = fwd_smem<64>();
+  } else if (d == 128) {
+    smem = fwd_smem<128>();
+  } else if (d == 256) {
+    smem = fwd_smem<256>();
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   out[0] = kRows;
   out[1] = kThreads;
   out[2] = kStages;
-  out[3] = Fp32Wide<256>::kSmem;
+  out[3] = smem;
   return 0;
 }
 
@@ -144,49 +156,96 @@ __device__ __forceinline__ void product_raw(float (&acc)[8][4], const float (&w)
   }
 }
 
-// S = Q K^T for the warp's 16 rows and the 32 keys of a raw K tile (`kb`),
+// The B fragments of two n-tiles of a raw tile for k-step kk (rows 8 j +
+// lane / 4 of the tile at `z`, columns 8 kk + lane % 4 and four on: one
+// ldmatrix), split.
+__device__ __forceinline__ void wide_b(Split (&b)[4], const float* z, int lm, int kk) {
+  uint32_t x[4];
+  ldmatrix_x4(x, z + lm + 8 * kk);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) b[i] = split(__uint_as_float(x[i]));
+}
+
+// The lane's ldmatrix row address of a raw tile, in floats: row 8 (lane /
+// 16) + lane % 8, column 4 ((lane / 8) % 2).
+template <int D>
+__device__ __forceinline__ int wide_lm(int lane) {
+  return (8 * (lane >> 4) + (lane & 7)) * Fp32Shape<D>::kStride + 4 * ((lane >> 3) & 1);
+}
+
+// s[2 jp + e] += a b over n-tiles 2 jp + e: one split B fragment pair.
+template <int kN>
+__device__ __forceinline__ void mma_pair(float (&s)[kN][4], const FragA& a, const Split (&b)[4],
+                                         int jp) {
+#pragma unroll
+  for (int e = 0; e < 2; ++e)
+    mma3(s[2 * jp + e], a, __float_as_uint(b[2 * e].big), __float_as_uint(b[2 * e + 1].big),
+         __float_as_uint(b[2 * e].small), __float_as_uint(b[2 * e + 1].small));
+}
+
+// S = Q K^T for the warp's 16 rows and the 8 kN keys of a raw K tile (`kb`),
 // `pass_scores`' reads (one ldmatrix for the B fragments of two n-tiles) with
 // the split at each use, Q's fragments from shared memory.
-template <int D>
-__device__ __forceinline__ void wide_scores(float (&s)[kPass][4], const SharedA<D>& qa,
+template <int D, int kN>
+__device__ __forceinline__ void wide_scores(float (&s)[kN][4], const SharedA<D>& qa,
                                             const float* kb, int lane) {
   constexpr int kStride = Fp32Shape<D>::kStride;
-  const int lm = (8 * (lane >> 4) + (lane & 7)) * kStride + 4 * ((lane >> 3) & 1);
+  const int lm = wide_lm<D>(lane);
 #pragma unroll 4
   for (int kk = 0; kk < D / 8; ++kk) {
     const FragA qf = qa.frag(kk);
 #pragma unroll
-    for (int jp = 0; jp < kPass / 2; ++jp) {
-      uint32_t x[4];
-      ldmatrix_x4(x, kb + lm + 16 * jp * kStride + 8 * kk);
+    for (int jp = 0; jp < kN / 2; ++jp) {
       Split b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) b[i] = split(__uint_as_float(x[i]));
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-        mma3(s[2 * jp + e], qf, __float_as_uint(b[2 * e].big), __float_as_uint(b[2 * e + 1].big),
-             __float_as_uint(b[2 * e].small), __float_as_uint(b[2 * e + 1].small));
+      wide_b(b, kb + 16 * jp * kStride, lm, kk);
+      mma_pair(s, qf, b, jp);
     }
   }
 }
 
-// The block's serving forward at head dim D = 256 over the grid (n / 64, h,
-// b), 128 threads and Fp32Wide<D>::kSmem bytes of dynamic shared memory:
-// keys >= lens[b] masked to -1e30 (a sample with lens <= 0 averages every
-// key), O = softmax(S) V, no LSE.
-template <int D>
+// The backward's two score products in one walk over d, for the warp's 16
+// rows and the 8 kN rows of the raw tiles X and Y: s += A X^T, dp += B Y^T,
+// A and B the warp's fixed operands in shared memory, split at each use.
+template <int D, int kN>
+__device__ __forceinline__ void wide_scores2(float (&s)[kN][4], float (&dp)[kN][4],
+                                             const SharedA<D>& a, const SharedA<D>& b,
+                                             const float* x, const float* y, int lane) {
+  constexpr int kStride = Fp32Shape<D>::kStride;
+  const int lm = wide_lm<D>(lane);
+#pragma unroll 2
+  for (int kk = 0; kk < D / 8; ++kk) {
+    const FragA af = a.frag(kk);
+    const FragA bf = b.frag(kk);
+#pragma unroll
+    for (int jp = 0; jp < kN / 2; ++jp) {
+      Split xb[4], yb[4];
+      wide_b(xb, x + 16 * jp * kStride, lm, kk);
+      wide_b(yb, y + 16 * jp * kStride, lm, kk);
+      mma_pair(s, af, xb, jp);
+      mma_pair(dp, bf, yb, jp);
+    }
+  }
+}
+
+// The block's forward at head dim D = 256 over the grid (n / 64, h, b), 128
+// threads and Fp32Wide<D>::kSmem bytes of dynamic shared memory: keys >=
+// lens[b] masked to -1e30 (a sample with lens <= 0 averages every key),
+// O = softmax(S) V. kTrain: training's lens-0 logits and the LSE; kDrop:
+// the keep bits.
+template <int D, bool kTrain, bool kDrop>
 __device__ __forceinline__ void forward_wide(const float* __restrict__ q,
                                              const float* __restrict__ k,
                                              const float* __restrict__ v,
                                              const int* __restrict__ lens,
-                                             float* __restrict__ out, int n, int h,
-                                             float scale) {
+                                             float* __restrict__ out, float* __restrict__ lse,
+                                             int n, int h, float scale, const Dropout& drop) {
   using W = Fp32Wide<D>;
   extern __shared__ float4 smem4[];
   float* const qs = reinterpret_cast<float*>(smem4);
   float* const ring = qs + W::kQFloats;
   const int lane = threadIdx.x & 31, c = lane & 3;
-  const Head hd = block_head<D>(lens, n, h, Dropout{0u, 0u, 1.f, 0});
+  const Head hd = block_head<D>(lens, n, h, drop);
+  const float masked = kTrain ? hd.masked : kNeg;
   // key tiles that hold a valid key (every tile when none is valid)
   const int n_tiles = hd.len <= 0 ? n / kWideKeys : (min(hd.len, n) + kWideKeys - 1) / kWideKeys;
   const int warp_row = 16 * (threadIdx.x >> 5) + (lane >> 2);  // and + 8, in the block
@@ -215,7 +274,7 @@ __device__ __forceinline__ void forward_wide(const float* __restrict__ q,
 
     float s[kPass][4];
     zero(s);
-    wide_scores<D>(s, qa, ks, lane);
+    wide_scores<D, kPass>(s, qa, ks, lane);
 
     // the online softmax over the tile's keys: element e of n-tile j is row
     // row + 8 (e >> 1), key t * 32 + 8 j + 2 c + (e & 1)
@@ -225,7 +284,7 @@ __device__ __forceinline__ void forward_wide(const float* __restrict__ q,
     for (int j = 0; j < kPass; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float x = key0 + 8 * j + (e & 1) < hd.len ? s[j][e] * scale : kNeg;
+        const float x = key0 + 8 * j + (e & 1) < hd.len ? s[j][e] * scale : masked;
         s[j][e] = x;
         pass_max[e >> 1] = fmaxf(pass_max[e >> 1], x);
       }
@@ -243,12 +302,15 @@ __device__ __forceinline__ void forward_wide(const float* __restrict__ q,
     for (int j = 0; j < kPass; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[j][e] - m[e >> 1]);
-        l[e >> 1] += p;
-        s[j][e] = p;
+        const int r = e >> 1;
+        const float p = expf(s[j][e] - m[r]);
+        l[r] += p;  // the normaliser takes the undropped weight
+        s[j][e] = kDrop ? p * keep_factor(row + 8 * r, key0 + 8 * j + (e & 1), n, hd.folded,
+                                          drop)
+                        : p;
       }
 
-    // O = alpha O + P V, the tile's products in a fresh accumulator, 64
+    // O = alpha O + Pd V, the tile's products in a fresh accumulator, 64
     // columns of O at a time
 #pragma unroll
     for (int half = 0; half < D / 64; ++half) {
@@ -276,6 +338,11 @@ __device__ __forceinline__ void forward_wide(const float* __restrict__ q,
         make_float2(o[nn][0] / l[0], o[nn][1] / l[0]);
     *reinterpret_cast<float2*>(dst + (row + 8) * hd.stride + 8 * nn + 2 * c) =
         make_float2(o[nn][2] / l[1], o[nn][3] / l[1]);
+  }
+  if constexpr (kTrain) {
+    if (c != 0) return;
+    lse[hd.stat + row] = m[0] + logf(l[0]);
+    lse[hd.stat + row + 8] = m[1] + logf(l[1]);
   }
 }
 

@@ -29,8 +29,10 @@
 //   read as B (rows are the k index: keys of a V tile) at rows 8 j + 2 (lane
 //   % 4) + {0, 1} and column 8 nn + lane / 4 (`product`), 32 distinct banks
 //   (kStride % 32 == 4 at every head dim).
-// - At d = 256 only the serving forward is built, on a core of its own
-//   (`fp32_forward.cuh` `forward_wide`).
+// - At d = 256 the forwards run on a core of their own (`fp32_forward.cuh`
+//   `forward_wide`) and the dq and dk/dv kernels on a layout of their own
+//   (`train_attention_fp32.cu`): the fixed operands in shared memory, the
+//   streamed tiles kept raw and split where they are read.
 // - Scores come out in the mma's C layout (row lane / 4 and + 8, columns 2
 //   (lane % 4) + {0, 1} of each n-tile) and are used in place as the next
 //   product's A fragment by permuting the k-step: no shuffle and no trip
@@ -62,9 +64,9 @@ static_assert(kRows == 16 * kWarps, "a warp owns one m16 tile of the block's row
 // `forward_geometry_fp32` / `backward_geometry_fp32`).
 template <int D>
 struct Fp32Shape {
-  // d = 256: the serving forward alone (`fp32_forward.cuh` `forward_wide`)
-  static_assert(D == 64 || D == 128 || D == 256,
-                "the kernels are built for head dims 64 and 128, the serving forward for 256");
+  // d = 256 takes these constants up to kSteps; the rest are d = 64's and
+  // 128's (`forward_wide` and the wide backward have layouts of their own)
+  static_assert(D == 64 || D == 128 || D == 256, "the kernels are built for head dims 64, 128, 256");
   static constexpr int kStride = D + 4;                  // floats a shared row: 68, 132, 260
   static constexpr int kTileFloats = kRows * kStride;    // 17,408, 33,792 or 66,560 bytes
   static constexpr int kChunks = kRows * D / 4 / kThreads;  // 16-byte chunks a thread: 8, 16, 32
@@ -151,40 +153,41 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// Chunk i (of 16 bytes) of the block's share of a [64, D] tile: this
-// thread's chunks are threadIdx.x + 128 m, m < kChunks, at row i / (D / 4),
-// column 4 (i % (D / 4)).
-template <int D>
+// Chunk i (of 16 bytes) of the block's share of a [64, D] tile: with kT
+// threads copying, this thread's chunks are threadIdx.x + kT m, m < kChunks
+// (at kT = 128), at row i / (D / 4), column 4 (i % (D / 4)).
+template <int D, int kT = kThreads>
 __device__ __forceinline__ int chunk_row(int m) {
-  return (threadIdx.x + kThreads * m) / (D / 4);
+  return (threadIdx.x + kT * m) / (D / 4);
 }
-template <int D>
+template <int D, int kT = kThreads>
 __device__ __forceinline__ int chunk_col(int m) {
-  return 4 * ((threadIdx.x + kThreads * m) % (D / 4));
+  return 4 * ((threadIdx.x + kT * m) % (D / 4));
 }
-template <int D>
+template <int D, int kT = kThreads>
 __device__ __forceinline__ int chunk_at(int m) {
-  return chunk_row<D>(m) * Fp32Shape<D>::kStride + chunk_col<D>(m);
+  return chunk_row<D, kT>(m) * Fp32Shape<D>::kStride + chunk_col<D, kT>(m);
 }
 
-// The block's threads copy rows 0..63 of a [.., D] fp32 tensor (rows
-// `stride` floats apart from `src`) into a padded tile, 16 bytes a copy.
-template <int D>
-__device__ __forceinline__ void copy_tile(float* tile, const float* __restrict__ src,
-                                          int64_t stride) {
-#pragma unroll
-  for (int m = 0; m < Fp32Shape<D>::kChunks; ++m)
-    cp_async16(tile + chunk_at<D>(m), src + chunk_row<D>(m) * stride + chunk_col<D>(m));
-}
-
-// The same for the first kR rows (the chunks of a 64-row copy that lie in
-// them: chunk i is row i / (D / 4) in both).
-template <int D, int kR>
+// The block's kT threads copy the first kR rows of a [.., D] fp32 tensor
+// (rows `stride` floats apart from `src`) into a padded tile, 16 bytes a
+// copy (the chunks of a 64-row copy that lie in them: chunk i is row i /
+// (D / 4) in both).
+template <int D, int kR, int kT = kThreads>
 __device__ __forceinline__ void copy_rows(float* tile, const float* __restrict__ src,
                                           int64_t stride) {
+  static_assert(kR * D / 4 % kT == 0, "every thread copies as many chunks");
 #pragma unroll
-  for (int m = 0; m < kR * D / 4 / kThreads; ++m)
-    cp_async16(tile + chunk_at<D>(m), src + chunk_row<D>(m) * stride + chunk_col<D>(m));
+  for (int m = 0; m < kR * D / 4 / kT; ++m)
+    cp_async16(tile + chunk_at<D, kT>(m),
+               src + chunk_row<D, kT>(m) * stride + chunk_col<D, kT>(m));
+}
+
+// Rows 0..63: a whole padded [64, D] tile.
+template <int D, int kT = kThreads>
+__device__ __forceinline__ void copy_tile(float* tile, const float* __restrict__ src,
+                                          int64_t stride) {
+  copy_rows<D, kRows, kT>(tile, src, stride);
 }
 
 // ---- the split ----------------------------------------------------------------
@@ -375,18 +378,26 @@ __device__ __forceinline__ void pass_product(float (&acc)[D / 8][4], const float
   }
 }
 
-// Rows `row` and `row + 8` of a [64, D] piece at `dst` (positions `stride`
-// floats apart) from an accumulator in the C layout, times `f`.
-template <int D>
-__device__ __forceinline__ void store_acc(float* dst, int64_t stride, const float (&acc)[D / 8][4],
-                                          float f, int row, int c) {
+// Rows `row` and `row + 8` of a [64, 8 kN] piece at `dst` (positions
+// `stride` floats apart) from an accumulator of kN n-tiles in the C layout,
+// times `f`.
+template <int kN>
+__device__ __forceinline__ void store_tiles(float* dst, int64_t stride, const float (&acc)[kN][4],
+                                            float f, int row, int c) {
 #pragma unroll
-  for (int nn = 0; nn < D / 8; ++nn) {
+  for (int nn = 0; nn < kN; ++nn) {
     *reinterpret_cast<float2*>(dst + row * stride + 8 * nn + 2 * c) =
         make_float2(acc[nn][0] * f, acc[nn][1] * f);
     *reinterpret_cast<float2*>(dst + (row + 8) * stride + 8 * nn + 2 * c) =
         make_float2(acc[nn][2] * f, acc[nn][3] * f);
   }
+}
+
+// The same over all D columns.
+template <int D>
+__device__ __forceinline__ void store_acc(float* dst, int64_t stride, const float (&acc)[D / 8][4],
+                                          float f, int row, int c) {
+  store_tiles<D / 8>(dst, stride, acc, f, row, c);
 }
 
 // Once per device, `kernel`'s leave to use `bytes` of dynamic shared memory

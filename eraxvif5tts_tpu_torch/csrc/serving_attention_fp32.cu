@@ -55,7 +55,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     serving_attention_fp32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                        const float* __restrict__ v, const int* __restrict__ lens,
                                        float* __restrict__ out, int n, int h, float scale) {
-  forward_wide<D>(q, k, v, lens, out, n, h, scale);
+  forward_wide<D, false, false>(q, k, v, lens, out, nullptr, n, h, scale,
+                                Dropout{0u, 0u, 1.f, 0});
 }
 
 int launch_serving_wide(const void* q, const void* k, const void* v, const void* lens, void* out,
@@ -63,9 +64,9 @@ int launch_serving_wide(const void* q, const void* k, const void* v, const void*
   const auto kernel = serving_attention_fp32_wide_kernel<256>;
   static bool allowed[kMaxDevices] = {};
   const int err =
-      allow_shared(reinterpret_cast<const void*>(kernel), Fp32Wide<256>::kSmem, allowed);
+      allow_shared(reinterpret_cast<const void*>(kernel), fwd_smem<256>(), allowed);
   if (err != 0) return err;
-  kernel<<<dim3(n / kRows, h, b), kThreads, Fp32Wide<256>::kSmem, stream>>>(
+  kernel<<<dim3(n / kRows, h, b), kThreads, fwd_smem<256>(), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const int*>(lens), static_cast<float*>(out), n, h, scale);
   return static_cast<int>(cudaGetLastError());
@@ -78,10 +79,10 @@ int launch_serving(const void* q, const void* k, const void* v, const void* lens
   const auto kernel =
       roped ? serving_attention_fp32_kernel<D, true> : serving_attention_fp32_kernel<D, false>;
   static bool allowed[2][kMaxDevices] = {};
-  const int err = allow_shared(reinterpret_cast<const void*>(kernel), Fp32Fwd<D>::kSmem,
+  const int err = allow_shared(reinterpret_cast<const void*>(kernel), fwd_smem<D>(),
                                allowed[roped ? 1 : 0]);
   if (err != 0) return err;
-  kernel<<<dim3(n / kRows, h, b), kThreads, Fp32Fwd<D>::kSmem, stream>>>(
+  kernel<<<dim3(n / kRows, h, b), kThreads, fwd_smem<D>(), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const int*>(lens), static_cast<const float*>(cos_t),
       static_cast<const float*>(sin_t), static_cast<float*>(out), n, h, scale);
@@ -113,5 +114,5 @@ extern "C" int erax_serving_attention_fp32(const void* q, const void* k, const v
 // dynamic shared bytes (the forward core's, which kernel 4a's fp32 mode
 // reports too); non-zero for a head dim that has no instantiation.
 extern "C" int erax_serving_attention_fp32_geometry(int d, int* out) {
-  return d == 256 ? forward_geometry_wide(out) : forward_geometry(d, out);
+  return forward_geometry(d, out);
 }

@@ -173,7 +173,7 @@ class JointAttention(nn.Module):
         q, k, v = (torch.cat(pair, dim=1) for pair in ((cq, q), (ck, k), (cv, v)))
         key_valid = None if mask is None else F.pad(mask, (nt, 0), value=True)
         if self.training:  # at dropout 0: MMDiT.run refuses any other rate
-            route = head_dim_route(self.dim_head, q.device, q.dtype, training=True)
+            route = head_dim_route(self.dim_head, q.device)
             attend = train_attention if route == "kernel" else plain_train_attention
             out = attend(q, k, v, key_valid=key_valid)
         else:

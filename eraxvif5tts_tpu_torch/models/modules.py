@@ -455,7 +455,7 @@ class Attention(nn.Module):
                 k = apply_rotary_heads(k, rope, rotated)
             seed = attention_seed(dropout_keys[0]) if dropout_rate > 0.0 else 0
             row0 = batch_offset(self.shard)
-            route = head_dim_route(self.dim_head, q.device, q.dtype, training=True)
+            route = head_dim_route(self.dim_head, q.device)
             attend = train_attention if route == "kernel" else plain_train_attention
             out = attend(q, k, v, key_valid=mask, dropout_rate=dropout_rate, seed=seed,
                          batch_offset=row0, head_offset=self.head0)

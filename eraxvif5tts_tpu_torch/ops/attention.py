@@ -18,8 +18,8 @@ version for CPU tensors:
   exists because its kernel needs a TPU; the port's plain version runs on the
   CPU and is not ported.
 
-Which of them runs on the card is decided by the head dim, the dtype and
-the mode before any launch (:func:`head_dim_route`), never on an error:
+Which of them runs on the card is decided by the head dim alone, before any
+launch (:func:`head_dim_route`), never on an error:
 
 - d in ``HEAD_DIMS`` (64, 128): the kernels, always; the JAX package's
   Pallas kernels take the same (`ops/attention.py:156`,
@@ -29,14 +29,12 @@ the mode before any launch (:func:`head_dim_route`), never on an error:
   rotated outside it (its serving kernel's gate excludes d = 256,
   `ops/attention.py:156`, so `models/modules.py:378-392` does not fuse
   rotary) and training at dropout 0 through its forward and backward. The
-  port's kernels take the same roles: serving in bf16 and fp32 with
+  port's kernels take the same roles in bf16 and fp32: serving with
   ``rope=None`` (the models rotate outside, :func:`rotary_fused`) and
-  training in bf16. fp32 training at d = 256 raises: its backward is not
-  ported (ROADMAP.md, queue 2 item 1). At dropout > 0 the bf16 kernels keep
-  their position-hash keep bit, where the JAX package's TPU path draws
-  Bernoulli bits in its chunked XLA attention (`can_use_train_kernel`
-  refuses d = 256): the same distribution in another stream, the same
-  function at dropout 0;
+  training. At dropout > 0 the kernels keep their position-hash keep bit,
+  where the JAX package's TPU path draws Bernoulli bits in its chunked XLA
+  attention (`can_use_train_kernel` refuses d = 256): the same distribution
+  in another stream, the same function at dropout 0;
 - any other d (``tools/bench.py --smoke``'s 32, say): the JAX package runs
   no Pallas kernel there but XLA's attention (`ops/attention.py:206-212`),
   and work that JAX leaves to XLA is plain torch in the port: the plain
@@ -52,29 +50,19 @@ from eraxvif5tts_tpu_torch.ops.serving_attention import (
     serving_attention_reference,
 )
 from eraxvif5tts_tpu_torch.ops.train_attention import (
-    HEAD_DIMS,
+    KERNEL_HEAD_DIMS,
     LIBRARY_HEAD_DIM,
     train_attention_reference,
 )
 
 
-def head_dim_route(d: int, device, dtype: torch.dtype = torch.bfloat16,
-                   training: bool = False) -> str:
-    """How attention with head dim ``d`` in ``dtype`` runs on ``device``,
-    serving or (``training``) differentiated: ``"kernel"`` (the attention
-    wrappers: on a CUDA tensor their kernels, on a CPU tensor their plain
-    versions, as for every d) or ``"plain"`` (the plain versions on the
-    card, where the JAX package runs XLA's attention). On the card fp32
-    training at d = 256 raises: kernel 6's fp32 backward is not ported."""
-    if torch.device(device).type == "cpu" or d in HEAD_DIMS:
-        return "kernel"
-    if d == LIBRARY_HEAD_DIM:
-        if training and dtype == torch.float32:
-            raise NotImplementedError(
-                f"fp32 training attention at head dim {d} on {device}: the JAX package runs "
-                "it on its library flash kernel (kernel 6), whose fp32 backward the port has "
-                "not yet ported (ROADMAP.md, queue 2 item 1); bf16 compute trains at d = 256, "
-                f"fp32 at head dims {HEAD_DIMS}")
+def head_dim_route(d: int, device) -> str:
+    """How attention with head dim ``d`` runs on ``device``, in every dtype
+    and mode: ``"kernel"`` (the attention wrappers: on a CUDA tensor their
+    kernels, on a CPU tensor their plain versions, as for every d) or
+    ``"plain"`` (the plain versions on the card, where the JAX package runs
+    XLA's attention)."""
+    if torch.device(device).type == "cpu" or d in KERNEL_HEAD_DIMS:
         return "kernel"
     return "plain"
 

@@ -23,10 +23,9 @@ PyTorch version of the same semantics, differentiated by autograd:
 Kernel domain: q, k, v all bf16 or all fp32, contiguous and 16-byte aligned
 ``[b, n, h, d]`` (the layout a ``Linear`` output views to) with d in
 ``HEAD_DIMS`` (64 or 128, the JAX package's Pallas domain, each built as an
-instantiation of its own) or, in bf16, ``LIBRARY_HEAD_DIM`` (256: the
-dropout-free training role of the JAX package's library flash kernel,
-kernel 6, whose backward the port has in bf16 alone; fp32 at d = 256 raises,
-ROADMAP.md queue 2 item 1), ``n % 64 == 0``, ``n <= MAX_N`` = 2048 + 4096,
+instantiation of its own) or ``LIBRARY_HEAD_DIM`` (256: the dropout-free
+training role of the JAX package's library flash kernel, kernel 6, in both
+dtypes), ``n % 64 == 0``, ``n <= MAX_N`` = 2048 + 4096,
 the serving attention's bound: the
 DiT's training buckets and the MMDiT's joint sequence (text bucket plus mel
 bucket: 1024 + 4096 under the training buckets, 2048 + 4096 under the
@@ -71,11 +70,11 @@ MAX_N = TEXT_BUCKETS[-1] + DURATION_BUCKETS[-1]  # the MMDiT's longest joint seq
 TILE = 64
 HEAD_DIM = 64             # the default head dim of the geometry functions
 # the head dims every mode of the kernels is built for (`csrc/`): fused rotary
-# and the fp32 training kernels take these alone (the JAX package's Pallas gates)
+# takes these alone (the JAX package's Pallas gates)
 HEAD_DIMS = (64, 128)
 # the JAX package's library flash kernel's further head dim (kernel 6,
-# `eraxvif5tts_tpu/ops/attention.py:202`): the forward without rotary in bf16
-# and fp32 and the bf16 training kernels take it too
+# `eraxvif5tts_tpu/ops/attention.py:202`): the forward without rotary and the
+# training kernels take it too, in bf16 and fp32
 LIBRARY_HEAD_DIM = 256
 KERNEL_HEAD_DIMS = (*HEAD_DIMS, LIBRARY_HEAD_DIM)
 PANEL = 64                # bf16 columns of one 128-byte swizzle atom: a [64, d] tile is d / 64
@@ -114,11 +113,18 @@ FP32_STRIDE = 68    # floats a shared tile row: 64 padded by 4
 # the fp32 dq and dk/dv kernels' ring: two stages at d = 64, where the warps keep
 # their fixed operands in registers; one at d = 128, where those go to shared
 # memory beside the ring (64 + 64 fixed floats a thread beside one or two
-# [16, 128] accumulators would not fit in 255 registers)
-FP32_BWD_STAGES = {64: 2, 128: 1}
-# the fp32 serving forward at d = 256 (`csrc/fp32_forward.cuh` forward_wide):
-# Q's rows in shared memory, K and V in tiles of 32 keys, split where read
+# [16, 128] accumulators would not fit in 255 registers); two at d = 256, of
+# FP32_WIDE_ROWS rows each, beside the fixed tiles
+FP32_BWD_STAGES = {64: 2, 128: 1, 256: 2}
+# the fp32 forwards at d = 256 (`csrc/fp32_forward.cuh` forward_wide): Q's rows
+# in shared memory, K and V in tiles of 32 keys, split where read
 FP32_WIDE_KEYS = 32
+# the fp32 dq and dk/dv kernels at d = 256 (`csrc/train_attention_fp32.cu`):
+# the streamed tiles of 16 rows (keys for dq, queries for dk/dv), raw, split
+# where read; dk/dv on two warps a 16-key group, each owning half the head's
+# columns of dK and dV
+FP32_WIDE_ROWS = 16
+FP32_WIDE_DKV_THREADS = 256
 
 
 def fmix32(h: torch.Tensor) -> torch.Tensor:
@@ -360,11 +366,12 @@ def forward_geometry_fp32(b: int, n: int, h: int, d: int = HEAD_DIM) -> dict:
     one at d = 128), and what the kernels' launch bounds ask of the
     registers. ``key_tile``: the keys a ring's tile holds.
 
-    At d = 256 (kernel 1's fp32 mode without rotary: kernel 6's role; no
-    training kernel) the block keeps its 64 Q rows as fp32 in one padded
-    tile of shared memory and the ring's tiles hold ``FP32_WIDE_KEYS`` (32)
-    keys, kept raw and split where they are read: Q's tile and two stages
-    of a K and a V tile, one block an SM."""
+    At d = 256 (kernel 6's roles: kernel 1's fp32 mode without rotary and
+    kernel 4a's fp32 mode, both on `csrc/fp32_forward.cuh` ``forward_wide``)
+    the block keeps its 64 Q rows as fp32 in one padded tile of shared
+    memory and the ring's tiles hold ``FP32_WIDE_KEYS`` (32) keys, kept raw
+    and split where they are read: Q's tile and two stages of a K and a V
+    tile, 199,680 bytes, one block an SM."""
     if d == LIBRARY_HEAD_DIM:
         row = (d + 4) * 4
         shared = FP32_ROWS * row + FP32_STAGES * 2 * FP32_WIDE_KEYS * row
@@ -379,36 +386,50 @@ def forward_geometry_fp32(b: int, n: int, h: int, d: int = HEAD_DIM) -> dict:
 def backward_geometry_fp32(b: int, n: int, h: int, d: int = HEAD_DIM) -> dict:
     """How the fp32 dq and dk/dv kernels cover ``[b, n, h, d]`` (dq over
     query rows, dk/dv over keys; both ``n / 64`` blocks a (sample, head) of
-    64 rows, four warps of 16): the fixed operands (dq's Q and dO, dk/dv's K
-    and V) stay in registers at d = 64 and in two padded fp32 tiles of
-    shared memory at d = 128 (``fixed_tiles``); the streamed ones come
-    through a ring of ``bwd_stages`` stages (``FP32_BWD_STAGES``) of padded
-    ``[64, d]`` fp32 tiles (dq's a K and a V tile, dk/dv's a Q and a dO tile
-    and that query tile's 64 LSE and 64 D values), split into TF32 big parts
-    in place and small parts in two more tiles. ``blocks_per_sm`` as
-    :func:`forward_geometry_fp32`'s."""
-    geo = _fp32_geometry(b, n, h, d, HEAD_DIMS)
+    64 rows, in groups of 16 rows a warp): the fixed operands (dq's Q and dO,
+    dk/dv's K and V) stay in registers at d = 64 and in two padded fp32
+    tiles of shared memory at d = 128 and 256 (``fixed_tiles``); the
+    streamed ones come through a ring of ``bwd_stages`` stages
+    (``FP32_BWD_STAGES``) of padded ``[bwd_tile, d]`` fp32 tiles (dq's a K
+    and a V tile, dk/dv's a Q and a dO tile and that query tile's LSE and D
+    values). At d = 64 and 128 a tile is 64 rows, split into TF32 big parts
+    in place and small parts in two more tiles; at d = 256 it is
+    ``FP32_WIDE_ROWS`` (16) rows kept raw and split where read, and dk/dv
+    runs ``dkv_threads`` = 256 threads, two warps a 16-key group, each
+    owning one of ``dkv_columns`` of the head (dq: four warps, ``threads``).
+    ``blocks_per_sm`` as :func:`forward_geometry_fp32`'s."""
+    geo = _fp32_geometry(b, n, h, d, KERNEL_HEAD_DIMS)
     tile = FP32_ROWS * (d + 4) * 4
     stages = FP32_BWD_STAGES[d]
-    fixed = 0 if d == 64 else 2
-    dq_shared = (stages * 2 + 2 + fixed) * tile
-    dkv_shared = stages * (2 * tile + 2 * FP32_ROWS * 4) + (2 + fixed) * tile
-    return dict(geo, bwd_stages=stages, fixed_tiles=fixed,
+    if d == LIBRARY_HEAD_DIM:
+        rows = FP32_WIDE_ROWS
+        stream = rows * (d + 4) * 4
+        dq_shared = 2 * tile + stages * 2 * stream
+        dkv_shared = 2 * tile + stages * (2 * stream + 2 * rows * 4)
+        threads, columns, fixed = FP32_WIDE_DKV_THREADS, [(0, d // 2), (d // 2, d // 2)], 2
+    else:
+        rows, threads, columns = TILE, FP32_THREADS, [(0, d)]
+        fixed = 0 if d == 64 else 2
+        dq_shared = (stages * 2 + 2 + fixed) * tile
+        dkv_shared = stages * (2 * tile + 2 * FP32_ROWS * 4) + (2 + fixed) * tile
+    return dict(geo, bwd_stages=stages, bwd_tile=rows, fixed_tiles=fixed,
+                dq_threads=FP32_THREADS, dkv_threads=threads, dkv_columns=columns,
                 dq_shared_bytes=dq_shared, dkv_shared_bytes=dkv_shared,
                 blocks_per_sm=min(_per_sm(dq_shared), _per_sm(dkv_shared)))
 
 
 FP32_FORWARD_BUILT = ("rows", "threads", "stages", "shared_bytes")
+FP32_BACKWARD_BUILT = ("bwd_rows", "dq_threads", "dkv_threads", "bwd_stages", "bwd_tile",
+                       "dq_shared_bytes", "dkv_shared_bytes")
 
 
 def kernel_geometry_fp32(d: int = HEAD_DIM) -> dict:
     """The constants the built fp32 kernels report for head dim ``d`` (needs
     the card's build): the forward's ``rows``, ``threads``, ``stages`` and
     ``shared_bytes`` must equal :func:`forward_geometry_fp32`'s, the ``bwd_``
-    ones and the dq and dk/dv shared bytes :func:`backward_geometry_fp32`'s."""
+    ones :func:`backward_geometry_fp32`'s (``bwd_rows`` its ``rows``)."""
     return _kernel_geometry("erax_train_attention_fp32_geometry", d,
-                            FP32_FORWARD_BUILT + ("bwd_rows", "bwd_threads", "bwd_stages",
-                                                  "dq_shared_bytes", "dkv_shared_bytes"))
+                            FP32_FORWARD_BUILT + FP32_BACKWARD_BUILT)
 
 
 def _check_cuda_args(q, k, v, lens) -> None:
@@ -426,11 +447,8 @@ def _check_cuda_args(q, k, v, lens) -> None:
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"train_attention: {name} must be contiguous and 16-byte aligned")
     b, n, h, d = q.shape
-    dims = KERNEL_HEAD_DIMS if q.dtype == torch.bfloat16 else HEAD_DIMS
-    if d not in dims:
-        raise ValueError(f"train_attention: the {q.dtype} kernels take head dims {dims}, got "
-                         f"{d}" + (" (the fp32 backward at d = 256 is ROADMAP.md queue 2 item 1)"
-                                   if d == LIBRARY_HEAD_DIM else ""))
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"train_attention: the kernels take head dims {KERNEL_HEAD_DIMS}, got {d}")
     if n % TILE or not 0 < n <= MAX_N:
         raise ValueError(f"train_attention: n must be a multiple of {TILE} in "
                          f"[{TILE}, {MAX_N}], got {n}")

@@ -353,14 +353,16 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         ta.train_attention(qd, qd, qd)
     with pytest.raises(ValueError, match="no kernel built"):
         ta.kernel_forward_geometry(32)
-    # d = 256 (kernel 6's): every mode but fused rotary and fp32 training
+    # d = 256 (kernel 6's): every mode but fused rotary; 512 none
     q256 = torch.zeros((1, 128, 2, 256), device=cuda)
-    with pytest.raises(ValueError, match="head dims"):
-        ta.train_attention(q256, q256, q256)
     with pytest.raises(ValueError, match="fused rotary"):
         sa.serving_attention(q256, q256, q256, None, torch.zeros((128, 256), device=cuda))
+    q512 = torch.zeros((1, 128, 2, 512), device=cuda)
+    for t in (q512, q512.bfloat16()):
+        with pytest.raises(ValueError, match="head dims"):
+            ta.train_attention(t, t, t)
     with pytest.raises(ValueError, match="no kernel built"):
-        ta.kernel_geometry_fp32(256)
+        ta.kernel_geometry_fp32(512)
     g = torch.Generator(device=cuda).manual_seed(1)
     ff_args = _int8_ff_operands(g, cuda, 1, 32, 512, 1024, 512)
     with pytest.raises(TypeError):  # x must be bf16
@@ -914,13 +916,14 @@ def test_fp32_backward_kernels_ignore_the_tf32_flags(cuda, dropout):
     assert all(torch.equal(a, b) for a, b in zip(*results))
 
 
-@pytest.mark.parametrize("d", ta.HEAD_DIMS)
+@pytest.mark.parametrize("d", ta.KERNEL_HEAD_DIMS)
 def test_train_attention_fp32_geometry_is_the_kernels(cuda, d):
     built = ta.kernel_geometry_fp32(d)
     fwd, bwd = ta.forward_geometry_fp32(2, 4096, 16, d), ta.backward_geometry_fp32(2, 4096, 16, d)
     assert built == {"rows": fwd["rows"], "threads": fwd["threads"], "stages": fwd["stages"],
                      "shared_bytes": fwd["shared_bytes"], "bwd_rows": bwd["rows"],
-                     "bwd_threads": bwd["threads"], "bwd_stages": bwd["bwd_stages"],
+                     "dq_threads": bwd["dq_threads"], "dkv_threads": bwd["dkv_threads"],
+                     "bwd_stages": bwd["bwd_stages"], "bwd_tile": bwd["bwd_tile"],
                      "dq_shared_bytes": bwd["dq_shared_bytes"],
                      "dkv_shared_bytes": bwd["dkv_shared_bytes"]}
 
@@ -1353,8 +1356,9 @@ def test_train_attention_d128_kernels_match_plain(cuda, no_tf32, n, dtype, dropo
 def test_d256_geometry_is_the_kernels(cuda):
     """The d = 256 instantiations report the constants `ops/train_attention.py`
     states: the bf16 forward (128 rows, two stages), the backward (64 rows,
-    the columns split between the warpgroups), the fp32 serving core (Q in
-    shared memory, 32-key tiles); the fp32 training geometry refuses 256."""
+    the columns split between the warpgroups), the fp32 forward core (Q in
+    shared memory, 32-key tiles) and the fp32 dq and dk/dv (16-row stages,
+    dk/dv on 256 threads)."""
     fwd, bwd = ta.forward_geometry(2, 4096, 4, 256), ta.backward_geometry(2, 4096, 4, 256)
     built = ta.kernel_forward_geometry(256)
     assert built == {name: fwd[name] for name in built} and built["stages"] == 2
@@ -1362,8 +1366,13 @@ def test_d256_geometry_is_the_kernels(cuda):
     assert built == {name: bwd[name] for name in built} and built["rows"] == 64
     geo = sa.forward_geometry_fp32(2, 4096, 4, 256)
     assert sa.kernel_geometry_fp32(256) == {key: geo[key] for key in ta.FP32_FORWARD_BUILT}
-    with pytest.raises(ValueError, match="head dim 256"):
-        ta.kernel_geometry_fp32(256)
+    built = ta.kernel_geometry_fp32(256)
+    bwd = ta.backward_geometry_fp32(2, 4096, 4, 256)
+    assert {key: built[key] for key in ta.FP32_FORWARD_BUILT} == sa.kernel_geometry_fp32(256)
+    assert (built["dq_threads"], built["dkv_threads"], built["bwd_tile"]) == \
+        (bwd["dq_threads"], bwd["dkv_threads"], bwd["bwd_tile"]) == (128, 256, 16)
+    assert (built["dq_shared_bytes"], built["dkv_shared_bytes"]) == \
+        (bwd["dq_shared_bytes"], bwd["dkv_shared_bytes"])
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -1400,7 +1409,7 @@ def test_train_attention_d256_kernels_match_plain(cuda, no_tf32, n, dropout):
     """Kernels 4a-4c's bf16 d = 256 instantiations (kernel 6's training
     role at keep = 1; the position-hash dropout beside it) against the plain
     version's autograd within 3e-2 relative L2, each launch counted at d =
-    256; fp32 at d = 256 refused before any launch."""
+    256."""
     g = torch.Generator(device=cuda).manual_seed(n + 257)
     q, k, v, dout = (torch.randn((2, n, 4, 256), generator=g, device=cuda).bfloat16()
                      for _ in range(4))
@@ -1417,8 +1426,35 @@ def test_train_attention_d256_kernels_match_plain(cuda, no_tf32, n, dropout):
     assert [fn.launches_by_head_dim[256] for fn in kernels] == [b + 1 for b in before]
     for got, want in zip(*results):
         assert float((got.float() - want.float()).norm() / want.float().norm()) < 3e-2
-    fp32 = [fn.launches_by_head_dim[256] for fn in ta._LAUNCHERS[torch.float32]]
-    with pytest.raises(ValueError, match="queue 2 item 1"):
-        ta.train_attention(*(t.float().requires_grad_() for t in (q, k, v)),
-                           key_valid=lens_to_mask(lens, n))
-    assert [fn.launches_by_head_dim[256] for fn in ta._LAUNCHERS[torch.float32]] == fp32
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+@pytest.mark.parametrize("n, lens_list", [(192, (192, 0)), (4096, (4096, 4059)),
+                                          (6144, (6144, 6107))])
+def test_train_attention_fp32_d256_kernels_match_plain(cuda, no_tf32, n, lens_list, dropout):
+    """Kernels 4a-4c's fp32 d = 256 instantiations (kernel 6's fp32
+    training role: `forward_wide` with the LSE, dq and dk/dv on 16-row
+    stages) against the plain version's autograd: O within FP32_TOL * (1 +
+    |plain|), dq / dk / dv within FP32_GRAD_TOL of their scale, each launch
+    counted at d = 256, a second forward and backward bit-identical; a
+    sample with no valid key at n = 192."""
+    g = torch.Generator(device=cuda).manual_seed(n + 258)
+    q, k, v, dout = (torch.randn((2, n, 4, 256), generator=g, device=cuda) for _ in range(4))
+    lens = torch.tensor(lens_list, dtype=torch.int32, device=cuda)
+    kernels = ta._LAUNCHERS[torch.float32]
+    before = [fn.launches_by_head_dim[256] for fn in kernels]
+    results = []
+    for attend in (lambda *a: ta.train_attention(*a, key_valid=lens_to_mask(lens, n),
+                                                 dropout_rate=dropout, seed=23),
+                   lambda *a: ta.train_attention(*a, key_valid=lens_to_mask(lens, n),
+                                                 dropout_rate=dropout, seed=23),
+                   lambda *a: ta.train_attention_reference(*a, lens, dropout, 23)):
+        args = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = attend(*args)
+        results.append([out.detach(), *torch.autograd.grad(out, args, dout)])
+    assert [fn.launches_by_head_dim[256] for fn in kernels] == [b + 2 for b in before]
+    got, again, want = results
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.all((got[0] - want[0]).abs() <= FP32_TOL * (1 + want[0].abs()))
+    for a, b in zip(got[1:], want[1:]):
+        assert float((a - b).abs().max() / b.abs().max()) <= FP32_GRAD_TOL

@@ -14,6 +14,8 @@ the CPU path untouched). The kernels themselves run on the card
 (`tests/test_torch_cuda.py`, `chip_smoke.py`).
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -127,6 +129,21 @@ def _fe_rounding() -> str:
             0xC00: "toward zero"}.get(mode, hex(mode))
 
 
+@contextlib.contextmanager
+def _one_thread():
+    """torch's CPU ops on this thread alone. Its ``cos`` runs in chunks of
+    2048 elements across the OpenMP threads, and once gave a [64, 64] table
+    whose second chunk (rows 32-63, a pool thread's) was 1.5e-4 off float64
+    while a fresh call was exact: the 34-element miss that the report below
+    named. On one thread every table comes from the same thread's call."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 def _files_run_before(request) -> list[str]:
     """The test files of which this process (an xdist worker, or the single
     pytest process) has run a test before this one. pytest sets a test's
@@ -152,7 +169,8 @@ def _rotation_miss_report(request, x, rope, cos, sin, mirror32, got, want) -> st
     exact = np.asarray(rope, np.float64)
     rows, cols = np.nonzero(got != want)
     worker = getattr(request.config, "workerinput", {}).get("workerid", "main")
-    lines = [f"{len(rows)} of {got.size} elements differ; the first:"]
+    lines = [f"{len(rows)} of {got.size} elements differ, in rows {rows.min()}-{rows.max()}; "
+             "the first:"]
     for r, c in list(zip(rows, cols))[:8]:
         lines.append(f"  ({r}, {c}): mirror fp32 {mirror32[r, c]!r} -> {got[r, c]!r}, "
                      f"plain fp32 {plain32[r, c]!r} -> {want[r, c]!r}, "
@@ -180,14 +198,16 @@ def test_rotating_a_swizzled_tile_in_place_is_the_plain_rotary(d, request):
     """The kernel's rotation, mirrored in numpy on a ``[64, d]`` tile laid
     out as TMA writes it (d / 64 swizzled panels): chunk by chunk through the
     swizzled map with the table entries of the chunk's logical (row,
-    column), against the plain version's rotary on the row-major tile. On a
-    miss the assertion says what both sides computed and in what state the
+    column), against the plain version's rotary on the row-major tile, both
+    sides' tables computed on one thread (:func:`_one_thread`). On a miss
+    the assertion says what both sides computed and in what state the
     process was (`_rotation_miss_report`)."""
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.standard_normal((64, d)).astype(np.float32)).bfloat16()
     rope = rotary_freqs(256, d)[128:192]  # the tile of rows 128..191
-    cos, sin = rope.float().cos().numpy(), rope.float().sin().numpy()
-    want = sa._rotate(x[None, :, None, :], rope)[0, :, 0].float().numpy()
+    with _one_thread():
+        cos, sin = rope.float().cos().numpy(), rope.float().sin().numpy()
+        want = sa._rotate(x[None, :, None, :], rope)[0, :, 0].float().numpy()
     tile = np.zeros(64 * d, np.float32)  # one slot per 2 bytes
     for r in range(64):
         for c in range(d):

@@ -274,24 +274,15 @@ def test_8x128_checkpoint_reaches_the_port_through_both_converters(tmp_path):
 @pytest.mark.parametrize("device", ["cpu", "cuda"])
 @pytest.mark.parametrize("d", [16, 32, 64, 96, 128, 256])
 def test_head_dim_route_is_a_function_of_d_and_device(d, device):
-    """On the card: the kernels at d in (64, 128) in every mode and at d =
-    256 (the library flash kernel's, kernel 6) serving in either dtype and
-    training in bf16; a refusal naming the ROADMAP item for fp32 training at
-    256 (kernel 6's fp32 backward); the plain versions at any other d (XLA's
-    attention in the JAX package). On the CPU every d takes the wrappers,
-    whose CPU path is the plain version."""
-    for dtype in (torch.bfloat16, torch.float32):
-        for training in (False, True):
-            route = (lambda: tatt.head_dim_route(d, torch.device(device), dtype,
-                                                 training=training))
-            if device == "cpu" or d in (64, 128) or (
-                    d == 256 and not (training and dtype == torch.float32)):
-                assert route() == "kernel"
-            elif d == 256:
-                with pytest.raises(NotImplementedError, match="queue 2 item 1"):
-                    route()
-            else:
-                assert route() == "plain"
+    """On the card: the kernels at d in (64, 128) and at d = 256 (the
+    library flash kernel's, kernel 6), in every dtype and mode; the plain
+    versions at any other d (XLA's attention in the JAX package). On the CPU
+    every d takes the wrappers, whose CPU path is the plain version."""
+    route = tatt.head_dim_route(d, torch.device(device))
+    if device == "cpu" or d in (64, 128, 256):
+        assert route == "kernel"
+    else:
+        assert route == "plain"
     assert tatt.head_dim_route(d, "cpu") == "kernel"
 
 

@@ -172,10 +172,13 @@ def test_keep_mask_at_d256_shapes_bit_identical_to_jax(n):
 def test_d256_geometry_covers_every_row_once_within_the_card(n):
     """The bf16 forward at d = 256 (128 rows a block, two consumer
     warpgroups at 232 registers, a ring of two stages), the backward (64 rows
-    a block, both warpgroups on them, 128 of the head's columns each) and
-    the fp32 serving core (64 rows, 32-key tiles): every row owned once, no
-    tile past the sample, shared memory within a block's 232,448 bytes and
-    the `setmaxnreg` sum within what the launch has."""
+    a block, both warpgroups on them, 128 of the head's columns each), the
+    fp32 forward core (64 rows, 32-key tiles; serving and training) and the
+    fp32 dq (64 rows, four warps of 16) and dk/dv (64 keys, eight warps, two
+    a 16-key group on 128 columns each), their rings 16 rows a stage: every
+    row or key owned once, every column of dk / dv once, no tile past the
+    sample, shared memory within a block's 232,448 bytes and the
+    `setmaxnreg` sum within what the launch has."""
     b, h = 2, 4
     fwd = tta.forward_geometry(b, n, h, D)
     assert (fwd["rows"], fwd["stages"], fwd["threads"], fwd["registers"]) == (128, 2, 384,
@@ -193,9 +196,28 @@ def test_d256_geometry_covers_every_row_once_within_the_card(n):
     assert bwd["grid"] == (n // 64, h, b) and bwd["columns"] == [(0, 128), (128, 128)]
     assert bwd["warpgroups"] == [[(r, 64), (r, 64)] for r in range(0, n, 64)]
     f32 = tsa.forward_geometry_fp32(b, n, h, D)
+    assert f32 == tta.forward_geometry_fp32(b, n, h, D)  # the training forward's core
     assert (f32["rows"], f32["threads"], f32["stages"], f32["key_tile"]) == (64, 128, 2, 32)
     assert f32["blocks"] == [(r, 64) for r in range(0, n, 64)]
-    for shared in (fwd["shared_bytes"], bwd["shared_bytes"], f32["shared_bytes"]):
+    b32 = tta.backward_geometry_fp32(b, n, h, D)
+    assert (b32["rows"], b32["dq_threads"], b32["dkv_threads"], b32["bwd_stages"],
+            b32["bwd_tile"], b32["fixed_tiles"]) == (64, 128, 256, 2, 16, 2)
+    assert b32["grid"] == (n // 64, h, b) and b32["blocks"] == [(r, 64) for r in range(0, n, 64)]
+    # every row (dq) or key (dk/dv) of a block once: a warp of dq each 16 rows, two
+    # warps of dk/dv each 16 keys, one on each part of the head's columns
+    for threads, parts in ((b32["dq_threads"], [(0, D)]), (b32["dkv_threads"],
+                                                           b32["dkv_columns"])):
+        owned = np.zeros((n, D), np.int64)
+        for start, rows in b32["blocks"]:
+            for warp in range(threads // 32):
+                first, width = parts[warp // 4]
+                row = start + 16 * (warp % 4)
+                owned[row:row + 16, first:first + width] += 1
+        np.testing.assert_array_equal(owned, 1)
+    # a streamed tile of 16 rows: n / 16 of them a sample, none past its end
+    assert n % b32["bwd_tile"] == 0
+    for shared in (fwd["shared_bytes"], bwd["shared_bytes"], f32["shared_bytes"],
+                   b32["dq_shared_bytes"], b32["dkv_shared_bytes"]):
         assert shared <= tta.SHARED_LIMIT and tta._per_sm(shared) == 1
 
 
@@ -207,30 +229,42 @@ def test_d256_shared_bytes_add_up():
         1024 + 2 * tile + 2 * (2 * tile + 2 * 64 * 4) + 8 * (2 * 2 + 1) == 198696
     row = (D + 4) * 4  # a padded fp32 row
     assert tsa.forward_geometry_fp32(1, 4096, 4, D)["shared_bytes"] == \
+        tta.forward_geometry_fp32(1, 4096, 4, D)["shared_bytes"] == \
         64 * row + 2 * 2 * 32 * row == 199680
+    # fp32 dq: Q's and dO's 64 rows, two stages of a K and a V tile of 16 keys;
+    # dk/dv: K's and V's, two stages of a Q and a dO tile of 16 queries and
+    # their 16 LSE and 16 D values
+    b32 = tta.backward_geometry_fp32(1, 4096, 4, D)
+    assert b32["dq_shared_bytes"] == 2 * 64 * row + 2 * 2 * 16 * row == 199680
+    assert b32["dkv_shared_bytes"] == 2 * 64 * row + 2 * (2 * 16 * row + 2 * 16 * 4) == 199936
 
 
 def test_d256_domain_refuses_rotary_and_fp32_training():
     """On the kernels' argument checks (no launch: CPU tensors are enough):
     the serving attention takes d = 256 in both dtypes without rotary and
-    refuses fused rotary there; the training attention takes bf16 at d =
-    256 and refuses fp32, naming the ROADMAP item; the fp32 training
-    geometry refuses d = 256."""
+    refuses fused rotary there; the training attention takes d = 256 in
+    both dtypes (fp32 training, refused until kernel 6's fp32 backward was
+    ported, included) and refuses a d outside (64, 128, 256); the fp32
+    training geometry states d = 256; every launcher counts d = 256."""
     for dtype in (torch.bfloat16, torch.float32):
         q = torch.zeros(2, 128, 2, D, dtype=dtype)
         tsa._check_cuda_args(q, q, q, None, None)
         with pytest.raises(ValueError, match="fused rotary"):
             tsa._check_cuda_args(q, q, q, None, torch.zeros(128, D))
     lens = torch.full((2,), 128, dtype=torch.int32)
-    tta._check_cuda_args(*(torch.zeros(2, 128, 2, D, dtype=torch.bfloat16),) * 3, lens)
-    with pytest.raises(ValueError, match="queue 2 item 1"):
-        tta._check_cuda_args(*(torch.zeros(2, 128, 2, D),) * 3, lens)
+    for dtype in (torch.bfloat16, torch.float32):
+        tta._check_cuda_args(*(torch.zeros(2, 128, 2, D, dtype=dtype),) * 3, lens)
+        for bad in (32, 192, 512):
+            with pytest.raises(ValueError, match="head dims"):
+                tta._check_cuda_args(*(torch.zeros(2, 128, 2, bad, dtype=dtype),) * 3, lens)
+    assert tta.backward_geometry_fp32(2, 128, 2, D)["bwd_tile"] == 16
     with pytest.raises(ValueError, match="head dims"):
-        tta.backward_geometry_fp32(2, 128, 2, D)
+        tta.backward_geometry_fp32(2, 128, 2, 192)
     assert tatt.rotary_fused(64) and tatt.rotary_fused(128) and not tatt.rotary_fused(D)
     for fn in (tsa.serving_attention.launches_by_head_dim,
                tsa.serving_attention.launches_fp32_by_head_dim,
-               *(f.launches_by_head_dim for f in tta._LAUNCHERS[torch.bfloat16])):
+               *(f.launches_by_head_dim for f in tta._LAUNCHERS[torch.bfloat16]),
+               *(f.launches_by_head_dim for f in tta._LAUNCHERS[torch.float32])):
         assert set(fn) == {64, 128, 256}
 
 

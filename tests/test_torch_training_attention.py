@@ -158,10 +158,11 @@ def test_train_attention_rejects_what_the_kernels_do_not_take():
         tta._check_cuda_args(bad_n, bad_n, bad_n, lens)
     wide = torch.zeros(2, 128, 2, 128, dtype=torch.bfloat16)  # d = 128: the second build
     tta._check_cuda_args(wide, wide, wide, lens)
-    library = torch.zeros(2, 128, 2, 256, dtype=torch.bfloat16)  # d = 256: bf16 alone
+    library = torch.zeros(2, 128, 2, 256, dtype=torch.bfloat16)  # d = 256: kernel 6's role
     tta._check_cuda_args(library, library, library, lens)
-    for bad_d in (torch.zeros(2, 128, 2, 32, dtype=torch.bfloat16),  # no kernel is built
-                  library.float()):  # kernel 6's fp32 backward is not ported
+    tta._check_cuda_args(library.float(), library.float(), library.float(), lens)
+    for dtype in (torch.bfloat16, torch.float32):
+        bad_d = torch.zeros(2, 128, 2, 32, dtype=dtype)  # no kernel is built
         with pytest.raises(ValueError, match="head dim"):
             tta._check_cuda_args(bad_d, bad_d, bad_d, lens)
     t = q.transpose(1, 2).contiguous().transpose(1, 2)
