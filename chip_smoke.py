@@ -4057,9 +4057,11 @@ def check_d128_geometry() -> None:
             raise AssertionError(f"[d128] built geometry at d = {d}: {built}; stated {stated}")
         log(f"[d128] built geometry at d = {d} equals the stated one: bf16 forward "
             f"{built['forward']} (registers {fwd['registers']}), backward {built['backward']}; "
-            f"fp32 {built['fp32']}, {f32['blocks_per_sm']} block(s) an SM")
+            f"fp32 {built['fp32']} ({f32['sets']} warp set(s) of four, key tiles of "
+            f"{f32['key_tile']}, Q split {'once' if f32['q_split'] else 'at each use'}), "
+            f"{f32['blocks_per_sm']} block(s) an SM")
     lib = _cuda.kernels().lib
-    out = (ctypes.c_int * 11)()
+    out = (ctypes.c_int * len(ta.FP32_FORWARD_BUILT + ta.FP32_BACKWARD_BUILT))()
     refused = {name: getattr(lib, name)(32, out) for name in (
         "erax_flash_forward_geometry", "erax_train_attention_bwd_geometry",
         "erax_train_attention_fp32_geometry", "erax_serving_attention_fp32_geometry")}
@@ -4644,8 +4646,8 @@ def check_d256_geometry() -> None:
         raise AssertionError(f"[d256] built geometry: {built}; stated {stated}")
     log(f"[d256] built geometry equals the stated one: bf16 forward {built['forward']} "
         f"(registers {fwd['registers']}), backward {built['backward']} (columns "
-        f"{bwd['columns']}); fp32 serving {built['fp32 serving']} (key tiles of "
-        f"{f32['key_tile']}); fp32 training {built['fp32 training']} (dk/dv columns "
+        f"{bwd['columns']}); fp32 serving {built['fp32 serving']} ({f32['sets']} warp sets "
+        f"of four, key tiles of {f32['key_tile']}, Q split at each use); fp32 training {built['fp32 training']} (dk/dv columns "
         f"{b32['dkv_columns']})")
     lib = _cuda.kernels().lib
     q = torch.zeros((1, 64, 2, d), dtype=torch.float32, device="cuda")

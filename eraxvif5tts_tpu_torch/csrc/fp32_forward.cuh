@@ -4,8 +4,8 @@
 // -1e30, no LSE) and kernel 4a's (`train_attention_fp32.cu`: position-hash
 // dropout, the LSE), as the bf16 kernels 1 and 4a share `flash_forward.cuh`.
 //
-// For q, k, v [b, n, h, D] fp32 (D = 64 or 128; at 256 on `forward_wide`,
-// below, without rotary) and lens [b] int32:
+// For q, k, v [b, n, h, D] fp32 (D = 64, 128 or 256; rotary at 64 and 128)
+// and lens [b] int32:
 //   q', k' = rotate(q), rotate(k)    (kRope; fp32, the plain version's rounding)
 //   S      = q' k'^T * scale         keys >= lens[b] set to the masked logit
 //   P      = exp(S - m), l = rowsum P (the undropped weights form the normaliser)
@@ -22,21 +22,26 @@
 // domain: at 495 / 3 TFLOP/s of fp32-accurate products in 3xTF32, beside the
 // per-element `expf`, keep-bit hash and split work on the CUDA cores.
 //
-// The design is the dq kernel's (`train_attention_fp32.cu`), whose S = Q K^T
-// has the same shape and whose dQ += dS K reads its B operand as O += Pd V
-// does:
+// Two cores share the arithmetic: every product is the same 3xTF32
+// `mma.sync` with the same operand splits, each pass's Pd V goes into a
+// fresh accumulator that the CUDA cores fold into O in IEEE fp32, and the
+// exponentials are `expf`, the final division and log IEEE fp32 (the build
+// has no --use_fast_math). No atomics: the same inputs give the same bits
+// every time.
+//
+// `forward_core`, at d = 64 (the dq kernel's design, `train_attention_fp32.cu`,
+// whose S = Q K^T has the same shape and whose dQ += dS K reads its B
+// operand as O += Pd V does):
 // - a block owns 64 query rows of one (sample, head), four warps of 16, two
-//   blocks an SM at d = 64 (one at d = 128); a warp keeps its Q rows in
-//   registers in A-fragment order, rotated as they are loaded (kRope) and
-//   split once for the whole walk at d = 64 (`SplitA`); at d = 128 the split
-//   Q would be 128 registers beside O's 64, so Q stays fp32 (`RawA`, 64) and
-//   is split at each pass;
+//   blocks an SM; a warp keeps its Q rows in registers in A-fragment order,
+//   rotated as they are loaded (kRope) and split once for the whole walk
+//   (`SplitA`);
 // - K and V come through the two-stage `cp.async` ring; once a tile lands,
 //   each thread rotates its own chunks of K in place (kRope: cos / sin of
 //   the tile's absolute positions, read by `__ldg`) and splits them and its
 //   chunks of V, the big parts in place and the small parts beside; two
 //   barriers a tile; (2 stages x 2 tiles + 2 small tiles) x 17,408 =
-//   104,448 bytes of shared memory at d = 64, x 33,792 = 202,752 at d = 128;
+//   104,448 bytes of shared memory;
 // - a tile in two passes of 32 keys (kPass n-tiles): S for the pass by
 //   `ldmatrix.x4` from the split K tile; the online softmax in the mma's C
 //   layout (the row maximum across the quad of lanes that share a row, by
@@ -44,13 +49,17 @@
 //   in place as the A fragment of O += Pd V through the permuted k-step.
 //   (One pass of 64 keys holds more registers, and ran slower on an H100,
 //   the most at keep = 1);
-// - each pass's Pd V goes into a fresh accumulator that the CUDA cores fold
-//   into O as O = alpha O + part, in IEEE fp32 (the rescale needs them
-//   anyway), so that the mma's non-nearest sums run over 32 keys, not over
-//   up to 6144; at d = 128 O's two 64-column halves take one in turn;
-// - exponentials are `expf`, the final division and log IEEE fp32 (the
-//   build has no --use_fast_math). No atomics: the same inputs give the same
-//   bits every time.
+// - O = alpha O + part after each pass, so that the mma's non-nearest sums
+//   run over 32 keys, not over up to 6144.
+//
+// `forward_sets`, at d = 128 and 256 (below): a padded [64, d] tile is
+// 33,792 or 66,560 bytes and a warp's O 64 or 128 registers a lane, so the
+// d = 64 layout holds one block of four warps an SM, one warp a
+// sub-partition with nothing to hide its `mma.sync` and `ldmatrix` latency.
+// This core runs eight warps in two sets that share the block's rows and
+// walk alternate key tiles, Q once in shared memory, each set's K and V
+// tiles split once by the set's own threads; the sets' partial softmax
+// states merge at the end.
 #pragma once
 
 #include <stdint.h>
@@ -62,9 +71,8 @@
 
 namespace fp32tile {
 
-// The forward's ring: a K and a V tile a stage (big parts once split), and
-// the small parts of one stage's tiles: 104,448 bytes at d = 64, 202,752 at
-// d = 128.
+// `forward_core`'s ring (d = 64): a K and a V tile a stage (big parts once
+// split), and the small parts of one stage's tiles: 104,448 bytes.
 template <int D>
 struct Fp32Fwd {
   static constexpr int kStage = 2 * Fp32Shape<D>::kTileFloats;
@@ -73,277 +81,105 @@ struct Fp32Fwd {
 };
 constexpr int kPass = 4;  // n-tiles of keys a softmax pass takes: half a tile
 
-// ---- d = 256: the forward without rotary (kernel 6's fp32 roles) ---------
-//
-// At d = 256 `forward_core` (below) does not fit: a padded [64, 256] tile is 66,560
-// bytes, so the ring's two stages of K and V and their small parts would be
-// 399,360 bytes, and a warp's O (128 registers a lane) beside its Q rows (128
-// more, unsplit) would not fit 255 registers. This core keeps the layout of
-// the warps and the 3xTF32 arithmetic, and moves the rest:
-// - Q's 64 rows stay fp32 in shared memory (66,560 bytes), each warp reading
-//   its A fragments from there and splitting them at each use (`SharedA`);
-// - K and V come in tiles of 32 keys (one softmax pass: kPass n-tiles)
-//   through a two-stage `cp.async` ring, 2 x 2 x 33,280 bytes, kept raw: a B
-//   operand is split where it is read (two integer operations and a
-//   subtraction a value, `split`), as the split-once tiles of the other
-//   core would need 133,120 bytes more. 199,680 bytes in all, one block an
-//   SM, 128 threads;
-// - O is 128 registers a lane, in the fresh accumulator of 64 columns per
-//   pass as in `forward_core`; a tile is one barrier (no split pass).
-// Every product is the other core's 3xTF32 `mma.sync` with its operand
-// splits, so the two agree to the order of fp32 sums; no rotary: the JAX
-// package runs kernel 6 at d = 256 with q and k rotated outside it
-// (`models/modules.py:378-392`). Training (kTrain, kDrop) adds what the
-// other core adds: the lens-0 logits, the keep bits and the LSE.
-constexpr int kWideKeys = 8 * kPass;  // keys a tile of the d = 256 ring: one pass
-
+// `forward_sets`' layout (d = 128 and 256): two sets of four warps, each warp
+// 16 of the block's 64 query rows in each set; set s walks key tiles s, s + 2,
+// ... of kKeys keys, one stage each, its own K and V tile split once into big
+// and small parts (`kSetFloats`). Q's 64 rows take one padded tile, split
+// once into two at d = 128 (room allows: big and small in 67,584 bytes);
+// at d = 256 the split Q would be 133,120 bytes, so it stays fp32 (66,560)
+// and each warp splits its A fragments at each k-step (`SharedA`). Rows are
+// padded to D + 4 floats. The bytes: d = 128 2 x 33,792 + 2 x 4 x 16,896 =
+// 202,752 (32-key tiles); d = 256 66,560 + 2 x 4 x 16,640 = 199,680 (16-key
+// tiles). At the end the sets' (m, l, O) meet in the ring's room.
 template <int D>
-struct Fp32Wide {
+struct Fp32Sets {
+  static_assert(D == 128 || D == 256, "forward_sets is built for head dims 128 and 256");
+  static constexpr int kSets = 2;
+  static constexpr int kSetThreads = kThreads;           // four warps a set
+  static constexpr int kBlockThreads = kSets * kThreads;  // 256: eight warps an SM
   static constexpr int kStride = Fp32Shape<D>::kStride;
-  static constexpr int kQFloats = kRows * kStride;        // Q's 64 rows, fp32
-  static constexpr int kKeyFloats = kWideKeys * kStride;  // a K or a V tile of 32 keys
-  static constexpr int kStage = 2 * kKeyFloats;
-  static constexpr int kSmem = (kQFloats + kStages * kStage) * 4;  // 199,680 at d = 256
+  static constexpr int kKeys = D == 128 ? 32 : 16;        // keys a set's tile
+  static constexpr int kN = kKeys / 8;                    // n-tiles of a tile's scores
+  static constexpr bool kQSplit = D == 128;               // Q split once, in shared memory
+  // k-steps of the scores unrolled together (even, for the two chains below):
+  // at d = 256, where each splits its Q fragment, eight in flight beside O's
+  // 128 registers spill (ptxas, sm_90a)
+  static constexpr int kUnroll = D == 128 ? 8 : 4;
+  static constexpr int kQFloats = kRows * kStride;        // Q's 64 rows (or their big parts)
+  static constexpr int kKeyFloats = kKeys * kStride;      // a K or V tile's big or small parts
+  static constexpr int kSetFloats = 4 * kKeyFloats;       // K big, K small, V big, V small
+  static constexpr int kRingFloats = kSets * kSetFloats;
+  static constexpr int kSmem = ((kQSplit ? 2 : 1) * kQFloats + kRingFloats) * 4;
+  static constexpr int kChunks = kKeys * D / 4 / kSetThreads;  // a set thread's chunks of a tile
+  static constexpr int kQChunks = kRows * D / 4 / kBlockThreads;  // a thread's chunks of Q
+  // the merge: set 1's O (a lane's D / 2 floats, by warp and lane) and its
+  // (m, l) of two rows a lane
+  static constexpr int kMergeFloats = 4 * 32 * (D / 2) + 4 * 32 * 4;
   static_assert(kSmem <= 232448, "more shared memory than a block may use");
+  static_assert(kChunks * kSetThreads * 4 == kKeys * D && kQChunks * kBlockThreads * 4 == kRows * D,
+                "every thread copies as many chunks");
+  static_assert(kMergeFloats <= kRingFloats, "the merge fits in the ring's room");
 };
 
-// The forward's dynamic shared bytes at head dim D: `forward_wide`'s at
-// d = 256, `forward_core`'s below it.
+// The forward's threads, blocks an SM and dynamic shared bytes at head dim D:
+// `forward_core`'s at d = 64, `forward_sets`' at 128 and 256.
 template <int D>
-constexpr int fwd_smem() {
-  if constexpr (D == 256) {
-    return Fp32Wide<D>::kSmem;
+constexpr int fwd_threads() {
+  if constexpr (D == 64) {
+    return kThreads;
   } else {
-    return Fp32Fwd<D>::kSmem;
+    return Fp32Sets<D>::kBlockThreads;
   }
 }
 
-// The forward's launch geometry at head dim d (either core), as
-// `ops/train_attention.py` `forward_geometry_fp32` states it: rows a block,
-// threads, ring stages, dynamic shared bytes. Returns 0, or
-// cudaErrorInvalidValue for a head dim that has no instantiation.
+template <int D>
+constexpr int fwd_blocks() {
+  return D == 64 ? 2 : 1;
+}
+
+template <int D>
+constexpr int fwd_smem() {
+  if constexpr (D == 64) {
+    return Fp32Fwd<D>::kSmem;
+  } else {
+    return Fp32Sets<D>::kSmem;
+  }
+}
+
+// The forward's launch geometry at head dim D, as `ops/train_attention.py`
+// `forward_geometry_fp32` states it: rows a block, threads, ring stages (a
+// set's at d = 128 and 256), dynamic shared bytes, warp sets, keys a tile.
+constexpr int kFwdGeometry = 6;
+
+template <int D>
+void forward_geometry_of(int* out) {
+  out[0] = kRows;
+  out[1] = fwd_threads<D>();
+  out[3] = fwd_smem<D>();
+  if constexpr (D == 64) {
+    out[2] = kStages;
+    out[4] = 1;
+    out[5] = kRows;
+  } else {
+    out[2] = 1;
+    out[4] = Fp32Sets<D>::kSets;
+    out[5] = Fp32Sets<D>::kKeys;
+  }
+}
+
+// The same at head dim d: 0, or cudaErrorInvalidValue for a head dim that
+// has no instantiation (nothing written).
 inline int forward_geometry(int d, int* out) {
-  int smem;
   if (d == 64) {
-    smem = fwd_smem<64>();
+    forward_geometry_of<64>(out);
   } else if (d == 128) {
-    smem = fwd_smem<128>();
+    forward_geometry_of<128>(out);
   } else if (d == 256) {
-    smem = fwd_smem<256>();
+    forward_geometry_of<256>(out);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  out[0] = kRows;
-  out[1] = kThreads;
-  out[2] = kStages;
-  out[3] = smem;
   return 0;
-}
-
-// acc[nn] += W Z as `product` computes it, over a raw (unsplit) tile Z whose
-// rows are `kStride` floats apart: each B value is split where it is read.
-template <int D>
-__device__ __forceinline__ void product_raw(float (&acc)[8][4], const float (&w)[4],
-                                            const float* z, int j, int lane) {
-  constexpr int kStride = Fp32Shape<D>::kStride;
-  const FragA fa = split_a(w[0], w[2], w[1], w[3]);
-  const int at = (8 * j + 2 * (lane & 3)) * kStride + (lane >> 2);
-#pragma unroll
-  for (int nn = 0; nn < 8; ++nn) {
-    const Split b0 = split(z[at + 8 * nn]), b1 = split(z[at + kStride + 8 * nn]);
-    mma3(acc[nn], fa, __float_as_uint(b0.big), __float_as_uint(b1.big),
-         __float_as_uint(b0.small), __float_as_uint(b1.small));
-  }
-}
-
-// The B fragments of two n-tiles of a raw tile for k-step kk (rows 8 j +
-// lane / 4 of the tile at `z`, columns 8 kk + lane % 4 and four on: one
-// ldmatrix), split.
-__device__ __forceinline__ void wide_b(Split (&b)[4], const float* z, int lm, int kk) {
-  uint32_t x[4];
-  ldmatrix_x4(x, z + lm + 8 * kk);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) b[i] = split(__uint_as_float(x[i]));
-}
-
-// The lane's ldmatrix row address of a raw tile, in floats: row 8 (lane /
-// 16) + lane % 8, column 4 ((lane / 8) % 2).
-template <int D>
-__device__ __forceinline__ int wide_lm(int lane) {
-  return (8 * (lane >> 4) + (lane & 7)) * Fp32Shape<D>::kStride + 4 * ((lane >> 3) & 1);
-}
-
-// s[2 jp + e] += a b over n-tiles 2 jp + e: one split B fragment pair.
-template <int kN>
-__device__ __forceinline__ void mma_pair(float (&s)[kN][4], const FragA& a, const Split (&b)[4],
-                                         int jp) {
-#pragma unroll
-  for (int e = 0; e < 2; ++e)
-    mma3(s[2 * jp + e], a, __float_as_uint(b[2 * e].big), __float_as_uint(b[2 * e + 1].big),
-         __float_as_uint(b[2 * e].small), __float_as_uint(b[2 * e + 1].small));
-}
-
-// S = Q K^T for the warp's 16 rows and the 8 kN keys of a raw K tile (`kb`),
-// `pass_scores`' reads (one ldmatrix for the B fragments of two n-tiles) with
-// the split at each use, Q's fragments from shared memory.
-template <int D, int kN>
-__device__ __forceinline__ void wide_scores(float (&s)[kN][4], const SharedA<D>& qa,
-                                            const float* kb, int lane) {
-  constexpr int kStride = Fp32Shape<D>::kStride;
-  const int lm = wide_lm<D>(lane);
-#pragma unroll 4
-  for (int kk = 0; kk < D / 8; ++kk) {
-    const FragA qf = qa.frag(kk);
-#pragma unroll
-    for (int jp = 0; jp < kN / 2; ++jp) {
-      Split b[4];
-      wide_b(b, kb + 16 * jp * kStride, lm, kk);
-      mma_pair(s, qf, b, jp);
-    }
-  }
-}
-
-// The backward's two score products in one walk over d, for the warp's 16
-// rows and the 8 kN rows of the raw tiles X and Y: s += A X^T, dp += B Y^T,
-// A and B the warp's fixed operands in shared memory, split at each use.
-template <int D, int kN>
-__device__ __forceinline__ void wide_scores2(float (&s)[kN][4], float (&dp)[kN][4],
-                                             const SharedA<D>& a, const SharedA<D>& b,
-                                             const float* x, const float* y, int lane) {
-  constexpr int kStride = Fp32Shape<D>::kStride;
-  const int lm = wide_lm<D>(lane);
-#pragma unroll 2
-  for (int kk = 0; kk < D / 8; ++kk) {
-    const FragA af = a.frag(kk);
-    const FragA bf = b.frag(kk);
-#pragma unroll
-    for (int jp = 0; jp < kN / 2; ++jp) {
-      Split xb[4], yb[4];
-      wide_b(xb, x + 16 * jp * kStride, lm, kk);
-      wide_b(yb, y + 16 * jp * kStride, lm, kk);
-      mma_pair(s, af, xb, jp);
-      mma_pair(dp, bf, yb, jp);
-    }
-  }
-}
-
-// The block's forward at head dim D = 256 over the grid (n / 64, h, b), 128
-// threads and Fp32Wide<D>::kSmem bytes of dynamic shared memory: keys >=
-// lens[b] masked to -1e30 (a sample with lens <= 0 averages every key),
-// O = softmax(S) V. kTrain: training's lens-0 logits and the LSE; kDrop:
-// the keep bits.
-template <int D, bool kTrain, bool kDrop>
-__device__ __forceinline__ void forward_wide(const float* __restrict__ q,
-                                             const float* __restrict__ k,
-                                             const float* __restrict__ v,
-                                             const int* __restrict__ lens,
-                                             float* __restrict__ out, float* __restrict__ lse,
-                                             int n, int h, float scale, const Dropout& drop) {
-  using W = Fp32Wide<D>;
-  extern __shared__ float4 smem4[];
-  float* const qs = reinterpret_cast<float*>(smem4);
-  float* const ring = qs + W::kQFloats;
-  const int lane = threadIdx.x & 31, c = lane & 3;
-  const Head hd = block_head<D>(lens, n, h, drop);
-  const float masked = kTrain ? hd.masked : kNeg;
-  // key tiles that hold a valid key (every tile when none is valid)
-  const int n_tiles = hd.len <= 0 ? n / kWideKeys : (min(hd.len, n) + kWideKeys - 1) / kWideKeys;
-  const int warp_row = 16 * (threadIdx.x >> 5) + (lane >> 2);  // and + 8, in the block
-  const int row = hd.row0 + warp_row;
-
-  auto issue = [&](int t) {  // K and V of key tile t into its stage
-    float* stage = ring + (t % kStages) * W::kStage;
-    const int64_t at = hd.base + static_cast<int64_t>(t) * kWideKeys * hd.stride;
-    copy_rows<D, kWideKeys>(stage, k + at, hd.stride);
-    copy_rows<D, kWideKeys>(stage + W::kKeyFloats, v + at, hd.stride);
-    cp_async_commit();
-  };
-  copy_tile<D>(qs, q + hd.base + static_cast<int64_t>(hd.row0) * hd.stride, hd.stride);
-  issue(0);  // with Q in its group: n >= 64, at least one tile
-  const SharedA<D> qa{qs + warp_row * W::kStride + c};
-
-  float o[D / 8][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  zero(o);
-#pragma unroll 1
-  for (int t = 0; t < n_tiles; ++t) {
-    const float* const ks = ring + (t % kStages) * W::kStage;
-    const float* const vs = ks + W::kKeyFloats;
-    cp_async_wait_all();  // this thread's copies of tile t (and Q) have landed
-    __syncthreads();      // everyone's have, and tile t - 1's stage is free
-    if (t + 1 < n_tiles) issue(t + 1);  // under this tile's products
-
-    float s[kPass][4];
-    zero(s);
-    wide_scores<D, kPass>(s, qa, ks, lane);
-
-    // the online softmax over the tile's keys: element e of n-tile j is row
-    // row + 8 (e >> 1), key t * 32 + 8 j + 2 c + (e & 1)
-    const int key0 = t * kWideKeys + 2 * c;
-    float pass_max[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < kPass; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x = key0 + 8 * j + (e & 1) < hd.len ? s[j][e] * scale : masked;
-        s[j][e] = x;
-        pass_max[e >> 1] = fmaxf(pass_max[e >> 1], x);
-      }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float x = fmaxf(pass_max[r], __shfl_xor_sync(0xffffffffu, pass_max[r], 1));
-      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-      const float m_new = fmaxf(m[r], x);
-      alpha[r] = expf(m[r] - m_new);  // 0 on the first tile (m = -inf)
-      m[r] = m_new;
-      l[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int j = 0; j < kPass; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const float p = expf(s[j][e] - m[r]);
-        l[r] += p;  // the normaliser takes the undropped weight
-        s[j][e] = kDrop ? p * keep_factor(row + 8 * r, key0 + 8 * j + (e & 1), n, hd.folded,
-                                          drop)
-                        : p;
-      }
-
-    // O = alpha O + Pd V, the tile's products in a fresh accumulator, 64
-    // columns of O at a time
-#pragma unroll
-    for (int half = 0; half < D / 64; ++half) {
-      float part[8][4];
-      zero(part);
-#pragma unroll
-      for (int j = 0; j < kPass; ++j) product_raw<D>(part, s[j], vs + 64 * half, j, lane);
-#pragma unroll
-      for (int nn = 0; nn < 8; ++nn)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          o[8 * half + nn][i] = fmaf(alpha[i >> 1], o[8 * half + nn][i], part[nn][i]);
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
-  float* const dst = out + hd.base;
-#pragma unroll
-  for (int nn = 0; nn < D / 8; ++nn) {
-    *reinterpret_cast<float2*>(dst + row * hd.stride + 8 * nn + 2 * c) =
-        make_float2(o[nn][0] / l[0], o[nn][1] / l[0]);
-    *reinterpret_cast<float2*>(dst + (row + 8) * hd.stride + 8 * nn + 2 * c) =
-        make_float2(o[nn][2] / l[1], o[nn][3] / l[1]);
-  }
-  if constexpr (kTrain) {
-    if (c != 0) return;
-    lse[hd.stat + row] = m[0] + logf(l[0]);
-    lse[hd.stat + row + 8] = m[1] + logf(l[1]);
-  }
 }
 
 // Four consecutive columns (two interleaved pairs) of a row at table offset
@@ -373,15 +209,10 @@ __device__ __forceinline__ float rotated(const float* __restrict__ x, int64_t po
                  : __fadd_rn(__fmul_rn(p.x, c), __fmul_rn(-p.y, s));
 }
 
-// How a warp keeps its Q rows: split once at d = 64; fp32, split at each
-// pass, at d = 128.
-template <int D>
-using QRows = std::conditional_t<D == 64, SplitA<D>, RawA<D>>;
-
 // The warp's Q rows `row` and `row + 8` (`q` at position 0 of the head) in
 // A-fragment order (`load_a`), rotated when roped.
 template <int D, bool kRope>
-__device__ __forceinline__ void load_q(QRows<D>& qr, const float* __restrict__ q,
+__device__ __forceinline__ void load_q(SplitA<D>& qr, const float* __restrict__ q,
                                        int64_t stride, int row, int c,
                                        const float* __restrict__ cos_t,
                                        const float* __restrict__ sin_t) {
@@ -422,7 +253,7 @@ __device__ __forceinline__ void rotate_split_tile(float* tile, float* small,
 // columns on); a padded row of D + 4 floats puts the eight rows of a matrix
 // in eight distinct bank quads.
 template <int D>
-__device__ __forceinline__ void pass_scores(float (&s)[kPass][4], const QRows<D>& qr,
+__device__ __forceinline__ void pass_scores(float (&s)[kPass][4], const SplitA<D>& qr,
                                             const float* kb, const float* ks, int j0, int lane) {
   constexpr int kStride = Fp32Shape<D>::kStride;
   const int lm = (8 * j0 + 8 * (lane >> 4) + (lane & 7)) * kStride + 4 * ((lane >> 3) & 1);
@@ -442,8 +273,8 @@ __device__ __forceinline__ void pass_scores(float (&s)[kPass][4], const QRows<D>
   }
 }
 
-// The block's forward over the grid (n / 64, h, b), 128 threads and
-// Fp32Fwd<D>::kSmem bytes of dynamic shared memory. kTrain: training's
+// The block's forward at d = 64 over the grid (n / 64, h, b), 128 threads
+// and Fp32Fwd<D>::kSmem bytes of dynamic shared memory. kTrain: training's
 // lens-0 logits and the LSE; kDrop: the keep bits; kRope: rotate q and k by
 // cos_t / sin_t [n, D].
 template <int D, bool kTrain, bool kDrop, bool kRope>
@@ -455,6 +286,7 @@ __device__ __forceinline__ void forward_core(const float* __restrict__ q,
                                              const float* __restrict__ sin_t,
                                              float* __restrict__ out, float* __restrict__ lse,
                                              int n, int h, float scale, const Dropout& drop) {
+  static_assert(D == 64, "d = 128 and 256 run on forward_sets");
   using S = Fp32Shape<D>;
   constexpr int kStage = Fp32Fwd<D>::kStage;
   extern __shared__ float4 smem4[];
@@ -475,7 +307,7 @@ __device__ __forceinline__ void forward_core(const float* __restrict__ q,
   };
   issue(0);  // n >= 64: at least one tile
 
-  QRows<D> qr;
+  SplitA<D> qr;
   load_q<D, kRope>(qr, q + hd.base, hd.stride, row, c, cos_t, sin_t);
 
   float o[D / 8][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
@@ -565,6 +397,340 @@ __device__ __forceinline__ void forward_core(const float* __restrict__ q,
         make_float2(o[nn][0] / l[0], o[nn][1] / l[0]);
     *reinterpret_cast<float2*>(dst + (row + 8) * hd.stride + 8 * nn + 2 * c) =
         make_float2(o[nn][2] / l[1], o[nn][3] / l[1]);
+  }
+  if constexpr (kTrain) {
+    if (c != 0) return;
+    lse[hd.stat + row] = m[0] + logf(l[0]);
+    lse[hd.stat + row + 8] = m[1] + logf(l[1]);
+  }
+}
+
+// ---- d = 128 and 256: two warp sets (`Fp32Sets`) ----------------------------
+//
+// Eight warps an SM: the 128 threads of each set copy, rotate (K, kRope) and
+// split their own 16-byte chunks of the set's tiles, and the set meets on a
+// named barrier of its 128 threads; the two sets meet only on Q and at the
+// merge. A tile's K and V are two `cp.async` groups, so that V's copy runs
+// under K's split and the scores, and the next tile's K copy under the
+// softmax and O += Pd V:
+//   wait K_t, split it | bar | S = Q K_t^T | wait V_t, split it | bar |
+//   copy K_{t+2} | softmax, O = alpha O + Pd V | bar | copy V_{t+2}.
+// Q is copied by all 256 threads, rotated in place (kRope) and at d = 128
+// split, each thread its own chunks, before one block barrier.
+
+// The set's barrier: `bar.sync` on id 1 + set, 128 threads (id 0 is
+// __syncthreads').
+__device__ __forceinline__ void set_sync(int set) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + set), "n"(kThreads) : "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// A set thread's chunk m of a [kKeys, D] tile (`st` its index in the set):
+// chunk i = st + 128 m at row i / (D / 4), column 4 (i % (D / 4)).
+template <int D>
+__device__ __forceinline__ int set_chunk_row(int st, int m) {
+  return (st + kThreads * m) / (D / 4);
+}
+template <int D>
+__device__ __forceinline__ int set_chunk_col(int st, int m) {
+  return 4 * ((st + kThreads * m) % (D / 4));
+}
+
+// Key tile t's rows of K or V (`src` at position 0 of the head) into the
+// set's tile `dst`, the set thread's chunks, as one `cp.async` group. Chunk
+// m + 1 lies 128 / (D / 4) rows below chunk m; the addresses advance in a
+// loop that is not unrolled, and the row stride (h D floats) is 32 bits, so
+// that no chunk's global address stays live across the key walk beside O's
+// registers (at d = 256 they spilled).
+template <int D>
+__device__ __forceinline__ void set_copy(float* dst, const float* __restrict__ src,
+                                         int64_t stride, int t, int st) {
+  using W = Fp32Sets<D>;
+  constexpr int kStep = kThreads / (D / 4);  // rows between a thread's chunks
+  const int r = set_chunk_row<D>(st, 0), col = set_chunk_col<D>(st, 0);
+  const int stride32 = static_cast<int>(stride);
+  const float* from = src + static_cast<int64_t>(t * W::kKeys + r) * stride32 + col;
+  float* to = dst + r * W::kStride + col;
+#pragma unroll 1
+  for (int m = 0; m < W::kChunks; ++m) {
+    cp_async16(to, from);
+    from += kStep * stride32;
+    to += kStep * W::kStride;
+  }
+  cp_async_commit();
+}
+
+// The set thread's chunks of a landed tile (key tile t), split: big parts in
+// place, small parts at the same offsets of `small`; K rotated first when
+// kRotate (cos / sin of the keys' absolute positions).
+template <int D, bool kRotate>
+__device__ __forceinline__ void set_split(float* big, float* small, int t, int st,
+                                          const float* __restrict__ cos_t,
+                                          const float* __restrict__ sin_t) {
+  using W = Fp32Sets<D>;
+#pragma unroll
+  for (int m = 0; m < W::kChunks; ++m) {
+    const int r = set_chunk_row<D>(st, m), col = set_chunk_col<D>(st, m);
+    const int at = r * W::kStride + col;
+    float4 x = ld_shared4(big + at);
+    if constexpr (kRotate)
+      x = rotate4(x, cos_t, sin_t, static_cast<int64_t>(t * W::kKeys + r) * D + col);
+    split_store(big, small, at, x);
+  }
+}
+
+// A warp's A operand of the scores from Q split once in shared memory (big
+// parts at `big`, small at `small`, both at the warp's (row, c)): the
+// fragment order of `SharedA`, no arithmetic.
+template <int D>
+struct SharedSplitA {
+  const float* big;
+  const float* small;
+  __device__ __forceinline__ FragA frag(int kk) const {
+    constexpr int kS = Fp32Shape<D>::kStride;
+    const int at[4] = {8 * kk, 8 * kS + 8 * kk, 8 * kk + 4, 8 * kS + 8 * kk + 4};
+    FragA f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f.big[i] = __float_as_uint(big[at[i]]);
+      f.small[i] = __float_as_uint(small[at[i]]);
+    }
+    return f;
+  }
+};
+
+// How a set's warp reads Q: split once at d = 128, split at each k-step at 256.
+template <int D>
+using SetQ = std::conditional_t<Fp32Sets<D>::kQSplit, SharedSplitA<D>, SharedA<D>>;
+
+template <int D>
+__device__ __forceinline__ SetQ<D> set_q(const float* qs, const float* qsmall, int at) {
+  if constexpr (Fp32Sets<D>::kQSplit) {
+    return SetQ<D>{qs + at, qsmall + at};
+  } else {
+    return SetQ<D>{qs + at};
+  }
+}
+
+// S = Q K^T for the warp's 16 rows and the kN n-tiles of a split K tile (big
+// `kb`, small `ks`), `pass_scores`' reads: one ldmatrix brings the B
+// fragments of two n-tiles. The even k-steps sum into `s` and the odd ones
+// into a second accumulator, added to `s` in IEEE fp32 at the end: each
+// n-tile is two chains of dependent mma, not one as long, which the warp's
+// few n-tiles (two at d = 256) could not hide.
+template <int D, int kN, class QA>
+__device__ __forceinline__ void set_scores(float (&s)[kN][4], const QA& qa, const float* kb,
+                                           const float* ks, int lane) {
+  constexpr int kStride = Fp32Shape<D>::kStride, kUnroll = Fp32Sets<D>::kUnroll;
+  const int lm = (8 * (lane >> 4) + (lane & 7)) * kStride + 4 * ((lane >> 3) & 1);
+  float odd[kN][4];
+  zero(odd);
+#pragma unroll 1
+  for (int k0 = 0; k0 < D / 8; k0 += kUnroll)
+#pragma unroll
+  for (int i = 0; i < kUnroll; ++i) {
+    const int kk = k0 + i;
+    const FragA qf = qa.frag(kk);
+#pragma unroll
+    for (int jp = 0; jp < kN / 2; ++jp) {
+      const int at = lm + 16 * jp * kStride + 8 * kk;
+      uint32_t x[4], xl[4];
+      ldmatrix_x4(x, kb + at);
+      ldmatrix_x4(xl, ks + at);
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        mma3(i & 1 ? odd[2 * jp + e] : s[2 * jp + e], qf, x[2 * e], x[2 * e + 1], xl[2 * e],
+             xl[2 * e + 1]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kN; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] += odd[j][e];
+}
+
+// The block's forward at D = 128 or 256 over the grid (n / 64, h, b), 256
+// threads and Fp32Sets<D>::kSmem bytes of dynamic shared memory; the
+// arguments as `forward_core`'s.
+template <int D, bool kTrain, bool kDrop, bool kRope>
+__device__ __forceinline__ void forward_sets(const float* __restrict__ q,
+                                             const float* __restrict__ k,
+                                             const float* __restrict__ v,
+                                             const int* __restrict__ lens,
+                                             const float* __restrict__ cos_t,
+                                             const float* __restrict__ sin_t,
+                                             float* __restrict__ out, float* __restrict__ lse,
+                                             int n, int h, float scale, const Dropout& drop) {
+  using W = Fp32Sets<D>;
+  constexpr int kStride = W::kStride, kN = W::kN;
+  extern __shared__ float4 smem4[];
+  float* const qs = reinterpret_cast<float*>(smem4);
+  float* const qsmall = qs + W::kQFloats;  // Q's small parts (kQSplit)
+  float* const ring = qs + (W::kQSplit ? 2 : 1) * W::kQFloats;
+  const int set = threadIdx.x / W::kSetThreads, st = threadIdx.x % W::kSetThreads;
+  const int lane = threadIdx.x & 31, c = lane & 3;
+  const int warp_row = 16 * (st >> 5) + (lane >> 2);  // and + 8, in the block
+  float* const kb = ring + set * W::kSetFloats;
+  float* const ks = kb + W::kKeyFloats;
+  float* const vb = ks + W::kKeyFloats;
+  float* const vs = vb + W::kKeyFloats;
+  const Head hd = block_head<D>(lens, n, h, drop);
+  const float masked = kTrain ? hd.masked : kNeg;
+  // key tiles that hold a valid key (every tile when none is valid)
+  const int n_tiles = hd.len <= 0 ? n / W::kKeys : (min(hd.len, n) + W::kKeys - 1) / W::kKeys;
+  const int row = hd.row0 + warp_row;
+
+  // Q by every thread, then the set's first K and V tiles
+#pragma unroll
+  for (int m = 0; m < W::kQChunks; ++m) {
+    const int i = threadIdx.x + W::kBlockThreads * m;
+    const int r = i / (D / 4), col = 4 * (i % (D / 4));
+    cp_async16(qs + r * kStride + col,
+               q + hd.base + static_cast<int64_t>(hd.row0 + r) * hd.stride + col);
+  }
+  cp_async_commit();
+  if (set < n_tiles) {
+    set_copy<D>(kb, k + hd.base, hd.stride, set, st);
+    set_copy<D>(vb, v + hd.base, hd.stride, set, st);
+    cp_async_wait<2>();  // Q's group
+  } else {
+    cp_async_wait<0>();
+  }
+  if constexpr (kRope || W::kQSplit) {
+#pragma unroll
+    for (int m = 0; m < W::kQChunks; ++m) {
+      const int i = threadIdx.x + W::kBlockThreads * m;
+      const int r = i / (D / 4), col = 4 * (i % (D / 4));
+      const int at = r * kStride + col;
+      float4 x = ld_shared4(qs + at);
+      if constexpr (kRope)
+        x = rotate4(x, cos_t, sin_t, static_cast<int64_t>(hd.row0 + r) * D + col);
+      if constexpr (W::kQSplit) {
+        split_store(qs, qsmall, at, x);
+      } else {
+        st_shared4(qs + at, x);
+      }
+    }
+  }
+  __syncthreads();  // Q whole, for both sets
+
+  const SetQ<D> qa = set_q<D>(qs, qsmall, warp_row * kStride + c);
+  float o[D / 8][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  zero(o);
+#pragma unroll 1
+  for (int t = set; t < n_tiles; t += W::kSets) {
+    cp_async_wait<1>();  // K_t's chunks of this thread (V_t's may still fly)
+    set_split<D, kRope>(kb, ks, t, st, cos_t, sin_t);
+    set_sync(set);  // K_t split
+
+    float s[kN][4];
+    zero(s);
+    set_scores<D, kN>(s, qa, kb, ks, lane);
+    cp_async_wait<0>();  // V_t's
+    set_split<D, false>(vb, vs, t, st, cos_t, sin_t);
+    set_sync(set);  // V_t split, and the set's scores done with K_t
+    const bool more = t + W::kSets < n_tiles;
+    if (more) set_copy<D>(kb, k + hd.base, hd.stride, t + W::kSets, st);
+
+    // the online softmax over the tile's keys: element e of n-tile j is row
+    // row + 8 (e >> 1), key t * kKeys + 8 j + 2 c + (e & 1)
+    const int key0 = t * W::kKeys + 2 * c;
+    float pass_max[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < kN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = key0 + 8 * j + (e & 1) < hd.len ? s[j][e] * scale : masked;
+        s[j][e] = x;
+        pass_max[e >> 1] = fmaxf(pass_max[e >> 1], x);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float x = fmaxf(pass_max[r], __shfl_xor_sync(0xffffffffu, pass_max[r], 1));
+      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+      const float m_new = fmaxf(m[r], x);
+      alpha[r] = expf(m[r] - m_new);  // 0 on the set's first tile (m = -inf)
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int j = 0; j < kN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const float p = expf(s[j][e] - m[r]);
+        l[r] += p;  // the normaliser takes the undropped weight
+        s[j][e] = kDrop ? p * keep_factor(row + 8 * r, key0 + 8 * j + (e & 1), n, hd.folded,
+                                          drop)
+                        : p;
+      }
+
+    // O = alpha O + Pd V, the tile's products in a fresh accumulator, 64
+    // columns of O at a time
+#pragma unroll
+    for (int half = 0; half < D / 64; ++half) {
+      float part[8][4];
+      zero(part);
+#pragma unroll
+      for (int j = 0; j < kN; ++j) product<D>(part, s[j], vb + 64 * half, vs + 64 * half, j, lane);
+#pragma unroll
+      for (int nn = 0; nn < 8; ++nn)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          o[8 * half + nn][i] = fmaf(alpha[i >> 1], o[8 * half + nn][i], part[nn][i]);
+    }
+    set_sync(set);  // the set's products done with V_t
+    if (more) set_copy<D>(vb, v + hd.base, hd.stride, t + W::kSets, st);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  // the merge: set 1's (m, l, O) through the ring's room, in its lanes'
+  // register order (warp w of set 1 owns the rows of warp w of set 0); set
+  // 0 takes m as the larger maximum and scales each part by exp(m_s - m). A
+  // set that saw no tile (m = -inf, l = 0, O = 0) adds exactly nothing.
+  float4* const part_o = reinterpret_cast<float4*>(ring);
+  float4* const part_ml = part_o + 4 * (D / 8) * 32;
+  const int slot = (st >> 5) * 32 + lane;
+  __syncthreads();  // both sets done with their tiles
+  if (set == 1) {
+#pragma unroll
+    for (int nn = 0; nn < D / 8; ++nn)
+      part_o[(st >> 5) * (D / 8) * 32 + nn * 32 + lane] =
+          make_float4(o[nn][0], o[nn][1], o[nn][2], o[nn][3]);
+    part_ml[slot] = make_float4(m[0], m[1], l[0], l[1]);
+  }
+  __syncthreads();
+  if (set == 1) return;
+  const float4 ml = part_ml[slot];
+  const float m1[2] = {ml.x, ml.y}, l1[2] = {ml.z, ml.w};
+  float a0[2], a1[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float mm = fmaxf(m[r], m1[r]);  // finite: set 0 saw key tile 0
+    a0[r] = expf(m[r] - mm);
+    a1[r] = expf(m1[r] - mm);
+    l[r] = a0[r] * l[r] + a1[r] * l1[r];
+    m[r] = mm;
+  }
+  float* const dst = out + hd.base;
+#pragma unroll
+  for (int nn = 0; nn < D / 8; ++nn) {
+    const float4 p = part_o[(st >> 5) * (D / 8) * 32 + nn * 32 + lane];
+    const float x[4] = {a0[0] * o[nn][0] + a1[0] * p.x, a0[0] * o[nn][1] + a1[0] * p.y,
+                        a0[1] * o[nn][2] + a1[1] * p.z, a0[1] * o[nn][3] + a1[1] * p.w};
+    *reinterpret_cast<float2*>(dst + row * hd.stride + 8 * nn + 2 * c) =
+        make_float2(x[0] / l[0], x[1] / l[0]);
+    *reinterpret_cast<float2*>(dst + (row + 8) * hd.stride + 8 * nn + 2 * c) =
+        make_float2(x[2] / l[1], x[3] / l[1]);
   }
   if constexpr (kTrain) {
     if (c != 0) return;

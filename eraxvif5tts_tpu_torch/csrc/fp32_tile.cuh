@@ -12,11 +12,13 @@
 //
 // - Head dim D = 64 or 128 (`Fp32Shape`). A block owns 64 rows of one
 //   (sample, head): four warps of 16 rows (one m16 tile of the mma each), 128
-//   threads, two blocks an SM at d = 64, one at d = 128 (a padded [64, 128]
-//   tile is 33,792 bytes). A warp keeps its fixed operands in registers in
-//   A-fragment order (`RawA`, `SplitA`), or at d = 128 in the backward in a
-//   padded shared tile (`SharedA`): 64 + 64 fixed floats a thread beside one
-//   or two [16, 128] accumulators do not fit in 255 registers.
+//   threads, two blocks an SM at d = 64; at d = 128 the dq and dk/dv kernels
+//   run one such block an SM (a padded [64, 128] tile is 33,792 bytes), and
+//   the forward eight warps in two sets (`fp32_forward.cuh` `forward_sets`).
+//   A warp keeps its fixed operands in registers in A-fragment order (`RawA`,
+//   `SplitA`), or at d = 128 in the backward in a padded shared tile
+//   (`SharedA`): 64 + 64 fixed floats a thread beside one or two [16, 128]
+//   accumulators do not fit in 255 registers.
 // - The streamed tiles come through kStages = 2 stages by `cp.async` (16
 //   bytes a copy, bypassing L1): tile t + 1's copy runs under tile t's split
 //   and products. Once a tile has landed, each thread splits the chunks it
@@ -29,8 +31,8 @@
 //   read as B (rows are the k index: keys of a V tile) at rows 8 j + 2 (lane
 //   % 4) + {0, 1} and column 8 nn + lane / 4 (`product`), 32 distinct banks
 //   (kStride % 32 == 4 at every head dim).
-// - At d = 256 the forwards run on a core of their own (`fp32_forward.cuh`
-//   `forward_wide`) and the dq and dk/dv kernels on a layout of their own
+// - At d = 256 the forwards run on `fp32_forward.cuh`'s `forward_sets` (as
+//   at d = 128) and the dq and dk/dv kernels on a layout of their own
 //   (`train_attention_fp32.cu`): the fixed operands in shared memory, the
 //   streamed tiles kept raw and split where they are read.
 // - Scores come out in the mma's C layout (row lane / 4 and + 8, columns 2
@@ -65,14 +67,14 @@ static_assert(kRows == 16 * kWarps, "a warp owns one m16 tile of the block's row
 template <int D>
 struct Fp32Shape {
   // d = 256 takes these constants up to kSteps; the rest are d = 64's and
-  // 128's (`forward_wide` and the wide backward have layouts of their own)
+  // 128's (`forward_sets` and the wide backward have layouts of their own)
   static_assert(D == 64 || D == 128 || D == 256, "the kernels are built for head dims 64, 128, 256");
   static constexpr int kStride = D + 4;                  // floats a shared row: 68, 132, 260
   static constexpr int kTileFloats = kRows * kStride;    // 17,408, 33,792 or 66,560 bytes
   static constexpr int kChunks = kRows * D / 4 / kThreads;  // 16-byte chunks a thread: 8, 16, 32
   static constexpr int kSteps = D / 8;   // k-steps of 8 over d; n-tiles of 8 output columns
   static constexpr int kHalves = D / 64;  // 64-column pieces of an output (one fresh accumulator each)
-  static constexpr int kBlocks = D == 64 ? 2 : 1;  // blocks an SM (shared memory)
+  static constexpr int kBlocks = D == 64 ? 2 : 1;  // dq and dk/dv blocks an SM (shared memory)
   // the dq and dk/dv ring: two stages with the fixed operands in registers,
   // one with them in shared memory
   static constexpr int kBwdStages = D == 64 ? 2 : 1;

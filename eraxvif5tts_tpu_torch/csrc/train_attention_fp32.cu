@@ -43,8 +43,10 @@
 // would need the fixed operands split in shared memory, which leaves room
 // for one block an SM; `mma.sync` reads its fragments into registers, so a
 // transposed read costs nothing but its addresses.
-// - Geometry: a block owns 64 rows of one (sample, head), four warps of 16
-//   rows, 128 threads, two blocks an SM at d = 64, one at d = 128. At d = 64
+// - Geometry: a block owns 64 rows of one (sample, head). The forward is
+//   `fp32_forward.cuh`'s: four warps at d = 64, eight in two sets at d = 128
+//   and 256. The backward at d = 64 and 128: four warps of 16 rows, 128
+//   threads, two blocks an SM at d = 64, one at d = 128. At d = 64
 //   the backward's warps keep their fixed operands (dq: Q and dO; dk/dv: K
 //   and V) in registers as fp32 in A-fragment order (64 floats) and split
 //   them at each scores pass of 32 columns, two a tile (the registers hold no
@@ -60,7 +62,7 @@
 //   one.
 // - At d = 256 (kernel 6's fp32 training role: the JAX package's library
 //   flash kernel, eraxvif5tts_tpu/ops/attention.py:38 `_flash_attention`
-//   with trainable=True) the forward is `fp32_forward.cuh`'s `forward_wide`
+//   with trainable=True) the forward is `fp32_forward.cuh`'s `forward_sets`
 //   with the LSE and the keep bits, and dq and dk/dv have a layout of their
 //   own (below, "the backward at d = 256"): the fixed tiles in shared
 //   memory, the streamed ones 16 rows a stage and split where read, and
@@ -97,18 +99,20 @@ namespace {
 
 using namespace fp32tile;
 
-// The forward: `fp32_forward.cuh`'s core (`forward_wide` at d = 256) with
-// the LSE, training's lens-0 logits and, when dropout is on, the keep bits.
+// The forward: `fp32_forward.cuh`'s cores (`forward_sets` at d = 128 and
+// 256) with the LSE, training's lens-0 logits and, when dropout is on, the
+// keep bits.
 template <int D, bool kDrop>
-__global__ void __launch_bounds__(kThreads, Fp32Shape<D>::kBlocks)
+__global__ void __launch_bounds__(fwd_threads<D>(), fwd_blocks<D>())
     train_fp32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                           const float* __restrict__ v, const int* __restrict__ lens,
                           float* __restrict__ out, float* __restrict__ lse, int n, int h,
                           float scale, const Dropout drop) {
-  if constexpr (D == 256) {
-    forward_wide<D, true, kDrop>(q, k, v, lens, out, lse, n, h, scale, drop);
-  } else {
+  if constexpr (D == 64) {
     forward_core<D, true, kDrop, false>(q, k, v, lens, nullptr, nullptr, out, lse, n, h, scale,
+                                        drop);
+  } else {
+    forward_sets<D, true, kDrop, false>(q, k, v, lens, nullptr, nullptr, out, lse, n, h, scale,
                                         drop);
   }
 }
@@ -367,8 +371,8 @@ __global__ void __launch_bounds__(kThreads, Fp32Shape<D>::kBlocks)
 // ---- the backward at d = 256 ----------------------------------------------
 //
 // At d = 256 a padded [64, 256] tile is 66,560 bytes, and a warp's [16, 256]
-// accumulator 128 registers a lane: the layout above does not fit. As in
-// `forward_wide`, the fixed operands stay fp32 in shared memory (two tiles,
+// accumulator 128 registers a lane: the layout above does not fit. The
+// fixed operands stay fp32 in shared memory (two tiles,
 // 133,120 bytes, read and split at each use: `SharedA`) and the streamed
 // ones come raw through a two-stage `cp.async` ring, split where they are
 // read. A stage of 32 keys would be 66,560 bytes, and two of them beside the
@@ -381,7 +385,7 @@ __global__ void __launch_bounds__(kThreads, Fp32Shape<D>::kBlocks)
 // is folded into the output every 16 keys.
 // - dq: 64 query rows a block, four warps of 16 rows, 128 threads, each
 //   warp's dQ accumulator [16, 256] in registers (128 a lane, as
-//   `forward_wide`'s O). Q and dO fixed, K and V streamed 16 keys a stage:
+//   `forward_sets`' O). Q and dO fixed, K and V streamed 16 keys a stage:
 //   2 x 66,560 + 2 x 2 x 16,640 = 199,680 bytes.
 // - dk/dv: 64 keys a block, K and V fixed, Q, dO and their 16 LSE and 16 D
 //   values streamed: 2 x 66,560 + 2 x (2 x 16,640 + 128) = 199,936 bytes.
@@ -396,6 +400,74 @@ __global__ void __launch_bounds__(kThreads, Fp32Shape<D>::kBlocks)
 //   tensor cores (9 / 7 = 1.29x of the backward's dq + dk/dv), for no
 //   recomputation of S and no second pass over Q and dO.
 constexpr int kWideRows = 16;  // keys (dq) or queries (dk/dv) a stage of the d = 256 ring
+
+// acc[nn] += W Z as `product` computes it, over a raw (unsplit) tile Z whose
+// rows are `kStride` floats apart: each B value is split where it is read.
+template <int D>
+__device__ __forceinline__ void product_raw(float (&acc)[8][4], const float (&w)[4],
+                                            const float* z, int j, int lane) {
+  constexpr int kStride = Fp32Shape<D>::kStride;
+  const FragA fa = split_a(w[0], w[2], w[1], w[3]);
+  const int at = (8 * j + 2 * (lane & 3)) * kStride + (lane >> 2);
+#pragma unroll
+  for (int nn = 0; nn < 8; ++nn) {
+    const Split b0 = split(z[at + 8 * nn]), b1 = split(z[at + kStride + 8 * nn]);
+    mma3(acc[nn], fa, __float_as_uint(b0.big), __float_as_uint(b1.big),
+         __float_as_uint(b0.small), __float_as_uint(b1.small));
+  }
+}
+
+// The B fragments of two n-tiles of a raw tile for k-step kk (rows 8 j +
+// lane / 4 of the tile at `z`, columns 8 kk + lane % 4 and four on: one
+// ldmatrix), split.
+__device__ __forceinline__ void wide_b(Split (&b)[4], const float* z, int lm, int kk) {
+  uint32_t x[4];
+  ldmatrix_x4(x, z + lm + 8 * kk);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) b[i] = split(__uint_as_float(x[i]));
+}
+
+// The lane's ldmatrix row address of a raw tile, in floats: row 8 (lane /
+// 16) + lane % 8, column 4 ((lane / 8) % 2).
+template <int D>
+__device__ __forceinline__ int wide_lm(int lane) {
+  return (8 * (lane >> 4) + (lane & 7)) * Fp32Shape<D>::kStride + 4 * ((lane >> 3) & 1);
+}
+
+// s[2 jp + e] += a b over n-tiles 2 jp + e: one split B fragment pair.
+template <int kN>
+__device__ __forceinline__ void mma_pair(float (&s)[kN][4], const FragA& a, const Split (&b)[4],
+                                         int jp) {
+#pragma unroll
+  for (int e = 0; e < 2; ++e)
+    mma3(s[2 * jp + e], a, __float_as_uint(b[2 * e].big), __float_as_uint(b[2 * e + 1].big),
+         __float_as_uint(b[2 * e].small), __float_as_uint(b[2 * e + 1].small));
+}
+
+// The backward's two score products in one walk over d, for the warp's 16
+// rows and the 8 kN rows of the raw tiles X and Y: s += A X^T, dp += B Y^T,
+// A and B the warp's fixed operands in shared memory, split at each use.
+template <int D, int kN>
+__device__ __forceinline__ void wide_scores2(float (&s)[kN][4], float (&dp)[kN][4],
+                                             const SharedA<D>& a, const SharedA<D>& b,
+                                             const float* x, const float* y, int lane) {
+  constexpr int kStride = Fp32Shape<D>::kStride;
+  const int lm = wide_lm<D>(lane);
+#pragma unroll 2
+  for (int kk = 0; kk < D / 8; ++kk) {
+    const FragA af = a.frag(kk);
+    const FragA bf = b.frag(kk);
+#pragma unroll
+    for (int jp = 0; jp < kN / 2; ++jp) {
+      Split xb[4], yb[4];
+      wide_b(xb, x + 16 * jp * kStride, lm, kk);
+      wide_b(yb, y + 16 * jp * kStride, lm, kk);
+      mma_pair(s, af, xb, jp);
+      mma_pair(dp, bf, yb, jp);
+    }
+  }
+}
+
 
 template <int D>
 struct Fp32WideBwd {
@@ -617,7 +689,7 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* lens, vo
                cudaStream_t stream) {
   const auto kernel = drop.on ? train_fp32_fwd_kernel<D, true> : train_fp32_fwd_kernel<D, false>;
   static bool allowed[2][kMaxDevices] = {};
-  return launch(kernel, allowed[drop.on ? 1 : 0], fwd_smem<D>(), kThreads, b, n, h, stream,
+  return launch(kernel, allowed[drop.on ? 1 : 0], fwd_smem<D>(), fwd_threads<D>(), b, n, h, stream,
                 static_cast<const float*>(q), static_cast<const float*>(k),
                 static_cast<const float*>(v), static_cast<const int*>(lens),
                 static_cast<float*>(out), static_cast<float*>(lse), n, h, scale, drop);
@@ -749,15 +821,16 @@ extern "C" int erax_train_attention_fp32_dkv(const void* q, const void* k, const
 
 // The three kernels' launch geometry at head dim d, as `ops/train_attention.py`
 // `forward_geometry_fp32` / `backward_geometry_fp32` state it: the forward's
-// rows a block, threads, ring stages and dynamic shared bytes, then the
-// backward's rows a block, dq's and dk/dv's threads, ring stages, rows a
-// streamed tile and the dq and dk/dv kernels' shared bytes (11 values);
+// rows a block, threads, ring stages, dynamic shared bytes, warp sets and
+// keys a tile, then the backward's rows a block, dq's and dk/dv's threads,
+// ring stages, rows a streamed tile and the dq and dk/dv kernels' shared
+// bytes (13 values);
 // non-zero for a head dim that has no instantiation.
 extern "C" int erax_train_attention_fp32_geometry(int d, int* out) {
   const int err = forward_geometry(d, out);
   if (err != 0) return err;
-  if (d == 64) return backward_geometry<64>(out + 4);
-  if (d == 128) return backward_geometry<128>(out + 4);
-  if (d == 256) return backward_geometry<256>(out + 4);
+  if (d == 64) return backward_geometry<64>(out + kFwdGeometry);
+  if (d == 128) return backward_geometry<128>(out + kFwdGeometry);
+  if (d == 256) return backward_geometry<256>(out + kFwdGeometry);
   return static_cast<int>(cudaErrorInvalidValue);
 }

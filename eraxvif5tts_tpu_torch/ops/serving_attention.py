@@ -40,10 +40,11 @@ tensor raises; there is no fallback.
   (:func:`forward_geometry_fp32` states its launch): every product on the
   tensor cores, ``mma.sync`` TF32 in 3xTF32 (each operand split into two
   TF32 parts, three products each, a fresh accumulator a key tile), 64
-  query rows a block (two blocks an SM at d = 64, one at d = 128 and 256)
-  over key tiles of 64 that a ``cp.async`` ring brings (at d = 256 Q's
-  rows in shared memory and key tiles of 32, split where they are read),
-  an online softmax with ``expf``. It keeps fp32's accuracy whatever
+  query rows a block: at d = 64 four warps, two blocks an SM, over key
+  tiles of 64 that a ``cp.async`` ring brings; at d = 128 and 256 eight
+  warps in two sets that walk alternate key tiles (32 and 16 keys) and
+  merge their softmax states at the end, one block an SM, Q in shared
+  memory; K and V split once a block; an online softmax with ``expf``. It keeps fp32's accuracy whatever
   torch's TF32 flags say, and agrees with the plain version to the
   reordering of fp32 sums.
 
@@ -106,7 +107,7 @@ def forward_geometry_fp32(b: int, n: int, h: int, d: int = train_attention.HEAD_
     """How the fp32 kernel covers ``[b, n, h, d]``: the fp32 forward core's
     launch (`ops/train_attention.py` ``forward_geometry_fp32``), over this
     kernel's domain, ``64 <= n <= MAX_N``, ``n % 64 == 0``, d in
-    ``KERNEL_HEAD_DIMS`` (256 on its own core); others raise."""
+    ``KERNEL_HEAD_DIMS`` (128 and 256 on the two-set core); others raise."""
     if n % TILE or not 0 < n <= MAX_N:
         raise ValueError(f"serving_attention: n must be a multiple of {TILE} in "
                          f"[{TILE}, {MAX_N}], got {n}")
@@ -116,7 +117,8 @@ def forward_geometry_fp32(b: int, n: int, h: int, d: int = train_attention.HEAD_
 def kernel_geometry_fp32(d: int = train_attention.HEAD_DIM) -> dict:
     """The constants the built fp32 kernel reports for head dim ``d`` (needs
     the card's build): they must equal :func:`forward_geometry_fp32`'s
-    ``rows``, ``threads``, ``stages`` and ``shared_bytes``."""
+    ``FP32_FORWARD_BUILT`` values (rows, threads, stages, shared bytes, sets,
+    keys a tile)."""
     return train_attention._kernel_geometry("erax_serving_attention_fp32_geometry", d,
                                             train_attention.FP32_FORWARD_BUILT)
 

@@ -116,9 +116,13 @@ FP32_STRIDE = 68    # floats a shared tile row: 64 padded by 4
 # [16, 128] accumulators would not fit in 255 registers); two at d = 256, of
 # FP32_WIDE_ROWS rows each, beside the fixed tiles
 FP32_BWD_STAGES = {64: 2, 128: 1, 256: 2}
-# the fp32 forwards at d = 256 (`csrc/fp32_forward.cuh` forward_wide): Q's rows
-# in shared memory, K and V in tiles of 32 keys, split where read
-FP32_WIDE_KEYS = 32
+# the fp32 forwards at d = 128 and 256 (`csrc/fp32_forward.cuh` forward_sets):
+# eight warps in FP32_SETS sets of four that share a block's 64 rows and walk
+# alternate key tiles of FP32_SET_KEYS[d] keys, one stage a set, split once;
+# Q's rows in shared memory, split once there at d = 128 (FP32_Q_SPLIT)
+FP32_SETS = 2
+FP32_SET_KEYS = {128: 32, 256: 16}
+FP32_Q_SPLIT = {128: True, 256: False}
 # the fp32 dq and dk/dv kernels at d = 256 (`csrc/train_attention_fp32.cu`):
 # the streamed tiles of 16 rows (keys for dq, queries for dk/dv), raw, split
 # where read; dk/dv on two warps a 16-key group, each owning half the head's
@@ -341,10 +345,12 @@ def kernel_backward_geometry(d: int = HEAD_DIM) -> dict:
     return _kernel_geometry("erax_train_attention_bwd_geometry", d)
 
 
-def _fp32_geometry(b: int, n: int, h: int, d: int, dims: tuple[int, ...]) -> dict:
+def _fp32_geometry(b: int, n: int, h: int, d: int, dims: tuple[int, ...],
+                   sets: int = 1) -> dict:
     _check_head_dim(d, dims)
-    return dict(grid=(n // FP32_ROWS, h, b), threads=FP32_THREADS, rows=FP32_ROWS, tile=TILE,
-                warps=FP32_THREADS // 32, stages=FP32_STAGES, stride=d + 4,
+    threads = sets * FP32_THREADS
+    return dict(grid=(n // FP32_ROWS, h, b), threads=threads, rows=FP32_ROWS, tile=TILE,
+                warps=threads // 32, stages=FP32_STAGES, stride=d + 4,
                 blocks=[(r, FP32_ROWS) for r in range(0, n, FP32_ROWS)])
 
 
@@ -354,33 +360,51 @@ def _per_sm(shared: int) -> int:
 
 
 def forward_geometry_fp32(b: int, n: int, h: int, d: int = HEAD_DIM) -> dict:
-    """How the fp32 forward core covers ``[b, n, h, d]`` (kernel 4a's fp32
-    mode and kernel 1's alike): ``n / 64`` blocks a (sample, head), each
-    owning the 64 query rows of ``blocks``, four warps of 16 that keep their
-    Q rows in registers (split once at d = 64; at d = 128 kept as fp32 and
-    split at each pass, as 128 split registers would not fit beside O); the
-    block walks the key tiles, K and V coming through a ring of ``stages``
-    stages of padded ``[64, d]`` fp32 tiles (``stride`` = d + 4 floats a
-    row), split into TF32 big parts in place and small parts in two more
-    tiles. ``blocks_per_sm`` is what shared memory allows (two at d = 64,
-    one at d = 128), and what the kernels' launch bounds ask of the
-    registers. ``key_tile``: the keys a ring's tile holds.
+    """How the fp32 forward covers ``[b, n, h, d]`` (kernel 4a's fp32 mode
+    and kernel 1's alike, kernel 6's fp32 roles at d = 256): ``n / 64``
+    blocks a (sample, head), each owning the 64 query rows of ``blocks``.
 
-    At d = 256 (kernel 6's roles: kernel 1's fp32 mode without rotary and
-    kernel 4a's fp32 mode, both on `csrc/fp32_forward.cuh` ``forward_wide``)
-    the block keeps its 64 Q rows as fp32 in one padded tile of shared
-    memory and the ring's tiles hold ``FP32_WIDE_KEYS`` (32) keys, kept raw
-    and split where they are read: Q's tile and two stages of a K and a V
-    tile, 199,680 bytes, one block an SM."""
-    if d == LIBRARY_HEAD_DIM:
-        row = (d + 4) * 4
-        shared = FP32_ROWS * row + FP32_STAGES * 2 * FP32_WIDE_KEYS * row
-        return dict(_fp32_geometry(b, n, h, d, KERNEL_HEAD_DIMS), shared_bytes=shared,
-                    blocks_per_sm=_per_sm(shared), key_tile=FP32_WIDE_KEYS)
-    tile = FP32_ROWS * (d + 4) * 4
-    shared = (FP32_STAGES * 2 + 2) * tile
-    return dict(_fp32_geometry(b, n, h, d, HEAD_DIMS), shared_bytes=shared,
-                blocks_per_sm=_per_sm(shared), key_tile=TILE)
+    At d = 64 (`csrc/fp32_forward.cuh` ``forward_core``): four warps of 16
+    rows that keep their Q rows split in registers; the block walks key
+    tiles of 64 (``key_tile``) that a ring of ``stages`` stages of padded
+    ``[64, d]`` fp32 tiles (``stride`` = d + 4 floats a row) brings, split
+    into TF32 big parts in place and small parts in two more tiles; two
+    blocks an SM.
+
+    At d = 128 and 256 (``forward_sets``): ``sets`` = 2 sets of four warps
+    (``threads`` 256, eight warps an SM), warp w of each set owning rows 16 w
+    .. 16 w + 15; set s walks key tiles s, s + 2, ... of ``key_tile`` keys
+    (32 at d = 128, 16 at 256), each through one stage of its own
+    (``stages`` = 1 a set): a K and a V tile, split once into big and small
+    parts by the set's own threads. Q's 64 rows take one padded tile of
+    shared memory, split once into a second at d = 128 (``q_split``); at
+    d = 256 it stays fp32 and the warps split its A fragments at each use.
+    The sets' (m, l, O) merge at the end in the ring's room. One block an
+    SM. ``blocks_per_sm`` is what shared memory allows, and what the
+    kernels' launch bounds ask of the registers."""
+    if d == 64:
+        tile = FP32_ROWS * (d + 4) * 4
+        shared = (FP32_STAGES * 2 + 2) * tile
+        return dict(_fp32_geometry(b, n, h, d, HEAD_DIMS), shared_bytes=shared,
+                    blocks_per_sm=_per_sm(shared), key_tile=TILE, sets=1, q_split=True)
+    _check_head_dim(d)
+    row = (d + 4) * 4
+    keys = FP32_SET_KEYS[d]
+    q_tiles = 2 if FP32_Q_SPLIT[d] else 1
+    shared = q_tiles * FP32_ROWS * row + FP32_SETS * 4 * keys * row
+    return dict(_fp32_geometry(b, n, h, d, KERNEL_HEAD_DIMS, FP32_SETS), stages=1,
+                shared_bytes=shared, blocks_per_sm=_per_sm(shared), key_tile=keys,
+                sets=FP32_SETS, q_split=FP32_Q_SPLIT[d])
+
+
+def set_key_tiles(n: int, length: int, d: int) -> list[list[int]]:
+    """The key tiles each set of the fp32 forward at d = 128 or 256 walks for
+    a sample of ``length`` valid keys (<= 0: none, every key averaged):
+    the tiles of ``FP32_SET_KEYS[d]`` keys that hold a valid key, set s
+    taking tiles s, s + 2, ... (``forward_sets``' loop)."""
+    keys = FP32_SET_KEYS[d]
+    tiles = n // keys if length <= 0 else -(-min(length, n) // keys)
+    return [list(range(s, tiles, FP32_SETS)) for s in range(FP32_SETS)]
 
 
 def backward_geometry_fp32(b: int, n: int, h: int, d: int = HEAD_DIM) -> dict:
@@ -418,15 +442,16 @@ def backward_geometry_fp32(b: int, n: int, h: int, d: int = HEAD_DIM) -> dict:
                 blocks_per_sm=min(_per_sm(dq_shared), _per_sm(dkv_shared)))
 
 
-FP32_FORWARD_BUILT = ("rows", "threads", "stages", "shared_bytes")
+FP32_FORWARD_BUILT = ("rows", "threads", "stages", "shared_bytes", "sets", "key_tile")
 FP32_BACKWARD_BUILT = ("bwd_rows", "dq_threads", "dkv_threads", "bwd_stages", "bwd_tile",
                        "dq_shared_bytes", "dkv_shared_bytes")
 
 
 def kernel_geometry_fp32(d: int = HEAD_DIM) -> dict:
     """The constants the built fp32 kernels report for head dim ``d`` (needs
-    the card's build): the forward's ``rows``, ``threads``, ``stages`` and
-    ``shared_bytes`` must equal :func:`forward_geometry_fp32`'s, the ``bwd_``
+    the card's build): the forward's ``rows``, ``threads``, ``stages``,
+    ``shared_bytes``, ``sets`` and ``key_tile`` must equal
+    :func:`forward_geometry_fp32`'s, the ``bwd_``
     ones :func:`backward_geometry_fp32`'s (``bwd_rows`` its ``rows``)."""
     return _kernel_geometry("erax_train_attention_fp32_geometry", d,
                             FP32_FORWARD_BUILT + FP32_BACKWARD_BUILT)

@@ -3,6 +3,8 @@ to compare two trees (a commit and its parent) on one card.
 
     python3 eraxvif5tts_tpu_torch/tools/probe_train_attention.py TREE [--step] [--serve]
     python3 eraxvif5tts_tpu_torch/tools/probe_train_attention.py TREE --fp32 [--against OTHER]
+    python3 eraxvif5tts_tpu_torch/tools/probe_train_attention.py TREE --fp32 --head-dim 128|256 \
+        [--against OTHER]
 
 TREE is the root of a checkout (this one: `.`; another commit: unpack it
 with `git archive` into a directory `.gitignore` lists). The package and
@@ -59,11 +61,33 @@ With `--fp32`, the fp32 kernels instead (4a, 4b, 4c in
   threads an SM) and at four blocks of 256, and `cvt.rna.tf32.f32`, the
   same rounding in two integer operations, and an fp32 multiply, in
   operations a second.
+
+With `--fp32 --head-dim D` (128 or 256; h = 1024 / D, the DiT's width of
+1024 in heads of D, so that b h D = 2048 at b = 2 and the work equals the
+d = 64 rows' at h = 16), the wide fp32 forward instead:
+
+- the register report of both builds, and the d = 64 digests above (O,
+  LSE, dq, dk, dv; with `--against`, equal digests mean the d = 64 kernels
+  give OTHER's bits);
+- at d = D, kernel 1 fp32 at b = 2, n = 1088 (lens [1051, 0]), n = 1024
+  (lens [1024, 987]) and n = 576 (lens [576, 576]: the bucket of `chip_smoke`'s
+  `[d128]` / `[d256]` `generate`, b h n / 64 blocks under one wave at d = 256),
+  without rotary and at d = 128 with it, and kernel 4a
+  fp32 at n = 4096 (lens [4096, 4059]) at keep = 1 and dropout 0.1: each
+  tree's largest error against the plain version (O in units of 1 + |plain|,
+  the LSE absolute), the largest difference between the trees' O and LSE,
+  and median CUDA-event times in turns (OTHER, TREE, TREE, OTHER) beside
+  the 3xTF32 bound and fp32 `scaled_dot_product_attention` (TF32 off; the
+  key mask when serving, none in training) in the same turns;
+- the wave tail: n = 1088 against 1024 gives b h n / 64 blocks of 64 rows
+  at one block an SM, over the card's SMs: what the part-filled last wave
+  costs beside the work's ratio.
 """
 
 from __future__ import annotations
 
 import hashlib
+import re
 import sys
 from pathlib import Path
 
@@ -106,6 +130,9 @@ def main(argv: list[str]) -> int:
 
     if "--fp32" in argv[1:]:
         other = argv[argv.index("--against") + 1] if "--against" in argv else None
+        if "--head-dim" in argv:
+            wide_fp32(cs, dev, g, other, int(argv[argv.index("--head-dim") + 1]))
+            return 0
         fp32(cs, dev, g, other)
         tf32_rates(cs, dev)
         return 0
@@ -245,14 +272,16 @@ def forward_registers(kernels) -> list[str]:
     for i, line in enumerate(lines):
         for name in ("train_fp32_fwd_kernel", "serving_attention_fp32_kernel"):
             if "Compiling entry" in line and name in line:
-                arg = line.split(name)[1][:4]  # ILb0 / ILb1: the bool template argument
+                # the template arguments: Li128E (int), Lb1E (bool), in order
+                tail = line.split(name)[1].split("EEv")[0] + "E"
+                arg = ", ".join(value for _, value in re.findall(r"L([ib])(\d+)E", tail))
                 after = []
                 for x in lines[i + 1:i + 5]:
                     if "Compiling entry" in x:
                         break
                     after.append(x)
                 report = " ".join(x for x in after if "registers" in x or "spill" in x)
-                found.append(f"{name}<{arg[-1] == '1'}>: {report}")
+                found.append(f"{name}<{arg}>: {report}")
     return found
 
 
@@ -285,24 +314,31 @@ def _fp32_launch(lib, entry: str, outputs: int, q, k, v, lens, lse, dd, dout, ra
     return out
 
 
-def fp32(cs, dev, g, other: str | None) -> None:
-    """The fp32 kernels' digests, errors and times (`--fp32`), and with
-    ``other`` that tree's forward, dq, dk/dv and kernel 1 in turns with
-    this one's."""
+def fp32_builds(cs, other: str | None) -> dict:
+    """TREE's kernels and, with ``other``, OTHER's, each build's fp32 forward
+    register report logged; torch's TF32 flags off."""
     import torch
-    import torch.nn.functional as F
 
     from eraxvif5tts_tpu_torch.ops import _cuda
-    from eraxvif5tts_tpu_torch.ops import train_attention as ta
 
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     builds = {"tree": _cuda.kernels()}
     if other is not None:
         builds["other"] = other_kernels(Path(other).resolve())
-    libs = {who: built.lib for who, built in builds.items()}
     for who, built in builds.items():
         for line in forward_registers(built):
             cs.log(f"fp32 forward registers, {who.upper()}'s build: {line}")
+    return {who: built.lib for who, built in builds.items()}
+
+
+def fp32_digests(cs, dev, g, libs: dict) -> None:
+    """Digests of the d = 64 fp32 kernels' O, LSE, dq, dk, dv on seeded inputs,
+    their errors against the plain version and, with OTHER's build in
+    ``libs``, the largest differences from OTHER's."""
+    import torch
+
+    from eraxvif5tts_tpu_torch.ops import train_attention as ta
+
     names = ("O", "LSE", "dq", "dk", "dv")
 
     def inputs(b, n, lens):
@@ -339,7 +375,24 @@ def fp32(cs, dev, g, other: str | None) -> None:
             cs.log(line)
             del got, want, out, args
 
+
+def fp32(cs, dev, g, other: str | None) -> None:
+    """The fp32 kernels' digests, errors and times (`--fp32`), and with
+    ``other`` that tree's forward, dq, dk/dv and kernel 1 in turns with
+    this one's."""
+    import torch
+    import torch.nn.functional as F
+
+    from eraxvif5tts_tpu_torch.ops import train_attention as ta
+
+    libs = fp32_builds(cs, other)
+    fp32_digests(cs, dev, g, libs)
     order = ("other", "tree", "tree", "other") if "other" in libs else ("tree",)
+
+    def inputs(b, n, lens):
+        return ([torch.randn((b, n, 16, 64), generator=g, device=dev) for _ in range(4)],
+                torch.tensor(lens, dtype=torch.int32, device=dev))
+
     for n in (4096, 1024):
         (q, k, v, dout), lens = inputs(2, n, [n, n - 37])
         elems, rows, keys = 2 * n * 16 * 64, 2 * 16 * n, 2 * n - 37
@@ -400,6 +453,108 @@ def fp32(cs, dev, g, other: str | None) -> None:
                f"{sdpa_fwd:.4f} ms, backward {sdpa:.4f} ms")
         del lib_out, lib_args, args
     serving_fp32(cs, dev, g, libs, order)
+
+
+def wide_fp32(cs, dev, g, other: str | None, d: int) -> None:
+    """The fp32 forward at head dim ``d`` (`--fp32 --head-dim`): each tree's
+    errors against the plain version and the trees' largest differences,
+    times in turns beside the bound and fp32 SDPA, and the wave tail at
+    n = 1088 against 1024; the d = 64 digests first."""
+    import torch
+    import torch.nn.functional as F
+
+    from eraxvif5tts_tpu_torch.ops import serving_attention as sa
+    from eraxvif5tts_tpu_torch.ops import train_attention as ta
+    from eraxvif5tts_tpu_torch.ops.rotary import rotary_freqs
+
+    if d not in (128, 256):
+        raise ValueError(f"--head-dim takes 128 or 256, got {d}")
+    libs = fp32_builds(cs, other)
+    fp32_digests(cs, dev, g, libs)
+    order = ("other", "tree", "tree", "other") if "other" in libs else ("tree",)
+    h = 1024 // d
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    serve_ms = {}
+    cases = [("serve", n, lens_list, roped) for n, lens_list in ((1088, [1051, 0]),
+                                                                  (1024, [1024, 987]),
+                                                                  (576, [576, 576]))
+             for roped in ((False, True) if d == 128 else (False,))]
+    cases += [("train", 4096, [4096, 4059], rate) for rate in (0.0, 0.1)]
+    for role, n, lens_list, arg in cases:
+        q, k, v = (torch.randn((2, n, h, d), generator=g, device=dev) for _ in range(3))
+        lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        if role == "serve":
+            tables = sa.rope_tables(rotary_freqs(n, d, device=dev)) if arg else None
+            rope = rotary_freqs(n, d, device=dev) if arg else None
+            nbytes, ops = cs.attention_work(2, n, h, d, lens_list, arg, 4)
+
+            def run(lib):
+                return [fp32_serve(lib, q, k, v, lens, tables)]
+
+            want = [sa.serving_attention_reference(q, k, v, lens, rope)]
+            key_mask = (torch.arange(n, device=dev)[None] < lens[:, None])[:, None, None, :]
+            if arg:  # SDPA on q and k rotated outside it, as the plain version rotates them
+                qt, kt = (sa._rotate(t, rope).transpose(1, 2) for t in (q, k))
+
+            def sdpa():
+                return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=key_mask)
+
+            name = f"kernel 1 fp32 d={d} h={h} n={n} lens {lens_list} " + (
+                "rotary" if arg else "rope=None")
+        else:
+            keys = sum(min(length, n) for length in lens_list)
+            ops = 4.0 * h * d * n * keys
+
+            def run(lib):
+                return fp32_fwd(lib, q, k, v, lens, arg, 77)
+
+            out = ta.train_attention_reference(q, k, v, lens, arg, 77)
+            want = [out, cs.plain_lse(q, k, lens)]
+
+            def sdpa():
+                return F.scaled_dot_product_attention(qt, kt, vt)
+
+            name = f"kernel 4a fp32 d={d} h={h} n={n} lens {lens_list} dropout {arg}"
+        mine = run(libs["tree"])
+        err = [float(((mine[0] - want[0]).abs() / (1 + want[0].abs())).max())]
+        if len(mine) > 1:
+            err.append(float((mine[1] - want[1]).abs().max()))
+        line = f"{name}: TREE against plain " + ", ".join(
+            f"{k_} {e:.3g}" for k_, e in zip(("O", "LSE"), err))
+        if "other" in libs:
+            theirs = run(libs["other"])
+            line += "; TREE against OTHER " + ", ".join(
+                f"{k_} max |diff| {float((x - y).abs().max()):.3g}"
+                for k_, x, y in zip(("O", "LSE"), mine, theirs))
+        ms = {who: [] for who in libs}
+        lib_ms = []
+        for who in order:
+            lib = libs[who]
+            ms[who].append(cs.cuda_median_ms(lambda: run(lib)))
+            lib_ms.append(cs.cuda_median_ms(sdpa))
+        least = ops / TF32X3_OPS_S * 1e3
+        best = min(ms["tree"])
+        line += (f"; TREE " + " / ".join(f"{t:.4f}" for t in ms["tree"]) + f" ms (3xTF32 bound "
+                 f"{least:.5f} ms, {least / best:.1%}); fp32 SDPA "
+                 + " / ".join(f"{t:.4f}" for t in lib_ms)
+                 + f" ms (TREE {best / min(lib_ms):.2f}x its time)")
+        if "other" in ms:
+            line += (f"; OTHER " + " / ".join(f"{t:.4f}" for t in ms["other"])
+                     + f" ms (OTHER, TREE, TREE, OTHER: TREE {best / min(ms['other']):.3f}x "
+                     "OTHER's time)")
+        cs.log(line)
+        if role == "serve" and not arg:
+            serve_ms[n] = {who: min(t) for who, t in ms.items()}
+        del q, k, v, qt, kt, vt, mine, want
+    blocks = {n: 2 * h * n // 64 for n in serve_ms}
+    for who in serve_ms[1088]:
+        ratio = serve_ms[1088][who] / serve_ms[1024][who]
+        work = (1051 * 1088 + 1088 * 1088) / (1024 * 1024 + 987 * 1024)
+        cs.log(f"fp32 d={d} wave tail, {who.upper()}: n = 1088 {blocks[1088]} blocks "
+               f"({blocks[1088] / sms:.2f} waves at one an SM) {serve_ms[1088][who]:.4f} ms, "
+               f"n = 1024 {blocks[1024]} blocks ({blocks[1024] / sms:.2f} waves) "
+               f"{serve_ms[1024][who]:.4f} ms: {ratio:.3f}x the time for {work:.3f}x the work")
 
 
 def serving_fp32(cs, dev, g, libs: dict, order: tuple) -> None:

@@ -921,7 +921,8 @@ def test_train_attention_fp32_geometry_is_the_kernels(cuda, d):
     built = ta.kernel_geometry_fp32(d)
     fwd, bwd = ta.forward_geometry_fp32(2, 4096, 16, d), ta.backward_geometry_fp32(2, 4096, 16, d)
     assert built == {"rows": fwd["rows"], "threads": fwd["threads"], "stages": fwd["stages"],
-                     "shared_bytes": fwd["shared_bytes"], "bwd_rows": bwd["rows"],
+                     "shared_bytes": fwd["shared_bytes"], "sets": fwd["sets"],
+                     "key_tile": fwd["key_tile"], "bwd_rows": bwd["rows"],
                      "dq_threads": bwd["dq_threads"], "dkv_threads": bwd["dkv_threads"],
                      "bwd_stages": bwd["bwd_stages"], "bwd_tile": bwd["bwd_tile"],
                      "dq_shared_bytes": bwd["dq_shared_bytes"],
@@ -1357,8 +1358,8 @@ def test_d256_geometry_is_the_kernels(cuda):
     """The d = 256 instantiations report the constants `ops/train_attention.py`
     states: the bf16 forward (128 rows, two stages), the backward (64 rows,
     the columns split between the warpgroups), the fp32 forward core (Q in
-    shared memory, 32-key tiles) and the fp32 dq and dk/dv (16-row stages,
-    dk/dv on 256 threads)."""
+    shared memory, two sets of four warps, 16-key tiles) and the fp32 dq and
+    dk/dv (16-row stages, dk/dv on 256 threads)."""
     fwd, bwd = ta.forward_geometry(2, 4096, 4, 256), ta.backward_geometry(2, 4096, 4, 256)
     built = ta.kernel_forward_geometry(256)
     assert built == {name: fwd[name] for name in built} and built["stages"] == 2
@@ -1369,6 +1370,7 @@ def test_d256_geometry_is_the_kernels(cuda):
     built = ta.kernel_geometry_fp32(256)
     bwd = ta.backward_geometry_fp32(2, 4096, 4, 256)
     assert {key: built[key] for key in ta.FP32_FORWARD_BUILT} == sa.kernel_geometry_fp32(256)
+    assert (built["threads"], built["sets"], built["key_tile"]) == (256, 2, 16)
     assert (built["dq_threads"], built["dkv_threads"], built["bwd_tile"]) == \
         (bwd["dq_threads"], bwd["dkv_threads"], bwd["bwd_tile"]) == (128, 256, 16)
     assert (built["dq_shared_bytes"], built["dkv_shared_bytes"]) == \
@@ -1433,7 +1435,7 @@ def test_train_attention_d256_kernels_match_plain(cuda, no_tf32, n, dropout):
                                           (6144, (6144, 6107))])
 def test_train_attention_fp32_d256_kernels_match_plain(cuda, no_tf32, n, lens_list, dropout):
     """Kernels 4a-4c's fp32 d = 256 instantiations (kernel 6's fp32
-    training role: `forward_wide` with the LSE, dq and dk/dv on 16-row
+    training role: `forward_sets` with the LSE, dq and dk/dv on 16-row
     stages) against the plain version's autograd: O within FP32_TOL * (1 +
     |plain|), dq / dk / dv within FP32_GRAD_TOL of their scale, each launch
     counted at d = 256, a second forward and backward bit-identical; a
@@ -1458,3 +1460,69 @@ def test_train_attention_fp32_d256_kernels_match_plain(cuda, no_tf32, n, lens_li
     assert torch.all((got[0] - want[0]).abs() <= FP32_TOL * (1 + want[0].abs()))
     for a, b in zip(got[1:], want[1:]):
         assert float((a - b).abs().max() / b.abs().max()) <= FP32_GRAD_TOL
+
+
+# ---- the fp32 forward at d = 128 and 256: two warp sets -----------------------
+
+
+SET_ROLES = [(d, role) for d in (128, 256)
+             for role in ("serve", "serve, rotary", "train, dropout 0", "train, dropout 0.1")
+             if d == 128 or role != "serve, rotary"]  # no fused rotary at d = 256
+
+
+@pytest.mark.parametrize("n", [64, 192, 1088, 4096, 6144])
+@pytest.mark.parametrize("d, role", SET_ROLES)
+def test_fp32_set_forward_matches_plain(cuda, no_tf32, d, role, n):
+    """The two-set fp32 forward (`csrc/fp32_forward.cuh` ``forward_sets``) at
+    d = 128 and 256 (h = 1024 / d) through kernel 1's fp32 mode (with and
+    without rotary at 128) and kernel 4a's (the LSE, dropout 0 and 0.1), over
+    its domain's edges: three samples, one with its keys ending inside a
+    tile, one with none valid (every key averaged), one with 9 valid keys
+    (fewer than a set's tile: set 1 sees no valid key, or none at all).
+    O within FP32_TOL * (1 + |plain|), the LSE within 1e-6 relative L2 of
+    the plain log sum exp (log n where no key is valid); a second call
+    bit-identical, and a call with both TF32 flags on bit-identical too."""
+    h = 1024 // d
+    g = torch.Generator(device=cuda).manual_seed(n + d + len(role))
+    q, k, v = (torch.randn((3, n, h, d), generator=g, device=cuda) for _ in range(3))
+    lens = torch.tensor([n - 37, 0, 9], dtype=torch.int32, device=cuda)
+    if role.startswith("serve"):
+        rope = rotary_freqs(n, d, device=cuda) if role.endswith("rotary") else None
+        counts = sa.serving_attention.launches_fp32_by_head_dim
+        before = counts[d]
+
+        def run():
+            return [sa.serving_attention(q, k, v, lens, rope)]
+
+        want = [sa.serving_attention_reference(q, k, v, lens, rope)]
+    else:
+        rate = 0.1 if role.endswith("0.1") else 0.0
+        counts = ta.flash_forward_fp32.launches_by_head_dim
+        before = counts[d]
+
+        def run():
+            return list(ta.flash_forward_fp32(q, k, v, lens, rate, 0xD1CE))
+
+        s = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(d)
+        s[0, :, :, n - 37:] = -1e30
+        s[2, :, :, 9:] = -1e30
+        want_lse = torch.logsumexp(s, dim=-1)
+        want_lse[1] = math.log(n)
+        want = [ta.train_attention_reference(q, k, v, lens, rate, 0xD1CE), want_lse]
+        del s
+    got, again = run(), run()
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        flagged = run()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    torch.cuda.synchronize()
+    assert counts[d] == before + 3
+    assert all(t.dtype == torch.float32 and torch.isfinite(t).all() for t in got)
+    err = (got[0] - want[0]).abs()
+    assert torch.all(err <= FP32_TOL * (1 + want[0].abs())), float(err.max())
+    if len(want) > 1:
+        assert float((got[1] - want[1]).norm() / want[1].norm()) <= 1e-6
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(torch.equal(a, b) for a, b in zip(got, flagged))

@@ -101,21 +101,34 @@ def test_fp32_kernel_domain_and_counters():
 def test_fp32_kernel_geometry_covers_every_row_once_within_the_card(n, d):
     """Kernel 1 fp32's launch over its whole domain (the fp32 forward core
     that kernel 4a's fp32 mode shares): n / 64 blocks a (sample, head) of
-    64 query rows, four warps of 16, each row owned once and no block past
-    the sample, a ring of two stages, the shared memory within a block's
-    232,448 bytes and two blocks an SM at d = 64, one at d = 128."""
+    64 query rows, each row owned once and no block past the sample, the
+    shared memory within a block's 232,448 bytes. At d = 64 four warps of
+    16, a ring of two stages, two blocks an SM; at d = 128 eight warps in
+    two sets of four that each cover the block's rows once, one stage of
+    32-key K and V tiles a set (big and small parts) beside Q's split
+    tiles, one block an SM; every key tile walked by one set."""
     b, h = 2, 16
     geo = tsa.forward_geometry_fp32(b, n, h, d)
     assert geo == tta.forward_geometry_fp32(b, n, h, d)
     assert geo["grid"] == (n // 64, h, b) == (len(geo["blocks"]), h, b)
-    assert geo["threads"] == 128 and geo["warps"] * 32 == 128 and geo["warps"] * 16 == 64
-    assert geo["rows"] == geo["tile"] == 64 and geo["stages"] == 2
+    sets = {64: 1, 128: 2}[d]
+    assert geo["sets"] == sets and geo["threads"] == 128 * sets
+    assert geo["warps"] * 32 == geo["threads"] and geo["warps"] // sets * 16 == 64
+    assert geo["rows"] == geo["tile"] == 64 and geo["stages"] == {64: 2, 128: 1}[d]
     covered = np.zeros(n, np.int64)
     for block, (start, rows) in enumerate(geo["blocks"]):
         assert (start, rows) == (64 * block, 64) and start + rows <= n
         covered[start:start + rows] += 1
     np.testing.assert_array_equal(covered, 1)
-    assert geo["shared_bytes"] == (2 * 2 + 2) * 64 * (d + 4) * 4 <= tta.SHARED_LIMIT
+    tile = 64 * (d + 4) * 4
+    if d == 64:
+        assert geo["key_tile"] == 64 and geo["shared_bytes"] == (2 * 2 + 2) * tile
+    else:
+        assert geo["key_tile"] == 32 and geo["q_split"]
+        assert geo["shared_bytes"] == 2 * tile + 2 * 4 * 32 * (d + 4) * 4
+        walked = sorted(t for tiles in tta.set_key_tiles(n, n, d) for t in tiles)
+        assert walked == list(range(n // 32))
+    assert geo["shared_bytes"] <= tta.SHARED_LIMIT
     per_sm = {64: 2, 128: 1}[d]
     assert geo["blocks_per_sm"] == per_sm
     assert per_sm * (geo["shared_bytes"] + 1024) <= tta.SM_SHARED

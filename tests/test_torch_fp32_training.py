@@ -104,13 +104,16 @@ def test_fp32_geometry_covers_every_row_once_within_the_card(n, d):
     # the backward's ring: two stages at d = 64, one beside the fixed tiles at 128
     assert bwd["bwd_stages"] == {64: 2, 128: 1}[d]
     assert bwd["fixed_tiles"] == {64: 0, 128: 2}[d]
+    # the forward: four warps at d = 64; at d = 128 two sets of four (eight
+    # warps an SM), each set's warps covering the block's rows
+    assert fwd["sets"] == {64: 1, 128: 2}[d] and bwd["threads"] == 128
     for geo in (fwd, bwd):
+        sets = fwd["sets"] if geo is fwd else 1
         assert geo["grid"] == (len(geo["blocks"]), h, b)
-        assert geo["threads"] == 128 and geo["rows"] == geo["tile"] == 64
+        assert geo["threads"] == 128 * sets and geo["rows"] == geo["tile"] == 64
         assert geo["stride"] == d + 4
-        # a warp per m16 tile of the block's rows, the forward's ring of two stages
-        assert geo["warps"] * 32 == geo["threads"] and geo["warps"] * 16 == geo["rows"]
-        assert geo["stages"] == 2
+        # a warp per m16 tile of the block's rows (in each set)
+        assert geo["warps"] * 32 == geo["threads"] and geo["warps"] // sets * 16 == geo["rows"]
         covered = np.zeros(n, np.int64)
         for block, (start, rows) in enumerate(geo["blocks"]):
             assert (start, rows) == (block * geo["rows"], geo["rows"])
@@ -118,6 +121,18 @@ def test_fp32_geometry_covers_every_row_once_within_the_card(n, d):
             covered[start:start + rows] += 1
         np.testing.assert_array_equal(covered, 1)
         assert geo["blocks_per_sm"] == {64: 2, 128: 1}[d]
+    # the forward's ring: two stages of 64 keys at d = 64, one stage of 32 a set at 128
+    assert (fwd["stages"], fwd["key_tile"]) == {64: (2, 64), 128: (1, 32)}[d]
+    assert bwd["stages"] == 2  # FP32_STAGES, as before; the backward's own ring is bwd_stages
+    if d == 128:
+        # every key tile of a sample walked by one set: all of them with no key
+        # masked, those that hold a valid key with lens inside, none past them
+        for length in (n, n - 37, 1, 0):
+            tiles = tta.set_key_tiles(n, length, d)
+            walked = sorted(t for part in tiles for t in part)
+            want = n // 32 if length <= 0 else -(-max(length, 1) // 32)
+            assert walked == list(range(want))
+            assert all(t % 2 == s for s, part in enumerate(tiles) for t in part)
     for shared in (fwd["shared_bytes"], bwd["dq_shared_bytes"], bwd["dkv_shared_bytes"]):
         assert 48 * 1024 < shared <= tta.SHARED_LIMIT
         assert fwd["blocks_per_sm"] * (shared + 1024) <= tta.SM_SHARED
@@ -129,8 +144,17 @@ def test_fp32_shared_bytes_add_up(d, fwd_bytes, dq_bytes, dkv_bytes, per_sm):
     tile = 64 * (d + 4) * 4  # a [64, d] tile padded to d + 4 floats a row
     fwd, bwd = tta.forward_geometry_fp32(1, 4096, 16, d), tta.backward_geometry_fp32(1, 4096, 16, d)
     stages, fixed = bwd["bwd_stages"], bwd["fixed_tiles"]
-    # the forward: a ring of two stages of K and V, and their small parts
-    assert fwd["stages"] == 2 and fwd["shared_bytes"] == (2 * 2 + 2) * tile == fwd_bytes
+    if d == 64:
+        # the forward: a ring of two stages of K and V, and their small parts
+        assert fwd["stages"] == 2 and fwd["shared_bytes"] == (2 * 2 + 2) * tile == fwd_bytes
+    else:
+        # the forward: Q's big and small parts, and two sets' one stage of a
+        # 32-key K and V tile, big and small (4 x 16,896 bytes a set)
+        keys = fwd["key_tile"]
+        assert fwd["stages"] == 1 and fwd["sets"] == 2 and keys == 32
+        assert fwd["shared_bytes"] == 2 * tile + 2 * 4 * keys * (d + 4) * 4 == fwd_bytes
+        # set 1's O and (m, l) for the merge fit in the two sets' room
+        assert 64 * d * 4 + 4 * 32 * 16 <= 2 * 4 * keys * (d + 4) * 4
     # dq: its ring of K and V, their small parts, and at d = 128 Q's and dO's tiles
     assert bwd["dq_shared_bytes"] == (stages * 2 + 2 + fixed) * tile == dq_bytes
     # dk/dv: Q, dO and the query tile's 64 LSE and 64 D values a stage; Q's and
@@ -374,6 +398,153 @@ def test_3xtf32_forward_holds_the_fp32_limit_where_one_tf32_pass_fails(mode):
     if train:  # serving writes no LSE
         assert worst[3][1] <= chip_smoke.LSE_REL_TOL, worst
     assert worst[1][0] > chip_smoke.FP32_TOL, worst
+
+
+def emulate_forward_sets(q, k, v, length: int, train: bool, factor=None,
+                         sets: int = tta.FP32_SETS) -> tuple[np.ndarray, np.ndarray]:
+    """One head of the two-set fp32 forward (`csrc/fp32_forward.cuh`
+    ``forward_sets``, d = 128 and 256) in numpy, in 3xTF32: key tiles of
+    ``FP32_SET_KEYS[d]`` up to the last valid one (all where none is valid),
+    set s walking tiles s, s + ``sets``, ... with its own online softmax (S
+    through :func:`mma_product` as two chains, the even k-steps of 8 and the
+    odd ones, added in fp32; the masked logit, the running maximum from
+    -inf, the tile's Pd V in a fresh accumulator folded as fmaf(alpha, O,
+    part)); then the merge: m the larger maximum, each set's l and O scaled
+    by exp(m_s - m) (0 for a set that saw no tile), O / l and LSE = m + log
+    l. ``sets`` = 1 is one walk over every tile."""
+    n, d = q.shape
+    scale, keys = np.float32(1.0 / math.sqrt(d)), tta.FP32_SET_KEYS[d]
+    masked = np.float32(0.0 if train and length <= 0 else -1e30)
+    steps = np.arange(d).reshape(-1, 8)  # the columns of each k-step
+    even, odd = steps[0::2].ravel(), steps[1::2].ravel()
+    parts = []
+    for tiles in (tta.set_key_tiles(n, length, d) if sets == 2 else
+                  [sorted(sum(tta.set_key_tiles(n, length, d), []))]):
+        o = np.zeros((n, d), np.float32)
+        m = np.full(n, -np.inf, np.float32)
+        l = np.zeros(n, np.float32)
+        for t in tiles:
+            cols = slice(t * keys, (t + 1) * keys)
+            kt = k[cols].T
+            scores = mma_product(q[:, even], kt[even], 3) + mma_product(q[:, odd], kt[odd], 3)
+            s = np.where(np.arange(t * keys, (t + 1) * keys) < length, scores * scale, masked)
+            m_new = np.maximum(m, s.max(1))
+            alpha = np.exp(m - m_new)
+            p = np.exp(s - m_new[:, None])
+            l = l * alpha + p.sum(1, dtype=np.float32)
+            pd = p if factor is None else p * factor[:, cols]
+            part = mma_product(pd, v[cols], 3)
+            o = (alpha[:, None].astype(np.float64) * o + part).astype(np.float32)
+            m = m_new
+        parts.append((m, l, o))
+    if len(parts) == 1:
+        (m, l, o), = parts
+        return o / l[:, None], m + np.log(l)
+    (m0, l0, o0), (m1, l1, o1) = parts
+    m = np.maximum(m0, m1)
+    a0, a1 = np.exp(m0 - m), np.exp(m1 - m)
+    l = a0 * l0 + a1 * l1
+    o = a0[:, None] * o0 + a1[:, None] * o1
+    return o / l[:, None], m + np.log(l)
+
+
+# (n, valid keys) a case: every key averaged (lens = 0); every valid key in
+# set 0's first tile (set 1 sees none); an odd count of key tiles
+SET_CASES = {128: ((128, 0), (128, 20), (128, 80)), 256: ((64, 0), (64, 10), (64, 40))}
+
+
+@pytest.mark.parametrize("train", [False, True])
+@pytest.mark.parametrize("d", [128, 256])
+def test_two_set_merge_holds_the_fp32_limit(d, train):
+    """The two-set forward's arithmetic (:func:`emulate_forward_sets`) for a
+    sample with no valid key, one whose valid keys all lie in set 0's first
+    tile, and one with an odd number of key tiles (set 0 walks one more),
+    kernel 4a's mode with dropout 0.1 and kernel 1's without: O within
+    chip_smoke's FP32_TOL * (1 + |ref|) of a float64 reference and the LSE
+    within LSE_REL_TOL. Where set 1 sees no tile the merge adds exactly
+    nothing: the bits are one walk's over the same tiles."""
+    import chip_smoke
+
+    rng = np.random.default_rng(d + train)
+    keep = 0.9 if train else 1.0
+    for hi, (n, length) in enumerate(SET_CASES[d]):
+        tiles = tta.set_key_tiles(n, length, d)
+        q, k, v = (rng.standard_normal((n, d)).astype(np.float32) for _ in range(3))
+        factor = None
+        if train:
+            mask = tta.dropout_keep_mask(0xC0FFEE, 0, hi, 0, 0, n, n, n, keep).numpy()
+            factor = np.where(mask, np.float32(1.0 / keep), np.float32(0.0))
+        logits = q.astype(np.float64) @ k.astype(np.float64).T / math.sqrt(d)
+        if length > 0:
+            logits[:, length:] = -1e30
+        else:
+            logits[:] = 0.0 if train else -1e30
+        top = logits.max(1, keepdims=True)
+        e = np.exp(logits - top)
+        lse = np.log(e.sum(1)) + top[:, 0]
+        p = e / e.sum(1, keepdims=True)
+        want = (p if factor is None else p * factor) @ v.astype(np.float64)
+        out, got_lse = emulate_forward_sets(q, k, v, length, train, factor)
+        assert out.dtype == got_lse.dtype == np.float32
+        assert float((np.abs(out - want) / (1 + np.abs(want))).max()) <= chip_smoke.FP32_TOL
+        assert float(np.linalg.norm(got_lse - lse) / np.linalg.norm(lse)) <= \
+            chip_smoke.LSE_REL_TOL
+        if not tiles[1]:
+            one = emulate_forward_sets(q, k, v, length, train, factor, sets=1)
+            np.testing.assert_array_equal(out, one[0])
+            np.testing.assert_array_equal(got_lse, one[1])
+    assert [len(t) for t in tta.set_key_tiles(*SET_CASES[d][1], d)] == [1, 0]
+    assert [len(t) for t in tta.set_key_tiles(*SET_CASES[d][2], d)] == [2, 1]
+
+
+@pytest.mark.parametrize("d", [128, 256])
+def test_two_set_shared_reads_are_conflict_free(d):
+    """The shared-memory traffic of the two-set forward (`forward_sets`), on
+    rows padded to d + 4 floats: the Q A fragments every warp of both sets
+    reads (rows lane / 4 and + 8, columns 8 kk + lane % 4 and + 4; at d = 128
+    from Q's big and small tiles alike) hit 32 distinct banks; the split K
+    tile's `ldmatrix` reads (each matrix's eight 16-byte rows) eight
+    distinct bank quads; the products' B reads of the split V tile (rows 8 j
+    + 2 (lane % 4) + {0, 1} of the tile's kN n-tiles, column 64 half + 8 nn
+    + lane / 4) 32 distinct banks; each 16-byte copy, rotation and split of
+    a chunk (a set's 128 threads over a tile, all 256 over Q) eight distinct
+    quads a quarter-warp; the merge's float4 writes and reads, a lane's
+    registers at consecutive slots, likewise. Every tile starts 16-byte
+    aligned."""
+    geo = tta.forward_geometry_fp32(1, 64, 1, d)
+    stride, keys = geo["stride"], geo["key_tile"]
+    assert stride == d + 4 and keys == tta.FP32_SET_KEYS[d]
+    lanes = np.arange(32)
+    g, c = lanes // 4, lanes % 4
+    for warp in range(4):
+        for kk in range(d // 8):
+            for at in (0, 8 * stride, 4, 8 * stride + 4):  # a0, a1, a2, a3
+                banks = ((16 * warp + g) * stride + c + 8 * kk + at) % 32
+                assert len(set(banks.tolist())) == 32
+    for jp in range(keys // 16):  # the scores' ldmatrix.x4 of two n-tiles
+        for kk in range(d // 8):
+            for mat in range(4):
+                rows = 16 * jp + 8 * (mat >> 1) + np.arange(8)
+                quads = (rows * stride + 8 * kk + 4 * (mat & 1)) % 32 // 4
+                assert len(set(quads.tolist())) == 8
+    for j in range(keys // 8):  # O += Pd V: B at rows 8 j + 2 c + {0, 1}
+        for half in range(d // 64):
+            for nn in range(8):
+                for odd in range(2):
+                    banks = ((8 * j + 2 * c + odd) * stride + 64 * half + 8 * nn + g) % 32
+                    assert len(set(banks.tolist())) == 32
+    for threads, rows in ((128, keys), (256, 64)):  # chunk i = thread + threads m
+        for m in range(rows * d // 4 // threads):
+            for quarter in range(threads // 8):
+                i = 8 * quarter + np.arange(8) + threads * m
+                quads = ((i // (d // 4)) * stride + 4 * (i % (d // 4))) % 32 // 4
+                assert len(set(quads.tolist())) == 8
+    for nn in range(d // 8):  # the merge: slot (warp * d / 8 + nn) * 32 + lane, float4
+        slots = (3 * (d // 8) + nn) * 32 + lanes
+        for quarter in range(4):
+            quads = (4 * slots[8 * quarter:8 * quarter + 8]) % 32 // 4
+            assert len(set(quads.tolist())) == 8
+    assert (keys * stride * 4) % 16 == 0 and (64 * stride * 4) % 16 == 0
 
 
 def test_pass_partials_bound_the_drift_of_an_accumulator_rounded_toward_zero():

@@ -197,8 +197,14 @@ def test_d256_geometry_covers_every_row_once_within_the_card(n):
     assert bwd["warpgroups"] == [[(r, 64), (r, 64)] for r in range(0, n, 64)]
     f32 = tsa.forward_geometry_fp32(b, n, h, D)
     assert f32 == tta.forward_geometry_fp32(b, n, h, D)  # the training forward's core
-    assert (f32["rows"], f32["threads"], f32["stages"], f32["key_tile"]) == (64, 128, 2, 32)
+    # the fp32 forward: two sets of four warps over the block's 64 rows, each
+    # set one stage of 16-key K and V tiles, Q fp32 in shared memory
+    assert (f32["rows"], f32["threads"], f32["warps"], f32["sets"], f32["stages"],
+            f32["key_tile"], f32["q_split"]) == (64, 256, 8, 2, 1, 16, False)
     assert f32["blocks"] == [(r, 64) for r in range(0, n, 64)]
+    walked = [t for tiles in tta.set_key_tiles(n, n, D) for t in tiles]
+    assert sorted(walked) == list(range(n // 16))  # every 16-key tile by one set
+    assert tta.set_key_tiles(n, 0, D) == tta.set_key_tiles(n, n, D)
     b32 = tta.backward_geometry_fp32(b, n, h, D)
     assert (b32["rows"], b32["dq_threads"], b32["dkv_threads"], b32["bwd_stages"],
             b32["bwd_tile"], b32["fixed_tiles"]) == (64, 128, 256, 2, 16, 2)
@@ -228,9 +234,13 @@ def test_d256_shared_bytes_add_up():
     assert tta.backward_geometry(1, 4096, 4, D)["shared_bytes"] == \
         1024 + 2 * tile + 2 * (2 * tile + 2 * 64 * 4) + 8 * (2 * 2 + 1) == 198696
     row = (D + 4) * 4  # a padded fp32 row
+    # the fp32 forward: Q's 64 rows, and two sets' one stage of a 16-key K and
+    # V tile, big and small (4 x 16,640 bytes a set)
     assert tsa.forward_geometry_fp32(1, 4096, 4, D)["shared_bytes"] == \
         tta.forward_geometry_fp32(1, 4096, 4, D)["shared_bytes"] == \
-        64 * row + 2 * 2 * 32 * row == 199680
+        64 * row + 2 * 4 * 16 * row == 199680
+    # set 1's O and (m, l) for the merge fit in the two sets' room
+    assert 64 * D * 4 + 4 * 32 * 16 <= 2 * 4 * 16 * row
     # fp32 dq: Q's and dO's 64 rows, two stages of a K and a V tile of 16 keys;
     # dk/dv: K's and V's, two stages of a Q and a dO tile of 16 queries and
     # their 16 LSE and 16 D values
