@@ -4647,8 +4647,11 @@ def check_d256_geometry() -> None:
     log(f"[d256] built geometry equals the stated one: bf16 forward {built['forward']} "
         f"(registers {fwd['registers']}), backward {built['backward']} (columns "
         f"{bwd['columns']}); fp32 serving {built['fp32 serving']} ({f32['sets']} warp sets "
-        f"of four, key tiles of {f32['key_tile']}, Q split at each use); fp32 training {built['fp32 training']} (dk/dv columns "
-        f"{b32['dkv_columns']})")
+        f"of four, key tiles of {f32['key_tile']}, Q split at each use); fp32 training "
+        f"{built['fp32 training']} (dq and dk/dv in pairs of warps, {b32['bwd_tile']}-row "
+        f"tiles split once; dq warps (first row, first column, columns) {b32['dq_warps']}, "
+        f"a raw room of {b32['raw_bytes']} bytes; dk/dv warps (first key, output) "
+        f"{b32['dkv_warps']}, P slots of {b32['p_slot_bytes']} bytes)")
     lib = _cuda.kernels().lib
     q = torch.zeros((1, 64, 2, d), dtype=torch.float32, device="cuda")
     qb = q.bfloat16()

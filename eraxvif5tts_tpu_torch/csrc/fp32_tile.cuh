@@ -33,8 +33,9 @@
 //   (kStride % 32 == 4 at every head dim).
 // - At d = 256 the forwards run on `fp32_forward.cuh`'s `forward_sets` (as
 //   at d = 128) and the dq and dk/dv kernels on a layout of their own
-//   (`train_attention_fp32.cu`): the fixed operands in shared memory, the
-//   streamed tiles kept raw and split where they are read.
+//   (`train_attention_fp32.cu`): eight warps in pairs, the fixed operands
+//   fp32 in shared memory (split at each use), the streamed tiles of 16 rows
+//   split once a block.
 // - Scores come out in the mma's C layout (row lane / 4 and + 8, columns 2
 //   (lane % 4) + {0, 1} of each n-tile) and are used in place as the next
 //   product's A fragment by permuting the k-step: no shuffle and no trip

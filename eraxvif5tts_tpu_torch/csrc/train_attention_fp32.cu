@@ -64,9 +64,12 @@
 //   flash kernel, eraxvif5tts_tpu/ops/attention.py:38 `_flash_attention`
 //   with trainable=True) the forward is `fp32_forward.cuh`'s `forward_sets`
 //   with the LSE and the keep bits, and dq and dk/dv have a layout of their
-//   own (below, "the backward at d = 256"): the fixed tiles in shared
-//   memory, the streamed ones 16 rows a stage and split where read, and
-//   dk/dv on eight warps that split the head's columns.
+//   own (below, "the backward at d = 256"): eight warps an SM in pairs of
+//   16 rows, the fixed tiles fp32 in shared memory, the streamed ones 16 rows
+//   a tile split once a block; in dq the pair's warps compute S and dP and
+//   trade them, each then holding half of dQ's columns; in dk/dv they split
+//   by output (dV, dK), and P goes from one to the other through shared
+//   memory.
 // - dq: each step takes S = Q K^T and dP = dO V^T, dS, and dQ += dS K.
 //   dk/dv: each step takes S^T = K Q^T and dP^T = V dO^T, Pd^T and dS^T,
 //   and dV += Pd^T dO, dK += dS^T Q. The scores come out in the mma's C
@@ -370,300 +373,414 @@ __global__ void __launch_bounds__(kThreads, Fp32Shape<D>::kBlocks)
 
 // ---- the backward at d = 256 ----------------------------------------------
 //
-// At d = 256 a padded [64, 256] tile is 66,560 bytes, and a warp's [16, 256]
-// accumulator 128 registers a lane: the layout above does not fit. The
-// fixed operands stay fp32 in shared memory (two tiles,
-// 133,120 bytes, read and split at each use: `SharedA`) and the streamed
-// ones come raw through a two-stage `cp.async` ring, split where they are
-// read. A stage of 32 keys would be 66,560 bytes, and two of them beside the
-// fixed tiles 266,240, past the 232,448 a block may use; the ring takes 16
-// rows a stage instead (kWideRows), two stages in the bytes one stage of 32
-// would take, so that the next tile's copy runs under this tile's products
-// (one stage of 32 would leave each copy exposed to the block's four
-// warps, one an SM sub-partition). The cost is more work a key: the fixed
-// operands are read and split once a 16-row tile, and a fresh accumulator
-// is folded into the output every 16 keys.
-// - dq: 64 query rows a block, four warps of 16 rows, 128 threads, each
-//   warp's dQ accumulator [16, 256] in registers (128 a lane, as
-//   `forward_sets`' O). Q and dO fixed, K and V streamed 16 keys a stage:
-//   2 x 66,560 + 2 x 2 x 16,640 = 199,680 bytes.
-// - dk/dv: 64 keys a block, K and V fixed, Q, dO and their 16 LSE and 16 D
-//   values streamed: 2 x 66,560 + 2 x (2 x 16,640 + 128) = 199,936 bytes.
-//   Its two accumulators would be 256 registers a lane at 16 keys a warp,
-//   so the head's columns are split as the bf16 kernel splits them
-//   (`train_attention.cu` BwdShape<256>): eight warps, 256 threads, two a
-//   16-key group, each owning 128 of the head's columns of dK and dV (64 +
-//   64 registers) and computing the whole score tiles S^T and dP^T itself.
-//   The extra tensor work: the two score products (each over all 256
-//   columns) run twice, so the block does 2 x 2 + 2 = 6 products' work
-//   where one warp a group would do 4: 1.5x dk/dv's operations on the
-//   tensor cores (9 / 7 = 1.29x of the backward's dq + dk/dv), for no
-//   recomputation of S and no second pass over Q and dO.
-constexpr int kWideRows = 16;  // keys (dq) or queries (dk/dv) a stage of the d = 256 ring
+// At d = 256 a padded [64, 256] tile is 66,560 bytes and a warp's [16, 256]
+// accumulator 128 registers a lane. Each kernel runs one block of eight
+// warps an SM (256 threads, two warps an SM sub-partition) in four pairs, a
+// pair a 16-row group of the block's 64 rows, and keeps its two fixed
+// operands fp32 in shared memory (133,120 bytes; each warp reads the A
+// fragment of a k-step in one `ldmatrix` and splits it, `LdmA`: split, they
+// would take twice the room). The streamed tiles are 16 rows, each value
+// split once a block by the thread that copied it (`rows_split`) and read
+// by `ldmatrix` or as B fragments with no arithmetic; each warp reads one
+// fixed operand, and no product is computed twice.
+// - dq (`train_fp32_dq_pairs_kernel`): warp A (warps 0-3) reads Q and
+//   computes S = Q K^T, warp B (4-7) reads dO and computes dP = dO V^T, for
+//   the pair's 16 rows and the tile's 16 keys. Through slots of shared
+//   memory, on a named barrier of the pair's 64 threads, A hands B S of the
+//   second 8 keys and B hands A dP of the first; each forms dS of its 8
+//   keys (each element once: P, the keep bit, dS) and hands it over, so
+//   that both hold the tile's dS. A holds dQ's columns 0-127, B 128-255 (64
+//   registers a lane each).
+// - dk/dv (`train_fp32_dkv_pairs_kernel`): split by output. Warp A (warps
+//   0-3) reads K, computes S^T = K Q^T, P and Pd^T and holds dV += Pd^T dO;
+//   warp B (4-7) reads V, computes dP^T = V dO^T, takes P from A through a
+//   slot on the pair's named barrier, forms dS^T and holds dK += dS^T Q:
+//   four products a group, each once. A writes P with its sign bit set
+//   where the keep bit drops the element (P >= 0, so |x| is P exactly), and
+//   B reads P and the keep factor from one value. The tile's LSE and D come
+//   from global memory, a float2 a lane an n-tile.
+// - The streamed tiles (dq: K and V; dk/dv: Q and dO) come raw into a room
+//   of their own (unpadded: 32,768 bytes) a tile ahead and are split from
+//   there into the padded tiles the products read. The pairs' slots lie in
+//   room the tile no longer needs: dq's in V's parts once every warp is done
+//   with V, dk/dv's in the raw room between the split and the next tile's
+//   copy, which then runs under the products. The fixed tiles, a tile's big
+//   and small parts and the raw room: 2 x 66,560 + 4 x 16,640 + 32,768 =
+//   232,448 bytes, all a block may use.
+// - The scores run kChains accumulators, k-step kk into chain kk % kChains,
+//   added in IEEE fp32 at the end: chains of dependent mma a half (dk/dv) or
+//   a quarter (dq) as long. Each tile's products into the output go into a
+//   fresh accumulator an n-tile that the CUDA cores add to the output
+//   (`cols_product`), whose A fragments are split once a tile. Both roles of
+//   a pair run the one product call (two calls, one a role, held 27 of the
+//   accumulators in local memory).
+constexpr int kWideRows = 16;  // rows of a streamed tile: keys (dq), queries (dk/dv)
 
-// acc[nn] += W Z as `product` computes it, over a raw (unsplit) tile Z whose
-// rows are `kStride` floats apart: each B value is split where it is read.
-template <int D>
-__device__ __forceinline__ void product_raw(float (&acc)[8][4], const float (&w)[4],
-                                            const float* z, int j, int lane) {
-  constexpr int kStride = Fp32Shape<D>::kStride;
-  const FragA fa = split_a(w[0], w[2], w[1], w[3]);
-  const int at = (8 * j + 2 * (lane & 3)) * kStride + (lane >> 2);
-#pragma unroll
-  for (int nn = 0; nn < 8; ++nn) {
-    const Split b0 = split(z[at + 8 * nn]), b1 = split(z[at + kStride + 8 * nn]);
-    mma3(acc[nn], fa, __float_as_uint(b0.big), __float_as_uint(b1.big),
-         __float_as_uint(b0.small), __float_as_uint(b1.small));
+// The copies of kR rows of a [.., D] fp32 tensor (`src` at position 0 of the
+// head, rows `stride` floats apart), from row `row0`, into a tile of kStride
+// floats a row that kT threads share, `tid` this thread's index among them:
+// chunk i = tid + kT m of the kR D / 4 sixteen-byte chunks lies at row i /
+// (D / 4), column 4 (i % (D / 4)). The addresses advance in a loop that is
+// not unrolled, with a 32-bit row stride (as `set_copy`), so that no chunk's
+// global address stays live beside the accumulators.
+template <int D, int kR, int kT, int kStride = D + 4>
+__device__ __forceinline__ void rows_copy(float* tile, const float* __restrict__ src,
+                                          int64_t stride, int row0, int tid) {
+  constexpr int kStep = kT / (D / 4);  // rows between a thread's chunks
+  static_assert(kT % (D / 4) == 0 && kR % kStep == 0, "every thread copies as many chunks");
+  const int r = tid / (D / 4), col = 4 * (tid % (D / 4));
+  const int stride32 = static_cast<int>(stride);
+  const float* from = src + static_cast<int64_t>(row0 + r) * stride32 + col;
+  float* to = tile + r * kStride + col;
+#pragma unroll 1
+  for (int m = 0; m < kR / kStep; ++m) {
+    cp_async16(to, from);
+    from += kStep * stride32;
+    to += kStep * kStride;
   }
 }
 
-// The B fragments of two n-tiles of a raw tile for k-step kk (rows 8 j +
-// lane / 4 of the tile at `z`, columns 8 kk + lane % 4 and four on: one
-// ldmatrix), split.
-__device__ __forceinline__ void wide_b(Split (&b)[4], const float* z, int lm, int kk) {
-  uint32_t x[4];
-  ldmatrix_x4(x, z + lm + 8 * kk);
+// This thread's chunks of a landed tile of kSrcStride floats a row
+// (`rows_copy`'s), split into padded tiles: the big parts to `big`, the
+// small to `small` (the tile itself when kSrcStride = D + 4: the big parts
+// in place). A quarter-warp's chunks lie in one row, so an unpadded source
+// reads without conflicts. (cp.async's writes are visible to the thread
+// that waited on them.)
+template <int D, int kR, int kT, int kSrcStride = D + 4>
+__device__ __forceinline__ void rows_split(const float* src, float* big, float* small, int tid) {
+  constexpr int kStride = D + 4, kStep = kT / (D / 4);
+  const int r = tid / (D / 4), col = 4 * (tid % (D / 4));
 #pragma unroll
-  for (int i = 0; i < 4; ++i) b[i] = split(__uint_as_float(x[i]));
+  for (int m = 0; m < kR / kStep; ++m)
+    split_store(big, small, (r + m * kStep) * kStride + col,
+                ld_shared4(src + (r + m * kStep) * kSrcStride + col));
 }
 
-// The lane's ldmatrix row address of a raw tile, in floats: row 8 (lane /
-// 16) + lane % 8, column 4 ((lane / 8) % 2).
+// The lane's `ldmatrix` offsets into a split tile of two n-tiles (16 rows of
+// D + 4 floats): one `ldmatrix.x4` brings both n-tiles' big parts (b0 = (8 j
+// + lane / 4, 8 kk + lane % 4), b1 four columns on), another their small.
 template <int D>
-__device__ __forceinline__ int wide_lm(int lane) {
-  return (8 * (lane >> 4) + (lane & 7)) * Fp32Shape<D>::kStride + 4 * ((lane >> 3) & 1);
+__device__ __forceinline__ int split_lm(int lane) {
+  return (8 * (lane >> 4) + (lane & 7)) * (D + 4) + 4 * ((lane >> 3) & 1);
 }
 
-// s[2 jp + e] += a b over n-tiles 2 jp + e: one split B fragment pair.
-template <int kN>
-__device__ __forceinline__ void mma_pair(float (&s)[kN][4], const FragA& a, const Split (&b)[4],
-                                         int jp) {
-#pragma unroll
-  for (int e = 0; e < 2; ++e)
-    mma3(s[2 * jp + e], a, __float_as_uint(b[2 * e].big), __float_as_uint(b[2 * e + 1].big),
-         __float_as_uint(b[2 * e].small), __float_as_uint(b[2 * e + 1].small));
-}
-
-// The backward's two score products in one walk over d, for the warp's 16
-// rows and the 8 kN rows of the raw tiles X and Y: s += A X^T, dp += B Y^T,
-// A and B the warp's fixed operands in shared memory, split at each use.
-template <int D, int kN>
-__device__ __forceinline__ void wide_scores2(float (&s)[kN][4], float (&dp)[kN][4],
-                                             const SharedA<D>& a, const SharedA<D>& b,
-                                             const float* x, const float* y, int lane) {
-  constexpr int kStride = Fp32Shape<D>::kStride;
-  const int lm = wide_lm<D>(lane);
-#pragma unroll 2
-  for (int kk = 0; kk < D / 8; ++kk) {
-    const FragA af = a.frag(kk);
-    const FragA bf = b.frag(kk);
-#pragma unroll
-    for (int jp = 0; jp < kN / 2; ++jp) {
-      Split xb[4], yb[4];
-      wide_b(xb, x + 16 * jp * kStride, lm, kk);
-      wide_b(yb, y + 16 * jp * kStride, lm, kk);
-      mma_pair(s, af, xb, jp);
-      mma_pair(dp, bf, yb, jp);
-    }
+// A warp's fixed A operand fp32 in a padded shared tile (its 16 rows from
+// `row0` of the block's), split at each use as `SharedA` splits it, its
+// four values a k-step in one `ldmatrix.x4`: matrices (rows 0-7, columns
+// 0-3), (8-15, 0-3), (0-7, 4-7), (8-15, 4-7) of the k-step give lane L the
+// elements (L / 4, L % 4) of each, a0 .. a3 of the fragment. `p` is the
+// lane's address: row 8 ((L / 8) % 2) + L % 8, column 4 (L / 16).
+template <int D>
+struct LdmA {
+  const float* p;
+  __device__ __forceinline__ FragA frag(int kk) const {
+    uint32_t a[4];
+    ldmatrix_x4(a, p + 8 * kk);
+    return split_a(__uint_as_float(a[0]), __uint_as_float(a[1]), __uint_as_float(a[2]),
+                   __uint_as_float(a[3]));
   }
-}
-
-
-template <int D>
-struct Fp32WideBwd {
-  static constexpr int kStride = Fp32Shape<D>::kStride;
-  static constexpr int kFixedFloats = kRows * kStride;          // a fixed [64, D] tile
-  static constexpr int kStreamFloats = kWideRows * kStride;     // a streamed [16, D] tile
-  static constexpr int kDqStage = 2 * kStreamFloats;            // K, V
-  static constexpr int kDkvStage = 2 * kStreamFloats + 2 * kWideRows;  // Q, dO, 16 LSE, 16 D
-  static constexpr int kDqSmem = (2 * kFixedFloats + kStages * kDqStage) * 4;    // 199,680
-  static constexpr int kDkvSmem = (2 * kFixedFloats + kStages * kDkvStage) * 4;  // 199,936
-  static constexpr int kDqThreads = kThreads;       // four warps of 16 rows
-  static constexpr int kDkvThreads = 2 * kThreads;  // two warps a 16-key group
-  static constexpr int kDkvCols = D / 2;            // a dk/dv warp's columns
-  static_assert(kDqSmem <= 232448 && kDkvSmem <= 232448,
-                "more shared memory than a block may use");
-  static_assert((kStreamFloats * 4) % 16 == 0 && (kDkvStage * 4) % 16 == 0,
-                "every stage 16-byte aligned for cp.async");
 };
 
-// acc[8 half + nn] += W Z over a fresh accumulator a 64-column piece, for
-// the kN n-tiles of W (its k-steps: rows 0 .. 8 kN - 1 of the raw tile Z,
-// from column `z`): the CUDA cores add each piece to acc in IEEE fp32.
-template <int D, int kHalves, int kN>
-__device__ __forceinline__ void wide_pass(float (&acc)[8 * kHalves][4], const float (&w)[kN][4],
-                                          const float* z, int lane) {
+template <int D>
+__device__ __forceinline__ LdmA<D> ldm_a(const float* tile, int row0, int lane) {
+  return LdmA<D>{tile + (row0 + 8 * ((lane >> 3) & 1) + (lane & 7)) * (D + 4) + 4 * (lane >> 4)};
+}
+
+// s = A X^T for the warp's 16 rows (A fp32 in shared memory, split at each
+// k-step) and the two n-tiles of a split tile X (big parts at `x`, small
+// kSmall floats on), over the D columns of d: k-step kk sums into chain kk
+// % kChains, the chains added in order at the end.
+template <int D, int kChains, int kUnroll, int kSmall>
+__device__ __forceinline__ void chain_scores(float (&s)[2][4], const LdmA<D>& a, const float* x,
+                                             int lane) {
+  static_assert(kUnroll % kChains == 0, "the unrolled k-steps cover whole rounds of the chains");
+  const int lm = split_lm<D>(lane);
+  float chain[kChains][2][4];
 #pragma unroll
-  for (int half = 0; half < kHalves; ++half) {
-    float part[8][4];
-    zero(part);
+  for (int i = 0; i < kChains; ++i) zero(chain[i]);
+#pragma unroll 1
+  for (int k0 = 0; k0 < D / 8; k0 += kUnroll)
 #pragma unroll
-    for (int j = 0; j < kN; ++j) product_raw<D>(part, w[j], z + 64 * half, j, lane);
+    for (int i = 0; i < kUnroll; ++i) {
+      const int kk = k0 + i;
+      const FragA af = a.frag(kk);
+      uint32_t b[4], bl[4];
+      ldmatrix_x4(b, x + lm + 8 * kk);
+      ldmatrix_x4(bl, x + kSmall + lm + 8 * kk);
 #pragma unroll
-    for (int nn = 0; nn < 8; ++nn)
+      for (int e = 0; e < 2; ++e)
+        mma3(chain[i % kChains][e], af, b[2 * e], b[2 * e + 1], bl[2 * e], bl[2 * e + 1]);
+    }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[8 * half + nn][i] += part[nn][i];
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float sum = chain[0][j][e];
+#pragma unroll
+      for (int i = 1; i < kChains; ++i) sum += chain[i][j][e];
+      s[j][e] = sum;
+    }
+}
+
+// acc[nn] += W Z over kCols columns of a split tile Z (big `zb`, small `zs`,
+// from the first of them; its 16 rows the k-steps of W's two n-tiles, read
+// as `product` reads them), W split once: each n-tile's two k-steps go into
+// a fresh accumulator that is then added to acc in IEEE fp32.
+template <int D, int kCols>
+__device__ __forceinline__ void cols_product(float (&acc)[kCols / 8][4], const float (&w)[2][4],
+                                             const float* zb, const float* zs, int lane) {
+  constexpr int kStride = D + 4;
+  const FragA fa[2] = {split_a(w[0][0], w[0][2], w[0][1], w[0][3]),
+                       split_a(w[1][0], w[1][2], w[1][1], w[1][3])};
+  const int at = 2 * (lane & 3) * kStride + (lane >> 2);
+#pragma unroll
+  for (int nn = 0; nn < kCols / 8; ++nn) {
+    float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int b = at + 8 * j * kStride + 8 * nn;
+      mma3(part, fa[j], __float_as_uint(zb[b]), __float_as_uint(zb[b + kStride]),
+           __float_as_uint(zs[b]), __float_as_uint(zs[b + kStride]));
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nn][i] += part[i];
   }
 }
 
-constexpr int kWideN = kWideRows / 8;  // n-tiles of a stage's scores
+template <int D>
+struct Fp32DqPairs {
+  static constexpr int kBlockThreads = 2 * kThreads;  // 256: four pairs of warps
+  static constexpr int kStride = D + 4;
+  static constexpr int kChains = 4, kUnroll = 8;
+  static constexpr int kCols = D / 2;                        // a warp's columns of dQ
+  static constexpr int kFixedFloats = kRows * kStride;       // Q or dO
+  static constexpr int kTileFloats = kWideRows * kStride;    // K or V, big or small parts
+  static constexpr int kRawFloats = 2 * kWideRows * D;       // the next K and V, raw
+  static constexpr int kSlotFloats = 4 * 2 * 2 * 32 * 4;     // each warp's two float4, by lane
+  static constexpr int kSmem = (2 * kFixedFloats + 4 * kTileFloats + kRawFloats) * 4;  // 232,448
+  static_assert(kSmem <= 232448, "more shared memory than a block may use");
+  static_assert(kSlotFloats <= 2 * kTileFloats, "the slots fit in V's room");
+};
+
+template <int D>
+struct Fp32DkvPairs {
+  static constexpr int kBlockThreads = 2 * kThreads;  // 256: four pairs of warps
+  static constexpr int kStride = D + 4;
+  static constexpr int kChains = 2, kUnroll = 4;
+  static constexpr int kFixedFloats = kRows * kStride;         // K or V
+  static constexpr int kTileFloats = kWideRows * kStride;      // Q or dO, big or small parts
+  static constexpr int kRawFloats = 2 * kWideRows * D;         // the next Q and dO, raw
+  static constexpr int kSlotFloats = 4 * 2 * 32 * 4;  // four pairs' P, a lane's two float4
+  static constexpr int kSmem = (2 * kFixedFloats + 4 * kTileFloats + kRawFloats) * 4;  // 232,448
+  static_assert(kSmem <= 232448, "more shared memory than a block may use");
+  static_assert(kSlotFloats <= kRawFloats, "the P slots fit in the raw room");
+};
+
+// The named barrier of a pair of warps (ids 1-4; 0 is __syncthreads'): both
+// wait for each other (`pair_sync`), or one announces and the other waits.
+__device__ __forceinline__ void pair_arrive(int group) {
+  asm volatile("bar.arrive %0, 64;\n" ::"r"(1 + group) : "memory");
+}
+__device__ __forceinline__ void pair_sync(int group) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(1 + group) : "memory");
+}
 
 template <int D, bool kDrop>
-__global__ void __launch_bounds__(Fp32WideBwd<D>::kDqThreads, 1)
-    train_fp32_dq_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                              const float* __restrict__ v, const float* __restrict__ dout,
-                              const float* __restrict__ lse, const float* __restrict__ dd,
-                              const int* __restrict__ lens, float* __restrict__ dq, int n, int h,
-                              float scale, const Dropout drop) {
-  using W = Fp32WideBwd<D>;
+__global__ void __launch_bounds__(Fp32DqPairs<D>::kBlockThreads, 1)
+    train_fp32_dq_pairs_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                               const float* __restrict__ v, const float* __restrict__ dout,
+                               const float* __restrict__ lse, const float* __restrict__ dd,
+                               const int* __restrict__ lens, float* __restrict__ dq, int n,
+                               int h, float scale, const Dropout drop) {
+  using W = Fp32DqPairs<D>;
+  constexpr int kR = kWideRows, kT = W::kBlockThreads, kCols = W::kCols;
+  constexpr int kSmall = W::kTileFloats;
   extern __shared__ float4 smem4[];
   float* const qs = reinterpret_cast<float*>(smem4);
   float* const dos = qs + W::kFixedFloats;
-  float* const ring = dos + W::kFixedFloats;
-  const int lane = threadIdx.x & 31, c = lane & 3;
+  float* const kb = dos + W::kFixedFloats;  // K's big and small parts, then V's
+  float* const vb = kb + 2 * W::kTileFloats;
+  float* const raw = vb + 2 * W::kTileFloats;  // the next tile's K and V
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, c = lane & 3;
+  const int group = warp & 3;        // the pair's 16 rows: warps group and group + 4
+  const bool a_warp = warp < 4;      // A: S and dQ's first half; B: dP and the second
+  const int warp_row = 16 * group + (lane >> 2);  // and + 8, in the block
+  float4* const slots = reinterpret_cast<float4*>(vb) + group * 2 * 2 * 32 + lane;
+  float4* const mine = slots + (a_warp ? 0 : 2 * 32);
+  const float4* const theirs = slots + (a_warp ? 2 * 32 : 0);
   const Head hd = block_head<D>(lens, n, h, drop);
-  // no valid key: dS is zero everywhere, and so is dq
-  const int n_tiles = hd.len <= 0 ? 0 : (min(hd.len, n) + kWideRows - 1) / kWideRows;
-  const int warp_row = 16 * (threadIdx.x >> 5) + (lane >> 2);  // and + 8, in the block
+  // key tiles that hold a valid key; none valid: dS is zero everywhere, and so is dq
+  const int n_tiles = hd.len <= 0 ? 0 : (min(hd.len, n) + kR - 1) / kR;
   const int row = hd.row0 + warp_row;
+  const int col0 = a_warp ? 0 : kCols;
 
-  auto issue = [&](int t) {  // K and V of key tile t into its stage
-    float* stage = ring + (t % kStages) * W::kDqStage;
-    const int64_t at = hd.base + static_cast<int64_t>(t) * kWideRows * hd.stride;
-    copy_rows<D, kWideRows>(stage, k + at, hd.stride);
-    copy_rows<D, kWideRows>(stage + W::kStreamFloats, v + at, hd.stride);
+  auto issue = [&](int t) {  // K and V of key tile t into the raw room
+    rows_copy<D, kR, kT, D>(raw, k + hd.base, hd.stride, t * kR, threadIdx.x);
+    rows_copy<D, kR, kT, D>(raw + kR * D, v + hd.base, hd.stride, t * kR, threadIdx.x);
     cp_async_commit();
   };
   if (n_tiles > 0) {  // Q and dO in the first tile's group
-    const int64_t at = hd.base + static_cast<int64_t>(hd.row0) * hd.stride;
-    copy_tile<D>(qs, q + at, hd.stride);
-    copy_tile<D>(dos, dout + at, hd.stride);
+    rows_copy<D, kRows, kT>(qs, q + hd.base, hd.stride, hd.row0, threadIdx.x);
+    rows_copy<D, kRows, kT>(dos, dout + hd.base, hd.stride, hd.row0, threadIdx.x);
     issue(0);
   }
-  const SharedA<D> qa{qs + warp_row * W::kStride + c}, da{dos + warp_row * W::kStride + c};
+  const LdmA<D> fixed = ldm_a<D>(a_warp ? qs : dos, 16 * group, lane);
   const float lse_r[2] = {lse[hd.stat + row], lse[hd.stat + row + 8]};
   const float d_r[2] = {dd[hd.stat + row], dd[hd.stat + row + 8]};
-
-  float acc[D / 8][4];
+  float acc[kCols / 8][4];
   zero(acc);
 #pragma unroll 1
   for (int t = 0; t < n_tiles; ++t) {
-    const float* const ks = ring + (t % kStages) * W::kDqStage;
-    const float* const vs = ks + W::kStreamFloats;
-    cp_async_wait_all();  // this thread's copies of tile t (and Q, dO) have landed
-    __syncthreads();      // everyone's have, and tile t - 1's stage is free
-    if (t + 1 < n_tiles) issue(t + 1);  // under this tile's products
+    cp_async_wait<0>();  // this thread's copies of tile t (and Q, dO) have landed
+    rows_split<D, kR, kT, D>(raw, kb, kb + kSmall, threadIdx.x);
+    rows_split<D, kR, kT, D>(raw + kR * D, vb, vb + kSmall, threadIdx.x);
+    __syncthreads();  // tile t split; the raw room free
+    if (t + 1 < n_tiles) issue(t + 1);  // under this tile's work
 
-    float s[kWideN][4], dp[kWideN][4];
-    zero(s);
-    zero(dp);
-    wide_scores2<D, kWideN>(s, dp, qa, da, ks, vs, lane);  // S = Q K^T, dP = dO V^T
+    float x[2][4];
+    chain_scores<D, W::kChains, W::kUnroll, kSmall>(x, fixed, a_warp ? kb : vb, lane);
+    __syncthreads();  // every warp done with V_t: its room takes the slots
+    // A forms dS of n-tile 0, B of n-tile 1: each hands the other the half
+    // of its scores that the other needs, then its dS
+    const float4 send = a_warp ? make_float4(x[1][0], x[1][1], x[1][2], x[1][3])
+                               : make_float4(x[0][0], x[0][1], x[0][2], x[0][3]);
+    mine[0] = send;
+    pair_sync(group);  // both halves in their slots
+    const float4 y4 = theirs[0];
+    const float y[4] = {y4.x, y4.y, y4.z, y4.w};
+    // element e is row row + 8 (e >> 1), key t * 16 + 8 j + 2 c + (e & 1)
+    const int key0 = t * kR + (a_warp ? 0 : 8) + 2 * c;
+    float ds[4];
 #pragma unroll
-    for (int j = 0; j < kWideN; ++j) {
-      const int key0 = t * kWideRows + 8 * j + 2 * c;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = key0 + (e & 1), r = e >> 1;
-        const bool valid = key < hd.len;
-        const float p = expf((valid ? s[j][e] * scale : hd.masked) - lse_r[r]);
-        const float dpd =
-            kDrop ? dp[j][e] * keep_factor(row + 8 * r, key, n, hd.folded, drop) : dp[j][e];
-        s[j][e] = valid ? p * (dpd - d_r[r]) : 0.f;  // dS
-      }
+    for (int e = 0; e < 4; ++e) {
+      const float s = a_warp ? x[0][e] : y[e], dp = a_warp ? y[e] : x[1][e];
+      const int key = key0 + (e & 1), r = e >> 1;
+      const bool valid = key < hd.len;
+      const float p = expf((valid ? s * scale : hd.masked) - lse_r[r]);
+      const float dpd = kDrop ? dp * keep_factor(row + 8 * r, key, n, hd.folded, drop) : dp;
+      ds[e] = valid ? p * (dpd - d_r[r]) : 0.f;
     }
-    wide_pass<D, D / 64>(acc, s, ks, lane);  // dQ += dS K
+    mine[32] = make_float4(ds[0], ds[1], ds[2], ds[3]);
+    pair_sync(group);  // both halves of dS in their slots
+    const float4 z4 = theirs[32];
+    const float z[4] = {z4.x, z4.y, z4.z, z4.w};
+    float s[2][4];  // dS of the tile's two n-tiles, the same in both warps
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[0][e] = a_warp ? ds[e] : z[e];
+      s[1][e] = a_warp ? z[e] : ds[e];
+    }
+    cols_product<D, kCols>(acc, s, kb + col0, kb + kSmall + col0, lane);  // dQ += dS K_t
+    __syncthreads();  // every warp done with K_t and the slots
   }
-  store_acc<D>(dq + hd.base, hd.stride, acc, scale, row, c);
+  store_tiles<kCols / 8>(dq + hd.base + col0, hd.stride, acc, scale, row, c);
 }
 
 template <int D, bool kDrop>
-__global__ void __launch_bounds__(Fp32WideBwd<D>::kDkvThreads, 1)
-    train_fp32_dkv_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                               const float* __restrict__ v, const float* __restrict__ dout,
-                               const float* __restrict__ lse, const float* __restrict__ dd,
-                               const int* __restrict__ lens, float* __restrict__ dk,
-                               float* __restrict__ dv, int n, int h, float scale,
-                               const Dropout drop) {
-  using W = Fp32WideBwd<D>;
-  constexpr int kT = W::kDkvThreads, kCols = W::kDkvCols;
+__global__ void __launch_bounds__(Fp32DkvPairs<D>::kBlockThreads, 1)
+    train_fp32_dkv_pairs_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                const float* __restrict__ v, const float* __restrict__ dout,
+                                const float* __restrict__ lse, const float* __restrict__ dd,
+                                const int* __restrict__ lens, float* __restrict__ dk,
+                                float* __restrict__ dv, int n, int h, float scale,
+                                const Dropout drop) {
+  using W = Fp32DkvPairs<D>;
+  constexpr int kR = kWideRows, kT = W::kBlockThreads;
+  constexpr int kSmall = W::kTileFloats;
   extern __shared__ float4 smem4[];
   float* const ks = reinterpret_cast<float*>(smem4);
   float* const vs = ks + W::kFixedFloats;
-  float* const ring = vs + W::kFixedFloats;
+  float* const qt = vs + W::kFixedFloats;  // Q's big and small parts, then dO's
+  float* const dot = qt + 2 * W::kTileFloats;
+  float* const raw = dot + 2 * W::kTileFloats;  // the next tile's Q and dO
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, c = lane & 3;
-  // warps w and w + 4 share a 16-key group; w < 4 owns columns 0..127
-  const int warp_key = 16 * (warp & 3) + (lane >> 2), col0 = kCols * (warp >> 2);
+  const int group = warp & 3;      // the pair's 16 keys: warps group and group + 4
+  const bool a_warp = warp < 4;    // A: S^T, P, dV; B: dP^T, dS^T, dK
+  const int warp_key = 16 * group + (lane >> 2);  // and + 8, in the block
+  // the pairs' P slots, in the raw room between the split and the next copy
+  float4* const slot = reinterpret_cast<float4*>(raw) + group * 2 * 32 + lane;
   const Head hd = block_head<D>(lens, n, h, drop);
   const int key = hd.row0 + warp_key;  // and key + 8
 
-  float dk_acc[kCols / 8][4], dv_acc[kCols / 8][4];
-  zero(dk_acc);
-  zero(dv_acc);
-  float* const dk_at = dk + hd.base + col0;
-  float* const dv_at = dv + hd.base + col0;
+  float acc[D / 8][4];
+  zero(acc);
+  float* const out = (a_warp ? dv : dk) + hd.base;
   if (hd.len > 0 && hd.row0 >= hd.len) {  // every key of the block masked: P = 0, dS = 0
-    store_tiles<kCols / 8>(dk_at, hd.stride, dk_acc, 0.f, key, c);
-    store_tiles<kCols / 8>(dv_at, hd.stride, dv_acc, 0.f, key, c);
+    store_acc<D>(out, hd.stride, acc, 0.f, key, c);
     return;
   }
-  const int n_tiles = n / kWideRows;
-  auto issue = [&](int t) {  // Q, dO and the LSE and D rows of query tile t
-    float* stage = ring + (t % kStages) * W::kDkvStage;
-    const int64_t at = hd.base + static_cast<int64_t>(t) * kWideRows * hd.stride;
-    copy_rows<D, kWideRows, kT>(stage, q + at, hd.stride);
-    copy_rows<D, kWideRows, kT>(stage + W::kStreamFloats, dout + at, hd.stride);
-    if (threadIdx.x < 2 * kWideRows / 4) {
-      const int part = threadIdx.x / (kWideRows / 4), col = 4 * (threadIdx.x % (kWideRows / 4));
-      cp_async16(stage + 2 * W::kStreamFloats + part * kWideRows + col,
-                 (part ? dd : lse) + hd.stat + t * kWideRows + col);
-    }
+  const int n_tiles = n / kR;
+  auto issue = [&](int t) {  // Q and dO of query tile t into the raw room
+    rows_copy<D, kR, kT, D>(raw, q + hd.base, hd.stride, t * kR, threadIdx.x);
+    rows_copy<D, kR, kT, D>(raw + kR * D, dout + hd.base, hd.stride, t * kR, threadIdx.x);
     cp_async_commit();
   };
-  {  // K and V in the first tile's group
-    const int64_t at = hd.base + static_cast<int64_t>(hd.row0) * hd.stride;
-    copy_tile<D, kT>(ks, k + at, hd.stride);
-    copy_tile<D, kT>(vs, v + at, hd.stride);
-    issue(0);
-  }
-  const SharedA<D> ka{ks + warp_key * W::kStride + c}, va{vs + warp_key * W::kStride + c};
+  // K and V in the first tile's group
+  rows_copy<D, kRows, kT>(ks, k + hd.base, hd.stride, hd.row0, threadIdx.x);
+  rows_copy<D, kRows, kT>(vs, v + hd.base, hd.stride, hd.row0, threadIdx.x);
+  issue(0);
+  const LdmA<D> fixed = ldm_a<D>(a_warp ? ks : vs, 16 * group, lane);
   const bool key_valid[2] = {key < hd.len, key + 8 < hd.len};
 
 #pragma unroll 1
   for (int t = 0; t < n_tiles; ++t) {
-    const float* const qt = ring + (t % kStages) * W::kDkvStage;
-    const float* const dot = qt + W::kStreamFloats;
-    const float* const lse_s = dot + W::kStreamFloats;
-    const float* const dd_s = lse_s + kWideRows;
-    cp_async_wait_all();
-    __syncthreads();
-    if (t + 1 < n_tiles) issue(t + 1);
+    cp_async_wait<0>();  // this thread's copies of tile t (and K, V) have landed
+    rows_split<D, kR, kT, D>(raw, qt, qt + kSmall, threadIdx.x);
+    rows_split<D, kR, kT, D>(raw + kR * D, dot, dot + kSmall, threadIdx.x);
+    __syncthreads();  // tile t split, K and V whole; the raw room free
+    // the tile's LSE (A) or D (B) at the lane's queries: 8 j + 2 c and the next
+    float2 stat[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      stat[j] = __ldg(reinterpret_cast<const float2*>((a_warp ? lse : dd) + hd.stat + t * kR +
+                                                      8 * j + 2 * c));
 
-    float st[kWideN][4], dpt[kWideN][4];
-    zero(st);
-    zero(dpt);
-    wide_scores2<D, kWideN>(st, dpt, ka, va, qt, dot, lane);  // S^T = K Q^T, dP^T = V dO^T
+    float s[2][4];
+    // A: S^T = K Q_t^T; B: dP^T = V dO_t^T
+    chain_scores<D, W::kChains, W::kUnroll, kSmall>(s, fixed, a_warp ? qt : dot, lane);
+    if (a_warp) {
 #pragma unroll
-    for (int j = 0; j < kWideN; ++j) {
-      const int col = 8 * j + 2 * c;  // queries col, col + 1 of the tile
-      const float2 l2 = *reinterpret_cast<const float2*>(lse_s + col);
-      const float2 d2 = *reinterpret_cast<const float2*>(dd_s + col);
+      for (int j = 0; j < 2; ++j) {
+        const int col = 8 * j + 2 * c;  // queries col, col + 1 of the tile
+        const float2 l2 = stat[j];
+        float x[4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const float l = e & 1 ? l2.y : l2.x, d = e & 1 ? d2.y : d2.x;
-        const float p = expf((key_valid[r] ? st[j][e] * scale : hd.masked) - l);
-        const float f =
-            kDrop ? keep_factor(t * kWideRows + col + (e & 1), key + 8 * r, n, hd.folded, drop)
-                  : 1.f;
-        st[j][e] = p * f;                                          // Pd^T
-        dpt[j][e] = key_valid[r] ? p * (dpt[j][e] * f - d) : 0.f;  // dS^T
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const float p =
+              expf((key_valid[r] ? s[j][e] * scale : hd.masked) - (e & 1 ? l2.y : l2.x));
+          const float f =
+              kDrop ? keep_factor(t * kR + col + (e & 1), key + 8 * r, n, hd.folded, drop) : 1.f;
+          s[j][e] = p * f;           // Pd^T
+          x[e] = f != 0.f ? p : -p;  // P, its sign bit set where dropped
+        }
+        slot[j * 32] = make_float4(x[0], x[1], x[2], x[3]);
+      }
+      pair_arrive(group);  // P in the slot
+    } else {
+      pair_sync(group);  // A's P in the slot
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float2 d2 = stat[j];
+        const float4 x4 = slot[j * 32];
+        const float x[4] = {x4.x, x4.y, x4.z, x4.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const float p = fabsf(x[e]);
+          const float f = kDrop ? (signbit(x[e]) ? 0.f : drop.inv_keep) : 1.f;
+          s[j][e] = key_valid[r] ? p * (s[j][e] * f - (e & 1 ? d2.y : d2.x)) : 0.f;  // dS^T
+        }
       }
     }
-    wide_pass<D, kCols / 64>(dv_acc, st, dot + col0, lane);  // dV += Pd^T dO
-    wide_pass<D, kCols / 64>(dk_acc, dpt, qt + col0, lane);  // dK += dS^T Q
+    __syncthreads();  // every P read: the raw room takes the next tile
+    if (t + 1 < n_tiles) issue(t + 1);  // under this tile's products
+    // A: dV += Pd^T dO_t; B: dK += dS^T Q_t
+    const float* const z = a_warp ? dot : qt;
+    cols_product<D, D>(acc, s, z, z + kSmall, lane);
+    __syncthreads();  // every warp done with tile t's split parts
   }
-  store_tiles<kCols / 8>(dk_at, hd.stride, dk_acc, scale, key, c);
-  store_tiles<kCols / 8>(dv_at, hd.stride, dv_acc, 1.f, key, c);
+  store_acc<D>(out, hd.stride, acc, a_warp ? 1.f : scale, key, c);
 }
 
 Dropout make_dropout(unsigned seed, unsigned threshold, float inv_keep, int on,
@@ -708,9 +825,9 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
                   static_cast<const int*>(lens), static_cast<float*>(dq), n, h, scale, drop);
   };
   if constexpr (D == 256) {
-    using W = Fp32WideBwd<D>;
-    return run(drop.on ? train_fp32_dq_wide_kernel<D, true> : train_fp32_dq_wide_kernel<D, false>,
-               W::kDqSmem, W::kDqThreads);
+    using W = Fp32DqPairs<D>;
+    return run(drop.on ? train_fp32_dq_pairs_kernel<D, true> : train_fp32_dq_pairs_kernel<D, false>,
+               W::kSmem, W::kBlockThreads);
   } else {
     return run(drop.on ? train_fp32_dq_kernel<D, true> : train_fp32_dq_kernel<D, false>,
                Fp32Bwd<D>::kDqSmem, kThreads);
@@ -731,10 +848,10 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
                   static_cast<float*>(dv), n, h, scale, drop);
   };
   if constexpr (D == 256) {
-    using W = Fp32WideBwd<D>;
+    using W = Fp32DkvPairs<D>;
     return run(
-        drop.on ? train_fp32_dkv_wide_kernel<D, true> : train_fp32_dkv_wide_kernel<D, false>,
-        W::kDkvSmem, W::kDkvThreads);
+        drop.on ? train_fp32_dkv_pairs_kernel<D, true> : train_fp32_dkv_pairs_kernel<D, false>,
+        W::kSmem, W::kBlockThreads);
   } else {
     return run(drop.on ? train_fp32_dkv_kernel<D, true> : train_fp32_dkv_kernel<D, false>,
                Fp32Bwd<D>::kDkvSmem, kThreads);
@@ -748,13 +865,12 @@ template <int D>
 int backward_geometry(int* out) {
   out[0] = kRows;
   if constexpr (D == 256) {
-    using W = Fp32WideBwd<D>;
-    out[1] = W::kDqThreads;
-    out[2] = W::kDkvThreads;
-    out[3] = kStages;
+    out[1] = Fp32DqPairs<D>::kBlockThreads;
+    out[2] = Fp32DkvPairs<D>::kBlockThreads;
+    out[3] = 1;
     out[4] = kWideRows;
-    out[5] = W::kDqSmem;
-    out[6] = W::kDkvSmem;
+    out[5] = Fp32DqPairs<D>::kSmem;
+    out[6] = Fp32DkvPairs<D>::kSmem;
   } else {
     out[1] = kThreads;
     out[2] = kThreads;

@@ -113,9 +113,10 @@ FP32_STRIDE = 68    # floats a shared tile row: 64 padded by 4
 # the fp32 dq and dk/dv kernels' ring: two stages at d = 64, where the warps keep
 # their fixed operands in registers; one at d = 128, where those go to shared
 # memory beside the ring (64 + 64 fixed floats a thread beside one or two
-# [16, 128] accumulators would not fit in 255 registers); two at d = 256, of
-# FP32_WIDE_ROWS rows each, beside the fixed tiles
-FP32_BWD_STAGES = {64: 2, 128: 1, 256: 2}
+# [16, 128] accumulators would not fit in 255 registers); one at d = 256
+# (of FP32_WIDE_ROWS rows, beside the fixed tiles; the next tile comes raw
+# into a room of its own)
+FP32_BWD_STAGES = {64: 2, 128: 1, 256: 1}
 # the fp32 forwards at d = 128 and 256 (`csrc/fp32_forward.cuh` forward_sets):
 # eight warps in FP32_SETS sets of four that share a block's 64 rows and walk
 # alternate key tiles of FP32_SET_KEYS[d] keys, one stage a set, split once;
@@ -124,11 +125,12 @@ FP32_SETS = 2
 FP32_SET_KEYS = {128: 32, 256: 16}
 FP32_Q_SPLIT = {128: True, 256: False}
 # the fp32 dq and dk/dv kernels at d = 256 (`csrc/train_attention_fp32.cu`):
-# the streamed tiles of 16 rows (keys for dq, queries for dk/dv), raw, split
-# where read; dk/dv on two warps a 16-key group, each owning half the head's
-# columns of dK and dV
+# eight warps, FP32_WIDE_THREADS threads, in four pairs of 16 rows; streamed
+# tiles of FP32_WIDE_ROWS rows (keys for dq, queries for dk/dv) split once a
+# block; dq's pair computes S and dP and trades them, each warp then holding
+# half of dQ's columns; dk/dv's splits by output (warps 0-3 dV, 4-7 dK)
 FP32_WIDE_ROWS = 16
-FP32_WIDE_DKV_THREADS = 256
+FP32_WIDE_THREADS = 256
 
 
 def fmix32(h: torch.Tensor) -> torch.Tensor:
@@ -413,33 +415,51 @@ def backward_geometry_fp32(b: int, n: int, h: int, d: int = HEAD_DIM) -> dict:
     64 rows, in groups of 16 rows a warp): the fixed operands (dq's Q and dO,
     dk/dv's K and V) stay in registers at d = 64 and in two padded fp32
     tiles of shared memory at d = 128 and 256 (``fixed_tiles``); the
-    streamed ones come through a ring of ``bwd_stages`` stages
-    (``FP32_BWD_STAGES``) of padded ``[bwd_tile, d]`` fp32 tiles (dq's a K
-    and a V tile, dk/dv's a Q and a dO tile and that query tile's LSE and D
-    values). At d = 64 and 128 a tile is 64 rows, split into TF32 big parts
-    in place and small parts in two more tiles; at d = 256 it is
-    ``FP32_WIDE_ROWS`` (16) rows kept raw and split where read, and dk/dv
-    runs ``dkv_threads`` = 256 threads, two warps a 16-key group, each
-    owning one of ``dkv_columns`` of the head (dq: four warps, ``threads``).
+    streamed ones (dq's K and V; dk/dv's Q and dO and that query tile's LSE
+    and D values) come as padded ``[bwd_tile, d]`` fp32 tiles through a
+    ring of ``bwd_stages`` stages (``FP32_BWD_STAGES``), split into TF32 big
+    parts in place and small parts beside, once a block. ``dq_warps`` and
+    ``dkv_warps``: each warp's first row, and what it holds (dq: its first
+    column of dQ and how many; dk/dv: dK, dV or both).
+
+    At d = 64 and 128: four warps of 16 rows, 64-row tiles, each warp all of
+    its rows' outputs. At d = 256 eight warps (``FP32_WIDE_THREADS``) in
+    four pairs of 16 rows, tiles of ``FP32_WIDE_ROWS`` (16), each tile's
+    streamed operands coming raw (unpadded) into a room of their own,
+    ``raw_bytes``, under the work of the tile before. In dq warp w < 4
+    computes S = Q K^T and w + 4 dP = dO V^T for the same rows; they trade
+    halves of them and their halves of dS through ``score_slot_bytes`` of
+    shared memory (in V's parts, once V is done with) and hold dQ's columns
+    0-127 and 128-255. In dk/dv warp w < 4 holds dV and w + 4 dK of the
+    same 16 keys, the first handing P to the second through
+    ``p_slot_bytes`` ([16, 16] fp32 a pair, in the raw room before the next
+    tile's copy); the tile's LSE and D are read from global memory.
     ``blocks_per_sm`` as :func:`forward_geometry_fp32`'s."""
     geo = _fp32_geometry(b, n, h, d, KERNEL_HEAD_DIMS)
     tile = FP32_ROWS * (d + 4) * 4
     stages = FP32_BWD_STAGES[d]
+    extra = {}
     if d == LIBRARY_HEAD_DIM:
-        rows = FP32_WIDE_ROWS
-        stream = rows * (d + 4) * 4
-        dq_shared = 2 * tile + stages * 2 * stream
-        dkv_shared = 2 * tile + stages * (2 * stream + 2 * rows * 4)
-        threads, columns, fixed = FP32_WIDE_DKV_THREADS, [(0, d // 2), (d // 2, d // 2)], 2
+        rows, threads, fixed, half = FP32_WIDE_ROWS, FP32_WIDE_THREADS, 2, d // 2
+        stream = rows * (d + 4) * 4  # a padded [16, d] tile, big or small parts
+        extra = dict(raw_bytes=2 * rows * d * 4, p_slot_bytes=4 * 16 * rows * 4,
+                     score_slot_bytes=4 * 2 * 16 * rows * 4)
+        # the fixed tiles (dq: Q and dO; dk/dv: K and V), the streamed tile's
+        # big and small parts (dq: K and V; dk/dv: Q and dO) and the raw room
+        dq_shared = dkv_shared = 2 * tile + 4 * stream + extra["raw_bytes"]
+        dq_warps = [(16 * (w % 4), half * (w // 4), half) for w in range(threads // 32)]
+        dkv_warps = [(16 * (w % 4), ("dV",) if w < 4 else ("dK",)) for w in range(threads // 32)]
     else:
-        rows, threads, columns = TILE, FP32_THREADS, [(0, d)]
+        rows, threads = TILE, FP32_THREADS
         fixed = 0 if d == 64 else 2
         dq_shared = (stages * 2 + 2 + fixed) * tile
         dkv_shared = stages * (2 * tile + 2 * FP32_ROWS * 4) + (2 + fixed) * tile
+        dq_warps = [(16 * w, 0, d) for w in range(threads // 32)]
+        dkv_warps = [(16 * w, ("dK", "dV")) for w in range(threads // 32)]
     return dict(geo, bwd_stages=stages, bwd_tile=rows, fixed_tiles=fixed,
-                dq_threads=FP32_THREADS, dkv_threads=threads, dkv_columns=columns,
-                dq_shared_bytes=dq_shared, dkv_shared_bytes=dkv_shared,
-                blocks_per_sm=min(_per_sm(dq_shared), _per_sm(dkv_shared)))
+                dq_threads=threads, dkv_threads=threads, dq_warps=dq_warps,
+                dkv_warps=dkv_warps, dq_shared_bytes=dq_shared, dkv_shared_bytes=dkv_shared,
+                blocks_per_sm=min(_per_sm(dq_shared), _per_sm(dkv_shared)), **extra)
 
 
 FP32_FORWARD_BUILT = ("rows", "threads", "stages", "shared_bytes", "sets", "key_tile")

@@ -64,11 +64,20 @@ With `--fp32`, the fp32 kernels instead (4a, 4b, 4c in
 
 With `--fp32 --head-dim D` (128 or 256; h = 1024 / D, the DiT's width of
 1024 in heads of D, so that b h D = 2048 at b = 2 and the work equals the
-d = 64 rows' at h = 16), the wide fp32 forward instead:
+d = 64 rows' at h = 16), the wide fp32 kernels instead:
 
-- the register report of both builds, and the d = 64 digests above (O,
-  LSE, dq, dk, dv; with `--against`, equal digests mean the d = 64 kernels
-  give OTHER's bits);
+- the register report of both builds' fp32 forward and backward
+  instantiations, and the digests above (O, LSE, dq, dk, dv) at d = 64
+  (h = 16) and d = 128 (h = 8; with `--against`, equal digests and a
+  difference of 0 mean those kernels give OTHER's bits);
+- at d = D, dq and dk/dv at b = 2, n = 4096 (lens [4096, 4059]) and 6144
+  (lens [6144, 6107]) at keep = 1 and dropout 0.1, on the TREE forward's
+  LSE: each tree's largest dq, dk and dv error against the plain version's
+  autograd (in units of max |plain|), the largest difference between the
+  trees, and median CUDA-event times in turns (OTHER, TREE, TREE, OTHER)
+  beside their 3xTF32 bounds, the plain version's backward (all three
+  gradients, at the same dropout) and fp32 `scaled_dot_product_attention`'s
+  backward (TF32 off, no mask) in the same turns;
 - at d = D, kernel 1 fp32 at b = 2, n = 1088 (lens [1051, 0]), n = 1024
   (lens [1024, 987]) and n = 576 (lens [576, 576]: the bucket of `chip_smoke`'s
   `[d128]` / `[d256]` `generate`, b h n / 64 blocks under one wave at d = 256),
@@ -264,13 +273,22 @@ def fp32_serve(lib, q, k, v, lens, tables):
     return out
 
 
-def forward_registers(kernels) -> list[str]:
-    """nvcc's register lines of the fp32 forward instantiations in a build
-    log: the kernel, its template argument and what ptxas reported."""
+FP32_FORWARDS = ("train_fp32_fwd_kernel", "serving_attention_fp32_kernel")
+# the fp32 dq and dk/dv instantiations: d = 64 and 128, and d = 256's of this
+# tree and of the trees before it
+FP32_BACKWARDS = ("train_fp32_dq_kernel", "train_fp32_dkv_kernel", "train_fp32_dq_pairs_kernel",
+                  "train_fp32_dkv_pairs_kernel", "train_fp32_dq_wide_kernel",
+                  "train_fp32_dkv_wide_kernel")
+
+
+def forward_registers(kernels, names: tuple[str, ...] = FP32_FORWARDS) -> list[str]:
+    """nvcc's register lines of the named kernels' instantiations in a build
+    log (the fp32 forwards by default): the kernel, its template argument and
+    what ptxas reported."""
     lines = [line.strip() for line in kernels.log.splitlines()]
     found = []
     for i, line in enumerate(lines):
-        for name in ("train_fp32_fwd_kernel", "serving_attention_fp32_kernel"):
+        for name in names:
             if "Compiling entry" in line and name in line:
                 # the template arguments: Li128E (int), Lb1E (bool), in order
                 tail = line.split(name)[1].split("EEv")[0] + "E"
@@ -328,13 +346,15 @@ def fp32_builds(cs, other: str | None) -> dict:
     for who, built in builds.items():
         for line in forward_registers(built):
             cs.log(f"fp32 forward registers, {who.upper()}'s build: {line}")
+        for line in forward_registers(built, FP32_BACKWARDS):
+            cs.log(f"fp32 backward registers, {who.upper()}'s build: {line}")
     return {who: built.lib for who, built in builds.items()}
 
 
-def fp32_digests(cs, dev, g, libs: dict) -> None:
-    """Digests of the d = 64 fp32 kernels' O, LSE, dq, dk, dv on seeded inputs,
-    their errors against the plain version and, with OTHER's build in
-    ``libs``, the largest differences from OTHER's."""
+def fp32_digests(cs, dev, g, libs: dict, d: int = 64) -> None:
+    """Digests of the fp32 kernels' O, LSE, dq, dk, dv at head dim ``d`` (h =
+    1024 / d) on seeded inputs, their errors against the plain version and,
+    with OTHER's build in ``libs``, the largest differences from OTHER's."""
     import torch
 
     from eraxvif5tts_tpu_torch.ops import train_attention as ta
@@ -342,7 +362,7 @@ def fp32_digests(cs, dev, g, libs: dict) -> None:
     names = ("O", "LSE", "dq", "dk", "dv")
 
     def inputs(b, n, lens):
-        return ([torch.randn((b, n, 16, 64), generator=g, device=dev) for _ in range(4)],
+        return ([torch.randn((b, n, 1024 // d, d), generator=g, device=dev) for _ in range(4)],
                 torch.tensor(lens, dtype=torch.int32, device=dev))
 
     def grads(lib, q, k, v, dout, lens, rate):
@@ -361,7 +381,7 @@ def fp32_digests(cs, dev, g, libs: dict) -> None:
             err = {"O": float(((got[0] - want[0]).abs() / (1 + want[0].abs())).max())}
             for name, x, w in zip(names[2:], got[2:], want[2:]):
                 err[name] = float((x - w).abs().max() / w.abs().max())
-            line = (f"fp32 digests b={b} n={n} lens {lens_list} dropout {rate}: "
+            line = (f"fp32 digests d={d} b={b} n={n} lens {lens_list} dropout {rate}: "
                     + ", ".join(f"{name} {digest(t)}" for name, t in zip(names, got))
                     + "; against plain " + ", ".join(f"{k_} {e:.3g}" for k_, e in err.items()))
             if "other" in libs:
@@ -470,8 +490,10 @@ def wide_fp32(cs, dev, g, other: str | None, d: int) -> None:
     if d not in (128, 256):
         raise ValueError(f"--head-dim takes 128 or 256, got {d}")
     libs = fp32_builds(cs, other)
-    fp32_digests(cs, dev, g, libs)
+    fp32_digests(cs, dev, g, libs, 64)
+    fp32_digests(cs, dev, g, libs, 128)
     order = ("other", "tree", "tree", "other") if "other" in libs else ("tree",)
+    wide_backward(cs, dev, g, libs, order, d)
     h = 1024 // d
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     serve_ms = {}
@@ -555,6 +577,80 @@ def wide_fp32(cs, dev, g, other: str | None, d: int) -> None:
                f"({blocks[1088] / sms:.2f} waves at one an SM) {serve_ms[1088][who]:.4f} ms, "
                f"n = 1024 {blocks[1024]} blocks ({blocks[1024] / sms:.2f} waves) "
                f"{serve_ms[1024][who]:.4f} ms: {ratio:.3f}x the time for {work:.3f}x the work")
+
+
+def wide_backward(cs, dev, g, libs: dict, order: tuple, d: int) -> None:
+    """dq and dk/dv at head dim ``d`` (`--fp32 --head-dim`): each tree's errors
+    against the plain version's autograd and the trees' largest differences,
+    times in turns beside the 3xTF32 bounds, the plain backward and fp32
+    SDPA's backward in the same turns."""
+    import torch
+    import torch.nn.functional as F
+
+    from eraxvif5tts_tpu_torch.ops import train_attention as ta
+
+    h = 1024 // d
+    names = ("dq", "dk", "dv")
+    for n in (4096, 6144):
+        lens_list = [n, n - 37]
+        q, k, v, dout = (torch.randn((2, n, h, d), generator=g, device=dev) for _ in range(4))
+        lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
+        work = 2.0 * h * d * n * sum(lens_list)  # one product over the valid keys
+        least = {"dq": 3 * work / TF32X3_OPS_S * 1e3, "dkv": 4 * work / TF32X3_OPS_S * 1e3}
+        for rate in (0.0, 0.1):
+            out, lse = fp32_fwd(libs["tree"], q, k, v, lens, rate, 77)
+            dd = ta.row_dot(dout, out)
+            args = (q, k, v, lens, lse, dd, dout, rate, 77)
+            got = {who: [fp32_dq(lib, *args), *fp32_dkv(lib, *args)] for who, lib in libs.items()}
+            ref_args = [t.clone().requires_grad_() for t in (q, k, v)]
+            ref = ta.train_attention_reference(*ref_args, lens, rate, 77)
+            want = torch.autograd.grad(ref, ref_args, dout, retain_graph=True)
+            line = f"fp32 backward d={d} h={h} n={n} lens {lens_list} dropout {rate}:"
+            for who, grads in got.items():
+                line += f" {who.upper()} against plain " + ", ".join(
+                    f"{name} {float((x - w).abs().max() / w.abs().max()):.3g}"
+                    for name, x, w in zip(names, grads, want)) + ";"
+            if "other" in got:
+                line += " TREE against OTHER " + ", ".join(
+                    f"{name} max |diff| {float((x - y).abs().max()):.3g}"
+                    for name, x, y in zip(names, got["tree"], got["other"])) + ";"
+            lib_args = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+            lib_out = F.scaled_dot_product_attention(*lib_args)
+            lib_dout = dout.transpose(1, 2)
+            ms = {who: {"dq": [], "dkv": []} for who in libs}
+            plain_ms, sdpa_ms = [], []
+            for who in order:
+                lib = libs[who]
+                ms[who]["dq"].append(cs.cuda_median_ms(lambda: fp32_dq(lib, *args)))
+                ms[who]["dkv"].append(cs.cuda_median_ms(lambda: fp32_dkv(lib, *args)))
+                plain_ms.append(cs.cuda_median_ms(
+                    lambda: torch.autograd.grad(ref, ref_args, dout, retain_graph=True),
+                    iters=5, warmup=1))
+                sdpa_ms.append(cs.cuda_median_ms(
+                    lambda: torch.autograd.grad(lib_out, lib_args, lib_dout, retain_graph=True)))
+            best = {who: {key: min(t) for key, t in kinds.items()} for who, kinds in ms.items()}
+            mine = best["tree"]["dq"] + best["tree"]["dkv"]
+            line += (" TREE dq " + " / ".join(f"{t:.4f}" for t in ms["tree"]["dq"])
+                     + " ms, dk/dv " + " / ".join(f"{t:.4f}" for t in ms["tree"]["dkv"])
+                     + f" ms, dq + dk/dv {mine:.4f} ms (3xTF32 bounds dq {least['dq']:.5f} / "
+                     f"dk/dv {least['dkv']:.5f} ms, shares "
+                     f"{least['dq'] / best['tree']['dq']:.1%} / "
+                     f"{least['dkv'] / best['tree']['dkv']:.1%}); plain backward "
+                     + " / ".join(f"{t:.4f}" for t in plain_ms) + " ms, fp32 SDPA backward "
+                     + " / ".join(f"{t:.4f}" for t in sdpa_ms)
+                     + f" ms (TREE's dq + dk/dv {mine / min(plain_ms):.2f}x the plain backward's "
+                     f"time, {mine / min(sdpa_ms):.2f}x SDPA's)")
+            if "other" in ms:
+                theirs = best["other"]["dq"] + best["other"]["dkv"]
+                line += ("; OTHER dq " + " / ".join(f"{t:.4f}" for t in ms["other"]["dq"])
+                         + " ms, dk/dv " + " / ".join(f"{t:.4f}" for t in ms["other"]["dkv"])
+                         + f" ms, dq + dk/dv {theirs:.4f} ms (OTHER, TREE, TREE, OTHER: TREE "
+                         f"{mine / theirs:.3f}x OTHER's time; dq "
+                         f"{best['tree']['dq'] / best['other']['dq']:.3f}x, dk/dv "
+                         f"{best['tree']['dkv'] / best['other']['dkv']:.3f}x)")
+            cs.log(line)
+            del got, want, ref, ref_args, lib_out, lib_args, out, lse, dd
+        del q, k, v, dout
 
 
 def serving_fp32(cs, dev, g, libs: dict, order: tuple) -> None:

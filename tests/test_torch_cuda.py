@@ -1359,7 +1359,8 @@ def test_d256_geometry_is_the_kernels(cuda):
     states: the bf16 forward (128 rows, two stages), the backward (64 rows,
     the columns split between the warpgroups), the fp32 forward core (Q in
     shared memory, two sets of four warps, 16-key tiles) and the fp32 dq and
-    dk/dv (16-row stages, dk/dv on 256 threads)."""
+    dk/dv (eight warps in pairs, one split stage of 16 rows and a raw room
+    for the next, filling the block's 232,448 bytes)."""
     fwd, bwd = ta.forward_geometry(2, 4096, 4, 256), ta.backward_geometry(2, 4096, 4, 256)
     built = ta.kernel_forward_geometry(256)
     assert built == {name: fwd[name] for name in built} and built["stages"] == 2
@@ -1371,10 +1372,10 @@ def test_d256_geometry_is_the_kernels(cuda):
     bwd = ta.backward_geometry_fp32(2, 4096, 4, 256)
     assert {key: built[key] for key in ta.FP32_FORWARD_BUILT} == sa.kernel_geometry_fp32(256)
     assert (built["threads"], built["sets"], built["key_tile"]) == (256, 2, 16)
-    assert (built["dq_threads"], built["dkv_threads"], built["bwd_tile"]) == \
-        (bwd["dq_threads"], bwd["dkv_threads"], bwd["bwd_tile"]) == (128, 256, 16)
+    names = ("dq_threads", "dkv_threads", "bwd_stages", "bwd_tile")
+    assert [built[x] for x in names] == [bwd[x] for x in names] == [256, 256, 1, 16]
     assert (built["dq_shared_bytes"], built["dkv_shared_bytes"]) == \
-        (bwd["dq_shared_bytes"], bwd["dkv_shared_bytes"])
+        (bwd["dq_shared_bytes"], bwd["dkv_shared_bytes"]) == (232448, 232448)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -1432,31 +1433,50 @@ def test_train_attention_d256_kernels_match_plain(cuda, no_tf32, n, dropout):
 
 @pytest.mark.parametrize("dropout", [0.0, 0.1])
 @pytest.mark.parametrize("n, lens_list", [(192, (192, 0)), (4096, (4096, 4059)),
-                                          (6144, (6144, 6107))])
+                                          (6144, (6144, 6107)), (64, (64, 64)), (64, (9, 0)),
+                                          (192, (9, 100))])
 def test_train_attention_fp32_d256_kernels_match_plain(cuda, no_tf32, n, lens_list, dropout):
     """Kernels 4a-4c's fp32 d = 256 instantiations (kernel 6's fp32
-    training role: `forward_sets` with the LSE, dq and dk/dv on 16-row
-    stages) against the plain version's autograd: O within FP32_TOL * (1 +
-    |plain|), dq / dk / dv within FP32_GRAD_TOL of their scale, each launch
-    counted at d = 256, a second forward and backward bit-identical; a
-    sample with no valid key at n = 192."""
+    training role: `forward_sets` with the LSE, dq and dk/dv on pairs of
+    warps and 16-row tiles) against the plain version's autograd: O within
+    FP32_TOL * (1 + |plain|), dq / dk / dv within FP32_GRAD_TOL of their
+    scale, each launch counted at d = 256, a second forward and backward
+    bit-identical, and a third with both TF32 flags on bit-identical too.
+    The cases: one block a head (n = 64); a sample with no valid key; 9
+    valid keys, fewer than a tile (dq sees one tile, dk/dv's later blocks
+    no valid key); the training shapes."""
     g = torch.Generator(device=cuda).manual_seed(n + 258)
     q, k, v, dout = (torch.randn((2, n, 4, 256), generator=g, device=cuda) for _ in range(4))
     lens = torch.tensor(lens_list, dtype=torch.int32, device=cuda)
     kernels = ta._LAUNCHERS[torch.float32]
     before = [fn.launches_by_head_dim[256] for fn in kernels]
     results = []
-    for attend in (lambda *a: ta.train_attention(*a, key_valid=lens_to_mask(lens, n),
-                                                 dropout_rate=dropout, seed=23),
-                   lambda *a: ta.train_attention(*a, key_valid=lens_to_mask(lens, n),
-                                                 dropout_rate=dropout, seed=23),
+
+    def kernels_on(*a):
+        return ta.train_attention(*a, key_valid=lens_to_mask(lens, n), dropout_rate=dropout,
+                                  seed=23)
+
+    def tf32_on(*a):
+        saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        try:
+            out = kernels_on(*a)
+            return out, torch.autograd.grad(out, a, dout)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+    for attend in (kernels_on, kernels_on, tf32_on,
                    lambda *a: ta.train_attention_reference(*a, lens, dropout, 23)):
         args = [t.clone().requires_grad_() for t in (q, k, v)]
         out = attend(*args)
+        if isinstance(out, tuple):  # the TF32 call took its gradients inside the flags
+            results.append([out[0].detach(), *out[1]])
+            continue
         results.append([out.detach(), *torch.autograd.grad(out, args, dout)])
-    assert [fn.launches_by_head_dim[256] for fn in kernels] == [b + 2 for b in before]
-    got, again, want = results
+    assert [fn.launches_by_head_dim[256] for fn in kernels] == [b + 3 for b in before]
+    got, again, flagged, want = results
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(torch.equal(a, b) for a, b in zip(got, flagged))
     assert torch.all((got[0] - want[0]).abs() <= FP32_TOL * (1 + want[0].abs()))
     for a, b in zip(got[1:], want[1:]):
         assert float((a - b).abs().max() / b.abs().max()) <= FP32_GRAD_TOL

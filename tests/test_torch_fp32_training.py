@@ -164,7 +164,7 @@ def test_fp32_shared_bytes_add_up(d, fwd_bytes, dq_bytes, dkv_bytes, per_sm):
     assert fwd["blocks_per_sm"] == bwd["blocks_per_sm"] == per_sm
 
 
-@pytest.mark.parametrize("d", tta.HEAD_DIMS)
+@pytest.mark.parametrize("d", tta.KERNEL_HEAD_DIMS)
 def test_fp32_backward_tile_reads_are_conflict_free(d):
     """Every shared-memory read of a streamed tile that the fp32 dq and dk/dv
     kernels make, and the forward core with them (its K tile read as dq's,
@@ -179,7 +179,13 @@ def test_fp32_backward_tile_reads_are_conflict_free(d):
     16-byte copy and split chunk stays 16-byte aligned. At d = 128 the rows
     are d + 4 = 132 floats, 4 past a multiple of 32 banks as 68 is, and the
     fixed operands' A fragments read from shared memory (rows lane / 4,
-    columns lane % 4) hit 32 distinct banks too."""
+    columns lane % 4) hit 32 distinct banks too. At d = 256 (rows of 260
+    floats, 16-row streamed tiles) the same reads, the fixed operands' A
+    fragments by `ldmatrix` (`LdmA`: four 8-row matrices, rows lane % 8 and
+    + 8, columns 0-3 and 4-7 of the k-step), the pairs' slots (dq's scores
+    and dS, dk/dv's P: a lane's float4 at consecutive slots) and the raw
+    room (rows of 256 floats, no padding: each thread copies and splits its
+    own 16-byte chunks, a quarter-warp's in one row) meet no conflict."""
     stride = tta.forward_geometry_fp32(1, 64, 1, d)["stride"]
     assert stride == (tta.FP32_STRIDE if d == 64 else d + 4)
     lanes = np.arange(32)
@@ -196,6 +202,31 @@ def test_fp32_backward_tile_reads_are_conflict_free(d):
                 assert len(set(banks.tolist())) == 32
     assert len(set(((c * stride + g) % 32).tolist())) < 32
     assert (stride * 4) % 16 == 0 and (64 * stride * 4) % 16 == 0
+    if d != tta.LIBRARY_HEAD_DIM:
+        return
+    geo = tta.backward_geometry_fp32(1, 64, 1, d)
+    rows = geo["bwd_tile"]
+    assert rows == tta.FP32_WIDE_ROWS == 16
+    # the slots: slot (pair, warp, n-tile) * 32 + lane, float4
+    for floats in (geo["p_slot_bytes"] // 4, geo["score_slot_bytes"] // 4):
+        for slot0 in range(0, floats // 4, 32):
+            for quarter in range(4):
+                quads = (4 * (slot0 + 8 * quarter + np.arange(8))) % 32 // 4
+                assert len(set(quads.tolist())) == 8
+    for kk in range(d // 8):  # LdmA: matrix m's eight rows, 16 bytes each
+        for mat in range(4):
+            rows8 = 8 * (mat & 1) + np.arange(8)
+            quads = (rows8 * stride + 8 * kk + 4 * (mat >> 1)) % 32 // 4
+            assert len(set(quads.tolist())) == 8
+    # the raw room and the split of its chunks into padded tiles: chunk i =
+    # thread + 256 m at row i / (d / 4), column 4 (i % (d / 4))
+    for m in range(rows * d // 4 // geo["dq_threads"]):
+        for quarter in range(geo["dq_threads"] // 8):
+            i = 8 * quarter + np.arange(8) + geo["dq_threads"] * m
+            for width in (d, stride):  # the raw room's rows, the padded tiles'
+                quads = ((i // (d // 4)) * width + 4 * (i % (d // 4))) % 32 // 4
+                assert len(set(quads.tolist())) == 8
+    assert geo["raw_bytes"] % 16 == 0 and (rows * stride * 4) % 16 == 0
 
 
 # ---- the 3xTF32 arithmetic of the dq and dk/dv kernels, emulated ------------
@@ -545,6 +576,137 @@ def test_two_set_shared_reads_are_conflict_free(d):
             quads = (4 * slots[8 * quarter:8 * quarter + 8]) % 32 // 4
             assert len(set(quads.tolist())) == 8
     assert (keys * stride * 4) % 16 == 0 and (64 * stride * 4) % 16 == 0
+
+
+def chained_product(a, b, chains: int) -> np.ndarray:
+    """``a @ b`` as the d = 256 backward's scores take it: k-step kk (8
+    columns of ``a``) into chain kk % ``chains``, each chain one accumulator
+    (:func:`mma_product`, 3xTF32), the chains added in order in fp32."""
+    steps = np.arange(a.shape[1]).reshape(-1, 8)
+    total = None
+    for i in range(chains):
+        cols = steps[i::chains].ravel()
+        part = mma_product(a[:, cols], b[cols], 3)
+        total = part if total is None else total + part
+    return total
+
+
+def emulate_pairs_backward(q, k, v, dout, length: int, factor=None):
+    """One head of the fp32 dq and dk/dv kernels at d = 256 in numpy, in
+    their order (`csrc/train_attention_fp32.cu`, the pairs of warps): the
+    forward's LSE and D = rowsum(dO * O) from float64, rounded to fp32 as the
+    kernels read them; 16-row streamed tiles.
+
+    dq: the key tiles up to the last valid one (none where no key is valid:
+    dq is zero); per tile S = Q K^T and dP = dO V^T, each in four chains,
+    each warp of the pair computing one, trading halves, forming dS of one
+    n-tile and trading it, so that both hold the same dS; dQ's two column
+    halves (one a warp) each take the tile's dS K in a fresh accumulator,
+    added to the output in fp32. dk/dv: every query tile; S^T
+    and dP^T in two chains; warp A's P handed to warp B with its sign bit set
+    where the keep bit drops the element, B taking |x| and the factor from
+    the sign; dV += Pd^T dO and dK += dS^T Q a fresh accumulator a tile.
+    Returns (dq, dk, dv, the handed-over P and factors as B reads them, as A
+    made them)."""
+    n, d = q.shape
+    rows, scale = tta.FP32_WIDE_ROWS, np.float32(1.0 / math.sqrt(d))
+    keep_f = np.ones((n, n), np.float32) if factor is None else factor
+    masked = np.float32(0.0 if length <= 0 else -1e30)
+    valid = np.arange(n) < length
+    f64 = [x.astype(np.float64) for x in (q, k, v, dout)]
+    logits = np.where(valid, f64[0] @ f64[1].T / math.sqrt(d), float(masked))
+    top = logits.max(1, keepdims=True)
+    lse = (np.log(np.exp(logits - top).sum(1)) + top[:, 0]).astype(np.float32)
+    p64 = np.exp(logits - lse.astype(np.float64)[:, None])
+    dd = (f64[3] * ((p64 * keep_f) @ f64[2])).sum(1).astype(np.float32)
+
+    dq = np.zeros((n, d), np.float32)
+    halves = np.zeros((n, d), np.float32)
+    tiles = 0 if length <= 0 else -(-min(length, n) // rows)
+    for t in range(tiles):
+        keys = slice(t * rows, (t + 1) * rows)
+        s = chained_product(q, k[keys].T, 4)
+        dp = chained_product(dout, v[keys].T, 4)
+        ok = valid[keys]
+        p = np.exp(np.where(ok, s * scale, masked) - lse[:, None])
+        ds = np.where(ok, p * (dp * keep_f[:, keys] - dd[:, None]), np.float32(0.0))
+        dq = dq + mma_product(ds, k[keys], 3)
+        halves = halves + np.concatenate(
+            [mma_product(ds, k[keys][:, c:c + d // 2], 3) for c in (0, d // 2)], axis=1)
+    np.testing.assert_array_equal(dq, halves)  # a warp's half of the columns is the same sum
+
+    dk = np.zeros((n, d), np.float32)
+    dv = np.zeros((n, d), np.float32)
+    handed = []
+    for t in range(n // rows):
+        queries = slice(t * rows, (t + 1) * rows)
+        st = chained_product(k, q[queries].T, 2)
+        dpt = chained_product(v, dout[queries].T, 2)
+        p = np.exp(np.where(valid[:, None], st * scale, masked) - lse[None, queries])
+        f = keep_f[queries].T
+        x = np.where(f != 0, p, -p)  # A: P, its sign bit set where dropped
+        p_b = np.abs(x)              # B
+        f_b = np.where(np.signbit(x), np.float32(0.0), keep_f.max())
+        handed.append((p_b, f_b, p, f))
+        dst = np.where(valid[:, None], p_b * (dpt * f_b - dd[None, queries]), np.float32(0.0))
+        dv = dv + mma_product(p * f, dout[queries], 3)
+        dk = dk + mma_product(dst, q[queries], 3)
+    return dq * scale, dk * scale, dv, handed
+
+
+# (n, valid keys) a case: every key averaged (lens = 0); every valid key in
+# the first 16-key tile; an odd count of key tiles (three), the second block
+# of keys wholly masked
+PAIR_CASES = ((64, 0), (64, 9), (128, 40))
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+def test_pair_backward_holds_the_fp32_limit(dropout):
+    """The d = 256 dq and dk/dv arithmetic (:func:`emulate_pairs_backward`)
+    for a sample with no valid key, one whose valid keys all lie in one
+    tile and one with an odd count of key tiles and a block of keys all
+    masked, at dropout 0 and 0.1: dq, dk and dv within chip_smoke's
+    FP32_GRAD_TOL of their float64 scale; P and the keep factor reach the
+    dK warp bit for bit through the sign bit; masked keys get exactly zero
+    dk and dv, and dq is exactly zero where no key is valid."""
+    import chip_smoke
+
+    d, keep = tta.LIBRARY_HEAD_DIM, 1.0 - dropout
+    rng = np.random.default_rng(256 + int(dropout * 10))
+    for hi, (n, length) in enumerate(PAIR_CASES):
+        q, k, v, dout = (rng.standard_normal((n, d)).astype(np.float32) for _ in range(4))
+        factor = None
+        if dropout:
+            mask = tta.dropout_keep_mask(0x5A1E, 0, hi, 0, 0, n, n, n, keep).numpy()
+            factor = np.where(mask, np.float32(1.0) / np.float32(keep), np.float32(0.0))
+        valid = np.arange(n) < length
+        f64 = [x.astype(np.float64) for x in (q, k, v, dout)]
+        logits = f64[0] @ f64[1].T / math.sqrt(d)
+        logits = np.where(valid, logits, -1e30) if length > 0 else np.zeros_like(logits)
+        p = np.exp(logits - logits.max(1, keepdims=True))
+        p /= p.sum(1, keepdims=True)
+        f = np.ones((n, n)) if factor is None else factor.astype(np.float64)
+        dd = (f64[3] * ((p * f) @ f64[2])).sum(1)
+        ds = np.where(valid, p * (f64[3] @ f64[2].T * f - dd[:, None]), 0.0)
+        want = (ds @ f64[1] / math.sqrt(d), ds.T @ f64[0] / math.sqrt(d), (p * f).T @ f64[3])
+        dq, dk, dv, handed = emulate_pairs_backward(q, k, v, dout, length, factor)
+        for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+            assert got.dtype == np.float32
+            scale = np.abs(w).max()
+            if scale == 0.0:
+                np.testing.assert_array_equal(got, 0.0, err_msg=name)
+            else:
+                assert float(np.abs(got - w).max() / scale) <= chip_smoke.FP32_GRAD_TOL, name
+        for p_b, f_b, p_a, f_a in handed:
+            np.testing.assert_array_equal(p_b.view(np.uint32), p_a.view(np.uint32))
+            np.testing.assert_array_equal(f_b, f_a)
+        if length > 0:
+            np.testing.assert_array_equal(dk[length:], 0.0)
+            np.testing.assert_array_equal(dv[length:], 0.0)
+        else:
+            np.testing.assert_array_equal(dq, 0.0)
+    assert -(-PAIR_CASES[1][1] // tta.FP32_WIDE_ROWS) == 1
+    assert -(-PAIR_CASES[2][1] // tta.FP32_WIDE_ROWS) % 2 == 1
 
 
 def test_pass_partials_bound_the_drift_of_an_accumulator_rounded_toward_zero():

@@ -173,12 +173,13 @@ def test_d256_geometry_covers_every_row_once_within_the_card(n):
     """The bf16 forward at d = 256 (128 rows a block, two consumer
     warpgroups at 232 registers, a ring of two stages), the backward (64 rows
     a block, both warpgroups on them, 128 of the head's columns each), the
-    fp32 forward core (64 rows, 32-key tiles; serving and training) and the
-    fp32 dq (64 rows, four warps of 16) and dk/dv (64 keys, eight warps, two
-    a 16-key group on 128 columns each), their rings 16 rows a stage: every
-    row or key owned once, every column of dk / dv once, no tile past the
-    sample, shared memory within a block's 232,448 bytes and the
-    `setmaxnreg` sum within what the launch has."""
+    fp32 forward core (64 rows, 16-key tiles; serving and training) and the
+    fp32 dq and dk/dv (64 rows, eight warps in four pairs of 16 rows, 16-row
+    streamed tiles, one split stage; dq's pair holding half of dQ's columns
+    each, dk/dv's dV and dK): every row or key owned once, every column of
+    dq once and every key's dk and dv once, no tile past the sample, shared
+    memory within a block's 232,448 bytes and the `setmaxnreg` sum within
+    what the launch has."""
     b, h = 2, 4
     fwd = tta.forward_geometry(b, n, h, D)
     assert (fwd["rows"], fwd["stages"], fwd["threads"], fwd["registers"]) == (128, 2, 384,
@@ -207,20 +208,23 @@ def test_d256_geometry_covers_every_row_once_within_the_card(n):
     assert tta.set_key_tiles(n, 0, D) == tta.set_key_tiles(n, n, D)
     b32 = tta.backward_geometry_fp32(b, n, h, D)
     assert (b32["rows"], b32["dq_threads"], b32["dkv_threads"], b32["bwd_stages"],
-            b32["bwd_tile"], b32["fixed_tiles"]) == (64, 128, 256, 2, 16, 2)
+            b32["bwd_tile"], b32["fixed_tiles"]) == (64, 256, 256, 1, 16, 2)
     assert b32["grid"] == (n // 64, h, b) and b32["blocks"] == [(r, 64) for r in range(0, n, 64)]
-    # every row (dq) or key (dk/dv) of a block once: a warp of dq each 16 rows, two
-    # warps of dk/dv each 16 keys, one on each part of the head's columns
-    for threads, parts in ((b32["dq_threads"], [(0, D)]), (b32["dkv_threads"],
-                                                           b32["dkv_columns"])):
-        owned = np.zeros((n, D), np.int64)
-        for start, rows in b32["blocks"]:
-            for warp in range(threads // 32):
-                first, width = parts[warp // 4]
-                row = start + 16 * (warp % 4)
-                owned[row:row + 16, first:first + width] += 1
-        np.testing.assert_array_equal(owned, 1)
-    # a streamed tile of 16 rows: n / 16 of them a sample, none past its end
+    # every (row, column) of dq once: a pair of warps a 16-row group, each
+    # half of the head's columns; every key's dk and dv once: a pair a
+    # 16-key group, one warp dV, the other dK
+    assert len(b32["dq_warps"]) == b32["dq_threads"] // 32 == 8
+    owned = np.zeros((n, D), np.int64)
+    outputs = np.zeros((n, 2), np.int64)
+    for start, rows in b32["blocks"]:
+        for first, col0, cols in b32["dq_warps"]:
+            owned[start + first:start + first + 16, col0:col0 + cols] += 1
+        for first, held in b32["dkv_warps"]:
+            for out in held:
+                outputs[start + first:start + first + 16, ("dK", "dV").index(out)] += 1
+    np.testing.assert_array_equal(owned, 1)
+    np.testing.assert_array_equal(outputs, 1)
+    # streamed tiles of 16 rows: n / 16 of them a sample, none past its end
     assert n % b32["bwd_tile"] == 0
     for shared in (fwd["shared_bytes"], bwd["shared_bytes"], f32["shared_bytes"],
                    b32["dq_shared_bytes"], b32["dkv_shared_bytes"]):
@@ -241,12 +245,19 @@ def test_d256_shared_bytes_add_up():
         64 * row + 2 * 4 * 16 * row == 199680
     # set 1's O and (m, l) for the merge fit in the two sets' room
     assert 64 * D * 4 + 4 * 32 * 16 <= 2 * 4 * 16 * row
-    # fp32 dq: Q's and dO's 64 rows, two stages of a K and a V tile of 16 keys;
-    # dk/dv: K's and V's, two stages of a Q and a dO tile of 16 queries and
-    # their 16 LSE and 16 D values
+    # fp32 dq (dk/dv): Q's and dO's (K's and V's) 64 rows, a 16-row K and V
+    # (Q and dO) tile's big and small parts, the next tile's raw (unpadded):
+    # all a block may use. The pairs' slots lie in room a tile no longer
+    # needs: dq's scores (two warps' [16, 16] fp32 a pair) in V's parts,
+    # dk/dv's P ([16, 16] fp32 a pair) in the raw room
     b32 = tta.backward_geometry_fp32(1, 4096, 4, D)
-    assert b32["dq_shared_bytes"] == 2 * 64 * row + 2 * 2 * 16 * row == 199680
-    assert b32["dkv_shared_bytes"] == 2 * 64 * row + 2 * (2 * 16 * row + 2 * 16 * 4) == 199936
+    assert b32["raw_bytes"] == 2 * 16 * D * 4 == 32768
+    assert b32["dq_shared_bytes"] == b32["dkv_shared_bytes"] == \
+        2 * 64 * row + 4 * 16 * row + 32768 == 232448 == tta.SHARED_LIMIT
+    assert b32["score_slot_bytes"] == 4 * 2 * 16 * 16 * 4 <= 2 * 16 * row
+    assert b32["p_slot_bytes"] == 4 * 16 * 16 * 4 == 4096 <= b32["raw_bytes"]
+    # a padded raw room would not fit: its rows of 256 floats take the rest
+    assert b32["dq_shared_bytes"] + 2 * 16 * 4 * 4 > tta.SHARED_LIMIT
 
 
 def test_d256_domain_refuses_rotary_and_fp32_training():
