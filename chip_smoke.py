@@ -1494,8 +1494,8 @@ KERNEL_GROUPS = (  # device kernels by name, first match
     ("kernel 4b (dq)", ("train_attention_dq_kernel",)),
     ("kernel 4c (dk/dv)", ("train_attention_dkv_kernel",)),
     ("kernel 4a fp32 (attention forward)", ("train_fp32_fwd_kernel",)),
-    ("kernel 4b fp32 (dq)", ("train_fp32_dq_kernel",)),
-    ("kernel 4c fp32 (dk/dv)", ("train_fp32_dkv_kernel",)),
+    ("kernel 4b fp32 (dq)", ("train_fp32_dq_kernel", "train_fp32_dq_pairs_kernel")),
+    ("kernel 4c fp32 (dk/dv)", ("train_fp32_dkv_kernel", "train_fp32_dkv_pairs_kernel")),
     ("GEMMs", ("gemm", "nvjet", "cutlass", "cublas", "gemv")),
     ("convolutions", ("conv", "cudnn", "fft")),
 )
@@ -4648,9 +4648,9 @@ def check_d256_geometry() -> None:
         f"(registers {fwd['registers']}), backward {built['backward']} (columns "
         f"{bwd['columns']}); fp32 serving {built['fp32 serving']} ({f32['sets']} warp sets "
         f"of four, key tiles of {f32['key_tile']}, Q split at each use); fp32 training "
-        f"{built['fp32 training']} (dq and dk/dv in pairs of warps, {b32['bwd_tile']}-row "
+        f"{built['fp32 training']} (dq and dk/dv in pairs of warps, {b32['dq_tile']}-row "
         f"tiles split once; dq warps (first row, first column, columns) {b32['dq_warps']}, "
-        f"a raw room of {b32['raw_bytes']} bytes; dk/dv warps (first key, output) "
+        f"a raw room of {b32['dq_raw_bytes']} bytes; dk/dv warps (first key, output) "
         f"{b32['dkv_warps']}, P slots of {b32['p_slot_bytes']} bytes)")
     lib = _cuda.kernels().lib
     q = torch.zeros((1, 64, 2, d), dtype=torch.float32, device="cuda")

@@ -10,15 +10,11 @@
 // where a single TF32 pass keeps 11 and fails the limits the port holds
 // these kernels to. torch's TF32 flags do not reach them.
 //
-// - Head dim D = 64 or 128 (`Fp32Shape`). A block owns 64 rows of one
-//   (sample, head): four warps of 16 rows (one m16 tile of the mma each), 128
-//   threads, two blocks an SM at d = 64; at d = 128 the dq and dk/dv kernels
-//   run one such block an SM (a padded [64, 128] tile is 33,792 bytes), and
-//   the forward eight warps in two sets (`fp32_forward.cuh` `forward_sets`).
-//   A warp keeps its fixed operands in registers in A-fragment order (`RawA`,
-//   `SplitA`), or at d = 128 in the backward in a padded shared tile
-//   (`SharedA`): 64 + 64 fixed floats a thread beside one or two [16, 128]
-//   accumulators do not fit in 255 registers.
+// - Head dim D = 64 (`Fp32Shape`). A block owns 64 rows of one (sample,
+//   head): four warps of 16 rows (one m16 tile of the mma each), 128 threads,
+//   two blocks an SM. A warp keeps its fixed operands in registers in
+//   A-fragment order (`RawA`, `SplitA`), or in a padded shared tile
+//   (`SharedA`: the d = 256 forward's Q).
 // - The streamed tiles come through kStages = 2 stages by `cp.async` (16
 //   bytes a copy, bypassing L1): tile t + 1's copy runs under tile t's split
 //   and products. Once a tile has landed, each thread splits the chunks it
@@ -31,11 +27,12 @@
 //   read as B (rows are the k index: keys of a V tile) at rows 8 j + 2 (lane
 //   % 4) + {0, 1} and column 8 nn + lane / 4 (`product`), 32 distinct banks
 //   (kStride % 32 == 4 at every head dim).
-// - At d = 256 the forwards run on `fp32_forward.cuh`'s `forward_sets` (as
-//   at d = 128) and the dq and dk/dv kernels on a layout of their own
-//   (`train_attention_fp32.cu`): eight warps in pairs, the fixed operands
-//   fp32 in shared memory (split at each use), the streamed tiles of 16 rows
-//   split once a block.
+// - At d = 128 and 256 the forwards run on `fp32_forward.cuh`'s
+//   `forward_sets` (eight warps in two sets) and the dq and dk/dv kernels on
+//   a layout of their own (`train_attention_fp32.cu`): eight warps in pairs,
+//   each warp's one fixed operand split once in registers (d = 128) or fp32
+//   in shared memory split at each use (d = 256), the streamed tiles of 16
+//   rows split once a block.
 // - Scores come out in the mma's C layout (row lane / 4 and + 8, columns 2
 //   (lane % 4) + {0, 1} of each n-tile) and are used in place as the next
 //   product's A fragment by permuting the k-step: no shuffle and no trip
@@ -67,19 +64,14 @@ static_assert(kRows == 16 * kWarps, "a warp owns one m16 tile of the block's row
 // `forward_geometry_fp32` / `backward_geometry_fp32`).
 template <int D>
 struct Fp32Shape {
-  // d = 256 takes these constants up to kSteps; the rest are d = 64's and
-  // 128's (`forward_sets` and the wide backward have layouts of their own)
+  // d = 128 and 256 take these constants up to kSteps; the rest are d =
+  // 64's (`forward_sets` and the pairs' backward have layouts of their own)
   static_assert(D == 64 || D == 128 || D == 256, "the kernels are built for head dims 64, 128, 256");
   static constexpr int kStride = D + 4;                  // floats a shared row: 68, 132, 260
   static constexpr int kTileFloats = kRows * kStride;    // 17,408, 33,792 or 66,560 bytes
   static constexpr int kChunks = kRows * D / 4 / kThreads;  // 16-byte chunks a thread: 8, 16, 32
   static constexpr int kSteps = D / 8;   // k-steps of 8 over d; n-tiles of 8 output columns
   static constexpr int kHalves = D / 64;  // 64-column pieces of an output (one fresh accumulator each)
-  static constexpr int kBlocks = D == 64 ? 2 : 1;  // dq and dk/dv blocks an SM (shared memory)
-  // the dq and dk/dv ring: two stages with the fixed operands in registers,
-  // one with them in shared memory
-  static constexpr int kBwdStages = D == 64 ? 2 : 1;
-  static constexpr bool kFixedShared = D != 64;
 };
 
 __device__ __forceinline__ float4 ld_shared4(const float* p) {
@@ -362,8 +354,7 @@ __device__ __forceinline__ void product(float (&acc)[8][4], const float (&w)[4],
 // to nearest, and in one accumulator over a whole row of keys or queries
 // (up to 1,536 mma) its error grows with the chain (dq 5.0e-5 of its scale
 // at n = 4096 on an H100, beyond the limit the port holds it to); a pass's
-// chain is 3 kN mma long. One fresh accumulator of 64 columns at a time
-// (two in turn at d = 128: 32 registers, not 64).
+// chain is 3 kN mma long. One fresh accumulator of 64 columns at a time.
 template <int D, int kN>
 __device__ __forceinline__ void pass_product(float (&acc)[D / 8][4], const float (&w)[kN][4],
                                              const float* zb, const float* zs, int j0,

@@ -45,31 +45,25 @@
 // transposed read costs nothing but its addresses.
 // - Geometry: a block owns 64 rows of one (sample, head). The forward is
 //   `fp32_forward.cuh`'s: four warps at d = 64, eight in two sets at d = 128
-//   and 256. The backward at d = 64 and 128: four warps of 16 rows, 128
-//   threads, two blocks an SM at d = 64, one at d = 128. At d = 64
-//   the backward's warps keep their fixed operands (dq: Q and dO; dk/dv: K
-//   and V) in registers as fp32 in A-fragment order (64 floats) and split
-//   them at each scores pass of 32 columns, two a tile (the registers hold no
-//   wider pass beside the output accumulators). At d = 128 those would be
-//   128 floats beside dq's 64 or dk/dv's 128 accumulator registers, more
-//   than 255: the block keeps them in two padded shared tiles instead, read
-//   and split at each pass (`SharedA`).
-// - The ring: the streamed tiles (dq: K and V; dk/dv: Q, dO and their 64
-//   LSE and 64 D values) through kBwdStages stages, split once a block: two
-//   at d = 64, 104,448 (dq) and 105,472 (dk/dv) bytes of shared memory; one
-//   at d = 128 (its fixed tiles take the second stage's room), 202,752 and
-//   203,264 bytes, where the next tile's copy waits for the products of this
-//   one.
-// - At d = 256 (kernel 6's fp32 training role: the JAX package's library
-//   flash kernel, eraxvif5tts_tpu/ops/attention.py:38 `_flash_attention`
-//   with trainable=True) the forward is `fp32_forward.cuh`'s `forward_sets`
-//   with the LSE and the keep bits, and dq and dk/dv have a layout of their
-//   own (below, "the backward at d = 256"): eight warps an SM in pairs of
-//   16 rows, the fixed tiles fp32 in shared memory, the streamed ones 16 rows
-//   a tile split once a block; in dq the pair's warps compute S and dP and
-//   trade them, each then holding half of dQ's columns; in dk/dv they split
-//   by output (dV, dK), and P goes from one to the other through shared
-//   memory.
+//   and 256. The backward at d = 64: four warps of 16 rows, 128 threads, two
+//   blocks an SM; the warps keep their fixed operands (dq: Q and dO; dk/dv:
+//   K and V) in registers as fp32 in A-fragment order (64 floats) and split
+//   them at each scores pass of 32 columns, two a tile (the registers hold
+//   no wider pass beside the output accumulators). The ring: the streamed
+//   tiles (dq: K and V; dk/dv: Q, dO and their 64 LSE and 64 D values)
+//   through two stages, split once a block; 104,448 (dq) and 105,472
+//   (dk/dv) bytes of shared memory.
+// - At d = 128 and 256 (at 256 kernel 6's fp32 training role: the JAX
+//   package's library flash kernel, eraxvif5tts_tpu/ops/attention.py:38
+//   `_flash_attention` with trainable=True) the forward is `fp32_forward.cuh`'s
+//   `forward_sets` with the LSE and the keep bits, and dq and dk/dv have a
+//   layout of their own (below, "the backward at d = 128 and 256"): eight
+//   warps an SM in pairs of 16 rows, each warp one fixed operand (split
+//   once in registers at d = 128, fp32 in shared memory at 256), the
+//   streamed tiles 16 rows a tile split once a block; in dq the pair's warps
+//   compute S and dP and trade them, each then holding half of dQ's columns;
+//   in dk/dv they split by output (dV, dK), and P goes from one to the other
+//   through shared memory.
 // - dq: each step takes S = Q K^T and dP = dO V^T, dS, and dQ += dS K.
 //   dk/dv: each step takes S^T = K Q^T and dP^T = V dO^T, Pd^T and dS^T,
 //   and dV += Pd^T dO, dK += dS^T Q. The scores come out in the mma's C
@@ -120,45 +114,24 @@ __global__ void __launch_bounds__(fwd_threads<D>(), fwd_blocks<D>())
   }
 }
 
-// ---- the backward: dq and dk/dv ----------------------------------------------
+// ---- the backward at d = 64: dq and dk/dv ---------------------------------
 
-// The ring of the dq and dk/dv kernels (`ops/train_attention.py`
-// `backward_geometry_fp32` states it): kBwdStages stages of the streamed
-// tiles, one buffer of their small parts and, at d = 128, the block's two
-// fixed tiles.
+// The ring of the d = 64 dq and dk/dv kernels (`ops/train_attention.py`
+// `backward_geometry_fp32` states it): two stages of the streamed tiles and
+// one buffer of their small parts, two blocks an SM.
 template <int D>
 struct Fp32Bwd {
+  static_assert(D == 64, "the four-warp backward is built for head dim 64");
   using S = Fp32Shape<D>;
+  static constexpr int kStages = 2;
+  static constexpr int kBlocks = 2;
   static constexpr int kDqStage = 2 * S::kTileFloats;               // K, V (big once split)
   static constexpr int kDkvStage = 2 * S::kTileFloats + 2 * kRows;  // Q, dO, 64 LSE, 64 D
   static constexpr int kSmall = 2 * S::kTileFloats;  // the small parts of a stage's tiles
-  static constexpr int kFixed = S::kFixedShared ? 2 * S::kTileFloats : 0;
-  static constexpr int kDqSmem = (S::kBwdStages * kDqStage + kSmall + kFixed) * 4;
-  static constexpr int kDkvSmem = (S::kBwdStages * kDkvStage + kSmall + kFixed) * 4;
-  static_assert(kDqSmem <= 232448 && kDkvSmem <= 232448,
-                "more shared memory than a block may use");
+  static constexpr int kDqSmem = (kStages * kDqStage + kSmall) * 4;
+  static constexpr int kDkvSmem = (kStages * kDkvStage + kSmall) * 4;
+  static_assert(kBlocks * (kDkvSmem + 1024) <= 233472, "two blocks an SM");
 };
-
-// A warp's fixed operand of the backward: fp32 in registers at d = 64, in a
-// padded shared tile at d = 128.
-template <int D>
-using Fixed = std::conditional_t<Fp32Shape<D>::kFixedShared, SharedA<D>, RawA<D>>;
-
-// The warp's fixed operand: rows `row` and `row + 8` of `src` (position 0 of
-// the head) into registers, or the block's 64 rows from `row0` into the
-// shared tile `tile` by `cp.async`, a group of its own that the loop's first
-// wait covers.
-template <int D>
-__device__ __forceinline__ void load_fixed(Fixed<D>& a, float* tile, const float* __restrict__ src,
-                                           int64_t stride, int row0, int row, int c) {
-  if constexpr (Fp32Shape<D>::kFixedShared) {
-    copy_tile<D>(tile, src + static_cast<int64_t>(row0) * stride, stride);
-    cp_async_commit();
-    a.p = tile + (row - row0) * Fp32Shape<D>::kStride + c;
-  } else {
-    load_a<D>(a, src, stride, row, c);
-  }
-}
 
 // The scores of kN n-tiles (columns 8 j0 .. 8 (j0 + kN) - 1 of the split
 // tiles X and Y: big parts `xb`, `yb`, small `xs`, `ys`) for the warp's 16
@@ -168,8 +141,8 @@ __device__ __forceinline__ void load_fixed(Fixed<D>& a, float* tile, const float
 // columns on); a padded row of D + 4 floats puts the eight rows of a matrix
 // in eight distinct bank quads.
 template <int D, int kN>
-__device__ __forceinline__ void scores(float (&s)[kN][4], float (&dp)[kN][4], const Fixed<D>& a,
-                                       const Fixed<D>& b, const float* xb, const float* xs,
+__device__ __forceinline__ void scores(float (&s)[kN][4], float (&dp)[kN][4], const RawA<D>& a,
+                                       const RawA<D>& b, const float* xb, const float* xs,
                                        const float* yb, const float* ys, int j0, int lane) {
   constexpr int kStride = Fp32Shape<D>::kStride;
   const int lm = (8 * j0 + 8 * (lane >> 4) + (lane & 7)) * kStride + 4 * ((lane >> 3) & 1);
@@ -200,18 +173,18 @@ __device__ __forceinline__ void scores(float (&s)[kN][4], float (&dp)[kN][4], co
 constexpr int kPass = 4;
 
 template <int D, bool kDrop>
-__global__ void __launch_bounds__(kThreads, Fp32Shape<D>::kBlocks)
+__global__ void __launch_bounds__(kThreads, Fp32Bwd<D>::kBlocks)
     train_fp32_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, const float* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ dd,
                          const int* __restrict__ lens, float* __restrict__ dq, int n, int h,
                          float scale, const Dropout drop) {
+  static_assert(D == 64, "d = 128 and 256 run the pairs of warps");
   using S = Fp32Shape<D>;
   using L = Fp32Bwd<D>;
   extern __shared__ float4 smem4[];
   float* const ring = reinterpret_cast<float*>(smem4);
-  float* const small = ring + S::kBwdStages * L::kDqStage;  // K's and V's small parts
-  float* const fixed = small + L::kSmall;                    // Q and dO at d = 128
+  float* const small = ring + L::kStages * L::kDqStage;  // K's and V's small parts
   const int lane = threadIdx.x & 31, c = lane & 3;
   const Head hd = block_head<D>(lens, n, h, drop);
   // no valid key: dS is zero everywhere, and so is dq
@@ -219,18 +192,18 @@ __global__ void __launch_bounds__(kThreads, Fp32Shape<D>::kBlocks)
   const int row = hd.row0 + 16 * (threadIdx.x >> 5) + (lane >> 2);  // and row + 8
 
   auto issue = [&](int t) {  // K and V of key tile t into its stage
-    float* stage = ring + (t % S::kBwdStages) * L::kDqStage;
+    float* stage = ring + (t % L::kStages) * L::kDqStage;
     const int64_t at = hd.base + static_cast<int64_t>(t) * kRows * hd.stride;
     copy_tile<D>(stage, k + at, hd.stride);
     copy_tile<D>(stage + S::kTileFloats, v + at, hd.stride);
     cp_async_commit();
   };
 
-  Fixed<D> qa, da;
+  RawA<D> qa, da;
   if (n_tiles > 0) {
     issue(0);
-    load_fixed<D>(qa, fixed, q + hd.base, hd.stride, hd.row0, row, c);
-    load_fixed<D>(da, fixed + S::kTileFloats, dout + hd.base, hd.stride, hd.row0, row, c);
+    load_a<D>(qa, q + hd.base, hd.stride, row, c);
+    load_a<D>(da, dout + hd.base, hd.stride, row, c);
   }
   const float lse_r[2] = {lse[hd.stat + row], lse[hd.stat + row + 8]};
   const float d_r[2] = {dd[hd.stat + row], dd[hd.stat + row + 8]};
@@ -238,12 +211,11 @@ __global__ void __launch_bounds__(kThreads, Fp32Shape<D>::kBlocks)
   float acc[D / 8][4];
   zero(acc);
   for (int t = 0; t < n_tiles; ++t) {
-    float* const ks = ring + (t % S::kBwdStages) * L::kDqStage;
+    float* const ks = ring + (t % L::kStages) * L::kDqStage;
     float* const vs = ks + S::kTileFloats;
     cp_async_wait_all();  // this thread's copies of tile t have landed
     __syncthreads();      // tile t - 1 is done with: its stage and the small parts are free
-    // two stages: the next tile's copy runs under this tile's split and products
-    if (S::kBwdStages == 2 && t + 1 < n_tiles) issue(t + 1);
+    if (t + 1 < n_tiles) issue(t + 1);  // under this tile's split and products
     split_tile<D>(ks, small);
     split_tile<D>(vs, small + S::kTileFloats);
     __syncthreads();  // tile t split
@@ -270,28 +242,24 @@ __global__ void __launch_bounds__(kThreads, Fp32Shape<D>::kBlocks)
       }
       pass_product<D>(acc, s, ks, small, j0, lane);  // dQ += dS K
     }
-    if (S::kBwdStages == 1) {  // one stage: the next copy once every warp is done with this tile
-      __syncthreads();
-      if (t + 1 < n_tiles) issue(t + 1);
-    }
   }
   store_acc<D>(dq + hd.base, hd.stride, acc, scale, row, c);
 }
 
 template <int D, bool kDrop>
-__global__ void __launch_bounds__(kThreads, Fp32Shape<D>::kBlocks)
+__global__ void __launch_bounds__(kThreads, Fp32Bwd<D>::kBlocks)
     train_fp32_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                           const float* __restrict__ v, const float* __restrict__ dout,
                           const float* __restrict__ lse, const float* __restrict__ dd,
                           const int* __restrict__ lens, float* __restrict__ dk,
                           float* __restrict__ dv, int n, int h, float scale,
                           const Dropout drop) {
+  static_assert(D == 64, "d = 128 and 256 run the pairs of warps");
   using S = Fp32Shape<D>;
   using L = Fp32Bwd<D>;
   extern __shared__ float4 smem4[];
   float* const ring = reinterpret_cast<float*>(smem4);
-  float* const small = ring + S::kBwdStages * L::kDkvStage;  // Q's and dO's small parts
-  float* const fixed = small + L::kSmall;                     // K and V at d = 128
+  float* const small = ring + L::kStages * L::kDkvStage;  // Q's and dO's small parts
   const int lane = threadIdx.x & 31, c = lane & 3;
   const Head hd = block_head<D>(lens, n, h, drop);
   const int key = hd.row0 + 16 * (threadIdx.x >> 5) + (lane >> 2);  // and key + 8
@@ -306,7 +274,7 @@ __global__ void __launch_bounds__(kThreads, Fp32Shape<D>::kBlocks)
   }
   const int n_tiles = n / kRows;
   auto issue = [&](int t) {  // Q, dO and the LSE and D rows of query tile t
-    float* stage = ring + (t % S::kBwdStages) * L::kDkvStage;
+    float* stage = ring + (t % L::kStages) * L::kDkvStage;
     const int64_t at = hd.base + static_cast<int64_t>(t) * kRows * hd.stride;
     copy_tile<D>(stage, q + at, hd.stride);
     copy_tile<D>(stage + S::kTileFloats, dout + at, hd.stride);
@@ -319,19 +287,19 @@ __global__ void __launch_bounds__(kThreads, Fp32Shape<D>::kBlocks)
   };
 
   issue(0);
-  Fixed<D> ka, va;
-  load_fixed<D>(ka, fixed, k + hd.base, hd.stride, hd.row0, key, c);
-  load_fixed<D>(va, fixed + S::kTileFloats, v + hd.base, hd.stride, hd.row0, key, c);
+  RawA<D> ka, va;
+  load_a<D>(ka, k + hd.base, hd.stride, key, c);
+  load_a<D>(va, v + hd.base, hd.stride, key, c);
   const bool key_valid[2] = {key < hd.len, key + 8 < hd.len};
 
   for (int t = 0; t < n_tiles; ++t) {
-    float* const qs = ring + (t % S::kBwdStages) * L::kDkvStage;
+    float* const qs = ring + (t % L::kStages) * L::kDkvStage;
     float* const dos = qs + S::kTileFloats;
     const float* lse_s = dos + S::kTileFloats;
     const float* dd_s = lse_s + kRows;
     cp_async_wait_all();
     __syncthreads();
-    if (S::kBwdStages == 2 && t + 1 < n_tiles) issue(t + 1);
+    if (t + 1 < n_tiles) issue(t + 1);
     split_tile<D>(qs, small);
     split_tile<D>(dos, small + S::kTileFloats);
     __syncthreads();
@@ -362,35 +330,27 @@ __global__ void __launch_bounds__(kThreads, Fp32Shape<D>::kBlocks)
       pass_product<D>(dv_acc, st, dos, small + S::kTileFloats, j0, lane);  // dV += Pd^T dO
       pass_product<D>(dk_acc, dpt, qs, small, j0, lane);                   // dK += dS^T Q
     }
-    if (S::kBwdStages == 1) {  // one stage: the next copy once every warp is done with this tile
-      __syncthreads();
-      if (t + 1 < n_tiles) issue(t + 1);
-    }
   }
   store_acc<D>(dk + hd.base, hd.stride, dk_acc, scale, key, c);
   store_acc<D>(dv + hd.base, hd.stride, dv_acc, 1.f, key, c);
 }
 
-// ---- the backward at d = 256 ----------------------------------------------
+// ---- the backward at d = 128 and 256: pairs of warps ----------------------
 //
-// At d = 256 a padded [64, 256] tile is 66,560 bytes and a warp's [16, 256]
-// accumulator 128 registers a lane. Each kernel runs one block of eight
-// warps an SM (256 threads, two warps an SM sub-partition) in four pairs, a
-// pair a 16-row group of the block's 64 rows, and keeps its two fixed
-// operands fp32 in shared memory (133,120 bytes; each warp reads the A
-// fragment of a k-step in one `ldmatrix` and splits it, `LdmA`: split, they
-// would take twice the room). The streamed tiles are 16 rows, each value
-// split once a block by the thread that copied it (`rows_split`) and read
-// by `ldmatrix` or as B fragments with no arithmetic; each warp reads one
-// fixed operand, and no product is computed twice.
+// Each kernel runs one block of eight warps an SM (256 threads, two warps an
+// SM sub-partition) in four pairs, a pair a 16-row group of the block's 64
+// rows. Each warp reads one fixed operand (dq: Q or dO; dk/dv: K or V), the
+// streamed tiles (kTileRows rows: 8 kN) are split once a block by the
+// threads that copied them (`rows_split`) and read by `ldmatrix` or as B
+// fragments with no arithmetic, and no product is computed twice.
 // - dq (`train_fp32_dq_pairs_kernel`): warp A (warps 0-3) reads Q and
 //   computes S = Q K^T, warp B (4-7) reads dO and computes dP = dO V^T, for
-//   the pair's 16 rows and the tile's 16 keys. Through slots of shared
-//   memory, on a named barrier of the pair's 64 threads, A hands B S of the
-//   second 8 keys and B hands A dP of the first; each forms dS of its 8
-//   keys (each element once: P, the keep bit, dS) and hands it over, so
-//   that both hold the tile's dS. A holds dQ's columns 0-127, B 128-255 (64
-//   registers a lane each).
+//   the pair's 16 rows and the tile's keys. Through slots of shared memory,
+//   on a named barrier of the pair's 64 threads, A hands B S of the second
+//   half of the keys and B hands A dP of the first; each forms dS of its
+//   half (each element once: P, the keep bit, dS) and hands it over, so
+//   that both hold the tile's dS. A holds dQ's columns 0 .. D / 2 - 1, B the
+//   rest (D / 4 registers a lane each).
 // - dk/dv (`train_fp32_dkv_pairs_kernel`): split by output. Warp A (warps
 //   0-3) reads K, computes S^T = K Q^T, P and Pd^T and holds dV += Pd^T dO;
 //   warp B (4-7) reads V, computes dP^T = V dO^T, takes P from A through a
@@ -399,23 +359,36 @@ __global__ void __launch_bounds__(kThreads, Fp32Shape<D>::kBlocks)
 //   where the keep bit drops the element (P >= 0, so |x| is P exactly), and
 //   B reads P and the keep factor from one value. The tile's LSE and D come
 //   from global memory, a float2 a lane an n-tile.
+// - The fixed operand (kFixedInRegisters). At d = 128 a warp's 16 rows of
+//   its one fixed operand are 64 floats a lane: split once a block they take
+//   128 registers (`SplitA`) beside dq's 32 accumulator registers or dk/dv's
+//   64, and the scores read them with no shared-memory traffic and no
+//   arithmetic (in shared memory, fp32 or split, they cost dq 20-30 % more
+//   time: each k-step then reads its A fragment by `ldmatrix` beside the B
+//   fragments). At d = 256 a warp's [16, 256] accumulator is 128 registers a
+//   lane: the two fixed tiles stay fp32 in shared memory (133,120 bytes),
+//   each warp reading the A fragment of a k-step in one `ldmatrix` and
+//   splitting it (`LdmA`: split, they would take twice the room).
 // - The streamed tiles (dq: K and V; dk/dv: Q and dO) come raw into a room
-//   of their own (unpadded: 32,768 bytes) a tile ahead and are split from
-//   there into the padded tiles the products read. The pairs' slots lie in
-//   room the tile no longer needs: dq's in V's parts once every warp is done
-//   with V, dk/dv's in the raw room between the split and the next tile's
-//   copy, which then runs under the products. The fixed tiles, a tile's big
-//   and small parts and the raw room: 2 x 66,560 + 4 x 16,640 + 32,768 =
-//   232,448 bytes, all a block may use.
+//   of their own (unpadded: 2 kTileRows D floats) a tile ahead, and are
+//   split from there into the padded tiles the products read, kStages of
+//   them in turn. At one stage (d = 256, where shared memory holds no more:
+//   2 x 66,560 + 4 x 16,640 + 32,768 = 232,448 bytes) a tile takes three
+//   block barriers, and the pairs' slots lie in room the tile no longer
+//   needs: dq's in V's parts once every warp is done with V, dk/dv's in the
+//   raw room between the split and the next tile's copy, which then runs
+//   under the products. At two stages (d = 128) a tile takes one barrier,
+//   after its split (every warp is then done with the tile before, whose
+//   stage the next split takes), and the slots have a room of their own.
+//   d = 128's dq takes tiles of 32 keys (four n-tiles: half the barriers and
+//   slot trades a key of 16-key tiles); its dk/dv 16 queries (at 32 its
+//   registers spill).
 // - The scores run kChains accumulators, k-step kk into chain kk % kChains,
-//   added in IEEE fp32 at the end: chains of dependent mma a half (dk/dv) or
-//   a quarter (dq) as long. Each tile's products into the output go into a
-//   fresh accumulator an n-tile that the CUDA cores add to the output
+//   added in IEEE fp32 at the end. Each tile's products into the output go
+//   into a fresh accumulator an n-tile that the CUDA cores add to the output
 //   (`cols_product`), whose A fragments are split once a tile. Both roles of
 //   a pair run the one product call (two calls, one a role, held 27 of the
-//   accumulators in local memory).
-constexpr int kWideRows = 16;  // rows of a streamed tile: keys (dq), queries (dk/dv)
-
+//   accumulators in local memory at d = 256).
 // The copies of kR rows of a [.., D] fp32 tensor (`src` at position 0 of the
 // head, rows `stride` floats apart), from row `row0`, into a tile of kStride
 // floats a row that kT threads share, `tid` this thread's index among them:
@@ -456,9 +429,10 @@ __device__ __forceinline__ void rows_split(const float* src, float* big, float* 
                 ld_shared4(src + (r + m * kStep) * kSrcStride + col));
 }
 
-// The lane's `ldmatrix` offsets into a split tile of two n-tiles (16 rows of
-// D + 4 floats): one `ldmatrix.x4` brings both n-tiles' big parts (b0 = (8 j
-// + lane / 4, 8 kk + lane % 4), b1 four columns on), another their small.
+// The lane's `ldmatrix` offsets into the first two n-tiles of a split tile
+// (16 rows of D + 4 floats; the next two lie 16 rows on): one `ldmatrix.x4`
+// brings both n-tiles' big parts (b0 = (8 j + lane / 4, 8 kk + lane % 4), b1
+// four columns on), another their small.
 template <int D>
 __device__ __forceinline__ int split_lm(int lane) {
   return (8 * (lane >> 4) + (lane & 7)) * (D + 4) + 4 * ((lane >> 3) & 1);
@@ -481,38 +455,72 @@ struct LdmA {
   }
 };
 
-template <int D>
-__device__ __forceinline__ LdmA<D> ldm_a(const float* tile, int row0, int lane) {
-  return LdmA<D>{tile + (row0 + 8 * ((lane >> 3) & 1) + (lane & 7)) * (D + 4) + 4 * (lane >> 4)};
+// A pair's warp keeps its fixed operand in the fragment order of the D / 8
+// k-steps: split once a block in registers (`SplitA`: D a lane), or fp32 in
+// a padded shared tile, split at each k-step (`LdmA`).
+template <int D, bool kInRegisters>
+using PairFixed = std::conditional_t<kInRegisters, SplitA<D>, LdmA<D>>;
+
+// A warp's fixed operand: in registers, rows `row` and `row + 8` of `src`
+// (position 0 of the head, rows `stride` floats apart); in shared memory,
+// rows `row16` .. `row16` + 15 of the block's tile at `tile`.
+template <int D, bool kInRegisters>
+__device__ __forceinline__ PairFixed<D, kInRegisters> pair_fixed(const float* tile,
+                                                                 const float* __restrict__ src,
+                                                                 int64_t stride, int row16,
+                                                                 int row, int lane) {
+  PairFixed<D, kInRegisters> a;
+  if constexpr (kInRegisters) {
+    load_a<D>(a, src, stride, row, lane & 3);
+  } else {
+    a.p = tile + (row16 + 8 * ((lane >> 3) & 1) + (lane & 7)) * (D + 4) + 4 * (lane >> 4);
+  }
+  return a;
 }
 
-// s = A X^T for the warp's 16 rows (A fp32 in shared memory, split at each
-// k-step) and the two n-tiles of a split tile X (big parts at `x`, small
-// kSmall floats on), over the D columns of d: k-step kk sums into chain kk
-// % kChains, the chains added in order at the end.
-template <int D, int kChains, int kUnroll, int kSmall>
-__device__ __forceinline__ void chain_scores(float (&s)[2][4], const LdmA<D>& a, const float* x,
+// One k-step of `chain_scores` into the chain `ch`: the tile's B fragments
+// at `x + at` (big) and kSmall floats on (small), two n-tiles an
+// `ldmatrix.x4` each.
+template <int D, int kN, int kSmall>
+__device__ __forceinline__ void score_step(float (&ch)[kN][4], const FragA& af, const float* x,
+                                           int at) {
+#pragma unroll
+  for (int jp = 0; jp < kN / 2; ++jp) {
+    uint32_t b[4], bl[4];
+    ldmatrix_x4(b, x + at + 16 * jp * (D + 4));
+    ldmatrix_x4(bl, x + kSmall + at + 16 * jp * (D + 4));
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      mma3(ch[2 * jp + e], af, b[2 * e], b[2 * e + 1], bl[2 * e], bl[2 * e + 1]);
+  }
+}
+
+// s = A X^T for the warp's 16 rows (its fixed operand A) and the kN n-tiles
+// of a split tile X (big parts at `x`, small kSmall floats on), over the D
+// columns of d: k-step kk sums into chain kk % kChains, the chains added in
+// order at the end. A fixed operand in registers is read at constant
+// k-steps: kUnroll = D / 8.
+template <int D, int kN, int kChains, int kUnroll, int kSmall, class A>
+__device__ __forceinline__ void chain_scores(float (&s)[kN][4], const A& a, const float* x,
                                              int lane) {
   static_assert(kUnroll % kChains == 0, "the unrolled k-steps cover whole rounds of the chains");
   const int lm = split_lm<D>(lane);
-  float chain[kChains][2][4];
+  float chain[kChains][kN][4];
 #pragma unroll
   for (int i = 0; i < kChains; ++i) zero(chain[i]);
+  if constexpr (kUnroll == D / 8) {
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk)
+      score_step<D, kN, kSmall>(chain[kk % kChains], a.frag(kk), x, lm + 8 * kk);
+  } else {
 #pragma unroll 1
-  for (int k0 = 0; k0 < D / 8; k0 += kUnroll)
+    for (int k0 = 0; k0 < D / 8; k0 += kUnroll)
 #pragma unroll
-    for (int i = 0; i < kUnroll; ++i) {
-      const int kk = k0 + i;
-      const FragA af = a.frag(kk);
-      uint32_t b[4], bl[4];
-      ldmatrix_x4(b, x + lm + 8 * kk);
-      ldmatrix_x4(bl, x + kSmall + lm + 8 * kk);
+      for (int i = 0; i < kUnroll; ++i)
+        score_step<D, kN, kSmall>(chain[i % kChains], a.frag(k0 + i), x, lm + 8 * (k0 + i));
+  }
 #pragma unroll
-      for (int e = 0; e < 2; ++e)
-        mma3(chain[i % kChains][e], af, b[2 * e], b[2 * e + 1], bl[2 * e], bl[2 * e + 1]);
-    }
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
+  for (int j = 0; j < kN; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       float sum = chain[0][j][e];
@@ -523,21 +531,22 @@ __device__ __forceinline__ void chain_scores(float (&s)[2][4], const LdmA<D>& a,
 }
 
 // acc[nn] += W Z over kCols columns of a split tile Z (big `zb`, small `zs`,
-// from the first of them; its 16 rows the k-steps of W's two n-tiles, read
-// as `product` reads them), W split once: each n-tile's two k-steps go into
+// from the first of them; its 8 kN rows the k-steps of W's kN n-tiles, read
+// as `product` reads them), W split once: each n-tile's kN k-steps go into
 // a fresh accumulator that is then added to acc in IEEE fp32.
-template <int D, int kCols>
-__device__ __forceinline__ void cols_product(float (&acc)[kCols / 8][4], const float (&w)[2][4],
+template <int D, int kCols, int kN>
+__device__ __forceinline__ void cols_product(float (&acc)[kCols / 8][4], const float (&w)[kN][4],
                                              const float* zb, const float* zs, int lane) {
   constexpr int kStride = D + 4;
-  const FragA fa[2] = {split_a(w[0][0], w[0][2], w[0][1], w[0][3]),
-                       split_a(w[1][0], w[1][2], w[1][1], w[1][3])};
+  FragA fa[kN];
+#pragma unroll
+  for (int j = 0; j < kN; ++j) fa[j] = split_a(w[j][0], w[j][2], w[j][1], w[j][3]);
   const int at = 2 * (lane & 3) * kStride + (lane >> 2);
 #pragma unroll
   for (int nn = 0; nn < kCols / 8; ++nn) {
     float part[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
+    for (int j = 0; j < kN; ++j) {
       const int b = at + 8 * j * kStride + 8 * nn;
       mma3(part, fa[j], __float_as_uint(zb[b]), __float_as_uint(zb[b + kStride]),
            __float_as_uint(zs[b]), __float_as_uint(zs[b + kStride]));
@@ -547,33 +556,56 @@ __device__ __forceinline__ void cols_product(float (&acc)[kCols / 8][4], const f
   }
 }
 
-template <int D>
-struct Fp32DqPairs {
+// What the two kernels share of their layout at head dim D: where a warp
+// keeps its fixed operand, the split stages of the streamed tiles and their
+// height, the shared floats of each, and the bytes they take beside
+// `kSlotFloats` of the pairs' slots.
+template <int D, bool kFixedInRegistersD, int kStagesD, int kND>
+struct PairLayout {
   static constexpr int kBlockThreads = 2 * kThreads;  // 256: four pairs of warps
-  static constexpr int kStride = D + 4;
-  static constexpr int kChains = 4, kUnroll = 8;
-  static constexpr int kCols = D / 2;                        // a warp's columns of dQ
-  static constexpr int kFixedFloats = kRows * kStride;       // Q or dO
-  static constexpr int kTileFloats = kWideRows * kStride;    // K or V, big or small parts
-  static constexpr int kRawFloats = 2 * kWideRows * D;       // the next K and V, raw
-  static constexpr int kSlotFloats = 4 * 2 * 2 * 32 * 4;     // each warp's two float4, by lane
-  static constexpr int kSmem = (2 * kFixedFloats + 4 * kTileFloats + kRawFloats) * 4;  // 232,448
-  static_assert(kSmem <= 232448, "more shared memory than a block may use");
-  static_assert(kSlotFloats <= 2 * kTileFloats, "the slots fit in V's room");
+  static constexpr bool kFixedInRegisters = kFixedInRegistersD;
+  static constexpr int kStages = kStagesD;  // split streamed tiles, in turn
+  static constexpr int kN = kND;            // n-tiles of 8 rows a streamed tile
+  static constexpr int kTileRows = 8 * kN;  // keys (dq) or queries (dk/dv) a streamed tile
+  static constexpr int kFixedTile = kRows * (D + 4);                     // a padded [64, D] tile
+  static constexpr int kFixedFloats = kFixedInRegisters ? 0 : 2 * kFixedTile;  // both fixed operands
+  static constexpr int kOperand = kFixedFloats / 2;  // floats from one's fixed tiles to the other's
+  static constexpr int kTileFloats = kTileRows * (D + 4);  // a streamed tile, big or small parts
+  static constexpr int kStageFloats = 4 * kTileFloats;     // two tiles' big and small parts
+  static constexpr int kRawFloats = 2 * kTileRows * D;     // the next tile's two operands, raw
+  static_assert(kStages == 1 || kStages == 2, "one split stage, or two in turn");
+  static_assert(kN % 2 == 0, "an ldmatrix.x4 brings two n-tiles");
+  // the slots: at one stage in room a tile no longer needs, at two in their own
+  static constexpr int smem(int slot_floats) {
+    return (kFixedFloats + kStages * kStageFloats + kRawFloats +
+            (kStages == 1 ? 0 : slot_floats)) * 4;
+  }
 };
 
 template <int D>
-struct Fp32DkvPairs {
-  static constexpr int kBlockThreads = 2 * kThreads;  // 256: four pairs of warps
-  static constexpr int kStride = D + 4;
-  static constexpr int kChains = 2, kUnroll = 4;
-  static constexpr int kFixedFloats = kRows * kStride;         // K or V
-  static constexpr int kTileFloats = kWideRows * kStride;      // Q or dO, big or small parts
-  static constexpr int kRawFloats = 2 * kWideRows * D;         // the next Q and dO, raw
-  static constexpr int kSlotFloats = 4 * 2 * 32 * 4;  // four pairs' P, a lane's two float4
-  static constexpr int kSmem = (2 * kFixedFloats + 4 * kTileFloats + kRawFloats) * 4;  // 232,448
+struct Fp32DqPairs : PairLayout<D, D == 128, D == 256 ? 1 : 2, D == 256 ? 2 : 4> {
+  static constexpr int kChains = D == 256 ? 4 : 2, kUnroll = D == 256 ? 8 : D / 8;
+  static constexpr int kCols = D / 2;  // a warp's columns of dQ
+  // each warp's kN float4 by lane: half its scores, then half of dS
+  static constexpr int kSlotFloats = 4 * 2 * Fp32DqPairs::kN * 32 * 4;
+  static constexpr int kSmem = Fp32DqPairs::smem(kSlotFloats);  // d = 256: 232,448
   static_assert(kSmem <= 232448, "more shared memory than a block may use");
-  static_assert(kSlotFloats <= kRawFloats, "the P slots fit in the raw room");
+  static_assert(Fp32DqPairs::kStages == 2 || kSlotFloats <= 2 * Fp32DqPairs::kTileFloats,
+                "the slots fit in V's room");
+  static_assert(!Fp32DqPairs::kFixedInRegisters || kUnroll == D / 8,
+                "a fixed operand in registers is read at constant k-steps");
+};
+
+template <int D>
+struct Fp32DkvPairs : PairLayout<D, D == 128, D == 256 ? 1 : 2, 2> {
+  static constexpr int kChains = 2, kUnroll = D == 256 ? 4 : D / 8;
+  static constexpr int kSlotFloats = 4 * Fp32DkvPairs::kN * 32 * 4;  // four pairs' P, kN float4 a lane
+  static constexpr int kSmem = Fp32DkvPairs::smem(kSlotFloats);  // d = 256: 232,448
+  static_assert(kSmem <= 232448, "more shared memory than a block may use");
+  static_assert(Fp32DkvPairs::kStages == 2 || kSlotFloats <= Fp32DkvPairs::kRawFloats,
+                "the P slots fit in the raw room");
+  static_assert(!Fp32DkvPairs::kFixedInRegisters || kUnroll == D / 8,
+                "a fixed operand in registers is read at constant k-steps");
 };
 
 // The named barrier of a pair of warps (ids 1-4; 0 is __syncthreads'): both
@@ -593,21 +625,20 @@ __global__ void __launch_bounds__(Fp32DqPairs<D>::kBlockThreads, 1)
                                const int* __restrict__ lens, float* __restrict__ dq, int n,
                                int h, float scale, const Dropout drop) {
   using W = Fp32DqPairs<D>;
-  constexpr int kR = kWideRows, kT = W::kBlockThreads, kCols = W::kCols;
-  constexpr int kSmall = W::kTileFloats;
+  constexpr int kN = W::kN, kHalf = kN / 2, kR = W::kTileRows;
+  constexpr int kT = W::kBlockThreads, kCols = W::kCols, kSmall = W::kTileFloats;
   extern __shared__ float4 smem4[];
-  float* const qs = reinterpret_cast<float*>(smem4);
-  float* const dos = qs + W::kFixedFloats;
-  float* const kb = dos + W::kFixedFloats;  // K's big and small parts, then V's
-  float* const vb = kb + 2 * W::kTileFloats;
-  float* const raw = vb + 2 * W::kTileFloats;  // the next tile's K and V
+  float* const fixed_s = reinterpret_cast<float*>(smem4);  // Q's tiles, then dO's (none in registers)
+  float* const stages = fixed_s + W::kFixedFloats;  // a stage: K's big and small parts, then V's
+  float* const raw = stages + W::kStages * W::kStageFloats;  // the next tile's K and V
+  float* const slot_room = W::kStages == 1 ? stages + 2 * W::kTileFloats : raw + W::kRawFloats;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, c = lane & 3;
   const int group = warp & 3;        // the pair's 16 rows: warps group and group + 4
   const bool a_warp = warp < 4;      // A: S and dQ's first half; B: dP and the second
   const int warp_row = 16 * group + (lane >> 2);  // and + 8, in the block
-  float4* const slots = reinterpret_cast<float4*>(vb) + group * 2 * 2 * 32 + lane;
-  float4* const mine = slots + (a_warp ? 0 : 2 * 32);
-  const float4* const theirs = slots + (a_warp ? 2 * 32 : 0);
+  float4* const slots = reinterpret_cast<float4*>(slot_room) + group * 2 * kN * 32 + lane;
+  float4* const mine = slots + (a_warp ? 0 : kN * 32);
+  const float4* const theirs = slots + (a_warp ? kN * 32 : 0);
   const Head hd = block_head<D>(lens, n, h, drop);
   // key tiles that hold a valid key; none valid: dS is zero everywhere, and so is dq
   const int n_tiles = hd.len <= 0 ? 0 : (min(hd.len, n) + kR - 1) / kR;
@@ -619,12 +650,17 @@ __global__ void __launch_bounds__(Fp32DqPairs<D>::kBlockThreads, 1)
     rows_copy<D, kR, kT, D>(raw + kR * D, v + hd.base, hd.stride, t * kR, threadIdx.x);
     cp_async_commit();
   };
-  if (n_tiles > 0) {  // Q and dO in the first tile's group
-    rows_copy<D, kRows, kT>(qs, q + hd.base, hd.stride, hd.row0, threadIdx.x);
-    rows_copy<D, kRows, kT>(dos, dout + hd.base, hd.stride, hd.row0, threadIdx.x);
+  if (n_tiles > 0) {
+    if constexpr (W::kFixedFloats > 0) {  // Q and dO in the first tile's group
+      rows_copy<D, kRows, kT>(fixed_s, q + hd.base, hd.stride, hd.row0, threadIdx.x);
+      rows_copy<D, kRows, kT>(fixed_s + W::kOperand, dout + hd.base, hd.stride, hd.row0,
+                              threadIdx.x);
+    }
     issue(0);
   }
-  const LdmA<D> fixed = ldm_a<D>(a_warp ? qs : dos, 16 * group, lane);
+  const PairFixed<D, W::kFixedInRegisters> fixed = pair_fixed<D, W::kFixedInRegisters>(
+      fixed_s + (a_warp ? 0 : W::kOperand), (a_warp ? q : dout) + hd.base, hd.stride,
+      16 * group, row, lane);
   const float lse_r[2] = {lse[hd.stat + row], lse[hd.stat + row + 8]};
   const float d_r[2] = {dd[hd.stat + row], dd[hd.stat + row + 8]};
   float acc[kCols / 8][4];
@@ -632,46 +668,58 @@ __global__ void __launch_bounds__(Fp32DqPairs<D>::kBlockThreads, 1)
 #pragma unroll 1
   for (int t = 0; t < n_tiles; ++t) {
     cp_async_wait<0>();  // this thread's copies of tile t (and Q, dO) have landed
+    float* const kb = stages + (t % W::kStages) * W::kStageFloats;
+    float* const vb = kb + 2 * W::kTileFloats;
     rows_split<D, kR, kT, D>(raw, kb, kb + kSmall, threadIdx.x);
     rows_split<D, kR, kT, D>(raw + kR * D, vb, vb + kSmall, threadIdx.x);
-    __syncthreads();  // tile t split; the raw room free
+    // tile t split, the raw room free; at two stages every warp is done with
+    // tile t - 1, whose stage tile t + 1 takes
+    __syncthreads();
     if (t + 1 < n_tiles) issue(t + 1);  // under this tile's work
 
-    float x[2][4];
-    chain_scores<D, W::kChains, W::kUnroll, kSmall>(x, fixed, a_warp ? kb : vb, lane);
-    __syncthreads();  // every warp done with V_t: its room takes the slots
-    // A forms dS of n-tile 0, B of n-tile 1: each hands the other the half
-    // of its scores that the other needs, then its dS
-    const float4 send = a_warp ? make_float4(x[1][0], x[1][1], x[1][2], x[1][3])
-                               : make_float4(x[0][0], x[0][1], x[0][2], x[0][3]);
-    mine[0] = send;
+    float x[kN][4];
+    chain_scores<D, kN, W::kChains, W::kUnroll, kSmall>(x, fixed, a_warp ? kb : vb, lane);
+    if constexpr (W::kStages == 1) __syncthreads();  // every warp done with V_t: its room takes the slots
+    // A forms dS of the first kN / 2 n-tiles, B of the rest: each hands the
+    // other the half of its scores that the other needs, then its dS
+#pragma unroll
+    for (int i = 0; i < kHalf; ++i)
+      mine[i * 32] = a_warp ? make_float4(x[kHalf + i][0], x[kHalf + i][1], x[kHalf + i][2],
+                                          x[kHalf + i][3])
+                            : make_float4(x[i][0], x[i][1], x[i][2], x[i][3]);
     pair_sync(group);  // both halves in their slots
-    const float4 y4 = theirs[0];
-    const float y[4] = {y4.x, y4.y, y4.z, y4.w};
-    // element e is row row + 8 (e >> 1), key t * 16 + 8 j + 2 c + (e & 1)
-    const int key0 = t * kR + (a_warp ? 0 : 8) + 2 * c;
-    float ds[4];
+    float ds[kHalf][4];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float s = a_warp ? x[0][e] : y[e], dp = a_warp ? y[e] : x[1][e];
-      const int key = key0 + (e & 1), r = e >> 1;
-      const bool valid = key < hd.len;
-      const float p = expf((valid ? s * scale : hd.masked) - lse_r[r]);
-      const float dpd = kDrop ? dp * keep_factor(row + 8 * r, key, n, hd.folded, drop) : dp;
-      ds[e] = valid ? p * (dpd - d_r[r]) : 0.f;
+    for (int i = 0; i < kHalf; ++i) {
+      const float4 y4 = theirs[i * 32];
+      const float y[4] = {y4.x, y4.y, y4.z, y4.w};
+      // element e is row row + 8 (e >> 1), key t * kR + 8 j + 2 c + (e & 1) of n-tile j
+      const int key0 = t * kR + 8 * (a_warp ? i : kHalf + i) + 2 * c;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float s = a_warp ? x[i][e] : y[e], dp = a_warp ? y[e] : x[kHalf + i][e];
+        const int key = key0 + (e & 1), r = e >> 1;
+        const bool valid = key < hd.len;
+        const float p = expf((valid ? s * scale : hd.masked) - lse_r[r]);
+        const float dpd = kDrop ? dp * keep_factor(row + 8 * r, key, n, hd.folded, drop) : dp;
+        ds[i][e] = valid ? p * (dpd - d_r[r]) : 0.f;
+      }
+      mine[(kHalf + i) * 32] = make_float4(ds[i][0], ds[i][1], ds[i][2], ds[i][3]);
     }
-    mine[32] = make_float4(ds[0], ds[1], ds[2], ds[3]);
     pair_sync(group);  // both halves of dS in their slots
-    const float4 z4 = theirs[32];
-    const float z[4] = {z4.x, z4.y, z4.z, z4.w};
-    float s[2][4];  // dS of the tile's two n-tiles, the same in both warps
+    float s[kN][4];  // dS of the tile's n-tiles, the same in both warps
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      s[0][e] = a_warp ? ds[e] : z[e];
-      s[1][e] = a_warp ? z[e] : ds[e];
+    for (int i = 0; i < kHalf; ++i) {
+      const float4 z4 = theirs[(kHalf + i) * 32];
+      const float z[4] = {z4.x, z4.y, z4.z, z4.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[i][e] = a_warp ? ds[i][e] : z[e];
+        s[kHalf + i][e] = a_warp ? z[e] : ds[i][e];
+      }
     }
-    cols_product<D, kCols>(acc, s, kb + col0, kb + kSmall + col0, lane);  // dQ += dS K_t
-    __syncthreads();  // every warp done with K_t and the slots
+    cols_product<D, kCols, kN>(acc, s, kb + col0, kb + kSmall + col0, lane);  // dQ += dS K_t
+    if constexpr (W::kStages == 1) __syncthreads();  // every warp done with K_t and the slots
   }
   store_tiles<kCols / 8>(dq + hd.base + col0, hd.stride, acc, scale, row, c);
 }
@@ -685,20 +733,18 @@ __global__ void __launch_bounds__(Fp32DkvPairs<D>::kBlockThreads, 1)
                                 float* __restrict__ dv, int n, int h, float scale,
                                 const Dropout drop) {
   using W = Fp32DkvPairs<D>;
-  constexpr int kR = kWideRows, kT = W::kBlockThreads;
-  constexpr int kSmall = W::kTileFloats;
+  constexpr int kN = W::kN, kR = W::kTileRows;
+  constexpr int kT = W::kBlockThreads, kSmall = W::kTileFloats;
   extern __shared__ float4 smem4[];
-  float* const ks = reinterpret_cast<float*>(smem4);
-  float* const vs = ks + W::kFixedFloats;
-  float* const qt = vs + W::kFixedFloats;  // Q's big and small parts, then dO's
-  float* const dot = qt + 2 * W::kTileFloats;
-  float* const raw = dot + 2 * W::kTileFloats;  // the next tile's Q and dO
+  float* const fixed_s = reinterpret_cast<float*>(smem4);  // K's tiles, then V's (none in registers)
+  float* const stages = fixed_s + W::kFixedFloats;  // a stage: Q's big and small parts, then dO's
+  float* const raw = stages + W::kStages * W::kStageFloats;  // the next tile's Q and dO
+  float* const slot_room = W::kStages == 1 ? raw : raw + W::kRawFloats;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, c = lane & 3;
   const int group = warp & 3;      // the pair's 16 keys: warps group and group + 4
   const bool a_warp = warp < 4;    // A: S^T, P, dV; B: dP^T, dS^T, dK
   const int warp_key = 16 * group + (lane >> 2);  // and + 8, in the block
-  // the pairs' P slots, in the raw room between the split and the next copy
-  float4* const slot = reinterpret_cast<float4*>(raw) + group * 2 * 32 + lane;
+  float4* const slot = reinterpret_cast<float4*>(slot_room) + group * kN * 32 + lane;
   const Head hd = block_head<D>(lens, n, h, drop);
   const int key = hd.row0 + warp_key;  // and key + 8
 
@@ -715,32 +761,41 @@ __global__ void __launch_bounds__(Fp32DkvPairs<D>::kBlockThreads, 1)
     rows_copy<D, kR, kT, D>(raw + kR * D, dout + hd.base, hd.stride, t * kR, threadIdx.x);
     cp_async_commit();
   };
-  // K and V in the first tile's group
-  rows_copy<D, kRows, kT>(ks, k + hd.base, hd.stride, hd.row0, threadIdx.x);
-  rows_copy<D, kRows, kT>(vs, v + hd.base, hd.stride, hd.row0, threadIdx.x);
+  if constexpr (W::kFixedFloats > 0) {  // K and V in the first tile's group
+    rows_copy<D, kRows, kT>(fixed_s, k + hd.base, hd.stride, hd.row0, threadIdx.x);
+    rows_copy<D, kRows, kT>(fixed_s + W::kOperand, v + hd.base, hd.stride, hd.row0, threadIdx.x);
+  }
   issue(0);
-  const LdmA<D> fixed = ldm_a<D>(a_warp ? ks : vs, 16 * group, lane);
+  const PairFixed<D, W::kFixedInRegisters> fixed = pair_fixed<D, W::kFixedInRegisters>(
+      fixed_s + (a_warp ? 0 : W::kOperand), (a_warp ? k : v) + hd.base, hd.stride, 16 * group,
+      key, lane);
   const bool key_valid[2] = {key < hd.len, key + 8 < hd.len};
 
 #pragma unroll 1
   for (int t = 0; t < n_tiles; ++t) {
     cp_async_wait<0>();  // this thread's copies of tile t (and K, V) have landed
+    float* const qt = stages + (t % W::kStages) * W::kStageFloats;
+    float* const dot = qt + 2 * W::kTileFloats;
     rows_split<D, kR, kT, D>(raw, qt, qt + kSmall, threadIdx.x);
     rows_split<D, kR, kT, D>(raw + kR * D, dot, dot + kSmall, threadIdx.x);
-    __syncthreads();  // tile t split, K and V whole; the raw room free
+    // tile t split, K and V whole, the raw room free; at two stages every
+    // warp is done with tile t - 1, whose stage tile t + 1 takes
+    __syncthreads();
+    if constexpr (W::kStages == 2)
+      if (t + 1 < n_tiles) issue(t + 1);  // under this tile's work
     // the tile's LSE (A) or D (B) at the lane's queries: 8 j + 2 c and the next
-    float2 stat[2];
+    float2 stat[kN];
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
+    for (int j = 0; j < kN; ++j)
       stat[j] = __ldg(reinterpret_cast<const float2*>((a_warp ? lse : dd) + hd.stat + t * kR +
                                                       8 * j + 2 * c));
 
-    float s[2][4];
+    float s[kN][4];
     // A: S^T = K Q_t^T; B: dP^T = V dO_t^T
-    chain_scores<D, W::kChains, W::kUnroll, kSmall>(s, fixed, a_warp ? qt : dot, lane);
+    chain_scores<D, kN, W::kChains, W::kUnroll, kSmall>(s, fixed, a_warp ? qt : dot, lane);
     if (a_warp) {
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
+      for (int j = 0; j < kN; ++j) {
         const int col = 8 * j + 2 * c;  // queries col, col + 1 of the tile
         const float2 l2 = stat[j];
         float x[4];
@@ -760,7 +815,7 @@ __global__ void __launch_bounds__(Fp32DkvPairs<D>::kBlockThreads, 1)
     } else {
       pair_sync(group);  // A's P in the slot
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
+      for (int j = 0; j < kN; ++j) {
         const float2 d2 = stat[j];
         const float4 x4 = slot[j * 32];
         const float x[4] = {x4.x, x4.y, x4.z, x4.w};
@@ -773,12 +828,14 @@ __global__ void __launch_bounds__(Fp32DkvPairs<D>::kBlockThreads, 1)
         }
       }
     }
-    __syncthreads();  // every P read: the raw room takes the next tile
-    if (t + 1 < n_tiles) issue(t + 1);  // under this tile's products
+    if constexpr (W::kStages == 1) {
+      __syncthreads();                    // every P read: the raw room takes the next tile
+      if (t + 1 < n_tiles) issue(t + 1);  // under this tile's products
+    }
     // A: dV += Pd^T dO_t; B: dK += dS^T Q_t
     const float* const z = a_warp ? dot : qt;
-    cols_product<D, D>(acc, s, z, z + kSmall, lane);
-    __syncthreads();  // every warp done with tile t's split parts
+    cols_product<D, D, kN>(acc, s, z, z + kSmall, lane);
+    if constexpr (W::kStages == 1) __syncthreads();  // every warp done with tile t's split parts
   }
   store_acc<D>(out, hd.stride, acc, a_warp ? 1.f : scale, key, c);
 }
@@ -824,7 +881,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
                   static_cast<const float*>(lse), static_cast<const float*>(dd),
                   static_cast<const int*>(lens), static_cast<float*>(dq), n, h, scale, drop);
   };
-  if constexpr (D == 256) {
+  if constexpr (D >= 128) {
     using W = Fp32DqPairs<D>;
     return run(drop.on ? train_fp32_dq_pairs_kernel<D, true> : train_fp32_dq_pairs_kernel<D, false>,
                W::kSmem, W::kBlockThreads);
@@ -847,7 +904,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
                   static_cast<const int*>(lens), static_cast<float*>(dk),
                   static_cast<float*>(dv), n, h, scale, drop);
   };
-  if constexpr (D == 256) {
+  if constexpr (D >= 128) {
     using W = Fp32DkvPairs<D>;
     return run(
         drop.on ? train_fp32_dkv_pairs_kernel<D, true> : train_fp32_dkv_pairs_kernel<D, false>,
@@ -859,25 +916,28 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
 }
 
 // The backward's launch geometry at head dim D (`backward_geometry_fp32`):
-// rows a block, dq's and dk/dv's threads, ring stages, rows a streamed
-// tile, dq's and dk/dv's dynamic shared bytes.
+// rows a block, dq's and dk/dv's threads, ring stages, dq's and dk/dv's rows
+// a streamed tile, dq's and dk/dv's dynamic shared bytes.
 template <int D>
 int backward_geometry(int* out) {
   out[0] = kRows;
-  if constexpr (D == 256) {
+  if constexpr (D >= 128) {
+    static_assert(Fp32DqPairs<D>::kStages == Fp32DkvPairs<D>::kStages, "one ring depth");
     out[1] = Fp32DqPairs<D>::kBlockThreads;
     out[2] = Fp32DkvPairs<D>::kBlockThreads;
-    out[3] = 1;
-    out[4] = kWideRows;
-    out[5] = Fp32DqPairs<D>::kSmem;
-    out[6] = Fp32DkvPairs<D>::kSmem;
+    out[3] = Fp32DqPairs<D>::kStages;
+    out[4] = Fp32DqPairs<D>::kTileRows;
+    out[5] = Fp32DkvPairs<D>::kTileRows;
+    out[6] = Fp32DqPairs<D>::kSmem;
+    out[7] = Fp32DkvPairs<D>::kSmem;
   } else {
     out[1] = kThreads;
     out[2] = kThreads;
-    out[3] = Fp32Shape<D>::kBwdStages;
+    out[3] = Fp32Bwd<D>::kStages;
     out[4] = kRows;
-    out[5] = Fp32Bwd<D>::kDqSmem;
-    out[6] = Fp32Bwd<D>::kDkvSmem;
+    out[5] = kRows;
+    out[6] = Fp32Bwd<D>::kDqSmem;
+    out[7] = Fp32Bwd<D>::kDkvSmem;
   }
   return 0;
 }
@@ -939,8 +999,8 @@ extern "C" int erax_train_attention_fp32_dkv(const void* q, const void* k, const
 // `forward_geometry_fp32` / `backward_geometry_fp32` state it: the forward's
 // rows a block, threads, ring stages, dynamic shared bytes, warp sets and
 // keys a tile, then the backward's rows a block, dq's and dk/dv's threads,
-// ring stages, rows a streamed tile and the dq and dk/dv kernels' shared
-// bytes (13 values);
+// ring stages, the dq and dk/dv kernels' rows a streamed tile and their
+// shared bytes (14 values);
 // non-zero for a head dim that has no instantiation.
 extern "C" int erax_train_attention_fp32_geometry(int d, int* out) {
   const int err = forward_geometry(d, out);

@@ -110,13 +110,17 @@ FP32_ROWS = 64      # rows a block owns
 FP32_THREADS = 128  # four warps, each 16 rows: one m16 tile of the 3xTF32 mma
 FP32_STAGES = 2     # the forward's cp.async ring, each stage the streamed tiles of one step
 FP32_STRIDE = 68    # floats a shared tile row: 64 padded by 4
-# the fp32 dq and dk/dv kernels' ring: two stages at d = 64, where the warps keep
-# their fixed operands in registers; one at d = 128, where those go to shared
-# memory beside the ring (64 + 64 fixed floats a thread beside one or two
-# [16, 128] accumulators would not fit in 255 registers); one at d = 256
-# (of FP32_WIDE_ROWS rows, beside the fixed tiles; the next tile comes raw
-# into a room of its own)
-FP32_BWD_STAGES = {64: 2, 128: 1, 256: 1}
+# the fp32 dq and dk/dv kernels' ring: two stages at d = 64 (the four-warp
+# kernels, whose warps keep their fixed operands in registers); at d = 128 and
+# 256 (the pairs of warps) the split stages of the streamed tiles, each tile
+# coming raw into a room of its own first: two stages in turn at d = 128 (one
+# barrier a tile), one at d = 256, where the fixed tiles leave room for no more
+FP32_BWD_STAGES = {64: 2, 128: 2, 256: 1}
+# padded [64, d] fp32 tiles of the fixed operands (dq: Q and dO; dk/dv: K and
+# V) in shared memory: none where each warp keeps its own in registers (d =
+# 64: both fp32, split at each use; d = 128: the pair's warp its one, split
+# once), two at d = 256 (fp32, split at each use)
+FP32_FIXED_TILES = {64: 0, 128: 0, 256: 2}
 # the fp32 forwards at d = 128 and 256 (`csrc/fp32_forward.cuh` forward_sets):
 # eight warps in FP32_SETS sets of four that share a block's 64 rows and walk
 # alternate key tiles of FP32_SET_KEYS[d] keys, one stage a set, split once;
@@ -124,12 +128,13 @@ FP32_BWD_STAGES = {64: 2, 128: 1, 256: 1}
 FP32_SETS = 2
 FP32_SET_KEYS = {128: 32, 256: 16}
 FP32_Q_SPLIT = {128: True, 256: False}
-# the fp32 dq and dk/dv kernels at d = 256 (`csrc/train_attention_fp32.cu`):
-# eight warps, FP32_WIDE_THREADS threads, in four pairs of 16 rows; streamed
-# tiles of FP32_WIDE_ROWS rows (keys for dq, queries for dk/dv) split once a
-# block; dq's pair computes S and dP and trades them, each warp then holding
-# half of dQ's columns; dk/dv's splits by output (warps 0-3 dV, 4-7 dK)
-FP32_WIDE_ROWS = 16
+# the fp32 dq and dk/dv kernels at d = 128 and 256 (`csrc/train_attention_fp32.cu`):
+# eight warps, FP32_WIDE_THREADS threads, in four pairs of 16 rows, one block
+# an SM; streamed tiles of FP32_PAIR_TILES[d] rows (dq's keys, dk/dv's
+# queries) split once a block; dq's pair computes S and dP and trades them,
+# each warp then holding half of dQ's columns; dk/dv's splits by output
+# (warps 0-3 dV, 4-7 dK)
+FP32_PAIR_TILES = {128: (32, 16), 256: (16, 16)}
 FP32_WIDE_THREADS = 256
 
 
@@ -413,57 +418,69 @@ def backward_geometry_fp32(b: int, n: int, h: int, d: int = HEAD_DIM) -> dict:
     """How the fp32 dq and dk/dv kernels cover ``[b, n, h, d]`` (dq over
     query rows, dk/dv over keys; both ``n / 64`` blocks a (sample, head) of
     64 rows, in groups of 16 rows a warp): the fixed operands (dq's Q and dO,
-    dk/dv's K and V) stay in registers at d = 64 and in two padded fp32
-    tiles of shared memory at d = 128 and 256 (``fixed_tiles``); the
-    streamed ones (dq's K and V; dk/dv's Q and dO and that query tile's LSE
-    and D values) come as padded ``[bwd_tile, d]`` fp32 tiles through a
-    ring of ``bwd_stages`` stages (``FP32_BWD_STAGES``), split into TF32 big
-    parts in place and small parts beside, once a block. ``dq_warps`` and
-    ``dkv_warps``: each warp's first row, and what it holds (dq: its first
-    column of dQ and how many; dk/dv: dK, dV or both).
+    dk/dv's K and V) stay in registers at d = 64 and 128 and in two padded
+    fp32 tiles of shared memory at d = 256 (``fixed_tiles``,
+    ``FP32_FIXED_TILES``); the streamed ones (dq's K and V; dk/dv's Q and dO,
+    with that query tile's LSE and D values at d = 64) come as padded
+    ``[dq_tile, d]`` and ``[dkv_tile, d]`` fp32 tiles through a ring of
+    ``bwd_stages`` stages (``FP32_BWD_STAGES``), split into TF32 big and
+    small parts once a block. ``dq_warps`` and ``dkv_warps``: each warp's
+    first row, and what it holds (dq: its first column of dQ and how many;
+    dk/dv: dK, dV or both).
 
-    At d = 64 and 128: four warps of 16 rows, 64-row tiles, each warp all of
-    its rows' outputs. At d = 256 eight warps (``FP32_WIDE_THREADS``) in
-    four pairs of 16 rows, tiles of ``FP32_WIDE_ROWS`` (16), each tile's
-    streamed operands coming raw (unpadded) into a room of their own,
-    ``raw_bytes``, under the work of the tile before. In dq warp w < 4
-    computes S = Q K^T and w + 4 dP = dO V^T for the same rows; they trade
-    halves of them and their halves of dS through ``score_slot_bytes`` of
-    shared memory (in V's parts, once V is done with) and hold dQ's columns
-    0-127 and 128-255. In dk/dv warp w < 4 holds dV and w + 4 dK of the
-    same 16 keys, the first handing P to the second through
-    ``p_slot_bytes`` ([16, 16] fp32 a pair, in the raw room before the next
-    tile's copy); the tile's LSE and D are read from global memory.
-    ``blocks_per_sm`` as :func:`forward_geometry_fp32`'s."""
+    At d = 64: four warps of 16 rows, 64-row tiles, each warp all of its
+    rows' outputs, split in place (small parts beside). At d = 128 and 256
+    eight warps (``FP32_WIDE_THREADS``) in four pairs of 16 rows, one block
+    an SM (its launch bounds), tiles of ``FP32_PAIR_TILES[d]`` rows (dq's,
+    dk/dv's), each tile's streamed operands coming raw (unpadded) into a room
+    of their own, ``dq_raw_bytes`` / ``dkv_raw_bytes``, under the work of the
+    tile before, and split from there. In dq warp w < 4 computes S = Q K^T
+    and w + 4 dP = dO V^T for the same rows; they trade halves of them and
+    their halves of dS through ``score_slot_bytes`` of shared memory and
+    hold dQ's columns 0 .. d / 2 - 1 and d / 2 .. d - 1. In dk/dv warp w < 4
+    holds dV and w + 4 dK of the same 16 keys, the first handing P to the
+    second through ``p_slot_bytes``; the tile's LSE and D are read from
+    global memory. At one stage (d = 256) the slots lie in room a tile no
+    longer needs (dq's in V's parts, dk/dv's in the raw room); at two (d =
+    128) in a room of their own (``own_slots``). ``blocks_per_sm`` as
+    :func:`forward_geometry_fp32`'s."""
     geo = _fp32_geometry(b, n, h, d, KERNEL_HEAD_DIMS)
     tile = FP32_ROWS * (d + 4) * 4
-    stages = FP32_BWD_STAGES[d]
+    stages, fixed = FP32_BWD_STAGES[d], FP32_FIXED_TILES[d]
     extra = {}
-    if d == LIBRARY_HEAD_DIM:
-        rows, threads, fixed, half = FP32_WIDE_ROWS, FP32_WIDE_THREADS, 2, d // 2
-        stream = rows * (d + 4) * 4  # a padded [16, d] tile, big or small parts
-        extra = dict(raw_bytes=2 * rows * d * 4, p_slot_bytes=4 * 16 * rows * 4,
-                     score_slot_bytes=4 * 2 * 16 * rows * 4)
-        # the fixed tiles (dq: Q and dO; dk/dv: K and V), the streamed tile's
-        # big and small parts (dq: K and V; dk/dv: Q and dO) and the raw room
-        dq_shared = dkv_shared = 2 * tile + 4 * stream + extra["raw_bytes"]
+    if d in FP32_PAIR_TILES:
+        (dq_rows, dkv_rows), threads, half = FP32_PAIR_TILES[d], FP32_WIDE_THREADS, d // 2
+        own = stages == 2
+        extra = dict(dq_raw_bytes=2 * dq_rows * d * 4, dkv_raw_bytes=2 * dkv_rows * d * 4,
+                     own_slots=own, score_slot_bytes=4 * 2 * 16 * dq_rows * 4,
+                     p_slot_bytes=4 * 16 * dkv_rows * 4)
+
+        def ring(rows: int) -> int:
+            # the fixed tiles, the stages of two streamed tiles' big and small
+            # parts (padded [rows, d] each) and the raw room
+            return fixed * tile + stages * 4 * rows * (d + 4) * 4 + 2 * rows * d * 4
+
+        dq_shared = ring(dq_rows) + own * extra["score_slot_bytes"]
+        dkv_shared = ring(dkv_rows) + own * extra["p_slot_bytes"]
         dq_warps = [(16 * (w % 4), half * (w // 4), half) for w in range(threads // 32)]
         dkv_warps = [(16 * (w % 4), ("dV",) if w < 4 else ("dK",)) for w in range(threads // 32)]
+        per_sm = 1  # launch bounds (256, 1): eight warps of up to 255 registers fill the SM
     else:
-        rows, threads = TILE, FP32_THREADS
-        fixed = 0 if d == 64 else 2
-        dq_shared = (stages * 2 + 2 + fixed) * tile
-        dkv_shared = stages * (2 * tile + 2 * FP32_ROWS * 4) + (2 + fixed) * tile
+        dq_rows = dkv_rows = TILE
+        threads = FP32_THREADS
+        dq_shared = (stages * 2 + 2) * tile
+        dkv_shared = stages * (2 * tile + 2 * FP32_ROWS * 4) + 2 * tile
         dq_warps = [(16 * w, 0, d) for w in range(threads // 32)]
         dkv_warps = [(16 * w, ("dK", "dV")) for w in range(threads // 32)]
-    return dict(geo, bwd_stages=stages, bwd_tile=rows, fixed_tiles=fixed,
+        per_sm = min(_per_sm(dq_shared), _per_sm(dkv_shared))
+    return dict(geo, bwd_stages=stages, dq_tile=dq_rows, dkv_tile=dkv_rows, fixed_tiles=fixed,
                 dq_threads=threads, dkv_threads=threads, dq_warps=dq_warps,
                 dkv_warps=dkv_warps, dq_shared_bytes=dq_shared, dkv_shared_bytes=dkv_shared,
-                blocks_per_sm=min(_per_sm(dq_shared), _per_sm(dkv_shared)), **extra)
+                blocks_per_sm=per_sm, **extra)
 
 
 FP32_FORWARD_BUILT = ("rows", "threads", "stages", "shared_bytes", "sets", "key_tile")
-FP32_BACKWARD_BUILT = ("bwd_rows", "dq_threads", "dkv_threads", "bwd_stages", "bwd_tile",
+FP32_BACKWARD_BUILT = ("bwd_rows", "dq_threads", "dkv_threads", "bwd_stages", "dq_tile", "dkv_tile",
                        "dq_shared_bytes", "dkv_shared_bytes")
 
 

@@ -4,7 +4,9 @@ to compare two trees (a commit and its parent) on one card.
     python3 eraxvif5tts_tpu_torch/tools/probe_train_attention.py TREE [--step] [--serve]
     python3 eraxvif5tts_tpu_torch/tools/probe_train_attention.py TREE --fp32 [--against OTHER]
     python3 eraxvif5tts_tpu_torch/tools/probe_train_attention.py TREE --fp32 --head-dim 128|256 \
-        [--against OTHER]
+        [--against OTHER] [--backward]
+    python3 eraxvif5tts_tpu_torch/tools/probe_train_attention.py TREE --fp32 --head-dim 128|256 \
+        --train-step REPS
 
 TREE is the root of a checkout (this one: `.`; another commit: unpack it
 with `git archive` into a directory `.gitignore` lists). The package and
@@ -68,8 +70,8 @@ d = 64 rows' at h = 16), the wide fp32 kernels instead:
 
 - the register report of both builds' fp32 forward and backward
   instantiations, and the digests above (O, LSE, dq, dk, dv) at d = 64
-  (h = 16) and d = 128 (h = 8; with `--against`, equal digests and a
-  difference of 0 mean those kernels give OTHER's bits);
+  (h = 16), d = 128 (h = 8) and d = 256 (h = 4; with `--against`, equal
+  digests and a difference of 0 mean those kernels give OTHER's bits);
 - at d = D, dq and dk/dv at b = 2, n = 4096 (lens [4096, 4059]) and 6144
   (lens [6144, 6107]) at keep = 1 and dropout 0.1, on the TREE forward's
   LSE: each tree's largest dq, dk and dv error against the plain version's
@@ -91,6 +93,13 @@ d = 64 rows' at h = 16), the wide fp32 kernels instead:
 - the wave tail: n = 1088 against 1024 gives b h n / 64 blocks of 64 rows
   at one block an SM, over the card's SMs: what the part-filled last wave
   costs beside the work's ratio.
+
+With `--backward` as well, it stops after the backward at d = D (the
+register report, the digests, dq and dk/dv in turns): the forward is not
+timed. With `--train-step REPS` instead, only TREE's fp32 CFM step of the
+smoke's `[d128]` / `[d256]` DiT (`chip_smoke.train_at`: a warm-up and a
+timed `Trainer.train_step` at 2 x 4096, dropout 0.1), REPS times; run the
+trees in turns, one process each.
 """
 
 from __future__ import annotations
@@ -140,7 +149,11 @@ def main(argv: list[str]) -> int:
     if "--fp32" in argv[1:]:
         other = argv[argv.index("--against") + 1] if "--against" in argv else None
         if "--head-dim" in argv:
-            wide_fp32(cs, dev, g, other, int(argv[argv.index("--head-dim") + 1]))
+            d = int(argv[argv.index("--head-dim") + 1])
+            if "--train-step" in argv:
+                train_steps(cs, dev, d, int(argv[argv.index("--train-step") + 1]))
+            else:
+                wide_fp32(cs, dev, g, other, d, "--backward" in argv)
             return 0
         fp32(cs, dev, g, other)
         tf32_rates(cs, dev)
@@ -475,11 +488,12 @@ def fp32(cs, dev, g, other: str | None) -> None:
     serving_fp32(cs, dev, g, libs, order)
 
 
-def wide_fp32(cs, dev, g, other: str | None, d: int) -> None:
-    """The fp32 forward at head dim ``d`` (`--fp32 --head-dim`): each tree's
-    errors against the plain version and the trees' largest differences,
-    times in turns beside the bound and fp32 SDPA, and the wave tail at
-    n = 1088 against 1024; the d = 64 digests first."""
+def wide_fp32(cs, dev, g, other: str | None, d: int, backward_only: bool = False) -> None:
+    """The fp32 kernels at head dim ``d`` (`--fp32 --head-dim`): the digests
+    at every head dim first, then dq and dk/dv (`wide_backward`) and, unless
+    ``backward_only``, the forward: each tree's errors against the plain
+    version and the trees' largest differences, times in turns beside the
+    bound and fp32 SDPA, and the wave tail at n = 1088 against 1024."""
     import torch
     import torch.nn.functional as F
 
@@ -490,10 +504,12 @@ def wide_fp32(cs, dev, g, other: str | None, d: int) -> None:
     if d not in (128, 256):
         raise ValueError(f"--head-dim takes 128 or 256, got {d}")
     libs = fp32_builds(cs, other)
-    fp32_digests(cs, dev, g, libs, 64)
-    fp32_digests(cs, dev, g, libs, 128)
+    for dim in (64, 128, 256):
+        fp32_digests(cs, dev, g, libs, dim)
     order = ("other", "tree", "tree", "other") if "other" in libs else ("tree",)
     wide_backward(cs, dev, g, libs, order, d)
+    if backward_only:
+        return
     h = 1024 // d
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     serve_ms = {}
@@ -577,6 +593,20 @@ def wide_fp32(cs, dev, g, other: str | None, d: int) -> None:
                f"({blocks[1088] / sms:.2f} waves at one an SM) {serve_ms[1088][who]:.4f} ms, "
                f"n = 1024 {blocks[1024]} blocks ({blocks[1024] / sms:.2f} waves) "
                f"{serve_ms[1024][who]:.4f} ms: {ratio:.3f}x the time for {work:.3f}x the work")
+
+
+def train_steps(cs, dev, d: int, reps: int) -> None:
+    """TREE's fp32 CFM step of its `[d128]` (d = 128) or `[d256]` (d = 256)
+    DiT at dropout 0.1 (`--train-step`), ``reps`` times."""
+    import tempfile
+
+    heads = {128: cs.D128_HEADS, 256: cs.D256_HEADS}[d]
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg, _ = cs.head_dim_config(Path(tmp), heads, d, f"[d{d}]")
+    tols = {"loss": cs.D128_FP32_LOSS_TOL, "gradient L2": cs.FP32_STEP_GRAD_TOL,
+            "q/k/v gradient L2": cs.FP32_STEP_GRAD_TOL}
+    for rep in range(reps):
+        cs.train_at(dev, cfg.arch, f"[d{d} step {rep}]", ((None, "fp32", 0.1, tols, "keys"),))
 
 
 def wide_backward(cs, dev, g, libs: dict, order: tuple, d: int) -> None:

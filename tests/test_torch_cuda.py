@@ -895,12 +895,15 @@ def test_train_attention_fp32_kernels_match_plain(cuda, no_tf32, n, dropout):
     assert float((lse - want_lse).norm() / want_lse.norm()) <= 1e-6
 
 
+@pytest.mark.parametrize("d", ta.KERNEL_HEAD_DIMS)
 @pytest.mark.parametrize("dropout", [0.0, 0.1])
-def test_fp32_backward_kernels_ignore_the_tf32_flags(cuda, dropout):
-    """The 3xTF32 dq and dk/dv kernels give the same bits with both of
-    torch's TF32 flags on as with them off: their precision is their own."""
+def test_fp32_backward_kernels_ignore_the_tf32_flags(cuda, dropout, d):
+    """The 3xTF32 dq and dk/dv kernels at every head dim (the four-warp
+    kernels at d = 64, the pairs of warps at 128 and 256) give the same bits
+    with both of torch's TF32 flags on as with them off: their precision is
+    their own."""
     g = torch.Generator(device=cuda).manual_seed(31)
-    q, k, v, dout = (torch.randn((2, 256, 2, 64), generator=g, device=cuda) for _ in range(4))
+    q, k, v, dout = (torch.randn((2, 256, 2, d), generator=g, device=cuda) for _ in range(4))
     lens = torch.tensor([256, 201], dtype=torch.int32, device=cuda)
     out, lse = ta.flash_forward_fp32(q, k, v, lens, dropout, 9)
     dd = ta.row_dot(dout, out)
@@ -924,7 +927,8 @@ def test_train_attention_fp32_geometry_is_the_kernels(cuda, d):
                      "shared_bytes": fwd["shared_bytes"], "sets": fwd["sets"],
                      "key_tile": fwd["key_tile"], "bwd_rows": bwd["rows"],
                      "dq_threads": bwd["dq_threads"], "dkv_threads": bwd["dkv_threads"],
-                     "bwd_stages": bwd["bwd_stages"], "bwd_tile": bwd["bwd_tile"],
+                     "bwd_stages": bwd["bwd_stages"], "dq_tile": bwd["dq_tile"],
+                     "dkv_tile": bwd["dkv_tile"],
                      "dq_shared_bytes": bwd["dq_shared_bytes"],
                      "dkv_shared_bytes": bwd["dkv_shared_bytes"]}
 
@@ -1372,8 +1376,8 @@ def test_d256_geometry_is_the_kernels(cuda):
     bwd = ta.backward_geometry_fp32(2, 4096, 4, 256)
     assert {key: built[key] for key in ta.FP32_FORWARD_BUILT} == sa.kernel_geometry_fp32(256)
     assert (built["threads"], built["sets"], built["key_tile"]) == (256, 2, 16)
-    names = ("dq_threads", "dkv_threads", "bwd_stages", "bwd_tile")
-    assert [built[x] for x in names] == [bwd[x] for x in names] == [256, 256, 1, 16]
+    names = ("dq_threads", "dkv_threads", "bwd_stages", "dq_tile", "dkv_tile")
+    assert [built[x] for x in names] == [bwd[x] for x in names] == [256, 256, 1, 16, 16]
     assert (built["dq_shared_bytes"], built["dkv_shared_bytes"]) == \
         (bwd["dq_shared_bytes"], bwd["dkv_shared_bytes"]) == (232448, 232448)
 

@@ -101,9 +101,16 @@ def test_fp32_backward_checks_refuse_other_gradients():
 def test_fp32_geometry_covers_every_row_once_within_the_card(n, d):
     b, h = 3, 16
     fwd, bwd = tta.forward_geometry_fp32(b, n, h, d), tta.backward_geometry_fp32(b, n, h, d)
-    # the backward's ring: two stages at d = 64, one beside the fixed tiles at 128
-    assert bwd["bwd_stages"] == {64: 2, 128: 1}[d]
-    assert bwd["fixed_tiles"] == {64: 0, 128: 2}[d]
+    # the backward's ring: two stages at d = 64 (four warps, 64-row tiles); at
+    # 128 the pairs of warps, two stages of 32-key (dq) and 16-query (dk/dv)
+    # tiles, the fixed operands in registers (no fixed tile in shared memory)
+    assert bwd["bwd_stages"] == 2 and bwd["fixed_tiles"] == 0
+    assert (bwd["dq_threads"], bwd["dkv_threads"], bwd["dq_tile"], bwd["dkv_tile"]) == \
+        {64: (128, 128, 64, 64), 128: (256, 256, 32, 16)}[d]
+    # whole streamed tiles, none past the sample's end
+    assert n % bwd["dq_tile"] == n % bwd["dkv_tile"] == 0
+    if d == 128:
+        assert bwd["own_slots"]  # the slots in a room of their own
     # the forward: four warps at d = 64; at d = 128 two sets of four (eight
     # warps an SM), each set's warps covering the block's rows
     assert fwd["sets"] == {64: 1, 128: 2}[d] and bwd["threads"] == 128
@@ -139,7 +146,7 @@ def test_fp32_geometry_covers_every_row_once_within_the_card(n, d):
 
 
 @pytest.mark.parametrize("d, fwd_bytes, dq_bytes, dkv_bytes, per_sm",
-                         [(64, 104448, 104448, 105472, 2), (128, 202752, 202752, 203264, 1)])
+                         [(64, 104448, 104448, 105472, 2), (128, 202752, 184320, 88064, 1)])
 def test_fp32_shared_bytes_add_up(d, fwd_bytes, dq_bytes, dkv_bytes, per_sm):
     tile = 64 * (d + 4) * 4  # a [64, d] tile padded to d + 4 floats a row
     fwd, bwd = tta.forward_geometry_fp32(1, 4096, 16, d), tta.backward_geometry_fp32(1, 4096, 16, d)
@@ -155,12 +162,29 @@ def test_fp32_shared_bytes_add_up(d, fwd_bytes, dq_bytes, dkv_bytes, per_sm):
         assert fwd["shared_bytes"] == 2 * tile + 2 * 4 * keys * (d + 4) * 4 == fwd_bytes
         # set 1's O and (m, l) for the merge fit in the two sets' room
         assert 64 * d * 4 + 4 * 32 * 16 <= 2 * 4 * keys * (d + 4) * 4
-    # dq: its ring of K and V, their small parts, and at d = 128 Q's and dO's tiles
-    assert bwd["dq_shared_bytes"] == (stages * 2 + 2 + fixed) * tile == dq_bytes
-    # dk/dv: Q, dO and the query tile's 64 LSE and 64 D values a stage; Q's and
-    # dO's small parts; at d = 128 K's and V's tiles
-    assert (bwd["dkv_shared_bytes"] == stages * (2 * tile + 2 * 64 * 4) + (2 + fixed) * tile
-            == dkv_bytes)
+    assert fixed == 0  # the fixed operands in registers at both head dims
+    if d == 64:
+        # dq: its ring of K and V and their small parts
+        assert bwd["dq_shared_bytes"] == (stages * 2 + 2) * tile == dq_bytes
+        # dk/dv: Q, dO and the query tile's 64 LSE and 64 D values a stage;
+        # Q's and dO's small parts
+        assert bwd["dkv_shared_bytes"] == stages * (2 * tile + 2 * 64 * 4) + 2 * tile == dkv_bytes
+    else:
+        # the pairs: two stages of a tile pair's big and small parts (padded
+        # [32, 128] for dq's K and V, [16, 128] for dk/dv's Q and dO), the
+        # next tile's two operands unpadded in a raw room, and the slots in a
+        # room of their own (dq: two warps' [16, 32] scores a pair, four
+        # pairs; dk/dv: P, [16, 16] a pair)
+        assert stages == 2
+        for key, rows, slots in (("dq", 32, 4 * 2 * 16 * 32 * 4), ("dkv", 16, 4 * 16 * 16 * 4)):
+            raw = 2 * rows * d * 4
+            assert bwd[f"{key}_tile"] == rows and bwd[f"{key}_raw_bytes"] == raw
+            assert bwd[f"{key}_shared_bytes"] == \
+                stages * 4 * rows * (d + 4) * 4 + raw + slots == {"dq": dq_bytes, "dkv": dkv_bytes}[key]
+        assert (bwd["score_slot_bytes"], bwd["p_slot_bytes"]) == (16384, 4096)
+        # one block an SM all the same: eight warps whose registers hold a
+        # fixed operand split once (128 a lane) beside their accumulators
+        assert tta._per_sm(dkv_bytes) == 2
     assert fwd["blocks_per_sm"] == bwd["blocks_per_sm"] == per_sm
 
 
@@ -176,16 +200,18 @@ def test_fp32_backward_tile_reads_are_conflict_free(d):
     4) + {0, 1}, the k-step permuted to take the score accumulators as A as
     they lie; column 8 nn + lane / 4) in 32 distinct banks. The plain
     transposed read (rows lane % 4) would collide on the same rows; each
-    16-byte copy and split chunk stays 16-byte aligned. At d = 128 the rows
-    are d + 4 = 132 floats, 4 past a multiple of 32 banks as 68 is, and the
-    fixed operands' A fragments read from shared memory (rows lane / 4,
-    columns lane % 4) hit 32 distinct banks too. At d = 256 (rows of 260
-    floats, 16-row streamed tiles) the same reads, the fixed operands' A
-    fragments by `ldmatrix` (`LdmA`: four 8-row matrices, rows lane % 8 and
-    + 8, columns 0-3 and 4-7 of the k-step), the pairs' slots (dq's scores
-    and dS, dk/dv's P: a lane's float4 at consecutive slots) and the raw
-    room (rows of 256 floats, no padding: each thread copies and splits its
-    own 16-byte chunks, a quarter-warp's in one row) meet no conflict."""
+    16-byte copy and split chunk stays 16-byte aligned. At d = 128 and 256
+    the rows are d + 4 = 132 and 260 floats, 4 past a multiple of 32 banks
+    as 68 is, and an A fragment read from a padded tile as `SharedA` reads
+    it (rows lane / 4, columns lane % 4: the d = 256 forward's Q) hits 32
+    distinct banks. The pairs of warps' backward at d = 128 and 256 (16-row
+    streamed tiles): the same reads, the pairs' slots (dq's scores and dS,
+    dk/dv's P: a lane's float4 at consecutive slots) and the raw rooms
+    (rows of d floats, no padding: each thread copies and splits its own
+    16-byte chunks, a quarter-warp's in one row) meet no conflict; at d =
+    256 so do the fixed operands' A fragments by `ldmatrix` (`LdmA`: four
+    8-row matrices, rows lane % 8 and + 8, columns 0-3 and 4-7 of the
+    k-step), which at d = 128 come from registers (no fixed tile)."""
     stride = tta.forward_geometry_fp32(1, 64, 1, d)["stride"]
     assert stride == (tta.FP32_STRIDE if d == 64 else d + 4)
     lanes = np.arange(32)
@@ -194,7 +220,7 @@ def test_fp32_backward_tile_reads_are_conflict_free(d):
         for col in range(0, d, 4):  # ldmatrix: one 16-byte row of each of eight rows
             quads = ((row0 + np.arange(8)) * stride + col) % 32 // 4
             assert len(set(quads.tolist())) == 8
-    assert len(set(((g * stride + c) % 32).tolist())) == 32  # a fixed A fragment
+    assert len(set(((g * stride + c) % 32).tolist())) == 32  # an A fragment (`SharedA`)
     for j in range(8):
         for nn in range(d // 8):
             for half in range(2):
@@ -202,31 +228,34 @@ def test_fp32_backward_tile_reads_are_conflict_free(d):
                 assert len(set(banks.tolist())) == 32
     assert len(set(((c * stride + g) % 32).tolist())) < 32
     assert (stride * 4) % 16 == 0 and (64 * stride * 4) % 16 == 0
-    if d != tta.LIBRARY_HEAD_DIM:
+    if d == 64:
         return
     geo = tta.backward_geometry_fp32(1, 64, 1, d)
-    rows = geo["bwd_tile"]
-    assert rows == tta.FP32_WIDE_ROWS == 16
+    assert (geo["dq_tile"], geo["dkv_tile"]) == tta.FP32_PAIR_TILES[d] == {128: (32, 16),
+                                                                          256: (16, 16)}[d]
+    assert geo["fixed_tiles"] == {128: 0, 256: 2}[d]
     # the slots: slot (pair, warp, n-tile) * 32 + lane, float4
     for floats in (geo["p_slot_bytes"] // 4, geo["score_slot_bytes"] // 4):
         for slot0 in range(0, floats // 4, 32):
             for quarter in range(4):
                 quads = (4 * (slot0 + 8 * quarter + np.arange(8))) % 32 // 4
                 assert len(set(quads.tolist())) == 8
-    for kk in range(d // 8):  # LdmA: matrix m's eight rows, 16 bytes each
+    for kk in range(d // 8 if geo["fixed_tiles"] else 0):  # LdmA: matrix m's rows, 16 bytes each
         for mat in range(4):
             rows8 = 8 * (mat & 1) + np.arange(8)
             quads = (rows8 * stride + 8 * kk + 4 * (mat >> 1)) % 32 // 4
             assert len(set(quads.tolist())) == 8
-    # the raw room and the split of its chunks into padded tiles: chunk i =
-    # thread + 256 m at row i / (d / 4), column 4 (i % (d / 4))
-    for m in range(rows * d // 4 // geo["dq_threads"]):
-        for quarter in range(geo["dq_threads"] // 8):
-            i = 8 * quarter + np.arange(8) + geo["dq_threads"] * m
-            for width in (d, stride):  # the raw room's rows, the padded tiles'
-                quads = ((i // (d // 4)) * width + 4 * (i % (d // 4))) % 32 // 4
-                assert len(set(quads.tolist())) == 8
-    assert geo["raw_bytes"] % 16 == 0 and (rows * stride * 4) % 16 == 0
+    # the raw rooms and the split of their chunks into padded tiles: chunk i
+    # = thread + 256 m at row i / (d / 4), column 4 (i % (d / 4))
+    for key in ("dq", "dkv"):
+        rows = geo[f"{key}_tile"]
+        for m in range(rows * d // 4 // geo["dq_threads"]):
+            for quarter in range(geo["dq_threads"] // 8):
+                i = 8 * quarter + np.arange(8) + geo["dq_threads"] * m
+                for width in (d, stride):  # the raw room's rows, the padded tiles'
+                    quads = ((i // (d // 4)) * width + 4 * (i % (d // 4))) % 32 // 4
+                    assert len(set(quads.tolist())) == 8
+        assert geo[f"{key}_raw_bytes"] % 16 == 0 and (rows * stride * 4) % 16 == 0
 
 
 # ---- the 3xTF32 arithmetic of the dq and dk/dv kernels, emulated ------------
@@ -579,7 +608,7 @@ def test_two_set_shared_reads_are_conflict_free(d):
 
 
 def chained_product(a, b, chains: int) -> np.ndarray:
-    """``a @ b`` as the d = 256 backward's scores take it: k-step kk (8
+    """``a @ b`` as the d = 128 and 256 backward's scores take it: k-step kk (8
     columns of ``a``) into chain kk % ``chains``, each chain one accumulator
     (:func:`mma_product`, 3xTF32), the chains added in order in fp32."""
     steps = np.arange(a.shape[1]).reshape(-1, 8)
@@ -591,25 +620,32 @@ def chained_product(a, b, chains: int) -> np.ndarray:
     return total
 
 
+# the pairs' score chains at each head dim: dq's and dk/dv's
+# (`Fp32DqPairs` / `Fp32DkvPairs` kChains in `csrc/train_attention_fp32.cu`)
+PAIR_CHAINS = {128: (2, 2), 256: (4, 2)}
+
+
 def emulate_pairs_backward(q, k, v, dout, length: int, factor=None):
-    """One head of the fp32 dq and dk/dv kernels at d = 256 in numpy, in
-    their order (`csrc/train_attention_fp32.cu`, the pairs of warps): the
+    """One head of the fp32 dq and dk/dv kernels at d = 128 and 256 in numpy,
+    in their order (`csrc/train_attention_fp32.cu`, the pairs of warps): the
     forward's LSE and D = rowsum(dO * O) from float64, rounded to fp32 as the
-    kernels read them; 16-row streamed tiles.
+    kernels read them; streamed tiles of `FP32_PAIR_TILES[d]` rows (dq's
+    keys, dk/dv's queries), scores in `PAIR_CHAINS[d]` chains.
 
     dq: the key tiles up to the last valid one (none where no key is valid:
-    dq is zero); per tile S = Q K^T and dP = dO V^T, each in four chains,
-    each warp of the pair computing one, trading halves, forming dS of one
-    n-tile and trading it, so that both hold the same dS; dQ's two column
-    halves (one a warp) each take the tile's dS K in a fresh accumulator,
-    added to the output in fp32. dk/dv: every query tile; S^T
-    and dP^T in two chains; warp A's P handed to warp B with its sign bit set
+    dq is zero); per tile S = Q K^T and dP = dO V^T, each warp of the pair
+    computing one, trading halves, forming dS of half the tile's n-tiles
+    and trading it, so that both hold the same dS; dQ's two column halves
+    (one a warp) each take the tile's dS K in a fresh accumulator, added to
+    the output in fp32. dk/dv: every query tile; S^T and dP^T; warp A's P
+    handed to warp B with its sign bit set
     where the keep bit drops the element, B taking |x| and the factor from
     the sign; dV += Pd^T dO and dK += dS^T Q a fresh accumulator a tile.
     Returns (dq, dk, dv, the handed-over P and factors as B reads them, as A
     made them)."""
     n, d = q.shape
-    rows, scale = tta.FP32_WIDE_ROWS, np.float32(1.0 / math.sqrt(d))
+    (rows, dkv_rows), scale = tta.FP32_PAIR_TILES[d], np.float32(1.0 / math.sqrt(d))
+    dq_chains, dkv_chains = PAIR_CHAINS[d]
     keep_f = np.ones((n, n), np.float32) if factor is None else factor
     masked = np.float32(0.0 if length <= 0 else -1e30)
     valid = np.arange(n) < length
@@ -625,8 +661,8 @@ def emulate_pairs_backward(q, k, v, dout, length: int, factor=None):
     tiles = 0 if length <= 0 else -(-min(length, n) // rows)
     for t in range(tiles):
         keys = slice(t * rows, (t + 1) * rows)
-        s = chained_product(q, k[keys].T, 4)
-        dp = chained_product(dout, v[keys].T, 4)
+        s = chained_product(q, k[keys].T, dq_chains)
+        dp = chained_product(dout, v[keys].T, dq_chains)
         ok = valid[keys]
         p = np.exp(np.where(ok, s * scale, masked) - lse[:, None])
         ds = np.where(ok, p * (dp * keep_f[:, keys] - dd[:, None]), np.float32(0.0))
@@ -638,10 +674,10 @@ def emulate_pairs_backward(q, k, v, dout, length: int, factor=None):
     dk = np.zeros((n, d), np.float32)
     dv = np.zeros((n, d), np.float32)
     handed = []
-    for t in range(n // rows):
-        queries = slice(t * rows, (t + 1) * rows)
-        st = chained_product(k, q[queries].T, 2)
-        dpt = chained_product(v, dout[queries].T, 2)
+    for t in range(n // dkv_rows):
+        queries = slice(t * dkv_rows, (t + 1) * dkv_rows)
+        st = chained_product(k, q[queries].T, dkv_chains)
+        dpt = chained_product(v, dout[queries].T, dkv_chains)
         p = np.exp(np.where(valid[:, None], st * scale, masked) - lse[None, queries])
         f = keep_f[queries].T
         x = np.where(f != 0, p, -p)  # A: P, its sign bit set where dropped
@@ -655,14 +691,16 @@ def emulate_pairs_backward(q, k, v, dout, length: int, factor=None):
 
 
 # (n, valid keys) a case: every key averaged (lens = 0); every valid key in
-# the first 16-key tile; an odd count of key tiles (three), the second block
-# of keys wholly masked
+# the first key tile; an odd count of 16-key tiles (three; two of d = 128's
+# 32-key dq tiles, the second part masked), the second block of keys wholly
+# masked
 PAIR_CASES = ((64, 0), (64, 9), (128, 40))
 
 
+@pytest.mark.parametrize("d", [128, 256])
 @pytest.mark.parametrize("dropout", [0.0, 0.1])
-def test_pair_backward_holds_the_fp32_limit(dropout):
-    """The d = 256 dq and dk/dv arithmetic (:func:`emulate_pairs_backward`)
+def test_pair_backward_holds_the_fp32_limit(dropout, d):
+    """The d = 128 and 256 dq and dk/dv arithmetic (:func:`emulate_pairs_backward`)
     for a sample with no valid key, one whose valid keys all lie in one
     tile and one with an odd count of key tiles and a block of keys all
     masked, at dropout 0 and 0.1: dq, dk and dv within chip_smoke's
@@ -671,8 +709,8 @@ def test_pair_backward_holds_the_fp32_limit(dropout):
     dk and dv, and dq is exactly zero where no key is valid."""
     import chip_smoke
 
-    d, keep = tta.LIBRARY_HEAD_DIM, 1.0 - dropout
-    rng = np.random.default_rng(256 + int(dropout * 10))
+    keep = 1.0 - dropout
+    rng = np.random.default_rng(d + int(dropout * 10))
     for hi, (n, length) in enumerate(PAIR_CASES):
         q, k, v, dout = (rng.standard_normal((n, d)).astype(np.float32) for _ in range(4))
         factor = None
@@ -705,8 +743,9 @@ def test_pair_backward_holds_the_fp32_limit(dropout):
             np.testing.assert_array_equal(dv[length:], 0.0)
         else:
             np.testing.assert_array_equal(dq, 0.0)
-    assert -(-PAIR_CASES[1][1] // tta.FP32_WIDE_ROWS) == 1
-    assert -(-PAIR_CASES[2][1] // tta.FP32_WIDE_ROWS) % 2 == 1
+    dq_rows, dkv_rows = tta.FP32_PAIR_TILES[d]
+    assert -(-PAIR_CASES[1][1] // dq_rows) == -(-PAIR_CASES[1][1] // dkv_rows) == 1
+    assert -(-PAIR_CASES[2][1] // 16) == 3 and PAIR_CASES[2][1] % dq_rows > 0
 
 
 def test_pass_partials_bound_the_drift_of_an_accumulator_rounded_toward_zero():

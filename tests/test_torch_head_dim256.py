@@ -208,7 +208,7 @@ def test_d256_geometry_covers_every_row_once_within_the_card(n):
     assert tta.set_key_tiles(n, 0, D) == tta.set_key_tiles(n, n, D)
     b32 = tta.backward_geometry_fp32(b, n, h, D)
     assert (b32["rows"], b32["dq_threads"], b32["dkv_threads"], b32["bwd_stages"],
-            b32["bwd_tile"], b32["fixed_tiles"]) == (64, 256, 256, 1, 16, 2)
+            b32["dq_tile"], b32["dkv_tile"], b32["fixed_tiles"]) == (64, 256, 256, 1, 16, 16, 2)
     assert b32["grid"] == (n // 64, h, b) and b32["blocks"] == [(r, 64) for r in range(0, n, 64)]
     # every (row, column) of dq once: a pair of warps a 16-row group, each
     # half of the head's columns; every key's dk and dv once: a pair a
@@ -225,7 +225,7 @@ def test_d256_geometry_covers_every_row_once_within_the_card(n):
     np.testing.assert_array_equal(owned, 1)
     np.testing.assert_array_equal(outputs, 1)
     # streamed tiles of 16 rows: n / 16 of them a sample, none past its end
-    assert n % b32["bwd_tile"] == 0
+    assert n % b32["dq_tile"] == n % b32["dkv_tile"] == 0
     for shared in (fwd["shared_bytes"], bwd["shared_bytes"], f32["shared_bytes"],
                    b32["dq_shared_bytes"], b32["dkv_shared_bytes"]):
         assert shared <= tta.SHARED_LIMIT and tta._per_sm(shared) == 1
@@ -251,11 +251,11 @@ def test_d256_shared_bytes_add_up():
     # needs: dq's scores (two warps' [16, 16] fp32 a pair) in V's parts,
     # dk/dv's P ([16, 16] fp32 a pair) in the raw room
     b32 = tta.backward_geometry_fp32(1, 4096, 4, D)
-    assert b32["raw_bytes"] == 2 * 16 * D * 4 == 32768
+    assert b32["dq_raw_bytes"] == b32["dkv_raw_bytes"] == 2 * 16 * D * 4 == 32768
     assert b32["dq_shared_bytes"] == b32["dkv_shared_bytes"] == \
         2 * 64 * row + 4 * 16 * row + 32768 == 232448 == tta.SHARED_LIMIT
     assert b32["score_slot_bytes"] == 4 * 2 * 16 * 16 * 4 <= 2 * 16 * row
-    assert b32["p_slot_bytes"] == 4 * 16 * 16 * 4 == 4096 <= b32["raw_bytes"]
+    assert b32["p_slot_bytes"] == 4 * 16 * 16 * 4 == 4096 <= b32["dkv_raw_bytes"]
     # a padded raw room would not fit: its rows of 256 floats take the rest
     assert b32["dq_shared_bytes"] + 2 * 16 * 4 * 4 > tta.SHARED_LIMIT
 
@@ -278,7 +278,8 @@ def test_d256_domain_refuses_rotary_and_fp32_training():
         for bad in (32, 192, 512):
             with pytest.raises(ValueError, match="head dims"):
                 tta._check_cuda_args(*(torch.zeros(2, 128, 2, bad, dtype=dtype),) * 3, lens)
-    assert tta.backward_geometry_fp32(2, 128, 2, D)["bwd_tile"] == 16
+    b32 = tta.backward_geometry_fp32(2, 128, 2, D)
+    assert b32["dq_tile"] == b32["dkv_tile"] == 16
     with pytest.raises(ValueError, match="head dims"):
         tta.backward_geometry_fp32(2, 128, 2, 192)
     assert tatt.rotary_fused(64) and tatt.rotary_fused(128) and not tatt.rotary_fused(D)
