@@ -4027,6 +4027,57 @@ def head_dim_config(tmp: Path, heads: int, dim_head: int, tag: str):
     return cfg, path
 
 
+def forward_build_notes(log_text: str, d: int) -> list[str]:
+    """What ptxas said of the forward core's instantiations at head dim ``d``
+    (the training forward and the serving attention, each mode) in a build
+    log: each one's registers and spills, then every note (``(C75..)``)
+    that names it."""
+    lines = [line.strip() for line in log_text.splitlines()]
+    marks = (f"train_attention_fwd_kernelILi{d}E", f"serving_attention_kernelILi{d}E")
+    found = []
+    for i, line in enumerate(lines):
+        if "Compiling entry" in line and any(mark in line for mark in marks):
+            name = line.split("'")[1] if "'" in line else line
+            report = []
+            for x in lines[i + 1:i + 5]:
+                if "Compiling entry" in x:
+                    break
+                if "registers" in x or "spill" in x:
+                    report.append(x.replace("ptxas info    : ", ""))
+            found.append(f"{short_kernel_name(name)}: {' '.join(report)}")
+    for line in lines:
+        if "(C75" in line and any(mark in line for mark in marks):
+            name = line.rsplit("'", 2)[-2] if line.count("'") >= 2 else ""
+            found.append(f"{short_kernel_name(name)} note: "
+                         + line.replace("ptxas info    : ", "").split(" in function")[0])
+    return found
+
+
+def short_kernel_name(mangled: str) -> str:
+    """``train_attention_fwd_kernel<128, 1>`` from an instantiation's
+    mangled name (the kernel and its template arguments, in order)."""
+    import re
+
+    for base in ("train_attention_fwd_kernel", "serving_attention_kernel"):
+        if base in mangled:
+            tail = mangled.split(base, 1)[1].split("EEv")[0] + "E"
+            args = ", ".join(value for _, value in re.findall(r"L([ib])(\d+)E", tail))
+            return f"{base}<{args}>"
+    return mangled
+
+
+def log_forward_build(tag: str, d: int) -> None:
+    """Logs :func:`forward_build_notes` of this process's build at ``d``."""
+    from eraxvif5tts_tpu_torch.ops import _cuda
+
+    notes = forward_build_notes(_cuda.kernels().log, d)
+    for line in notes:
+        log(f"{tag} ptxas, forward core at d = {d}: {line}")
+    if not notes:
+        log(f"{tag} ptxas, forward core at d = {d}: no report in this process's build log "
+            "(a cached build)")
+
+
 def check_d128_geometry() -> None:
     """The constants every built attention kernel reports at d = 64 and 128
     against the ones `ops/train_attention.py` states, and the C interface
@@ -4045,7 +4096,7 @@ def check_d128_geometry() -> None:
         fwd, bwd = ta.forward_geometry(2, 4096, 16, d), ta.backward_geometry(2, 4096, 16, d)
         f32, b32 = (ta.forward_geometry_fp32(2, 4096, 16, d),
                     ta.backward_geometry_fp32(2, 4096, 16, d))
-        stated = {"forward": {key: fwd[key] for key in built_keys},
+        stated = {"forward": {key: fwd[key] for key in ta.FORWARD_BUILT},
                   "backward": {key: bwd[key] for key in built_keys},
                   "fp32": dict({key: f32[key] for key in ta.FP32_FORWARD_BUILT},
                                **fp32_backward_stated(b32)),
@@ -4056,7 +4107,9 @@ def check_d128_geometry() -> None:
         if built != stated:
             raise AssertionError(f"[d128] built geometry at d = {d}: {built}; stated {stated}")
         log(f"[d128] built geometry at d = {d} equals the stated one: bf16 forward "
-            f"{built['forward']} (registers {fwd['registers']}), backward {built['backward']}; "
+            f"{built['forward']} (registers {fwd['registers']}, "
+            f"{'overlapped' if fwd['overlap'] else 'serial'} products), backward "
+            f"{built['backward']}; "
             f"fp32 {built['fp32']} ({f32['sets']} warp set(s) of four, key tiles of "
             f"{f32['key_tile']}, Q split {'once' if f32['q_split'] else 'at each use'}), "
             f"{f32['blocks_per_sm']} block(s) an SM")
@@ -4538,15 +4591,25 @@ def train_at(dev, arch, tag: str, variants, rounding: tuple = ()) -> dict:
 # loader in both packages; the JAX package runs its Pallas kernels there.
 D128_HEADS, D128_DIM_HEAD = 8, 128
 D128_SERVE = (1088, (1051, 0))  # kernel 1 at the DiT's serving bucket, a sample with no valid key
-D128_TRAIN = ((4096, (4096, 4059)), (JOINT_N, (JOINT_N, JOINT_N - 37)))  # kernel 4's cases
+# kernel 4's cases; at n = 1088 (an odd multiple of 64) the forward's last
+# 128-key tile hangs 64 keys over n, beside a sample with no valid key
+D128_TRAIN = ((4096, (4096, 4059)), (1088, (1051, 0)), (JOINT_N, (JOINT_N, JOINT_N - 37)))
 STEP = (2, 4096)  # the CFM steps of [d128] and [d256]: b, n
 KEEP_N = 128  # the keep-bit readout's sequence: one [128, 128] head of bits
 # CFM.loss of the 8 x 128 DiT at b = 2, n = 1024, kernels vs plain attention, by
-# the rule above (H100, 700 W): bf16 loss 9.3e-6 vs 3.2e-5 and gradient L2
-# 3.4e-3 vs 6.3e-3, past LOSS_TOL / GRAD_TOL, which were set on 16 x 64 heads
-# (the kernels' own errors are d = 64's: relative L2 3.2e-3 / 2.6e-3 at both
-# head dims); its q / k / v gradient 2.9e-3 vs 1.8e-2 keeps QKV_GRAD_TOL
-D128_LOSS_TOL = 1.7e-5
+# the rule above (H100, 700 W): bf16 gradient L2 3.4e-3 vs 6.3e-3, past
+# GRAD_TOL, which was set on 16 x 64 heads (the kernels' own errors are d =
+# 64's: relative L2 3.2e-3 / 2.6e-3 at both head dims); its q / k / v gradient
+# 2.9e-3 vs 1.8e-2 keeps QKV_GRAD_TOL. The bf16 loss at dropout 0.1 over ten
+# loss batches (seeds SEED + 180 on; `tools/probe_train_attention.py
+# --loss-seeds 10`, these kernels and the ones before them) moved 1.9e-6 to
+# 1.74e-5 at d = 128 and 1e-7 to 1.94e-5 at d = 256 by bf16 rounding alone,
+# while wrong attention-dropout keys moved it 9.8e-7 to 3.9e-5 and 1.9e-6 to
+# 2.1e-5: no limit on the loss can see wrong keys, so it is held within bf16
+# rounding (1.5x the largest sound reading) and its control logged; the
+# gradients (2.6e-3 to 3.4e-3 vs 4.8e-3 to 6.3e-3 and, q / k / v, 1.7e-2 to
+# 2.1e-2) hold the masks
+D128_LOSS_TOL = 3e-5
 D128_GRAD_TOL = 4.6e-3
 # fp32: the 3xTF32 kernels give the plain version's loss (relative error 0 on
 # an H100), and wrong attention-dropout keys move it by 9.9e-7, which
@@ -4570,6 +4633,7 @@ def phase_d128(dev) -> tuple[dict, dict]:
 
     tag, h, d = "[d128]", D128_HEADS, D128_DIM_HEAD
     check_d128_geometry()
+    log_forward_build(tag, d)
     rows = check_serving_attention_at(
         dev, tag, h, d, SEED + 160, ((*D128_SERVE, (True, False)), (JOINT_N, JOINT_LENS, (False,))))
     rows.update(check_train_attention_at(dev, tag, h, d, SEED + 170, D128_TRAIN,
@@ -4587,9 +4651,11 @@ def phase_d128(dev) -> tuple[dict, dict]:
         launches["serving_attention_fp32_d128"] = serve_at(cfg, ckpt, dev, None, tag, TEXTS[:1])
     launches.update(train_at(dev, cfg.arch, tag, (
         (torch.bfloat16, "bf16", 0.1, {"loss": D128_LOSS_TOL, "gradient L2": D128_GRAD_TOL,
-                                       "q/k/v gradient L2": QKV_GRAD_TOL}, "keys"),
+                                       "q/k/v gradient L2": QKV_GRAD_TOL}, "keys"),),
+        rounding=("loss",)))
+    launches.update(train_at(dev, cfg.arch, tag, (
         (None, "fp32", 0.1, {"loss": D128_FP32_LOSS_TOL, "gradient L2": FP32_STEP_GRAD_TOL,
-                             "q/k/v gradient L2": FP32_STEP_GRAD_TOL}, "keys"))))
+                             "q/k/v gradient L2": FP32_STEP_GRAD_TOL}, "keys"),)))
     return rows, launches
 
 
@@ -4602,15 +4668,16 @@ def phase_d128(dev) -> tuple[dict, dict]:
 # each in bf16 and fp32.
 D256_HEADS, D256_DIM_HEAD = 4, 256
 D256_SERVE = ((1088, (1051, 0), (False,)), (JOINT_N, JOINT_LENS, (False,)))
-D256_TRAIN = ((4096, (4096, 4059)), (JOINT_N, (JOINT_N, JOINT_N - 37)))
+D256_TRAIN = ((4096, (4096, 4059)), (1088, (1051, 0)), (JOINT_N, (JOINT_N, JOINT_N - 37)))
 # CFM.loss of the 4 x 256 DiT at b = 2, n = 1024, kernels vs plain attention
 # (H100, 700 W): at dropout 0 against a lost key tile,
 # gradient L2 3.3e-3 vs 1.6e-2, q / k / v 2.7e-3 vs 6.7e-2; at dropout 0.1
 # against wrong keys 3.4e-3 vs 6.3e-3 and 2.9e-3 vs 1.8e-2: D128_GRAD_TOL and
 # QKV_GRAD_TOL lie between. The loss moved 5.0e-6 (dropout 0) and 8.9e-7
 # (0.1) where the controls moved it 4.0e-6 and 7.2e-6: bf16 rounding of the
-# loss is the size of a control, so the loss is held within D128_LOSS_TOL
-# (bf16 rounding) and its control logged, as the MMDiT's step holds it
+# loss is the size of a control (over ten seeds: as at d = 128, above), so
+# the loss is held within D128_LOSS_TOL (bf16 rounding) and its control
+# logged, as the MMDiT's step holds it
 D256_TOLS = {"loss": D128_LOSS_TOL, "gradient L2": D128_GRAD_TOL,
              "q/k/v gradient L2": QKV_GRAD_TOL}
 # fp32: the d = 128 fp32 limits (the 3xTF32 kernels against plain attention)
@@ -4634,7 +4701,7 @@ def check_d256_geometry() -> None:
     d, built_keys = D256_DIM_HEAD, ("rows", "stages", "threads", "shared_bytes")
     fwd, bwd = ta.forward_geometry(2, 4096, 4, d), ta.backward_geometry(2, 4096, 4, d)
     f32, b32 = sa.forward_geometry_fp32(2, 4096, 4, d), ta.backward_geometry_fp32(2, 4096, 4, d)
-    stated = {"forward": {key: fwd[key] for key in built_keys},
+    stated = {"forward": {key: fwd[key] for key in ta.FORWARD_BUILT},
               "backward": {key: bwd[key] for key in built_keys},
               "fp32 serving": {key: f32[key] for key in ta.FP32_FORWARD_BUILT},
               "fp32 training": dict({key: f32[key] for key in ta.FP32_FORWARD_BUILT},
@@ -4645,7 +4712,8 @@ def check_d256_geometry() -> None:
     if built != stated:
         raise AssertionError(f"[d256] built geometry: {built}; stated {stated}")
     log(f"[d256] built geometry equals the stated one: bf16 forward {built['forward']} "
-        f"(registers {fwd['registers']}), backward {built['backward']} (columns "
+        f"(registers {fwd['registers']}, {'overlapped' if fwd['overlap'] else 'serial'} "
+        f"products), backward {built['backward']} (columns "
         f"{bwd['columns']}); fp32 serving {built['fp32 serving']} ({f32['sets']} warp sets "
         f"of four, key tiles of {f32['key_tile']}, Q split at each use); fp32 training "
         f"{built['fp32 training']} (dq and dk/dv in pairs of warps, {b32['dq_tile']}-row "
@@ -4682,6 +4750,7 @@ def phase_d256(dev) -> tuple[dict, dict]:
 
     tag, h, d = "[d256]", D256_HEADS, D256_DIM_HEAD
     check_d256_geometry()
+    log_forward_build(tag, d)
     rows = check_serving_attention_at(dev, tag, h, d, SEED + 260, D256_SERVE)
     rows.update(check_train_attention_at(dev, tag, h, d, SEED + 270, D256_TRAIN,
                                          (torch.bfloat16, torch.float32), (0.1, 0.0)))

@@ -31,7 +31,10 @@ __device__ __forceinline__ uint32_t head_salt(const Dropout& drop, uint32_t b, u
 // murmur3's 32-bit finaliser (`ops/train_attention.py` `_fmix32`). With
 // x = ctr ^ salt, fmix32's first step x ^ (x >> 16) is
 // ctr ^ (ctr >> 16) ^ (salt ^ (salt >> 16)), and the last term is the same
-// for a whole (sample, head).
+// for a whole (sample, head). Its last step, y = x ^ (x >> 16), keeps x's
+// high half H and puts L ^ H in the low half; against threshold (T, t) the
+// compare is decided by H alone unless H = T, where L ^ H = L ^ T: so
+// y < threshold exactly when (x ^ T) < threshold, one operation fewer.
 __device__ __forceinline__ uint32_t fold_salt(uint32_t salt) { return salt ^ (salt >> 16); }
 __device__ __forceinline__ bool keep_bit_folded(uint32_t ctr, uint32_t folded,
                                                 uint32_t threshold) {
@@ -39,8 +42,7 @@ __device__ __forceinline__ bool keep_bit_folded(uint32_t ctr, uint32_t folded,
   x *= 0x85EBCA6Bu;
   x ^= x >> 13;
   x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return x < threshold;
+  return (x ^ (threshold >> 16)) < threshold;
 }
 
 }  // namespace

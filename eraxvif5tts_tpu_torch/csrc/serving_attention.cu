@@ -27,20 +27,22 @@
 // forward of `flash_forward.cuh`, which the training forward instantiates
 // too: a block owns 192 query rows of one (sample, head) as three consumer
 // warpgroups at d = 64, 128 rows as two at d = 128 and at d = 256 (a [64, d]
-// tile is d / 64 128-byte-swizzled panels; two stages at d = 256); a
-// producer thread feeds a ring of TMA stages (a K and a V tile
-// each); S = Q K^T and O += P V are wgmma.mma_async products, the second with
-// P from registers and V read MN-major from the same TMA copy (no transposed
-// copy); the online softmax keeps each row's running max and sum in fp32
-// registers. With rotary, three warps of the producer's warpgroup rotate the
-// Q tiles once and each K tile as it lands, in place in the swizzled shared
-// tile, in fp32 with the plain version's rounding, ahead of the consumers.
+// tile is d / 64 128-byte-swizzled panels; K and V tiles of 128 keys at
+// d = 128, two stages at d = 256); a producer thread feeds a ring of TMA
+// stages (a K and a V tile each); S = Q K^T and O += P V are wgmma.mma_async
+// products, the second with P from registers and V read MN-major from the
+// same TMA copy (no transposed copy), at d = 128 and 256 the next tile's
+// score product in flight with this tile's P V; the online softmax keeps
+// each row's running max and sum in fp32 registers. With rotary, three
+// warps of the producer's warpgroup rotate the Q tiles once and each K tile
+// as it lands, in place in the swizzled shared tile, in fp32 with the plain
+// version's rounding, ahead of the consumers.
 //
-// Masked keys get the finite -1e30, never -inf; a sample with lens = 0 has
-// every logit set to 0 instead, which is the same average of every key (as
-// the reference gives) and never NaN. Key tiles entirely past lens
-// contribute exactly zero once a valid key has been seen, so they are
-// skipped when lens > 0.
+// Masked keys get the finite -1e30 and the weight 0, never -inf; a sample
+// with lens = 0 takes every key below n with its logits at scale 0, which is
+// the same average of every key (as the reference gives) and never NaN. Key
+// tiles entirely past lens contribute exactly zero once a valid key has been
+// seen, so they are skipped when lens > 0.
 //
 // Rounding: the TPU kernel normalises P before its bf16 cast; the online
 // softmax casts the unnormalised P (values in [0, 1]) and divides the fp32

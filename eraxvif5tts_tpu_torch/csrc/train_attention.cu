@@ -40,12 +40,15 @@
 // instantiates too). A block owns 192 query rows of one (sample, head) at
 // d = 64 (three consumer warpgroups of 64 rows), 128 at d = 128 and 256
 // (two), and a producer thread that feeds a ring of
-// TMA stages (a K and a V tile each). S = Q K^T is a wgmma.mma_async with both
-// operands K-major from shared memory; the online softmax (running max and
-// sum per row, base-2 exponentials) runs on the fp32 accumulator in
-// registers; P, after the keep bit and a bf16 cast, is the register A operand
-// of O += P V, which reads V MN-major from the same TMA copy. No transposed
-// copy of V is made and P never touches shared memory. The row term of the
+// TMA stages (a K and a V tile each, of 64 keys; 128 at d = 128). S = Q K^T
+// is a wgmma.mma_async with both operands K-major from shared memory; the
+// online softmax (running max and sum per row, base-2 exponentials) runs on
+// the fp32 accumulator in registers; P, after the keep bit and a bf16 cast,
+// is the register A operand of O += P V, one chain over all d columns, which
+// reads V MN-major from the same TMA copy. No transposed copy of V is made
+// and P never touches shared memory. At d = 128 and 256 the next tile's
+// score product runs with this tile's P V, its softmax under P V, and its
+// keep bits are hashed while its scores are computed. The row term of the
 // dropout counter is hoisted and the salt folded, as in the backward.
 //
 // Design of the two backward kernels (`wgmma_tile.cuh`). A block owns 128
@@ -649,8 +652,9 @@ extern "C" int erax_train_attention_fwd(const void* q, const void* k, const void
 }
 
 // The forward core's launch geometry at head dim d, as `ops/train_attention.py`
-// `forward_geometry` states it: rows a block, ring stages, threads, dynamic
-// shared bytes; non-zero for a head dim that has no instantiation.
+// `forward_geometry` states it (`FORWARD_BUILT`): rows a block, ring stages,
+// threads, dynamic shared bytes, keys a K / V tile, the schedule; non-zero for
+// a head dim that has no instantiation.
 extern "C" int erax_flash_forward_geometry(int d, int* out) { return fwd_geometry(d, out); }
 
 // Host nanoseconds of one encode of the [b, n, h, 64] tensor map at `base`,

@@ -101,15 +101,20 @@ __device__ __forceinline__ void tma_load_tile(uint32_t dst, const CUtensorMap* m
       : "memory");
 }
 
-// Rows [row, row + 64) of a [b, n, h, D] bf16 tensor (the map of
-// `encode_rows_map` with d = D) as D / 64 panels at dst, dst + 8192, ...:
-// 64 D * 2 bytes onto `bar`.
-template <int D>
+// Rows [row, row + R) of a [b, n, h, D] bf16 tensor (the map of
+// `encode_rows_map` with d = D) as D / 64 panels of R rows at dst,
+// dst + 128 R, ...: R D * 2 bytes onto `bar`, one 64-row box at a time (R a
+// multiple of 64; a panel of R rows is R / 8 swizzle atoms, so its boxes
+// stack into one tile that a descriptor reads across all R rows).
+template <int D, int R = kTileRows>
 __device__ __forceinline__ void tma_load_rows(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                               int row, int head, int sample) {
 #pragma unroll
   for (int p = 0; p < D / 64; ++p)
-    tma_load_tile(dst + p * kTileBytes, map, bar, row, head, sample, 64 * p);
+#pragma unroll
+    for (int r = 0; r < R / kTileRows; ++r)
+      tma_load_tile(dst + p * R * 128 + r * kTileBytes, map, bar, row + r * kTileRows, head,
+                    sample, 64 * p);
 }
 
 // The box of a row-major [rows, k] matrix's map (`encode_matrix_map`) whose
@@ -176,6 +181,12 @@ __device__ __forceinline__ uint64_t desc_k_major(uint32_t tile) { return make_de
 __device__ __forceinline__ uint64_t desc_mn_major(uint32_t tile) {
   return make_desc(tile, 1024 >> 4);
 }
+// MN-major over more than 64 columns (N = 128 or 256 of a product P X): the
+// leading offset steps to the next 64 columns, the next panel, `panel`
+// bytes on.
+__device__ __forceinline__ uint64_t desc_mn_major_panels(uint32_t tile, uint32_t panel) {
+  return make_desc(tile, panel >> 4);
+}
 
 // Before the first wgmma that reads registers written by ordinary
 // instructions (accumulators, A fragments).
@@ -202,9 +213,10 @@ __device__ __forceinline__ void keep(float (&d)[32]) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
-__device__ __forceinline__ void keep(uint32_t (&a)[4][4]) {
+template <int K>
+__device__ __forceinline__ void keep(uint32_t (&a)[K][4]) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+  for (int j = 0; j < K; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[j][i])::"memory");
 }
@@ -296,6 +308,18 @@ __device__ __forceinline__ void wgmma128_ss(float (&d)[64], uint64_t a, uint64_t
       : ERAX_ACC64(d)
       : "l"(a), "l"(b));
 }
+__device__ __forceinline__ void wgmma128_ss_first(float (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, 0, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " ERAX_ACC64_LIST
+      ", %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : ERAX_OUT8(d, 0), ERAX_OUT8(d, 8), ERAX_OUT8(d, 16), ERAX_OUT8(d, 24), ERAX_OUT8(d, 32),
+        ERAX_OUT8(d, 40), ERAX_OUT8(d, 48), ERAX_OUT8(d, 56)
+      : "l"(a), "l"(b));
+}
 // `wgmma128_rs`: A [64, 16] from registers, in the fragment `ldmatrix_x4`
 // gives ({(g, 2t..), (g + 8, 2t..), (g, 2t + 8..), (g + 8, 2t + 8..)}).
 __device__ __forceinline__ void wgmma128_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
@@ -305,6 +329,22 @@ __device__ __forceinline__ void wgmma128_rs(float (&d)[64], const uint32_t (&a)[
       "setp.ne.b32 p, 1, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " ERAX_ACC64_LIST
       ", {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : ERAX_ACC64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+
+// `wgmma128_rs_t`: the same with B [16, 128] MN-major (16 rows of two panels,
+// read with the transpose bit; the descriptor's leading offset steps to the
+// second panel, `desc_mn_major_panels`).
+__device__ __forceinline__ void wgmma128_rs_t(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " ERAX_ACC64_LIST
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
       "}\n"
       : ERAX_ACC64(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
@@ -355,6 +395,36 @@ __device__ __forceinline__ void wgmma256_rs(float (&d)[128], const uint32_t (&a)
       "}\n"
       : ERAX_ACC128(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+
+// B [16, 256] MN-major: 16 rows of four panels, read with the transpose bit.
+__device__ __forceinline__ void wgmma256_rs_t(float (&d)[128], const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " ERAX_ACC128_LIST
+      ", {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n"
+      "}\n"
+      : ERAX_ACC128(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+
+// The products by accumulator size (N = 64, 128, 256 columns), for code
+// templated on N: d = A B^T (`_first`) or d += A B^T, both K-major in shared
+// memory; d += A B with A from registers and B MN-major.
+__device__ __forceinline__ void wgmma_ss_first(float (&d)[64], uint64_t a, uint64_t b) {
+  wgmma128_ss_first(d, a, b);
+}
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b) {
+  wgmma128_ss(d, a, b);
+}
+__device__ __forceinline__ void wgmma_rs_t(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  wgmma128_rs_t(d, a, b);
+}
+__device__ __forceinline__ void wgmma_rs_t(float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
+  wgmma256_rs_t(d, a, b);
 }
 
 // ---- int8 wgmma: m64nNk32, s8 x s8 -> s32 ----------------------------------

@@ -27,7 +27,7 @@ tensor raises; there is no fallback.
   `csrc/flash_forward.cuh` (`ops/train_attention.py` ``forward_geometry``
   states its launch for each d: 192 query rows a block at d = 64, 128 at
   d = 128 and 256, a ``[64, d]`` tile being d / 64 128-byte-swizzled
-  panels) on
+  panels, K and V tiles of 128 keys at d = 128 and 64 elsewhere) on
   ``wgmma`` and TMA. Nothing in it depends on n beyond
   its tiles: the K / V ring's shared memory is fixed, the grid and the
   tensor map's dimensions grow with n and row offsets are 64-bit. Its online

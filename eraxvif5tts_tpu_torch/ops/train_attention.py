@@ -93,11 +93,19 @@ BWD_SHAPES = {64: (128, 4, 1), 128: (128, 4, 1), 256: (64, 2, 2)}
 # the forward core (`csrc/flash_forward.cuh`: FwdShape<d>), which the serving
 # attention instantiates too; the constants are d = 64's, FWD_SHAPES each d's
 # d -> (rows a block, setmaxnreg of the producer's warpgroup, of each consumer,
-# ring stages): at d = 128 a consumer's O accumulator is 64 fp32 registers a
-# thread, which three consumer warpgroups at 144 registers do not hold; two at
-# 216 do; at d = 256 it is 128, two at 232 with a [64, 256] tile of 32,768
-# bytes leave room for two stages
-FWD_SHAPES = {64: (192, 72, 144, 4), 128: (128, 72, 216, 4), 256: (128, 40, 232, 2)}
+# ring stages, keys a K / V tile): at d = 128 a consumer's O accumulator is 64
+# fp32 registers a thread, which three consumer warpgroups at 144 registers do
+# not hold; two at 208 do, beside a [64, 128] score tile of 128-key tiles
+# (whose last hangs 64 keys over n where n % 128 == 64), three stages of
+# [128, 128] K and V tiles, the rotating producer warps at 88; at d = 256 O
+# is 128, two at 232 with a [64, 256] tile of 32,768 bytes leave room for two
+# stages of 64 keys
+FWD_SHAPES = {64: (192, 72, 144, 4, 64), 128: (128, 88, 208, 3, 128), 256: (128, 40, 232, 2, 64)}
+# the consumers' schedule by d without rotary: one product at a time (d = 64),
+# or tile i + 1's score product in flight with tile i's P V and its softmax
+# under the latter; with rotary one product at a time at every d (the
+# rotators bound it, and a tile's P V then runs while the next K is rotated)
+FWD_OVERLAP = {64: False, 128: True, 256: True}
 FWD_ROWS = FWD_SHAPES[64][0]  # query rows a block owns: three consumer warpgroups of TILE rows
 FWD_STAGES = FWD_SHAPES[64][3]  # ring of TMA stages, a K and a V tile each
 FWD_THREADS = 128 * (FWD_ROWS // TILE + 1)  # the consumer warpgroups and the producer's
@@ -246,19 +254,39 @@ def forward_geometry(b: int, n: int, h: int, d: int = HEAD_DIM) -> dict:
     the serving attention alike), in :func:`backward_geometry`'s terms:
     ``ceil(n / rows)`` blocks a (sample, head) with ``rows`` from
     ``FWD_SHAPES`` (192 at d = 64, 128 at d = 128 and 256); the block's Q
-    tiles (one a consumer warpgroup), a ring of ``stages`` stages (four; two
-    at d = 256) of a K and a V tile, and three barriers a stage plus two for
-    Q (1024 bytes of alignment slack in front). ``registers``: the producer
-    warpgroup's and each consumer's ``setmaxnreg`` counts."""
+    tiles (one a consumer warpgroup, ``[tile, d]``), a ring of ``stages``
+    stages (four; three at d = 128, two at d = 256) of a K and a V tile of
+    ``key_tile`` keys (64; 128 at d = 128, each of its panels 128 rows, two
+    TMA boxes), and five barriers a stage (a full and an empty one for its K
+    tile and for its V tile apart, and K's rotated one) plus two for Q (1024
+    bytes of alignment slack in front). ``registers``: the producer warpgroup's and
+    each consumer's ``setmaxnreg`` counts; ``overlap``: the consumers'
+    schedule without rotary (``FWD_OVERLAP``); the key tiles a sample walks:
+    :func:`forward_key_tiles`."""
     _check_head_dim(d)
-    rows, producer, consumer, stages = FWD_SHAPES[d]
+    rows, producer, consumer, stages, keys = FWD_SHAPES[d]
     tile_bytes = TILE * d * 2
-    shared = (1024 + (rows // TILE) * tile_bytes + stages * 2 * tile_bytes
-              + (3 * stages + 2) * 8)
+    shared = (1024 + (rows // TILE) * tile_bytes + stages * 2 * keys * d * 2
+              + (5 * stages + 2) * 8)
     return dict(grid=(-(-n // rows), h, b), threads=128 * (rows // TILE + 1), rows=rows,
-                tile=TILE, stages=stages, shared_bytes=shared,
-                registers=(producer, consumer), warpgroups=_rows_cover(n, rows),
-                tensor_map=_rows_map(b, n, h, d))
+                tile=TILE, key_tile=keys, stages=stages, shared_bytes=shared,
+                registers=(producer, consumer), overlap=FWD_OVERLAP[d],
+                warpgroups=_rows_cover(n, rows), tensor_map=_rows_map(b, n, h, d))
+
+
+def forward_key_tiles(n: int, length: int, d: int) -> list[tuple[int, int, bool]]:
+    """The key tiles the forward core walks for a sample of ``length``
+    valid keys (<= 0: none, every key below n averaged), as ``(first key,
+    keys, masked)``: tiles of ``FWD_SHAPES[d]``'s key tile up to the last
+    that holds a key that counts (the valid ones, or every key below n when
+    none is valid), the last perhaps hanging over n (TMA reads zero rows
+    there). Only the last is ``masked``: its softmax gives the keys at or
+    past that limit the logit -1e30 and the weight 0. A sample with no valid
+    key takes its logits at scale 0: every weight 1, the LSE log n."""
+    keys = FWD_SHAPES[d][4]
+    lim = min(length, n) if length > 0 else n
+    count = -(-lim // keys)
+    return [(i * keys, keys, i == count - 1) for i in range(count)]
 
 
 def swizzled_offset(row: int, col: int, d: int = HEAD_DIM) -> int:
@@ -286,10 +314,14 @@ def rotator_chunks(rid: int, d: int = HEAD_DIM) -> list[tuple[int, int]]:
     return [(ci // per_row, ci % per_row) for ci in range(rid, TILE * per_row, FWD_ROTATORS)]
 
 
+FORWARD_BUILT = ("rows", "stages", "threads", "shared_bytes", "key_tile", "overlap")
+
+
 def kernel_forward_geometry(d: int = HEAD_DIM) -> dict:
     """The constants the built forward kernels report for head dim ``d``
-    (needs the card's build): they must equal :func:`forward_geometry`'s."""
-    return _kernel_geometry("erax_flash_forward_geometry", d)
+    (needs the card's build; ``FORWARD_BUILT``): they must equal
+    :func:`forward_geometry`'s."""
+    return _kernel_geometry("erax_flash_forward_geometry", d, FORWARD_BUILT)
 
 
 def backward_geometry(b: int, n: int, h: int, d: int = HEAD_DIM) -> dict:

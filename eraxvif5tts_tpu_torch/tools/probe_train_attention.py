@@ -4,9 +4,13 @@ to compare two trees (a commit and its parent) on one card.
     python3 eraxvif5tts_tpu_torch/tools/probe_train_attention.py TREE [--step] [--serve]
     python3 eraxvif5tts_tpu_torch/tools/probe_train_attention.py TREE --fp32 [--against OTHER]
     python3 eraxvif5tts_tpu_torch/tools/probe_train_attention.py TREE --fp32 --head-dim 128|256 \
-        [--against OTHER] [--backward]
+        [--against OTHER] [--backward | --forward]
+    python3 eraxvif5tts_tpu_torch/tools/probe_train_attention.py TREE --fp32 --head-dim 64 \
+        --forward [--against OTHER]
     python3 eraxvif5tts_tpu_torch/tools/probe_train_attention.py TREE --fp32 --head-dim 128|256 \
         --train-step REPS
+    python3 eraxvif5tts_tpu_torch/tools/probe_train_attention.py TREE --head-dim 64|128|256 \
+        [--against OTHER] [--no-digests] [--train-step REPS | --loss-seeds SEEDS]
 
 TREE is the root of a checkout (this one: `.`; another commit: unpack it
 with `git archive` into a directory `.gitignore` lists). The package and
@@ -96,10 +100,40 @@ d = 64 rows' at h = 16), the wide fp32 kernels instead:
 
 With `--backward` as well, it stops after the backward at d = D (the
 register report, the digests, dq and dk/dv in turns): the forward is not
-timed. With `--train-step REPS` instead, only TREE's fp32 CFM step of the
+timed; with `--forward` the backward is not timed (and D may be 64: kernel 1
+fp32 at h = 16 with and without rotary, beside fp32 SDPA with the key mask
+on q and k rotated outside it). With `--train-step REPS` instead, only TREE's fp32 CFM step of the
 smoke's `[d128]` / `[d256]` DiT (`chip_smoke.train_at`: a warm-up and a
 timed `Trainer.train_step` at 2 x 4096, dropout 0.1), REPS times; run the
 trees in turns, one process each.
+
+With `--head-dim D` alone (64, 128 or 256; h = 1024 / D), the bf16 forward core
+(kernel 4a and kernel 1, `csrc/flash_forward.cuh`) instead:
+
+- ptxas's report of both builds' forward instantiations at d = 64, 128 and
+  256: registers, spills and every note (`chip_smoke.forward_build_notes`);
+- digests of O, LSE, dq, dk, dv at d = 64, 128 and 256 on the seeded inputs
+  above (bf16), each gradient's relative L2 error against the plain
+  version's autograd and, with `--against`, the largest differences from
+  OTHER's (0 and equal digests: OTHER's bits);
+- at d = D, kernel 4a at b = 2, n = 4096 (lens [4096, 4059]) and 6144
+  (lens [6144, 6107]) at keep = 1 and dropout 0.1, and kernel 1 at n =
+  1088 (lens [1051, 0]) and 4096 (lens [4096, 4059]), with fused rotary
+  and without at d = 64 and 128, without at 256: each tree's largest O error
+  against the plain version (in units of 1 + |plain|) and LSE error, the
+  trees' largest differences, times in turns (OTHER, TREE, TREE, OTHER:
+  each the median over 7 CUDA-event spans of 100 calls back to back, a
+  span over 100) beside the bound and `scaled_dot_product_attention` as
+  the smoke times it (heads second, inputs that take a gradient, the
+  dispatcher's backend: cuDNN on the card's torch) and on its flash backend
+  (no mask; q and k rotated outside it for rotary) in the same turns;
+- with `--train-step REPS`, only TREE's bf16 CFM step of the smoke's
+  `[d128]` / `[d256]` DiT at 2 x 4096, dropout 0.1, REPS times;
+- with `--loss-seeds SEEDS` (D = 128 or 256), only the readings of the
+  smoke's bf16 CFM-loss check at dropout 0.1 (`chip_smoke.train_at`'s DiT,
+  `hold_loss_against_plain` with no limit held) on the loss batches of
+  SEEDS seeds from the smoke's own on: each seed's loss error and its
+  wrong-keys control, then the largest error and the smallest control.
 """
 
 from __future__ import annotations
@@ -146,6 +180,16 @@ def main(argv: list[str]) -> int:
                    for _ in range(4)]
         return tensors, torch.tensor(lens, dtype=torch.int32, device=dev)
 
+    if "--head-dim" in argv and "--fp32" not in argv:
+        d = int(argv[argv.index("--head-dim") + 1])
+        if "--train-step" in argv:
+            train_steps(cs, dev, d, int(argv[argv.index("--train-step") + 1]), "bf16")
+        elif "--loss-seeds" in argv:
+            loss_seeds(cs, dev, d, int(argv[argv.index("--loss-seeds") + 1]))
+        else:
+            other = argv[argv.index("--against") + 1] if "--against" in argv else None
+            wide_bf16(cs, dev, g, other, d, "--no-digests" not in argv)
+        return 0
     if "--fp32" in argv[1:]:
         other = argv[argv.index("--against") + 1] if "--against" in argv else None
         if "--head-dim" in argv:
@@ -153,7 +197,7 @@ def main(argv: list[str]) -> int:
             if "--train-step" in argv:
                 train_steps(cs, dev, d, int(argv[argv.index("--train-step") + 1]))
             else:
-                wide_fp32(cs, dev, g, other, d, "--backward" in argv)
+                wide_fp32(cs, dev, g, other, d, "--backward" in argv, "--forward" in argv)
             return 0
         fp32(cs, dev, g, other)
         tf32_rates(cs, dev)
@@ -488,12 +532,15 @@ def fp32(cs, dev, g, other: str | None) -> None:
     serving_fp32(cs, dev, g, libs, order)
 
 
-def wide_fp32(cs, dev, g, other: str | None, d: int, backward_only: bool = False) -> None:
+def wide_fp32(cs, dev, g, other: str | None, d: int, backward_only: bool = False,
+              forward_only: bool = False) -> None:
     """The fp32 kernels at head dim ``d`` (`--fp32 --head-dim`): the digests
-    at every head dim first, then dq and dk/dv (`wide_backward`) and, unless
-    ``backward_only``, the forward: each tree's errors against the plain
-    version and the trees' largest differences, times in turns beside the
-    bound and fp32 SDPA, and the wave tail at n = 1088 against 1024."""
+    at every head dim first, then dq and dk/dv (`wide_backward`, unless
+    ``forward_only``: `--forward`) and, unless ``backward_only``, the
+    forward: each tree's errors against the plain version and the trees'
+    largest differences, times in turns beside the bound and fp32 SDPA, and
+    the wave tail at n = 1088 against 1024. At d = 64 (`--forward` alone
+    takes it) the forward's cases with and without rotary."""
     import torch
     import torch.nn.functional as F
 
@@ -501,13 +548,14 @@ def wide_fp32(cs, dev, g, other: str | None, d: int, backward_only: bool = False
     from eraxvif5tts_tpu_torch.ops import train_attention as ta
     from eraxvif5tts_tpu_torch.ops.rotary import rotary_freqs
 
-    if d not in (128, 256):
-        raise ValueError(f"--head-dim takes 128 or 256, got {d}")
+    if d not in ((64, 128, 256) if forward_only else (128, 256)):
+        raise ValueError(f"--head-dim takes 128 or 256 (64 with --forward), got {d}")
     libs = fp32_builds(cs, other)
     for dim in (64, 128, 256):
         fp32_digests(cs, dev, g, libs, dim)
     order = ("other", "tree", "tree", "other") if "other" in libs else ("tree",)
-    wide_backward(cs, dev, g, libs, order, d)
+    if not forward_only:
+        wide_backward(cs, dev, g, libs, order, d)
     if backward_only:
         return
     h = 1024 // d
@@ -516,7 +564,7 @@ def wide_fp32(cs, dev, g, other: str | None, d: int, backward_only: bool = False
     cases = [("serve", n, lens_list, roped) for n, lens_list in ((1088, [1051, 0]),
                                                                   (1024, [1024, 987]),
                                                                   (576, [576, 576]))
-             for roped in ((False, True) if d == 128 else (False,))]
+             for roped in ((False,) if d == 256 else (False, True))]
     cases += [("train", 4096, [4096, 4059], rate) for rate in (0.0, 0.1)]
     for role, n, lens_list, arg in cases:
         q, k, v = (torch.randn((2, n, h, d), generator=g, device=dev) for _ in range(3))
@@ -595,18 +643,268 @@ def wide_fp32(cs, dev, g, other: str | None, d: int, backward_only: bool = False
                f"{serve_ms[1024][who]:.4f} ms: {ratio:.3f}x the time for {work:.3f}x the work")
 
 
-def train_steps(cs, dev, d: int, reps: int) -> None:
-    """TREE's fp32 CFM step of its `[d128]` (d = 128) or `[d256]` (d = 256)
-    DiT at dropout 0.1 (`--train-step`), ``reps`` times."""
+def train_steps(cs, dev, d: int, reps: int, dname: str = "fp32") -> None:
+    """TREE's fp32 (or bf16) CFM step of its `[d128]` (d = 128) or `[d256]`
+    (d = 256) DiT at dropout 0.1 (`--train-step`), ``reps`` times."""
     import tempfile
+
+    import torch
 
     heads = {128: cs.D128_HEADS, 256: cs.D256_HEADS}[d]
     with tempfile.TemporaryDirectory() as tmp:
         cfg, _ = cs.head_dim_config(Path(tmp), heads, d, f"[d{d}]")
-    tols = {"loss": cs.D128_FP32_LOSS_TOL, "gradient L2": cs.FP32_STEP_GRAD_TOL,
-            "q/k/v gradient L2": cs.FP32_STEP_GRAD_TOL}
+    if dname == "fp32":
+        variant = (None, "fp32", 0.1, {"loss": cs.D128_FP32_LOSS_TOL,
+                                       "gradient L2": cs.FP32_STEP_GRAD_TOL,
+                                       "q/k/v gradient L2": cs.FP32_STEP_GRAD_TOL}, "keys")
+    else:
+        variant = (torch.bfloat16, "bf16", 0.1, {"loss": cs.D128_LOSS_TOL,
+                                                 "gradient L2": cs.D128_GRAD_TOL,
+                                                 "q/k/v gradient L2": cs.QKV_GRAD_TOL}, "keys")
     for rep in range(reps):
-        cs.train_at(dev, cfg.arch, f"[d{d} step {rep}]", ((None, "fp32", 0.1, tols, "keys"),))
+        cs.train_at(dev, cfg.arch, f"[d{d} step {rep}]", (variant,))
+
+
+def loss_seeds(cs, dev, d: int, seeds: int) -> None:
+    """The smoke's bf16 CFM-loss check at head dim ``d``, dropout 0.1
+    (`--loss-seeds`): `chip_smoke.train_at`'s DiT and loss batch, the batch
+    seed stepped from the smoke's own, each seed's readings logged by
+    `hold_loss_against_plain` with no limit held; then the largest loss
+    error and the smallest control."""
+    import dataclasses
+    import re
+    import tempfile
+
+    import torch
+
+    from eraxvif5tts_tpu_torch.models.cfm import CFM
+    from eraxvif5tts_tpu_torch.models.dit import DiT
+
+    heads = {128: cs.D128_HEADS, 256: cs.D256_HEADS}[d]
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg, _ = cs.head_dim_config(Path(tmp), heads, d, f"[d{d}]")
+    arch = dataclasses.replace(cfg.arch, dropout=0.1, checkpoint_activations=True,
+                               remat_policy="full")
+    dit = DiT(arch, text_num_embeds=len(cs.VOCAB_CHARS), mel_dim=100,
+              compute_dtype=torch.bfloat16).to(dev)
+    cs.randomize((dit,), cs.SEED)
+    cfm = CFM(dit.train())
+    lines, log = [], cs.log
+    cs.log = lambda *a: (lines.append(" ".join(map(str, a))), log(*a))
+    try:
+        for i in range(seeds):
+            mel, text, lens, draws = cs.loss_batch(dev, cs.SEED + 180 + i, arch.depth)
+            cs.hold_loss_against_plain(
+                f"[d{d} loss seed {cs.SEED + 180 + i}] bf16 CFM.loss b=2 n={mel.shape[1]} "
+                "dropout 0.1", dit, lambda draws: cfm.loss(mel, text, lens, draws)[0], draws, {})
+    finally:
+        cs.log = log
+    got = [re.search(r"loss ([0-9.e+-]+) \(logged\) / ([0-9.e+-]+)", line) for line in lines]
+    err, ctl = [float(m[1]) for m in got if m], [float(m[2]) for m in got if m]
+    cs.log(f"[d{d}] bf16 CFM.loss at dropout 0.1 over {len(err)} seeds: errors "
+           + ", ".join(f"{e:.3g}" for e in err) + f" (largest {max(err):.3g}); wrong-keys "
+           "controls " + ", ".join(f"{c:.3g}" for c in ctl) + f" (smallest {min(ctl):.3g})")
+
+
+def span_ms(fn, calls: int = 100, spans: int = 7) -> float:
+    """The median over ``spans`` CUDA-event spans of ``calls`` calls of ``fn``
+    back to back, over ``calls``: the card's time a call once the host runs
+    ahead of it (one call timed alone also counts the launch's own latency)."""
+    import statistics
+
+    import torch
+
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(spans):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def bf16_launch(lib, entry: str, outputs: int, q, k, v, lens, *rest) -> list:
+    """``outputs`` [b, n, h, d] bf16 tensors from a bf16 training entry point of
+    ``lib`` (`erax_train_attention_fwd`: O and the LSE; `_dq`; `_dkv`),
+    uncounted; ``rest`` the backward's (lse, dd, dout) then (rate, seed)."""
+    import torch
+
+    from eraxvif5tts_tpu_torch.ops import _cuda
+    from eraxvif5tts_tpu_torch.ops import train_attention as ta
+
+    b, n, h, d = q.shape
+    fn = getattr(lib, entry)
+    *tensors, rate, seed = rest
+    if entry == "erax_train_attention_fwd":
+        out = [torch.empty_like(q), torch.empty((b, h, n), device=q.device)]
+        ptrs = [t.data_ptr() for t in (q, k, v, lens, *out)]
+    else:
+        lse, dd, dout = tensors
+        out = [torch.empty_like(q) for _ in range(outputs)]
+        ptrs = [t.data_ptr() for t in (q, k, v, dout, lse, dd, lens, *out)]
+    _cuda.check(fn(*ptrs, b, n, h, d, 1.0 / d ** 0.5, *ta._dropout_args(rate, seed),
+                   _cuda.stream_ptr(q.device)), entry)
+    return out
+
+
+def bf16_serve(lib, q, k, v, lens, tables):
+    """Kernel 1 bf16 from ``lib``'s entry point, uncounted; ``tables`` the
+    (cos, sin) of `rope_tables`, or None without rotary."""
+    import torch
+
+    from eraxvif5tts_tpu_torch.ops import _cuda
+
+    b, n, h, d = q.shape
+    out = torch.empty_like(q)
+    cos, sin = tables if tables is not None else (None, None)
+    _cuda.check(lib.erax_serving_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
+        None if cos is None else cos.data_ptr(), None if sin is None else sin.data_ptr(),
+        out.data_ptr(), b, n, h, d, int(tables is not None), 1.0 / d ** 0.5,
+        _cuda.stream_ptr(q.device)), "erax_serving_attention")
+    return out
+
+
+def wide_bf16(cs, dev, g, other: str | None, d: int, digests: bool = True) -> None:
+    """The bf16 forward core at head dim ``d`` (`--head-dim` without
+    `--fp32`): both builds' ptxas reports, the digests at every head dim
+    (unless ``digests`` is false: `--no-digests`), then kernel 4a and kernel
+    1 at d in turns beside SDPA's flash backend."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from eraxvif5tts_tpu_torch.ops import _cuda
+    from eraxvif5tts_tpu_torch.ops import serving_attention as sa
+    from eraxvif5tts_tpu_torch.ops import train_attention as ta
+    from eraxvif5tts_tpu_torch.ops.rotary import rotary_freqs
+
+    if d not in (64, 128, 256):
+        raise ValueError(f"--head-dim takes 64, 128 or 256, got {d}")
+    builds = {"tree": _cuda.kernels()}
+    if other is not None:
+        builds["other"] = other_kernels(Path(other).resolve())
+    for who, built in builds.items():
+        for dim in (64, 128, 256):
+            for line in cs.forward_build_notes(built.log, dim):
+                cs.log(f"bf16 forward d={dim}, {who.upper()}'s build: {line}")
+    libs = {who: built.lib for who, built in builds.items()}
+    names = ("O", "LSE", "dq", "dk", "dv")
+
+    def grads(lib, q, k, v, dout, lens, rate):
+        out, lse = bf16_launch(lib, "erax_train_attention_fwd", 2, q, k, v, lens, rate, 77)
+        dd = ta.row_dot(dout, out)
+        rest = (lse, dd, dout, rate, 77)
+        return [out, lse, *bf16_launch(lib, "erax_train_attention_dq", 1, q, k, v, lens, *rest),
+                *bf16_launch(lib, "erax_train_attention_dkv", 2, q, k, v, lens, *rest)]
+
+    for dim in (64, 128, 256) if digests else ():
+        for b, n, lens_list in ((2, 4096, [4096, 4059]), (3, 192, [192, 0, 155])):
+            q, k, v, dout = (torch.randn((b, n, 1024 // dim, dim), generator=g,
+                                         device=dev).bfloat16() for _ in range(4))
+            lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
+            for rate in (0.1, 0.0):
+                got = grads(libs["tree"], q, k, v, dout, lens, rate)
+                args = [t.clone().requires_grad_() for t in (q, k, v)]
+                ref = ta.train_attention_reference(*args, lens, rate, 77)
+                want = [ref.detach(), cs.plain_lse(q, k, lens),
+                        *torch.autograd.grad(ref, args, dout)]
+                err = {name: float((x.float() - w.float()).norm() / w.float().norm())
+                       for name, x, w in zip(names, got, want)}
+                line = (f"bf16 digests d={dim} b={b} n={n} lens {lens_list} dropout {rate}: "
+                        + ", ".join(f"{name} {digest(t)}" for name, t in zip(names, got))
+                        + "; relative L2 against plain "
+                        + ", ".join(f"{k_} {e:.3g}" for k_, e in err.items()))
+                if "other" in libs:
+                    theirs = grads(libs["other"], q, k, v, dout, lens, rate)
+                    line += "; against OTHER's: max |diff| " + ", ".join(
+                        f"{name} {float((x.float() - y.float()).abs().max()):.3g}"
+                        for name, x, y in zip(names, got, theirs))
+                cs.log(line)
+                del got, want, ref, args
+            del q, k, v, dout
+    order = ("other", "tree", "tree", "other") if "other" in libs else ("tree",)
+    h = 1024 // d
+    cases = [("train", n, [n, n - 37], rate) for n in (4096, 6144) for rate in (0.0, 0.1)]
+    cases += [("serve", n, lens_list, roped) for n, lens_list in ((1088, [1051, 0]),
+                                                                  (4096, [4096, 4059]))
+              for roped in ((False,) if d == 256 else (True, False))]
+    for role, n, lens_list, arg in cases:
+        q, k, v = (torch.randn((2, n, h, d), generator=g, device=dev).bfloat16()
+                   for _ in range(3))
+        lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        nbytes, ops = cs.attention_work(2, n, h, d, lens_list, role == "serve" and arg, 2)
+        if role == "serve":
+            tables = sa.rope_tables(rotary_freqs(n, d, device=dev)) if arg else None
+            rope = rotary_freqs(n, d, device=dev) if arg else None
+
+            def run(lib):
+                return [bf16_serve(lib, q, k, v, lens, tables)]
+
+            want = [sa.serving_attention_reference(q, k, v, lens, rope)]
+            if arg:  # SDPA on q and k rotated outside it
+                qt, kt = (sa._rotate(t, rope).transpose(1, 2) for t in (q, k))
+            name = f"kernel 1 bf16 d={d} h={h} n={n} lens {lens_list} " + (
+                "rotary" if arg else "rope=None")
+        else:
+            def run(lib):
+                return bf16_launch(lib, "erax_train_attention_fwd", 2, q, k, v, lens, arg, 77)
+
+            want = [ta.train_attention_reference(q, k, v, lens, arg, 77),
+                    cs.plain_lse(q, k, lens)]
+            name = f"kernel 4a bf16 d={d} h={h} n={n} lens {lens_list} dropout {arg}"
+
+        # as `chip_smoke.time_train_attention` gives it: heads second, views
+        # that take a gradient, the dispatcher's backend; and its flash backend
+        lib_args = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+        backend = SDPBackend(torch._fused_sdp_choice(*lib_args)).name
+
+        def sdpa():
+            return F.scaled_dot_product_attention(*lib_args)
+
+        def sdpa_flash():
+            with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+                return F.scaled_dot_product_attention(*lib_args)
+
+        mine = run(libs["tree"])
+        err = [float(((mine[0].float() - want[0].float()).abs()
+                      / (1 + want[0].float().abs())).max())]
+        if len(mine) > 1:
+            err.append(float((mine[1] - want[1]).abs().max()))
+        line = f"{name}: TREE against plain " + ", ".join(
+            f"{k_} {e:.3g}" for k_, e in zip(("O", "LSE"), err))
+        if "other" in libs:
+            theirs = run(libs["other"])
+            line += "; TREE against OTHER " + ", ".join(
+                f"{k_} max |diff| {float((x.float() - y.float()).abs().max()):.3g}"
+                for k_, x, y in zip(("O", "LSE"), mine, theirs))
+        ms = {who: [] for who in libs}
+        lib_ms, flash_ms = [], []
+        for who in order:
+            lib = libs[who]
+            ms[who].append(span_ms(lambda: run(lib)))
+            lib_ms.append(span_ms(sdpa))
+            flash_ms.append(span_ms(sdpa_flash))
+        least = cs.bound(nbytes, ops)["bound_ms"]
+        best = min(ms["tree"])
+        line += (f"; TREE " + " / ".join(f"{t:.4f}" for t in ms["tree"]) + f" ms (bound "
+                 f"{least:.5f} ms, {least / best:.1%}); SDPA ({backend}) "
+                 + " / ".join(f"{t:.4f}" for t in lib_ms)
+                 + f" ms (TREE {best / min(lib_ms):.3f}x its time); SDPA's flash backend "
+                 + " / ".join(f"{t:.4f}" for t in flash_ms)
+                 + f" ms (TREE {best / min(flash_ms):.3f}x)")
+        if "other" in ms:
+            line += (f"; OTHER " + " / ".join(f"{t:.4f}" for t in ms["other"])
+                     + f" ms (OTHER, TREE, TREE, OTHER: TREE {best / min(ms['other']):.3f}x "
+                     "OTHER's time)")
+        cs.log(line)
+        del q, k, v, qt, kt, vt, mine, want, lib_args
 
 
 def wide_backward(cs, dev, g, libs: dict, order: tuple, d: int) -> None:

@@ -1355,6 +1355,47 @@ def test_train_attention_d128_kernels_match_plain(cuda, no_tf32, n, dtype, dropo
             assert float((got - want).abs().max() / want.abs().max()) < 5e-5
 
 
+@pytest.mark.parametrize("d, mode", [(128, "4a"), (128, "4a dropout"), (128, "1"),
+                                     (128, "1 rotary"), (256, "4a"), (256, "4a dropout"),
+                                     (256, "1")])
+@pytest.mark.parametrize("n", [1088, 4160])
+def test_forward_core_wide_key_tiles_match_plain(cuda, n, d, mode):
+    """The forward core at d = 128 (128-key tiles: at n = 1088 and 4160, odd
+    multiples of 64, the last hangs 64 keys over n and TMA fills them with
+    zeros, which must count as no key) and d = 256, beside a sample with no
+    valid key (every key below n averaged, the LSE log n): kernel 4a (O and
+    LSE, keep = 1 and dropout 0.1) and kernel 1 (with fused rotary at d =
+    128 and without) against their plain versions within TOL (the LSE within
+    1e-4; kernel 1's sample with no valid key within 1e-2 relative L2 of the
+    mean of V over the n keys), a second call bit-identical."""
+    g = torch.Generator(device=cuda).manual_seed(n + d)
+    h = 1024 // d
+    q, k, v = (torch.randn((2, n, h, d), generator=g, device=cuda).bfloat16()
+               for _ in range(3))
+    lens = torch.tensor([n - 37, 0], dtype=torch.int32, device=cuda)
+    if mode.startswith("4a"):
+        rate = 0.1 if "dropout" in mode else 0.0
+        out, lse = ta.flash_forward(q, k, v, lens, rate, 0xC0FFEE)
+        _assert_close(out, ta.train_attention_reference(q, k, v, lens, rate, 0xC0FFEE))
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(d)
+        valid = torch.arange(n, device=cuda)[None, :] < lens[:, None]
+        want = torch.logsumexp(s.masked_fill(~valid[:, None, None, :], -1e30), dim=-1)
+        want[1] = math.log(n)
+        assert float((lse - want).abs().max()) <= 1e-4
+        again = ta.flash_forward(q, k, v, lens, rate, 0xC0FFEE)
+        assert torch.equal(again[0], out) and torch.equal(again[1], lse)
+    else:
+        rope = rotary_freqs(n, d, device=cuda) if "rotary" in mode else None
+        got = sa.serving_attention(q, k, v, lens, rope)
+        _assert_close(got, sa.serving_attention_reference(q, k, v, lens, rope))
+        # the sample with no valid key is the mean of V over the n keys: one
+        # over n + 64 (the zero rows counted) is 64 / (n + 64) off, 5.6 % at
+        # n = 1088 and 1.5 % at 4160, beyond this limit (bf16 rounding: ~0.2 %)
+        mean = v[1].float().mean(dim=0).expand(n, h, d)
+        assert float((got[1].float() - mean).norm() / mean.norm()) < 1e-2
+        assert torch.equal(got, sa.serving_attention(q, k, v, lens, rope))
+
+
 # ---- head dim 256: kernel 6's roles ------------------------------------------------
 
 

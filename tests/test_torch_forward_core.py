@@ -10,15 +10,24 @@ and its panels), the swizzled tile map through which the kernel rotates a
 tile in place (a bijection that keeps every interleaved pair together), the
 rotating threads' cover of a tile, and the cache of cos / sin tables in the
 serving wrapper (one pair per angle table, the same output as without it,
-the CPU path untouched). The kernels themselves run on the card
-(`tests/test_torch_cuda.py`, `chip_smoke.py`).
+the CPU path untouched). The key tiles the core walks (128 keys at d = 128,
+64 at d = 64 and 256: the last may hang over n and is the only one whose
+keys are tested) are stated by `forward_key_tiles`; its schedule, an online
+softmax over those tiles in float64 with a sample's logits at scale 0 where
+it has no valid key, is held to the JAX package's dense attention. The
+kernels themselves run on the card (`tests/test_torch_cuda.py`,
+`chip_smoke.py`).
 """
 
 import contextlib
+import math
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+from eraxvif5tts_tpu.ops import train_attention as jta
 
 from eraxvif5tts_tpu_torch.ops import serving_attention as sa
 from eraxvif5tts_tpu_torch.ops import train_attention as tta
@@ -32,6 +41,16 @@ def test_forward_geometry_covers_every_row_once_within_the_card(n, d):
     geo = tta.forward_geometry(b, n, h, d)
     rows = {64: 192, 128: 128}[d]
     per_block = rows // 64  # consumer warpgroups a block
+    # K / V tiles of 64 keys at d = 64, 128 at d = 128: a full sample walks
+    # every key once, the last tile hanging over n by n % 128 there, and that
+    # tile alone tests its keys
+    keys = {64: 64, 128: 128}[d]
+    assert geo["key_tile"] == keys and geo["overlap"] == (d == 128)
+    tiles = tta.forward_key_tiles(n, n, d)
+    assert [(first, size) for first, size, _ in tiles] == [(k, keys) for k in range(0, n, keys)]
+    assert tiles[-1][0] + keys - n == -n % keys
+    assert [masked for _, _, masked in tiles] == [False] * (len(tiles) - 1) + [True]
+    assert tta.forward_key_tiles(n, 0, d) == tiles  # no valid key: every key below n
     assert geo["grid"] == (len(geo["warpgroups"]), h, b) == (-(-n // rows), h, b)
     assert geo["threads"] == 128 * (geo["rows"] // geo["tile"] + 1)
     # setmaxnreg: the producer's warpgroup and the consumers' within what the
@@ -63,14 +82,17 @@ def test_forward_geometry_covers_every_row_once_within_the_card(n, d):
     assert tm == tta.backward_geometry(b, n, h, d)["tensor_map"]
 
 
-@pytest.mark.parametrize("d, shared, own, ring", [(64, 91248, 24576, 65536),
-                                                  (128, 164976, 32768, 131072)])
+@pytest.mark.parametrize("d, shared, own, ring", [(64, 91312, 24576, 65536),
+                                                  (128, 230536, 32768, 196608)])
 def test_forward_geometry_shared_bytes_add_up(d, shared, own, ring):
     geo = tta.forward_geometry(1, 4096, 16, d)
     tile = geo["tile"] * d * 2
     assert (geo["rows"] // geo["tile"]) * tile == own   # the block's Q tiles
-    assert geo["stages"] * 2 * tile == ring              # a K and a V tile a stage
-    barriers = 8 * (3 * geo["stages"] + 2)              # full, empty, ready; q, q_ready
+    # a K and a V tile of key_tile keys a stage (at d = 128 three stages of
+    # [128, 128] tiles, each panel 128 rows: two TMA boxes)
+    assert geo["stages"] * 2 * geo["key_tile"] * d * 2 == ring
+    # full and empty for K and for V apart, K's rotated one; q, q_ready
+    barriers = 8 * (5 * geo["stages"] + 2)
     assert geo["shared_bytes"] == 1024 + own + ring + barriers == shared
     # every tile (and each of its panels) starts on a 1024-byte boundary
     # (eight rows: one swizzle atom)
@@ -275,3 +297,86 @@ def test_cpu_path_takes_the_plain_version_and_no_cache():
     assert torch.equal(x32 * cos[None, :, None, :] + rot * sin[None, :, None, :],
                        sa._rotate(q, rope))
     sa._TABLES.clear()
+
+
+def _walk_key_tiles(q, k, v, length, d):
+    """The forward core's walk for one head of one sample, in float64:
+    ``forward_key_tiles``' tiles of K and V (rows past n read as zeros, as
+    TMA fills a tile that hangs over n), an online softmax with base-2
+    exponentials and the scale folded into the exponent (0 for a sample with
+    no valid key, whose every logit is then 0), a masked tile's keys at or
+    past the limit at -1e30 with weight 0; returns (O, LSE)."""
+    n = q.shape[0]
+    scale = 1.0 / math.sqrt(d)
+    c = scale * math.log2(math.e) if length > 0 else 0.0
+    lim = min(length, n) if length > 0 else n
+    m = np.full(n, -1e30)
+    l = np.zeros(n)
+    o = np.zeros((n, d))
+    for first, keys, masked in tta.forward_key_tiles(n, length, d):
+        kt, vt = np.zeros((keys, d)), np.zeros((keys, d))
+        inside = min(keys, n - first)
+        kt[:inside], vt[:inside] = k[first:first + inside], v[first:first + inside]
+        s = q @ kt.T
+        valid = np.arange(first, first + keys) < lim
+        if masked:
+            s = np.where(valid[None], s, -1e30)
+        m_new = np.maximum(m, s.max(axis=1))
+        corr = np.exp2((m - m_new) * c)
+        p = np.exp2(s * c - (m_new * c)[:, None])
+        if masked:
+            p = np.where(valid[None], p, 0.0)
+        l = l * corr + p.sum(axis=1)
+        o = o * corr[:, None] + p @ vt
+        m = m_new
+    return o / l[:, None], m * c * math.log(2.0) + np.log(l)
+
+
+@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("n", [192, 320])
+def test_forward_key_tile_schedule_in_float64_is_the_jax_attention(n, d):
+    """The key-tile schedule of the forward core at d = 128 (128-key tiles:
+    n = 192 and 320 end half-way through the last, which hangs 64 keys over
+    n) and d = 256 (64-key tiles), walked in float64 (`_walk_key_tiles`) for
+    samples whose keys end inside a tile, stop in the first tile, fill the
+    sample, and have none, against the JAX package's dense attention
+    (`dense_reference`, fp32 on the CPU) within 1e-5 of the output's scale,
+    and its LSE against the log sum exp of the masked logits (log n for a
+    sample with no valid key) within 1e-12."""
+    h = 2
+    lens = [n - 37, 70, n, 0]
+    rng = np.random.default_rng(n + d)
+    q, k, v = (rng.standard_normal((len(lens), n, h, d)) for _ in range(3))
+    valid = np.arange(n)[None] < np.array(lens)[:, None]
+    want = np.asarray(jta.dense_reference(*(jnp.asarray(x, jnp.float32) for x in (q, k, v)),
+                                          key_valid=jnp.asarray(valid)), np.float64)
+    for bi, length in enumerate(lens):
+        for hi in range(h):
+            out, lse = _walk_key_tiles(q[bi, :, hi], k[bi, :, hi], v[bi, :, hi], length, d)
+            np.testing.assert_allclose(out, want[bi, :, hi], rtol=0,
+                                       atol=1e-5 * np.abs(want).max())
+            s = q[bi, :, hi] @ k[bi, :, hi].T / math.sqrt(d)
+            if length > 0:
+                s = s[:, :length]
+            else:
+                s = np.zeros_like(s)  # every key, logit 0: log n
+            top = s.max(axis=1)
+            exact = top + np.log(np.exp(s - top[:, None]).sum(axis=1))
+            np.testing.assert_allclose(lse, exact, rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("keep", [0.9, 0.5, 1e-4, 1.0])
+def test_keep_bit_compare_without_the_last_shift_is_exact(keep):
+    """`csrc/dropout_hash.cuh` `keep_bit_folded` tests the murmur3
+    finaliser's last step y = x ^ (x >> 16) against the threshold as
+    (x ^ (threshold >> 16)) < threshold: y keeps x's high half, so the two
+    compares differ only where that half equals the threshold's, and there
+    both low halves are x's xor the same 16 bits. Every x whose high half is
+    the threshold's, and a seeded million others, give the same bit as
+    `fmix32` then the compare."""
+    threshold = tta.keep_threshold(keep)
+    rng = np.random.default_rng(int(keep * 1e4))
+    x = np.concatenate([rng.integers(0, 2**32, 1_000_000, dtype=np.uint64),
+                        (threshold >> 16 << 16) + np.arange(2**16, dtype=np.uint64)])
+    want = (x ^ (x >> 16)) < threshold
+    np.testing.assert_array_equal((x ^ (threshold >> 16)) < threshold, want)

@@ -234,7 +234,7 @@ def test_d256_geometry_covers_every_row_once_within_the_card(n):
 def test_d256_shared_bytes_add_up():
     tile = 64 * D * 2  # a [64, 256] bf16 tile: four 128-byte-swizzled panels
     assert tta.forward_geometry(1, 4096, 4, D)["shared_bytes"] == \
-        1024 + 2 * tile + 2 * 2 * tile + 8 * (3 * 2 + 2) == 197696
+        1024 + 2 * tile + 2 * 2 * tile + 8 * (5 * 2 + 2) == 197728
     assert tta.backward_geometry(1, 4096, 4, D)["shared_bytes"] == \
         1024 + 2 * tile + 2 * (2 * tile + 2 * 64 * 4) + 8 * (2 * 2 + 1) == 198696
     row = (D + 4) * 4  # a padded fp32 row
